@@ -1,0 +1,1 @@
+"""Data-side helpers (counterpart of ``photon_ml_tpu/data``)."""

@@ -1,0 +1,147 @@
+"""photon_ml_tpu_torch stands alone: it imports neither JAX nor the JAX
+package, and its entry points run on the card unless asked for the CPU.
+
+The package's name starts with ``photon_ml_tpu``, so every check matches the
+JAX package's module name exactly (``photon_ml_tpu`` or ``photon_ml_tpu.*``),
+never as a prefix.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "photon_ml_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "photon_ml_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG):
+        out.extend(os.path.join(root, f) for f in files if f.endswith(".py"))
+    return sorted(out)
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def test_forbidden_matches_exact_module_names_only():
+    assert _forbidden("photon_ml_tpu")
+    assert _forbidden("photon_ml_tpu.ops.tiled")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("photon_ml_tpu_torch")
+    assert not _forbidden("photon_ml_tpu_torch.ops")
+    assert not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_import_in_source(path):
+    bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    """A fresh interpreter: importing every module of the package adds no
+    ``jax`` / ``photon_ml_tpu`` module to ``sys.modules``."""
+    modules = []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)
+        if rel == "chip_smoke.py":
+            modules.append("chip_smoke")
+            continue
+        mod = rel[:-3].replace(os.sep, ".")
+        modules.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
+    code = (
+        "import importlib, json, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(set(sys.modules) - before)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    added = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "photon_ml_tpu_torch.training" in added
+    assert [m for m in added if _forbidden(m)] == []
+
+
+def _no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid here")
+
+
+def _tiny_coo():
+    return dict(values=np.ones(3), rows=np.array([0, 1, 2]), cols=np.array([0, 1, 0]),
+                labels=np.array([0.0, 1.0, 1.0]), num_features=2)
+
+
+def test_train_glm_without_device_raises_without_a_gpu():
+    _no_gpu()
+    from photon_ml_tpu_torch import train_glm
+    from photon_ml_tpu_torch.ops.csr import CSRBatch
+    from photon_ml_tpu_torch.optim.factory import OptimizerConfig
+
+    batch = CSRBatch.from_coo(**_tiny_coo(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_glm(batch, "logistic", [1.0], OptimizerConfig(max_iterations=2))
+
+
+@pytest.mark.parametrize("builder", ["csr", "sparse", "model", "normalization"])
+def test_builders_without_device_raise_without_a_gpu(builder):
+    _no_gpu()
+    from photon_ml_tpu_torch import convert
+    from photon_ml_tpu_torch.ops.csr import CSRBatch
+    from photon_ml_tpu_torch.ops.sparse import SparseBatch
+
+    calls = {
+        "csr": lambda: CSRBatch.from_coo(**_tiny_coo()),
+        "sparse": lambda: SparseBatch.from_coo(**_tiny_coo()),
+        "model": lambda: convert.model_from_jax("logistic", np.zeros(2)),
+        "normalization": lambda: convert.normalization_from_jax(np.ones(2), None, None),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[builder]()
+
+
+def test_resolve_device():
+    from photon_ml_tpu_torch.device import check_on, resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    with pytest.raises(ValueError, match="same device"):
+        check_on(torch.device("cpu"), torch.zeros(1, device="meta"))
+    check_on(torch.device("cpu"), torch.zeros(1), None)
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Without a CUDA device the script exits non-zero and prints no result;
+    alone in a directory it cannot find the package either."""
+    _no_gpu()
+    for cwd, script in ((REPO, "chip_smoke.py"), (str(tmp_path), "chip_smoke.py")):
+        if cwd != REPO:
+            with open(os.path.join(REPO, "chip_smoke.py")) as src:
+                (tmp_path / "chip_smoke.py").write_text(src.read())
+        proc = subprocess.run([sys.executable, script], cwd=cwd, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
