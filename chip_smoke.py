@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive photon_ml_tpu_torch's GLM training path once on one NVIDIA card.
+"""Drive photon_ml_tpu_torch's GLM training paths once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--profile] [--json-out PATH]
 
@@ -10,20 +10,29 @@ Phases, in order; any failure exits non-zero before the last line:
      (into ``build/kernels/``);
   3. at full width (1M rows x 10K features x 20 nnz/row, bench.py config #1's
      data from ``--seed``) hold each kernel against its plain PyTorch version
-     on the card, and time kernel, plain version and the library yardstick
-     (``torch.mv`` of a sparse CSR matrix, never used by the port);
+     on the card (and each fused kernel against itself: two launches must
+     agree bit for bit), and time kernel, plain version and the library
+     yardstick where one PyTorch call computes the same function (never
+     used by the port);
   4. train at a reduced size (64K x 2K) on the card and on the CPU (plain
-     versions): same convergence reason, final loss within rtol 1e-4;
-  5. the main path: ``train_glm`` at full width, logistic, lambdas [10, 1],
-     LBFGS 20 iterations at tolerance 0, with variances. The kernels' launch
-     counts are zeroed just before it and read just after; a kernel of the
-     path that did not launch fails the run;
+     versions) with LBFGS, TRON, OWLQN and box-constrained Poisson LBFGS:
+     same convergence reason and iteration count, final loss within rtol 1e-4;
+  5. the paths, each through ``train_glm`` at full width, with the kernels'
+     launch counts zeroed just before it and read just after (a kernel of
+     the path that did not launch fails the run):
+       5.  bench.py config #1: logistic, lambdas [10, 1], LBFGS 20
+           iterations at tolerance 0, with variances;
+       5b. bench_suite.py config #2: squared, TRON, L2 1, 10 iterations;
+       5c. its elastic-net half: OWLQN, l1 = l2 = 0.5, 20 iterations;
+       5d. config #3: Poisson with offsets, L2 1, box [-0.5, 0.5], LBFGS 20
+           iterations;
+       5e. TRON with the box [-0.5, 0.5] on config #2's data, 3 iterations;
   6. print the ``kernels`` JSON line, the card again, and the result line
      ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result. ``--profile`` adds a torch.profiler window
-over one extra solve and prints the device-busy share.
+over one extra solve of each path and prints its device-busy share.
 """
 
 from __future__ import annotations
@@ -72,6 +81,23 @@ def make_problem(seed: int, n_rows: int, n_features: int, nnz_per_row: int):
     return values, rows, cols, y
 
 
+def make_suite_problem(rng, n_rows: int, n_features: int, nnz_per_row: int, kind: str):
+    """bench_suite.py's ``_sparse_problem`` (configs #2 and #3): the same draws
+    in the same order; "linear" labels are the planted margins plus noise,
+    "poisson" labels are counts with exposure offsets."""
+    nnz = n_rows * nnz_per_row
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), nnz_per_row)
+    cols = rng.integers(0, n_features, size=nnz)
+    values = rng.normal(size=nnz)
+    w_true = rng.normal(size=n_features) * 0.5
+    margins = np.bincount(rows, weights=values * w_true[cols], minlength=n_rows)
+    if kind == "linear":
+        return values, rows, cols, margins + 0.1 * rng.normal(size=n_rows), None
+    offsets = rng.normal(size=n_rows) * 0.3
+    y = rng.poisson(np.exp(np.clip(0.2 * margins + offsets, -4, 4))).astype(np.float64)
+    return values, rows, cols, y, offsets
+
+
 def device_ms(fn, reps: int = 30) -> float:
     """Median device time of one call, by CUDA events. A sleep kernel ahead of
     each start event keeps the host's launch cost out of the window."""
@@ -107,24 +133,71 @@ def compare(name: str, got, want) -> tuple[float, float]:
     return abs_err, rel_err
 
 
-def library_ms(make_matrix, vec) -> float | None:
-    """Time of torch.mv on a sparse CSR matrix (the yardstick; unused by the
-    port). None when this build of torch cannot run it."""
+def library_ms(make_matrix, op) -> float | None:
+    """Time of one PyTorch sparse call ``op(matrix)`` (the yardstick; unused by
+    the port). None when this build of torch cannot run it."""
     import torch
 
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)  # "sparse CSR is in beta"
             mat = make_matrix()
-        torch.mv(mat, vec)
+            op(mat)
     except (RuntimeError, NotImplementedError) as exc:
         print(f"library yardstick unavailable: {exc}", flush=True)
         return None
-    return device_ms(lambda: torch.mv(mat, vec))
+    return device_ms(lambda: op(mat))
+
+
+def kernel_row(name, source, replaces, worst, timed, label, nbytes, flops,
+               lib_ms, **extra) -> dict:
+    """One row of the ``kernels`` line: times measured here, bound computed
+    from this run's shapes (bytes over HBM rate vs flops over f32 peak)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": timed[label][0],
+        "plain_ms": timed[label][1],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+        "timed_variant": label,
+        "variants_ms": {k: v[0] for k, v in timed.items()},
+        **extra,
+    }
+
+
+def run_variants(name: str, cases, deterministic: bool) -> tuple[float, dict]:
+    """Hold each variant's kernel against its plain version (and, with
+    ``deterministic``, against a second launch bit for bit), then time both.
+    Returns (worst abs error, {label: (kernel ms, plain ms)})."""
+    import torch
+
+    worst, timed = 0.0, {}
+    for label, run_kernel, run_plain in cases:
+        got, want = run_kernel(), run_plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        again = run_kernel() if deterministic else got
+        for i, (g, a, e) in enumerate(zip(got, again, want)):
+            abs_err, _ = compare(f"{name}[{label}][{i}]", g, e)
+            worst = max(worst, abs_err)
+            if not torch.equal(g, a):
+                raise RuntimeError(f"{name}[{label}][{i}]: two launches disagree")
+        timed[label] = (device_ms(run_kernel), device_ms(run_plain))
+        print(f"time {name}[{label}]: kernel_ms={timed[label][0]:.4f} "
+              f"plain_ms={timed[label][1]:.4f}", flush=True)
+    return worst, timed
 
 
 def check_kernels(batch, w, per_row, d2_row) -> list[dict]:
-    """Phase 3: every kernel variant of the path against its plain version."""
+    """Phase 3, the margins and scatter kernels: every variant of the path
+    against its plain version."""
     import torch
 
     from photon_ml_tpu_torch import kernels
@@ -154,157 +227,250 @@ def check_kernels(batch, w, per_row, d2_row) -> list[dict]:
     # iteration launches (dot_rows for the gather, the plain scatter)
     margin_bytes = 4 * ((n + 1) + 2 * nnz + f + n)
     scatter_bytes = 4 * ((f + 1) + 2 * nnz + n + f)
-    bounds = {
-        "csr_margins": (margin_bytes, 2 * nnz),
-        "csc_scatter": (scatter_bytes, 2 * nnz),
-    }
-    lib = {
-        "csr_margins": library_ms(
-            lambda: torch.sparse_csr_tensor(*b_csr, size=(n, f), check_invariants=False), w),
-        "csc_scatter": library_ms(
-            lambda: torch.sparse_csr_tensor(*b_csc, size=(f, n), check_invariants=False),
-            per_row),
-    }
-    sources = {
-        "csr_margins": ("photon_ml_tpu_torch/csrc/margins.cu",
-                        "photon_ml_tpu/ops/tiled.py:170"),
-        "csc_scatter": ("photon_ml_tpu_torch/csrc/scatter.cu",
-                        "photon_ml_tpu/ops/tiled.py:199"),
+    specs = {
+        "csr_margins": ("photon_ml_tpu_torch/csrc/margins.cu", "photon_ml_tpu/ops/tiled.py:170",
+                        "dot_rows", margin_bytes, 2 * nnz,
+                        library_ms(lambda: torch.sparse_csr_tensor(
+                            *b_csr, size=(n, f), check_invariants=False),
+                            lambda m: torch.mv(m, w))),
+        "csc_scatter": ("photon_ml_tpu_torch/csrc/scatter.cu", "photon_ml_tpu/ops/tiled.py:199",
+                        "scatter", scatter_bytes, 2 * nnz,
+                        library_ms(lambda: torch.sparse_csr_tensor(
+                            *b_csc, size=(f, n), check_invariants=False),
+                            lambda m: torch.mv(m, per_row))),
     }
     rows = []
     for name, cases in variants.items():
-        worst = 0.0
-        timed = {}
-        for label, run_kernel, run_plain in cases:
-            abs_err, _ = compare(f"{name}[{label}]", run_kernel(), run_plain())
-            worst = max(worst, abs_err)
-            timed[label] = (device_ms(run_kernel), device_ms(run_plain))
-            print(f"time {name}[{label}]: kernel_ms={timed[label][0]:.4f} "
-                  f"plain_ms={timed[label][1]:.4f}", flush=True)
-        label = "dot_rows" if name == "csr_margins" else "scatter"
-        nbytes, flops = bounds[name]
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        src, replaces = sources[name]
-        rows.append({
-            "name": name,
-            "route": "cuda",
-            "source": src,
-            "replaces": replaces,
-            "launches": 0,
-            "max_abs_err": worst,
-            "ms": timed[label][0],
-            "plain_ms": timed[label][1],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib[name],
-            "timed_variant": label,
-            "variants_ms": {k: v[0] for k, v in timed.items()},
-        })
+        worst, timed = run_variants(name, cases, deterministic=False)
+        src, replaces, label, nbytes, flops, lib = specs[name]
+        rows.append(kernel_row(name, src, replaces, worst, timed, label, nbytes, flops, lib))
     return rows
 
 
-def lbfgs_config(max_iterations: int):
+def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
+    """Phase 3, the fused kernels: the variants the paths run (pair with
+    offsets and both shifts; value_grad for squared, Poisson and logistic;
+    hv for squared and logistic; hv_at), each against its plain version and
+    against a second launch, bit for bit."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.kernels import reference
+
+    n, f, nnz = batch.num_rows, batch.num_features, batch.nnz
+    csr = batch.row_ptr, batch.cols, batch.vals
+    csc = batch.col_ptr, batch.csc_rows, batch.csc_vals
+    rows3 = batch.labels, batch.weights, batch.offsets
+    shift = torch.tensor(0.25, dtype=torch.float32, device=w.device)  # a 0-d device shift
+    v_shift = -0.5  # and a host one
+
+    def vg(loss):
+        return (loss, lambda: kernels.value_grad(csr, csc, *rows3, w, shift, loss),
+                lambda: reference.value_grad(csr, csc, *rows3, w, shift, loss))
+
+    def hv(loss):
+        return (loss, lambda: kernels.hv(csr, csc, *rows3, w, shift, v, v_shift, loss),
+                lambda: reference.hessian_vector(csr, csc, *rows3, w, shift, v, v_shift, loss))
+
+    variants = {
+        "margins_pair": [("pair+offsets+shifts",
+                          lambda: kernels.margins_pair(csr, w, v, batch.offsets, shift, v_shift),
+                          lambda: reference.margins_pair(csr, w, v, batch.offsets, shift,
+                                                         v_shift))],
+        "value_grad": [vg("squared"), vg("poisson"), vg("logistic")],
+        "hv": [hv("squared"), hv("logistic")],
+        "hv_at": [("hv_at", lambda: kernels.hv_at(csr, csc, d2_row, v, v_shift),
+                   lambda: reference.hv_at(csr, csc, d2_row, v, v_shift))],
+    }
+    # Bytes the function must move: the CSR slots once (8 per nonzero),
+    # row_ptr, the per-row inputs and tables, the outputs. The two-layout
+    # design also reads the CSC slots and col_ptr and writes and reads one
+    # per-row vector: its own floor.
+    slots = (n + 1) + 2 * nnz
+    two_layout = (f + 1) + 2 * nnz + 2 * n
+    stacked = torch.stack([w, v], 1)
+    specs = {
+        "margins_pair": ("photon_ml_tpu_torch/csrc/margins_pair.cu",
+                         "photon_ml_tpu/ops/tiled.py:194", "pair+offsets+shifts",
+                         slots + 2 * f + n + 2 * n, 0, 4 * nnz,
+                         library_ms(lambda: torch.sparse_csr_tensor(
+                             *csr, size=(n, f), check_invariants=False),
+                             lambda m: torch.sparse.mm(m, stacked)),
+                         "torch.sparse.mm(X_csr, [w, p]) without offsets and shifts"),
+        "value_grad": ("photon_ml_tpu_torch/csrc/value_grad.cu",
+                       "photon_ml_tpu/ops/tiled.py:219", "squared",
+                       slots + 3 * n + f + f + 2, two_layout, 4 * nnz, None,
+                       "no single PyTorch call computes loss, gradient and sums"),
+        "hv": ("photon_ml_tpu_torch/csrc/hessian_vector.cu",
+               "photon_ml_tpu/ops/tiled.py:251", "squared",
+               slots + 3 * n + 2 * f + f + 1, two_layout, 6 * nnz, None,
+               "no single PyTorch call computes the curvature-weighted X^T D X v"),
+        "hv_at": ("photon_ml_tpu_torch/csrc/hessian_vector.cu",
+                  "photon_ml_tpu/ops/tiled.py:284", "hv_at",
+                  slots + n + f + f + 1, two_layout, 4 * nnz, None,
+                  "X^T (d2 * (X v + s)) takes two sparse products and an elementwise op"),
+    }
+    rows = []
+    for name, cases in variants.items():
+        worst, timed = run_variants(name, cases, deterministic=True)
+        src, replaces, label, words, extra_words, flops, lib, lib_note = specs[name]
+        floor_ms = 4 * (words + extra_words) / PEAK_BYTES_PER_S * 1e3
+        rows.append(kernel_row(name, src, replaces, worst, timed, label, 4 * words, flops,
+                               lib, library_note=lib_note, two_layout_floor_ms=floor_ms))
+    return rows
+
+
+def solver_config(kind: str, max_iterations: int):
+    """LBFGS or TRON with L2, or OWLQN with elastic net at alpha 0.5; tolerance 0."""
     from photon_ml_tpu_torch.optim.factory import (
         OptimizerConfig,
+        OptimizerType,
         RegularizationContext,
         RegularizationType,
     )
 
-    return OptimizerConfig(
-        max_iterations=max_iterations,
-        tolerance=0.0,
-        regularization=RegularizationContext(RegularizationType.L2),
+    if kind == "owlqn":
+        reg = RegularizationContext(RegularizationType.ELASTIC_NET, alpha=0.5)
+    else:
+        reg = RegularizationContext(RegularizationType.L2)
+    opt = OptimizerType.TRON if kind == "tron" else OptimizerType.LBFGS
+    return OptimizerConfig(optimizer_type=opt, max_iterations=max_iterations, tolerance=0.0,
+                           regularization=reg)
+
+
+def box(n_features: int, device, bound: float = 0.5):
+    import torch
+
+    from photon_ml_tpu_torch.optim.common import BoxConstraints
+
+    return BoxConstraints(
+        lower=torch.full((n_features,), -bound, dtype=torch.float32, device=device),
+        upper=torch.full((n_features,), bound, dtype=torch.float32, device=device),
     )
 
 
 def check_small_parity(seed: int) -> None:
-    """Phase 4: the same reduced problem trained on the card and on the CPU."""
+    """Phase 4: the same reduced problems trained on the card and on the CPU.
+    The solves stop after a few iterations, before float32 noise (which the
+    card's and the CPU's summation orders make differently) decides a step."""
     from photon_ml_tpu_torch.ops.csr import CSRBatch
     from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
     from photon_ml_tpu_torch.training import train_glm
 
-    values, rows, cols, y = make_problem(seed + 1, SMALL_ROWS, SMALL_FEATURES, NNZ_PER_ROW)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        batch = CSRBatch.from_coo(values, rows, cols, y, SMALL_FEATURES, device=dev)
-        (entry,) = train_glm(batch, "logistic", [1.0], lbfgs_config(5), device=dev)
-        res = entry.result
-        out[dev] = (res.reason, float(res.value), res.iterations)
-        print(f"small {dev}: iterations={res.iterations} "
-              f"reason={CONVERGENCE_REASON_NAMES[res.reason]} loss={float(res.value):.7g}",
-              flush=True)
-    (r_gpu, f_gpu, _), (r_cpu, f_cpu, _) = out["cuda"], out["cpu"]
-    rel = abs(f_gpu - f_cpu) / abs(f_cpu)
-    print(f"small parity: loss_rel_diff={rel:.3e} limit={LOSS_RTOL:.0e}", flush=True)
-    if r_gpu != r_cpu or not rel <= LOSS_RTOL:
-        raise RuntimeError("reduced-size training on the card disagrees with the CPU")
+    logistic = make_problem(seed + 1, SMALL_ROWS, SMALL_FEATURES, NNZ_PER_ROW) + (None,)
+    rng = np.random.default_rng(seed + 1)
+    linear = make_suite_problem(rng, SMALL_ROWS, SMALL_FEATURES, NNZ_PER_ROW, "linear")
+    poisson = make_suite_problem(rng, SMALL_ROWS, SMALL_FEATURES, NNZ_PER_ROW, "poisson")
+    runs = [
+        ("lbfgs", logistic, "logistic", solver_config("lbfgs", 5), False),
+        ("tron", linear, "squared", solver_config("tron", 3), False),
+        ("owlqn", linear, "squared", solver_config("owlqn", 5), False),
+        ("box_poisson", poisson, "poisson", solver_config("lbfgs", 5), True),
+    ]
+    for name, (values, rows, cols, y, offsets), task, cfg, boxed in runs:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            batch = CSRBatch.from_coo(values, rows, cols, y, SMALL_FEATURES, offsets=offsets,
+                                      device=dev)
+            constraints = box(SMALL_FEATURES, dev) if boxed else None
+            (entry,) = train_glm(batch, task, [1.0], cfg, constraints=constraints, device=dev)
+            res = entry.result
+            out[dev] = (res.reason, float(res.value), res.iterations)
+            print(f"small {name} {dev}: iterations={res.iterations} "
+                  f"reason={CONVERGENCE_REASON_NAMES[res.reason]} loss={float(res.value):.7g}",
+                  flush=True)
+        (r_gpu, f_gpu, i_gpu), (r_cpu, f_cpu, i_cpu) = out["cuda"], out["cpu"]
+        rel = abs(f_gpu - f_cpu) / abs(f_cpu)
+        print(f"small {name} parity: loss_rel_diff={rel:.3e} limit={LOSS_RTOL:.0e}", flush=True)
+        if r_gpu != r_cpu or i_gpu != i_cpu or not rel <= LOSS_RTOL:
+            raise RuntimeError(f"reduced-size {name} training on the card disagrees with the CPU")
 
 
-def train_main_path(batch):
-    """Phase 5: train_glm as a user calls it (device defaults to cuda)."""
+def run_path(label, batch, task, lambdas, cfg, required, constraints=None,
+             compute_variances=False, min_auc=None) -> tuple[dict, dict]:
+    """Phase 5: one path through train_glm as a user calls it (device
+    defaults to cuda), with the launch counts zeroed just before it and read
+    just after. Fails on a bad result or a kernel of ``required`` that did
+    not launch."""
     import torch
 
     from photon_ml_tpu_torch import kernels, telemetry
     from photon_ml_tpu_torch.evaluation.evaluators import auc
+    from photon_ml_tpu_torch.ops.objective import make_objective
     from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
     from photon_ml_tpu_torch.training import train_glm
 
-    cfg = lbfgs_config(20)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     telemetry.reset()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    entries = train_glm(batch, "logistic", [10.0, 1.0], cfg, compute_variances=True)
+    entries = train_glm(batch, task, lambdas, cfg, constraints=constraints,
+                        compute_variances=compute_variances)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+    peak = torch.cuda.max_memory_allocated()
 
     passes = sum(e.result.data_passes for e in entries)
     iterations = sum(e.result.iterations for e in entries)
     for e in entries:
         res, coef = e.result, e.model.coefficients
-        finite = bool(coef.means.isfinite().all()) and bool(coef.variances.isfinite().all())
-        positive = bool((coef.variances > 0).all())
-        decreased = float(res.values[res.iterations]) < float(res.values[0])
-        score_auc = float(auc(e.model.compute_score(batch), batch.labels, batch.weights))
-        print(f"train lambda={e.reg_weight}: iterations={res.iterations} "
-              f"reason={CONVERGENCE_REASON_NAMES[res.reason]} "
-              f"loss0={float(res.values[0]):.7g} loss={float(res.value):.7g} "
-              f"train_auc={score_auc:.6f}", flush=True)
-        if not (finite and positive and decreased and score_auc > 0.6):
-            raise RuntimeError(f"lambda={e.reg_weight}: bad result "
-                               f"(finite={finite} positive_var={positive} "
-                               f"decreased={decreased} auc={score_auc})")
+        loss0, loss = float(res.values[0]), float(res.value)
+        bad = []
+        if not bool(coef.means.isfinite().all()) or not np.isfinite(loss):
+            bad.append("non-finite")
+        if not loss < loss0:
+            bad.append("loss did not decrease")
+        if compute_variances and not bool((coef.variances > 0).all()):
+            bad.append("variances not positive")
+        extra = ""
+        if constraints is not None:
+            if not (bool((coef.means >= constraints.lower).all())
+                    and bool((coef.means <= constraints.upper).all())):
+                bad.append("box violated")
+            # TRON reports the value at its unprojected trial point, as the
+            # reference does; hold the returned (projected) w to the start too
+            obj = make_objective(task, cfg.regularization.l2_weight(e.reg_weight))
+            loss_at_w = float(obj.value(coef.means, batch))
+            extra = f" loss_at_w={loss_at_w:.7g}"
+            if not loss_at_w < loss0:
+                bad.append("loss at the returned w did not decrease")
+        if min_auc is not None:
+            score_auc = float(auc(e.model.compute_score(batch), batch.labels, batch.weights))
+            extra += f" train_auc={score_auc:.6f}"
+            if not score_auc > min_auc:
+                bad.append(f"auc {score_auc}")
+        print(f"path {label} lambda={e.reg_weight}: iterations={res.iterations} "
+              f"reason={CONVERGENCE_REASON_NAMES[res.reason]} data_passes={res.data_passes} "
+              f"loss0={loss0:.7g} loss={loss:.7g}{extra}", flush=True)
+        if bad:
+            raise RuntimeError(f"path {label} lambda={e.reg_weight}: bad result: {bad}")
     rows_per_s = batch.num_rows * passes / elapsed
-    print(f"train: rows={batch.num_rows} data_passes={passes} iterations={iterations} "
-          f"elapsed_s={elapsed:.4f} rows_per_s={rows_per_s:.1f} "
-          f"host_syncs={syncs} ms_per_iteration={1e3 * elapsed / iterations:.4f} "
-          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+    stats = {"elapsed_s": elapsed, "rows_per_s": rows_per_s, "data_passes": passes,
+             "iterations": iterations, "host_syncs": syncs,
+             "ms_per_iteration": 1e3 * elapsed / max(iterations, 1),
+             "max_memory_allocated": peak}
+    print(f"path {label}: rows={batch.num_rows} data_passes={passes} iterations={iterations} "
+          f"elapsed_s={elapsed:.4f} rows_per_s={rows_per_s:.1f} host_syncs={syncs} "
+          f"ms_per_iteration={stats['ms_per_iteration']:.4f} max_memory_allocated={peak} "
           f"launches={json.dumps(launches)}", flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in required if launches[k] == 0]
     if missing:
-        raise RuntimeError(f"kernels not launched on the main path: {missing}")
-    return launches, {"elapsed_s": elapsed, "rows_per_s": rows_per_s,
-                      "data_passes": passes, "iterations": iterations,
-                      "host_syncs": syncs,
-                      "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        raise RuntimeError(f"path {label}: kernels not launched: {missing}")
+    return launches, stats
 
 
-def profile_solve(batch) -> dict:
-    """--profile: device-busy share of one cold solve (at most 10 iterations)."""
+def profile_solve(label, run) -> dict:
+    """--profile: device-busy share of one cold solve ``run()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from photon_ml_tpu_torch.training import train_glm
-
-    cfg = lbfgs_config(10)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        (entry,) = train_glm(batch, "logistic", [1.0], cfg)
+        (entry,) = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel events only: an operator's device time repeats its kernels'
@@ -318,6 +484,7 @@ def profile_solve(batch) -> dict:
     busy_s = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     report = {
+        "path": label,
         "iterations": entry.result.iterations,
         "wall_s": wall,
         "device_busy_s": busy_s if busy_s > 0 else None,
@@ -342,6 +509,7 @@ def main() -> int:
         return 1
     from photon_ml_tpu_torch.kernels import build
     from photon_ml_tpu_torch.ops.csr import CSRBatch
+    from photon_ml_tpu_torch.training import train_glm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -360,19 +528,63 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     w = torch.randn(N_FEATURES, generator=gen, device="cuda") * 0.1
+    v = torch.randn(N_FEATURES, generator=gen, device="cuda")
     offsets = torch.randn(N_ROWS, generator=gen, device="cuda") * 0.1
     probe = batch.with_offsets(offsets)
     z = probe.margins(w)
     s = torch.sigmoid(z)
-    kernel_rows = check_kernels(probe, w, s - batch.labels, s * (1.0 - s))
+    d2_row = s * (1.0 - s)
+    kernel_rows = check_kernels(probe, w, s - batch.labels, d2_row)
+    kernel_rows += check_fused_kernels(probe, w, v, d2_row)
+    del probe, z, s, d2_row
 
     check_small_parity(args.seed)
 
-    launches, train = train_main_path(batch)
-    for row in kernel_rows:
-        row["launches"] = launches[row["name"]]
+    by_path, train, prof = {}, {}, {}
+    by_path["5"], train["5"] = run_path(
+        "5", batch, "logistic", [10.0, 1.0], solver_config("lbfgs", 20),
+        required=("csr_margins", "csc_scatter"), compute_variances=True, min_auc=0.6)
+    if args.profile:
+        prof["5"] = profile_solve("5", lambda: train_glm(
+            batch, "logistic", [1.0], solver_config("lbfgs", 10)))
+    del batch
 
-    prof = profile_solve(batch) if args.profile else None
+    # bench_suite.py configs #2 and #3: the linear problem first, then the
+    # Poisson one, from one generator
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    values, rows, cols, y, _ = make_suite_problem(rng, N_ROWS, N_FEATURES, NNZ_PER_ROW,
+                                                  "linear")
+    linear = CSRBatch.from_coo(values, rows, cols, y, N_FEATURES)
+    values, rows, cols, y, offsets = make_suite_problem(rng, N_ROWS, N_FEATURES,
+                                                        NNZ_PER_ROW, "poisson")
+    poisson = CSRBatch.from_coo(values, rows, cols, y, N_FEATURES, offsets=offsets)
+    del values, rows, cols, y, offsets
+    print(f"data: bench_suite linear + poisson {N_ROWS}x{N_FEATURES}, "
+          f"setup_s={time.perf_counter() - t0:.2f}", flush=True)
+
+    the_box = box(N_FEATURES, "cuda")
+    paths = [
+        ("5b", linear, "squared", solver_config("tron", 10), None, ("hv_at", "csr_margins",
+                                                                    "csc_scatter")),
+        ("5c", linear, "squared", solver_config("owlqn", 20), None, ("value_grad",
+                                                                     "csr_margins")),
+        ("5d", poisson, "poisson", solver_config("lbfgs", 20), the_box, ("margins_pair",
+                                                                         "value_grad")),
+        ("5e", linear, "squared", solver_config("tron", 3), the_box, ("hv", "value_grad")),
+    ]
+    for label, pbatch, task, cfg, constraints, required in paths:
+        by_path[label], train[label] = run_path(label, pbatch, task, [1.0], cfg, required,
+                                                constraints=constraints)
+        if args.profile:
+            prof[label] = profile_solve(label, lambda: train_glm(
+                pbatch, task, [1.0], cfg, constraints=constraints))
+    del linear, poisson
+
+    for row in kernel_rows:
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()
+                                   if c[row["name"]]}
+        row["launches"] = sum(row["launches_by_path"].values())
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "kernels": kernel_rows, "train": train,

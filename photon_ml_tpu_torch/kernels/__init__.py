@@ -5,6 +5,12 @@ On a CPU tensor a wrapper runs the kernel's plain PyTorch version
 on the current stream or raises. There is no fallback from one to the other.
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel and
 nowhere else, so a run can show that its path went through the kernels.
+
+The fused passes (``margins_pair``, ``value_grad``, ``hv``, ``hv_at``) take
+the CSR as ``csr = (row_ptr, cols, vals)`` and its CSC mirror as
+``csc = (col_ptr, rows, vals)``. One call of ``value_grad``, ``hv`` or
+``hv_at`` is one C call that launches the row pass, the fixed-order sum of
+its block partials and the CSC scatter; it counts once, under its own name.
 """
 
 from __future__ import annotations
@@ -13,10 +19,28 @@ import torch
 
 from photon_ml_tpu_torch.kernels import reference
 from photon_ml_tpu_torch.kernels.build import load_library
+from photon_ml_tpu_torch.ops.losses import get_loss
 
 Tensor = torch.Tensor
 
-LAUNCHES: dict[str, int] = {"csr_margins": 0, "csc_scatter": 0}
+LAUNCHES: dict[str, int] = {
+    "csr_margins": 0,
+    "csc_scatter": 0,
+    "margins_pair": 0,
+    "value_grad": 0,
+    "hv": 0,
+    "hv_at": 0,
+}
+
+# the loss codes of csrc/losses.cuh
+LOSS_CODES = {"logistic": 0, "squared": 1, "poisson": 2, "smoothed_hinge": 3}
+_HV_LOSSES = ("logistic", "squared", "poisson")
+
+# capacity of the block-partials scratch; the row pass launches at most the
+# resident block count (4 blocks of 512 threads on each of 132 SMs)
+_MAX_BLOCKS = 2048
+
+_INT_ARGS = ("row_ptr", "cols", "col_ptr", "rows")
 
 
 def reset_launch_counts() -> None:
@@ -37,7 +61,7 @@ def _check(name: str, device: torch.device, **tensors: Tensor) -> None:
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-        want = torch.int32 if arg in ("row_ptr", "cols", "col_ptr", "rows") else torch.float32
+        want = torch.int32 if arg in _INT_ARGS else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -48,6 +72,46 @@ def _raise_on(name: str, lib, rc: int) -> None:
     if rc != 0:
         msg = lib.photon_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
+
+
+def _on_cuda(name: str, dev: torch.device) -> bool:
+    """True for a CUDA device, False for the CPU (plain version); else raise."""
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return True
+
+
+def _shift_args(name: str, dev: torch.device, shift: Tensor | float):
+    """(device pointer or None, host float) for a shift that is a one-element
+    device tensor or a host number; the kernel adds the two."""
+    if isinstance(shift, Tensor):
+        _check(name, dev, shift=shift)
+        if shift.numel() != 1:
+            raise ValueError(f"{name}: shift must hold one element")
+        return shift.data_ptr(), 0.0
+    return None, float(shift)
+
+
+def _check_fused(name, dev, csr, csc, n_features, **per_row_and_tables) -> tuple[int, int]:
+    """Check the two layouts and the per-row / per-feature tensors; return
+    (rows, nonzeros)."""
+    (row_ptr, cols, vals), (col_ptr, rows, csc_vals) = csr, csc
+    _check(name, dev, row_ptr=row_ptr, cols=cols, vals=vals, col_ptr=col_ptr, rows=rows,
+           csc_vals=csc_vals, **per_row_and_tables)
+    n, nnz = row_ptr.numel() - 1, vals.numel()
+    if cols.numel() != nnz or rows.numel() != nnz or csc_vals.numel() != nnz:
+        raise ValueError(f"{name}: inconsistent slot counts")
+    for arg, t in per_row_and_tables.items():
+        want = n_features if arg in ("w", "v") else n
+        if t.dim() != 1 or t.numel() != want:
+            raise ValueError(f"{name}: {arg} must have shape ({want},), got {tuple(t.shape)}")
+    return n, nnz
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def csr_margins(
@@ -61,22 +125,13 @@ def csr_margins(
 ) -> Tensor:
     """Per-row margins of a CSR matrix: sum_k vals_k*w[cols_k] + shift (+offsets)."""
     dev = row_ptr.device
-    if dev.type == "cpu":
+    if not _on_cuda("csr_margins", dev):
         return reference.csr_margins(row_ptr, cols, vals, w, offsets, shift, use_offsets)
-    if dev.type != "cuda":
-        raise ValueError(f"csr_margins: unsupported device {dev}")
     n = row_ptr.numel() - 1
     _check("csr_margins", dev, row_ptr=row_ptr, cols=cols, vals=vals, w=w, offsets=offsets)
     if cols.numel() != vals.numel() or offsets.numel() != n or w.dim() != 1:
         raise ValueError("csr_margins: inconsistent shapes")
-    shift_ptr, shift_host = None, 0.0
-    if isinstance(shift, Tensor):
-        _check("csr_margins", dev, shift=shift)
-        if shift.numel() != 1:
-            raise ValueError("csr_margins: shift must hold one element")
-        shift_ptr = shift.data_ptr()
-    else:
-        shift_host = float(shift)
+    shift_ptr, shift_host = _shift_args("csr_margins", dev, shift)
     lib = load_library()
     out = torch.empty(n, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -92,7 +147,7 @@ def csr_margins(
             n,
             w.numel(),
             _group_size(vals.numel(), n),
-            torch.cuda.current_stream(dev).cuda_stream,
+            _stream(dev),
         )
     _raise_on("csr_margins", lib, rc)
     LAUNCHES["csr_margins"] += 1
@@ -104,10 +159,8 @@ def csc_scatter(
 ) -> Tensor:
     """Feature-space scatter sum_i per_row[i]*x_i (x_i**2 with ``square``)."""
     dev = col_ptr.device
-    if dev.type == "cpu":
+    if not _on_cuda("csc_scatter", dev):
         return reference.csc_scatter(col_ptr, rows, vals, per_row, square)
-    if dev.type != "cuda":
-        raise ValueError(f"csc_scatter: unsupported device {dev}")
     n_features = col_ptr.numel() - 1
     _check("csc_scatter", dev, col_ptr=col_ptr, rows=rows, vals=vals, per_row=per_row)
     if rows.numel() != vals.numel() or per_row.dim() != 1:
@@ -124,8 +177,159 @@ def csc_scatter(
             n_features,
             _group_size(vals.numel(), n_features),
             int(square),
-            torch.cuda.current_stream(dev).cuda_stream,
+            _stream(dev),
         )
     _raise_on("csc_scatter", lib, rc)
     LAUNCHES["csc_scatter"] += 1
     return out
+
+
+def margins_pair(
+    csr: tuple[Tensor, Tensor, Tensor],
+    w: Tensor,
+    p: Tensor,
+    offsets: Tensor,
+    shift: Tensor | float,
+    p_shift: Tensor | float,
+) -> tuple[Tensor, Tensor]:
+    """(X.w + shift + offsets, X.p + p_shift) from one read of the slots."""
+    row_ptr, cols, vals = csr
+    dev = row_ptr.device
+    if not _on_cuda("margins_pair", dev):
+        return reference.margins_pair(csr, w, p, offsets, shift, p_shift)
+    n = row_ptr.numel() - 1
+    _check("margins_pair", dev, row_ptr=row_ptr, cols=cols, vals=vals, w=w, p=p,
+           offsets=offsets)
+    if (cols.numel() != vals.numel() or offsets.numel() != n or w.dim() != 1
+            or p.shape != w.shape):
+        raise ValueError("margins_pair: inconsistent shapes")
+    s0_ptr, s0_host = _shift_args("margins_pair", dev, shift)
+    s1_ptr, s1_host = _shift_args("margins_pair", dev, p_shift)
+    lib = load_library()
+    z = torch.empty(n, dtype=torch.float32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.photon_margins_pair(
+            row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
+            p.data_ptr(), offsets.data_ptr(), s0_ptr, s0_host, s1_ptr, s1_host,
+            z.data_ptr(), u.data_ptr(), n, w.numel(), _group_size(vals.numel(), n),
+            _stream(dev),
+        )
+    _raise_on("margins_pair", lib, rc)
+    LAUNCHES["margins_pair"] += 1
+    return z, u
+
+
+def _scratch(n: int, n_sums: int, dev: torch.device):
+    """(per-row vector, block partials, sums) buffers of one fused pass."""
+    return (
+        torch.empty(n, dtype=torch.float32, device=dev),
+        torch.empty(_MAX_BLOCKS * n_sums, dtype=torch.float32, device=dev),
+        torch.empty(n_sums, dtype=torch.float32, device=dev),
+    )
+
+
+def value_grad(
+    csr: tuple[Tensor, Tensor, Tensor],
+    csc: tuple[Tensor, Tensor, Tensor],
+    labels: Tensor,
+    weights: Tensor,
+    offsets: Tensor,
+    w: Tensor,
+    shift: Tensor | float,
+    loss_name: str,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """(sum wgt*l(z), raw gradient sum_i wgt*l'(z_i)*x_i, sum wgt*l'(z)) at
+    z = X.w + shift + offsets, in one fused pass (0-d device sums)."""
+    loss = get_loss(loss_name).name
+    dev = csr[0].device
+    if not _on_cuda("value_grad", dev):
+        return reference.value_grad(csr, csc, labels, weights, offsets, w, shift, loss)
+    n_features = csc[0].numel() - 1
+    n, nnz = _check_fused("value_grad", dev, csr, csc, n_features, labels=labels,
+                          weights=weights, offsets=offsets, w=w)
+    s_ptr, s_host = _shift_args("value_grad", dev, shift)
+    lib = load_library()
+    g_row, partials, sums = _scratch(n, 2, dev)
+    grad = torch.empty(n_features, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.photon_value_grad(
+            *(t.data_ptr() for t in (*csr, *csc, labels, weights, offsets, w)),
+            s_ptr, s_host, LOSS_CODES[loss], g_row.data_ptr(), partials.data_ptr(),
+            _MAX_BLOCKS, sums.data_ptr(), grad.data_ptr(), n, n_features,
+            _group_size(nnz, n), _group_size(nnz, n_features), _stream(dev),
+        )
+    _raise_on("value_grad", lib, rc)
+    LAUNCHES["value_grad"] += 1
+    return sums[0], grad, sums[1]
+
+
+def hv(
+    csr: tuple[Tensor, Tensor, Tensor],
+    csc: tuple[Tensor, Tensor, Tensor],
+    labels: Tensor,
+    weights: Tensor,
+    offsets: Tensor,
+    w: Tensor,
+    shift: Tensor | float,
+    v: Tensor,
+    v_shift: Tensor | float,
+    loss_name: str,
+) -> tuple[Tensor, Tensor]:
+    """(raw Hv sum_i q_i*x_i, sum q) with q = wgt*l''(X.w + shift + offsets)*
+    (X.v + v_shift), in one fused pass (0-d device sum)."""
+    loss = get_loss(loss_name).name
+    if loss not in _HV_LOSSES:
+        raise ValueError(f"hv: '{loss}' is not twice differentiable")
+    dev = csr[0].device
+    if not _on_cuda("hv", dev):
+        return reference.hessian_vector(csr, csc, labels, weights, offsets, w, shift, v,
+                                        v_shift, loss)
+    n_features = csc[0].numel() - 1
+    n, nnz = _check_fused("hv", dev, csr, csc, n_features, labels=labels, weights=weights,
+                          offsets=offsets, w=w, v=v)
+    s0_ptr, s0_host = _shift_args("hv", dev, shift)
+    s1_ptr, s1_host = _shift_args("hv", dev, v_shift)
+    lib = load_library()
+    q_row, partials, sums = _scratch(n, 1, dev)
+    out = torch.empty(n_features, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.photon_hessian_vector(
+            *(t.data_ptr() for t in (*csr, *csc, labels, weights, offsets, w, v)),
+            s0_ptr, s0_host, s1_ptr, s1_host, LOSS_CODES[loss], q_row.data_ptr(),
+            partials.data_ptr(), _MAX_BLOCKS, sums.data_ptr(), out.data_ptr(), n,
+            n_features, _group_size(nnz, n), _group_size(nnz, n_features), _stream(dev),
+        )
+    _raise_on("hv", lib, rc)
+    LAUNCHES["hv"] += 1
+    return out, sums[0]
+
+
+def hv_at(
+    csr: tuple[Tensor, Tensor, Tensor],
+    csc: tuple[Tensor, Tensor, Tensor],
+    d2: Tensor,
+    v: Tensor,
+    v_shift: Tensor | float,
+) -> tuple[Tensor, Tensor]:
+    """(raw Hv sum_i q_i*x_i, sum q) with q = d2*(X.v + v_shift) for a row
+    curvature d2 computed once per TRON step (0-d device sum)."""
+    dev = csr[0].device
+    if not _on_cuda("hv_at", dev):
+        return reference.hv_at(csr, csc, d2, v, v_shift)
+    n_features = csc[0].numel() - 1
+    n, nnz = _check_fused("hv_at", dev, csr, csc, n_features, d2=d2, v=v)
+    s_ptr, s_host = _shift_args("hv_at", dev, v_shift)
+    lib = load_library()
+    q_row, partials, sums = _scratch(n, 1, dev)
+    out = torch.empty(n_features, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.photon_hv_at(
+            *(t.data_ptr() for t in (*csr, *csc, d2, v)),
+            s_ptr, s_host, q_row.data_ptr(), partials.data_ptr(), _MAX_BLOCKS,
+            sums.data_ptr(), out.data_ptr(), n, n_features, _group_size(nnz, n),
+            _group_size(nnz, n_features), _stream(dev),
+        )
+    _raise_on("hv_at", lib, rc)
+    LAUNCHES["hv_at"] += 1
+    return out, sums[0]

@@ -3,9 +3,9 @@
 Every ``csrc/*.cu`` file is compiled for ``sm_90a`` into its own object, all
 ``nvcc`` processes started together, and the objects are linked into one
 shared library with a plain C interface. The library lands in
-``build/kernels/`` at the repository root, named by a hash of the sources,
-so a changed source is rebuilt and an unchanged one is reused within a
-checkout. Nothing is built at import time: ``load_library()`` builds on its
+``build/kernels/`` at the repository root, named by a hash of the sources
+and the headers they share (``csrc/*.cuh``), so a changed source is rebuilt
+and an unchanged one is reused within a checkout. Nothing is built at import time: ``load_library()`` builds on its
 first call, and a failed build raises.
 """
 
@@ -31,6 +31,10 @@ _lib: ctypes.CDLL | None = None
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -63,7 +67,7 @@ def build(verbose: bool = False) -> str:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    lib_path = os.path.join(BUILD_DIR, f"libphoton_kernels-{_digest(srcs)}.so")
+    lib_path = os.path.join(BUILD_DIR, f"libphoton_kernels-{_digest(srcs + headers())}.so")
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -109,6 +113,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.photon_csr_margins.restype = i
     lib.photon_csc_scatter.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.photon_csc_scatter.restype = i
+    lib.photon_margins_pair.argtypes = [p, p, p, p, p, p, p, f, p, f, p, p, i, i, i, p]
+    lib.photon_margins_pair.restype = i
+    lib.photon_value_grad.argtypes = [p] * 10 + [p, f, i, p, p, i, p, p, i, i, i, i, p]
+    lib.photon_value_grad.restype = i
+    lib.photon_hessian_vector.argtypes = [p] * 11 + [p, f, p, f, i, p, p, i, p, p, i, i, i, i, p]
+    lib.photon_hessian_vector.restype = i
+    lib.photon_hv_at.argtypes = [p] * 8 + [p, f, p, p, i, p, p, i, i, i, i, p]
+    lib.photon_hv_at.restype = i
     lib.photon_cuda_error_string.argtypes = [i]
     lib.photon_cuda_error_string.restype = ctypes.c_char_p
 

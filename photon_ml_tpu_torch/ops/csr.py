@@ -13,7 +13,9 @@ well, so the layout is plain:
 
 The mirror doubles the slot storage (about 320 MB at 20M nonzeros). Rows
 are not padded: ``num_rows`` is n. ``margins_pair`` and the ``fused_*``
-passes are compositions of the two kernels; their fused kernels come later.
+passes launch the fused kernels (``csrc/margins_pair.cu``,
+``csrc/value_grad.cu``, ``csrc/hessian_vector.cu``): one row pass over the
+CSR, then the CSC scatter for the feature-space half.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from photon_ml_tpu_torch import kernels
 from photon_ml_tpu_torch.device import resolve_device
-from photon_ml_tpu_torch.ops.sparse import ComposedPasses, validate_coo_indices
+from photon_ml_tpu_torch.ops.sparse import validate_coo_indices
 
 Tensor = torch.Tensor
 
@@ -34,7 +36,7 @@ _INT32_MAX = 2**31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
-class CSRBatch(ComposedPasses):
+class CSRBatch:
     row_ptr: Tensor  # i32[n+1]
     cols: Tensor  # i32[nnz], row-sorted
     vals: Tensor  # f32[nnz]
@@ -125,7 +127,15 @@ class CSRBatch(ComposedPasses):
         np.add.at(X, (rows, self.cols.cpu().numpy()), self.vals.cpu().numpy())
         return X
 
-    # -- the two kernels ---------------------------------------------------
+    @property
+    def _csr(self) -> tuple[Tensor, Tensor, Tensor]:
+        return self.row_ptr, self.cols, self.vals
+
+    @property
+    def _csc(self) -> tuple[Tensor, Tensor, Tensor]:
+        return self.col_ptr, self.csc_rows, self.csc_vals
+
+    # -- the kernels ---------------------------------------------------------
 
     def margins(self, w: Tensor, shift: Tensor | float = 0.0) -> Tensor:
         """z_i = x_i . w + shift + offset_i (margins kernel)."""
@@ -150,6 +160,34 @@ class CSRBatch(ComposedPasses):
         return kernels.csc_scatter(
             self.col_ptr, self.csc_rows, self.csc_vals, per_row, True
         )
+
+    def margins_pair(self, w: Tensor, shift, p: Tensor, p_shift) -> tuple[Tensor, Tensor]:
+        """(margins(w, shift), dot_rows(p) + p_shift) in one sweep (pair kernel)."""
+        return kernels.margins_pair(self._csr, w, p, self.offsets, shift, p_shift)
+
+    def fused_value_grad(
+        self, w: Tensor, shift, loss_name: str
+    ) -> tuple[Tensor, Tensor, Tensor]:
+        """(sum wgt*l(z), raw gradient scatter sum wgt*dz*x, sum wgt*dz)
+        (value_grad kernel)."""
+        return kernels.value_grad(
+            self._csr, self._csc, self.labels, self.weights, self.offsets, w, shift,
+            loss_name,
+        )
+
+    def fused_hessian_vector(
+        self, w: Tensor, shift, v: Tensor, v_shift, loss_name: str
+    ) -> tuple[Tensor, Tensor]:
+        """(raw Hv scatter sum wgt*l''(z)*(x.v)*x, sum of the row terms q)
+        (hv kernel)."""
+        return kernels.hv(
+            self._csr, self._csc, self.labels, self.weights, self.offsets, w, shift, v,
+            v_shift, loss_name,
+        )
+
+    def fused_hv_at(self, d2_row: Tensor, v_eff: Tensor, v_shift) -> tuple[Tensor, Tensor]:
+        """(raw Hv scatter, sum q) with q = d2 * (x.v + v_shift) (hv_at kernel)."""
+        return kernels.hv_at(self._csr, self._csc, d2_row, v_eff, v_shift)
 
     def feature_moment_sums(self) -> tuple[Tensor, Tensor, Tensor]:
         """Per-feature (sum x, sum x^2, count nonzero) over valid rows."""

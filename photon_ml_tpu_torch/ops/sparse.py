@@ -6,9 +6,9 @@ Counterpart of ``photon_ml_tpu/ops/sparse.py``: parallel ``values``/``rows``/
 over features. PyTorch runs eagerly, so shapes need not be static and
 nothing is padded (the reference pads for ``jit``).
 
-``ComposedPasses`` holds the passes that are compositions of
+Its fused passes (``margins_pair``, ``fused_*``) are compositions of
 ``margins``/``dot_rows``/``scatter_features`` (the reference semantics of
-``ops/sparse.py:230-315``); ``CSRBatch`` shares them.
+``ops/sparse.py:230-315``); ``CSRBatch`` runs fused kernels instead.
 """
 
 from __future__ import annotations
@@ -42,42 +42,8 @@ def validate_coo_indices(
         )
 
 
-class ComposedPasses:
-    """Passes built from ``margins``/``dot_rows``/``scatter_features``.
-
-    A subclass provides those three (plus ``labels``/``weights``); the fused
-    kernels of later slices will override these compositions.
-    """
-
-    def margins_pair(self, w: Tensor, shift, p: Tensor, p_shift) -> tuple[Tensor, Tensor]:
-        """(margins(w, shift), dot_rows(p) + p_shift)."""
-        return self.margins(w, shift), self.dot_rows(p) + p_shift
-
-    def fused_value_grad(
-        self, w: Tensor, shift, loss_name: str
-    ) -> tuple[Tensor, Tensor, Tensor]:
-        """(sum wgt*l(z), raw gradient scatter sum wgt*dz*x, sum wgt*dz)."""
-        z = self.margins(w, shift)
-        l, dz = get_loss(loss_name).loss_and_dz(z, self.labels)
-        g_row = self.weights * dz
-        return torch.sum(self.weights * l), self.scatter_features(g_row), torch.sum(g_row)
-
-    def fused_hessian_vector(
-        self, w: Tensor, shift, v: Tensor, v_shift, loss_name: str
-    ) -> tuple[Tensor, Tensor]:
-        """(raw Hv scatter sum wgt*l''(z)*(x.v)*x, sum of the row terms q)."""
-        z, xv = self.margins_pair(w, shift, v, v_shift)
-        q = self.weights * get_loss(loss_name).d2z(z, self.labels) * xv
-        return self.scatter_features(q), torch.sum(q)
-
-    def fused_hv_at(self, d2_row: Tensor, v_eff: Tensor, v_shift) -> tuple[Tensor, Tensor]:
-        """(raw Hv scatter, sum q) with q = d2 * (x.v + v_shift) precomputed d2."""
-        q = d2_row * (self.dot_rows(v_eff) + v_shift)
-        return self.scatter_features(q), torch.sum(q)
-
-
 @dataclasses.dataclass(frozen=True)
-class SparseBatch(ComposedPasses):
+class SparseBatch:
     """A batch of sparse labeled examples (COO, sorted by row)."""
 
     values: Tensor  # f32[nnz]
@@ -172,6 +138,34 @@ class SparseBatch(ComposedPasses):
     def scatter_features_sq(self, per_row: Tensor) -> Tensor:
         """sum_i per_row[i] * x_i**2 elementwise (Hessian diagonal)."""
         return self._scatter(self.values * self.values, per_row)
+
+    # -- fused passes as compositions (ops/sparse.py:230-315) --------------
+
+    def margins_pair(self, w: Tensor, shift, p: Tensor, p_shift) -> tuple[Tensor, Tensor]:
+        """(margins(w, shift), dot_rows(p) + p_shift)."""
+        return self.margins(w, shift), self.dot_rows(p) + p_shift
+
+    def fused_value_grad(
+        self, w: Tensor, shift, loss_name: str
+    ) -> tuple[Tensor, Tensor, Tensor]:
+        """(sum wgt*l(z), raw gradient scatter sum wgt*dz*x, sum wgt*dz)."""
+        z = self.margins(w, shift)
+        l, dz = get_loss(loss_name).loss_and_dz(z, self.labels)
+        g_row = self.weights * dz
+        return torch.sum(self.weights * l), self.scatter_features(g_row), torch.sum(g_row)
+
+    def fused_hessian_vector(
+        self, w: Tensor, shift, v: Tensor, v_shift, loss_name: str
+    ) -> tuple[Tensor, Tensor]:
+        """(raw Hv scatter sum wgt*l''(z)*(x.v)*x, sum of the row terms q)."""
+        z, xv = self.margins_pair(w, shift, v, v_shift)
+        q = self.weights * get_loss(loss_name).d2z(z, self.labels) * xv
+        return self.scatter_features(q), torch.sum(q)
+
+    def fused_hv_at(self, d2_row: Tensor, v_eff: Tensor, v_shift) -> tuple[Tensor, Tensor]:
+        """(raw Hv scatter, sum q) with q = d2 * (x.v + v_shift) precomputed d2."""
+        q = d2_row * (self.dot_rows(v_eff) + v_shift)
+        return self.scatter_features(q), torch.sum(q)
 
     def feature_moment_sums(self) -> tuple[Tensor, Tensor, Tensor]:
         """Per-feature (sum x, sum x^2, count nonzero) over valid rows."""

@@ -1,5 +1,6 @@
 """Optimizers (counterpart of ``photon_ml_tpu/optim``): LBFGS with the
-strong-Wolfe line search and the GLM adapter."""
+strong-Wolfe line search, OWLQN with the backtracking search, TRON, and the
+GLM adapter."""
 
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import (
@@ -9,6 +10,8 @@ from photon_ml_tpu_torch.optim.common import (
     SolveResult,
 )
 from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
+from photon_ml_tpu_torch.optim.owlqn import owlqn_solve, pseudo_gradient
+from photon_ml_tpu_torch.optim.tron import TRONConfig, tron_solve
 
 __all__ = [
     "CONVERGENCE_REASON_NAMES",
@@ -16,6 +19,10 @@ __all__ = [
     "LBFGSConfig",
     "Objective",
     "SolveResult",
+    "TRONConfig",
     "glm_adapter",
     "lbfgs_solve",
+    "owlqn_solve",
+    "pseudo_gradient",
+    "tron_solve",
 ]

@@ -2,9 +2,10 @@
 margin-space line search.
 
 Counterpart of ``glm_adapter`` in ``photon_ml_tpu/optim/adapter.py``
-(:35-171). Along a direction p the margins are affine, z(a) = z + a*u with
-u = X'p computed once per line search, so each Wolfe trial is O(n)
-elementwise work on the carried margins instead of a pass over the nonzeros.
+(:35-171), without the dense ``hessian`` of Newton. Along a direction p the
+margins are affine, z(a) = z + a*u with u = X'p computed once per line
+search, so each Wolfe trial is O(n) elementwise work on the carried margins
+instead of a pass over the nonzeros.
 The reference's ``axis_name``/``row_sharding`` (multi-device) arguments are
 not ported.
 """
@@ -77,6 +78,17 @@ def glm_adapter(obj: GLMObjective, batch) -> Objective:
     def value_and_grad_at(w, z):
         return obj.value_and_grad_at_margins(w, z, batch)
 
+    hvp = curvature = hvp_at = None
+    if loss.has_hessian:
+        def hvp(w, v):
+            return obj.hessian_vector(w, v, batch)
+
+        def curvature(z):
+            return obj.curvature_at_margins(z, batch)
+
+        def hvp_at(d2, v):
+            return obj.hessian_vector_with_curvature(d2, v, batch)
+
     return Objective(
         value_and_grad=value_and_grad,
         value=value,
@@ -87,4 +99,7 @@ def glm_adapter(obj: GLMObjective, batch) -> Objective:
         ls_advance=ls_advance,
         value_and_grad_at=value_and_grad_at,
         dir_margins=dir_margins,
+        hvp=hvp,
+        curvature=curvature,
+        hvp_at=hvp_at,
     )

@@ -39,9 +39,11 @@ class Objective(NamedTuple):
     ``ls_eval(carry, alpha)`` returns ``(phi, dphi)`` as 0-d device tensors.
     The margin-carrying protocol (``margins``, ``ls_prepare_z``,
     ``ls_advance``, ``value_and_grad_at``, ``dir_margins``) lets LBFGS keep
-    z = X'w in its state: one gather + one scatter per iteration. The
-    reference's second-order fields (``hvp``, ``curvature``, ``hvp_at``,
-    ``hessian``) come with TRON and Newton.
+    z = X'w in its state: one gather + one scatter per iteration. TRON uses
+    the second-order fields: ``hvp(w, v)`` (a fused Hessian-vector pass),
+    and on the margin-carrying path ``curvature(z)`` once per outer step and
+    ``hvp_at(d2, v)`` per CG step. They are None for a loss without a
+    Hessian. The reference's dense ``hessian`` comes with Newton.
     """
 
     value_and_grad: Callable[[Tensor], tuple[Tensor, Tensor]]
@@ -53,6 +55,9 @@ class Objective(NamedTuple):
     ls_advance: Optional[Callable[[Any, float], Tensor]] = None
     value_and_grad_at: Optional[Callable[[Tensor, Tensor], tuple[Tensor, Tensor]]] = None
     dir_margins: Optional[Callable[[Tensor], Tensor]] = None
+    hvp: Optional[Callable[[Tensor, Tensor], Tensor]] = None
+    curvature: Optional[Callable[[Tensor], Tensor]] = None
+    hvp_at: Optional[Callable[[Tensor, Tensor], Tensor]] = None
 
 
 class BoxConstraints(NamedTuple):
@@ -74,7 +79,9 @@ class SolveResult(NamedTuple):
 
     ``values``/``grad_norms`` have max_iterations + 1 entries, valid up to
     ``iterations`` inclusive and +inf after. ``data_passes`` counts full
-    passes over the data (init evaluation + one per LBFGS iteration).
+    passes over the data: the init evaluation plus one per LBFGS/OWLQN
+    iteration, or per TRON step the CG Hessian-vector passes (at least one)
+    and the trial evaluation.
     """
 
     w: Tensor
@@ -90,8 +97,9 @@ class SolveResult(NamedTuple):
 def fetch_f32(*scalars: Tensor) -> tuple[np.float32, ...]:
     """Bring 0-d device tensors to the host in one sync, as float32 scalars.
 
-    The host-driven loops call this once per line-search trial and twice per
-    LBFGS iteration; ``host_syncs`` counts the calls.
+    The host-driven loops call this once per line-search trial, twice per
+    LBFGS/OWLQN iteration and once per TRON CG step and step; ``host_syncs``
+    counts the calls.
     """
     telemetry.counter("host_syncs").inc()
     arr = torch.stack([s.reshape(()) for s in scalars]).to(torch.float32).cpu().numpy()

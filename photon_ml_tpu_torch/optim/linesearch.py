@@ -1,12 +1,12 @@
-"""Strong-Wolfe line search (Nocedal & Wright Alg. 3.5/3.6).
+"""Line searches: strong Wolfe (Nocedal & Wright Alg. 3.5/3.6) and the
+backtracking search of OWLQN.
 
-Counterpart of ``strong_wolfe`` in ``photon_ml_tpu/optim/linesearch.py``
-(:75-240). The reference runs the search as one ``lax.while_loop`` state
-machine of ``jnp.where`` selections; here the same machine runs on the host,
-branch for branch, in float32 numpy scalars so that it picks the same
-``alpha`` sequence. Each trial costs one directional-oracle call on the
-device and one host fetch of its (phi, dphi). ``backtracking`` is not
-ported yet.
+Counterpart of ``strong_wolfe`` and ``backtracking`` in
+``photon_ml_tpu/optim/linesearch.py`` (:75-278). The reference runs each
+search as a ``lax.while_loop`` of ``jnp.where`` selections; here the same
+machine runs on the host, branch for branch, in float32 numpy scalars so
+that it picks the same ``alpha`` sequence. Each trial costs one oracle call
+on the device and one host fetch of its scalars.
 """
 
 from __future__ import annotations
@@ -149,3 +149,26 @@ def strong_wolfe(
     if arm[0] > 0.0 and arm[1] < phi0:
         return LineSearchResult(*arm, failed=False, num_evals=evals)
     return LineSearchResult(zero, phi0, dphi0, failed=True, num_evals=evals)
+
+
+def backtracking(
+    trial: Callable[[np.float32], tuple[np.float32, bool]],
+    full_value0: np.float32,
+    init_step: float = 1.0,
+    shrink: float = 0.5,
+    max_evals: int = 25,
+) -> tuple[np.float32, np.float32, bool]:
+    """Shrink alpha from ``init_step`` until ``trial`` accepts it.
+
+    ``trial(alpha) -> (value, accepted)`` evaluates the (projected) candidate
+    at ``alpha`` on the device and decides sufficient decrease on the host
+    from one fetch. Returns (alpha, value, failed); after ``max_evals``
+    rejections, (0, ``full_value0``, True) as the reference does.
+    """
+    alpha = F32(init_step)
+    for _ in range(max_evals):
+        value, accepted = trial(alpha)
+        if accepted:
+            return alpha, F32(value), False
+        alpha = F32(alpha * F32(shrink))
+    return F32(0.0), F32(full_value0), True

@@ -60,6 +60,7 @@ def train_glm(
     dev = resolve_device(device)
     if not lambdas:
         raise ValueError("lambdas must be non-empty")
+    config.validate(task)
     task = get_loss(task).name
     n_feat = int(batch.num_features)
     check_on(dev, batch.labels)
@@ -90,7 +91,8 @@ def train_glm(
             with telemetry.span("lambda_solve", reg_weight=lam):
                 obj = base_obj.with_l2(config.regularization.l2_weight(lam))
                 res = dispatch_solve(
-                    glm_adapter(obj, batch), w_prev, config, constraints, device=dev
+                    glm_adapter(obj, batch), w_prev, config,
+                    config.regularization.l1_weight(lam), constraints, device=dev,
                 )
                 w_opt = res.w
                 w_prev = w_opt

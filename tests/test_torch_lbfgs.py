@@ -15,6 +15,7 @@ import torch
 
 from photon_ml_tpu.ops.objective import make_objective as j_make
 from photon_ml_tpu.ops.tiled import TiledBatch
+from photon_ml_tpu.optim import BoxConstraints as JBox
 from photon_ml_tpu.optim import LBFGSConfig as JConfig
 from photon_ml_tpu.optim import glm_adapter as j_adapter
 from photon_ml_tpu.optim import lbfgs_solve as j_lbfgs
@@ -100,6 +101,41 @@ def test_box_constrained_path_projects(batches):
                   constraints=BoxConstraints(lower, upper), device="cpu")
     assert float(res.w.abs().max()) <= 0.05 + 1e-7
     assert float(res.values[res.iterations]) < float(res.values[0])
+
+
+def _poisson_batches(seed=33, n=256, f=F):
+    """Poisson with exposure offsets (bench_suite.py config #3's shape)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)) * (rng.random((n, f)) < 0.35)
+    off = rng.normal(size=n) * 0.3
+    y = rng.poisson(np.exp(np.clip(0.2 * (X @ rng.normal(size=f)) + off, -4, 4)))
+    y = y.astype(np.float64)
+    return (TiledBatch.from_dense(X, y, offsets=off),
+            CSRBatch.from_dense(X, y, offsets=off, device="cpu"))
+
+
+@pytest.mark.parametrize("loss,bound", [("poisson", 0.5), ("poisson", 0.2), ("logistic", 0.5)])
+def test_box_constrained_path_matches_reference(batches, loss, bound):
+    """The non-margin-carrying path (fused value-and-gradient per iteration,
+    the pair kernel per line search) against the JAX solve in a box."""
+    tb, cb = _poisson_batches() if loss == "poisson" else batches[:2]
+    lower, upper = np.full(F, -bound, np.float32), np.full(F, bound, np.float32)
+    jbox = JBox(lower=jnp.asarray(lower), upper=jnp.asarray(upper))
+    tbox = BoxConstraints(torch.from_numpy(lower), torch.from_numpy(upper))
+    jo, to = j_make(loss, l2_weight=1.0), t_make(loss, l2_weight=1.0)
+    cfg = dict(max_iterations=8, tolerance=0.0)
+    rj = jax.jit(lambda w: j_lbfgs(j_adapter(jo, tb), w, JConfig(**cfg), constraints=jbox))(
+        jnp.zeros(F, jnp.float32))
+    rt = t_lbfgs(t_adapter(to, cb), torch.zeros(F), TConfig(**cfg), constraints=tbox,
+                 device="cpu")
+    assert rt.iterations == int(rj.iterations)
+    assert rt.reason == int(rj.reason)
+    assert rt.data_passes == int(rj.data_passes)
+    np.testing.assert_allclose(float(rt.value), float(rj.value), rtol=1e-4)
+    np.testing.assert_allclose(rt.w.numpy(), np.asarray(rj.w), rtol=1e-2, atol=1e-3)
+    assert float(rt.w.abs().max()) <= np.float32(bound)
+    if loss == "logistic" or bound < 0.5:
+        assert float(rt.w.abs().max()) == np.float32(bound)  # the box binds
 
 
 def test_lbfgs_without_device_raises_on_a_machine_without_a_gpu(batches):

@@ -1,8 +1,11 @@
 """The slice as a whole: ``train_glm`` of the port (CSRBatch, plain kernel
 versions on the CPU) against ``train_glm`` of the JAX package (TiledBatch,
 Pallas kernels in interpret mode): a 3-lambda warm-started L2 sweep with a
-normalization context and variances, model selection, and a warm start
-carried across from a JAX-trained model by ``convert.model_from_jax``.
+normalization context and variances, model selection, a warm start
+carried across from a JAX-trained model by ``convert.model_from_jax``, and
+sweeps with TRON (normalized, with variances), with elastic net (OWLQN) and
+with box-constrained Poisson. TRON, OWLQN and the box path stop within a few
+iterations, before float32 noise decides their step counts.
 
 Tolerances: means rtol 1e-2, atol 1e-3 (the LBFGS optimum in float32,
 tests/test_tiled.py:123-133); variances rtol 1e-3 (1/diag H at that optimum);
@@ -20,6 +23,7 @@ from photon_ml_tpu.evaluation import auc as j_auc
 from photon_ml_tpu.ops.sparse import SparseBatch as JSparse
 from photon_ml_tpu.ops.tiled import TiledBatch
 from photon_ml_tpu.optim import OptimizerConfig as JCfg
+from photon_ml_tpu.optim import OptimizerType as JOptType
 from photon_ml_tpu.optim import RegularizationContext as JReg
 from photon_ml_tpu.optim import RegularizationType as JRegType
 from photon_ml_tpu.training import select_best_model as j_select
@@ -146,11 +150,112 @@ def test_train_glm_preserves_caller_order_and_counts_passes(sweeps):
 
 
 def test_unported_optimizers_raise_not_implemented(world):
+    """NEWTON alone is not ported: it needs DenseBatch and dense_hessian."""
     tb, _, _ = world["torch"]
-    for cfg in (TCfg(optimizer_type=OptimizerType.TRON),
-                TCfg(regularization=RegularizationContext(RegularizationType.L1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_train(tb, "logistic", [1.0], cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_train(tb, "logistic", [1.0], TCfg(optimizer_type=OptimizerType.NEWTON),
+                device="cpu")
+
+
+INVALID = {
+    "tron_l1": dict(optimizer_type="TRON", reg="L1", task="logistic"),
+    "tron_elastic_net": dict(optimizer_type="TRON", reg="ELASTIC_NET", task="squared"),
+    "tron_smoothed_hinge": dict(optimizer_type="TRON", reg="L2", task="smoothed_hinge"),
+    "newton_l1": dict(optimizer_type="NEWTON", reg="L1", task="logistic"),
+    "newton_smoothed_hinge": dict(optimizer_type="NEWTON", reg="L2", task="smoothed_hinge"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INVALID))
+def test_validate_refuses_what_the_reference_refuses(world, case):
+    c = INVALID[case]
+    jcfg = JCfg(optimizer_type=getattr(JOptType, c["optimizer_type"]),
+                regularization=JReg(getattr(JRegType, c["reg"]), alpha=0.5))
+    tcfg = TCfg(optimizer_type=getattr(OptimizerType, c["optimizer_type"]),
+                regularization=RegularizationContext(getattr(RegularizationType, c["reg"]),
+                                                     alpha=0.5))
+    with pytest.raises(ValueError) as want:
+        jcfg.validate(c["task"])
+    with pytest.raises(ValueError) as got:
+        tcfg.validate(c["task"])
+    assert str(got.value) == str(want.value)
+    tb, _, _ = world["torch"]
+    with pytest.raises(ValueError):
+        t_train(tb, c["task"], [1.0], tcfg, device="cpu")
+
+
+def _linear(rng, n=N, d=D):
+    X = rng.normal(size=(n, d)) * (rng.random((n, d)) < 0.5)
+    y = X @ (rng.normal(size=d) * (rng.random(d) < 0.6)) + 0.1 * rng.normal(size=n)
+    return X, y
+
+
+def _assert_same_sweep(je, te, values_rtol=1e-4):
+    for j, t in zip(je, te):
+        assert t.reg_weight == j.reg_weight
+        assert t.result.iterations == int(j.result.iterations)
+        assert t.result.reason == int(j.result.reason)
+        assert t.result.data_passes == int(j.result.data_passes)
+        np.testing.assert_allclose(float(t.result.value), float(j.result.value),
+                                   rtol=values_rtol)
+        np.testing.assert_allclose(t.model.coefficients.means.numpy(),
+                                   np.asarray(j.model.coefficients.means),
+                                   rtol=1e-2, atol=1e-3)
+
+
+def test_tron_sweep_matches_reference(world):
+    jb, _, jn = world["jax"]
+    tb, _, tn = world["torch"]
+    jcfg = JCfg(optimizer_type=JOptType.TRON, regularization=JReg(JRegType.L2),
+                max_iterations=3, tolerance=0.0)
+    tcfg = TCfg(optimizer_type=OptimizerType.TRON,
+                regularization=RegularizationContext(RegularizationType.L2),
+                max_iterations=3, tolerance=0.0)
+    je = j_train(jb, "logistic", [10.0, 1.0], jcfg, normalization=jn, compute_variances=True)
+    te = t_train(tb, "logistic", [10.0, 1.0], tcfg, normalization=tn,
+                 compute_variances=True, device="cpu")
+    _assert_same_sweep(je, te)
+    for j, t in zip(je, te):
+        np.testing.assert_allclose(t.model.coefficients.variances.numpy(),
+                                   np.asarray(j.model.coefficients.variances), rtol=1e-3)
+        assert t.result.data_passes > t.result.iterations + 1
+
+
+def test_elastic_net_sweep_matches_reference():
+    X, y = _linear(np.random.default_rng(45))
+    reg = dict(alpha=0.5)
+    jcfg = JCfg(regularization=JReg(JRegType.ELASTIC_NET, **reg), max_iterations=5,
+                tolerance=0.0)
+    tcfg = TCfg(regularization=RegularizationContext(RegularizationType.ELASTIC_NET, **reg),
+                max_iterations=5, tolerance=0.0)
+    je = j_train(TiledBatch.from_dense(X, y), "linear_regression", [40.0, 10.0], jcfg)
+    te = t_train(CSRBatch.from_dense(X, y, device="cpu"), "linear_regression", [40.0, 10.0],
+                 tcfg, device="cpu")
+    _assert_same_sweep(je, te)
+    for j, t in zip(je, te):
+        wj, wt = np.asarray(j.model.coefficients.means), t.model.coefficients.means.numpy()
+        decided = np.abs(wj) >= 1e-4
+        np.testing.assert_array_equal(wt[decided] == 0.0, wj[decided] == 0.0)
+        assert t.result.data_passes == t.result.iterations + 1
+    assert int(np.sum(te[0].model.coefficients.means.numpy() == 0.0)) > 0
+
+
+def test_box_constrained_poisson_sweep_matches_reference():
+    rng = np.random.default_rng(46)
+    X = rng.normal(size=(N, D)) * (rng.random((N, D)) < 0.4)
+    off = rng.normal(size=N) * 0.3
+    y = rng.poisson(np.exp(np.clip(0.2 * (X @ rng.normal(size=D)) + off, -4, 4)))
+    box = tuple((i, -0.2, 0.2) for i in range(D))
+    jcfg = JCfg(regularization=JReg(JRegType.L2), max_iterations=8, tolerance=0.0,
+                box_constraints=box)
+    tcfg = TCfg(regularization=RegularizationContext(RegularizationType.L2),
+                max_iterations=8, tolerance=0.0, box_constraints=box)
+    je = j_train(TiledBatch.from_dense(X, y, offsets=off), "poisson", [1.0], jcfg)
+    te = t_train(CSRBatch.from_dense(X, y, offsets=off, device="cpu"), "poisson", [1.0],
+                 tcfg, device="cpu")
+    _assert_same_sweep(je, te)
+    means = te[0].model.coefficients.means.numpy()
+    assert np.abs(means).max() == np.float32(0.2)  # the box binds
 
 
 def test_variances_refuse_the_smoothed_hinge(world):
