@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero before the last line:
      (into ``build/kernels/``);
   3. at full width (1M rows x 10K features x 20 nnz/row, bench.py config #1's
      data from ``--seed``) hold each kernel against its plain PyTorch version
-     on the card (and each fused kernel against itself: two launches must
-     agree bit for bit), and time kernel, plain version and the library
+     on the card (and each kernel against itself: two launches must agree
+     bit for bit), and time kernel, plain version and the library
      yardstick where one PyTorch call computes the same function (never
      used by the port);
   4. train at a reduced size (64K x 2K) on the card and on the CPU (plain
@@ -173,18 +173,18 @@ def kernel_row(name, source, replaces, worst, timed, label, nbytes, flops,
     }
 
 
-def run_variants(name: str, cases, deterministic: bool) -> tuple[float, dict]:
-    """Hold each variant's kernel against its plain version (and, with
-    ``deterministic``, against a second launch bit for bit), then time both.
+def run_variants(name: str, cases) -> tuple[float, dict]:
+    """Hold each variant's kernel against its plain version and against a
+    second launch bit for bit, then time both.
     Returns (worst abs error, {label: (kernel ms, plain ms)})."""
     import torch
 
     worst, timed = 0.0, {}
     for label, run_kernel, run_plain in cases:
-        got, want = run_kernel(), run_plain()
-        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        again = run_kernel() if deterministic else got
-        for i, (g, a, e) in enumerate(zip(got, again, want)):
+        got, want, again = run_kernel(), run_plain(), run_kernel()
+        if not isinstance(got, tuple):
+            got, want, again = (got,), (want,), (again,)
+        for i, (g, a, e) in enumerate(zip(got, again, want, strict=True)):
             abs_err, _ = compare(f"{name}[{label}][{i}]", g, e)
             worst = max(worst, abs_err)
             if not torch.equal(g, a):
@@ -197,7 +197,7 @@ def run_variants(name: str, cases, deterministic: bool) -> tuple[float, dict]:
 
 def check_kernels(batch, w, per_row, d2_row) -> list[dict]:
     """Phase 3, the margins and scatter kernels: every variant of the path
-    against its plain version."""
+    against its plain version and against a second launch, bit for bit."""
     import torch
 
     from photon_ml_tpu_torch import kernels
@@ -241,7 +241,7 @@ def check_kernels(batch, w, per_row, d2_row) -> list[dict]:
     }
     rows = []
     for name, cases in variants.items():
-        worst, timed = run_variants(name, cases, deterministic=False)
+        worst, timed = run_variants(name, cases)
         src, replaces, label, nbytes, flops, lib = specs[name]
         rows.append(kernel_row(name, src, replaces, worst, timed, label, nbytes, flops, lib))
     return rows
@@ -312,11 +312,15 @@ def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
     }
     rows = []
     for name, cases in variants.items():
-        worst, timed = run_variants(name, cases, deterministic=True)
+        worst, timed = run_variants(name, cases)
         src, replaces, label, words, extra_words, flops, lib, lib_note = specs[name]
-        floor_ms = 4 * (words + extra_words) / PEAK_BYTES_PER_S * 1e3
+        # not a measurement: the bytes the two layouts make this design move,
+        # over the HBM rate, for the kernel table beside the bound
+        print(f"design floor {name}: two-layout bytes={4 * (words + extra_words)} "
+              f"floor_ms={4 * (words + extra_words) / PEAK_BYTES_PER_S * 1e3:.4f} (computed)",
+              flush=True)
         rows.append(kernel_row(name, src, replaces, worst, timed, label, 4 * words, flops,
-                               lib, library_note=lib_note, two_layout_floor_ms=floor_ms))
+                               lib, library_note=lib_note))
     return rows
 
 

@@ -1,13 +1,15 @@
 // One templated row pass over a CSR matrix on Hopper (sm_90a), shared by the
-// fused kernels (margins_pair.cu, value_grad.cu, hessian_vector.cu).
+// margins kernel and the fused kernels (margins.cu, margins_pair.cu,
+// value_grad.cu, hessian_vector.cu).
 //
 // A group of G lanes (a power of two <= 32, from the mean row length) owns a
 // row and gathers one or two coefficient tables over the row's nonzeros in a
-// single sweep of cols/vals:
+// single sweep of cols/vals; consecutive lanes read consecutive nonzeros, so
+// the loads coalesce:
 //   acc0 = sum_k vals_k * table0[cols_k] + shift0
 //   acc1 = sum_k vals_k * table1[cols_k] + shift1        (two-table epilogues)
-// The lane sums are fmaf chains reduced by a fixed __shfl_xor_sync tree, as in
-// margins.cu. An epilogue, chosen as a template parameter, turns (acc0, acc1)
+// The lane sums are fmaf chains reduced by a fixed __shfl_xor_sync tree. An
+// epilogue, chosen as a template parameter, turns (acc0, acc1)
 // into per-row outputs and, where the TPU kernel returns data sums, adds its
 // terms to per-thread partials. Each block reduces its partials in a fixed
 // order and writes them to partials[blockIdx.x]; finish_sums_kernel then sums

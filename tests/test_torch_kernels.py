@@ -242,6 +242,7 @@ def cuda():
     (1000, 300, 0.003),   # ~1 nnz/row: lane groups of 1-2
     (2000, 500, 0.02),    # ~10 nnz/row: groups of 16
     (513, 4000, 0.05),    # ~200 nnz/row: full warps, w staged in shared memory
+    (700, 30_000, 0.001), # w staged above the 48 KB default
     (300, 60_000, 0.001), # w too large to stage: read through the cache
 ])
 def test_margins_kernel_matches_plain(cuda, n, f, density):
@@ -252,10 +253,12 @@ def test_margins_kernel_matches_plain(cuda, n, f, density):
     before = kernels.LAUNCHES["csr_margins"]
     for sh, use in ((shift, True), (0.0, False), (-1.5, True)):
         got = kernels.csr_margins(b.row_ptr, b.cols, b.vals, w, b.offsets, sh, use)
+        again = kernels.csr_margins(b.row_ptr, b.cols, b.vals, w, b.offsets, sh, use)
         want = reference.csr_margins(b.row_ptr, b.cols, b.vals, w, b.offsets, sh, use)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert kernels.LAUNCHES["csr_margins"] == before + 3
+        assert torch.equal(got, again)
+    assert kernels.LAUNCHES["csr_margins"] == before + 6
 
 
 @pytest.mark.cuda
