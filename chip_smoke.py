@@ -9,24 +9,31 @@ Phases, in order; any failure exits non-zero before the last line:
   2. build the Hopper kernels from ``photon_ml_tpu_torch/csrc`` with nvcc
      (into ``build/kernels/``);
   3. at full width (1M rows x 10K features x 20 nnz/row, bench.py config #1's
-     data from ``--seed``) hold each kernel against its plain PyTorch version
-     on the card (and each kernel against itself: two launches must agree
-     bit for bit), and time kernel, plain version and the library
-     yardstick where one PyTorch call computes the same function (never
-     used by the port);
+     data from ``--seed``; the ELL margins kernel also on skewed row
+     lengths) hold each kernel against its plain PyTorch version on the
+     card (and each kernel against itself: two launches must agree bit for
+     bit), and time kernel, plain version and the library yardstick where
+     one PyTorch call computes the same function (never used by the port);
   4. train at a reduced size (64K x 2K) on the card and on the CPU (plain
      versions) with LBFGS, TRON, OWLQN and box-constrained Poisson LBFGS:
      same convergence reason and iteration count, final loss within rtol 1e-4;
-  5. the paths, each through ``train_glm`` at full width, with the kernels'
-     launch counts zeroed just before it and read just after (a kernel of
-     the path that did not launch fails the run):
-       5.  bench.py config #1: logistic, lambdas [10, 1], LBFGS 20
-           iterations at tolerance 0, with variances;
+  5. the paths, each at full width through the entry point a user calls,
+     with the kernels' launch counts zeroed just before it and read just
+     after (a kernel of the path that did not launch fails the run):
+       5.  bench.py config #1 through ``train_glm``: logistic, lambdas
+           [10, 1], LBFGS 20 iterations at tolerance 0, with variances;
        5b. bench_suite.py config #2: squared, TRON, L2 1, 10 iterations;
        5c. its elastic-net half: OWLQN, l1 = l2 = 0.5, 20 iterations;
        5d. config #3: Poisson with offsets, L2 1, box [-0.5, 0.5], LBFGS 20
            iterations;
        5e. TRON with the box [-0.5, 0.5] on config #2's data, 3 iterations;
+       6.  bench_game.py config #4 through ``GameEstimator.fit``: a 10K-feature
+           fixed effect (LBFGS 20 iterations, L2 1) plus a 10-feature
+           per-user random effect over 100K users (batched NEWTON, tolerance
+           1e-7), 2 coordinate-descent iterations; the second of two fits is
+           timed, as bench_game.py times it;
+       7.  the ELL probe (``photon_ml_tpu_torch.tools.probe_ell``) at 1M x 10K
+           x 20: ELL against CSR ``dot_rows``, both timed;
   6. print the ``kernels`` JSON line, the card again, and the result line
      ``{"ok": true, "device": {...}}``.
 
@@ -39,7 +46,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 import warnings
@@ -49,6 +55,9 @@ import numpy as np
 N_ROWS = 1_000_000
 N_FEATURES = 10_000
 NNZ_PER_ROW = 20
+GAME_USERS = 100_000  # bench_game.py config #4: users, RE features, CD iterations
+GAME_RE_FEATURES = 10
+GAME_CD_ITERATIONS = 2
 SMALL_ROWS = 65_536
 SMALL_FEATURES = 2_048
 KERNEL_REL_TOL = 1e-4  # max |kernel - plain| / max(1, max |plain|)
@@ -57,14 +66,6 @@ LOSS_RTOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def make_problem(seed: int, n_rows: int, n_features: int, nnz_per_row: int):
@@ -99,24 +100,10 @@ def make_suite_problem(rng, n_rows: int, n_features: int, nnz_per_row: int, kind
 
 
 def device_ms(fn, reps: int = 30) -> float:
-    """Median device time of one call, by CUDA events. A sleep kernel ahead of
-    each start event keeps the host's launch cost out of the window."""
-    import torch
+    """Median device time of one call, by CUDA events (the probe's timer)."""
+    from photon_ml_tpu_torch.tools.probe_ell import device_ms as timed
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+    return timed(fn, reps)
 
 
 def compare(name: str, got, want) -> tuple[float, float]:
@@ -324,6 +311,47 @@ def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
     return rows
 
 
+def check_ell_kernel(values, rows, cols, y, w, offsets, seed: int, csr_lib_ms) -> dict:
+    """Phase 3, the ELL margins kernel: at full width on config #1's arrays,
+    and on a batch of skewed row lengths (mean ~20, up to 256 slots, so most
+    slots are padding), against its plain version and a second launch."""
+    import dataclasses
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.kernels import reference
+    from photon_ml_tpu_torch.ops.ell import ELLBatch
+
+    ell = dataclasses.replace(ELLBatch.from_coo(values, rows, cols, y, N_FEATURES),
+                              offsets=offsets)
+    rng = np.random.default_rng(seed + 2)
+    lengths = np.minimum(rng.geometric(0.05, size=N_ROWS // 10), 256)
+    s_rows = np.repeat(np.arange(len(lengths)), lengths)
+    skewed = ELLBatch.from_coo(rng.normal(size=len(s_rows)), s_rows,
+                               rng.integers(0, N_FEATURES, size=len(s_rows)),
+                               np.zeros(len(lengths)), N_FEATURES)
+    shift = 0.25
+
+    def case(label, b, sh, use):
+        return (label, lambda: kernels.ell_margins(b.vals, b.cols, w, b.offsets, sh, use),
+                lambda: reference.ell_margins(b.vals, b.cols, w, b.offsets, sh, use))
+
+    worst, timed = run_variants("ell_margins", [
+        case("margins+offsets+shift", ell, shift, True),
+        case("dot_rows", ell, 0.0, False),
+        case("skewed dot_rows", skewed, 0.0, False),
+    ])
+    n_slots, n_pad = ell.vals.shape
+    print(f"ell layout: slots_per_row={n_slots} n_pad={n_pad}; skewed: "
+          f"slots_per_row={skewed.vals.shape[0]} rows={len(lengths)} nnz={len(s_rows)}",
+          flush=True)
+    # bytes: the slots (value + column, padding included), w, one output per
+    # padded row; the library yardstick is row 1's, torch.mv of the CSR
+    return kernel_row("ell_margins", "photon_ml_tpu_torch/csrc/ell_margins.cu",
+                      "tools/probe_ell.py:26", worst, timed, "dot_rows",
+                      4 * (2 * n_slots * n_pad + N_FEATURES + n_pad), 2 * len(values),
+                      csr_lib_ms)
+
+
 def solver_config(kind: str, max_iterations: int):
     """LBFGS or TRON with L2, or OWLQN with elastic net at alpha 0.5; tolerance 0."""
     from photon_ml_tpu_torch.optim.factory import (
@@ -467,14 +495,15 @@ def run_path(label, batch, task, lambdas, cfg, required, constraints=None,
 
 
 def profile_solve(label, run) -> dict:
-    """--profile: device-busy share of one cold solve ``run()``."""
+    """--profile: device-busy share of one cold solve ``run()``, which returns
+    its iteration count (or None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        (entry,) = run()
+        iterations = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel events only: an operator's device time repeats its kernels'
@@ -489,7 +518,7 @@ def profile_solve(label, run) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     report = {
         "path": label,
-        "iterations": entry.result.iterations,
+        "iterations": iterations,
         "wall_s": wall,
         "device_busy_s": busy_s if busy_s > 0 else None,
         "device_busy_share": busy_s / wall if busy_s > 0 else None,
@@ -497,6 +526,171 @@ def profile_solve(label, run) -> dict:
     }
     print("profile " + json.dumps(report), flush=True)
     return report
+
+
+def make_game_problem(seed: int):
+    """bench_game.py:49-81's data, the same draws in the same order: a sparse
+    fixed-effect shard, dense per-user features over 100K users, and labels
+    from a planted logistic model with both effects."""
+    rng = np.random.default_rng(seed)
+    nnz = N_ROWS * NNZ_PER_ROW
+    fe_rows = np.repeat(np.arange(N_ROWS, dtype=np.int64), NNZ_PER_ROW)
+    fe_cols = rng.integers(0, N_FEATURES, size=nnz)
+    fe_vals = rng.normal(size=nnz)
+    w_true = rng.normal(size=N_FEATURES) * 0.5
+    users = rng.integers(0, GAME_USERS, size=N_ROWS)
+    Xu = rng.normal(size=(N_ROWS, GAME_RE_FEATURES))
+    wu_true = rng.normal(size=(GAME_USERS, GAME_RE_FEATURES)) * 0.5
+    margins = np.bincount(fe_rows, weights=fe_vals * w_true[fe_cols], minlength=N_ROWS)
+    margins += np.einsum("ij,ij->i", Xu, wu_true[users])
+    y = (rng.random(N_ROWS) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
+    return fe_vals, fe_rows, fe_cols, users, Xu, y
+
+
+def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
+    """Path 6: GLMix config #4 through ``GameEstimator.fit`` as bench_game.py
+    drives it: the random-effect build timed alone, one fit, then the second
+    fit timed with the launch counts zeroed just before it. Fails unless the
+    fixed effect's margins and scatter kernels launched, its loss fell in
+    every coordinate-descent iteration, every coefficient is finite, and the
+    GLMix model's train AUC beats its fixed effect's alone."""
+    import dataclasses
+
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.evaluation.evaluators import auc
+    from photon_ml_tpu_torch.game import (
+        FeatureShard,
+        FixedEffectConfig,
+        GameConfig,
+        GameEstimator,
+        RandomEffectConfig,
+        build_game_dataset,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
+    from photon_ml_tpu_torch.optim.factory import OptimizerType
+
+    t0 = time.perf_counter()
+    fe_vals, fe_rows, fe_cols, users, Xu, y = make_game_problem(seed)
+    ru_rows, ru_cols = np.nonzero(Xu)
+    gds = build_game_dataset(y, {
+        "global": FeatureShard.from_coo(fe_vals, fe_rows, fe_cols, N_FEATURES),
+        "user": FeatureShard.from_coo(Xu[ru_rows, ru_cols], ru_rows, ru_cols, GAME_RE_FEATURES),
+    }, id_columns={"userId": users})
+    del fe_vals, fe_rows, fe_cols, Xu, ru_rows, ru_cols
+    print(f"data: bench_game config #4 {N_ROWS} rows, FE {N_FEATURES} x {NNZ_PER_ROW} nnz/row, "
+          f"RE {GAME_RE_FEATURES} dense over {GAME_USERS} users, "
+          f"setup_s={time.perf_counter() - t0:.2f}", flush=True)
+
+    opt = dataclasses.replace(solver_config("lbfgs", 20), regularization_weight=1.0)
+    re_opt = dataclasses.replace(opt, optimizer_type=OptimizerType.NEWTON, tolerance=1e-7)
+    config = GameConfig(task="logistic", num_iterations=GAME_CD_ITERATIONS, coordinates={
+        "fixed": FixedEffectConfig(shard_name="global", optimizer=opt),
+        "per-user": RandomEffectConfig(shard_name="user", id_name="userId", optimizer=re_opt),
+    })
+    t0 = time.perf_counter()
+    red = build_random_effect_dataset(gds, "userId", "user")
+    re_build_s = time.perf_counter() - t0
+    buckets = [(b.num_entities, b.rows_per_entity, b.num_local_features) for b in red.buckets]
+    total_coeffs = N_FEATURES + sum(e * k for e, _, k in buckets)
+    del red
+
+    est = GameEstimator(config)
+    t0 = time.perf_counter()
+    est.fit(gds)
+    torch.cuda.synchronize()
+    first_fit_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = est.fit(gds)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+    peak = torch.cuda.max_memory_allocated()
+
+    bad = []
+    model = result.model
+    fe = model.models["fixed"]
+    coeffs = [fe.coefficients] + [b.coefficients for b in model.models["per-user"].buckets]
+    if not all(bool(c.isfinite().all()) for c in coeffs):
+        bad.append("non-finite coefficients")
+    newton = []
+    for entry in result.history:
+        it, name = entry["iteration"], entry["coordinate"]
+        if name == "fixed":
+            (res,) = entry["results"]
+            loss0, loss = float(res.values[0]), float(res.value)
+            print(f"path 6 cd={it} fixed: iterations={res.iterations} "
+                  f"reason={CONVERGENCE_REASON_NAMES[res.reason]} loss0={loss0:.7g} "
+                  f"loss={loss:.7g} seconds={entry['seconds']:.4f}", flush=True)
+            if not loss < loss0:
+                bad.append(f"fixed-effect loss did not fall in CD iteration {it}")
+            continue
+        for b, res in enumerate(entry["results"]):
+            reasons = torch.bincount(res.reason.long(), minlength=5).tolist()
+            row = {"cd": it, "bucket": b, "entities_rows_k": buckets[b],
+                   "max_iterations": int(res.iterations.max()),
+                   "reasons": {CONVERGENCE_REASON_NAMES[r]: c for r, c in enumerate(reasons)
+                               if c}}
+            newton.append(row)
+            print(f"path 6 cd={it} per-user newton {json.dumps(row)}", flush=True)
+        print(f"path 6 cd={it} per-user: seconds={entry['seconds']:.4f}", flush=True)
+    labels, weights = gds.per_row(gds.response), gds.per_row(gds.weight)
+    glmix_auc = float(auc(model.score(gds) + gds.per_row(gds.offset), labels, weights))
+    fe_auc = float(auc(fe.score(gds) + gds.per_row(gds.offset), labels, weights))
+    if not glmix_auc > fe_auc:
+        bad.append(f"GLMix train auc {glmix_auc} <= fixed effect alone {fe_auc}")
+    coeffs_per_s = total_coeffs * GAME_CD_ITERATIONS / elapsed
+    stats = {"elapsed_s": elapsed, "first_fit_s": first_fit_s, "re_build_s": re_build_s,
+             "coeffs_per_s": coeffs_per_s, "total_coeffs": total_coeffs,
+             "buckets": buckets, "newton": newton, "host_syncs": syncs,
+             "max_memory_allocated": peak, "train_auc": glmix_auc, "fe_only_auc": fe_auc}
+    print(f"path 6: coeffs_per_s={coeffs_per_s:.1f} total_coeffs={total_coeffs} "
+          f"fit_wall_s={elapsed:.4f} first_fit_s={first_fit_s:.4f} re_build_s={re_build_s:.4f} "
+          f"buckets(E,R,K)={buckets} host_syncs={syncs} max_memory_allocated={peak} "
+          f"train_auc={glmix_auc:.6f} fe_only_auc={fe_auc:.6f} "
+          f"launches={json.dumps(launches)}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 6: bad result: {bad}")
+    missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"path 6: kernels not launched: {missing}")
+    prof = None
+    if profile:
+        def refit():
+            est.fit(gds)
+
+        prof = profile_solve("6", refit)
+    return launches, stats, prof
+
+
+def run_probe_path(seed: int) -> tuple[dict, dict]:
+    """Path 7: the ELL probe's entry point at bench.py's shape. Fails unless
+    the ELL kernel launched and agrees with CSR ``dot_rows``."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.tools import probe_ell
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = probe_ell.run_probe(seed=seed)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"path 7: ell_ms={res['ell_ms']:.4f} csr_ms={res['csr_ms']:.4f} "
+          f"csr_over_ell={res['csr_over_ell']:.4f} max_abs_err={res['max_abs_err']:.3e} "
+          f"max_rel_err={res['max_rel_err']:.3e} limit={KERNEL_REL_TOL:.0e} "
+          f"launches={json.dumps(launches)}", flush=True)
+    if launches["ell_margins"] == 0:
+        raise RuntimeError("path 7: kernels not launched: ['ell_margins']")
+    if not res["max_rel_err"] <= KERNEL_REL_TOL:
+        raise RuntimeError("path 7: ELL and CSR dot_rows disagree")
+    return launches, res
 
 
 def main() -> int:
@@ -513,11 +707,12 @@ def main() -> int:
         return 1
     from photon_ml_tpu_torch.kernels import build
     from photon_ml_tpu_torch.ops.csr import CSRBatch
+    from photon_ml_tpu_torch.tools.probe_ell import card_line
     from photon_ml_tpu_torch.training import train_glm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = nvidia_smi_line()
+    card = card_line()
     print(f"card: {card}", flush=True)
 
     t0 = time.perf_counter()
@@ -540,6 +735,8 @@ def main() -> int:
     d2_row = s * (1.0 - s)
     kernel_rows = check_kernels(probe, w, s - batch.labels, d2_row)
     kernel_rows += check_fused_kernels(probe, w, v, d2_row)
+    kernel_rows.append(check_ell_kernel(values, rows, cols, y, w, offsets, args.seed,
+                                        kernel_rows[0]["library_ms"]))
     del probe, z, s, d2_row
 
     check_small_parity(args.seed)
@@ -550,7 +747,7 @@ def main() -> int:
         required=("csr_margins", "csc_scatter"), compute_variances=True, min_auc=0.6)
     if args.profile:
         prof["5"] = profile_solve("5", lambda: train_glm(
-            batch, "logistic", [1.0], solver_config("lbfgs", 10)))
+            batch, "logistic", [1.0], solver_config("lbfgs", 10))[0].result.iterations)
     del batch
 
     # bench_suite.py configs #2 and #3: the linear problem first, then the
@@ -582,8 +779,13 @@ def main() -> int:
                                                 constraints=constraints)
         if args.profile:
             prof[label] = profile_solve(label, lambda: train_glm(
-                pbatch, task, [1.0], cfg, constraints=constraints))
+                pbatch, task, [1.0], cfg, constraints=constraints)[0].result.iterations)
     del linear, poisson
+
+    by_path["6"], train["6"], game_prof = run_game_path(args.seed, args.profile)
+    if game_prof is not None:
+        prof["6"] = game_prof
+    by_path["7"], train["7"] = run_probe_path(args.seed)
 
     for row in kernel_rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()
@@ -595,7 +797,7 @@ def main() -> int:
                        "profile": prof}, fh, indent=1)
 
     print(json.dumps({"kernels": kernel_rows}), flush=True)
-    print(nvidia_smi_line(), flush=True)
+    print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ the CSR as ``csr = (row_ptr, cols, vals)`` and its CSC mirror as
 ``csc = (col_ptr, rows, vals)``. One call of ``value_grad``, ``hv`` or
 ``hv_at`` is one C call that launches the row pass, the fixed-order sum of
 its block partials and the CSC scatter; it counts once, under its own name.
+``ell_margins`` takes the slot-major ELL layout of ``ops/ell.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ LAUNCHES: dict[str, int] = {
     "value_grad": 0,
     "hv": 0,
     "hv_at": 0,
+    "ell_margins": 0,
 }
 
 # the loss codes of csrc/losses.cuh
@@ -40,7 +42,7 @@ _HV_LOSSES = ("logistic", "squared", "poisson")
 # resident block count (4 blocks of 512 threads on each of 132 SMs)
 _MAX_BLOCKS = 2048
 
-_INT_ARGS = ("row_ptr", "cols", "col_ptr", "rows")
+_INT_ARGS = ("row_ptr", "cols", "col_ptr", "rows", "ell_cols")
 
 
 def reset_launch_counts() -> None:
@@ -151,6 +153,40 @@ def csr_margins(
         )
     _raise_on("csr_margins", lib, rc)
     LAUNCHES["csr_margins"] += 1
+    return out
+
+
+def ell_margins(
+    vals: Tensor,
+    cols: Tensor,
+    w: Tensor,
+    offsets: Tensor,
+    shift: Tensor | float,
+    use_offsets: bool,
+) -> Tensor:
+    """Per-row margins of a slot-major ELL layout (``vals``/``cols``
+    ``[S, n_pad]``, n_pad a multiple of 128): sum_s vals[s,r]*w[cols[s,r]] +
+    shift (+ offsets) for the n = len(offsets) real rows."""
+    dev = vals.device
+    if not _on_cuda("ell_margins", dev):
+        return reference.ell_margins(vals, cols, w, offsets, shift, use_offsets)
+    _check("ell_margins", dev, ell_cols=cols, vals=vals, w=w, offsets=offsets)
+    n = offsets.numel()
+    if (vals.dim() != 2 or cols.shape != vals.shape or w.dim() != 1
+            or vals.shape[1] % 128 != 0 or vals.shape[1] < n):
+        raise ValueError("ell_margins: vals and cols must be [S, n_pad] with n_pad a "
+                         "multiple of 128 and >= len(offsets); w must be 1-D")
+    shift_ptr, shift_host = _shift_args("ell_margins", dev, shift)
+    lib = load_library()
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.photon_ell_margins(
+            vals.data_ptr(), cols.data_ptr(), w.data_ptr(),
+            offsets.data_ptr() if use_offsets else None, shift_ptr, shift_host,
+            out.data_ptr(), n, vals.shape[1], vals.shape[0], w.numel(), _stream(dev),
+        )
+    _raise_on("ell_margins", lib, rc)
+    LAUNCHES["ell_margins"] += 1
     return out
 
 

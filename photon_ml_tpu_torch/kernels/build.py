@@ -121,6 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.photon_hessian_vector.restype = i
     lib.photon_hv_at.argtypes = [p] * 8 + [p, f, p, p, i, p, p, i, i, i, i, p]
     lib.photon_hv_at.restype = i
+    lib.photon_ell_margins.argtypes = [p, p, p, p, p, f, p, i, i, i, i, p]
+    lib.photon_ell_margins.restype = i
     lib.photon_cuda_error_string.argtypes = [i]
     lib.photon_cuda_error_string.restype = ctypes.c_char_p
 

@@ -50,6 +50,31 @@ def csr_margins(
     return z
 
 
+def ell_margins(
+    vals: Tensor,
+    cols: Tensor,
+    w: Tensor,
+    offsets: Tensor,
+    shift: Tensor | float,
+    use_offsets: bool,
+) -> Tensor:
+    """z_r = sum_s vals[s, r] * w[cols[s, r]] for the n = len(offsets) real
+    rows of a slot-major ELL layout, + shift (+ offsets_r).
+
+    The slots are summed one after another, in slot order: on the CPU that
+    is the order in which ``csr_margins``'s ``index_add_`` adds a row's
+    nonzeros, so the two layouts give the same float32 margins there.
+    """
+    n = offsets.numel()
+    z = torch.zeros(n, dtype=vals.dtype, device=vals.device)
+    for s in range(vals.shape[0]):
+        z = z + vals[s, :n] * w.index_select(0, cols[s, :n])
+    z = z + shift
+    if use_offsets:
+        z = z + offsets
+    return z
+
+
 def csc_scatter(
     col_ptr: Tensor, rows: Tensor, vals: Tensor, per_row: Tensor, square: bool
 ) -> Tensor:

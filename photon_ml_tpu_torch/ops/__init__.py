@@ -1,2 +1,2 @@
-"""Sparse batches, losses and the GLM objective (counterpart of
-``photon_ml_tpu/ops``)."""
+"""Batch layouts (COO, CSR, dense entity buckets, ELL), losses and the GLM
+objective (counterpart of ``photon_ml_tpu/ops``)."""

@@ -7,7 +7,9 @@ factor the margins and derivatives run against the raw sparse x:
     z_i  = x_i . (w * factor) - (w * factor) . shift + offset_i
     grad = factor * scatter(dz) - (factor * shift) * sum(dz)
 The margin shift stays a 0-d device tensor, so no host sync enters a pass.
-``dense_hessian`` is not ported yet.
+Over a ``DenseBatch`` bucket the coefficients are ``[E, K]`` and every
+method returns one value per entity (what the reference gets from ``vmap``);
+``dense_hessian`` gives the explicit ``[E, K, K]`` Hessians Newton factors.
 """
 
 from __future__ import annotations
@@ -42,18 +44,20 @@ class GLMObjective:
     # -- normalization algebra --------------------------------------------
 
     def _effective(self, w: Tensor) -> tuple[Tensor, Tensor | float]:
-        """(w * factor, margin shift -(w*factor).shifts)."""
+        """(w * factor, margin shift -(w*factor).shifts); per entity for [E, K]."""
         w_eff = w if self.factors is None else w * self.factors
         if self.shifts is None:
             return w_eff, 0.0
-        return w_eff, -torch.dot(w_eff, self.shifts)
+        if w.dim() == 1:
+            return w_eff, -torch.dot(w_eff, self.shifts)
+        return w_eff, -(w_eff @ self.shifts)
 
     def _back_transform_vec(self, raw: Tensor, row_total: Tensor) -> Tensor:
         """factor * raw - (factor * shift) * row_total."""
         out = raw if self.factors is None else raw * self.factors
         if self.shifts is not None:
             fs = self.shifts if self.factors is None else self.factors * self.shifts
-            out = out - fs * row_total
+            out = out - fs * (row_total if raw.dim() == 1 else row_total.unsqueeze(-1))
         return out
 
     def margins(self, w: Tensor, batch) -> Tensor:
@@ -69,7 +73,7 @@ class GLMObjective:
         )
         grad = self._back_transform_vec(raw_grad, row_total)
         l2 = self.l2_weight
-        return data_value + 0.5 * l2 * torch.dot(w, w), grad + l2 * w
+        return data_value + 0.5 * l2 * sqnorm(w), grad + l2 * w
 
     def value_and_grad_at_margins(
         self, w: Tensor, z: Tensor, batch
@@ -86,7 +90,7 @@ class GLMObjective:
     def value(self, w: Tensor, batch) -> Tensor:
         z = self.margins(w, batch)
         l = self.loss.loss(z, batch.labels)
-        return torch.sum(batch.weights * l) + 0.5 * self.l2_weight * torch.dot(w, w)
+        return torch.sum(batch.weights * l, dim=-1) + 0.5 * self.l2_weight * sqnorm(w)
 
     # -- second order ------------------------------------------------------
 
@@ -127,10 +131,31 @@ class GLMObjective:
                 diag = f * f * (raw_sq - 2.0 * s * raw_lin + s * s * total)
         return diag + self.l2_weight
 
+    def dense_hessian(self, w: Tensor, batch) -> Tensor:
+        """H(w) = X'^T diag(wgt * l'') X' + l2 I as a dense [K, K] per entity
+        ([E, K, K] for a bucket; ``ops/objective.py:215-232``), for small K.
+        Normalization materializes X' = (X - shift) * factor on the dense
+        design."""
+        z = self.margins(w, batch)
+        d2 = batch.weights * self.loss.d2z(z, batch.labels)
+        X = batch.dense_rows()
+        if self.shifts is not None:
+            X = X - self.shifts
+        if self.factors is not None:
+            X = X * self.factors
+        H = (X * d2.unsqueeze(-1)).transpose(-1, -2) @ X
+        eye = torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+        return H + self.l2_weight * eye
+
     # -- plumbing ----------------------------------------------------------
 
     def with_l2(self, l2_weight: float) -> "GLMObjective":
         return dataclasses.replace(self, l2_weight=float(l2_weight))
+
+
+def sqnorm(w: Tensor) -> Tensor:
+    """w.w, per entity for [E, K] coefficients."""
+    return torch.dot(w, w) if w.dim() == 1 else torch.sum(w * w, dim=-1)
 
 
 def make_objective(

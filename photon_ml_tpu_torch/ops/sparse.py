@@ -112,6 +112,13 @@ class SparseBatch:
             num_features=X.shape[1], offsets=offsets, weights=weights, device=device,
         )
 
+    def dense_rows(self) -> Tensor:
+        """Densify on the device: [num_rows, num_features], for small feature
+        dimensions (``ops/sparse.py:191-196``)."""
+        X = torch.zeros((self.num_rows, self.num_features), dtype=self.values.dtype,
+                        device=self.values.device)
+        return X.index_put_((self.rows, self.cols), self.values, accumulate=True)
+
     def _row_sums(self, contrib: Tensor) -> Tensor:
         return torch.zeros(
             self.num_rows, dtype=contrib.dtype, device=contrib.device

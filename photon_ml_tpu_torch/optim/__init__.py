@@ -1,6 +1,6 @@
 """Optimizers (counterpart of ``photon_ml_tpu/optim``): LBFGS with the
-strong-Wolfe line search, OWLQN with the backtracking search, TRON, and the
-GLM adapter."""
+strong-Wolfe line search, OWLQN with the backtracking search, TRON, the
+batched Newton of random-effect buckets, and the GLM adapter."""
 
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import (
@@ -10,6 +10,7 @@ from photon_ml_tpu_torch.optim.common import (
     SolveResult,
 )
 from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
+from photon_ml_tpu_torch.optim.newton import NewtonConfig, newton_solve
 from photon_ml_tpu_torch.optim.owlqn import owlqn_solve, pseudo_gradient
 from photon_ml_tpu_torch.optim.tron import TRONConfig, tron_solve
 
@@ -17,11 +18,13 @@ __all__ = [
     "CONVERGENCE_REASON_NAMES",
     "BoxConstraints",
     "LBFGSConfig",
+    "NewtonConfig",
     "Objective",
     "SolveResult",
     "TRONConfig",
     "glm_adapter",
     "lbfgs_solve",
+    "newton_solve",
     "owlqn_solve",
     "pseudo_gradient",
     "tron_solve",

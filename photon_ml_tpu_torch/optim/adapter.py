@@ -2,10 +2,13 @@
 margin-space line search.
 
 Counterpart of ``glm_adapter`` in ``photon_ml_tpu/optim/adapter.py``
-(:35-171), without the dense ``hessian`` of Newton. Along a direction p the
-margins are affine, z(a) = z + a*u with u = X'p computed once per line
-search, so each Wolfe trial is O(n) elementwise work on the carried margins
-instead of a pass over the nonzeros.
+(:35-171). Along a direction p the margins are affine, z(a) = z + a*u with
+u = X'p computed once per line search, so each Wolfe trial is O(n)
+elementwise work on the carried margins instead of a pass over the nonzeros.
+Over a ``DenseBatch`` bucket the adapter is batched (``dense_adapter``): it
+adds the explicit Hessians, and its oracle evaluates a whole vector of step
+sizes for every entity at once (what ``vmap`` over the step sizes gives the
+reference's Newton, ``optim/newton.py:117-128``).
 The reference's ``axis_name``/``row_sharding`` (multi-device) arguments are
 not ported.
 """
@@ -16,7 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from photon_ml_tpu_torch.ops.objective import GLMObjective
+from photon_ml_tpu_torch.ops.dense import DenseBatch
+from photon_ml_tpu_torch.ops.objective import GLMObjective, sqnorm
 from photon_ml_tpu_torch.optim.common import Objective
 
 Tensor = torch.Tensor
@@ -34,6 +38,8 @@ class _LSCarry(NamedTuple):
 
 def glm_adapter(obj: GLMObjective, batch) -> Objective:
     """Build the optimizer-facing adapter for a GLM objective over a batch."""
+    if isinstance(batch, DenseBatch):
+        return dense_adapter(obj, batch)
     loss = obj.loss
     l2 = obj.l2_weight
 
@@ -102,4 +108,48 @@ def glm_adapter(obj: GLMObjective, batch) -> Objective:
         hvp=hvp,
         curvature=curvature,
         hvp_at=hvp_at,
+    )
+
+
+def dense_adapter(obj: GLMObjective, batch: DenseBatch) -> Objective:
+    """The batched adapter over a bucket of dense per-entity problems:
+    coefficients ``[E, K]``, values ``[E]``, Hessians ``[E, K, K]``."""
+    loss = obj.loss
+    l2 = obj.l2_weight
+
+    def value_and_grad(w):
+        return obj.value_and_grad(w, batch)
+
+    def value(w):
+        return obj.value(w, batch)
+
+    def ls_prepare(w, p):
+        p_eff, p_shift = obj._effective(p)
+        w_eff, w_shift = obj._effective(w)
+        z, u = batch.margins_pair(w_eff, w_shift, p_eff, p_shift)
+        return _LSCarry(z=z, u=u, w=w, p=p, ww=sqnorm(w), wp=torch.sum(w * p, dim=-1),
+                        pp=sqnorm(p))
+
+    def ls_eval(carry: _LSCarry, alphas: Tensor):
+        """(phi, dphi) [E, A] at the step sizes ``alphas`` [A]."""
+        a = alphas.reshape(1, -1)
+        z_a = carry.z.unsqueeze(1) + a.unsqueeze(-1) * carry.u.unsqueeze(1)  # [E, A, R]
+        l, dz = loss.loss_and_dz(z_a, batch.labels.unsqueeze(1))
+        wgt = batch.weights.unsqueeze(1)
+        ww, wp, pp = carry.ww.unsqueeze(1), carry.wp.unsqueeze(1), carry.pp.unsqueeze(1)
+        phi = torch.sum(wgt * l, dim=-1) + 0.5 * l2 * (ww + 2.0 * a * wp + a * a * pp)
+        dphi = torch.sum(wgt * dz * carry.u.unsqueeze(1), dim=-1) + l2 * (wp + a * pp)
+        return phi, dphi
+
+    hessian = None
+    if loss.has_hessian:
+        def hessian(w):
+            return obj.dense_hessian(w, batch)
+
+    return Objective(
+        value_and_grad=value_and_grad,
+        value=value,
+        ls_prepare=ls_prepare,
+        ls_eval=ls_eval,
+        hessian=hessian,
     )

@@ -3,8 +3,10 @@ semantics, box constraints and the result type.
 
 Counterpart of ``photon_ml_tpu/optim/common.py``. The reference runs its
 loops on the device and decides convergence with ``jnp.where``; the port
-drives its loops from the host, so ``convergence_reason`` takes host
-float32 scalars and mirrors the reference's float32 arithmetic.
+drives its single-problem loops from the host, so ``convergence_reason``
+takes host float32 scalars and mirrors the reference's float32
+arithmetic, while the batched Newton decides every lane on the device
+with ``convergence_reasons``.
 """
 
 from __future__ import annotations
@@ -43,7 +45,10 @@ class Objective(NamedTuple):
     the second-order fields: ``hvp(w, v)`` (a fused Hessian-vector pass),
     and on the margin-carrying path ``curvature(z)`` once per outer step and
     ``hvp_at(d2, v)`` per CG step. They are None for a loss without a
-    Hessian. The reference's dense ``hessian`` comes with Newton.
+    Hessian. Newton uses ``hessian(w)``, the explicit ``[E, K, K]``
+    Hessians of a ``DenseBatch`` bucket (None for the sparse layouts); over
+    a bucket, ``ls_eval(carry, alphas)`` takes a 1-D tensor of step sizes and
+    returns ``(phi, dphi)`` as ``[E, len(alphas)]``.
     """
 
     value_and_grad: Callable[[Tensor], tuple[Tensor, Tensor]]
@@ -58,6 +63,7 @@ class Objective(NamedTuple):
     hvp: Optional[Callable[[Tensor, Tensor], Tensor]] = None
     curvature: Optional[Callable[[Tensor], Tensor]] = None
     hvp_at: Optional[Callable[[Tensor, Tensor], Tensor]] = None
+    hessian: Optional[Callable[[Tensor], Tensor]] = None
 
 
 class BoxConstraints(NamedTuple):
@@ -104,6 +110,28 @@ def fetch_f32(*scalars: Tensor) -> tuple[np.float32, ...]:
     telemetry.counter("host_syncs").inc()
     arr = torch.stack([s.reshape(()) for s in scalars]).to(torch.float32).cpu().numpy()
     return tuple(np.float32(x) for x in arr)
+
+
+def convergence_reasons(
+    iteration: Tensor,
+    value: Tensor,
+    prev_value: Tensor,
+    grad_norm: Tensor,
+    init_value: Tensor,
+    init_grad_norm: Tensor,
+    max_iterations: int,
+    tolerance: float,
+    ls_failed: Tensor,
+) -> Tensor:
+    """``convergence_reason`` on device tensors, one reason per lane (int32),
+    for the batched solves (``photon_ml_tpu/optim/common.py:146-174``)."""
+    tol = torch.tensor(tolerance, dtype=value.dtype, device=value.device)
+    reason = torch.full_like(iteration, NOT_CONVERGED, dtype=torch.int32)
+    reason = torch.where(grad_norm <= tol * init_grad_norm, GRADIENT_CONVERGED, reason)
+    reason = torch.where(torch.abs(value - prev_value) <= tol * torch.abs(init_value),
+                         FUNCTION_VALUES_CONVERGED, reason)
+    reason = torch.where(ls_failed, OBJECTIVE_NOT_IMPROVING, reason)
+    return torch.where(iteration >= max_iterations, MAX_ITERATIONS, reason).to(torch.int32)
 
 
 def convergence_reason(

@@ -3,8 +3,9 @@
 Counterpart of ``photon_ml_tpu/optim/factory.py``: LBFGS handles NONE/L2,
 OWLQN handles L1/ELASTIC_NET (l1 = alpha*lambda, l2 = (1-alpha)*lambda),
 TRON handles NONE/L2 only and needs a twice-differentiable loss. NEWTON
-raises ``NotImplementedError`` naming the ROADMAP item that ports it; it
-never falls back to another optimizer.
+(NONE/L2, twice differentiable) solves a bucket of dense per-entity problems
+with explicit Hessians; an adapter without them (the CSR and COO layouts)
+is refused, never routed to another optimizer.
 """
 
 from __future__ import annotations
@@ -19,17 +20,11 @@ import torch
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optim.common import BoxConstraints, Objective, SolveResult
 from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
+from photon_ml_tpu_torch.optim.newton import NewtonConfig, newton_solve
 from photon_ml_tpu_torch.optim.owlqn import owlqn_solve
 from photon_ml_tpu_torch.optim.tron import TRONConfig, tron_solve
 
 Tensor = torch.Tensor
-
-_NOT_PORTED = (
-    "{} is not ported to photon_ml_tpu_torch yet (ROADMAP.md Queue 1 item 5, "
-    "optim/; it needs DenseBatch and dense_hessian, Queue 1 items 2 and 4); "
-    "use LBFGS, TRON or OWLQN"
-)
-
 
 class OptimizerType(str, Enum):
     LBFGS = "lbfgs"
@@ -77,14 +72,18 @@ class RegularizationContext:
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """Optimizer type, stopping rule, regularization and box constraints
-    (``(feature_index, lower, upper)`` triples). The regularization weight
-    is not a field: ``train_glm`` solves each value of its ``lambdas``."""
+    (``(feature_index, lower, upper)`` triples). ``train_glm`` solves each
+    value of its ``lambdas`` and ignores ``regularization_weight``, the one
+    weight of a GAME coordinate's solves; ``down_sampling_rate`` thins a
+    fixed-effect coordinate's rows."""
 
     optimizer_type: OptimizerType = OptimizerType.LBFGS
     max_iterations: int = 100
     tolerance: float = 1e-7
     regularization: RegularizationContext = RegularizationContext()
+    regularization_weight: float = 0.0
     lbfgs_history: int = 10
+    down_sampling_rate: float = 1.0
     box_constraints: Optional[tuple[tuple[int, float, float], ...]] = None
 
     def dense_box_bounds(self, num_features: int):
@@ -140,10 +139,23 @@ def dispatch_solve(
     constraints: Optional[BoxConstraints] = None,
     device: torch.device | str | None = None,
 ) -> SolveResult:
-    """Route a prebuilt adapter to the configured optimizer: TRON, OWLQN
-    (L1/elastic net, with weight ``l1``) or LBFGS."""
+    """Route a prebuilt adapter to the configured optimizer: NEWTON (a
+    bucket's batched solve), TRON, OWLQN (L1/elastic net, with weight
+    ``l1``) or LBFGS."""
     if config.optimizer_type == OptimizerType.NEWTON:
-        raise NotImplementedError(_NOT_PORTED.format("NEWTON"))
+        if adapter.hessian is None:
+            raise ValueError(
+                "NEWTON needs a dense-Hessian adapter (a DenseBatch bucket; the CSR "
+                "and COO layouts cannot densify)"
+            )
+        if constraints is not None:
+            raise NotImplementedError(
+                "NEWTON with box constraints is not ported to photon_ml_tpu_torch yet "
+                "(ROADMAP.md Queue 1 item 8)"
+            )
+        ncfg = NewtonConfig(max_iterations=config.max_iterations, tolerance=config.tolerance)
+        return newton_solve(adapter.value_and_grad, adapter.hessian, w0, adapter.ls_prepare,
+                            adapter.ls_eval, ncfg, device=device)
     if config.optimizer_type == OptimizerType.TRON:
         tcfg = TRONConfig(max_iterations=config.max_iterations, tolerance=config.tolerance)
         return tron_solve(adapter, w0, tcfg, constraints=constraints, device=device)

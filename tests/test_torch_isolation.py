@@ -105,18 +105,48 @@ def test_train_glm_without_device_raises_without_a_gpu():
         train_glm(batch, "logistic", [1.0], OptimizerConfig(max_iterations=2))
 
 
-@pytest.mark.parametrize("builder", ["csr", "sparse", "model", "normalization"])
+def test_source_walk_covers_the_new_subpackages():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for module in ("game/dataset.py", "game/random_effect_data.py", "game/coordinates.py",
+                   "game/coordinate_descent.py", "game/estimator.py", "game/models.py",
+                   "tools/probe_ell.py", "ops/ell.py", "ops/dense.py", "optim/newton.py"):
+        assert module in rel
+
+
+@pytest.mark.parametrize("builder", ["csr", "sparse", "model", "normalization", "ell",
+                                     "dense", "game_dataset", "game_model", "game_fit",
+                                     "probe"])
 def test_builders_without_device_raise_without_a_gpu(builder):
     _no_gpu()
     from photon_ml_tpu_torch import convert
+    from photon_ml_tpu_torch.game import (
+        FeatureShard,
+        FixedEffectConfig,
+        GameConfig,
+        GameEstimator,
+        build_game_dataset,
+    )
     from photon_ml_tpu_torch.ops.csr import CSRBatch
+    from photon_ml_tpu_torch.ops.dense import DenseBatch
+    from photon_ml_tpu_torch.ops.ell import ELLBatch
     from photon_ml_tpu_torch.ops.sparse import SparseBatch
+    from photon_ml_tpu_torch.tools.probe_ell import run_probe
 
+    coo = _tiny_coo()
+    shards = {"g": FeatureShard.from_coo(coo["values"], coo["rows"], coo["cols"], 2)}
+    cfg = GameConfig(task="logistic", coordinates={"fe": FixedEffectConfig(shard_name="g")})
     calls = {
-        "csr": lambda: CSRBatch.from_coo(**_tiny_coo()),
-        "sparse": lambda: SparseBatch.from_coo(**_tiny_coo()),
+        "csr": lambda: CSRBatch.from_coo(**coo),
+        "sparse": lambda: SparseBatch.from_coo(**coo),
         "model": lambda: convert.model_from_jax("logistic", np.zeros(2)),
         "normalization": lambda: convert.normalization_from_jax(np.ones(2), None, None),
+        "ell": lambda: ELLBatch.from_coo(**coo),
+        "dense": lambda: DenseBatch.from_arrays(np.zeros((1, 2, 2)), np.zeros((1, 2))),
+        "game_dataset": lambda: build_game_dataset(coo["labels"], shards),
+        "game_model": lambda: convert.game_model_from_jax("logistic", {}),
+        "game_fit": lambda: GameEstimator(cfg).fit(
+            build_game_dataset(coo["labels"], shards, device="cpu")),
+        "probe": lambda: run_probe(n=4, d=3, nnz_per_row=1),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[builder]()

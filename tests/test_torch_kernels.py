@@ -18,6 +18,7 @@ import torch
 from photon_ml_tpu_torch import kernels
 from photon_ml_tpu_torch.kernels import build, reference
 from photon_ml_tpu_torch.ops.csr import CSRBatch
+from photon_ml_tpu_torch.ops.ell import ELLBatch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -155,12 +156,15 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
          reference.hessian_vector(csr, csc, *per_row, w, 0.1, v, -0.2, "poisson")),
         (kernels.hv_at(csr, csc, r.abs(), v, 0.3), reference.hv_at(csr, csc, r.abs(), v, 0.3)),
     ]
+    e = ELLBatch.from_csr(b)
+    pairs.append((kernels.ell_margins(e.vals, e.cols, w, e.offsets, 0.5, True),
+                  reference.ell_margins(e.vals, e.cols, w, e.offsets, 0.5, True)))
     for got, want in pairs:
         for g, e in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
             assert torch.equal(g, e)
     assert kernels.LAUNCHES == {k: 0 for k in ("csr_margins", "csc_scatter", "margins_pair",
-                                                "value_grad", "hv", "hv_at")}
+                                                "value_grad", "hv", "hv_at", "ell_margins")}
 
 
 def test_wrappers_refuse_other_devices():
@@ -173,6 +177,7 @@ def test_wrappers_refuse_other_devices():
         lambda: kernels.value_grad((t, t, f), (t, t, f), f, f, f, f, 0.0, "squared"),
         lambda: kernels.hv((t, t, f), (t, t, f), f, f, f, f, 0.0, f, 0.0, "squared"),
         lambda: kernels.hv_at((t, t, f), (t, t, f), f, f, 0.0),
+        lambda: kernels.ell_margins(f, t, f, f, 0.0, False),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
@@ -201,8 +206,8 @@ def test_group_size(nnz, segments, group):
 
 def test_build_sources_and_directory():
     names = [os.path.basename(p) for p in build.sources()]
-    assert names == ["hessian_vector.cu", "margins.cu", "margins_pair.cu", "scatter.cu",
-                     "value_grad.cu"]
+    assert names == ["ell_margins.cu", "hessian_vector.cu", "margins.cu", "margins_pair.cu",
+                     "scatter.cu", "value_grad.cu"]
     assert [os.path.basename(p) for p in build.headers()] == ["losses.cuh", "rowpass.cuh"]
     assert build.BUILD_DIR == os.path.join(REPO, "build", "kernels")
     with open(os.path.join(REPO, ".gitignore")) as fh:
@@ -382,3 +387,39 @@ def test_fused_wrappers_check_their_inputs(cuda):
     with pytest.raises(TypeError):
         kernels.hv(csr, csc, b.labels, b.weights, b.offsets, w, 0.0, v.double(), 0.0,
                    "squared")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,density", [
+    (1000, 300, 0.003),    # ~1 nnz a row, skewed lengths
+    (2000, 1000, 0.02),    # ~20 nnz a row
+    (777, 30_000, 0.001),  # w staged above the 48 KB default; n not a multiple of 128
+    (600, 60_000, 0.0005), # w too large to stage: read through the cache
+])
+def test_ell_margins_kernel_matches_plain_and_is_deterministic(cuda, n, f, density):
+    rng = np.random.default_rng(12)
+    X = rng.normal(size=(n, f)) * (rng.random((n, f)) < density * 2 * rng.random((n, 1)))
+    X[0] = 0.0
+    b = ELLBatch.from_csr(_batch(X, cuda, offsets=rng.normal(size=n)))
+    assert b.vals.shape[1] % 128 == 0 and b.vals.shape[1] >= n
+    w = torch.from_numpy(rng.normal(size=f).astype(np.float32)).to(cuda)
+    before = kernels.LAUNCHES["ell_margins"]
+    for sh, use in ((torch.tensor(0.3, device=cuda), True), (0.0, False)):
+        got = kernels.ell_margins(b.vals, b.cols, w, b.offsets, sh, use)
+        again = kernels.ell_margins(b.vals, b.cols, w, b.offsets, sh, use)
+        want = reference.ell_margins(b.vals, b.cols, w, b.offsets, sh, use)
+        _close("ell_margins", got, want)
+        assert torch.equal(got, again)  # one thread per row, fixed order
+    assert kernels.LAUNCHES["ell_margins"] == before + 4
+
+
+@pytest.mark.cuda
+def test_ell_wrapper_checks_its_inputs(cuda):
+    _, X = _coo(13, 50, 20, 0.2)
+    b = ELLBatch.from_csr(_batch(X, cuda))
+    with pytest.raises(TypeError):
+        kernels.ell_margins(b.vals, b.cols.long(), torch.zeros(20, device=cuda), b.offsets,
+                            0.0, False)
+    with pytest.raises(ValueError, match="n_pad"):
+        kernels.ell_margins(b.vals[:, :64].contiguous(), b.cols[:, :64].contiguous(),
+                            torch.zeros(20, device=cuda), b.offsets, 0.0, False)

@@ -150,9 +150,10 @@ def test_train_glm_preserves_caller_order_and_counts_passes(sweeps):
 
 
 def test_unported_optimizers_raise_not_implemented(world):
-    """NEWTON alone is not ported: it needs DenseBatch and dense_hessian."""
+    """NEWTON solves dense per-entity buckets; on the CSR layout it is
+    refused, as the reference refuses it on TiledBatch (no dense Hessian)."""
     tb, _, _ = world["torch"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="dense-Hessian"):
         t_train(tb, "logistic", [1.0], TCfg(optimizer_type=OptimizerType.NEWTON),
                 device="cpu")
 
