@@ -9,11 +9,12 @@ Phases, in order; any failure exits non-zero before the last line:
   2. build the Hopper kernels from ``photon_ml_tpu_torch/csrc`` with nvcc
      (into ``build/kernels/``);
   3. at full width (1M rows x 10K features x 20 nnz/row, bench.py config #1's
-     data from ``--seed``; the ELL margins kernel also on skewed row
-     lengths) hold each kernel against its plain PyTorch version on the
-     card (and each kernel against itself: two launches must agree bit for
-     bit), and time kernel, plain version and the library yardstick where
-     one PyTorch call computes the same function (never used by the port);
+     data from ``--seed``; the margins and ELL kernels also on skewed row
+     lengths, the scatter also on power-law column lengths) hold each
+     kernel against its plain PyTorch version on the card (and each kernel
+     against itself: two launches must agree bit for bit), and time kernel,
+     plain version and the library yardstick where one PyTorch call computes
+     the same function (never used by the port);
   4. train at a reduced size (64K x 2K) on the card and on the CPU (plain
      versions) with LBFGS, TRON, OWLQN and box-constrained Poisson LBFGS:
      same convergence reason and iteration count, final loss within rtol 1e-4;
@@ -99,6 +100,23 @@ def make_suite_problem(rng, n_rows: int, n_features: int, nnz_per_row: int, kind
     return values, rows, cols, y, offsets
 
 
+def skewed_rows(seed: int):
+    """COO of 100K rows with geometric lengths (mean ~20, capped at 256), as
+    click data has: (values, rows, cols, n_rows)."""
+    rng = np.random.default_rng(seed + 2)
+    lengths = np.minimum(rng.geometric(0.05, size=N_ROWS // 10), 256)
+    rows = np.repeat(np.arange(len(lengths)), lengths)
+    return (rng.normal(size=len(rows)), rows, rng.integers(0, N_FEATURES, size=len(rows)),
+            len(lengths))
+
+
+def power_law_columns(seed: int, nnz: int) -> np.ndarray:
+    """``nnz`` column ids over N_FEATURES drawn Zipf-like (probability of the
+    k-th feature ~ 1/k), as feature frequencies in click data are."""
+    p = 1.0 / np.arange(1, N_FEATURES + 1)
+    return np.random.default_rng(seed + 3).choice(N_FEATURES, size=nnz, p=p / p.sum())
+
+
 def device_ms(fn, reps: int = 30) -> float:
     """Median device time of one call, by CUDA events (the probe's timer)."""
     from photon_ml_tpu_torch.tools.probe_ell import device_ms as timed
@@ -182,9 +200,11 @@ def run_variants(name: str, cases) -> tuple[float, dict]:
     return worst, timed
 
 
-def check_kernels(batch, w, per_row, d2_row) -> list[dict]:
+def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
     """Phase 3, the margins and scatter kernels: every variant of the path
-    against its plain version and against a second launch, bit for bit."""
+    against its plain version and against a second launch, bit for bit;
+    margins also on ``skewed`` rows, the scatter also on ``power_law``
+    columns."""
     import torch
 
     from photon_ml_tpu_torch import kernels
@@ -192,8 +212,11 @@ def check_kernels(batch, w, per_row, d2_row) -> list[dict]:
 
     n, f, nnz = batch.num_rows, batch.num_features, batch.nnz
     shift = torch.tensor(0.25, dtype=torch.float32, device=w.device)
-    b_csr = batch.row_ptr, batch.cols, batch.vals
-    b_csc = batch.col_ptr, batch.csc_rows, batch.csc_vals
+    b_csr, b_csc = batch._csr, batch._csc
+
+    def scatter(label, b, r, square):
+        return (label, lambda: kernels.csc_scatter(*b._csc, r, square, b.tiles),
+                lambda: reference.csc_scatter(*b._csc, r, square))
 
     variants = {
         "csr_margins": [
@@ -201,12 +224,14 @@ def check_kernels(batch, w, per_row, d2_row) -> list[dict]:
              lambda: reference.csr_margins(*b_csr, w, batch.offsets, shift, True)),
             ("dot_rows", lambda: kernels.csr_margins(*b_csr, w, batch.offsets, 0.0, False),
              lambda: reference.csr_margins(*b_csr, w, batch.offsets, 0.0, False)),
+            ("skewed dot_rows",
+             lambda: kernels.csr_margins(*skewed._csr, w, skewed.offsets, 0.0, False),
+             lambda: reference.csr_margins(*skewed._csr, w, skewed.offsets, 0.0, False)),
         ],
         "csc_scatter": [
-            ("scatter", lambda: kernels.csc_scatter(*b_csc, per_row, False),
-             lambda: reference.csc_scatter(*b_csc, per_row, False)),
-            ("scatter_sq", lambda: kernels.csc_scatter(*b_csc, d2_row, True),
-             lambda: reference.csc_scatter(*b_csc, d2_row, True)),
+            scatter("scatter", batch, per_row, False),
+            scatter("scatter_sq", batch, d2_row, True),
+            scatter("power-law scatter", power_law, per_row, False),
         ],
     }
     # bytes each function must move (inputs read once, output written once)
@@ -226,6 +251,12 @@ def check_kernels(batch, w, per_row, d2_row) -> list[dict]:
                             *b_csc, size=(f, n), check_invariants=False),
                             lambda m: torch.mv(m, per_row))),
     }
+    for label, b in (("config #1", batch), ("power-law", power_law)):
+        t = b.tiles
+        print(f"scatter tiles, {label}: tile_rows={t.tile_rows} piece_len={t.piece_len} "
+              f"slots={t.n_slots} pieces={t.n_pieces} index_bytes={4 * t.index.numel()} "
+              f"part_bytes={4 * 32 * t.n_pieces} longest column "
+              f"{int(torch.diff(b.col_ptr).max())} nnz", flush=True)
     rows = []
     for name, cases in variants.items():
         worst, timed = run_variants(name, cases)
@@ -245,18 +276,17 @@ def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
     from photon_ml_tpu_torch.kernels import reference
 
     n, f, nnz = batch.num_rows, batch.num_features, batch.nnz
-    csr = batch.row_ptr, batch.cols, batch.vals
-    csc = batch.col_ptr, batch.csc_rows, batch.csc_vals
+    csr, csc, tiles = batch._csr, batch._csc, batch.tiles
     rows3 = batch.labels, batch.weights, batch.offsets
     shift = torch.tensor(0.25, dtype=torch.float32, device=w.device)  # a 0-d device shift
     v_shift = -0.5  # and a host one
 
     def vg(loss):
-        return (loss, lambda: kernels.value_grad(csr, csc, *rows3, w, shift, loss),
+        return (loss, lambda: kernels.value_grad(csr, csc, *rows3, w, shift, loss, tiles),
                 lambda: reference.value_grad(csr, csc, *rows3, w, shift, loss))
 
     def hv(loss):
-        return (loss, lambda: kernels.hv(csr, csc, *rows3, w, shift, v, v_shift, loss),
+        return (loss, lambda: kernels.hv(csr, csc, *rows3, w, shift, v, v_shift, loss, tiles),
                 lambda: reference.hessian_vector(csr, csc, *rows3, w, shift, v, v_shift, loss))
 
     variants = {
@@ -266,7 +296,7 @@ def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
                                                          v_shift))],
         "value_grad": [vg("squared"), vg("poisson"), vg("logistic")],
         "hv": [hv("squared"), hv("logistic")],
-        "hv_at": [("hv_at", lambda: kernels.hv_at(csr, csc, d2_row, v, v_shift),
+        "hv_at": [("hv_at", lambda: kernels.hv_at(csr, csc, d2_row, v, v_shift, tiles),
                    lambda: reference.hv_at(csr, csc, d2_row, v, v_shift))],
     }
     # Bytes the function must move: the CSR slots once (8 per nonzero),
@@ -311,10 +341,10 @@ def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
     return rows
 
 
-def check_ell_kernel(values, rows, cols, y, w, offsets, seed: int, csr_lib_ms) -> dict:
+def check_ell_kernel(values, rows, cols, y, w, offsets, skewed, csr_lib_ms) -> dict:
     """Phase 3, the ELL margins kernel: at full width on config #1's arrays,
-    and on a batch of skewed row lengths (mean ~20, up to 256 slots, so most
-    slots are padding), against its plain version and a second launch."""
+    and on the skewed rows (``skewed_rows``: mean ~20, up to 256 slots, so
+    most slots are padding), against its plain version and a second launch."""
     import dataclasses
 
     from photon_ml_tpu_torch import kernels
@@ -323,12 +353,8 @@ def check_ell_kernel(values, rows, cols, y, w, offsets, seed: int, csr_lib_ms) -
 
     ell = dataclasses.replace(ELLBatch.from_coo(values, rows, cols, y, N_FEATURES),
                               offsets=offsets)
-    rng = np.random.default_rng(seed + 2)
-    lengths = np.minimum(rng.geometric(0.05, size=N_ROWS // 10), 256)
-    s_rows = np.repeat(np.arange(len(lengths)), lengths)
-    skewed = ELLBatch.from_coo(rng.normal(size=len(s_rows)), s_rows,
-                               rng.integers(0, N_FEATURES, size=len(s_rows)),
-                               np.zeros(len(lengths)), N_FEATURES)
+    s_vals, s_rows, s_cols, s_n = skewed
+    skewed = ELLBatch.from_coo(s_vals, s_rows, s_cols, np.zeros(s_n), N_FEATURES)
     shift = 0.25
 
     def case(label, b, sh, use):
@@ -342,7 +368,7 @@ def check_ell_kernel(values, rows, cols, y, w, offsets, seed: int, csr_lib_ms) -
     ])
     n_slots, n_pad = ell.vals.shape
     print(f"ell layout: slots_per_row={n_slots} n_pad={n_pad}; skewed: "
-          f"slots_per_row={skewed.vals.shape[0]} rows={len(lengths)} nnz={len(s_rows)}",
+          f"slots_per_row={skewed.vals.shape[0]} rows={s_n} nnz={len(s_rows)}",
           flush=True)
     # bytes: the slots (value + column, padding included), w, one output per
     # padded row; the library yardstick is row 1's, torch.mv of the CSR
@@ -418,6 +444,15 @@ def check_small_parity(seed: int) -> None:
             raise RuntimeError(f"reduced-size {name} training on the card disagrees with the CPU")
 
 
+def scatter_memory(batches) -> dict:
+    """The device bytes the scatter adds to these batches: their tile
+    indexes, held for the batches' lives, and the largest part scratch one
+    scatter call allocates (32 floats a piece), freed when it returns."""
+    tiles = [b.tiles for b in batches]
+    return {"scatter_index_bytes": sum(4 * t.index.numel() for t in tiles),
+            "scatter_part_bytes": max(4 * 32 * t.n_pieces for t in tiles)}
+
+
 def run_path(label, batch, task, lambdas, cfg, required, constraints=None,
              compute_variances=False, min_auc=None) -> tuple[dict, dict]:
     """Phase 5: one path through train_glm as a user calls it (device
@@ -474,19 +509,22 @@ def run_path(label, batch, task, lambdas, cfg, required, constraints=None,
             extra += f" train_auc={score_auc:.6f}"
             if not score_auc > min_auc:
                 bad.append(f"auc {score_auc}")
+        values = " ".join(f"{float(x):.9g}" for x in res.values[:res.iterations + 1])
         print(f"path {label} lambda={e.reg_weight}: iterations={res.iterations} "
               f"reason={CONVERGENCE_REASON_NAMES[res.reason]} data_passes={res.data_passes} "
-              f"loss0={loss0:.7g} loss={loss:.7g}{extra}", flush=True)
+              f"loss0={loss0:.7g} loss={loss:.7g}{extra} values=[{values}]", flush=True)
         if bad:
             raise RuntimeError(f"path {label} lambda={e.reg_weight}: bad result: {bad}")
     rows_per_s = batch.num_rows * passes / elapsed
     stats = {"elapsed_s": elapsed, "rows_per_s": rows_per_s, "data_passes": passes,
              "iterations": iterations, "host_syncs": syncs,
              "ms_per_iteration": 1e3 * elapsed / max(iterations, 1),
-             "max_memory_allocated": peak}
+             "max_memory_allocated": peak, **scatter_memory([batch])}
     print(f"path {label}: rows={batch.num_rows} data_passes={passes} iterations={iterations} "
           f"elapsed_s={elapsed:.4f} rows_per_s={rows_per_s:.1f} host_syncs={syncs} "
           f"ms_per_iteration={stats['ms_per_iteration']:.4f} max_memory_allocated={peak} "
+          f"scatter_index_bytes={stats['scatter_index_bytes']} "
+          f"scatter_part_bytes={stats['scatter_part_bytes']} "
           f"launches={json.dumps(launches)}", flush=True)
     missing = [k for k in required if launches[k] == 0]
     if missing:
@@ -545,6 +583,43 @@ def make_game_problem(seed: int):
     margins += np.einsum("ij,ij->i", Xu, wu_true[users])
     y = (rng.random(N_ROWS) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
     return fe_vals, fe_rows, fe_cols, users, Xu, y
+
+
+def run_suite_paths(seed: int, profile: bool, by_path: dict, train: dict, prof: dict) -> None:
+    """Paths 5b-5e: bench_suite.py configs #2 and #3, the linear problem
+    first, then the Poisson one, from one generator. Their batches are freed
+    on return, so path 6's peak memory holds only its own data."""
+    from photon_ml_tpu_torch.ops.csr import CSRBatch
+    from photon_ml_tpu_torch.training import train_glm
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    values, rows, cols, y, _ = make_suite_problem(rng, N_ROWS, N_FEATURES, NNZ_PER_ROW,
+                                                  "linear")
+    linear = CSRBatch.from_coo(values, rows, cols, y, N_FEATURES)
+    values, rows, cols, y, offsets = make_suite_problem(rng, N_ROWS, N_FEATURES,
+                                                        NNZ_PER_ROW, "poisson")
+    poisson = CSRBatch.from_coo(values, rows, cols, y, N_FEATURES, offsets=offsets)
+    del values, rows, cols, y, offsets
+    print(f"data: bench_suite linear + poisson {N_ROWS}x{N_FEATURES}, "
+          f"setup_s={time.perf_counter() - t0:.2f}", flush=True)
+
+    the_box = box(N_FEATURES, "cuda")
+    paths = [
+        ("5b", linear, "squared", solver_config("tron", 10), None, ("hv_at", "csr_margins",
+                                                                    "csc_scatter")),
+        ("5c", linear, "squared", solver_config("owlqn", 20), None, ("value_grad",
+                                                                     "csr_margins")),
+        ("5d", poisson, "poisson", solver_config("lbfgs", 20), the_box, ("margins_pair",
+                                                                         "value_grad")),
+        ("5e", linear, "squared", solver_config("tron", 3), the_box, ("hv", "value_grad")),
+    ]
+    for label, pbatch, task, cfg, constraints, required in paths:
+        by_path[label], train[label] = run_path(label, pbatch, task, [1.0], cfg, required,
+                                                constraints=constraints)
+        if profile:
+            prof[label] = profile_solve(label, lambda: train_glm(
+                pbatch, task, [1.0], cfg, constraints=constraints)[0].result.iterations)
 
 
 def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
@@ -649,10 +724,14 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
     stats = {"elapsed_s": elapsed, "first_fit_s": first_fit_s, "re_build_s": re_build_s,
              "coeffs_per_s": coeffs_per_s, "total_coeffs": total_coeffs,
              "buckets": buckets, "newton": newton, "host_syncs": syncs,
-             "max_memory_allocated": peak, "train_auc": glmix_auc, "fe_only_auc": fe_auc}
+             "max_memory_allocated": peak, "train_auc": glmix_auc, "fe_only_auc": fe_auc,
+             **scatter_memory(gds.__dict__["_csr_batches"].values())}
     print(f"path 6: coeffs_per_s={coeffs_per_s:.1f} total_coeffs={total_coeffs} "
           f"fit_wall_s={elapsed:.4f} first_fit_s={first_fit_s:.4f} re_build_s={re_build_s:.4f} "
           f"buckets(E,R,K)={buckets} host_syncs={syncs} max_memory_allocated={peak} "
+          f"scatter_index_bytes={stats['scatter_index_bytes']} "
+          f"scatter_part_bytes={stats['scatter_part_bytes']} "
+          f"cached_batches={sorted(gds.__dict__['_csr_batches'])} "
           f"train_auc={glmix_auc:.6f} fe_only_auc={fe_auc:.6f} "
           f"launches={json.dumps(launches)}", flush=True)
     if bad:
@@ -733,11 +812,16 @@ def main() -> int:
     z = probe.margins(w)
     s = torch.sigmoid(z)
     d2_row = s * (1.0 - s)
-    kernel_rows = check_kernels(probe, w, s - batch.labels, d2_row)
+    skewed = skewed_rows(args.seed)
+    s_vals, s_rows, s_cols, s_n = skewed
+    skewed_csr = CSRBatch.from_coo(s_vals, s_rows, s_cols, np.zeros(s_n), N_FEATURES)
+    power_law = CSRBatch.from_coo(values, rows, power_law_columns(args.seed, len(values)), y,
+                                  N_FEATURES)
+    kernel_rows = check_kernels(probe, w, s - batch.labels, d2_row, skewed_csr, power_law)
     kernel_rows += check_fused_kernels(probe, w, v, d2_row)
-    kernel_rows.append(check_ell_kernel(values, rows, cols, y, w, offsets, args.seed,
+    kernel_rows.append(check_ell_kernel(values, rows, cols, y, w, offsets, skewed,
                                         kernel_rows[0]["library_ms"]))
-    del probe, z, s, d2_row
+    del probe, z, s, d2_row, skewed_csr, power_law
 
     check_small_parity(args.seed)
 
@@ -750,37 +834,7 @@ def main() -> int:
             batch, "logistic", [1.0], solver_config("lbfgs", 10))[0].result.iterations)
     del batch
 
-    # bench_suite.py configs #2 and #3: the linear problem first, then the
-    # Poisson one, from one generator
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(args.seed)
-    values, rows, cols, y, _ = make_suite_problem(rng, N_ROWS, N_FEATURES, NNZ_PER_ROW,
-                                                  "linear")
-    linear = CSRBatch.from_coo(values, rows, cols, y, N_FEATURES)
-    values, rows, cols, y, offsets = make_suite_problem(rng, N_ROWS, N_FEATURES,
-                                                        NNZ_PER_ROW, "poisson")
-    poisson = CSRBatch.from_coo(values, rows, cols, y, N_FEATURES, offsets=offsets)
-    del values, rows, cols, y, offsets
-    print(f"data: bench_suite linear + poisson {N_ROWS}x{N_FEATURES}, "
-          f"setup_s={time.perf_counter() - t0:.2f}", flush=True)
-
-    the_box = box(N_FEATURES, "cuda")
-    paths = [
-        ("5b", linear, "squared", solver_config("tron", 10), None, ("hv_at", "csr_margins",
-                                                                    "csc_scatter")),
-        ("5c", linear, "squared", solver_config("owlqn", 20), None, ("value_grad",
-                                                                     "csr_margins")),
-        ("5d", poisson, "poisson", solver_config("lbfgs", 20), the_box, ("margins_pair",
-                                                                         "value_grad")),
-        ("5e", linear, "squared", solver_config("tron", 3), the_box, ("hv", "value_grad")),
-    ]
-    for label, pbatch, task, cfg, constraints, required in paths:
-        by_path[label], train[label] = run_path(label, pbatch, task, [1.0], cfg, required,
-                                                constraints=constraints)
-        if args.profile:
-            prof[label] = profile_solve(label, lambda: train_glm(
-                pbatch, task, [1.0], cfg, constraints=constraints)[0].result.iterations)
-    del linear, poisson
+    run_suite_paths(args.seed, args.profile, by_path, train, prof)
 
     by_path["6"], train["6"], game_prof = run_game_path(args.seed, args.profile)
     if game_prof is not None:

@@ -48,29 +48,43 @@ struct HvAtEpilogue {
   }
 };
 
-cudaError_t finish(const RowPassParams& p, int grid, const int* col_ptr, const int* csc_rows,
-                   const float* csc_vals, float* sums, float* hv, int col_group,
-                   cudaStream_t s) {
+struct ScatterArgs {
+  const int* csc_rows;
+  const float* csc_vals;
+  const int* tile_index;
+  int n_slots;
+  int n_pieces;
+  int finish_width;
+  int tile_rows;
+  int piece_len;
+  float* part;
+};
+
+cudaError_t finish(const RowPassParams& p, int grid, const ScatterArgs& c, float* sums,
+                   float* hv, cudaStream_t s) {
   cudaError_t err = launch_finish<1>(p.partials, grid, sums, s);
   if (err != cudaSuccess) return err;
-  return static_cast<cudaError_t>(photon_csc_scatter(col_ptr, csc_rows, csc_vals, p.out0, hv,
-                                                     p.n_features, col_group, 0, s));
+  return static_cast<cudaError_t>(photon_csc_scatter(
+      c.csc_rows, c.csc_vals, c.tile_index, c.n_slots, c.n_pieces, c.finish_width, c.tile_rows,
+      c.piece_len, p.out0, hv, c.part, p.n_rows, p.n_features, 0, s));
 }
 
 }  // namespace
 }  // namespace photon
 
-// sums[0] = sum q; hv[F]; q_row[n] and partials[max_blocks] are scratch the
-// caller allocates. The loss is logistic, squared or Poisson.
+// sums[0] = sum q; hv[F]; q_row[n], partials[max_blocks] and part (the
+// scatter's parts) are scratch the caller allocates; the tile index is
+// photon_csc_scatter's. The loss is logistic, squared or Poisson.
 extern "C" int photon_hessian_vector(const int* row_ptr, const int* cols, const float* vals,
-                                     const int* col_ptr, const int* csc_rows,
-                                     const float* csc_vals, const float* labels,
-                                     const float* weights, const float* offsets,
-                                     const float* w, const float* v, const float* shift0_dev,
-                                     float shift0_host, const float* shift1_dev,
-                                     float shift1_host, int loss, float* q_row,
-                                     float* partials, int max_blocks, float* sums, float* hv,
-                                     int n_rows, int n_features, int row_group, int col_group,
+                                     const int* csc_rows, const float* csc_vals,
+                                     const float* labels, const float* weights,
+                                     const float* offsets, const float* w, const float* v,
+                                     const float* shift0_dev, float shift0_host,
+                                     const float* shift1_dev, float shift1_host, int loss,
+                                     float* q_row, float* partials, int max_blocks, float* sums,
+                                     float* hv, const int* tile_index, int n_slots,
+                                     int n_pieces, int finish_width, int tile_rows,
+                                     int piece_len, float* part, int n_rows, int n_features,
                                      void* stream) {
   using namespace photon;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -95,27 +109,30 @@ extern "C" int photon_hessian_vector(const int* row_ptr, const int* cols, const 
   cudaError_t err;
   switch (loss) {
     case kLogistic:
-      err = launch_row_pass<HvEpilogue<Logistic>>(p, row_group, max_blocks, s, &grid);
+      err = launch_row_pass<HvEpilogue<Logistic>>(p, max_blocks, s, &grid);
       break;
     case kSquared:
-      err = launch_row_pass<HvEpilogue<Squared>>(p, row_group, max_blocks, s, &grid);
+      err = launch_row_pass<HvEpilogue<Squared>>(p, max_blocks, s, &grid);
       break;
     case kPoisson:
-      err = launch_row_pass<HvEpilogue<Poisson>>(p, row_group, max_blocks, s, &grid);
+      err = launch_row_pass<HvEpilogue<Poisson>>(p, max_blocks, s, &grid);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  return finish(p, grid, col_ptr, csc_rows, csc_vals, sums, hv, col_group, s);
+  const ScatterArgs c{csc_rows,     csc_vals,  tile_index, n_slots, n_pieces,
+                      finish_width, tile_rows, piece_len,  part};
+  return finish(p, grid, c, sums, hv, s);
 }
 
 extern "C" int photon_hv_at(const int* row_ptr, const int* cols, const float* vals,
-                            const int* col_ptr, const int* csc_rows, const float* csc_vals,
-                            const float* d2, const float* v, const float* shift_dev,
-                            float shift_host, float* q_row, float* partials, int max_blocks,
-                            float* sums, float* hv, int n_rows, int n_features, int row_group,
-                            int col_group, void* stream) {
+                            const int* csc_rows, const float* csc_vals, const float* d2,
+                            const float* v, const float* shift_dev, float shift_host,
+                            float* q_row, float* partials, int max_blocks, float* sums, float* hv,
+                            const int* tile_index, int n_slots, int n_pieces, int finish_width,
+                            int tile_rows, int piece_len, float* part, int n_rows,
+                            int n_features, void* stream) {
   using namespace photon;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RowPassParams p{};
@@ -131,7 +148,9 @@ extern "C" int photon_hv_at(const int* row_ptr, const int* cols, const float* va
   p.n_rows = n_rows;
   p.n_features = n_features;
   int grid = 0;
-  cudaError_t err = launch_row_pass<HvAtEpilogue>(p, row_group, max_blocks, s, &grid);
+  cudaError_t err = launch_row_pass<HvAtEpilogue>(p, max_blocks, s, &grid);
   if (err != cudaSuccess) return err;
-  return finish(p, grid, col_ptr, csc_rows, csc_vals, sums, hv, col_group, s);
+  const ScatterArgs c{csc_rows,     csc_vals,  tile_index, n_slots, n_pieces,
+                      finish_width, tile_rows, piece_len,  part};
+  return finish(p, grid, c, sums, hv, s);
 }

@@ -11,9 +11,10 @@
 // nonzero), w, and offsets when used, and write one float per row; at 20
 // nonzeros per row that is ~168 bytes per row, against 40 flops.
 //
-// It is the one-table row pass of rowpass.cuh (a lane group per row, w staged
-// in shared memory up to 200 KB, a fixed shuffle tree, so the margins are
-// deterministic) with an epilogue that adds the offsets when there are any.
+// It is the one-table row pass of rowpass.cuh (a warp per 32 rows streaming
+// their nonzeros, one thread per row summing in nonzero order, w staged in
+// shared memory beside the product chunks, so the margins are deterministic)
+// with an epilogue that adds the offsets when there are any.
 // shift is a host scalar plus an optional one-element device tensor, so the
 // caller never syncs to read it.
 
@@ -38,7 +39,7 @@ extern "C" int photon_csr_margins(const int* row_ptr, const int* cols,
                                   const float* vals, const float* w,
                                   const float* offsets, const float* shift_dev,
                                   float shift_host, float* out, int n_rows,
-                                  int n_features, int group, void* stream) {
+                                  int n_features, void* stream) {
   using namespace photon;
   RowPassParams p{};
   p.row_ptr = row_ptr;
@@ -52,8 +53,7 @@ extern "C" int photon_csr_margins(const int* row_ptr, const int* cols,
   p.n_rows = n_rows;
   p.n_features = n_features;
   int grid = 0;
-  return launch_row_pass<MarginsEpilogue>(p, group, 1 << 30, static_cast<cudaStream_t>(stream),
-                                          &grid);
+  return launch_row_pass<MarginsEpilogue>(p, 1 << 30, static_cast<cudaStream_t>(stream), &grid);
 }
 
 extern "C" const char* photon_cuda_error_string(int code) {

@@ -10,7 +10,8 @@
 //   1. the row pass (rowpass.cuh) gathers w, applies the loss, writes the
 //      per-row g_i = wgt_i*l'(z_i) and per-block partials of the two sums;
 //   2. finish_sums_kernel adds the block partials;
-//   3. scatter.cu walks the CSC mirror and sums g into feature space.
+//   3. scatter.cu walks the CSC mirror by row tiles, g of each tile staged in
+//      shared memory, and sums g into feature space.
 //
 // Bound: bytes. The function must read the slots once (8 bytes per nonzero),
 // row_ptr, labels, weights, offsets and w, and write the gradient: ~176 bytes
@@ -42,16 +43,18 @@ struct ValueGradEpilogue {
 }  // namespace
 }  // namespace photon
 
-// sums[0] = sum wgt*l, sums[1] = sum wgt*l'; grad[F]; g_row[n] and
-// partials[2*max_blocks] are scratch the caller allocates.
+// sums[0] = sum wgt*l, sums[1] = sum wgt*l'; grad[F]; g_row[n],
+// partials[2*max_blocks] and part (the scatter's parts) are scratch the
+// caller allocates; the tile index is photon_csc_scatter's.
 extern "C" int photon_value_grad(const int* row_ptr, const int* cols, const float* vals,
-                                 const int* col_ptr, const int* csc_rows,
-                                 const float* csc_vals, const float* labels,
-                                 const float* weights, const float* offsets, const float* w,
-                                 const float* shift_dev, float shift_host, int loss,
-                                 float* g_row, float* partials, int max_blocks, float* sums,
-                                 float* grad, int n_rows, int n_features, int row_group,
-                                 int col_group, void* stream) {
+                                 const int* csc_rows, const float* csc_vals,
+                                 const float* labels, const float* weights,
+                                 const float* offsets, const float* w, const float* shift_dev,
+                                 float shift_host, int loss, float* g_row, float* partials,
+                                 int max_blocks, float* sums, float* grad,
+                                 const int* tile_index, int n_slots, int n_pieces,
+                                 int finish_width, int tile_rows, int piece_len, float* part,
+                                 int n_rows, int n_features, void* stream) {
   using namespace photon;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RowPassParams p{};
@@ -72,23 +75,23 @@ extern "C" int photon_value_grad(const int* row_ptr, const int* cols, const floa
   cudaError_t err;
   switch (loss) {
     case kLogistic:
-      err = launch_row_pass<ValueGradEpilogue<Logistic>>(p, row_group, max_blocks, s, &grid);
+      err = launch_row_pass<ValueGradEpilogue<Logistic>>(p, max_blocks, s, &grid);
       break;
     case kSquared:
-      err = launch_row_pass<ValueGradEpilogue<Squared>>(p, row_group, max_blocks, s, &grid);
+      err = launch_row_pass<ValueGradEpilogue<Squared>>(p, max_blocks, s, &grid);
       break;
     case kPoisson:
-      err = launch_row_pass<ValueGradEpilogue<Poisson>>(p, row_group, max_blocks, s, &grid);
+      err = launch_row_pass<ValueGradEpilogue<Poisson>>(p, max_blocks, s, &grid);
       break;
     case kSmoothedHinge:
-      err = launch_row_pass<ValueGradEpilogue<SmoothedHinge>>(p, row_group, max_blocks, s,
-                                                              &grid);
+      err = launch_row_pass<ValueGradEpilogue<SmoothedHinge>>(p, max_blocks, s, &grid);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
   if ((err = launch_finish<2>(partials, grid, sums, s)) != cudaSuccess) return err;
-  return photon_csc_scatter(col_ptr, csc_rows, csc_vals, g_row, grad, n_features, col_group,
-                            0, stream);
+  return photon_csc_scatter(csc_rows, csc_vals, tile_index, n_slots, n_pieces, finish_width,
+                            tile_rows, piece_len, g_row, grad, part, n_rows, n_features, 0,
+                            stream);
 }

@@ -11,10 +11,16 @@ the CSR as ``csr = (row_ptr, cols, vals)`` and its CSC mirror as
 ``csc = (col_ptr, rows, vals)``. One call of ``value_grad``, ``hv`` or
 ``hv_at`` is one C call that launches the row pass, the fixed-order sum of
 its block partials and the CSC scatter; it counts once, under its own name.
+The scatter and the passes that end with it take ``tiles``, the row-tile
+index of a ``CSRBatch`` (``ScatterTiles``, built by ``ops/csr.py``
+``scatter_tiles``), which the CUDA scatter needs: it stages per_row by row
+tiles in shared memory and walks the non-empty (tile, feature) segments.
 ``ell_margins`` takes the slot-major ELL layout of ``ops/ell.py``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -39,10 +45,23 @@ LOSS_CODES = {"logistic": 0, "squared": 1, "poisson": 2, "smoothed_hinge": 3}
 _HV_LOSSES = ("logistic", "squared", "poisson")
 
 # capacity of the block-partials scratch; the row pass launches at most the
-# resident block count (4 blocks of 512 threads on each of 132 SMs)
+# resident block count (at most 4 blocks of 512 threads on each of 132 SMs)
 _MAX_BLOCKS = 2048
 
-_INT_ARGS = ("row_ptr", "cols", "col_ptr", "rows", "ell_cols")
+_INT_ARGS = ("row_ptr", "cols", "col_ptr", "rows", "ell_cols", "tile_index")
+
+
+class ScatterTiles(NamedTuple):
+    """The CSC scatter's row-tile index (``ops/csr.py`` ``scatter_tiles``):
+    its int32 arrays one after another on the batch's device, the tile and
+    piece sizes it was built for, and its slot, piece and part counts."""
+
+    index: Tensor
+    tile_rows: int
+    piece_len: int
+    n_slots: int
+    n_pieces: int
+    n_parts: int
 
 
 def reset_launch_counts() -> None:
@@ -50,9 +69,11 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _group_size(nnz: int, segments: int) -> int:
-    """Lanes per segment: the power of two >= the mean segment length, <= 32."""
-    mean = -(-nnz // max(segments, 1))
+def _group_size(count: int, groups: int) -> int:
+    """The power of two >= ceil(count / groups), at most 32 (a warp): the
+    lanes the scatter's finish gives one feature, for ``count`` parts over
+    ``groups`` features."""
+    mean = -(-count // max(groups, 1))
     g = 1
     while g < mean and g < 32:
         g *= 2
@@ -96,9 +117,9 @@ def _shift_args(name: str, dev: torch.device, shift: Tensor | float):
     return None, float(shift)
 
 
-def _check_fused(name, dev, csr, csc, n_features, **per_row_and_tables) -> tuple[int, int]:
+def _check_fused(name, dev, csr, csc, n_features, **per_row_and_tables) -> int:
     """Check the two layouts and the per-row / per-feature tensors; return
-    (rows, nonzeros)."""
+    the row count."""
     (row_ptr, cols, vals), (col_ptr, rows, csc_vals) = csr, csc
     _check(name, dev, row_ptr=row_ptr, cols=cols, vals=vals, col_ptr=col_ptr, rows=rows,
            csc_vals=csc_vals, **per_row_and_tables)
@@ -109,7 +130,7 @@ def _check_fused(name, dev, csr, csc, n_features, **per_row_and_tables) -> tuple
         want = n_features if arg in ("w", "v") else n
         if t.dim() != 1 or t.numel() != want:
             raise ValueError(f"{name}: {arg} must have shape ({want},), got {tuple(t.shape)}")
-    return n, nnz
+    return n
 
 
 def _stream(dev: torch.device) -> int:
@@ -148,7 +169,6 @@ def csr_margins(
             out.data_ptr(),
             n,
             w.numel(),
-            _group_size(vals.numel(), n),
             _stream(dev),
         )
     _raise_on("csr_margins", lib, rc)
@@ -190,10 +210,35 @@ def ell_margins(
     return out
 
 
+def _scatter_args(name, dev, tiles: ScatterTiles | None, n_rows: int, n_features: int):
+    """The scatter's C arguments (tile_index, n_slots, n_pieces,
+    finish_width, tile_rows, piece_len) and ``part``, its scratch of one
+    float per part."""
+    if tiles is None:
+        raise ValueError(f"{name}: the CUDA scatter needs the batch's tile index "
+                         "(CSRBatch.tiles, built by from_coo on a CUDA device)")
+    _check(name, dev, tile_index=tiles.index)
+    n_tiles = -(-n_rows // tiles.tile_rows) if tiles.tile_rows > 0 else -1
+    size = 3 * tiles.n_slots + n_tiles + tiles.n_slots // 32 + n_features + tiles.n_pieces + 4
+    if (n_tiles < 0 or tiles.piece_len <= 0 or tiles.n_slots % 32
+            or tiles.index.numel() != size):
+        raise ValueError(f"{name}: the tile index does not fit {n_rows} rows in tiles of "
+                         f"{tiles.tile_rows} and {n_features} features")
+    part = torch.empty(tiles.n_parts, dtype=torch.float32, device=dev)
+    return (tiles.index.data_ptr(), tiles.n_slots, tiles.n_pieces,
+            _group_size(tiles.n_parts, n_features), tiles.tile_rows, tiles.piece_len), part
+
+
 def csc_scatter(
-    col_ptr: Tensor, rows: Tensor, vals: Tensor, per_row: Tensor, square: bool
+    col_ptr: Tensor,
+    rows: Tensor,
+    vals: Tensor,
+    per_row: Tensor,
+    square: bool,
+    tiles: ScatterTiles | None = None,
 ) -> Tensor:
-    """Feature-space scatter sum_i per_row[i]*x_i (x_i**2 with ``square``)."""
+    """Feature-space scatter sum_i per_row[i]*x_i (x_i**2 with ``square``);
+    on a CUDA device ``tiles`` is the batch's tile index (module docstring)."""
     dev = col_ptr.device
     if not _on_cuda("csc_scatter", dev):
         return reference.csc_scatter(col_ptr, rows, vals, per_row, square)
@@ -201,19 +246,14 @@ def csc_scatter(
     _check("csc_scatter", dev, col_ptr=col_ptr, rows=rows, vals=vals, per_row=per_row)
     if rows.numel() != vals.numel() or per_row.dim() != 1:
         raise ValueError("csc_scatter: inconsistent shapes")
+    n = per_row.numel()
+    index_args, part = _scatter_args("csc_scatter", dev, tiles, n, n_features)
     lib = load_library()
     out = torch.empty(n_features, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.photon_csc_scatter(
-            col_ptr.data_ptr(),
-            rows.data_ptr(),
-            vals.data_ptr(),
-            per_row.data_ptr(),
-            out.data_ptr(),
-            n_features,
-            _group_size(vals.numel(), n_features),
-            int(square),
-            _stream(dev),
+            rows.data_ptr(), vals.data_ptr(), *index_args, per_row.data_ptr(), out.data_ptr(),
+            part.data_ptr(), n, n_features, int(square), _stream(dev),
         )
     _raise_on("csc_scatter", lib, rc)
     LAUNCHES["csc_scatter"] += 1
@@ -248,8 +288,7 @@ def margins_pair(
         rc = lib.photon_margins_pair(
             row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
             p.data_ptr(), offsets.data_ptr(), s0_ptr, s0_host, s1_ptr, s1_host,
-            z.data_ptr(), u.data_ptr(), n, w.numel(), _group_size(vals.numel(), n),
-            _stream(dev),
+            z.data_ptr(), u.data_ptr(), n, w.numel(), _stream(dev),
         )
     _raise_on("margins_pair", lib, rc)
     LAUNCHES["margins_pair"] += 1
@@ -274,6 +313,7 @@ def value_grad(
     w: Tensor,
     shift: Tensor | float,
     loss_name: str,
+    tiles: ScatterTiles | None = None,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """(sum wgt*l(z), raw gradient sum_i wgt*l'(z_i)*x_i, sum wgt*l'(z)) at
     z = X.w + shift + offsets, in one fused pass (0-d device sums)."""
@@ -282,18 +322,19 @@ def value_grad(
     if not _on_cuda("value_grad", dev):
         return reference.value_grad(csr, csc, labels, weights, offsets, w, shift, loss)
     n_features = csc[0].numel() - 1
-    n, nnz = _check_fused("value_grad", dev, csr, csc, n_features, labels=labels,
-                          weights=weights, offsets=offsets, w=w)
+    n = _check_fused("value_grad", dev, csr, csc, n_features, labels=labels,
+                     weights=weights, offsets=offsets, w=w)
     s_ptr, s_host = _shift_args("value_grad", dev, shift)
+    index_args, part = _scatter_args("value_grad", dev, tiles, n, n_features)
     lib = load_library()
     g_row, partials, sums = _scratch(n, 2, dev)
     grad = torch.empty(n_features, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.photon_value_grad(
-            *(t.data_ptr() for t in (*csr, *csc, labels, weights, offsets, w)),
+            *(t.data_ptr() for t in (*csr, *csc[1:], labels, weights, offsets, w)),
             s_ptr, s_host, LOSS_CODES[loss], g_row.data_ptr(), partials.data_ptr(),
-            _MAX_BLOCKS, sums.data_ptr(), grad.data_ptr(), n, n_features,
-            _group_size(nnz, n), _group_size(nnz, n_features), _stream(dev),
+            _MAX_BLOCKS, sums.data_ptr(), grad.data_ptr(), *index_args, part.data_ptr(), n,
+            n_features, _stream(dev),
         )
     _raise_on("value_grad", lib, rc)
     LAUNCHES["value_grad"] += 1
@@ -311,6 +352,7 @@ def hv(
     v: Tensor,
     v_shift: Tensor | float,
     loss_name: str,
+    tiles: ScatterTiles | None = None,
 ) -> tuple[Tensor, Tensor]:
     """(raw Hv sum_i q_i*x_i, sum q) with q = wgt*l''(X.w + shift + offsets)*
     (X.v + v_shift), in one fused pass (0-d device sum)."""
@@ -322,19 +364,20 @@ def hv(
         return reference.hessian_vector(csr, csc, labels, weights, offsets, w, shift, v,
                                         v_shift, loss)
     n_features = csc[0].numel() - 1
-    n, nnz = _check_fused("hv", dev, csr, csc, n_features, labels=labels, weights=weights,
-                          offsets=offsets, w=w, v=v)
+    n = _check_fused("hv", dev, csr, csc, n_features, labels=labels, weights=weights,
+                     offsets=offsets, w=w, v=v)
     s0_ptr, s0_host = _shift_args("hv", dev, shift)
     s1_ptr, s1_host = _shift_args("hv", dev, v_shift)
+    index_args, part = _scatter_args("hv", dev, tiles, n, n_features)
     lib = load_library()
     q_row, partials, sums = _scratch(n, 1, dev)
     out = torch.empty(n_features, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.photon_hessian_vector(
-            *(t.data_ptr() for t in (*csr, *csc, labels, weights, offsets, w, v)),
+            *(t.data_ptr() for t in (*csr, *csc[1:], labels, weights, offsets, w, v)),
             s0_ptr, s0_host, s1_ptr, s1_host, LOSS_CODES[loss], q_row.data_ptr(),
-            partials.data_ptr(), _MAX_BLOCKS, sums.data_ptr(), out.data_ptr(), n,
-            n_features, _group_size(nnz, n), _group_size(nnz, n_features), _stream(dev),
+            partials.data_ptr(), _MAX_BLOCKS, sums.data_ptr(), out.data_ptr(), *index_args,
+            part.data_ptr(), n, n_features, _stream(dev),
         )
     _raise_on("hv", lib, rc)
     LAUNCHES["hv"] += 1
@@ -347,6 +390,7 @@ def hv_at(
     d2: Tensor,
     v: Tensor,
     v_shift: Tensor | float,
+    tiles: ScatterTiles | None = None,
 ) -> tuple[Tensor, Tensor]:
     """(raw Hv sum_i q_i*x_i, sum q) with q = d2*(X.v + v_shift) for a row
     curvature d2 computed once per TRON step (0-d device sum)."""
@@ -354,17 +398,18 @@ def hv_at(
     if not _on_cuda("hv_at", dev):
         return reference.hv_at(csr, csc, d2, v, v_shift)
     n_features = csc[0].numel() - 1
-    n, nnz = _check_fused("hv_at", dev, csr, csc, n_features, d2=d2, v=v)
+    n = _check_fused("hv_at", dev, csr, csc, n_features, d2=d2, v=v)
     s_ptr, s_host = _shift_args("hv_at", dev, v_shift)
+    index_args, part = _scatter_args("hv_at", dev, tiles, n, n_features)
     lib = load_library()
     q_row, partials, sums = _scratch(n, 1, dev)
     out = torch.empty(n_features, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.photon_hv_at(
-            *(t.data_ptr() for t in (*csr, *csc, d2, v)),
+            *(t.data_ptr() for t in (*csr, *csc[1:], d2, v)),
             s_ptr, s_host, q_row.data_ptr(), partials.data_ptr(), _MAX_BLOCKS,
-            sums.data_ptr(), out.data_ptr(), n, n_features, _group_size(nnz, n),
-            _group_size(nnz, n_features), _stream(dev),
+            sums.data_ptr(), out.data_ptr(), *index_args, part.data_ptr(), n, n_features,
+            _stream(dev),
         )
     _raise_on("hv_at", lib, rc)
     LAUNCHES["hv_at"] += 1

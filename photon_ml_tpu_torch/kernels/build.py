@@ -109,17 +109,22 @@ def build(verbose: bool = False) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.photon_csr_margins.argtypes = [p, p, p, p, p, p, f, p, i, i, i, p]
+    lib.photon_csr_margins.argtypes = [p, p, p, p, p, p, f, p, i, i, p]
     lib.photon_csr_margins.restype = i
-    lib.photon_csc_scatter.argtypes = [p, p, p, p, p, i, i, i, p]
+    # (rows, vals, tile_index, n_slots, n_pieces, finish_width, tile_rows,
+    # piece_len, per_row, out, part, n_rows, n_features, square, stream)
+    lib.photon_csc_scatter.argtypes = [p, p, p, i, i, i, i, i, p, p, p, i, i, i, p]
     lib.photon_csc_scatter.restype = i
-    lib.photon_margins_pair.argtypes = [p, p, p, p, p, p, p, f, p, f, p, p, i, i, i, p]
+    lib.photon_margins_pair.argtypes = [p, p, p, p, p, p, p, f, p, f, p, p, i, i, p]
     lib.photon_margins_pair.restype = i
-    lib.photon_value_grad.argtypes = [p] * 10 + [p, f, i, p, p, i, p, p, i, i, i, i, p]
+    # the fused passes end with the scatter's (tile_index, n_slots, n_pieces,
+    # finish_width, tile_rows, piece_len, part, n_rows, n_features, stream)
+    scatter_tail = [p, i, i, i, i, i, p, i, i, p]
+    lib.photon_value_grad.argtypes = [p] * 9 + [p, f, i, p, p, i, p, p] + scatter_tail
     lib.photon_value_grad.restype = i
-    lib.photon_hessian_vector.argtypes = [p] * 11 + [p, f, p, f, i, p, p, i, p, p, i, i, i, i, p]
+    lib.photon_hessian_vector.argtypes = [p] * 10 + [p, f, p, f, i, p, p, i, p, p] + scatter_tail
     lib.photon_hessian_vector.restype = i
-    lib.photon_hv_at.argtypes = [p] * 8 + [p, f, p, p, i, p, p, i, i, i, i, p]
+    lib.photon_hv_at.argtypes = [p] * 7 + [p, f, p, p, i, p, p] + scatter_tail
     lib.photon_hv_at.restype = i
     lib.photon_ell_margins.argtypes = [p, p, p, p, p, f, p, i, i, i, i, p]
     lib.photon_ell_margins.restype = i

@@ -17,7 +17,8 @@ import torch
 
 from photon_ml_tpu_torch import kernels
 from photon_ml_tpu_torch.kernels import build, reference
-from photon_ml_tpu_torch.ops.csr import CSRBatch
+from photon_ml_tpu_torch.ops.csr import (SCATTER_PIECE_LEN, SCATTER_TILE_ROWS, CSRBatch,
+                                         scatter_tiles)
 from photon_ml_tpu_torch.ops.ell import ELLBatch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -201,6 +202,236 @@ def test_group_size(nnz, segments, group):
     assert kernels._group_size(nnz, segments) == group
 
 
+# -- the scatter's (feature, row tile) index ---------------------------------
+
+
+def _csc_cols(b):
+    return np.repeat(np.arange(b.num_features), np.diff(b.col_ptr.cpu().numpy()))
+
+
+def _plain_tiles(rows, cols, n, f, tile_rows, piece_len):
+    """scatter_tiles' seven arrays by loops over tiles and features, from COO
+    in any order."""
+    n_tiles = -(-n // tile_rows)
+    csc = np.lexsort((rows, cols))  # the CSC order: columns, then rows
+    c_rows, c_cols = rows[csc], cols[csc]
+    start, lengths, tile_group, slot_of = [], [], [0], {}
+    for t in range(n_tiles):
+        for c in range(f):
+            at = np.flatnonzero((c_cols == c) & (c_rows // tile_rows == t))
+            if len(at):
+                slot_of[c, t] = len(start)
+                start.append(int(at[0]))
+                lengths.append(len(at))
+        while len(start) % 32:
+            start.append(0)
+            lengths.append(0)
+        tile_group.append(len(start) // 32)
+    off = np.concatenate([[0], np.cumsum(lengths, dtype=np.int64)])
+    piece_ptr, piece_group = [0], []
+    for g in range(len(start) // 32):
+        pieces = -(-int(off[32 * g + 32] - off[32 * g]) // piece_len)
+        piece_ptr.append(piece_ptr[-1] + pieces)
+        piece_group += [g] * pieces
+    n_parts, feat_ptr, part_at = 0, [0], [0] * len(start)
+    for c in range(f):
+        for t in range(n_tiles):
+            if (c, t) in slot_of:
+                j = slot_of[c, t]
+                part_at[j] = n_parts
+                g_lo = off[j // 32 * 32]
+                n_parts += len({(q - g_lo) // piece_len for q in range(off[j], off[j + 1])})
+        feat_ptr.append(n_parts)
+    return tuple(np.array(a, np.int64) for a in (start, off, tile_group, piece_ptr, feat_ptr,
+                                                 piece_group, part_at))
+
+
+def _index_problem(n, f, tile_rows, kind, seed=21):
+    """COO of one shape: a random ``X`` with an empty column and an empty
+    first tile ("dense"), or a wide, sparse one ("wide"), or power-law
+    column popularity ("power_law")."""
+    rng = np.random.default_rng(seed)
+    if kind == "dense":
+        X = rng.normal(size=(n, f)) * (rng.random((n, f)) < 0.15)
+        X[:, 2] = 0.0              # an empty column
+        X[: min(n, tile_rows)] = 0.0  # an empty first tile
+        rows, cols = np.nonzero(X)
+        return rows, cols, X[rows, cols]
+    rows = np.repeat(np.arange(n), rng.integers(0, 4, size=n))
+    if kind == "wide":
+        cols = rng.integers(0, f, size=len(rows))
+    else:
+        p = 1.0 / np.arange(1, f + 1)
+        cols = rng.choice(f, size=len(rows), p=p / p.sum())
+    keep = np.unique(rows * f + cols, return_index=True)[1]  # no duplicate entries
+    return rows[keep], cols[keep], rng.normal(size=len(keep))
+
+
+INDEX_SHAPES = [
+    (100, 7, 32, 1024, "dense"),   # n not a multiple of the tile
+    (96, 5, 32, 3, "dense"),       # n a multiple of the tile; groups split into pieces
+    (40, 6, 64, 1024, "dense"),    # one tile larger than n
+    (130, 9, 8, 1, "dense"),       # many tiles, most (tile, feature) segments empty
+    (200, 70, 64, 7, "dense"),     # three groups of 32 features, the last one short
+    (300, 5000, 64, 16, "wide"),   # wide and sparse: segments of one or two entries
+    (500, 40, 128, 8, "power_law"),  # hot columns split over pieces
+]
+
+
+@pytest.mark.parametrize("n,f,tile_rows,piece_len,kind", INDEX_SHAPES)
+def test_scatter_tiles_match_plain_construction(n, f, tile_rows, piece_len, kind):
+    rows, cols, vals = _index_problem(n, f, tile_rows, kind)
+    b = CSRBatch.from_coo(vals, rows, cols, np.zeros(n), f, device="cpu")
+    col_ptr, csc_rows = b.col_ptr.numpy(), b.csc_rows.numpy()
+    got = scatter_tiles(csc_rows, _csc_cols(b), n, f, tile_rows, piece_len)
+    for g, want in zip(got, _plain_tiles(rows, cols, n, f, tile_rows, piece_len), strict=True):
+        np.testing.assert_array_equal(g, want)
+    start, off, tile_group = got[:3]
+    lengths = np.diff(off)
+    assert off[-1] == len(rows) and len(start) % 32 == 0
+    seen = set()
+    for t in range(len(tile_group) - 1):  # every entry of a segment: one column, in its tile
+        for slot in range(32 * tile_group[t], 32 * tile_group[t + 1]):
+            at = np.arange(start[slot], start[slot] + lengths[slot])
+            assert np.all(csc_rows[at] // tile_rows == t)
+            c = np.searchsorted(col_ptr, at, side="right") - 1
+            assert np.all(c == c[:1])
+            seen.update(at.tolist())
+    assert seen == set(range(len(rows)))  # and the segments cover every entry once
+
+
+def _scatter_by_index(b, tiles, r, square):
+    """The CUDA scatter's arithmetic in float64 numpy, reading the int32
+    index as csrc/scatter.cu does: each piece's lane sums over its slice of
+    the group's segments, written to their parts, then each feature's run
+    of parts summed in order."""
+    ix = tiles.index.numpy().astype(np.int64)
+    slots, n_pieces, f = tiles.n_slots, tiles.n_pieces, b.num_features
+    n_tiles = -(-b.num_rows // tiles.tile_rows)
+    start, off = ix[:slots], ix[slots:2 * slots + 1]
+    at = 2 * slots + 1
+    tile_group = ix[at:at + n_tiles + 1]
+    at += n_tiles + 1
+    piece_ptr = ix[at:at + slots // 32 + 1]
+    at += slots // 32 + 1
+    feat_ptr = ix[at:at + f + 1]
+    piece_group = ix[at + f + 1:at + f + 1 + n_pieces]
+    part_at = ix[at + f + 1 + n_pieces:]
+    assert len(part_at) == slots and feat_ptr[-1] == tiles.n_parts
+    rows, vals = b.csc_rows.numpy(), b.csc_vals.numpy().astype(np.float64)
+    vals = vals * vals if square else vals
+    part = np.full(tiles.n_parts, np.nan)
+    for t in range(n_tiles):
+        for p in range(piece_ptr[tile_group[t]], piece_ptr[tile_group[t + 1]]):
+            g = piece_group[p]
+            sub, g_lo = p - piece_ptr[g], off[32 * g]
+            c0 = g_lo + sub * tiles.piece_len
+            c1 = min(c0 + tiles.piece_len, off[32 * g + 32])
+            for lane in range(32):
+                j = 32 * g + lane
+                lo, hi = np.clip(off[j:j + 2], c0, c1)
+                if lo < hi:
+                    k = np.arange(lo, hi) - off[j] + start[j]
+                    assert np.all(rows[k] // tiles.tile_rows == t)
+                    q = part_at[j] + sub - (off[j] - g_lo) // tiles.piece_len
+                    assert np.isnan(part[q])  # each part written once
+                    part[q] = np.sum(vals[k] * r[rows[k]])
+    assert not np.isnan(part).any()
+    return np.array([part[feat_ptr[c]:feat_ptr[c + 1]].sum() for c in range(f)])
+
+
+@pytest.mark.parametrize("n,f,tile_rows,piece_len,kind", INDEX_SHAPES)
+@pytest.mark.parametrize("square", [False, True])
+def test_scatter_through_the_tile_index_matches_dense(n, f, tile_rows, piece_len, kind, square):
+    rows, cols, vals = _index_problem(n, f, tile_rows, kind)
+    b = CSRBatch.from_coo(vals, rows, cols, np.zeros(n), f, device="cpu")
+    tiles = b.with_tiles(tile_rows, piece_len).tiles
+    r = np.random.default_rng(25).normal(size=n)
+    X = np.zeros((n, f))
+    X[rows, cols] = vals
+    want = (X * X if square else X).T @ r
+    np.testing.assert_allclose(_scatter_by_index(b, tiles, r, square), want, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("n,f,tile_rows,piece_len,kind", INDEX_SHAPES)
+def test_scatter_tiles_size_is_bounded_by_the_nonzeros(n, f, tile_rows, piece_len, kind):
+    """Slots: the non-empty segments (at most the nonzeros) plus at most 31
+    of padding a tile; pieces: a group's slice of piece_len nonzeros or one
+    group, so at most nnz / piece_len + groups; parts: a segment's one, and
+    one more where a piece boundary cuts it."""
+    rows, cols, vals = _index_problem(n, f, tile_rows, kind)
+    b = CSRBatch.from_coo(vals, rows, cols, np.zeros(n), f, device="cpu").with_tiles(
+        tile_rows, piece_len)
+    n_tiles, nnz, t = -(-n // tile_rows), len(rows), b.tiles
+    assert t.n_slots <= nnz + 31 * n_tiles
+    assert t.n_pieces <= nnz // piece_len + t.n_slots // 32
+    assert t.n_parts <= min(nnz, t.n_slots + t.n_pieces)
+    assert t.index.numel() == 3 * t.n_slots + n_tiles + t.n_slots // 32 + t.n_pieces + f + 4
+
+
+def test_from_coo_builds_the_tile_pointer_where_it_suits():
+    """A CPU batch holds no tile index (its plain scatter reads none);
+    ``with_tiles`` builds the one a CUDA batch gets from ``from_coo``."""
+    rng = np.random.default_rng(22)
+    X = rng.normal(size=(300, 6)) * (rng.random((300, 6)) < 0.5)
+    b = CSRBatch.from_dense(X, np.zeros(300), device="cpu")
+    assert b.tiles is None
+    tiled = b.with_tiles()
+    tiles = tiled.tiles
+    assert (tiles.tile_rows, tiles.piece_len) == (SCATTER_TILE_ROWS, SCATTER_PIECE_LEN)
+    assert tiles.index.dtype == torch.int32 and tiles.index.device == b.device
+    arrays = scatter_tiles(b.csc_rows.numpy(), _csc_cols(b), 300, 6, SCATTER_TILE_ROWS,
+                           SCATTER_PIECE_LEN)
+    np.testing.assert_array_equal(tiles.index.numpy(), np.concatenate(arrays))
+    assert (tiles.n_slots, tiles.n_pieces, tiles.n_parts) == (len(arrays[0]), len(arrays[5]),
+                                                               arrays[4][-1])
+    wide = _batch(_coo(23, 50, 400, 0.01)[1], "cpu").with_tiles()  # no switch for wide data
+    non_empty = int(np.count_nonzero(np.diff(wide.col_ptr.numpy())))  # one tile: a segment each
+    assert wide.tiles.n_slots == 32 * -(-non_empty // 32)
+
+
+def test_scatter_args_check_the_tile_index():
+    """The CUDA wrappers' reading of a tile index (exercised here on CPU
+    tensors): its counts give the C arguments and the part scratch, and an
+    index that does not fit the batch, or none, is refused."""
+    _, X = _coo(26, 200, 70, 0.2)
+    b = _batch(X, "cpu").with_tiles(64, 16)
+    t = b.tiles
+    args, part = kernels._scatter_args("csc_scatter", b.device, t, 200, 70)
+    assert args == (t.index.data_ptr(), t.n_slots, t.n_pieces,
+                    kernels._group_size(t.n_parts, 70), 64, 16)
+    assert part.shape == (t.n_parts,) and part.dtype == torch.float32
+    for bad in (t._replace(index=t.index[:-1]), t._replace(tile_rows=32), None):
+        with pytest.raises(ValueError, match="tile index"):
+            kernels._scatter_args("csc_scatter", b.device, bad, 200, 70)
+
+
+def test_with_offsets_and_moment_sums_carry_the_tile_pointer():
+    rng, X = _coo(24, 200, 8, 0.4, empty_cols=(3,))
+    b = _batch(X, "cpu").with_tiles(64, 16)
+    arrays = scatter_tiles(b.csc_rows.numpy(), _csc_cols(b), 200, 8, 64, 16)
+    assert b.tiles.index.numel() == sum(len(a) for a in arrays)
+    moved = b.with_offsets(torch.ones(200))
+    assert moved.tiles is b.tiles
+    seen = []
+    real = kernels.csc_scatter
+
+    def spy(*args, **kw):
+        seen.append(args[5] if len(args) > 5 else kw.get("tiles"))
+        return real(*args, **kw)
+
+    kernels.csc_scatter = spy
+    try:
+        sums = moved.feature_moment_sums()
+    finally:
+        kernels.csc_scatter = real
+    assert len(seen) == 3 and all(t is b.tiles for t in seen)
+    valid = np.ones(200)
+    np.testing.assert_allclose(sums[0].numpy(), X.T @ valid, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(sums[2].numpy(), (X != 0).T @ valid, rtol=1e-6)
+
+
 # -- the build ---------------------------------------------------------------
 
 
@@ -208,7 +439,8 @@ def test_build_sources_and_directory():
     names = [os.path.basename(p) for p in build.sources()]
     assert names == ["ell_margins.cu", "hessian_vector.cu", "margins.cu", "margins_pair.cu",
                      "scatter.cu", "value_grad.cu"]
-    assert [os.path.basename(p) for p in build.headers()] == ["losses.cuh", "rowpass.cuh"]
+    assert [os.path.basename(p) for p in build.headers()] == ["losses.cuh", "rowpass.cuh",
+                                                              "segments.cuh"]
     assert build.BUILD_DIR == os.path.join(REPO, "build", "kernels")
     with open(os.path.join(REPO, ".gitignore")) as fh:
         assert "build/" in fh.read().split()
@@ -273,8 +505,8 @@ def test_scatter_kernel_matches_plain_and_is_deterministic(cuda, n, f, density, 
     rng, X = _coo(6, n, f, density, empty_cols=(0, f - 1))
     b = _batch(X, cuda)
     r = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
-    got = kernels.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, r, square)
-    again = kernels.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, r, square)
+    got = kernels.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, r, square, b.tiles)
+    again = kernels.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, r, square, b.tiles)
     want = reference.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, r, square)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
@@ -293,6 +525,9 @@ def test_cuda_wrappers_check_their_inputs(cuda):
         kernels.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, strided, False)
     with pytest.raises(ValueError):
         kernels.csr_margins(b.row_ptr, b.cols, b.vals, torch.zeros(20), b.offsets, 0.0, False)
+    with pytest.raises(ValueError, match="tile index"):
+        kernels.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, torch.zeros(50, device=cuda),
+                            False)
 
 
 def _close(name, got, want):
@@ -344,9 +579,10 @@ def test_margins_pair_kernel_matches_plain(cuda, n, f, density):
 @pytest.mark.parametrize("loss", ["logistic", "squared", "poisson", "smoothed_hinge"])
 def test_value_grad_kernel_matches_plain_and_is_deterministic(cuda, n, f, density, loss):
     b, csr, csc, w, _, _ = _cuda_fused(cuda, n, f, density)
-    args = (csr, csc, b.labels, b.weights, b.offsets, w, torch.tensor(0.1, device=cuda), loss)
+    args = (csr, csc, b.labels, b.weights, b.offsets, w, torch.tensor(0.1, device=cuda), loss,
+            b.tiles)
     got, again, want = kernels.value_grad(*args), kernels.value_grad(*args), \
-        reference.value_grad(*args)
+        reference.value_grad(*args[:-1])
     for g, a, e, name in zip(got, again, want, ("value", "grad", "row_total")):
         _close(name, g, e)
         assert torch.equal(g, a)
@@ -359,7 +595,8 @@ def test_hv_kernel_matches_plain_and_is_deterministic(cuda, n, f, density, loss)
     b, csr, csc, w, v, _ = _cuda_fused(cuda, n, f, density)
     args = (csr, csc, b.labels, b.weights, b.offsets, w, -0.1, v,
             torch.tensor(0.2, device=cuda), loss)
-    got, again, want = kernels.hv(*args), kernels.hv(*args), reference.hessian_vector(*args)
+    got, again = kernels.hv(*args, b.tiles), kernels.hv(*args, b.tiles)
+    want = reference.hessian_vector(*args)
     for g, a, e, name in zip(got, again, want, ("hv", "q_total")):
         _close(name, g, e)
         assert torch.equal(g, a)
@@ -368,9 +605,10 @@ def test_hv_kernel_matches_plain_and_is_deterministic(cuda, n, f, density, loss)
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,f,density", FUSED_SHAPES)
 def test_hv_at_kernel_matches_plain_and_is_deterministic(cuda, n, f, density):
-    _, csr, csc, _, v, d2 = _cuda_fused(cuda, n, f, density)
+    b, csr, csc, _, v, d2 = _cuda_fused(cuda, n, f, density)
     shift = torch.tensor(0.3, device=cuda)
-    got, again = kernels.hv_at(csr, csc, d2, v, shift), kernels.hv_at(csr, csc, d2, v, shift)
+    got = kernels.hv_at(csr, csc, d2, v, shift, b.tiles)
+    again = kernels.hv_at(csr, csc, d2, v, shift, b.tiles)
     want = reference.hv_at(csr, csc, d2, v, shift)
     for g, a, e, name in zip(got, again, want, ("hv", "q_total")):
         _close(name, g, e)
@@ -423,3 +661,120 @@ def test_ell_wrapper_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="n_pad"):
         kernels.ell_margins(b.vals[:, :64].contiguous(), b.cols[:, :64].contiguous(),
                             torch.zeros(20, device=cuda), b.offsets, 0.0, False)
+
+
+# -- on the card: the edges of the row pass and the scatter -------------------
+
+
+def _lengths_batch(lengths, f, device, seed=30, tile_rows=SCATTER_TILE_ROWS, col_p=None,
+                   piece_len=SCATTER_PIECE_LEN):
+    """A batch with the given row lengths, columns drawn uniformly (or from
+    ``col_p``), N(0, 1) values, offsets, labels in {0, 1, 2} and weights."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths)
+    n, nnz = len(lengths), int(lengths.sum())
+    rows = np.repeat(np.arange(n), lengths)
+    cols = rng.choice(f, size=nnz, p=col_p) if col_p is not None else rng.integers(0, f, nnz)
+    wgt = rng.random(n) + 0.5
+    wgt[::13] = 0.0
+    b = CSRBatch.from_coo(rng.normal(size=nnz), rows, cols, rng.integers(0, 3, n).astype(float),
+                          f, offsets=rng.normal(size=n) * 0.2, weights=wgt, device=device)
+    if (tile_rows, piece_len) != (SCATTER_TILE_ROWS, SCATTER_PIECE_LEN):
+        b = b.with_tiles(tile_rows, piece_len)
+    return b, rng
+
+
+def _row_lengths(case, rng):
+    if case == "long_row":  # one row far past the staging chunk among short ones
+        lengths = np.full(1000, 20)
+        lengths[517] = 5000
+    elif case == "empty_rows_at_boundaries":  # n not a multiple of 32
+        lengths = rng.integers(0, 40, size=1007)
+        lengths[[0, 31, 32, 63, 64, 95, 1006]] = 0
+    elif case == "skewed":
+        lengths = np.minimum(rng.geometric(0.05, size=3001), 600)
+    else:  # "all_long": every row past the long-row threshold
+        lengths = np.full(70, 300)
+    return lengths
+
+
+def _twice(name, run, want):
+    got, again = run(), run()
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    want = want if isinstance(want, tuple) else (want,)
+    for i, (g, a, e) in enumerate(zip(got, again, want, strict=True)):
+        _close(f"{name}[{i}]", g, e)
+        assert torch.equal(g, a), f"{name}[{i}]: two launches disagree"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_row", "empty_rows_at_boundaries", "skewed", "all_long"])
+@pytest.mark.parametrize("f", [3000, 60_000])  # tables staged; read through the cache
+def test_row_pass_edges_match_plain_and_are_deterministic(cuda, case, f):
+    b, rng = _lengths_batch(_row_lengths(case, np.random.default_rng(31)), f, cuda)
+    w, v = (torch.from_numpy(rng.normal(size=f).astype(np.float32)).to(cuda) for _ in range(2))
+    csr, shift = (b.row_ptr, b.cols, b.vals), torch.tensor(0.3, device=cuda)
+    _twice("margins", lambda: kernels.csr_margins(*csr, w, b.offsets, shift, True),
+           reference.csr_margins(*csr, w, b.offsets, shift, True))
+    _twice("dot_rows", lambda: kernels.csr_margins(*csr, w, b.offsets, 0.0, False),
+           reference.csr_margins(*csr, w, b.offsets, 0.0, False))
+    _twice("pair", lambda: kernels.margins_pair(csr, w, v, b.offsets, shift, -0.7),
+           reference.margins_pair(csr, w, v, b.offsets, shift, -0.7))
+
+
+def _scatter_case(case, cuda):
+    """A batch for a scatter edge case, with its tile index."""
+    rng = np.random.default_rng(32)
+    if case == "several_tiles":
+        return _lengths_batch(rng.integers(5, 15, size=5000), 50, cuda, tile_rows=512)[0]
+    if case == "empty_segments":  # rows of most columns fall in a few tiles
+        b = _lengths_batch(rng.integers(0, 6, size=4000), 300, cuda, tile_rows=256)[0]
+        rows = b.csc_rows.cpu().numpy()
+        cols = _csc_cols(b)
+        keep = (rows < 1000) | (cols % 7 == 0)
+        b = CSRBatch.from_coo(b.csc_vals.cpu().numpy()[keep], rows[keep], cols[keep],
+                              np.zeros(4000), 300, device=cuda)
+        return b.with_tiles(256, 64)
+    if case == "power_law_columns":  # hot columns: long (feature, tile) segments
+        p = 1.0 / np.arange(1, 501)
+        return _lengths_batch(rng.integers(10, 30, size=20000), 500, cuda, tile_rows=2048,
+                              col_p=p / p.sum(), piece_len=256)[0]
+    # "wide_sparse": segments of one or two entries, and one hot column
+    b, _ = _lengths_batch(rng.integers(0, 3, size=2000), 20_000, cuda)
+    rows = np.concatenate([b.csc_rows.cpu().numpy(), np.arange(2000)[rng.random(2000) < 0.9]])
+    cols = np.concatenate([_csc_cols(b), np.full(len(rows) - b.nnz, 7)])
+    vals = rng.normal(size=len(rows))
+    return CSRBatch.from_coo(vals, rows, cols, np.zeros(2000), 20_000, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["several_tiles", "empty_segments", "power_law_columns",
+                                  "wide_sparse"])
+@pytest.mark.parametrize("square", [False, True])
+def test_scatter_edges_match_plain_and_are_deterministic(cuda, case, square):
+    b = _scatter_case(case, cuda)
+    csc = (b.col_ptr, b.csc_rows, b.csc_vals)
+    r = torch.from_numpy(np.random.default_rng(33).normal(size=b.num_rows)
+                         .astype(np.float32)).to(cuda)
+    _twice(case, lambda: kernels.csc_scatter(*csc, r, square, b.tiles),
+           reference.csc_scatter(*csc, r, square))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rows", [512, 8192])
+def test_fused_kernels_with_a_long_row(cuda, tile_rows):
+    lengths = np.full(2000, 20)
+    lengths[1234] = 5000
+    b, rng = _lengths_batch(lengths, 1000, cuda, tile_rows=tile_rows)
+    w, v = (torch.from_numpy(rng.normal(size=1000).astype(np.float32) * 0.1).to(cuda)
+            for _ in range(2))
+    d2 = torch.from_numpy(rng.random(2000).astype(np.float32)).to(cuda)
+    csr, csc, rows3, tiles = b._csr, b._csc, (b.labels, b.weights, b.offsets), b.tiles
+    assert tiles.tile_rows == tile_rows
+    _twice("value_grad", lambda: kernels.value_grad(csr, csc, *rows3, w, 0.1, "logistic", tiles),
+           reference.value_grad(csr, csc, *rows3, w, 0.1, "logistic"))
+    _twice("hv", lambda: kernels.hv(csr, csc, *rows3, w, 0.1, v, -0.2, "logistic", tiles),
+           reference.hessian_vector(csr, csc, *rows3, w, 0.1, v, -0.2, "logistic"))
+    _twice("hv_at", lambda: kernels.hv_at(csr, csc, d2, v, 0.3, tiles),
+           reference.hv_at(csr, csc, d2, v, 0.3))
