@@ -10,11 +10,13 @@ Phases, in order; any failure exits non-zero before the last line:
      (into ``build/kernels/``);
   3. at full width (1M rows x 10K features x 20 nnz/row, bench.py config #1's
      data from ``--seed``; the margins and ELL kernels also on skewed row
-     lengths, the scatter also on power-law column lengths) hold each
-     kernel against its plain PyTorch version on the card (and each kernel
-     against itself: two launches must agree bit for bit), and time kernel,
-     plain version and the library yardstick where one PyTorch call computes
-     the same function (never used by the port);
+     lengths, the scatter also on power-law column lengths, value_grad and
+     hv_at on both) hold each kernel against its plain PyTorch version on the
+     card (and each kernel against itself: two launches must agree bit for
+     bit), and time kernel, plain version and the library yardstick where one
+     PyTorch call computes the same function (never used by the port); the
+     plain versions read the mirror column-major (``CSRBatch.column_major``),
+     the kernels in the tile index's slot order;
   4. train at a reduced size (64K x 2K) on the card and on the CPU (plain
      versions) with LBFGS, TRON, OWLQN and box-constrained Poisson LBFGS:
      same convergence reason and iteration count, final loss within rtol 1e-4;
@@ -212,11 +214,12 @@ def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
 
     n, f, nnz = batch.num_rows, batch.num_features, batch.nnz
     shift = torch.tensor(0.25, dtype=torch.float32, device=w.device)
-    b_csr, b_csc = batch._csr, batch._csc
+    b_csr, plain_csc = batch._csr, batch.column_major()
+    plain_power = power_law.column_major()
 
-    def scatter(label, b, r, square):
+    def scatter(label, b, plain, r, square):
         return (label, lambda: kernels.csc_scatter(*b._csc, r, square, b.tiles),
-                lambda: reference.csc_scatter(*b._csc, r, square))
+                lambda: reference.csc_scatter(*plain, r, square))
 
     variants = {
         "csr_margins": [
@@ -229,9 +232,9 @@ def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
              lambda: reference.csr_margins(*skewed._csr, w, skewed.offsets, 0.0, False)),
         ],
         "csc_scatter": [
-            scatter("scatter", batch, per_row, False),
-            scatter("scatter_sq", batch, d2_row, True),
-            scatter("power-law scatter", power_law, per_row, False),
+            scatter("scatter", batch, plain_csc, per_row, False),
+            scatter("scatter_sq", batch, plain_csc, d2_row, True),
+            scatter("power-law scatter", power_law, plain_power, per_row, False),
         ],
     }
     # bytes each function must move (inputs read once, output written once)
@@ -248,7 +251,7 @@ def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
         "csc_scatter": ("photon_ml_tpu_torch/csrc/scatter.cu", "photon_ml_tpu/ops/tiled.py:199",
                         "scatter", scatter_bytes, 2 * nnz,
                         library_ms(lambda: torch.sparse_csr_tensor(
-                            *b_csc, size=(f, n), check_invariants=False),
+                            *plain_csc, size=(f, n), check_invariants=False),
                             lambda m: torch.mv(m, per_row))),
     }
     for label, b in (("config #1", batch), ("power-law", power_law)):
@@ -265,11 +268,28 @@ def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
     return rows
 
 
-def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
+def launches_per_call(fn) -> int | None:
+    """Kernel launches of one call of ``fn``, counted by torch.profiler
+    (None when the profiler sees no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels) or None
+
+
+def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
     """Phase 3, the fused kernels: the variants the paths run (pair with
     offsets and both shifts; value_grad for squared, Poisson and logistic;
-    hv for squared and logistic; hv_at), each against its plain version and
-    against a second launch, bit for bit."""
+    hv for squared and logistic; hv_at), value_grad and hv_at also on the
+    ``skewed`` rows and the ``power_law`` columns, each against its plain
+    version and against a second launch, bit for bit."""
     import torch
 
     from photon_ml_tpu_torch import kernels
@@ -277,34 +297,52 @@ def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
 
     n, f, nnz = batch.num_rows, batch.num_features, batch.nnz
     csr, csc, tiles = batch._csr, batch._csc, batch.tiles
+    plain_csc = batch.column_major()
     rows3 = batch.labels, batch.weights, batch.offsets
     shift = torch.tensor(0.25, dtype=torch.float32, device=w.device)  # a 0-d device shift
     v_shift = -0.5  # and a host one
 
-    def vg(loss):
-        return (loss, lambda: kernels.value_grad(csr, csc, *rows3, w, shift, loss, tiles),
-                lambda: reference.value_grad(csr, csc, *rows3, w, shift, loss))
+    def vg(loss, b=batch, plain=plain_csc, label=None):
+        args = b._csr, b._csc, b.labels, b.weights, b.offsets, w, shift, loss
+        return (label or loss, lambda: kernels.value_grad(*args, b.tiles),
+                lambda: reference.value_grad(args[0], plain, *args[2:]))
 
     def hv(loss):
         return (loss, lambda: kernels.hv(csr, csc, *rows3, w, shift, v, v_shift, loss, tiles),
-                lambda: reference.hessian_vector(csr, csc, *rows3, w, shift, v, v_shift, loss))
+                lambda: reference.hessian_vector(csr, plain_csc, *rows3, w, shift, v, v_shift,
+                                                 loss))
+
+    def hv_at(label, b=batch, plain=plain_csc, d2=d2_row):
+        return (label, lambda: kernels.hv_at(b._csr, b._csc, d2, v, v_shift, b.tiles),
+                lambda: reference.hv_at(b._csr, plain, d2, v, v_shift))
+
+    others = {}
+    for label, b in (("skewed", skewed), ("power-law", power_law)):
+        s = torch.sigmoid(b.dot_rows(w))
+        others[label] = b, b.column_major(), s * (1.0 - s)
 
     variants = {
         "margins_pair": [("pair+offsets+shifts",
                           lambda: kernels.margins_pair(csr, w, v, batch.offsets, shift, v_shift),
                           lambda: reference.margins_pair(csr, w, v, batch.offsets, shift,
                                                          v_shift))],
-        "value_grad": [vg("squared"), vg("poisson"), vg("logistic")],
+        "value_grad": [vg("squared"), vg("poisson"), vg("logistic")] + [
+            vg("logistic", b, plain, f"{label} logistic")
+            for label, (b, plain, _) in others.items()],
         "hv": [hv("squared"), hv("logistic")],
-        "hv_at": [("hv_at", lambda: kernels.hv_at(csr, csc, d2_row, v, v_shift, tiles),
-                   lambda: reference.hv_at(csr, csc, d2_row, v, v_shift))],
+        "hv_at": [hv_at("hv_at")] + [hv_at(f"{label} hv_at", b, plain, d2)
+                                     for label, (b, plain, d2) in others.items()],
     }
     # Bytes the function must move: the CSR slots once (8 per nonzero),
     # row_ptr, the per-row inputs and tables, the outputs. The two-layout
-    # design also reads the CSC slots and col_ptr and writes and reads one
-    # per-row vector: its own floor.
+    # designs also read the CSC slots once and the tile index, and write and
+    # read one part per segment: their own floor. The tile-fused kernel
+    # (value_grad, hv_at) reads the index but its `start`; hv's three steps
+    # read all of it and write and read the per-row q besides.
     slots = (n + 1) + 2 * nnz
-    two_layout = (f + 1) + 2 * nnz + 2 * n
+    t = tiles
+    tile_fused = 2 * nnz + (t.index.numel() - t.n_slots) + 2 * t.n_parts
+    three_step = 2 * nnz + t.index.numel() + 2 * t.n_parts + 2 * n
     stacked = torch.stack([w, v], 1)
     specs = {
         "margins_pair": ("photon_ml_tpu_torch/csrc/margins_pair.cu",
@@ -316,15 +354,15 @@ def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
                          "torch.sparse.mm(X_csr, [w, p]) without offsets and shifts"),
         "value_grad": ("photon_ml_tpu_torch/csrc/value_grad.cu",
                        "photon_ml_tpu/ops/tiled.py:219", "squared",
-                       slots + 3 * n + f + f + 2, two_layout, 4 * nnz, None,
+                       slots + 3 * n + f + f + 2, tile_fused, 4 * nnz, None,
                        "no single PyTorch call computes loss, gradient and sums"),
         "hv": ("photon_ml_tpu_torch/csrc/hessian_vector.cu",
                "photon_ml_tpu/ops/tiled.py:251", "squared",
-               slots + 3 * n + 2 * f + f + 1, two_layout, 6 * nnz, None,
+               slots + 3 * n + 2 * f + f + 1, three_step, 6 * nnz, None,
                "no single PyTorch call computes the curvature-weighted X^T D X v"),
         "hv_at": ("photon_ml_tpu_torch/csrc/hessian_vector.cu",
                   "photon_ml_tpu/ops/tiled.py:284", "hv_at",
-                  slots + n + f + f + 1, two_layout, 4 * nnz, None,
+                  slots + n + f + f + 1, tile_fused, 4 * nnz, None,
                   "X^T (d2 * (X v + s)) takes two sparse products and an elementwise op"),
     }
     rows = []
@@ -336,8 +374,11 @@ def check_fused_kernels(batch, w, v, d2_row) -> list[dict]:
         print(f"design floor {name}: two-layout bytes={4 * (words + extra_words)} "
               f"floor_ms={4 * (words + extra_words) / PEAK_BYTES_PER_S * 1e3:.4f} (computed)",
               flush=True)
+        launches = launches_per_call(cases[0][1])
+        print(f"launches per call {name}[{cases[0][0]}]: {launches} (torch.profiler)",
+              flush=True)
         rows.append(kernel_row(name, src, replaces, worst, timed, label, 4 * words, flops,
-                               lib, library_note=lib_note))
+                               lib, library_note=lib_note, launches_per_call=launches))
     return rows
 
 
@@ -647,6 +688,9 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
     from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
     from photon_ml_tpu_torch.optim.factory import OptimizerType
 
+    # the dataset's blocks come from fresh segments, so the fit's peak does
+    # not depend on which blocks the earlier paths left cached
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     fe_vals, fe_rows, fe_cols, users, Xu, y = make_game_problem(seed)
     ru_rows, ru_cols = np.nonzero(Xu)
@@ -818,10 +862,14 @@ def main() -> int:
     power_law = CSRBatch.from_coo(values, rows, power_law_columns(args.seed, len(values)), y,
                                   N_FEATURES)
     kernel_rows = check_kernels(probe, w, s - batch.labels, d2_row, skewed_csr, power_law)
-    kernel_rows += check_fused_kernels(probe, w, v, d2_row)
+    kernel_rows += check_fused_kernels(probe, w, v, d2_row, skewed_csr, power_law)
     kernel_rows.append(check_ell_kernel(values, rows, cols, y, w, offsets, skewed,
                                         kernel_rows[0]["library_ms"]))
     del probe, z, s, d2_row, skewed_csr, power_law
+    # Phase 3's temporaries (the column-major views among them) leave cached
+    # blocks behind; release them, so that the later paths' peaks depend on
+    # the paths' own allocations only, not on which blocks they happen to reuse.
+    torch.cuda.empty_cache()
 
     check_small_parity(args.seed)
 

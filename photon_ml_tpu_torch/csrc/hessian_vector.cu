@@ -8,18 +8,22 @@
 //           computed once per TRON step (replaces `_hv_at_kernel`,
 //           photon_ml_tpu/ops/tiled.py:284, built by `_hv_at_call` at :382)
 //
-// As in value_grad.cu, each is three hand-written launches with every sum in
-// a fixed order and no float atomics: the row pass (rowpass.cuh) writes q and
-// per-block partials of sum q, finish_sums_kernel adds the partials, and
-// scatter.cu sums q over the CSC mirror.
+// Every sum is in a fixed order, with no float atomics. hv_at is the
+// tile-fused pass of tile_fused.cuh and its finish, two launches: per row
+// tile the row pass keeps q in shared memory and the tile's slot-ordered CSC
+// span is summed against it. hv is still three steps: the row pass
+// (rowpass.cuh) writes q and per-block partials of sum q, finish_sums_kernel
+// adds the partials, and scatter.cu sums q over the CSC mirror.
 //
-// Bound: bytes. Per call the function must read the slots once (8 bytes per
-// nonzero), row_ptr, the tables and the per-row inputs, and write the result:
-// ~176 bytes per row for hv and ~168 for hv_at at 20 nonzeros. The CSC pass
-// and the round trip of q put this design's own floor at about twice that.
+// Bound: bytes. Per call the function must read the CSR slots once (8 bytes
+// per nonzero), row_ptr, the tables and the per-row inputs, and write the
+// result: ~176 bytes per row for hv and ~168 for hv_at at 20 nonzeros.
+// hv_at also reads the CSC slots once, the tile index (off and part_at, 8
+// bytes a slot) and writes and reads one part per segment, about twice the
+// bound; hv besides writes and reads q.
 
 #include "losses.cuh"
-#include "rowpass.cuh"
+#include "tile_fused.cuh"
 
 namespace photon {
 namespace {
@@ -40,11 +44,11 @@ struct HvEpilogue {
 struct HvAtEpilogue {
   static constexpr int kTables = 1;
   static constexpr int kSums = 1;
-  static __device__ __forceinline__ void apply(const RowPassParams& p, int row, float a0,
-                                               float, float* part) {
+  static __device__ __forceinline__ float row_value(const RowPassParams& p, int row, float a0,
+                                                    float, float* part) {
     const float q = __ldg(p.d2 + row) * a0;
-    p.out0[row] = q;
     part[0] += q;
+    return q;
   }
 };
 
@@ -126,15 +130,17 @@ extern "C" int photon_hessian_vector(const int* row_ptr, const int* cols, const 
   return finish(p, grid, c, sums, hv, s);
 }
 
+// sums[0] = sum q; hv[F]; partials[max_blocks] and part (one float per
+// part) are scratch the caller allocates; the tile index is tiles.cuh's, over
+// csc_rows/csc_vals in its slot order.
 extern "C" int photon_hv_at(const int* row_ptr, const int* cols, const float* vals,
                             const int* csc_rows, const float* csc_vals, const float* d2,
                             const float* v, const float* shift_dev, float shift_host,
-                            float* q_row, float* partials, int max_blocks, float* sums, float* hv,
+                            float* partials, int max_blocks, float* sums, float* hv,
                             const int* tile_index, int n_slots, int n_pieces, int finish_width,
                             int tile_rows, int piece_len, float* part, int n_rows,
                             int n_features, void* stream) {
   using namespace photon;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   RowPassParams p{};
   p.row_ptr = row_ptr;
   p.cols = cols;
@@ -143,14 +149,11 @@ extern "C" int photon_hv_at(const int* row_ptr, const int* cols, const float* va
   p.shift0_dev = shift_dev;
   p.shift0_host = shift_host;
   p.d2 = d2;
-  p.out0 = q_row;
   p.partials = partials;
   p.n_rows = n_rows;
   p.n_features = n_features;
-  int grid = 0;
-  cudaError_t err = launch_row_pass<HvAtEpilogue>(p, max_blocks, s, &grid);
-  if (err != cudaSuccess) return err;
-  const ScatterArgs c{csc_rows,     csc_vals,  tile_index, n_slots, n_pieces,
-                      finish_width, tile_rows, piece_len,  part};
-  return finish(p, grid, c, sums, hv, s);
+  const TileFusedParams tp = tile_fused_params(p, csc_rows, csc_vals, tile_index, n_slots,
+                                               n_pieces, tile_rows, piece_len, part);
+  return run_tile_fused<HvAtEpilogue>(tp, max_blocks, finish_width, sums, hv,
+                                      static_cast<cudaStream_t>(stream));
 }

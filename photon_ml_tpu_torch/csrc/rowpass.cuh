@@ -1,6 +1,7 @@
 // One templated row pass over a CSR matrix on Hopper (sm_90a), shared by the
 // margins kernel and the fused kernels (margins.cu, margins_pair.cu,
-// value_grad.cu, hessian_vector.cu):
+// hessian_vector.cu's hv; tile_fused.cuh runs the same warp spans and fill
+// as phase A of value_grad.cu and hv_at):
 //   acc0 = sum_k vals_k * table0[cols_k] + shift0
 //   acc1 = sum_k vals_k * table1[cols_k] + shift1        (two-table epilogues)
 //
@@ -47,7 +48,6 @@ constexpr int kRowWarps = kRowThreads / 32;
 // dynamic shared memory of one block: the product chunks, plus the tables
 // when they fit (the card allows 227 KB; the rest is for block_sums)
 constexpr size_t kRowSmemLimitBytes = 220 * 1024;
-constexpr int kFinishThreads = 256;
 // resident blocks the compiler budgets registers for (three 512-thread
 // blocks: 42 registers a thread)
 constexpr int kRowMinBlocks = 3;
@@ -142,10 +142,11 @@ row_pass_kernel(const RowPassParams p) {
 }
 
 // sums[k] = sum_b partials[b*K + k] over the `blocks` block partials, in a
-// fixed order (strided per thread, then a shared-memory tree).
+// fixed order (strided per thread, then a shared-memory tree), by one block
+// of kFinishThreads threads.
 template <int K>
-__global__ void __launch_bounds__(kFinishThreads)
-finish_sums_kernel(const float* __restrict__ partials, int blocks, float* __restrict__ sums) {
+__device__ void sum_partials(const float* __restrict__ partials, int blocks,
+                             float* __restrict__ sums) {
   __shared__ float s[K][kFinishThreads];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -162,6 +163,12 @@ finish_sums_kernel(const float* __restrict__ partials, int blocks, float* __rest
     __syncthreads();
   }
   if (threadIdx.x < K) sums[threadIdx.x] = s[threadIdx.x][0];
+}
+
+template <int K>
+__global__ void __launch_bounds__(kFinishThreads)
+finish_sums_kernel(const float* __restrict__ partials, int blocks, float* __restrict__ sums) {
+  sum_partials<K>(partials, blocks, sums);
 }
 
 template <bool kStaged, class Epi>

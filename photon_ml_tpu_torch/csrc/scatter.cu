@@ -33,40 +33,27 @@
 // ascending. A second launch adds each feature's parts, one contiguous run,
 // in that order.
 //
-// The tile index is one int32 array: start [slots] (the CSC position where
-// each slot's segment begins), off [slots + 1] (the prefix sum of segment
-// lengths in slot order), tile_group [T + 1] (each tile's first group),
-// piece_ptr [groups + 1] (each group's first piece), feat_ptr [F + 1] (each
-// feature's first part), piece_group [pieces] (each piece's group) and
-// part_at [slots] (the place of the part of each slot's segment in the
-// first piece it meets; its parts in later pieces follow).
+// The tile index is tiles.cuh's. On a mirror in slot order (a CUDA batch's,
+// ops/csr.py) start[s] == off[s], so each lane's positions are its own mirror
+// entries and the fill's cursor walk is the identity; the fill still reads
+// start, so the kernel takes either order.
 
 #include <cuda_runtime.h>
 
 #include "segments.cuh"
+#include "tiles.cuh"
 
 namespace photon {
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kFinishThreads = 256;
 // per-warp segment table of the fill: 33 virtual offsets, 32 CSC starts
 constexpr int kSegInts = 66;
 constexpr size_t kSmemLimitBytes = 220 * 1024;
 // resident blocks the compiler budgets registers for (three 512-thread
 // blocks: 42 registers a thread)
 constexpr int kMinBlocks = 3;
-
-struct TileIndex {
-  const int* start;        // [slots]
-  const int* off;          // [slots + 1]
-  const int* tile_group;   // [T + 1]
-  const int* piece_ptr;    // [groups + 1]
-  const int* feat_ptr;     // [F + 1]
-  const int* piece_group;  // [pieces]
-  const int* part_at;      // [slots]
-};
 
 // The fill of the tiled scatter: lane s's segment covers virtual positions
 // [off[s], off[s + 1]), which are CSC entries start[s] + (q - off[s]). Each
@@ -135,43 +122,23 @@ csc_scatter_tiled_kernel(const TileIndex ix, const int* __restrict__ rows,
   const int p_end = __ldg(ix.piece_ptr + __ldg(ix.tile_group + t + 1));
   for (int p = __ldg(ix.piece_ptr + __ldg(ix.tile_group + t)) + blockIdx.y * kWarps + warp;
        p < p_end; p += gridDim.y * kWarps) {
-    const int g = __ldg(ix.piece_group + p);
-    const int j = g * 32 + lane;
-    const int sub = p - __ldg(ix.piece_ptr + g);
-    const int g_lo = __ldg(ix.off + g * 32);
-    const int c0 = g_lo + sub * piece_len;
-    const int c1 = min(c0 + piece_len, __ldg(ix.off + g * 32 + 32));
-    const int s_lo = __ldg(ix.off + j);
-    const int lo = min(max(s_lo, c0), c1);
-    const int hi = min(max(__ldg(ix.off + j + 1), c0), c1);
-    seg[lane] = lo;
-    seg[33 + lane] = __ldg(ix.start + j) + (lo - s_lo);
-    if (lane == 31) seg[32] = hi;
+    const PieceLane pl = piece_lane(ix, p, piece_len);
+    seg[lane] = pl.lo;
+    seg[33 + lane] = __ldg(ix.start + pl.slot) + (pl.lo - pl.s_lo);
+    if (lane == 31) seg[32] = pl.hi;
     __syncwarp();
     fill.cursor = 0;
     float acc[1] = {0.0f};
-    segment_sums<1>(lo, hi, chunk, fill, acc);
-    if (lo < hi) part[__ldg(ix.part_at + j) + sub - (s_lo - g_lo) / piece_len] = acc[0];
+    segment_sums<1>(pl.lo, pl.hi, chunk, fill, acc);
+    if (pl.lo < pl.hi) part[pl.part] = acc[0];
     __syncwarp();  // the segment table is rewritten next
   }
 }
 
-// out[f] = the sum of f's parts part[feat_ptr[f]], ..., in order, by
-// `width` lanes (a power of two, at most 32): lane i takes parts i,
-// i + width, ..., and the lanes' sums meet in a fixed shuffle tree.
 __global__ void __launch_bounds__(kFinishThreads)
 finish_tiled_kernel(const int* __restrict__ feat_ptr, const float* __restrict__ part,
                     float* __restrict__ out, int n_features, int width) {
-  const long long thread = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long f = thread / width;
-  const int sub = static_cast<int>(thread % width);
-  float s = 0.0f;
-  if (f < n_features) {
-    const int end = __ldg(feat_ptr + f + 1);
-    for (int k = __ldg(feat_ptr + f) + sub; k < end; k += width) s += part[k];
-  }
-  for (int o = width / 2; o > 0; o >>= 1) s += __shfl_xor_sync(kFullMask, s, o);
-  if (f < n_features && sub == 0) out[f] = s;
+  sum_parts(feat_ptr, part, out, n_features, width);
 }
 
 }  // namespace
@@ -189,18 +156,12 @@ extern "C" int photon_csc_scatter(const int* rows, const float* vals, const int*
   using namespace photon;
   if (n_features <= 0) return cudaSuccess;
   if (tile_index == nullptr || tile_rows <= 0 || piece_len <= 0 || n_rows < 0 ||
-      finish_width < 1 || finish_width > 32 || (finish_width & (finish_width - 1)) != 0) {
+      !valid_finish_width(finish_width)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = (n_rows + tile_rows - 1) / tile_rows;
-  const size_t slots = static_cast<size_t>(n_slots);
-  const int* tile_group = tile_index + 2 * slots + 1;
-  const int* piece_ptr = tile_group + n_tiles + 1;
-  const int* feat_ptr = piece_ptr + slots / 32 + 1;
-  const int* piece_group = feat_ptr + n_features + 1;
-  const TileIndex ix{tile_index, tile_index + slots, tile_group, piece_ptr,
-                     feat_ptr,   piece_group,        piece_group + n_pieces};
+  const TileIndex ix = tile_index_view(tile_index, n_slots, n_pieces, n_tiles, n_features);
   const size_t smem = static_cast<size_t>(kWarps) * (kChunk + kSegInts) * sizeof(float) +
                       static_cast<size_t>(tile_rows) * sizeof(float);
   if (smem > kSmemLimitBytes) return cudaErrorInvalidValue;
@@ -220,8 +181,7 @@ extern "C" int photon_csc_scatter(const int* rows, const float* vals, const int*
                                     square);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  const long long threads = static_cast<long long>(n_features) * finish_width;
-  finish_tiled_kernel<<<static_cast<unsigned>((threads + kFinishThreads - 1) / kFinishThreads),
-                        kFinishThreads, 0, s>>>(feat_ptr, part, out, n_features, finish_width);
+  finish_tiled_kernel<<<finish_blocks(n_features, finish_width), kFinishThreads, 0, s>>>(
+      ix.feat_ptr, part, out, n_features, finish_width);
   return cudaGetLastError();
 }

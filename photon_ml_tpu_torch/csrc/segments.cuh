@@ -1,5 +1,6 @@
 // Warp-level segmented sums of products on Hopper (sm_90a), shared by the
-// CSR row pass (rowpass.cuh) and the CSC scatter (scatter.cu).
+// CSR row pass (rowpass.cuh), the CSC scatter (scatter.cu) and the tile-fused
+// passes (tile_fused.cuh).
 //
 // A warp owns 32 segments, lane i the i-th. The segments are ranges of
 // positions that follow one another in lane order and together cover the
@@ -29,13 +30,19 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kChunk = 256;
 // segments longer than this are summed by the whole warp
 constexpr int kLongSegment = 128;
+// threads of a finishing block (the fixed-order sums of parts and partials)
+constexpr int kFinishThreads = 256;
 
 // The resident blocks of `kernel` on the current device at `threads` a block
-// and `smem` bytes of dynamic shared memory (blocks per SM times the SMs),
-// with the kernel's dynamic shared-memory limit raised first where smem
-// passes the 48 KB default. Cached per kernel, device and smem, so a launch
-// makes these queries once.
-inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, int* blocks) {
+// and `smem` bytes of dynamic shared memory (blocks per SM times the SMs; for
+// a launch in clusters of `cluster` blocks, the resident clusters times
+// `cluster`), with the kernel's dynamic shared-memory limit raised to smem
+// first where it is lower (by default static and dynamic shared memory share
+// 48 KB; the limit belongs to the kernel, so it is never lowered, or a size
+// cached before would no longer launch). Cached per kernel, device and smem,
+// so a launch makes these queries once.
+inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, int* blocks,
+                                   int cluster = 1) {
   struct Entry {
     const void* kernel;
     int device;
@@ -55,17 +62,38 @@ inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
       return cudaSuccess;
     }
   }
-  if (smem > 48 * 1024) {
+  cudaFuncAttributes attrs;
+  err = cudaFuncGetAttributes(&attrs, kernel);
+  if (err != cudaSuccess) return err;
+  if (static_cast<size_t>(attrs.maxDynamicSharedSizeBytes) < smem) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  *blocks = (per_sm > 0 ? per_sm : 1) * sms;
+  if (cluster > 1) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    *blocks = (clusters > 0 ? clusters : 1) * cluster;
+  } else {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    *blocks = (per_sm > 0 ? per_sm : 1) * sms;
+  }
   if (used < 64) cache[used++] = Entry{kernel, device, smem, *blocks};
   return cudaSuccess;
 }
@@ -129,8 +157,8 @@ __device__ __forceinline__ void segment_sums(int lo, int hi, float* chunk, Fill&
 
 // The fill of a contiguous span: position q is nonzero q of idx/vals, and
 // its product with table k is vals[q] (squared with `square`) times
-// table_k[idx[q]]. The warp loads 16 bytes of idx and of vals per lane and
-// quad (scalars at the ragged ends, or everywhere if the arrays are not
+// table_k[idx[q] - base]. The warp loads 16 bytes of idx and of vals per lane
+// and quad (scalars at the ragged ends, or everywhere if the arrays are not
 // 16-byte aligned), kChunk / 128 quads per lane in flight, then gathers.
 template <int K, bool kStaged>
 struct GatherFill {
@@ -141,12 +169,13 @@ struct GatherFill {
   float* chunk;
   bool vec;
   bool square;
+  int base;  // the index of table entry 0: a row tile's first row, or 0
 
   __device__ __forceinline__ float table_at(const float* t, int c) const {
     if constexpr (kStaged) {
-      return t[c];
+      return t[c - base];
     } else {
-      return __ldg(t + c);
+      return __ldg(t + (c - base));
     }
   }
 
@@ -167,7 +196,7 @@ struct GatherFill {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const bool in = q + j >= span_lo && q + j < span_hi;
-          c[i][j] = in ? __ldg(idx + q + j) : 0;
+          c[i][j] = in ? __ldg(idx + q + j) : base;
           v[i][j] = in ? __ldg(vals + q + j) : 0.0f;
         }
       }

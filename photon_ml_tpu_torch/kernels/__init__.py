@@ -7,15 +7,19 @@ Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel and
 nowhere else, so a run can show that its path went through the kernels.
 
 The fused passes (``margins_pair``, ``value_grad``, ``hv``, ``hv_at``) take
-the CSR as ``csr = (row_ptr, cols, vals)`` and its CSC mirror as
+the CSR as ``csr = (row_ptr, cols, vals)`` and its mirror as
 ``csc = (col_ptr, rows, vals)``. One call of ``value_grad``, ``hv`` or
-``hv_at`` is one C call that launches the row pass, the fixed-order sum of
-its block partials and the CSC scatter; it counts once, under its own name.
-The scatter and the passes that end with it take ``tiles``, the row-tile
-index of a ``CSRBatch`` (``ScatterTiles``, built by ``ops/csr.py``
-``scatter_tiles``), which the CUDA scatter needs: it stages per_row by row
-tiles in shared memory and walks the non-empty (tile, feature) segments.
-``ell_margins`` takes the slot-major ELL layout of ``ops/ell.py``.
+``hv_at`` is one C call and counts once, under its own name: ``value_grad``
+and ``hv_at`` are the tile-fused kernel (``csrc/tile_fused.cuh``: the row
+pass and the scatter of each row tile in one launch) and its finish, ``hv``
+the row pass, the sum of its block partials and the scatter. The scatter and
+the passes that end with it take ``tiles``, the row-tile index of a
+``CSRBatch`` (``ScatterTiles``, built by ``ops/csr.py``), which the CUDA
+kernels need: they stage per_row by row tiles in shared memory and walk the
+non-empty (tile, feature) segments of a mirror held in the index's slot
+order. Where ``tiles`` are given on the CPU, the plain versions read the
+mirror through ``column_major``. ``ell_margins`` takes the slot-major ELL
+layout of ``ops/ell.py``.
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ LAUNCHES: dict[str, int] = {
 LOSS_CODES = {"logistic": 0, "squared": 1, "poisson": 2, "smoothed_hinge": 3}
 _HV_LOSSES = ("logistic", "squared", "poisson")
 
-# capacity of the block-partials scratch; the row pass launches at most the
-# resident block count (at most 4 blocks of 512 threads on each of 132 SMs)
+# capacity of the block-partials scratch; the row pass and the tile-fused
+# kernel launch at most the resident block count (at most 4 blocks of 512
+# threads on each of 132 SMs)
 _MAX_BLOCKS = 2048
 
 _INT_ARGS = ("row_ptr", "cols", "col_ptr", "rows", "ell_cols", "tile_index")
@@ -62,6 +67,30 @@ class ScatterTiles(NamedTuple):
     n_slots: int
     n_pieces: int
     n_parts: int
+
+
+def column_major(csc: tuple[Tensor, Tensor, Tensor],
+                 tiles: ScatterTiles | None) -> tuple[Tensor, Tensor, Tensor]:
+    """The mirror ``csc`` = (col_ptr, rows, vals), laid out as ``tiles``
+    say, in column-major order (columns ascending, then rows), on its device.
+
+    The index lists each feature's parts in (tile, piece) order, so sorting
+    the non-empty slots by the place of their first part (``part_at``) puts
+    the segments in column-major order; a segment of slot s is the run of
+    ``off[s + 1] - off[s]`` entries from ``start[s]``."""
+    if tiles is None:
+        return csc
+    col_ptr, rows, vals = csc
+    ix, slots = tiles.index.long(), tiles.n_slots
+    start, off = ix[:slots], ix[slots:2 * slots + 1]
+    part_at = ix[ix.numel() - slots:]
+    lengths = off[1:] - off[:-1]
+    order = torch.argsort(torch.where(lengths > 0, part_at, -1), stable=True)
+    lengths, start = lengths[order], start[order]
+    before = torch.cumsum(lengths, 0) - lengths
+    perm = torch.repeat_interleave(start - before, lengths, output_size=rows.numel())
+    perm += torch.arange(rows.numel(), device=perm.device)
+    return col_ptr, rows[perm], vals[perm]
 
 
 def reset_launch_counts() -> None:
@@ -241,7 +270,8 @@ def csc_scatter(
     on a CUDA device ``tiles`` is the batch's tile index (module docstring)."""
     dev = col_ptr.device
     if not _on_cuda("csc_scatter", dev):
-        return reference.csc_scatter(col_ptr, rows, vals, per_row, square)
+        return reference.csc_scatter(*column_major((col_ptr, rows, vals), tiles), per_row,
+                                     square)
     n_features = col_ptr.numel() - 1
     _check("csc_scatter", dev, col_ptr=col_ptr, rows=rows, vals=vals, per_row=per_row)
     if rows.numel() != vals.numel() or per_row.dim() != 1:
@@ -295,13 +325,10 @@ def margins_pair(
     return z, u
 
 
-def _scratch(n: int, n_sums: int, dev: torch.device):
-    """(per-row vector, block partials, sums) buffers of one fused pass."""
-    return (
-        torch.empty(n, dtype=torch.float32, device=dev),
-        torch.empty(_MAX_BLOCKS * n_sums, dtype=torch.float32, device=dev),
-        torch.empty(n_sums, dtype=torch.float32, device=dev),
-    )
+def _sums_scratch(n_sums: int, dev: torch.device):
+    """(block partials, sums) buffers of one fused pass."""
+    return (torch.empty(_MAX_BLOCKS * n_sums, dtype=torch.float32, device=dev),
+            torch.empty(n_sums, dtype=torch.float32, device=dev))
 
 
 def value_grad(
@@ -320,21 +347,21 @@ def value_grad(
     loss = get_loss(loss_name).name
     dev = csr[0].device
     if not _on_cuda("value_grad", dev):
-        return reference.value_grad(csr, csc, labels, weights, offsets, w, shift, loss)
+        return reference.value_grad(csr, column_major(csc, tiles), labels, weights, offsets,
+                                    w, shift, loss)
     n_features = csc[0].numel() - 1
     n = _check_fused("value_grad", dev, csr, csc, n_features, labels=labels,
                      weights=weights, offsets=offsets, w=w)
     s_ptr, s_host = _shift_args("value_grad", dev, shift)
     index_args, part = _scatter_args("value_grad", dev, tiles, n, n_features)
     lib = load_library()
-    g_row, partials, sums = _scratch(n, 2, dev)
+    partials, sums = _sums_scratch(2, dev)
     grad = torch.empty(n_features, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.photon_value_grad(
             *(t.data_ptr() for t in (*csr, *csc[1:], labels, weights, offsets, w)),
-            s_ptr, s_host, LOSS_CODES[loss], g_row.data_ptr(), partials.data_ptr(),
-            _MAX_BLOCKS, sums.data_ptr(), grad.data_ptr(), *index_args, part.data_ptr(), n,
-            n_features, _stream(dev),
+            s_ptr, s_host, LOSS_CODES[loss], partials.data_ptr(), _MAX_BLOCKS, sums.data_ptr(),
+            grad.data_ptr(), *index_args, part.data_ptr(), n, n_features, _stream(dev),
         )
     _raise_on("value_grad", lib, rc)
     LAUNCHES["value_grad"] += 1
@@ -361,8 +388,8 @@ def hv(
         raise ValueError(f"hv: '{loss}' is not twice differentiable")
     dev = csr[0].device
     if not _on_cuda("hv", dev):
-        return reference.hessian_vector(csr, csc, labels, weights, offsets, w, shift, v,
-                                        v_shift, loss)
+        return reference.hessian_vector(csr, column_major(csc, tiles), labels, weights,
+                                        offsets, w, shift, v, v_shift, loss)
     n_features = csc[0].numel() - 1
     n = _check_fused("hv", dev, csr, csc, n_features, labels=labels, weights=weights,
                      offsets=offsets, w=w, v=v)
@@ -370,7 +397,8 @@ def hv(
     s1_ptr, s1_host = _shift_args("hv", dev, v_shift)
     index_args, part = _scatter_args("hv", dev, tiles, n, n_features)
     lib = load_library()
-    q_row, partials, sums = _scratch(n, 1, dev)
+    q_row = torch.empty(n, dtype=torch.float32, device=dev)
+    partials, sums = _sums_scratch(1, dev)
     out = torch.empty(n_features, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.photon_hessian_vector(
@@ -396,20 +424,19 @@ def hv_at(
     curvature d2 computed once per TRON step (0-d device sum)."""
     dev = csr[0].device
     if not _on_cuda("hv_at", dev):
-        return reference.hv_at(csr, csc, d2, v, v_shift)
+        return reference.hv_at(csr, column_major(csc, tiles), d2, v, v_shift)
     n_features = csc[0].numel() - 1
     n = _check_fused("hv_at", dev, csr, csc, n_features, d2=d2, v=v)
     s_ptr, s_host = _shift_args("hv_at", dev, v_shift)
     index_args, part = _scatter_args("hv_at", dev, tiles, n, n_features)
     lib = load_library()
-    q_row, partials, sums = _scratch(n, 1, dev)
+    partials, sums = _sums_scratch(1, dev)
     out = torch.empty(n_features, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.photon_hv_at(
             *(t.data_ptr() for t in (*csr, *csc[1:], d2, v)),
-            s_ptr, s_host, q_row.data_ptr(), partials.data_ptr(), _MAX_BLOCKS,
-            sums.data_ptr(), out.data_ptr(), *index_args, part.data_ptr(), n, n_features,
-            _stream(dev),
+            s_ptr, s_host, partials.data_ptr(), _MAX_BLOCKS, sums.data_ptr(), out.data_ptr(),
+            *index_args, part.data_ptr(), n, n_features, _stream(dev),
         )
     _raise_on("hv_at", lib, rc)
     LAUNCHES["hv_at"] += 1

@@ -120,11 +120,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     # the fused passes end with the scatter's (tile_index, n_slots, n_pieces,
     # finish_width, tile_rows, piece_len, part, n_rows, n_features, stream)
     scatter_tail = [p, i, i, i, i, i, p, i, i, p]
-    lib.photon_value_grad.argtypes = [p] * 9 + [p, f, i, p, p, i, p, p] + scatter_tail
+    lib.photon_value_grad.argtypes = [p] * 9 + [p, f, i, p, i, p, p] + scatter_tail
     lib.photon_value_grad.restype = i
     lib.photon_hessian_vector.argtypes = [p] * 10 + [p, f, p, f, i, p, p, i, p, p] + scatter_tail
     lib.photon_hessian_vector.restype = i
-    lib.photon_hv_at.argtypes = [p] * 7 + [p, f, p, p, i, p, p] + scatter_tail
+    lib.photon_hv_at.argtypes = [p] * 7 + [p, f, p, i, p, p] + scatter_tail
     lib.photon_hv_at.restype = i
     lib.photon_ell_margins.argtypes = [p, p, p, p, p, f, p, i, i, i, i, p]
     lib.photon_ell_margins.restype = i

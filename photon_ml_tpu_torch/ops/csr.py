@@ -8,21 +8,30 @@ well, so the layout is plain:
   - a row-sorted CSR (``row_ptr`` i32[n+1], ``cols`` i32, ``vals`` f32) that
     the row pass (``csrc/rowpass.cuh``) streams 32 rows per warp, one thread
     summing each row;
-  - a column-sorted CSC mirror (``col_ptr``, ``csc_rows``, ``csc_vals``) that
-    the scatter kernel (``csrc/scatter.cu``) sums feature by feature in a
+  - a mirror of the same nonzeros sorted for the feature-space half
+    (``col_ptr``, ``csc_rows``, ``csc_vals``), summed feature by feature in a
     fixed order, so the gradient needs no atomics and is reproducible;
-  - on a CUDA device, ``tiles``, the scatter's index over row tiles of
+  - on a CUDA device, ``tiles``, the index over row tiles of
     ``SCATTER_TILE_ROWS`` (``scatter_tiles``): about 12 bytes per non-empty
     (tile, feature) segment, so at most about 12 per nonzero, and 15.1 MB at
-    1M rows x 10K features x 20 nonzeros a row. With it the scatter stages
-    per_row tile by tile in shared memory instead of gathering it from L2.
-    The plain versions on the CPU do not read it, so a CPU batch has none.
+    1M rows x 10K features x 20 nonzeros a row. With it the scatter
+    (``csrc/scatter.cu``) and the tile-fused passes (``csrc/tile_fused.cuh``)
+    stage per_row tile by tile in shared memory instead of gathering it from
+    L2.
+
+The mirror's order follows ``tiles``. Without them (a CPU batch, whose plain
+versions read no index) it is column-major: columns ascending, rows
+ascending inside a column, as ``col_ptr`` counts them. With them it is in
+the index's slot order (``slot_order``): tile, then feature, then row, so
+the 32 segments of a group are one contiguous span, each slot's segment
+starts where ``off`` says (``start == off``), and the feature-space half
+streams spans as the row pass does. ``column_major`` rebuilds the
+column-major view on demand, for checks; the batch never holds both.
 
 The mirror doubles the slot storage (about 320 MB at 20M nonzeros). Rows
 are not padded: ``num_rows`` is n. ``margins_pair`` and the ``fused_*``
 passes launch the fused kernels (``csrc/margins_pair.cu``,
-``csrc/value_grad.cu``, ``csrc/hessian_vector.cu``): one row pass over the
-CSR, then the CSC scatter for the feature-space half.
+``csrc/value_grad.cu``, ``csrc/hessian_vector.cu``).
 """
 
 from __future__ import annotations
@@ -71,6 +80,9 @@ def scatter_tiles(csc_rows: np.ndarray, csc_cols: np.ndarray, n_rows: int, n_fea
       - piece_group[pieces]: the group of each piece;
       - part_at[slots]: the part of each segment in the first piece it
         meets (0 for the padding).
+
+    ``slot_order`` then lays the mirror out in slot order, where ``start``
+    becomes ``off[:-1]``.
     """
     n_tiles = -(-n_rows // tile_rows)
     rows = np.asarray(csc_rows, np.int64)
@@ -108,13 +120,27 @@ def scatter_tiles(csc_rows: np.ndarray, csc_cols: np.ndarray, n_rows: int, n_fea
     return start, off, tile_slot // 32, piece_ptr, feat_ptr, piece_group, part_at
 
 
-def _upload_tiles(csc_rows, csc_cols, n_rows, n_features, tile_rows, piece_len,
-                  device) -> ScatterTiles:
-    """``scatter_tiles`` as one int32 tensor on ``device``, with its sizes."""
-    arrays = scatter_tiles(csc_rows, csc_cols, n_rows, n_features, tile_rows, piece_len)
+def slot_order(start: np.ndarray, off: np.ndarray) -> np.ndarray:
+    """The mirror in ``scatter_tiles``' slot order: position p of the
+    slot-ordered mirror holds entry ``perm[p]`` of the CSC order, so slot s's
+    segment lies at [off[s], off[s + 1]) and its ``start`` becomes off[s]."""
+    lengths = np.diff(off)
+    return np.repeat(start - off[:-1], lengths) + np.arange(off[-1], dtype=np.int64)
+
+
+def _tile_layout(csc_rows, csc_cols, n_rows, n_features, tile_rows, piece_len,
+                 device) -> tuple[ScatterTiles, np.ndarray]:
+    """``scatter_tiles`` for the slot-ordered mirror, as one int32 tensor on
+    ``device`` with its sizes, and ``slot_order``'s permutation of the CSC
+    entries."""
+    start, off, *rest = scatter_tiles(csc_rows, csc_cols, n_rows, n_features, tile_rows,
+                                      piece_len)
+    perm = slot_order(start, off)
+    arrays = (off[:-1], off, *rest)
     index = torch.from_numpy(np.concatenate(arrays).astype(np.int32)).to(device)
-    return ScatterTiles(index, tile_rows, piece_len, n_slots=len(arrays[0]),
-                        n_pieces=len(arrays[5]), n_parts=int(arrays[4][-1]))
+    tiles = ScatterTiles(index, tile_rows, piece_len, n_slots=len(start),
+                         n_pieces=len(rest[3]), n_parts=int(rest[2][-1]))
+    return tiles, perm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,9 +148,9 @@ class CSRBatch:
     row_ptr: Tensor  # i32[n+1]
     cols: Tensor  # i32[nnz], row-sorted
     vals: Tensor  # f32[nnz]
-    col_ptr: Tensor  # i32[F+1]
-    csc_rows: Tensor  # i32[nnz], column-sorted (rows ascending inside a column)
-    csc_vals: Tensor  # f32[nnz]
+    col_ptr: Tensor  # i32[F+1], the column counts
+    csc_rows: Tensor  # i32[nnz], column-major; in slot order with tiles
+    csc_vals: Tensor  # f32[nnz], the same order
     labels: Tensor  # f32[n]
     offsets: Tensor  # f32[n]
     weights: Tensor  # f32[n]
@@ -154,8 +180,9 @@ class CSRBatch:
         weights: Optional[np.ndarray] = None,
         device: torch.device | str | None = None,
     ) -> "CSRBatch":
-        """Host-side layout build from COO, then one upload to ``device``,
-        with the scatter's tile index on a CUDA device."""
+        """Host-side layout build from COO, then one upload to ``device``;
+        on a CUDA device with the tile index and the mirror in its slot
+        order."""
         dev = resolve_device(device)
         n = int(len(labels))
         rows = np.asarray(rows, np.int64)
@@ -181,18 +208,19 @@ class CSRBatch:
             return up(np.full(n, default) if a is None else np.asarray(a, np.float64),
                       np.float32)
 
-        tiles = None
+        csc_rows, csc_vals, tiles = rows[corder], values[corder], None
         if dev.type == "cuda":
-            tiles = _upload_tiles(rows[corder], cols[corder], n, int(num_features),
-                                  SCATTER_TILE_ROWS, SCATTER_PIECE_LEN, dev)
+            tiles, perm = _tile_layout(csc_rows, cols[corder], n, int(num_features),
+                                       SCATTER_TILE_ROWS, SCATTER_PIECE_LEN, dev)
+            csc_rows, csc_vals = csc_rows[perm], csc_vals[perm]
 
         return CSRBatch(
             row_ptr=up(row_ptr, np.int32),
             cols=up(cols, np.int32),
             vals=up(values, np.float32),
             col_ptr=up(col_ptr, np.int32),
-            csc_rows=up(rows[corder], np.int32),
-            csc_vals=up(values[corder], np.float32),
+            csc_rows=up(csc_rows, np.int32),
+            csc_vals=up(csc_vals, np.float32),
             labels=up(np.asarray(labels, np.float64), np.float32),
             offsets=per_row(offsets, 0.0),
             weights=per_row(weights, 1.0),
@@ -225,15 +253,23 @@ class CSRBatch:
     def _csc(self) -> tuple[Tensor, Tensor, Tensor]:
         return self.col_ptr, self.csc_rows, self.csc_vals
 
+    def column_major(self) -> tuple[Tensor, Tensor, Tensor]:
+        """The mirror as (col_ptr, rows, vals) in column-major order, built on
+        the batch's device from the slot-ordered one (the plain versions read
+        it; for checks, the batch does not hold it)."""
+        return kernels.column_major(self._csc, self.tiles)
+
     def with_tiles(self, tile_rows: int = SCATTER_TILE_ROWS,
                    piece_len: int = SCATTER_PIECE_LEN) -> "CSRBatch":
-        """This batch with the scatter's tile index built for ``tile_rows``
-        and ``piece_len`` from its CSC mirror, on its device."""
-        counts = np.diff(self.col_ptr.cpu().numpy())
-        cols = np.repeat(np.arange(self.num_features), counts)
-        return dataclasses.replace(self, tiles=_upload_tiles(
-            self.csc_rows.cpu().numpy(), cols, self.num_rows, self.num_features, tile_rows,
-            piece_len, self.device))
+        """This batch with the tile index built for ``tile_rows`` and
+        ``piece_len`` and the mirror in its slot order, on its device."""
+        col_ptr, rows, vals = (t.cpu().numpy() for t in self.column_major())
+        cols = np.repeat(np.arange(self.num_features), np.diff(col_ptr))
+        tiles, perm = _tile_layout(rows, cols, self.num_rows, self.num_features, tile_rows,
+                                   piece_len, self.device)
+        return dataclasses.replace(
+            self, csc_rows=torch.from_numpy(rows[perm]).to(self.device),
+            csc_vals=torch.from_numpy(vals[perm]).to(self.device), tiles=tiles)
 
     # -- the kernels ---------------------------------------------------------
 

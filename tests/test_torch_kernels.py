@@ -18,7 +18,7 @@ import torch
 from photon_ml_tpu_torch import kernels
 from photon_ml_tpu_torch.kernels import build, reference
 from photon_ml_tpu_torch.ops.csr import (SCATTER_PIECE_LEN, SCATTER_TILE_ROWS, CSRBatch,
-                                         scatter_tiles)
+                                         scatter_tiles, slot_order)
 from photon_ml_tpu_torch.ops.ell import ELLBatch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -206,6 +206,7 @@ def test_group_size(nnz, segments, group):
 
 
 def _csc_cols(b):
+    """The column of each entry of the column-major mirror (``column_major``)."""
     return np.repeat(np.arange(b.num_features), np.diff(b.col_ptr.cpu().numpy()))
 
 
@@ -344,8 +345,9 @@ def _scatter_by_index(b, tiles, r, square):
 @pytest.mark.parametrize("square", [False, True])
 def test_scatter_through_the_tile_index_matches_dense(n, f, tile_rows, piece_len, kind, square):
     rows, cols, vals = _index_problem(n, f, tile_rows, kind)
-    b = CSRBatch.from_coo(vals, rows, cols, np.zeros(n), f, device="cpu")
-    tiles = b.with_tiles(tile_rows, piece_len).tiles
+    b = CSRBatch.from_coo(vals, rows, cols, np.zeros(n), f, device="cpu").with_tiles(
+        tile_rows, piece_len)
+    tiles = b.tiles
     r = np.random.default_rng(25).normal(size=n)
     X = np.zeros((n, f))
     X[rows, cols] = vals
@@ -372,7 +374,8 @@ def test_scatter_tiles_size_is_bounded_by_the_nonzeros(n, f, tile_rows, piece_le
 
 def test_from_coo_builds_the_tile_pointer_where_it_suits():
     """A CPU batch holds no tile index (its plain scatter reads none);
-    ``with_tiles`` builds the one a CUDA batch gets from ``from_coo``."""
+    ``with_tiles`` builds the one a CUDA batch gets from ``from_coo``, for
+    the mirror in its slot order (start == off)."""
     rng = np.random.default_rng(22)
     X = rng.normal(size=(300, 6)) * (rng.random((300, 6)) < 0.5)
     b = CSRBatch.from_dense(X, np.zeros(300), device="cpu")
@@ -383,7 +386,11 @@ def test_from_coo_builds_the_tile_pointer_where_it_suits():
     assert tiles.index.dtype == torch.int32 and tiles.index.device == b.device
     arrays = scatter_tiles(b.csc_rows.numpy(), _csc_cols(b), 300, 6, SCATTER_TILE_ROWS,
                            SCATTER_PIECE_LEN)
-    np.testing.assert_array_equal(tiles.index.numpy(), np.concatenate(arrays))
+    np.testing.assert_array_equal(tiles.index.numpy(),
+                                  np.concatenate([arrays[1][:-1], *arrays[1:]]))
+    perm = slot_order(arrays[0], arrays[1])
+    np.testing.assert_array_equal(tiled.csc_rows.numpy(), b.csc_rows.numpy()[perm])
+    np.testing.assert_array_equal(tiled.csc_vals.numpy(), b.csc_vals.numpy()[perm])
     assert (tiles.n_slots, tiles.n_pieces, tiles.n_parts) == (len(arrays[0]), len(arrays[5]),
                                                                arrays[4][-1])
     wide = _batch(_coo(23, 50, 400, 0.01)[1], "cpu").with_tiles()  # no switch for wide data
@@ -410,7 +417,7 @@ def test_scatter_args_check_the_tile_index():
 def test_with_offsets_and_moment_sums_carry_the_tile_pointer():
     rng, X = _coo(24, 200, 8, 0.4, empty_cols=(3,))
     b = _batch(X, "cpu").with_tiles(64, 16)
-    arrays = scatter_tiles(b.csc_rows.numpy(), _csc_cols(b), 200, 8, 64, 16)
+    arrays = scatter_tiles(b.column_major()[1].numpy(), _csc_cols(b), 200, 8, 64, 16)
     assert b.tiles.index.numel() == sum(len(a) for a in arrays)
     moved = b.with_offsets(torch.ones(200))
     assert moved.tiles is b.tiles
@@ -432,6 +439,20 @@ def test_with_offsets_and_moment_sums_carry_the_tile_pointer():
     np.testing.assert_allclose(sums[2].numpy(), (X != 0).T @ valid, rtol=1e-6)
 
 
+def test_compare_outputs_tool_saves_and_compares(tmp_path, capsys):
+    """tools/compare_outputs.py on CPU tensors at a tiny size: the same
+    checkout against itself reads bit-identical on every output."""
+    from photon_ml_tpu_torch.tools import compare_outputs
+
+    saved = str(tmp_path / "out.pt")
+    small = ["--device", "cpu", "--rows", "300", "--features", "40", "--nnz-per-row", "3"]
+    assert compare_outputs.main(small + ["--save", saved]) == 0
+    assert compare_outputs.main(small + ["--against", saved]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 19  # margins 1, pair 2, scatter 1, hv_at 2, value_grad 3 x 3, hv 2 x 2
+    assert all("max_abs_diff=0 " in line and "bit_identical=True" in line for line in lines)
+
+
 # -- the build ---------------------------------------------------------------
 
 
@@ -439,8 +460,8 @@ def test_build_sources_and_directory():
     names = [os.path.basename(p) for p in build.sources()]
     assert names == ["ell_margins.cu", "hessian_vector.cu", "margins.cu", "margins_pair.cu",
                      "scatter.cu", "value_grad.cu"]
-    assert [os.path.basename(p) for p in build.headers()] == ["losses.cuh", "rowpass.cuh",
-                                                              "segments.cuh"]
+    assert [os.path.basename(p) for p in build.headers()] == [
+        "losses.cuh", "rowpass.cuh", "segments.cuh", "tile_fused.cuh", "tiles.cuh"]
     assert build.BUILD_DIR == os.path.join(REPO, "build", "kernels")
     with open(os.path.join(REPO, ".gitignore")) as fh:
         assert "build/" in fh.read().split()
@@ -499,6 +520,27 @@ def test_margins_kernel_matches_plain(cuda, n, f, density):
 
 
 @pytest.mark.cuda
+def test_kernels_launch_again_after_a_smaller_shared_memory_size(cuda):
+    """A kernel's dynamic shared-memory limit belongs to the kernel: a launch
+    with a smaller staged table between two larger ones (all above the 48 KB
+    default) must not lower it under the larger size's cached launch."""
+    rng = np.random.default_rng(14)
+    runs = []
+    for f in (30_000, 15_000, 30_000):  # w staged: ~136 KB, ~76 KB, ~136 KB
+        b, _ = _lengths_batch(rng.integers(0, 30, size=3000), f, cuda)
+        w = torch.from_numpy(rng.normal(size=f).astype(np.float32)).to(cuda)
+        runs.append((b, w))
+    for b, w in runs:
+        _twice("margins", lambda: kernels.csr_margins(*b._csr, w, b.offsets, 0.0, False),
+               reference.csr_margins(*b._csr, w, b.offsets, 0.0, False))
+        _twice("value_grad",
+               lambda: kernels.value_grad(b._csr, b._csc, b.labels, b.weights, b.offsets, w,
+                                          0.0, "logistic", b.tiles),
+               reference.value_grad(b._csr, b.column_major(), b.labels, b.weights, b.offsets,
+                                    w, 0.0, "logistic"))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,f,density", [(3000, 200, 0.05), (500, 2000, 0.002)])
 @pytest.mark.parametrize("square", [False, True])
 def test_scatter_kernel_matches_plain_and_is_deterministic(cuda, n, f, density, square):
@@ -507,7 +549,7 @@ def test_scatter_kernel_matches_plain_and_is_deterministic(cuda, n, f, density, 
     r = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
     got = kernels.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, r, square, b.tiles)
     again = kernels.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, r, square, b.tiles)
-    want = reference.csc_scatter(b.col_ptr, b.csc_rows, b.csc_vals, r, square)
+    want = reference.csc_scatter(*b.column_major(), r, square)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got, again)  # no atomics: bit-identical run to run
@@ -553,6 +595,12 @@ def _cuda_fused(cuda, n, f, density, seed=9):
     return b, csr, csc, w, v, d2
 
 
+def _plain(args, b):
+    """Kernel arguments (csr, csc in slot order, ...) made the plain
+    version's: the column-major mirror and no tile index."""
+    return (args[0], b.column_major(), *args[2:])
+
+
 # n, f, density: ~1 nnz/row (lane groups of 1-2); ~20 nnz/row (full warps,
 # both tables staged); one table staged but not two; no table staged
 FUSED_SHAPES = [(1000, 300, 0.003), (2000, 1000, 0.02), (700, 30_000, 0.001),
@@ -582,7 +630,7 @@ def test_value_grad_kernel_matches_plain_and_is_deterministic(cuda, n, f, densit
     args = (csr, csc, b.labels, b.weights, b.offsets, w, torch.tensor(0.1, device=cuda), loss,
             b.tiles)
     got, again, want = kernels.value_grad(*args), kernels.value_grad(*args), \
-        reference.value_grad(*args[:-1])
+        reference.value_grad(*_plain(args[:-1], b))
     for g, a, e, name in zip(got, again, want, ("value", "grad", "row_total")):
         _close(name, g, e)
         assert torch.equal(g, a)
@@ -596,7 +644,7 @@ def test_hv_kernel_matches_plain_and_is_deterministic(cuda, n, f, density, loss)
     args = (csr, csc, b.labels, b.weights, b.offsets, w, -0.1, v,
             torch.tensor(0.2, device=cuda), loss)
     got, again = kernels.hv(*args, b.tiles), kernels.hv(*args, b.tiles)
-    want = reference.hessian_vector(*args)
+    want = reference.hessian_vector(*_plain(args, b))
     for g, a, e, name in zip(got, again, want, ("hv", "q_total")):
         _close(name, g, e)
         assert torch.equal(g, a)
@@ -609,7 +657,7 @@ def test_hv_at_kernel_matches_plain_and_is_deterministic(cuda, n, f, density):
     shift = torch.tensor(0.3, device=cuda)
     got = kernels.hv_at(csr, csc, d2, v, shift, b.tiles)
     again = kernels.hv_at(csr, csc, d2, v, shift, b.tiles)
-    want = reference.hv_at(csr, csc, d2, v, shift)
+    want = reference.hv_at(csr, b.column_major(), d2, v, shift)
     for g, a, e, name in zip(got, again, want, ("hv", "q_total")):
         _close(name, g, e)
         assert torch.equal(g, a)
@@ -730,11 +778,11 @@ def _scatter_case(case, cuda):
         return _lengths_batch(rng.integers(5, 15, size=5000), 50, cuda, tile_rows=512)[0]
     if case == "empty_segments":  # rows of most columns fall in a few tiles
         b = _lengths_batch(rng.integers(0, 6, size=4000), 300, cuda, tile_rows=256)[0]
-        rows = b.csc_rows.cpu().numpy()
+        _, rows, vals = (t.cpu().numpy() for t in b.column_major())
         cols = _csc_cols(b)
         keep = (rows < 1000) | (cols % 7 == 0)
-        b = CSRBatch.from_coo(b.csc_vals.cpu().numpy()[keep], rows[keep], cols[keep],
-                              np.zeros(4000), 300, device=cuda)
+        b = CSRBatch.from_coo(vals[keep], rows[keep], cols[keep], np.zeros(4000), 300,
+                              device=cuda)
         return b.with_tiles(256, 64)
     if case == "power_law_columns":  # hot columns: long (feature, tile) segments
         p = 1.0 / np.arange(1, 501)
@@ -742,7 +790,8 @@ def _scatter_case(case, cuda):
                               col_p=p / p.sum(), piece_len=256)[0]
     # "wide_sparse": segments of one or two entries, and one hot column
     b, _ = _lengths_batch(rng.integers(0, 3, size=2000), 20_000, cuda)
-    rows = np.concatenate([b.csc_rows.cpu().numpy(), np.arange(2000)[rng.random(2000) < 0.9]])
+    rows = np.concatenate([b.column_major()[1].cpu().numpy(),
+                           np.arange(2000)[rng.random(2000) < 0.9]])
     cols = np.concatenate([_csc_cols(b), np.full(len(rows) - b.nnz, 7)])
     vals = rng.normal(size=len(rows))
     return CSRBatch.from_coo(vals, rows, cols, np.zeros(2000), 20_000, device=cuda)
@@ -758,7 +807,7 @@ def test_scatter_edges_match_plain_and_are_deterministic(cuda, case, square):
     r = torch.from_numpy(np.random.default_rng(33).normal(size=b.num_rows)
                          .astype(np.float32)).to(cuda)
     _twice(case, lambda: kernels.csc_scatter(*csc, r, square, b.tiles),
-           reference.csc_scatter(*csc, r, square))
+           reference.csc_scatter(*b.column_major(), r, square))
 
 
 @pytest.mark.cuda
@@ -771,10 +820,65 @@ def test_fused_kernels_with_a_long_row(cuda, tile_rows):
             for _ in range(2))
     d2 = torch.from_numpy(rng.random(2000).astype(np.float32)).to(cuda)
     csr, csc, rows3, tiles = b._csr, b._csc, (b.labels, b.weights, b.offsets), b.tiles
+    plain = b.column_major()
     assert tiles.tile_rows == tile_rows
     _twice("value_grad", lambda: kernels.value_grad(csr, csc, *rows3, w, 0.1, "logistic", tiles),
-           reference.value_grad(csr, csc, *rows3, w, 0.1, "logistic"))
+           reference.value_grad(csr, plain, *rows3, w, 0.1, "logistic"))
     _twice("hv", lambda: kernels.hv(csr, csc, *rows3, w, 0.1, v, -0.2, "logistic", tiles),
-           reference.hessian_vector(csr, csc, *rows3, w, 0.1, v, -0.2, "logistic"))
+           reference.hessian_vector(csr, plain, *rows3, w, 0.1, v, -0.2, "logistic"))
     _twice("hv_at", lambda: kernels.hv_at(csr, csc, d2, v, 0.3, tiles),
-           reference.hv_at(csr, csc, d2, v, 0.3))
+           reference.hv_at(csr, plain, d2, v, 0.3))
+
+
+# -- on the card: the tile-fused passes (value_grad, hv_at) -------------------
+
+
+def _tile_fused_case(case, cuda):
+    """(batch, rng) for an edge of the tile-fused kernels."""
+    rng = np.random.default_rng(34)
+    if case == "long_rows":  # rows over 128 nonzeros, whole warps in phase A
+        lengths = rng.integers(5, 30, size=20_000)
+        lengths[::997] = 700
+        return _lengths_batch(lengths, 3000, cuda)
+    if case == "unstaged_table":  # F past the staging limit: w read through the cache
+        return _lengths_batch(rng.integers(0, 40, size=9000), 60_000, cuda)
+    if case == "few_tiles":  # three tiles, the last one partial: fewer than the clusters
+        return _lengths_batch(rng.integers(0, 40, size=2 * SCATTER_TILE_ROWS + 1001), 2000,
+                              cuda)
+    if case == "one_partial_tile":
+        return _lengths_batch(rng.integers(0, 40, size=777), 500, cuda)
+    if case == "many_tiles":  # more tiles than resident clusters: each cluster walks several
+        return _lengths_batch(rng.integers(0, 12, size=60_000), 800, cuda, tile_rows=256)
+    # "power_law_columns": hot features, their groups cut into several pieces
+    p = 1.0 / np.arange(1, 501)
+    return _lengths_batch(rng.integers(10, 30, size=20_000), 500, cuda, tile_rows=2048,
+                          col_p=p / p.sum(), piece_len=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_rows", "unstaged_table", "few_tiles",
+                                  "one_partial_tile", "many_tiles", "power_law_columns"])
+def test_tile_fused_kernels_match_plain_and_are_deterministic(cuda, case):
+    """value_grad (four losses) and hv_at against their plain versions on the
+    column-major mirror, and bit-identical across two launches; hv and the
+    scatter read the same slot-ordered mirror."""
+    b, rng = _tile_fused_case(case, cuda)
+    f = b.num_features
+    w, v = (torch.from_numpy(rng.normal(size=f).astype(np.float32) * 0.1).to(cuda)
+            for _ in range(2))
+    d2 = torch.from_numpy(rng.random(b.num_rows).astype(np.float32)).to(cuda)
+    csr, csc, rows3, tiles = b._csr, b._csc, (b.labels, b.weights, b.offsets), b.tiles
+    plain, shift = b.column_major(), torch.tensor(0.1, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    for loss in ("logistic", "squared", "poisson", "smoothed_hinge"):
+        _twice(f"value_grad {loss}",
+               lambda: kernels.value_grad(csr, csc, *rows3, w, shift, loss, tiles),
+               reference.value_grad(csr, plain, *rows3, w, shift, loss))
+    _twice("hv_at", lambda: kernels.hv_at(csr, csc, d2, v, -0.3, tiles),
+           reference.hv_at(csr, plain, d2, v, -0.3))
+    _twice("hv", lambda: kernels.hv(csr, csc, *rows3, w, shift, v, -0.3, "logistic", tiles),
+           reference.hessian_vector(csr, plain, *rows3, w, shift, v, -0.3, "logistic"))
+    _twice("csc_scatter", lambda: kernels.csc_scatter(*csc, d2, False, tiles),
+           reference.csc_scatter(*plain, d2, False))
+    assert kernels.LAUNCHES["value_grad"] == before["value_grad"] + 8
+    assert kernels.LAUNCHES["hv_at"] == before["hv_at"] + 2
