@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero before the last line:
      (into ``build/kernels/``);
   3. at full width (1M rows x 10K features x 20 nnz/row, bench.py config #1's
      data from ``--seed``; the margins and ELL kernels also on skewed row
-     lengths, the scatter also on power-law column lengths, value_grad and
-     hv_at on both) hold each kernel against its plain PyTorch version on the
+     lengths, the scatter also on power-law column lengths, value_grad, hv
+     and hv_at on both) hold each kernel against its plain PyTorch version on the
      card (and each kernel against itself: two launches must agree bit for
      bit), and time kernel, plain version and the library yardstick where one
      PyTorch call computes the same function (never used by the port); the
@@ -34,7 +34,9 @@ Phases, in order; any failure exits non-zero before the last line:
            fixed effect (LBFGS 20 iterations, L2 1) plus a 10-feature
            per-user random effect over 100K users (batched NEWTON, tolerance
            1e-7), 2 coordinate-descent iterations; the second of two fits is
-           timed, as bench_game.py times it;
+           timed, as bench_game.py times it; the fitted model is then scored
+           and evaluated twice (``auc``, ``auc:userId``,
+           ``precision@5:userId``), and each pair must agree bit for bit;
        7.  the ELL probe (``photon_ml_tpu_torch.tools.probe_ell``) at 1M x 10K
            x 20: ELL against CSR ``dot_rows``, both timed;
   6. print the ``kernels`` JSON line, the card again, and the result line
@@ -286,10 +288,11 @@ def launches_per_call(fn) -> int | None:
 
 def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
     """Phase 3, the fused kernels: the variants the paths run (pair with
-    offsets and both shifts; value_grad for squared, Poisson and logistic;
-    hv for squared and logistic; hv_at), value_grad and hv_at also on the
-    ``skewed`` rows and the ``power_law`` columns, each against its plain
-    version and against a second launch, bit for bit."""
+    offsets and both shifts; value_grad and hv for squared, Poisson and
+    logistic; hv_at), value_grad, hv and hv_at also on the ``skewed`` rows
+    and the ``power_law`` columns, each against its plain version and
+    against a second launch, bit for bit. A tile-fused pass (value_grad, hv,
+    hv_at) must make two launches a call, the pair one."""
     import torch
 
     from photon_ml_tpu_torch import kernels
@@ -307,10 +310,10 @@ def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
         return (label or loss, lambda: kernels.value_grad(*args, b.tiles),
                 lambda: reference.value_grad(args[0], plain, *args[2:]))
 
-    def hv(loss):
-        return (loss, lambda: kernels.hv(csr, csc, *rows3, w, shift, v, v_shift, loss, tiles),
-                lambda: reference.hessian_vector(csr, plain_csc, *rows3, w, shift, v, v_shift,
-                                                 loss))
+    def hv(loss, b=batch, plain=plain_csc, label=None):
+        args = b._csr, b._csc, b.labels, b.weights, b.offsets, w, shift, v, v_shift, loss
+        return (label or loss, lambda: kernels.hv(*args, b.tiles),
+                lambda: reference.hessian_vector(args[0], plain, *args[2:]))
 
     def hv_at(label, b=batch, plain=plain_csc, d2=d2_row):
         return (label, lambda: kernels.hv_at(b._csr, b._csc, d2, v, v_shift, b.tiles),
@@ -329,7 +332,9 @@ def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
         "value_grad": [vg("squared"), vg("poisson"), vg("logistic")] + [
             vg("logistic", b, plain, f"{label} logistic")
             for label, (b, plain, _) in others.items()],
-        "hv": [hv("squared"), hv("logistic")],
+        "hv": [hv("squared"), hv("poisson"), hv("logistic")] + [
+            hv("logistic", b, plain, f"{label} logistic")
+            for label, (b, plain, _) in others.items()],
         "hv_at": [hv_at("hv_at")] + [hv_at(f"{label} hv_at", b, plain, d2)
                                      for label, (b, plain, d2) in others.items()],
     }
@@ -337,12 +342,10 @@ def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
     # row_ptr, the per-row inputs and tables, the outputs. The two-layout
     # designs also read the CSC slots once and the tile index, and write and
     # read one part per segment: their own floor. The tile-fused kernel
-    # (value_grad, hv_at) reads the index but its `start`; hv's three steps
-    # read all of it and write and read the per-row q besides.
+    # (value_grad, hv, hv_at) reads the index but its `start`.
     slots = (n + 1) + 2 * nnz
     t = tiles
     tile_fused = 2 * nnz + (t.index.numel() - t.n_slots) + 2 * t.n_parts
-    three_step = 2 * nnz + t.index.numel() + 2 * t.n_parts + 2 * n
     stacked = torch.stack([w, v], 1)
     specs = {
         "margins_pair": ("photon_ml_tpu_torch/csrc/margins_pair.cu",
@@ -358,13 +361,14 @@ def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
                        "no single PyTorch call computes loss, gradient and sums"),
         "hv": ("photon_ml_tpu_torch/csrc/hessian_vector.cu",
                "photon_ml_tpu/ops/tiled.py:251", "squared",
-               slots + 3 * n + 2 * f + f + 1, three_step, 6 * nnz, None,
+               slots + 3 * n + 2 * f + f + 1, tile_fused, 6 * nnz, None,
                "no single PyTorch call computes the curvature-weighted X^T D X v"),
         "hv_at": ("photon_ml_tpu_torch/csrc/hessian_vector.cu",
                   "photon_ml_tpu/ops/tiled.py:284", "hv_at",
                   slots + n + f + f + 1, tile_fused, 4 * nnz, None,
                   "X^T (d2 * (X v + s)) takes two sparse products and an elementwise op"),
     }
+    want_launches = {"margins_pair": 1, "value_grad": 2, "hv": 2, "hv_at": 2}
     rows = []
     for name, cases in variants.items():
         worst, timed = run_variants(name, cases)
@@ -377,6 +381,9 @@ def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
         launches = launches_per_call(cases[0][1])
         print(f"launches per call {name}[{cases[0][0]}]: {launches} (torch.profiler)",
               flush=True)
+        if launches != want_launches[name]:
+            raise RuntimeError(f"{name}: {launches} launches a call, want "
+                               f"{want_launches[name]}")
         rows.append(kernel_row(name, src, replaces, worst, timed, label, 4 * words, flops,
                                lib, library_note=lib_note, launches_per_call=launches))
     return rows
@@ -668,8 +675,9 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
     drives it: the random-effect build timed alone, one fit, then the second
     fit timed with the launch counts zeroed just before it. Fails unless the
     fixed effect's margins and scatter kernels launched, its loss fell in
-    every coordinate-descent iteration, every coefficient is finite, and the
-    GLMix model's train AUC beats its fixed effect's alone."""
+    every coordinate-descent iteration, every coefficient is finite, the
+    GLMix model's train AUC beats its fixed effect's alone, and two scorings
+    and evaluations of the model agree bit for bit."""
     import dataclasses
 
     import torch
@@ -685,6 +693,7 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
         build_game_dataset,
         build_random_effect_dataset,
     )
+    from photon_ml_tpu_torch.game.coordinate_descent import ValidationSpec, _evaluate
     from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
     from photon_ml_tpu_torch.optim.factory import OptimizerType
 
@@ -764,11 +773,23 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
     fe_auc = float(auc(fe.score(gds) + gds.per_row(gds.offset), labels, weights))
     if not glmix_auc > fe_auc:
         bad.append(f"GLMix train auc {glmix_auc} <= fixed effect alone {fe_auc}")
+    # the fitted model scored twice and evaluated twice, as a validated fit
+    # evaluates it: the random effect's scores and the metrics must repeat
+    # bit for bit
+    specs = ["auc", "auc:userId", "precision@5:userId"]
+    scores = [model.score(gds) for _ in range(2)]
+    evals = [_evaluate(model, ValidationSpec(data=gds, evaluators=specs)) for _ in range(2)]
+    same = {"scores": torch.equal(*scores), **{k: evals[0][k] == evals[1][k] for k in specs}}
+    print(f"path 6 twice: {' '.join(f'{k}={v:.9g}' for k, v in evals[0].items())} "
+          f"bit_identical={json.dumps(same)}", flush=True)
+    if not all(same.values()):
+        bad.append(f"scores or metrics differ between two calls: {same}")
     coeffs_per_s = total_coeffs * GAME_CD_ITERATIONS / elapsed
     stats = {"elapsed_s": elapsed, "first_fit_s": first_fit_s, "re_build_s": re_build_s,
              "coeffs_per_s": coeffs_per_s, "total_coeffs": total_coeffs,
              "buckets": buckets, "newton": newton, "host_syncs": syncs,
              "max_memory_allocated": peak, "train_auc": glmix_auc, "fe_only_auc": fe_auc,
+             "evaluated": evals[0], "bit_identical_twice": same,
              **scatter_memory(gds.__dict__["_csr_batches"].values())}
     print(f"path 6: coeffs_per_s={coeffs_per_s:.1f} total_coeffs={total_coeffs} "
           f"fit_wall_s={elapsed:.4f} first_fit_s={first_fit_s:.4f} re_build_s={re_build_s:.4f} "

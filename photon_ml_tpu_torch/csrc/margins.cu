@@ -25,9 +25,8 @@ namespace {
 
 struct MarginsEpilogue {
   static constexpr int kTables = 1;
-  static constexpr int kSums = 0;
   static __device__ __forceinline__ void apply(const RowPassParams& p, int row, float a0,
-                                               float, float*) {
+                                               float) {
     p.out0[row] = p.offsets != nullptr ? a0 + __ldg(p.offsets + row) : a0;
   }
 };

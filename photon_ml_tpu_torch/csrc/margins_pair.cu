@@ -20,9 +20,8 @@ namespace {
 
 struct PairEpilogue {
   static constexpr int kTables = 2;
-  static constexpr int kSums = 0;
   static __device__ __forceinline__ void apply(const RowPassParams& p, int row, float a0,
-                                               float a1, float*) {
+                                               float a1) {
     p.out0[row] = a0 + __ldg(p.offsets + row);
     p.out1[row] = a1;
   }

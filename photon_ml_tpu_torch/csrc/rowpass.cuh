@@ -1,7 +1,6 @@
 // One templated row pass over a CSR matrix on Hopper (sm_90a), shared by the
-// margins kernel and the fused kernels (margins.cu, margins_pair.cu,
-// hessian_vector.cu's hv; tile_fused.cuh runs the same warp spans and fill
-// as phase A of value_grad.cu and hv_at):
+// margins kernels (margins.cu, margins_pair.cu); tile_fused.cuh runs the
+// same warp spans and fill as phase A of value_grad.cu, hv and hv_at:
 //   acc0 = sum_k vals_k * table0[cols_k] + shift0
 //   acc1 = sum_k vals_k * table1[cols_k] + shift1        (two-table epilogues)
 //
@@ -13,14 +12,11 @@
 // its own row's products in nonzero order, and rows longer than
 // kLongSegment are summed by the whole warp (segments.cuh). So no lane idles
 // on short rows, a hot row is swept at full width, and one thread owns each
-// row's sum and runs the epilogue: the loss math and the per-row writes use
-// every lane. An epilogue, chosen as a template parameter, turns (acc0, acc1)
-// into per-row outputs and, where the TPU kernel returns data sums, adds its
-// terms to per-thread partials. Each block reduces its partials in a fixed
-// order and writes them to partials[blockIdx.x]; finish_sums_kernel then sums
-// the block partials in a fixed order. No float atomics anywhere: the grid
-// depends only on the card and the shapes, so every sum is bit-identical from
-// launch to launch.
+// row's sum and runs the epilogue: the per-row writes use every lane. An
+// epilogue, chosen as a template parameter, turns (acc0, acc1) into per-row
+// outputs. No float atomics anywhere: every sum is bit-identical from launch
+// to launch. block_sums and sum_partials below are the fixed-order sums of
+// per-thread and per-block partials that the tile-fused passes use.
 //
 // The tables are staged once per block in dynamic shared memory, after the
 // warps' product chunks, when both fit in kRowSmemLimitBytes; otherwise they
@@ -32,13 +28,6 @@
 #include <cuda_runtime.h>
 
 #include "segments.cuh"
-
-// Defined in scatter.cu, linked into the same library: the deterministic
-// feature-space scatter over the CSC mirror that finishes the fused passes.
-extern "C" int photon_csc_scatter(const int* rows, const float* vals, const int* tile_index,
-                                  int n_slots, int n_pieces, int finish_width, int tile_rows,
-                                  int piece_len, const float* per_row, float* out, float* part,
-                                  int n_rows, int n_features, int square, void* stream);
 
 namespace photon {
 namespace {
@@ -68,7 +57,7 @@ struct RowPassParams {
   const float* d2;
   float* out0;
   float* out1;
-  float* partials;  // [gridDim.x * Epi::kSums]
+  float* partials;  // [gridDim.x * Epi::kSums] (tile_fused.cuh)
   int n_rows;
   int n_features;
 };
@@ -119,10 +108,6 @@ row_pass_kernel(const RowPassParams p) {
                               aligned16(p.cols, p.vals), false};
   const float shift0 = p.shift0_host + (p.shift0_dev != nullptr ? __ldg(p.shift0_dev) : 0.0f);
   const float shift1 = p.shift1_host + (p.shift1_dev != nullptr ? __ldg(p.shift1_dev) : 0.0f);
-  constexpr int kParts = Epi::kSums > 0 ? Epi::kSums : 1;
-  float part[kParts];
-#pragma unroll
-  for (int k = 0; k < kParts; ++k) part[k] = 0.0f;
 
   // Each warp walks its own tiles of 32 rows; the loop is uniform across the
   // warp, so every lane reaches the shuffles of segment_sums.
@@ -136,9 +121,8 @@ row_pass_kernel(const RowPassParams p) {
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] = 0.0f;
     segment_sums<K>(lo, hi, fill.chunk, fill, acc);
-    if (row < p.n_rows) Epi::apply(p, row, acc[0] + shift0, acc[K - 1] + shift1, part);
+    if (row < p.n_rows) Epi::apply(p, row, acc[0] + shift0, acc[K - 1] + shift1);
   }
-  if constexpr (Epi::kSums > 0) block_sums<kParts>(part, p.partials + blockIdx.x * Epi::kSums);
 }
 
 // sums[k] = sum_b partials[b*K + k] over the `blocks` block partials, in a
@@ -165,12 +149,6 @@ __device__ void sum_partials(const float* __restrict__ partials, int blocks,
   if (threadIdx.x < K) sums[threadIdx.x] = s[threadIdx.x][0];
 }
 
-template <int K>
-__global__ void __launch_bounds__(kFinishThreads)
-finish_sums_kernel(const float* __restrict__ partials, int blocks, float* __restrict__ sums) {
-  sum_partials<K>(partials, blocks, sums);
-}
-
 template <bool kStaged, class Epi>
 cudaError_t launch_staged(const RowPassParams& p, size_t smem, int max_blocks,
                           cudaStream_t stream, int* grid_out) {
@@ -192,7 +170,7 @@ cudaError_t launch_staged(const RowPassParams& p, size_t smem, int max_blocks,
 }
 
 // Launch the row pass with the epilogue Epi; *grid_out receives the number of
-// blocks (and so of partials) it wrote.
+// blocks.
 template <class Epi>
 cudaError_t launch_row_pass(const RowPassParams& p, int max_blocks, cudaStream_t stream,
                             int* grid_out) {
@@ -202,12 +180,6 @@ cudaError_t launch_row_pass(const RowPassParams& p, int max_blocks, cudaStream_t
     return launch_staged<true, Epi>(p, chunks + tables, max_blocks, stream, grid_out);
   }
   return launch_staged<false, Epi>(p, chunks, max_blocks, stream, grid_out);
-}
-
-template <int K>
-cudaError_t launch_finish(const float* partials, int blocks, float* sums, cudaStream_t stream) {
-  finish_sums_kernel<K><<<1, kFinishThreads, 0, stream>>>(partials, blocks, sums);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -1,16 +1,17 @@
 // The tile-fused pass on Hopper (sm_90a): a row pass and the feature-space
 // scatter of its per-row values in one launch, for the fused kernels that
 // return sum_i r_i * x_i with a per-row value r_i computed from the row's
-// margin (value_grad.cu: r = wgt*l'(z); hessian_vector.cu's hv_at:
-// r = d2*(x.v + s)), and one finishing launch:
+// margins (value_grad.cu: r = wgt*l'(z); hessian_vector.cu's hv:
+// r = wgt*l''(z)*(x.v + s1), two tables; its hv_at: r = d2*(x.v + s)), and
+// one finishing launch:
 //
 //   out_f = sum_i r_i * x_if,   sums = the epilogue's per-row sums (e.g. sum r)
 //
 // Work unit: a row tile of tile_rows rows (ops/csr.py SCATTER_TILE_ROWS,
 // 8192: 32 KB of r). A thread-block cluster of kCluster blocks takes a tile;
 // the grid holds as many clusters as are resident at once, and each cluster
-// walks the tiles t, t + clusters, ... (persistent, so each block stages the
-// table once).
+// walks the tiles t, t + clusters, ... (persistent: each block's partial
+// sums cover all its tiles).
 //
 //   Phase A (rows). Each block runs the CSR-stream row pass of rowpass.cuh
 //   over its quarter of the tile: a warp per 32 consecutive rows, their
@@ -40,9 +41,11 @@
 // every output is bit-identical from launch to launch; each feature's sum
 // is taken over the same segments, parts and order as scatter.cu's.
 //
-// The table (w or v) is staged in each block's shared memory beside the
-// chunks and the tile's r when the three fit in kFusedSmemLimitBytes, and is
-// read through the read-only cache otherwise.
+// The tables (w, or w and v) are gathered through the read-only cache, never
+// staged in shared memory: shared memory holds only the chunks and the
+// tile's r, so two blocks stay resident per SM and the L1 they leave keeps
+// the tables' hot lines. Staging one or both tables was slower at the
+// widths the paths run (PERF.md section 6).
 
 #pragma once
 
@@ -62,7 +65,7 @@ constexpr int kFusedWarps = kFusedThreads / 32;
 // blocks of a cluster, and so quarters of a row tile
 constexpr int kCluster = 4;
 // resident blocks the compiler budgets registers for (two 512-thread blocks:
-// 64 registers a thread); the tile's r and the table leave room for two
+// 64 registers a thread); the chunks and the tile's r leave room for two
 constexpr int kFusedMinBlocks = 2;
 constexpr size_t kFusedSmemLimitBytes = 220 * 1024;
 
@@ -81,7 +84,7 @@ struct TileFusedParams {
 //   static float row_value(const RowPassParams&, int row, float a0, float a1,
 //                          float* part)
 // which returns the row's r and adds its terms to part[0..kSums).
-template <bool kStaged, class Epi>
+template <class Epi>
 __global__ void __launch_bounds__(kFusedThreads, kFusedMinBlocks)
 tile_fused_kernel(const __grid_constant__ TileFusedParams tp) {
   constexpr int K = Epi::kTables;
@@ -95,19 +98,8 @@ tile_fused_kernel(const __grid_constant__ TileFusedParams tp) {
   const int warp = threadIdx.x >> 5;
   float* chunk = smem + warp * K * kChunk;
   float* tile_vals = smem + kFusedWarps * K * kChunk;  // [tile_rows]
-  float* tables = tile_vals + tp.tile_rows;            // [K * F] when staged
-  const float* t0 = p.table0;
-  const float* t1 = p.table1;
-  if constexpr (kStaged) {
-    for (int f = threadIdx.x; f < p.n_features; f += blockDim.x) {
-      tables[f] = __ldg(p.table0 + f);
-      if constexpr (K == 2) tables[p.n_features + f] = __ldg(p.table1 + f);
-    }
-    t0 = tables;
-    t1 = tables + p.n_features;
-  }
-  GatherFill<K, kStaged> row_fill{p.cols, p.vals, t0, t1, chunk, aligned16(p.cols, p.vals),
-                                  false, 0};
+  GatherFill<K, false> row_fill{p.cols, p.vals, p.table0, p.table1, chunk,
+                                aligned16(p.cols, p.vals), false, 0};
   GatherFill<1, true> col_fill{tp.csc_rows, tp.csc_vals, tile_vals, nullptr, chunk,
                                aligned16(tp.csc_rows, tp.csc_vals), false, 0};
   const float shift0 = p.shift0_host + (p.shift0_dev != nullptr ? __ldg(p.shift0_dev) : 0.0f);
@@ -128,7 +120,7 @@ tile_fused_kernel(const __grid_constant__ TileFusedParams tp) {
     const int rows_here = min(tp.tile_rows, p.n_rows - row0);
     const int mine_lo = min(rank * quarter, rows_here);
     const int mine_hi = min(mine_lo + quarter, rows_here);
-    __syncthreads();  // the table is staged; the last tile's phase B is done
+    __syncthreads();  // the last tile's phase B is done
 
     // Phase A: this block's quarter of the rows
     const int end = row0 + mine_hi;
@@ -191,35 +183,6 @@ tile_fused_finish_kernel(const int* __restrict__ feat_ptr, const float* __restri
   }
 }
 
-template <bool kStaged, class Epi>
-cudaError_t launch_tile_fused_staged(const TileFusedParams& tp, size_t smem, int max_blocks,
-                                     cudaStream_t stream, int* grid_out) {
-  auto kernel = tile_fused_kernel<kStaged, Epi>;
-  int resident = 0;
-  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kFusedThreads, smem,
-                                    &resident, kCluster);
-  if (err != cudaSuccess) return err;
-  long long clusters = resident / kCluster;
-  if (tp.n_tiles < clusters) clusters = tp.n_tiles;
-  if (max_blocks / kCluster < clusters) clusters = max_blocks / kCluster;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kCluster));
-  cfg.blockDim = dim3(kFusedThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, tp);
-  *grid_out = static_cast<int>(clusters * kCluster);
-  return err;
-}
-
 // The tile-fused pass with epilogue Epi and its finish: out[F] and
 // sums[Epi::kSums]; `partials` holds max_blocks * kSums floats of scratch.
 template <class Epi>
@@ -229,24 +192,39 @@ cudaError_t run_tile_fused(const TileFusedParams& tp, int max_blocks, int finish
       !valid_finish_width(finish_width)) {
     return cudaErrorInvalidValue;
   }
-  const size_t chunks = static_cast<size_t>(kFusedWarps) * Epi::kTables * kChunk * sizeof(float);
-  const size_t tile = static_cast<size_t>(tp.tile_rows) * sizeof(float);
-  const size_t tables = static_cast<size_t>(Epi::kTables) * tp.row.n_features * sizeof(float);
-  if (chunks + tile > kFusedSmemLimitBytes) return cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t err = cudaSuccess;
+  const size_t smem = static_cast<size_t>(kFusedWarps) * Epi::kTables * kChunk * sizeof(float) +
+                      static_cast<size_t>(tp.tile_rows) * sizeof(float);
+  if (smem > kFusedSmemLimitBytes) return cudaErrorInvalidValue;
+  auto kernel = tile_fused_kernel<Epi>;
+  int clusters = 0;
   if (tp.n_tiles > 0) {
-    err = chunks + tile + tables <= kFusedSmemLimitBytes
-              ? launch_tile_fused_staged<true, Epi>(tp, chunks + tile + tables, max_blocks,
-                                                    stream, &grid)
-              : launch_tile_fused_staged<false, Epi>(tp, chunks + tile, max_blocks, stream,
-                                                     &grid);
+    cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kFusedThreads,
+                                      smem, &clusters, kCluster);
+    if (err != cudaSuccess) return err;
+    clusters /= kCluster;
+    if (tp.n_tiles < clusters) clusters = tp.n_tiles;
+    if (max_blocks / kCluster < clusters) clusters = max_blocks / kCluster;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(clusters * kCluster));
+    cfg.blockDim = dim3(kFusedThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, tp);
     if (err != cudaSuccess) return err;
   }
   const int n_features = tp.row.n_features;
   tile_fused_finish_kernel<Epi::kSums>
       <<<finish_blocks(n_features, finish_width) + 1, kFinishThreads, 0, stream>>>(
-          tp.ix.feat_ptr, tp.part, out, n_features, finish_width, tp.row.partials, grid, sums);
+          tp.ix.feat_ptr, tp.part, out, n_features, finish_width, tp.row.partials,
+          clusters * kCluster, sums);
   return cudaGetLastError();
 }
 

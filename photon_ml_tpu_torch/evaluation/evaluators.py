@@ -1,9 +1,21 @@
-"""Weighted evaluation metrics over (scores, labels, weights).
+"""Weighted evaluation metrics over (scores, labels, weights), plus sharded
+(per-group) evaluators.
 
-Counterpart of ``auc``, ``rmse``, ``poisson_loss``, ``better_than`` and
-``EVALUATORS`` in ``photon_ml_tpu/evaluation/evaluators.py``: the metrics
-``select_best_model`` picks by. The other mean losses and the sharded
-(per-group) evaluators are not ported yet.
+Counterpart of ``photon_ml_tpu/evaluation/evaluators.py``: ``auc``,
+``rmse``, the weighted mean losses, ``EVALUATORS`` (the metrics
+``select_best_model`` picks by), ``sharded_auc`` and
+``sharded_precision_at_k`` over an id column, ``parse_evaluator`` and
+``better_than``.
+
+The sharded evaluators sort by (group, score) and then take every per-group
+quantity over the group's contiguous run of rows in a fixed order: counts by
+integer running sums, weight sums by ``torch.segment_reduce``, and the
+within-group rank of a tie run from a float64 running sum of the float32
+weights. That running sum is exact while the weights' total stays within
+2^53 units of their smallest last place (unit weights, or any weights within
+a factor of 1024 of each other over a million rows), so the order that
+CUDA's scan takes cannot change it. No float atomics (``index_add_``,
+``scatter_add_``), so a metric is bit-identical from call to call.
 """
 
 from __future__ import annotations
@@ -31,10 +43,20 @@ def rmse(scores: Tensor, labels: Tensor, weights: Tensor) -> Tensor:
     return torch.sqrt(torch.sum(se) / torch.clamp(torch.sum(weights), min=1e-12))
 
 
-def poisson_loss(scores: Tensor, labels: Tensor, weights: Tensor) -> Tensor:
-    """Weighted mean Poisson loss (the data log-likelihood up to a constant)."""
-    loss = get_loss("poisson").loss(scores, labels)
-    return torch.sum(weights * loss) / torch.clamp(torch.sum(weights), min=1e-12)
+def _mean_loss(loss_name: str):
+    loss = get_loss(loss_name)
+
+    def f(scores: Tensor, labels: Tensor, weights: Tensor) -> Tensor:
+        l = loss.loss(scores, labels)
+        return torch.sum(weights * l) / torch.clamp(torch.sum(weights), min=1e-12)
+
+    return f
+
+
+logistic_loss = _mean_loss("logistic")
+squared_loss = _mean_loss("squared")
+poisson_loss = _mean_loss("poisson")
+smoothed_hinge_loss = _mean_loss("smoothed_hinge")
 
 
 def auc(scores: Tensor, labels: Tensor, weights: Tensor) -> Tensor:
@@ -61,5 +83,93 @@ def auc(scores: Tensor, labels: Tensor, weights: Tensor) -> Tensor:
 EVALUATORS: dict[str, Callable[[Tensor, Tensor, Tensor], Tensor]] = {
     "auc": auc,
     "rmse": rmse,
+    "logistic_loss": logistic_loss,
+    "squared_loss": squared_loss,
     "poisson_loss": poisson_loss,
+    "smoothed_hinge_loss": smoothed_hinge_loss,
 }
+
+
+def _group_runs(keys: Tensor, group_ids: Tensor, num_groups: int):
+    """(order, sorted group ids, group lengths, each row's group start): the
+    order sorts by group, then by key, and keeps the input order on ties, as
+    ``jnp.lexsort((keys, group_ids))`` does."""
+    order = torch.argsort(keys, stable=True)
+    order = order[torch.argsort(group_ids[order], stable=True)]
+    g = group_ids[order].long()
+    bounds = torch.searchsorted(g, torch.arange(num_groups + 1, device=g.device))
+    return order, g, torch.diff(bounds), bounds[g]
+
+
+def _prefix(x: Tensor) -> Tensor:
+    """[0, x_0, x_0 + x_1, ...]: the running sum with a leading zero."""
+    return torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
+
+
+def sharded_auc(scores: Tensor, labels: Tensor, weights: Tensor, group_ids: Tensor,
+                num_groups: int) -> Tensor:
+    """Mean per-group weighted AUC over the groups that hold both classes.
+
+    The same weighted mid-rank statistic as ``auc``, group-relative: a run of
+    equal (group, score) rows shares the average of its mid-ranks, which is
+    the group's weight before the run plus half the run's weight. Zero-weight
+    (padding) rows are inert."""
+    order, g, lengths, g_start = _group_runs(scores, group_ids, num_groups)
+    s = scores[order]
+    w = weights[order].double()
+    pos = torch.where(labels[order] > 0.5, w, 0.0)
+    neg = w - pos
+    n = s.numel()
+    new_run = torch.ones(n, dtype=torch.bool, device=s.device)
+    new_run[1:] = (s[1:] != s[:-1]) | (g[1:] != g[:-1])
+    idx = torch.arange(n, device=s.device)
+    run_start = torch.cummax(torch.where(new_run, idx, 0), 0).values
+    run_id = torch.cumsum(new_run.long(), 0)
+    run_end = torch.searchsorted(run_id, run_id, right=True)
+    cum = _prefix(w)
+    mid_rank = (cum[run_start] - cum[g_start]) + 0.5 * (cum[run_end] - cum[run_start])
+
+    def per_group(x: Tensor) -> Tensor:
+        return torch.segment_reduce(x, "sum", lengths=lengths)
+
+    w_pos, w_neg = per_group(pos), per_group(neg)
+    u = per_group(mid_rank * pos) - 0.5 * w_pos * w_pos
+    pairs = w_pos * w_neg
+    has_both = pairs > 0
+    auc_g = torch.where(has_both, u / torch.clamp(pairs, min=1e-30), 0.0)
+    n_scored = torch.clamp(has_both.sum(), min=1)
+    return (auc_g.sum() / n_scored).to(scores.dtype)
+
+
+def sharded_precision_at_k(scores: Tensor, labels: Tensor, weights: Tensor,
+                           group_ids: Tensor, num_groups: int, k: int) -> Tensor:
+    """Mean, over the groups with any valid (weight > 0) row, of the share of
+    positives among each group's top ``k`` valid rows by score."""
+    order, g, lengths, g_start = _group_runs(-scores, group_ids, num_groups)
+    valid = weights[order] > 0
+    before = _prefix(valid.long())
+    in_top_k = valid & (before[:-1] - before[g_start] < k)
+    hit = in_top_k & (labels[order] > 0.5)
+    hits = torch.segment_reduce(hit.double(), "sum", lengths=lengths)
+    counts = torch.segment_reduce(in_top_k.double(), "sum", lengths=lengths)
+    has_any = counts > 0
+    share = torch.where(has_any, hits / torch.clamp(counts, min=1.0), 0.0)
+    return (share.sum() / torch.clamp(has_any.sum(), min=1)).to(scores.dtype)
+
+
+def parse_evaluator(spec: str):
+    """(kind, group column or None, k or None) of an evaluator spec such as
+    'auc', 'rmse', 'auc:queryId' or 'precision@5:queryId' (the sharded ones
+    name their id column after ':'); the spec is lowercased."""
+    spec = spec.strip().lower()
+    if ":" in spec:
+        metric, group_col = spec.split(":", 1)
+        if metric.startswith("precision@"):
+            k = int(metric.split("@")[1])
+            return ("sharded_precision_at_k", group_col, k)
+        if metric == "auc":
+            return ("sharded_auc", group_col, None)
+        raise ValueError(f"unknown sharded evaluator '{spec}'")
+    if spec not in EVALUATORS:
+        raise ValueError(f"unknown evaluator '{spec}'. Known: {sorted(EVALUATORS)}")
+    return (spec, None, None)

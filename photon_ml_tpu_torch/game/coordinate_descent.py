@@ -21,7 +21,13 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from photon_ml_tpu_torch import telemetry
-from photon_ml_tpu_torch.evaluation.evaluators import EVALUATORS, better_than
+from photon_ml_tpu_torch.evaluation.evaluators import (
+    EVALUATORS,
+    better_than,
+    parse_evaluator,
+    sharded_auc,
+    sharded_precision_at_k,
+)
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.game.models import GameModel
 
@@ -43,15 +49,29 @@ class CoordinateDescentResult:
 
 
 def _evaluate(model: GameModel, spec: ValidationSpec) -> dict[str, float]:
+    """Each evaluator of ``spec`` on the model's validation scores, keyed by
+    its spec string; a sharded one ('auc:<col>', 'precision@k:<col>') groups
+    by the id column named, matched case-insensitively."""
     data = spec.data
     scores = model.score(data) + data.per_row(data.offset)
     labels, weights = data.per_row(data.response), data.per_row(data.weight)
     out = {}
-    for name in spec.evaluators:
-        fn = EVALUATORS.get(name)
-        if fn is None:
-            raise ValueError(f"unknown evaluator '{name}'. Known: {sorted(EVALUATORS)}")
-        out[name] = float(fn(scores, labels, weights))
+    for spec_str in spec.evaluators:
+        kind, group_col, k = parse_evaluator(spec_str)
+        if kind in EVALUATORS:
+            out[spec_str] = float(EVALUATORS[kind](scores, labels, weights))
+            continue
+        col = next((c for c in data.id_columns if c.lower() == group_col), None)
+        if col is None:
+            raise KeyError(f"evaluator '{spec_str}' needs id column '{group_col}'; "
+                           f"have {sorted(data.id_columns)}")
+        idc = data.id_columns[col]
+        gids = torch.from_numpy(idc.codes).to(scores.device)
+        if kind == "sharded_auc":
+            value = sharded_auc(scores, labels, weights, gids, idc.num_entities)
+        else:
+            value = sharded_precision_at_k(scores, labels, weights, gids, idc.num_entities, k)
+        out[spec_str] = float(value)
     return out
 
 

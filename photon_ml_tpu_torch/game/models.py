@@ -101,7 +101,9 @@ class RandomEffectModel:
             sel = np.flatnonzero(live & (row_bucket[shard.rows] == b_idx))
             if not len(sel):
                 continue
-            rows = shard.rows[sel]
+            rows = shard.rows[sel]  # non-decreasing: the shard is sorted by row
+            starts = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]])
+            lengths = torch.from_numpy(np.diff(np.r_[starts, len(rows)])).to(dev)
             v = torch.from_numpy(shard.values[sel]).to(dev)
             g = torch.from_numpy(shard.cols[sel]).to(dev)
             pos = torch.from_numpy(row_pos[rows].astype(np.int64)).to(dev)
@@ -109,8 +111,11 @@ class RandomEffectModel:
             k = torch.searchsorted(proj, g.unsqueeze(1)).clamp(max=proj.shape[1] - 1)
             hit = proj.gather(1, k).squeeze(1) == g
             coef = bm.coefficients.index_select(0, pos).gather(1, k).squeeze(1)
-            scores.index_add_(0, torch.from_numpy(rows).to(dev),
-                              v * torch.where(hit, coef, 0.0))
+            terms = (v * torch.where(hit, coef, 0.0)).unsqueeze(1)
+            # each row's terms summed in a fixed order (no float atomics, so
+            # a score repeats bit for bit), then written to its own place
+            scores[torch.from_numpy(rows[starts]).to(dev)] = torch.segment_reduce(
+                terms, "sum", lengths=lengths)[:, 0]
         return scores
 
 

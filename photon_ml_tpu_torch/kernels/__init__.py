@@ -9,10 +9,9 @@ nowhere else, so a run can show that its path went through the kernels.
 The fused passes (``margins_pair``, ``value_grad``, ``hv``, ``hv_at``) take
 the CSR as ``csr = (row_ptr, cols, vals)`` and its mirror as
 ``csc = (col_ptr, rows, vals)``. One call of ``value_grad``, ``hv`` or
-``hv_at`` is one C call and counts once, under its own name: ``value_grad``
-and ``hv_at`` are the tile-fused kernel (``csrc/tile_fused.cuh``: the row
-pass and the scatter of each row tile in one launch) and its finish, ``hv``
-the row pass, the sum of its block partials and the scatter. The scatter and
+``hv_at`` is one C call and counts once, under its own name: each is the
+tile-fused kernel (``csrc/tile_fused.cuh``: the row pass and the scatter of
+each row tile in one launch) and its finish. The scatter and
 the passes that end with it take ``tiles``, the row-tile index of a
 ``CSRBatch`` (``ScatterTiles``, built by ``ops/csr.py``), which the CUDA
 kernels need: they stage per_row by row tiles in shared memory and walk the
@@ -397,15 +396,14 @@ def hv(
     s1_ptr, s1_host = _shift_args("hv", dev, v_shift)
     index_args, part = _scatter_args("hv", dev, tiles, n, n_features)
     lib = load_library()
-    q_row = torch.empty(n, dtype=torch.float32, device=dev)
     partials, sums = _sums_scratch(1, dev)
     out = torch.empty(n_features, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.photon_hessian_vector(
             *(t.data_ptr() for t in (*csr, *csc[1:], labels, weights, offsets, w, v)),
-            s0_ptr, s0_host, s1_ptr, s1_host, LOSS_CODES[loss], q_row.data_ptr(),
-            partials.data_ptr(), _MAX_BLOCKS, sums.data_ptr(), out.data_ptr(), *index_args,
-            part.data_ptr(), n, n_features, _stream(dev),
+            s0_ptr, s0_host, s1_ptr, s1_host, LOSS_CODES[loss], partials.data_ptr(),
+            _MAX_BLOCKS, sums.data_ptr(), out.data_ptr(), *index_args, part.data_ptr(), n,
+            n_features, _stream(dev),
         )
     _raise_on("hv", lib, rc)
     LAUNCHES["hv"] += 1

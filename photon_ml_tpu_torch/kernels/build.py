@@ -122,7 +122,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     scatter_tail = [p, i, i, i, i, i, p, i, i, p]
     lib.photon_value_grad.argtypes = [p] * 9 + [p, f, i, p, i, p, p] + scatter_tail
     lib.photon_value_grad.restype = i
-    lib.photon_hessian_vector.argtypes = [p] * 10 + [p, f, p, f, i, p, p, i, p, p] + scatter_tail
+    lib.photon_hessian_vector.argtypes = [p] * 10 + [p, f, p, f, i, p, i, p, p] + scatter_tail
     lib.photon_hessian_vector.restype = i
     lib.photon_hv_at.argtypes = [p] * 7 + [p, f, p, i, p, p] + scatter_tail
     lib.photon_hv_at.restype = i

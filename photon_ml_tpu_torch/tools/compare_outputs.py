@@ -8,7 +8,7 @@ nonzeros a row, uniform columns, N(0, 1) values, labels and tables from
 ``--seed``) with the ``photon_ml_tpu_torch`` package found under ``--root``
 (by default the checkout holding this file), runs every ``CSRBatch`` pass
 that launches a kernel (margins, the margin pair, the scatter, value_grad
-for three losses, hv for two, hv_at) and saves the outputs on the host.
+for three losses, hv for three, hv_at) and saves the outputs on the host.
 With ``--against`` it prints, for each output, the max abs difference from
 the saved one and whether the two are bit-identical. Only the public
 ``CSRBatch`` interface is used, so two commits with different kernels and
@@ -51,7 +51,7 @@ def outputs(device: str, seed: int, n_rows: int, n_features: int, nnz_per_row: i
     }
     for loss in ("squared", "poisson", "logistic"):
         out[f"value_grad {loss}"] = batch.fused_value_grad(w, shift, loss)
-    for loss in ("squared", "logistic"):
+    for loss in ("squared", "poisson", "logistic"):
         out[f"hv {loss}"] = batch.fused_hessian_vector(w, shift, v, -0.5, loss)
     return {k: [t.cpu() for t in (o if isinstance(o, tuple) else (o,))]
             for k, o in out.items()}

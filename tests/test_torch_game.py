@@ -10,7 +10,9 @@ rtol 1e-5 (the same float32 products, summed in another order); fitted
 scores rtol 1e-3, atol 1e-3 (20 LBFGS iterations then Newton solves
 tightened to 1e-7 in float32: the two packages sum in different orders, so
 the last iterates differ at the noise level of each solve, as in
-tests/test_game.py's per-entity parity).
+tests/test_game.py's per-entity parity); validation metrics after each
+coordinate update, the sharded ones over the userId column included, atol
+1e-4 (a per-member AUC moves 5.6e-5 with those scores).
 """
 
 import dataclasses
@@ -84,18 +86,18 @@ def data():
     return _datasets(*_glmix(7))
 
 
-def _configs():
+def _configs(evaluators=("auc",)):
     reg = dict(regularization_weight=1.0, max_iterations=20)
     jfe = JOpt(tolerance=0.0, regularization=JReg(JRegType.L2), **reg)
     tfe = OptimizerConfig(tolerance=0.0, regularization=RegularizationContext(
         RegularizationType.L2), **reg)
     jre = dataclasses.replace(jfe, optimizer_type=JOptType.NEWTON, tolerance=1e-7)
     tre = dataclasses.replace(tfe, optimizer_type=OptimizerType.NEWTON, tolerance=1e-7)
-    jcfg = JGameConfig(task="logistic", num_iterations=2, evaluators=["auc"], coordinates={
+    jcfg = JGameConfig(task="logistic", num_iterations=2, evaluators=list(evaluators), coordinates={
         "fixed": JFEConfig(shard_name="global", optimizer=jfe),
         "per-user": JREConfig(shard_name="user", id_name="userId", optimizer=jre,
                               active_rows_per_entity=CAP)})
-    tcfg = GameConfig(task="logistic", num_iterations=2, evaluators=["auc"], coordinates={
+    tcfg = GameConfig(task="logistic", num_iterations=2, evaluators=list(evaluators), coordinates={
         "fixed": FixedEffectConfig(shard_name="global", optimizer=tfe),
         "per-user": RandomEffectConfig(shard_name="user", id_name="userId", optimizer=tre,
                                        active_rows_per_entity=CAP)})
@@ -221,6 +223,41 @@ def test_game_model_from_jax_scores_passive_and_unseen_entities(fits):
     np.testing.assert_array_equal(got[unseen], fe_only[unseen])
     np.testing.assert_allclose(tmodel.predict_mean(tds).numpy(),
                                np.asarray(jfit.model.predict_mean(jds))[:600], rtol=1e-5)
+
+
+SHARDED = ("auc:userId", "precision@3:userId", "logistic_loss")
+
+
+@pytest.fixture(scope="module")
+def sharded_fits(data):
+    jds, tds = data
+    jcfg, tcfg = _configs(SHARDED)
+    return JEstimator(jcfg).fit(jds, validation_data=jds), \
+        GameEstimator(tcfg).fit(tds, validation_data=tds, device="cpu")
+
+
+@pytest.mark.parametrize("spec", SHARDED)
+def test_sharded_validation_metrics_match_the_reference(sharded_fits, spec):
+    """Per-member AUC and precision@3 over the userId column, and the mean
+    logistic loss, after every coordinate update of both fits."""
+    jfit, tfit = sharded_fits
+    want = [h["metrics"][spec] for h in jfit.history]
+    got = [h["metrics"][spec] for h in tfit.history]
+    assert len(got) == len(want) == 4
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    if spec == SHARDED[0]:
+        np.testing.assert_allclose(tfit.best_metric, jfit.best_metric, atol=1e-4)
+
+
+def test_sharded_evaluator_without_its_id_column_raises(data, fits):
+    _, tds = data
+    _, tfit = fits
+    from photon_ml_tpu_torch.game.coordinate_descent import ValidationSpec, _evaluate
+
+    with pytest.raises(KeyError, match="needs id column 'queryid'; have \\['userId'\\]"):
+        _evaluate(tfit.model, ValidationSpec(data=tds, evaluators=["auc:queryId"]))
+    with pytest.raises(ValueError, match="unknown evaluator"):
+        _evaluate(tfit.model, ValidationSpec(data=tds, evaluators=["accuracy"]))
 
 
 # -- what is not ported yet ------------------------------------------------------

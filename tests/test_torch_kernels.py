@@ -449,7 +449,7 @@ def test_compare_outputs_tool_saves_and_compares(tmp_path, capsys):
     assert compare_outputs.main(small + ["--save", saved]) == 0
     assert compare_outputs.main(small + ["--against", saved]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 19  # margins 1, pair 2, scatter 1, hv_at 2, value_grad 3 x 3, hv 2 x 2
+    assert len(lines) == 21  # margins 1, pair 2, scatter 1, hv_at 2, value_grad 3 x 3, hv 3 x 2
     assert all("max_abs_diff=0 " in line and "bit_identical=True" in line for line in lines)
 
 
@@ -840,7 +840,7 @@ def _tile_fused_case(case, cuda):
         lengths = rng.integers(5, 30, size=20_000)
         lengths[::997] = 700
         return _lengths_batch(lengths, 3000, cuda)
-    if case == "unstaged_table":  # F past the staging limit: w read through the cache
+    if case == "unstaged_table":  # wide F: the tables far past what the L1 holds
         return _lengths_batch(rng.integers(0, 40, size=9000), 60_000, cuda)
     if case == "few_tiles":  # three tiles, the last one partial: fewer than the clusters
         return _lengths_batch(rng.integers(0, 40, size=2 * SCATTER_TILE_ROWS + 1001), 2000,
@@ -859,9 +859,9 @@ def _tile_fused_case(case, cuda):
 @pytest.mark.parametrize("case", ["long_rows", "unstaged_table", "few_tiles",
                                   "one_partial_tile", "many_tiles", "power_law_columns"])
 def test_tile_fused_kernels_match_plain_and_are_deterministic(cuda, case):
-    """value_grad (four losses) and hv_at against their plain versions on the
-    column-major mirror, and bit-identical across two launches; hv and the
-    scatter read the same slot-ordered mirror."""
+    """value_grad (four losses), hv (three losses) and hv_at against their
+    plain versions on the column-major mirror, and bit-identical across two
+    launches; the scatter reads the same slot-ordered mirror."""
     b, rng = _tile_fused_case(case, cuda)
     f = b.num_features
     w, v = (torch.from_numpy(rng.normal(size=f).astype(np.float32) * 0.1).to(cuda)
@@ -876,9 +876,12 @@ def test_tile_fused_kernels_match_plain_and_are_deterministic(cuda, case):
                reference.value_grad(csr, plain, *rows3, w, shift, loss))
     _twice("hv_at", lambda: kernels.hv_at(csr, csc, d2, v, -0.3, tiles),
            reference.hv_at(csr, plain, d2, v, -0.3))
-    _twice("hv", lambda: kernels.hv(csr, csc, *rows3, w, shift, v, -0.3, "logistic", tiles),
-           reference.hessian_vector(csr, plain, *rows3, w, shift, v, -0.3, "logistic"))
+    for loss in ("logistic", "squared", "poisson"):
+        _twice(f"hv {loss}",
+               lambda: kernels.hv(csr, csc, *rows3, w, shift, v, -0.3, loss, tiles),
+               reference.hessian_vector(csr, plain, *rows3, w, shift, v, -0.3, loss))
     _twice("csc_scatter", lambda: kernels.csc_scatter(*csc, d2, False, tiles),
            reference.csc_scatter(*plain, d2, False))
     assert kernels.LAUNCHES["value_grad"] == before["value_grad"] + 8
+    assert kernels.LAUNCHES["hv"] == before["hv"] + 6
     assert kernels.LAUNCHES["hv_at"] == before["hv_at"] + 2

@@ -113,6 +113,25 @@ def test_model_selection_matches_reference(world, sweeps):
         assert abs(got - want) <= 1e-4
 
 
+@pytest.mark.parametrize("metric", ["logistic_loss", "squared_loss", "smoothed_hinge_loss"])
+def test_model_selection_by_a_mean_loss_matches_reference(world, sweeps, metric):
+    je, te = sweeps
+    _, jv, _ = world["jax"]
+    _, tv, _ = world["torch"]
+    j_best, j_val = j_select(je, jv, metric=metric)
+    t_best, t_val = t_select(te, tv, metric=metric)
+    assert t_best.reg_weight == j_best.reg_weight
+    assert abs(t_val - j_val) <= 1e-4
+
+
+def test_model_selection_refuses_a_sharded_metric_as_the_reference_does(world, sweeps):
+    je, te = sweeps
+    for select, entries, batch in ((j_select, je, world["jax"][1]),
+                                   (t_select, te, world["torch"][1])):
+        with pytest.raises(ValueError, match="unknown metric 'auc:userId'"):
+            select(entries, batch, metric="auc:userId")
+
+
 def test_warm_start_from_a_jax_model(world, sweeps):
     je, _ = sweeps
     jb, _, jn = world["jax"]
