@@ -30,12 +30,21 @@ Phases, in order; any failure exits non-zero before the last line:
        5d. config #3: Poisson with offsets, L2 1, box [-0.5, 0.5], LBFGS 20
            iterations;
        5e. TRON with the box [-0.5, 0.5] on config #2's data, 3 iterations;
+       8.  the data plane at config #1's width: its draws (and 100K held-out
+           rows drawn next) written as LIBSVM, read by the native parser onto
+           the card, validated, summarized twice (bit-identical, and within
+           the reference test's tolerances of a float64 numpy summary),
+           standardized and trained (logistic, lambdas [10, 1], LBFGS 20),
+           the best lambda picked by held-out AUC, saved and loaded (means
+           and held-out scores bit-identical);
        6.  bench_game.py config #4 through ``GameEstimator.fit``: a 10K-feature
            fixed effect (LBFGS 20 iterations, L2 1) plus a 10-feature
            per-user random effect over 100K users (batched NEWTON, tolerance
-           1e-7), 2 coordinate-descent iterations; the second of two fits is
-           timed, as bench_game.py times it; the fitted model is then scored
-           and evaluated twice (``auc``, ``auc:userId``,
+           1e-7), 2 coordinate-descent iterations; the first fit saves its
+           models (``output_dir``) and the saved final model, loaded back,
+           must score bit for bit as the fitted one; the second of two fits
+           is timed, as bench_game.py times it; the fitted model is then
+           scored and evaluated twice (``auc``, ``auc:userId``,
            ``precision@5:userId``), and each pair must agree bit for bit;
        7.  the ELL probe (``photon_ml_tpu_torch.tools.probe_ell``) at 1M x 10K
            x 20: ELL against CSR ``dot_rows``, both timed;
@@ -63,6 +72,7 @@ NNZ_PER_ROW = 20
 GAME_USERS = 100_000  # bench_game.py config #4: users, RE features, CD iterations
 GAME_RE_FEATURES = 10
 GAME_CD_ITERATIONS = 2
+N_HELDOUT = 100_000  # path 8's held-out rows, drawn after config #1's
 SMALL_ROWS = 65_536
 SMALL_FEATURES = 2_048
 KERNEL_REL_TOL = 1e-4  # max |kernel - plain| / max(1, max |plain|)
@@ -76,15 +86,22 @@ PEAK_F32_FLOPS = 67e12
 def make_problem(seed: int, n_rows: int, n_features: int, nnz_per_row: int):
     """bench.py config #1's data: uniform columns, N(0,1) values, labels drawn
     from a planted logistic model (same draws in the same order)."""
-    rng = np.random.default_rng(seed)
+    return draw_problem(np.random.default_rng(seed), n_rows, n_features, nnz_per_row)[:4]
+
+
+def draw_problem(rng, n_rows: int, n_features: int, nnz_per_row: int, w_true=None):
+    """``make_problem``'s draws from ``rng``: (values, rows, cols, y, w_true).
+    Given ``w_true`` (the planted model), it is not drawn again, so rows drawn
+    next from the same generator come from the same model."""
     nnz = n_rows * nnz_per_row
     rows = np.repeat(np.arange(n_rows, dtype=np.int64), nnz_per_row)
     cols = rng.integers(0, n_features, size=nnz)
     values = rng.normal(size=nnz)
-    w_true = rng.normal(size=n_features) * 0.5
+    if w_true is None:
+        w_true = rng.normal(size=n_features) * 0.5
     margins = np.bincount(rows, weights=values * w_true[cols], minlength=n_rows)
     y = (rng.random(n_rows) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
-    return values, rows, cols, y
+    return values, rows, cols, y, w_true
 
 
 def make_suite_problem(rng, n_rows: int, n_features: int, nnz_per_row: int, kind: str):
@@ -672,17 +689,22 @@ def run_suite_paths(seed: int, profile: bool, by_path: dict, train: dict, prof: 
 
 def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
     """Path 6: GLMix config #4 through ``GameEstimator.fit`` as bench_game.py
-    drives it: the random-effect build timed alone, one fit, then the second
-    fit timed with the launch counts zeroed just before it. Fails unless the
+    drives it: the random-effect build timed alone, one fit that saves its
+    models to ``output_dir``, then the second fit timed with the launch counts
+    zeroed just before it. Fails unless the saved final model, loaded back,
+    scores the dataset bit for bit as the fitted one, the
     fixed effect's margins and scatter kernels launched, its loss fell in
     every coordinate-descent iteration, every coefficient is finite, the
     GLMix model's train AUC beats its fixed effect's alone, and two scorings
     and evaluations of the model agree bit for bit."""
     import dataclasses
+    import os
+    import tempfile
 
     import torch
 
     from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.data.model_store import load_game_model
     from photon_ml_tpu_torch.evaluation.evaluators import auc
     from photon_ml_tpu_torch.game import (
         FeatureShard,
@@ -726,10 +748,19 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
     del red
 
     est = GameEstimator(config)
-    t0 = time.perf_counter()
-    est.fit(gds)
-    torch.cuda.synchronize()
-    first_fit_s = time.perf_counter() - t0
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as out:
+        t0 = time.perf_counter()
+        first = est.fit(gds, output_dir=out)
+        torch.cuda.synchronize()
+        first_fit_s = time.perf_counter() - t0
+        # the saved final model, loaded back, scores as the fitted one does
+        loaded = load_game_model(os.path.join(out, "final"))
+        reloaded_same = torch.equal(loaded.score(gds), first.model.score(gds))
+    print(f"path 6 saved: first_fit_s={first_fit_s:.4f} (with output_dir) "
+          f"final_reloaded_scores_bit_identical={reloaded_same}", flush=True)
+    del first, loaded
     torch.cuda.reset_peak_memory_stats()
     telemetry.reset()
     kernels.reset_launch_counts()
@@ -741,7 +772,7 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
     syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
     peak = torch.cuda.max_memory_allocated()
 
-    bad = []
+    bad = [] if reloaded_same else ["the saved final model scores differently when loaded"]
     model = result.model
     fe = model.models["fixed"]
     coeffs = [fe.coefficients] + [b.coefficients for b in model.models["per-user"].buckets]
@@ -790,6 +821,7 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
              "buckets": buckets, "newton": newton, "host_syncs": syncs,
              "max_memory_allocated": peak, "train_auc": glmix_auc, "fe_only_auc": fe_auc,
              "evaluated": evals[0], "bit_identical_twice": same,
+             "final_reloaded_scores_bit_identical": reloaded_same,
              **scatter_memory(gds.__dict__["_csr_batches"].values())}
     print(f"path 6: coeffs_per_s={coeffs_per_s:.1f} total_coeffs={total_coeffs} "
           f"fit_wall_s={elapsed:.4f} first_fit_s={first_fit_s:.4f} re_build_s={re_build_s:.4f} "
@@ -811,6 +843,199 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
 
         prof = profile_solve("6", refit)
     return launches, stats, prof
+
+
+def numpy_summary(values, cols, n_rows: int, n_features: int) -> dict:
+    """The reference's summary (``photon_ml_tpu/data/stats.py``) in float64
+    numpy over the nonzeros as entries: every row valid, zeros counted in the
+    mean and variance, max and min over the nonzero entries and 0 where a
+    feature has fewer nonzero entries than rows."""
+    nz = values != 0
+    s1 = np.bincount(cols, weights=values, minlength=n_features)
+    s2 = np.bincount(cols, weights=values * values, minlength=n_features)
+    count = np.bincount(cols, weights=nz, minlength=n_features)
+    order = np.argsort(cols, kind="stable")
+    starts = np.searchsorted(cols[order], np.arange(n_features))
+    present = values[order]
+    hi = np.maximum.reduceat(np.where(nz[order], present, -np.inf), starts)
+    lo = np.minimum.reduceat(np.where(nz[order], present, np.inf), starts)
+    some_zero = count < n_rows
+    hi = np.where(count == 0, 0.0, np.where(some_zero, np.maximum(hi, 0.0), hi))
+    lo = np.where(count == 0, 0.0, np.where(some_zero, np.minimum(lo, 0.0), lo))
+    mean = s1 / n_rows
+    return {"mean": mean, "variance": (s2 - n_rows * mean * mean) / (n_rows - 1),
+            "max": hi, "min": lo, "num_nonzeros": count}
+
+
+def run_data_plane_path(seed: int, card: str) -> tuple[dict, dict]:
+    """Path 8: config #1's draws as LIBSVM files, through the data plane as a
+    user calls it: the native parser, ``to_batch`` onto the card,
+    ``validate``, ``summarize`` twice, a standardized ``train_glm`` picked by
+    held-out AUC, and ``save_glm`` / ``load_glm``. Fails unless the parsed
+    arrays equal the draws as written, the two summaries are bit-identical
+    and within the reference test's tolerances of a float64 numpy summary,
+    the scatter kernel launched in ``summarize``, the loss fell from the
+    sweep's start (and no solve ended above its own start) with finite
+    coefficients and train AUC above 0.6, and the loaded model's means and
+    held-out scores are bit-identical to the trained one's."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.data import (
+        ValidationMode,
+        build_normalization_context,
+        read_libsvm,
+        summarize,
+        validate,
+    )
+    from photon_ml_tpu_torch.data.libsvm import write_libsvm
+    from photon_ml_tpu_torch.data.model_store import load_glm, save_glm
+    from photon_ml_tpu_torch.evaluation.evaluators import auc
+    from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
+    from photon_ml_tpu_torch.training import select_best_model, train_glm
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    stats, bad = {}, []
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        rng = np.random.default_rng(seed)
+        t0 = time.perf_counter()
+        values, rows, cols, y, w_true = draw_problem(rng, N_ROWS, N_FEATURES, NNZ_PER_ROW)
+        h_values, h_rows, h_cols, h_y, _ = draw_problem(rng, N_HELDOUT, N_FEATURES,
+                                                        NNZ_PER_ROW, w_true)
+        stats["draw_s"] = time.perf_counter() - t0
+        train_path, heldout_path = os.path.join(tmp, "train.libsvm"), os.path.join(
+            tmp, "heldout.libsvm")
+        t0 = time.perf_counter()
+        written = write_libsvm(train_path, values, rows, cols, 2.0 * y - 1.0)
+        write_libsvm(heldout_path, h_values, h_rows, h_cols, 2.0 * h_y - 1.0)
+        stats["write_s"] = time.perf_counter() - t0
+        stats["file_bytes"] = os.path.getsize(train_path) + os.path.getsize(heldout_path)
+        del values, h_values
+        print(f"path 8 write: rows={N_ROWS}+{N_HELDOUT} bytes={stats['file_bytes']} "
+              f"write_s={stats['write_s']:.4f}", flush=True)
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t_path = time.perf_counter()
+        t0 = time.perf_counter()
+        data = read_libsvm(train_path, engine="native")
+        heldout_data = read_libsvm(heldout_path, engine="native")
+        stats["parse_s"] = time.perf_counter() - t0
+        same = (np.array_equal(data.rows, rows) and np.array_equal(data.cols, cols)
+                and np.array_equal(data.values, written) and np.array_equal(data.labels, y))
+        if not same:
+            raise RuntimeError("path 8: the parsed rows, columns or values differ from the "
+                               "draws as written")
+        t0 = time.perf_counter()
+        batch = data.to_batch(num_features=N_FEATURES, add_intercept=True)
+        heldout = heldout_data.to_batch(num_features=N_FEATURES, add_intercept=True)
+        torch.cuda.synchronize()
+        stats["build_s"] = time.perf_counter() - t0
+        stats.update(rows=batch.num_rows, nnz=batch.nnz)
+        t0 = time.perf_counter()
+        validate(batch, "logistic", mode=ValidationMode.FULL)
+        stats["validate_s"] = time.perf_counter() - t0
+        print(f"path 8 read: rows={batch.num_rows} nnz={batch.nnz} "
+              f"parse_s={stats['parse_s']:.4f} build_s={stats['build_s']:.4f} "
+              f"validate_s={stats['validate_s']:.4f}", flush=True)
+
+        scatter_before = kernels.LAUNCHES["csc_scatter"]
+        summaries = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summaries.append(summarize(batch))
+            torch.cuda.synchronize()
+            stats.setdefault("summarize_s", []).append(time.perf_counter() - t0)
+        stats["summarize_scatter_launches"] = kernels.LAUNCHES["csc_scatter"] - scatter_before
+        first, again = (dataclasses.asdict(x) for x in summaries)
+        identical = all(torch.equal(first[k], again[k]) for k in first)
+        want = numpy_summary(written, cols, N_ROWS, N_FEATURES)
+        got = {k: first[k][:N_FEATURES].double().cpu().numpy() for k in want}
+        checks = {
+            "mean": np.allclose(got["mean"], want["mean"], rtol=1e-4, atol=1e-5),
+            "variance": np.allclose(got["variance"], want["variance"], rtol=1e-3, atol=1e-5),
+            "max": np.array_equal(got["max"], want["max"].astype(np.float32)),
+            "min": np.array_equal(got["min"], want["min"].astype(np.float32)),
+            "num_nonzeros": np.array_equal(got["num_nonzeros"], want["num_nonzeros"]),
+            "intercept": (float(first["mean"][N_FEATURES]) == 1.0
+                          and float(first["variance"][N_FEATURES]) == 0.0),
+        }
+        errs = {k: float(np.max(np.abs(got[k] - want[k]))) for k in ("mean", "variance")}
+        print(f"path 8 summarize: summarize_s={stats['summarize_s']} "
+              f"scatter_launches={stats['summarize_scatter_launches']} "
+              f"bit_identical={identical} checks={json.dumps(checks)} "
+              f"max_abs_err={json.dumps(errs)}", flush=True)
+        if not identical:
+            bad.append("two summaries differ")
+        if not all(checks.values()):
+            bad.append(f"summary against float64 numpy: {checks}")
+        if stats["summarize_scatter_launches"] == 0:
+            bad.append("csc_scatter did not launch in summarize")
+        del rows, cols, written
+
+        t0 = time.perf_counter()
+        ctx = build_normalization_context("standardization", summaries[0],
+                                          data.intercept_index)
+        entries = train_glm(batch, "logistic", [10.0, 1.0], solver_config("lbfgs", 20),
+                            normalization=ctx)
+        best, heldout_auc = select_best_model(entries, heldout)
+        torch.cuda.synchronize()
+        stats["train_s"] = time.perf_counter() - t0
+        model = best.model
+        # lambda 1 starts at lambda 10's optimum, which standardization leaves
+        # within float32 rounding of its own: each solve must end no higher
+        # than it began, and below the sweep's start, the zero model
+        sweep_loss0 = max(float(e.result.values[0]) for e in entries)
+        for e in entries:
+            res = e.result
+            loss0, loss = float(res.values[0]), float(res.value)
+            train_auc = float(auc(e.model.compute_score(batch), batch.labels, batch.weights))
+            print(f"path 8 lambda={e.reg_weight}: iterations={res.iterations} "
+                  f"reason={CONVERGENCE_REASON_NAMES[res.reason]} loss0={loss0:.7g} "
+                  f"loss={loss:.7g} train_auc={train_auc:.6f}", flush=True)
+            if not (loss <= loss0 and loss < sweep_loss0):
+                bad.append(f"lambda {e.reg_weight}: loss did not fall")
+            if not bool(e.model.coefficients.means.isfinite().all()):
+                bad.append(f"lambda {e.reg_weight}: non-finite coefficients")
+            if not train_auc > 0.6:
+                bad.append(f"lambda {e.reg_weight}: train auc {train_auc}")
+        stats.update(best_lambda=best.reg_weight, heldout_auc=heldout_auc)
+
+        t0 = time.perf_counter()
+        model_dir = os.path.join(tmp, "glm")
+        save_glm(model, model_dir)
+        loaded = load_glm(model_dir)
+        stats["save_load_s"] = time.perf_counter() - t0
+        same_means = torch.equal(loaded.coefficients.means, model.coefficients.means)
+        same_scores = torch.equal(loaded.compute_score(heldout), model.compute_score(heldout))
+        torch.cuda.synchronize()
+        stats["path_s"] = time.perf_counter() - t_path
+        launches = dict(kernels.LAUNCHES)
+        print(f"path 8 model: best_lambda={best.reg_weight} heldout_auc={heldout_auc:.6f} "
+              f"train_s={stats['train_s']:.4f} save_load_s={stats['save_load_s']:.4f} "
+              f"means_bit_identical={same_means} heldout_scores_bit_identical={same_scores}",
+              flush=True)
+        if not (same_means and same_scores):
+            bad.append("the loaded model differs from the saved one")
+    print(f"path 8: rows={stats['rows']} nnz={stats['nnz']} write_s={stats['write_s']:.4f} "
+          f"parse_s={stats['parse_s']:.4f} build_s={stats['build_s']:.4f} "
+          f"validate_s={stats['validate_s']:.4f} "
+          f"summarize_s={' '.join(f'{t:.4f}' for t in stats['summarize_s'])} "
+          f"train_s={stats['train_s']:.4f} save_load_s={stats['save_load_s']:.4f} "
+          f"path_s={stats['path_s']:.4f} launches={json.dumps(launches)} card={card}",
+          flush=True)
+    if bad:
+        raise RuntimeError(f"path 8: bad result: {bad}")
+    missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"path 8: kernels not launched: {missing}")
+    return launches, stats
 
 
 def run_probe_path(seed: int) -> tuple[dict, dict]:
@@ -904,6 +1129,9 @@ def main() -> int:
     del batch
 
     run_suite_paths(args.seed, args.profile, by_path, train, prof)
+
+    by_path["8"], train["8"] = run_data_plane_path(args.seed, card)
+    torch.cuda.empty_cache()
 
     by_path["6"], train["6"], game_prof = run_game_path(args.seed, args.profile)
     if game_prof is not None:

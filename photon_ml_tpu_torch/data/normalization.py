@@ -3,8 +3,8 @@
 Counterpart of ``NormalizationType``/``NormalizationContext`` in
 ``photon_ml_tpu/data/normalization.py``: x' = (x - shift) * factor is applied
 algebraically inside the objective, and trained coefficients map back by
-w = w' * factor; intercept -= w . shift. ``build_normalization_context`` and
-the feature statistics it needs (``data/stats.py``) are not ported yet.
+w = w' * factor; intercept -= w . shift. ``build_normalization_context``
+(:82-119) builds a context from a ``FeatureSummary`` (``data/stats.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from enum import Enum
 from typing import Optional
 
 import torch
+
+from photon_ml_tpu_torch.data.stats import FeatureSummary
 
 Tensor = torch.Tensor
 
@@ -60,3 +62,39 @@ class NormalizationContext:
         if self.factors is not None:
             out = out / self.factors
         return out
+
+
+def build_normalization_context(
+    normalization_type: NormalizationType | str,
+    summary: Optional[FeatureSummary] = None,
+    intercept_index: Optional[int] = None,
+) -> NormalizationContext:
+    """A context of ``normalization_type`` from a feature summary, on the
+    summary's device. The intercept column keeps factor 1 (and shift 0);
+    STANDARDIZATION needs one, so that the shifts can be absorbed."""
+    ntype = NormalizationType(normalization_type)
+    if ntype == NormalizationType.NONE:
+        return NormalizationContext(intercept_index=intercept_index)
+    if summary is None:
+        raise ValueError(f"{ntype} requires a feature summary")
+
+    def inv_or_one(x: Tensor) -> Tensor:
+        return torch.where(x > 0.0, 1.0 / torch.where(x > 0.0, x, 1.0), 1.0)
+
+    def keep_intercept(t: Tensor, value: float) -> Tensor:
+        if intercept_index is not None:
+            t = t.clone()
+            t[intercept_index] = value
+        return t
+
+    if ntype == NormalizationType.SCALE_WITH_MAX_MAGNITUDE:
+        magnitude = torch.maximum(torch.abs(summary.max), torch.abs(summary.min))
+        return NormalizationContext(factors=keep_intercept(inv_or_one(magnitude), 1.0),
+                                    intercept_index=intercept_index)
+    factors = keep_intercept(inv_or_one(torch.sqrt(summary.variance)), 1.0)
+    if ntype == NormalizationType.SCALE_WITH_STANDARD_DEVIATION:
+        return NormalizationContext(factors=factors, intercept_index=intercept_index)
+    if intercept_index is None:
+        raise ValueError("STANDARDIZATION requires an intercept column")
+    return NormalizationContext(factors=factors, shifts=keep_intercept(summary.mean, 0.0),
+                                intercept_index=intercept_index)

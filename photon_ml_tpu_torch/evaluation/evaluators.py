@@ -7,15 +7,16 @@ Counterpart of ``photon_ml_tpu/evaluation/evaluators.py``: ``auc``,
 ``sharded_precision_at_k`` over an id column, ``parse_evaluator`` and
 ``better_than``.
 
-The sharded evaluators sort by (group, score) and then take every per-group
-quantity over the group's contiguous run of rows in a fixed order: counts by
-integer running sums, weight sums by ``torch.segment_reduce``, and the
-within-group rank of a tie run from a float64 running sum of the float32
-weights. That running sum is exact while the weights' total stays within
-2^53 units of their smallest last place (unit weights, or any weights within
-a factor of 1024 of each other over a million rows), so the order that
-CUDA's scan takes cannot change it. No float atomics (``index_add_``,
-``scatter_add_``), so a metric is bit-identical from call to call.
+Both AUCs sort (by score, or by group and then score) and give each row the
+weighted mid-rank of its run of tied rows: the weight before the run plus
+half the run's weight, read off one float64 running sum of the weights.
+That running sum (``_prefix``) is a Hillis-Steele scan, log2(n) passes of
+elementwise adds, so its order of addition is fixed by the length alone and
+never by the device's scan schedule (CUDA's ``cumsum`` is not fixed); the
+sharded evaluators take their per-group sums by ``torch.segment_reduce``
+over each group's contiguous run. No float atomics (``index_add_``,
+``scatter_add_``), so a metric is bit-identical from call to call whatever
+its weights and ties.
 """
 
 from __future__ import annotations
@@ -62,22 +63,17 @@ smoothed_hinge_loss = _mean_loss("smoothed_hinge")
 def auc(scores: Tensor, labels: Tensor, weights: Tensor) -> Tensor:
     """Weighted ROC AUC by one sort and sweep over weighted mid-ranks; tied
     scores share their average rank. Returns 0.5 when a class is absent."""
-    pos = (labels > 0.5).to(scores.dtype) * weights
-    neg = (labels <= 0.5).to(scores.dtype) * weights
     order = torch.argsort(scores, stable=True)
-    s, p, n = scores[order], pos[order], neg[order]
-    w = p + n
-    rank = torch.cumsum(w, 0) - 0.5 * w
-    new_group = torch.ones_like(s, dtype=torch.bool)
-    new_group[1:] = s[1:] != s[:-1]
-    gid = torch.cumsum(new_group.to(torch.int64), 0) - 1
-    g_w = torch.zeros_like(w).index_add_(0, gid, w)
-    g_rw = torch.zeros_like(w).index_add_(0, gid, rank * w)
-    rank_tied = (g_rw / torch.clamp(g_w, min=1e-30))[gid]
-    w_pos, w_neg = torch.sum(p), torch.sum(n)
-    u = torch.sum(rank_tied * p) - 0.5 * w_pos * w_pos
+    s = scores[order]
+    w = weights[order].double()
+    pos = torch.where(labels[order] > 0.5, w, 0.0)
+    new_run = torch.ones_like(s, dtype=torch.bool)
+    new_run[1:] = s[1:] != s[:-1]
+    mid_rank = _mid_ranks(w, new_run, torch.zeros_like(order))
+    w_pos, w_neg = torch.sum(pos), torch.sum(w - pos)
+    u = torch.sum(mid_rank * pos) - 0.5 * w_pos * w_pos
     denom = w_pos * w_neg
-    return torch.where(denom > 0, u / torch.clamp(denom, min=1e-30), 0.5)
+    return torch.where(denom > 0, u / torch.clamp(denom, min=1e-30), 0.5).to(scores.dtype)
 
 
 EVALUATORS: dict[str, Callable[[Tensor, Tensor, Tensor], Tensor]] = {
@@ -102,8 +98,27 @@ def _group_runs(keys: Tensor, group_ids: Tensor, num_groups: int):
 
 
 def _prefix(x: Tensor) -> Tensor:
-    """[0, x_0, x_0 + x_1, ...]: the running sum with a leading zero."""
-    return torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
+    """[0, x_0, x_0 + x_1, ...]: the running sum with a leading zero, by a
+    Hillis-Steele scan (pass k adds the value 2^k places back), whose order
+    of addition depends on the length only."""
+    out, step = x, 1
+    while step < out.numel():
+        out = torch.cat([out[:step], out[step:] + out[:-step]])
+        step *= 2
+    return torch.cat([x.new_zeros(1), out])
+
+
+def _mid_ranks(w: Tensor, new_run: Tensor, g_start: Tensor) -> Tensor:
+    """Each sorted row's weighted mid-rank within its group, shared by its run
+    of tied rows (``new_run`` marks where a run begins, ``g_start`` is the
+    row's group start): the group's weight before the run plus half the
+    run's weight, which is the run's weighted mean of its rows' mid-ranks."""
+    idx = torch.arange(w.numel(), device=w.device)
+    run_start = torch.cummax(torch.where(new_run, idx, 0), 0).values
+    run_id = torch.cumsum(new_run.long(), 0)
+    run_end = torch.searchsorted(run_id, run_id, right=True)
+    cum = _prefix(w)
+    return (cum[run_start] - cum[g_start]) + 0.5 * (cum[run_end] - cum[run_start])
 
 
 def sharded_auc(scores: Tensor, labels: Tensor, weights: Tensor, group_ids: Tensor,
@@ -119,15 +134,9 @@ def sharded_auc(scores: Tensor, labels: Tensor, weights: Tensor, group_ids: Tens
     w = weights[order].double()
     pos = torch.where(labels[order] > 0.5, w, 0.0)
     neg = w - pos
-    n = s.numel()
-    new_run = torch.ones(n, dtype=torch.bool, device=s.device)
+    new_run = torch.ones_like(s, dtype=torch.bool)
     new_run[1:] = (s[1:] != s[:-1]) | (g[1:] != g[:-1])
-    idx = torch.arange(n, device=s.device)
-    run_start = torch.cummax(torch.where(new_run, idx, 0), 0).values
-    run_id = torch.cumsum(new_run.long(), 0)
-    run_end = torch.searchsorted(run_id, run_id, right=True)
-    cum = _prefix(w)
-    mid_rank = (cum[run_start] - cum[g_start]) + 0.5 * (cum[run_end] - cum[run_start])
+    mid_rank = _mid_ranks(w, new_run, g_start)
 
     def per_group(x: Tensor) -> Tensor:
         return torch.segment_reduce(x, "sum", lengths=lengths)

@@ -3,18 +3,20 @@ descent drives.
 
 Counterpart of ``photon_ml_tpu/game/coordinates.py``:
 
-- ``FixedEffectCoordinate`` (:86-345): one GLM solve over the shard's
-  ``CSRBatch``, built once per dataset. Residual scores from the other
-  coordinates enter as offsets (``with_offsets``), never by rebuilding the
-  CSR or its CSC mirror, so each LBFGS iteration launches the margins and
-  scatter kernels on the resident layout; scoring is the batch's
-  ``dot_rows``. Down-sampling re-weights the rows per update.
+- ``FixedEffectCoordinate`` (:86-345): one GLM solve (``factory.solve``)
+  over the shard's ``CSRBatch``, built once per dataset. Residual scores
+  from the other coordinates enter as offsets (``with_offsets``), never by
+  rebuilding the CSR or its CSC mirror, so each LBFGS iteration launches the
+  margins and scatter kernels on the resident layout; scoring is the
+  batch's ``dot_rows``. Down-sampling re-weights the rows per update. With
+  a ``normalization`` context the solve runs in normalized space and the
+  model stays in the original space (:133-162, :277-303).
 - ``RandomEffectCoordinate`` (:552-754): per geometry bucket, one batched
   Newton solve over every entity of the bucket on its dense design.
 
-The reference's mesh, guard and tracker hooks and the fixed effect's
-normalization are left out. What else is not ported raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The reference's mesh, guard and tracker hooks are left out. What else is
+not ported raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.data.normalization import NormalizationContext
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.game.models import (
     FixedEffectModel,
@@ -32,10 +35,8 @@ from photon_ml_tpu_torch.game.models import (
     RandomEffectModel,
 )
 from photon_ml_tpu_torch.game.random_effect_data import RandomEffectDataset
-from photon_ml_tpu_torch.ops.objective import make_objective
-from photon_ml_tpu_torch.optim.adapter import glm_adapter
-from photon_ml_tpu_torch.optim.common import SolveResult
-from photon_ml_tpu_torch.optim.factory import OptimizerConfig, OptimizerType, dispatch_solve
+from photon_ml_tpu_torch.optim.common import BoxConstraints, SolveResult
+from photon_ml_tpu_torch.optim.factory import OptimizerConfig, OptimizerType, solve
 
 Tensor = torch.Tensor
 
@@ -55,16 +56,28 @@ class FixedEffectCoordinate:
     loss_name: str
     config: OptimizerConfig
     seed: int = 0
+    normalization: Optional[NormalizationContext] = None
 
     def __post_init__(self):
         self.config.validate(self.loss_name)
         self._batch = self.data.csr_batch(self.shard_name)
         self._constraints = self.config.build_box_constraints(self._batch.num_features,
                                                               self.data.device)
-        reg = self.config.regularization
-        self._obj = make_objective(self.loss_name,
-                                   l2_weight=reg.l2_weight(self.config.regularization_weight))
-        self._l1 = reg.l1_weight(self.config.regularization_weight)
+        norm = self.normalization
+        if self._constraints is not None and norm is not None:
+            # the bounds are in the original space and the solve runs in the
+            # normalized one, where w = w' * factor; under shifts the
+            # intercept absorbs -w.shift afterwards, so its bound cannot hold
+            if norm.factors is not None:
+                self._constraints = BoxConstraints(lower=self._constraints.lower / norm.factors,
+                                                   upper=self._constraints.upper / norm.factors)
+            if norm.shifts is not None and norm.intercept_index is not None:
+                ii = norm.intercept_index
+                if bool(self._constraints.lower[ii].isfinite()
+                        | self._constraints.upper[ii].isfinite()):
+                    raise ValueError(
+                        "a box constraint on the intercept cannot be enforced under shift "
+                        "normalization (the intercept absorbs -w.shift at back-transform)")
         self._update_count = 0
         self.last_results: list[SolveResult] = []
 
@@ -100,10 +113,17 @@ class FixedEffectCoordinate:
             batch = dataclasses.replace(batch, weights=self._downsampled_weights(update_index))
         if residual_scores is not None:
             batch = batch.with_offsets(self._batch.offsets + residual_scores)
-        res = dispatch_solve(glm_adapter(self._obj, batch), model.coefficients, self.config,
-                             self._l1, self._constraints, device=self.data.device)
+        norm = self.normalization
+        w0 = model.coefficients
+        if norm is not None:
+            # models live in the original space, the solve in the normalized one
+            w0 = norm.inverse_transform_model_coefficients(w0)
+        res = solve(self.loss_name, batch, self.config, w0, self._constraints,
+                    factors=None if norm is None else norm.factors,
+                    shifts=None if norm is None else norm.shifts, device=self.data.device)
         self.last_results = [res]
-        return dataclasses.replace(model, coefficients=res.w)
+        w = res.w if norm is None else norm.transform_model_coefficients(res.w)
+        return dataclasses.replace(model, coefficients=w)
 
     def score(self, model: FixedEffectModel) -> Tensor:
         return self._batch.dot_rows(model.coefficients)
@@ -137,9 +157,6 @@ class RandomEffectCoordinate:
             raise NotImplementedError(NOT_PORTED.format(
                 f"the COO layout of random-effect buckets {coo} (the dense design is over "
                 "the routing rule's budget)", 8))
-        reg = self.config.regularization
-        self._obj = make_objective(self.loss_name,
-                                   l2_weight=reg.l2_weight(self.config.regularization_weight))
         self.last_results: list[SolveResult] = []
 
     def initialize_model(self) -> RandomEffectModel:
@@ -166,8 +183,8 @@ class RandomEffectCoordinate:
                      residual_scores: Optional[Tensor]) -> RandomEffectModel:
         new_buckets, results = [], []
         for b, bm in zip(self._buckets, model.buckets):
-            res = dispatch_solve(glm_adapter(self._obj, b.batch(residual_scores)),
-                                 bm.coefficients, self.config, device=self.data.device)
+            res = solve(self.loss_name, b.batch(residual_scores), self.config,
+                        bm.coefficients, device=self.data.device)
             results.append(res)
             new_buckets.append(dataclasses.replace(bm, coefficients=res.w))
         self.last_results = results

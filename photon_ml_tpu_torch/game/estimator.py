@@ -5,23 +5,31 @@ the coordinates in updating order, their shards and optimizers, the
 evaluators and the coordinate-descent schedule; ``fit`` (:392-504) builds
 the random-effect datasets and the coordinates, caches both for repeated
 fits over the same data, and runs coordinate descent on the dataset's
-device.
+device. A fixed effect's normalization context is built from ``summarize``
+of its shard (``_normalization_for``, :381-390), and ``output_dir`` receives
+the final and the best model (``<output_dir>/final``, ``<output_dir>/best``,
+:487-501) in the model store's layout.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-fixed-effect normalization other than NONE (needs ``data/stats.py``),
-``output_dir`` (needs ``model_store``), ``mesh``, the random and factored
-projectors, ``fit_incremental``, ``fit_sweep`` and ``fit_grid``.
+``mesh``, the random and factored projectors, ``fit_incremental``,
+``fit_sweep`` and ``fit_grid``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Mapping, Optional, Sequence
 
 import torch
 
 from photon_ml_tpu_torch import telemetry
-from photon_ml_tpu_torch.data.normalization import NormalizationType
+from photon_ml_tpu_torch.data.normalization import (
+    NormalizationContext,
+    NormalizationType,
+    build_normalization_context,
+)
+from photon_ml_tpu_torch.data.stats import summarize
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.coordinate_descent import (
     CoordinateDescentResult,
@@ -49,6 +57,7 @@ class FixedEffectConfig:
     shard_name: str
     optimizer: OptimizerConfig = OptimizerConfig()
     normalization: NormalizationType | str = NormalizationType.NONE
+    intercept_index: Optional[int] = None
     down_sampling_seed: int = 0
 
 
@@ -145,13 +154,10 @@ class GameEstimator:
                 coords[name] = coord
                 continue
             if isinstance(c, FixedEffectConfig):
-                if NormalizationType(c.normalization) != NormalizationType.NONE:
-                    raise NotImplementedError(NOT_PORTED.format(
-                        "fixed-effect normalization (it needs data/stats.py)", 6))
                 coord = FixedEffectCoordinate(
                     name=name, data=data, shard_name=c.shard_name,
                     loss_name=self.config.task, config=c.optimizer,
-                    seed=c.down_sampling_seed,
+                    seed=c.down_sampling_seed, normalization=self._normalization_for(data, c),
                 )
             elif isinstance(c, RandomEffectConfig):
                 if c.projector != "index_map":
@@ -169,6 +175,17 @@ class GameEstimator:
             coords[name] = coord
         return coords
 
+    @staticmethod
+    def _normalization_for(data: GameDataset,
+                           c: FixedEffectConfig) -> Optional[NormalizationContext]:
+        """The fixed effect's normalization context, from the feature summary
+        of its shard on the dataset's device; None for NONE."""
+        ntype = NormalizationType(c.normalization)
+        if ntype == NormalizationType.NONE:
+            return None
+        summary = summarize(data.csr_batch(c.shard_name))
+        return build_normalization_context(ntype, summary, intercept_index=c.intercept_index)
+
     def fit(
         self,
         data: GameDataset,
@@ -181,14 +198,14 @@ class GameEstimator:
         should_stop=None,
         device: torch.device | str | None = None,
     ) -> GameFitResult:
-        """Train on ``device`` (default cuda), where ``data`` must live."""
+        """Train on ``device`` (default cuda), where ``data`` must live; with
+        ``output_dir``, save the final model to ``<output_dir>/final`` and
+        the best to ``<output_dir>/best``."""
         dev = resolve_device(device)
         if data.device.type != dev.type or (dev.index is not None
                                             and data.device.index != dev.index):
             raise ValueError(f"the dataset lives on {data.device} but the fit runs on {dev}; "
                              "build it with the same device")
-        if output_dir is not None:
-            raise NotImplementedError(NOT_PORTED.format("saving models (model_store)", 7))
         if mesh is not None:
             raise NotImplementedError(NOT_PORTED.format("a mesh", 12))
         with telemetry.span("fit", task=self.config.task):
@@ -206,6 +223,16 @@ class GameEstimator:
                 initial_models=initial_models, guard=guard,
                 checkpoint=checkpoint_spec, should_stop=should_stop,
             )
+        if output_dir is not None:
+            # imported here: model_store imports game.models, which imports
+            # this package
+            from photon_ml_tpu_torch.data.model_store import save_game_model
+
+            meta = {"config": _config_metadata(self.config), "best_metric": result.best_metric}
+            save_game_model(result.model, os.path.join(output_dir, "final"),
+                            extra_metadata=meta)
+            save_game_model(result.best_model, os.path.join(output_dir, "best"),
+                            extra_metadata=meta)
         return GameFitResult(model=result.model, best_model=result.best_model,
                              best_metric=result.best_metric, history=result.history)
 
@@ -217,3 +244,46 @@ class GameEstimator:
 
     def fit_grid(self, *args, **kwargs):
         raise NotImplementedError(NOT_PORTED.format("GameEstimator.fit_grid", 11))
+
+
+def _config_metadata(config: GameConfig) -> dict:
+    """A JSON-safe description of the training config, saved with the model
+    (the reference's ``_config_metadata``, ``estimator.py:770-833``)."""
+
+    def describe_opt(opt: OptimizerConfig) -> dict:
+        out = {
+            "type": str(opt.optimizer_type.value),
+            "max_iterations": opt.max_iterations,
+            "tolerance": opt.tolerance,
+            "regularization": str(opt.regularization.reg_type.value),
+            "alpha": opt.regularization.alpha,
+            "regularization_weight": opt.regularization_weight,
+            "lbfgs_history": opt.lbfgs_history,
+            "down_sampling_rate": opt.down_sampling_rate,
+        }
+        if opt.box_constraints:
+            out["box_constraints"] = [
+                [i, None if lo == float("-inf") else lo, None if hi == float("inf") else hi]
+                for i, lo, hi in opt.box_constraints]
+        return out
+
+    def describe(c) -> dict:
+        out = {"shard_name": c.shard_name}
+        if isinstance(c, RandomEffectConfig):
+            out.update(type="random_effect", id_name=c.id_name,
+                       active_rows_per_entity=c.active_rows_per_entity,
+                       min_rows_per_entity=c.min_rows_per_entity,
+                       features_to_samples_ratio=c.features_to_samples_ratio,
+                       projector=c.projector, projected_dim=c.projected_dim,
+                       compute_variances=c.compute_variances)
+        else:
+            out.update(type="fixed_effect",
+                       normalization=str(NormalizationType(c.normalization).value),
+                       intercept_index=c.intercept_index,
+                       down_sampling_seed=c.down_sampling_seed)
+        out["optimizer"] = describe_opt(c.optimizer)
+        return out
+
+    return {"task": config.task, "num_iterations": config.num_iterations,
+            "evaluators": list(config.evaluators),
+            "coordinates": {n: describe(c) for n, c in config.coordinates.items()}}

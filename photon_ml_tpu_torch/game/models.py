@@ -41,6 +41,12 @@ class FixedEffectModel:
         """x.w for every example row, through the shard's CSR margins kernel."""
         return data.csr_batch(self.shard_name).dot_rows(self.coefficients)
 
+    def to_summary_string(self) -> str:
+        w = self.coefficients.detach().cpu().double()
+        nnz = int((w.abs() > 1e-9).sum())
+        return (f"FixedEffectModel(shard={self.shard_name}, features={len(w)}, "
+                f"nonzero={nnz}, |w|2={float(torch.linalg.vector_norm(w)):.4g})")
+
 
 @dataclasses.dataclass(frozen=True)
 class RandomEffectBucketModel:
@@ -63,6 +69,13 @@ class RandomEffectModel:
     entity_bucket: np.ndarray  # host: training entity code -> bucket (-1 none)
     entity_pos: np.ndarray
     vocab: np.ndarray  # training id vocabulary (sorted unique values)
+
+    def to_summary_string(self) -> str:
+        n_models = int(np.sum(self.entity_bucket >= 0))
+        dims = [int(b.coefficients.shape[1]) for b in self.buckets]
+        return (f"RandomEffectModel(id={self.id_name}, shard={self.shard_name}, "
+                f"entities={n_models}/{len(self.vocab)}, "
+                f"buckets={len(self.buckets)}, local_dims={dims})")
 
     def _grouping_for(self, data: GameDataset) -> tuple[np.ndarray, np.ndarray]:
         """(row_bucket, row_pos) host arrays for ``data`` (-1 for entities
@@ -138,6 +151,19 @@ class GameModel:
         if total is None:
             raise ValueError("GAME model has no sub-models")
         return total
+
+    def with_model(self, name: str, model) -> "GameModel":
+        new = dict(self.models)
+        new[name] = model
+        return dataclasses.replace(self, models=new)
+
+    def to_summary_string(self) -> str:
+        """One line for the model, then one per sub-model."""
+        lines = [f"GameModel(task={self.task}, coordinates={len(self.models)})"]
+        for name, sub in self.models.items():
+            summary = sub.to_summary_string() if hasattr(sub, "to_summary_string") else repr(sub)
+            lines.append(f"  {name}: {summary}")
+        return "\n".join(lines)
 
     def predict_mean(self, data: GameDataset) -> Tensor:
         scores = self.score(data) + data.per_row(data.offset)

@@ -23,6 +23,13 @@ class Coefficients:
     means: Tensor
     variances: Optional[Tensor] = None
 
+    @property
+    def dim(self) -> int:
+        return self.means.shape[-1]
+
+    def norm(self, order: int = 2) -> Tensor:
+        return torch.linalg.vector_norm(self.means, ord=order)
+
 
 @dataclasses.dataclass(frozen=True)
 class GeneralizedLinearModel:
@@ -45,6 +52,21 @@ class GeneralizedLinearModel:
         if name == "poisson":
             return torch.exp(scores)
         return scores
+
+    def predict_class(self, batch, threshold: float = 0.5) -> Tensor:
+        """0/1 classes of a binary task (int32): the mean against
+        ``threshold`` for logistic, the score's sign for smoothed hinge."""
+        name = get_loss(self.task).name
+        if name not in ("logistic", "smoothed_hinge"):
+            raise ValueError(f"{self.task} is not a binary classification task")
+        if name == "logistic":
+            return (self.compute_mean(batch) > threshold).to(torch.int32)
+        return (self.compute_score(batch) > 0.0).to(torch.int32)
+
+    def with_coefficients(self, means: Tensor, variances=None) -> "GeneralizedLinearModel":
+        return dataclasses.replace(
+            self, coefficients=Coefficients(means=means, variances=variances)
+        )
 
 
 def make_model(task: str, means: Tensor, variances=None) -> GeneralizedLinearModel:

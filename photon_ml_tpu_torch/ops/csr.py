@@ -169,6 +169,10 @@ class CSRBatch:
     def device(self) -> torch.device:
         return self.vals.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vals.dtype
+
     @staticmethod
     def from_coo(
         values: np.ndarray,
@@ -322,7 +326,13 @@ class CSRBatch:
         return kernels.hv_at(self._csr, self._csc, d2_row, v_eff, v_shift, self.tiles)
 
     def feature_moment_sums(self) -> tuple[Tensor, Tensor, Tensor]:
-        """Per-feature (sum x, sum x^2, count nonzero) over valid rows."""
+        """Per-feature (sum x, sum x^2, count nonzero) over the valid
+        (weight > 0) rows, as ``TiledBatch.feature_moment_sums``
+        (``tiled.py:686-694``): the scatter kernel, plain and ``square``, of
+        the valid-row indicator, and the count as the scatter of the same
+        indicator over the mirror's nonzero pattern. Every sum is the
+        kernel's fixed-order sum, with no float atomics, and the count is
+        exact below 2^24 rows."""
         valid = (self.weights > 0).to(torch.float32)
         ones = dataclasses.replace(self, csc_vals=(self.csc_vals != 0).to(torch.float32))
         return (

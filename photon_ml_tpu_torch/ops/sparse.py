@@ -14,7 +14,7 @@ Its fused passes (``margins_pair``, ``fused_*``) are compositions of
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,6 +66,10 @@ class SparseBatch:
     def device(self) -> torch.device:
         return self.values.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
     @staticmethod
     def from_coo(
         values: np.ndarray,
@@ -110,6 +114,33 @@ class SparseBatch:
         return SparseBatch.from_coo(
             values=X[rows, cols], rows=rows, cols=cols, labels=labels,
             num_features=X.shape[1], offsets=offsets, weights=weights, device=device,
+        )
+
+    def to_dense(self) -> np.ndarray:
+        """Host-side densify (tests / diagnostics only)."""
+        X = np.zeros((self.num_rows, self.num_features), np.float64)
+        np.add.at(X, (self.rows.cpu().numpy(), self.cols.cpu().numpy()),
+                  self.values.cpu().numpy().astype(np.float64))
+        return X
+
+    def pad_rows_to(self, n_pad: int, nnz_pad: int) -> "SparseBatch":
+        """Pad to ``n_pad`` rows and ``nnz_pad`` nonzeros, as the reference
+        pads for its static shapes: padded rows weigh 0, padded nonzeros are
+        0 at feature 0 of the last row (``ops/sparse.py:322-336``)."""
+        if n_pad < self.num_rows or nnz_pad < self.nnz:
+            raise ValueError("pad target smaller than current size")
+
+        def pad(t: Tensor, size: int, fill=0) -> Tensor:
+            return torch.cat([t, t.new_full((size - t.shape[0],), fill)])
+
+        return SparseBatch(
+            values=pad(self.values, nnz_pad),
+            rows=pad(self.rows, nnz_pad, n_pad - 1),
+            cols=pad(self.cols, nnz_pad),
+            labels=pad(self.labels, n_pad),
+            offsets=pad(self.offsets, n_pad),
+            weights=pad(self.weights, n_pad),
+            num_features=self.num_features,
         )
 
     def dense_rows(self) -> Tensor:
@@ -187,3 +218,28 @@ class SparseBatch:
 
     def with_offsets(self, offsets: Tensor) -> "SparseBatch":
         return dataclasses.replace(self, offsets=offsets)
+
+
+def concat_batches(batches: Sequence[SparseBatch]) -> SparseBatch:
+    """Row blocks one after another (row indices re-based), on the first
+    batch's device (``ops/sparse.py:338-366``)."""
+    if not batches:
+        raise ValueError("no batches")
+    num_features = batches[0].num_features
+    if any(b.num_features != num_features for b in batches):
+        raise ValueError("feature-dimension mismatch")
+    dev = batches[0].device
+    bases = np.cumsum([0] + [b.num_rows for b in batches[:-1]])
+
+    def cat(field: str) -> Tensor:
+        return torch.cat([getattr(b, field).to(dev) for b in batches])
+
+    return SparseBatch(
+        values=cat("values"),
+        rows=torch.cat([b.rows.to(dev) + int(base) for b, base in zip(batches, bases)]),
+        cols=cat("cols"),
+        labels=cat("labels"),
+        offsets=cat("offsets"),
+        weights=cat("weights"),
+        num_features=num_features,
+    )

@@ -6,6 +6,10 @@ TRON handles NONE/L2 only and needs a twice-differentiable loss. NEWTON
 (NONE/L2, twice differentiable) solves a bucket of dense per-entity problems
 with explicit Hessians; an adapter without them (the CSR and COO layouts)
 is refused, never routed to another optimizer.
+
+``solve`` (:261-284) is the one-stop GLM solve: ``build_objective`` with the
+L2 part of the configured regularization, the adapter, and
+``dispatch_solve``. ``split_reg_weights`` splits a whole grid of weights.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.ops.losses import get_loss
+from photon_ml_tpu_torch.ops.objective import GLMObjective, make_objective
+from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import BoxConstraints, Objective, SolveResult
 from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
 from photon_ml_tpu_torch.optim.newton import NewtonConfig, newton_solve
@@ -131,6 +137,28 @@ class OptimizerConfig:
                 )
 
 
+def split_reg_weights(reg: RegularizationContext, weights) -> tuple[Tensor, Tensor]:
+    """The (l2, l1) split of a grid of weights as two float32 [G] tensors
+    (a NONE regularization gives zeros of the grid's shape)."""
+    lams = torch.as_tensor(weights, dtype=torch.float32)
+    return (torch.broadcast_to(torch.as_tensor(reg.l2_weight(lams), dtype=torch.float32),
+                               lams.shape),
+            torch.broadcast_to(torch.as_tensor(reg.l1_weight(lams), dtype=torch.float32),
+                               lams.shape))
+
+
+def build_objective(
+    loss_name: str,
+    config: OptimizerConfig,
+    factors: Optional[Tensor] = None,
+    shifts: Optional[Tensor] = None,
+) -> GLMObjective:
+    """The GLM objective with the L2 part of the configured regularization."""
+    return make_objective(loss_name,
+                          l2_weight=config.regularization.l2_weight(config.regularization_weight),
+                          factors=factors, shifts=shifts)
+
+
 def dispatch_solve(
     adapter: Objective,
     w0: Tensor,
@@ -167,3 +195,26 @@ def dispatch_solve(
     if config.regularization.uses_l1:
         return owlqn_solve(adapter, w0, l1, lcfg, constraints=constraints, device=device)
     return lbfgs_solve(adapter, w0, lcfg, constraints=constraints, device=device)
+
+
+def solve(
+    loss_name: str,
+    batch,
+    config: OptimizerConfig,
+    w0: Tensor,
+    constraints: Optional[BoxConstraints] = None,
+    factors: Optional[Tensor] = None,
+    shifts: Optional[Tensor] = None,
+    device: torch.device | str | None = None,
+) -> SolveResult:
+    """One GLM solve on ``device`` (default cuda): the objective of
+    ``config`` (with normalization ``factors`` and ``shifts``), its adapter
+    over ``batch`` and the configured optimizer. Without ``constraints`` the
+    config's box constraints apply."""
+    config.validate(loss_name)
+    obj = build_objective(loss_name, config, factors=factors, shifts=shifts)
+    if constraints is None and config.box_constraints:
+        constraints = config.build_box_constraints(batch.num_features, w0.device)
+    return dispatch_solve(glm_adapter(obj, batch), w0, config,
+                          config.regularization.l1_weight(config.regularization_weight),
+                          constraints, device=device)

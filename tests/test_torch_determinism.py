@@ -3,8 +3,10 @@
 A random effect's scores are a fixed-order sum of each row's terms, and the
 sharded evaluators take their group sums in a fixed order, so neither
 depends on the order in which float atomics (``index_add_``) happen to add.
-The CPU tests hold the scores against float64 row sums; the tests marked
-``cuda`` score and evaluate twice on the card and compare bit for bit. The
+A feature summary takes its sums from the scatter kernel and fixed-order
+segment reductions. The CPU tests hold the scores against float64 row sums;
+the tests marked ``cuda`` score, evaluate and summarize twice on the card
+and compare bit for bit. The
 file imports no JAX, so it runs on the card with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_determinism.py``.
 """
@@ -109,3 +111,61 @@ def test_sharded_metrics_repeat_bit_for_bit_on_the_card(cuda):
         assert torch.equal(first, again)
         on_cpu = fn(*(t.cpu() for t in (scores, labels, weights, gids)), groups, *extra)
         assert abs(float(first) - float(on_cpu)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_metrics_on_tied_importance_weighted_rows_repeat_bit_for_bit_on_the_card(cuda):
+    """1M rows, scores binned to 1,000 values (tie runs of about 1,000 rows)
+    and weights log-uniform over [1e-3, 1e3]: ``auc``, ``auc:<col>`` and
+    ``precision@5:<col>``, each evaluated twice, agree bit for bit, since no
+    running sum or tie sum takes the device's order."""
+    from photon_ml_tpu_torch.evaluation import auc
+
+    rng = np.random.default_rng(23)
+    n, groups = 1_000_000, 10_000
+    scores = np.floor(rng.random(n) * 1_000).astype(np.float32) / 1_000
+    labels = (rng.random(n) < 0.3).astype(np.float32)
+    weights = (10.0 ** rng.uniform(-3, 3, size=n)).astype(np.float32)
+    gids = rng.integers(0, groups, size=n)
+    args = [torch.from_numpy(a).to(cuda) for a in (scores, labels, weights, gids)]
+    calls = {"auc": lambda: auc(*args[:3]),
+             "auc:<col>": lambda: sharded_auc(*args, groups),
+             "precision@5:<col>": lambda: sharded_precision_at_k(*args, groups, 5)}
+    for name, call in calls.items():
+        first, again = call(), call()
+        assert torch.equal(first, again), name
+
+
+@pytest.mark.cuda
+def test_summaries_of_a_card_batch_repeat_bit_for_bit_and_match_the_plain_version(cuda):
+    """``summarize`` of a CUDA ``CSRBatch`` (explicit zeros, rows of weight
+    0) runs the scatter kernel, repeats bit for bit, and agrees with the
+    same batch's summary on the CPU (the kernels' plain versions): sums
+    within float32 reordering, max, min and counts exactly."""
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.data.stats import summarize
+    from photon_ml_tpu_torch.ops.csr import CSRBatch
+
+    rng = np.random.default_rng(24)
+    n, d, k = 200_000, 3_000, 20
+    rows = np.repeat(np.arange(n), k)
+    cols = rng.integers(0, d, size=n * k)
+    vals = rng.normal(size=n * k)
+    vals[rng.random(n * k) < 0.01] = 0.0
+    weights = (rng.random(n) > 0.1).astype(np.float64)
+    args = (vals, rows, cols, np.zeros(n), d)
+    gpu = CSRBatch.from_coo(*args, weights=weights, device=cuda)
+    cpu = CSRBatch.from_coo(*args, weights=weights, device="cpu")
+    before = kernels.LAUNCHES["csc_scatter"]
+    first, again = summarize(gpu), summarize(gpu)
+    assert kernels.LAUNCHES["csc_scatter"] - before == 6
+    plain = summarize(cpu)
+    for field in dataclasses.fields(first):
+        a, b = getattr(first, field.name), getattr(again, field.name)
+        assert torch.equal(a, b), field.name
+        want = getattr(plain, field.name).numpy()
+        if field.name in ("max", "min", "num_nonzeros", "count"):
+            np.testing.assert_array_equal(a.cpu().numpy(), want, err_msg=field.name)
+        else:
+            np.testing.assert_allclose(a.cpu().numpy(), want, rtol=1e-5, atol=1e-6,
+                                       err_msg=field.name)

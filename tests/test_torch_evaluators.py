@@ -2,7 +2,8 @@
 package's, on the CPU: the six flat metrics of ``EVALUATORS``,
 ``sharded_auc``, ``sharded_precision_at_k`` and ``parse_evaluator``, on
 seeded inputs with tied scores within and across groups, zero-weight padding
-rows, single-class groups, empty groups, and k larger than a group.
+rows, single-class groups, empty groups, k larger than a group, and binned
+scores under weights spread over six orders of magnitude.
 
 Tolerances are tests/test_evaluators.py's: AUCs within 1e-5 (float32 ranks
 summed in another order), precision@k and the mean losses within 1e-6
@@ -18,12 +19,13 @@ from photon_ml_tpu.evaluation import evaluators as J
 from photon_ml_tpu_torch.evaluation import evaluators as T
 
 N_GROUPS = 9
+CASES = ["ties", "padding", "single_class", "empty_groups", "continuous",
+         "binned_log_weights"]
 
 
 def _inputs(case: str):
     """(scores, labels, weights, group ids) as float32/int32 numpy arrays."""
-    rng = np.random.default_rng(["ties", "padding", "single_class", "empty_groups",
-                                 "continuous"].index(case))
+    rng = np.random.default_rng(CASES.index(case))
     n = 240
     scores = rng.normal(size=n)
     labels = (rng.random(n) > 0.5).astype(np.float32)
@@ -39,11 +41,13 @@ def _inputs(case: str):
         labels[groups == 2] = 0.0
     elif case == "empty_groups":  # groups 1, 4 and the last hold no rows
         groups[np.isin(groups, (1, 4, N_GROUPS - 1))] = 0
+    elif case == "binned_log_weights":  # binned scores, importance weights over 1e6
+        scores = np.floor(rng.random(n) * 20) / 20
+        weights = 10.0 ** rng.uniform(-3, 3, size=n)
     return (scores.astype(np.float32), labels, weights.astype(np.float32),
             groups.astype(np.int32))
 
 
-CASES = ["ties", "padding", "single_class", "empty_groups", "continuous"]
 
 
 def _both(case):

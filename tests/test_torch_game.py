@@ -288,7 +288,7 @@ def test_estimator_and_descent_branches_not_ported_raise(data):
     _, tds = data
     _, tcfg = _configs()
     est = GameEstimator(tcfg)
-    for kw, match in ((dict(output_dir="out"), "model_store"), (dict(mesh=object()), "mesh"),
+    for kw, match in ((dict(mesh=object()), "mesh"),
                       (dict(guard=object()), "guard"), (dict(checkpoint_spec=object()),
                                                          "checkpoint"),
                       (dict(should_stop=lambda: False), "should_stop")):
@@ -297,10 +297,6 @@ def test_estimator_and_descent_branches_not_ported_raise(data):
     for method in (est.fit_incremental, est.fit_sweep, est.fit_grid):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             method(tds)
-    norm = GameConfig(task="logistic", coordinates={
-        "fixed": FixedEffectConfig(shard_name="global", normalization="standardization")})
-    with pytest.raises(NotImplementedError, match="normalization"):
-        GameEstimator(norm).fit(tds, device="cpu")
     projected = GameConfig(task="logistic", coordinates={"re": RandomEffectConfig(
         shard_name="user", id_name="userId", projector="random", projected_dim=2,
         optimizer=OptimizerConfig(optimizer_type=OptimizerType.NEWTON))})

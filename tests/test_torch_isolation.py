@@ -109,16 +109,22 @@ def test_source_walk_covers_the_new_subpackages():
     rel = {os.path.relpath(p, PKG) for p in _port_files()}
     for module in ("game/dataset.py", "game/random_effect_data.py", "game/coordinates.py",
                    "game/coordinate_descent.py", "game/estimator.py", "game/models.py",
-                   "tools/probe_ell.py", "ops/ell.py", "ops/dense.py", "optim/newton.py"):
+                   "tools/probe_ell.py", "ops/ell.py", "ops/dense.py", "optim/newton.py",
+                   "data/stats.py", "data/validators.py", "data/native.py", "data/libsvm.py",
+                   "data/index_map.py", "data/paths.py", "data/model_store.py",
+                   "utils/atomic.py"):
         assert module in rel
 
 
 @pytest.mark.parametrize("builder", ["csr", "sparse", "model", "normalization", "ell",
                                      "dense", "game_dataset", "game_model", "game_fit",
-                                     "probe"])
-def test_builders_without_device_raise_without_a_gpu(builder):
+                                     "probe", "libsvm_batch", "load_glm",
+                                     "load_game_model"])
+def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
     _no_gpu()
     from photon_ml_tpu_torch import convert
+    from photon_ml_tpu_torch.data.libsvm import LibSVMData
+    from photon_ml_tpu_torch.data.model_store import load_game_model, load_glm
     from photon_ml_tpu_torch.game import (
         FeatureShard,
         FixedEffectConfig,
@@ -147,6 +153,10 @@ def test_builders_without_device_raise_without_a_gpu(builder):
         "game_fit": lambda: GameEstimator(cfg).fit(
             build_game_dataset(coo["labels"], shards, device="cpu")),
         "probe": lambda: run_probe(n=4, d=3, nnz_per_row=1),
+        "libsvm_batch": lambda: LibSVMData(coo["values"], coo["rows"], coo["cols"],
+                                           coo["labels"], 2).to_batch(),
+        "load_glm": lambda: load_glm(str(tmp_path)),
+        "load_game_model": lambda: load_game_model(str(tmp_path)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[builder]()
