@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive photon_ml_tpu_torch's GLM training paths once on one NVIDIA card.
+"""Drive photon_ml_tpu_torch's GLM and GLMix training paths once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--profile] [--json-out PATH]
 
@@ -20,6 +20,10 @@ Phases, in order; any failure exits non-zero before the last line:
   4. train at a reduced size (64K x 2K) on the card and on the CPU (plain
      versions) with LBFGS, TRON, OWLQN and box-constrained Poisson LBFGS:
      same convergence reason and iteration count, final loss within rtol 1e-4;
+     and update a per-user random effect (2K users over a 2K-feature sparse
+     shard, the wide buckets on the COO layout) on both with LBFGS, OWLQN,
+     TRON and NEWTON in a box: per lane the same reason, the value within
+     rtol 1e-4, the same iterations but on plateau lanes;
   5. the paths, each at full width through the entry point a user calls,
      with the kernels' launch counts zeroed just before it and read just
      after (a kernel of the path that did not launch fails the run):
@@ -46,6 +50,20 @@ Phases, in order; any failure exits non-zero before the last line:
            is timed, as bench_game.py times it; the fitted model is then
            scored and evaluated twice (``auc``, ``auc:userId``,
            ``precision@5:userId``), and each pair must agree bit for bit;
+       9.  config #4's dataset again through ``GameEstimator.fit``: its fixed
+           effect, a per-user random effect over the sparse 10K-feature
+           shard under the default optimizer type (LBFGS: 10 buckets, the 3
+           widest on the COO layout, the block-diagonal batch, whose sweeps
+           are the margins, scatter and hv_at kernels), and the dense
+           per-user effect under NEWTON in a box with variances; the first
+           fit saves (the reloaded model must score bit for bit and keep its
+           variances), the second is timed; every lane's objective must not
+           rise, the box hold, the variances match a plain recomputation on
+           1,000 lanes, the train AUC beat path 6's fixed effect alone, two
+           scorings and evaluations agree bit for bit; then the largest COO
+           bucket's kernels against their plain versions and ``torch.mv``;
+       9b. one update of the sparse per-user effect with TRON (hv_at on the
+           COO buckets); 9c. the same with OWLQN (elastic net);
        7.  the ELL probe (``photon_ml_tpu_torch.tools.probe_ell``) at 1M x 10K
            x 20: ELL against CSR ``dot_rows``, both timed;
   6. print the ``kernels`` JSON line, the card again, and the result line
@@ -77,6 +95,13 @@ SMALL_ROWS = 65_536
 SMALL_FEATURES = 2_048
 KERNEL_REL_TOL = 1e-4  # max |kernel - plain| / max(1, max |plain|)
 LOSS_RTOL = 1e-4
+RE_SMALL_USERS = 2_000  # the small card-vs-CPU random effect
+RE_SMALL_ROWS = 20_000
+RE_SMALL_FEATURES = 2_048
+PLATEAU_RTOL = 1e-5
+RE_BOX = ((0, -0.5, 0.5),)  # path 9's per-user box, on global feature 0
+VARIANCE_LANES = 1_000
+VARIANCE_RTOL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -287,20 +312,29 @@ def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
     return rows
 
 
-def launches_per_call(fn) -> int | None:
-    """Kernel launches of one call of ``fn``, counted by torch.profiler
-    (None when the profiler sees no device activity)."""
+def launches_per_call(fn, want: int, attempts: int = 3) -> int | None:
+    """Kernel launches of one call of ``fn``, counted by torch.profiler. A
+    trace can lose device events (two traces on the card read 0 and 1 of a
+    call's 2 launches), never add them, so a count under ``want`` is taken
+    again, up to ``attempts`` traces, and the largest count is returned
+    (None when no trace saw device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    best = None
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    kernels = [ev for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and not ev.name.startswith(("Memcpy", "Memset"))]
-    return len(kernels) or None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and not ev.name.startswith(("Memcpy", "Memset"))]
+        if kernels:
+            best = max(best or 0, len(kernels))
+        if best is not None and best >= want:
+            break
+    return best
 
 
 def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
@@ -395,7 +429,7 @@ def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
         print(f"design floor {name}: two-layout bytes={4 * (words + extra_words)} "
               f"floor_ms={4 * (words + extra_words) / PEAK_BYTES_PER_S * 1e3:.4f} (computed)",
               flush=True)
-        launches = launches_per_call(cases[0][1])
+        launches = launches_per_call(cases[0][1], want_launches[name])
         print(f"launches per call {name}[{cases[0][0]}]: {launches} (torch.profiler)",
               flush=True)
         if launches != want_launches[name]:
@@ -507,6 +541,127 @@ def check_small_parity(seed: int) -> None:
         print(f"small {name} parity: loss_rel_diff={rel:.3e} limit={LOSS_RTOL:.0e}", flush=True)
         if r_gpu != r_cpu or i_gpu != i_cpu or not rel <= LOSS_RTOL:
             raise RuntimeError(f"reduced-size {name} training on the card disagrees with the CPU")
+
+
+def re_optimizer(kind: str, max_iterations: int, tolerance: float, box=None):
+    """A random effect's optimizer, regularization weight 1: LBFGS (the
+    default type), TRON or NEWTON with L2, or OWLQN with elastic net at alpha
+    0.5; ``box`` the (global feature, lower, upper) triples."""
+    from photon_ml_tpu_torch.optim.factory import (
+        OptimizerConfig,
+        OptimizerType,
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    kw = {"optimizer_type": OptimizerType[kind.upper()]} if kind in ("tron", "newton") else {}
+    reg = (RegularizationContext(RegularizationType.ELASTIC_NET, alpha=0.5) if kind == "owlqn"
+           else RegularizationContext(RegularizationType.L2))
+    return OptimizerConfig(max_iterations=max_iterations, tolerance=tolerance, regularization=reg,
+                           regularization_weight=1.0, box_constraints=box, **kw)
+
+
+def small_re_problem(seed: int):
+    """A per-user problem over a sparse shard: RE_SMALL_ROWS rows of
+    NNZ_PER_ROW uniform features out of RE_SMALL_FEATURES, RE_SMALL_USERS
+    users, labels from a planted per-user logistic model."""
+    rng = np.random.default_rng(seed + 4)
+    rows = np.repeat(np.arange(RE_SMALL_ROWS, dtype=np.int64), NNZ_PER_ROW)
+    cols = rng.integers(0, RE_SMALL_FEATURES, size=len(rows))
+    vals = rng.normal(size=len(rows))
+    users = rng.integers(0, RE_SMALL_USERS, size=RE_SMALL_ROWS)
+    w_user = rng.normal(size=(RE_SMALL_USERS, RE_SMALL_FEATURES)) * 0.5
+    margins = np.bincount(rows, weights=vals * w_user[users[rows], cols], minlength=RE_SMALL_ROWS)
+    y = (rng.random(RE_SMALL_ROWS) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
+    return vals, rows, cols, users, y
+
+
+def check_small_re_parity(seed: int) -> None:
+    """Phase 4, the random effect: one update of a per-user coordinate over
+    a sparse shard (``small_re_problem``) on the card and on the CPU, with
+    the buckets of K >= 128 local features forced to the COO layout, under
+    LBFGS, OWLQN, TRON and NEWTON in a box. Per lane: the same reason, the
+    value within rtol 1e-4, and the same iteration count except on plateau
+    lanes, named here as those whose last step moved the objective by at most
+    PLATEAU_RTOL of its start on either side (where a step's fate follows the
+    float32 rounding of the sums, which the card and the CPU order
+    differently)."""
+    import torch
+
+    from photon_ml_tpu_torch.game import (
+        FeatureShard,
+        RandomEffectCoordinate,
+        build_game_dataset,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.game import random_effect_data
+    from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
+
+    t0 = time.perf_counter()
+    vals, rows, cols, users, y = small_re_problem(seed)
+    dense_design = random_effect_data._bucket_dense_design
+    random_effect_data._bucket_dense_design = (
+        lambda b: None if b.num_local_features >= 128 else dense_design(b))
+    try:
+        data = {}
+        for dev in ("cuda", "cpu"):
+            gds = build_game_dataset(y, {"items": FeatureShard.from_coo(
+                vals, rows, cols, RE_SMALL_FEATURES)}, id_columns={"userId": users}, device=dev)
+            data[dev] = gds, build_random_effect_dataset(gds, "userId", "items")
+        red = data["cuda"][1]
+        layout = ["dense" if x is not None else "coo" for x in red.dense_designs()]
+        print("small re buckets (E,R,K,layout): " + json.dumps(
+            [(b.num_entities, b.rows_per_entity, b.num_local_features, lay)
+             for b, lay in zip(red.buckets, layout)]), flush=True)
+        runs = [("lbfgs", re_optimizer("lbfgs", 10, 1e-3)),
+                ("owlqn", re_optimizer("owlqn", 10, 1e-3)),
+                ("tron", re_optimizer("tron", 5, 1e-3)),
+                ("newton_box", re_optimizer("newton", 10, 1e-3, RE_BOX))]
+        for name, cfg in runs:
+            out = {}
+            for dev, (gds, red) in data.items():
+                coord = RandomEffectCoordinate("per-user", gds, red, "logistic", cfg)
+                coord.update_model(coord.initialize_model(), None)
+                out[dev] = [tuple(t.cpu() for t in (r.reason, r.value, r.iterations, r.values))
+                            for r in coord.last_results]
+            worst, plateau, bad = 0.0, 0, []
+            for b, ((rg, fg, ig, vg), (rc, fc, ic, vc)) in enumerate(zip(out["cuda"],
+                                                                          out["cpu"])):
+                rel = ((fg.double() - fc.double()).abs() / fc.double().abs().clamp(min=1e-30))
+                worst = max(worst, float(rel.max()))
+                flat = _plateau_lanes(vg, ig) | _plateau_lanes(vc, ic)
+                plateau += int(flat.sum())
+                if not torch.equal(rg, rc):
+                    bad.append(f"bucket {b}: reasons differ on {int((rg != rc).sum())} lanes")
+                if not bool((rel <= LOSS_RTOL).all()):
+                    bad.append(f"bucket {b}: values differ beyond rtol {LOSS_RTOL}")
+                off = (ig != ic) & ~flat
+                if bool(off.any()):
+                    bad.append(f"bucket {b}: iterations differ on {int(off.sum())} lanes "
+                               "that are not plateau lanes")
+            reasons = torch.cat([r for r, *_ in out["cuda"]]).long()
+            its = torch.cat([i for _, _, i, _ in out["cuda"]]).long()
+            print(f"small re {name}: lanes={len(reasons)} reasons="
+                  f"{json.dumps({CONVERGENCE_REASON_NAMES[k]: int(c) for k, c in enumerate(torch.bincount(reasons, minlength=5).tolist()) if c})} "
+                  f"iterations={torch.bincount(its).tolist()} plateau_lanes={plateau} "
+                  f"value_rel_diff={worst:.3e} limit={LOSS_RTOL:.0e}", flush=True)
+            if bad:
+                raise RuntimeError(f"small re {name}: the card disagrees with the CPU: {bad}")
+    finally:
+        random_effect_data._bucket_dense_design = dense_design
+    print(f"small re: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _plateau_lanes(values, iterations):
+    """Lanes whose last recorded step moved the objective by at most
+    PLATEAU_RTOL of its start."""
+    import torch
+
+    it = iterations.long().clamp(min=1, max=values.shape[1] - 1)
+    last = values.gather(1, it[:, None])[:, 0].double()
+    before = values.gather(1, (it - 1)[:, None])[:, 0].double()
+    start = values[:, 0].double().abs()
+    return torch.nan_to_num((last - before).abs(), nan=0.0) <= PLATEAU_RTOL * start
 
 
 def scatter_memory(batches) -> dict:
@@ -687,7 +842,7 @@ def run_suite_paths(seed: int, profile: bool, by_path: dict, train: dict, prof: 
                 pbatch, task, [1.0], cfg, constraints=constraints)[0].result.iterations)
 
 
-def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
+def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, object]:
     """Path 6: GLMix config #4 through ``GameEstimator.fit`` as bench_game.py
     drives it: the random-effect build timed alone, one fit that saves its
     models to ``output_dir``, then the second fit timed with the launch counts
@@ -696,7 +851,8 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
     fixed effect's margins and scatter kernels launched, its loss fell in
     every coordinate-descent iteration, every coefficient is finite, the
     GLMix model's train AUC beats its fixed effect's alone, and two scorings
-    and evaluations of the model agree bit for bit."""
+    and evaluations of the model agree bit for bit. Returns the dataset too,
+    for path 9."""
     import dataclasses
     import os
     import tempfile
@@ -842,7 +998,333 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None]:
             est.fit(gds)
 
         prof = profile_solve("6", refit)
-    return launches, stats, prof
+    return launches, stats, prof, gds
+
+
+def lane_report(label: str, results, buckets) -> list[dict]:
+    """Per bucket of one random-effect update: the histograms of lane
+    iterations and reasons, printed; and each lane's objective at the
+    returned w held to no more than at its start (a box lane reads both at
+    projected points). Returns the rows, each with ``rose``, its count of
+    lanes that ended higher."""
+    import torch
+
+    from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
+
+    rows = []
+    for b, res in enumerate(results):
+        reasons = torch.bincount(res.reason.long(), minlength=5).tolist()
+        row = {"bucket": b, "entities_rows_k": buckets[b],
+               "iterations": torch.bincount(res.iterations.long()).tolist(),
+               "reasons": {CONVERGENCE_REASON_NAMES[r]: c for r, c in enumerate(reasons) if c},
+               "rose": int((res.value > res.values[:, 0]).sum())}
+        rows.append(row)
+        print(f"path {label} lanes {json.dumps(row)}", flush=True)
+    return rows
+
+
+def check_coo_bucket_kernels(block, w) -> dict:
+    """Path 9's kernels at the shapes of its largest COO bucket (a
+    block-diagonal batch): ``csr_margins``, ``csc_scatter`` (plain and
+    square) and ``hv_at``, each against its plain version and a second
+    launch; ``csr_margins`` and ``csc_scatter`` timed against ``torch.mv`` of
+    the same CSR and transposed CSR, beside their bounds."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.kernels import reference
+
+    c = block.csr
+    n, f, nnz = c.num_rows, c.num_features, c.nnz
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    per_row = torch.randn(n, generator=gen, device="cuda")
+    d2 = torch.rand(n, generator=gen, device="cuda")
+    w = w.reshape(-1).contiguous()
+    plain = c.column_major()
+    out = {}
+    for name, cases in {
+        "csr_margins": [("coo dot_rows", lambda: kernels.csr_margins(*c._csr, w, c.offsets, 0.0,
+                                                                     False),
+                         lambda: reference.csr_margins(*c._csr, w, c.offsets, 0.0, False))],
+        "csc_scatter": [("coo scatter", lambda: kernels.csc_scatter(*c._csc, per_row, False,
+                                                                    c.tiles),
+                         lambda: reference.csc_scatter(*plain, per_row, False)),
+                        ("coo scatter_sq", lambda: kernels.csc_scatter(*c._csc, d2, True,
+                                                                       c.tiles),
+                         lambda: reference.csc_scatter(*plain, d2, True))],
+        "hv_at": [("coo hv_at", lambda: kernels.hv_at(c._csr, c._csc, d2, w, 0.0, c.tiles)[0],
+                   lambda: reference.hv_at(c._csr, plain, d2, w, 0.0)[0])],
+    }.items():
+        worst, timed = run_variants(name, cases)
+        out[name] = {"max_abs_err": worst, "ms": timed[cases[0][0]][0],
+                     "plain_ms": timed[cases[0][0]][1]}
+    margin_bytes = 4 * ((n + 1) + 2 * nnz + f + n)
+    scatter_bytes = 4 * ((f + 1) + 2 * nnz + n + f)
+    out["csr_margins"].update(
+        bound_ms=max(margin_bytes / PEAK_BYTES_PER_S, 2 * nnz / PEAK_F32_FLOPS) * 1e3,
+        library_ms=library_ms(lambda: torch.sparse_csr_tensor(*c._csr, size=(n, f),
+                                                              check_invariants=False),
+                              lambda m: torch.mv(m, w)))
+    out["csc_scatter"].update(
+        bound_ms=max(scatter_bytes / PEAK_BYTES_PER_S, 2 * nnz / PEAK_F32_FLOPS) * 1e3,
+        library_ms=library_ms(lambda: torch.sparse_csr_tensor(*plain, size=(f, n),
+                                                              check_invariants=False),
+                              lambda m: torch.mv(m, per_row)))
+    t = c.tiles
+    out["shape"] = {"entities": block.num_entities, "rows": n, "columns": f, "nnz": nnz,
+                    "tile_slots": t.n_slots, "tile_pieces": t.n_pieces,
+                    "index_bytes": 4 * t.index.numel(), "nnz_per_segment": nnz / t.n_slots}
+    for name in ("csr_margins", "csc_scatter"):
+        r = out[name]
+        print(f"path 9 largest coo bucket {name}: kernel_ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
+              f"bound_ms={r['bound_ms']:.4f} shape={json.dumps(out['shape'])}", flush=True)
+    return out
+
+
+def check_variances(model, gds, red, opt, n_lanes: int, seed: int) -> float:
+    """The per-user variances on ``n_lanes`` lanes drawn from ``seed``,
+    against 1 / (diag H + 1e-12) recomputed by plain float64 numpy on the
+    host from the bucket's dense design, the final model's other scores as
+    the residual, and the lane's coefficients. Returns the largest relative
+    difference."""
+    import torch
+
+    from photon_ml_tpu_torch.game import random_effect_data
+
+    user = model.models["per-user"]
+    residual = (model.models["fixed"].score(gds) + model.models["per-user-items"].score(gds))
+    residual = residual.double().cpu().numpy()
+    sizes = np.array([b.num_entities for b in red.buckets])
+    rng = np.random.default_rng(seed + 5)
+    picks = rng.choice(sizes.sum(), size=min(n_lanes, int(sizes.sum())), replace=False)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    l2 = opt.regularization.l2_weight(opt.regularization_weight)
+    worst = 0.0
+    for bi, (b, bm) in enumerate(zip(red.buckets, user.buckets)):
+        lanes = picks[(picks >= starts[bi]) & (picks < starts[bi + 1])] - starts[bi]
+        if not len(lanes):
+            continue
+        x = random_effect_data._bucket_dense_design(b)[lanes].astype(np.float64)
+        ri = b.row_index[lanes]
+        off = b.offsets[lanes] + np.where(ri >= 0, residual[np.maximum(ri, 0)], 0.0)
+        w = bm.coefficients[torch.from_numpy(lanes)].double().cpu().numpy()
+        z = np.einsum("erk,ek->er", x, w) + off
+        p = 1.0 / (1.0 + np.exp(-z))
+        diag = np.einsum("er,erk->ek", b.weights[lanes] * p * (1.0 - p), x * x) + l2
+        want = 1.0 / (diag + 1e-12)
+        got = bm.variances[torch.from_numpy(lanes)].double().cpu().numpy()
+        worst = max(worst, float(np.max(np.abs(got - want) / want)))
+    return worst
+
+
+def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str):
+    """Paths 9, 9b and 9c: the rest of the random-effect coordinate at
+    config #4's width, on path 6's dataset. Path 9 is ``GameEstimator.fit``
+    (2 CD iterations) of config #4's fixed effect, a per-user random effect
+    over the sparse 10K-feature ``global`` shard under the default optimizer
+    type (LBFGS 20, L2 1, tolerance 1e-7: its wide buckets go to the COO
+    layout, the block-diagonal batch), and config #4's dense per-user effect
+    under NEWTON in the box ``RE_BOX`` with variances, updated last so that
+    its variances can be recomputed from the final model's scores. The first
+    fit saves its models; the second is timed. 9b and 9c are one update of
+    the sparse per-user effect from zero with TRON (L2 1, 10 iterations) and
+    with OWLQN (elastic net, alpha 0.5, weight 1, 20 iterations). Fails on
+    non-finite coefficients or variances, a lane whose objective rose, a box
+    that does not hold, variances that are not positive or disagree with
+    their plain recomputation, a train AUC not above the fixed effect's
+    alone (path 6), the COO buckets' kernels not launched (``csr_margins``
+    and ``csc_scatter`` in path 9, ``hv_at`` in 9b), two scorings or
+    evaluations that differ, or a reloaded model that scores differently."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.data.model_store import load_game_model
+    from photon_ml_tpu_torch.evaluation.evaluators import auc
+    from photon_ml_tpu_torch.game import (
+        FixedEffectConfig,
+        GameConfig,
+        GameEstimator,
+        RandomEffectConfig,
+    )
+    from photon_ml_tpu_torch.game.coordinate_descent import ValidationSpec, _evaluate
+
+    fixed_opt = dataclasses.replace(solver_config("lbfgs", 20), regularization_weight=1.0)
+    items_opt = re_optimizer("lbfgs", 20, 1e-7)
+    user_opt = re_optimizer("newton", 20, 1e-7, RE_BOX)
+    config = GameConfig(task="logistic", num_iterations=GAME_CD_ITERATIONS, coordinates={
+        "fixed": FixedEffectConfig(shard_name="global", optimizer=fixed_opt),
+        "per-user-items": RandomEffectConfig(shard_name="global", id_name="userId",
+                                             optimizer=items_opt),
+        "per-user": RandomEffectConfig(shard_name="user", id_name="userId", optimizer=user_opt,
+                                       compute_variances=True),
+    })
+    est = GameEstimator(config)
+    bad = []
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    telemetry.reset()
+    with tempfile.TemporaryDirectory(dir=build_dir) as out:
+        t0 = time.perf_counter()
+        first = est.fit(gds, output_dir=out)
+        torch.cuda.synchronize()
+        first_fit_s = time.perf_counter() - t0
+        spans = telemetry.snapshot()["span_seconds"]
+        loaded = load_game_model(os.path.join(out, "final"))
+        same_scores = torch.equal(loaded.score(gds), first.model.score(gds))
+        same_var = all(torch.equal(a.variances, b.variances) for a, b in zip(
+            loaded.models["per-user"].buckets, first.model.models["per-user"].buckets))
+    re_build_s = spans.get("re_build:userId:global", 0.0)
+    coo_layout_s = spans.get("re_coo_layout", 0.0)
+    print(f"path 9 saved: first_fit_s={first_fit_s:.4f} (with output_dir, the RE builds "
+          f"included) re_build_s={re_build_s:.4f} coo_layout_s={coo_layout_s:.4f} "
+          f"re_build_user_s={spans.get('re_build:userId:user', 0.0):.4f} "
+          f"final_reloaded_scores_bit_identical={same_scores} "
+          f"variances_reloaded_bit_identical={same_var}", flush=True)
+    if not (same_scores and same_var):
+        bad.append("the saved final model scores differently or loses its variances")
+    del first, loaded
+
+    coords = est._build_coordinates(gds)
+    items, user = coords["per-user-items"], coords["per-user"]
+    shapes = {}
+    for name, coord in (("per-user-items", items), ("per-user", user)):
+        designs = coord.re_data.dense_designs()
+        shapes[name] = [(b.num_entities, b.rows_per_entity, b.num_local_features)
+                        for b in coord.re_data.buckets]
+        layout = ["dense" if x is not None else "coo" for x in designs]
+        print(f"path 9 {name} buckets (E,R,K,layout): " + json.dumps(
+            [s + (lay,) for s, lay in zip(shapes[name], layout)]), flush=True)
+    n_coo = sum(x is None for x in items.re_data.dense_designs())
+    total_coeffs = N_FEATURES + sum(e * k for v in shapes.values() for e, _, k in v)
+
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = est.fit(gds)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+    peak = torch.cuda.max_memory_allocated()
+
+    model = result.model
+    lanes, item_launches = {}, {k: 0 for k in launches}
+    for entry in result.history:
+        name, it = entry["coordinate"], entry["iteration"]
+        print(f"path 9 cd={it} {name}: seconds={entry['seconds']:.4f} "
+              f"host_syncs={entry['host_syncs']} launches={json.dumps(entry['launches'])}",
+              flush=True)
+        if name == "fixed":
+            continue
+        if name == "per-user-items":
+            for k, c in entry["launches"].items():
+                item_launches[k] += c
+        rows = lane_report(f"9 cd={it} {name}", entry["results"], shapes[name])
+        lanes[f"{it}:{name}"] = rows
+        if any(r["rose"] for r in rows):
+            bad.append(f"cd {it} {name}: a lane's objective rose")
+    coeffs = [model.models["fixed"].coefficients] + [
+        b.coefficients for n in ("per-user-items", "per-user") for b in model.models[n].buckets]
+    variances = [b.variances for b in model.models["per-user"].buckets]
+    if not all(bool(c.isfinite().all()) for c in coeffs + variances):
+        bad.append("non-finite coefficients or variances")
+    if not all(bool((v > 0).all()) for v in variances):
+        bad.append("variances not positive")
+    lower, upper = user_opt.dense_box_bounds(user.re_data.num_global_features, sentinel=True)
+    held, boxed = True, 0
+    for b, bm in zip(user.re_data.buckets, model.models["per-user"].buckets):
+        w = bm.coefficients.cpu().numpy()
+        held &= bool(np.all(w >= lower[b.projection]) and np.all(w <= upper[b.projection]))
+        boxed += int((b.projection == RE_BOX[0][0]).sum())
+    var_err = check_variances(model, gds, user.re_data, user_opt, VARIANCE_LANES, seed)
+    print(f"path 9 checks: box_held={held} entities_with_feature_0={boxed} "
+          f"variance_max_rel_err={var_err:.3e} limit={VARIANCE_RTOL:.0e} "
+          f"({VARIANCE_LANES} lanes)", flush=True)
+    if not held:
+        bad.append("the per-user box does not hold")
+    if not var_err <= VARIANCE_RTOL:
+        bad.append(f"variances disagree with their plain recomputation: {var_err}")
+    labels, weights = gds.per_row(gds.response), gds.per_row(gds.weight)
+    train_auc = float(auc(model.score(gds) + gds.per_row(gds.offset), labels, weights))
+    if not train_auc > fe_only_auc:
+        bad.append(f"train auc {train_auc} <= config #4's fixed effect alone {fe_only_auc}")
+    missing = [k for k in ("csr_margins", "csc_scatter") if item_launches[k] == 0]
+    if missing:
+        bad.append(f"the COO buckets did not launch {missing}")
+    specs = ["auc", "auc:userId"]
+    scores = [model.score(gds) for _ in range(2)]
+    evals = [_evaluate(model, ValidationSpec(data=gds, evaluators=specs)) for _ in range(2)]
+    same = {"scores": torch.equal(*scores), **{k: evals[0][k] == evals[1][k] for k in specs}}
+    print(f"path 9 twice: {' '.join(f'{k}={v:.9g}' for k, v in evals[0].items())} "
+          f"bit_identical={json.dumps(same)}", flush=True)
+    if not all(same.values()):
+        bad.append(f"scores or metrics differ between two calls: {same}")
+    coeffs_per_s = total_coeffs * GAME_CD_ITERATIONS / elapsed
+    stats = {"elapsed_s": elapsed, "first_fit_s": first_fit_s, "re_build_s": re_build_s,
+             "coo_layout_s": coo_layout_s, "coeffs_per_s": coeffs_per_s,
+             "total_coeffs": total_coeffs, "buckets": shapes, "coo_buckets": n_coo,
+             "lanes": lanes, "host_syncs": syncs, "max_memory_allocated": peak,
+             "train_auc": train_auc, "fe_only_auc": fe_only_auc, "evaluated": evals[0],
+             "bit_identical_twice": same, "variance_max_rel_err": var_err,
+             "item_launches": item_launches}
+    print(f"path 9: coeffs_per_s={coeffs_per_s:.1f} total_coeffs={total_coeffs} "
+          f"fit_wall_s={elapsed:.4f} host_syncs={syncs} max_memory_allocated={peak} "
+          f"coo_buckets={n_coo} train_auc={train_auc:.6f} fe_only_auc={fe_only_auc:.6f} "
+          f"launches={json.dumps(launches)} per_user_items_launches="
+          f"{json.dumps(item_launches)} card={card}", flush=True)
+    prof = None
+    if profile:
+        def refit():
+            est.fit(gds)
+
+        prof = profile_solve("9", refit)
+
+    # the largest COO bucket's kernels, outside the counted window
+    coo = [c for c in items.re_data.coo_buckets(gds.device) if c is not None]
+    pos = max(range(len(coo)), key=lambda i: coo[i].block.csr.nnz)
+    bucket_pos = [i for i, c in enumerate(items.re_data.coo_buckets(gds.device))
+                  if c is not None][pos]
+    coo_kernels = check_coo_bucket_kernels(
+        coo[pos].block, model.models["per-user-items"].buckets[bucket_pos].coefficients)
+    stats["largest_coo_bucket"] = coo_kernels
+    del result, model, scores
+
+    sub = {"9": launches}
+    for label, kind, iters, required in (("9b", "tron", 10, "hv_at"),
+                                         ("9c", "owlqn", 20, None)):
+        coord = dataclasses.replace(items, config=re_optimizer(kind, iters, 1e-7))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        telemetry.reset()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = coord.update_model(coord.initialize_model(), None)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        sub[label] = dict(kernels.LAUNCHES)
+        s_syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+        rows = lane_report(label, coord.last_results, shapes["per-user-items"])
+        finite = all(bool(b.coefficients.isfinite().all()) for b in m.buckets)
+        stats[label] = {"seconds": dt, "host_syncs": s_syncs, "lanes": rows,
+                        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                        "launches": sub[label]}
+        print(f"path {label}: optimizer={kind} seconds={dt:.4f} host_syncs={s_syncs} "
+              f"max_memory_allocated={stats[label]['max_memory_allocated']} "
+              f"launches={json.dumps(sub[label])}", flush=True)
+        if not finite or any(r["rose"] for r in rows):
+            bad.append(f"path {label}: non-finite coefficients or a lane's objective rose")
+        if required and sub[label][required] == 0:
+            bad.append(f"path {label}: {required} not launched on the COO buckets")
+        del m
+    if bad:
+        raise RuntimeError(f"path 9: bad result: {bad}")
+    return sub, stats, prof
 
 
 def numpy_summary(values, cols, n_rows: int, n_features: int) -> dict:
@@ -1118,6 +1600,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     check_small_parity(args.seed)
+    check_small_re_parity(args.seed)
 
     by_path, train, prof = {}, {}, {}
     by_path["5"], train["5"] = run_path(
@@ -1133,15 +1616,27 @@ def main() -> int:
     by_path["8"], train["8"] = run_data_plane_path(args.seed, card)
     torch.cuda.empty_cache()
 
-    by_path["6"], train["6"], game_prof = run_game_path(args.seed, args.profile)
+    by_path["6"], train["6"], game_prof, gds = run_game_path(args.seed, args.profile)
     if game_prof is not None:
         prof["6"] = game_prof
+    t0 = time.perf_counter()
+    re_launches, train["9"], re_prof = run_re_path(gds, args.seed, args.profile,
+                                                   train["6"]["fe_only_auc"], card)
+    train["9"]["paths_s"] = time.perf_counter() - t0
+    print(f"paths 9-9c: {train['9']['paths_s']:.2f} s", flush=True)
+    by_path.update(re_launches)
+    if re_prof is not None:
+        prof["9"] = re_prof
+    del gds
+    torch.cuda.empty_cache()
     by_path["7"], train["7"] = run_probe_path(args.seed)
 
     for row in kernel_rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()
                                    if c[row["name"]]}
         row["launches"] = sum(row["launches_by_path"].values())
+        if row["name"] in train["9"]["largest_coo_bucket"]:
+            row["re_largest_coo_bucket"] = train["9"]["largest_coo_bucket"][row["name"]]
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "kernels": kernel_rows, "train": train,

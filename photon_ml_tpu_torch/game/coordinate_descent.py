@@ -6,7 +6,9 @@ the coordinate's offsets become the base offsets plus the other
 coordinates' scores (the residual trick), its sub-model is retrained
 warm-started, its scores are recomputed, and with validation data the full
 model is evaluated; the best model by the first evaluator is tracked.
-Scores are ``[num_rows]`` device tensors keyed by coordinate name.
+Scores are ``[num_rows]`` device tensors keyed by coordinate name. Each
+history entry records the update's wall seconds, its host syncs (telemetry
+counter ``host_syncs``) and its kernel launches (``kernels.LAUNCHES``).
 
 The reference's checkpoint, guard, ``should_stop`` and fault points are not
 ported: passing any of the first three raises ``NotImplementedError``.
@@ -20,7 +22,7 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
-from photon_ml_tpu_torch import telemetry
+from photon_ml_tpu_torch import kernels, telemetry
 from photon_ml_tpu_torch.evaluation.evaluators import (
     EVALUATORS,
     better_than,
@@ -106,6 +108,8 @@ def run_coordinate_descent(
         with telemetry.span("cd_iteration", iteration=it):
             for name in names:
                 coord = coordinates[name]
+                syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+                launched = dict(kernels.LAUNCHES)
                 t0 = time.perf_counter()
                 with telemetry.span(f"coordinate:{name}", iteration=it):
                     residual = None
@@ -120,6 +124,9 @@ def run_coordinate_descent(
                 # random-effect bucket): nothing per entity is fetched here
                 entry = {"iteration": it, "coordinate": name,
                          "seconds": time.perf_counter() - t0,
+                         "host_syncs": telemetry.snapshot()["counters"].get("host_syncs", 0)
+                         - syncs,
+                         "launches": {k: n - launched[k] for k, n in kernels.LAUNCHES.items()},
                          "results": list(coord.last_results)}
                 if validation is not None:
                     game_model = GameModel(task=task, models=dict(models))

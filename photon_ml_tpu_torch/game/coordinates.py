@@ -12,11 +12,15 @@ Counterpart of ``photon_ml_tpu/game/coordinates.py``:
   a ``normalization`` context the solve runs in normalized space and the
   model stays in the original space (:133-162, :277-303).
 - ``RandomEffectCoordinate`` (:552-754): per geometry bucket, one batched
-  Newton solve over every entity of the bucket on its dense design.
+  solve over every entity of the bucket, one lane per entity, with the
+  configured optimizer (the reference's ``vmap``), on the bucket's dense
+  design or, for a COO-routed bucket, its block-diagonal batch, whose sweeps
+  are the margins, scatter and ``hv_at`` kernels; per-entity boxes and
+  variances (:354-372, :586-603).
 
-The reference's mesh, guard and tracker hooks are left out. What else is
-not ported raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+The reference's mesh, guard and tracker hooks are left out. ``NOT_PORTED``
+is the message of what the port refuses, naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -35,8 +39,15 @@ from photon_ml_tpu_torch.game.models import (
     RandomEffectModel,
 )
 from photon_ml_tpu_torch.game.random_effect_data import RandomEffectDataset
+from photon_ml_tpu_torch.ops.losses import get_loss
+from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import BoxConstraints, SolveResult
-from photon_ml_tpu_torch.optim.factory import OptimizerConfig, OptimizerType, solve
+from photon_ml_tpu_torch.optim.factory import (
+    OptimizerConfig,
+    build_objective,
+    dispatch_solve,
+    solve,
+)
 
 Tensor = torch.Tensor
 
@@ -129,10 +140,19 @@ class FixedEffectCoordinate:
         return self._batch.dot_rows(model.coefficients)
 
 
+# DistributedOptimizationProblem.computeVariances adds this to the Hessian
+# diagonal before inverting (the reference's _VARIANCE_EPS)
+_VARIANCE_EPS = 1e-12
+
+
 @dataclasses.dataclass
 class RandomEffectCoordinate:
-    """Per-entity GLM blocks: each bucket's entities are solved by one
-    batched Newton over the bucket's dense design (``optim/newton.py``)."""
+    """Per-entity GLM blocks: each bucket's entities are solved together, one
+    lane per entity, by the configured optimizer (LBFGS, OWLQN, TRON or
+    NEWTON) on the bucket's dense design or its block-diagonal batch (the
+    COO layout). Box constraints on global features gather through each
+    entity's projection into per-lane bounds; ``compute_variances`` keeps
+    1 / (diag H + 1e-12) at each lane's optimum."""
 
     name: str
     data: GameDataset
@@ -143,20 +163,26 @@ class RandomEffectCoordinate:
 
     def __post_init__(self):
         self.config.validate(self.loss_name)
-        if self.compute_variances:
-            raise NotImplementedError(NOT_PORTED.format("compute_variances of a random effect", 8))
-        if self.config.optimizer_type != OptimizerType.NEWTON:
-            raise NotImplementedError(NOT_PORTED.format(
-                f"a random effect solved with {self.config.optimizer_type.name} (only NEWTON "
-                "is)", 8))
-        if self.config.box_constraints:
-            raise NotImplementedError(NOT_PORTED.format("a box constraint on a random effect", 8))
-        self._buckets = self.re_data.dense_buckets(self.data.device)
-        coo = [i for i, b in enumerate(self._buckets) if b is None]
-        if coo:
-            raise NotImplementedError(NOT_PORTED.format(
-                f"the COO layout of random-effect buckets {coo} (the dense design is over "
-                "the routing rule's budget)", 8))
+        if self.compute_variances and not get_loss(self.loss_name).has_hessian:
+            raise ValueError("coefficient variances need a twice-differentiable loss; "
+                             f"'{self.loss_name}' is not")
+        dev = self.data.device
+        dense = self.re_data.dense_buckets(dev)
+        coo = self.re_data.coo_buckets(dev)
+        self._buckets = tuple(d if d is not None else c for d, c in zip(dense, coo))
+        # the boxes address global features; each entity's local space is its
+        # projection, so the bounds gather through it into [E, K] per bucket
+        # (the padding id num_global gathers the unbounded sentinel slot)
+        self._constraints: list[Optional[BoxConstraints]] = [None] * len(self._buckets)
+        bounds = self.config.dense_box_bounds(self.re_data.num_global_features, sentinel=True)
+        if bounds is not None:
+            lower, upper = bounds
+            self._constraints = [
+                BoxConstraints(lower=torch.from_numpy(lower[b.projection]).to(dev),
+                               upper=torch.from_numpy(upper[b.projection]).to(dev))
+                for b in self.re_data.buckets]
+        self._obj = build_objective(self.loss_name, self.config)
+        self._l1 = self.config.regularization.l1_weight(self.config.regularization_weight)
         self.last_results: list[SolveResult] = []
 
     def initialize_model(self) -> RandomEffectModel:
@@ -182,11 +208,15 @@ class RandomEffectCoordinate:
     def update_model(self, model: RandomEffectModel,
                      residual_scores: Optional[Tensor]) -> RandomEffectModel:
         new_buckets, results = [], []
-        for b, bm in zip(self._buckets, model.buckets):
-            res = solve(self.loss_name, b.batch(residual_scores), self.config,
-                        bm.coefficients, device=self.data.device)
+        for b, bm, box in zip(self._buckets, model.buckets, self._constraints):
+            batch = b.batch(residual_scores)
+            res = dispatch_solve(glm_adapter(self._obj, batch), bm.coefficients, self.config,
+                                 self._l1, box, device=self.data.device)
+            var = None
+            if self.compute_variances:
+                var = 1.0 / (self._obj.hessian_diagonal(res.w, batch) + _VARIANCE_EPS)
             results.append(res)
-            new_buckets.append(dataclasses.replace(bm, coefficients=res.w))
+            new_buckets.append(dataclasses.replace(bm, coefficients=res.w, variances=var))
         self.last_results = results
         return dataclasses.replace(model, buckets=tuple(new_buckets))
 

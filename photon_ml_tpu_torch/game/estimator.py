@@ -129,12 +129,13 @@ class GameEstimator:
         hit = self._re_datasets.get(key)
         if hit is not None and hit[0] is data:
             return hit[1]
-        red = build_random_effect_dataset(
-            data, c.id_name, c.shard_name,
-            active_rows_per_entity=c.active_rows_per_entity,
-            min_rows_per_entity=c.min_rows_per_entity,
-            features_to_samples_ratio=c.features_to_samples_ratio,
-        )
+        with telemetry.span(f"re_build:{c.id_name}:{c.shard_name}"):
+            red = build_random_effect_dataset(
+                data, c.id_name, c.shard_name,
+                active_rows_per_entity=c.active_rows_per_entity,
+                min_rows_per_entity=c.min_rows_per_entity,
+                features_to_samples_ratio=c.features_to_samples_ratio,
+            )
         self._re_datasets[key] = (data, red)
         return red
 

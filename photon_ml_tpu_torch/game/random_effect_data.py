@@ -11,7 +11,9 @@ rescaling; rows beyond a cap are passive (scored, not trained on).
 
 A bucket whose dense design costs at most ``_DENSE_BYTES_FACTOR`` times its
 padded COO (``photon_ml_tpu/game/coordinates.py:517-548``) is solved on
-that dense design; ``dense_buckets`` uploads those once per device.
+that dense design; ``dense_buckets`` uploads those once per device. The
+others are solved on their block-diagonal batch (``ops/block_diagonal.py``),
+which ``coo_buckets`` builds and uploads once per device.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.game.dataset import GameDataset
+from photon_ml_tpu_torch.ops.block_diagonal import BlockDiagonalBatch
 from photon_ml_tpu_torch.ops.dense import DenseBatch
 
 Tensor = torch.Tensor
@@ -55,6 +59,16 @@ class EntityBucket:
         return self.labels.shape[1]
 
 
+def _with_residual(offsets: Tensor, row_index: Tensor, residual: Optional[Tensor]) -> Tensor:
+    """A bucket's offsets [E, R] plus residual scores (a global per-row
+    vector) gathered through ``row_index`` (``with_extra_offsets``,
+    ``random_effect_data.py:84-93``); padding rows get nothing."""
+    if residual is None:
+        return offsets
+    extra = residual.index_select(0, row_index.clamp(min=0).reshape(-1))
+    return offsets + torch.where(row_index >= 0, extra.view_as(offsets), 0.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class DenseBucket:
     """A dense-routed bucket on the device: its design, per-row arrays, and
@@ -70,14 +84,37 @@ class DenseBucket:
     slot_rows: Tensor  # i64[m] their example rows
 
     def batch(self, residual: Optional[Tensor] = None) -> DenseBatch:
-        """The bucket's problems, with residual scores (a global per-row
-        vector) added to the offsets through ``row_index``
-        (``with_extra_offsets``, ``random_effect_data.py:84-93``)."""
-        offsets = self.offsets
-        if residual is not None:
-            extra = residual.index_select(0, self.row_index.clamp(min=0).reshape(-1))
-            offsets = offsets + torch.where(self.row_index >= 0, extra.view_as(offsets), 0.0)
-        return DenseBatch(x=self.x, labels=self.labels, offsets=offsets, weights=self.weights)
+        """The bucket's problems, with residual scores added to the offsets."""
+        return DenseBatch(x=self.x, labels=self.labels,
+                          offsets=_with_residual(self.offsets, self.row_index, residual),
+                          weights=self.weights)
+
+
+@dataclasses.dataclass(frozen=True)
+class CooBucket:
+    """A COO-routed bucket on the device: its block-diagonal batch (whose
+    labels, offsets and weights are [E, R]) and the same row placement as a
+    ``DenseBucket``."""
+
+    block: BlockDiagonalBatch
+    row_index: Tensor  # i64[E, R], -1 padding
+    slots: Tensor  # i64[m] flat [E*R] positions of the active rows
+    slot_rows: Tensor  # i64[m] their example rows
+
+    def batch(self, residual: Optional[Tensor] = None) -> BlockDiagonalBatch:
+        """The bucket's problems, with residual scores added to the offsets."""
+        if residual is None:
+            return self.block
+        return self.block.with_offsets(
+            _with_residual(self.block.offsets, self.row_index, residual))
+
+
+def _placement(b: "EntityBucket", device: torch.device) -> dict:
+    """``row_index``, ``slots`` and ``slot_rows`` of a bucket on ``device``."""
+    ri = b.row_index.astype(np.int64)
+    slots = np.flatnonzero(ri.reshape(-1) >= 0)
+    return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device) for k, a in (
+        ("row_index", ri), ("slots", slots), ("slot_rows", ri.reshape(-1)[slots]))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,18 +153,32 @@ class RandomEffectDataset:
                 if x is None:
                     out.append(None)
                     continue
-                ri = b.row_index.astype(np.int64)
-                slots = np.flatnonzero(ri.reshape(-1) >= 0)
 
-                def up(a, dtype=np.float32):
-                    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+                def up(a):
+                    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
-                out.append(DenseBucket(
-                    x=up(x), labels=up(b.labels), offsets=up(b.offsets),
-                    weights=up(b.weights), row_index=up(ri, np.int64),
-                    slots=up(slots, np.int64), slot_rows=up(ri.reshape(-1)[slots], np.int64),
-                ))
+                out.append(DenseBucket(x=up(x), labels=up(b.labels), offsets=up(b.offsets),
+                                       weights=up(b.weights), **_placement(b, device)))
             cache[key] = tuple(out)
+        return cache[key]
+
+    def coo_buckets(self, device: torch.device) -> tuple[Optional[CooBucket], ...]:
+        """The COO-routed buckets on ``device`` (None for a dense-routed
+        one), each as one ``BlockDiagonalBatch`` whose CSR, CSC and tile
+        layout is built on the host and uploaded once; cached like
+        ``dense_buckets``. The host build is timed in the telemetry span
+        ``re_coo_layout``."""
+        cache = self.__dict__.setdefault("_coo_buckets", {})
+        key = str(device)
+        if key not in cache:
+            with telemetry.span("re_coo_layout"):
+                cache[key] = tuple(
+                    None if x is not None else CooBucket(
+                        block=BlockDiagonalBatch.from_bucket(
+                            b.values, b.rows, b.cols, b.labels, b.offsets, b.weights,
+                            b.num_local_features, device=device),
+                        **_placement(b, device))
+                    for b, x in zip(self.buckets, self.dense_designs()))
         return cache[key]
 
 

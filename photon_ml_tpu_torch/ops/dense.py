@@ -26,7 +26,7 @@ from photon_ml_tpu_torch.ops.losses import get_loss
 Tensor = torch.Tensor
 
 
-def _per_entity(shift: Tensor | float):
+def per_entity(shift: Tensor | float):
     """A per-entity [E] shift as an [E, 1] column; a number as it is."""
     if isinstance(shift, Tensor) and shift.dim() == 1:
         return shift.unsqueeze(-1)
@@ -73,11 +73,11 @@ class DenseBatch:
         return torch.einsum("erk,ek->er", self.x, w)
 
     def margins(self, w: Tensor, shift: Tensor | float = 0.0) -> Tensor:
-        return self.dot_rows(w) + _per_entity(shift) + self.offsets
+        return self.dot_rows(w) + per_entity(shift) + self.offsets
 
     def margins_pair(self, w, shift, p, p_shift) -> tuple[Tensor, Tensor]:
         zu = torch.einsum("erk,ekj->erj", self.x, torch.stack([w, p], dim=-1))
-        return zu[..., 0] + _per_entity(shift) + self.offsets, zu[..., 1] + _per_entity(p_shift)
+        return zu[..., 0] + per_entity(shift) + self.offsets, zu[..., 1] + per_entity(p_shift)
 
     def scatter_features(self, per_row: Tensor) -> Tensor:
         """sum_r per_row[e, r] * x_er  -> [E, K]."""
@@ -90,3 +90,21 @@ class DenseBatch:
         wdz = self.weights * dz
         return (torch.sum(self.weights * l, dim=-1), self.scatter_features(wdz),
                 torch.sum(wdz, dim=-1))
+
+    def fused_hessian_vector(self, w, shift, v, v_shift, loss_name: str) -> tuple[Tensor, Tensor]:
+        """Per entity: (raw Hv sum wgt*l''(z)*(x.v + v_shift)*x, sum of those row terms)."""
+        z, u = self.margins_pair(w, shift, v, v_shift)
+        q = self.weights * get_loss(loss_name).d2z(z, self.labels) * u
+        return self.scatter_features(q), torch.sum(q, dim=-1)
+
+    def fused_hv_at(self, d2_row: Tensor, v: Tensor, v_shift) -> tuple[Tensor, Tensor]:
+        """Per entity: (raw Hv with the row curvature d2 given, sum q), q = d2*(x.v + v_shift)."""
+        q = d2_row * (self.dot_rows(v) + per_entity(v_shift))
+        return self.scatter_features(q), torch.sum(q, dim=-1)
+
+    def scatter_features_sq(self, per_row: Tensor) -> Tensor:
+        """sum_r per_row[e, r] * x_er**2  -> [E, K] (the Hessian diagonal)."""
+        return torch.einsum("er,erk->ek", per_row, self.x * self.x)
+
+    def with_offsets(self, offsets: Tensor) -> "DenseBatch":
+        return dataclasses.replace(self, offsets=offsets.to(torch.float32))

@@ -7,9 +7,11 @@ factor the margins and derivatives run against the raw sparse x:
     z_i  = x_i . (w * factor) - (w * factor) . shift + offset_i
     grad = factor * scatter(dz) - (factor * shift) * sum(dz)
 The margin shift stays a 0-d device tensor, so no host sync enters a pass.
-Over a ``DenseBatch`` bucket the coefficients are ``[E, K]`` and every
-method returns one value per entity (what the reference gets from ``vmap``);
-``dense_hessian`` gives the explicit ``[E, K, K]`` Hessians Newton factors.
+Over a bucket (a ``DenseBatch`` or a ``BlockDiagonalBatch``) the
+coefficients are ``[E, K]`` and every method returns one value per entity
+(what the reference gets from ``vmap``): values ``[E]``, gradients, Hv and
+the Hessian diagonal ``[E, K]``; ``dense_hessian`` gives the explicit
+``[E, K, K]`` Hessians Newton factors.
 """
 
 from __future__ import annotations
@@ -79,13 +81,13 @@ class GLMObjective:
         self, w: Tensor, z: Tensor, batch
     ) -> tuple[Tensor, Tensor]:
         """value_and_grad with the margins z already known: one scatter pass
-        (the margin-carrying LBFGS fast path)."""
+        (the margin-carrying LBFGS fast path); per entity over a bucket."""
         l, dz = self.loss.loss_and_dz(z, batch.labels)
         wdz = batch.weights * dz
-        data_value = torch.sum(batch.weights * l)
-        grad = self._back_transform_vec(batch.scatter_features(wdz), torch.sum(wdz))
+        data_value = torch.sum(batch.weights * l, dim=-1)
+        grad = self._back_transform_vec(batch.scatter_features(wdz), torch.sum(wdz, dim=-1))
         l2 = self.l2_weight
-        return data_value + 0.5 * l2 * torch.dot(w, w), grad + l2 * w
+        return data_value + 0.5 * l2 * sqnorm(w), grad + l2 * w
 
     def value(self, w: Tensor, batch) -> Tensor:
         z = self.margins(w, batch)
@@ -126,7 +128,8 @@ class GLMObjective:
                 diag = f * f * raw_sq
             else:
                 raw_lin = batch.scatter_features(d2_row)
-                total = torch.sum(d2_row)
+                total = torch.sum(d2_row, dim=-1)
+                total = total if w.dim() == 1 else total.unsqueeze(-1)
                 s = self.shifts
                 diag = f * f * (raw_sq - 2.0 * s * raw_lin + s * s * total)
         return diag + self.l2_weight

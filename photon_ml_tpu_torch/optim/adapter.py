@@ -5,10 +5,14 @@ Counterpart of ``glm_adapter`` in ``photon_ml_tpu/optim/adapter.py``
 (:35-171). Along a direction p the margins are affine, z(a) = z + a*u with
 u = X'p computed once per line search, so each Wolfe trial is O(n)
 elementwise work on the carried margins instead of a pass over the nonzeros.
-Over a ``DenseBatch`` bucket the adapter is batched (``dense_adapter``): it
-adds the explicit Hessians, and its oracle evaluates a whole vector of step
-sizes for every entity at once (what ``vmap`` over the step sizes gives the
-reference's Newton, ``optim/newton.py:117-128``).
+Over a bucket of per-entity problems (a ``DenseBatch``, or the
+``BlockDiagonalBatch`` of a COO bucket) the adapter is batched
+(``lane_adapter``): every field works on ``[E, K]`` coefficients, one lane
+per entity, as ``vmap`` gives the reference; it adds the explicit Hessians,
+and its oracle evaluates a vector of step sizes for every entity at once
+(what ``vmap`` over the step sizes gives the reference's Newton,
+``optim/newton.py:117-128``) or one step size per lane (the lane line
+searches).
 The reference's ``axis_name``/``row_sharding`` (multi-device) arguments are
 not ported.
 """
@@ -19,7 +23,8 @@ from typing import NamedTuple
 
 import torch
 
-from photon_ml_tpu_torch.ops.dense import DenseBatch
+from photon_ml_tpu_torch.ops.block_diagonal import BlockDiagonalBatch
+from photon_ml_tpu_torch.ops.dense import DenseBatch, per_entity
 from photon_ml_tpu_torch.ops.objective import GLMObjective, sqnorm
 from photon_ml_tpu_torch.optim.common import Objective
 
@@ -38,8 +43,8 @@ class _LSCarry(NamedTuple):
 
 def glm_adapter(obj: GLMObjective, batch) -> Objective:
     """Build the optimizer-facing adapter for a GLM objective over a batch."""
-    if isinstance(batch, DenseBatch):
-        return dense_adapter(obj, batch)
+    if isinstance(batch, (DenseBatch, BlockDiagonalBatch)):
+        return lane_adapter(obj, batch)
     loss = obj.loss
     l2 = obj.l2_weight
 
@@ -111,9 +116,13 @@ def glm_adapter(obj: GLMObjective, batch) -> Objective:
     )
 
 
-def dense_adapter(obj: GLMObjective, batch: DenseBatch) -> Objective:
-    """The batched adapter over a bucket of dense per-entity problems:
-    coefficients ``[E, K]``, values ``[E]``, Hessians ``[E, K, K]``."""
+def lane_adapter(obj: GLMObjective, batch) -> Objective:
+    """The batched adapter over a bucket of per-entity problems, a
+    ``DenseBatch`` or a ``BlockDiagonalBatch``: coefficients ``[E, K]``,
+    values ``[E]``, gradients, Hv and Hessian diagonals ``[E, K]``, margins
+    ``[E, R]``, and each lane's sums over its own rows. It carries the
+    margin protocol and the second-order fields per lane, and the explicit
+    ``[E, K, K]`` Hessians from the bucket's dense designs."""
     loss = obj.loss
     l2 = obj.l2_weight
 
@@ -123,16 +132,20 @@ def dense_adapter(obj: GLMObjective, batch: DenseBatch) -> Objective:
     def value(w):
         return obj.value(w, batch)
 
+    def _carry(z, u, w, p):
+        return _LSCarry(z=z, u=u, w=w, p=p, ww=sqnorm(w), wp=torch.sum(w * p, dim=-1),
+                        pp=sqnorm(p))
+
     def ls_prepare(w, p):
         p_eff, p_shift = obj._effective(p)
         w_eff, w_shift = obj._effective(w)
         z, u = batch.margins_pair(w_eff, w_shift, p_eff, p_shift)
-        return _LSCarry(z=z, u=u, w=w, p=p, ww=sqnorm(w), wp=torch.sum(w * p, dim=-1),
-                        pp=sqnorm(p))
+        return _carry(z, u, w, p)
 
     def ls_eval(carry: _LSCarry, alphas: Tensor):
-        """(phi, dphi) [E, A] at the step sizes ``alphas`` [A]."""
-        a = alphas.reshape(1, -1)
+        """(phi, dphi) [E, A] at the step sizes ``alphas``: [A] shared by
+        every lane, or [E, A], one row per lane."""
+        a = alphas.reshape(1, -1) if alphas.dim() == 1 else alphas
         z_a = carry.z.unsqueeze(1) + a.unsqueeze(-1) * carry.u.unsqueeze(1)  # [E, A, R]
         l, dz = loss.loss_and_dz(z_a, batch.labels.unsqueeze(1))
         wgt = batch.weights.unsqueeze(1)
@@ -141,8 +154,34 @@ def dense_adapter(obj: GLMObjective, batch: DenseBatch) -> Objective:
         dphi = torch.sum(wgt * dz * carry.u.unsqueeze(1), dim=-1) + l2 * (wp + a * pp)
         return phi, dphi
 
-    hessian = None
+    def margins(w):
+        return obj.margins(w, batch)
+
+    def dir_margins(p):
+        p_eff, p_shift = obj._effective(p)
+        return batch.dot_rows(p_eff) + per_entity(p_shift)
+
+    def ls_prepare_z(z, w, p):
+        return _carry(z, dir_margins(p), w, p)
+
+    def ls_advance(carry: _LSCarry, alpha: Tensor):
+        """The margins at one step size per lane, ``alpha`` [E]."""
+        return carry.z + alpha.unsqueeze(-1) * carry.u
+
+    def value_and_grad_at(w, z):
+        return obj.value_and_grad_at_margins(w, z, batch)
+
+    hvp = curvature = hvp_at = hessian = None
     if loss.has_hessian:
+        def hvp(w, v):
+            return obj.hessian_vector(w, v, batch)
+
+        def curvature(z):
+            return obj.curvature_at_margins(z, batch)
+
+        def hvp_at(d2, v):
+            return obj.hessian_vector_with_curvature(d2, v, batch)
+
         def hessian(w):
             return obj.dense_hessian(w, batch)
 
@@ -151,5 +190,13 @@ def dense_adapter(obj: GLMObjective, batch: DenseBatch) -> Objective:
         value=value,
         ls_prepare=ls_prepare,
         ls_eval=ls_eval,
+        margins=margins,
+        ls_prepare_z=ls_prepare_z,
+        ls_advance=ls_advance,
+        value_and_grad_at=value_and_grad_at,
+        dir_margins=dir_margins,
+        hvp=hvp,
+        curvature=curvature,
+        hvp_at=hvp_at,
         hessian=hessian,
     )

@@ -5,8 +5,9 @@ Counterpart of ``photon_ml_tpu/optim/common.py``. The reference runs its
 loops on the device and decides convergence with ``jnp.where``; the port
 drives its single-problem loops from the host, so ``convergence_reason``
 takes host float32 scalars and mirrors the reference's float32
-arithmetic, while the batched Newton decides every lane on the device
-with ``convergence_reasons``.
+arithmetic, while the lane solvers of a bucket decide every lane on the
+device with ``convergence_reasons`` and fetch one flag per round
+(``any_lane``).
 """
 
 from __future__ import annotations
@@ -46,9 +47,11 @@ class Objective(NamedTuple):
     and on the margin-carrying path ``curvature(z)`` once per outer step and
     ``hvp_at(d2, v)`` per CG step. They are None for a loss without a
     Hessian. Newton uses ``hessian(w)``, the explicit ``[E, K, K]``
-    Hessians of a ``DenseBatch`` bucket (None for the sparse layouts); over
-    a bucket, ``ls_eval(carry, alphas)`` takes a 1-D tensor of step sizes and
-    returns ``(phi, dphi)`` as ``[E, len(alphas)]``.
+    Hessians of a bucket (None for the layouts of one problem). Over a
+    bucket (``lane_adapter``) every field is per lane: ``ls_eval(carry,
+    alphas)`` takes step sizes ``[A]`` shared by the lanes or ``[E, A]``,
+    one row per lane, and returns ``(phi, dphi)`` as ``[E, A]``;
+    ``ls_advance(carry, alpha)`` takes one step size per lane ``[E]``.
     """
 
     value_and_grad: Callable[[Tensor], tuple[Tensor, Tensor]]
@@ -112,6 +115,13 @@ def fetch_f32(*scalars: Tensor) -> tuple[np.float32, ...]:
     return tuple(np.float32(x) for x in arr)
 
 
+def any_lane(flags: Tensor) -> bool:
+    """One host fetch for a bucket's lanes: is any flag set? The lane
+    solvers call it once per iteration, line-search round or CG step."""
+    (n,) = fetch_f32(flags.any())
+    return bool(n > 0.0)
+
+
 def convergence_reasons(
     iteration: Tensor,
     value: Tensor,
@@ -156,3 +166,22 @@ def convergence_reason(
     if grad_norm <= np.float32(tol * init_grad_norm):
         return GRADIENT_CONVERGED
     return NOT_CONVERGED
+
+
+def lane_tracks(f: Tensor, gn: Tensor, max_iterations: int) -> tuple[Tensor, Tensor]:
+    """The per-lane ``values`` and ``grad_norms`` buffers [E, max_iterations
+    + 1], +inf but for the initial entry."""
+    values = torch.full((f.shape[0], max_iterations + 1), float("inf"), dtype=f.dtype,
+                        device=f.device)
+    gnorms = torch.full_like(values, float("inf"))
+    values[:, 0], gnorms[:, 0] = f, gn
+    return values, gnorms
+
+
+def record_lanes(values: Tensor, gnorms: Tensor, k: int, active: Tensor, f: Tensor,
+                 gn: Tensor) -> None:
+    """Write iteration ``k``'s value and gradient norm of the active lanes
+    (every active lane of LBFGS and OWLQN is at iteration k)."""
+    if k < values.shape[1]:  # max_iterations=0 still runs one iteration
+        values[:, k] = torch.where(active, f, values[:, k])
+        gnorms[:, k] = torch.where(active, gn, gnorms[:, k])

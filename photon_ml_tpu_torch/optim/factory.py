@@ -3,9 +3,11 @@
 Counterpart of ``photon_ml_tpu/optim/factory.py``: LBFGS handles NONE/L2,
 OWLQN handles L1/ELASTIC_NET (l1 = alpha*lambda, l2 = (1-alpha)*lambda),
 TRON handles NONE/L2 only and needs a twice-differentiable loss. NEWTON
-(NONE/L2, twice differentiable) solves a bucket of dense per-entity problems
-with explicit Hessians; an adapter without them (the CSR and COO layouts)
-is refused, never routed to another optimizer.
+(NONE/L2, twice differentiable) solves a bucket of per-entity problems with
+explicit Hessians, in a box too; an adapter without them (the CSR and COO
+layouts of one problem) is refused, never routed to another optimizer. A
+bucket (``w0`` of shape ``[E, K]``) goes to the lane solvers, one problem
+per entity, as the reference's ``vmap`` over a bucket.
 
 ``solve`` (:261-284) is the one-stop GLM solve: ``build_objective`` with the
 L2 part of the configured regularization, the adapter, and
@@ -25,10 +27,10 @@ from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.ops.objective import GLMObjective, make_objective
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import BoxConstraints, Objective, SolveResult
-from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
+from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve, lbfgs_solve_lanes
 from photon_ml_tpu_torch.optim.newton import NewtonConfig, newton_solve
-from photon_ml_tpu_torch.optim.owlqn import owlqn_solve
-from photon_ml_tpu_torch.optim.tron import TRONConfig, tron_solve
+from photon_ml_tpu_torch.optim.owlqn import owlqn_solve, owlqn_solve_lanes
+from photon_ml_tpu_torch.optim.tron import TRONConfig, tron_solve, tron_solve_lanes
 
 Tensor = torch.Tensor
 
@@ -92,12 +94,15 @@ class OptimizerConfig:
     down_sampling_rate: float = 1.0
     box_constraints: Optional[tuple[tuple[int, float, float], ...]] = None
 
-    def dense_box_bounds(self, num_features: int):
-        """Validated dense numpy (lower, upper) bounds, or None."""
+    def dense_box_bounds(self, num_features: int, sentinel: bool = False):
+        """Validated dense numpy (lower, upper) bounds, or None. With
+        ``sentinel`` the arrays carry one more, unbounded, trailing slot: the
+        one a projected space's padding id (``num_features``) gathers."""
         if not self.box_constraints:
             return None
-        lower = np.full(num_features, -np.inf, np.float32)
-        upper = np.full(num_features, np.inf, np.float32)
+        size = num_features + (1 if sentinel else 0)
+        lower = np.full(size, -np.inf, np.float32)
+        upper = np.full(size, np.inf, np.float32)
         for idx, lo, hi in self.box_constraints:
             if not 0 <= idx < num_features:
                 raise ValueError(
@@ -169,32 +174,33 @@ def dispatch_solve(
 ) -> SolveResult:
     """Route a prebuilt adapter to the configured optimizer: NEWTON (a
     bucket's batched solve), TRON, OWLQN (L1/elastic net, with weight
-    ``l1``) or LBFGS."""
+    ``l1``) or LBFGS. A ``w0`` of shape ``[E, K]`` is a bucket over a lane
+    adapter, solved by the lane solvers, one problem per entity."""
+    lanes = w0.dim() == 2
     if config.optimizer_type == OptimizerType.NEWTON:
         if adapter.hessian is None:
             raise ValueError(
-                "NEWTON needs a dense-Hessian adapter (a DenseBatch bucket; the CSR "
-                "and COO layouts cannot densify)"
-            )
-        if constraints is not None:
-            raise NotImplementedError(
-                "NEWTON with box constraints is not ported to photon_ml_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 8)"
+                "NEWTON needs a dense-Hessian adapter (a bucket of per-entity problems; "
+                "the CSR and COO layouts of one problem cannot densify)"
             )
         ncfg = NewtonConfig(max_iterations=config.max_iterations, tolerance=config.tolerance)
         return newton_solve(adapter.value_and_grad, adapter.hessian, w0, adapter.ls_prepare,
-                            adapter.ls_eval, ncfg, device=device)
+                            adapter.ls_eval, ncfg, device=device, constraints=constraints,
+                            value=adapter.value)
     if config.optimizer_type == OptimizerType.TRON:
         tcfg = TRONConfig(max_iterations=config.max_iterations, tolerance=config.tolerance)
-        return tron_solve(adapter, w0, tcfg, constraints=constraints, device=device)
+        tron = tron_solve_lanes if lanes else tron_solve
+        return tron(adapter, w0, tcfg, constraints=constraints, device=device)
     lcfg = LBFGSConfig(
         max_iterations=config.max_iterations,
         tolerance=config.tolerance,
         history=config.lbfgs_history,
     )
     if config.regularization.uses_l1:
-        return owlqn_solve(adapter, w0, l1, lcfg, constraints=constraints, device=device)
-    return lbfgs_solve(adapter, w0, lcfg, constraints=constraints, device=device)
+        owlqn = owlqn_solve_lanes if lanes else owlqn_solve
+        return owlqn(adapter, w0, l1, lcfg, constraints=constraints, device=device)
+    lbfgs = lbfgs_solve_lanes if lanes else lbfgs_solve
+    return lbfgs(adapter, w0, lcfg, constraints=constraints, device=device)
 
 
 def solve(

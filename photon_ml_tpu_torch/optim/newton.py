@@ -16,25 +16,28 @@ reports the lanes whose factorization failed in ``info``; they step along
 -g (the reference tests its NaN-filled factor for finiteness, which
 ``cholesky_ex`` does not produce). The damping evaluates the step sizes
 1, 1/2, ..., 2^-(max_halvings-1) in one sweep through the margin-space
-oracle and takes the first that lowers the objective. The reference's
-box-constrained variant (a full objective sweep per step size) has no
-caller in the port: the random-effect coordinate refuses box constraints.
+oracle and takes the first that lowers the objective. In a box (the
+reference's ``newton.py:77, 100, 130-137``) ``w0`` is projected, each damping
+candidate is projected and swept through the full objective (the margin
+oracle's affine margins do not survive a projection), and the accepted step
+is projected.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.optim.common import (
     NOT_CONVERGED,
+    BoxConstraints,
     SolveResult,
+    any_lane,
     convergence_reasons,
-    fetch_f32,
+    project_or_identity,
 )
 
 Tensor = torch.Tensor
@@ -56,6 +59,8 @@ def newton_solve(
     ls_eval: Callable,
     config: NewtonConfig = NewtonConfig(),
     device: torch.device | str | None = None,
+    constraints: Optional[BoxConstraints] = None,
+    value: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> SolveResult:
     """Minimize E independent convex problems from ``w0 [E, K]`` on
     ``device`` (default cuda).
@@ -66,12 +71,16 @@ def newton_solve(
     the carried margins. The result's fields are per lane: ``iterations``,
     ``reason`` and ``data_passes`` are int32 ``[E]`` tensors, ``values`` and
     ``grad_norms`` ``[E, max_iterations + 1]`` (+inf after each lane's last
-    iteration).
+    iteration). With ``constraints`` (per-lane ``[E, K]`` or shared ``[K]``
+    bounds) the candidates go through ``value(w) -> [E]``, the full
+    objective.
     """
     dev = resolve_device(device)
+    if constraints is not None and value is None:
+        raise ValueError("a box-constrained Newton sweeps its candidates through value(w)")
     if w0.dim() != 2:
         raise ValueError(f"newton_solve solves a bucket: w0 must be [E, K], got {tuple(w0.shape)}")
-    w = w0.to(device=dev, dtype=torch.float32)
+    w = project_or_identity(constraints, w0.to(device=dev, dtype=torch.float32))
     n_lanes, d = w.shape
     f, g = value_and_grad(w)
     gn = torch.linalg.vector_norm(g, dim=-1)
@@ -96,13 +105,17 @@ def newton_solve(
         newton = -torch.cholesky_solve(g.unsqueeze(-1), L).squeeze(-1)
         step = torch.where(ok[:, None], newton, -g)
 
-        f_tries = ls_eval(ls_prepare(w, step), alphas)[0]
+        if constraints is None:
+            f_tries = ls_eval(ls_prepare(w, step), alphas)[0]
+        else:
+            f_tries = torch.stack([value(constraints.project(w + a * step)) for a in alphas],
+                                  dim=1)
         good = f_tries < f.unsqueeze(1)
         found = good.any(dim=1)
         first = torch.argmax(good.to(torch.int32), dim=1)  # the first decrease
         best = torch.where(found, alphas[first], torch.zeros_like(f))
 
-        w_new = w + best.unsqueeze(1) * step
+        w_new = project_or_identity(constraints, w + best.unsqueeze(1) * step)
         f_new, g_new = value_and_grad(w_new)
         gn_new = torch.linalg.vector_norm(g_new, dim=-1)
         it = iteration + 1
@@ -117,8 +130,7 @@ def newton_solve(
         f = torch.where(active, f_new, f)
         iteration = torch.where(active, it, iteration)
         reason = torch.where(active, reason_new, reason)
-        (still,) = fetch_f32((reason == NOT_CONVERGED).any())
-        if not still > np.float32(0.0):
+        if not any_lane(reason == NOT_CONVERGED):
             break
 
     return SolveResult(

@@ -11,7 +11,9 @@ iteration (the direction's squared norm, one (value, decrease) pair per
 backtracking trial, then the new value, pseudo-gradient norm and curvature
 pair) and takes the reference's decisions in the same float32 arithmetic.
 Each iteration is one fused value-and-gradient pass plus one margins pass
-per trial.
+per trial. ``owlqn_solve_lanes`` solves a random-effect bucket, one OWLQN per
+entity, with the state per lane and the host fetching one flag per
+backtracking round and per iteration.
 """
 
 from __future__ import annotations
@@ -27,12 +29,22 @@ from photon_ml_tpu_torch.optim.common import (
     BoxConstraints,
     Objective,
     SolveResult,
+    any_lane,
     convergence_reason,
+    convergence_reasons,
     fetch_f32,
+    lane_tracks,
     project_or_identity,
+    record_lanes,
 )
-from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, two_loop_direction, update_history
-from photon_ml_tpu_torch.optim.linesearch import backtracking
+from photon_ml_tpu_torch.optim.lbfgs import (
+    LaneHistory,
+    LBFGSConfig,
+    first_step,
+    two_loop_direction,
+    update_history,
+)
+from photon_ml_tpu_torch.optim.linesearch import backtracking, backtracking_lanes
 
 Tensor = torch.Tensor
 F32 = np.float32
@@ -152,3 +164,94 @@ def owlqn_solve(
         grad_norms=torch.from_numpy(gnorms),
         data_passes=it + 1,
     )
+
+
+def owlqn_solve_lanes(
+    objective: Objective,
+    w0: Tensor,
+    l1_weight: Tensor | float,
+    config: LBFGSConfig = LBFGSConfig(),
+    constraints: Optional[BoxConstraints] = None,
+    device: torch.device | str | None = None,
+) -> SolveResult:
+    """``owlqn_solve`` for E independent problems from ``w0 [E, K]``, one
+    OWLQN per lane (the reference's ``owlqn_solve`` under ``vmap`` over a
+    random-effect bucket): per-lane pseudo-gradients, orthant projections,
+    histories and backtracking searches (``backtracking_lanes``); a lane
+    whose reason is set is frozen while the others go on. The host fetches
+    one flag per backtracking round and one per iteration."""
+    dev = resolve_device(device)
+    w0 = project_or_identity(constraints, w0.to(device=dev, dtype=torch.float32))
+    if w0.dim() != 2:
+        raise ValueError(f"owlqn_solve_lanes solves a bucket: w0 must be [E, K], got "
+                         f"{tuple(w0.shape)}")
+    n_lanes, d = w0.shape
+    l1 = torch.as_tensor(l1_weight, dtype=torch.float32, device=dev).broadcast_to((n_lanes, d))
+
+    def full_value(w, f):
+        return f + torch.sum(l1 * torch.abs(w), dim=-1)
+
+    f, g = objective.value_and_grad(w0)
+    F = full_value(w0, f)
+    pg = pseudo_gradient(w0, g, l1)
+    pgn = torch.linalg.vector_norm(pg, dim=-1)
+    anchor_f, anchor_gn = F, pgn
+    values, gnorms = lane_tracks(F, pgn, config.max_iterations)
+    hist = LaneHistory(n_lanes, config.history, d, dev)
+    iteration = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    reason = torch.full_like(iteration, NOT_CONVERGED)
+    w = w0
+
+    k = 0
+    while True:
+        active = reason == NOT_CONVERGED
+        v = -pg  # steepest descent direction on F
+        p = -hist.direction(pg)
+        # orthant alignment: zero coordinates where p disagrees with -pseudo
+        p = torch.where(p * v > 0.0, p, torch.zeros_like(p))
+        degenerate = torch.sum(p * p, dim=-1) <= 0.0
+        p = torch.where(degenerate.unsqueeze(-1), v, p)
+        # orthant signs: sign(w) where nonzero, else the sign of -pseudo
+        xi = torch.where(w != 0.0, torch.sign(w), torch.sign(v))
+
+        def candidate(alpha, w=w, p=p, xi=xi):
+            stepped = w + alpha.unsqueeze(-1) * p
+            proj = torch.where(stepped * xi > 0.0, stepped, torch.zeros_like(stepped))
+            return project_or_identity(constraints, proj)
+
+        def sufficient(alpha, value, w=w, F=F, pg=pg, candidate=candidate):
+            # Armijo on F via the pseudo-gradient: F(w_c) <= F(w) + c1 * pg.(w_c - w)
+            w_c = candidate(alpha)
+            return value <= F + config.c1 * torch.sum(pg * (w_c - w), dim=-1)
+
+        def trial_value(alpha, candidate=candidate):
+            w_c = candidate(alpha)
+            return full_value(w_c, objective.value(w_c))
+
+        alpha, _, failed = backtracking_lanes(
+            trial_value, F, sufficient, first_step(hist.n_hist, pgn), active,
+            max_evals=config.max_ls_evals)
+        w_new = candidate(alpha)
+        f_new, g_new = objective.value_and_grad(w_new)
+        F_new = full_value(w_new, f_new)
+        pg_new = pseudo_gradient(w_new, g_new, l1)
+        hist.update(w_new - w, g_new - g, active, config.min_curvature)
+        pgn_new = torch.linalg.vector_norm(pg_new, dim=-1)
+        it = iteration + 1
+        reason_new = convergence_reasons(it, F_new, F, pgn_new, anchor_f, anchor_gn,
+                                         config.max_iterations, config.tolerance, failed)
+        k += 1
+        record_lanes(values, gnorms, k, active, F_new, pgn_new)
+        keep = active.unsqueeze(-1)
+        w = torch.where(keep, w_new, w)
+        g = torch.where(keep, g_new, g)
+        pg = torch.where(keep, pg_new, pg)
+        F = torch.where(active, F_new, F)
+        pgn = torch.where(active, pgn_new, pgn)
+        iteration = torch.where(active, it, iteration)
+        reason = torch.where(active, reason_new, reason)
+        if not any_lane(reason == NOT_CONVERGED):
+            break
+
+    return SolveResult(w=w, value=F, grad=pg, iterations=iteration, reason=reason,
+                       values=values, grad_norms=gnorms, data_passes=iteration + 1)

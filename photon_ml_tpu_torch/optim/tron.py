@@ -21,6 +21,10 @@ Two paths, as in the reference:
   - box-constrained: each CG step is one fused ``hvp`` pass at w, each
     trial one fused value-and-gradient pass, and the accepted point is
     projected into the box.
+
+``tron_solve_lanes`` solves a random-effect bucket, one TRON per entity:
+radius, failures, iterations and the truncated CG are per lane, and the
+host fetches one flag per CG step and per outer step.
 """
 
 from __future__ import annotations
@@ -38,8 +42,11 @@ from photon_ml_tpu_torch.optim.common import (
     BoxConstraints,
     Objective,
     SolveResult,
+    any_lane,
     convergence_reason,
+    convergence_reasons,
     fetch_f32,
+    lane_tracks,
     project_or_identity,
 )
 
@@ -241,3 +248,196 @@ def tron_solve(
         grad_norms=torch.from_numpy(gnorms),
         data_passes=passes,
     )
+
+
+# -- the lane solver: one TRON per entity of a random-effect bucket ----------
+
+
+def _dot(a: Tensor, b: Tensor) -> Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def _truncated_cg_lanes(
+    hvp: Callable[[Tensor], Tensor],
+    gradient: Tensor,
+    grad_norm: Tensor,
+    delta: Tensor,
+    active: Tensor,
+    config: TRONConfig,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """``_truncated_cg`` for every lane at once: the state (step, residual,
+    direction, r.r, CG step count) is per lane, each round is one batched
+    Hessian-vector pass, and a lane whose CG has stopped (its residual under
+    the tolerance, the trust region reached, the step limit, or not
+    ``active``) is frozen while the others go on; the host fetches one flag
+    per round. Returns (cg_iterations [E], step, residual), as the
+    reference's ``_truncated_cg`` under ``vmap``."""
+    tol = config.cg_tolerance_factor * grad_norm
+    step = torch.zeros_like(gradient)
+    residual = -gradient
+    direction = residual
+    rtr = _dot(residual, residual)
+    its = torch.zeros(gradient.shape[0], dtype=torch.int32, device=gradient.device)
+    done = ~active
+    dsq = delta * delta
+    while True:
+        running = ~done & (its < config.max_cg_iterations)
+        converged = torch.linalg.vector_norm(residual, dim=-1) <= tol
+        hd = hvp(direction)
+        alpha = rtr / _safe(_dot(direction, hd))
+        outside = torch.linalg.vector_norm(step + alpha.unsqueeze(-1) * direction,
+                                           dim=-1) > delta
+        # boundary case: solve ||step + alpha*d|| = delta (eq. 13)
+        std, sts, dtd = _dot(step, direction), _dot(step, step), _dot(direction, direction)
+        rad = torch.sqrt(torch.clamp(std * std + dtd * (dsq - sts), min=0.0))
+        alpha_b = torch.where(std >= 0.0, (dsq - sts) / _safe(std + rad),
+                              (rad - std) / _safe(dtd))
+        alpha = torch.where(outside, alpha_b, alpha).unsqueeze(-1)
+        new_residual = residual - alpha * hd
+        new_rtr = _dot(new_residual, new_residual)
+        beta = (new_rtr / _safe(rtr)).unsqueeze(-1)
+        new_direction = torch.where(outside.unsqueeze(-1), direction,
+                                    new_residual + beta * direction)
+        adv = running & ~converged
+        keep = adv.unsqueeze(-1)
+        step = torch.where(keep, step + alpha * direction, step)
+        residual = torch.where(keep, new_residual, residual)
+        direction = torch.where(keep, new_direction, direction)
+        rtr = torch.where(adv, new_rtr, rtr)
+        its = torch.where(adv, its + 1, its)
+        done = torch.where(running, converged | outside, done)
+        if not any_lane(~done & (its < config.max_cg_iterations)):
+            break
+    return its, step, residual
+
+
+def tron_solve_lanes(
+    objective: Objective,
+    w0: Tensor,
+    config: TRONConfig = TRONConfig(),
+    constraints: Optional[BoxConstraints] = None,
+    device: torch.device | str | None = None,
+) -> SolveResult:
+    """``tron_solve`` for E independent problems from ``w0 [E, K]``, one
+    TRON per lane (the reference's ``tron_solve`` under ``vmap`` over a
+    random-effect bucket). The trust-region radius, the improvement
+    failures, the iteration (which advances only on improvement) and the
+    data passes are per lane, and so is the truncated CG
+    (``_truncated_cg_lanes``); a lane whose reason is set is frozen while
+    the others go on. The two paths of ``tron_solve`` carry over: margins
+    carried with one ``hvp_at`` pass per CG step, or, in a box, one fused
+    ``hvp`` pass per CG step and the accepted point projected per lane.
+    The host fetches one flag per CG step and one per outer step."""
+    if objective.hvp is None:
+        raise ValueError("TRON requires an objective with a Hessian-vector product")
+    dev = resolve_device(device)
+    w0 = project_or_identity(constraints, w0.to(device=dev, dtype=torch.float32))
+    if w0.dim() != 2:
+        raise ValueError(f"tron_solve_lanes solves a bucket: w0 must be [E, K], got "
+                         f"{tuple(w0.shape)}")
+    n_lanes = w0.shape[0]
+    use_z = (
+        constraints is None
+        and objective.margins is not None
+        and objective.dir_margins is not None
+        and objective.curvature is not None
+        and objective.hvp_at is not None
+        and objective.value_and_grad_at is not None
+    )
+    if use_z:
+        z = objective.margins(w0)
+        f, g = objective.value_and_grad_at(w0, z)
+    else:
+        z = None
+        f, g = objective.value_and_grad(w0)
+    gn = torch.linalg.vector_norm(g, dim=-1)
+    anchor_f, anchor_gn = f, gn
+    values, gnorms = lane_tracks(f, gn, config.max_iterations)
+    lanes = torch.arange(n_lanes, device=dev)
+    w = w0
+    delta = gn
+    iteration = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    failures = torch.zeros_like(iteration)
+    passes = torch.ones_like(iteration)  # the init value_and_grad evaluation
+    reason = torch.full_like(iteration, NOT_CONVERGED)
+    never = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+
+    while True:
+        active = reason == NOT_CONVERGED
+        if use_z:
+            d2 = objective.curvature(z)  # fixed across the CG solve
+            hvp = lambda v: objective.hvp_at(d2, v)  # noqa: E731
+        else:
+            hvp = lambda v, w=w: objective.hvp(w, v)  # noqa: E731
+        cg_its, step, residual = _truncated_cg_lanes(hvp, g, gn, delta, active, config)
+
+        w_try = w + step
+        if use_z:
+            z_try = z + objective.dir_margins(step)
+            f_try, g_try = objective.value_and_grad_at(w_try, z_try)
+        else:
+            f_try, g_try = objective.value_and_grad(w_try)
+        gs = _dot(g, step)
+        predicted = -0.5 * (gs - _dot(step, residual))
+        actual = f - f_try
+        step_norm = torch.linalg.vector_norm(step, dim=-1)
+
+        # first-iteration adjustment of the initial step bound
+        delta_0 = torch.where(iteration == 0, torch.minimum(delta, step_norm), delta)
+        denom = f_try - f - gs
+        alpha = torch.where(denom <= 0.0, torch.full_like(denom, config.sigma3),
+                            torch.clamp(-0.5 * (gs / _safe(denom)), min=config.sigma1))
+        # trust-region radius update (TRON.scala:205-218)
+        a_s = alpha * step_norm
+        delta_new = torch.where(
+            actual < config.eta0 * predicted,
+            torch.minimum(torch.clamp(alpha, min=config.sigma1) * step_norm,
+                          config.sigma2 * delta_0),
+            torch.where(
+                actual < config.eta1 * predicted,
+                torch.maximum(config.sigma1 * delta_0,
+                              torch.minimum(a_s, config.sigma2 * delta_0)),
+                torch.where(
+                    actual < config.eta2 * predicted,
+                    torch.maximum(config.sigma1 * delta_0,
+                                  torch.minimum(a_s, config.sigma3 * delta_0)),
+                    torch.maximum(delta_0, torch.minimum(a_s, config.sigma3 * delta_0)),
+                ),
+            ),
+        )
+        improved = actual > config.eta0 * predicted
+        it = torch.where(improved, iteration + 1, iteration)
+        failures_new = torch.where(improved, 0, failures + 1)
+        gave_up = ~improved & (failures_new >= config.max_improvement_failures)
+        gn_try = torch.linalg.vector_norm(g_try, dim=-1)
+        reason_new = torch.where(
+            improved,
+            convergence_reasons(it, f_try, f, gn_try, anchor_f, anchor_gn,
+                                config.max_iterations, config.tolerance, never),
+            torch.where(gave_up, OBJECTIVE_NOT_IMPROVING, NOT_CONVERGED),
+        ).to(torch.int32)
+
+        # each CG step is one Hv data pass, plus this step's trial-point
+        # value_and_grad (CG counted as 1 when the radius truncated it at once)
+        passes = torch.where(active, passes + torch.clamp(cg_its, min=1) + 1, passes)
+        accepted = active & improved
+        slot = torch.clamp(it.long(), max=values.shape[1] - 1)
+        tracked = accepted & (it < values.shape[1])
+        values[lanes, slot] = torch.where(tracked, f_try, values[lanes, slot])
+        gnorms[lanes, slot] = torch.where(tracked, gn_try, gnorms[lanes, slot])
+        keep = accepted.unsqueeze(-1)
+        w = torch.where(keep, project_or_identity(constraints, w_try), w)
+        g = torch.where(keep, g_try, g)
+        if use_z:
+            z = torch.where(keep, z_try, z)
+        f = torch.where(accepted, f_try, f)
+        gn = torch.where(accepted, gn_try, gn)
+        delta = torch.where(active, delta_new, delta)
+        iteration = torch.where(active, it, iteration)
+        failures = torch.where(active, failures_new, failures)
+        reason = torch.where(active, reason_new, reason)
+        if not any_lane(reason == NOT_CONVERGED):
+            break
+
+    return SolveResult(w=w, value=f, grad=g, iterations=iteration, reason=reason,
+                       values=values, grad_norms=gnorms, data_passes=passes)

@@ -3,7 +3,8 @@ package's, on the CPU: random-effect buckets array for array, a
 ``GameEstimator.fit`` of a fixed effect (LBFGS) plus a per-user random effect
 (batched NEWTON) over two coordinate-descent iterations, GAME models carried
 across by ``convert.game_model_from_jax`` and scored on rows of passive and
-unseen entities, and every ``NotImplementedError`` branch of the slice.
+unseen entities, and every ``NotImplementedError`` branch left (the random
+effect refuses only the random projector).
 
 Tolerances: buckets exact (the same numpy build); carried-over scores
 rtol 1e-5 (the same float32 products, summed in another order); fitted
@@ -272,16 +273,20 @@ def _re_coordinate(tds, **opt):
 
 
 def test_random_effect_branches_not_ported_raise(data, monkeypatch):
+    """A random effect refuses only the random projector (ROADMAP item 10):
+    every optimizer, variances, a box and the COO layout are ported."""
     _, tds = data
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        _re_coordinate(tds, optimizer_type=OptimizerType.LBFGS)()
-    with pytest.raises(NotImplementedError, match="compute_variances"):
-        _re_coordinate(tds)(compute_variances=True)
-    with pytest.raises(NotImplementedError, match="box constraint"):
-        _re_coordinate(tds, box_constraints=((0, -1.0, 1.0),))()
+    projected = GameConfig(task="logistic", coordinates={"re": RandomEffectConfig(
+        shard_name="user", id_name="userId", projector="random", projected_dim=2)})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        GameEstimator(projected).fit(tds, device="cpu")
+    for kind in OptimizerType:
+        assert _re_coordinate(tds, optimizer_type=kind)().config.optimizer_type == kind
+    boxed = _re_coordinate(tds, box_constraints=((0, -1.0, 1.0),))()
+    assert all(c is not None for c in boxed._constraints)
+    assert _re_coordinate(tds)(compute_variances=True).compute_variances
     monkeypatch.setattr(t_red, "_bucket_dense_design", lambda b: None)
-    with pytest.raises(NotImplementedError, match="COO layout"):
-        _re_coordinate(tds)()
+    assert all(isinstance(b, t_red.CooBucket) for b in _re_coordinate(tds)()._buckets)
 
 
 def test_estimator_and_descent_branches_not_ported_raise(data):

@@ -110,6 +110,7 @@ def test_source_walk_covers_the_new_subpackages():
     for module in ("game/dataset.py", "game/random_effect_data.py", "game/coordinates.py",
                    "game/coordinate_descent.py", "game/estimator.py", "game/models.py",
                    "tools/probe_ell.py", "ops/ell.py", "ops/dense.py", "optim/newton.py",
+                   "ops/block_diagonal.py",
                    "data/stats.py", "data/validators.py", "data/native.py", "data/libsvm.py",
                    "data/index_map.py", "data/paths.py", "data/model_store.py",
                    "utils/atomic.py"):
@@ -119,7 +120,7 @@ def test_source_walk_covers_the_new_subpackages():
 @pytest.mark.parametrize("builder", ["csr", "sparse", "model", "normalization", "ell",
                                      "dense", "game_dataset", "game_model", "game_fit",
                                      "probe", "libsvm_batch", "load_glm",
-                                     "load_game_model"])
+                                     "load_game_model", "block_diagonal", "lane_solve"])
 def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
     _no_gpu()
     from photon_ml_tpu_torch import convert
@@ -132,10 +133,13 @@ def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
         GameEstimator,
         build_game_dataset,
     )
+    from photon_ml_tpu_torch.ops.block_diagonal import BlockDiagonalBatch
     from photon_ml_tpu_torch.ops.csr import CSRBatch
     from photon_ml_tpu_torch.ops.dense import DenseBatch
     from photon_ml_tpu_torch.ops.ell import ELLBatch
+    from photon_ml_tpu_torch.ops.objective import make_objective
     from photon_ml_tpu_torch.ops.sparse import SparseBatch
+    from photon_ml_tpu_torch.optim import lane_adapter, lbfgs_solve_lanes
     from photon_ml_tpu_torch.tools.probe_ell import run_probe
 
     coo = _tiny_coo()
@@ -157,6 +161,12 @@ def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
                                            coo["labels"], 2).to_batch(),
         "load_glm": lambda: load_glm(str(tmp_path)),
         "load_game_model": lambda: load_game_model(str(tmp_path)),
+        "block_diagonal": lambda: BlockDiagonalBatch.from_bucket(
+            np.ones((1, 1)), np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32),
+            np.zeros((1, 2)), np.zeros((1, 2)), np.ones((1, 2)), 2),
+        "lane_solve": lambda: lbfgs_solve_lanes(lane_adapter(
+            make_objective("logistic"), DenseBatch.from_arrays(
+                np.zeros((1, 2, 2)), np.zeros((1, 2)), device="cpu")), torch.zeros(1, 2)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[builder]()

@@ -3,8 +3,9 @@
 On the CPU a wrapper runs its kernel's plain PyTorch version, and the plain
 versions are held against dense numpy arithmetic here. The tests marked
 ``cuda`` build the kernels with nvcc and compare each one with its plain
-version on the card; they skip where there is no card. This file imports no
-JAX, so it also runs on a machine with a card and no JAX:
+version on the card (the block-diagonal batch of a COO random-effect bucket
+among them); they skip where there is no card. This file imports no JAX, so
+it also runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 """
@@ -885,3 +886,69 @@ def test_tile_fused_kernels_match_plain_and_are_deterministic(cuda, case):
     assert kernels.LAUNCHES["value_grad"] == before["value_grad"] + 8
     assert kernels.LAUNCHES["hv"] == before["hv"] + 6
     assert kernels.LAUNCHES["hv_at"] == before["hv_at"] + 2
+
+
+# -- the block-diagonal batch of a COO random-effect bucket on the card -------
+
+
+def _coo_bucket(n_ent, n_rows, k, nnz_per_row, seed=41):
+    """A COO bucket's host arrays (values, rows, cols, labels, offsets,
+    weights): E entities of R rows, the last two padding, each live row
+    ``nnz_per_row`` local features of K."""
+    rng = np.random.default_rng(seed)
+    live = n_rows - 2
+    rows = np.broadcast_to(np.repeat(np.arange(live, dtype=np.int32), nnz_per_row),
+                           (n_ent, live * nnz_per_row))
+    cols = rng.integers(0, k, size=rows.shape).astype(np.int32)
+    vals = rng.normal(size=rows.shape).astype(np.float32)
+    y = (rng.random((n_ent, n_rows)) < 0.5).astype(np.float32)
+    off = (rng.normal(size=(n_ent, n_rows)) * 0.1).astype(np.float32)
+    wgt = np.ones((n_ent, n_rows), np.float32)
+    wgt[:, live:] = 0.0
+    return vals, rows, cols, y, off, wgt
+
+
+@pytest.mark.cuda
+def test_block_diagonal_batch_matches_plain_and_is_deterministic(cuda):
+    """The sweeps of a COO bucket at a real bucket's shape (E = 2,667,
+    R = 32, K = 512, the smallest COO bucket of config #4's per-user effect
+    over its 10K-feature shard) on the card, against the same batch's plain
+    versions on the CPU, and bit-identical across two launches."""
+    from photon_ml_tpu_torch.ops.block_diagonal import BlockDiagonalBatch
+
+    n_ent, n_rows, k = 2667, 32, 512
+    arrays = _coo_bucket(n_ent, n_rows, k, 20)
+    card = BlockDiagonalBatch.from_bucket(*arrays, k, device=cuda)
+    host = BlockDiagonalBatch.from_bucket(*arrays, k, device="cpu")
+    assert card.csr.tiles is not None and card.csr.num_features == n_ent * k
+    rng = np.random.default_rng(42)
+    w = torch.from_numpy(rng.normal(size=(n_ent, k)).astype(np.float32) * 0.1)
+    r = torch.from_numpy(rng.normal(size=(n_ent, n_rows)).astype(np.float32))
+    d2 = torch.from_numpy(rng.random((n_ent, n_rows)).astype(np.float32))
+    sweeps = {
+        "margins": lambda b, w, r, d2: b.margins(w),
+        "scatter": lambda b, w, r, d2: b.scatter_features(r),
+        "scatter_sq": lambda b, w, r, d2: b.scatter_features_sq(d2),
+        "hv_at": lambda b, w, r, d2: b.fused_hv_at(d2, w, 0.0)[0],
+        "value_grad": lambda b, w, r, d2: b.fused_value_grad(w, 0.0, "logistic"),
+    }
+    before = dict(kernels.LAUNCHES)
+    on_card = [t.to(cuda) for t in (w, r, d2)]
+    for name, run in sweeps.items():
+        want = run(host, w, r, d2)
+        want = tuple(t.to(cuda) for t in want) if isinstance(want, tuple) else want.to(cuda)
+        _twice(name, lambda: run(card, *on_card), want)
+    assert kernels.LAUNCHES["csr_margins"] == before["csr_margins"] + 4
+    assert kernels.LAUNCHES["csc_scatter"] == before["csc_scatter"] + 6
+    assert kernels.LAUNCHES["hv_at"] == before["hv_at"] + 2
+    assert kernels.LAUNCHES["value_grad"] == before["value_grad"]
+
+
+@pytest.mark.cuda
+def test_block_diagonal_batch_past_the_int32_range_is_refused_on_the_card(cuda):
+    from photon_ml_tpu_torch.ops.block_diagonal import BlockDiagonalBatch
+
+    one = np.zeros((2**20, 1), np.float32)  # 2^20 entities x 2^12 features: 2^32 columns
+    with pytest.raises(ValueError, match="int32"):
+        BlockDiagonalBatch.from_bucket(one, one.astype(np.int32), one.astype(np.int32), one,
+                                       one, one, 2**12, device=cuda)

@@ -152,6 +152,10 @@ def test_dispatch_routes_newton_and_matches_the_direct_solve():
     no_hessian = a._replace(hessian=None)
     with pytest.raises(ValueError, match="dense-Hessian"):
         dispatch_solve(no_hessian, torch.zeros(E, K), cfg, device="cpu")
-    box = BoxConstraints(lower=-torch.ones(K), upper=torch.ones(K))
-    with pytest.raises(NotImplementedError, match="box constraints"):
-        dispatch_solve(a, torch.zeros(E, K), cfg, constraints=box, device="cpu")
+    box = BoxConstraints(lower=torch.full((K,), -0.2), upper=torch.full((K,), 0.2))
+    boxed = dispatch_solve(a, torch.zeros(E, K), cfg, constraints=box, device="cpu")
+    direct = newton_solve(a.value_and_grad, a.hessian, torch.zeros(E, K), a.ls_prepare,
+                          a.ls_eval, NewtonConfig(max_iterations=8, tolerance=1e-5),
+                          device="cpu", constraints=box, value=a.value)
+    assert torch.equal(boxed.w, direct.w) and torch.equal(boxed.reason, direct.reason)
+    assert bool((boxed.w.abs() <= 0.2).all()) and not torch.equal(boxed.w, got.w)
