@@ -64,6 +64,17 @@ Phases, in order; any failure exits non-zero before the last line:
            bucket's kernels against their plain versions and ``torch.mv``;
        9b. one update of the sparse per-user effect with TRON (hv_at on the
            COO buckets); 9c. the same with OWLQN (elastic net);
+       10. the CLI pipeline at config #4's width: path 6's draws written as
+           TrainingExampleAvro (4 files, the native encoder), ``cli index``
+           (a subprocess), ``cli train`` in process with path 6's config and
+           the default guard (the native decoder must read; the dataset must
+           equal path 6's draws, the FE loss per CD iteration path 6's within
+           rtol 1e-4, the AUC path 6's within 1e-3; no retry, no rollback;
+           the models, index maps and feature statistics written), ``cli
+           score`` (a subprocess, on the card by default: its scores read
+           back bit for bit as the in-process model's plus offsets, its AUC
+           equal), and ``cli glm`` in process on path 8's LIBSVM files,
+           bit-identical to path 8's sweep (best lambda, metrics, means);
        7.  the ELL probe (``photon_ml_tpu_torch.tools.probe_ell``) at 1M x 10K
            x 20: ELL against CSR ``dot_rows``, both timed;
   6. print the ``kernels`` JSON line, the card again, and the result line
@@ -78,7 +89,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import sys
+import tempfile
 import time
 import warnings
 
@@ -854,8 +868,6 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, ob
     and evaluations of the model agree bit for bit. Returns the dataset too,
     for path 9."""
     import dataclasses
-    import os
-    import tempfile
 
     import torch
 
@@ -934,12 +946,13 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, ob
     coeffs = [fe.coefficients] + [b.coefficients for b in model.models["per-user"].buckets]
     if not all(bool(c.isfinite().all()) for c in coeffs):
         bad.append("non-finite coefficients")
-    newton = []
+    newton, fe_losses = [], []
     for entry in result.history:
         it, name = entry["iteration"], entry["coordinate"]
         if name == "fixed":
             (res,) = entry["results"]
             loss0, loss = float(res.values[0]), float(res.value)
+            fe_losses.append(loss)
             print(f"path 6 cd={it} fixed: iterations={res.iterations} "
                   f"reason={CONVERGENCE_REASON_NAMES[res.reason]} loss0={loss0:.7g} "
                   f"loss={loss:.7g} seconds={entry['seconds']:.4f}", flush=True)
@@ -976,6 +989,7 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, ob
              "coeffs_per_s": coeffs_per_s, "total_coeffs": total_coeffs,
              "buckets": buckets, "newton": newton, "host_syncs": syncs,
              "max_memory_allocated": peak, "train_auc": glmix_auc, "fe_only_auc": fe_auc,
+             "fe_losses": fe_losses,
              "evaluated": evals[0], "bit_identical_twice": same,
              "final_reloaded_scores_bit_identical": reloaded_same,
              **scatter_memory(gds.__dict__["_csr_batches"].values())}
@@ -1137,8 +1151,6 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str):
     and ``csc_scatter`` in path 9, ``hv_at`` in 9b), two scorings or
     evaluations that differ, or a reloaded model that scores differently."""
     import dataclasses
-    import os
-    import tempfile
 
     import torch
 
@@ -1349,11 +1361,15 @@ def numpy_summary(values, cols, n_rows: int, n_features: int) -> dict:
             "max": hi, "min": lo, "num_nonzeros": count}
 
 
-def run_data_plane_path(seed: int, card: str) -> tuple[dict, dict]:
-    """Path 8: config #1's draws as LIBSVM files, through the data plane as a
-    user calls it: the native parser, ``to_batch`` onto the card,
-    ``validate``, ``summarize`` twice, a standardized ``train_glm`` picked by
-    held-out AUC, and ``save_glm`` / ``load_glm``. Fails unless the parsed
+def run_data_plane_path(seed: int, card: str, work: str) -> tuple[dict, dict, dict]:
+    """Path 8: config #1's draws as LIBSVM files in ``work`` (left there for
+    path 10), through the data plane as a user calls it: the native parser,
+    ``to_batch`` onto the card, ``validate``, ``summarize`` twice, a
+    standardized ``train_glm`` picked by held-out AUC, each lambda's held-out
+    metric map (``diagnostics.evaluate``), and ``save_glm`` / ``load_glm``.
+    Returns the launches, the stats, and what path 10's ``cli glm`` must
+    repeat bit for bit: the files, the best lambda and its AUC, each
+    lambda's metrics and means. Fails unless the parsed
     arrays equal the draws as written, the two summaries are bit-identical
     and within the reference test's tolerances of a float64 numpy summary,
     the scatter kernel launched in ``summarize``, the loss fell from the
@@ -1361,8 +1377,6 @@ def run_data_plane_path(seed: int, card: str) -> tuple[dict, dict]:
     coefficients and train AUC above 0.6, and the loaded model's means and
     held-out scores are bit-identical to the trained one's."""
     import dataclasses
-    import os
-    import tempfile
 
     import torch
 
@@ -1376,135 +1390,137 @@ def run_data_plane_path(seed: int, card: str) -> tuple[dict, dict]:
     )
     from photon_ml_tpu_torch.data.libsvm import write_libsvm
     from photon_ml_tpu_torch.data.model_store import load_glm, save_glm
+    from photon_ml_tpu_torch.diagnostics import evaluate
     from photon_ml_tpu_torch.evaluation.evaluators import auc
     from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
     from photon_ml_tpu_torch.training import select_best_model, train_glm
 
-    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build_dir, exist_ok=True)
     stats, bad = {}, []
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        rng = np.random.default_rng(seed)
-        t0 = time.perf_counter()
-        values, rows, cols, y, w_true = draw_problem(rng, N_ROWS, N_FEATURES, NNZ_PER_ROW)
-        h_values, h_rows, h_cols, h_y, _ = draw_problem(rng, N_HELDOUT, N_FEATURES,
-                                                        NNZ_PER_ROW, w_true)
-        stats["draw_s"] = time.perf_counter() - t0
-        train_path, heldout_path = os.path.join(tmp, "train.libsvm"), os.path.join(
-            tmp, "heldout.libsvm")
-        t0 = time.perf_counter()
-        written = write_libsvm(train_path, values, rows, cols, 2.0 * y - 1.0)
-        write_libsvm(heldout_path, h_values, h_rows, h_cols, 2.0 * h_y - 1.0)
-        stats["write_s"] = time.perf_counter() - t0
-        stats["file_bytes"] = os.path.getsize(train_path) + os.path.getsize(heldout_path)
-        del values, h_values
-        print(f"path 8 write: rows={N_ROWS}+{N_HELDOUT} bytes={stats['file_bytes']} "
-              f"write_s={stats['write_s']:.4f}", flush=True)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    values, rows, cols, y, w_true = draw_problem(rng, N_ROWS, N_FEATURES, NNZ_PER_ROW)
+    h_values, h_rows, h_cols, h_y, _ = draw_problem(rng, N_HELDOUT, N_FEATURES,
+                                                    NNZ_PER_ROW, w_true)
+    stats["draw_s"] = time.perf_counter() - t0
+    train_path, heldout_path = os.path.join(work, "train.libsvm"), os.path.join(
+        work, "heldout.libsvm")
+    t0 = time.perf_counter()
+    written = write_libsvm(train_path, values, rows, cols, 2.0 * y - 1.0)
+    write_libsvm(heldout_path, h_values, h_rows, h_cols, 2.0 * h_y - 1.0)
+    stats["write_s"] = time.perf_counter() - t0
+    stats["file_bytes"] = os.path.getsize(train_path) + os.path.getsize(heldout_path)
+    del values, h_values
+    print(f"path 8 write: rows={N_ROWS}+{N_HELDOUT} bytes={stats['file_bytes']} "
+          f"write_s={stats['write_s']:.4f}", flush=True)
 
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t_path = time.perf_counter()
-        t0 = time.perf_counter()
-        data = read_libsvm(train_path, engine="native")
-        heldout_data = read_libsvm(heldout_path, engine="native")
-        stats["parse_s"] = time.perf_counter() - t0
-        same = (np.array_equal(data.rows, rows) and np.array_equal(data.cols, cols)
-                and np.array_equal(data.values, written) and np.array_equal(data.labels, y))
-        if not same:
-            raise RuntimeError("path 8: the parsed rows, columns or values differ from the "
-                               "draws as written")
-        t0 = time.perf_counter()
-        batch = data.to_batch(num_features=N_FEATURES, add_intercept=True)
-        heldout = heldout_data.to_batch(num_features=N_FEATURES, add_intercept=True)
-        torch.cuda.synchronize()
-        stats["build_s"] = time.perf_counter() - t0
-        stats.update(rows=batch.num_rows, nnz=batch.nnz)
-        t0 = time.perf_counter()
-        validate(batch, "logistic", mode=ValidationMode.FULL)
-        stats["validate_s"] = time.perf_counter() - t0
-        print(f"path 8 read: rows={batch.num_rows} nnz={batch.nnz} "
-              f"parse_s={stats['parse_s']:.4f} build_s={stats['build_s']:.4f} "
-              f"validate_s={stats['validate_s']:.4f}", flush=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    data = read_libsvm(train_path, engine="native")
+    heldout_data = read_libsvm(heldout_path, engine="native")
+    stats["parse_s"] = time.perf_counter() - t0
+    same = (np.array_equal(data.rows, rows) and np.array_equal(data.cols, cols)
+            and np.array_equal(data.values, written) and np.array_equal(data.labels, y))
+    if not same:
+        raise RuntimeError("path 8: the parsed rows, columns or values differ from the "
+                           "draws as written")
+    t0 = time.perf_counter()
+    batch = data.to_batch(num_features=N_FEATURES, add_intercept=True)
+    heldout = heldout_data.to_batch(num_features=N_FEATURES, add_intercept=True)
+    torch.cuda.synchronize()
+    stats["build_s"] = time.perf_counter() - t0
+    stats.update(rows=batch.num_rows, nnz=batch.nnz)
+    t0 = time.perf_counter()
+    validate(batch, "logistic", mode=ValidationMode.FULL)
+    stats["validate_s"] = time.perf_counter() - t0
+    print(f"path 8 read: rows={batch.num_rows} nnz={batch.nnz} "
+          f"parse_s={stats['parse_s']:.4f} build_s={stats['build_s']:.4f} "
+          f"validate_s={stats['validate_s']:.4f}", flush=True)
 
-        scatter_before = kernels.LAUNCHES["csc_scatter"]
-        summaries = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            summaries.append(summarize(batch))
-            torch.cuda.synchronize()
-            stats.setdefault("summarize_s", []).append(time.perf_counter() - t0)
-        stats["summarize_scatter_launches"] = kernels.LAUNCHES["csc_scatter"] - scatter_before
-        first, again = (dataclasses.asdict(x) for x in summaries)
-        identical = all(torch.equal(first[k], again[k]) for k in first)
-        want = numpy_summary(written, cols, N_ROWS, N_FEATURES)
-        got = {k: first[k][:N_FEATURES].double().cpu().numpy() for k in want}
-        checks = {
-            "mean": np.allclose(got["mean"], want["mean"], rtol=1e-4, atol=1e-5),
-            "variance": np.allclose(got["variance"], want["variance"], rtol=1e-3, atol=1e-5),
-            "max": np.array_equal(got["max"], want["max"].astype(np.float32)),
-            "min": np.array_equal(got["min"], want["min"].astype(np.float32)),
-            "num_nonzeros": np.array_equal(got["num_nonzeros"], want["num_nonzeros"]),
-            "intercept": (float(first["mean"][N_FEATURES]) == 1.0
-                          and float(first["variance"][N_FEATURES]) == 0.0),
-        }
-        errs = {k: float(np.max(np.abs(got[k] - want[k]))) for k in ("mean", "variance")}
-        print(f"path 8 summarize: summarize_s={stats['summarize_s']} "
-              f"scatter_launches={stats['summarize_scatter_launches']} "
-              f"bit_identical={identical} checks={json.dumps(checks)} "
-              f"max_abs_err={json.dumps(errs)}", flush=True)
-        if not identical:
-            bad.append("two summaries differ")
-        if not all(checks.values()):
-            bad.append(f"summary against float64 numpy: {checks}")
-        if stats["summarize_scatter_launches"] == 0:
-            bad.append("csc_scatter did not launch in summarize")
-        del rows, cols, written
-
-        t0 = time.perf_counter()
-        ctx = build_normalization_context("standardization", summaries[0],
-                                          data.intercept_index)
-        entries = train_glm(batch, "logistic", [10.0, 1.0], solver_config("lbfgs", 20),
-                            normalization=ctx)
-        best, heldout_auc = select_best_model(entries, heldout)
+    scatter_before = kernels.LAUNCHES["csc_scatter"]
+    summaries = []
+    for _ in range(2):
         torch.cuda.synchronize()
-        stats["train_s"] = time.perf_counter() - t0
-        model = best.model
-        # lambda 1 starts at lambda 10's optimum, which standardization leaves
-        # within float32 rounding of its own: each solve must end no higher
-        # than it began, and below the sweep's start, the zero model
-        sweep_loss0 = max(float(e.result.values[0]) for e in entries)
-        for e in entries:
-            res = e.result
-            loss0, loss = float(res.values[0]), float(res.value)
-            train_auc = float(auc(e.model.compute_score(batch), batch.labels, batch.weights))
-            print(f"path 8 lambda={e.reg_weight}: iterations={res.iterations} "
-                  f"reason={CONVERGENCE_REASON_NAMES[res.reason]} loss0={loss0:.7g} "
-                  f"loss={loss:.7g} train_auc={train_auc:.6f}", flush=True)
-            if not (loss <= loss0 and loss < sweep_loss0):
-                bad.append(f"lambda {e.reg_weight}: loss did not fall")
-            if not bool(e.model.coefficients.means.isfinite().all()):
-                bad.append(f"lambda {e.reg_weight}: non-finite coefficients")
-            if not train_auc > 0.6:
-                bad.append(f"lambda {e.reg_weight}: train auc {train_auc}")
-        stats.update(best_lambda=best.reg_weight, heldout_auc=heldout_auc)
-
         t0 = time.perf_counter()
-        model_dir = os.path.join(tmp, "glm")
-        save_glm(model, model_dir)
-        loaded = load_glm(model_dir)
-        stats["save_load_s"] = time.perf_counter() - t0
-        same_means = torch.equal(loaded.coefficients.means, model.coefficients.means)
-        same_scores = torch.equal(loaded.compute_score(heldout), model.compute_score(heldout))
+        summaries.append(summarize(batch))
         torch.cuda.synchronize()
-        stats["path_s"] = time.perf_counter() - t_path
-        launches = dict(kernels.LAUNCHES)
-        print(f"path 8 model: best_lambda={best.reg_weight} heldout_auc={heldout_auc:.6f} "
-              f"train_s={stats['train_s']:.4f} save_load_s={stats['save_load_s']:.4f} "
-              f"means_bit_identical={same_means} heldout_scores_bit_identical={same_scores}",
-              flush=True)
-        if not (same_means and same_scores):
-            bad.append("the loaded model differs from the saved one")
+        stats.setdefault("summarize_s", []).append(time.perf_counter() - t0)
+    stats["summarize_scatter_launches"] = kernels.LAUNCHES["csc_scatter"] - scatter_before
+    first, again = (dataclasses.asdict(x) for x in summaries)
+    identical = all(torch.equal(first[k], again[k]) for k in first)
+    want = numpy_summary(written, cols, N_ROWS, N_FEATURES)
+    got = {k: first[k][:N_FEATURES].double().cpu().numpy() for k in want}
+    checks = {
+        "mean": np.allclose(got["mean"], want["mean"], rtol=1e-4, atol=1e-5),
+        "variance": np.allclose(got["variance"], want["variance"], rtol=1e-3, atol=1e-5),
+        "max": np.array_equal(got["max"], want["max"].astype(np.float32)),
+        "min": np.array_equal(got["min"], want["min"].astype(np.float32)),
+        "num_nonzeros": np.array_equal(got["num_nonzeros"], want["num_nonzeros"]),
+        "intercept": (float(first["mean"][N_FEATURES]) == 1.0
+                      and float(first["variance"][N_FEATURES]) == 0.0),
+    }
+    errs = {k: float(np.max(np.abs(got[k] - want[k]))) for k in ("mean", "variance")}
+    print(f"path 8 summarize: summarize_s={stats['summarize_s']} "
+          f"scatter_launches={stats['summarize_scatter_launches']} "
+          f"bit_identical={identical} checks={json.dumps(checks)} "
+          f"max_abs_err={json.dumps(errs)}", flush=True)
+    if not identical:
+        bad.append("two summaries differ")
+    if not all(checks.values()):
+        bad.append(f"summary against float64 numpy: {checks}")
+    if stats["summarize_scatter_launches"] == 0:
+        bad.append("csc_scatter did not launch in summarize")
+    del rows, cols, written
+
+    t0 = time.perf_counter()
+    ctx = build_normalization_context("standardization", summaries[0],
+                                      data.intercept_index)
+    entries = train_glm(batch, "logistic", [10.0, 1.0], solver_config("lbfgs", 20),
+                        normalization=ctx)
+    best, heldout_auc = select_best_model(entries, heldout)
+    torch.cuda.synchronize()
+    stats["train_s"] = time.perf_counter() - t0
+    model = best.model
+    # lambda 1 starts at lambda 10's optimum, which standardization leaves
+    # within float32 rounding of its own: each solve must end no higher
+    # than it began, and below the sweep's start, the zero model
+    sweep_loss0 = max(float(e.result.values[0]) for e in entries)
+    for e in entries:
+        res = e.result
+        loss0, loss = float(res.values[0]), float(res.value)
+        train_auc = float(auc(e.model.compute_score(batch), batch.labels, batch.weights))
+        print(f"path 8 lambda={e.reg_weight}: iterations={res.iterations} "
+              f"reason={CONVERGENCE_REASON_NAMES[res.reason]} loss0={loss0:.7g} "
+              f"loss={loss:.7g} train_auc={train_auc:.6f}", flush=True)
+        if not (loss <= loss0 and loss < sweep_loss0):
+            bad.append(f"lambda {e.reg_weight}: loss did not fall")
+        if not bool(e.model.coefficients.means.isfinite().all()):
+            bad.append(f"lambda {e.reg_weight}: non-finite coefficients")
+        if not train_auc > 0.6:
+            bad.append(f"lambda {e.reg_weight}: train auc {train_auc}")
+    stats.update(best_lambda=best.reg_weight, heldout_auc=heldout_auc)
+    reference = {"train_path": train_path, "heldout_path": heldout_path,
+                 "best_lambda": best.reg_weight, "heldout_auc": heldout_auc,
+                 "metrics": {e.reg_weight: evaluate(e.model, heldout) for e in entries},
+                 "means": {e.reg_weight: e.model.coefficients.means.cpu() for e in entries}}
+
+    t0 = time.perf_counter()
+    model_dir = os.path.join(work, "glm")
+    save_glm(model, model_dir)
+    loaded = load_glm(model_dir)
+    stats["save_load_s"] = time.perf_counter() - t0
+    same_means = torch.equal(loaded.coefficients.means, model.coefficients.means)
+    same_scores = torch.equal(loaded.compute_score(heldout), model.compute_score(heldout))
+    torch.cuda.synchronize()
+    stats["path_s"] = time.perf_counter() - t_path
+    launches = dict(kernels.LAUNCHES)
+    print(f"path 8 model: best_lambda={best.reg_weight} heldout_auc={heldout_auc:.6f} "
+          f"train_s={stats['train_s']:.4f} save_load_s={stats['save_load_s']:.4f} "
+          f"means_bit_identical={same_means} heldout_scores_bit_identical={same_scores}",
+          flush=True)
+    if not (same_means and same_scores):
+        bad.append("the loaded model differs from the saved one")
     print(f"path 8: rows={stats['rows']} nnz={stats['nnz']} write_s={stats['write_s']:.4f} "
           f"parse_s={stats['parse_s']:.4f} build_s={stats['build_s']:.4f} "
           f"validate_s={stats['validate_s']:.4f} "
@@ -1517,6 +1533,295 @@ def run_data_plane_path(seed: int, card: str) -> tuple[dict, dict]:
     missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
     if missing:
         raise RuntimeError(f"path 8: kernels not launched: {missing}")
+    return launches, stats, reference
+
+
+def _run_cli_in_process(argv: list[str]) -> dict:
+    """``photon_ml_tpu_torch.cli.__main__.main(argv)`` in this process; its
+    JSON summary (the last line it prints) is returned."""
+    import contextlib
+    import io
+
+    from photon_ml_tpu_torch.cli.__main__ import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise RuntimeError(f"cli {argv[0]} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _run_cli_subprocess(argv: list[str], root: str) -> tuple[dict, float]:
+    """``python -m photon_ml_tpu_torch.cli <argv>`` from the checkout's root:
+    (its JSON summary, its seconds), its timed phases printed. Fails on a
+    non-zero exit."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli", *argv], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli {argv[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    for line in proc.stderr.splitlines():  # the driver's timed phases
+        if " INFO photon_ml_tpu_torch: " in line:
+            print(f"path 10 {argv[0]} log: {line.split(' INFO ', 1)[1]}", flush=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
+
+
+def _same_or_both_nan(a: float, b: float) -> bool:
+    return a == b or (a != a and b != b)
+
+
+def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> tuple[dict, dict]:
+    """Path 10: the CLI pipeline at config #4's full width, as a user runs it.
+    Path 6's draws go out as TrainingExampleAvro in 4 files through the
+    native encoder; ``cli index`` (a subprocess) indexes them; ``cli train``
+    (in process, the guard on by default) reads them with the native decoder
+    and fits path 6's GLMix; ``cli score`` (a subprocess, on the card by
+    default) scores the training files with ``final/``; ``cli glm`` (in
+    process) repeats path 8's GLM sweep on its LIBSVM files. Fails unless the
+    native reader ran, the dataset equals path 6's draws (columns mapped back
+    through the saved index map), the fixed effect's loss per CD iteration is
+    within rtol 1e-4 of path 6's, the train AUC within 1e-3 of path 6's GLMix
+    AUC and above its fixed effect's alone, the guard neither retried nor
+    rolled back, ``final/``, ``best/``, the index maps and the feature
+    statistics were written, ``csr_margins`` and ``csc_scatter`` launched,
+    the scores read back from the scoring output equal the in-process
+    model's plus offsets bit for bit (and the AUC), and ``cli glm``'s stages,
+    best lambda, metrics and means equal path 8's bit for bit."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.cli import train as cli_train
+    from photon_ml_tpu_torch.data.avro import read_scoring_results, write_training_examples_fast
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.data.model_store import load_glm
+    from photon_ml_tpu_torch.data.native import load_avro_native
+    from photon_ml_tpu_torch.evaluation.evaluators import auc
+    from photon_ml_tpu_torch.game import GameEstimator
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    if load_avro_native() is None:
+        raise RuntimeError("path 10: the native Avro library (build/native/libphoton_avro.so, "
+                           "native/avro_*.cpp with -lz) did not build or load")
+    stats, bad = {"card": card}, []
+
+    # 1. path 6's draws as TrainingExampleAvro, 4 files, null codec
+    fe_vals, fe_rows, fe_cols, users, Xu, y = make_game_problem(seed)
+    data_dir = os.path.join(work, "avro")
+    os.makedirs(data_dir)
+    names = [f"f{j}" for j in range(N_FEATURES)] + [f"u{k}" for k in range(GAME_RE_FEATURES)]
+    vocab = [str(u) for u in range(GAME_USERS)]
+    bounds = np.linspace(0, N_ROWS, 5).astype(np.int64)
+    t0 = time.perf_counter()
+    for part in range(4):
+        lo, hi = int(bounds[part]), int(bounds[part + 1])
+        m = hi - lo
+        bags = {
+            "global": (np.arange(m + 1, dtype=np.int64) * NNZ_PER_ROW,
+                       fe_cols[lo * NNZ_PER_ROW:hi * NNZ_PER_ROW],
+                       fe_vals[lo * NNZ_PER_ROW:hi * NNZ_PER_ROW]),
+            "user": (np.arange(m + 1, dtype=np.int64) * GAME_RE_FEATURES,
+                     np.tile(np.arange(GAME_RE_FEATURES) + N_FEATURES, m), Xu[lo:hi].ravel()),
+        }
+        write_training_examples_fast(os.path.join(data_dir, f"part-{part}.avro"), y[lo:hi],
+                                     bags, names, {"userId": (users[lo:hi], vocab)})
+    stats["write_s"] = time.perf_counter() - t0
+    stats["avro_bytes"] = sum(os.path.getsize(os.path.join(data_dir, f))
+                              for f in os.listdir(data_dir))
+    print(f"path 10 write: rows={N_ROWS} files=4 bytes={stats['avro_bytes']} "
+          f"write_s={stats['write_s']:.4f} card={card}", flush=True)
+
+    # 2. cli index, a subprocess
+    idx_dir = os.path.join(work, "index")
+    index, stats["index_s"] = _run_cli_subprocess(
+        ["index", "--input", data_dir, "--output", idx_dir, "--shards", "global:global",
+         "user:user", "--no-intercept"], root)
+    stats["index_features"] = {k: v["num_features"] for k, v in index.items()}
+    print(f"path 10 index: features={json.dumps(stats['index_features'])} "
+          f"index_s={stats['index_s']:.4f} card={card}", flush=True)
+    if stats["index_features"] != {"global": N_FEATURES, "user": GAME_RE_FEATURES}:
+        bad.append(f"cli index wrote {stats['index_features']}")
+
+    # 3. cli train, in process, with path 6's config and the default guard
+    out = os.path.join(work, "model")
+    inp = {"format": "avro", "paths": [data_dir], "add_intercept": False,
+           "feature_shards": {"global": ["global"], "user": ["user"]}, "id_columns": ["userId"]}
+    lbfgs = {"type": "lbfgs", "max_iterations": 20, "tolerance": 0.0, "regularization": "l2",
+             "regularization_weight": 1.0}
+    config = {"task": "logistic", "input": inp, "num_iterations": GAME_CD_ITERATIONS,
+              "output_dir": out, "coordinates": {
+                  "fixed": {"type": "fixed_effect", "shard_name": "global", "optimizer": lbfgs},
+                  "per-user": {"type": "random_effect", "shard_name": "user",
+                               "id_name": "userId",
+                               "optimizer": {**lbfgs, "type": "newton", "tolerance": 1e-7}}}}
+    train_cfg = os.path.join(work, "train.json")
+    with open(train_cfg, "w") as fh:
+        json.dump(config, fh)
+    # the driver's dataset and fit result, as it builds them
+    seen, read_input, fit = {}, cli_train.read_input, GameEstimator.fit
+
+    def spy_read(*a, **k):
+        t = time.perf_counter()
+        seen.setdefault("read", read_input(*a, **k))
+        stats.setdefault("read_s", time.perf_counter() - t)
+        return seen["read"]
+
+    def spy_fit(self, *a, **k):
+        t = time.perf_counter()
+        seen["fit"] = fit(self, *a, **k)
+        torch.cuda.synchronize()
+        stats["fit_s"] = time.perf_counter() - t
+        return seen["fit"]
+
+    cli_train.read_input, GameEstimator.fit = spy_read, spy_fit
+    torch.cuda.synchronize()
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = _run_cli_in_process(["train", "--config", train_cfg])
+    finally:
+        cli_train.read_input, GameEstimator.fit = read_input, fit
+    torch.cuda.synchronize()
+    stats["train_s"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    counters = telemetry.snapshot()["counters"]
+    stats.update(avro_reads={k: v for k, v in counters.items() if k.startswith("avro.")},
+                 guard={k: counters.get(k, 0) for k in ("solves.diverged", "solves.retried",
+                                                       "solves.rolled_back", "solves.frozen")})
+    ds, maps = seen["read"]
+    model = seen["fit"].model
+    if counters.get("avro.native_reads", 0) < 1 or counters.get("avro.python_reads", 0):
+        bad.append(f"the native Avro reader did not read the training data: "
+                   f"{stats['avro_reads']}")
+
+    # the dataset against path 6's draws, columns mapped back through the maps
+    fe_j = np.asarray([int(k[1:]) for k in maps["global"].names])
+    u_k = np.asarray([int(k[1:]) for k in maps["user"].names])
+    g, u = ds.shard("global"), ds.shard("user")
+    same = {
+        "labels": np.array_equal(ds.response, y),
+        "global": (np.array_equal(g.rows, fe_rows) and np.array_equal(fe_j[g.cols], fe_cols)
+                   and np.array_equal(g.values, fe_vals.astype(np.float32))),
+        "user": (np.array_equal(u.rows, np.repeat(np.arange(N_ROWS), GAME_RE_FEATURES))
+                 and np.array_equal(u_k[u.cols], np.tile(np.arange(GAME_RE_FEATURES), N_ROWS))
+                 and np.array_equal(u.values, Xu.ravel().astype(np.float32))),
+        "userId": (set(ds.id_columns["userId"].vocab.tolist()) == {str(v) for v in
+                                                                   np.unique(users)}
+                   and np.array_equal(ds.id_columns["userId"].vocab[ds.id_columns["userId"]
+                                      .codes].astype(np.int64), users)),
+        "index_maps": all(maps[s].names == IndexMap.load(os.path.join(idx_dir, s)).names
+                          for s in ("global", "user")),
+    }
+    if not all(same.values()):
+        bad.append(f"the CLI's dataset differs from path 6's draws: {same}")
+    del fe_vals, fe_rows, fe_cols, Xu
+
+    fe_losses = [float(e["results"][0].value) for e in seen["fit"].history
+                 if e["coordinate"] == "fixed"]
+    loss_ok = len(fe_losses) == len(game["fe_losses"]) and all(
+        abs(a - b) <= LOSS_RTOL * abs(b) for a, b in zip(fe_losses, game["fe_losses"]))
+    labels, weights = ds.per_row(ds.response), ds.per_row(ds.weight)
+    scores = model.score(ds).cpu().numpy() + ds.offset
+    train_auc = float(auc(ds.per_row(scores), labels, weights))
+    written = {p: os.path.exists(os.path.join(out, p)) for p in (
+        "final/model-metadata.json", "best/model-metadata.json", "final/feature-indexes/global",
+        "final/feature-indexes/user", "best/feature-indexes/global", "best/feature-indexes/user",
+        "feature-stats/global.avro", "feature-stats/user.avro")}
+    stats.update(fe_losses=fe_losses, path6_fe_losses=game["fe_losses"], train_auc=train_auc,
+                 path6_auc=game["train_auc"], same=same, written=written, launches=launches,
+                 history=[{k: v for k, v in e.items() if k not in ("results", "launches")}
+                          for e in summary["history"]])
+    print(f"path 10 train: read_s={stats['read_s']:.4f} fit_s={stats['fit_s']:.4f} "
+          f"train_s={stats['train_s']:.4f} avro_reads={json.dumps(stats['avro_reads'])} "
+          f"dataset_equal={json.dumps(same)} fe_losses={fe_losses} "
+          f"path6_fe_losses={game['fe_losses']} train_auc={train_auc:.6f} "
+          f"path6_auc={game['train_auc']:.6f} path6_fe_only_auc={game['fe_only_auc']:.6f} "
+          f"guard={json.dumps(stats['guard'])} written={json.dumps(written)} "
+          f"launches={json.dumps(launches)} card={card}", flush=True)
+    if not loss_ok:
+        bad.append(f"fixed-effect losses {fe_losses} vs path 6's {game['fe_losses']}")
+    if not (abs(train_auc - game["train_auc"]) <= 1e-3 and train_auc > game["fe_only_auc"]):
+        bad.append(f"train auc {train_auc} vs path 6's {game['train_auc']} (fixed effect "
+                   f"alone {game['fe_only_auc']})")
+    if stats["guard"]["solves.retried"] or stats["guard"]["solves.rolled_back"]:
+        bad.append(f"the guard retried or rolled back: {stats['guard']}")
+    if not all(written.values()):
+        bad.append(f"missing outputs: {written}")
+    missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
+    if missing:
+        bad.append(f"kernels not launched in cli train: {missing}")
+
+    # 4. cli score, a subprocess on the card by default, on the training files
+    score_cfg = os.path.join(work, "score.json")
+    with open(score_cfg, "w") as fh:
+        json.dump({"input": inp}, fh)
+    scores_path = os.path.join(work, "scores.avro")
+    scored, stats["score_s"] = _run_cli_subprocess(
+        ["score", "--model-dir", os.path.join(out, "final"), "--config", score_cfg,
+         "--output", scores_path, "--evaluators", "auc"], root)
+    t0 = time.perf_counter()
+    read_back = np.asarray([r["predictionScore"] for r in read_scoring_results(scores_path)])
+    stats["score_read_back_s"] = time.perf_counter() - t0
+    score_same = {"scores": np.array_equal(read_back, scores),
+                  "auc": scored["metrics"]["auc"] == train_auc,
+                  "rows": scored["num_rows"] == N_ROWS}
+    stats.update(score_same=score_same, score_auc=scored["metrics"]["auc"])
+    print(f"path 10 score: score_s={stats['score_s']:.4f} (a subprocess) "
+          f"read_back_s={stats['score_read_back_s']:.4f} auc={scored['metrics']['auc']:.9g} "
+          f"bit_identical={json.dumps(score_same)} card={card}", flush=True)
+    if not all(score_same.values()):
+        bad.append(f"cli score differs from the in-process model: {score_same}")
+    del ds, model, seen, scores, read_back
+    torch.cuda.empty_cache()
+
+    # 5. cli glm, in process, on path 8's LIBSVM files with path 8's settings
+    glm_out = os.path.join(work, "glm_driver")
+    glm_cfg = os.path.join(work, "glm.json")
+    with open(glm_cfg, "w") as fh:
+        json.dump({"task": "logistic", "input": {"format": "libsvm", "num_features": N_FEATURES,
+                                                 "paths": [glm_ref["train_path"]]},
+                   "validation": {"paths": [glm_ref["heldout_path"]]},
+                   "optimizer": {"type": "lbfgs", "max_iterations": 20, "tolerance": 0.0,
+                                 "regularization": "l2"},
+                   "lambdas": [10.0, 1.0], "normalization": "standardization",
+                   "output_dir": glm_out}, fh)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    glm = _run_cli_in_process(["glm", "--config", glm_cfg])
+    torch.cuda.synchronize()
+    stats["glm_s"] = time.perf_counter() - t0
+    for k, n in kernels.LAUNCHES.items():
+        launches[k] += n
+    glm_same = {
+        "stages": glm["stages"] == ["INIT", "PREPROCESSED", "TRAINED", "VALIDATED"],
+        "best_lambda": glm["best_lambda"] == glm_ref["best_lambda"],
+        "best_metric": glm["best_metric"] == glm_ref["heldout_auc"],
+        "metrics": all(
+            sorted(glm["metrics"][str(lam)]) == sorted(ref)
+            and all(_same_or_both_nan(glm["metrics"][str(lam)][k], v) for k, v in ref.items())
+            for lam, ref in glm_ref["metrics"].items()),
+        "means": all(torch.equal(load_glm(os.path.join(glm_out, "models", f"lambda-{lam}"))
+                                 .coefficients.means.cpu(), ref)
+                     for lam, ref in glm_ref["means"].items()),
+    }
+    stats.update(glm_same=glm_same, glm_best_lambda=glm["best_lambda"],
+                 glm_best_metric=glm["best_metric"])
+    print(f"path 10 glm: glm_s={stats['glm_s']:.4f} stages={glm['stages']} "
+          f"best_lambda={glm['best_lambda']} best_metric={glm['best_metric']:.9g} "
+          f"bit_identical_to_path_8={json.dumps(glm_same)} card={card}", flush=True)
+    if not all(glm_same.values()):
+        bad.append(f"cli glm differs from path 8: {glm_same}")
+    print(f"path 10: write_s={stats['write_s']:.4f} index_s={stats['index_s']:.4f} "
+          f"train_s={stats['train_s']:.4f} score_s={stats['score_s']:.4f} "
+          f"glm_s={stats['glm_s']:.4f} launches={json.dumps(launches)} card={card}",
+          flush=True)
+    if bad:
+        raise RuntimeError(f"path 10: bad result: {bad}")
     return launches, stats
 
 
@@ -1613,7 +1918,26 @@ def main() -> int:
 
     run_suite_paths(args.seed, args.profile, by_path, train, prof)
 
-    by_path["8"], train["8"] = run_data_plane_path(args.seed, card)
+    # paths 8 and 10 share this directory (path 8's LIBSVM files); it goes
+    # when the run ends, whatever its outcome
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(dir=build_dir)
+    try:
+        return _run_paths(args, card, kernel_rows, work, by_path, train, prof)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, train: dict,
+               prof: dict) -> int:
+    """Paths 8, 6, 9-9c, 10 and 7, then the ``kernels`` line and the result
+    line; ``work`` holds path 8's files for path 10."""
+    import torch
+
+    from photon_ml_tpu_torch.tools.probe_ell import card_line
+
+    by_path["8"], train["8"], glm_ref = run_data_plane_path(args.seed, card, work)
     torch.cuda.empty_cache()
 
     by_path["6"], train["6"], game_prof, gds = run_game_path(args.seed, args.profile)
@@ -1628,6 +1952,11 @@ def main() -> int:
     if re_prof is not None:
         prof["9"] = re_prof
     del gds
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    by_path["10"], train["10"] = run_cli_path(args.seed, card, work, train["6"], glm_ref)
+    train["10"]["path_s"] = time.perf_counter() - t0
+    print(f"path 10: {train['10']['path_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
     by_path["7"], train["7"] = run_probe_path(args.seed)
 

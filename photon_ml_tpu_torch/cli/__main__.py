@@ -1,0 +1,54 @@
+"""CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|score|glm|index} ...
+
+Counterpart of ``photon_ml_tpu/cli/__main__.py``, with the same usage text
+and dispatch. ``refresh``, ``pipeline``, ``serve``, ``report`` and
+``profile`` raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 14), and
+so does ``sweep`` (item 11). ``train``, ``score`` and ``glm`` take
+``--device`` (default ``cuda``).
+"""
+
+import sys
+
+_NOT_PORTED = {"refresh": 14, "pipeline": 14, "serve": 14, "report": 14, "profile": 14,
+               "sweep": 11}
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: python -m photon_ml_tpu_torch.cli {train|refresh|pipeline|sweep|score|serve|glm|index|report|profile} [options]")
+        print("  train --config <json> [--output-dir <dir>] [--device cuda|cpu]   GAME training")
+        print("  refresh, pipeline, serve, report, profile   not ported (ROADMAP.md Queue 1 item 14)")
+        print("  sweep   not ported (ROADMAP.md Queue 1 item 11)")
+        print("  score --model-dir <dir> --config <json> [--output <avro>] [--device cuda|cpu]")
+        print("  glm   --config <json> [--output-dir <dir>] [--device cuda|cpu]   staged legacy GLM")
+        print("  index --input <avro...> --output <dir>       feature index build")
+        return 0 if argv else 2
+    cmd, rest = argv[0], argv[1:]
+    if cmd in _NOT_PORTED:
+        raise NotImplementedError(
+            f"the '{cmd}' subcommand is not ported to photon_ml_tpu_torch yet "
+            f"(ROADMAP.md Queue 1 item {_NOT_PORTED[cmd]})")
+    if cmd == "train":
+        from photon_ml_tpu_torch.cli.train import main as train_main
+
+        return train_main(rest)
+    if cmd == "score":
+        from photon_ml_tpu_torch.cli.score import main as score_main
+
+        return score_main(rest)
+    if cmd == "glm":
+        from photon_ml_tpu_torch.cli.glm import main as glm_main
+
+        return glm_main(rest)
+    if cmd == "index":
+        from photon_ml_tpu_torch.cli.index import main as index_main
+
+        return index_main(rest)
+    print(f"unknown command '{cmd}' (expected train|refresh|pipeline|sweep|score|serve|glm|"
+          "index|report|profile)", file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,254 @@
+"""GAME training driver.
+
+Counterpart of ``photon_ml_tpu/cli/train.py``: read the training (and
+validation) data, fit the configured coordinates with ``GameEstimator``
+under the coordinate-descent guard, save the final and best models, the
+index maps and the feature statistics, and print a JSON summary:
+
+    python -m photon_ml_tpu_torch.cli train --config train.json [--device cuda|cpu]
+
+The config document is the reference's (``coordinates`` in updating order):
+
+    {
+      "task": "logistic",
+      "input": {"format": "avro", "paths": ["train/"],
+                "feature_shards": {"global": ["features"]},
+                "id_columns": ["userId"], "add_intercept": true},
+      "validation": {"paths": ["validate/"]},
+      "coordinates": {"fixed": {"type": "fixed_effect",
+                                "shard_name": "global",
+                                "optimizer": {"regularization": "l2",
+                                               "regularization_weight": 1.0}}},
+      "num_iterations": 1,
+      "evaluators": ["auc"],
+      "output_dir": "out/model"
+    }
+
+``--device`` (default ``cuda``) is the port's one added argument. The guard
+is on unless the config says ``"guard": false``; ``event_listeners`` loads
+listeners by dotted path. The reference's progress heartbeat (a log line
+every ~30 s) is not started. Every key and flag the port cannot honour yet
+raises ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
+``sweep`` and ``--sweep*`` (11); ``warm_start``, ``--warm-start``,
+``--delta``, ``--refresh-registry-dir``, ``--lambda-points`` (14);
+``input.ingest``, ``--ingest-workers``, ``--prefetch-depth`` (13);
+``mesh``, ``distributed``, ``--mesh`` (12); ``checkpoint``,
+``--checkpoint-*``, ``--resume`` (10); ``trace_out``, ``telemetry_out``,
+``report_out``, ``xprof``, their flags, a ``heartbeat`` object or interval
+and ``--heartbeat-every`` > 0 (14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.config import parse_game_config
+from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
+from photon_ml_tpu_torch.game.dataset import FeatureShard, GameDataset, build_game_dataset
+from photon_ml_tpu_torch.game.estimator import GameEstimator
+from photon_ml_tpu_torch.optim.guard import GuardSpec
+from photon_ml_tpu_torch.utils import setup_logging, timed
+
+# config keys the port refuses, with the ROADMAP.md Queue 1 item that ports them
+_REFUSED_KEYS = {"sweep": 11, "warm_start": 14, "mesh": 12, "distributed": 12,
+                 "checkpoint": 10, "trace_out": 14, "telemetry_out": 14, "report_out": 14,
+                 "xprof": 14}
+
+
+def _refuse(what: str, item: int):
+    raise NotImplementedError(NOT_PORTED.format(what, item))
+
+
+def read_input(
+    spec: Mapping,
+    is_response_required: bool = True,
+    index_maps: Optional[Mapping] = None,
+    device: torch.device | str | None = None,
+) -> tuple[GameDataset, Optional[Mapping]]:
+    """A ``GameDataset`` on ``device`` (default cuda) from an input spec
+    ({format, paths, ...}), and the index maps. For Avro, ``index_maps``
+    (per shard) pin the feature space, as scoring needs; without them one
+    scan builds them, and they are returned for the driver to save. LIBSVM
+    gives one shard (``shard_name``, default "features") with the intercept
+    last, ``num_features`` pinning the raw dimension, and no index maps."""
+    spec = dict(spec)
+    fmt = spec.pop("format", "avro")
+    paths = spec.pop("paths")
+    dr = spec.pop("date_range", None)
+    dr_ago = spec.pop("date_range_days_ago", None)
+    if dr or dr_ago:
+        if fmt != "avro":
+            raise ValueError("date_range expansion is supported for avro daily "
+                             f"directories only, not format '{fmt}'")
+        from photon_ml_tpu_torch.data.paths import expand_input_paths
+
+        if isinstance(paths, str):
+            paths = [paths]
+        paths = expand_input_paths(paths, date_range=dr, date_range_days_ago=dr_ago)
+    if fmt == "avro":
+        shards = spec.pop("feature_shards", None)
+        shards = {k: tuple(v) for k, v in (shards or {"features": ("features",)}).items()}
+        if spec.pop("ingest", None):
+            _refuse("the streamed ingest (input.ingest)", 13)
+        from photon_ml_tpu_torch.data.avro import read_game_dataset_from_avro
+
+        # one scan builds the index maps and the dataset
+        return read_game_dataset_from_avro(
+            paths, feature_shards=shards, index_maps=index_maps,
+            id_columns=tuple(spec.pop("id_columns", ())),
+            add_intercept=bool(spec.pop("add_intercept", True)),
+            is_response_required=is_response_required, return_index_maps=True,
+            device=device)
+    if fmt == "libsvm":
+        from photon_ml_tpu_torch.data.libsvm import read_libsvm
+
+        if isinstance(paths, (list, tuple)):
+            if len(paths) != 1:
+                raise ValueError("libsvm input takes exactly one path")
+            paths = paths[0]
+        lib = read_libsvm(paths)
+        values, rows, cols, d = lib.coo(num_features=spec.pop("num_features", None),
+                                        add_intercept=bool(spec.pop("add_intercept", True)))
+        labels = np.asarray(lib.labels)
+        if spec.pop("binarize_labels", True):
+            labels = (labels > 0).astype(np.float64)
+        shard = spec.pop("shard_name", "features")
+        return (build_game_dataset(response=labels,
+                                   feature_shards={shard: FeatureShard.from_coo(values, rows,
+                                                                                cols, d)},
+                                   device=device),
+                None)
+    raise ValueError(f"unknown input format '{fmt}'")
+
+
+def _persist_feature_artifacts(output_dir, index_maps, train_data) -> None:
+    """The feature space beside the saved models (``final/`` and ``best/``
+    ``feature-indexes/<shard>``, which scoring reads to reproduce the
+    training ids) and each shard's feature statistics
+    (``feature-stats/<shard>.avro``, from ``summarize`` on the device)."""
+    from photon_ml_tpu_torch.data.avro import write_feature_summary
+    from photon_ml_tpu_torch.data.stats import summarize
+
+    with timed("save index maps"):
+        for shard, imap in index_maps.items():
+            for sub in ("final", "best"):
+                imap.save(os.path.join(output_dir, sub, "feature-indexes", shard))
+    with timed("save feature summaries"):
+        stats_dir = os.path.join(output_dir, "feature-stats")
+        os.makedirs(stats_dir, exist_ok=True)
+        for shard, imap in index_maps.items():
+            write_feature_summary(os.path.join(stats_dir, f"{shard}.avro"),
+                                  summarize(train_data.csr_batch(shard)), imap)
+
+
+def _parse_guard_spec(config: Mapping) -> Optional[GuardSpec]:
+    """Config key ``"guard"``: true (the default), false, or an object
+    overriding ``GuardSpec``'s fields."""
+    spec = config.get("guard", True)
+    if spec is False:
+        return None
+    if spec is True:
+        return GuardSpec()
+    spec = dict(spec)
+    unknown = set(spec) - {f.name for f in dataclasses.fields(GuardSpec)}
+    if unknown:
+        raise ValueError(f"unknown guard config keys: {sorted(unknown)}")
+    return GuardSpec(**spec)
+
+
+def _check_heartbeat(config: Mapping) -> None:
+    """``heartbeat`` true, false, null or 0 start nothing; an object or an
+    interval asks for the reference's heartbeat, which is not ported."""
+    spec = config.get("heartbeat", True)
+    if spec is None or isinstance(spec, bool) or spec == 0:
+        return
+    _refuse("the progress heartbeat (heartbeat)", 14)
+
+
+def run(config: Mapping, output_dir: Optional[str] = None,
+        device: torch.device | str | None = None) -> dict:
+    """Run the training pipeline on ``device`` (default cuda); returns a
+    JSON-safe summary."""
+    for key, item in _REFUSED_KEYS.items():
+        if config.get(key):
+            _refuse(f"the train config key '{key}'", item)
+    _check_heartbeat(config)
+    game_config = parse_game_config(config)
+    output_dir = output_dir or config.get("output_dir")
+    guard = _parse_guard_spec(config)
+
+    with timed("read training data"):
+        train_data, index_maps = read_input(config["input"], device=device)
+    validation_data = None
+    if config.get("validation"):
+        with timed("read validation data"):
+            # validation shares the training feature space
+            vspec = {**config["input"], **config["validation"]}
+            validation_data, _ = read_input(vspec, index_maps=index_maps, device=device)
+
+    estimator = GameEstimator(game_config)
+    if config.get("event_listeners"):
+        from photon_ml_tpu_torch.utils.events import load_listeners
+
+        for listener in load_listeners(config["event_listeners"]):
+            estimator.events.register(listener)
+    with timed("fit"):
+        result = estimator.fit(train_data, validation_data=validation_data,
+                               output_dir=output_dir, guard=guard, device=train_data.device)
+    if output_dir is not None and index_maps is not None:
+        _persist_feature_artifacts(output_dir, index_maps, train_data)
+    return {
+        "output_dir": output_dir,
+        "best_metric": result.best_metric,
+        "num_rows": train_data.num_rows,
+        # each entry without its solve results (tensors), so JSON-safe
+        "history": [{k: v for k, v in e.items() if k != "results"} for e in result.history],
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="photon_ml_tpu_torch.cli train",
+                                     description=__doc__.splitlines()[0])
+    parser.add_argument("--config", required=True, help="JSON config path")
+    parser.add_argument("--output-dir", help="override config output_dir")
+    parser.add_argument("--device", default="cuda",
+                        help="the device that reads, trains and scores (default cuda; cpu "
+                        "runs the kernels' plain PyTorch versions)")
+    # the reference's flags, refused with their ROADMAP item
+    refused = {"--trace-out": 14, "--telemetry-out": 14, "--report-out": 14,
+               "--xprof-dir": 14, "--xprof-arm": 14, "--mesh": 12, "--sweep": 11,
+               "--sweep-metric": 11, "--sweep-policy": 11, "--sweep-registry-dir": 11,
+               "--warm-start": 14, "--delta": 14, "--refresh-registry-dir": 14,
+               "--lambda-points": 14, "--ingest-workers": 13, "--prefetch-depth": 13,
+               "--checkpoint-dir": 10, "--checkpoint-every": 10}
+    for flag in refused:
+        parser.add_argument(flag, action="append", help=argparse.SUPPRESS)
+    parser.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--heartbeat-every", type=float, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    for flag, item in refused.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            _refuse(f"the train flag {flag}", item)
+    if args.resume:
+        _refuse("the train flag --resume", 10)
+    if args.heartbeat_every is not None and args.heartbeat_every > 0:
+        _refuse("the train flag --heartbeat-every", 14)
+    setup_logging()
+    with open(args.config) as f:
+        config = json.load(f)
+    if args.heartbeat_every is not None:
+        config["heartbeat"] = False
+    summary = run(config, output_dir=args.output_dir, device=args.device)
+    print(json.dumps(summary, default=float))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -31,6 +31,26 @@ class LibSVMData:
     labels: np.ndarray
     num_features: int
 
+    def coo(self, num_features: Optional[int] = None,
+            add_intercept: bool = True) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """(values, rows, cols, num_features). With ``add_intercept`` the
+        entries are sorted by row and each row's intercept entry follows its
+        features, in the last column (``intercept_index``), where the
+        reference's stable sort by row puts it."""
+        d = int(num_features if num_features is not None else self.num_features)
+        values, rows, cols = self.values, self.rows, self.cols
+        if add_intercept:
+            n = len(self.labels)
+            if len(rows) and not np.all(rows[1:] >= rows[:-1]):
+                order = np.argsort(rows, kind="stable")
+                values, rows, cols = values[order], rows[order], cols[order]
+            at = np.searchsorted(rows, np.arange(1, n + 1))
+            values = np.insert(values, at, 1.0)
+            rows = np.insert(rows, at, np.arange(n, dtype=rows.dtype))
+            cols = np.insert(cols, at, d)
+            d += 1
+        return values, rows, cols, d
+
     def to_batch(
         self,
         num_features: Optional[int] = None,
@@ -41,24 +61,10 @@ class LibSVMData:
         device: torch.device | str | None = None,
     ) -> CSRBatch | SparseBatch:
         """The batch on ``device`` (default cuda): a ``CSRBatch``, or a
-        ``SparseBatch`` with ``layout="sparse"``. With ``add_intercept`` the
-        intercept is the last column, ``intercept_index``."""
+        ``SparseBatch`` with ``layout="sparse"``, of ``coo``'s arrays."""
         if layout not in ("csr", "sparse"):
             raise ValueError(f"unknown layout '{layout}'")
-        d = int(num_features if num_features is not None else self.num_features)
-        values, rows, cols = self.values, self.rows, self.cols
-        if add_intercept:
-            # each row's intercept entry after its features, where the
-            # reference's stable sort by row puts it
-            n = len(self.labels)
-            if len(rows) and not np.all(rows[1:] >= rows[:-1]):
-                order = np.argsort(rows, kind="stable")
-                values, rows, cols = values[order], rows[order], cols[order]
-            at = np.searchsorted(rows, np.arange(1, n + 1))
-            values = np.insert(values, at, 1.0)
-            rows = np.insert(rows, at, np.arange(n, dtype=rows.dtype))
-            cols = np.insert(cols, at, d)
-            d += 1
+        values, rows, cols, d = self.coo(num_features, add_intercept)
         cls = CSRBatch if layout == "csr" else SparseBatch
         return cls.from_coo(values=values, rows=rows, cols=cols, labels=self.labels,
                             num_features=d, offsets=offsets, weights=weights, device=device)

@@ -1,11 +1,19 @@
-"""The native LIBSVM parser, bound by ctypes.
+"""The native LIBSVM parser and Avro codec, bound by ctypes.
 
-The port's own loader of ``native/fast_parse.cpp`` (the counterpart of
-``photon_ml_tpu/data/native.py``, LIBSVM part): the source is compiled
-alone with ``g++`` into ``build/native/libphoton_parse.so`` beside the
-checkout, rebuilt when the source is newer, and loaded once. It never
-writes into ``native/``. ``PHOTON_NO_NATIVE=1`` hides the library, as in
-the reference, so the pure-Python parser runs; it is read on every call.
+The port's own loader of ``native/*.cpp`` (the counterpart of
+``photon_ml_tpu/data/native.py``). Two libraries, each built with ``g++``
+beside the checkout on first use, rebuilt when a source is newer, and
+loaded once; nothing is ever written into ``native/``:
+
+- ``build/native/libphoton_parse.so`` from ``fast_parse.cpp`` alone
+  (``load_native``);
+- ``build/native/libphoton_avro.so`` from ``avro_decode.cpp`` and
+  ``avro_encode.cpp``, linked with ``-pthread -lz`` (``load_avro_native``),
+  a library of its own, so a host without zlib loses the Avro codec but
+  keeps the LIBSVM parser.
+
+``PHOTON_NO_NATIVE=1`` hides both, as in the reference, so the pure-Python
+parser and decoder run; it is read on every call.
 """
 
 from __future__ import annotations
@@ -21,45 +29,72 @@ import numpy as np
 logger = logging.getLogger("photon_ml_tpu_torch.native")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SOURCE = os.path.join(_REPO, "native", "fast_parse.cpp")
-_LIB_PATH = os.path.join(_REPO, "build", "native", "libphoton_parse.so")
-_lib: Optional[ctypes.CDLL] = None
-_load_attempted = False
+_NATIVE_DIR = os.path.join(_REPO, "native")
+_BUILD_DIR = os.path.join(_REPO, "build", "native")
+_SOURCE = os.path.join(_NATIVE_DIR, "fast_parse.cpp")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libphoton_parse.so")
+_AVRO_SOURCES = tuple(os.path.join(_NATIVE_DIR, s) for s in ("avro_decode.cpp", "avro_encode.cpp"))
+_AVRO_LIB_PATH = os.path.join(_BUILD_DIR, "libphoton_avro.so")
+# library path -> the loaded library, or None once a build or load failed
+_libs: dict[str, Optional[ctypes.CDLL]] = {}
 
 
-def _build() -> bool:
-    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", tmp, _SOURCE]
+def _build(lib_path: str, sources, libs=()) -> bool:
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread", "-o", tmp, *sources,
+           *libs]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=240)
     except (OSError, subprocess.SubprocessError) as e:
-        logger.info("native parser build failed (%s)", e)
+        detail = getattr(e, "stderr", b"") or b""
+        logger.warning("native build of %s failed (%s) %s", os.path.basename(lib_path), e,
+                       detail.decode(errors="replace")[-2000:])
         return False
-    os.replace(tmp, _LIB_PATH)
+    os.replace(tmp, lib_path)
     return True
+
+
+def _load(lib_path: str, sources, libs=()) -> Optional[ctypes.CDLL]:
+    """Build (when missing or older than a source) and load one library,
+    once per process; None when ``PHOTON_NO_NATIVE`` is set or the library
+    cannot be built or loaded."""
+    if os.environ.get("PHOTON_NO_NATIVE"):
+        return None
+    if lib_path in _libs:
+        return _libs[lib_path]
+    _libs[lib_path] = None
+    if not all(os.path.exists(s) for s in sources):
+        return None
+    stale = (not os.path.exists(lib_path)
+             or any(os.path.getmtime(s) > os.path.getmtime(lib_path) for s in sources))
+    if stale and not _build(lib_path, sources, libs) and not os.path.exists(lib_path):
+        return None
+    try:
+        _libs[lib_path] = ctypes.CDLL(lib_path)
+    except OSError as e:
+        logger.warning("native library load failed (%s)", e)
+    return _libs[lib_path]
+
+
+def load_avro_native() -> Optional[ctypes.CDLL]:
+    """The Avro codec library (``avro_parse``, ``avro_write_training_blocks``
+    and their helpers, prototyped by ``data/avro_native.py``), built on first
+    use; None when it cannot be built or loaded, or when
+    ``PHOTON_NO_NATIVE`` is set."""
+    return _load(_AVRO_LIB_PATH, _AVRO_SOURCES, ("-lz",))
+
+
+_parser_ready = False
 
 
 def load_native() -> Optional[ctypes.CDLL]:
     """The parser library, built on first use; None when it cannot be built
     or loaded, or when ``PHOTON_NO_NATIVE`` is set."""
-    global _lib, _load_attempted
-    if os.environ.get("PHOTON_NO_NATIVE"):
-        return None
-    if _lib is not None or _load_attempted:
-        return _lib
-    _load_attempted = True
-    if not os.path.exists(_SOURCE):
-        return None
-    stale = (not os.path.exists(_LIB_PATH)
-             or os.path.getmtime(_SOURCE) > os.path.getmtime(_LIB_PATH))
-    if stale and not _build() and not os.path.exists(_LIB_PATH):
-        return None
-    try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError as e:
-        logger.info("native parser load failed (%s)", e)
-        return None
+    global _parser_ready
+    lib = _load(_LIB_PATH, (_SOURCE,))
+    if lib is None or _parser_ready:
+        return lib
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.libsvm_count.restype = ctypes.c_int
     lib.libsvm_count.argtypes = [ctypes.c_char_p, ctypes.c_int64, i64p, i64p]
@@ -68,8 +103,8 @@ def load_native() -> Optional[ctypes.CDLL]:
     lib.libsvm_parse.restype = ctypes.c_int64
     lib.libsvm_parse.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, f64, i64, i64,
                                  f64, i64p, i64p]
-    _lib = lib
-    return _lib
+    _parser_ready = True
+    return lib
 
 
 def parse_libsvm_native(

@@ -8,15 +8,27 @@ warm-started, its scores are recomputed, and with validation data the full
 model is evaluated; the best model by the first evaluator is tracked.
 Scores are ``[num_rows]`` device tensors keyed by coordinate name. Each
 history entry records the update's wall seconds, its host syncs (telemetry
-counter ``host_syncs``) and its kernel launches (``kernels.LAUNCHES``).
+counter ``host_syncs``) and its kernel launches (``kernels.LAUNCHES``);
+``on_step(entry)`` fires after each update (the estimator's event hook).
 
-The reference's checkpoint, guard, ``should_stop`` and fault points are not
-ported: passing any of the first three raises ``NotImplementedError``.
+With a ``GuardSpec`` every update is guarded (``_guarded_update``, the
+reference's :162-207 and its bookkeeping at :269-365): the coordinate's
+solve health, one device boolean, is fetched once per solve; a diverged
+solve is retried with escalating extra L2 through the coordinate's
+``extra_l2``, then rolled back, and a coordinate rolled back
+``freeze_after`` consecutive times is frozen. Under a guard the residual is
+cleaned of NaN and infinities, so a rolled-back coordinate cannot poison
+its neighbours. The entry of a retried or rolled-back update records
+``solve_retries`` and ``rolled_back``.
+
+The reference's checkpoint, ``should_stop`` and fault points are not
+ported: passing either of the first two raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Mapping, Optional, Sequence
 
@@ -32,6 +44,9 @@ from photon_ml_tpu_torch.evaluation.evaluators import (
 )
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.optim.guard import GuardSpec, model_is_finite
+
+logger = logging.getLogger("photon_ml_tpu_torch.game")
 
 _NOT_PORTED = "{} of run_coordinate_descent is not ported yet (ROADMAP.md Queue 1 item 10)"
 
@@ -77,20 +92,55 @@ def _evaluate(model: GameModel, spec: ValidationSpec) -> dict[str, float]:
     return out
 
 
+def _guarded_update(coord, model, residual, guard: GuardSpec, name: str):
+    """One guarded coordinate update: solve, fetch its health, retry with
+    damping, roll back. Returns ``(model', attempts_used, rolled_back)``. A
+    coordinate without ``extra_l2`` would repeat its solve bit for bit, so
+    it rolls back after the first divergence."""
+    supports_damping = hasattr(coord, "extra_l2")
+    if hasattr(coord, "health_check"):
+        coord.health_check = True
+    max_attempts = (guard.max_retries if supports_damping else 0) + 1
+    for attempt in range(max_attempts):
+        if attempt:
+            telemetry.counter("solves.retried").inc()
+            logger.warning("coordinate %s diverged; retrying with extra L2 damping %g",
+                           name, guard.damping_for(attempt))
+        if supports_damping:
+            coord.extra_l2 = guard.damping_for(attempt)
+        try:
+            new_model = coord.update_model(model, residual)
+        finally:
+            if supports_damping:
+                coord.extra_l2 = 0.0
+        health = getattr(coord, "last_health", None)
+        if health is None:
+            health = model_is_finite(new_model)
+        telemetry.counter("host_syncs").inc()
+        if bool(health):
+            return new_model, attempt, False
+        telemetry.counter("solves.diverged").inc()
+    telemetry.counter("solves.rolled_back").inc()
+    logger.warning("coordinate %s still diverging after %d attempt(s); rolling back to the "
+                   "pre-solve model", name, max_attempts)
+    return model, max_attempts - 1, True
+
+
 def run_coordinate_descent(
     coordinates: Mapping[str, object],
     task: str,
     num_iterations: int,
     validation: Optional[ValidationSpec] = None,
     initial_models: Optional[Mapping[str, object]] = None,
-    guard=None,
+    on_step=None,
+    guard: Optional[GuardSpec] = None,
     checkpoint=None,
     should_stop=None,
 ) -> CoordinateDescentResult:
     """Train all coordinates for ``num_iterations`` outer sweeps, in the
-    order of ``coordinates``; ``initial_models`` warm-starts coordinates."""
-    for arg, value in (("checkpoint", checkpoint), ("guard", guard),
-                       ("should_stop", should_stop)):
+    order of ``coordinates``; ``initial_models`` warm-starts coordinates,
+    ``guard`` guards every solve."""
+    for arg, value in (("checkpoint", checkpoint), ("should_stop", should_stop)):
         if value is not None:
             raise NotImplementedError(_NOT_PORTED.format(arg))
     names = list(coordinates)
@@ -103,10 +153,14 @@ def run_coordinate_descent(
     best_model: Optional[GameModel] = None
     best_metric: Optional[float] = None
     history: list[dict] = []
+    frozen: set[str] = set()
+    consecutive_rollbacks = {name: 0 for name in names}
 
     for it in range(num_iterations):
         with telemetry.span("cd_iteration", iteration=it):
             for name in names:
+                if name in frozen:
+                    continue  # a divergent coordinate: its last good model stands
                 coord = coordinates[name]
                 syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
                 launched = dict(kernels.LAUNCHES)
@@ -116,8 +170,17 @@ def run_coordinate_descent(
                     if len(names) > 1:
                         residual = sum((scores[o] for o in names if o != name),
                                        start=torch.zeros_like(scores[name]))
-                    models[name] = coord.update_model(models[name], residual)
-                    scores[name] = coord.score(models[name])
+                        if guard is not None:
+                            residual = torch.nan_to_num(residual, nan=0.0, posinf=0.0,
+                                                        neginf=0.0)
+                    rolled_back, attempts = False, 0
+                    if guard is None:
+                        models[name] = coord.update_model(models[name], residual)
+                    else:
+                        models[name], attempts, rolled_back = _guarded_update(
+                            coord, models[name], residual, guard, name)
+                    if not rolled_back:  # a rolled-back model's scores stand
+                        scores[name] = coord.score(models[name])
                     if scores[name].is_cuda:
                         torch.cuda.synchronize(scores[name].device)
                 # the update's solve results stay on the device (one per
@@ -127,7 +190,11 @@ def run_coordinate_descent(
                          "host_syncs": telemetry.snapshot()["counters"].get("host_syncs", 0)
                          - syncs,
                          "launches": {k: n - launched[k] for k, n in kernels.LAUNCHES.items()},
-                         "results": list(coord.last_results)}
+                         "results": [] if rolled_back else list(getattr(coord, "last_results",
+                                                                        ()))}
+                if guard is not None and (attempts or rolled_back):
+                    entry["solve_retries"] = attempts
+                    entry["rolled_back"] = rolled_back
                 if validation is not None:
                     game_model = GameModel(task=task, models=dict(models))
                     metrics = _evaluate(game_model, validation)
@@ -137,6 +204,18 @@ def run_coordinate_descent(
                                                           best_metric):
                         best_metric, best_model = metrics[primary], game_model
                 history.append(entry)
+                if on_step is not None:
+                    on_step(entry)
+                if rolled_back:
+                    consecutive_rollbacks[name] += 1
+                    if consecutive_rollbacks[name] >= guard.freeze_after:
+                        frozen.add(name)
+                        telemetry.counter("solves.frozen").inc()
+                        logger.warning("coordinate %s frozen after %d consecutive rollbacks; "
+                                       "its last good model keeps scoring", name,
+                                       consecutive_rollbacks[name])
+                else:
+                    consecutive_rollbacks[name] = 0
 
     final = GameModel(task=task, models=dict(models))
     return CoordinateDescentResult(model=final, best_model=best_model or final,

@@ -18,9 +18,12 @@ Counterpart of ``photon_ml_tpu/game/coordinates.py``:
   are the margins, scatter and ``hv_at`` kernels; per-entity boxes and
   variances (:354-372, :586-603).
 
-The reference's mesh, guard and tracker hooks are left out. ``NOT_PORTED``
-is the message of what the port refuses, naming the ROADMAP item that ports
-it.
+Both take part in the coordinate-descent guard (``optim/guard.py``) as the
+reference's do: ``extra_l2`` damps the next solve's L2 weight, and with
+``health_check`` on, ``last_health`` is the solve's health, one boolean on
+the device (for a random effect, over every bucket). The reference's mesh
+and tracker hooks are left out. ``NOT_PORTED`` is the message of what the
+port refuses, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from photon_ml_tpu_torch.optim.factory import (
     dispatch_solve,
     solve,
 )
+from photon_ml_tpu_torch.optim.guard import damped_objective, solve_health
 
 Tensor = torch.Tensor
 
@@ -91,6 +95,10 @@ class FixedEffectCoordinate:
                         "normalization (the intercept absorbs -w.shift at back-transform)")
         self._update_count = 0
         self.last_results: list[SolveResult] = []
+        # the guard's hooks: damping of the next solve, and its health
+        self.extra_l2 = 0.0
+        self.health_check = False
+        self.last_health: Optional[Tensor] = None
 
     def _downsampled_weights(self, update_index: int) -> Tensor:
         rate = self.config.down_sampling_rate
@@ -131,9 +139,11 @@ class FixedEffectCoordinate:
             w0 = norm.inverse_transform_model_coefficients(w0)
         res = solve(self.loss_name, batch, self.config, w0, self._constraints,
                     factors=None if norm is None else norm.factors,
-                    shifts=None if norm is None else norm.shifts, device=self.data.device)
+                    shifts=None if norm is None else norm.shifts, device=self.data.device,
+                    extra_l2=self.extra_l2)
         self.last_results = [res]
         w = res.w if norm is None else norm.transform_model_coefficients(res.w)
+        self.last_health = solve_health(res, w) if self.health_check else None
         return dataclasses.replace(model, coefficients=w)
 
     def score(self, model: FixedEffectModel) -> Tensor:
@@ -184,6 +194,9 @@ class RandomEffectCoordinate:
         self._obj = build_objective(self.loss_name, self.config)
         self._l1 = self.config.regularization.l1_weight(self.config.regularization_weight)
         self.last_results: list[SolveResult] = []
+        self.extra_l2 = 0.0
+        self.health_check = False
+        self.last_health: Optional[Tensor] = None
 
     def initialize_model(self) -> RandomEffectModel:
         dev = self.data.device
@@ -207,17 +220,25 @@ class RandomEffectCoordinate:
 
     def update_model(self, model: RandomEffectModel,
                      residual_scores: Optional[Tensor]) -> RandomEffectModel:
-        new_buckets, results = [], []
+        new_buckets, results, healths = [], [], []
+        obj = damped_objective(self._obj, self.extra_l2)
         for b, bm, box in zip(self._buckets, model.buckets, self._constraints):
             batch = b.batch(residual_scores)
-            res = dispatch_solve(glm_adapter(self._obj, batch), bm.coefficients, self.config,
+            res = dispatch_solve(glm_adapter(obj, batch), bm.coefficients, self.config,
                                  self._l1, box, device=self.data.device)
             var = None
             if self.compute_variances:
-                var = 1.0 / (self._obj.hessian_diagonal(res.w, batch) + _VARIANCE_EPS)
+                var = 1.0 / (obj.hessian_diagonal(res.w, batch) + _VARIANCE_EPS)
             results.append(res)
+            if self.health_check:
+                healths.append(solve_health(res, res.w))
             new_buckets.append(dataclasses.replace(bm, coefficients=res.w, variances=var))
         self.last_results = results
+        if self.health_check:
+            self.last_health = (torch.stack(healths).all() if healths
+                                else torch.tensor(True, device=self.data.device))
+        else:
+            self.last_health = None
         return dataclasses.replace(model, buckets=tuple(new_buckets))
 
     def score(self, model: RandomEffectModel) -> Tensor:

@@ -8,11 +8,14 @@ fits over the same data, and runs coordinate descent on the dataset's
 device. A fixed effect's normalization context is built from ``summarize``
 of its shard (``_normalization_for``, :381-390), and ``output_dir`` receives
 the final and the best model (``<output_dir>/final``, ``<output_dir>/best``,
-:487-501) in the model store's layout.
+:487-501) in the model store's layout. ``guard`` (a ``GuardSpec``) guards
+every coordinate solve. ``events`` is the lifecycle event bus: ``fit``
+sends a setup, a start, one optimization-log event per coordinate update
+and a finish event (:423-480).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-``mesh``, the random and factored projectors, ``fit_incremental``,
-``fit_sweep`` and ``fit_grid``.
+``mesh``, ``checkpoint_spec``, ``should_stop``, the random and factored
+projectors, ``fit_incremental``, ``fit_sweep`` and ``fit_grid``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,14 @@ from photon_ml_tpu_torch.game.random_effect_data import (
     build_random_effect_dataset,
 )
 from photon_ml_tpu_torch.optim.factory import OptimizerConfig
+from photon_ml_tpu_torch.utils.events import (
+    EventEmitter,
+    OptimizationLogEvent,
+    SetupEvent,
+    TrainingFinishEvent,
+    TrainingStartEvent,
+)
+from photon_ml_tpu_torch.utils.timing import Timer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +131,8 @@ class GameEstimator:
         self.config = config
         self._re_datasets: dict = {}
         self._coordinates: dict = {}
+        # register listeners before fit() to observe its events
+        self.events = EventEmitter()
 
     def _re_dataset(self, data: GameDataset, c: RandomEffectConfig) -> RandomEffectDataset:
         """Build, or reuse, the bucketed dataset of a random-effect config,
@@ -152,6 +165,8 @@ class GameEstimator:
                 coord = hit[1]
                 if isinstance(coord, FixedEffectCoordinate):
                     coord._update_count = 0
+                # the guard's state is per fit: the guarded loop opts in again
+                coord.health_check, coord.extra_l2, coord.last_health = False, 0.0, None
                 coords[name] = coord
                 continue
             if isinstance(c, FixedEffectConfig):
@@ -209,6 +224,8 @@ class GameEstimator:
                              "build it with the same device")
         if mesh is not None:
             raise NotImplementedError(NOT_PORTED.format("a mesh", 12))
+        t = Timer().start()
+        self.events.send(SetupEvent(config=_config_metadata(self.config)))
         with telemetry.span("fit", task=self.config.task):
             with telemetry.span("build_coordinates"):
                 coordinates = self._build_coordinates(data)
@@ -218,12 +235,18 @@ class GameEstimator:
                     raise ValueError("validation data provided but no evaluators")
                 validation = ValidationSpec(data=validation_data,
                                             evaluators=list(self.config.evaluators))
+            self.events.send(TrainingStartEvent(num_rows=data.num_rows))
             result: CoordinateDescentResult = run_coordinate_descent(
                 coordinates, task=self.config.task,
                 num_iterations=self.config.num_iterations, validation=validation,
-                initial_models=initial_models, guard=guard,
-                checkpoint=checkpoint_spec, should_stop=should_stop,
+                initial_models=initial_models,
+                on_step=lambda entry: self.events.send(OptimizationLogEvent(
+                    iteration=entry["iteration"], coordinate=entry["coordinate"],
+                    seconds=entry["seconds"], metrics=entry.get("metrics"))),
+                guard=guard, checkpoint=checkpoint_spec, should_stop=should_stop,
             )
+        self.events.send(TrainingFinishEvent(best_metric=result.best_metric, seconds=t.stop(),
+                                             metrics_snapshot=telemetry.snapshot()))
         if output_dir is not None:
             # imported here: model_store imports game.models, which imports
             # this package

@@ -27,6 +27,7 @@ from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.ops.objective import GLMObjective, make_objective
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import BoxConstraints, Objective, SolveResult
+from photon_ml_tpu_torch.optim.guard import damped_objective
 from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve, lbfgs_solve_lanes
 from photon_ml_tpu_torch.optim.newton import NewtonConfig, newton_solve
 from photon_ml_tpu_torch.optim.owlqn import owlqn_solve, owlqn_solve_lanes
@@ -212,13 +213,16 @@ def solve(
     factors: Optional[Tensor] = None,
     shifts: Optional[Tensor] = None,
     device: torch.device | str | None = None,
+    extra_l2: float = 0.0,
 ) -> SolveResult:
     """One GLM solve on ``device`` (default cuda): the objective of
-    ``config`` (with normalization ``factors`` and ``shifts``), its adapter
-    over ``batch`` and the configured optimizer. Without ``constraints`` the
-    config's box constraints apply."""
+    ``config`` (with normalization ``factors`` and ``shifts``, and
+    ``extra_l2`` added to its L2 weight: a guarded retry's damping), its
+    adapter over ``batch`` and the configured optimizer. Without
+    ``constraints`` the config's box constraints apply."""
     config.validate(loss_name)
-    obj = build_objective(loss_name, config, factors=factors, shifts=shifts)
+    obj = damped_objective(build_objective(loss_name, config, factors=factors, shifts=shifts),
+                           extra_l2)
     if constraints is None and config.box_constraints:
         constraints = config.build_box_constraints(batch.num_features, w0.device)
     return dispatch_solve(glm_adapter(obj, batch), w0, config,

@@ -1,0 +1,323 @@
+"""The port's CLI drivers against the JAX package's (tests/test_cli.py's
+end-to-end and index tests, on its 240-row ``avro_dataset``), on the CPU:
+
+- ``cli train`` in both packages, in process, on the same Avro files (the
+  JAX driver with ``"heartbeat": false``);
+- each package's saved model loads in the other, and the two fits agree at
+  tests/test_torch_game.py's fit tolerances (rtol 1e-3, atol 1e-3), fixed
+  effect and per-entity coefficients both;
+- the saved index maps are equal key for key, the feature statistics agree
+  within rtol 1e-5;
+- ``cli score``'s ScoringResultAvro reads in the JAX package: the port's
+  and the JAX driver's scores of one model agree within tests/
+  test_model_store.py's rtol 1e-6 / atol 1e-7, their metrics within 1e-6;
+- ``cli index`` writes equal maps;
+- every key, flag and subcommand the port refuses raises
+  ``NotImplementedError`` naming its ROADMAP item;
+- ``python -m photon_ml_tpu_torch.cli train --device cpu`` runs in a
+  subprocess, with a config-loaded event listener.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from photon_ml_tpu.cli import index as j_index
+from photon_ml_tpu.cli import score as j_score
+from photon_ml_tpu.cli import train as j_train
+from photon_ml_tpu.data import avro as JA
+from photon_ml_tpu.data import model_store as JM
+from photon_ml_tpu_torch.cli import __main__ as t_cli
+from photon_ml_tpu_torch.cli import index as t_index
+from photon_ml_tpu_torch.cli import score as t_score
+from photon_ml_tpu_torch.cli import train as t_train
+from photon_ml_tpu_torch.data import avro as TA
+from photon_ml_tpu_torch.data import model_store as TM
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIT_TOL = dict(rtol=1e-3, atol=1e-3)
+SCORE_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def avro_dataset(tmp_path_factory):
+    rng = np.random.default_rng(99)
+    tmp = tmp_path_factory.mktemp("cli")
+    n, d, n_users = 240, 8, 6
+    X = rng.normal(size=(n, d))
+    users = rng.integers(0, n_users, n)
+    w = rng.normal(size=d)
+    u_eff = rng.normal(size=n_users)
+    y = (rng.random(n) < 1 / (1 + np.exp(-(X @ w + u_eff[users])))).astype(float)
+
+    def recs(lo, hi):
+        for i in range(lo, hi):
+            yield {"uid": str(i), "label": float(y[i]),
+                   "features": [{"name": f"c{j}", "term": "", "value": float(X[i, j])}
+                                for j in range(d)],
+                   "metadataMap": {"userId": str(users[i])}, "weight": None, "offset": None}
+
+    train_path, score_path = str(tmp / "train.avro"), str(tmp / "holdout.avro")
+    JA.write_avro(train_path, JA.TRAINING_EXAMPLE_AVRO, recs(0, 200))
+    JA.write_avro(score_path, JA.TRAINING_EXAMPLE_AVRO, recs(200, 240))
+    return tmp, train_path, score_path
+
+
+def _input(path):
+    return {"format": "avro", "paths": [path], "feature_shards": {"global": ["features"]},
+            "id_columns": ["userId"]}
+
+
+def _config(train_path, out):
+    return {
+        "task": "logistic",
+        "input": _input(train_path),
+        "coordinates": {
+            "fixed": {"type": "fixed_effect", "shard_name": "global",
+                      "optimizer": {"regularization": "l2", "regularization_weight": 0.1}},
+            "perUser": {"type": "random_effect", "shard_name": "global", "id_name": "userId",
+                        "optimizer": {"regularization": "l2", "regularization_weight": 1.0}},
+        },
+        "num_iterations": 1,
+        "output_dir": out,
+        "heartbeat": False,
+    }
+
+
+@pytest.fixture(scope="module")
+def trained(avro_dataset):
+    tmp, train_path, _ = avro_dataset
+    out = {"jax": str(tmp / "jax_model"), "port": str(tmp / "port_model")}
+    summaries = {"jax": j_train.run(_config(train_path, out["jax"])),
+                 "port": t_train.run(_config(train_path, out["port"]), device="cpu")}
+    return out, summaries
+
+
+def test_train_summaries_and_artifacts(trained):
+    out, summaries = trained
+    for pkg in ("jax", "port"):
+        s = summaries[pkg]
+        assert s["num_rows"] == 200 and s["output_dir"] == out[pkg]
+        assert [(e["iteration"], e["coordinate"]) for e in s["history"]] == \
+            [(0, "fixed"), (0, "perUser")]
+        for sub in ("final", "best"):
+            assert os.path.exists(os.path.join(out[pkg], sub, "model-metadata.json"))
+            assert os.path.isdir(os.path.join(out[pkg], sub, "feature-indexes", "global"))
+        assert os.path.exists(os.path.join(out[pkg], "feature-stats", "global.avro"))
+    json.dumps(summaries["port"])  # JSON-safe as the driver prints it
+    # the guard ran (on by default) and did nothing on healthy data
+    assert not any("solve_retries" in e for e in summaries["port"]["history"])
+
+
+def _dense_re(model, n_features):
+    """A random effect as a dense [entity value -> global coefficients] map."""
+    out = {}
+    for b in model.buckets:
+        coef, proj = np.asarray(b.coefficients), np.asarray(b.projection)
+        for e, code in enumerate(np.asarray(b.entity_codes)):
+            row = np.zeros(n_features)
+            keep = proj[e] < n_features
+            row[proj[e][keep]] = coef[e][keep]
+            out[str(model.vocab[code])] = row
+    return out
+
+
+def _coefficients(model_dir, loader):
+    model = loader(model_dir)
+    fe = np.asarray(model.models["fixed"].coefficients)
+    return fe, _dense_re(model.models["perUser"], len(fe))
+
+
+@pytest.mark.parametrize("saved_by", ["jax", "port"])
+def test_models_load_in_the_other_package_and_agree(trained, saved_by):
+    out, _ = trained
+    final = os.path.join(out[saved_by], "final")
+    other = os.path.join(out["port" if saved_by == "jax" else "jax"], "final")
+    port_load = lambda p: TM.load_game_model(p, device="cpu")  # noqa: E731
+    fe, re = _coefficients(final, port_load if saved_by == "jax" else JM.load_game_model)
+    fe_same, re_same = _coefficients(final, port_load if saved_by == "port"
+                                     else JM.load_game_model)
+    # loaded by either package, one model has one set of coefficients
+    np.testing.assert_array_equal(fe, fe_same)
+    assert sorted(re) == sorted(re_same)
+    for k in re:
+        np.testing.assert_array_equal(re[k], re_same[k])
+    # and the two packages' fits agree
+    fe_o, re_o = _coefficients(other, port_load)
+    np.testing.assert_allclose(fe, fe_o, **FIT_TOL)
+    assert sorted(re) == sorted(re_o)
+    for k in re:
+        np.testing.assert_allclose(re[k], re_o[k], **FIT_TOL)
+
+
+def test_index_maps_and_feature_stats_agree(trained):
+    out, _ = trained
+    maps = {pkg: TM.load_feature_index_maps(os.path.join(out[pkg], "final"))
+            for pkg in ("jax", "port")}
+    assert list(maps["port"]["global"].items()) == list(maps["jax"]["global"].items())
+    stats = {pkg: JA.read_feature_summary(os.path.join(out[pkg], "feature-stats",
+                                                       "global.avro"))
+             for pkg in ("jax", "port")}
+    assert stats["port"] == TA.read_feature_summary(os.path.join(out["port"], "feature-stats",
+                                                                 "global.avro"))
+    assert sorted(stats["port"]) == sorted(stats["jax"])
+    for key, metrics in stats["jax"].items():
+        assert sorted(metrics) == sorted(stats["port"][key])
+        for m, v in metrics.items():
+            np.testing.assert_allclose(stats["port"][key][m], v, rtol=1e-5, err_msg=(key, m))
+
+
+def test_score_writes_what_the_jax_package_reads(avro_dataset, trained):
+    tmp, _, score_path = avro_dataset
+    out, _ = trained
+    model_dir = os.path.join(out["port"], "final")
+    paths = {pkg: str(tmp / f"scores_{pkg}.avro") for pkg in ("jax", "port")}
+    evaluators = ["auc", "logistic_loss"]
+    got = {"port": t_score.run(model_dir, _input(score_path), output_path=paths["port"],
+                               evaluators=evaluators, model_id="m", device="cpu"),
+           "jax": j_score.run(model_dir, _input(score_path), output_path=paths["jax"],
+                              evaluators=evaluators, model_id="m")}
+    recs = {pkg: JA.read_scoring_results(p) for pkg, p in paths.items()}
+    assert got["port"]["num_rows"] == len(recs["port"]) == 40
+    assert all(r["modelId"] == "m" for r in recs["port"])
+    np.testing.assert_array_equal([r["label"] for r in recs["port"]],
+                                  [r["label"] for r in recs["jax"]])
+    np.testing.assert_allclose([r["predictionScore"] for r in recs["port"]],
+                               [r["predictionScore"] for r in recs["jax"]], **SCORE_TOL)
+    for m in evaluators:
+        assert got["port"]["metrics"][m] == pytest.approx(got["jax"]["metrics"][m], abs=1e-6)
+    assert got["port"]["metrics"]["auc"] > 0.6  # a true holdout
+
+
+def test_score_refuses_a_model_without_index_maps(avro_dataset, trained, tmp_path):
+    import shutil
+
+    _, _, score_path = avro_dataset
+    out, _ = trained
+    bare = str(tmp_path / "bare")
+    shutil.copytree(os.path.join(out["port"], "final"), bare)
+    shutil.rmtree(os.path.join(bare, "feature-indexes"))
+    with pytest.raises(TM.ModelLoadError, match="allow-index-rebuild"):
+        t_score.run(bare, _input(score_path), device="cpu")
+    assert t_score.run(bare, _input(score_path), allow_index_rebuild=True,
+                       device="cpu")["num_rows"] == 40
+
+
+def test_index_job_writes_equal_maps(avro_dataset, tmp_path, capsys):
+    _, train_path, _ = avro_dataset
+    from photon_ml_tpu_torch.data.index_map import INTERCEPT_KEY, IndexMap
+
+    args = ["--input", train_path, "--shards", "global:features", "g2:features"]
+    assert t_index.main(args + ["--output", str(tmp_path / "t")]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["global"]["num_features"] == 9  # 8 features + the intercept
+    assert j_index.main(args + ["--output", str(tmp_path / "j")]) == 0
+    for shard in ("global", "g2"):
+        t, j = (IndexMap.load(str(tmp_path / p / shard)) for p in ("t", "j"))
+        assert list(t.items()) == list(j.items()) and INTERCEPT_KEY in t
+        for f in ("hashes.npy", "ids.npy", "names.json"):
+            assert open(tmp_path / "t" / shard / f, "rb").read() == \
+                open(tmp_path / "j" / shard / f, "rb").read()
+    assert t_index.main(["--input", train_path, "--output", str(tmp_path / "n"),
+                         "--no-intercept"]) == 0
+    assert INTERCEPT_KEY not in IndexMap.load(str(tmp_path / "n" / "features"))
+
+
+REFUSED_KEYS = [
+    ({"sweep": {"grid": ["lambda=1,2"]}}, 11),
+    ({"warm_start": {"dir": "x"}}, 14),
+    ({"input": {"ingest": {"workers": 2}}}, 13),
+    ({"mesh": True}, 12),
+    ({"checkpoint": {"dir": "x"}}, 10),
+    ({"trace_out": "t.jsonl"}, 14),
+    ({"telemetry_out": "t.jsonl"}, 14),
+    ({"report_out": "r.md"}, 14),
+    ({"xprof": "x"}, 14),
+    ({"heartbeat": {"every": 5}}, 14),
+    ({"heartbeat": 5}, 14),
+]
+
+
+@pytest.mark.parametrize("extra,item", REFUSED_KEYS, ids=lambda v: json.dumps(v)[:30])
+def test_train_refuses_unported_keys(avro_dataset, extra, item):
+    _, train_path, _ = avro_dataset
+    config = _config(train_path, None)
+    for k, v in extra.items():
+        config[k] = {**config[k], **v} if k == "input" else v
+    with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
+        t_train.run(config, device="cpu")
+
+
+REFUSED_FLAGS = [(["--sweep", "lambda=1,2"], 11), (["--sweep-metric", "auc"], 11),
+                 (["--sweep-policy", "best"], 11), (["--sweep-registry-dir", "r"], 11),
+                 (["--warm-start", "d"], 14), (["--delta", "d.avro"], 14),
+                 (["--refresh-registry-dir", "r"], 14), (["--lambda-points", "3"], 14),
+                 (["--ingest-workers", "2"], 13), (["--prefetch-depth", "2"], 13),
+                 (["--mesh", "auto"], 12), (["--checkpoint-dir", "c"], 10),
+                 (["--checkpoint-every", "2"], 10), (["--resume"], 10),
+                 (["--trace-out", "t"], 14), (["--telemetry-out", "t"], 14),
+                 (["--report-out", "r"], 14), (["--xprof-dir", "x"], 14),
+                 (["--xprof-arm", "3"], 14), (["--heartbeat-every", "5"], 14)]
+
+
+@pytest.mark.parametrize("flags,item", REFUSED_FLAGS, ids=lambda v: str(v))
+def test_train_refuses_unported_flags(flags, item):
+    with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
+        t_train.main(["--config", "unused.json", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("cmd,item", [("refresh", 14), ("pipeline", 14), ("serve", 14),
+                                      ("report", 14), ("profile", 14), ("sweep", 11)])
+def test_unported_subcommands_raise(cmd, item):
+    with pytest.raises(NotImplementedError, match=rf"'{cmd}'.*item {item}\)"):
+        t_cli.main([cmd, "--config", "x.json"])
+
+
+def test_dispatcher_usage_and_unknown_command(capsys):
+    assert t_cli.main([]) == 2
+    assert t_cli.main(["--help"]) == 0
+    assert "photon_ml_tpu_torch.cli" in capsys.readouterr().out
+    assert t_cli.main(["nope"]) == 2
+
+
+def test_heartbeat_off_or_default_starts_nothing(avro_dataset, tmp_path):
+    _, train_path, _ = avro_dataset
+    config = _config(train_path, None)
+    config["coordinates"] = {"fixed": config["coordinates"]["fixed"]}
+    for hb in (True, False, None, 0):
+        config["heartbeat"] = hb
+        assert t_train.run(config, device="cpu")["num_rows"] == 200
+
+
+def test_train_in_a_subprocess_with_an_event_listener(avro_dataset):
+    tmp, train_path, _ = avro_dataset
+    (tmp / "port_listeners.py").write_text(
+        "class Recorder:\n"
+        "    def __call__(self, event):\n"
+        "        with open('port_events.log', 'a') as f:\n"
+        "            f.write(type(event).__name__ + '\\n')\n")
+    config = {"task": "logistic", "input": _input(train_path),
+              "coordinates": {"fixed": {"type": "fixed_effect", "shard_name": "global",
+                                        "optimizer": {"max_iterations": 5}}},
+              "event_listeners": ["port_listeners:Recorder"],
+              "output_dir": str(tmp / "sub_model")}
+    cfg_path = tmp / "sub.json"
+    cfg_path.write_text(json.dumps(config))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(tmp) + os.pathsep + REPO
+    proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli", "train",
+                           "--config", str(cfg_path), "--device", "cpu"],
+                          capture_output=True, text=True, cwd=str(tmp), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["num_rows"] == 200
+    log = (tmp / "port_events.log").read_text().splitlines()
+    assert log[0] == "SetupEvent" and log[-1] == "TrainingFinishEvent"
+    assert {"TrainingStartEvent", "OptimizationLogEvent"} <= set(log)
+    model = TM.load_game_model(str(tmp / "sub_model" / "final"), device="cpu")
+    assert torch.isfinite(model.models["fixed"].coefficients).all()

@@ -293,9 +293,9 @@ def test_estimator_and_descent_branches_not_ported_raise(data):
     _, tds = data
     _, tcfg = _configs()
     est = GameEstimator(tcfg)
+    # the guard is ported (tests/test_torch_guard.py); these are not
     for kw, match in ((dict(mesh=object()), "mesh"),
-                      (dict(guard=object()), "guard"), (dict(checkpoint_spec=object()),
-                                                         "checkpoint"),
+                      (dict(checkpoint_spec=object()), "checkpoint"),
                       (dict(should_stop=lambda: False), "should_stop")):
         with pytest.raises(NotImplementedError, match=match):
             est.fit(tds, device="cpu", **kw)

@@ -113,7 +113,10 @@ def test_source_walk_covers_the_new_subpackages():
                    "ops/block_diagonal.py",
                    "data/stats.py", "data/validators.py", "data/native.py", "data/libsvm.py",
                    "data/index_map.py", "data/paths.py", "data/model_store.py",
-                   "utils/atomic.py"):
+                   "utils/atomic.py", "utils/timing.py", "utils/events.py", "config.py",
+                   "data/avro.py", "data/avro_native.py", "diagnostics/evaluation.py",
+                   "optim/guard.py", "cli/__main__.py", "cli/train.py", "cli/score.py",
+                   "cli/index.py", "cli/glm.py"):
         assert module in rel
 
 
@@ -195,3 +198,46 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                               text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("command", ["train", "score", "glm"])
+def test_cli_without_device_raises_without_a_gpu(command, tmp_path):
+    """The drivers' ``--device`` defaults to cuda: without a card and without
+    ``--device cpu`` they raise the no-CUDA error before any work."""
+    _no_gpu()
+    from photon_ml_tpu_torch.cli.__main__ import main
+    from photon_ml_tpu_torch.data.avro import TRAINING_EXAMPLE_AVRO, write_avro
+
+    avro = str(tmp_path / "d.avro")
+    write_avro(avro, TRAINING_EXAMPLE_AVRO, [
+        {"uid": str(i), "label": float(i % 2), "features": [{"name": "a", "term": "",
+                                                             "value": 1.0}],
+         "metadataMap": None, "weight": None, "offset": None} for i in range(4)])
+    libsvm = tmp_path / "d.libsvm"
+    libsvm.write_text("1 1:1.0\n-1 2:1.0\n")
+    inp = {"format": "avro", "paths": [avro]}
+    configs = {
+        "train": {"task": "logistic", "input": inp,
+                  "coordinates": {"f": {"shard_name": "features"}}},
+        "score": {"input": inp},
+        "glm": {"task": "logistic", "input": {"format": "libsvm", "paths": [str(libsvm)]}},
+    }
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps(configs[command]))
+    args = {"train": [], "glm": [],
+            "score": ["--model-dir", str(tmp_path / "m"), "--allow-index-rebuild"]}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([command, "--config", str(cfg), *args[command]])
+
+
+def test_importing_the_cli_loads_no_jax():
+    code = ("import json, sys\n"
+            "import photon_ml_tpu_torch.cli.__main__\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "photon_ml_tpu_torch.cli.__main__" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
