@@ -23,7 +23,10 @@ Phases, in order; any failure exits non-zero before the last line:
      and update a per-user random effect (2K users over a 2K-feature sparse
      shard, the wide buckets on the COO layout) on both with LBFGS, OWLQN,
      TRON and NEWTON in a box: per lane the same reason, the value within
-     rtol 1e-4, the same iterations but on plateau lanes;
+     rtol 1e-4, the same iterations but on plateau lanes; then a factored
+     coordinate (latent_dim 2, 2 MF iterations) and the random projector
+     (projected_dim 16) on the same data, each latent matrix refit with the
+     same reason and iterations and its value within rtol 1e-4;
   5. the paths, each at full width through the entry point a user calls,
      with the kernels' launch counts zeroed just before it and read just
      after (a kernel of the path that did not launch fails the run):
@@ -63,7 +66,10 @@ Phases, in order; any failure exits non-zero before the last line:
            scorings and evaluations agree bit for bit; then the largest COO
            bucket's kernels against their plain versions and ``torch.mv``;
        9b. one update of the sparse per-user effect with TRON (hv_at on the
-           COO buckets); 9c. the same with OWLQN (elastic net);
+           COO buckets); 9c. the same with OWLQN (elastic net); 11b. the
+           same with the random projector (projected_dim 16, LBFGS 20): no
+           lane's objective rises, finite scores, two scorings and the
+           saved and reloaded ``factored_random_effect`` bit-identical;
        10. the CLI pipeline at config #4's width: path 6's draws written as
            TrainingExampleAvro (4 files, the native encoder), ``cli index``
            (a subprocess), ``cli train`` in process with path 6's config and
@@ -75,6 +81,18 @@ Phases, in order; any failure exits non-zero before the last line:
            back bit for bit as the in-process model's plus offsets, its AUC
            equal), and ``cli glm`` in process on path 8's LIBSVM files,
            bit-identical to path 8's sweep (best lambda, metrics, means);
+           ``cli train`` takes a checkpoint key (every step, keep the last
+           2: steps 2 and 3 must remain) and prints each fixed-effect
+           solve's tracker beside path 6's;
+       11. BASELINE config #5 (bench_northstar.py: 20M rows, 138,493 users,
+           26,744 movies; a fixed effect on movieFeatures, per-user and
+           per-movie NEWTON random effects and the factored ``mf``
+           coordinate, latent_dim 2, its kron refit on the margins and
+           scatter kernels) through ``GameEstimator.fit`` with 1M
+           validation rows: fit A (AUC after each update, the ``mf``
+           tracker, the saved model scoring bit for bit), fit B stopped
+           after its second update with a checkpoint a step, fit C resumed
+           from it and bit-identical to A;
        7.  the ELL probe (``photon_ml_tpu_torch.tools.probe_ell``) at 1M x 10K
            x 20: ELL against CSR ``dot_rows``, both timed;
   6. print the ``kernels`` JSON line, the card again, and the result line
@@ -91,6 +109,7 @@ import argparse
 import json
 import os
 import shutil
+import signal
 import sys
 import tempfile
 import time
@@ -116,6 +135,14 @@ PLATEAU_RTOL = 1e-5
 RE_BOX = ((0, -0.5, 0.5),)  # path 9's per-user box, on global feature 0
 VARIANCE_LANES = 1_000
 VARIANCE_RTOL = 1e-4
+NS_ROWS = 20_000_000  # bench_northstar.py (BASELINE config #5): rows, users, movies
+NS_VAL = 1_000_000
+NS_USERS = 138_493
+NS_MOVIES = 26_744
+NS_FE_SPACE = 2_000  # movieFeatures: the id space and the features a movie has
+NS_FE_NNZ = 4
+NS_CTX = 4  # movieCtx and userCtx dims
+PROJECTED_DIM = 16  # path 11b: no wider than the widest buckets' 16-32 rows
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -599,10 +626,15 @@ def check_small_re_parity(seed: int) -> None:
     lanes, named here as those whose last step moved the objective by at most
     PLATEAU_RTOL of its start on either side (where a step's fate follows the
     float32 rounding of the sums, which the card and the CPU order
-    differently)."""
-    import torch
-
+    differently). Then, on the same data, a factored coordinate (latent_dim
+    2, 2 MF iterations) and the random projector (projected_dim 16), LBFGS 20
+    for both optimizers: their latent solves per lane as above but with the
+    plateau lanes excepted from every check (and, in the second MF
+    iteration, the lanes excepted in the first, whose warm start a rounding
+    decided), and each latent matrix refit with the same reason and
+    iterations, its value within rtol 1e-4."""
     from photon_ml_tpu_torch.game import (
+        FactoredRandomEffectCoordinate,
         FeatureShard,
         RandomEffectCoordinate,
         build_game_dataset,
@@ -636,34 +668,92 @@ def check_small_re_parity(seed: int) -> None:
             for dev, (gds, red) in data.items():
                 coord = RandomEffectCoordinate("per-user", gds, red, "logistic", cfg)
                 coord.update_model(coord.initialize_model(), None)
-                out[dev] = [tuple(t.cpu() for t in (r.reason, r.value, r.iterations, r.values))
-                            for r in coord.last_results]
-            worst, plateau, bad = 0.0, 0, []
-            for b, ((rg, fg, ig, vg), (rc, fc, ic, vc)) in enumerate(zip(out["cuda"],
-                                                                          out["cpu"])):
-                rel = ((fg.double() - fc.double()).abs() / fc.double().abs().clamp(min=1e-30))
-                worst = max(worst, float(rel.max()))
-                flat = _plateau_lanes(vg, ig) | _plateau_lanes(vc, ic)
-                plateau += int(flat.sum())
-                if not torch.equal(rg, rc):
-                    bad.append(f"bucket {b}: reasons differ on {int((rg != rc).sum())} lanes")
-                if not bool((rel <= LOSS_RTOL).all()):
-                    bad.append(f"bucket {b}: values differ beyond rtol {LOSS_RTOL}")
-                off = (ig != ic) & ~flat
-                if bool(off.any()):
-                    bad.append(f"bucket {b}: iterations differ on {int(off.sum())} lanes "
-                               "that are not plateau lanes")
-            reasons = torch.cat([r for r, *_ in out["cuda"]]).long()
-            its = torch.cat([i for _, _, i, _ in out["cuda"]]).long()
-            print(f"small re {name}: lanes={len(reasons)} reasons="
-                  f"{json.dumps({CONVERGENCE_REASON_NAMES[k]: int(c) for k, c in enumerate(torch.bincount(reasons, minlength=5).tolist()) if c})} "
-                  f"iterations={torch.bincount(its).tolist()} plateau_lanes={plateau} "
-                  f"value_rel_diff={worst:.3e} limit={LOSS_RTOL:.0e}", flush=True)
-            if bad:
-                raise RuntimeError(f"small re {name}: the card disagrees with the CPU: {bad}")
+                out[dev] = coord.last_results
+            _compare_lanes(f"small re {name}", out)
+        # the factored coordinate and the random projector on the same data
+        lbfgs = re_optimizer("lbfgs", 20, 1e-3)
+        for name, kw in (("factored", dict(latent_dim=2, mf_iterations=2)),
+                         ("projector", dict(latent_dim=16, refit_projection=False))):
+            out, matrix = {}, {}
+            for dev, (gds, red) in data.items():
+                coord = FactoredRandomEffectCoordinate("per-user", gds, red, "logistic",
+                                                       lbfgs, lbfgs, **kw)
+                coord.update_model(coord.initialize_model(), None)
+                out[dev] = [r for r in coord.last_results if r.value.dim() == 1]
+                matrix[dev] = [(r.reason, r.iterations, float(r.value))
+                               for r in coord.last_results if r.value.dim() == 0]
+            n_buckets = len(red.buckets)
+            for step, ((rg, ig, fg), (rc, ic, fc)) in enumerate(zip(matrix["cuda"],
+                                                                    matrix["cpu"])):
+                rel = abs(fg - fc) / abs(fc)
+                print(f"small re {name} latent matrix {step}: reason={CONVERGENCE_REASON_NAMES[rg]} "
+                      f"iterations={ig} value={fg:.7g} cpu: reason="
+                      f"{CONVERGENCE_REASON_NAMES[rc]} iterations={ic} value={fc:.7g} "
+                      f"rel_diff={rel:.3e} limit={LOSS_RTOL:.0e}", flush=True)
+                if rg != rc or ig != ic or not rel <= LOSS_RTOL:
+                    raise RuntimeError(f"small re {name}: the latent matrix refit {step} on "
+                                       "the card disagrees with the CPU")
+            carried = []
+            for step in range(len(out["cuda"]) // n_buckets):
+                part = slice(step * n_buckets, (step + 1) * n_buckets)
+                carried = _compare_lanes(f"small re {name} step {step}",
+                                         {dev: r[part] for dev, r in out.items()}, carried)
     finally:
         random_effect_data._bucket_dense_design = dense_design
     print(f"small re: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _compare_lanes(label: str, out: dict, carried=None) -> list:
+    """Phase 4's per-lane check of one update's bucket results on the card
+    and on the CPU (``out[dev]``, one ``SolveResult`` a bucket): the same
+    reason, the value within LOSS_RTOL, the same iterations but on plateau
+    lanes. With ``carried`` (per bucket, the lanes excepted in the previous
+    MF iteration of a factored coordinate, or ``[]`` for its first) the
+    plateau lanes are excepted from all three checks, and so are the lanes
+    carried: a plateau lane's last step is decided by float32 rounding, and
+    the point it stops at warm-starts its next MF iteration. Returns the
+    lanes excepted, per bucket."""
+    import torch
+
+    from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
+
+    host = {dev: [tuple(t.cpu() for t in (r.reason, r.value, r.iterations, r.values))
+                  for r in results] for dev, results in out.items()}
+    worst, plateau, bad, excepted = 0.0, 0, [], []
+    for b, ((rg, fg, ig, vg), (rc, fc, ic, vc)) in enumerate(zip(host["cuda"], host["cpu"])):
+        rel = ((fg.double() - fc.double()).abs() / fc.double().abs().clamp(min=1e-30))
+        flat = _plateau_lanes(vg, ig) | _plateau_lanes(vc, ic)
+        if carried:
+            flat |= carried[b]
+        excepted.append(flat)
+        plateau += int(flat.sum())
+        held = ~flat if carried is not None else torch.ones_like(flat)
+        worst = max(worst, float(rel[held].max()) if bool(held.any()) else 0.0)
+        if not torch.equal(rg[held], rc[held]):
+            bad.append(f"bucket {b}: reasons differ on {int((rg != rc)[held].sum())} lanes")
+        if not bool((rel[held] <= LOSS_RTOL).all()):
+            bad.append(f"bucket {b}: values differ beyond rtol {LOSS_RTOL}")
+        off = (ig != ic) & ~flat
+        if bool(off.any()):
+            bad.append(f"bucket {b}: iterations differ on {int(off.sum())} lanes "
+                       "that are not plateau lanes")
+        wrong = (((rg != rc) | (rel > LOSS_RTOL)) & held) | off
+        for lane in torch.nonzero(wrong).flatten()[:3].tolist():
+            bad.append({"bucket": b, "lane": lane, "reasons": [int(rg[lane]), int(rc[lane])],
+                        "iterations": [int(ig[lane]), int(ic[lane])],
+                        "values": [vg[lane, :int(ig[lane]) + 1].tolist(),
+                                   vc[lane, :int(ic[lane]) + 1].tolist()]})
+    reasons = torch.cat([r for r, *_ in host["cuda"]]).long()
+    its = torch.cat([i for _, _, i, _ in host["cuda"]]).long()
+    counts = torch.bincount(reasons, minlength=5).tolist()
+    print(f"{label}: lanes={len(reasons)} reasons="
+          f"{json.dumps({CONVERGENCE_REASON_NAMES[k]: int(c) for k, c in enumerate(counts) if c})} "
+          f"iterations={torch.bincount(its).tolist()} plateau_lanes={plateau}"
+          f"{' (excepted, with those carried)' if carried is not None else ''} "
+          f"value_rel_diff={worst:.3e} limit={LOSS_RTOL:.0e}", flush=True)
+    if bad:
+        raise RuntimeError(f"{label}: the card disagrees with the CPU: {bad}")
+    return excepted
 
 
 def _plateau_lanes(values, iterations):
@@ -946,13 +1036,14 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, ob
     coeffs = [fe.coefficients] + [b.coefficients for b in model.models["per-user"].buckets]
     if not all(bool(c.isfinite().all()) for c in coeffs):
         bad.append("non-finite coefficients")
-    newton, fe_losses = [], []
+    newton, fe_losses, fe_trackers = [], [], []
     for entry in result.history:
         it, name = entry["iteration"], entry["coordinate"]
         if name == "fixed":
             (res,) = entry["results"]
             loss0, loss = float(res.values[0]), float(res.value)
             fe_losses.append(loss)
+            fe_trackers.append(entry["tracker"])
             print(f"path 6 cd={it} fixed: iterations={res.iterations} "
                   f"reason={CONVERGENCE_REASON_NAMES[res.reason]} loss0={loss0:.7g} "
                   f"loss={loss:.7g} seconds={entry['seconds']:.4f}", flush=True)
@@ -989,7 +1080,7 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, ob
              "coeffs_per_s": coeffs_per_s, "total_coeffs": total_coeffs,
              "buckets": buckets, "newton": newton, "host_syncs": syncs,
              "max_memory_allocated": peak, "train_auc": glmix_auc, "fe_only_auc": fe_auc,
-             "fe_losses": fe_losses,
+             "fe_losses": fe_losses, "fe_trackers": fe_trackers,
              "evaluated": evals[0], "bit_identical_twice": same,
              "final_reloaded_scores_bit_identical": reloaded_same,
              **scatter_memory(gds.__dict__["_csr_batches"].values())}
@@ -1334,9 +1425,65 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str):
         if required and sub[label][required] == 0:
             bad.append(f"path {label}: {required} not launched on the COO buckets")
         del m
+    sub["11b"], stats["11b"] = run_projector_path(gds, items, shapes["per-user-items"], card,
+                                                  bad)
     if bad:
         raise RuntimeError(f"path 9: bad result: {bad}")
     return sub, stats, prof
+
+
+def run_projector_path(gds, items, shapes, card: str, bad: list) -> tuple[dict, dict]:
+    """Path 11b: the random projector on path 9's sparse per-user effect (its
+    dataset: 10 buckets over the 10K-feature shard, the 3 widest on COO),
+    built as ``GameEstimator`` builds a ``projector: random`` random effect:
+    one update from zero in a PROJECTED_DIM-dim Gaussian space, LBFGS 20, L2
+    1, tolerance 1e-7. Adds to ``bad`` a lane whose objective rose, a score
+    that is not finite, two scorings that differ, or a saved model (type
+    ``factored_random_effect``) that reloads to other scores."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.data.model_store import (
+        load_game_model,
+        load_game_model_metadata,
+        save_game_model,
+    )
+    from photon_ml_tpu_torch.game import FactoredRandomEffectCoordinate, GameModel
+
+    opt = re_optimizer("lbfgs", 20, 1e-7)
+    coord = FactoredRandomEffectCoordinate(
+        "per-user-projected", gds, items.re_data, "logistic", opt, opt,
+        latent_dim=PROJECTED_DIM, refit_projection=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = coord.update_model(coord.initialize_model(), None)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+    rows = lane_report("11b", coord.last_results, shapes)
+    scores = [coord.score(model) for _ in range(2)]
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    with tempfile.TemporaryDirectory(dir=build_dir) as out:
+        game = GameModel(task="logistic", models={"per-user-projected": model})
+        save_game_model(game, out)
+        kind = load_game_model_metadata(out)["coordinates"]["per-user-projected"]["type"]
+        reloaded = torch.equal(load_game_model(out).score(gds), game.score(gds))
+    checks = {"lanes_rose": sum(r["rose"] for r in rows),
+              "finite": bool(scores[0].isfinite().all()),
+              "twice": torch.equal(*scores), "saved_type": kind, "reloaded": reloaded}
+    stats = {"seconds": dt, "host_syncs": syncs, "lanes": rows, "launches": launches,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(), **checks}
+    print(f"path 11b: projected_dim={PROJECTED_DIM} seconds={dt:.4f} host_syncs={syncs} "
+          f"max_memory_allocated={stats['max_memory_allocated']} checks={json.dumps(checks)} "
+          f"launches={json.dumps(launches)} card={card}", flush=True)
+    if checks["lanes_rose"] or not (checks["finite"] and checks["twice"] and reloaded
+                                    and kind == "factored_random_effect"):
+        bad.append(f"path 11b: {checks}")
+    return launches, stats
 
 
 def numpy_summary(values, cols, n_rows: int, n_features: int) -> dict:
@@ -1656,7 +1803,8 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
                   "fixed": {"type": "fixed_effect", "shard_name": "global", "optimizer": lbfgs},
                   "per-user": {"type": "random_effect", "shard_name": "user",
                                "id_name": "userId",
-                               "optimizer": {**lbfgs, "type": "newton", "tolerance": 1e-7}}}}
+                               "optimizer": {**lbfgs, "type": "newton", "tolerance": 1e-7}}},
+              "checkpoint": {"dir": os.path.join(work, "ckpt"), "every": 1, "keep_last": 2}}
     train_cfg = os.path.join(work, "train.json")
     with open(train_cfg, "w") as fh:
         json.dump(config, fh)
@@ -1677,6 +1825,9 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
         return seen["fit"]
 
     cli_train.read_input, GameEstimator.fit = spy_read, spy_fit
+    # with a checkpoint `cli train` installs its SIGTERM/SIGINT handlers; this
+    # process keeps its own once it is done
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
     torch.cuda.synchronize()
     telemetry.reset()
     kernels.reset_launch_counts()
@@ -1685,6 +1836,8 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
         summary = _run_cli_in_process(["train", "--config", train_cfg])
     finally:
         cli_train.read_input, GameEstimator.fit = read_input, fit
+        for s, h in handlers.items():
+            signal.signal(s, h)
     torch.cuda.synchronize()
     stats["train_s"] = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1722,6 +1875,14 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
 
     fe_losses = [float(e["results"][0].value) for e in seen["fit"].history
                  if e["coordinate"] == "fixed"]
+    # each FE solve's iterations and reason, from its tracker, beside path 6's
+    fe_trackers = [e["tracker"] for e in seen["fit"].history if e["coordinate"] == "fixed"]
+    for it, (mine, six) in enumerate(zip(fe_trackers, game["fe_trackers"])):
+        print(f"path 10 cd={it} fixed tracker: {mine} | path 6: {six}", flush=True)
+    ckpt = os.path.join(work, "ckpt")
+    steps = sorted(os.listdir(ckpt))
+    kept = {"steps": steps, "manifests": all(
+        os.path.exists(os.path.join(ckpt, d, "manifest.json")) for d in steps)}
     loss_ok = len(fe_losses) == len(game["fe_losses"]) and all(
         abs(a - b) <= LOSS_RTOL * abs(b) for a, b in zip(fe_losses, game["fe_losses"]))
     labels, weights = ds.per_row(ds.response), ds.per_row(ds.weight)
@@ -1731,6 +1892,8 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
         "final/model-metadata.json", "best/model-metadata.json", "final/feature-indexes/global",
         "final/feature-indexes/user", "best/feature-indexes/global", "best/feature-indexes/user",
         "feature-stats/global.avro", "feature-stats/user.avro")}
+    stats.update(fe_trackers=fe_trackers, path6_fe_trackers=game["fe_trackers"],
+                 checkpoints=kept)
     stats.update(fe_losses=fe_losses, path6_fe_losses=game["fe_losses"], train_auc=train_auc,
                  path6_auc=game["train_auc"], same=same, written=written, launches=launches,
                  history=[{k: v for k, v in e.items() if k not in ("results", "launches")}
@@ -1741,7 +1904,10 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
           f"path6_fe_losses={game['fe_losses']} train_auc={train_auc:.6f} "
           f"path6_auc={game['train_auc']:.6f} path6_fe_only_auc={game['fe_only_auc']:.6f} "
           f"guard={json.dumps(stats['guard'])} written={json.dumps(written)} "
-          f"launches={json.dumps(launches)} card={card}", flush=True)
+          f"checkpoints={json.dumps(kept)} launches={json.dumps(launches)} card={card}",
+          flush=True)
+    if kept != {"steps": ["step-00000002", "step-00000003"], "manifests": True}:
+        bad.append(f"cli train kept other checkpoints than steps 2 and 3: {kept}")
     if not loss_ok:
         bad.append(f"fixed-effect losses {fe_losses} vs path 6's {game['fe_losses']}")
     if not (abs(train_auc - game["train_auc"]) <= 1e-3 and train_auc > game["fe_only_auc"]):
@@ -1822,6 +1988,283 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
           flush=True)
     if bad:
         raise RuntimeError(f"path 10: bad result: {bad}")
+    return launches, stats
+
+
+def make_northstar_problem(seed: int, n_rows: int):
+    """bench_northstar.py's data (its generator at :47-83 and the planted
+    model drawn in ``_run``, the same draws in the same order from
+    ``seed``): ``n_rows`` training rows, then NS_VAL validation rows. Each
+    split is (users, movies, labels, logits, shards): ``movieFeatures``
+    (NS_FE_NNZ of NS_FE_SPACE per movie), ``movieCtx`` (the movie's NS_CTX
+    embedding) and ``userCtx`` (the user's), each in its own column space."""
+    from photon_ml_tpu_torch.game import FeatureShard
+
+    rng = np.random.default_rng(seed)
+    movie_cols = rng.integers(0, NS_FE_SPACE, size=(NS_MOVIES, NS_FE_NNZ)).astype(np.int32)
+    movie_vals = rng.normal(size=(NS_MOVIES, NS_FE_NNZ))
+    emb_m = rng.normal(size=(NS_MOVIES, NS_CTX)) * 0.7
+    emb_u = rng.normal(size=(NS_USERS, NS_CTX)) * 0.7
+    w_g = rng.normal(size=NS_FE_SPACE) * 0.4
+    a_u = rng.normal(size=(NS_USERS, NS_CTX)) * 0.4
+    b_m = rng.normal(size=(NS_MOVIES, NS_CTX)) * 0.4
+    splits = []
+    for n in (n_rows, NS_VAL):
+        users = rng.integers(0, NS_USERS, size=n)
+        movies = rng.integers(0, NS_MOVIES, size=n)
+        logit = (np.einsum("ij,ij->i", movie_vals[movies], w_g[movie_cols[movies]])
+                 + np.einsum("ij,ij->i", emb_m[movies], a_u[users])
+                 + np.einsum("ij,ij->i", emb_u[users], b_m[movies]))
+        y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float64)
+        rows = np.repeat(np.arange(n, dtype=np.int64), NS_CTX)
+        ctx_cols = np.tile(np.arange(NS_CTX, dtype=np.int64), n)
+        shards = {
+            "movieFeatures": FeatureShard.from_coo(
+                movie_vals[movies].ravel(), np.repeat(np.arange(n, dtype=np.int64), NS_FE_NNZ),
+                movie_cols[movies].ravel(), NS_FE_SPACE),
+            "movieCtx": FeatureShard.from_coo(emb_m[movies].ravel(), rows, ctx_cols, NS_CTX),
+            "userCtx": FeatureShard.from_coo(emb_u[users].ravel(), rows, ctx_cols, NS_CTX),
+        }
+        splits.append((users, movies, y, logit, shards))
+    return splits
+
+
+def planted_auc(logit: np.ndarray, y: np.ndarray) -> float:
+    """The planted model's AUC on its own draws (bench_northstar.py's
+    ceiling): the rank-sum form over the logits."""
+    ranks = np.empty(len(logit))
+    ranks[np.argsort(logit)] = np.arange(1, len(logit) + 1)
+    pos = y > 0.5
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def northstar_config() -> dict:
+    """bench_northstar.py:186-231's coordinates, evaluators and schedule, as
+    the JSON document ``parse_game_config`` reads."""
+    def opt(kind: str, iters: int) -> dict:
+        return {"type": kind, "max_iterations": iters, "tolerance": 1e-7,
+                "regularization": "l2", "regularization_weight": 1.0}
+
+    return {"task": "logistic", "num_iterations": 1, "evaluators": ["auc"], "coordinates": {
+        "fixed": {"type": "fixed_effect", "shard_name": "movieFeatures",
+                  "optimizer": opt("lbfgs", 10)},
+        "per-user": {"type": "random_effect", "shard_name": "movieCtx", "id_name": "userId",
+                     "optimizer": opt("newton", 8), "active_rows_per_entity": 256},
+        "per-movie": {"type": "random_effect", "shard_name": "userCtx", "id_name": "movieId",
+                      "optimizer": opt("newton", 8), "active_rows_per_entity": 256},
+        "mf": {"type": "factored_random_effect", "shard_name": "movieCtx", "id_name": "userId",
+               "latent_dim": 2, "mf_iterations": 1, "optimizer": opt("lbfgs", 8),
+               "latent_optimizer": opt("lbfgs", 8), "active_rows_per_entity": 32},
+    }}
+
+
+def _model_tensors(model) -> dict:
+    """Every tensor of a GAME model, by name, for a bit-for-bit comparison."""
+    out = {}
+    for name, sub in model.models.items():
+        if hasattr(sub, "coefficients"):
+            out[name] = sub.coefficients
+        for i, b in enumerate(getattr(sub, "buckets", ())):
+            out[f"{name}/{i}"] = b.coefficients
+        if hasattr(sub, "latent"):
+            out[f"{name}/latent"] = sub.latent
+            out[f"{name}/projection"] = sub.projection.matrix
+    return out
+
+
+def run_northstar_path(seed: int, card: str) -> tuple[dict, dict]:
+    """Path 11: BASELINE config #5 (bench_northstar.py: a fixed effect, a
+    per-user and a per-movie random effect, and the factored ``mf``
+    coordinate) at its full width through ``GameEstimator.fit``, with one
+    estimator for three fits that share its random-effect datasets: fit A
+    uninterrupted with ``output_dir``; fit B with a checkpoint every step and
+    a stop after the second update; fit C resumed from B's checkpoint. Fails
+    unless the validation AUC rises from ``fixed`` to ``per-user`` to
+    ``per-movie`` (the ``mf`` update's change is printed: it lowers the AUC
+    here, as it does in the JAX package); the ``mf`` update launched ``csr_margins`` and ``csc_scatter`` and its
+    tracker holds one MF step whose latent solves cover every entity with no
+    lane above its value at zero, and whose refit took at least one
+    iteration and lowered its value; the saved final model scores the
+    validation rows bit for bit as the fitted one, and two scorings agree;
+    B stops at step 1 with its manifest on disk; C restores step 1, runs
+    steps 2 and 3 only, and ends bit-identical to A, tensor for tensor, with
+    A's AUC. Everything it writes goes at the end."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.config import parse_game_config
+    from photon_ml_tpu_torch.data.model_store import load_game_model
+    from photon_ml_tpu_torch.game import (
+        CheckpointSpec,
+        GameEstimator,
+        TrainingInterrupted,
+        build_game_dataset,
+    )
+
+    stats, bad = {"card": card, "rows": NS_ROWS}, []
+    t0 = time.perf_counter()
+    (users, movies, y, _, shards), (v_users, v_movies, v_y, v_logit, v_shards) = \
+        make_northstar_problem(seed, NS_ROWS)
+    stats["ceiling_auc"] = planted_auc(v_logit, v_y)
+    stats["generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gds = build_game_dataset(y, shards, id_columns={"userId": users, "movieId": movies})
+    vds = build_game_dataset(v_y, v_shards, id_columns={"userId": v_users, "movieId": v_movies})
+    gds.csr_batch("movieFeatures")
+    torch.cuda.synchronize()
+    stats["dataset_s"] = time.perf_counter() - t0
+    del users, movies, y, shards, v_users, v_movies, v_y, v_logit, v_shards
+    print(f"path 11 data: rows={NS_ROWS} validation_rows={NS_VAL} users={NS_USERS} "
+          f"movies={NS_MOVIES} generate_s={stats['generate_s']:.4f} "
+          f"dataset_s={stats['dataset_s']:.4f} ceiling_auc={stats['ceiling_auc']:.6f} "
+          f"card={card}", flush=True)
+
+    config = parse_game_config(northstar_config())
+    est = GameEstimator(config)
+    stats["re_build_s"] = {}
+    for name, c in config.coordinates.items():
+        if hasattr(c, "id_name"):
+            t0 = time.perf_counter()
+            red = est._re_dataset(gds, c)
+            stats["re_build_s"][name] = time.perf_counter() - t0
+            print(f"path 11 re build {name}: seconds={stats['re_build_s'][name]:.4f} "
+                  f"entities={sum(b.num_entities for b in red.buckets)} "
+                  f"buckets={len(red.buckets)} passive_rows={len(red.passive_rows)} "
+                  f"card={card}", flush=True)
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(dir=build_dir)
+    try:
+        # fit A, uninterrupted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        telemetry.reset()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit_a = est.fit(gds, validation_data=vds, output_dir=os.path.join(work, "a"))
+        torch.cuda.synchronize()
+        stats["fit_a_s"] = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        spans = telemetry.snapshot()["span_seconds"]
+        stats["kron_structure_s"] = spans.get("factored_kron_structure", 0.0)
+        stats["build_coordinates_s"] = spans.get("build_coordinates", 0.0)
+        mf = est._coordinates[(id(gds), "mf")][1]
+        stats["kron_nnz"] = mf.kron_nnz
+        aucs, updates = [], []
+        for e in fit_a.history:
+            aucs.append(e["metrics"]["auc"])
+            updates.append({"coordinate": e["coordinate"], "seconds": e["seconds"],
+                            "host_syncs": e["host_syncs"], "auc": e["metrics"]["auc"],
+                            "launches": {k: n for k, n in e["launches"].items() if n}})
+            print(f"path 11 fit A {e['coordinate']}: auc={e['metrics']['auc']:.6f} "
+                  f"seconds={e['seconds']:.4f} host_syncs={e['host_syncs']} "
+                  f"launches={json.dumps(updates[-1]['launches'])} card={card}", flush=True)
+        stats.update(updates=updates, aucs=aucs, mf_auc_change=aucs[3] - aucs[2])
+        # the mf update lowers the validation AUC of this configuration in
+        # the JAX package too (tests/test_torch_factored.py holds the port
+        # to the reference's AUC after each update), so only the order of
+        # the first three updates is checked here, and mf's AUC is printed
+        if not (aucs[0] < aucs[1] < aucs[2] and np.isfinite(aucs[3])):
+            bad.append(f"the validation AUC does not rise as it should: {aucs}")
+        print(f"path 11 mf: validation auc change {aucs[3] - aucs[2]:+.6f} from per-movie "
+              f"(the JAX package's change on this generator's data at 40K and 400K rows: "
+              f"-0.019824, -0.023000)", flush=True)
+        mf_launches = fit_a.history[3]["launches"]
+        if not (mf_launches["csr_margins"] and mf_launches["csc_scatter"]):
+            bad.append(f"the mf update did not launch csr_margins and csc_scatter: "
+                       f"{mf_launches}")
+        tracker = mf.last_tracker
+        lane_results = [r for r in mf.last_results if r.value.dim() == 1]
+        lat_res = mf.last_results[-1]
+        (re_t, fe_t), = tracker.steps
+        rose = sum(int((r.value > r.values[:, 0]).sum()) for r in lane_results)
+        lat_start = float(lat_res.values[0])
+        stats["mf_tracker"] = {"entities": len(re_t.iterations), "n_flat": mf._n_flat,
+                               "lanes_rose": rose,
+                               "reasons": re_t.count_convergence_reasons(),
+                               "matrix_iterations": fe_t.iterations,
+                               "matrix_reason": fe_t.reason,
+                               "matrix_value": fe_t.final_value, "matrix_value0": lat_start}
+        print(f"path 11 mf tracker:\n{tracker.to_summary_string()}", flush=True)
+        print(f"path 11 mf: kron_nnz={mf.kron_nnz} {json.dumps(stats['mf_tracker'])}",
+              flush=True)
+        if len(re_t.iterations) != mf._n_flat or rose:
+            bad.append(f"the mf latent solves: {len(re_t.iterations)} lanes of {mf._n_flat}, "
+                       f"{rose} rose above their value at zero")
+        if not (fe_t.iterations >= 1 and fe_t.final_value < lat_start):
+            bad.append(f"the mf latent refit: {fe_t.iterations} iterations, value "
+                       f"{fe_t.final_value} from {lat_start}")
+        loaded = load_game_model(os.path.join(work, "a", "final"))
+        scored = [fit_a.model.score(vds) for _ in range(2)]
+        same = {"reloaded": torch.equal(loaded.score(vds), scored[0]),
+                "twice": torch.equal(*scored)}
+        stats["bit_identical"] = same
+        if not all(same.values()):
+            bad.append(f"validation scores differ: {same}")
+        del loaded, scored
+
+        # fit B: a checkpoint every step, stopped after the second update
+        ckpt = os.path.join(work, "ckpt")
+        spec = CheckpointSpec(directory=ckpt, every=1)
+        polls = []
+
+        def stop_after_two() -> bool:
+            polls.append(1)
+            return len(polls) >= 2
+
+        telemetry.reset()
+        t0 = time.perf_counter()
+        stopped = None
+        try:
+            est.fit(gds, validation_data=vds, checkpoint_spec=spec, should_stop=stop_after_two)
+        except TrainingInterrupted as e:
+            stopped = e
+        stats["fit_b_s"] = time.perf_counter() - t0
+        stats["fit_b_save_s"] = telemetry.snapshot()["span_seconds"].get("checkpoint:save", 0.0)
+        manifest = os.path.join(ckpt, "step-00000001", "manifest.json")
+        stats["fit_b"] = {"stopped_at": None if stopped is None else stopped.step,
+                          "manifest": os.path.exists(manifest)}
+        if stopped is None or stopped.step != 1 or not os.path.exists(manifest):
+            bad.append(f"fit B did not stop at step 1 with its manifest: {stats['fit_b']}")
+
+        # fit C: resumed from fit B's checkpoint
+        telemetry.reset()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit_c = est.fit(gds, validation_data=vds, checkpoint_spec=spec)
+        torch.cuda.synchronize()
+        stats["fit_c_s"] = time.perf_counter() - t0
+        counters = telemetry.snapshot()["counters"]
+        stats["fit_c_save_s"] = telemetry.snapshot()["span_seconds"].get("checkpoint:save", 0.0)
+        ran = [e["coordinate"] for e in fit_c.history if "results" in e]
+        a_t, c_t = _model_tensors(fit_a.model), _model_tensors(fit_c.model)
+        identical = sorted(a_t) == sorted(c_t) and all(torch.equal(a_t[k], c_t[k]) for k in a_t)
+        stats["fit_c"] = {"restores": counters.get("checkpoint.restores", 0), "ran": ran,
+                          "bit_identical_to_a": identical,
+                          "auc": fit_c.history[-1]["metrics"]["auc"]}
+        if not (stats["fit_c"]["restores"] == 1 and ran == ["per-movie", "mf"]):
+            bad.append(f"fit C did not resume at step 2: {stats['fit_c']}")
+        if not identical or stats["fit_c"]["auc"] != aucs[-1]:
+            diff = [k for k in a_t if k in c_t and not torch.equal(a_t[k], c_t[k])]
+            bad.append(f"the resumed fit differs from the uninterrupted one: {diff}, auc "
+                       f"{stats['fit_c']['auc']} vs {aucs[-1]}")
+        print(f"path 11 checkpoints: fit_b={json.dumps(stats['fit_b'])} "
+              f"fit_c={json.dumps(stats['fit_c'])} fit_b_s={stats['fit_b_s']:.4f} "
+              f"fit_c_s={stats['fit_c_s']:.4f} save_s(b)={stats['fit_b_save_s']:.4f} "
+              f"save_s(c)={stats['fit_c_save_s']:.4f} card={card}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"path 11: fit_a_s={stats['fit_a_s']:.4f} "
+          f"re_build_s={json.dumps(stats['re_build_s'])} "
+          f"kron_structure_s={stats['kron_structure_s']:.4f} kron_nnz={stats['kron_nnz']} "
+          f"max_memory_allocated={stats['max_memory_allocated']} aucs={aucs} "
+          f"ceiling_auc={stats['ceiling_auc']:.6f} bit_identical={json.dumps(same)} "
+          f"launches={json.dumps(launches)} card={card}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 11: bad result: {bad}")
     return launches, stats
 
 
@@ -1931,8 +2374,8 @@ def main() -> int:
 
 def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, train: dict,
                prof: dict) -> int:
-    """Paths 8, 6, 9-9c, 10 and 7, then the ``kernels`` line and the result
-    line; ``work`` holds path 8's files for path 10."""
+    """Paths 8, 6, 9-9c and 11b, 10, 11 and 7, then the ``kernels`` line and
+    the result line; ``work`` holds path 8's files for path 10."""
     import torch
 
     from photon_ml_tpu_torch.tools.probe_ell import card_line
@@ -1957,6 +2400,11 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     by_path["10"], train["10"] = run_cli_path(args.seed, card, work, train["6"], glm_ref)
     train["10"]["path_s"] = time.perf_counter() - t0
     print(f"path 10: {train['10']['path_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    by_path["11"], train["11"] = run_northstar_path(args.seed, card)
+    train["11"]["path_s"] = time.perf_counter() - t0
+    print(f"path 11: {train['11']['path_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
     by_path["7"], train["7"] = run_probe_path(args.seed)
 

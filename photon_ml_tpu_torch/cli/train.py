@@ -26,14 +26,18 @@ The config document is the reference's (``coordinates`` in updating order):
 
 ``--device`` (default ``cuda``) is the port's one added argument. The guard
 is on unless the config says ``"guard": false``; ``event_listeners`` loads
-listeners by dotted path. The reference's progress heartbeat (a log line
+listeners by dotted path. ``"checkpoint": {"dir", "every", "keep_last",
+"resume"}`` (or ``--checkpoint-dir``, ``--checkpoint-every``, ``--resume``)
+saves the coordinate-descent state after each step and resumes from the
+newest valid checkpoint (``resume`` defaults to true); with a checkpoint,
+SIGTERM/SIGINT finish the step, write a final checkpoint and end the run
+with an ``interrupted`` summary and exit code 75. The reference's progress heartbeat (a log line
 every ~30 s) is not started. Every key and flag the port cannot honour yet
 raises ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
 ``sweep`` and ``--sweep*`` (11); ``warm_start``, ``--warm-start``,
 ``--delta``, ``--refresh-registry-dir``, ``--lambda-points`` (14);
 ``input.ingest``, ``--ingest-workers``, ``--prefetch-depth`` (13);
-``mesh``, ``distributed``, ``--mesh`` (12); ``checkpoint``,
-``--checkpoint-*``, ``--resume`` (10); ``trace_out``, ``telemetry_out``,
+``mesh``, ``distributed``, ``--mesh`` (12); ``trace_out``, ``telemetry_out``,
 ``report_out``, ``xprof``, their flags, a ``heartbeat`` object or interval
 and ``--heartbeat-every`` > 0 (14).
 """
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.config import parse_game_config
+from photon_ml_tpu_torch.game.checkpoint import CheckpointSpec, GracefulStop, TrainingInterrupted
 from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
 from photon_ml_tpu_torch.game.dataset import FeatureShard, GameDataset, build_game_dataset
 from photon_ml_tpu_torch.game.estimator import GameEstimator
@@ -58,8 +63,7 @@ from photon_ml_tpu_torch.utils import setup_logging, timed
 
 # config keys the port refuses, with the ROADMAP.md Queue 1 item that ports them
 _REFUSED_KEYS = {"sweep": 11, "warm_start": 14, "mesh": 12, "distributed": 12,
-                 "checkpoint": 10, "trace_out": 14, "telemetry_out": 14, "report_out": 14,
-                 "xprof": 14}
+                 "trace_out": 14, "telemetry_out": 14, "report_out": 14, "xprof": 14}
 
 
 def _refuse(what: str, item: int):
@@ -163,6 +167,23 @@ def _parse_guard_spec(config: Mapping) -> Optional[GuardSpec]:
     return GuardSpec(**spec)
 
 
+def _parse_checkpoint_spec(config: Mapping) -> Optional[CheckpointSpec]:
+    """Config key ``"checkpoint": {"dir", "every", "keep_last", "resume"}``.
+    ``resume`` defaults to true, so a restarted run with the same arguments
+    goes on; ``"resume": false`` is a fresh fit that clears the directory."""
+    spec = config.get("checkpoint")
+    if not spec:
+        return None
+    spec = dict(spec)
+    if "dir" not in spec:
+        raise ValueError("checkpoint config needs a 'dir' key")
+    spec["directory"] = spec.pop("dir")
+    unknown = set(spec) - {f.name for f in dataclasses.fields(CheckpointSpec)}
+    if unknown:
+        raise ValueError(f"unknown checkpoint config keys: {sorted(unknown)}")
+    return CheckpointSpec(**spec)
+
+
 def _check_heartbeat(config: Mapping) -> None:
     """``heartbeat`` true, false, null or 0 start nothing; an object or an
     interval asks for the reference's heartbeat, which is not ported."""
@@ -183,6 +204,12 @@ def run(config: Mapping, output_dir: Optional[str] = None,
     game_config = parse_game_config(config)
     output_dir = output_dir or config.get("output_dir")
     guard = _parse_guard_spec(config)
+    checkpoint_spec = _parse_checkpoint_spec(config)
+    stop = GracefulStop()
+    if checkpoint_spec is not None:
+        # without a checkpoint nothing durable is written on SIGTERM, so the
+        # default handling (die at once) is the right one
+        stop.install()
 
     with timed("read training data"):
         train_data, index_maps = read_input(config["input"], device=device)
@@ -199,9 +226,17 @@ def run(config: Mapping, output_dir: Optional[str] = None,
 
         for listener in load_listeners(config["event_listeners"]):
             estimator.events.register(listener)
-    with timed("fit"):
-        result = estimator.fit(train_data, validation_data=validation_data,
-                               output_dir=output_dir, guard=guard, device=train_data.device)
+    try:
+        with timed("fit"):
+            result = estimator.fit(
+                train_data, validation_data=validation_data, output_dir=output_dir,
+                guard=guard, device=train_data.device, checkpoint_spec=checkpoint_spec,
+                should_stop=stop if checkpoint_spec is not None else None)
+    except TrainingInterrupted as e:
+        # the final checkpoint is on disk: report, and a restart resumes
+        return {"interrupted": True, "interrupted_at_step": e.step,
+                "checkpoint": e.checkpoint_path, "output_dir": output_dir,
+                "num_rows": train_data.num_rows}
     if output_dir is not None and index_maps is not None:
         _persist_feature_artifacts(output_dir, index_maps, train_data)
     return {
@@ -226,18 +261,24 @@ def main(argv=None) -> int:
                "--xprof-dir": 14, "--xprof-arm": 14, "--mesh": 12, "--sweep": 11,
                "--sweep-metric": 11, "--sweep-policy": 11, "--sweep-registry-dir": 11,
                "--warm-start": 14, "--delta": 14, "--refresh-registry-dir": 14,
-               "--lambda-points": 14, "--ingest-workers": 13, "--prefetch-depth": 13,
-               "--checkpoint-dir": 10, "--checkpoint-every": 10}
+               "--lambda-points": 14, "--ingest-workers": 13, "--prefetch-depth": 13}
     for flag in refused:
         parser.add_argument(flag, action="append", help=argparse.SUPPRESS)
-    parser.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--heartbeat-every", type=float, help=argparse.SUPPRESS)
+    parser.add_argument("--checkpoint-dir",
+                        help="save the coordinate-descent state here after each (iteration, "
+                        "coordinate) step; SIGTERM/SIGINT then write a final checkpoint "
+                        "before exiting (overrides config checkpoint.dir)")
+    parser.add_argument("--checkpoint-every", type=int,
+                        help="save every N steps (default 1; overrides checkpoint.every)")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the newest valid checkpoint in --checkpoint-dir "
+                        "(the default once a checkpoint dir is configured; config "
+                        'checkpoint {"resume": false} is a fresh fit that clears it)')
     args = parser.parse_args(argv)
     for flag, item in refused.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             _refuse(f"the train flag {flag}", item)
-    if args.resume:
-        _refuse("the train flag --resume", 10)
     if args.heartbeat_every is not None and args.heartbeat_every > 0:
         _refuse("the train flag --heartbeat-every", 14)
     setup_logging()
@@ -245,9 +286,22 @@ def main(argv=None) -> int:
         config = json.load(f)
     if args.heartbeat_every is not None:
         config["heartbeat"] = False
+    if args.checkpoint_dir or args.checkpoint_every is not None or args.resume:
+        ckpt = dict(config.get("checkpoint") or {})
+        if args.checkpoint_dir:
+            ckpt["dir"] = args.checkpoint_dir
+        if args.checkpoint_every is not None:
+            ckpt["every"] = args.checkpoint_every  # 0 reaches CheckpointSpec's check
+        if args.resume:
+            ckpt["resume"] = True
+        if "dir" not in ckpt:
+            parser.error("--checkpoint-every/--resume need --checkpoint-dir "
+                         "(or a config checkpoint.dir)")
+        config["checkpoint"] = ckpt
     summary = run(config, output_dir=args.output_dir, device=args.device)
     print(json.dumps(summary, default=float))
-    return 0
+    # an interrupted run is incomplete: a non-zero code asks for a restart
+    return 75 if summary.get("interrupted") else 0
 
 
 if __name__ == "__main__":

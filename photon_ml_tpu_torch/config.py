@@ -9,9 +9,9 @@ model's metadata holds. Unknown or malformed keys raise ``ValueError``, as
 in the reference.
 
 The port builds its own ``GameConfig``, ``FixedEffectConfig``,
-``RandomEffectConfig`` and ``OptimizerConfig``. A ``factored_random_effect``
-coordinate and a ``random`` projector raise ``NotImplementedError``
-(ROADMAP.md Queue 1 item 10). A fixed effect's ``layout`` key is checked
+``RandomEffectConfig``, ``FactoredRandomEffectConfig`` and
+``OptimizerConfig``; a ``factored_random_effect`` coordinate's ``optimizer``
+is its per-entity optimizer. A fixed effect's ``layout`` key is checked
 against the reference's values and selects nothing: the port has one
 fixed-effect layout, the CSR batch with its tile index.
 """
@@ -21,8 +21,8 @@ from __future__ import annotations
 import json
 from typing import Mapping, Optional
 
-from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
 from photon_ml_tpu_torch.game.estimator import (
+    FactoredRandomEffectConfig,
     FixedEffectConfig,
     GameConfig,
     RandomEffectConfig,
@@ -124,9 +124,6 @@ def parse_coordinate_config(obj: Mapping):
         if layout not in _FE_LAYOUTS:
             raise ValueError(f"unknown layout '{layout}'")
     elif ctype == "random_effect":
-        projector = obj.pop("projector", "index_map")
-        if projector == "random":
-            raise NotImplementedError(NOT_PORTED.format("the 'random' projector", 10))
         ratio = obj.pop("features_to_samples_ratio", None)
         out = RandomEffectConfig(
             shard_name=obj.pop("shard_name"),
@@ -135,16 +132,24 @@ def parse_coordinate_config(obj: Mapping):
             active_rows_per_entity=obj.pop("active_rows_per_entity", None),
             min_rows_per_entity=int(obj.pop("min_rows_per_entity", 1)),
             features_to_samples_ratio=None if ratio is None else float(ratio),
-            projector=projector,
+            projector=obj.pop("projector", "index_map"),
             projected_dim=obj.pop("projected_dim", None),
+            projection_seed=int(obj.pop("projection_seed", 0)),
+            projection_intercept_index=obj.pop("projection_intercept_index", None),
             compute_variances=bool(obj.pop("compute_variances", False)),
         )
-        # the random projector's own keys, which the reference's metadata
-        # holds for every random effect
-        obj.pop("projection_seed", None)
-        obj.pop("projection_intercept_index", None)
     elif ctype == "factored_random_effect":
-        raise NotImplementedError(NOT_PORTED.format("a factored_random_effect coordinate", 10))
+        out = FactoredRandomEffectConfig(
+            shard_name=obj.pop("shard_name"),
+            id_name=obj.pop("id_name"),
+            latent_dim=int(obj.pop("latent_dim")),
+            mf_iterations=int(obj.pop("mf_iterations", 1)),
+            re_optimizer=parse_optimizer_config(obj.pop("optimizer", None)),
+            latent_optimizer=parse_optimizer_config(obj.pop("latent_optimizer", None)),
+            active_rows_per_entity=obj.pop("active_rows_per_entity", None),
+            min_rows_per_entity=int(obj.pop("min_rows_per_entity", 1)),
+            seed=int(obj.pop("seed", 0)),
+        )
     else:
         raise ValueError(f"unknown coordinate type '{ctype}'")
     if obj:  # a typo must not train with defaults

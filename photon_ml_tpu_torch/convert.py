@@ -13,7 +13,12 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.normalization import NormalizationContext
+from photon_ml_tpu_torch.data.projection import ProjectionMatrix
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.game.factored import (
+    FactoredRandomEffectModel,
+    MatrixFactorizationModel,
+)
 from photon_ml_tpu_torch.game.models import (
     FixedEffectModel,
     GameModel,
@@ -66,11 +71,29 @@ def game_model_from_jax(
     - a fixed effect: ``{"shard_name", "coefficients"}``;
     - a random effect: ``{"id_name", "shard_name", "buckets", "entity_bucket",
       "entity_pos", "vocab"}`` with ``buckets`` a sequence of
-      ``{"coefficients" [E, K], "projection" [E, K], "entity_codes" [E]}``.
+      ``{"coefficients" [E, K], "projection" [E, K], "entity_codes" [E]}``;
+    - a factored random effect: ``{"id_name", "shard_name", "projection"
+      [K, d], "latent" [n_flat, K], "entity_flat", "vocab"}``;
+    - a matrix factorization: ``{"row_effect", "col_effect", "row_factors",
+      "col_factors", "row_vocab", "col_vocab"}``.
     """
     dev = resolve_device(device)
     out = {}
     for name, m in models.items():
+        if "latent" in m:
+            out[name] = FactoredRandomEffectModel(
+                id_name=m["id_name"], shard_name=m["shard_name"],
+                projection=ProjectionMatrix(matrix=_tensor(m["projection"], dev)),
+                latent=_tensor(m["latent"], dev),
+                entity_flat=np.asarray(m["entity_flat"], np.int64), vocab=np.asarray(m["vocab"]))
+            continue
+        if "row_factors" in m:
+            out[name] = MatrixFactorizationModel(
+                row_effect=m["row_effect"], col_effect=m["col_effect"],
+                row_factors=_tensor(m["row_factors"], dev),
+                col_factors=_tensor(m["col_factors"], dev),
+                row_vocab=np.asarray(m["row_vocab"]), col_vocab=np.asarray(m["col_vocab"]))
+            continue
         if "buckets" not in m:
             out[name] = FixedEffectModel(coefficients=_tensor(m["coefficients"], dev),
                                          shard_name=m["shard_name"])

@@ -14,14 +14,20 @@ same files, so a model saved by either package loads in the other:
                                         num_global), entity_codes_i (i32),
                                         variances_i; entity_bucket,
                                         entity_pos (i32) and vocab
+      factored-random-effect/<name>/model.npz
+                                        projection (f32 [K, d]), latent
+                                        (f32 [n_flat, K]), entity_flat
+                                        (i64), vocab
+      matrix-factorization/<name>/model.npz
+                                        row_factors, col_factors (f32),
+                                        row_vocab, col_vocab
 
 Loads read every array with ``allow_pickle=False``: a vocabulary of string
 ids is saved as a fixed-width unicode array. Loaded coefficients are
 tensors on ``device`` (default cuda); a random effect's projections become
 int64 tensors, its entity codes and lookup tables stay host numpy, as the
-port's ``RandomEffectModel`` holds them. Factored and matrix-factorization
-coordinates are not ported (ROADMAP.md Queue 1 item 10) and refuse to load.
-Every load failure is a ``ModelLoadError`` that names the offending path.
+port's ``RandomEffectModel`` holds them; so do a factored model's
+``entity_flat`` and the vocabularies. Every load failure is a ``ModelLoadError`` that names the offending path.
 """
 
 from __future__ import annotations
@@ -35,8 +41,13 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.index_map import IndexMap
+from photon_ml_tpu_torch.data.projection import ProjectionMatrix
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.dataset import GameDataset
+from photon_ml_tpu_torch.game.factored import (
+    FactoredRandomEffectModel,
+    MatrixFactorizationModel,
+)
 from photon_ml_tpu_torch.game.models import (
     FixedEffectModel,
     GameModel,
@@ -48,7 +59,6 @@ from photon_ml_tpu_torch.utils.atomic import atomic_write_json, atomic_write_npz
 
 _METADATA_FILE = "model-metadata.json"
 _FORMAT_VERSION = 1
-_NOT_PORTED_TYPES = ("factored_random_effect", "matrix_factorization")
 
 
 class ModelLoadError(ValueError):
@@ -217,6 +227,61 @@ def _load_random_effect(path: str, spec: dict, dev: torch.device) -> RandomEffec
                                  entity_pos=z["entity_pos"], vocab=z["vocab"])
 
 
+def _save_factored_random_effect(model: FactoredRandomEffectModel, path: str) -> dict:
+    os.makedirs(path, exist_ok=True)
+    atomic_write_npz(os.path.join(path, "model.npz"),
+                     projection=_host(model.projection.matrix, np.float32),
+                     latent=_host(model.latent, np.float32),
+                     entity_flat=_host(model.entity_flat, np.int64),
+                     vocab=_vocab(model.vocab))
+    return {"type": "factored_random_effect", "shard_name": model.shard_name,
+            "id_name": model.id_name, "latent_dim": int(model.latent_dim),
+            "num_entities": int(len(model.vocab))}
+
+
+def _load_factored_random_effect(path: str, spec: dict,
+                                 dev: torch.device) -> FactoredRandomEffectModel:
+    with _open_npz(os.path.join(path, "model.npz")) as z:
+        return FactoredRandomEffectModel(
+            id_name=spec["id_name"], shard_name=spec["shard_name"],
+            projection=ProjectionMatrix(matrix=_tensor(z["projection"], dev)),
+            latent=_tensor(z["latent"], dev), entity_flat=np.asarray(z["entity_flat"], np.int64),
+            vocab=z["vocab"])
+
+
+def _save_matrix_factorization(model: MatrixFactorizationModel, path: str) -> dict:
+    os.makedirs(path, exist_ok=True)
+    atomic_write_npz(os.path.join(path, "model.npz"),
+                     row_factors=_host(model.row_factors, np.float32),
+                     col_factors=_host(model.col_factors, np.float32),
+                     row_vocab=_vocab(model.row_vocab), col_vocab=_vocab(model.col_vocab))
+    return {"type": "matrix_factorization", "row_effect": model.row_effect,
+            "col_effect": model.col_effect,
+            "num_latent_factors": int(model.num_latent_factors)}
+
+
+def _load_matrix_factorization(path: str, spec: dict,
+                               dev: torch.device) -> MatrixFactorizationModel:
+    with _open_npz(os.path.join(path, "model.npz")) as z:
+        return MatrixFactorizationModel(
+            row_effect=spec["row_effect"], col_effect=spec["col_effect"],
+            row_factors=_tensor(z["row_factors"], dev), col_factors=_tensor(z["col_factors"], dev),
+            row_vocab=z["row_vocab"], col_vocab=z["col_vocab"])
+
+
+# the coordinate types: (model class, subdirectory, saver, loader)
+_COORDINATE_TYPES = {
+    "fixed_effect": (FixedEffectModel, "fixed-effect", _save_fixed_effect,
+                     _load_fixed_effect),
+    "random_effect": (RandomEffectModel, "random-effect", _save_random_effect,
+                      _load_random_effect),
+    "factored_random_effect": (FactoredRandomEffectModel, "factored-random-effect",
+                               _save_factored_random_effect, _load_factored_random_effect),
+    "matrix_factorization": (MatrixFactorizationModel, "matrix-factorization",
+                             _save_matrix_factorization, _load_matrix_factorization),
+}
+
+
 def save_game_model(model: GameModel, path: str, extra_metadata: Optional[dict] = None) -> None:
     """One subdirectory per coordinate, then the metadata; ``extra_metadata``
     (for example the configs that produced the model) round-trips under
@@ -224,12 +289,11 @@ def save_game_model(model: GameModel, path: str, extra_metadata: Optional[dict] 
     os.makedirs(path, exist_ok=True)
     coords = {}
     for name, sub in model.models.items():
-        if isinstance(sub, FixedEffectModel):
-            coords[name] = _save_fixed_effect(sub, os.path.join(path, "fixed-effect", name))
-        elif isinstance(sub, RandomEffectModel):
-            coords[name] = _save_random_effect(sub, os.path.join(path, "random-effect", name))
-        else:
+        kind = next((v for v in _COORDINATE_TYPES.values() if isinstance(sub, v[0])), None)
+        if kind is None:
             raise TypeError(f"coordinate '{name}': cannot persist {type(sub).__name__}")
+        _cls, subdir, saver, _loader = kind
+        coords[name] = saver(sub, os.path.join(path, subdir, name))
     _write_json(os.path.join(path, _METADATA_FILE), {
         "format_version": _FORMAT_VERSION,
         "model_type": "game",
@@ -252,18 +316,10 @@ def load_game_model(path: str, device: torch.device | str | None = None) -> Game
         spec = meta.get("coordinates", {}).get(name)
         if spec is None:
             raise ModelLoadError(meta_path, f"coordinate '{name}' listed but not described")
-        if spec["type"] == "fixed_effect":
-            models[name] = _load_fixed_effect(os.path.join(path, "fixed-effect", name), spec,
-                                              dev)
-        elif spec["type"] == "random_effect":
-            models[name] = _load_random_effect(os.path.join(path, "random-effect", name),
-                                               spec, dev)
-        elif spec["type"] in _NOT_PORTED_TYPES:
-            raise NotImplementedError(
-                f"coordinate '{name}': a {spec['type']} coordinate is not ported to "
-                "photon_ml_tpu_torch yet (ROADMAP.md Queue 1 item 10)")
-        else:
+        if spec["type"] not in _COORDINATE_TYPES:
             raise ValueError(f"unknown coordinate type '{spec['type']}'")
+        _cls, subdir, _saver, loader = _COORDINATE_TYPES[spec["type"]]
+        models[name] = loader(os.path.join(path, subdir, name), spec, dev)
     return GameModel(task=meta["task"], models=models)
 
 

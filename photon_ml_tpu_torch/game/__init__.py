@@ -1,7 +1,16 @@
 """GAME / GLMix training (counterpart of ``photon_ml_tpu/game``): a fixed
-effect on the CSR fast path plus per-entity random effects solved by a
-batched Newton over dense bucket designs, trained by coordinate descent."""
+effect on the CSR fast path, per-entity random effects solved as lanes of a
+bucket, factored random effects and the random projector, trained by
+coordinate descent with checkpoints."""
 
+from photon_ml_tpu_torch.game.checkpoint import (
+    CheckpointError,
+    CheckpointManager,
+    CheckpointSpec,
+    CheckpointState,
+    GracefulStop,
+    TrainingInterrupted,
+)
 from photon_ml_tpu_torch.game.coordinate_descent import (
     CoordinateDescentResult,
     ValidationSpec,
@@ -15,11 +24,17 @@ from photon_ml_tpu_torch.game.dataset import (
     build_game_dataset,
 )
 from photon_ml_tpu_torch.game.estimator import (
+    FactoredRandomEffectConfig,
     FixedEffectConfig,
     GameConfig,
     GameEstimator,
     GameFitResult,
     RandomEffectConfig,
+)
+from photon_ml_tpu_torch.game.factored import (
+    FactoredRandomEffectCoordinate,
+    FactoredRandomEffectModel,
+    MatrixFactorizationModel,
 )
 from photon_ml_tpu_torch.game.models import (
     FixedEffectModel,
@@ -34,8 +49,15 @@ from photon_ml_tpu_torch.game.random_effect_data import (
 )
 
 __all__ = [
+    "CheckpointError",
+    "CheckpointManager",
+    "CheckpointSpec",
+    "CheckpointState",
     "CoordinateDescentResult",
     "EntityBucket",
+    "FactoredRandomEffectConfig",
+    "FactoredRandomEffectCoordinate",
+    "FactoredRandomEffectModel",
     "FeatureShard",
     "FixedEffectConfig",
     "FixedEffectCoordinate",
@@ -45,12 +67,15 @@ __all__ = [
     "GameEstimator",
     "GameFitResult",
     "GameModel",
+    "GracefulStop",
     "IdColumn",
+    "MatrixFactorizationModel",
     "RandomEffectBucketModel",
     "RandomEffectConfig",
     "RandomEffectCoordinate",
     "RandomEffectDataset",
     "RandomEffectModel",
+    "TrainingInterrupted",
     "ValidationSpec",
     "build_game_dataset",
     "build_random_effect_dataset",

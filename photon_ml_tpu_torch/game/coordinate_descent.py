@@ -21,8 +21,17 @@ cleaned of NaN and infinities, so a rolled-back coordinate cannot poison
 its neighbours. The entry of a retried or rolled-back update records
 ``solve_retries`` and ``rolled_back``.
 
-The reference's checkpoint, ``should_stop`` and fault points are not
-ported: passing either of the first two raises ``NotImplementedError``.
+With a ``CheckpointManager`` (the reference's :251-290 and :372-389) the
+newest valid checkpoint is restored on entry (one written by a fit with
+other coordinates is refused), its completed steps are skipped and the
+scores are recomputed from the restored models; under a guard its frozen
+coordinates and rollback counts come back too. After each step the state is
+saved when ``should_save(step)`` or when ``should_stop()`` turns true, which
+then raises ``TrainingInterrupted``. A checkpoint's history holds each entry
+without its ``results`` (tensors). An update whose coordinate leaves a
+``last_tracker`` records its summary string as ``tracker`` unless it was
+rolled back. The reference's fault points are not ported (ROADMAP.md
+Queue 1 item 14c).
 """
 
 from __future__ import annotations
@@ -42,13 +51,17 @@ from photon_ml_tpu_torch.evaluation.evaluators import (
     sharded_auc,
     sharded_precision_at_k,
 )
+from photon_ml_tpu_torch.game.checkpoint import (
+    CheckpointError,
+    CheckpointManager,
+    CheckpointState,
+    TrainingInterrupted,
+)
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.game.models import GameModel
 from photon_ml_tpu_torch.optim.guard import GuardSpec, model_is_finite
 
 logger = logging.getLogger("photon_ml_tpu_torch.game")
-
-_NOT_PORTED = "{} of run_coordinate_descent is not ported yet (ROADMAP.md Queue 1 item 10)"
 
 
 @dataclasses.dataclass
@@ -134,31 +147,52 @@ def run_coordinate_descent(
     initial_models: Optional[Mapping[str, object]] = None,
     on_step=None,
     guard: Optional[GuardSpec] = None,
-    checkpoint=None,
+    checkpoint: Optional[CheckpointManager] = None,
     should_stop=None,
 ) -> CoordinateDescentResult:
     """Train all coordinates for ``num_iterations`` outer sweeps, in the
     order of ``coordinates``; ``initial_models`` warm-starts coordinates,
-    ``guard`` guards every solve."""
-    for arg, value in (("checkpoint", checkpoint), ("should_stop", should_stop)):
-        if value is not None:
-            raise NotImplementedError(_NOT_PORTED.format(arg))
+    ``guard`` guards every solve, ``checkpoint`` restores and saves the
+    state and ``should_stop`` (polled after every step) interrupts."""
     names = list(coordinates)
     models = {
         name: (initial_models[name] if initial_models and name in initial_models
                else coordinates[name].initialize_model())
         for name in names
     }
-    scores = {name: coordinates[name].score(models[name]) for name in names}
     best_model: Optional[GameModel] = None
     best_metric: Optional[float] = None
     history: list[dict] = []
+    start_step = 0
+    restored = checkpoint.restore() if checkpoint is not None else None
+    if restored is not None:
+        if list(restored.model.models) != names:
+            raise CheckpointError(
+                f"checkpoint at {checkpoint.spec.directory} was written by a fit with "
+                f"coordinates {list(restored.model.models)}, not {names}")
+        models = dict(restored.model.models)
+        best_model, best_metric = restored.best_model, restored.best_metric
+        history = list(restored.history)
+        start_step = restored.step + 1
+    # scores are derived state: recomputed from the (restored) models
+    scores = {name: coordinates[name].score(models[name]) for name in names}
+    # the guard's bookkeeping survives a resume only under a guard: resuming
+    # without one asks to train every coordinate again
     frozen: set[str] = set()
     consecutive_rollbacks = {name: 0 for name in names}
+    if guard is not None and restored is not None:
+        frozen = {n for n in restored.frozen if n in consecutive_rollbacks}
+        for n, count in (restored.consecutive_rollbacks or {}).items():
+            if n in consecutive_rollbacks:
+                consecutive_rollbacks[n] = int(count)
+    last_ckpt_path: Optional[str] = None
 
     for it in range(num_iterations):
         with telemetry.span("cd_iteration", iteration=it):
-            for name in names:
+            for idx, name in enumerate(names):
+                step = it * len(names) + idx
+                if step < start_step:
+                    continue  # completed before the restored checkpoint
                 if name in frozen:
                     continue  # a divergent coordinate: its last good model stands
                 coord = coordinates[name]
@@ -195,6 +229,9 @@ def run_coordinate_descent(
                 if guard is not None and (attempts or rolled_back):
                     entry["solve_retries"] = attempts
                     entry["rolled_back"] = rolled_back
+                tracker = getattr(coord, "last_tracker", None)
+                if tracker is not None and not rolled_back:
+                    entry["tracker"] = tracker.to_summary_string()
                 if validation is not None:
                     game_model = GameModel(task=task, models=dict(models))
                     metrics = _evaluate(game_model, validation)
@@ -216,6 +253,18 @@ def run_coordinate_descent(
                                        consecutive_rollbacks[name])
                 else:
                     consecutive_rollbacks[name] = 0
+
+                stop = should_stop is not None and should_stop()
+                if checkpoint is not None and (stop or checkpoint.should_save(step)):
+                    last_ckpt_path = checkpoint.save(CheckpointState(
+                        step=step, model=GameModel(task=task, models=dict(models)),
+                        best_model=best_model, best_metric=best_metric,
+                        history=[{k: v for k, v in e.items() if k != "results"}
+                                 for e in history],
+                        frozen=sorted(frozen),
+                        consecutive_rollbacks=dict(consecutive_rollbacks)))
+                if stop:
+                    raise TrainingInterrupted(step, last_ckpt_path)
 
     final = GameModel(task=task, models=dict(models))
     return CoordinateDescentResult(model=final, best_model=best_model or final,

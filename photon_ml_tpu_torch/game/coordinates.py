@@ -21,9 +21,11 @@ Counterpart of ``photon_ml_tpu/game/coordinates.py``:
 Both take part in the coordinate-descent guard (``optim/guard.py``) as the
 reference's do: ``extra_l2`` damps the next solve's L2 weight, and with
 ``health_check`` on, ``last_health`` is the solve's health, one boolean on
-the device (for a random effect, over every bucket). The reference's mesh
-and tracker hooks are left out. ``NOT_PORTED`` is the message of what the
-port refuses, naming the ROADMAP item that ports it.
+the device (for a random effect, over every bucket). Each update leaves its
+``last_tracker`` (``optim/trackers.py``, :327-329 and :659-729), built with
+one host fetch; a random effect's comes from its buckets' lane results. The
+reference's mesh hooks are left out. ``NOT_PORTED`` is the message of what
+the port refuses, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -52,6 +54,10 @@ from photon_ml_tpu_torch.optim.factory import (
     solve,
 )
 from photon_ml_tpu_torch.optim.guard import damped_objective, solve_health
+from photon_ml_tpu_torch.optim.trackers import (
+    FixedEffectOptimizationTracker,
+    RandomEffectOptimizationTracker,
+)
 
 Tensor = torch.Tensor
 
@@ -95,6 +101,7 @@ class FixedEffectCoordinate:
                         "normalization (the intercept absorbs -w.shift at back-transform)")
         self._update_count = 0
         self.last_results: list[SolveResult] = []
+        self.last_tracker: Optional[FixedEffectOptimizationTracker] = None
         # the guard's hooks: damping of the next solve, and its health
         self.extra_l2 = 0.0
         self.health_check = False
@@ -142,6 +149,7 @@ class FixedEffectCoordinate:
                     shifts=None if norm is None else norm.shifts, device=self.data.device,
                     extra_l2=self.extra_l2)
         self.last_results = [res]
+        self.last_tracker = FixedEffectOptimizationTracker.from_result(res)
         w = res.w if norm is None else norm.transform_model_coefficients(res.w)
         self.last_health = solve_health(res, w) if self.health_check else None
         return dataclasses.replace(model, coefficients=w)
@@ -194,6 +202,7 @@ class RandomEffectCoordinate:
         self._obj = build_objective(self.loss_name, self.config)
         self._l1 = self.config.regularization.l1_weight(self.config.regularization_weight)
         self.last_results: list[SolveResult] = []
+        self.last_tracker: Optional[RandomEffectOptimizationTracker] = None
         self.extra_l2 = 0.0
         self.health_check = False
         self.last_health: Optional[Tensor] = None
@@ -234,6 +243,7 @@ class RandomEffectCoordinate:
                 healths.append(solve_health(res, res.w))
             new_buckets.append(dataclasses.replace(bm, coefficients=res.w, variances=var))
         self.last_results = results
+        self.last_tracker = RandomEffectOptimizationTracker.from_results(results)
         if self.health_check:
             self.last_health = (torch.stack(healths).all() if healths
                                 else torch.tensor(True, device=self.data.device))

@@ -11,11 +11,15 @@ the final and the best model (``<output_dir>/final``, ``<output_dir>/best``,
 :487-501) in the model store's layout. ``guard`` (a ``GuardSpec``) guards
 every coordinate solve. ``events`` is the lifecycle event bus: ``fit``
 sends a setup, a start, one optimization-log event per coordinate update
-and a finish event (:423-480).
+and a finish event (:423-480). ``checkpoint_spec`` (a ``CheckpointSpec``)
+saves the state after each step and resumes from the newest valid
+checkpoint; ``should_stop`` is polled after every step (:399-471). A
+``FactoredRandomEffectConfig`` builds a factored coordinate and a random
+effect with ``projector="random"`` the random projector, both
+``game/factored.py``'s coordinate (:329-367).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-``mesh``, ``checkpoint_spec``, ``should_stop``, the random and factored
-projectors, ``fit_incremental``, ``fit_sweep`` and ``fit_grid``.
+``mesh``, ``fit_incremental``, ``fit_sweep`` and ``fit_grid``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from photon_ml_tpu_torch.data.normalization import (
 )
 from photon_ml_tpu_torch.data.stats import summarize
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.game.checkpoint import CheckpointManager, CheckpointSpec
 from photon_ml_tpu_torch.game.coordinate_descent import (
     CoordinateDescentResult,
     ValidationSpec,
@@ -45,6 +50,7 @@ from photon_ml_tpu_torch.game.coordinates import (
     RandomEffectCoordinate,
 )
 from photon_ml_tpu_torch.game.dataset import GameDataset
+from photon_ml_tpu_torch.game.factored import FactoredRandomEffectCoordinate
 from photon_ml_tpu_torch.game.models import GameModel
 from photon_ml_tpu_torch.game.random_effect_data import (
     RandomEffectDataset,
@@ -75,7 +81,10 @@ class FixedEffectConfig:
 @dataclasses.dataclass(frozen=True)
 class RandomEffectConfig:
     """One per-entity coordinate: the id column, the shard, active-data
-    caps, the Pearson feature bound and the projector."""
+    caps, the Pearson feature bound and the projector: "index_map" (each
+    entity's observed features) or "random" (a shared Gaussian projection
+    into ``projected_dim`` dimensions, drawn from ``projection_seed``, with
+    ``projection_intercept_index`` passed through)."""
 
     shard_name: str
     id_name: str
@@ -85,6 +94,8 @@ class RandomEffectConfig:
     features_to_samples_ratio: Optional[float] = None
     projector: str = "index_map"
     projected_dim: Optional[int] = None
+    projection_seed: int = 0
+    projection_intercept_index: Optional[int] = None
     compute_variances: bool = False
 
     def __post_init__(self):
@@ -101,12 +112,31 @@ class RandomEffectConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FactoredRandomEffectConfig:
+    """One factored (matrix-factorization) random-effect coordinate:
+    ``latent_dim`` latent factors, ``mf_iterations`` alternations, the
+    per-entity optimizer ``re_optimizer`` and the latent matrix's
+    ``latent_optimizer``."""
+
+    shard_name: str
+    id_name: str
+    latent_dim: int
+    mf_iterations: int = 1
+    re_optimizer: OptimizerConfig = OptimizerConfig()
+    latent_optimizer: OptimizerConfig = OptimizerConfig()
+    active_rows_per_entity: Optional[int] = None
+    min_rows_per_entity: int = 1
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class GameConfig:
     """``coordinates`` is ordered: iteration order is the updating sequence.
     The first evaluator selects the best model."""
 
     task: str
-    coordinates: Mapping[str, FixedEffectConfig | RandomEffectConfig]
+    coordinates: Mapping[str, FixedEffectConfig | RandomEffectConfig
+                         | FactoredRandomEffectConfig]
     num_iterations: int = 1
     evaluators: Sequence[str] = ()
 
@@ -134,11 +164,12 @@ class GameEstimator:
         # register listeners before fit() to observe its events
         self.events = EventEmitter()
 
-    def _re_dataset(self, data: GameDataset, c: RandomEffectConfig) -> RandomEffectDataset:
-        """Build, or reuse, the bucketed dataset of a random-effect config,
-        keyed by the data-side parameters only."""
+    def _re_dataset(self, data: GameDataset, c) -> RandomEffectDataset:
+        """Build, or reuse, the bucketed dataset of a random-effect or
+        factored config, keyed by the data-side parameters only."""
+        ratio = getattr(c, "features_to_samples_ratio", None)
         key = (id(data), c.id_name, c.shard_name, c.active_rows_per_entity,
-               c.min_rows_per_entity, c.features_to_samples_ratio)
+               c.min_rows_per_entity, ratio)
         hit = self._re_datasets.get(key)
         if hit is not None and hit[0] is data:
             return hit[1]
@@ -147,7 +178,7 @@ class GameEstimator:
                 data, c.id_name, c.shard_name,
                 active_rows_per_entity=c.active_rows_per_entity,
                 min_rows_per_entity=c.min_rows_per_entity,
-                features_to_samples_ratio=c.features_to_samples_ratio,
+                features_to_samples_ratio=ratio,
             )
         self._re_datasets[key] = (data, red)
         return red
@@ -163,10 +194,13 @@ class GameEstimator:
             hit = self._coordinates.get((id(data), name))
             if hit is not None:
                 coord = hit[1]
-                if isinstance(coord, FixedEffectCoordinate):
+                # a fresh fit: the down-sampling salt restarts, stale
+                # trackers clear, and the guarded loop opts in again
+                if hasattr(coord, "_update_count"):
                     coord._update_count = 0
-                # the guard's state is per fit: the guarded loop opts in again
-                coord.health_check, coord.extra_l2, coord.last_health = False, 0.0, None
+                coord.last_tracker = None
+                if hasattr(coord, "health_check"):
+                    coord.health_check, coord.extra_l2, coord.last_health = False, 0.0, None
                 coords[name] = coord
                 continue
             if isinstance(c, FixedEffectConfig):
@@ -175,18 +209,31 @@ class GameEstimator:
                     loss_name=self.config.task, config=c.optimizer,
                     seed=c.down_sampling_seed, normalization=self._normalization_for(data, c),
                 )
+            elif isinstance(c, RandomEffectConfig) and c.projector == "random":
+                # per-entity solves in a fixed Gaussian space, no refit
+                coord = FactoredRandomEffectCoordinate(
+                    name=name, data=data, re_data=self._re_dataset(data, c),
+                    loss_name=self.config.task, re_config=c.optimizer,
+                    latent_config=c.optimizer, latent_dim=c.projected_dim,
+                    refit_projection=False,
+                    projection_intercept_index=c.projection_intercept_index,
+                    seed=c.projection_seed,
+                )
             elif isinstance(c, RandomEffectConfig):
-                if c.projector != "index_map":
-                    raise NotImplementedError(NOT_PORTED.format(
-                        f"the '{c.projector}' projector", 10))
                 coord = RandomEffectCoordinate(
                     name=name, data=data, re_data=self._re_dataset(data, c),
                     loss_name=self.config.task, config=c.optimizer,
                     compute_variances=c.compute_variances,
                 )
+            elif isinstance(c, FactoredRandomEffectConfig):
+                coord = FactoredRandomEffectCoordinate(
+                    name=name, data=data, re_data=self._re_dataset(data, c),
+                    loss_name=self.config.task, re_config=c.re_optimizer,
+                    latent_config=c.latent_optimizer, latent_dim=c.latent_dim,
+                    mf_iterations=c.mf_iterations, seed=c.seed,
+                )
             else:
-                raise TypeError(f"coordinate '{name}': unknown config {type(c).__name__} "
-                                f"(factored random effects are ROADMAP.md Queue 1 item 10)")
+                raise TypeError(f"coordinate '{name}': unknown config {type(c).__name__}")
             self._coordinates[(id(data), name)] = (data, coord)
             coords[name] = coord
         return coords
@@ -209,14 +256,18 @@ class GameEstimator:
         initial_models: Optional[Mapping[str, object]] = None,
         output_dir: Optional[str] = None,
         mesh=None,
-        checkpoint_spec=None,
+        checkpoint_spec: Optional[CheckpointSpec] = None,
         guard=None,
         should_stop=None,
         device: torch.device | str | None = None,
     ) -> GameFitResult:
         """Train on ``device`` (default cuda), where ``data`` must live; with
         ``output_dir``, save the final model to ``<output_dir>/final`` and
-        the best to ``<output_dir>/best``."""
+        the best to ``<output_dir>/best``. With ``checkpoint_spec`` the state
+        is saved after the steps it asks for and a fit resumes from the
+        newest valid checkpoint; when ``should_stop()`` turns true after a
+        step, a final checkpoint is written and ``TrainingInterrupted``
+        raised."""
         dev = resolve_device(device)
         if data.device.type != dev.type or (dev.index is not None
                                             and data.device.index != dev.index):
@@ -243,7 +294,9 @@ class GameEstimator:
                 on_step=lambda entry: self.events.send(OptimizationLogEvent(
                     iteration=entry["iteration"], coordinate=entry["coordinate"],
                     seconds=entry["seconds"], metrics=entry.get("metrics"))),
-                guard=guard, checkpoint=checkpoint_spec, should_stop=should_stop,
+                guard=guard, should_stop=should_stop,
+                checkpoint=(None if checkpoint_spec is None
+                            else CheckpointManager(checkpoint_spec, device=dev)),
             )
         self.events.send(TrainingFinishEvent(best_metric=result.best_metric, seconds=t.stop(),
                                              metrics_snapshot=telemetry.snapshot()))
@@ -299,7 +352,17 @@ def _config_metadata(config: GameConfig) -> dict:
                        min_rows_per_entity=c.min_rows_per_entity,
                        features_to_samples_ratio=c.features_to_samples_ratio,
                        projector=c.projector, projected_dim=c.projected_dim,
+                       projection_seed=c.projection_seed,
+                       projection_intercept_index=c.projection_intercept_index,
                        compute_variances=c.compute_variances)
+        elif isinstance(c, FactoredRandomEffectConfig):
+            out.update(type="factored_random_effect", id_name=c.id_name,
+                       active_rows_per_entity=c.active_rows_per_entity,
+                       min_rows_per_entity=c.min_rows_per_entity,
+                       latent_dim=c.latent_dim, mf_iterations=c.mf_iterations, seed=c.seed,
+                       optimizer=describe_opt(c.re_optimizer),
+                       latent_optimizer=describe_opt(c.latent_optimizer))
+            return out
         else:
             out.update(type="fixed_effect",
                        normalization=str(NormalizationType(c.normalization).value),

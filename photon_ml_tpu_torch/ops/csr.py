@@ -29,7 +29,11 @@ streams spans as the row pass does. ``column_major`` rebuilds the
 column-major view on demand, for checks; the batch never holds both.
 
 The mirror doubles the slot storage (about 320 MB at 20M nonzeros). Rows
-are not padded: ``num_rows`` is n. ``margins_pair`` and the ``fused_*``
+are not padded: ``num_rows`` is n. A batch built with ``refreshable=True``
+keeps ``value_order``, the CSR position of each mirror entry (4 bytes a
+nonzero), so that ``with_values`` takes new values over the same structure
+and gathers the mirror from them: nothing else is rebuilt and the tile index
+is kept (the factored coordinate's refit changes only its values). ``margins_pair`` and the ``fused_*``
 passes launch the fused kernels (``csrc/margins_pair.cu``,
 ``csrc/value_grad.cu``, ``csrc/hessian_vector.cu``).
 """
@@ -156,6 +160,7 @@ class CSRBatch:
     weights: Tensor  # f32[n]
     num_features: int
     tiles: Optional[ScatterTiles] = None  # the scatter's index, on a CUDA device
+    value_order: Optional[Tensor] = None  # i32[nnz] CSR position of each mirror entry
 
     @property
     def num_rows(self) -> int:
@@ -183,10 +188,13 @@ class CSRBatch:
         offsets: Optional[np.ndarray] = None,
         weights: Optional[np.ndarray] = None,
         device: torch.device | str | None = None,
+        refreshable: bool = False,
     ) -> "CSRBatch":
         """Host-side layout build from COO, then one upload to ``device``;
         on a CUDA device with the tile index and the mirror in its slot
-        order."""
+        order. The CSR order is the input's, stably sorted by row when it is
+        not sorted; ``refreshable`` keeps ``value_order`` for
+        ``with_values``."""
         dev = resolve_device(device)
         n = int(len(labels))
         rows = np.asarray(rows, np.int64)
@@ -216,7 +224,7 @@ class CSRBatch:
         if dev.type == "cuda":
             tiles, perm = _tile_layout(csc_rows, cols[corder], n, int(num_features),
                                        SCATTER_TILE_ROWS, SCATTER_PIECE_LEN, dev)
-            csc_rows, csc_vals = csc_rows[perm], csc_vals[perm]
+            csc_rows, csc_vals, corder = csc_rows[perm], csc_vals[perm], corder[perm]
 
         return CSRBatch(
             row_ptr=up(row_ptr, np.int32),
@@ -230,6 +238,7 @@ class CSRBatch:
             weights=per_row(weights, 1.0),
             num_features=int(num_features),
             tiles=tiles,
+            value_order=up(corder, np.int32) if refreshable else None,
         )
 
     @staticmethod
@@ -271,9 +280,12 @@ class CSRBatch:
         cols = np.repeat(np.arange(self.num_features), np.diff(col_ptr))
         tiles, perm = _tile_layout(rows, cols, self.num_rows, self.num_features, tile_rows,
                                    piece_len, self.device)
+        # value_order addressed the old mirror order: a re-tiled batch is not
+        # refreshable
         return dataclasses.replace(
             self, csc_rows=torch.from_numpy(rows[perm]).to(self.device),
-            csc_vals=torch.from_numpy(vals[perm]).to(self.device), tiles=tiles)
+            csc_vals=torch.from_numpy(vals[perm]).to(self.device), tiles=tiles,
+            value_order=None)
 
     # -- the kernels ---------------------------------------------------------
 
@@ -340,6 +352,18 @@ class CSRBatch:
             self.scatter_features_sq(valid),
             ones.scatter_features(valid),
         )
+
+    def with_values(self, vals: Tensor) -> "CSRBatch":
+        """The same structure with new values ``vals`` in CSR order; the
+        mirror is gathered from them through ``value_order`` on the device,
+        so the margins and the scatter both see the new values."""
+        if self.value_order is None:
+            raise ValueError("with_values needs a batch built with refreshable=True")
+        vals = vals.to(torch.float32).contiguous()
+        if vals.shape != self.vals.shape:
+            raise ValueError(f"values must be [{self.nnz}], got {tuple(vals.shape)}")
+        return dataclasses.replace(self, vals=vals,
+                                   csc_vals=vals.index_select(0, self.value_order))
 
     def with_offsets(self, offsets: Tensor) -> "CSRBatch":
         return dataclasses.replace(

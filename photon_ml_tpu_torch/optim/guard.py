@@ -84,6 +84,8 @@ def _coefficient_tensors(model) -> list[Tensor]:
         out.append(model.coefficients)
     for bm in getattr(model, "buckets", ()):
         out.append(bm.coefficients)
+    if hasattr(model, "latent"):  # a factored model's latent table
+        out.append(model.latent)
     return out
 
 

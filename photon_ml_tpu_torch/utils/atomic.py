@@ -16,6 +16,18 @@ import os
 import numpy as np
 
 
+def fsync_dir(path: str) -> None:
+    """fsync a directory, so an entry just renamed into it survives a crash
+    (a POSIX rename is durable only once its parent is synced)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass  # some filesystems refuse a directory fsync; best effort
+    finally:
+        os.close(fd)
+
+
 def atomic_write_bytes(path: str, data: bytes) -> None:
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:

@@ -13,9 +13,14 @@ end-to-end and index tests, on its 240-row ``avro_dataset``), on the CPU:
   test_model_store.py's rtol 1e-6 / atol 1e-7, their metrics within 1e-6;
 - ``cli index`` writes equal maps;
 - every key, flag and subcommand the port refuses raises
-  ``NotImplementedError`` naming its ROADMAP item;
+  ``NotImplementedError`` naming its ROADMAP item; the checkpoint key and
+  ``--checkpoint-dir``, ``--checkpoint-every`` and ``--resume`` (refused
+  until ROADMAP item 10 was ported) write and resume checkpoints, as in the
+  reference (tests/test_checkpoint.py's CLI cases);
 - ``python -m photon_ml_tpu_torch.cli train --device cpu`` runs in a
-  subprocess, with a config-loaded event listener.
+  subprocess, with a config-loaded event listener, and a SIGTERM in the
+  middle of its fit leaves a checkpoint, an ``interrupted`` summary and exit
+  code 75.
 """
 
 import json
@@ -233,7 +238,6 @@ REFUSED_KEYS = [
     ({"warm_start": {"dir": "x"}}, 14),
     ({"input": {"ingest": {"workers": 2}}}, 13),
     ({"mesh": True}, 12),
-    ({"checkpoint": {"dir": "x"}}, 10),
     ({"trace_out": "t.jsonl"}, 14),
     ({"telemetry_out": "t.jsonl"}, 14),
     ({"report_out": "r.md"}, 14),
@@ -258,9 +262,7 @@ REFUSED_FLAGS = [(["--sweep", "lambda=1,2"], 11), (["--sweep-metric", "auc"], 11
                  (["--warm-start", "d"], 14), (["--delta", "d.avro"], 14),
                  (["--refresh-registry-dir", "r"], 14), (["--lambda-points", "3"], 14),
                  (["--ingest-workers", "2"], 13), (["--prefetch-depth", "2"], 13),
-                 (["--mesh", "auto"], 12), (["--checkpoint-dir", "c"], 10),
-                 (["--checkpoint-every", "2"], 10), (["--resume"], 10),
-                 (["--trace-out", "t"], 14), (["--telemetry-out", "t"], 14),
+                 (["--mesh", "auto"], 12), (["--trace-out", "t"], 14), (["--telemetry-out", "t"], 14),
                  (["--report-out", "r"], 14), (["--xprof-dir", "x"], 14),
                  (["--xprof-arm", "3"], 14), (["--heartbeat-every", "5"], 14)]
 
@@ -269,6 +271,93 @@ REFUSED_FLAGS = [(["--sweep", "lambda=1,2"], 11), (["--sweep-metric", "auc"], 11
 def test_train_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
         t_train.main(["--config", "unused.json", "--device", "cpu", *flags])
+
+
+def _steps(path):
+    return sorted(p for p in os.listdir(path) if p.startswith("step-"))
+
+
+CHECKPOINT_CASES = [
+    ({"checkpoint": {"dir": "ckpt", "every": 1, "keep_last": 2}}, [],
+     ["step-00000002", "step-00000003"]),
+    ({}, ["--checkpoint-dir", "ckpt"], ["step-00000001", "step-00000002", "step-00000003"]),
+    ({"checkpoint": {"dir": "ckpt", "keep_last": 5}}, ["--checkpoint-every", "2"],
+     ["step-00000001", "step-00000003"]),
+    ({}, ["--checkpoint-dir", "ckpt", "--resume"],
+     ["step-00000001", "step-00000002", "step-00000003"]),
+]
+
+
+@pytest.mark.parametrize("extra,flags,steps", CHECKPOINT_CASES,
+                         ids=["key", "--checkpoint-dir", "--checkpoint-every", "--resume"])
+def test_train_takes_the_checkpoint_key_and_flags(avro_dataset, tmp_path, extra, flags, steps):
+    """Four updates (two CD iterations of two coordinates), a checkpoint
+    after each as asked; a second run resumes past the last step and trains
+    nothing, ending with the same model."""
+    _, train_path, _ = avro_dataset
+    config = {**_config(train_path, str(tmp_path / "out")), "num_iterations": 2}
+    config.update({k: {**v, "dir": str(tmp_path / v["dir"])} for k, v in extra.items()})
+    flags = [str(tmp_path / f) if f == "ckpt" else f for f in flags]
+    cfg_path = tmp_path / "train.json"
+    cfg_path.write_text(json.dumps(config))
+    argv = ["--config", str(cfg_path), "--device", "cpu", *flags]
+    assert t_train.main(argv) == 0
+    assert _steps(tmp_path / "ckpt") == steps
+    for step in steps:
+        assert os.path.exists(tmp_path / "ckpt" / step / "manifest.json")
+    first = TM.load_game_model(str(tmp_path / "out" / "final"), device="cpu")
+    assert t_train.main(argv) == 0  # resumes after step 3: nothing left to train
+    again = TM.load_game_model(str(tmp_path / "out" / "final"), device="cpu")
+    assert torch.equal(first.models["fixed"].coefficients, again.models["fixed"].coefficients)
+
+
+def test_checkpoint_flags_without_a_directory_are_a_usage_error(capsys, tmp_path):
+    cfg_path = tmp_path / "train.json"
+    cfg_path.write_text("{}")
+    for flags in (["--resume"], ["--checkpoint-every", "2"]):
+        with pytest.raises(SystemExit) as e:
+            t_train.main(["--config", str(cfg_path), "--device", "cpu", *flags])
+        assert e.value.code == 2
+        assert "need --checkpoint-dir" in capsys.readouterr().err
+    for bad, match in (({"every": 1}, "'dir'"), ({"dir": "x", "often": 1}, "often")):
+        with pytest.raises(ValueError, match=match):
+            t_train._parse_checkpoint_spec({"checkpoint": bad})
+    assert t_train._parse_checkpoint_spec({}) is None
+
+
+def test_sigterm_mid_fit_leaves_a_checkpoint_and_an_interrupted_summary(avro_dataset, tmp_path):
+    """A listener sends the process SIGTERM at the first update's event: the
+    driver finishes that step, writes its checkpoint, prints an interrupted
+    summary and exits 75; rerun with the same arguments, it resumes."""
+    _, train_path, _ = avro_dataset
+    (tmp_path / "term_listener.py").write_text(
+        "import os, signal\n"
+        "def on_event(event):\n"
+        "    if type(event).__name__ == 'OptimizationLogEvent' and not os.path.exists('sent'):\n"
+        "        open('sent', 'w').close()\n"
+        "        os.kill(os.getpid(), signal.SIGTERM)\n")
+    config = {**_config(train_path, str(tmp_path / "out")), "num_iterations": 2,
+              "checkpoint": {"dir": str(tmp_path / "ckpt")},
+              "event_listeners": ["term_listener:on_event"]}
+    cfg_path = tmp_path / "train.json"
+    cfg_path.write_text(json.dumps(config))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(tmp_path) + os.pathsep + REPO
+    argv = [sys.executable, "-m", "photon_ml_tpu_torch.cli", "train", "--config", str(cfg_path),
+            "--device", "cpu"]
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=str(tmp_path), env=env,
+                          timeout=300)
+    assert proc.returncode == 75, proc.stderr[-3000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["interrupted"] is True and summary["interrupted_at_step"] == 0
+    assert summary["checkpoint"] == str(tmp_path / "ckpt" / "step-00000000")
+    assert _steps(tmp_path / "ckpt") == ["step-00000000"]
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=str(tmp_path), env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [e["coordinate"] for e in summary["history"]] == ["fixed", "perUser"] * 2
+    assert _steps(tmp_path / "ckpt") == ["step-00000001", "step-00000002", "step-00000003"]
 
 
 @pytest.mark.parametrize("cmd,item", [("refresh", 14), ("pipeline", 14), ("serve", 14),

@@ -6,8 +6,8 @@ parse tests), on the CPU:
 - bad keys, values and DSL strings raise the same exception type in both;
 - ``game_config_to_json`` round-trips, and a JAX model's metadata parses in
   the port;
-- a factored coordinate and a random projector raise
-  ``NotImplementedError`` naming ROADMAP item 10.
+- a factored coordinate and a random projector parse as in the reference
+  (BASELINE config #5's document among them).
 
 Every comparison is exact: parsing has no arithmetic.
 """
@@ -18,7 +18,11 @@ import pytest
 
 from photon_ml_tpu import config as J
 from photon_ml_tpu_torch import config as T
-from photon_ml_tpu_torch.game.estimator import FixedEffectConfig, RandomEffectConfig
+from photon_ml_tpu_torch.game.estimator import (
+    FactoredRandomEffectConfig,
+    FixedEffectConfig,
+    RandomEffectConfig,
+)
 from photon_ml_tpu_torch.optim.factory import OptimizerType, RegularizationType
 
 
@@ -39,7 +43,7 @@ def _coord_fields(c) -> dict:
     out = {}
     for f in dataclasses.fields(c):
         v = getattr(c, f.name)
-        out[f.name] = _opt_fields(v) if f.name == "optimizer" else _enum(v)
+        out[f.name] = _opt_fields(v) if f.name.endswith("optimizer") else _enum(v)
     return out
 
 
@@ -79,6 +83,26 @@ DOCS = {
                                     "box_constraints": [[0, -1.0, None], [2, None, 3]]}},
             "perItem": {"type": "random_effect", "shard_name": "g", "id_name": "itemId",
                         "optimizer": "20,1e-6,0.5,1.0,LBFGS,ElasticNet,0.3"},
+        },
+    },
+    # bench_northstar.py:186-231 (BASELINE config #5) and a random projector
+    "northstar_and_projector": {
+        "task": "logistic", "evaluators": ["auc"],
+        "coordinates": {
+            "fixed": {"type": "fixed_effect", "shard_name": "movieFeatures",
+                      "optimizer": {"type": "lbfgs", "max_iterations": 10}},
+            "per-user": {"type": "random_effect", "shard_name": "movieCtx",
+                         "id_name": "userId", "active_rows_per_entity": 256,
+                         "optimizer": {"type": "newton", "max_iterations": 8,
+                                       "regularization": "l2", "regularization_weight": 1.0}},
+            "mf": {"type": "factored_random_effect", "shard_name": "movieCtx",
+                   "id_name": "userId", "latent_dim": 2, "mf_iterations": 1, "seed": 4,
+                   "optimizer": {"type": "lbfgs", "max_iterations": 8, "tolerance": 1e-7},
+                   "latent_optimizer": "8,1e-7,1.0,1.0,LBFGS,L2",
+                   "active_rows_per_entity": 32, "min_rows_per_entity": 2},
+            "projected": {"type": "random_effect", "shard_name": "items", "id_name": "userId",
+                          "projector": "random", "projected_dim": 16, "projection_seed": 7,
+                          "projection_intercept_index": 3},
         },
     },
 }
@@ -150,15 +174,24 @@ def test_jax_model_metadata_parses_in_the_port(doc):
 
 
 def test_factored_coordinate_and_random_projector_are_refused():
+    """Refused until ROADMAP item 10 was ported; now both kinds parse as the
+    reference parses them, and their errors are the reference's."""
     factored = {"type": "factored_random_effect", "shard_name": "user", "id_name": "userId",
                 "latent_dim": 4, "mf_iterations": 2}
-    J.parse_coordinate_config(factored)  # the reference parses it
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.parse_coordinate_config(factored)
-    with pytest.raises(NotImplementedError, match="projector.*item 10"):
-        T.parse_game_config({"task": "logistic", "coordinates": {"re": {
-            "type": "random_effect", "shard_name": "u", "id_name": "userId",
-            "projector": "random", "projected_dim": 2}}})
+    t, j = T.parse_coordinate_config(factored), J.parse_coordinate_config(factored)
+    assert isinstance(t, FactoredRandomEffectConfig)
+    assert _coord_fields(t) == _coord_fields(j)
+    projected = {"type": "random_effect", "shard_name": "u", "id_name": "userId",
+                 "projector": "random", "projected_dim": 2}
+    assert _coord_fields(T.parse_coordinate_config(projected)) == _coord_fields(
+        J.parse_coordinate_config(projected))
+    for bad in ({**factored, "rank": 3}, {k: v for k, v in factored.items() if k != "latent_dim"},
+                {**projected, "projected_dim": None}, {**projected, "projector": "gauss"}):
+        with pytest.raises(Exception) as te:
+            T.parse_coordinate_config(bad)
+        with pytest.raises(Exception) as je:
+            J.parse_coordinate_config(bad)
+        assert te.type is je.type
 
 
 def test_parsed_types_are_the_ports_own():

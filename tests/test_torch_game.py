@@ -3,8 +3,9 @@ package's, on the CPU: random-effect buckets array for array, a
 ``GameEstimator.fit`` of a fixed effect (LBFGS) plus a per-user random effect
 (batched NEWTON) over two coordinate-descent iterations, GAME models carried
 across by ``convert.game_model_from_jax`` and scored on rows of passive and
-unseen entities, and every ``NotImplementedError`` branch left (the random
-effect refuses only the random projector).
+unseen entities, and every ``NotImplementedError`` branch left (a mesh and
+the estimator's incremental and sweep fits; the random projector, a
+factored coordinate, the checkpoint and the stop now fit).
 
 Tolerances: buckets exact (the same numpy build); carried-over scores
 rtol 1e-5 (the same float32 products, summed in another order); fitted
@@ -17,6 +18,7 @@ coordinate update, the sharded ones over the userId column included, atol
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -38,15 +40,18 @@ from photon_ml_tpu.optim import RegularizationType as JRegType
 from photon_ml_tpu_torch import convert
 from photon_ml_tpu_torch.evaluation.evaluators import auc
 from photon_ml_tpu_torch.game import (
+    CheckpointSpec,
+    FactoredRandomEffectConfig,
+    FactoredRandomEffectModel,
     FeatureShard,
     FixedEffectConfig,
     GameConfig,
     GameEstimator,
     RandomEffectConfig,
     RandomEffectCoordinate,
+    TrainingInterrupted,
     build_game_dataset,
     build_random_effect_dataset,
-    run_coordinate_descent,
 )
 from photon_ml_tpu_torch.game import random_effect_data as t_red
 from photon_ml_tpu_torch.optim.factory import (
@@ -273,13 +278,15 @@ def _re_coordinate(tds, **opt):
 
 
 def test_random_effect_branches_not_ported_raise(data, monkeypatch):
-    """A random effect refuses only the random projector (ROADMAP item 10):
-    every optimizer, variances, a box and the COO layout are ported."""
+    """Every branch of a random effect is ported: every optimizer, variances,
+    a box, the COO layout and (ROADMAP item 10) the random projector, which
+    fits a factored model in a fixed Gaussian space."""
     _, tds = data
     projected = GameConfig(task="logistic", coordinates={"re": RandomEffectConfig(
         shard_name="user", id_name="userId", projector="random", projected_dim=2)})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        GameEstimator(projected).fit(tds, device="cpu")
+    model = GameEstimator(projected).fit(tds, device="cpu").model.models["re"]
+    assert isinstance(model, FactoredRandomEffectModel)
+    assert model.latent_dim == 2 and bool(model.latent.isfinite().all())
     for kind in OptimizerType:
         assert _re_coordinate(tds, optimizer_type=kind)().config.optimizer_type == kind
     boxed = _re_coordinate(tds, box_constraints=((0, -1.0, 1.0),))()
@@ -289,26 +296,32 @@ def test_random_effect_branches_not_ported_raise(data, monkeypatch):
     assert all(isinstance(b, t_red.CooBucket) for b in _re_coordinate(tds)()._buckets)
 
 
-def test_estimator_and_descent_branches_not_ported_raise(data):
+def test_estimator_and_descent_branches_not_ported_raise(data, tmp_path):
+    """A mesh (ROADMAP item 12), fit_incremental, fit_sweep and fit_grid
+    still raise; the checkpoint and the stop (item 10) work, and so does a
+    factored coordinate and the random projector under NEWTON."""
     _, tds = data
     _, tcfg = _configs()
     est = GameEstimator(tcfg)
-    # the guard is ported (tests/test_torch_guard.py); these are not
-    for kw, match in ((dict(mesh=object()), "mesh"),
-                      (dict(checkpoint_spec=object()), "checkpoint"),
-                      (dict(should_stop=lambda: False), "should_stop")):
-        with pytest.raises(NotImplementedError, match=match):
-            est.fit(tds, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="a mesh.*item 12"):
+        est.fit(tds, device="cpu", mesh=object())
     for method in (est.fit_incremental, est.fit_sweep, est.fit_grid):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             method(tds)
-    projected = GameConfig(task="logistic", coordinates={"re": RandomEffectConfig(
-        shard_name="user", id_name="userId", projector="random", projected_dim=2,
-        optimizer=OptimizerConfig(optimizer_type=OptimizerType.NEWTON))})
-    with pytest.raises(NotImplementedError, match="projector"):
-        GameEstimator(projected).fit(tds, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        run_coordinate_descent({}, "logistic", 1, checkpoint=object())
+    with pytest.raises(TrainingInterrupted) as ei:
+        est.fit(tds, device="cpu", should_stop=lambda: True)
+    assert (ei.value.step, ei.value.checkpoint_path) == (0, None)
+    fit = est.fit(tds, device="cpu", checkpoint_spec=CheckpointSpec(directory=str(tmp_path)))
+    assert sorted(os.listdir(tmp_path)) == ["step-00000001", "step-00000002", "step-00000003"]
+    assert len(fit.history) == 4
+    newton = OptimizerConfig(optimizer_type=OptimizerType.NEWTON)
+    kinds = GameConfig(task="logistic", coordinates={
+        "re": RandomEffectConfig(shard_name="user", id_name="userId", projector="random",
+                                 projected_dim=2, optimizer=newton),
+        "mf": FactoredRandomEffectConfig(shard_name="user", id_name="userId", latent_dim=2)})
+    models = GameEstimator(kinds).fit(tds, device="cpu").model.models
+    assert all(isinstance(m, FactoredRandomEffectModel) for m in models.values())
+    assert models["mf"].projection.matrix.shape == (2, D_RE)
 
 
 def test_fit_refuses_a_dataset_on_another_device(data):

@@ -116,20 +116,24 @@ def test_source_walk_covers_the_new_subpackages():
                    "utils/atomic.py", "utils/timing.py", "utils/events.py", "config.py",
                    "data/avro.py", "data/avro_native.py", "diagnostics/evaluation.py",
                    "optim/guard.py", "cli/__main__.py", "cli/train.py", "cli/score.py",
-                   "cli/index.py", "cli/glm.py"):
+                   "cli/index.py", "cli/glm.py", "optim/trackers.py", "data/projection.py",
+                   "game/factored.py", "game/checkpoint.py"):
         assert module in rel
 
 
 @pytest.mark.parametrize("builder", ["csr", "sparse", "model", "normalization", "ell",
                                      "dense", "game_dataset", "game_model", "game_fit",
                                      "probe", "libsvm_batch", "load_glm",
-                                     "load_game_model", "block_diagonal", "lane_solve"])
+                                     "load_game_model", "block_diagonal", "lane_solve",
+                                     "projection", "factored_fit"])
 def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
     _no_gpu()
     from photon_ml_tpu_torch import convert
     from photon_ml_tpu_torch.data.libsvm import LibSVMData
+    from photon_ml_tpu_torch.data.projection import build_gaussian_projection_matrix
     from photon_ml_tpu_torch.data.model_store import load_game_model, load_glm
     from photon_ml_tpu_torch.game import (
+        FactoredRandomEffectConfig,
         FeatureShard,
         FixedEffectConfig,
         GameConfig,
@@ -148,6 +152,8 @@ def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
     coo = _tiny_coo()
     shards = {"g": FeatureShard.from_coo(coo["values"], coo["rows"], coo["cols"], 2)}
     cfg = GameConfig(task="logistic", coordinates={"fe": FixedEffectConfig(shard_name="g")})
+    mf = GameConfig(task="logistic", coordinates={"mf": FactoredRandomEffectConfig(
+        shard_name="g", id_name="u", latent_dim=2)})
     calls = {
         "csr": lambda: CSRBatch.from_coo(**coo),
         "sparse": lambda: SparseBatch.from_coo(**coo),
@@ -167,6 +173,9 @@ def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
         "block_diagonal": lambda: BlockDiagonalBatch.from_bucket(
             np.ones((1, 1)), np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32),
             np.zeros((1, 2)), np.zeros((1, 2)), np.ones((1, 2)), 2),
+        "projection": lambda: build_gaussian_projection_matrix(2, 3),
+        "factored_fit": lambda: GameEstimator(mf).fit(build_game_dataset(
+            coo["labels"], shards, id_columns={"u": [0, 1, 1]}, device="cpu")),
         "lane_solve": lambda: lbfgs_solve_lanes(lane_adapter(
             make_objective("logistic"), DenseBatch.from_arrays(
                 np.zeros((1, 2, 2)), np.zeros((1, 2)), device="cpu")), torch.zeros(1, 2)),

@@ -8,8 +8,8 @@
 - unseen entities score the fixed effect alone through
   ``score_game_dataset``;
 - load errors are typed and name the path, a factored or
-  matrix-factorization coordinate refuses to load naming ROADMAP item 10,
-  and a fresh process loads and scores a model without importing JAX;
+  matrix-factorization coordinate saved by either package loads in the
+  other, and a fresh process loads and scores a model without importing JAX;
 - ``GameEstimator.fit`` with a normalized fixed effect and with
   ``output_dir`` matches the JAX estimator (the fixed effect's
   coefficients, the best metric), and the JAX package loads the port's
@@ -273,16 +273,48 @@ def test_game_load_errors_are_typed(tmp_path):
                           str(tmp_path / "bad"))
 
 
+def _jax_factored(jds, kind):
+    """A JAX GAME model of the fixed effect and a coordinate of ``kind``: a
+    fitted factored random effect over the user shard, or a matrix
+    factorization of random factors over the userId column."""
+    from photon_ml_tpu.game import MatrixFactorizationModel as JMF
+    from photon_ml_tpu.game.factored import FactoredRandomEffectCoordinate as JFactored
+
+    model = _jax_model(jds)
+    if kind == "factored_random_effect":
+        opt = _opts()[0]
+        coord = JFactored(name="mf", data=jds, re_data=j_build_re(jds, "userId", "user"),
+                          loss_name="logistic", re_config=opt, latent_config=opt, latent_dim=2)
+        sub = coord.update_model(coord.initialize_model(), None)
+    else:
+        rng = np.random.default_rng(3)
+        vocab = jds.id_columns["userId"].vocab
+        sub = JMF(row_effect="userId", col_effect="userId",
+                  row_factors=jnp.asarray(rng.normal(size=(len(vocab), 3)), jnp.float32),
+                  col_factors=jnp.asarray(rng.normal(size=(len(vocab), 3)), jnp.float32),
+                  row_vocab=vocab, col_vocab=vocab)
+    return model.with_model("mf", sub)
+
+
 @pytest.mark.parametrize("kind", ["factored_random_effect", "matrix_factorization"])
 def test_a_factored_coordinate_refuses_to_load_naming_item_10(tmp_path, kind):
-    _, tds = _datasets(*_arrays(9))
-    T.save_game_model(_port_model(tds), str(tmp_path / "game"))
-    meta_path = tmp_path / "game" / "model-metadata.json"
-    meta = json.loads(meta_path.read_text())
-    meta["coordinates"]["per-user"]["type"] = kind
-    meta_path.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        T.load_game_model(str(tmp_path / "game"), device="cpu")
+    """Refused until ROADMAP item 10 was ported; now a factored or
+    matrix-factorization coordinate saved by either package loads in the
+    other and scores the same, and the port's round trip is bit for bit."""
+    jds, tds = _datasets(*_arrays(9))
+    jmodel = _jax_factored(jds, kind)
+    J.save_game_model(jmodel, str(tmp_path / "j"))
+    loaded = T.load_game_model(str(tmp_path / "j"), device="cpu")
+    assert list(loaded.models) == ["fixed", "per-user", "mf"]
+    want = _jax_scores(jmodel, jds)
+    np.testing.assert_allclose(loaded.score(tds).numpy(), want, **SCORE_TOL)
+    T.save_game_model(loaded, str(tmp_path / "t"))
+    back = J.load_game_model(str(tmp_path / "t"))
+    np.testing.assert_allclose(_jax_scores(back, jds), want, **SCORE_TOL)
+    metas = [json.loads((tmp_path / d / "model-metadata.json").read_text()) for d in "jt"]
+    assert metas[0]["coordinates"]["mf"] == metas[1]["coordinates"]["mf"]
+    again = T.load_game_model(str(tmp_path / "t"), device="cpu")
+    assert torch.equal(again.score(tds), loaded.score(tds))
 
 
 def test_a_fresh_process_loads_and_scores_without_jax(tmp_path):
