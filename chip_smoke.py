@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero before the last line:
      bit), and time kernel, plain version and the library yardstick where one
      PyTorch call computes the same function (never used by the port); the
      plain versions read the mirror column-major (``CSRBatch.column_major``),
-     the kernels in the tile index's slot order;
+     the kernels in the tile index's slot order; the lane kernels
+     (``csr_margins_lanes``, ``csc_scatter_lanes``) at G = 16 vectors, also
+     each lane against the single-vector kernel bit for bit, timed beside 16
+     single launches;
   4. train at a reduced size (64K x 2K) on the card and on the CPU (plain
      versions) with LBFGS, TRON, OWLQN and box-constrained Poisson LBFGS:
      same convergence reason and iteration count, final loss within rtol 1e-4;
@@ -32,6 +35,16 @@ Phases, in order; any failure exits non-zero before the last line:
      after (a kernel of the path that did not launch fails the run):
        5.  bench.py config #1 through ``train_glm``: logistic, lambdas
            [10, 1], LBFGS 20 iterations at tolerance 0, with variances;
+       12. bench_sweep.py on config #1 through ``sweep_glm``: 16 lambdas
+           ``np.logspace(2, -4, 16)`` as lanes, LBFGS 20 at tolerance 0,
+           cold, timed beside one ``train_glm`` fit (``sweep_over_single_
+           ratio``); lanes 0, 8 and 15 against independent fits; then the
+           warm-started sweep (2 rounds), no lane above the cold sweep;
+       12c. ``bootstrap_random_effect`` at bench_diagnostics.py's bucket
+           (4096 entities x 64 rows x 16 features, NEWTON 10), B = 64 against
+           the one-lane fit (``bootstrap_overhead_ratio``), the same call on
+           512 gathered entities bit for bit the full run's lanes, and
+           ``bootstrap_train`` at config #1 with B = 8;
        5b. bench_suite.py config #2: squared, TRON, L2 1, 10 iterations;
        5c. its elastic-net half: OWLQN, l1 = l2 = 0.5, 20 iterations;
        5d. config #3: Poisson with offsets, L2 1, box [-0.5, 0.5], LBFGS 20
@@ -84,6 +97,17 @@ Phases, in order; any failure exits non-zero before the last line:
            ``cli train`` takes a checkpoint key (every step, keep the last
            2: steps 2 and 3 must remain) and prints each fixed-effect
            solve's tracker beside path 6's;
+       12d. on path 10's files: ``cli glm`` with ``"diagnostics": true``
+           (both reports written, the VALIDATED results bit for bit path
+           8's), and ``cli sweep`` on the Avro files (three to train, one to
+           validate, ``lambda=1e-2:1e2:log4``), selecting as an in-process
+           ``fit_sweep`` on the same datasets;
+       12b. config #4 (path 6's draws, every tenth row held out) through
+           ``GameEstimator.fit_sweep`` over ``lambda=1e-4:1e2:log16``, 2 CD
+           iterations, selected on auc: the saved winner reloads bit for
+           bit, its validation AUC within 1e-3 of ``fit`` at its lambda;
+           ``fit_grid`` over two fixed effects (L2 1 and 10) best-first,
+           each entry bit for bit its combination's ``fit``;
        11. BASELINE config #5 (bench_northstar.py: 20M rows, 138,493 users,
            26,744 movies; a fixed effect on movieFeatures, per-user and
            per-movie NEWTON random effects and the factored ``mf``
@@ -143,6 +167,13 @@ NS_FE_SPACE = 2_000  # movieFeatures: the id space and the features a movie has
 NS_FE_NNZ = 4
 NS_CTX = 4  # movieCtx and userCtx dims
 PROJECTED_DIM = 16  # path 11b: no wider than the widest buckets' 16-32 rows
+SWEEP_LANES = 16  # bench_sweep.py's N_CONFIGS: the lambdas of path 12 and the lane rows
+GAME_SWEEP_GRID = "lambda=1e-4:1e2:log16"  # path 12b, cli/sweep.py's documented grid
+CLI_SWEEP_GRID = "lambda=1e-2:1e2:log4"  # path 12d
+BOOT_ENTITIES, BOOT_ROWS, BOOT_FEATURES = 4096, 64, 16  # bench_diagnostics.py's bucket
+BOOT_SAMPLES = 64  # bench_diagnostics.py's NUM_SAMPLES
+BOOT_GATHERED = 512  # path 12c's gathered entities
+GLM_BOOTSTRAP_SAMPLES = 8  # cli glm's default bootstrap_samples
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -2292,6 +2323,547 @@ def run_probe_path(seed: int) -> tuple[dict, dict]:
     return launches, res
 
 
+def check_lane_kernels(batch, w) -> list[dict]:
+    """Phase 3, the lane kernels at config #1 with G = SWEEP_LANES vectors:
+    each variant against its plain version and against a second launch, and
+    every lane against the single-vector kernel on that lane's vector, bit
+    for bit; timed beside G launches of the single kernel and the library's
+    sparse product."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.kernels import reference
+
+    n, f, nnz, G = batch.num_rows, batch.num_features, batch.nnz, SWEEP_LANES
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    W = torch.randn(G, f, generator=gen, device="cuda") * 0.1
+    W[0] = w
+    R = torch.randn(G, n, generator=gen, device="cuda")
+    off = torch.randn(G, n, generator=gen, device="cuda") * 0.1
+    shift = torch.randn(G, generator=gen, device="cuda")
+    csr, csc, tiles = batch._csr, batch._csc, batch.tiles
+    plain_csc = batch.column_major()
+
+    def margins(label, off_g, sh, use):
+        per_lane = off_g.dim() == 2
+        return (label, lambda: kernels.csr_margins_lanes(*csr, W, off_g, sh, use),
+                lambda: reference.csr_margins_lanes(*csr, W, off_g, sh, use),
+                lambda g: kernels.csr_margins(*csr, W[g], off_g[g] if per_lane else off_g,
+                                              sh[g:g + 1] if isinstance(sh, torch.Tensor)
+                                              else sh, use))
+
+    def scatter(label, r, square):
+        return (label, lambda: kernels.csc_scatter_lanes(*csc, r, square, tiles),
+                lambda: reference.csc_scatter_lanes(*plain_csc, r, square),
+                lambda g: kernels.csc_scatter(*csc, r[g], square, tiles))
+
+    variants = {
+        "csr_margins_lanes": [margins("dot_rows", batch.offsets, 0.0, False),
+                              margins("margins+offsets+shift per lane", off, shift, True)],
+        "csc_scatter_lanes": [scatter("scatter", R, False), scatter("scatter_sq", R.abs(), True)],
+    }
+    t_w, t_r = W.t().contiguous(), R.t().contiguous()
+    specs = {
+        "csr_margins_lanes": (
+            "photon_ml_tpu_torch/csrc/margins_lanes.cu", "photon_ml_tpu/ops/tiled.py:170",
+            "dot_rows", 4 * ((n + 1) + 2 * nnz + G * f + G * n), 2 * nnz * G,
+            library_ms(lambda: torch.sparse_csr_tensor(*csr, size=(n, f),
+                                                       check_invariants=False),
+                       lambda m: torch.sparse.mm(m, t_w))),
+        "csc_scatter_lanes": (
+            "photon_ml_tpu_torch/csrc/scatter_lanes.cu", "photon_ml_tpu/ops/tiled.py:199",
+            "scatter", 4 * ((f + 1) + 2 * nnz + G * n + G * f), 2 * nnz * G,
+            library_ms(lambda: torch.sparse_csr_tensor(*plain_csc, size=(f, n),
+                                                       check_invariants=False),
+                       lambda m: torch.sparse.mm(m, t_r))),
+    }
+    rows = []
+    for name, cases in variants.items():
+        for label, run_lanes, _, run_single in cases:
+            got = run_lanes()
+            same = all(torch.equal(got[g], run_single(g)) for g in range(G))
+            print(f"check {name}[{label}]: each of {G} lanes bit-identical to the single "
+                  f"kernel: {same}", flush=True)
+            if not same:
+                raise RuntimeError(f"{name}[{label}]: a lane differs from the single kernel")
+        worst, timed = run_variants(name, [c[:3] for c in cases])
+        label = specs[name][2]
+        run_single = next(c[3] for c in cases if c[0] == label)
+        singles_ms = device_ms(lambda: [run_single(g) for g in range(G)], reps=10)
+        print(f"time {name}[{label}]: {G} single launches ms={singles_ms:.4f}", flush=True)
+        src, replaces, label, nbytes, flops, lib = specs[name]
+        rows.append(kernel_row(name, src, replaces, worst, timed, label, nbytes, flops, lib,
+                               lanes=G, singles_ms=singles_ms,
+                               vmapped_at="photon_ml_tpu/sweep/runner.py:91-116",
+                               lanes_bit_identical_to_single=True))
+    return rows
+
+
+def run_sweep_path(batch, card: str) -> tuple[dict, dict]:
+    """Path 12: bench_sweep.py at BASELINE config #1 through ``sweep_glm``: 16
+    lambdas ``np.logspace(2, -4, 16)``, LBFGS 20 iterations at tolerance 0,
+    cold lanes (``warm_start=False``), timed beside one ``train_glm`` fit at
+    the first lambda (each warmed by an untimed call, then timed, as
+    bench_sweep.py times them);
+    ``sweep_over_single_ratio`` = sweep_s / single_s. Lanes 0, 8 and 15 are
+    held against independent fits (the same reason and iterations but on
+    plateau lanes, the loss within LOSS_RTOL), then the warm-started sweep (2
+    rounds) runs: no lane's value may rise above the cold sweep's. The lane
+    kernels must have launched in the cold sweep."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
+    from photon_ml_tpu_torch.sweep import sweep_glm
+    from photon_ml_tpu_torch.training import train_glm
+
+    cfg = solver_config("lbfgs", 20)
+    lams = tuple(float(v) for v in np.logspace(2, -4, SWEEP_LANES))
+    train_glm(batch, "logistic", [lams[0]], cfg)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_glm(batch, "logistic", [lams[0]], cfg)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+
+    sweep_glm(batch, "logistic", lams, cfg, warm_start=False)  # warm-up
+    torch.cuda.synchronize()
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cold = sweep_glm(batch, "logistic", lams, cfg, warm_start=False)
+    cold_values = cold.values.cpu().numpy()
+    sweep_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+    ratio = sweep_s / max(single_s, 1e-9)
+
+    bad, parity = [], []
+    for g in (0, SWEEP_LANES // 2, SWEEP_LANES - 1):
+        ind = train_glm(batch, "logistic", [lams[g]], cfg)[0].result
+        values = ind.values.numpy().astype(np.float64)
+        it = int(ind.iterations)
+        plateau = bool(abs(values[it] - values[it - 1]) <= PLATEAU_RTOL * abs(values[0]))
+        rel = abs(float(cold_values[g]) - float(ind.value)) / abs(float(ind.value))
+        row = {"lane": g, "lambda": lams[g], "sweep_iterations": int(cold.iterations[g]),
+               "fit_iterations": it,
+               "sweep_reason": CONVERGENCE_REASON_NAMES[int(cold.reasons[g])],
+               "fit_reason": CONVERGENCE_REASON_NAMES[int(ind.reason)],
+               "sweep_value": float(cold_values[g]), "fit_value": float(ind.value),
+               "rel_err": rel, "plateau": plateau}
+        parity.append(row)
+        print(f"path 12 lane {json.dumps(row)}", flush=True)
+        if not rel <= LOSS_RTOL:
+            bad.append(f"lane {g}: loss {cold_values[g]} vs independent fit {float(ind.value)}")
+        if not plateau and (row["sweep_iterations"], row["sweep_reason"]) != (
+                it, row["fit_reason"]):
+            bad.append(f"lane {g}: iterations/reason differ from the independent fit")
+
+    t0 = time.perf_counter()
+    warm = sweep_glm(batch, "logistic", lams, cfg, warm_start=True)
+    warm_values = warm.values.cpu().numpy()
+    warm_s = time.perf_counter() - t0
+    rose = [g for g in range(SWEEP_LANES) if warm_values[g] > cold_values[g]]
+    if warm.rounds != 2 or rose:
+        bad.append(f"the warm-started sweep (rounds {warm.rounds}) rose on lanes {rose}")
+    finite = bool(np.isfinite(cold_values).all()) and bool(cold.w.isfinite().all())
+    if not finite:
+        bad.append("non-finite sweep values or coefficients")
+    stats = {"single_s": single_s, "sweep_s": sweep_s, "sweep_over_single_ratio": ratio,
+             "warm_s": warm_s, "host_syncs": syncs, "lambdas": list(lams),
+             "iterations": cold.iterations.tolist(), "reasons": cold.reason_names(),
+             "cold_values": cold_values.tolist(), "warm_values": warm_values.tolist(),
+             "parity": parity, "card": card}
+    print(f"path 12: sweep_over_single_ratio={ratio:.4f} single_s={single_s:.4f} "
+          f"sweep_s={sweep_s:.4f} warm_sweep_s={warm_s:.4f} lanes={SWEEP_LANES} "
+          f"host_syncs={syncs} warm_not_above_cold={not rose} launches={json.dumps(launches)} "
+          f"card={card}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 12: bad result: {bad}")
+    missing = [k for k in ("csr_margins_lanes", "csc_scatter_lanes") if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"path 12: kernels not launched: {missing}")
+    return launches, stats
+
+
+def run_bootstrap_path(seed: int, batch, card: str) -> tuple[dict, dict]:
+    """Path 12c: ``bootstrap_random_effect`` at bench_diagnostics.py's
+    geometry (BOOT_ENTITIES entities x BOOT_ROWS rows x BOOT_FEATURES
+    features, its draws, NEWTON 10 iterations, L2 1), B = BOOT_SAMPLES
+    against the one-lane fit (identity weights), each warmed and then the
+    best of 3 reps with w0 perturbed, as bench_diagnostics.py times them:
+    ``bootstrap_overhead_ratio`` = bootstrap_s / single_s; the same call on
+    BOOT_GATHERED gathered entities, with the full draw's weights for them,
+    must give the full run's coefficients on those entities bit for bit.
+    Then ``bootstrap_train`` at config #1 with B = GLM_BOOTSTRAP_SAMPLES (cli
+    glm's default): finite coefficient summaries; the lane kernels must have
+    launched."""
+    import dataclasses
+
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.diagnostics.bootstrap import (
+        bootstrap_random_effect,
+        bootstrap_re_weights,
+        bootstrap_train,
+    )
+    from photon_ml_tpu_torch.ops.dense import DenseBatch
+    from photon_ml_tpu_torch.optim.factory import (
+        OptimizerConfig,
+        OptimizerType,
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    rng = np.random.default_rng(seed)
+    E, R, K, B = BOOT_ENTITIES, BOOT_ROWS, BOOT_FEATURES, BOOT_SAMPLES
+    x = rng.normal(size=(E, R, K))
+    w_true = rng.normal(size=(E, K)) * 0.5
+    y = rng.random((E, R)) < 1.0 / (1.0 + np.exp(-np.einsum("erk,ek->er", x, w_true)))
+    ebatch = DenseBatch.from_arrays(x, y.astype(np.float64))
+    w0 = torch.zeros((E, K), dtype=torch.float32, device="cuda")
+    config = OptimizerConfig(optimizer_type=OptimizerType.NEWTON, max_iterations=10,
+                             tolerance=1e-7,
+                             regularization=RegularizationContext(RegularizationType.L2),
+                             regularization_weight=1.0)
+    single_lanes = np.ones((1, E, R), np.float32)
+    boot_lanes = bootstrap_re_weights(B, np.ones((E, R), np.float32), seed=0)
+
+    def timed(lane_weights):
+        bootstrap_random_effect(ebatch, "logistic", config, w0, lane_weights=lane_weights)
+        best = report = None
+        for rep in range(1, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = bootstrap_random_effect(ebatch, "logistic", config, w0 + 1e-6 * rep,
+                                             lane_weights=lane_weights)
+            elapsed = time.perf_counter() - t0
+            best = elapsed if best is None else min(best, elapsed)
+        return best, report
+
+    kernels.reset_launch_counts()
+    single_s, _ = timed(single_lanes)
+    boot_s, full = timed(boot_lanes)
+    ratio = boot_s / max(single_s, 1e-9)
+    full = bootstrap_random_effect(ebatch, "logistic", config, w0, lane_weights=boot_lanes)
+    idx = np.sort(np.random.default_rng(seed + 12).choice(E, BOOT_GATHERED, replace=False))
+    t0 = time.perf_counter()
+    part = bootstrap_random_effect(
+        DenseBatch.from_arrays(x[idx], y[idx].astype(np.float64)), "logistic", config,
+        w0[torch.from_numpy(idx).cuda()], lane_weights=boot_lanes[:, idx])
+    gathered_s = time.perf_counter() - t0
+    gathered_same = bool(np.array_equal(part.samples, full.samples[:, idx]))
+
+    cfg = dataclasses.replace(solver_config("lbfgs", 20), regularization_weight=1.0)
+    t0 = time.perf_counter()
+    fe = bootstrap_train(batch, "logistic", cfg, num_samples=GLM_BOOTSTRAP_SAMPLES)
+    torch.cuda.synchronize()
+    fe_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    summaries = fe.coefficient_summaries
+    fe_finite = len(summaries) == batch.num_features and all(
+        np.isfinite([s.mean, s.std_dev, s.min, s.max]).all() for s in summaries)
+    bad = []
+    if not gathered_same:
+        bad.append("gathered entity lanes differ from the full run")
+    if not fe_finite:
+        bad.append("non-finite coefficient summaries in bootstrap_train")
+    if not np.isfinite(full.samples).all():
+        bad.append("non-finite random-effect bootstrap coefficients")
+    stats = {"single_s": single_s, "bootstrap_s": boot_s, "bootstrap_overhead_ratio": ratio,
+             "gathered_s": gathered_s, "gathered_bit_identical": gathered_same,
+             "re_summary": full.summary(), "fe_bootstrap_s": fe_s,
+             "fe_significant": int(len(fe.significant_coefficients())),
+             "fe_metrics": {k: s.mean for k, s in fe.metric_summaries.items()}, "card": card}
+    print(f"path 12c: bootstrap_overhead_ratio={ratio:.4f} single_s={single_s:.4f} "
+          f"bootstrap_s={boot_s:.4f} samples={B} entities={E} rows={R} features={K} "
+          f"gathered={BOOT_GATHERED} gathered_s={gathered_s:.4f} "
+          f"gathered_bit_identical={gathered_same} re_summary={json.dumps(full.summary())} "
+          f"fe_bootstrap_s={fe_s:.4f} fe_samples={GLM_BOOTSTRAP_SAMPLES} "
+          f"fe_significant={stats['fe_significant']} launches={json.dumps(launches)} "
+          f"card={card}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 12c: bad result: {bad}")
+    missing = [k for k in ("csr_margins_lanes", "csc_scatter_lanes") if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"path 12c: kernels not launched: {missing}")
+    return launches, stats
+
+
+def _game_split(seed: int):
+    """Path 6's draws with every tenth row held out: the (train, validation)
+    GameDatasets, interleaved as tests/test_sweep.py's split."""
+    from photon_ml_tpu_torch.game import FeatureShard, build_game_dataset
+
+    fe_vals, _, fe_cols, users, Xu, y = make_game_problem(seed)
+    held = np.arange(N_ROWS) % 10 == 9
+
+    def subset(mask):
+        idx = np.flatnonzero(mask)
+        m = len(idx)
+        rows = np.repeat(np.arange(m, dtype=np.int64), NNZ_PER_ROW)
+        xu = Xu[idx]
+        ru, cu = np.nonzero(xu)
+        return build_game_dataset(y[idx], {
+            "global": FeatureShard.from_coo(fe_vals.reshape(N_ROWS, NNZ_PER_ROW)[idx].ravel(),
+                                            rows, fe_cols.reshape(N_ROWS, NNZ_PER_ROW)[idx]
+                                            .ravel(), N_FEATURES),
+            "user": FeatureShard.from_coo(xu[ru, cu], ru, cu, GAME_RE_FEATURES),
+        }, id_columns={"userId": users[idx]})
+
+    return subset(~held), subset(held)
+
+
+def _game_sweep_config(fe_lambda: float = 1.0):
+    import dataclasses as dc
+
+    from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
+    from photon_ml_tpu_torch.optim.factory import OptimizerType
+
+    opt = dc.replace(solver_config("lbfgs", 20), regularization_weight=fe_lambda)
+    re_opt = dc.replace(opt, optimizer_type=OptimizerType.NEWTON, tolerance=1e-7,
+                        regularization_weight=1.0)
+    return GameConfig(task="logistic", num_iterations=GAME_CD_ITERATIONS, evaluators=["auc"],
+                      coordinates={
+                          "fixed": FixedEffectConfig(shard_name="global", optimizer=opt),
+                          "per-user": RandomEffectConfig(shard_name="user", id_name="userId",
+                                                         optimizer=re_opt)})
+
+
+def run_sweep_game_path(seed: int, card: str) -> tuple[dict, dict]:
+    """Path 12b: ``GameEstimator.fit_sweep`` at BASELINE config #4 (path 6's
+    draws and coordinates, every tenth row held out), the grid
+    GAME_SWEEP_GRID for both coordinates, 2 CD iterations, selected on
+    ``auc``. Fails unless the winner saved under ``best/`` reloads and
+    scores bit for bit, the winning lane's validation AUC is within 1e-3 of
+    ``GameEstimator.fit`` at the winning lambda, ``fit_grid`` over two fixed
+    effects (L2 1 and 10) returns its entries best-first, each bit for bit
+    the ``fit`` of its combination, the lane kernels launched in the sweep
+    and the single ones in ``fit_grid``."""
+    import dataclasses as dc
+
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.data.model_store import load_game_model
+    from photon_ml_tpu_torch.evaluation.evaluators import auc
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.sweep import parse_sweep_spec
+
+    t0 = time.perf_counter()
+    train, val = _game_split(seed)
+    setup_s = time.perf_counter() - t0
+    grid = parse_sweep_spec(GAME_SWEEP_GRID)
+    config = _game_sweep_config()
+    bad = []
+
+    def val_auc(model):
+        return float(auc(model.score(val) + val.per_row(val.offset), val.per_row(val.response),
+                         val.per_row(val.weight)))
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    with tempfile.TemporaryDirectory(dir=build_dir) as out:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fs = GameEstimator(config).fit_sweep(train, val, grid, metric="auc", output_dir=out)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        sweep_launches = dict(kernels.LAUNCHES)
+        loaded = load_game_model(os.path.join(out, "best"))
+        reloaded_same = torch.equal(loaded.score(val), fs.model.score(val))
+    sel = fs.selection
+    lam = grid.default[sel.index]
+    conv = fs.sweep.convergence()
+    print(f"path 12b sweep: sweep_s={sweep_s:.4f} selected_index={sel.index} lambda={lam:.6g} "
+          f"auc={sel.best_value:.9g} aucs={json.dumps(sel.to_json()['values'])} "
+          f"fe_iterations={conv['fixed']['iterations'].tolist()} "
+          f"re_iterations={conv['per-user']['iterations'].tolist()} "
+          f"best_reloaded_bit_identical={reloaded_same} launches={json.dumps(sweep_launches)}",
+          flush=True)
+    if not reloaded_same:
+        bad.append("the winner saved under best/ scores differently when loaded")
+    t0 = time.perf_counter()
+    winner_cfg = dc.replace(config, coordinates={
+        name: dc.replace(c, optimizer=dc.replace(c.optimizer, regularization_weight=lam))
+        for name, c in config.coordinates.items()})
+    donor = GameEstimator(winner_cfg)
+    fit_auc = val_auc(donor.fit(train).model)
+    fit_s = time.perf_counter() - t0
+
+    def estimator(cfg):
+        # the random-effect dataset depends on the data, the id and shard
+        # and the caps, never on the optimizer: one host build serves the
+        # fits below
+        est = GameEstimator(cfg)
+        est._re_datasets = dict(donor._re_datasets)
+        return est
+
+    print(f"path 12b winner: fit at lambda {lam:.6g} auc={fit_auc:.9g} vs the lane's "
+          f"{sel.best_value:.9g} fit_s={fit_s:.4f}", flush=True)
+    if not abs(fit_auc - sel.best_value) <= 1e-3:
+        bad.append(f"the winning lane's auc {sel.best_value} vs fit {fit_auc}")
+
+    fe_opt = config.coordinates["fixed"].optimizer
+    combos = [dc.replace(fe_opt, regularization_weight=v) for v in (1.0, 10.0)]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    entries = estimator(config).fit_grid(train, val, {"fixed": combos})
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    grid_launches = dict(kernels.LAUNCHES)
+    metrics = [e.result.best_metric for e in entries]
+    if metrics != sorted(metrics, reverse=True):
+        bad.append(f"fit_grid entries are not best-first: {metrics}")
+    same = []
+    for e in entries:
+        cfg = dc.replace(config, coordinates={**config.coordinates, "fixed": dc.replace(
+            config.coordinates["fixed"], optimizer=e.optimizer_configs["fixed"])})
+        fit = estimator(cfg).fit(train, validation_data=val)
+        same.append(fit.best_metric == e.result.best_metric
+                    and torch.equal(fit.model.score(val), e.result.model.score(val)))
+    print(f"path 12b grid: grid_s={grid_s:.4f} metrics={metrics} "
+          f"lambdas={[e.optimizer_configs['fixed'].regularization_weight for e in entries]} "
+          f"entries_bit_identical_to_fit={same} launches={json.dumps(grid_launches)}",
+          flush=True)
+    if not all(same):
+        bad.append(f"fit_grid entries differ from fit: {same}")
+    launches = {k: sweep_launches[k] + grid_launches[k] for k in sweep_launches}
+    stats = {"setup_s": setup_s, "sweep_s": sweep_s, "selected_index": sel.index,
+             "selected_lambda": lam, "selected_auc": sel.best_value, "aucs": sel.to_json(),
+             "fit_auc_at_winner": fit_auc, "grid_s": grid_s, "grid_metrics": metrics,
+             "best_reloaded_bit_identical": reloaded_same, "grid_bit_identical": same,
+             "card": card}
+    print(f"path 12b: setup_s={setup_s:.4f} sweep_s={sweep_s:.4f} grid_s={grid_s:.4f} "
+          f"card={card}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 12b: bad result: {bad}")
+    missing = [k for k in ("csr_margins_lanes", "csc_scatter_lanes")
+               if sweep_launches[k] == 0] + [
+        k for k in ("csr_margins", "csc_scatter") if grid_launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"path 12b: kernels not launched: {missing}")
+    return launches, stats
+
+
+def run_sweep_cli_path(card: str, work: str, glm_ref: dict) -> tuple[dict, dict]:
+    """Path 12d, after path 10 and on its files: ``cli glm`` in process on
+    path 8's LIBSVM files with ``"diagnostics": true`` (both report files
+    written, the stages ending DIAGNOSED, the VALIDATED results bit for bit
+    path 8's), and ``cli sweep`` in process on path 10's Avro files (the
+    first three for training, the fourth for validation, the grid
+    CLI_SWEEP_GRID): its selected index and metric must equal an in-process
+    ``fit_sweep`` on the datasets the driver read."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.cli import train as cli_train
+    from photon_ml_tpu_torch.config import parse_game_config
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.sweep import parse_sweep_spec
+
+    bad, stats = [], {"card": card}
+    with open(os.path.join(work, "glm.json")) as fh:
+        glm_cfg = json.load(fh)
+    glm_out = os.path.join(work, "glm_diagnosed")
+    glm_cfg.update(diagnostics=True, output_dir=glm_out)
+    cfg_path = os.path.join(work, "glm_diagnosed.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(glm_cfg, fh)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    glm = _run_cli_in_process(["glm", "--config", cfg_path])
+    torch.cuda.synchronize()
+    stats["glm_s"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    glm_same = {
+        "stages": glm["stages"] == ["INIT", "PREPROCESSED", "TRAINED", "VALIDATED", "DIAGNOSED"],
+        "best_lambda": glm["best_lambda"] == glm_ref["best_lambda"],
+        "best_metric": glm["best_metric"] == glm_ref["heldout_auc"],
+        "metrics": all(
+            sorted(glm["metrics"][str(lam)]) == sorted(ref)
+            and all(_same_or_both_nan(glm["metrics"][str(lam)][k], v) for k, v in ref.items())
+            for lam, ref in glm_ref["metrics"].items()),
+        "reports": all(os.path.getsize(glm["report"][k]) > 0 for k in ("html", "text")),
+    }
+    stats.update(glm_same=glm_same, glm_report_bytes={
+        k: os.path.getsize(p) for k, p in glm["report"].items()})
+    print(f"path 12d glm: glm_s={stats['glm_s']:.4f} stages={glm['stages']} "
+          f"report_bytes={json.dumps(stats['glm_report_bytes'])} "
+          f"bit_identical_to_path_8={json.dumps(glm_same)} launches={json.dumps(launches)} "
+          f"card={card}", flush=True)
+    if not all(glm_same.values()):
+        bad.append(f"cli glm with diagnostics differs from path 8: {glm_same}")
+
+    data_dir = os.path.join(work, "avro")
+    parts = [os.path.join(data_dir, f"part-{p}.avro") for p in range(4)]
+    lbfgs = {"type": "lbfgs", "max_iterations": 20, "tolerance": 0.0, "regularization": "l2",
+             "regularization_weight": 1.0}
+    config = {"task": "logistic", "num_iterations": GAME_CD_ITERATIONS, "evaluators": ["auc"],
+              "input": {"format": "avro", "paths": parts[:3], "add_intercept": False,
+                        "feature_shards": {"global": ["global"], "user": ["user"]},
+                        "id_columns": ["userId"]},
+              "validation": {"paths": parts[3:]},
+              "output_dir": os.path.join(work, "sweep_model"),
+              "coordinates": {
+                  "fixed": {"type": "fixed_effect", "shard_name": "global", "optimizer": lbfgs},
+                  "per-user": {"type": "random_effect", "shard_name": "user",
+                               "id_name": "userId",
+                               "optimizer": {**lbfgs, "type": "newton", "tolerance": 1e-7}}}}
+    cfg_path = os.path.join(work, "sweep.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(config, fh)
+    reads, read_input = [], cli_train.read_input
+
+    def spy_read(*a, **k):
+        reads.append(read_input(*a, **k))
+        return reads[-1]
+
+    cli_train.read_input = spy_read
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = _run_cli_in_process(["sweep", "--config", cfg_path, "--sweep",
+                                       CLI_SWEEP_GRID])["sweep"]
+    finally:
+        cli_train.read_input = read_input
+    torch.cuda.synchronize()
+    stats["sweep_cli_s"] = time.perf_counter() - t0
+    for k, n in kernels.LAUNCHES.items():
+        launches[k] += n
+    (train, _), (val, _) = reads
+    fs = GameEstimator(parse_game_config(config)).fit_sweep(
+        train, val, parse_sweep_spec(CLI_SWEEP_GRID))
+    sweep_same = {"selected_index": summary["selected_index"] == fs.selection.index,
+                  "selected_metric": summary["selected_metric"] == fs.selection.best_value,
+                  "best_written": os.path.exists(os.path.join(config["output_dir"], "best",
+                                                              "model-metadata.json"))}
+    stats.update(sweep_same=sweep_same, sweep_selected=summary["selected_index"],
+                 sweep_metrics=[c["metric"] for c in summary["configs"]])
+    print(f"path 12d sweep: sweep_cli_s={stats['sweep_cli_s']:.4f} train_rows={train.num_rows} "
+          f"validation_rows={val.num_rows} selected_index={summary['selected_index']} "
+          f"selected_metric={summary['selected_metric']:.9g} "
+          f"aucs={json.dumps(stats['sweep_metrics'])} "
+          f"same_as_fit_sweep={json.dumps(sweep_same)} card={card}", flush=True)
+    if not all(sweep_same.values()):
+        bad.append(f"cli sweep differs from fit_sweep: {sweep_same}")
+    if bad:
+        raise RuntimeError(f"path 12d: bad result: {bad}")
+    return launches, stats
+
+
+_T_START = time.perf_counter()
+
+
+def mark(label: str, train: dict | None = None) -> None:
+    """Print (and keep in ``train["elapsed_s"]``) the seconds since the
+    script started, at the end of a phase or path."""
+    t = time.perf_counter() - _T_START
+    print(f"elapsed: {label} ends at {t:.2f} s", flush=True)
+    if train is not None:
+        train.setdefault("elapsed_s", {})[label] = t
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2341,6 +2913,8 @@ def main() -> int:
     kernel_rows += check_fused_kernels(probe, w, v, d2_row, skewed_csr, power_law)
     kernel_rows.append(check_ell_kernel(values, rows, cols, y, w, offsets, skewed,
                                         kernel_rows[0]["library_ms"]))
+    kernel_rows += check_lane_kernels(probe, w)
+    mark("phase 3")
     del probe, z, s, d2_row, skewed_csr, power_law
     # Phase 3's temporaries (the column-major views among them) leave cached
     # blocks behind; release them, so that the later paths' peaks depend on
@@ -2349,17 +2923,24 @@ def main() -> int:
 
     check_small_parity(args.seed)
     check_small_re_parity(args.seed)
-
     by_path, train, prof = {}, {}, {}
+    mark("phase 4", train)
     by_path["5"], train["5"] = run_path(
         "5", batch, "logistic", [10.0, 1.0], solver_config("lbfgs", 20),
         required=("csr_margins", "csc_scatter"), compute_variances=True, min_auc=0.6)
     if args.profile:
         prof["5"] = profile_solve("5", lambda: train_glm(
             batch, "logistic", [1.0], solver_config("lbfgs", 10))[0].result.iterations)
+    mark("path 5", train)
+    by_path["12"], train["12"] = run_sweep_path(batch, card)
+    mark("path 12", train)
+    by_path["12c"], train["12c"] = run_bootstrap_path(args.seed, batch, card)
+    mark("path 12c", train)
     del batch
+    torch.cuda.empty_cache()
 
     run_suite_paths(args.seed, args.profile, by_path, train, prof)
+    mark("paths 5b-5e", train)
 
     # paths 8 and 10 share this directory (path 8's LIBSVM files); it goes
     # when the run ends, whatever its outcome
@@ -2374,23 +2955,27 @@ def main() -> int:
 
 def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, train: dict,
                prof: dict) -> int:
-    """Paths 8, 6, 9-9c and 11b, 10, 11 and 7, then the ``kernels`` line and
-    the result line; ``work`` holds path 8's files for path 10."""
+    """Paths 8, 6, 9-9c and 11b, 10, 12d, 12b, 11 and 7, then the ``kernels``
+    line and the result line; ``work`` holds path 8's files for paths 10 and
+    12d, and path 10's for 12d."""
     import torch
 
     from photon_ml_tpu_torch.tools.probe_ell import card_line
 
     by_path["8"], train["8"], glm_ref = run_data_plane_path(args.seed, card, work)
     torch.cuda.empty_cache()
+    mark("path 8", train)
 
     by_path["6"], train["6"], game_prof, gds = run_game_path(args.seed, args.profile)
     if game_prof is not None:
         prof["6"] = game_prof
+    mark("path 6", train)
     t0 = time.perf_counter()
     re_launches, train["9"], re_prof = run_re_path(gds, args.seed, args.profile,
                                                    train["6"]["fe_only_auc"], card)
     train["9"]["paths_s"] = time.perf_counter() - t0
     print(f"paths 9-9c: {train['9']['paths_s']:.2f} s", flush=True)
+    mark("paths 9-9c, 11b", train)
     by_path.update(re_launches)
     if re_prof is not None:
         prof["9"] = re_prof
@@ -2401,12 +2986,27 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     train["10"]["path_s"] = time.perf_counter() - t0
     print(f"path 10: {train['10']['path_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
+    mark("path 10", train)
+    t0 = time.perf_counter()
+    by_path["12d"], train["12d"] = run_sweep_cli_path(card, work, glm_ref)
+    train["12d"]["path_s"] = time.perf_counter() - t0
+    print(f"path 12d: {train['12d']['path_s']:.2f} s", flush=True)
+    mark("path 12d", train)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    by_path["12b"], train["12b"] = run_sweep_game_path(args.seed, card)
+    train["12b"]["path_s"] = time.perf_counter() - t0
+    print(f"path 12b: {train['12b']['path_s']:.2f} s", flush=True)
+    mark("path 12b", train)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     by_path["11"], train["11"] = run_northstar_path(args.seed, card)
     train["11"]["path_s"] = time.perf_counter() - t0
     print(f"path 11: {train['11']['path_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
+    mark("path 11", train)
     by_path["7"], train["7"] = run_probe_path(args.seed)
+    mark("path 7", train)
 
     for row in kernel_rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()

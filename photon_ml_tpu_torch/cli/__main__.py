@@ -2,15 +2,14 @@
 
 Counterpart of ``photon_ml_tpu/cli/__main__.py``, with the same usage text
 and dispatch. ``refresh``, ``pipeline``, ``serve``, ``report`` and
-``profile`` raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 14), and
-so does ``sweep`` (item 11). ``train``, ``score`` and ``glm`` take
-``--device`` (default ``cuda``).
+``profile`` raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 14).
+``train``, ``sweep``, ``score`` and ``glm`` take ``--device`` (default
+``cuda``).
 """
 
 import sys
 
-_NOT_PORTED = {"refresh": 14, "pipeline": 14, "serve": 14, "report": 14, "profile": 14,
-               "sweep": 11}
+_NOT_PORTED = {"refresh": 14, "pipeline": 14, "serve": 14, "report": 14, "profile": 14}
 
 
 def main(argv=None) -> int:
@@ -19,7 +18,8 @@ def main(argv=None) -> int:
         print("usage: python -m photon_ml_tpu_torch.cli {train|refresh|pipeline|sweep|score|serve|glm|index|report|profile} [options]")
         print("  train --config <json> [--output-dir <dir>] [--device cuda|cpu]   GAME training")
         print("  refresh, pipeline, serve, report, profile   not ported (ROADMAP.md Queue 1 item 14)")
-        print("  sweep   not ported (ROADMAP.md Queue 1 item 11)")
+        print("  sweep --config <json> [--sweep lambda=...] [--device cuda|cpu]   multi-lambda "
+              "sweep + selection")
         print("  score --model-dir <dir> --config <json> [--output <avro>] [--device cuda|cpu]")
         print("  glm   --config <json> [--output-dir <dir>] [--device cuda|cpu]   staged legacy GLM")
         print("  index --input <avro...> --output <dir>       feature index build")
@@ -33,6 +33,10 @@ def main(argv=None) -> int:
         from photon_ml_tpu_torch.cli.train import main as train_main
 
         return train_main(rest)
+    if cmd == "sweep":
+        from photon_ml_tpu_torch.cli.sweep import main as sweep_main
+
+        return sweep_main(rest)
     if cmd == "score":
         from photon_ml_tpu_torch.cli.score import main as score_main
 

@@ -1,11 +1,15 @@
 """Legacy single-GLM driver: the staged pipeline
-INIT -> PREPROCESSED -> TRAINED -> VALIDATED.
+INIT -> PREPROCESSED -> TRAINED -> VALIDATED -> DIAGNOSED.
 
 Counterpart of ``photon_ml_tpu/cli/glm.py``: each stage asserts that its
 predecessor completed; ``preprocess`` reads, validates and summarizes the
 data and builds the normalization context, ``train`` runs the warm-started
 lambda sweep (``train_glm``), ``validate_models`` computes each lambda's
 metric map (``diagnostics.evaluate``) and selects the best model, and
+``diagnose`` (with ``"diagnostics": true``) composes the best model's
+diagnostic report (``diagnose_model``, the fitting curves and
+``bootstrap_train`` with ``bootstrap_samples`` resamples, default 8) into
+``diagnostic-report.html`` and ``.txt`` under ``output_dir``, and
 ``write_models`` saves every lambda's model (npz through ``save_glm``, and
 text: one ``index<TAB>value[<TAB>variance]`` line per nonzero coefficient
 under ``learned-models-text/``):
@@ -23,12 +27,14 @@ Config:
       "normalization": "standardization",      # optional
       "compute_variances": false,
       "validation_mode": "full",               # full | sample | disabled
+      "diagnostics": false,                    # the DIAGNOSED stage
+      "diagnostic_fitting": true, "diagnostic_bootstrap": true,
+      "bootstrap_samples": 8,
       "output_dir": "out/"
     }
 
-The DIAGNOSED stage is not ported: ``"diagnostics": true`` raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 11), and so do
-``trace_out``, ``telemetry_out`` and their flags (item 14).
+``trace_out``, ``telemetry_out`` and their flags raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -177,6 +183,60 @@ class GLMDriver:
                                       scorer=lambda m: score_cache[id(m)])
         logger.info("best lambda=%s (metric %.6g)", self.best[0].reg_weight, self.best[1])
 
+    def diagnose(self) -> dict:
+        """Diagnostics and the HTML and text report (Driver.scala:600-627,
+        writeDiagnostics:711-731) of the best model (the last lambda's
+        without validation); returns the report paths."""
+        import dataclasses
+
+        from photon_ml_tpu_torch.config import parse_optimizer_config
+        from photon_ml_tpu_torch.diagnostics import (
+            Chapter,
+            Section,
+            Table,
+            bootstrap_train,
+            diagnose_model,
+            render_html,
+            render_text,
+        )
+        from photon_ml_tpu_torch.diagnostics.fitting import (
+            fitting_diagnostic,
+            fitting_report_sections,
+        )
+
+        entry = (self.best or (self.sweep[-1], None))[0]
+        device = self._batch.labels.device
+        doc = diagnose_model(entry.model, self._batch, summary=self._summary)
+        opt = dataclasses.replace(parse_optimizer_config(self.config.get("optimizer")),
+                                  regularization_weight=entry.reg_weight)
+        extra = []
+        if self.config.get("diagnostic_fitting", True):
+            fit_rep = fitting_diagnostic(self._batch, self.config["task"], opt,
+                                         lambdas=[entry.reg_weight],
+                                         normalization=self._normalization, device=device)
+            extra.append(Chapter("Fitting curves", fitting_report_sections(fit_rep)))
+        if self.config.get("diagnostic_bootstrap", True):
+            boot = bootstrap_train(self._batch, self.config["task"], opt,
+                                   num_samples=int(self.config.get("bootstrap_samples", 8)),
+                                   normalization=self._normalization, device=device)
+            extra.append(Chapter("Bootstrap confidence intervals", [Section(
+                "Per-coefficient summaries",
+                [Table(header=["coefficient", "summary"],
+                       rows=[(j, s.to_summary_string())
+                             for j, s in enumerate(boot.coefficient_summaries)])])]))
+        doc = dataclasses.replace(doc, chapters=list(doc.chapters) + extra)
+        paths = {}
+        if self.output_dir:
+            os.makedirs(self.output_dir, exist_ok=True)
+            html_path = os.path.join(self.output_dir, "diagnostic-report.html")
+            text_path = os.path.join(self.output_dir, "diagnostic-report.txt")
+            with open(html_path, "w") as f:
+                f.write(render_html(doc))
+            with open(text_path, "w") as f:
+                f.write(render_text(doc))
+            paths = {"html": html_path, "text": text_path}
+        return paths
+
     def write_models(self) -> Optional[str]:
         """Every lambda's model, as npz and as text."""
         if not self.output_dir:
@@ -205,8 +265,6 @@ class GLMDriver:
         from photon_ml_tpu_torch import telemetry
         from photon_ml_tpu_torch.utils.timing import Timer
 
-        if self.config.get("diagnostics", False):
-            _refuse("the GLM driver's diagnostics stage", 11)
         for key in ("trace_out", "telemetry_out"):
             if self.config.get(key):
                 _refuse(f"the glm config key '{key}'", 14)
@@ -230,6 +288,14 @@ class GLMDriver:
                 self.validate_models()
             self._update_stage(DriverStage.VALIDATED)
 
+        report_paths = {}
+        if self.config.get("diagnostics", False):
+            self._assert_stage(DriverStage.VALIDATED if self._val_batch is not None
+                               else DriverStage.TRAINED)
+            with timed("diagnose"):
+                report_paths = self.diagnose()
+            self._update_stage(DriverStage.DIAGNOSED)
+
         with timed("write models"):
             text_dir = self.write_models()
 
@@ -244,7 +310,7 @@ class GLMDriver:
             "metrics": {str(k): {m: float(v) for m, v in mm.items()}
                         for k, mm in self.metrics.items()},
             "models_text_dir": text_dir,
-            "report": {},
+            "report": report_paths,
         }
 
 

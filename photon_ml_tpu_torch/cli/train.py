@@ -26,7 +26,11 @@ The config document is the reference's (``coordinates`` in updating order):
 
 ``--device`` (default ``cuda``) is the port's one added argument. The guard
 is on unless the config says ``"guard": false``; ``event_listeners`` loads
-listeners by dotted path. ``"checkpoint": {"dir", "every", "keep_last",
+listeners by dotted path. A ``"sweep"`` key (or ``--sweep``, with
+``--sweep-metric`` and ``--sweep-policy``) trains every λ of a grid at once
+and saves the winner under ``<output_dir>/best`` instead of a single fit
+(``cli/sweep.py``); it needs a validation input and refuses a checkpoint,
+as the reference does. ``"checkpoint": {"dir", "every", "keep_last",
 "resume"}`` (or ``--checkpoint-dir``, ``--checkpoint-every``, ``--resume``)
 saves the coordinate-descent state after each step and resumes from the
 newest valid checkpoint (``resume`` defaults to true); with a checkpoint,
@@ -34,8 +38,9 @@ SIGTERM/SIGINT finish the step, write a final checkpoint and end the run
 with an ``interrupted`` summary and exit code 75. The reference's progress heartbeat (a log line
 every ~30 s) is not started. Every key and flag the port cannot honour yet
 raises ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
-``sweep`` and ``--sweep*`` (11); ``warm_start``, ``--warm-start``,
-``--delta``, ``--refresh-registry-dir``, ``--lambda-points`` (14);
+``sweep.registry_dir``, ``--sweep-registry-dir``, ``warm_start``,
+``--warm-start``, ``--delta``, ``--refresh-registry-dir``,
+``--lambda-points`` (14);
 ``input.ingest``, ``--ingest-workers``, ``--prefetch-depth`` (13);
 ``mesh``, ``distributed``, ``--mesh`` (12); ``trace_out``, ``telemetry_out``,
 ``report_out``, ``xprof``, their flags, a ``heartbeat`` object or interval
@@ -62,7 +67,7 @@ from photon_ml_tpu_torch.optim.guard import GuardSpec
 from photon_ml_tpu_torch.utils import setup_logging, timed
 
 # config keys the port refuses, with the ROADMAP.md Queue 1 item that ports them
-_REFUSED_KEYS = {"sweep": 11, "warm_start": 14, "mesh": 12, "distributed": 12,
+_REFUSED_KEYS = {"warm_start": 14, "mesh": 12, "distributed": 12,
                  "trace_out": 14, "telemetry_out": 14, "report_out": 14, "xprof": 14}
 
 
@@ -205,6 +210,17 @@ def run(config: Mapping, output_dir: Optional[str] = None,
     output_dir = output_dir or config.get("output_dir")
     guard = _parse_guard_spec(config)
     checkpoint_spec = _parse_checkpoint_spec(config)
+    if config.get("sweep"):
+        from photon_ml_tpu_torch.cli.sweep import parse_sweep_config
+
+        parse_sweep_config(config["sweep"])  # a malformed grid fails before the read
+    if config.get("sweep") and checkpoint_spec is not None:
+        # a sweep is one batched solve per coordinate, not a resumable step
+        # sequence: a "checkpointed" sweep would save nothing
+        raise ValueError(
+            "checkpointing is not supported with a sweep yet — drop "
+            'the "checkpoint" config (sweeps are one batched solve '
+            "per coordinate, not a resumable step sequence)")
     stop = GracefulStop()
     if checkpoint_spec is not None:
         # without a checkpoint nothing durable is written on SIGTERM, so the
@@ -226,6 +242,21 @@ def run(config: Mapping, output_dir: Optional[str] = None,
 
         for listener in load_listeners(config["event_listeners"]):
             estimator.events.register(listener)
+    if config.get("sweep"):
+        # every λ at once and the winner under <output_dir>/best, instead of
+        # a single fit (cli/sweep.py)
+        from photon_ml_tpu_torch.cli.sweep import run_sweep_fit
+
+        with timed("sweep"):
+            sweep_summary = run_sweep_fit(estimator, config["sweep"], train_data,
+                                          validation_data, output_dir,
+                                          device=train_data.device)
+        if output_dir is not None and index_maps is not None:
+            with timed("save index maps"):
+                for shard, imap in index_maps.items():
+                    imap.save(os.path.join(output_dir, "best", "feature-indexes", shard))
+        return {"sweep": sweep_summary, "best_metric": sweep_summary["selected_metric"],
+                "output_dir": output_dir, "num_rows": train_data.num_rows}
     try:
         with timed("fit"):
             result = estimator.fit(
@@ -257,10 +288,18 @@ def main(argv=None) -> int:
                         help="the device that reads, trains and scores (default cuda; cpu "
                         "runs the kernels' plain PyTorch versions)")
     # the reference's flags, refused with their ROADMAP item
+    parser.add_argument("--sweep", action="append",
+                        help="train a multi-λ sweep instead of a single fit: grid tokens "
+                        "like 'lambda=1e-4:1e2:log16' (repeatable; needs a validation "
+                        "input; config key sweep.grid)")
+    parser.add_argument("--sweep-metric",
+                        help="validation metric the sweep selects on (default: the task's "
+                        "ModelSelection metric; config sweep.metric)")
+    parser.add_argument("--sweep-policy", choices=("best", "parsimonious"),
+                        help="sweep selection policy (config sweep.policy)")
     refused = {"--trace-out": 14, "--telemetry-out": 14, "--report-out": 14,
-               "--xprof-dir": 14, "--xprof-arm": 14, "--mesh": 12, "--sweep": 11,
-               "--sweep-metric": 11, "--sweep-policy": 11, "--sweep-registry-dir": 11,
-               "--warm-start": 14, "--delta": 14, "--refresh-registry-dir": 14,
+               "--xprof-dir": 14, "--xprof-arm": 14, "--mesh": 12,
+               "--sweep-registry-dir": 14, "--warm-start": 14, "--delta": 14, "--refresh-registry-dir": 14,
                "--lambda-points": 14, "--ingest-workers": 13, "--prefetch-depth": 13}
     for flag in refused:
         parser.add_argument(flag, action="append", help=argparse.SUPPRESS)
@@ -286,6 +325,15 @@ def main(argv=None) -> int:
         config = json.load(f)
     if args.heartbeat_every is not None:
         config["heartbeat"] = False
+    if args.sweep or args.sweep_metric or args.sweep_policy:
+        from photon_ml_tpu_torch.cli.sweep import merge_sweep_flags
+
+        sweep_cfg = merge_sweep_flags(config, grid=args.sweep, metric=args.sweep_metric,
+                                      policy=args.sweep_policy)
+        if not sweep_cfg or not sweep_cfg.get("grid"):
+            parser.error("--sweep-metric/--sweep-policy need a grid: pass --sweep lambda=... "
+                         "(or config sweep.grid)")
+        config["sweep"] = sweep_cfg
     if args.checkpoint_dir or args.checkpoint_every is not None or args.resume:
         ckpt = dict(config.get("checkpoint") or {})
         if args.checkpoint_dir:

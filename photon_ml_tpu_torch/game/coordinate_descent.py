@@ -78,13 +78,22 @@ class CoordinateDescentResult:
     history: list[dict]  # one entry per (iteration, coordinate)
 
 
+def validation_arrays(data: GameDataset) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(labels, weights, offsets) of a validation dataset as ``[n]`` float32
+    tensors on its device: the evaluators' inputs, shared by the CD
+    validation below and the sweep's selection (``sweep/select.py``), as the
+    reference's ``padded_validation_arrays`` (:70-83; the port pads
+    nothing)."""
+    return data.per_row(data.response), data.per_row(data.weight), data.per_row(data.offset)
+
+
 def _evaluate(model: GameModel, spec: ValidationSpec) -> dict[str, float]:
     """Each evaluator of ``spec`` on the model's validation scores, keyed by
     its spec string; a sharded one ('auc:<col>', 'precision@k:<col>') groups
     by the id column named, matched case-insensitively."""
     data = spec.data
-    scores = model.score(data) + data.per_row(data.offset)
-    labels, weights = data.per_row(data.response), data.per_row(data.weight)
+    labels, weights, offsets = validation_arrays(data)
+    scores = model.score(data) + offsets
     out = {}
     for spec_str in spec.evaluators:
         kind, group_col, k = parse_evaluator(spec_str)

@@ -18,13 +18,23 @@ checkpoint; ``should_stop`` is polled after every step (:399-471). A
 effect with ``projector="random"`` the random projector, both
 ``game/factored.py``'s coordinate (:329-367).
 
+``fit_sweep`` (:585-674) trains every λ of a grid at once as lanes
+(``sweep/runner.py`` ``sweep_game``), selects the winner on the validation
+data (``sweep/select.py``) and saves it under ``<output_dir>/best``;
+``fit_grid`` (:676-768) runs the cartesian product of per-coordinate
+optimizer configs, one coordinate-descent run each, reusing a coordinate
+whose config a combination does not change, and returns its entries
+best-first.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-``mesh``, ``fit_incremental``, ``fit_sweep`` and ``fit_grid``.
+``mesh`` (item 12, also in ``fit_grid``), ``fit_incremental`` and
+``fit_sweep``'s ``registry_dir`` (item 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 from typing import Mapping, Optional, Sequence
 
@@ -38,6 +48,7 @@ from photon_ml_tpu_torch.data.normalization import (
 )
 from photon_ml_tpu_torch.data.stats import summarize
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.evaluation.evaluators import better_than
 from photon_ml_tpu_torch.game.checkpoint import CheckpointManager, CheckpointSpec
 from photon_ml_tpu_torch.game.coordinate_descent import (
     CoordinateDescentResult,
@@ -153,6 +164,27 @@ class GameFitResult:
     history: list
 
 
+@dataclasses.dataclass
+class SweepFitResult:
+    """A finished λ sweep: the selection, the winning model, and the full
+    per-config record (``sweep.runner.GameSweepResult``)."""
+
+    model: GameModel  # the selected winner
+    selection: object  # sweep.select.SweepSelection
+    sweep: object  # sweep.runner.GameSweepResult
+    published_version: Optional[str] = None  # always None: publishing is item 14
+
+
+@dataclasses.dataclass
+class GridFitEntry:
+    """One combination of a ``fit_grid`` sweep: the per-coordinate optimizer
+    configs used and the resulting fit (the reference's (config, model,
+    evaluation) triple)."""
+
+    optimizer_configs: Mapping[str, OptimizerConfig]
+    result: GameFitResult
+
+
 class GameEstimator:
     """Builds datasets and coordinates from a GameConfig and trains by
     coordinate descent."""
@@ -183,15 +215,24 @@ class GameEstimator:
         self._re_datasets[key] = (data, red)
         return red
 
-    def _build_coordinates(self, data: GameDataset) -> dict:
-        """The coordinates of the config over ``data``; a coordinate built for
-        the same data is reused with its per-fit state reset (caches of
+    def _build_coordinates(self, data: GameDataset,
+                           overrides: Optional[Mapping[str, OptimizerConfig]] = None,
+                           only: Optional[set] = None) -> dict:
+        """The coordinates of the config over ``data``, with a coordinate's
+        optimizer config replaced where ``overrides`` names it (only the
+        coordinates in ``only``, when given); a coordinate built for the same
+        data and config is reused with its per-fit state reset (caches of
         other datasets are dropped, so no device copy pins old data)."""
+        overrides = overrides or {}
         self._coordinates = {k: v for k, v in self._coordinates.items() if v[0] is data}
         self._re_datasets = {k: v for k, v in self._re_datasets.items() if v[0] is data}
         coords = {}
         for name, c in self.config.coordinates.items():
-            hit = self._coordinates.get((id(data), name))
+            if only is not None and name not in only:
+                continue
+            opt = overrides.get(name)
+            key = (id(data), name) if opt is None else (id(data), name, opt)
+            hit = self._coordinates.get(key)
             if hit is not None:
                 coord = hit[1]
                 # a fresh fit: the down-sampling salt restarts, stale
@@ -206,15 +247,15 @@ class GameEstimator:
             if isinstance(c, FixedEffectConfig):
                 coord = FixedEffectCoordinate(
                     name=name, data=data, shard_name=c.shard_name,
-                    loss_name=self.config.task, config=c.optimizer,
+                    loss_name=self.config.task, config=opt or c.optimizer,
                     seed=c.down_sampling_seed, normalization=self._normalization_for(data, c),
                 )
             elif isinstance(c, RandomEffectConfig) and c.projector == "random":
                 # per-entity solves in a fixed Gaussian space, no refit
                 coord = FactoredRandomEffectCoordinate(
                     name=name, data=data, re_data=self._re_dataset(data, c),
-                    loss_name=self.config.task, re_config=c.optimizer,
-                    latent_config=c.optimizer, latent_dim=c.projected_dim,
+                    loss_name=self.config.task, re_config=opt or c.optimizer,
+                    latent_config=opt or c.optimizer, latent_dim=c.projected_dim,
                     refit_projection=False,
                     projection_intercept_index=c.projection_intercept_index,
                     seed=c.projection_seed,
@@ -222,19 +263,19 @@ class GameEstimator:
             elif isinstance(c, RandomEffectConfig):
                 coord = RandomEffectCoordinate(
                     name=name, data=data, re_data=self._re_dataset(data, c),
-                    loss_name=self.config.task, config=c.optimizer,
+                    loss_name=self.config.task, config=opt or c.optimizer,
                     compute_variances=c.compute_variances,
                 )
             elif isinstance(c, FactoredRandomEffectConfig):
                 coord = FactoredRandomEffectCoordinate(
                     name=name, data=data, re_data=self._re_dataset(data, c),
-                    loss_name=self.config.task, re_config=c.re_optimizer,
+                    loss_name=self.config.task, re_config=opt or c.re_optimizer,
                     latent_config=c.latent_optimizer, latent_dim=c.latent_dim,
                     mf_iterations=c.mf_iterations, seed=c.seed,
                 )
             else:
                 raise TypeError(f"coordinate '{name}': unknown config {type(c).__name__}")
-            self._coordinates[(id(data), name)] = (data, coord)
+            self._coordinates[key] = (data, coord)
             coords[name] = coord
         return coords
 
@@ -316,11 +357,121 @@ class GameEstimator:
     def fit_incremental(self, *args, **kwargs):
         raise NotImplementedError(NOT_PORTED.format("GameEstimator.fit_incremental", 14))
 
-    def fit_sweep(self, *args, **kwargs):
-        raise NotImplementedError(NOT_PORTED.format("GameEstimator.fit_sweep", 11))
+    def fit_sweep(
+        self,
+        data: GameDataset,
+        validation_data: GameDataset,
+        grid,
+        metric: Optional[str] = None,
+        policy: str = "best",
+        rel_tol: float = 0.01,
+        num_iterations: Optional[int] = None,
+        warm_start: bool = True,
+        output_dir: Optional[str] = None,
+        registry_dir: Optional[str] = None,
+        device: torch.device | str | None = None,
+    ) -> SweepFitResult:
+        """Train every λ of ``grid`` at once on ``device`` (default cuda) and
+        keep the best.
 
-    def fit_grid(self, *args, **kwargs):
-        raise NotImplementedError(NOT_PORTED.format("GameEstimator.fit_grid", 11))
+        The lane path (``sweep.runner.sweep_game``): each coordinate update
+        solves all G configs as lanes, unconverged lanes warm-start from
+        their more-regularized neighbour, every lane is scored against
+        ``validation_data``, and the winner is selected by ``metric``
+        (default: the task's ModelSelection metric) under ``policy``. With
+        ``output_dir`` the winner is saved under ``<output_dir>/best``.
+        ``registry_dir`` (publishing to the serving registry, with the
+        reference's ``index_maps``) is refused: ROADMAP.md Queue 1 item 14."""
+        if registry_dir is not None:
+            raise NotImplementedError(NOT_PORTED.format(
+                "publishing a sweep winner to a registry (fit_sweep registry_dir)", 14))
+        from photon_ml_tpu_torch.sweep.runner import sweep_game
+        from photon_ml_tpu_torch.sweep.select import run_selection
+
+        result = sweep_game(self.config, data, grid, num_iterations=num_iterations,
+                            warm_start=warm_start, device=device)
+        selection = run_selection(result, validation_data, metric=metric, policy=policy,
+                                  rel_tol=rel_tol)
+        model = result.model_for(selection.index)
+        if output_dir is not None:
+            from photon_ml_tpu_torch.data.model_store import save_game_model
+
+            save_game_model(model, os.path.join(output_dir, "best"), extra_metadata={
+                "config": _config_metadata(self.config), "sweep_grid": grid.to_json(),
+                "sweep_selection": selection.to_json()})
+        return SweepFitResult(model=model, selection=selection, sweep=result)
+
+    def fit_grid(
+        self,
+        data: GameDataset,
+        validation_data: GameDataset,
+        grid: Mapping[str, Sequence[OptimizerConfig]],
+        mesh=None,
+        device: torch.device | str | None = None,
+    ) -> list[GridFitEntry]:
+        """Sweep the cartesian product of per-coordinate optimizer configs on
+        ``device`` (default cuda).
+
+        The reference trains one coordinate-descent run per combination and
+        returns (config, model, evaluation) triples
+        (GameEstimator.scala:279-398). Datasets are built once; a coordinate
+        whose config a combination does not change is reused (built once per
+        (name, config) within the sweep). Each combination sends a start, its
+        optimization-log and a finish event (the setup event once); the
+        entries come back sorted best-first by the primary evaluator."""
+        if mesh is not None:
+            raise NotImplementedError(NOT_PORTED.format("fit_grid(mesh=...)", 12))
+        dev = resolve_device(device)
+        if data.device.type != dev.type or (dev.index is not None
+                                            and data.device.index != dev.index):
+            raise ValueError(f"the dataset lives on {data.device} but the fit runs on {dev}; "
+                             "build it with the same device")
+        if not self.config.evaluators:
+            raise ValueError("fit_grid needs evaluators to rank combinations")
+        unknown = set(grid) - set(self.config.coordinates)
+        if unknown:
+            raise ValueError(f"grid names unknown coordinates: {sorted(unknown)}")
+        names = list(grid)
+        combos = list(itertools.product(*(grid[n] for n in names)))
+        validation = ValidationSpec(data=validation_data,
+                                    evaluators=list(self.config.evaluators))
+        primary = self.config.evaluators[0]
+        self.events.send(SetupEvent(config=_config_metadata(self.config)))
+        coord_cache: dict = {}
+
+        def coordinates_for(overrides):
+            missing = {n for n in self.config.coordinates
+                       if (n, overrides.get(n)) not in coord_cache}
+            built = self._build_coordinates(data, overrides, only=missing) if missing else {}
+            out = {}
+            for n in self.config.coordinates:
+                key = (n, overrides.get(n))
+                if key not in coord_cache:
+                    coord_cache[key] = built[n]
+                out[n] = coord_cache[key]
+            return out
+
+        entries: list[GridFitEntry] = []
+        for i, combo in enumerate(combos):
+            overrides = dict(zip(names, combo))
+            t = Timer().start()
+            self.events.send(TrainingStartEvent(num_rows=data.num_rows))
+            with telemetry.span("fit", task=self.config.task, combination=i):
+                result = run_coordinate_descent(
+                    coordinates_for(overrides), task=self.config.task,
+                    num_iterations=self.config.num_iterations, validation=validation,
+                    on_step=lambda entry: self.events.send(OptimizationLogEvent(
+                        iteration=entry["iteration"], coordinate=entry["coordinate"],
+                        seconds=entry["seconds"], metrics=entry.get("metrics"))))
+            self.events.send(TrainingFinishEvent(best_metric=result.best_metric,
+                                                 seconds=t.stop(),
+                                                 metrics_snapshot=telemetry.snapshot()))
+            entries.append(GridFitEntry(
+                optimizer_configs=overrides,
+                result=GameFitResult(model=result.model, best_model=result.best_model,
+                                     best_metric=result.best_metric, history=result.history)))
+        return sorted(entries, key=lambda e: e.result.best_metric,
+                      reverse=better_than(primary, 1.0, 0.0))  # True iff maximizing
 
 
 def _config_metadata(config: GameConfig) -> dict:

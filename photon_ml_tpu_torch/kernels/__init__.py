@@ -19,6 +19,12 @@ non-empty (tile, feature) segments of a mirror held in the index's slot
 order. Where ``tiles`` are given on the CPU, the plain versions read the
 mirror through ``column_major``. ``ell_margins`` takes the slot-major ELL
 layout of ``ops/ell.py``.
+
+The lane kernels (``csr_margins_lanes``, ``csc_scatter_lanes``) are the
+margins and the scatter for G vectors over one design (``W [G, F]``,
+``R [G, N]``), the written-out ``vmap`` of a sweep or a bootstrap: one C
+call reads the design once per chunk of lanes, and each lane comes out bit
+for bit as the single-vector kernel gives it for that lane's vector.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ LAUNCHES: dict[str, int] = {
     "hv": 0,
     "hv_at": 0,
     "ell_margins": 0,
+    "csr_margins_lanes": 0,
+    "csc_scatter_lanes": 0,
 }
 
 # the loss codes of csrc/losses.cuh
@@ -439,3 +447,96 @@ def hv_at(
     _raise_on("hv_at", lib, rc)
     LAUNCHES["hv_at"] += 1
     return out, sums[0]
+
+
+def _lane_shift_args(name: str, dev: torch.device, shift: Tensor | float, n_lanes: int):
+    """(device pointer or None, host float) for a per-lane shift, a ``[G]``
+    device tensor, or one host number for every lane."""
+    if isinstance(shift, Tensor):
+        _check(name, dev, shift=shift)
+        if shift.shape != (n_lanes,):
+            raise ValueError(f"{name}: shift must be [{n_lanes}], got {tuple(shift.shape)}")
+        return shift.data_ptr(), 0.0
+    return None, float(shift)
+
+
+def csr_margins_lanes(
+    row_ptr: Tensor,
+    cols: Tensor,
+    vals: Tensor,
+    w: Tensor,
+    offsets: Tensor,
+    shift: Tensor | float,
+    use_offsets: bool,
+) -> Tensor:
+    """Per-row margins of one CSR matrix for each of G vectors ``w [G, F]``:
+    ``Z[g] = X.w[g] + shift[g] (+ offsets[g])`` as ``[G, N]``. ``offsets``
+    is ``[G, N]`` or one ``[N]`` for every lane; ``shift`` is a ``[G]``
+    tensor or one number."""
+    dev = row_ptr.device
+    if w.dim() != 2:
+        raise ValueError(f"csr_margins_lanes: w must be [G, F], got {tuple(w.shape)}")
+    n, n_lanes = row_ptr.numel() - 1, w.shape[0]
+    if use_offsets and offsets.shape not in ((n,), (n_lanes, n)):
+        raise ValueError(f"csr_margins_lanes: offsets must be [{n}] or [{n_lanes}, {n}], "
+                         f"got {tuple(offsets.shape)}")
+    if isinstance(shift, Tensor) and shift.shape != (n_lanes,):
+        raise ValueError(f"csr_margins_lanes: shift must be [{n_lanes}], got "
+                         f"{tuple(shift.shape)}")
+    if not _on_cuda("csr_margins_lanes", dev):
+        return reference.csr_margins_lanes(row_ptr, cols, vals, w, offsets, shift, use_offsets)
+    _check("csr_margins_lanes", dev, row_ptr=row_ptr, cols=cols, vals=vals, w=w,
+           offsets=offsets)
+    if cols.numel() != vals.numel():
+        raise ValueError("csr_margins_lanes: inconsistent shapes")
+    shift_ptr, shift_host = _lane_shift_args("csr_margins_lanes", dev, shift, n_lanes)
+    lib = load_library()
+    out = torch.empty((n_lanes, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.photon_csr_margins_lanes(
+            row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
+            offsets.data_ptr() if use_offsets else None, int(offsets.dim() == 2),
+            shift_ptr, shift_host, out.data_ptr(), n, w.shape[1], n_lanes, _stream(dev),
+        )
+    _raise_on("csr_margins_lanes", lib, rc)
+    LAUNCHES["csr_margins_lanes"] += 1
+    return out
+
+
+def csc_scatter_lanes(
+    col_ptr: Tensor,
+    rows: Tensor,
+    vals: Tensor,
+    per_row: Tensor,
+    square: bool,
+    tiles: ScatterTiles | None = None,
+) -> Tensor:
+    """Feature-space scatter of each of G per-row vectors ``per_row [G, N]``:
+    ``Out[g] = sum_i per_row[g, i] * x_i`` (x_i**2 with ``square``) as
+    ``[G, F]``; on a CUDA device ``tiles`` is the batch's tile index."""
+    dev = col_ptr.device
+    if per_row.dim() != 2:
+        raise ValueError(f"csc_scatter_lanes: per_row must be [G, N], got "
+                         f"{tuple(per_row.shape)}")
+    if not _on_cuda("csc_scatter_lanes", dev):
+        return reference.csc_scatter_lanes(*column_major((col_ptr, rows, vals), tiles),
+                                           per_row, square)
+    n_features = col_ptr.numel() - 1
+    _check("csc_scatter_lanes", dev, col_ptr=col_ptr, rows=rows, vals=vals, per_row=per_row)
+    if rows.numel() != vals.numel():
+        raise ValueError("csc_scatter_lanes: inconsistent shapes")
+    n_lanes, n = per_row.shape
+    (index, n_slots, n_pieces, width, tile_rows, piece_len), _ = _scatter_args(
+        "csc_scatter_lanes", dev, tiles, n, n_features)
+    lib = load_library()
+    part = torch.empty((n_lanes, tiles.n_parts), dtype=torch.float32, device=dev)
+    out = torch.empty((n_lanes, n_features), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.photon_csc_scatter_lanes(
+            rows.data_ptr(), vals.data_ptr(), index, n_slots, n_pieces, width, tile_rows,
+            piece_len, tiles.n_parts, per_row.data_ptr(), out.data_ptr(), part.data_ptr(), n,
+            n_features, n_lanes, int(square), _stream(dev),
+        )
+    _raise_on("csc_scatter_lanes", lib, rc)
+    LAUNCHES["csc_scatter_lanes"] += 1
+    return out

@@ -128,6 +128,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.photon_hv_at.restype = i
     lib.photon_ell_margins.argtypes = [p, p, p, p, p, f, p, i, i, i, i, p]
     lib.photon_ell_margins.restype = i
+    # (row_ptr, cols, vals, w, offsets, offsets_per_lane, shift_dev,
+    # shift_host, out, n_rows, n_features, n_lanes, stream)
+    lib.photon_csr_margins_lanes.argtypes = [p, p, p, p, p, i, p, f, p, i, i, i, p]
+    lib.photon_csr_margins_lanes.restype = i
+    # (rows, vals, tile_index, n_slots, n_pieces, finish_width, tile_rows,
+    # piece_len, n_parts, per_row, out, part, n_rows, n_features, n_lanes,
+    # square, stream)
+    lib.photon_csc_scatter_lanes.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, i, i, i, i, p]
+    lib.photon_csc_scatter_lanes.restype = i
     lib.photon_cuda_error_string.argtypes = [i]
     lib.photon_cuda_error_string.restype = ctypes.c_char_p
 

@@ -148,3 +148,38 @@ def hv_at(
     """(sum_i q_i*x_i, sum q) with q = d2*(X.v + v_shift)."""
     q = d2 * csr_margins(*csr, v, None, v_shift, False)
     return csc_scatter(*csc, q, False), torch.sum(q)
+
+
+def _lane(x, g: int):
+    """Lane ``g`` of a per-lane argument: row g of a [G, ...] tensor, element
+    g of a [G] shift; anything else is shared by every lane."""
+    if isinstance(x, Tensor) and x.dim() >= 1:
+        return x[g]
+    return x
+
+
+def csr_margins_lanes(
+    row_ptr: Tensor,
+    cols: Tensor,
+    vals: Tensor,
+    w: Tensor,
+    offsets: Tensor,
+    shift: Tensor | float,
+    use_offsets: bool,
+) -> Tensor:
+    """Z[g] = ``csr_margins`` with w[g], shift[g] and offsets[g] (or the
+    shared offsets), lane by lane: ``[G, N]``."""
+    per_lane = use_offsets and offsets.dim() == 2
+    return torch.stack([
+        csr_margins(row_ptr, cols, vals, w[g], offsets[g] if per_lane else offsets,
+                    _lane(shift, g), use_offsets)
+        for g in range(w.shape[0])
+    ])
+
+
+def csc_scatter_lanes(
+    col_ptr: Tensor, rows: Tensor, vals: Tensor, per_row: Tensor, square: bool
+) -> Tensor:
+    """Out[g] = ``csc_scatter`` of per_row[g], lane by lane: ``[G, F]``."""
+    return torch.stack([csc_scatter(col_ptr, rows, vals, per_row[g], square)
+                        for g in range(per_row.shape[0])])

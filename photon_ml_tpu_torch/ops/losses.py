@@ -2,6 +2,12 @@
 
 Counterpart of ``photon_ml_tpu/ops/losses.py``. Labels with y > 0.5 count as
 positive, so both {0, 1} and {-1, 1} labels work.
+
+``get_loss(name, lane_exact=True)`` gives the same losses with exp, sigmoid
+and softplus evaluated element by element alike on the CPU (``_pointwise``):
+the lanes of a design shared by a sweep or a bootstrap
+(``ops/shared_design.py``) take them, so that a lane's result does not
+depend on the other lanes of its batch.
 """
 
 from __future__ import annotations
@@ -146,9 +152,42 @@ _TASK_ALIASES = {
 }
 
 
-def get_loss(name: str) -> PointwiseLoss:
+def _pointwise(fn, x: Tensor) -> Tensor:
+    """``fn(x)`` for exp, sigmoid or softplus. On the CPU, PyTorch evaluates
+    these with SIMD code on whole vectors and with scalar code on the rest of
+    a contiguous run, and the two differ in the last bit, so an element's
+    result would depend on where it falls in its tensor; the input is read
+    here through a stride-2 copy, which takes the scalar loop for every
+    element. On the card every element runs the same code."""
+    if x.device.type != "cpu":
+        return fn(x)
+    spaced = torch.empty(2 * x.numel(), dtype=x.dtype)[::2]
+    spaced.copy_(x.reshape(-1))
+    return fn(spaced).reshape(x.shape)
+
+
+def _exact_logistic_d2z(z: Tensor, y: Tensor) -> Tensor:
+    s = _pointwise(torch.sigmoid, z)
+    return s * (1.0 - s)
+
+
+_LANE_EXACT: dict[str, PointwiseLoss] = {
+    "logistic": PointwiseLoss(
+        "logistic", lambda z, y: _pointwise(F.softplus, z) - _y01(y) * z,
+        lambda z, y: _pointwise(torch.sigmoid, z) - _y01(y), _exact_logistic_d2z),
+    "poisson": PointwiseLoss(
+        "poisson", lambda z, y: _pointwise(torch.exp, z) - y * z,
+        lambda z, y: _pointwise(torch.exp, z) - y, lambda z, y: _pointwise(torch.exp, z)),
+    "squared": SquaredLoss,
+    "smoothed_hinge": SmoothedHingeLoss,
+}
+
+
+def get_loss(name: str, lane_exact: bool = False) -> PointwiseLoss:
+    """The loss of ``name`` (or a task alias); with ``lane_exact``, its
+    position-independent form (module docstring)."""
     key = name.lower()
     key = _TASK_ALIASES.get(key, key)
     if key not in LOSSES:
         raise ValueError(f"Unknown loss '{name}'. Available: {sorted(LOSSES)}")
-    return LOSSES[key]
+    return _LANE_EXACT[key] if lane_exact else LOSSES[key]

@@ -6,8 +6,9 @@ Counterpart of ``glm_adapter`` in ``photon_ml_tpu/optim/adapter.py``
 u = X'p computed once per line search, so each Wolfe trial is O(n)
 elementwise work on the carried margins instead of a pass over the nonzeros.
 Over a bucket of per-entity problems (a ``DenseBatch``, or the
-``BlockDiagonalBatch`` of a COO bucket) the adapter is batched
-(``lane_adapter``): every field works on ``[E, K]`` coefficients, one lane
+``BlockDiagonalBatch`` of a COO bucket), or lanes over a shared design
+(``ops/shared_design.py``: a sweep's or a bootstrap's), the adapter is
+batched (``lane_adapter``): every field works on ``[E, K]`` coefficients, one lane
 per entity, as ``vmap`` gives the reference; it adds the explicit Hessians,
 and its oracle evaluates a vector of step sizes for every entity at once
 (what ``vmap`` over the step sizes gives the reference's Newton,
@@ -26,6 +27,7 @@ import torch
 from photon_ml_tpu_torch.ops.block_diagonal import BlockDiagonalBatch
 from photon_ml_tpu_torch.ops.dense import DenseBatch, per_entity
 from photon_ml_tpu_torch.ops.objective import GLMObjective, sqnorm
+from photon_ml_tpu_torch.ops.shared_design import BlockDiagonalLanes, DenseLanes, SharedDesign
 from photon_ml_tpu_torch.optim.common import Objective
 
 Tensor = torch.Tensor
@@ -41,9 +43,12 @@ class _LSCarry(NamedTuple):
     pp: Tensor
 
 
+_LANE_BATCHES = (DenseBatch, BlockDiagonalBatch, SharedDesign, DenseLanes, BlockDiagonalLanes)
+
+
 def glm_adapter(obj: GLMObjective, batch) -> Objective:
     """Build the optimizer-facing adapter for a GLM objective over a batch."""
-    if isinstance(batch, (DenseBatch, BlockDiagonalBatch)):
+    if isinstance(batch, _LANE_BATCHES):
         return lane_adapter(obj, batch)
     loss = obj.loss
     l2 = obj.l2_weight
@@ -122,9 +127,11 @@ def lane_adapter(obj: GLMObjective, batch) -> Objective:
     values ``[E]``, gradients, Hv and Hessian diagonals ``[E, K]``, margins
     ``[E, R]``, and each lane's sums over its own rows. It carries the
     margin protocol and the second-order fields per lane, and the explicit
-    ``[E, K, K]`` Hessians from the bucket's dense designs."""
-    loss = obj.loss
-    l2 = obj.l2_weight
+    ``[E, K, K]`` Hessians from the bucket's dense designs (none over a
+    shared CSR design, which NEWTON refuses). A per-lane L2 weight (``[E]``)
+    enters the line search as ``[E, 1]``."""
+    loss = obj.loss_for(batch)
+    l2 = obj._l2_col
 
     def value_and_grad(w):
         return obj.value_and_grad(w, batch)
@@ -182,8 +189,9 @@ def lane_adapter(obj: GLMObjective, batch) -> Objective:
         def hvp_at(d2, v):
             return obj.hessian_vector_with_curvature(d2, v, batch)
 
-        def hessian(w):
-            return obj.dense_hessian(w, batch)
+        if not isinstance(batch, SharedDesign):
+            def hessian(w):
+                return obj.dense_hessian(w, batch)
 
     return Objective(
         value_and_grad=value_and_grad,

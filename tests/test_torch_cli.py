@@ -20,7 +20,16 @@ end-to-end and index tests, on its 240-row ``avro_dataset``), on the CPU:
 - ``python -m photon_ml_tpu_torch.cli train --device cpu`` runs in a
   subprocess, with a config-loaded event listener, and a SIGTERM in the
   middle of its fit leaves a checkpoint, an ``interrupted`` summary and exit
-  code 75.
+  code 75;
+- ``cli train`` with a ``sweep`` key (and ``--sweep``) against the JAX
+  driver's sweep: the same lambdas per config, the same selected config, the
+  per-config validation metrics within 1e-3 (the fits agree at FIT_TOL), the
+  winner saved under ``best/`` with its index maps; ``cli sweep`` selects as
+  an in-process ``fit_sweep`` on the same datasets does; a sweep refuses a
+  checkpoint and a missing validation input as the reference does;
+- ``cli glm`` with ``"diagnostics": true`` ends DIAGNOSED, writes both report
+  files with the fitting curves and the bootstrap chapter, and its VALIDATED
+  results are bit for bit those of the run without diagnostics.
 """
 
 import json
@@ -234,7 +243,9 @@ def test_index_job_writes_equal_maps(avro_dataset, tmp_path, capsys):
 
 
 REFUSED_KEYS = [
-    ({"sweep": {"grid": ["lambda=1,2"]}}, 11),
+    # the sweep is ported; publishing its winner to a registry is item 14
+    pytest.param({"sweep": {"grid": ["lambda=1,2"], "registry_dir": "r"}}, 14,
+                 id='{"sweep": {"grid": ["lambda=1,-11'),
     ({"warm_start": {"dir": "x"}}, 14),
     ({"input": {"ingest": {"workers": 2}}}, 13),
     ({"mesh": True}, 12),
@@ -257,8 +268,16 @@ def test_train_refuses_unported_keys(avro_dataset, extra, item):
         t_train.run(config, device="cpu")
 
 
-REFUSED_FLAGS = [(["--sweep", "lambda=1,2"], 11), (["--sweep-metric", "auc"], 11),
-                 (["--sweep-policy", "best"], 11), (["--sweep-registry-dir", "r"], 11),
+REFUSED_FLAGS = [
+    # the sweep flags are ported; a sweep with a mesh stays refused (item 12)
+    # and its registry (item 14)
+    pytest.param(["--sweep", "lambda=1,2", "--mesh", "auto"], 12,
+                 id="['--sweep', 'lambda=1,2']-11"),
+    pytest.param(["--sweep-metric", "auc", "--mesh", "auto"], 12,
+                 id="['--sweep-metric', 'auc']-11"),
+    pytest.param(["--sweep-policy", "best", "--mesh", "auto"], 12,
+                 id="['--sweep-policy', 'best']-11"),
+    pytest.param(["--sweep-registry-dir", "r"], 14, id="['--sweep-registry-dir', 'r']-11"),
                  (["--warm-start", "d"], 14), (["--delta", "d.avro"], 14),
                  (["--refresh-registry-dir", "r"], 14), (["--lambda-points", "3"], 14),
                  (["--ingest-workers", "2"], 13), (["--prefetch-depth", "2"], 13),
@@ -361,10 +380,14 @@ def test_sigterm_mid_fit_leaves_a_checkpoint_and_an_interrupted_summary(avro_dat
 
 
 @pytest.mark.parametrize("cmd,item", [("refresh", 14), ("pipeline", 14), ("serve", 14),
-                                      ("report", 14), ("profile", 14), ("sweep", 11)])
+                                      ("report", 14), ("profile", 14),
+                                      # the sweep subcommand is ported; its registry
+                                      # flag is item 14
+                                      pytest.param("sweep", 14, id="sweep-11")])
 def test_unported_subcommands_raise(cmd, item):
+    extra = ["--registry-dir", "r"] if cmd == "sweep" else []
     with pytest.raises(NotImplementedError, match=rf"'{cmd}'.*item {item}\)"):
-        t_cli.main([cmd, "--config", "x.json"])
+        t_cli.main([cmd, "--config", "x.json", *extra])
 
 
 def test_dispatcher_usage_and_unknown_command(capsys):
@@ -410,3 +433,116 @@ def test_train_in_a_subprocess_with_an_event_listener(avro_dataset):
     assert {"TrainingStartEvent", "OptimizationLogEvent"} <= set(log)
     model = TM.load_game_model(str(tmp / "sub_model" / "final"), device="cpu")
     assert torch.isfinite(model.models["fixed"].coefficients).all()
+
+
+# -- sweeps --------------------------------------------------------------------
+
+
+def _sweep_config(avro_dataset, out, grid="lambda=0.1,1,10"):
+    _, train_path, score_path = avro_dataset
+    return {**_config(train_path, out), "validation": {"paths": [score_path]},
+            "evaluators": ["auc"], "sweep": {"grid": grid, "warm_start": False}}
+
+
+def test_train_sweep_matches_the_jax_driver(avro_dataset, tmp_path):
+    cfg_t = _sweep_config(avro_dataset, str(tmp_path / "t"))
+    cfg_j = _sweep_config(avro_dataset, str(tmp_path / "j"))
+    got = t_train.run(cfg_t, device="cpu")
+    ref = j_train.run(cfg_j)
+    sg, sr = got["sweep"], ref["sweep"]
+    assert [c["lambdas"] for c in sg["configs"]] == [c["lambdas"] for c in sr["configs"]]
+    assert sg["selected_index"] == sr["selected_index"] and sg["metric"] == sr["metric"] == "auc"
+    np.testing.assert_allclose([c["metric"] for c in sg["configs"]],
+                               [c["metric"] for c in sr["configs"]], atol=1e-3)
+    assert got["best_metric"] == sg["selected_metric"]
+    best = os.path.join(str(tmp_path / "t"), "best")
+    assert os.path.isdir(os.path.join(best, "feature-indexes", "global"))
+    port_model = TM.load_game_model(best, device="cpu")
+    jax_model = JM.load_game_model(os.path.join(str(tmp_path / "j"), "best"))
+    np.testing.assert_allclose(port_model.models["fixed"].coefficients.numpy(),
+                               np.asarray(jax_model.models["fixed"].coefficients), **FIT_TOL)
+    json.dumps(got)
+
+
+def test_sweep_subcommand_selects_as_fit_sweep(avro_dataset, tmp_path, capsys):
+    """cli sweep (the grid by flag) against an in-process fit_sweep on the
+    datasets the driver reads."""
+    from photon_ml_tpu_torch.config import parse_game_config
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.sweep import parse_sweep_spec
+
+    cfg = _sweep_config(avro_dataset, str(tmp_path / "o"))
+    del cfg["sweep"]
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(cfg))
+    assert t_cli.main(["sweep", "--config", str(path), "--sweep", "lambda=0.01:10:log4",
+                       "--device", "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["sweep"]
+    train, maps = t_train.read_input(cfg["input"], device="cpu")
+    val, _ = t_train.read_input({**cfg["input"], **cfg["validation"]}, index_maps=maps,
+                                device="cpu")
+    fit = GameEstimator(parse_game_config(cfg)).fit_sweep(
+        train, val, parse_sweep_spec("lambda=0.01:10:log4"), device="cpu")
+    assert summary["selected_index"] == fit.selection.index
+    assert summary["selected_metric"] == fit.selection.best_value
+    assert len(summary["configs"]) == 4 and summary["policy"] == "best"
+
+
+def test_train_sweep_flags(avro_dataset, tmp_path, capsys):
+    cfg = _sweep_config(avro_dataset, str(tmp_path / "o"))
+    del cfg["sweep"]
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(cfg))
+    assert t_train.main(["--config", str(path), "--sweep", "lambda=0.1,1", "--sweep-policy",
+                         "parsimonious", "--sweep-metric", "auc", "--device", "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["sweep"]["policy"] == "parsimonious"
+    assert [c["lambdas"]["fixed"] for c in summary["sweep"]["configs"]] == [1.0, 0.1]
+    assert os.path.exists(tmp_path / "o" / "best" / "model-metadata.json")
+
+
+def test_sweep_refusals_of_the_reference(avro_dataset, tmp_path):
+    from photon_ml_tpu_torch.sweep import SweepSpecError
+
+    cfg = _sweep_config(avro_dataset, None)
+    with pytest.raises(ValueError, match="checkpointing is not supported with a sweep"):
+        t_train.run({**cfg, "checkpoint": {"dir": str(tmp_path / "ck")}}, device="cpu")
+    with pytest.raises(ValueError, match="needs a validation split"):
+        t_train.run({k: v for k, v in cfg.items() if k != "validation"}, device="cpu")
+    with pytest.raises(ValueError, match="unknown sweep config keys"):
+        t_train.run({**cfg, "sweep": {"grid": "lambda=1", "nope": 1}}, device="cpu")
+    with pytest.raises(SweepSpecError, match="inverted range"):
+        t_train.run({**cfg, "sweep": "lambda=10:1:log3"}, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"mesh.*item 12\)"):
+        t_train.run({**cfg, "mesh": {"batch": 2}}, device="cpu")
+
+
+def test_glm_diagnostics_stage(tmp_path):
+    from photon_ml_tpu.testing import write_libsvm
+
+    from photon_ml_tpu_torch.cli.glm import GLMDriver
+
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=6)
+
+    def write(name, n):
+        X = (rng.random((n, 6)) < 0.6) * rng.normal(size=(n, 6))
+        return write_libsvm(str(tmp_path / name), X, np.sign(X @ w + 0.2 * rng.normal(size=n)))
+
+    train, val = write("t.libsvm", 300), write("v.libsvm", 120)
+    cfg = {"task": "logistic", "input": {"format": "libsvm", "paths": [train]},
+           "validation": {"paths": [val]}, "optimizer": {"regularization": "l2"},
+           "lambdas": [10.0, 1.0]}
+    plain = GLMDriver(cfg, device="cpu").run()
+    out = str(tmp_path / "out")
+    diag = GLMDriver({**cfg, "diagnostics": True, "bootstrap_samples": 4, "output_dir": out},
+                     device="cpu").run()
+    assert diag["stages"] == ["INIT", "PREPROCESSED", "TRAINED", "VALIDATED", "DIAGNOSED"]
+    # the same numbers bit for bit (json: a NaN metric equals itself)
+    assert json.dumps([diag["best_lambda"], diag["best_metric"], diag["metrics"]]) == \
+        json.dumps([plain["best_lambda"], plain["best_metric"], plain["metrics"]])
+    text = open(diag["report"]["text"]).read()
+    for title in ("Model diagnostics", "Hosmer-Lemeshow", "Fitting curves",
+                  "Bootstrap confidence intervals", "# samples = [4]"):
+        assert title in text
+    assert open(diag["report"]["html"]).read().startswith("<!DOCTYPE html>")

@@ -3,8 +3,8 @@ package's, on the CPU: random-effect buckets array for array, a
 ``GameEstimator.fit`` of a fixed effect (LBFGS) plus a per-user random effect
 (batched NEWTON) over two coordinate-descent iterations, GAME models carried
 across by ``convert.game_model_from_jax`` and scored on rows of passive and
-unseen entities, and every ``NotImplementedError`` branch left (a mesh and
-the estimator's incremental and sweep fits; the random projector, a
+unseen entities, and every ``NotImplementedError`` branch left (a mesh, the
+estimator's incremental fit and a sweep's registry; the random projector, a
 factored coordinate, the checkpoint and the stop now fit).
 
 Tolerances: buckets exact (the same numpy build); carried-over scores
@@ -297,17 +297,21 @@ def test_random_effect_branches_not_ported_raise(data, monkeypatch):
 
 
 def test_estimator_and_descent_branches_not_ported_raise(data, tmp_path):
-    """A mesh (ROADMAP item 12), fit_incremental, fit_sweep and fit_grid
-    still raise; the checkpoint and the stop (item 10) work, and so does a
-    factored coordinate and the random projector under NEWTON."""
+    """A mesh (ROADMAP item 12, in fit_grid too), fit_incremental and
+    fit_sweep's registry (item 14) still raise; the checkpoint and the stop
+    (item 10) work, and so does a factored coordinate and the random
+    projector under NEWTON."""
     _, tds = data
     _, tcfg = _configs()
     est = GameEstimator(tcfg)
     with pytest.raises(NotImplementedError, match="a mesh.*item 12"):
         est.fit(tds, device="cpu", mesh=object())
-    for method in (est.fit_incremental, est.fit_sweep, est.fit_grid):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            method(tds)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        est.fit_grid(tds, tds, {}, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        est.fit_incremental(tds)
+    with pytest.raises(NotImplementedError, match="registry.*item 14"):
+        est.fit_sweep(tds, tds, None, registry_dir=str(tmp_path / "r"), device="cpu")
     with pytest.raises(TrainingInterrupted) as ei:
         est.fit(tds, device="cpu", should_stop=lambda: True)
     assert (ei.value.step, ei.value.checkpoint_path) == (0, None)

@@ -133,7 +133,9 @@ def test_validation_feature_space_pinned_to_training(tmp_path):
     assert summary["best_lambda"] == JGLMDriver(cfg).run()["best_lambda"]
 
 
-@pytest.mark.parametrize("extra,item", [({"diagnostics": True}, 11),
+@pytest.mark.parametrize("extra,item", [
+    # the diagnostics stage is ported; with a trace key the run is refused (14)
+    pytest.param({"diagnostics": True, "trace_out": "t.jsonl"}, 14, id="extra0-11"),
                                         ({"trace_out": "t.jsonl"}, 14),
                                         ({"telemetry_out": "t.jsonl"}, 14)])
 def test_unported_stages_and_keys_are_refused(libsvm_files, extra, item):

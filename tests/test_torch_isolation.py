@@ -107,6 +107,8 @@ def test_train_glm_without_device_raises_without_a_gpu():
 
 def test_source_walk_covers_the_new_subpackages():
     rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    rel |= {os.path.relpath(os.path.join(root, f), PKG)
+            for root, _dirs, files in os.walk(os.path.join(PKG, "csrc")) for f in files}
     for module in ("game/dataset.py", "game/random_effect_data.py", "game/coordinates.py",
                    "game/coordinate_descent.py", "game/estimator.py", "game/models.py",
                    "tools/probe_ell.py", "ops/ell.py", "ops/dense.py", "optim/newton.py",
@@ -117,7 +119,12 @@ def test_source_walk_covers_the_new_subpackages():
                    "data/avro.py", "data/avro_native.py", "diagnostics/evaluation.py",
                    "optim/guard.py", "cli/__main__.py", "cli/train.py", "cli/score.py",
                    "cli/index.py", "cli/glm.py", "optim/trackers.py", "data/projection.py",
-                   "game/factored.py", "game/checkpoint.py"):
+                   "game/factored.py", "game/checkpoint.py", "ops/shared_design.py",
+                   "sweep/grid.py", "sweep/runner.py", "sweep/select.py", "cli/sweep.py",
+                   "diagnostics/bootstrap.py", "diagnostics/fitting.py", "diagnostics/hl.py",
+                   "diagnostics/independence.py", "diagnostics/feature_importance.py",
+                   "diagnostics/model_diagnostic.py", "diagnostics/reporting.py",
+                   "csrc/margins_lanes.cu", "csrc/scatter_lanes.cu"):
         assert module in rel
 
 
@@ -209,7 +216,53 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
         assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("command", ["train", "score", "glm"])
+@pytest.mark.parametrize("entry", ["sweep_glm", "sweep_game", "fit_sweep", "fit_grid",
+                                   "bootstrap_train", "bootstrap_random_effect",
+                                   "fitting_diagnostic"])
+def test_sweep_and_diagnostic_entry_points_raise_without_a_gpu(entry):
+    """The sweeps and the diagnostics run on cuda unless asked for the CPU:
+    without a card and without ``device="cpu"`` they raise before any work."""
+    _no_gpu()
+    from photon_ml_tpu_torch.diagnostics.bootstrap import (
+        bootstrap_random_effect,
+        bootstrap_train,
+    )
+    from photon_ml_tpu_torch.diagnostics.fitting import fitting_diagnostic
+    from photon_ml_tpu_torch.game import (
+        FeatureShard,
+        FixedEffectConfig,
+        GameConfig,
+        GameEstimator,
+        build_game_dataset,
+    )
+    from photon_ml_tpu_torch.ops.csr import CSRBatch
+    from photon_ml_tpu_torch.ops.dense import DenseBatch
+    from photon_ml_tpu_torch.optim.factory import OptimizerConfig
+    from photon_ml_tpu_torch.sweep import SweepGrid, sweep_game, sweep_glm
+
+    coo = _tiny_coo()
+    batch = CSRBatch.from_coo(**coo, device="cpu")
+    cfg = GameConfig(task="logistic", evaluators=["auc"],
+                     coordinates={"fe": FixedEffectConfig(shard_name="g")})
+    data = build_game_dataset(coo["labels"], {"g": FeatureShard.from_coo(
+        coo["values"], coo["rows"], coo["cols"], 2)}, device="cpu")
+    opt = OptimizerConfig(max_iterations=2)
+    calls = {
+        "sweep_glm": lambda: sweep_glm(batch, "logistic", [1.0], opt),
+        "sweep_game": lambda: sweep_game(cfg, data, SweepGrid(default=(1.0,))),
+        "fit_sweep": lambda: GameEstimator(cfg).fit_sweep(data, data, SweepGrid(default=(1.0,))),
+        "fit_grid": lambda: GameEstimator(cfg).fit_grid(data, data, {"fe": [opt]}),
+        "bootstrap_train": lambda: bootstrap_train(batch, "logistic", opt, num_samples=2),
+        "bootstrap_random_effect": lambda: bootstrap_random_effect(
+            DenseBatch.from_arrays(np.zeros((1, 2, 2)), np.zeros((1, 2)), device="cpu"),
+            "logistic", opt, np.zeros((1, 2)), num_samples=2),
+        "fitting_diagnostic": lambda: fitting_diagnostic(batch, "logistic", opt),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("command", ["train", "score", "glm", "sweep"])
 def test_cli_without_device_raises_without_a_gpu(command, tmp_path):
     """The drivers' ``--device`` defaults to cuda: without a card and without
     ``--device cpu`` they raise the no-CUDA error before any work."""
@@ -230,10 +283,13 @@ def test_cli_without_device_raises_without_a_gpu(command, tmp_path):
                   "coordinates": {"f": {"shard_name": "features"}}},
         "score": {"input": inp},
         "glm": {"task": "logistic", "input": {"format": "libsvm", "paths": [str(libsvm)]}},
+        "sweep": {"task": "logistic", "input": inp, "validation": {"paths": [avro]},
+                  "evaluators": ["auc"], "coordinates": {"f": {"shard_name": "features"}},
+                  "sweep": "lambda=1,2"},
     }
     cfg = tmp_path / "c.json"
     cfg.write_text(json.dumps(configs[command]))
-    args = {"train": [], "glm": [],
+    args = {"train": [], "glm": [], "sweep": [],
             "score": ["--model-dir", str(tmp_path / "m"), "--allow-index-rebuild"]}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main([command, "--config", str(cfg), *args[command]])

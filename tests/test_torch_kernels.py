@@ -166,7 +166,8 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
                         want if isinstance(want, tuple) else (want,)):
             assert torch.equal(g, e)
     assert kernels.LAUNCHES == {k: 0 for k in ("csr_margins", "csc_scatter", "margins_pair",
-                                                "value_grad", "hv", "hv_at", "ell_margins")}
+                                                "value_grad", "hv", "hv_at", "ell_margins",
+                                                "csr_margins_lanes", "csc_scatter_lanes")}
 
 
 def test_wrappers_refuse_other_devices():
@@ -459,8 +460,8 @@ def test_compare_outputs_tool_saves_and_compares(tmp_path, capsys):
 
 def test_build_sources_and_directory():
     names = [os.path.basename(p) for p in build.sources()]
-    assert names == ["ell_margins.cu", "hessian_vector.cu", "margins.cu", "margins_pair.cu",
-                     "scatter.cu", "value_grad.cu"]
+    assert names == ["ell_margins.cu", "hessian_vector.cu", "margins.cu", "margins_lanes.cu",
+                     "margins_pair.cu", "scatter.cu", "scatter_lanes.cu", "value_grad.cu"]
     assert [os.path.basename(p) for p in build.headers()] == [
         "losses.cuh", "rowpass.cuh", "segments.cuh", "tile_fused.cuh", "tiles.cuh"]
     assert build.BUILD_DIR == os.path.join(REPO, "build", "kernels")
