@@ -1164,7 +1164,9 @@ def check_coo_bucket_kernels(block, w) -> dict:
     block-diagonal batch): ``csr_margins``, ``csc_scatter`` (plain and
     square) and ``hv_at``, each against its plain version and a second
     launch; ``csr_margins`` and ``csc_scatter`` timed against ``torch.mv`` of
-    the same CSR and transposed CSR, beside their bounds."""
+    the same CSR and transposed CSR, beside their bounds; then the lane
+    kernels' four variants at G = SWEEP_LANES as ``fit_sweep`` launches them
+    there (``run_lane_variants``), timed against ``torch.sparse.mm``."""
     import torch
 
     from photon_ml_tpu_torch import kernels
@@ -1206,15 +1208,46 @@ def check_coo_bucket_kernels(block, w) -> dict:
         library_ms=library_ms(lambda: torch.sparse_csr_tensor(*plain, size=(f, n),
                                                               check_invariants=False),
                               lambda m: torch.mv(m, per_row)))
+    # the lane kernels at G = SWEEP_LANES over the same batch, as
+    # BlockDiagonalLanes launches them in fit_sweep: W [G, E*K] (too wide to
+    # stage: the margins' L2 regime), R [G, E*R]
+    G = SWEEP_LANES
+    W = torch.randn(G, f, generator=gen, device="cuda") * 0.1
+    W[0] = w
+    R = torch.randn(G, n, generator=gen, device="cuda")
+    off = torch.randn(G, n, generator=gen, device="cuda") * 0.1
+    sh = torch.randn(G, generator=gen, device="cuda")
+    res = run_lane_variants(lane_cases(c._csr, c._csc, c.tiles, plain, c.offsets, W, R, off,
+                                       sh), G, f"coo G={G}")
+    t_w, t_r = W.t().contiguous(), R.t().contiguous()
+    libs = {
+        "csr_margins_lanes": library_ms(lambda: torch.sparse_csr_tensor(
+            *c._csr, size=(n, f), check_invariants=False), lambda m: torch.sparse.mm(m, t_w)),
+        "csc_scatter_lanes": library_ms(lambda: torch.sparse_csr_tensor(
+            *plain, size=(f, n), check_invariants=False), lambda m: torch.sparse.mm(m, t_r)),
+    }
+    for name, (nbytes, floor_bytes) in lane_design_bytes(n, f, nnz, G, c.tiles).items():
+        worst, timed, singles_ms = res[name]
+        first = next(iter(timed))
+        out[name] = {"lanes": G, "max_abs_err": worst, "ms": timed[first][0],
+                     "plain_ms": timed[first][1], "variants_ms": {k: v[0] for k, v in timed.items()},
+                     "singles_ms": singles_ms, "library_ms": libs[name],
+                     "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
+                                     2 * nnz * G / PEAK_F32_FLOPS) * 1e3,
+                     "design_floor_ms": floor_bytes / PEAK_BYTES_PER_S * 1e3}
+    del W, R, off, t_w, t_r
     t = c.tiles
     out["shape"] = {"entities": block.num_entities, "rows": n, "columns": f, "nnz": nnz,
                     "tile_slots": t.n_slots, "tile_pieces": t.n_pieces,
                     "index_bytes": 4 * t.index.numel(), "nnz_per_segment": nnz / t.n_slots}
-    for name in ("csr_margins", "csc_scatter"):
+    for name in ("csr_margins", "csc_scatter", "csr_margins_lanes", "csc_scatter_lanes"):
         r = out[name]
+        lanes = (f" lanes={G} singles_ms={r['singles_ms']:.4f} "
+                 f"design_floor_ms={r['design_floor_ms']:.4f}") if "lanes" in r else ""
         print(f"path 9 largest coo bucket {name}: kernel_ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
-              f"bound_ms={r['bound_ms']:.4f} shape={json.dumps(out['shape'])}", flush=True)
+              f"bound_ms={r['bound_ms']:.4f}{lanes} shape={json.dumps(out['shape'])}",
+              flush=True)
     return out
 
 
@@ -2323,79 +2356,129 @@ def run_probe_path(seed: int) -> tuple[dict, dict]:
     return launches, res
 
 
-def check_lane_kernels(batch, w) -> list[dict]:
-    """Phase 3, the lane kernels at config #1 with G = SWEEP_LANES vectors:
-    each variant against its plain version and against a second launch, and
-    every lane against the single-vector kernel on that lane's vector, bit
-    for bit; timed beside G launches of the single kernel and the library's
-    sparse product."""
-    import torch
-
+def lane_cases(csr, csc, tiles, plain_csc, shared_off, W, R, off, shift):
+    """The lane kernels' four variants over one design: (name, label, lanes,
+    plain, single) each, ``single(g)`` the single-vector kernel on lane g;
+    ``shared_off`` is the ``[N]`` offsets that ``dot_rows`` does not add."""
     from photon_ml_tpu_torch import kernels
     from photon_ml_tpu_torch.kernels import reference
 
-    n, f, nnz, G = batch.num_rows, batch.num_features, batch.nnz, SWEEP_LANES
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    W = torch.randn(G, f, generator=gen, device="cuda") * 0.1
-    W[0] = w
-    R = torch.randn(G, n, generator=gen, device="cuda")
-    off = torch.randn(G, n, generator=gen, device="cuda") * 0.1
-    shift = torch.randn(G, generator=gen, device="cuda")
-    csr, csc, tiles = batch._csr, batch._csc, batch.tiles
-    plain_csc = batch.column_major()
-
     def margins(label, off_g, sh, use):
         per_lane = off_g.dim() == 2
-        return (label, lambda: kernels.csr_margins_lanes(*csr, W, off_g, sh, use),
+        return ("csr_margins_lanes", label,
+                lambda: kernels.csr_margins_lanes(*csr, W, off_g, sh, use),
                 lambda: reference.csr_margins_lanes(*csr, W, off_g, sh, use),
                 lambda g: kernels.csr_margins(*csr, W[g], off_g[g] if per_lane else off_g,
-                                              sh[g:g + 1] if isinstance(sh, torch.Tensor)
+                                              sh[g:g + 1] if not isinstance(sh, float)
                                               else sh, use))
 
     def scatter(label, r, square):
-        return (label, lambda: kernels.csc_scatter_lanes(*csc, r, square, tiles),
+        return ("csc_scatter_lanes", label,
+                lambda: kernels.csc_scatter_lanes(*csc, r, square, tiles),
                 lambda: reference.csc_scatter_lanes(*plain_csc, r, square),
                 lambda g: kernels.csc_scatter(*csc, r[g], square, tiles))
 
-    variants = {
-        "csr_margins_lanes": [margins("dot_rows", batch.offsets, 0.0, False),
-                              margins("margins+offsets+shift per lane", off, shift, True)],
-        "csc_scatter_lanes": [scatter("scatter", R, False), scatter("scatter_sq", R.abs(), True)],
+    return [margins("dot_rows", shared_off, 0.0, False),
+            margins("margins+offsets+shift per lane", off, shift, True),
+            scatter("scatter", R, False), scatter("scatter_sq", R.abs(), True)]
+
+
+def lane_design_bytes(n, f, nnz, G, tiles) -> dict:
+    """Bytes each lane kernel must move (its bound) and the bytes its design
+    moves from HBM (its floor): the margins read X, W and write Z once, its
+    bound; the scatter also reads the tile index but ``start`` and writes and
+    reads G parts a segment piece."""
+    scatter = 4 * ((f + 1) + 2 * nnz + G * n + G * f)
+    return {
+        "csr_margins_lanes": (4 * ((n + 1) + 2 * nnz + G * f + G * n),) * 2,
+        "csc_scatter_lanes": (scatter, scatter + 4 * (tiles.index.numel() - tiles.n_slots)
+                              + 2 * G * tiles.n_parts * 4),
     }
-    t_w, t_r = W.t().contiguous(), R.t().contiguous()
-    specs = {
-        "csr_margins_lanes": (
-            "photon_ml_tpu_torch/csrc/margins_lanes.cu", "photon_ml_tpu/ops/tiled.py:170",
-            "dot_rows", 4 * ((n + 1) + 2 * nnz + G * f + G * n), 2 * nnz * G,
-            library_ms(lambda: torch.sparse_csr_tensor(*csr, size=(n, f),
-                                                       check_invariants=False),
-                       lambda m: torch.sparse.mm(m, t_w))),
-        "csc_scatter_lanes": (
-            "photon_ml_tpu_torch/csrc/scatter_lanes.cu", "photon_ml_tpu/ops/tiled.py:199",
-            "scatter", 4 * ((f + 1) + 2 * nnz + G * n + G * f), 2 * nnz * G,
-            library_ms(lambda: torch.sparse_csr_tensor(*plain_csc, size=(f, n),
-                                                       check_invariants=False),
-                       lambda m: torch.sparse.mm(m, t_r))),
-    }
-    rows = []
-    for name, cases in variants.items():
-        for label, run_lanes, _, run_single in cases:
+
+
+def run_lane_variants(cases, G: int, tag: str) -> dict:
+    """Each case: every lane against the single kernel bit for bit, then
+    ``run_variants`` (the plain version within KERNEL_REL_TOL, two launches
+    bit for bit), and G single launches timed beside the first variant.
+    Returns {name: (worst abs error, {label: (ms, plain ms)}, singles ms)}."""
+    import torch
+
+    out = {}
+    for name in dict.fromkeys(c[0] for c in cases):
+        mine = [c[1:] for c in cases if c[0] == name]
+        for label, run_lanes, _, run_single in mine:
             got = run_lanes()
             same = all(torch.equal(got[g], run_single(g)) for g in range(G))
-            print(f"check {name}[{label}]: each of {G} lanes bit-identical to the single "
-                  f"kernel: {same}", flush=True)
+            print(f"check {name}[{tag} {label}]: each of {G} lanes bit-identical to the "
+                  f"single kernel: {same}", flush=True)
             if not same:
-                raise RuntimeError(f"{name}[{label}]: a lane differs from the single kernel")
-        worst, timed = run_variants(name, [c[:3] for c in cases])
-        label = specs[name][2]
-        run_single = next(c[3] for c in cases if c[0] == label)
+                raise RuntimeError(f"{name}[{tag} {label}]: a lane differs from the single "
+                                   "kernel")
+        worst, timed = run_variants(f"{name}[{tag}]", [c[:3] for c in mine])
+        run_single = mine[0][3]
         singles_ms = device_ms(lambda: [run_single(g) for g in range(G)], reps=10)
-        print(f"time {name}[{label}]: {G} single launches ms={singles_ms:.4f}", flush=True)
-        src, replaces, label, nbytes, flops, lib = specs[name]
-        rows.append(kernel_row(name, src, replaces, worst, timed, label, nbytes, flops, lib,
-                               lanes=G, singles_ms=singles_ms,
-                               vmapped_at="photon_ml_tpu/sweep/runner.py:91-116",
-                               lanes_bit_identical_to_single=True))
+        print(f"time {name}[{tag} {mine[0][0]}]: {G} single launches ms={singles_ms:.4f}",
+              flush=True)
+        out[name] = worst, timed, singles_ms
+    return out
+
+
+def check_lane_kernels(batch, w) -> list[dict]:
+    """Phase 3, the lane kernels at config #1 with G = SWEEP_LANES vectors and
+    with G = GLM_BOOTSTRAP_SAMPLES: each variant against its plain version and
+    against a second launch, and every lane against the single-vector kernel
+    on that lane's vector, bit for bit; timed beside G launches of the single
+    kernel and the library's sparse product, with the bound and the design
+    floor (computed bytes over the HBM rate, not measurements)."""
+    import torch
+
+    n, f, nnz = batch.num_rows, batch.num_features, batch.nnz
+    csr, csc, tiles = batch._csr, batch._csc, batch.tiles
+    plain_csc = batch.column_major()
+    sources = {
+        "csr_margins_lanes": ("photon_ml_tpu_torch/csrc/margins_lanes.cu",
+                              "photon_ml_tpu/ops/tiled.py:170", "dot_rows"),
+        "csc_scatter_lanes": ("photon_ml_tpu_torch/csrc/scatter_lanes.cu",
+                              "photon_ml_tpu/ops/tiled.py:199", "scatter"),
+    }
+    measured = {}
+    for G in (SWEEP_LANES, GLM_BOOTSTRAP_SAMPLES):
+        gen = torch.Generator(device="cuda").manual_seed(12 + G)
+        W = torch.randn(G, f, generator=gen, device="cuda") * 0.1
+        W[0] = w
+        R = torch.randn(G, n, generator=gen, device="cuda")
+        off = torch.randn(G, n, generator=gen, device="cuda") * 0.1
+        shift = torch.randn(G, generator=gen, device="cuda")
+        res = run_lane_variants(lane_cases(csr, csc, tiles, plain_csc, batch.offsets, W, R,
+                                           off, shift), G, f"G={G}")
+        t_w, t_r = W.t().contiguous(), R.t().contiguous()
+        libs = {
+            "csr_margins_lanes": library_ms(lambda: torch.sparse_csr_tensor(
+                *csr, size=(n, f), check_invariants=False), lambda m: torch.sparse.mm(m, t_w)),
+            "csc_scatter_lanes": library_ms(lambda: torch.sparse_csr_tensor(
+                *plain_csc, size=(f, n), check_invariants=False),
+                lambda m: torch.sparse.mm(m, t_r)),
+        }
+        for name, (nbytes, floor_bytes) in lane_design_bytes(n, f, nnz, G, tiles).items():
+            floor_ms = floor_bytes / PEAK_BYTES_PER_S * 1e3
+            print(f"design floor {name}[G={G}]: bytes={floor_bytes} floor_ms={floor_ms:.4f} "
+                  f"bound_bytes={nbytes} (computed)", flush=True)
+            measured[name, G] = res[name] + (libs[name], nbytes, floor_ms)
+        del W, R, off, t_w, t_r
+    rows = []
+    for name, (src, replaces, label) in sources.items():
+        worst, timed, singles_ms, lib, nbytes, floor_ms = measured[name, SWEEP_LANES]
+        worst8, timed8, singles8, lib8, nbytes8, floor8 = measured[name, GLM_BOOTSTRAP_SAMPLES]
+        g8 = kernel_row(name, src, replaces, worst8, timed8, label, nbytes8,
+                        2 * nnz * GLM_BOOTSTRAP_SAMPLES, lib8)
+        rows.append(kernel_row(
+            name, src, replaces, max(worst, worst8), timed, label, nbytes, 2 * nnz * SWEEP_LANES,
+            lib, lanes=SWEEP_LANES, singles_ms=singles_ms, design_floor_ms=floor_ms,
+            vmapped_at="photon_ml_tpu/sweep/runner.py:91-116",
+            lanes_bit_identical_to_single=True, redesigned="PR 13",
+            lanes_8={"ms": g8["ms"], "plain_ms": g8["plain_ms"], "bound_ms": g8["bound_ms"],
+                     "design_floor_ms": floor8, "singles_ms": singles8,
+                     "library_ms": lib8, "variants_ms": g8["variants_ms"]}))
     return rows
 
 

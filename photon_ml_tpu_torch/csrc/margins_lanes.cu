@@ -5,39 +5,43 @@
 // Replaces the TPU kernel `_margins_kernel` with pair=False
 // (photon_ml_tpu/ops/tiled.py:170, built by `_margins_call` at :339) under
 // `jax.vmap` over the lanes of a sweep or a bootstrap
-// (photon_ml_tpu/sweep/runner.py:91-116): Pallas's batching rule adds a grid
-// axis and runs the kernel once per lane. Here the lanes are a written-out
-// axis, and X is read once per chunk of lanes rather than once per lane.
+// (photon_ml_tpu/sweep/runner.py:91-116, diagnostics/bootstrap.py:92-104):
+// Pallas's batching rule adds a grid axis and runs the kernel once per lane.
 //
 // Bound: bytes. Per call it must read row_ptr, cols and vals (8 bytes per
 // nonzero) once, W (4 G bytes per feature), the offsets when used, and write
-// G floats per row.
+// G floats per row: 228.6 MB at config #1 (1M rows x 10K features x 20
+// nonzeros) with G = 16. This design's HBM floor is the bound: X is read from
+// HBM once a call for G <= 16 (once per 16 lanes above), W once, Z written
+// once. What it pays besides, on chip: X from L2 once per lane group of 4, W
+// from L2 once per resident cluster, and per nonzero and group two stage
+// reads and one float4 gather in shared memory (the gathers of random
+// features meet in banks: about 10 wavefronts a warp's 32 for 4).
 //
-// Design: the row pass of rowpass.cuh (a warp per 32 consecutive rows, the
-// warp's nonzeros swept in chunks of kChunk positions with 16-byte loads,
-// one thread summing each row in nonzero order, rows over kLongSegment
-// nonzeros summed by the whole warp), with the chunk's cols and vals held in
-// registers while each lane of the chunk of lanes writes its products to the
-// warp's shared-memory chunk and sums them. The chunk boundaries, the order
-// of each row's sum and the epilogue are the single-vector kernel's
-// (margins.cu), so every lane is bit for bit what margins.cu gives for that
-// lane's vector, whatever the number of lanes. No float atomics.
+// Design (lanes.cuh): lanes go in chunks of at most 16, a chunk's lanes in
+// groups of 4. Where a group's table fits beside the warps' stages
+// (kStagedMaxFeatures, 10,304), each block stages its group's four rows of W
+// lane-minor, one float4 per feature, and the chunk's groups are one cluster
+// of up to 4 blocks that walks the same rows in lockstep: each warp takes
+// kRowsPerWarp consecutive rows a round, loads windows of up to 32 whole
+// rows into its stage with 16-byte loads, and the thread that owns a row
+// sums it in nonzero order in four registers, one gather per nonzero; rows
+// over kLongSegment nonzeros are summed by the whole warp per kChunk chunk of
+// their 32-row tile's grid, segments.cuh's tree. So every lane is bit for bit
+// what margins.cu gives for its vector: the same products rounded to float,
+// the same order, the same chunks for long rows, the same epilogue (acc +
+// shift, then + offset). No float atomics, no product chunk.
 //
-// Lanes are cut into chunks of at most kMaxLanes, as many as have their
-// tables fit in shared memory beside the product chunks (kRowSmemLimitBytes;
-// five 40 KB tables at 10K features), chunk j on blockIdx.y. Blocks of the
-// chunks with the same blockIdx.x walk the same row tiles at about the same
-// time, so X is read from HBM about once and from L2 by the other chunks.
-// Where not one table fits (a block-diagonal batch's millions of columns),
-// W is gathered through the read-only cache and L2, kMaxLanes lanes a chunk.
+// The regime is chosen by shape: past kStagedMaxFeatures (a block-diagonal
+// batch's millions of columns, ops/shared_design.py BlockDiagonalLanes) no
+// group's table fits, and one block takes a whole 16-lane chunk with W
+// gathered lane by lane through L1 and L2; a row of such a batch touches one
+// entity's K columns, so its lanes' gathers stay in a few lines.
 
-#include "rowpass.cuh"
+#include "lanes.cuh"
 
 namespace photon {
 namespace {
-
-// lanes of one chunk: each thread holds one running sum per lane
-constexpr int kMaxLanes = 8;
 
 struct LaneParams {
   const int* row_ptr;
@@ -52,150 +56,183 @@ struct LaneParams {
   int n_rows;
   int n_features;
   int n_lanes;
-  int lanes_per_chunk;
+  int cluster;  // blocks of a cluster: the lane groups of a chunk, or 1
+};
+
+// W [G, F] read lane-major through L1 and L2, the lanes of a 16-lane chunk
+struct GlobalTable {
+  const float* w;
+  long long stride;
+  int gn;
+  __device__ __forceinline__ void operator()(int c, float (&out)[kChunkLanes]) const {
+#pragma unroll
+    for (int k = 0; k < kChunkLanes; ++k) out[k] = k < gn ? __ldg(w + k * stride + c) : 0.0f;
+  }
+};
+
+// a warp's stage, in positions
+constexpr int kRowStage = 512;
+// consecutive rows a warp takes a round
+constexpr int kRowsPerWarp = 64;
+constexpr int kStagedMaxFeatures = static_cast<int>(
+    (kLaneSmemLimitBytes - stage_bytes<kRowStage>()) / sizeof(float4));
+
+// The rows as items of the walk: row i is nonzeros [row_ptr[i],
+// row_ptr[i + 1]); a long row's chunks sit on its 32-row tile's grid.
+struct RowItems {
+  const int* row_ptr;
+  struct Item {
+    int lo;
+    int hi;
+  };
+  __device__ __forceinline__ Item at(int i) const {
+    return Item{__ldg(row_ptr + i), __ldg(row_ptr + i + 1)};
+  }
+  __device__ __forceinline__ int grid(int i) const { return __ldg(row_ptr + (i & ~31)) & ~3; }
+};
+
+// Z[g0 + k, row] = acc[k] + shift (+ offset), margins.cu's epilogue
+template <int L>
+struct MarginsEmit {
+  const LaneParams* p;
+  int g0;
+  int gn;
+  __device__ __forceinline__ void operator()(int row, const RowItems::Item&,
+                                             const float (&acc)[L]) const {
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      if (k >= gn) break;
+      const long long g = g0 + k;
+      const float shift =
+          p->shift_host + (p->shift_dev != nullptr ? __ldg(p->shift_dev + g) : 0.0f);
+      float a = acc[k] + shift;
+      if (p->offsets != nullptr) a = a + __ldg(p->offsets + g * p->offsets_stride + row);
+      p->out[g * p->n_rows + row] = a;
+    }
+  }
 };
 
 template <bool kStaged>
-__device__ __forceinline__ float table_at(const float* t, int c) {
-  if constexpr (kStaged) {
-    return t[c];
-  } else {
-    return __ldg(t + c);
-  }
-}
-
-// segment_sums (segments.cuh) for `gn` tables at once: the chunk's cols and
-// vals are loaded as GatherFill loads them, once, and each lane's products
-// are written to `chunk` and summed in turn, in segment_sums's order.
-template <bool kStaged>
-__device__ __forceinline__ void lane_segment_sums(int lo, int hi, float* chunk,
-                                                  const int* __restrict__ idx,
-                                                  const float* __restrict__ vals, bool vec,
-                                                  const float* tables, int n_features, int gn,
-                                                  float (&acc)[kMaxLanes]) {
-  constexpr int kQuads = kChunk / 128;
-  const int lane = threadIdx.x & 31;
-  const int span_lo = __shfl_sync(kFullMask, lo, 0);
-  const int span_hi = __shfl_sync(kFullMask, hi, 31);
-  const bool is_long = hi - lo > kLongSegment;
-  for (int c0 = span_lo & ~3; c0 < span_hi; c0 += kChunk) {
-    int c[kQuads][4];
-    float v[kQuads][4];
-#pragma unroll
-    for (int i = 0; i < kQuads; ++i) {
-      const int q = c0 + 4 * (lane + 32 * i);
-      if (vec && q >= span_lo && q + 4 <= span_hi) {
-        const int4 ci = __ldg(reinterpret_cast<const int4*>(idx + q));
-        const float4 vi = __ldg(reinterpret_cast<const float4*>(vals + q));
-        c[i][0] = ci.x, c[i][1] = ci.y, c[i][2] = ci.z, c[i][3] = ci.w;
-        v[i][0] = vi.x, v[i][1] = vi.y, v[i][2] = vi.z, v[i][3] = vi.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool in = q + j >= span_lo && q + j < span_hi;
-          c[i][j] = in ? __ldg(idx + q + j) : 0;
-          v[i][j] = in ? __ldg(vals + q + j) : 0.0f;
-        }
-      }
-    }
-    const unsigned long_lanes = __ballot_sync(kFullMask, is_long && lo < c0 + kChunk && hi > c0);
-#pragma unroll
-    for (int g = 0; g < kMaxLanes; ++g) {
-      if (g >= gn) break;  // uniform across the block
-      const float* t = tables + static_cast<size_t>(g) * n_features;
-#pragma unroll
-      for (int i = 0; i < kQuads; ++i) {
-        float4 p;
-        p.x = v[i][0] * table_at<kStaged>(t, c[i][0]);
-        p.y = v[i][1] * table_at<kStaged>(t, c[i][1]);
-        p.z = v[i][2] * table_at<kStaged>(t, c[i][2]);
-        p.w = v[i][3] * table_at<kStaged>(t, c[i][3]);
-        reinterpret_cast<float4*>(chunk)[lane + 32 * i] = p;
-      }
-      __syncwarp();
-      if (!is_long) {
-        const int a = max(lo, c0) - c0;
-        const int b = min(hi, c0 + kChunk) - c0;
-        for (int q = a; q < b; ++q) acc[g] += chunk[q];
-      }
-      for (unsigned m = long_lanes; m != 0; m &= m - 1) {
-        const int src = __ffs(m) - 1;
-        const int a = max(__shfl_sync(kFullMask, lo, src), c0) - c0;
-        const int b = min(__shfl_sync(kFullMask, hi, src), c0 + kChunk) - c0;
-        float s[1] = {0.0f};
-        for (int q = a + lane; q < b; q += 32) s[0] += chunk[q];
-        warp_tree<1>(s);
-        if (lane == src) acc[g] += s[0];
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <bool kStaged>
-__global__ void __launch_bounds__(kRowThreads, 2) margins_lanes_kernel(const LaneParams p) {
+__global__ void __launch_bounds__(kLaneThreads, 1)
+margins_lanes_kernel(const __grid_constant__ LaneParams p) {
+  constexpr int L = kStaged ? kGroupLanes : kChunkLanes;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int g0 = blockIdx.y * p.lanes_per_chunk;
-  const int gn = min(p.lanes_per_chunk, p.n_lanes - g0);
-  float* chunk = smem + warp * kChunk;
-  const float* tables = p.w + static_cast<size_t>(g0) * p.n_features;
+  const int rank = static_cast<int>(blockIdx.x) % p.cluster;
+  const int g0 = kStaged ? (static_cast<int>(blockIdx.y) * p.cluster + rank) * kGroupLanes
+                         : static_cast<int>(blockIdx.y) * kChunkLanes;
+  const int gn = max(0, min(L, p.n_lanes - g0));
+  const long long F = p.n_features;
+  float4* table = smem4 + stage_bytes<kRowStage>() / sizeof(float4);
   if constexpr (kStaged) {
-    float* staged = smem + kRowWarps * kChunk;
-    const int count = gn * p.n_features;
-    for (int i = threadIdx.x; i < count; i += blockDim.x) staged[i] = __ldg(tables + i);
+    const float* w = p.w + g0 * F;
+    for (int f = threadIdx.x; f < p.n_features; f += blockDim.x) {
+      float x[kGroupLanes];
+#pragma unroll
+      for (int k = 0; k < kGroupLanes; ++k) x[k] = k < gn ? __ldg(w + k * F + f) : 0.0f;
+      table[f] = make_float4(x[0], x[1], x[2], x[3]);
+    }
     __syncthreads();
-    tables = staged;
   }
+  const Stage<kRowStage> stage(smem4);
   const bool vec = aligned16(p.cols, p.vals);
-  float shift[kMaxLanes];
-#pragma unroll
-  for (int g = 0; g < kMaxLanes; ++g) {
-    shift[g] = g < gn ? p.shift_host + (p.shift_dev != nullptr ? __ldg(p.shift_dev + g0 + g)
-                                                               : 0.0f)
-                      : 0.0f;
-  }
-  const int n_tiles = (p.n_rows + 31) / 32;
-  for (int tile = blockIdx.x * kRowWarps + warp; tile < n_tiles;
-       tile += gridDim.x * kRowWarps) {
-    const int row = tile * 32 + lane;
-    const int lo = __ldg(p.row_ptr + min(row, p.n_rows));
-    const int hi = __ldg(p.row_ptr + min(row + 1, p.n_rows));
-    float acc[kMaxLanes];
-#pragma unroll
-    for (int g = 0; g < kMaxLanes; ++g) acc[g] = 0.0f;
-    lane_segment_sums<kStaged>(lo, hi, chunk, p.cols, p.vals, vec, tables, p.n_features, gn,
-                               acc);
-    if (row < p.n_rows) {
-#pragma unroll
-      for (int g = 0; g < kMaxLanes; ++g) {
-        if (g >= gn) break;
-        const long long lane_g = g0 + g;
-        float a = acc[g] + shift[g];
-        if (p.offsets != nullptr) a = a + __ldg(p.offsets + lane_g * p.offsets_stride + row);
-        p.out[lane_g * p.n_rows + row] = a;
+  const RowItems rows{p.row_ptr};
+  const MarginsEmit<L> emit{&p, g0, gn};
+  constexpr int kRound = kLaneWarps * kRowsPerWarp;
+  const long long n_rounds = (static_cast<long long>(p.n_rows) + kRound - 1) / kRound;
+  const int n_clusters = static_cast<int>(gridDim.x) / p.cluster;
+  Lockstep step{p.cluster > 1};
+  // a round: warp w takes rows [(r * kLaneWarps + w) * kRowsPerWarp, ...);
+  // the loop is uniform across the cluster, whose blocks share
+  // blockIdx.x / cluster
+  for (long long r = static_cast<int>(blockIdx.x) / p.cluster; r < n_rounds; r += n_clusters) {
+    const long long first = r * kRound + static_cast<long long>(warp) * kRowsPerWarp;
+    if (gn > 0 && first < p.n_rows) {
+      const int i0 = static_cast<int>(first);
+      const int i1 = static_cast<int>(min(first + kRowsPerWarp, static_cast<long long>(p.n_rows)));
+      if constexpr (kStaged) {
+        walk_items<L>(i0, i1, rows, p.cols, p.vals, vec, false, stage, GroupTable{table, 0}, emit);
+      } else {
+        walk_items<L>(i0, i1, rows, p.cols, p.vals, vec, false, stage,
+                      GlobalTable{p.w + g0 * F, F, gn}, emit);
       }
     }
+    step.round_done();
   }
+  step.finish();
 }
 
-template <bool kStaged>
-cudaError_t launch_lanes(const LaneParams& p, size_t smem, int n_chunks, cudaStream_t stream) {
-  auto kernel = margins_lanes_kernel<kStaged>;
-  int resident = 0;
-  cudaError_t err =
-      resident_blocks(reinterpret_cast<const void*>(kernel), kRowThreads, smem, &resident);
-  if (err != cudaSuccess) return err;
-  const long long needed =
-      ((static_cast<long long>(p.n_rows) + 31) / 32 + kRowWarps - 1) / kRowWarps;
-  long long grid = resident / n_chunks;
-  if (grid < 1) grid = 1;
-  if (needed < grid) grid = needed;
-  kernel<<<dim3(static_cast<unsigned>(grid), static_cast<unsigned>(n_chunks)), kRowThreads,
-           smem, stream>>>(p);
-  return cudaGetLastError();
+// Design (b), kept beside (a) only to measure the two on the card
+// (tools/probe_lane_designs.py): the 16 lanes' table split over the cluster
+// by features, each block holding all 16 lanes of a quarter of the
+// features, 4 float4 per feature, gathered over distributed shared memory;
+// every block walks rows of its own, so X is read once, with no lockstep.
+struct SplitTable {
+  unsigned base[kMaxCluster];  // each rank's slice, shared::cluster addresses
+  int fq;                      // features a rank holds
+  __device__ __forceinline__ void operator()(int c, float (&out)[kChunkLanes]) const {
+    const int owner = (c >= fq) + (c >= 2 * fq) + (c >= 3 * fq);
+    const unsigned b = owner == 0 ? base[0] : owner == 1 ? base[1] : owner == 2 ? base[2] : base[3];
+    const unsigned a = b + static_cast<unsigned>(c - owner * fq) * 64u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+                   : "=f"(out[4 * k]), "=f"(out[4 * k + 1]), "=f"(out[4 * k + 2]),
+                     "=f"(out[4 * k + 3])
+                   : "r"(a + 16u * k));
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kLaneThreads, 1)
+margins_lanes_split_kernel(const __grid_constant__ LaneParams p) {
+  constexpr int L = kChunkLanes;
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int rank = static_cast<int>(blockIdx.x) % p.cluster;
+  const int g0 = static_cast<int>(blockIdx.y) * kChunkLanes;
+  const int gn = max(0, min(L, p.n_lanes - g0));
+  const long long F = p.n_features;
+  const int fq = (p.n_features + p.cluster - 1) / p.cluster;
+  float4* table = smem4 + stage_bytes<kRowStage>() / sizeof(float4);
+  const float* w = p.w + g0 * F;
+  const int f_lo = rank * fq;
+  const int f_n = max(0, min(fq, p.n_features - f_lo));
+  for (int i = threadIdx.x; i < 4 * f_n; i += blockDim.x) {
+    const int f = f_lo + i / 4;
+    const int k0 = 4 * (i % 4);
+    float x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = k0 + k < gn ? __ldg(w + (k0 + k) * F + f) : 0.0f;
+    table[i] = make_float4(x[0], x[1], x[2], x[3]);
+  }
+  SplitTable gather{};
+  gather.fq = fq;
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(table));
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    unsigned a = 0;
+    if (r < p.cluster) {
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(local), "r"(r));
+    }
+    gather.base[r] = a;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  const Stage<kRowStage> stage(smem4);
+  const bool vec = aligned16(p.cols, p.vals);
+  const RowItems rows{p.row_ptr};
+  const MarginsEmit<L> emit{&p, g0, gn};
+  const long long first_row = static_cast<long long>(blockIdx.x * kLaneWarps + warp) * kRowsPerWarp;
+  const long long stride = static_cast<long long>(gridDim.x) * kLaneWarps * kRowsPerWarp;
+  for (long long first = first_row; first < p.n_rows; first += stride) {
+    const int i0 = static_cast<int>(first);
+    const int i1 = static_cast<int>(min(first + kRowsPerWarp, static_cast<long long>(p.n_rows)));
+    if (gn > 0) walk_items<L>(i0, i1, rows, p.cols, p.vals, vec, false, stage, gather, emit);
+  }
+  // no block leaves while a peer may still read its slice
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace
@@ -224,18 +261,73 @@ extern "C" int photon_csr_margins_lanes(const int* row_ptr, const int* cols, con
   p.n_rows = n_rows;
   p.n_features = n_features;
   p.n_lanes = n_lanes;
-  const size_t chunks = static_cast<size_t>(kRowWarps) * kChunk * sizeof(float);
-  const size_t table = static_cast<size_t>(n_features) * sizeof(float);
-  const long long fit = table == 0 ? kMaxLanes
-                                   : static_cast<long long>((kRowSmemLimitBytes - chunks) / table);
-  const bool staged = fit >= 1;
-  const int cap = staged ? static_cast<int>(fit < kMaxLanes ? fit : kMaxLanes) : kMaxLanes;
-  // balanced chunks: as few as the cap allows, the lanes spread evenly
-  const int n_chunks = (n_lanes + cap - 1) / cap;
-  p.lanes_per_chunk = (n_lanes + n_chunks - 1) / n_chunks;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (staged) {
-    return launch_lanes<true>(p, chunks + p.lanes_per_chunk * table, n_chunks, s);
-  }
-  return launch_lanes<false>(p, chunks, n_chunks, s);
+  const bool staged = n_features <= kStagedMaxFeatures;
+  const LaneSplit split =
+      staged ? lane_split(n_lanes) : LaneSplit{(n_lanes + kChunkLanes - 1) / kChunkLanes, 1};
+  if (split.chunks > 65535) return cudaErrorInvalidValue;
+  p.cluster = split.cluster;
+  const size_t smem =
+      stage_bytes<kRowStage>() + (staged ? static_cast<size_t>(n_features) * sizeof(float4) : 0);
+  auto kernel = staged ? margins_lanes_kernel<true> : margins_lanes_kernel<false>;
+  int resident = 0;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kLaneThreads, smem,
+                                    &resident, split.cluster);
+  if (err != cudaSuccess) return err;
+  // clusters per chunk: one wave in all, and no more than the rounds of rows
+  long long clusters = resident / split.cluster / split.chunks;
+  const long long rounds = (static_cast<long long>(n_rows) + kLaneWarps * kRowsPerWarp - 1) /
+                           (kLaneWarps * kRowsPerWarp);
+  if (rounds < clusters) clusters = rounds;
+  if (clusters < 1) clusters = 1;
+  const dim3 grid(static_cast<unsigned>(clusters * split.cluster),
+                  static_cast<unsigned>(split.chunks));
+  err = launch_clustered(kernel, grid, split.cluster, smem, static_cast<cudaStream_t>(stream), p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Design (b) of the file comment's note, for tools/probe_lane_designs.py
+// only: the arguments of photon_csr_margins_lanes, n_features at most
+// kStagedMaxFeatures.
+extern "C" int photon_csr_margins_lanes_split(const int* row_ptr, const int* cols,
+                                              const float* vals, const float* w,
+                                              const float* offsets, int offsets_per_lane,
+                                              const float* shift_dev, float shift_host,
+                                              float* out, int n_rows, int n_features,
+                                              int n_lanes, void* stream) {
+  using namespace photon;
+  if (n_rows <= 0 || n_lanes <= 0) return cudaSuccess;
+  if (n_features < 0 || n_features > kStagedMaxFeatures) return cudaErrorInvalidValue;
+  LaneParams p{};
+  p.row_ptr = row_ptr;
+  p.cols = cols;
+  p.vals = vals;
+  p.w = w;
+  p.shift_dev = shift_dev;
+  p.shift_host = shift_host;
+  p.offsets = offsets;
+  p.offsets_stride = offsets_per_lane ? n_rows : 0;
+  p.out = out;
+  p.n_rows = n_rows;
+  p.n_features = n_features;
+  p.n_lanes = n_lanes;
+  const size_t room = kLaneSmemLimitBytes - stage_bytes<kRowStage>();
+  const size_t per_feature = kChunkLanes * sizeof(float);
+  p.cluster = static_cast<int>((n_features * per_feature + room - 1) / room);
+  if (p.cluster < 1) p.cluster = 1;
+  if (p.cluster > kMaxCluster) return cudaErrorInvalidValue;
+  const int fq = (n_features + p.cluster - 1) / p.cluster;
+  const size_t smem = stage_bytes<kRowStage>() + fq * per_feature;
+  const int chunks = (n_lanes + kChunkLanes - 1) / kChunkLanes;
+  auto kernel = margins_lanes_split_kernel;
+  int resident = 0;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kLaneThreads, smem,
+                                    &resident, p.cluster);
+  if (err != cudaSuccess) return err;
+  long long clusters = resident / p.cluster / chunks;
+  if (clusters < 1) clusters = 1;
+  const dim3 grid(static_cast<unsigned>(clusters * p.cluster), static_cast<unsigned>(chunks));
+  err = launch_clustered(kernel, grid, p.cluster, smem, static_cast<cudaStream_t>(stream), p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }

@@ -4,135 +4,142 @@
 //
 // Replaces the TPU kernel `_scatter_kernel` (photon_ml_tpu/ops/tiled.py:199,
 // built by `_scatter_call` at :353) under `jax.vmap` over the lanes of a
-// sweep or a bootstrap (photon_ml_tpu/sweep/runner.py:91-116), where
-// Pallas's batching rule runs the kernel once per lane. Here the lanes are a
-// written-out axis: the mirror and the tile index are read once per chunk
-// of lanes rather than once per lane.
+// sweep or a bootstrap (photon_ml_tpu/sweep/runner.py:91-116,
+// diagnostics/bootstrap.py:92-104), where Pallas's batching rule runs the
+// kernel once per lane.
 //
 // Bound: bytes. Per call it must read rows and vals (8 bytes per nonzero)
-// once, R (4 G bytes per row), and write G floats per feature.
+// once, R (4 G bytes per row), and write G floats per feature: 224.7 MB at
+// config #1 with G = 16. This design's HBM floor adds the tile index once
+// (about 12 bytes a segment, 15.1 MB at config #1) and the parts, written
+// and read back once (2 * G * n_parts * 4 bytes, 161 MB there): the finish's
+// fixed order over the parts is what makes each lane bit for bit the single
+// kernel. The mirror and the index are read from HBM once a call for
+// G <= 16 (once per 16 lanes above).
 //
-// Design: scatter.cu's tiled pass. Block (t, j, c) stages R of row tile t
-// for the lanes of chunk c in shared memory (32 KB a lane at 8192-row
-// tiles, so at most kMaxScatterLanes = 6 lanes beside the warps' chunks in
-// 220 KB); each warp takes work pieces of the tile as scatter.cu does,
-// loads each chunk's rows and vals once (the cursor walk of TileFill) and,
-// lane of the chunk by lane, writes the products to its shared-memory chunk
-// and sums each segment in segment_sums's order. The parts land in a
-// [G, parts] array at the single-vector kernel's places and the finish sums
-// each feature's parts in the same order, so every lane is bit for bit what
-// scatter.cu gives for that lane's vector, whatever the number of lanes.
-// No float atomics.
+// Design: scatter.cu's tiles, pieces and parts, on the window walk of
+// lanes.cuh. A block holds one lane group's (4 lanes') per_row of a row tile
+// lane-minor in shared memory, one float4 per row (128 KB at 8192-row tiles;
+// the transpose happens while staging), and the groups of a 16-lane chunk
+// are one cluster of up to 4 blocks that takes the same tile and the same
+// work pieces in lockstep. A piece is one contiguous span of the mirror in
+// the index's slot order (start == off, ops/csr.py; `start` is not read, as
+// in tile_fused.cuh), and its 32 slots' segments, clipped to it, are the
+// items of the walk: each warp takes kPiecesPerWarp consecutive pieces a
+// round, loads windows of up to 32 whole segments into its stage with
+// 16-byte loads, and the thread that owns a segment sums it in slot order in
+// four registers, one float4 gather a nonzero; segments over kLongSegment
+// nonzeros go to the whole warp per kChunk chunk of the piece's grid. The
+// parts land in a [G, parts] array at the single kernel's places and the
+// finish sums each feature's parts in its order, so every lane is bit for
+// bit what scatter.cu gives for that lane's vector. No float atomics, no
+// product chunk.
 
 #include <cuda_runtime.h>
 
-#include "segments.cuh"
+#include "lanes.cuh"
 #include "tiles.cuh"
 
 namespace photon {
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSegInts = 66;  // scatter.cu's per-warp segment table
-constexpr size_t kSmemLimitBytes = 220 * 1024;
-constexpr int kMaxScatterLanes = 6;
+struct ScatterLaneParams {
+  TileIndex ix;
+  const int* rows;  // the mirror, in the index's slot order
+  const float* vals;
+  const float* per_row;  // [G, n_rows]
+  float* part;           // [G, n_parts]
+  long long n_parts;
+  int n_rows;
+  int tile_rows;
+  int piece_len;
+  int square;
+  int n_lanes;
+  int per_tile;  // clusters a tile's pieces are dealt to
+  int cluster;   // blocks of a cluster: the lane groups of a chunk
+};
 
-__global__ void __launch_bounds__(kThreads, 1)
-scatter_lanes_kernel(const TileIndex ix, const int* __restrict__ rows,
-                     const float* __restrict__ vals, const float* __restrict__ per_row,
-                     float* __restrict__ part, int n_rows, int tile_rows, int piece_len,
-                     int square, int n_lanes, int lanes_per_chunk, long long n_parts) {
+// a warp's stage, in positions
+constexpr int kPieceStage = 640;
+// consecutive pieces a warp takes a round
+constexpr int kPiecesPerWarp = 2;
+
+// The segments of pieces q0, q0 + 1, ... as items of the walk: item i is
+// slot i % 32's segment clipped to piece q0 + i / 32 (tiles.cuh
+// piece_item); a long one's chunks sit on its piece's grid.
+struct PieceItems {
+  const TileIndex* ix;
+  int q0;
+  int piece_len;
+  __device__ __forceinline__ PieceLane at(int i) const {
+    return piece_item(*ix, q0 + (i >> 5), i & 31, piece_len);
+  }
+  __device__ __forceinline__ int grid(int i) const { return at(i).start & ~3; }
+};
+
+// part[g0 + k, the segment's part] = acc[k], where the segment meets the piece
+struct PartsEmit {
+  float* part;
+  long long n_parts;
+  int g0;
+  int gn;
+  __device__ __forceinline__ void operator()(int, const PieceLane& it,
+                                             const float (&acc)[kGroupLanes]) const {
+    if (it.lo >= it.hi) return;
+#pragma unroll
+    for (int k = 0; k < kGroupLanes; ++k) {
+      if (k < gn) part[(g0 + k) * n_parts + it.part] = acc[k];
+    }
+  }
+};
+
+// Block x of the grid: cluster unit x / cluster, which is tile
+// unit / per_tile and its share unit % per_tile; y: the lane chunk.
+__global__ void __launch_bounds__(kLaneThreads, 1)
+scatter_lanes_kernel(const __grid_constant__ ScatterLaneParams p) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int t = blockIdx.x;
-  const int g0 = blockIdx.z * lanes_per_chunk;
-  const int gn = min(lanes_per_chunk, n_lanes - g0);
-  float* chunk = smem + warp * kChunk;
-  int* seg = reinterpret_cast<int*>(smem + kWarps * kChunk) + warp * kSegInts;
-  float* tile_vals = smem + kWarps * (kChunk + kSegInts);
-  const int row0 = t * tile_rows;
-  const int rows_here = min(tile_rows, n_rows - row0);
-  for (int g = 0; g < gn; ++g) {
-    const float* src = per_row + static_cast<long long>(g0 + g) * n_rows + row0;
+  const int rank = static_cast<int>(blockIdx.x) % p.cluster;
+  const int unit = static_cast<int>(blockIdx.x) / p.cluster;
+  const int t = unit / p.per_tile;
+  const int share = unit % p.per_tile;
+  const int g0 = (static_cast<int>(blockIdx.y) * p.cluster + rank) * kGroupLanes;
+  const int gn = max(0, min(kGroupLanes, p.n_lanes - g0));
+  float4* tile = smem4 + stage_bytes<kPieceStage>() / sizeof(float4);
+  const int row0 = t * p.tile_rows;
+  const int rows_here = min(p.tile_rows, p.n_rows - row0);
+  if (gn > 0) {
+    const long long n = p.n_rows;
+    const float* r = p.per_row + g0 * n + row0;
     for (int i = threadIdx.x; i < rows_here; i += blockDim.x) {
-      tile_vals[g * tile_rows + i] = __ldg(src + i);
+      float x[kGroupLanes];
+#pragma unroll
+      for (int k = 0; k < kGroupLanes; ++k) x[k] = k < gn ? __ldg(r + k * n + i) : 0.0f;
+      tile[i] = make_float4(x[0], x[1], x[2], x[3]);
     }
   }
   __syncthreads();
 
-  const int* off = seg;
-  const int* start = seg + 33;
+  const Stage<kPieceStage> stage(smem4);
+  const bool vec = aligned16(p.rows, p.vals);
+  const TileIndex& ix = p.ix;
+  const PartsEmit emit{p.part, p.n_parts, g0, gn};
+  constexpr int kRound = kLaneWarps * kPiecesPerWarp;
   const int p_end = __ldg(ix.piece_ptr + __ldg(ix.tile_group + t + 1));
-  for (int q = __ldg(ix.piece_ptr + __ldg(ix.tile_group + t)) + blockIdx.y * kWarps + warp;
-       q < p_end; q += gridDim.y * kWarps) {
-    const PieceLane pl = piece_lane(ix, q, piece_len);
-    seg[lane] = pl.lo;
-    seg[33 + lane] = __ldg(ix.start + pl.slot) + (pl.lo - pl.s_lo);
-    if (lane == 31) seg[32] = pl.hi;
-    __syncwarp();
-    float acc[kMaxScatterLanes];
-#pragma unroll
-    for (int g = 0; g < kMaxScatterLanes; ++g) acc[g] = 0.0f;
-    // segment_sums (segments.cuh) over TileFill's positions, for gn lanes
-    const int lo = pl.lo, hi = pl.hi;
-    const int span_lo = __shfl_sync(kFullMask, lo, 0);
-    const int span_hi = __shfl_sync(kFullMask, hi, 31);
-    const bool is_long = hi - lo > kLongSegment;
-    int cursor = 0;
-    for (int c0 = span_lo & ~3; c0 < span_hi; c0 += kChunk) {
-      constexpr int kPer = kChunk / 32;
-      int r[kPer];
-      float x[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int pos = c0 + lane + 32 * i;
-        int k = -1;
-        if (pos >= span_lo && pos < span_hi) {
-          while (off[cursor + 1] <= pos) ++cursor;
-          k = start[cursor] + (pos - off[cursor]);
-        }
-        r[i] = k >= 0 ? __ldg(rows + k) : row0;
-        const float v = k >= 0 ? __ldg(vals + k) : 0.0f;
-        x[i] = square ? v * v : v;
-      }
-      const unsigned long_lanes =
-          __ballot_sync(kFullMask, is_long && lo < c0 + kChunk && hi > c0);
-#pragma unroll
-      for (int g = 0; g < kMaxScatterLanes; ++g) {
-        if (g >= gn) break;  // uniform across the block
-        const float* tv = tile_vals + g * tile_rows;
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) chunk[lane + 32 * i] = x[i] * tv[r[i] - row0];
-        __syncwarp();
-        if (!is_long) {
-          const int a = max(lo, c0) - c0;
-          const int b = min(hi, c0 + kChunk) - c0;
-          for (int j = a; j < b; ++j) acc[g] += chunk[j];
-        }
-        for (unsigned m = long_lanes; m != 0; m &= m - 1) {
-          const int src = __ffs(m) - 1;
-          const int a = max(__shfl_sync(kFullMask, lo, src), c0) - c0;
-          const int b = min(__shfl_sync(kFullMask, hi, src), c0 + kChunk) - c0;
-          float s[1] = {0.0f};
-          for (int j = a + lane; j < b; j += 32) s[0] += chunk[j];
-          warp_tree<1>(s);
-          if (lane == src) acc[g] += s[0];
-        }
-        __syncwarp();
-      }
+  Lockstep step{p.cluster > 1};
+  // a round: warp w takes pieces q0 + w * kPiecesPerWarp, ...; uniform
+  // across the cluster, whose blocks share (t, share)
+  for (int q0 = __ldg(ix.piece_ptr + __ldg(ix.tile_group + t)) + share * kRound; q0 < p_end;
+       q0 += p.per_tile * kRound) {
+    const int first = q0 + warp * kPiecesPerWarp;
+    if (gn > 0 && first < p_end) {
+      const int pieces = min(kPiecesPerWarp, p_end - first);
+      walk_items<kGroupLanes>(0, 32 * pieces, PieceItems{&ix, first, p.piece_len}, p.rows,
+                              p.vals, vec, p.square != 0, stage, GroupTable{tile, row0}, emit);
     }
-    if (pl.lo < pl.hi) {
-#pragma unroll
-      for (int g = 0; g < kMaxScatterLanes; ++g) {
-        if (g >= gn) break;
-        part[(g0 + g) * n_parts + pl.part] = acc[g];
-      }
-    }
-    __syncwarp();  // the segment table is rewritten next
+    step.round_done();
   }
+  step.finish();
 }
 
 // lane blockIdx.y: out[y, f] = the sum of f's parts of lane y, as scatter.cu
@@ -147,7 +154,8 @@ finish_lanes_kernel(const int* __restrict__ feat_ptr, const float* __restrict__ 
 }  // namespace photon
 
 // per_row: [n_lanes, n_rows]; out: [n_lanes, n_features]; part: scratch of
-// n_lanes * n_parts floats; the other arguments are photon_csc_scatter's.
+// n_lanes * n_parts floats; the mirror in the index's slot order; the other
+// arguments are photon_csc_scatter's.
 extern "C" int photon_csc_scatter_lanes(const int* rows, const float* vals,
                                         const int* tile_index, int n_slots, int n_pieces,
                                         int finish_width, int tile_rows, int piece_len,
@@ -163,30 +171,45 @@ extern "C" int photon_csc_scatter_lanes(const int* rows, const float* vals,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = (n_rows + tile_rows - 1) / tile_rows;
   const TileIndex ix = tile_index_view(tile_index, n_slots, n_pieces, n_tiles, n_features);
-  const size_t fixed = static_cast<size_t>(kWarps) * (kChunk + kSegInts) * sizeof(float);
-  const size_t per_lane = static_cast<size_t>(tile_rows) * sizeof(float);
-  if (fixed + per_lane > kSmemLimitBytes) return cudaErrorInvalidValue;
-  long long cap = static_cast<long long>((kSmemLimitBytes - fixed) / per_lane);
-  if (cap > kMaxScatterLanes) cap = kMaxScatterLanes;
-  const int n_chunks = static_cast<int>((n_lanes + cap - 1) / cap);
-  const int lanes_per_chunk = (n_lanes + n_chunks - 1) / n_chunks;
-  const size_t smem = fixed + lanes_per_chunk * per_lane;
+  const size_t smem = stage_bytes<kPieceStage>() + static_cast<size_t>(tile_rows) * sizeof(float4);
+  if (smem > kLaneSmemLimitBytes) return cudaErrorInvalidValue;
+  const LaneSplit split = lane_split(n_lanes);
   cudaError_t err;
   if (n_pieces > 0 && n_tiles > 0) {
     const void* kernel = reinterpret_cast<const void*>(scatter_lanes_kernel);
     int resident = 0;
-    if ((err = resident_blocks(kernel, kThreads, smem, &resident)) != cudaSuccess) return err;
-    // blocks per tile and chunk: one wave in all, and at least two pieces a warp
-    long long per_tile = resident / (static_cast<long long>(n_tiles) * n_chunks);
-    const long long useful = (n_pieces / n_tiles + 2 * kWarps) / (2 * kWarps);
+    if ((err = resident_blocks(kernel, kLaneThreads, smem, &resident, split.cluster)) !=
+        cudaSuccess) {
+      return err;
+    }
+    // clusters per tile and chunk: one wave in all, and at least two rounds
+    // of pieces each
+    long long per_tile =
+        resident / split.cluster / (static_cast<long long>(n_tiles) * split.chunks);
+    const long long round = kLaneWarps * kPiecesPerWarp;
+    const long long useful = (n_pieces / n_tiles + 2 * round) / (2 * round);
     if (per_tile > useful) per_tile = useful;
     if (per_tile < 1) per_tile = 1;
-    if (per_tile > 65535) per_tile = 65535;
-    scatter_lanes_kernel<<<dim3(n_tiles, static_cast<unsigned>(per_tile),
-                                static_cast<unsigned>(n_chunks)),
-                           kThreads, smem, s>>>(ix, rows, vals, per_row, part, n_rows,
-                                                tile_rows, piece_len, square, n_lanes,
-                                                lanes_per_chunk, n_parts);
+    const long long blocks = static_cast<long long>(n_tiles) * per_tile * split.cluster;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    ScatterLaneParams p{};
+    p.ix = ix;
+    p.rows = rows;
+    p.vals = vals;
+    p.per_row = per_row;
+    p.part = part;
+    p.n_parts = n_parts;
+    p.n_rows = n_rows;
+    p.tile_rows = tile_rows;
+    p.piece_len = piece_len;
+    p.square = square;
+    p.n_lanes = n_lanes;
+    p.per_tile = static_cast<int>(per_tile);
+    p.cluster = split.cluster;
+    err = launch_clustered(scatter_lanes_kernel,
+                           dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(split.chunks)),
+                           split.cluster, smem, s, p);
+    if (err != cudaSuccess) return err;
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   finish_lanes_kernel<<<dim3(finish_blocks(n_features, finish_width),

@@ -39,14 +39,15 @@ constexpr int kFinishThreads = 256;
 // `cluster`), with the kernel's dynamic shared-memory limit raised to smem
 // first where it is lower (by default static and dynamic shared memory share
 // 48 KB; the limit belongs to the kernel, so it is never lowered, or a size
-// cached before would no longer launch). Cached per kernel, device and smem,
-// so a launch makes these queries once.
+// cached before would no longer launch). Cached per kernel, device, smem and
+// cluster, so a launch makes these queries once.
 inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, int* blocks,
                                    int cluster = 1) {
   struct Entry {
     const void* kernel;
     int device;
     size_t smem;
+    int cluster;
     int blocks;
   };
   static std::mutex mu;
@@ -57,7 +58,8 @@ inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < used; ++i) {
-    if (cache[i].kernel == kernel && cache[i].device == device && cache[i].smem == smem) {
+    if (cache[i].kernel == kernel && cache[i].device == device && cache[i].smem == smem &&
+        cache[i].cluster == cluster) {
       *blocks = cache[i].blocks;
       return cudaSuccess;
     }
@@ -94,7 +96,7 @@ inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
     if (err != cudaSuccess) return err;
     *blocks = (per_sm > 0 ? per_sm : 1) * sms;
   }
-  if (used < 64) cache[used++] = Entry{kernel, device, smem, *blocks};
+  if (used < 64) cache[used++] = Entry{kernel, device, smem, cluster, *blocks};
   return cudaSuccess;
 }
 

@@ -43,27 +43,33 @@ inline TileIndex tile_index_view(const int* index, int n_slots, int n_pieces, in
 // A lane's share of work piece q (a group of 32 slots, or one piece_len
 // slice of it): its slot's segment clipped to the piece, positions
 // [lo, hi) of the slot order, and, where that is not empty, the place of
-// its part.
+// its part. piece_item is lane j's share; piece_lane the calling lane's.
 struct PieceLane {
   int slot;
-  int s_lo;  // off[slot], where the whole segment begins
+  int s_lo;   // off[slot], where the whole segment begins
+  int start;  // where the piece begins
   int lo;
   int hi;
   int part;
 };
 
-__device__ __forceinline__ PieceLane piece_lane(const TileIndex& ix, int q, int piece_len) {
+__device__ __forceinline__ PieceLane piece_item(const TileIndex& ix, int q, int j,
+                                                int piece_len) {
   const int g = __ldg(ix.piece_group + q);
-  const int j = g * 32 + (threadIdx.x & 31);
+  const int slot = g * 32 + j;
   const int sub = q - __ldg(ix.piece_ptr + g);
   const int g_lo = __ldg(ix.off + g * 32);
   const int c0 = g_lo + sub * piece_len;
   const int c1 = min(c0 + piece_len, __ldg(ix.off + g * 32 + 32));
-  const int s_lo = __ldg(ix.off + j);
+  const int s_lo = __ldg(ix.off + slot);
   const int lo = min(max(s_lo, c0), c1);
-  const int hi = min(max(__ldg(ix.off + j + 1), c0), c1);
-  const int part = lo < hi ? __ldg(ix.part_at + j) + sub - (s_lo - g_lo) / piece_len : -1;
-  return PieceLane{j, s_lo, lo, hi, part};
+  const int hi = min(max(__ldg(ix.off + slot + 1), c0), c1);
+  const int part = lo < hi ? __ldg(ix.part_at + slot) + sub - (s_lo - g_lo) / piece_len : -1;
+  return PieceLane{slot, s_lo, c0, lo, hi, part};
+}
+
+__device__ __forceinline__ PieceLane piece_lane(const TileIndex& ix, int q, int piece_len) {
+  return piece_item(ix, q, static_cast<int>(threadIdx.x & 31), piece_len);
 }
 
 // finish_width is a power of two, at most 32 (the lanes of one feature)

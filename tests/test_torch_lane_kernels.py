@@ -18,6 +18,7 @@ import torch
 
 from photon_ml_tpu_torch import kernels
 from photon_ml_tpu_torch.kernels import reference
+from photon_ml_tpu_torch.ops.block_diagonal import BlockDiagonalBatch
 from photon_ml_tpu_torch.ops.csr import CSRBatch
 
 G = 5
@@ -104,27 +105,69 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,f,lanes", [(20_000, 300, 1), (20_000, 300, 7), (9_000, 70_000, 9)])
-def test_lane_kernels_equal_the_single_kernel_per_lane(cuda, n, f, lanes):
-    """Each lane bit for bit the single-vector kernel on its vector: 300
-    features stage the lanes' tables, 70,000 gather them from L2; 7 and 9
-    lanes take two chunks."""
+def _design(name, cuda):
+    """(CSRBatch on the card, rng) for a named design of the card test:
+    uniform rows of 12 nonzeros over 300 features (the lanes' tables staged)
+    or 70,000 (W gathered from L2); rows of geometric lengths with every
+    97th over 128 nonzeros and feature 0 in every other row (long rows, and
+    long segments cut into several pieces a row tile); or a COO bucket's
+    block-diagonal batch (3,000 entities x 16 rows x 64 features: 192,000
+    columns, the L2 regime)."""
     rng = np.random.default_rng(5)
-    cols = rng.integers(0, f, size=n * 12)
-    rows = np.repeat(np.arange(n), 12)
-    b = CSRBatch.from_coo(rng.normal(size=n * 12), rows, cols, np.zeros(n), f,
-                          offsets=rng.normal(size=n), device=cuda)
+    if name.startswith("uniform"):
+        n, f = (9_000, 70_000) if name == "uniform 70000" else (20_000, 300)
+        cols = rng.integers(0, f, size=n * 12)
+        rows = np.repeat(np.arange(n), 12)
+        return CSRBatch.from_coo(rng.normal(size=n * 12), rows, cols, np.zeros(n), f,
+                                 offsets=rng.normal(size=n), device=cuda), rng
+    if name == "long rows and segments":
+        n, f = 20_000, 300
+        lengths = np.minimum(rng.geometric(0.05, size=n), 400)
+        lengths[::97] = 300
+        rows = np.repeat(np.arange(n), lengths)
+        cols = rng.integers(1, f, size=len(rows))
+        cols[np.r_[0, np.cumsum(lengths)[:-1]][::2]] = 0
+        return CSRBatch.from_coo(rng.normal(size=len(rows)), rows, cols, np.zeros(n), f,
+                                 offsets=rng.normal(size=n), device=cuda), rng
+    e, r, k, nz = 3_000, 16, 64, 40
+    block = BlockDiagonalBatch.from_bucket(
+        rng.normal(size=(e, nz)), rng.integers(0, r, size=(e, nz)),
+        rng.integers(0, k, size=(e, nz)), np.zeros((e, r)), rng.normal(size=(e, r)),
+        np.ones((e, r)), k, device=cuda)
+    return block.csr, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("offsets", ["per_lane", "shared"])
+@pytest.mark.parametrize("design,lanes", [
+    ("uniform 300", 1), ("uniform 300", 7), ("uniform 70000", 9), ("uniform 300", 16),
+    ("uniform 300", 17), ("long rows and segments", 16), ("block diagonal", 16)])
+def test_lane_kernels_equal_the_single_kernel_per_lane(cuda, design, lanes, offsets, square):
+    """Each lane bit for bit the single-vector kernel on its vector, and the
+    launch within 1e-4 of its plain version: 1, 7 and 9 lanes take part of a
+    chunk, 16 a whole one (a cluster of four lane groups) and 17 two; the
+    long rows and segments take the warp's tree; 70,000 features and the
+    block-diagonal batch gather W from L2. Offsets per lane with per-lane
+    shifts, or one shared vector with a host shift."""
+    b, rng = _design(design, cuda)
+    n, f = b.num_rows, b.num_features
     W = torch.from_numpy(rng.normal(size=(lanes, f)).astype(np.float32)).to(cuda)
     R = torch.from_numpy(rng.normal(size=(lanes, n)).astype(np.float32)).to(cuda)
-    off = torch.from_numpy(rng.normal(size=(lanes, n)).astype(np.float32)).to(cuda)
-    sh = torch.from_numpy(rng.normal(size=lanes).astype(np.float32)).to(cuda)
+    if offsets == "per_lane":
+        off = torch.from_numpy(rng.normal(size=(lanes, n)).astype(np.float32)).to(cuda)
+        sh = torch.from_numpy(rng.normal(size=lanes).astype(np.float32)).to(cuda)
+    else:
+        off, sh = b.offsets, -0.25
     Z = kernels.csr_margins_lanes(*b._csr, W, off, sh, True)
-    O = kernels.csc_scatter_lanes(*b._csc, R, True, b.tiles)
+    O = kernels.csc_scatter_lanes(*b._csc, R, square, b.tiles)
     for g in range(lanes):
-        assert torch.equal(Z[g], kernels.csr_margins(*b._csr, W[g], off[g], sh[g:g + 1], True))
-        assert torch.equal(O[g], kernels.csc_scatter(*b._csc, R[g], True, b.tiles))
+        off_g, sh_g = (off[g], sh[g:g + 1]) if offsets == "per_lane" else (off, sh)
+        assert torch.equal(Z[g], kernels.csr_margins(*b._csr, W[g], off_g, sh_g, True))
+        assert torch.equal(O[g], kernels.csc_scatter(*b._csc, R[g], square, b.tiles))
+    assert torch.equal(Z, kernels.csr_margins_lanes(*b._csr, W, off, sh, True))
+    assert torch.equal(O, kernels.csc_scatter_lanes(*b._csc, R, square, b.tiles))
     plain = reference.csr_margins_lanes(*b._csr, W, off, sh, True)
     assert float((Z - plain).abs().max()) <= 1e-4 * max(1.0, float(plain.abs().max()))
-    plain = reference.csc_scatter_lanes(*b.column_major(), R, True)
+    plain = reference.csc_scatter_lanes(*b.column_major(), R, square)
     assert float((O - plain).abs().max()) <= 1e-4 * max(1.0, float(plain.abs().max()))
