@@ -16,23 +16,27 @@
 //     lane j takes the chunk's positions a + j, a + j + 32, ..., then
 //     warp_tree, and the chunk's sum is added to the item's.
 // The short items go in windows: up to 32 consecutive short items whose
-// positions fit a stage of S positions, one item a thread. The warp loads
-// the window's indices and values once, with 16-byte loads, into its stage
-// in shared memory (padded one word in 32, so owners walking runs of equal
-// length do not meet in a bank); then each owner walks its item: two stage
-// reads and one gather of the L lanes' table values a position. A window
-// ends before a long item, which the warp sums alone, reading its positions
-// straight from global memory (coalesced). So no owner waits on positions
-// of other items, and no product is stored: the single kernels' product
-// chunk and its round trip are gone.
+// positions fit a stage of S positions, one item a thread. The window's
+// indices and values come into the warp's stage in shared memory once;
+// then each owner walks its item: two stage reads and one gather of the L
+// lanes' table values a position. A window ends before a long item, which
+// the warp sums alone, reading its positions straight from global memory
+// (coalesced). So no owner waits on positions of other items, and no
+// product is stored: the single kernels' product chunk and its round trip
+// are gone. A warp takes its items a unit of 64 at a time, their bounds in
+// registers (two a lane), loaded a unit ahead.
 //
 // The lanes of a launch come in chunks of at most kChunkLanes (16), so X is
 // read once per 16 lanes. A block holds kGroupLanes (4) lanes' tables
 // lane-minor, one float4 per index; the blocks of a chunk's lane groups form
-// one thread-block cluster that walks the same items in lockstep (a split
-// cluster barrier after every round of the block's warps), so the cluster's
-// blocks read each stretch of X within a round of each other: from HBM once,
-// from L2 by the others.
+// one thread-block cluster whose blocks walk the same items, warp w of each
+// the same windows. Where the cluster has more than one block, rank 0's warp
+// w loads each window for all of them with one TMA multicast bulk copy
+// (MulticastFeed): X comes from HBM and through L2 once a call. Each block's
+// warp w waits for its copy on its own mbarrier, and rank 0 issues the next
+// copy once every block's warp w has released the stage (a remote arrive on
+// rank 0's barrier). A cluster of one block loads its windows itself with
+// 16-byte loads (LocalFeed).
 
 #pragma once
 
@@ -53,41 +57,7 @@ constexpr int kMaxCluster = kChunkLanes / kGroupLanes;
 // the most dynamic shared memory a block may take (227 KB on the card)
 constexpr size_t kLaneSmemLimitBytes = 227 * 1024;
 
-// A warp's stage of S positions (a multiple of 128), padded one word in 32,
-// for the indices and again for the values.
-template <int S>
-__host__ __device__ constexpr int stage_words() {
-  return S + S / 32;
-}
-template <int S>
-__host__ __device__ constexpr size_t stage_bytes() {
-  return static_cast<size_t>(kLaneWarps) * 2 * stage_words<S>() * sizeof(int);
-}
-
 __device__ __forceinline__ int padded(int q) { return q + (q >> 5); }
-
-// The split cluster barrier: arrive after a round, wait before the next
-// arrive, so no block of a cluster runs more than a round ahead.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-struct Lockstep {
-  bool on;
-  bool pending = false;
-  __device__ __forceinline__ void round_done() {
-    if (!on) return;
-    if (pending) cluster_wait();
-    cluster_arrive();
-    pending = true;
-  }
-  __device__ __forceinline__ void finish() {
-    if (pending) cluster_wait();
-  }
-};
 
 // The table of kGroupLanes lanes in shared memory, one float4 per entry;
 // entry 0 is index `base`.
@@ -99,6 +69,30 @@ struct GroupTable {
     out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
   }
 };
+
+// Stage `count` entries of a group's kGroupLanes rows of a [G, stride]
+// array (lanes past gn read as 0) lane-minor, one float4 an entry; four
+// entries' loads a thread in flight at a time.
+__device__ __forceinline__ void stage_group(const float* __restrict__ src, long long stride,
+                                            int gn, int count, float4* __restrict__ dst) {
+  constexpr int kUnroll = 4;
+  for (int i0 = threadIdx.x; i0 < count; i0 += kUnroll * blockDim.x) {
+    float x[kUnroll][kGroupLanes];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * blockDim.x;
+#pragma unroll
+      for (int k = 0; k < kGroupLanes; ++k) {
+        x[u][k] = i < count && k < gn ? __ldg(src + k * stride + i) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < count) dst[i] = make_float4(x[u][0], x[u][1], x[u][2], x[u][3]);
+    }
+  }
+}
 
 // How G lanes split: chunks of at most kChunkLanes, balanced; the lane
 // groups of a chunk, one block each, form a cluster.
@@ -113,22 +107,144 @@ inline LaneSplit lane_split(int n_lanes) {
   return LaneSplit{chunks, (groups + chunks - 1) / chunks};
 }
 
-// The stage of the calling warp, after those of the lower warps.
-template <int S>
-struct Stage {
-  int* idx;
-  float* val;
+// ---- the cluster: barriers, mbarriers, bulk copies -------------------------
 
-  __device__ __forceinline__ explicit Stage(void* base) {
-    idx = reinterpret_cast<int*>(base) + (threadIdx.x >> 5) * 2 * stage_words<S>();
-    val = reinterpret_cast<float*>(idx + stage_words<S>());
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// arrive on the mbarrier at `bar`, a shared::cluster address (any block's)
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` of the local mbarrier `bar` to
+// complete. A wait past about two seconds (2^32 cycles) traps: the launch
+// fails rather than hangs.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
   }
+}
 
-  // positions [base, end) of idx/vals (end - base <= S, base a multiple of
-  // 4), values squared with `square` as the single kernels round v * v
-  __device__ __forceinline__ void fill(const int* __restrict__ idx_g,
-                                       const float* __restrict__ vals_g, bool vec, bool square,
-                                       int base, int end) const {
+// bytes [src, src + bytes) of global memory to the same shared offset `dst`
+// in every block of `mask`, each block's mbarrier at offset `bar` told of
+// them
+__device__ __forceinline__ void bulk_multicast(unsigned dst, const void* src, unsigned bytes,
+                                               unsigned bar, unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// ---- the windows --------------------------------------------------------
+
+// An item of a unit: positions [lo, hi), and a tag the emit reads (a
+// segment's part; unused for rows).
+struct Item {
+  int lo;
+  int hi;
+  int tag;
+};
+
+// The items of a unit, j in [0, 64): lane t holds items t (u[0]) and 32 + t
+// (u[1]). Item j, fetched by every lane for its own j.
+__device__ __forceinline__ Item item_at(const Item (&u)[2], int j) {
+  const int src = j & 31;
+  const int lo0 = __shfl_sync(kFullMask, u[0].lo, src);
+  const int lo1 = __shfl_sync(kFullMask, u[1].lo, src);
+  const int hi0 = __shfl_sync(kFullMask, u[0].hi, src);
+  const int hi1 = __shfl_sync(kFullMask, u[1].hi, src);
+  const int tag0 = __shfl_sync(kFullMask, u[0].tag, src);
+  const int tag1 = __shfl_sync(kFullMask, u[1].tag, src);
+  return j < 32 ? Item{lo0, hi0, tag0} : Item{lo1, hi1, tag1};
+}
+
+// A window of a unit from item w0: the calling lane's item w0 + lane; k
+// items short enough to fit positions [base, end) in the stage, or k == 0
+// where item w0 is long (a short one always fits).
+struct Window {
+  Item it;
+  int k;
+  int base;
+  int end;
+};
+
+template <int S>
+__device__ __forceinline__ Window window_at(const Item (&u)[2], int n, int w0) {
+  const int j = w0 + static_cast<int>(threadIdx.x & 31);
+  Window w;
+  w.it = item_at(u, min(j, n - 1));
+  w.base = __shfl_sync(kFullMask, w.it.lo, 0) & ~3;
+  const unsigned fit = __ballot_sync(
+      kFullMask, j < n && w.it.hi - w.it.lo <= kLongSegment && w.it.hi - w.base <= S);
+  w.k = fit == kFullMask ? 32 : __ffs(~fit) - 1;
+  w.end = __shfl_sync(kFullMask, w.it.hi, max(w.k - 1, 0));
+  return w;
+}
+
+// A block's feed of windows to its warps' stages: S positions a warp,
+// indices then values, kBytes of shared memory in all, constructed from
+// (smem, idx, vals, nnz, rank, cluster) after begin(smem, cluster) has run
+// on every thread of the block. slot(q) is position q's place in a stage
+// array;
+// fill(idx, vals, base, end) brings positions [base, end) in (end - base <=
+// S, base a multiple of 4); release() hands the stage back after the walk.
+// Uniform across the warp.
+
+// Each warp loads its own windows: 16-byte loads of whole quads where the
+// arrays are aligned, the stage padded one word in 32 so that owners walking
+// runs of equal length do not meet in a bank.
+template <int S>
+struct LocalFeed {
+  static constexpr bool kMulticast = false;
+  static constexpr int kStage = S;
+  static constexpr int kWords = S + S / 32;
+  static constexpr size_t kBytes = static_cast<size_t>(kLaneWarps) * 2 * kWords * sizeof(int);
+  int* sidx;
+  float* sval;
+  bool vec;
+
+  __device__ __forceinline__ LocalFeed(void* smem, const int* idx, const float* vals, int, int,
+                                       int) {
+    sidx = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * 2 * kWords;
+    sval = reinterpret_cast<float*>(sidx + kWords);
+    vec = aligned16(idx, vals);
+  }
+  static __device__ __forceinline__ void begin(void*, int) { __syncthreads(); }
+  static __device__ __forceinline__ void end(int) {}
+  static __device__ __forceinline__ int slot(int q) { return padded(q); }
+
+  __device__ __forceinline__ void fill(const int* __restrict__ idx,
+                                       const float* __restrict__ vals, int base, int end) {
     constexpr int kQuads = S / 128;
     const int lane = threadIdx.x & 31;
     int c[kQuads][4];
@@ -137,16 +253,16 @@ struct Stage {
     for (int i = 0; i < kQuads; ++i) {
       const int q = base + 4 * (lane + 32 * i);
       if (vec && q + 4 <= end) {
-        const int4 ci = __ldg(reinterpret_cast<const int4*>(idx_g + q));
-        const float4 vi = __ldg(reinterpret_cast<const float4*>(vals_g + q));
+        const int4 ci = __ldg(reinterpret_cast<const int4*>(idx + q));
+        const float4 vi = __ldg(reinterpret_cast<const float4*>(vals + q));
         c[i][0] = ci.x, c[i][1] = ci.y, c[i][2] = ci.z, c[i][3] = ci.w;
         v[i][0] = vi.x, v[i][1] = vi.y, v[i][2] = vi.z, v[i][3] = vi.w;
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const bool in = q + j < end;
-          c[i][j] = in ? __ldg(idx_g + q + j) : 0;
-          v[i][j] = in ? __ldg(vals_g + q + j) : 0.0f;
+          c[i][j] = in ? __ldg(idx + q + j) : 0;
+          v[i][j] = in ? __ldg(vals + q + j) : 0.0f;
         }
       }
     }
@@ -155,12 +271,110 @@ struct Stage {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int at = padded(4 * (lane + 32 * i) + j);
-        idx[at] = c[i][j];
-        val[at] = square ? __fmul_rn(v[i][j], v[i][j]) : v[i][j];
+        sidx[at] = c[i][j];
+        sval[at] = v[i][j];
       }
     }
+    __syncwarp();
+  }
+  __device__ __forceinline__ void release() { __syncwarp(); }
+};
+
+// The cluster's rank 0 multicasts each window to every block (file
+// comment; a cluster of more than one block); the stage is unpadded (a bulk
+// copy is contiguous). Positions
+// past the array's last whole quad come in with plain loads. The
+// mbarriers follow the stages: each warp's `full` (one arrival and the
+// bytes) and `empty` (one arrival a block, used on rank 0).
+template <int S>
+struct MulticastFeed {
+  static constexpr bool kMulticast = true;
+  static constexpr int kStage = S;
+  static constexpr int kWords = S;
+  static constexpr size_t kBytes =
+      static_cast<size_t>(kLaneWarps) * (2 * kWords * sizeof(int) + 2 * sizeof(long long));
+  int* sidx;
+  float* sval;
+  unsigned full;    // this warp's, shared::cta
+  unsigned empty0;  // rank 0's empty barrier of this warp, shared::cluster
+  int nnz;
+  bool leader;
+  unsigned short mask;
+  unsigned phase;  // windows so far
+
+  // the feed of this block; init() must run (and the cluster sync) first
+  __device__ __forceinline__ MulticastFeed(void* smem, const int*, const float*, int nnz_,
+                                           int rank, int cluster) {
+    const int warp = threadIdx.x >> 5;
+    sidx = reinterpret_cast<int*>(smem) + warp * 2 * kWords;
+    sval = reinterpret_cast<float*>(sidx + kWords);
+    long long* bars = reinterpret_cast<long long*>(reinterpret_cast<int*>(smem) +
+                                                   kLaneWarps * 2 * kWords);
+    full = smem_addr(bars + 2 * warp);
+    const unsigned empty = smem_addr(bars + 2 * warp + 1);
+    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;" : "=r"(empty0) : "r"(empty));
+    nnz = nnz_;
+    leader = rank == 0;
+    mask = static_cast<unsigned short>((1u << cluster) - 1);
+    phase = 0;
+  }
+
+  // the mbarriers of every warp, initialised by thread 0 of the block and
+  // then seen by the cluster
+  static __device__ __forceinline__ void begin(void* smem, int cluster) {
+    if (threadIdx.x == 0) {
+      long long* bars = reinterpret_cast<long long*>(reinterpret_cast<int*>(smem) +
+                                                     kLaneWarps * 2 * kWords);
+      for (int w = 0; w < kLaneWarps; ++w) {
+        mbar_init(smem_addr(bars + 2 * w), 1);
+        mbar_init(smem_addr(bars + 2 * w + 1), static_cast<unsigned>(cluster));
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cluster_sync();
+  }
+  // no block leaves while a peer may still signal its barriers
+  static __device__ __forceinline__ void end(int) { cluster_sync(); }
+
+  static __device__ __forceinline__ int slot(int q) { return q; }
+
+  __device__ __forceinline__ void fill(const int* __restrict__ idx,
+                                       const float* __restrict__ vals, int base, int end) {
+    const int lane = threadIdx.x & 31;
+    // the bulk part: whole quads, never past the array's last whole quad
+    const int bulk_end = max(base, min((end + 3) & ~3, nnz & ~3));
+    const unsigned bytes = static_cast<unsigned>(bulk_end - base) * 4u;
+    if (lane == 0) {
+      mbar_expect_tx(full, 2 * bytes);
+      if (leader && bytes > 0) {
+        if (phase > 0) {
+          const unsigned empty = full + 8;  // this warp's empty barrier
+          mbar_wait(empty, (phase - 1) & 1);
+        }
+        bulk_multicast(smem_addr(sidx), idx + base, bytes, full, mask);
+        bulk_multicast(smem_addr(sval), vals + base, bytes, full, mask);
+      }
+    }
+    mbar_wait(full, phase & 1);
+    if (bulk_end < end) {
+      for (int q = bulk_end + lane; q < end; q += 32) {
+        sidx[q - base] = __ldg(idx + q);
+        sval[q - base] = __ldg(vals + q);
+      }
+      // ordered before the next bulk copy into this stage
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive_cluster(empty0);
+    ++phase;
   }
 };
+
+// ---- the walk -----------------------------------------------------------
 
 // A long item [lo, hi) summed by the whole warp, chunk by chunk of the grid
 // at `grid`, into acc (every lane ends with the same sums).
@@ -190,55 +404,58 @@ __device__ __forceinline__ void long_item_sums(int lo, int hi, int grid,
   }
 }
 
-// Items [i0, i1) of `items` (at(i): .lo, .hi; grid(i): a long item's chunk
-// grid), summed for the L lanes `gather` returns; emit(i, item, acc) is
-// called once per item by the thread that holds its sums. Uniform across
-// the warp.
-template <int L, int S, class Items, class Gather, class Emit>
-__device__ __forceinline__ void walk_items(int i0, int i1, const Items& items,
-                                           const int* __restrict__ idx,
-                                           const float* __restrict__ vals, bool vec,
-                                           bool square, const Stage<S>& stage,
-                                           const Gather& gather, const Emit& emit) {
-  const int lane = threadIdx.x & 31;
-  for (int w0 = i0; w0 < i1;) {
-    const int i = w0 + lane;
-    const auto it = items.at(min(i, i1 - 1));
-    const int base = __shfl_sync(kFullMask, it.lo, 0) & ~3;
-    // the window: the leading items that are short and fit the stage (an
-    // empty prefix means item w0 is long: a short one always fits)
-    const unsigned fit = __ballot_sync(
-        kFullMask, i < i1 && it.hi - it.lo <= kLongSegment && it.hi - base <= S);
-    const int k = fit == kFullMask ? 32 : __ffs(~fit) - 1;
-    float acc[L];
+// The walk of a warp over units of items, each summed for the L lanes
+// `gather` returns (values squared first with `square`, rounded as the
+// single kernels round v * v); emit(j, item, acc) is called once per item j
+// of the unit by the thread that holds its sums. A long item's chunk grid
+// is its 32-item block's first position & ~3 (rows: the single kernel's
+// 32-row tile; segments: the piece). Uniform across the warp.
+template <int L, class Feed, class Gather>
+struct LaneWalk {
+  const int* idx;
+  const float* vals;
+  bool square;
+  Feed feed;
+  Gather gather;
+
+  template <class Emit>
+  __device__ __forceinline__ void unit(const Item (&u)[2], int n, const Emit& emit) {
+    const int lane = threadIdx.x & 31;
+    for (int w0 = 0; w0 < n;) {
+      const Window cur = window_at<Feed::kStage>(u, n, w0);
+      float acc[L];
 #pragma unroll
-    for (int j = 0; j < L; ++j) acc[j] = 0.0f;
-    if (k == 0) {
-      long_item_sums<L>(__shfl_sync(kFullMask, it.lo, 0), __shfl_sync(kFullMask, it.hi, 0),
-                        items.grid(w0), idx, vals, square, gather, acc);
-      if (lane == 0) emit(w0, it, acc);
-      w0 += 1;
-      continue;
-    }
-    stage.fill(idx, vals, vec, square, base, __shfl_sync(kFullMask, it.hi, k - 1));
-    __syncwarp();
-    if (lane < k) {
-      const int b = it.hi - base;
-#pragma unroll 4
-      for (int q = it.lo - base; q < b; ++q) {
-        const int at = padded(q);
-        float t[L];
-        gather(stage.idx[at], t);
-        const float x = stage.val[at];
-#pragma unroll
-        for (int j = 0; j < L; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(x, t[j]));
+      for (int k = 0; k < L; ++k) acc[k] = 0.0f;
+      if (cur.k == 0) {
+        const int grid0 = __shfl_sync(kFullMask, u[0].lo, 0);
+        const int grid1 = __shfl_sync(kFullMask, u[1].lo, 0);
+        long_item_sums<L>(__shfl_sync(kFullMask, cur.it.lo, 0),
+                          __shfl_sync(kFullMask, cur.it.hi, 0),
+                          (w0 < 32 ? grid0 : grid1) & ~3, idx, vals, square, gather, acc);
+        if (lane == 0) emit(w0, cur.it, acc);
+        w0 += 1;
+        continue;
       }
-      emit(i, it, acc);
+      feed.fill(idx, vals, cur.base, cur.end);
+      if (lane < cur.k) {
+        const int b = cur.it.hi - cur.base;
+#pragma unroll 4
+        for (int q = cur.it.lo - cur.base; q < b; ++q) {
+          const int at = Feed::slot(q);
+          float t[L];
+          gather(feed.sidx[at], t);
+          float x = feed.sval[at];
+          if (square) x = __fmul_rn(x, x);
+#pragma unroll
+          for (int k = 0; k < L; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(x, t[k]));
+        }
+        emit(w0 + lane, cur.it, acc);
+      }
+      feed.release();
+      w0 += cur.k;
     }
-    __syncwarp();
-    w0 += k;
   }
-}
+};
 
 // Launch `kernel` in clusters of `cluster` blocks along x (no cluster at 1).
 template <class... Args>

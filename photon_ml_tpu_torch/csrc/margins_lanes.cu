@@ -13,30 +13,31 @@
 // G floats per row: 228.6 MB at config #1 (1M rows x 10K features x 20
 // nonzeros) with G = 16. This design's HBM floor is the bound: X is read from
 // HBM once a call for G <= 16 (once per 16 lanes above), W once, Z written
-// once. What it pays besides, on chip: X from L2 once per lane group of 4, W
-// from L2 once per resident cluster, and per nonzero and group two stage
-// reads and one float4 gather in shared memory (the gathers of random
-// features meet in banks: about 10 wavefronts a warp's 32 for 4).
+// once. What it pays besides, on chip: W from L2 once per resident cluster,
+// and per nonzero and lane group two stage reads and one float4 gather in
+// shared memory (gathers of random features meet in banks: about 10
+// wavefronts for a warp's 32).
 //
 // Design (lanes.cuh): lanes go in chunks of at most 16, a chunk's lanes in
-// groups of 4. Where a group's table fits beside the warps' stages
-// (kStagedMaxFeatures, 10,304), each block stages its group's four rows of W
-// lane-minor, one float4 per feature, and the chunk's groups are one cluster
-// of up to 4 blocks that walks the same rows in lockstep: each warp takes
-// kRowsPerWarp consecutive rows a round, loads windows of up to 32 whole
-// rows into its stage with 16-byte loads, and the thread that owns a row
-// sums it in nonzero order in four registers, one gather per nonzero; rows
-// over kLongSegment nonzeros are summed by the whole warp per kChunk chunk of
-// their 32-row tile's grid, segments.cuh's tree. So every lane is bit for bit
-// what margins.cu gives for its vector: the same products rounded to float,
-// the same order, the same chunks for long rows, the same epilogue (acc +
-// shift, then + offset). No float atomics, no product chunk.
+// groups of 4, one block a group and the chunk's groups one cluster. Where a
+// group's table fits beside the warps' stages (kStagedMaxFeatures, 10,304),
+// each block stages its group's four rows of W lane-minor, one float4 per
+// feature. The cluster's blocks walk the same rows: each warp takes
+// kRowsPerWarp consecutive rows a round, in windows of up to 32 whole rows
+// that rank 0 multicasts to every block's stage with one bulk copy, so X
+// crosses L2 once; the thread that owns a row sums it in nonzero order in
+// four registers, one gather per nonzero; rows over kLongSegment nonzeros
+// are summed by the whole warp per kChunk chunk of their 32-row tile's
+// grid, segments.cuh's tree. So every lane is bit for bit what margins.cu
+// gives for its vector: the same products rounded to float, the same order,
+// the same chunks for long rows, the same epilogue (acc + shift, then +
+// offset). No float atomics, no product chunk.
 //
 // The regime is chosen by shape: past kStagedMaxFeatures (a block-diagonal
 // batch's millions of columns, ops/shared_design.py BlockDiagonalLanes) no
-// group's table fits, and one block takes a whole 16-lane chunk with W
-// gathered lane by lane through L1 and L2; a row of such a batch touches one
-// entity's K columns, so its lanes' gathers stay in a few lines.
+// group's table fits, and W is gathered lane by lane through L1 and L2, the
+// same walk otherwise; a row of such a batch touches one entity's K columns,
+// and a block's four lanes of them stay in its L1.
 
 #include "lanes.cuh"
 
@@ -56,51 +57,57 @@ struct LaneParams {
   int n_rows;
   int n_features;
   int n_lanes;
-  int cluster;  // blocks of a cluster: the lane groups of a chunk, or 1
+  int cluster;  // blocks of a cluster: the lane groups of a chunk
 };
 
-// W [G, F] read lane-major through L1 and L2, the lanes of a 16-lane chunk
+// W [G, F] of a group's lanes read lane-major through L1 and L2
 struct GlobalTable {
   const float* w;
   long long stride;
   int gn;
-  __device__ __forceinline__ void operator()(int c, float (&out)[kChunkLanes]) const {
+  __device__ __forceinline__ void operator()(int c, float (&out)[kGroupLanes]) const {
 #pragma unroll
-    for (int k = 0; k < kChunkLanes; ++k) out[k] = k < gn ? __ldg(w + k * stride + c) : 0.0f;
+    for (int k = 0; k < kGroupLanes; ++k) out[k] = k < gn ? __ldg(w + k * stride + c) : 0.0f;
   }
 };
 
 // a warp's stage, in positions
 constexpr int kRowStage = 512;
-// consecutive rows a warp takes a round
+// consecutive rows a warp takes a round: one unit of the walk
 constexpr int kRowsPerWarp = 64;
-constexpr int kStagedMaxFeatures = static_cast<int>(
-    (kLaneSmemLimitBytes - stage_bytes<kRowStage>()) / sizeof(float4));
+constexpr size_t kRowFeedBytes = LocalFeed<kRowStage>::kBytes > MulticastFeed<kRowStage>::kBytes
+                                     ? LocalFeed<kRowStage>::kBytes
+                                     : MulticastFeed<kRowStage>::kBytes;
+constexpr int kStagedMaxFeatures =
+    static_cast<int>((kLaneSmemLimitBytes - kRowFeedBytes) / sizeof(float4));
 
-// The rows as items of the walk: row i is nonzeros [row_ptr[i],
-// row_ptr[i + 1]); a long row's chunks sit on its 32-row tile's grid.
-struct RowItems {
-  const int* row_ptr;
-  struct Item {
-    int lo;
-    int hi;
-  };
-  __device__ __forceinline__ Item at(int i) const {
-    return Item{__ldg(row_ptr + i), __ldg(row_ptr + i + 1)};
+// The unit of rows [first, first + n), n <= kRowsPerWarp (0 past the end):
+// lane t holds rows first + t and first + 32 + t.
+__device__ __forceinline__ int row_unit(const int* row_ptr, long long first, int n_rows,
+                                        Item (&u)[2]) {
+  const int n = first < n_rows ? static_cast<int>(min(static_cast<long long>(kRowsPerWarp),
+                                                      n_rows - first))
+                               : 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = min(h * 32 + static_cast<int>(threadIdx.x & 31), n - 1);
+    u[h] = i >= 0 ? Item{__ldg(row_ptr + first + i), __ldg(row_ptr + first + i + 1), 0}
+                  : Item{0, 0, 0};
   }
-  __device__ __forceinline__ int grid(int i) const { return __ldg(row_ptr + (i & ~31)) & ~3; }
-};
+  return n;
+}
 
-// Z[g0 + k, row] = acc[k] + shift (+ offset), margins.cu's epilogue
-template <int L>
+// Z[g0 + k, first + j] = acc[k] + shift (+ offset), margins.cu's epilogue
 struct MarginsEmit {
   const LaneParams* p;
   int g0;
   int gn;
-  __device__ __forceinline__ void operator()(int row, const RowItems::Item&,
-                                             const float (&acc)[L]) const {
+  long long first;
+  __device__ __forceinline__ void operator()(int j, const Item&,
+                                             const float (&acc)[kGroupLanes]) const {
+    const long long row = first + j;
 #pragma unroll
-    for (int k = 0; k < L; ++k) {
+    for (int k = 0; k < kGroupLanes; ++k) {
       if (k >= gn) break;
       const long long g = g0 + k;
       const float shift =
@@ -112,127 +119,75 @@ struct MarginsEmit {
   }
 };
 
-template <bool kStaged>
-__global__ void __launch_bounds__(kLaneThreads, 1)
-margins_lanes_kernel(const __grid_constant__ LaneParams p) {
-  constexpr int L = kStaged ? kGroupLanes : kChunkLanes;
-  extern __shared__ float4 smem4[];
-  const int warp = threadIdx.x >> 5;
-  const int rank = static_cast<int>(blockIdx.x) % p.cluster;
-  const int g0 = kStaged ? (static_cast<int>(blockIdx.y) * p.cluster + rank) * kGroupLanes
-                         : static_cast<int>(blockIdx.y) * kChunkLanes;
-  const int gn = max(0, min(L, p.n_lanes - g0));
-  const long long F = p.n_features;
-  float4* table = smem4 + stage_bytes<kRowStage>() / sizeof(float4);
-  if constexpr (kStaged) {
-    const float* w = p.w + g0 * F;
-    for (int f = threadIdx.x; f < p.n_features; f += blockDim.x) {
-      float x[kGroupLanes];
-#pragma unroll
-      for (int k = 0; k < kGroupLanes; ++k) x[k] = k < gn ? __ldg(w + k * F + f) : 0.0f;
-      table[f] = make_float4(x[0], x[1], x[2], x[3]);
-    }
-    __syncthreads();
+// The rows of the cluster's rounds r0, r0 + stride, ...: in round r warp w
+// takes rows [(r * kLaneWarps + w) * kRowsPerWarp, ...).
+template <class Feed, class Gather>
+__device__ __forceinline__ void margins_rows(const LaneParams& p, const Feed& feed,
+                                             const Gather& gather, int g0, int gn) {
+  LaneWalk<kGroupLanes, Feed, Gather> walk{p.cols, p.vals, false, feed, gather};
+  const long long warp_first = static_cast<long long>(threadIdx.x >> 5) * kRowsPerWarp;
+  constexpr long long kRound = static_cast<long long>(kLaneWarps) * kRowsPerWarp;
+  const long long n_rounds = (p.n_rows + kRound - 1) / kRound;
+  const long long stride = static_cast<int>(gridDim.x) / p.cluster;
+  long long r = static_cast<int>(blockIdx.x) / p.cluster;
+  Item u[2], nu[2];
+  int n = row_unit(p.row_ptr, r * kRound + warp_first, p.n_rows, u);
+  for (; r < n_rounds; r += stride) {
+    // the next unit's bounds, loaded while this unit is summed
+    const int nn = r + stride < n_rounds
+                       ? row_unit(p.row_ptr, (r + stride) * kRound + warp_first, p.n_rows, nu)
+                       : 0;
+    if (n > 0) walk.unit(u, n, MarginsEmit{&p, g0, gn, r * kRound + warp_first});
+    u[0] = nu[0];
+    u[1] = nu[1];
+    n = nn;
   }
-  const Stage<kRowStage> stage(smem4);
-  const bool vec = aligned16(p.cols, p.vals);
-  const RowItems rows{p.row_ptr};
-  const MarginsEmit<L> emit{&p, g0, gn};
-  constexpr int kRound = kLaneWarps * kRowsPerWarp;
-  const long long n_rounds = (static_cast<long long>(p.n_rows) + kRound - 1) / kRound;
-  const int n_clusters = static_cast<int>(gridDim.x) / p.cluster;
-  Lockstep step{p.cluster > 1};
-  // a round: warp w takes rows [(r * kLaneWarps + w) * kRowsPerWarp, ...);
-  // the loop is uniform across the cluster, whose blocks share
-  // blockIdx.x / cluster
-  for (long long r = static_cast<int>(blockIdx.x) / p.cluster; r < n_rounds; r += n_clusters) {
-    const long long first = r * kRound + static_cast<long long>(warp) * kRowsPerWarp;
-    if (gn > 0 && first < p.n_rows) {
-      const int i0 = static_cast<int>(first);
-      const int i1 = static_cast<int>(min(first + kRowsPerWarp, static_cast<long long>(p.n_rows)));
-      if constexpr (kStaged) {
-        walk_items<L>(i0, i1, rows, p.cols, p.vals, vec, false, stage, GroupTable{table, 0}, emit);
-      } else {
-        walk_items<L>(i0, i1, rows, p.cols, p.vals, vec, false, stage,
-                      GlobalTable{p.w + g0 * F, F, gn}, emit);
-      }
-    }
-    step.round_done();
-  }
-  step.finish();
 }
 
-// Design (b), kept beside (a) only to measure the two on the card
-// (tools/probe_lane_designs.py): the 16 lanes' table split over the cluster
-// by features, each block holding all 16 lanes of a quarter of the
-// features, 4 float4 per feature, gathered over distributed shared memory;
-// every block walks rows of its own, so X is read once, with no lockstep.
-struct SplitTable {
-  unsigned base[kMaxCluster];  // each rank's slice, shared::cluster addresses
-  int fq;                      // features a rank holds
-  __device__ __forceinline__ void operator()(int c, float (&out)[kChunkLanes]) const {
-    const int owner = (c >= fq) + (c >= 2 * fq) + (c >= 3 * fq);
-    const unsigned b = owner == 0 ? base[0] : owner == 1 ? base[1] : owner == 2 ? base[2] : base[3];
-    const unsigned a = b + static_cast<unsigned>(c - owner * fq) * 64u;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-                   : "=f"(out[4 * k]), "=f"(out[4 * k + 1]), "=f"(out[4 * k + 2]),
-                     "=f"(out[4 * k + 3])
-                   : "r"(a + 16u * k));
-    }
-  }
-};
-
+// Block x of the grid: cluster x / cluster, lane group x % cluster of chunk
+// y; every block of a cluster walks the same rows, an idle group (past the
+// lanes) too, as the multicast feed needs.
+template <class Feed, bool kStaged>
 __global__ void __launch_bounds__(kLaneThreads, 1)
-margins_lanes_split_kernel(const __grid_constant__ LaneParams p) {
-  constexpr int L = kChunkLanes;
+margins_lanes_kernel(const __grid_constant__ LaneParams p) {
   extern __shared__ float4 smem4[];
-  const int warp = threadIdx.x >> 5;
   const int rank = static_cast<int>(blockIdx.x) % p.cluster;
-  const int g0 = static_cast<int>(blockIdx.y) * kChunkLanes;
-  const int gn = max(0, min(L, p.n_lanes - g0));
+  const int g0 = (static_cast<int>(blockIdx.y) * p.cluster + rank) * kGroupLanes;
+  const int gn = max(0, min(kGroupLanes, p.n_lanes - g0));
   const long long F = p.n_features;
-  const int fq = (p.n_features + p.cluster - 1) / p.cluster;
-  float4* table = smem4 + stage_bytes<kRowStage>() / sizeof(float4);
   const float* w = p.w + g0 * F;
-  const int f_lo = rank * fq;
-  const int f_n = max(0, min(fq, p.n_features - f_lo));
-  for (int i = threadIdx.x; i < 4 * f_n; i += blockDim.x) {
-    const int f = f_lo + i / 4;
-    const int k0 = 4 * (i % 4);
-    float x[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) x[k] = k0 + k < gn ? __ldg(w + (k0 + k) * F + f) : 0.0f;
-    table[i] = make_float4(x[0], x[1], x[2], x[3]);
+  float4* table = smem4 + Feed::kBytes / sizeof(float4);
+  if constexpr (kStaged) stage_group(w, F, gn, p.n_features, table);
+  Feed::begin(smem4, p.cluster);
+  const Feed feed(smem4, p.cols, p.vals, __ldg(p.row_ptr + p.n_rows), rank, p.cluster);
+  if constexpr (kStaged) {
+    margins_rows(p, feed, GroupTable{table, 0}, g0, gn);
+  } else {
+    margins_rows(p, feed, GlobalTable{w, F, gn}, g0, gn);
   }
-  SplitTable gather{};
-  gather.fq = fq;
-  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(table));
-#pragma unroll
-  for (int r = 0; r < kMaxCluster; ++r) {
-    unsigned a = 0;
-    if (r < p.cluster) {
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(local), "r"(r));
-    }
-    gather.base[r] = a;
-  }
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-  const Stage<kRowStage> stage(smem4);
-  const bool vec = aligned16(p.cols, p.vals);
-  const RowItems rows{p.row_ptr};
-  const MarginsEmit<L> emit{&p, g0, gn};
-  const long long first_row = static_cast<long long>(blockIdx.x * kLaneWarps + warp) * kRowsPerWarp;
-  const long long stride = static_cast<long long>(gridDim.x) * kLaneWarps * kRowsPerWarp;
-  for (long long first = first_row; first < p.n_rows; first += stride) {
-    const int i0 = static_cast<int>(first);
-    const int i1 = static_cast<int>(min(first + kRowsPerWarp, static_cast<long long>(p.n_rows)));
-    if (gn > 0) walk_items<L>(i0, i1, rows, p.cols, p.vals, vec, false, stage, gather, emit);
-  }
-  // no block leaves while a peer may still read its slice
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  Feed::end(p.cluster);
+}
+
+template <class Feed, bool kStaged>
+cudaError_t launch_margins(const LaneParams& p, const LaneSplit& split, cudaStream_t stream) {
+  const size_t smem =
+      Feed::kBytes + (kStaged ? static_cast<size_t>(p.n_features) * sizeof(float4) : 0);
+  auto kernel = margins_lanes_kernel<Feed, kStaged>;
+  int resident = 0;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kLaneThreads, smem,
+                                    &resident, split.cluster);
+  if (err != cudaSuccess) return err;
+  // clusters per chunk: one wave in all, and no more than the rounds of rows
+  long long clusters = resident / split.cluster / split.chunks;
+  const long long rounds = (static_cast<long long>(p.n_rows) + kLaneWarps * kRowsPerWarp - 1) /
+                           (kLaneWarps * kRowsPerWarp);
+  if (rounds < clusters) clusters = rounds;
+  if (clusters < 1) clusters = 1;
+  const dim3 grid(static_cast<unsigned>(clusters * split.cluster),
+                  static_cast<unsigned>(split.chunks));
+  err = launch_clustered(kernel, grid, split.cluster, smem, stream, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -261,73 +216,15 @@ extern "C" int photon_csr_margins_lanes(const int* row_ptr, const int* cols, con
   p.n_rows = n_rows;
   p.n_features = n_features;
   p.n_lanes = n_lanes;
-  const bool staged = n_features <= kStagedMaxFeatures;
-  const LaneSplit split =
-      staged ? lane_split(n_lanes) : LaneSplit{(n_lanes + kChunkLanes - 1) / kChunkLanes, 1};
+  const LaneSplit split = lane_split(n_lanes);
   if (split.chunks > 65535) return cudaErrorInvalidValue;
   p.cluster = split.cluster;
-  const size_t smem =
-      stage_bytes<kRowStage>() + (staged ? static_cast<size_t>(n_features) * sizeof(float4) : 0);
-  auto kernel = staged ? margins_lanes_kernel<true> : margins_lanes_kernel<false>;
-  int resident = 0;
-  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kLaneThreads, smem,
-                                    &resident, split.cluster);
-  if (err != cudaSuccess) return err;
-  // clusters per chunk: one wave in all, and no more than the rounds of rows
-  long long clusters = resident / split.cluster / split.chunks;
-  const long long rounds = (static_cast<long long>(n_rows) + kLaneWarps * kRowsPerWarp - 1) /
-                           (kLaneWarps * kRowsPerWarp);
-  if (rounds < clusters) clusters = rounds;
-  if (clusters < 1) clusters = 1;
-  const dim3 grid(static_cast<unsigned>(clusters * split.cluster),
-                  static_cast<unsigned>(split.chunks));
-  err = launch_clustered(kernel, grid, split.cluster, smem, static_cast<cudaStream_t>(stream), p);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// Design (b) of the file comment's note, for tools/probe_lane_designs.py
-// only: the arguments of photon_csr_margins_lanes, n_features at most
-// kStagedMaxFeatures.
-extern "C" int photon_csr_margins_lanes_split(const int* row_ptr, const int* cols,
-                                              const float* vals, const float* w,
-                                              const float* offsets, int offsets_per_lane,
-                                              const float* shift_dev, float shift_host,
-                                              float* out, int n_rows, int n_features,
-                                              int n_lanes, void* stream) {
-  using namespace photon;
-  if (n_rows <= 0 || n_lanes <= 0) return cudaSuccess;
-  if (n_features < 0 || n_features > kStagedMaxFeatures) return cudaErrorInvalidValue;
-  LaneParams p{};
-  p.row_ptr = row_ptr;
-  p.cols = cols;
-  p.vals = vals;
-  p.w = w;
-  p.shift_dev = shift_dev;
-  p.shift_host = shift_host;
-  p.offsets = offsets;
-  p.offsets_stride = offsets_per_lane ? n_rows : 0;
-  p.out = out;
-  p.n_rows = n_rows;
-  p.n_features = n_features;
-  p.n_lanes = n_lanes;
-  const size_t room = kLaneSmemLimitBytes - stage_bytes<kRowStage>();
-  const size_t per_feature = kChunkLanes * sizeof(float);
-  p.cluster = static_cast<int>((n_features * per_feature + room - 1) / room);
-  if (p.cluster < 1) p.cluster = 1;
-  if (p.cluster > kMaxCluster) return cudaErrorInvalidValue;
-  const int fq = (n_features + p.cluster - 1) / p.cluster;
-  const size_t smem = stage_bytes<kRowStage>() + fq * per_feature;
-  const int chunks = (n_lanes + kChunkLanes - 1) / kChunkLanes;
-  auto kernel = margins_lanes_split_kernel;
-  int resident = 0;
-  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kLaneThreads, smem,
-                                    &resident, p.cluster);
-  if (err != cudaSuccess) return err;
-  long long clusters = resident / p.cluster / chunks;
-  if (clusters < 1) clusters = 1;
-  const dim3 grid(static_cast<unsigned>(clusters * p.cluster), static_cast<unsigned>(chunks));
-  err = launch_clustered(kernel, grid, p.cluster, smem, static_cast<cudaStream_t>(stream), p);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const bool staged = n_features <= kStagedMaxFeatures;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (split.cluster > 1) {
+    return staged ? launch_margins<MulticastFeed<kRowStage>, true>(p, split, s)
+                  : launch_margins<MulticastFeed<kRowStage>, false>(p, split, s);
+  }
+  return staged ? launch_margins<LocalFeed<kRowStage>, true>(p, split, s)
+                : launch_margins<LocalFeed<kRowStage>, false>(p, split, s);
 }

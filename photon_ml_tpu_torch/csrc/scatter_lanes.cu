@@ -22,18 +22,19 @@
 // lane-minor in shared memory, one float4 per row (128 KB at 8192-row tiles;
 // the transpose happens while staging), and the groups of a 16-lane chunk
 // are one cluster of up to 4 blocks that takes the same tile and the same
-// work pieces in lockstep. A piece is one contiguous span of the mirror in
-// the index's slot order (start == off, ops/csr.py; `start` is not read, as
-// in tile_fused.cuh), and its 32 slots' segments, clipped to it, are the
-// items of the walk: each warp takes kPiecesPerWarp consecutive pieces a
-// round, loads windows of up to 32 whole segments into its stage with
-// 16-byte loads, and the thread that owns a segment sums it in slot order in
-// four registers, one float4 gather a nonzero; segments over kLongSegment
-// nonzeros go to the whole warp per kChunk chunk of the piece's grid. The
-// parts land in a [G, parts] array at the single kernel's places and the
-// finish sums each feature's parts in its order, so every lane is bit for
-// bit what scatter.cu gives for that lane's vector. No float atomics, no
-// product chunk.
+// work pieces. A piece is one contiguous span of the mirror in the index's
+// slot order (start == off, ops/csr.py; `start` is not read, as in
+// tile_fused.cuh), and its 32 slots' segments, clipped to it, are the items
+// of the walk: each warp takes kPiecesPerWarp consecutive pieces a round,
+// in windows of up to 32 whole segments that rank 0 multicasts to every
+// block's stage with one bulk copy, so the mirror crosses L2 once; the
+// thread that owns a segment sums it in slot order in four registers, one
+// float4 gather a nonzero, and segments over kLongSegment nonzeros go to the
+// whole warp per kChunk chunk of the piece's grid. The parts land
+// lane-minor, a segment's four lanes in one 16-byte store, at the single
+// kernel's parts, and the finish sums each feature's parts of each lane in
+// the single kernel's order, so every lane is bit for bit what scatter.cu
+// gives for that lane's vector. No float atomics, no product chunk.
 
 #include <cuda_runtime.h>
 
@@ -48,8 +49,8 @@ struct ScatterLaneParams {
   const int* rows;  // the mirror, in the index's slot order
   const float* vals;
   const float* per_row;  // [G, n_rows]
-  float* part;           // [G, n_parts]
-  long long n_parts;
+  float* part;           // [n_parts, lanes]: lane-minor, lanes = G rounded up to 4
+  int lanes;
   int n_rows;
   int tile_rows;
   int piece_len;
@@ -57,44 +58,51 @@ struct ScatterLaneParams {
   int n_lanes;
   int per_tile;  // clusters a tile's pieces are dealt to
   int cluster;   // blocks of a cluster: the lane groups of a chunk
+  int n_slots;
 };
 
 // a warp's stage, in positions
 constexpr int kPieceStage = 640;
-// consecutive pieces a warp takes a round
+// consecutive pieces a warp takes a round: one unit of the walk
 constexpr int kPiecesPerWarp = 2;
 
-// The segments of pieces q0, q0 + 1, ... as items of the walk: item i is
-// slot i % 32's segment clipped to piece q0 + i / 32 (tiles.cuh
-// piece_item); a long one's chunks sit on its piece's grid.
-struct PieceItems {
-  const TileIndex* ix;
-  int q0;
-  int piece_len;
-  __device__ __forceinline__ PieceLane at(int i) const {
-    return piece_item(*ix, q0 + (i >> 5), i & 31, piece_len);
+// The unit of pieces q, q + 1 (`pieces` of them, at most 2): item 32h + j
+// is slot j's segment clipped to piece q + h (tiles.cuh piece_item), its
+// part as the tag; the first item of a piece begins where the piece does.
+__device__ __forceinline__ int piece_unit(const TileIndex& ix, int q, int pieces, int piece_len,
+                                          Item (&u)[2]) {
+#pragma unroll
+  for (int h = 0; h < kPiecesPerWarp; ++h) {
+    if (h < pieces) {
+      const PieceLane pl = piece_item(ix, q + h, static_cast<int>(threadIdx.x & 31), piece_len);
+      u[h] = Item{pl.lo, pl.hi, pl.part};
+    } else {
+      u[h] = Item{0, 0, 0};
+    }
   }
-  __device__ __forceinline__ int grid(int i) const { return at(i).start & ~3; }
-};
+  return 32 * pieces;
+}
 
-// part[g0 + k, the segment's part] = acc[k], where the segment meets the piece
+// part[the segment's part, g0 .. g0 + 3] = acc, one 16-byte store, where
+// the segment meets the piece and the block has lanes
 struct PartsEmit {
   float* part;
-  long long n_parts;
+  int lanes;
   int g0;
   int gn;
-  __device__ __forceinline__ void operator()(int, const PieceLane& it,
+  __device__ __forceinline__ void operator()(int, const Item& it,
                                              const float (&acc)[kGroupLanes]) const {
-    if (it.lo >= it.hi) return;
-#pragma unroll
-    for (int k = 0; k < kGroupLanes; ++k) {
-      if (k < gn) part[(g0 + k) * n_parts + it.part] = acc[k];
-    }
+    if (it.lo >= it.hi || gn == 0) return;
+    *reinterpret_cast<float4*>(part + static_cast<long long>(it.tag) * lanes + g0) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
 };
 
 // Block x of the grid: cluster unit x / cluster, which is tile
-// unit / per_tile and its share unit % per_tile; y: the lane chunk.
+// unit / per_tile and its share unit % per_tile, and lane group x % cluster
+// of chunk y; every block of a cluster walks the same pieces, an idle group
+// (past the lanes) too, as the multicast feed needs.
+template <class Feed>
 __global__ void __launch_bounds__(kLaneThreads, 1)
 scatter_lanes_kernel(const __grid_constant__ ScatterLaneParams p) {
   extern __shared__ float4 smem4[];
@@ -105,57 +113,108 @@ scatter_lanes_kernel(const __grid_constant__ ScatterLaneParams p) {
   const int share = unit % p.per_tile;
   const int g0 = (static_cast<int>(blockIdx.y) * p.cluster + rank) * kGroupLanes;
   const int gn = max(0, min(kGroupLanes, p.n_lanes - g0));
-  float4* tile = smem4 + stage_bytes<kPieceStage>() / sizeof(float4);
+  float4* tile = smem4 + Feed::kBytes / sizeof(float4);
   const int row0 = t * p.tile_rows;
-  const int rows_here = min(p.tile_rows, p.n_rows - row0);
-  if (gn > 0) {
-    const long long n = p.n_rows;
-    const float* r = p.per_row + g0 * n + row0;
-    for (int i = threadIdx.x; i < rows_here; i += blockDim.x) {
-      float x[kGroupLanes];
-#pragma unroll
-      for (int k = 0; k < kGroupLanes; ++k) x[k] = k < gn ? __ldg(r + k * n + i) : 0.0f;
-      tile[i] = make_float4(x[0], x[1], x[2], x[3]);
-    }
-  }
-  __syncthreads();
-
-  const Stage<kPieceStage> stage(smem4);
-  const bool vec = aligned16(p.rows, p.vals);
   const TileIndex& ix = p.ix;
-  const PartsEmit emit{p.part, p.n_parts, g0, gn};
+  stage_group(p.per_row + g0 * static_cast<long long>(p.n_rows) + row0, p.n_rows, gn,
+              min(p.tile_rows, p.n_rows - row0), tile);
+  Feed::begin(smem4, p.cluster);
+  const Feed feed(smem4, p.rows, p.vals, __ldg(ix.off + p.n_slots), rank, p.cluster);
+  LaneWalk<kGroupLanes, Feed, GroupTable> walk{p.rows, p.vals, p.square != 0, feed,
+                                               GroupTable{tile, row0}};
+  const PartsEmit emit{p.part, p.lanes, g0, gn};
   constexpr int kRound = kLaneWarps * kPiecesPerWarp;
+  const int stride = p.per_tile * kRound;
   const int p_end = __ldg(ix.piece_ptr + __ldg(ix.tile_group + t + 1));
-  Lockstep step{p.cluster > 1};
-  // a round: warp w takes pieces q0 + w * kPiecesPerWarp, ...; uniform
-  // across the cluster, whose blocks share (t, share)
-  for (int q0 = __ldg(ix.piece_ptr + __ldg(ix.tile_group + t)) + share * kRound; q0 < p_end;
-       q0 += p.per_tile * kRound) {
-    const int first = q0 + warp * kPiecesPerWarp;
-    if (gn > 0 && first < p_end) {
-      const int pieces = min(kPiecesPerWarp, p_end - first);
-      walk_items<kGroupLanes>(0, 32 * pieces, PieceItems{&ix, first, p.piece_len}, p.rows,
-                              p.vals, vec, p.square != 0, stage, GroupTable{tile, row0}, emit);
-    }
-    step.round_done();
+  const int q_first = __ldg(ix.piece_ptr + __ldg(ix.tile_group + t)) + share * kRound +
+                      warp * kPiecesPerWarp;
+  auto pieces_at = [&](int q) { return max(0, min(kPiecesPerWarp, p_end - q)); };
+  Item u[2], nu[2];
+  int n = piece_unit(ix, q_first, pieces_at(q_first), p.piece_len, u);
+  // a round: warp w takes pieces q0 + w * kPiecesPerWarp, ...
+  for (int q = q_first; q - warp * kPiecesPerWarp < p_end; q += stride) {
+    // the next unit's bounds, loaded while this unit is summed
+    const int nn = piece_unit(ix, q + stride, pieces_at(q + stride), p.piece_len, nu);
+    if (n > 0) walk.unit(u, n, emit);
+    u[0] = nu[0];
+    u[1] = nu[1];
+    n = nn;
   }
-  step.finish();
+  Feed::end(p.cluster);
 }
 
-// lane blockIdx.y: out[y, f] = the sum of f's parts of lane y, as scatter.cu
+// out[g, f] = the sum of f's parts of lane g, in sum_parts's order
+// (tiles.cuh): thread (f, quad, sub) takes parts sub, sub + width, ... of
+// feature f for lanes 4 quad .. 4 quad + 3, and the width subs' sums meet in
+// the same fixed shuffle tree.
 __global__ void __launch_bounds__(kFinishThreads)
 finish_lanes_kernel(const int* __restrict__ feat_ptr, const float* __restrict__ part,
-                    float* __restrict__ out, int n_features, int width, long long n_parts) {
-  sum_parts(feat_ptr, part + blockIdx.y * n_parts,
-            out + static_cast<long long>(blockIdx.y) * n_features, n_features, width);
+                    float* __restrict__ out, int n_features, int width, int lanes,
+                    int n_lanes) {
+  const long long thread = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int sub = static_cast<int>(thread % width);
+  const int quads = lanes / kGroupLanes;
+  const long long fq = thread / width;
+  const int quad = static_cast<int>(fq % quads);
+  const long long f = fq / quads;
+  float s[kGroupLanes] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (f < n_features) {
+    const int end = __ldg(feat_ptr + f + 1);
+    for (int k = __ldg(feat_ptr + f) + sub; k < end; k += width) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(
+          part + static_cast<long long>(k) * lanes + kGroupLanes * quad));
+      s[0] += x.x;
+      s[1] += x.y;
+      s[2] += x.z;
+      s[3] += x.w;
+    }
+  }
+  for (int o = width / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < kGroupLanes; ++k) s[k] += __shfl_xor_sync(kFullMask, s[k], o);
+  }
+  if (f < n_features && sub == 0) {
+#pragma unroll
+    for (int k = 0; k < kGroupLanes; ++k) {
+      const int g = kGroupLanes * quad + k;
+      if (g < n_lanes) out[static_cast<long long>(g) * n_features + f] = s[k];
+    }
+  }
+}
+
+template <class Feed>
+cudaError_t launch_scatter(ScatterLaneParams p, const LaneSplit& split, int n_tiles,
+                           int n_pieces, cudaStream_t stream) {
+  const size_t smem = Feed::kBytes + static_cast<size_t>(p.tile_rows) * sizeof(float4);
+  auto kernel = scatter_lanes_kernel<Feed>;
+  int resident = 0;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kLaneThreads, smem,
+                                    &resident, split.cluster);
+  if (err != cudaSuccess) return err;
+  // clusters per tile and chunk: one wave in all, and at least two rounds
+  // of pieces each
+  long long per_tile =
+      resident / split.cluster / (static_cast<long long>(n_tiles) * split.chunks);
+  const long long round = kLaneWarps * kPiecesPerWarp;
+  const long long useful = (n_pieces / n_tiles + 2 * round) / (2 * round);
+  if (per_tile > useful) per_tile = useful;
+  if (per_tile < 1) per_tile = 1;
+  const long long blocks = static_cast<long long>(n_tiles) * per_tile * split.cluster;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  p.per_tile = static_cast<int>(per_tile);
+  err = launch_clustered(kernel,
+                         dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(split.chunks)),
+                         split.cluster, smem, stream, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace photon
 
 // per_row: [n_lanes, n_rows]; out: [n_lanes, n_features]; part: scratch of
-// n_lanes * n_parts floats; the mirror in the index's slot order; the other
-// arguments are photon_csc_scatter's.
+// n_parts * (n_lanes rounded up to a multiple of 4) floats; the mirror in the
+// index's slot order; the other arguments are photon_csc_scatter's.
 extern "C" int photon_csc_scatter_lanes(const int* rows, const float* vals,
                                         const int* tile_index, int n_slots, int n_pieces,
                                         int finish_width, int tile_rows, int piece_len,
@@ -171,50 +230,39 @@ extern "C" int photon_csc_scatter_lanes(const int* rows, const float* vals,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = (n_rows + tile_rows - 1) / tile_rows;
   const TileIndex ix = tile_index_view(tile_index, n_slots, n_pieces, n_tiles, n_features);
-  const size_t smem = stage_bytes<kPieceStage>() + static_cast<size_t>(tile_rows) * sizeof(float4);
-  if (smem > kLaneSmemLimitBytes) return cudaErrorInvalidValue;
+  if (MulticastFeed<kPieceStage>::kBytes + static_cast<size_t>(tile_rows) * sizeof(float4) >
+          kLaneSmemLimitBytes ||
+      LocalFeed<kPieceStage>::kBytes + static_cast<size_t>(tile_rows) * sizeof(float4) >
+          kLaneSmemLimitBytes) {
+    return cudaErrorInvalidValue;
+  }
   const LaneSplit split = lane_split(n_lanes);
+  const int lanes = (n_lanes + kGroupLanes - 1) / kGroupLanes * kGroupLanes;
   cudaError_t err;
   if (n_pieces > 0 && n_tiles > 0) {
-    const void* kernel = reinterpret_cast<const void*>(scatter_lanes_kernel);
-    int resident = 0;
-    if ((err = resident_blocks(kernel, kLaneThreads, smem, &resident, split.cluster)) !=
-        cudaSuccess) {
-      return err;
-    }
-    // clusters per tile and chunk: one wave in all, and at least two rounds
-    // of pieces each
-    long long per_tile =
-        resident / split.cluster / (static_cast<long long>(n_tiles) * split.chunks);
-    const long long round = kLaneWarps * kPiecesPerWarp;
-    const long long useful = (n_pieces / n_tiles + 2 * round) / (2 * round);
-    if (per_tile > useful) per_tile = useful;
-    if (per_tile < 1) per_tile = 1;
-    const long long blocks = static_cast<long long>(n_tiles) * per_tile * split.cluster;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
     ScatterLaneParams p{};
     p.ix = ix;
     p.rows = rows;
     p.vals = vals;
     p.per_row = per_row;
     p.part = part;
-    p.n_parts = n_parts;
+    p.lanes = lanes;
     p.n_rows = n_rows;
     p.tile_rows = tile_rows;
     p.piece_len = piece_len;
     p.square = square;
     p.n_lanes = n_lanes;
-    p.per_tile = static_cast<int>(per_tile);
     p.cluster = split.cluster;
-    err = launch_clustered(scatter_lanes_kernel,
-                           dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(split.chunks)),
-                           split.cluster, smem, s, p);
+    p.n_slots = n_slots;
+    err = split.cluster > 1
+              ? launch_scatter<MulticastFeed<kPieceStage>>(p, split, n_tiles, n_pieces, s)
+              : launch_scatter<LocalFeed<kPieceStage>>(p, split, n_tiles, n_pieces, s);
     if (err != cudaSuccess) return err;
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  finish_lanes_kernel<<<dim3(finish_blocks(n_features, finish_width),
-                             static_cast<unsigned>(n_lanes)),
+  const long long threads =
+      static_cast<long long>(n_features) * (lanes / kGroupLanes) * finish_width;
+  finish_lanes_kernel<<<static_cast<unsigned>((threads + kFinishThreads - 1) / kFinishThreads),
                         kFinishThreads, 0, s>>>(ix.feat_ptr, part, out, n_features,
-                                                finish_width, n_parts);
+                                                finish_width, lanes, n_lanes);
   return cudaGetLastError();
 }

@@ -529,7 +529,8 @@ def csc_scatter_lanes(
     (index, n_slots, n_pieces, width, tile_rows, piece_len), _ = _scatter_args(
         "csc_scatter_lanes", dev, tiles, n, n_features)
     lib = load_library()
-    part = torch.empty((n_lanes, tiles.n_parts), dtype=torch.float32, device=dev)
+    # the parts lane-minor, the lanes rounded up to the kernel's groups of 4
+    part = torch.empty((tiles.n_parts, -(-n_lanes // 4) * 4), dtype=torch.float32, device=dev)
     out = torch.empty((n_lanes, n_features), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.photon_csc_scatter_lanes(
