@@ -17,9 +17,11 @@ Phases, in order; any failure exits non-zero before the last line:
      PyTorch call computes the same function (never used by the port); the
      plain versions read the mirror column-major (``CSRBatch.column_major``),
      the kernels in the tile index's slot order; the lane kernels
-     (``csr_margins_lanes``, ``csc_scatter_lanes``) at G = 16 vectors, also
-     each lane against the single-vector kernel bit for bit, timed beside 16
-     single launches;
+     (``csr_margins_lanes``, ``csc_scatter_lanes``) at G = 16 and G = 8
+     vectors, also each lane against the single-vector kernel bit for bit,
+     timed beside G single launches and ``torch.sparse.mm``, with their
+     bounds and design floors (path 9 adds them at G = 16 on its largest
+     COO bucket, the margins' block-diagonal regime);
   4. train at a reduced size (64K x 2K) on the card and on the CPU (plain
      versions) with LBFGS, TRON, OWLQN and box-constrained Poisson LBFGS:
      same convergence reason and iteration count, final loss within rtol 1e-4;
@@ -2475,7 +2477,8 @@ def check_lane_kernels(batch, w) -> list[dict]:
             name, src, replaces, max(worst, worst8), timed, label, nbytes, 2 * nnz * SWEEP_LANES,
             lib, lanes=SWEEP_LANES, singles_ms=singles_ms, design_floor_ms=floor_ms,
             vmapped_at="photon_ml_tpu/sweep/runner.py:91-116",
-            lanes_bit_identical_to_single=True, redesigned="PR 13",
+            lanes_bit_identical_to_single=True,
+            redesigned="lane sums in registers, lane groups in clusters",
             lanes_8={"ms": g8["ms"], "plain_ms": g8["plain_ms"], "bound_ms": g8["bound_ms"],
                      "design_floor_ms": floor8, "singles_ms": singles8,
                      "library_ms": lib8, "variants_ms": g8["variants_ms"]}))

@@ -29,14 +29,15 @@
 // The lanes of a launch come in chunks of at most kChunkLanes (16), so X is
 // read once per 16 lanes. A block holds kGroupLanes (4) lanes' tables
 // lane-minor, one float4 per index; the blocks of a chunk's lane groups form
-// one thread-block cluster whose blocks walk the same items, warp w of each
-// the same windows. Where the cluster has more than one block, rank 0's warp
-// w loads each window for all of them with one TMA multicast bulk copy
-// (MulticastFeed): X comes from HBM and through L2 once a call. Each block's
-// warp w waits for its copy on its own mbarrier, and rank 0 issues the next
-// copy once every block's warp w has released the stage (a remote arrive on
-// rank 0's barrier). A cluster of one block loads its windows itself with
-// 16-byte loads (LocalFeed).
+// one thread-block cluster whose blocks walk the same items in lockstep (a
+// split cluster barrier after every round of the block's warps). So the
+// cluster's blocks read each stretch of X within a round of each other
+// (about 160 KB of X a round at config #1's rows; a few MB over the card's
+// clusters, well inside the 50 MB L2): X comes from HBM once a call, and
+// from L2 to each block of the cluster. (A TMA multicast of each window to
+// the cluster's blocks, which would cross L2 once, measured slower: without
+// room for a second stage beside the tables, every window waited for all
+// the blocks to release the last; PERF.md section 6.)
 
 #pragma once
 
@@ -107,63 +108,21 @@ inline LaneSplit lane_split(int n_lanes) {
   return LaneSplit{chunks, (groups + chunks - 1) / chunks};
 }
 
-// ---- the cluster: barriers, mbarriers, bulk copies -------------------------
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// arrive on the mbarrier at `bar`, a shared::cluster address (any block's)
-__device__ __forceinline__ void mbar_arrive_cluster(unsigned bar) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Wait for the phase of parity `parity` of the local mbarrier `bar` to
-// complete. A wait past about two seconds (2^32 cycles) traps: the launch
-// fails rather than hangs.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 32)) __trap();
+// The split cluster barrier: arrive after a round, wait before the next
+// arrive, so no block of a cluster runs more than a round ahead.
+struct Lockstep {
+  bool on;
+  bool pending = false;
+  __device__ __forceinline__ void round_done() {
+    if (!on) return;
+    if (pending) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    pending = true;
   }
-}
-
-// bytes [src, src + bytes) of global memory to the same shared offset `dst`
-// in every block of `mask`, each block's mbarrier at offset `bar` told of
-// them
-__device__ __forceinline__ void bulk_multicast(unsigned dst, const void* src, unsigned bytes,
-                                               unsigned bar, unsigned short mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
-      "[%0], [%1], %2, [%3], %4;" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
-      : "memory");
-}
+  __device__ __forceinline__ void finish() {
+    if (pending) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  }
+};
 
 // ---- the windows --------------------------------------------------------
 
@@ -211,40 +170,29 @@ __device__ __forceinline__ Window window_at(const Item (&u)[2], int n, int w0) {
   return w;
 }
 
-// A block's feed of windows to its warps' stages: S positions a warp,
-// indices then values, kBytes of shared memory in all, constructed from
-// (smem, idx, vals, nnz, rank, cluster) after begin(smem, cluster) has run
-// on every thread of the block. slot(q) is position q's place in a stage
-// array;
-// fill(idx, vals, base, end) brings positions [base, end) in (end - base <=
-// S, base a multiple of 4); release() hands the stage back after the walk.
-// Uniform across the warp.
-
-// Each warp loads its own windows: 16-byte loads of whole quads where the
-// arrays are aligned, the stage padded one word in 32 so that owners walking
-// runs of equal length do not meet in a bank.
+// A warp's stage of S positions (a multiple of 128) in shared memory: the
+// window's indices, then its values, each padded one word in 32 so that
+// owners walking runs of equal length do not meet in a bank. fill(idx,
+// vals, base, end) loads positions [base, end) (end - base <= S, base a
+// multiple of 4) with 16-byte loads of whole quads where the arrays are
+// aligned. Uniform across the warp.
 template <int S>
-struct LocalFeed {
-  static constexpr bool kMulticast = false;
-  static constexpr int kStage = S;
+struct Stage {
   static constexpr int kWords = S + S / 32;
+  // the stages of a block's warps
   static constexpr size_t kBytes = static_cast<size_t>(kLaneWarps) * 2 * kWords * sizeof(int);
   int* sidx;
   float* sval;
   bool vec;
 
-  __device__ __forceinline__ LocalFeed(void* smem, const int* idx, const float* vals, int, int,
-                                       int) {
+  __device__ __forceinline__ Stage(void* smem, const int* idx, const float* vals) {
     sidx = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * 2 * kWords;
     sval = reinterpret_cast<float*>(sidx + kWords);
     vec = aligned16(idx, vals);
   }
-  static __device__ __forceinline__ void begin(void*, int) { __syncthreads(); }
-  static __device__ __forceinline__ void end(int) {}
-  static __device__ __forceinline__ int slot(int q) { return padded(q); }
 
   __device__ __forceinline__ void fill(const int* __restrict__ idx,
-                                       const float* __restrict__ vals, int base, int end) {
+                                       const float* __restrict__ vals, int base, int end) const {
     constexpr int kQuads = S / 128;
     const int lane = threadIdx.x & 31;
     int c[kQuads][4];
@@ -275,102 +223,6 @@ struct LocalFeed {
         sval[at] = v[i][j];
       }
     }
-    __syncwarp();
-  }
-  __device__ __forceinline__ void release() { __syncwarp(); }
-};
-
-// The cluster's rank 0 multicasts each window to every block (file
-// comment; a cluster of more than one block); the stage is unpadded (a bulk
-// copy is contiguous). Positions
-// past the array's last whole quad come in with plain loads. The
-// mbarriers follow the stages: each warp's `full` (one arrival and the
-// bytes) and `empty` (one arrival a block, used on rank 0).
-template <int S>
-struct MulticastFeed {
-  static constexpr bool kMulticast = true;
-  static constexpr int kStage = S;
-  static constexpr int kWords = S;
-  static constexpr size_t kBytes =
-      static_cast<size_t>(kLaneWarps) * (2 * kWords * sizeof(int) + 2 * sizeof(long long));
-  int* sidx;
-  float* sval;
-  unsigned full;    // this warp's, shared::cta
-  unsigned empty0;  // rank 0's empty barrier of this warp, shared::cluster
-  int nnz;
-  bool leader;
-  unsigned short mask;
-  unsigned phase;  // windows so far
-
-  // the feed of this block; init() must run (and the cluster sync) first
-  __device__ __forceinline__ MulticastFeed(void* smem, const int*, const float*, int nnz_,
-                                           int rank, int cluster) {
-    const int warp = threadIdx.x >> 5;
-    sidx = reinterpret_cast<int*>(smem) + warp * 2 * kWords;
-    sval = reinterpret_cast<float*>(sidx + kWords);
-    long long* bars = reinterpret_cast<long long*>(reinterpret_cast<int*>(smem) +
-                                                   kLaneWarps * 2 * kWords);
-    full = smem_addr(bars + 2 * warp);
-    const unsigned empty = smem_addr(bars + 2 * warp + 1);
-    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;" : "=r"(empty0) : "r"(empty));
-    nnz = nnz_;
-    leader = rank == 0;
-    mask = static_cast<unsigned short>((1u << cluster) - 1);
-    phase = 0;
-  }
-
-  // the mbarriers of every warp, initialised by thread 0 of the block and
-  // then seen by the cluster
-  static __device__ __forceinline__ void begin(void* smem, int cluster) {
-    if (threadIdx.x == 0) {
-      long long* bars = reinterpret_cast<long long*>(reinterpret_cast<int*>(smem) +
-                                                     kLaneWarps * 2 * kWords);
-      for (int w = 0; w < kLaneWarps; ++w) {
-        mbar_init(smem_addr(bars + 2 * w), 1);
-        mbar_init(smem_addr(bars + 2 * w + 1), static_cast<unsigned>(cluster));
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-    cluster_sync();
-  }
-  // no block leaves while a peer may still signal its barriers
-  static __device__ __forceinline__ void end(int) { cluster_sync(); }
-
-  static __device__ __forceinline__ int slot(int q) { return q; }
-
-  __device__ __forceinline__ void fill(const int* __restrict__ idx,
-                                       const float* __restrict__ vals, int base, int end) {
-    const int lane = threadIdx.x & 31;
-    // the bulk part: whole quads, never past the array's last whole quad
-    const int bulk_end = max(base, min((end + 3) & ~3, nnz & ~3));
-    const unsigned bytes = static_cast<unsigned>(bulk_end - base) * 4u;
-    if (lane == 0) {
-      mbar_expect_tx(full, 2 * bytes);
-      if (leader && bytes > 0) {
-        if (phase > 0) {
-          const unsigned empty = full + 8;  // this warp's empty barrier
-          mbar_wait(empty, (phase - 1) & 1);
-        }
-        bulk_multicast(smem_addr(sidx), idx + base, bytes, full, mask);
-        bulk_multicast(smem_addr(sval), vals + base, bytes, full, mask);
-      }
-    }
-    mbar_wait(full, phase & 1);
-    if (bulk_end < end) {
-      for (int q = bulk_end + lane; q < end; q += 32) {
-        sidx[q - base] = __ldg(idx + q);
-        sval[q - base] = __ldg(vals + q);
-      }
-      // ordered before the next bulk copy into this stage
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    }
-    __syncwarp();
-  }
-
-  __device__ __forceinline__ void release() {
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive_cluster(empty0);
-    ++phase;
   }
 };
 
@@ -410,19 +262,19 @@ __device__ __forceinline__ void long_item_sums(int lo, int hi, int grid,
 // of the unit by the thread that holds its sums. A long item's chunk grid
 // is its 32-item block's first position & ~3 (rows: the single kernel's
 // 32-row tile; segments: the piece). Uniform across the warp.
-template <int L, class Feed, class Gather>
+template <int L, int S, class Gather>
 struct LaneWalk {
   const int* idx;
   const float* vals;
   bool square;
-  Feed feed;
+  Stage<S> stage;
   Gather gather;
 
   template <class Emit>
   __device__ __forceinline__ void unit(const Item (&u)[2], int n, const Emit& emit) {
     const int lane = threadIdx.x & 31;
     for (int w0 = 0; w0 < n;) {
-      const Window cur = window_at<Feed::kStage>(u, n, w0);
+      const Window cur = window_at<S>(u, n, w0);
       float acc[L];
 #pragma unroll
       for (int k = 0; k < L; ++k) acc[k] = 0.0f;
@@ -436,22 +288,23 @@ struct LaneWalk {
         w0 += 1;
         continue;
       }
-      feed.fill(idx, vals, cur.base, cur.end);
+      stage.fill(idx, vals, cur.base, cur.end);
+      __syncwarp();
       if (lane < cur.k) {
         const int b = cur.it.hi - cur.base;
 #pragma unroll 4
         for (int q = cur.it.lo - cur.base; q < b; ++q) {
-          const int at = Feed::slot(q);
+          const int at = padded(q);
           float t[L];
-          gather(feed.sidx[at], t);
-          float x = feed.sval[at];
+          gather(stage.sidx[at], t);
+          float x = stage.sval[at];
           if (square) x = __fmul_rn(x, x);
 #pragma unroll
           for (int k = 0; k < L; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(x, t[k]));
         }
         emit(w0 + lane, cur.it, acc);
       }
-      feed.release();
+      __syncwarp();
       w0 += cur.k;
     }
   }

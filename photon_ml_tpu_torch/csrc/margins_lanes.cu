@@ -22,11 +22,11 @@
 // groups of 4, one block a group and the chunk's groups one cluster. Where a
 // group's table fits beside the warps' stages (kStagedMaxFeatures, 10,304),
 // each block stages its group's four rows of W lane-minor, one float4 per
-// feature. The cluster's blocks walk the same rows: each warp takes
-// kRowsPerWarp consecutive rows a round, in windows of up to 32 whole rows
-// that rank 0 multicasts to every block's stage with one bulk copy, so X
-// crosses L2 once; the thread that owns a row sums it in nonzero order in
-// four registers, one gather per nonzero; rows over kLongSegment nonzeros
+// feature. The cluster's blocks walk the same rows in lockstep: each warp
+// takes kRowsPerWarp consecutive rows a round, loads windows of up to 32
+// whole rows into its stage with 16-byte loads, and the thread that owns a
+// row sums it in nonzero order in four registers, one gather per nonzero;
+// rows over kLongSegment nonzeros
 // are summed by the whole warp per kChunk chunk of their 32-row tile's
 // grid, segments.cuh's tree. So every lane is bit for bit what margins.cu
 // gives for its vector: the same products rounded to float, the same order,
@@ -75,11 +75,8 @@ struct GlobalTable {
 constexpr int kRowStage = 512;
 // consecutive rows a warp takes a round: one unit of the walk
 constexpr int kRowsPerWarp = 64;
-constexpr size_t kRowFeedBytes = LocalFeed<kRowStage>::kBytes > MulticastFeed<kRowStage>::kBytes
-                                     ? LocalFeed<kRowStage>::kBytes
-                                     : MulticastFeed<kRowStage>::kBytes;
 constexpr int kStagedMaxFeatures =
-    static_cast<int>((kLaneSmemLimitBytes - kRowFeedBytes) / sizeof(float4));
+    static_cast<int>((kLaneSmemLimitBytes - Stage<kRowStage>::kBytes) / sizeof(float4));
 
 // The unit of rows [first, first + n), n <= kRowsPerWarp (0 past the end):
 // lane t holds rows first + t and first + 32 + t.
@@ -120,16 +117,20 @@ struct MarginsEmit {
 };
 
 // The rows of the cluster's rounds r0, r0 + stride, ...: in round r warp w
-// takes rows [(r * kLaneWarps + w) * kRowsPerWarp, ...).
-template <class Feed, class Gather>
-__device__ __forceinline__ void margins_rows(const LaneParams& p, const Feed& feed,
-                                             const Gather& gather, int g0, int gn) {
-  LaneWalk<kGroupLanes, Feed, Gather> walk{p.cols, p.vals, false, feed, gather};
+// takes rows [(r * kLaneWarps + w) * kRowsPerWarp, ...); the loop is
+// uniform across the cluster.
+template <class Gather>
+__device__ __forceinline__ void margins_rows(const LaneParams& p, const Gather& gather, int g0,
+                                             int gn) {
+  extern __shared__ float4 smem4[];
+  LaneWalk<kGroupLanes, kRowStage, Gather> walk{
+      p.cols, p.vals, false, Stage<kRowStage>(smem4, p.cols, p.vals), gather};
   const long long warp_first = static_cast<long long>(threadIdx.x >> 5) * kRowsPerWarp;
   constexpr long long kRound = static_cast<long long>(kLaneWarps) * kRowsPerWarp;
   const long long n_rounds = (p.n_rows + kRound - 1) / kRound;
   const long long stride = static_cast<int>(gridDim.x) / p.cluster;
   long long r = static_cast<int>(blockIdx.x) / p.cluster;
+  Lockstep step{p.cluster > 1};
   Item u[2], nu[2];
   int n = row_unit(p.row_ptr, r * kRound + warp_first, p.n_rows, u);
   for (; r < n_rounds; r += stride) {
@@ -137,17 +138,18 @@ __device__ __forceinline__ void margins_rows(const LaneParams& p, const Feed& fe
     const int nn = r + stride < n_rounds
                        ? row_unit(p.row_ptr, (r + stride) * kRound + warp_first, p.n_rows, nu)
                        : 0;
-    if (n > 0) walk.unit(u, n, MarginsEmit{&p, g0, gn, r * kRound + warp_first});
+    if (n > 0 && gn > 0) walk.unit(u, n, MarginsEmit{&p, g0, gn, r * kRound + warp_first});
+    step.round_done();
     u[0] = nu[0];
     u[1] = nu[1];
     n = nn;
   }
+  step.finish();
 }
 
 // Block x of the grid: cluster x / cluster, lane group x % cluster of chunk
-// y; every block of a cluster walks the same rows, an idle group (past the
-// lanes) too, as the multicast feed needs.
-template <class Feed, bool kStaged>
+// y.
+template <bool kStaged>
 __global__ void __launch_bounds__(kLaneThreads, 1)
 margins_lanes_kernel(const __grid_constant__ LaneParams p) {
   extern __shared__ float4 smem4[];
@@ -156,24 +158,21 @@ margins_lanes_kernel(const __grid_constant__ LaneParams p) {
   const int gn = max(0, min(kGroupLanes, p.n_lanes - g0));
   const long long F = p.n_features;
   const float* w = p.w + g0 * F;
-  float4* table = smem4 + Feed::kBytes / sizeof(float4);
-  if constexpr (kStaged) stage_group(w, F, gn, p.n_features, table);
-  Feed::begin(smem4, p.cluster);
-  const Feed feed(smem4, p.cols, p.vals, __ldg(p.row_ptr + p.n_rows), rank, p.cluster);
   if constexpr (kStaged) {
-    margins_rows(p, feed, GroupTable{table, 0}, g0, gn);
+    float4* table = smem4 + Stage<kRowStage>::kBytes / sizeof(float4);
+    stage_group(w, F, gn, p.n_features, table);
+    __syncthreads();
+    margins_rows(p, GroupTable{table, 0}, g0, gn);
   } else {
-    margins_rows(p, feed, GlobalTable{w, F, gn}, g0, gn);
+    margins_rows(p, GlobalTable{w, F, gn}, g0, gn);
   }
-  Feed::end(p.cluster);
 }
 
-template <class Feed, bool kStaged>
+template <bool kStaged>
 cudaError_t launch_margins(const LaneParams& p, const LaneSplit& split, cudaStream_t stream) {
-  const size_t smem =
-      Feed::kBytes + (kStaged ? static_cast<size_t>(p.n_features) * sizeof(float4) : 0);
-  auto kernel = margins_lanes_kernel<Feed, kStaged>;
-  int resident = 0;
+  const size_t smem = Stage<kRowStage>::kBytes +
+                      (kStaged ? static_cast<size_t>(p.n_features) * sizeof(float4) : 0);
+  auto kernel = margins_lanes_kernel<kStaged>;  int resident = 0;
   cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kLaneThreads, smem,
                                     &resident, split.cluster);
   if (err != cudaSuccess) return err;
@@ -219,12 +218,7 @@ extern "C" int photon_csr_margins_lanes(const int* row_ptr, const int* cols, con
   const LaneSplit split = lane_split(n_lanes);
   if (split.chunks > 65535) return cudaErrorInvalidValue;
   p.cluster = split.cluster;
-  const bool staged = n_features <= kStagedMaxFeatures;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (split.cluster > 1) {
-    return staged ? launch_margins<MulticastFeed<kRowStage>, true>(p, split, s)
-                  : launch_margins<MulticastFeed<kRowStage>, false>(p, split, s);
-  }
-  return staged ? launch_margins<LocalFeed<kRowStage>, true>(p, split, s)
-                : launch_margins<LocalFeed<kRowStage>, false>(p, split, s);
+  return n_features <= kStagedMaxFeatures ? launch_margins<true>(p, split, s)
+                                          : launch_margins<false>(p, split, s);
 }

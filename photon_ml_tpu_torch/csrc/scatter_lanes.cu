@@ -22,15 +22,14 @@
 // lane-minor in shared memory, one float4 per row (128 KB at 8192-row tiles;
 // the transpose happens while staging), and the groups of a 16-lane chunk
 // are one cluster of up to 4 blocks that takes the same tile and the same
-// work pieces. A piece is one contiguous span of the mirror in the index's
-// slot order (start == off, ops/csr.py; `start` is not read, as in
-// tile_fused.cuh), and its 32 slots' segments, clipped to it, are the items
+// work pieces in lockstep. A piece is one contiguous span of the mirror in
+// the index's slot order (start == off, ops/csr.py; `start` is not read, as
+// in tile_fused.cuh), and its 32 slots' segments, clipped to it, are the items
 // of the walk: each warp takes kPiecesPerWarp consecutive pieces a round,
-// in windows of up to 32 whole segments that rank 0 multicasts to every
-// block's stage with one bulk copy, so the mirror crosses L2 once; the
-// thread that owns a segment sums it in slot order in four registers, one
-// float4 gather a nonzero, and segments over kLongSegment nonzeros go to the
-// whole warp per kChunk chunk of the piece's grid. The parts land
+// loads windows of up to 32 whole segments into its stage with 16-byte
+// loads, and the thread that owns a segment sums it in slot order in four
+// registers, one float4 gather a nonzero; segments over kLongSegment
+// nonzeros go to the whole warp per kChunk chunk of the piece's grid. The parts land
 // lane-minor, a segment's four lanes in one 16-byte store, at the single
 // kernel's parts, and the finish sums each feature's parts of each lane in
 // the single kernel's order, so every lane is bit for bit what scatter.cu
@@ -58,7 +57,6 @@ struct ScatterLaneParams {
   int n_lanes;
   int per_tile;  // clusters a tile's pieces are dealt to
   int cluster;   // blocks of a cluster: the lane groups of a chunk
-  int n_slots;
 };
 
 // a warp's stage, in positions
@@ -84,7 +82,7 @@ __device__ __forceinline__ int piece_unit(const TileIndex& ix, int q, int pieces
 }
 
 // part[the segment's part, g0 .. g0 + 3] = acc, one 16-byte store, where
-// the segment meets the piece and the block has lanes
+// the segment meets the piece
 struct PartsEmit {
   float* part;
   int lanes;
@@ -92,7 +90,7 @@ struct PartsEmit {
   int gn;
   __device__ __forceinline__ void operator()(int, const Item& it,
                                              const float (&acc)[kGroupLanes]) const {
-    if (it.lo >= it.hi || gn == 0) return;
+    if (it.lo >= it.hi) return;
     *reinterpret_cast<float4*>(part + static_cast<long long>(it.tag) * lanes + g0) =
         make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
@@ -100,9 +98,7 @@ struct PartsEmit {
 
 // Block x of the grid: cluster unit x / cluster, which is tile
 // unit / per_tile and its share unit % per_tile, and lane group x % cluster
-// of chunk y; every block of a cluster walks the same pieces, an idle group
-// (past the lanes) too, as the multicast feed needs.
-template <class Feed>
+// of chunk y.
 __global__ void __launch_bounds__(kLaneThreads, 1)
 scatter_lanes_kernel(const __grid_constant__ ScatterLaneParams p) {
   extern __shared__ float4 smem4[];
@@ -113,15 +109,15 @@ scatter_lanes_kernel(const __grid_constant__ ScatterLaneParams p) {
   const int share = unit % p.per_tile;
   const int g0 = (static_cast<int>(blockIdx.y) * p.cluster + rank) * kGroupLanes;
   const int gn = max(0, min(kGroupLanes, p.n_lanes - g0));
-  float4* tile = smem4 + Feed::kBytes / sizeof(float4);
+  float4* tile = smem4 + Stage<kPieceStage>::kBytes / sizeof(float4);
   const int row0 = t * p.tile_rows;
   const TileIndex& ix = p.ix;
   stage_group(p.per_row + g0 * static_cast<long long>(p.n_rows) + row0, p.n_rows, gn,
               min(p.tile_rows, p.n_rows - row0), tile);
-  Feed::begin(smem4, p.cluster);
-  const Feed feed(smem4, p.rows, p.vals, __ldg(ix.off + p.n_slots), rank, p.cluster);
-  LaneWalk<kGroupLanes, Feed, GroupTable> walk{p.rows, p.vals, p.square != 0, feed,
-                                               GroupTable{tile, row0}};
+  __syncthreads();
+  LaneWalk<kGroupLanes, kPieceStage, GroupTable> walk{
+      p.rows, p.vals, p.square != 0, Stage<kPieceStage>(smem4, p.rows, p.vals),
+      GroupTable{tile, row0}};
   const PartsEmit emit{p.part, p.lanes, g0, gn};
   constexpr int kRound = kLaneWarps * kPiecesPerWarp;
   const int stride = p.per_tile * kRound;
@@ -129,18 +125,21 @@ scatter_lanes_kernel(const __grid_constant__ ScatterLaneParams p) {
   const int q_first = __ldg(ix.piece_ptr + __ldg(ix.tile_group + t)) + share * kRound +
                       warp * kPiecesPerWarp;
   auto pieces_at = [&](int q) { return max(0, min(kPiecesPerWarp, p_end - q)); };
+  Lockstep step{p.cluster > 1};
   Item u[2], nu[2];
   int n = piece_unit(ix, q_first, pieces_at(q_first), p.piece_len, u);
-  // a round: warp w takes pieces q0 + w * kPiecesPerWarp, ...
+  // a round: warp w takes pieces q0 + w * kPiecesPerWarp, ...; uniform
+  // across the cluster, whose blocks share (t, share)
   for (int q = q_first; q - warp * kPiecesPerWarp < p_end; q += stride) {
     // the next unit's bounds, loaded while this unit is summed
     const int nn = piece_unit(ix, q + stride, pieces_at(q + stride), p.piece_len, nu);
-    if (n > 0) walk.unit(u, n, emit);
+    if (n > 0 && gn > 0) walk.unit(u, n, emit);
+    step.round_done();
     u[0] = nu[0];
     u[1] = nu[1];
     n = nn;
   }
-  Feed::end(p.cluster);
+  step.finish();
 }
 
 // out[g, f] = the sum of f's parts of lane g, in sum_parts's order
@@ -182,11 +181,11 @@ finish_lanes_kernel(const int* __restrict__ feat_ptr, const float* __restrict__ 
   }
 }
 
-template <class Feed>
 cudaError_t launch_scatter(ScatterLaneParams p, const LaneSplit& split, int n_tiles,
                            int n_pieces, cudaStream_t stream) {
-  const size_t smem = Feed::kBytes + static_cast<size_t>(p.tile_rows) * sizeof(float4);
-  auto kernel = scatter_lanes_kernel<Feed>;
+  const size_t smem =
+      Stage<kPieceStage>::kBytes + static_cast<size_t>(p.tile_rows) * sizeof(float4);
+  auto kernel = scatter_lanes_kernel;
   int resident = 0;
   cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kLaneThreads, smem,
                                     &resident, split.cluster);
@@ -230,10 +229,8 @@ extern "C" int photon_csc_scatter_lanes(const int* rows, const float* vals,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = (n_rows + tile_rows - 1) / tile_rows;
   const TileIndex ix = tile_index_view(tile_index, n_slots, n_pieces, n_tiles, n_features);
-  if (MulticastFeed<kPieceStage>::kBytes + static_cast<size_t>(tile_rows) * sizeof(float4) >
-          kLaneSmemLimitBytes ||
-      LocalFeed<kPieceStage>::kBytes + static_cast<size_t>(tile_rows) * sizeof(float4) >
-          kLaneSmemLimitBytes) {
+  if (Stage<kPieceStage>::kBytes + static_cast<size_t>(tile_rows) * sizeof(float4) >
+      kLaneSmemLimitBytes) {
     return cudaErrorInvalidValue;
   }
   const LaneSplit split = lane_split(n_lanes);
@@ -253,11 +250,7 @@ extern "C" int photon_csc_scatter_lanes(const int* rows, const float* vals,
     p.square = square;
     p.n_lanes = n_lanes;
     p.cluster = split.cluster;
-    p.n_slots = n_slots;
-    err = split.cluster > 1
-              ? launch_scatter<MulticastFeed<kPieceStage>>(p, split, n_tiles, n_pieces, s)
-              : launch_scatter<LocalFeed<kPieceStage>>(p, split, n_tiles, n_pieces, s);
-    if (err != cudaSuccess) return err;
+    if ((err = launch_scatter(p, split, n_tiles, n_pieces, s)) != cudaSuccess) return err;
   }
   const long long threads =
       static_cast<long long>(n_features) * (lanes / kGroupLanes) * finish_width;

@@ -23,8 +23,9 @@ layout of ``ops/ell.py``.
 The lane kernels (``csr_margins_lanes``, ``csc_scatter_lanes``) are the
 margins and the scatter for G vectors over one design (``W [G, F]``,
 ``R [G, N]``), the written-out ``vmap`` of a sweep or a bootstrap: one C
-call reads the design once per chunk of lanes, and each lane comes out bit
-for bit as the single-vector kernel gives it for that lane's vector.
+call reads the design from device memory once per 16 lanes, and each lane
+comes out bit for bit as the single-vector kernel gives it for that lane's
+vector.
 """
 
 from __future__ import annotations
