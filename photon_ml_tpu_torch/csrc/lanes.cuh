@@ -171,23 +171,28 @@ __device__ __forceinline__ Window window_at(const Item (&u)[2], int n, int w0) {
 }
 
 // A warp's stage of S positions (a multiple of 128) in shared memory: the
-// window's indices, then its values, each padded one word in 32 so that
-// owners walking runs of equal length do not meet in a bank. fill(idx,
-// vals, base, end) loads positions [base, end) (end - base <= S, base a
-// multiple of 4) with 16-byte loads of whole quads where the arrays are
-// aligned. Uniform across the warp.
-template <int S>
+// window's indices as Idx (int, or unsigned short where every index is
+// below 65536, which leaves room for a longer stage), then its values, each
+// padded one entry in 32 so that owners walking runs of equal length do
+// not meet in a bank. fill(idx, vals, base, end) loads positions [base,
+// end) (end - base <= S, base a multiple of 4) with 16-byte loads of whole
+// quads where the arrays are aligned. Uniform across the warp.
+template <int S, class Idx = int>
 struct Stage {
+  static constexpr int kStage = S;
   static constexpr int kWords = S + S / 32;
+  static constexpr size_t kIdxBytes = (kWords * sizeof(Idx) + 15) / 16 * 16;
+  static constexpr size_t kWarpBytes = kIdxBytes + (kWords * sizeof(float) + 15) / 16 * 16;
   // the stages of a block's warps
-  static constexpr size_t kBytes = static_cast<size_t>(kLaneWarps) * 2 * kWords * sizeof(int);
-  int* sidx;
+  static constexpr size_t kBytes = static_cast<size_t>(kLaneWarps) * kWarpBytes;
+  Idx* sidx;
   float* sval;
   bool vec;
 
   __device__ __forceinline__ Stage(void* smem, const int* idx, const float* vals) {
-    sidx = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * 2 * kWords;
-    sval = reinterpret_cast<float*>(sidx + kWords);
+    char* mine = reinterpret_cast<char*>(smem) + (threadIdx.x >> 5) * kWarpBytes;
+    sidx = reinterpret_cast<Idx*>(mine);
+    sval = reinterpret_cast<float*>(mine + kIdxBytes);
     vec = aligned16(idx, vals);
   }
 
@@ -219,7 +224,7 @@ struct Stage {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int at = padded(4 * (lane + 32 * i) + j);
-        sidx[at] = c[i][j];
+        sidx[at] = static_cast<Idx>(c[i][j]);
         sval[at] = v[i][j];
       }
     }
@@ -262,19 +267,19 @@ __device__ __forceinline__ void long_item_sums(int lo, int hi, int grid,
 // of the unit by the thread that holds its sums. A long item's chunk grid
 // is its 32-item block's first position & ~3 (rows: the single kernel's
 // 32-row tile; segments: the piece). Uniform across the warp.
-template <int L, int S, class Gather>
+template <int L, class StageT, class Gather>
 struct LaneWalk {
   const int* idx;
   const float* vals;
   bool square;
-  Stage<S> stage;
+  StageT stage;
   Gather gather;
 
   template <class Emit>
   __device__ __forceinline__ void unit(const Item (&u)[2], int n, const Emit& emit) {
     const int lane = threadIdx.x & 31;
     for (int w0 = 0; w0 < n;) {
-      const Window cur = window_at<S>(u, n, w0);
+      const Window cur = window_at<StageT::kStage>(u, n, w0);
       float acc[L];
 #pragma unroll
       for (int k = 0; k < L; ++k) acc[k] = 0.0f;

@@ -20,7 +20,7 @@
 //
 // Design (lanes.cuh): lanes go in chunks of at most 16, a chunk's lanes in
 // groups of 4, one block a group and the chunk's groups one cluster. Where a
-// group's table fits beside the warps' stages (kStagedMaxFeatures, 10,304),
+// group's table fits beside the warps' stages (kStagedMaxFeatures, 10,560),
 // each block stages its group's four rows of W lane-minor, one float4 per
 // feature. The cluster's blocks walk the same rows in lockstep: each warp
 // takes kRowsPerWarp consecutive rows a round, loads windows of up to 32
@@ -71,12 +71,15 @@ struct GlobalTable {
   }
 };
 
-// a warp's stage, in positions
-constexpr int kRowStage = 512;
+// a warp's stage: 640 positions with 16-bit indices beside a group's
+// table (a window takes the 32 rows of a tile at 20 nonzeros a row), 512
+// with 32-bit ones where W is gathered from L2
+using StagedRows = Stage<640, unsigned short>;
+using WideRows = Stage<512>;
 // consecutive rows a warp takes a round: one unit of the walk
 constexpr int kRowsPerWarp = 64;
 constexpr int kStagedMaxFeatures =
-    static_cast<int>((kLaneSmemLimitBytes - Stage<kRowStage>::kBytes) / sizeof(float4));
+    static_cast<int>((kLaneSmemLimitBytes - StagedRows::kBytes) / sizeof(float4));
 
 // The unit of rows [first, first + n), n <= kRowsPerWarp (0 past the end):
 // lane t holds rows first + t and first + 32 + t.
@@ -119,12 +122,12 @@ struct MarginsEmit {
 // The rows of the cluster's rounds r0, r0 + stride, ...: in round r warp w
 // takes rows [(r * kLaneWarps + w) * kRowsPerWarp, ...); the loop is
 // uniform across the cluster.
-template <class Gather>
+template <class StageT, class Gather>
 __device__ __forceinline__ void margins_rows(const LaneParams& p, const Gather& gather, int g0,
                                              int gn) {
   extern __shared__ float4 smem4[];
-  LaneWalk<kGroupLanes, kRowStage, Gather> walk{
-      p.cols, p.vals, false, Stage<kRowStage>(smem4, p.cols, p.vals), gather};
+  LaneWalk<kGroupLanes, StageT, Gather> walk{p.cols, p.vals, false,
+                                             StageT(smem4, p.cols, p.vals), gather};
   const long long warp_first = static_cast<long long>(threadIdx.x >> 5) * kRowsPerWarp;
   constexpr long long kRound = static_cast<long long>(kLaneWarps) * kRowsPerWarp;
   const long long n_rounds = (p.n_rows + kRound - 1) / kRound;
@@ -159,19 +162,20 @@ margins_lanes_kernel(const __grid_constant__ LaneParams p) {
   const long long F = p.n_features;
   const float* w = p.w + g0 * F;
   if constexpr (kStaged) {
-    float4* table = smem4 + Stage<kRowStage>::kBytes / sizeof(float4);
+    float4* table = smem4 + StagedRows::kBytes / sizeof(float4);
     stage_group(w, F, gn, p.n_features, table);
     __syncthreads();
-    margins_rows(p, GroupTable{table, 0}, g0, gn);
+    margins_rows<StagedRows>(p, GroupTable{table, 0}, g0, gn);
   } else {
-    margins_rows(p, GlobalTable{w, F, gn}, g0, gn);
+    margins_rows<WideRows>(p, GlobalTable{w, F, gn}, g0, gn);
   }
 }
 
 template <bool kStaged>
 cudaError_t launch_margins(const LaneParams& p, const LaneSplit& split, cudaStream_t stream) {
-  const size_t smem = Stage<kRowStage>::kBytes +
-                      (kStaged ? static_cast<size_t>(p.n_features) * sizeof(float4) : 0);
+  const size_t smem = kStaged ? StagedRows::kBytes + static_cast<size_t>(p.n_features) *
+                                                        sizeof(float4)
+                              : WideRows::kBytes;
   auto kernel = margins_lanes_kernel<kStaged>;  int resident = 0;
   cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), kLaneThreads, smem,
                                     &resident, split.cluster);

@@ -115,7 +115,7 @@ scatter_lanes_kernel(const __grid_constant__ ScatterLaneParams p) {
   stage_group(p.per_row + g0 * static_cast<long long>(p.n_rows) + row0, p.n_rows, gn,
               min(p.tile_rows, p.n_rows - row0), tile);
   __syncthreads();
-  LaneWalk<kGroupLanes, kPieceStage, GroupTable> walk{
+  LaneWalk<kGroupLanes, Stage<kPieceStage>, GroupTable> walk{
       p.rows, p.vals, p.square != 0, Stage<kPieceStage>(smem4, p.rows, p.vals),
       GroupTable{tile, row0}};
   const PartsEmit emit{p.part, p.lanes, g0, gn};
