@@ -22,9 +22,8 @@
 // lanes' table values a position. A window ends before a long item, which
 // the warp sums alone, reading its positions straight from global memory
 // (coalesced). So no owner waits on positions of other items, and no
-// product is stored: the single kernels' product chunk and its round trip
-// are gone. A warp takes its items a unit of 64 at a time, their bounds in
-// registers (two a lane), loaded a unit ahead.
+// product goes through shared memory. A warp takes its items a unit of 64
+// at a time, their bounds in registers (two a lane), loaded a unit ahead.
 //
 // The lanes of a launch come in chunks of at most kChunkLanes (16), so X is
 // read once per 16 lanes. A block holds kGroupLanes (4) lanes' tables
@@ -32,9 +31,9 @@
 // one thread-block cluster whose blocks walk the same items in lockstep (a
 // split cluster barrier after every round of the block's warps). So the
 // cluster's blocks read each stretch of X within a round of each other
-// (about 160 KB of X a round at config #1's rows; a few MB over the card's
-// clusters, well inside the 50 MB L2): X comes from HBM once a call, and
-// from L2 to each block of the cluster. (A TMA multicast of each window to
+// (about 160 KB of X a round at config #1's rows, about 11 MB over the
+// card's 33 clusters, well inside the 50 MB L2): X comes from HBM once a
+// call, and from L2 to each block of the cluster. (A TMA multicast of each window to
 // the cluster's blocks, which would cross L2 once, measured slower: without
 // room for a second stage beside the tables, every window waited for all
 // the blocks to release the last; PERF.md section 6.)

@@ -13,10 +13,10 @@
 // G floats per row: 228.6 MB at config #1 (1M rows x 10K features x 20
 // nonzeros) with G = 16. This design's HBM floor is the bound: X is read from
 // HBM once a call for G <= 16 (once per 16 lanes above), W once, Z written
-// once. What it pays besides, on chip: W from L2 once per resident cluster,
-// and per nonzero and lane group two stage reads and one float4 gather in
-// shared memory (gathers of random features meet in banks: about 10
-// wavefronts for a warp's 32).
+// once. What it pays besides, on chip: X from L2 once per lane group of 4,
+// W from L2 once per resident cluster, and per nonzero and lane group two
+// stage reads and one float4 gather in shared memory, where the gathers of
+// random features meet in banks.
 //
 // Design (lanes.cuh): lanes go in chunks of at most 16, a chunk's lanes in
 // groups of 4, one block a group and the chunk's groups one cluster. Where a
@@ -24,9 +24,9 @@
 // each block stages its group's four rows of W lane-minor, one float4 per
 // feature. The cluster's blocks walk the same rows in lockstep: each warp
 // takes kRowsPerWarp consecutive rows a round, loads windows of up to 32
-// whole rows into its stage with 16-byte loads, and the thread that owns a
-// row sums it in nonzero order in four registers, one gather per nonzero;
-// rows over kLongSegment nonzeros
+// whole rows into its stage (640 positions, the indices 16-bit) with
+// 16-byte loads, and the thread that owns a row sums it in nonzero order in
+// four registers, one gather per nonzero; rows over kLongSegment nonzeros
 // are summed by the whole warp per kChunk chunk of their 32-row tile's
 // grid, segments.cuh's tree. So every lane is bit for bit what margins.cu
 // gives for its vector: the same products rounded to float, the same order,

@@ -229,6 +229,8 @@ extern "C" int photon_csc_scatter_lanes(const int* rows, const float* vals,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = (n_rows + tile_rows - 1) / tile_rows;
   const TileIndex ix = tile_index_view(tile_index, n_slots, n_pieces, n_tiles, n_features);
+  // a group's per_row tile beside the warps' stages: up to 9,248 rows (the
+  // batches' tiles have 8192)
   if (Stage<kPieceStage>::kBytes + static_cast<size_t>(tile_rows) * sizeof(float4) >
       kLaneSmemLimitBytes) {
     return cudaErrorInvalidValue;

@@ -46,8 +46,7 @@ inline TileIndex tile_index_view(const int* index, int n_slots, int n_pieces, in
 // its part. piece_item is lane j's share; piece_lane the calling lane's.
 struct PieceLane {
   int slot;
-  int s_lo;   // off[slot], where the whole segment begins
-  int start;  // where the piece begins
+  int s_lo;  // off[slot], where the whole segment begins
   int lo;
   int hi;
   int part;
@@ -65,7 +64,7 @@ __device__ __forceinline__ PieceLane piece_item(const TileIndex& ix, int q, int 
   const int lo = min(max(s_lo, c0), c1);
   const int hi = min(max(__ldg(ix.off + slot + 1), c0), c1);
   const int part = lo < hi ? __ldg(ix.part_at + slot) + sub - (s_lo - g_lo) / piece_len : -1;
-  return PieceLane{slot, s_lo, c0, lo, hi, part};
+  return PieceLane{slot, s_lo, lo, hi, part};
 }
 
 __device__ __forceinline__ PieceLane piece_lane(const TileIndex& ix, int q, int piece_len) {

@@ -463,7 +463,7 @@ def test_build_sources_and_directory():
     assert names == ["ell_margins.cu", "hessian_vector.cu", "margins.cu", "margins_lanes.cu",
                      "margins_pair.cu", "scatter.cu", "scatter_lanes.cu", "value_grad.cu"]
     assert [os.path.basename(p) for p in build.headers()] == [
-        "losses.cuh", "rowpass.cuh", "segments.cuh", "tile_fused.cuh", "tiles.cuh"]
+        "lanes.cuh", "losses.cuh", "rowpass.cuh", "segments.cuh", "tile_fused.cuh", "tiles.cuh"]
     assert build.BUILD_DIR == os.path.join(REPO, "build", "kernels")
     with open(os.path.join(REPO, ".gitignore")) as fh:
         assert "build/" in fh.read().split()
