@@ -99,6 +99,32 @@ Phases, in order; any failure exits non-zero before the last line:
            ``cli train`` takes a checkpoint key (every step, keep the last
            2: steps 2 and 3 must remain) and prints each fixed-effect
            solve's tracker beside path 6's;
+       13. on path 10's files, the streamed ingest: (a)
+           ``read_game_dataset_streamed`` with a decode worker per core,
+           65,536-row chunks and a staging budget of two slots (about 105
+           MiB: a slot holds the chunk's CSR and the decoder's scratch, so
+           64 MiB does not hold two), the native decoder must read every
+           chunk, the staging ring, scratch included, stay within the
+           budget, and every array equal path 10's in-core read bit for bit,
+           each shard's mirror and tile index too);
+           (b) a ``ChunkStream`` from half its chunks yields exactly the tail;
+           (c) ``cli train`` in process with path 10's config plus
+           ``input.ingest``: coefficients, trackers, train AUC and best metric
+           bit for bit path 10's, the same ``csr_margins`` and ``csc_scatter``
+           launches;
+       13b. ``StreamingRandomEffectTrainer`` at bench_scale.py:137-139's three
+           parts (1,056,000,000 coefficients: per-user and per-item 1M x 512,
+           chunks of 125,000 x 8 rows; mf_latent 2M x 16, chunks of 1M),
+           chunks generated on the card from a planted model, LBFGS 8 at
+           tolerance 1e-5, history 4, L2 1; per part a warm-up chunk, the
+           timed pass (``game_1B_coeffs_trained_per_sec``) and a tracker pass
+           over the first chunk; every coefficient finite, no lane's
+           objective above its value at w = 0; per_user_re's first two chunks
+           bit for bit with prefetch on and off and fed from pinned host
+           memory; mf_latent checkpointed after its first chunk and resumed
+           bit for bit; a 2,000 x 8 x 64 chunk on the card as on the CPU
+           (values within rtol 1e-4, iterations and reasons but on plateau
+           lanes);
        12d. on path 10's files: ``cli glm`` with ``"diagnostics": true``
            (both reports written, the VALIDATED results bit for bit path
            8's), and ``cli sweep`` on the Avro files (three to train, one to
@@ -176,6 +202,14 @@ BOOT_ENTITIES, BOOT_ROWS, BOOT_FEATURES = 4096, 64, 16  # bench_diagnostics.py's
 BOOT_SAMPLES = 64  # bench_diagnostics.py's NUM_SAMPLES
 BOOT_GATHERED = 512  # path 12c's gathered entities
 GLM_BOOTSTRAP_SAMPLES = 8  # cli glm's default bootstrap_samples
+INGEST_CHUNK_ROWS = 65_536  # path 13: IngestSpec's default chunk, one block of path 10's files
+INGEST_BUDGET_SLOTS = 2  # path 13's resident staging budget, in slots of its chunks
+# bench_scale.py:137-139: (name, entities, local dims, entities a chunk, rows an
+# entity, the part's seed); the 1B parts, LBFGS 8 at tolerance 1e-5, history 4, L2 1
+SCALE_PARTS = (("per_user_re", 1_000_000, 512, 125_000, 8, 1),
+               ("per_item_re", 1_000_000, 512, 125_000, 8, 2),
+               ("mf_latent", 2_000_000, 16, 1_000_000, 8, 3))
+SCALE_SMALL = (2_000, 64, 64)  # path 13b's card-vs-CPU chunk: entities, rows, dims
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -729,14 +763,15 @@ def check_small_re_parity(seed: int) -> None:
             carried = []
             for step in range(len(out["cuda"]) // n_buckets):
                 part = slice(step * n_buckets, (step + 1) * n_buckets)
-                carried = _compare_lanes(f"small re {name} step {step}",
-                                         {dev: r[part] for dev, r in out.items()}, carried)
+                carried, _ = _compare_lanes(f"small re {name} step {step}",
+                                            {dev: r[part] for dev, r in out.items()}, carried)
     finally:
         random_effect_data._bucket_dense_design = dense_design
     print(f"small re: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def _compare_lanes(label: str, out: dict, carried=None) -> list:
+def _compare_lanes(label: str, out: dict, carried=None,
+                   reasons_on_plateau: bool = True) -> tuple[list, float]:
     """Phase 4's per-lane check of one update's bucket results on the card
     and on the CPU (``out[dev]``, one ``SolveResult`` a bucket): the same
     reason, the value within LOSS_RTOL, the same iterations but on plateau
@@ -744,8 +779,10 @@ def _compare_lanes(label: str, out: dict, carried=None) -> list:
     MF iteration of a factored coordinate, or ``[]`` for its first) the
     plateau lanes are excepted from all three checks, and so are the lanes
     carried: a plateau lane's last step is decided by float32 rounding, and
-    the point it stops at warm-starts its next MF iteration. Returns the
-    lanes excepted, per bucket."""
+    the point it stops at warm-starts its next MF iteration. Without
+    ``reasons_on_plateau`` the plateau lanes' reasons are excepted too (their
+    values are still held). Returns the lanes excepted, per bucket, and the
+    largest relative value difference held."""
     import torch
 
     from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
@@ -761,16 +798,18 @@ def _compare_lanes(label: str, out: dict, carried=None) -> list:
         excepted.append(flat)
         plateau += int(flat.sum())
         held = ~flat if carried is not None else torch.ones_like(flat)
+        reason_held = held if reasons_on_plateau else held & ~flat
         worst = max(worst, float(rel[held].max()) if bool(held.any()) else 0.0)
-        if not torch.equal(rg[held], rc[held]):
-            bad.append(f"bucket {b}: reasons differ on {int((rg != rc)[held].sum())} lanes")
+        if not torch.equal(rg[reason_held], rc[reason_held]):
+            bad.append(f"bucket {b}: reasons differ on {int((rg != rc)[reason_held].sum())} "
+                       "lanes")
         if not bool((rel[held] <= LOSS_RTOL).all()):
             bad.append(f"bucket {b}: values differ beyond rtol {LOSS_RTOL}")
         off = (ig != ic) & ~flat
         if bool(off.any()):
             bad.append(f"bucket {b}: iterations differ on {int(off.sum())} lanes "
                        "that are not plateau lanes")
-        wrong = (((rg != rc) | (rel > LOSS_RTOL)) & held) | off
+        wrong = ((rg != rc) & reason_held) | ((rel > LOSS_RTOL) & held) | off
         for lane in torch.nonzero(wrong).flatten()[:3].tolist():
             bad.append({"bucket": b, "lane": lane, "reasons": [int(rg[lane]), int(rc[lane])],
                         "iterations": [int(ig[lane]), int(ic[lane])],
@@ -786,7 +825,7 @@ def _compare_lanes(label: str, out: dict, carried=None) -> list:
           f"value_rel_diff={worst:.3e} limit={LOSS_RTOL:.0e}", flush=True)
     if bad:
         raise RuntimeError(f"{label}: the card disagrees with the CPU: {bad}")
-    return excepted
+    return excepted, worst
 
 
 def _plateau_lanes(values, iterations):
@@ -1787,7 +1826,8 @@ def _same_or_both_nan(a: float, b: float) -> bool:
     return a == b or (a != a and b != b)
 
 
-def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> tuple[dict, dict]:
+def run_cli_path(seed: int, card: str, work: str, game: dict,
+                 glm_ref: dict) -> tuple[dict, dict, dict]:
     """Path 10: the CLI pipeline at config #4's full width, as a user runs it.
     Path 6's draws go out as TrainingExampleAvro in 4 files through the
     native encoder; ``cli index`` (a subprocess) indexes them; ``cli train``
@@ -1803,7 +1843,9 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
     statistics were written, ``csr_margins`` and ``csc_scatter`` launched,
     the scores read back from the scoring output equal the in-process
     model's plus offsets bit for bit (and the AUC), and ``cli glm``'s stages,
-    best lambda, metrics and means equal path 8's bit for bit."""
+    best lambda, metrics and means equal path 8's bit for bit. Returns, beside
+    the launches and the numbers, what path 13 is held against: the input
+    spec and config, the in-core dataset, the fitted model and the summary."""
     import torch
 
     from photon_ml_tpu_torch import kernels, telemetry
@@ -1907,6 +1949,7 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
     torch.cuda.synchronize()
     stats["train_s"] = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    stats["train_launches"] = dict(launches)
     counters = telemetry.snapshot()["counters"]
     stats.update(avro_reads={k: v for k, v in counters.items() if k.startswith("avro.")},
                  guard={k: counters.get(k, 0) for k in ("solves.diverged", "solves.retried",
@@ -2007,6 +2050,9 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
           f"bit_identical={json.dumps(score_same)} card={card}", flush=True)
     if not all(score_same.values()):
         bad.append(f"cli score differs from the in-process model: {score_same}")
+    # what path 13 holds its streamed read and fit against
+    handover = {"input": inp, "config": config, "dataset": ds, "maps": maps, "model": model,
+                "summary": summary, "train_auc": train_auc}
     del ds, model, seen, scores, read_back
     torch.cuda.empty_cache()
 
@@ -2054,7 +2100,423 @@ def run_cli_path(seed: int, card: str, work: str, game: dict, glm_ref: dict) -> 
           flush=True)
     if bad:
         raise RuntimeError(f"path 10: bad result: {bad}")
+    return launches, stats, handover
+
+
+def _same_batches(a, b) -> dict:
+    """Two ``CSRBatch``es array for array: the CSR, the mirror in its slot
+    order, the row vectors and the scatter's tile index."""
+    import torch
+
+    same = {leaf: bool(getattr(a, leaf).dtype == getattr(b, leaf).dtype
+                       and torch.equal(getattr(a, leaf), getattr(b, leaf)))
+            for leaf in ("row_ptr", "cols", "vals", "col_ptr", "csc_rows", "csc_vals", "labels",
+                         "offsets", "weights")}
+    same["tiles"] = (a.tiles is not None and b.tiles is not None
+                     and torch.equal(a.tiles.index, b.tiles.index)
+                     and tuple(a.tiles[1:]) == tuple(b.tiles[1:]))
+    return same
+
+
+def run_ingest_path(card: str, work: str, ref: dict, ref_stats: dict) -> tuple[dict, dict]:
+    """Path 13: path 10's Avro files (config #4, 1M rows) through the
+    streamed ingest. (a) ``read_game_dataset_streamed`` with a decode worker
+    per core, 65,536-row chunks and a staging budget of two slots (a slot's
+    real size, the decoder's scratch included, from ``StagingBuffer``; 64 MiB
+    does not hold two): the native decoder must read every chunk, the
+    staging ring stay within the budget,
+    and every array equal path 10's in-core read bit for bit, the
+    device-built mirror and tile index against ``from_coo``'s too. (b) A
+    ``ChunkStream`` from half its chunks yields exactly the tail of the
+    stream. (c) ``cli train`` in process with path 10's config plus the
+    ingest: its coefficients and best metric bit for bit path 10's, with the
+    same ``csr_margins`` and ``csc_scatter`` launches. Returns the launches
+    of (c) and the numbers."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.cli import train as cli_train
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.data.avro import _as_paths
+    from photon_ml_tpu_torch.ingest import (
+        ChunkStream,
+        IngestSpec,
+        plan_chunks,
+        read_game_dataset_streamed,
+    )
+    from photon_ml_tpu_torch.ingest.buffers import StagingBuffer
+
+    inp, ref_ds = ref["input"], ref["dataset"]
+    workers = os.cpu_count() or 1
+    # the budget from the real size of a slot of these files' chunks (the
+    # native path's one scratch; the intercept is off)
+    rows_cap = max(p.n_rows for p in plan_chunks(_as_paths(inp["paths"]), INGEST_CHUNK_ROWS)[1])
+    slot_bytes = StagingBuffer(rows_cap, rows_cap * NNZ_PER_ROW, len(inp["feature_shards"]),
+                               len(inp["id_columns"]), inp["add_intercept"], 1, False).nbytes
+    budget_bytes = INGEST_BUDGET_SLOTS * slot_bytes
+    ingest = {"workers": workers, "chunk_rows": INGEST_CHUNK_ROWS,
+              "nnz_per_row_hint": NNZ_PER_ROW, "resident_budget_mb": budget_bytes / 2**20}
+    spec = IngestSpec(**ingest)
+    stats, bad = {"card": card, "ingest": ingest, "slot_bytes": slot_bytes}, []
+
+    # (a) the streamed read against path 10's in-core one
+    torch.cuda.synchronize()
+    telemetry.reset()
+    t0 = time.perf_counter()
+    ds, maps = read_game_dataset_streamed(
+        inp["paths"], feature_shards=inp["feature_shards"], id_columns=inp["id_columns"],
+        add_intercept=inp["add_intercept"], spec=spec, return_index_maps=True)
+    torch.cuda.synchronize()
+    stats["read_s"] = time.perf_counter() - t0
+    snap = telemetry.snapshot()
+    counters, gauges = snap["counters"], snap["gauges"]
+    chunks = counters.get("ingest.chunks", 0)
+    stats.update(
+        rows_per_s=ds.num_rows / stats["read_s"], chunks=chunks,
+        stalls=counters.get("ingest.stalls", 0), solve_waits=counters.get("ingest.solve_waits", 0),
+        buffer_growths=counters.get("ingest.buffer_growths", 0),
+        native_decodes=counters.get("ingest.native_decodes", 0),
+        python_decodes=counters.get("ingest.python_decodes", 0),
+        staging_bytes=gauges.get("ingest.staging_bytes"),
+        span_seconds={k: v for k, v in snap["span_seconds"].items() if k.startswith("ingest")})
+    same = {
+        "rows": ds.num_rows == ref_ds.num_rows == N_ROWS,
+        **{leaf: bool(np.array_equal(getattr(ds, leaf), getattr(ref_ds, leaf)))
+           for leaf in ("response", "offset", "weight")},
+        "userId": bool(np.array_equal(ds.id_columns["userId"].codes,
+                                      ref_ds.id_columns["userId"].codes)
+                       and np.array_equal(ds.id_columns["userId"].vocab,
+                                          ref_ds.id_columns["userId"].vocab)),
+        "index_maps": all(maps[s].names == ref["maps"][s].names for s in maps),
+    }
+    for name in ("global", "user"):
+        a, b = ds.shard(name), ref_ds.shard(name)
+        same[f"{name}.coo"] = all(getattr(a, f).dtype == getattr(b, f).dtype
+                                  and np.array_equal(getattr(a, f), getattr(b, f))
+                                  for f in ("values", "rows", "cols"))
+        same.update({f"{name}.{k}": v for k, v in
+                     _same_batches(ds.csr_batch(name), ref_ds.csr_batch(name)).items()})
+    staging_ok = stats["staging_bytes"] is not None and stats["staging_bytes"] <= budget_bytes
+    native_ok = stats["native_decodes"] == chunks > 0 and stats["python_decodes"] == 0
+    print(f"path 13 read: read_s={stats['read_s']:.4f} path10_read_s={ref_stats['read_s']:.4f} "
+          f"rows_per_s={stats['rows_per_s']:.1f} chunks={chunks} workers={workers} "
+          f"stalls={stats['stalls']} solve_waits={stats['solve_waits']} "
+          f"buffer_growths={stats['buffer_growths']} native_decodes={stats['native_decodes']} "
+          f"python_decodes={stats['python_decodes']} staging_bytes={stats['staging_bytes']} "
+          f"slot_bytes={slot_bytes} budget_bytes={budget_bytes} "
+          f"fits_64MiB={budget_bytes <= 64 * 2**20} "
+          f"spans={json.dumps(stats['span_seconds'])} bit_identical={json.dumps(same)} "
+          f"card={card}", flush=True)
+    if not all(same.values()):
+        bad.append(f"the streamed dataset differs from path 10's in-core read: {same}")
+    if not staging_ok:
+        bad.append(f"staging ring {stats['staging_bytes']} bytes over the "
+                   f"{budget_bytes}-byte budget")
+    if not native_ok:
+        bad.append(f"not every chunk went through the native decoder: {counters}")
+
+    # (b) a stream resumed at half its chunks yields the tail
+    t0 = time.perf_counter()
+    start = chunks // 2
+    tail_same, n_tail = [], 0
+    with ChunkStream(inp["paths"], feature_shards=inp["feature_shards"], index_maps=maps,
+                     id_columns=inp["id_columns"], add_intercept=inp["add_intercept"],
+                     spec=spec, start_chunk=start) as stream:
+        plans = stream.plans[start:]
+        batches = {name: ds.csr_batch(name) for name in ("global", "user")}
+        vocab = ds.id_columns["userId"].vocab
+        for chunk, plan in zip(stream, plans):
+            n_tail += 1
+            lo, hi = chunk.row_start, chunk.row_start + chunk.rows
+            ok = (chunk.index == plan.index and lo == plan.row_start
+                  and np.array_equal(chunk.labels, ds.response[lo:hi])
+                  and np.array_equal(chunk.offsets, ds.offset[lo:hi])
+                  and np.array_equal(chunk.weights, ds.weight[lo:hi]))
+            ids = stream.id_vocabulary("userId")[chunk.id_codes["userId"]]
+            ok = ok and np.array_equal(ids, vocab[ds.id_columns["userId"].codes[lo:hi]])
+            for name, b in batches.items():
+                csr = chunk.shards[name]
+                p0, p1 = int(b.row_ptr[lo]), int(b.row_ptr[hi])
+                ok = ok and torch.equal(csr.row_ptr, b.row_ptr[lo:hi + 1] - p0)
+                ok = ok and torch.equal(csr.cols, b.cols[p0:p1])
+                ok = ok and torch.equal(csr.vals, b.vals[p0:p1])
+            tail_same.append(bool(ok))
+    stats["resume"] = {"start_chunk": start, "chunks": n_tail,
+                       "expected": chunks - start, "all_equal": all(tail_same),
+                       "native_decoder": stream.using_native_decoder,
+                       "seconds": time.perf_counter() - t0}
+    print(f"path 13 resume: {json.dumps(stats['resume'])} card={card}", flush=True)
+    if not (all(tail_same) and n_tail == chunks - start > 0 and stream.using_native_decoder):
+        bad.append(f"the stream resumed at chunk {start} is not the tail: {stats['resume']}")
+    del ds, batches
+    torch.cuda.empty_cache()
+
+    # (c) cli train through the ingest, against path 10's fit
+    out = os.path.join(work, "model13")
+    config = {**ref["config"], "output_dir": out, "input": {**inp, "ingest": ingest},
+              "checkpoint": {**ref["config"]["checkpoint"], "dir": os.path.join(work, "ckpt13")}}
+    cfg_path = os.path.join(work, "train13.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(config, fh)
+    seen, read_input, fit = {}, cli_train.read_input, GameEstimator.fit
+
+    def spy_read(*a, **k):
+        t = time.perf_counter()
+        seen.setdefault("read", read_input(*a, **k))
+        stats.setdefault("train_read_s", time.perf_counter() - t)
+        return seen["read"]
+
+    def spy_fit(self, *a, **k):
+        seen["fit"] = fit(self, *a, **k)
+        return seen["fit"]
+
+    cli_train.read_input, GameEstimator.fit = spy_read, spy_fit
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    torch.cuda.synchronize()
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = _run_cli_in_process(["train", "--config", cfg_path])
+    finally:
+        cli_train.read_input, GameEstimator.fit = read_input, fit
+        for s_, h in handlers.items():
+            signal.signal(s_, h)
+    torch.cuda.synchronize()
+    stats["train_s"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    mine, theirs = _model_tensors(seen["fit"].model), _model_tensors(ref["model"])
+    fit_same = {
+        "coefficients": sorted(mine) == sorted(theirs) and all(
+            torch.equal(mine[k], theirs[k]) for k in theirs),
+        "best_metric": _same_or_both_nan(summary["best_metric"], ref["summary"]["best_metric"])
+        if summary["best_metric"] is not None else ref["summary"]["best_metric"] is None,
+        "trackers": [e.get("tracker") for e in summary["history"]]
+        == [e.get("tracker") for e in ref["summary"]["history"]],
+        "launches": all(launches[k] == ref_stats["train_launches"][k]
+                        for k in ("csr_margins", "csc_scatter")),
+    }
+    ds13 = seen["read"][0]
+    scores = seen["fit"].model.score(ds13).cpu().numpy() + ds13.offset
+    from photon_ml_tpu_torch.evaluation.evaluators import auc
+
+    train_auc = float(auc(ds13.per_row(scores), ds13.per_row(ds13.response),
+                          ds13.per_row(ds13.weight)))
+    fit_same["train_auc"] = train_auc == ref["train_auc"]
+    stats.update(fit_same=fit_same, launches=launches, train_auc=train_auc,
+                 best_metric=summary["best_metric"])
+    print(f"path 13 train: train_s={stats['train_s']:.4f} "
+          f"path10_train_s={ref_stats['train_s']:.4f} read_s={stats['train_read_s']:.4f} "
+          f"path10_read_s={ref_stats['read_s']:.4f} train_auc={train_auc:.9g} "
+          f"best_metric={summary['best_metric']} bit_identical_to_path_10={json.dumps(fit_same)} "
+          f"launches={json.dumps(launches)} path10_launches="
+          f"{json.dumps(ref_stats['train_launches'])} card={card}", flush=True)
+    if not all(fit_same.values()):
+        bad.append(f"cli train through the ingest differs from path 10's: {fit_same}")
+    missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
+    if missing:
+        bad.append(f"kernels not launched in path 13's cli train: {missing}")
+    if bad:
+        raise RuntimeError(f"path 13: bad result: {bad}")
     return launches, stats
+
+
+def scale_chunk(seed: int, part_seed: int, index: int, entities: int, rows: int, dims: int):
+    """bench_scale.py:60-74's planted logistic chunk, made on the card from a
+    generator seeded per chunk: X ~ N(0, 1), w* ~ N(0, 0.3), offsets N(0,
+    0.2) for the other coordinates' scores, labels Bernoulli(sigmoid(X.w* +
+    offset)). The margins are an elementwise product and a sum (no GEMM), so
+    a chunk is the same bits whichever thread makes it."""
+    import torch
+
+    from photon_ml_tpu_torch.ops.dense import DenseBatch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(np.random.SeedSequence([seed, part_seed, index]).generate_state(1)[0]))
+    x = torch.randn((entities, rows, dims), generator=g, device="cuda")
+    w_true = torch.randn((entities, dims), generator=g, device="cuda") * 0.3
+    off = torch.randn((entities, rows), generator=g, device="cuda") * 0.2
+    z = (x * w_true[:, None, :]).sum(-1) + off
+    y = (torch.rand((entities, rows), generator=g, device="cuda") < torch.sigmoid(z)).float()
+    return DenseBatch(x=x, labels=y, offsets=off, weights=torch.ones_like(y))
+
+
+def scale_config():
+    """bench_scale.py:49-55's solver: logistic LBFGS 8, tolerance 1e-5,
+    history 4, L2 1."""
+    from photon_ml_tpu_torch.optim.factory import (
+        OptimizerConfig,
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    return OptimizerConfig(max_iterations=8, tolerance=1e-5, lbfgs_history=4,
+                           regularization=RegularizationContext(RegularizationType.L2),
+                           regularization_weight=1.0)
+
+
+def run_scale_path(seed: int, card: str, work: str,
+                   profile: bool) -> tuple[dict, dict, dict | None]:
+    """Path 13b: ``StreamingRandomEffectTrainer`` at bench_scale.py's three
+    parts (1,056,000,000 coefficients), chunks made on the card; per part one
+    untimed warm-up chunk, then the timed pass over a fresh table
+    (``game_1B_coeffs_trained_per_sec``: coefficients over timed seconds, as
+    bench_scale.py defines it), then a tracker pass over the first chunk.
+    Fails unless every coefficient is finite, no lane's objective rose above
+    its value at w = 0, per_user_re's first two chunks give the timed table's
+    rows bit for bit with prefetch on and off and fed from pinned host memory
+    (the side-stream upload), mf_latent checkpointed after its first chunk
+    and resumed gives the timed table bit for bit, and a small chunk trains
+    on the card as on the CPU (per lane the same reason, the value within
+    rtol 1e-4, the same iterations but on plateau lanes)."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.game import (
+        CheckpointSpec,
+        ShardedCoefficientTable,
+        StreamingCheckpointManager,
+        StreamingRandomEffectTrainer,
+    )
+    from photon_ml_tpu_torch.ops.dense import DenseBatch
+
+    cfg = scale_config()
+    stats, bad, prof = {"card": card, "parts": []}, [], None
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for name, n, dims, per, rows, part_seed in SCALE_PARTS:
+        chunks = [(start, (lambda i=i: scale_chunk(seed, part_seed, i, per, rows, dims)))
+                  for i, start in enumerate(range(0, n, per))]
+        trainer = StreamingRandomEffectTrainer("logistic", cfg)
+        trainer.train(ShardedCoefficientTable(per, dims), chunks[:1])  # warm-up, untimed
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        telemetry.reset()
+        table = ShardedCoefficientTable(n, dims)
+        t0 = time.perf_counter()
+        run = trainer.train(table, chunks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+        peak = torch.cuda.max_memory_allocated()
+        tracker = trainer.train(ShardedCoefficientTable(per, dims), chunks[:1],
+                                with_tracker=True).tracker
+        its = tracker.iterations
+        part = {
+            "name": name, "coefficients": run.total_coefficients, "entities": run.total_entities,
+            "chunks": run.num_chunks, "seconds": secs, "mean_iterations": run.mean_iterations,
+            "tracker_sample_entities": len(its),
+            "iteration_percentiles_first_chunk": {f"p{p}": float(np.percentile(its, p))
+                                                  for p in (50, 90, 99)},
+            "converged_frac_first_chunk": float(np.mean(tracker.reasons >= 3)),
+            "stalled_frac_first_chunk": float(np.mean(tracker.reasons == 2)),
+            "table_gb": table.nbytes / 2**30, "host_syncs": syncs,
+            "max_memory_allocated": peak, "lanes_rose": run.lanes_rose,
+            "finite": bool(torch.isfinite(table.coefficients).all()),
+        }
+        if part["lanes_rose"] or not part["finite"]:
+            bad.append(f"{name}: {part['lanes_rose']} lanes rose, finite={part['finite']}")
+        if name == "per_user_re":
+            if profile:
+                prof = profile_solve("13b", lambda: trainer.train(
+                    ShardedCoefficientTable(2 * per, dims), chunks[:2]).mean_iterations)
+            head = table.coefficients[:2 * per]
+            arms = {}
+            for prefetch in (True, False):
+                t = ShardedCoefficientTable(2 * per, dims)
+                StreamingRandomEffectTrainer("logistic", cfg, prefetch=prefetch).train(
+                    t, chunks[:2])
+                arms[f"prefetch={prefetch}"] = torch.equal(t.coefficients, head)
+                del t
+
+            def pinned(b):
+                return DenseBatch(*(torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                                    .copy_(v) for v in (b.x, b.labels, b.offsets, b.weights)))
+
+            host = [(start, pinned(source())) for start, source in chunks[:2]]
+            torch.cuda.synchronize()
+            t = ShardedCoefficientTable(2 * per, dims)
+            t0 = time.perf_counter()
+            trainer.train(t, host)
+            torch.cuda.synchronize()
+            part["pinned_host_s"] = time.perf_counter() - t0
+            arms["pinned_host"] = torch.equal(t.coefficients, head)
+            del t, host, head
+            part["arms_bit_identical"] = arms
+            if not all(arms.values()):
+                bad.append(f"{name}: the feeding arms differ from the timed table: {arms}")
+        if name == "mf_latent":
+            ckpt = os.path.join(work, "ckpt13b")
+            mgr = StreamingCheckpointManager(CheckpointSpec(directory=ckpt, every=1,
+                                                            resume=False))
+            trainer.train(ShardedCoefficientTable(n, dims), chunks[:1], checkpointer=mgr)
+            state = StreamingCheckpointManager.open_for_restore(ckpt).restore_placed()
+            resumed = ShardedCoefficientTable.from_coefficients(state.coefficients)
+            trainer.train(resumed, chunks, start_chunk=state.next_chunk)
+            part["resume"] = {"next_chunk": state.next_chunk,
+                              "bit_identical": torch.equal(resumed.coefficients,
+                                                           table.coefficients)}
+            if not part["resume"]["bit_identical"] or state.next_chunk != 1:
+                bad.append(f"{name}: the resumed table differs: {part['resume']}")
+            del resumed, state
+        print(f"path 13b part: {json.dumps(part)} card={card}", flush=True)
+        stats["parts"].append(part)
+        del table, trainer, chunks
+        torch.cuda.empty_cache()
+    launches = dict(kernels.LAUNCHES)
+    total = sum(p["coefficients"] for p in stats["parts"])
+    seconds = sum(p["seconds"] for p in stats["parts"])
+    stats.update(game_1B_coeffs_trained_per_sec=total / seconds, total_coefficients=total,
+                 total_seconds=seconds, launches=launches)
+    stats["small"] = check_small_scale_parity(seed)
+    print(f"path 13b: game_1B_coeffs_trained_per_sec={stats['game_1B_coeffs_trained_per_sec']:.1f} "
+          f"total_coefficients={total} total_seconds={seconds:.4f} card={card}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 13b: bad result: {bad}")
+    return launches, stats, prof
+
+
+def check_small_scale_parity(seed: int) -> dict:
+    """Path 13b's small chunk (SCALE_SMALL: entities x rows x dims, numpy
+    draws from ``seed``) through the trainer on the card and on the CPU:
+    each table is its device's lane solve bit for bit, and per lane the card
+    agrees with the CPU by phase 4's check (``_compare_lanes``): the value
+    within rtol 1e-4 on every lane, the same iterations and reason but on
+    plateau lanes (at tolerance 1e-5 a lane's last function-value test can
+    fall on its threshold, and rounding then decides between one more step
+    and stopping). 64 rows an entity keep most lanes off the plateau within
+    LBFGS 8, so the reasons and iterations are held on most lanes; at 8 rows
+    nearly every lane converges onto it."""
+    import torch
+
+    from photon_ml_tpu_torch.game import ShardedCoefficientTable, StreamingRandomEffectTrainer
+    from photon_ml_tpu_torch.ops.dense import DenseBatch
+    from photon_ml_tpu_torch.optim import glm_adapter
+    from photon_ml_tpu_torch.optim.factory import build_objective, dispatch_solve
+
+    e, r, k = SCALE_SMALL
+    rng = np.random.default_rng([seed, 13])
+    x = rng.normal(size=(e, r, k)).astype(np.float32)
+    w_true = (rng.normal(size=(e, k)) * 0.3).astype(np.float32)
+    off = (rng.normal(size=(e, r)) * 0.2).astype(np.float32)
+    y = (rng.random((e, r)) < 1 / (1 + np.exp(-(np.einsum("erk,ek->er", x, w_true) + off))))
+    cfg = scale_config()
+    out, tables = {}, {}
+    for dev in ("cuda", "cpu"):
+        batch = DenseBatch.from_arrays(x, y, off, device=dev)
+        table = ShardedCoefficientTable(e, k, device=dev)
+        StreamingRandomEffectTrainer("logistic", cfg, device=dev).train(table, [(0, batch)])
+        res = dispatch_solve(glm_adapter(build_objective("logistic", cfg), batch),
+                             torch.zeros(e, k, device=dev), cfg, device=dev)
+        out[dev] = [res]
+        tables[dev] = torch.equal(table.coefficients, res.w)
+    (flat,), worst = _compare_lanes("path 13b small chunk card vs cpu", out,
+                                    reasons_on_plateau=False)
+    if not all(tables.values()):
+        raise RuntimeError(f"path 13b: the trainer's table is not its lane solve: {tables}")
+    return {"shape": list(SCALE_SMALL), "table_is_lane_solve": tables, "lanes": e,
+            "plateau_lanes": int(flat.sum()), "value_rel_diff": worst}
 
 
 def make_northstar_problem(seed: int, n_rows: int):
@@ -3041,7 +3503,7 @@ def main() -> int:
 
 def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, train: dict,
                prof: dict) -> int:
-    """Paths 8, 6, 9-9c and 11b, 10, 12d, 12b, 11 and 7, then the ``kernels``
+    """Paths 8, 6, 9-9c and 11b, 10, 13, 13b, 12d, 12b, 11 and 7, then the ``kernels``
     line and the result line; ``work`` holds path 8's files for paths 10 and
     12d, and path 10's for 12d."""
     import torch
@@ -3068,11 +3530,28 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     del gds
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    by_path["10"], train["10"] = run_cli_path(args.seed, card, work, train["6"], glm_ref)
+    by_path["10"], train["10"], handover = run_cli_path(args.seed, card, work, train["6"],
+                                                        glm_ref)
     train["10"]["path_s"] = time.perf_counter() - t0
     print(f"path 10: {train['10']['path_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
     mark("path 10", train)
+    t0 = time.perf_counter()
+    by_path["13"], train["13"] = run_ingest_path(card, work, handover, train["10"])
+    train["13"]["path_s"] = time.perf_counter() - t0
+    print(f"path 13: {train['13']['path_s']:.2f} s", flush=True)
+    del handover
+    torch.cuda.empty_cache()
+    mark("path 13", train)
+    t0 = time.perf_counter()
+    by_path["13b"], train["13b"], scale_prof = run_scale_path(args.seed, card, work,
+                                                              args.profile)
+    train["13b"]["path_s"] = time.perf_counter() - t0
+    if scale_prof is not None:
+        prof["13b"] = scale_prof
+    print(f"path 13b: {train['13b']['path_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    mark("path 13b", train)
     t0 = time.perf_counter()
     by_path["12d"], train["12d"] = run_sweep_cli_path(card, work, glm_ref)
     train["12d"]["path_s"] = time.perf_counter() - t0

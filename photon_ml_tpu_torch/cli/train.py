@@ -30,7 +30,11 @@ listeners by dotted path. A ``"sweep"`` key (or ``--sweep``, with
 ``--sweep-metric`` and ``--sweep-policy``) trains every λ of a grid at once
 and saves the winner under ``<output_dir>/best`` instead of a single fit
 (``cli/sweep.py``); it needs a validation input and refuses a checkpoint,
-as the reference does. ``"checkpoint": {"dir", "every", "keep_last",
+as the reference does. ``input.ingest`` (true, or an object of
+``IngestSpec`` fields; ``--ingest-workers`` and ``--prefetch-depth`` set
+two of them) reads the Avro input through the streamed ingest
+(``ingest/``): block ranges decoded in parallel into a bounded staging
+ring and assembled on the device, bit for bit the in-core read. ``"checkpoint": {"dir", "every", "keep_last",
 "resume"}`` (or ``--checkpoint-dir``, ``--checkpoint-every``, ``--resume``)
 saves the coordinate-descent state after each step and resumes from the
 newest valid checkpoint (``resume`` defaults to true); with a checkpoint,
@@ -41,7 +45,6 @@ raises ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
 ``sweep.registry_dir``, ``--sweep-registry-dir``, ``warm_start``,
 ``--warm-start``, ``--delta``, ``--refresh-registry-dir``,
 ``--lambda-points`` (14);
-``input.ingest``, ``--ingest-workers``, ``--prefetch-depth`` (13);
 ``mesh``, ``distributed``, ``--mesh`` (12); ``trace_out``, ``telemetry_out``,
 ``report_out``, ``xprof``, their flags, a ``heartbeat`` object or interval
 and ``--heartbeat-every`` > 0 (14).
@@ -104,8 +107,19 @@ def read_input(
     if fmt == "avro":
         shards = spec.pop("feature_shards", None)
         shards = {k: tuple(v) for k, v in (shards or {"features": ("features",)}).items()}
-        if spec.pop("ingest", None):
-            _refuse("the streamed ingest (input.ingest)", 13)
+        ingest = spec.pop("ingest", None)
+        if ingest:
+            # the streamed ingest: block ranges decoded in parallel into a
+            # bounded staging ring, the feature shards assembled on the device
+            # (the host never holds the whole COO), bit for bit the in-core read
+            from photon_ml_tpu_torch.ingest import IngestSpec, read_game_dataset_streamed
+
+            return read_game_dataset_streamed(
+                paths, feature_shards=shards, index_maps=index_maps,
+                id_columns=tuple(spec.pop("id_columns", ())),
+                add_intercept=bool(spec.pop("add_intercept", True)),
+                is_response_required=is_response_required,
+                spec=IngestSpec.from_config(ingest), return_index_maps=True, device=device)
         from photon_ml_tpu_torch.data.avro import read_game_dataset_from_avro
 
         # one scan builds the index maps and the dataset
@@ -300,10 +314,16 @@ def main(argv=None) -> int:
     refused = {"--trace-out": 14, "--telemetry-out": 14, "--report-out": 14,
                "--xprof-dir": 14, "--xprof-arm": 14, "--mesh": 12,
                "--sweep-registry-dir": 14, "--warm-start": 14, "--delta": 14, "--refresh-registry-dir": 14,
-               "--lambda-points": 14, "--ingest-workers": 13, "--prefetch-depth": 13}
+               "--lambda-points": 14}
     for flag in refused:
         parser.add_argument(flag, action="append", help=argparse.SUPPRESS)
     parser.add_argument("--heartbeat-every", type=float, help=argparse.SUPPRESS)
+    parser.add_argument("--ingest-workers", type=int,
+                        help="read the Avro input through the streamed ingest with N decode "
+                        "workers (0 = one per core; sets input.ingest.workers)")
+    parser.add_argument("--prefetch-depth", type=int,
+                        help="device-ready chunks the streamed ingest may hold ahead "
+                        "(sets input.ingest.prefetch_depth)")
     parser.add_argument("--checkpoint-dir",
                         help="save the coordinate-descent state here after each (iteration, "
                         "coordinate) step; SIGTERM/SIGINT then write a final checkpoint "
@@ -334,6 +354,16 @@ def main(argv=None) -> int:
             parser.error("--sweep-metric/--sweep-policy need a grid: pass --sweep lambda=... "
                          "(or config sweep.grid)")
         config["sweep"] = sweep_cfg
+    if args.ingest_workers is not None or args.prefetch_depth is not None:
+        inp = dict(config.get("input") or {})
+        ing = inp.get("ingest")
+        ing = dict(ing) if isinstance(ing, dict) else {}
+        if args.ingest_workers is not None:
+            ing["workers"] = args.ingest_workers
+        if args.prefetch_depth is not None:
+            ing["prefetch_depth"] = args.prefetch_depth
+        inp["ingest"] = ing
+        config["input"] = inp
     if args.checkpoint_dir or args.checkpoint_every is not None or args.resume:
         ckpt = dict(config.get("checkpoint") or {})
         if args.checkpoint_dir:

@@ -1,14 +1,18 @@
 """GAME / GLMix training (counterpart of ``photon_ml_tpu/game``): a fixed
 effect on the CSR fast path, per-entity random effects solved as lanes of a
 bucket, factored random effects and the random projector, trained by
-coordinate descent with checkpoints."""
+coordinate descent with checkpoints; and the streamed random effect, a
+resident coefficient table trained chunk by chunk."""
 
 from photon_ml_tpu_torch.game.checkpoint import (
     CheckpointError,
     CheckpointManager,
     CheckpointSpec,
     CheckpointState,
+    ElasticRestore,
     GracefulStop,
+    StreamCheckpointState,
+    StreamingCheckpointManager,
     TrainingInterrupted,
 )
 from photon_ml_tpu_torch.game.coordinate_descent import (
@@ -47,6 +51,11 @@ from photon_ml_tpu_torch.game.random_effect_data import (
     RandomEffectDataset,
     build_random_effect_dataset,
 )
+from photon_ml_tpu_torch.game.streaming import (
+    ShardedCoefficientTable,
+    StreamingRandomEffectTrainer,
+    StreamingTrainStats,
+)
 
 __all__ = [
     "CheckpointError",
@@ -54,6 +63,7 @@ __all__ = [
     "CheckpointSpec",
     "CheckpointState",
     "CoordinateDescentResult",
+    "ElasticRestore",
     "EntityBucket",
     "FactoredRandomEffectConfig",
     "FactoredRandomEffectCoordinate",
@@ -75,6 +85,11 @@ __all__ = [
     "RandomEffectCoordinate",
     "RandomEffectDataset",
     "RandomEffectModel",
+    "ShardedCoefficientTable",
+    "StreamCheckpointState",
+    "StreamingCheckpointManager",
+    "StreamingRandomEffectTrainer",
+    "StreamingTrainStats",
     "TrainingInterrupted",
     "ValidationSpec",
     "build_game_dataset",

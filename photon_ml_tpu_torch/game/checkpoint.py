@@ -1,9 +1,10 @@
-"""Checkpoint and resume for coordinate descent: atomic step snapshots,
-fallback past corrupt checkpoints, and the graceful-stop handshake.
+"""Checkpoint and resume for coordinate descent and for streamed random
+effects: atomic snapshots, fallback past corrupt checkpoints, and the
+graceful-stop handshake.
 
-Counterpart of ``photon_ml_tpu/game/checkpoint.py:91-378``, with its
-layout, manifest keys and ``format_version``, so a checkpoint written by
-either package restores in the other::
+Counterpart of ``photon_ml_tpu/game/checkpoint.py``, with its layouts,
+manifest keys and format versions, so a checkpoint written by either
+package restores in the other::
 
     <checkpoint_dir>/
       step-00000007/
@@ -21,9 +22,21 @@ the steps newest first and skips corrupt or partial ones (counter
 checkpoint, raise ``TrainingInterrupted``"; a second signal exits at once
 with code 75.
 
-Restored models are loaded onto ``device`` (the fit's). The streaming
-manager (item 13), the fault points (item 14c) and the telemetry gauges
-(item 14d) are not ported.
+Restored models are loaded onto ``device`` (the fit's).
+
+A streamed fit (``game/streaming.py``) checkpoints at chunk boundaries
+(``StreamingCheckpointManager``, :478-1184): ``chunk-<next chunk>/`` holds
+the coefficient table as ``coefficients-0000.npy`` (and the variances as
+``variances-0000.npy``) and a manifest of ``"kind": "streaming"``, with
+each payload file's row range, the writing run's sharding (none: one
+device) and environment (``backend`` "cuda" or "cpu", the device count).
+The same atomic assembly, keep-last-K retention and restore past corrupt
+directories apply; ``open_for_restore`` opens a directory read-only.
+Restore reads the reference's sharded checkpoints too (its payload files
+cover the rows in pieces) onto one device. Saving from more than one
+process, and placing a restore onto a mesh, are refused: ROADMAP.md Queue 1
+item 12. The fault points (item 14c) and the telemetry gauges (item 14d)
+are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import shutil
 import signal
 from typing import Optional
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch import telemetry
@@ -47,7 +61,11 @@ logger = logging.getLogger("photon_ml_tpu_torch.game.checkpoint")
 
 _MANIFEST_FILE = "manifest.json"
 _FORMAT_VERSION = 1
+#: streaming manifests: 2 = payload files by row range + sharding and
+#: environment records; 1 = the legacy single coefficients.npy
+_STREAM_FORMAT_VERSION = 2
 _STEP_RE = re.compile(r"^step-(\d{8})$")
+_CHUNK_RE = re.compile(r"^chunk-(\d{8})$")
 
 
 class CheckpointError(RuntimeError):
@@ -263,3 +281,279 @@ class GracefulStop:
     def __call__(self) -> bool:
         """The stop predicate, passed as ``should_stop=``."""
         return self.requested
+
+
+# ---------------------------------------------------------------------------
+# streamed-fit checkpoints (chunk-boundary granularity)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StreamCheckpointState:
+    """What a streamed random-effect fit needs to go on: the next chunk to
+    solve (the deterministic chunk order replays the stream from there) and
+    the tables so far, ``[N, K]`` tensors or numpy arrays."""
+
+    next_chunk: int
+    coefficients: "object"
+    variances: Optional["object"] = None
+
+
+@dataclasses.dataclass
+class ElasticRestore:
+    """A streaming checkpoint placed on this run's device. ``elastic`` is
+    True when the writing run sharded the table over more than one device
+    (a reference checkpoint restored onto one)."""
+
+    next_chunk: int
+    coefficients: torch.Tensor
+    variances: Optional[torch.Tensor]
+    saved_sharding: Optional[dict]
+    saved_env: Optional[dict]
+    elastic: bool
+
+
+def _environment_record(device: Optional[torch.device] = None) -> dict:
+    """The decode and device environment a streaming checkpoint was written
+    under, so a restore under another can report the difference."""
+    backend = "cuda" if device is None or device.type == "cuda" else "cpu"
+    count = torch.cuda.device_count() if backend == "cuda" else 1
+    return {"no_native": os.environ.get("PHOTON_NO_NATIVE") == "1", "backend": backend,
+            "device_count": int(count)}
+
+
+def _refuse_fleet() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
+
+        raise NotImplementedError(NOT_PORTED.format(
+            "the coordinated multi-process streaming checkpoint", 12))
+
+
+class StreamingCheckpointManager:
+    """Atomic chunk-boundary checkpoints of a streamed table fit: assembled
+    in a ``.tmp-`` sibling with the manifest written last, renamed into
+    place, newest-valid restore past corrupt directories, keep-last-K
+    retention. ``read_only`` (``open_for_restore``) never creates, clears or
+    writes."""
+
+    def __init__(self, spec: CheckpointSpec, read_only: bool = False):
+        self.spec = spec
+        self.read_only = read_only
+        if read_only:
+            # a typo'd directory is an error, not a fresh empty one
+            if not os.path.isdir(spec.directory):
+                raise CheckpointError(f"no streamed checkpoint directory at {spec.directory}")
+            return
+        os.makedirs(spec.directory, exist_ok=True)
+        if not spec.resume:
+            stale = self._chunk_dirs()
+            if stale:
+                logger.warning("resume=False: clearing %d existing streaming checkpoint(s) "
+                               "under %s", len(stale), spec.directory)
+            for _c, path in stale:
+                shutil.rmtree(path, ignore_errors=True)
+
+    @classmethod
+    def open_for_restore(cls, directory: str) -> "StreamingCheckpointManager":
+        """A read-only manager over an existing directory (the path to
+        serving): ``save`` refuses."""
+        return cls(CheckpointSpec(directory=directory), read_only=True)
+
+    def should_save(self, chunk_index: int) -> bool:
+        return (chunk_index + 1) % self.spec.every == 0
+
+    @staticmethod
+    def _write_table(tmp: str, prefix: str, array) -> list[dict]:
+        """``array`` as one payload file (the table is on one device)."""
+        data = (array.detach().cpu().numpy() if isinstance(array, torch.Tensor)
+                else np.asarray(array))
+        fname = f"{prefix}-0000.npy"
+        np.save(os.path.join(tmp, fname), data)
+        telemetry.counter("checkpoint.shard_saves").inc()
+        return [{"file": fname, "row_start": 0, "rows": int(data.shape[0])}]
+
+    def save(self, state: StreamCheckpointState) -> str:
+        """Write ``state`` as ``chunk-<next_chunk>`` and return its path."""
+        if self.read_only:
+            raise CheckpointError(
+                f"checkpoint manager over {self.spec.directory} is read-only "
+                "(open_for_restore): serving must not write into a training run's "
+                "checkpoint history")
+        _refuse_fleet()
+        name = f"chunk-{state.next_chunk:08d}"
+        final = os.path.join(self.spec.directory, name)
+        tmp = os.path.join(self.spec.directory, f".tmp-{name}")
+        coeffs = state.coefficients
+        num_entities, dim = (int(d) for d in coeffs.shape)
+        device = coeffs.device if isinstance(coeffs, torch.Tensor) else torch.device("cpu")
+        with telemetry.span("checkpoint:save", next_chunk=state.next_chunk):
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            shard_files = self._write_table(tmp, "coefficients", coeffs)
+            variance_files = None
+            if state.variances is not None:
+                variance_files = self._write_table(tmp, "variances", state.variances)
+            # the manifest lands last: its presence certifies the directory
+            atomic_write_json(os.path.join(tmp, _MANIFEST_FILE), {
+                "format_version": _STREAM_FORMAT_VERSION,
+                "kind": "streaming",
+                "next_chunk": int(state.next_chunk),
+                "num_entities": num_entities,
+                "dim": dim,
+                "dtype": str(np.dtype(str(coeffs.dtype).replace("torch.", ""))),
+                "shards": shard_files,
+                "variance_shards": variance_files,
+                "sharding": None,
+                "env": _environment_record(device),
+            }, indent=2, sort_keys=True)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            fsync_dir(self.spec.directory)
+        telemetry.counter("checkpoint.saves").inc()
+        self._apply_retention()
+        return final
+
+    def _apply_retention(self) -> None:
+        for _c, path in self._chunk_dirs()[: -self.spec.keep_last]:
+            shutil.rmtree(path, ignore_errors=True)
+        for name in os.listdir(self.spec.directory):
+            if name.startswith((".tmp-chunk-", ".trash-chunk-")):
+                shutil.rmtree(os.path.join(self.spec.directory, name), ignore_errors=True)
+
+    def _chunk_dirs(self) -> list[tuple[int, str]]:
+        """(next chunk, path) of every chunk directory, oldest first."""
+        out = []
+        for name in os.listdir(self.spec.directory):
+            m = _CHUNK_RE.match(name)
+            if m:
+                out.append((int(m.group(1)), os.path.join(self.spec.directory, name)))
+        return sorted(out)
+
+    @staticmethod
+    def _read_manifest(path: str) -> dict:
+        manifest_path = os.path.join(path, _MANIFEST_FILE)
+        try:
+            with open(manifest_path) as f:
+                manifest = json.load(f)
+        except FileNotFoundError:
+            raise CheckpointError(f"{path}: incomplete checkpoint (no manifest)") from None
+        except ValueError as e:
+            raise CheckpointError(f"{manifest_path}: corrupt manifest ({e})") from None
+        version = manifest.get("format_version")
+        if version not in (1, _STREAM_FORMAT_VERSION):
+            raise CheckpointError(f"{manifest_path}: unsupported format_version {version!r}")
+        if manifest.get("kind") != "streaming":
+            raise CheckpointError(f"{manifest_path}: not a streaming checkpoint "
+                                  f"(kind={manifest.get('kind')!r})")
+        return manifest
+
+    @staticmethod
+    def _read_table(path: str, manifest: dict, prefix: str) -> Optional[np.ndarray]:
+        """The table of ``prefix`` as an owned host array, from payload files
+        that must cover [0, num_entities) in order; None when the manifest
+        lists no variances."""
+        n, dim = int(manifest["num_entities"]), int(manifest["dim"])
+        if manifest.get("format_version") == 1:
+            if prefix == "variances" and not manifest.get("has_variances"):
+                return None
+            descriptors = [{"file": f"{prefix}.npy", "row_start": 0, "rows": n}]
+        else:
+            descriptors = manifest.get("shards" if prefix == "coefficients"
+                                       else "variance_shards")
+            if descriptors is None:
+                if prefix == "variances":
+                    return None
+                raise CheckpointError(f"{path}: manifest lists no shards")
+        parts, cursor = [], 0
+        for d in descriptors:
+            if int(d["row_start"]) != cursor:
+                raise CheckpointError(f"{path}: shard rows are not contiguous at "
+                                      f"{d['row_start']} (expected {cursor})")
+            fpath = os.path.join(path, d["file"])
+            try:
+                arr = np.load(fpath, mmap_mode="r")
+            except (OSError, ValueError) as e:
+                raise CheckpointError(f"{fpath}: unreadable shard ({e})") from None
+            if arr.shape != (int(d["rows"]), dim):
+                raise CheckpointError(f"{fpath}: shard shape {arr.shape} does not match its "
+                                      f"manifest entry ({d['rows']}, {dim})")
+            parts.append(arr)
+            cursor += int(d["rows"])
+        if cursor != n:
+            raise CheckpointError(f"{path}: shards cover {cursor} rows but the manifest "
+                                  f"promises {n} entities")
+        # an owned copy, never a view of the memory map
+        return np.concatenate(parts, axis=0) if len(parts) != 1 else np.array(parts[0])
+
+    def _newest(self, load):
+        """``load(path, manifest)`` of the newest valid checkpoint, skipping
+        corrupt ones (``checkpoint.corrupt``); (path, result) or None."""
+        if not self.spec.resume:
+            return None
+        with telemetry.span("checkpoint:restore"):
+            for _c, path in reversed(self._chunk_dirs()):
+                try:
+                    got = load(path, self._read_manifest(path))
+                except (CheckpointError, ValueError, OSError) as e:
+                    telemetry.counter("checkpoint.corrupt").inc()
+                    logger.warning("skipping corrupt checkpoint %s: %s", path, e)
+                    continue
+                telemetry.counter("checkpoint.restores").inc()
+                logger.info("resuming streamed fit from %s", path)
+                return path, got
+        return None
+
+    def restore(self) -> Optional[StreamCheckpointState]:
+        """The newest valid checkpoint with its tables as host arrays, or
+        None."""
+        def load(path, manifest):
+            return StreamCheckpointState(
+                next_chunk=int(manifest["next_chunk"]),
+                coefficients=self._read_table(path, manifest, "coefficients"),
+                variances=self._read_table(path, manifest, "variances"))
+
+        found = self._newest(load)
+        return None if found is None else found[1]
+
+    def restore_placed(self, mesh=None, axis: Optional[str] = None,
+                       device: torch.device | str | None = None) -> Optional[ElasticRestore]:
+        """The newest valid checkpoint with its tables on ``device`` (default
+        cuda). A ``mesh`` is refused: ROADMAP.md Queue 1 item 12."""
+        from photon_ml_tpu_torch.device import resolve_device
+
+        if mesh is not None:
+            from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
+
+            raise NotImplementedError(NOT_PORTED.format(
+                "a streaming restore placed onto a mesh (mesh)", 12))
+        dev = resolve_device(device)
+
+        def load(path, manifest):
+            coeffs = self._read_table(path, manifest, "coefficients")
+            variances = self._read_table(path, manifest, "variances")
+            return manifest, coeffs, variances
+
+        found = self._newest(load)
+        if found is None:
+            return None
+        path, (manifest, coeffs, variances) = found
+        saved_sharding, saved_env = manifest.get("sharding"), manifest.get("env")
+        saved_shards = 1
+        spec = [a for a in ((saved_sharding or {}).get("spec") or []) if a]
+        if spec:
+            saved_shards = int(((saved_sharding or {}).get("mesh_axes") or {}).get(spec[0], 1))
+        elastic = saved_shards != 1
+        if elastic:
+            telemetry.counter("recovery.elastic_resumes").inc()
+            logger.warning("elastic resume: %s was written across %d shard(s), restoring "
+                           "onto one device", path, saved_shards)
+        return ElasticRestore(
+            next_chunk=int(manifest["next_chunk"]),
+            coefficients=torch.from_numpy(coeffs).to(dev),
+            variances=None if variances is None else torch.from_numpy(variances).to(dev),
+            saved_sharding=saved_sharding, saved_env=saved_env, elastic=elastic)

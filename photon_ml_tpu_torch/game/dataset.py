@@ -6,14 +6,19 @@ are the examples) and integer-coded id columns with their vocabularies.
 The shards stay on the host as row-sorted COO (``FeatureShard``): the
 random-effect build groups them with numpy. The solves and the scoring read
 one device copy per shard, a ``CSRBatch`` built once and cached
-(``csr_batch``). Nothing is padded: PyTorch runs eagerly, so every per-row
-vector has exactly ``num_rows`` entries.
+(``csr_batch``). A streamed dataset (``ingest/assemble.py``) holds its
+shards the other way round, on the device (``DeviceShards``): ``csr_batch``
+returns the assembled batch and ``shard`` fetches the host COO from it on
+first use, where the reference fetches too
+(``photon_ml_tpu/game/random_effect_data.py:316-321``). Nothing is padded:
+PyTorch runs eagerly, so every per-row vector has exactly ``num_rows``
+entries.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Sequence
+from typing import Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,6 +54,38 @@ class FeatureShard:
         X = np.asarray(X)
         rows, cols = np.nonzero(X)
         return FeatureShard.from_coo(X[rows, cols], rows, cols, X.shape[1])
+
+
+class DeviceShards(Mapping[str, FeatureShard]):
+    """Feature shards that live on the device, one ``CSRBatch`` each
+    (``batches``). Reading one as a host ``FeatureShard`` fetches its CSR
+    once and keeps it: the rows expanded from the row pointer, columns as
+    int64, values as they are."""
+
+    def __init__(self, batches: Mapping[str, CSRBatch]):
+        self.batches = dict(batches)
+        self._host: dict[str, FeatureShard] = {}
+
+    def __getitem__(self, name: str) -> FeatureShard:
+        hit = self._host.get(name)
+        if hit is None:
+            b = self.batches[name]
+            counts = np.diff(b.row_ptr.cpu().numpy().astype(np.int64))
+            hit = FeatureShard(values=b.vals.cpu().numpy(),
+                               rows=np.repeat(np.arange(len(counts), dtype=np.int64), counts),
+                               cols=b.cols.cpu().numpy().astype(np.int64),
+                               num_features=b.num_features)
+            self._host[name] = hit
+        return hit
+
+    def __contains__(self, name) -> bool:
+        return name in self.batches
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.batches)
+
+    def __len__(self) -> int:
+        return len(self.batches)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +130,12 @@ class GameDataset:
     def csr_batch(self, name: str) -> CSRBatch:
         """The shard on the device as a ``CSRBatch`` with the response, base
         offsets and weights attached, built once and cached: the
-        fixed-effect solves and every scoring pass share one copy."""
+        fixed-effect solves and every scoring pass share one copy. A shard
+        that lives on the device is its batch."""
+        if isinstance(self.feature_shards, DeviceShards):
+            if name not in self.feature_shards:
+                self.shard(name)  # the unknown-shard error
+            return self.feature_shards.batches[name]
         cache = self.__dict__.setdefault("_csr_batches", {})
         hit = cache.get(name)
         if hit is None:

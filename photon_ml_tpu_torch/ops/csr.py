@@ -19,6 +19,10 @@ well, so the layout is plain:
     stage per_row tile by tile in shared memory instead of gathering it from
     L2.
 
+Everything past the CSR is built where the batch lies, by torch operations
+(``from_device_csr``); ``from_coo`` checks and row-sorts host COO, uploads
+its CSR and builds the rest there.
+
 The mirror's order follows ``tiles``. Without them (a CPU batch, whose plain
 versions read no index) it is column-major: columns ascending, rows
 ascending inside a column, as ``col_ptr`` counts them. With them it is in
@@ -61,11 +65,11 @@ SCATTER_TILE_ROWS = 8192
 SCATTER_PIECE_LEN = 2048
 
 
-def scatter_tiles(csc_rows: np.ndarray, csc_cols: np.ndarray, n_rows: int, n_features: int,
-                  tile_rows: int, piece_len: int) -> tuple[np.ndarray, ...]:
+def scatter_tiles(csc_rows: Tensor, csc_cols: Tensor, n_rows: int, n_features: int,
+                  tile_rows: int, piece_len: int) -> tuple[Tensor, ...]:
     """The tiled scatter's index (``csrc/scatter.cu``) for nonzeros in CSC
     order (columns ascending, rows ascending inside a column) at rows
-    ``csc_rows`` and columns ``csc_cols``, as int64 arrays.
+    ``csc_rows`` and columns ``csc_cols``, as int64 tensors on their device.
 
     A segment is the run of column f's entries with rows in tile t, one
     contiguous CSC range. Only the S non-empty segments are listed, tile by
@@ -86,64 +90,73 @@ def scatter_tiles(csc_rows: np.ndarray, csc_cols: np.ndarray, n_rows: int, n_fea
         meets (0 for the padding).
 
     ``slot_order`` then lays the mirror out in slot order, where ``start``
-    becomes ``off[:-1]``.
+    becomes ``off[:-1]``. Built where the tensors lie, with the same arrays
+    on any device: stable sorts only, ``bincount``, ``cumsum``,
+    ``repeat_interleave`` and ``searchsorted`` with ``side="left"``; the
+    host fetches two sizes, nothing of the index.
     """
+    dev = csc_rows.device
+    i64 = {"dtype": torch.int64, "device": dev}
+    zero = torch.zeros(1, **i64)
     n_tiles = -(-n_rows // tile_rows)
-    rows = np.asarray(csc_rows, np.int64)
-    cols = np.asarray(csc_cols, np.int64)
+    rows, cols = csc_rows.long(), csc_cols.long()
     tile = rows // tile_rows
     # segments in CSC order (feature-major): where the (column, tile) changes
-    first = np.ones(len(rows), bool)
+    first = torch.ones(rows.shape[0], dtype=torch.bool, device=dev)
     first[1:] = (cols[1:] != cols[:-1]) | (tile[1:] != tile[:-1])
-    seg_start = np.flatnonzero(first)
-    seg_len = np.diff(np.append(seg_start, len(rows)))
+    seg_start = torch.nonzero(first).flatten()
+    seg_len = torch.diff(seg_start, append=torch.tensor([rows.shape[0]], **i64))
     seg_tile, seg_feat = tile[seg_start], cols[seg_start]
     # their slots: tile-major, features ascending inside a tile
-    order = np.argsort(seg_tile, kind="stable")
-    per_tile = np.bincount(seg_tile, minlength=n_tiles)
-    tile_slot = np.concatenate([[0], np.cumsum(-(-per_tile // 32) * 32)])
-    rank = np.arange(len(order)) - np.concatenate([[0], np.cumsum(per_tile)])[seg_tile[order]]
-    slot = np.empty(len(order), np.int64)
+    order = torch.sort(seg_tile, stable=True).indices
+    per_tile = torch.bincount(seg_tile, minlength=n_tiles)
+    tile_slot = torch.cat([zero, torch.cumsum((per_tile + 31) // 32 * 32, 0)])
+    rank = (torch.arange(order.shape[0], **i64)
+            - torch.cat([zero, torch.cumsum(per_tile, 0)])[seg_tile[order]])
+    slot = torch.empty_like(order)
     slot[order] = tile_slot[seg_tile[order]] + rank
     n_slots = int(tile_slot[-1])
-    start = np.zeros(n_slots, np.int64)
+    start = torch.zeros(n_slots, **i64)
     start[slot] = seg_start
-    lengths = np.zeros(n_slots, np.int64)
+    lengths = torch.zeros(n_slots, **i64)
     lengths[slot] = seg_len
-    off = np.concatenate([[0], np.cumsum(lengths)])
-    pieces = -(-np.diff(off[::32]) // piece_len)
-    piece_ptr = np.concatenate([[0], np.cumsum(pieces)])
-    piece_group = np.repeat(np.arange(n_slots // 32), pieces)
+    off = torch.cat([zero, torch.cumsum(lengths, 0)])
+    pieces = (torch.diff(off[::32]) + piece_len - 1) // piece_len
+    piece_ptr = torch.cat([zero, torch.cumsum(pieces, 0)])
+    piece_group = torch.repeat_interleave(torch.arange(n_slots // 32, **i64), pieces)
     # the pieces each segment meets, and its parts' places in CSC order
     into_group = off[slot] - off[slot // 32 * 32]
     parts = (into_group + seg_len - 1) // piece_len - into_group // piece_len + 1
-    first_part = np.concatenate([[0], np.cumsum(parts)])
-    part_at = np.zeros(n_slots, np.int64)
+    first_part = torch.cat([zero, torch.cumsum(parts, 0)])
+    part_at = torch.zeros(n_slots, **i64)
     part_at[slot] = first_part[:-1]
-    feat_ptr = first_part[np.searchsorted(seg_feat, np.arange(n_features + 1))]
+    feat_ptr = first_part[torch.searchsorted(seg_feat, torch.arange(n_features + 1, **i64),
+                                             side="left")]
     return start, off, tile_slot // 32, piece_ptr, feat_ptr, piece_group, part_at
 
 
-def slot_order(start: np.ndarray, off: np.ndarray) -> np.ndarray:
+def slot_order(start: Tensor, off: Tensor) -> Tensor:
     """The mirror in ``scatter_tiles``' slot order: position p of the
     slot-ordered mirror holds entry ``perm[p]`` of the CSC order, so slot s's
     segment lies at [off[s], off[s + 1]) and its ``start`` becomes off[s]."""
-    lengths = np.diff(off)
-    return np.repeat(start - off[:-1], lengths) + np.arange(off[-1], dtype=np.int64)
+    lengths = torch.diff(off)
+    total = int(off[-1])
+    return (torch.repeat_interleave(start - off[:-1], lengths, output_size=total)
+            + torch.arange(total, dtype=torch.int64, device=off.device))
 
 
-def _tile_layout(csc_rows, csc_cols, n_rows, n_features, tile_rows, piece_len,
-                 device) -> tuple[ScatterTiles, np.ndarray]:
-    """``scatter_tiles`` for the slot-ordered mirror, as one int32 tensor on
-    ``device`` with its sizes, and ``slot_order``'s permutation of the CSC
-    entries."""
+def tile_layout(csc_rows: Tensor, csc_cols: Tensor, n_rows: int, n_features: int,
+                tile_rows: int = SCATTER_TILE_ROWS,
+                piece_len: int = SCATTER_PIECE_LEN) -> tuple[ScatterTiles, Tensor]:
+    """``scatter_tiles`` for the slot-ordered mirror, on the tensors'
+    device: the index as one int32 tensor with its sizes, and
+    ``slot_order``'s permutation of the CSC entries (int64)."""
     start, off, *rest = scatter_tiles(csc_rows, csc_cols, n_rows, n_features, tile_rows,
                                       piece_len)
     perm = slot_order(start, off)
-    arrays = (off[:-1], off, *rest)
-    index = torch.from_numpy(np.concatenate(arrays).astype(np.int32)).to(device)
-    tiles = ScatterTiles(index, tile_rows, piece_len, n_slots=len(start),
-                         n_pieces=len(rest[3]), n_parts=int(rest[2][-1]))
+    index = torch.cat((off[:-1], off, *rest)).to(torch.int32)
+    tiles = ScatterTiles(index, tile_rows, piece_len, n_slots=start.shape[0],
+                         n_pieces=rest[3].shape[0], n_parts=int(rest[2][-1]))
     return tiles, perm
 
 
@@ -190,11 +203,10 @@ class CSRBatch:
         device: torch.device | str | None = None,
         refreshable: bool = False,
     ) -> "CSRBatch":
-        """Host-side layout build from COO, then one upload to ``device``;
-        on a CUDA device with the tile index and the mirror in its slot
-        order. The CSR order is the input's, stably sorted by row when it is
-        not sorted; ``refreshable`` keeps ``value_order`` for
-        ``with_values``."""
+        """The batch of host COO on ``device``: checked and row-sorted on
+        the host (stably, when it is not sorted), the CSR uploaded, and the
+        rest built there by ``from_device_csr``; ``refreshable`` keeps
+        ``value_order`` for ``with_values``."""
         dev = resolve_device(device)
         n = int(len(labels))
         rows = np.asarray(rows, np.int64)
@@ -208,37 +220,82 @@ class CSRBatch:
             rows, cols, values = rows[order], cols[order], values[order]
         row_ptr = np.zeros(n + 1, np.int64)
         np.cumsum(np.bincount(rows, minlength=n), out=row_ptr[1:])
-        # stable sort of the row-sorted COO keeps rows ascending per column
-        corder = np.argsort(cols, kind="stable")
-        col_ptr = np.zeros(int(num_features) + 1, np.int64)
-        np.cumsum(np.bincount(cols, minlength=int(num_features)), out=col_ptr[1:])
 
         def up(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
-        def per_row(a, default):
-            return up(np.full(n, default) if a is None else np.asarray(a, np.float64),
-                      np.float32)
+        return CSRBatch.from_device_csr(
+            up(row_ptr, np.int32), up(cols, np.int32), up(values, np.float32),
+            np.asarray(labels, np.float64), num_features, offsets=offsets, weights=weights,
+            refreshable=refreshable)
 
-        csc_rows, csc_vals, tiles = rows[corder], values[corder], None
+    @staticmethod
+    def from_device_csr(
+        row_ptr: Tensor,
+        cols: Tensor,
+        vals: Tensor,
+        labels,
+        num_features: int,
+        offsets=None,
+        weights=None,
+        refreshable: bool = False,
+    ) -> "CSRBatch":
+        """The batch of a row-sorted CSR already on a device, built there:
+        the column-major mirror by a stable sort of the columns and, on a
+        CUDA device, the tile index and the mirror in its slot order
+        (``tile_layout``), with no host copy of the index.
+        ``labels``, ``offsets`` and ``weights`` are host vectors (float64,
+        cast to float32 as ``from_coo`` casts them) or tensors."""
+        dev = vals.device
+        n, nnz, f = int(len(labels)), int(vals.shape[0]), int(num_features)
+        if nnz > _INT32_MAX:
+            raise ValueError(f"{nnz} nonzeros exceed the int32 index range")
+        if tuple(row_ptr.shape) != (n + 1,) or tuple(cols.shape) != (nnz,):
+            raise ValueError(f"a CSR of {n} rows and {nnz} nonzeros needs row_ptr [{n + 1}] "
+                             f"and cols [{nnz}], got {tuple(row_ptr.shape)} and "
+                             f"{tuple(cols.shape)}")
+        row_ptr64, cols64 = row_ptr.to(device=dev, dtype=torch.int64), cols.to(dev).long()
+        counts = torch.diff(row_ptr64)
+        # one fetch validates the structure (from_coo's index checks)
+        lo_c, hi_c = ((cols64.min(), cols64.max()) if nnz else
+                      (torch.zeros((), dtype=torch.int64, device=dev),) * 2)
+        first, last, neg, c_lo, c_hi = torch.stack([
+            row_ptr64[0], row_ptr64[-1], (counts < 0).sum(), lo_c, hi_c]).tolist()
+        if first != 0 or last != nnz or neg:
+            raise ValueError(f"row_ptr must rise from 0 to {nnz}")
+        if nnz and (c_lo < 0 or c_hi >= f):
+            raise ValueError(f"feature indices must be in [0, {f}); got [{c_lo}, {c_hi}]")
+        rows = torch.repeat_interleave(torch.arange(n, dtype=torch.int64, device=dev), counts,
+                                       output_size=nnz)
+        # a stable sort of the row-sorted CSR keeps rows ascending per column
+        corder = torch.sort(cols64, stable=True).indices
+        col_ptr = torch.zeros(f + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(torch.bincount(cols64, minlength=f), 0, out=col_ptr[1:])
+        csc_rows, csc_vals, tiles = rows[corder], vals[corder], None
         if dev.type == "cuda":
-            tiles, perm = _tile_layout(csc_rows, cols[corder], n, int(num_features),
-                                       SCATTER_TILE_ROWS, SCATTER_PIECE_LEN, dev)
+            tiles, perm = tile_layout(csc_rows, cols64[corder], n, f)
             csc_rows, csc_vals, corder = csc_rows[perm], csc_vals[perm], corder[perm]
 
+        def per_row(a, default):
+            if a is None:
+                a = np.full(n, default)
+            if isinstance(a, Tensor):
+                return a.to(device=dev, dtype=torch.float32).contiguous()
+            return torch.from_numpy(np.asarray(a, np.float64).astype(np.float32)).to(dev)
+
         return CSRBatch(
-            row_ptr=up(row_ptr, np.int32),
-            cols=up(cols, np.int32),
-            vals=up(values, np.float32),
-            col_ptr=up(col_ptr, np.int32),
-            csc_rows=up(csc_rows, np.int32),
-            csc_vals=up(csc_vals, np.float32),
-            labels=up(np.asarray(labels, np.float64), np.float32),
+            row_ptr=row_ptr64.to(torch.int32),
+            cols=cols64.to(torch.int32),
+            vals=vals.to(torch.float32).contiguous(),
+            col_ptr=col_ptr.to(torch.int32),
+            csc_rows=csc_rows.to(torch.int32),
+            csc_vals=csc_vals.to(torch.float32).contiguous(),
+            labels=per_row(labels, 0.0),
             offsets=per_row(offsets, 0.0),
             weights=per_row(weights, 1.0),
-            num_features=int(num_features),
+            num_features=f,
             tiles=tiles,
-            value_order=up(corder, np.int32) if refreshable else None,
+            value_order=corder.to(torch.int32) if refreshable else None,
         )
 
     @staticmethod
@@ -276,16 +333,16 @@ class CSRBatch:
                    piece_len: int = SCATTER_PIECE_LEN) -> "CSRBatch":
         """This batch with the tile index built for ``tile_rows`` and
         ``piece_len`` and the mirror in its slot order, on its device."""
-        col_ptr, rows, vals = (t.cpu().numpy() for t in self.column_major())
-        cols = np.repeat(np.arange(self.num_features), np.diff(col_ptr))
-        tiles, perm = _tile_layout(rows, cols, self.num_rows, self.num_features, tile_rows,
-                                   piece_len, self.device)
+        col_ptr, rows, vals = self.column_major()
+        cols = torch.repeat_interleave(
+            torch.arange(self.num_features, dtype=torch.int64, device=self.device),
+            torch.diff(col_ptr.long()), output_size=self.nnz)
+        tiles, perm = tile_layout(rows, cols, self.num_rows, self.num_features, tile_rows,
+                                  piece_len)
         # value_order addressed the old mirror order: a re-tiled batch is not
         # refreshable
-        return dataclasses.replace(
-            self, csc_rows=torch.from_numpy(rows[perm]).to(self.device),
-            csc_vals=torch.from_numpy(vals[perm]).to(self.device), tiles=tiles,
-            value_order=None)
+        return dataclasses.replace(self, csc_rows=rows[perm], csc_vals=vals[perm], tiles=tiles,
+                                   value_order=None)
 
     # -- the kernels ---------------------------------------------------------
 

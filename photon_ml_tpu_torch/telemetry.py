@@ -1,10 +1,11 @@
-"""A minimal telemetry shim: named spans and counters.
+"""A minimal telemetry shim: named spans, counters and gauges.
 
 Counterpart of the call sites of ``photon_ml_tpu/telemetry`` (``span``,
-``counter``) so later slices keep the reference's instrumentation points.
-There is no jit accounting and no sink: spans add their wall time to a
-per-name total, counters count. ``snapshot()`` reads both, ``reset()``
-clears them.
+``counter``, ``gauge``) so later slices keep the reference's
+instrumentation points. There is no jit accounting and no sink: spans add
+their wall time to a per-name total, counters count, a gauge keeps the last
+value set. ``snapshot()`` reads all three, ``peek_gauge`` one gauge,
+``reset()`` clears them.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import time
 _lock = threading.Lock()
 _counters: dict[str, int] = {}
 _span_seconds: dict[str, float] = {}
+_gauges: dict[str, float] = {}
 
 
 class _Counter:
@@ -29,6 +31,25 @@ class _Counter:
 
 def counter(name: str) -> _Counter:
     return _Counter(name)
+
+
+class _Gauge:
+    def __init__(self, name: str):
+        self.name = name
+
+    def set(self, value: float) -> None:
+        with _lock:
+            _gauges[self.name] = value
+
+
+def gauge(name: str) -> _Gauge:
+    return _Gauge(name)
+
+
+def peek_gauge(name: str):
+    """The last value set on gauge ``name``, or None."""
+    with _lock:
+        return _gauges.get(name)
 
 
 @contextlib.contextmanager
@@ -46,10 +67,12 @@ def span(name: str, **_attrs):
 
 def snapshot() -> dict:
     with _lock:
-        return {"counters": dict(_counters), "span_seconds": dict(_span_seconds)}
+        return {"counters": dict(_counters), "span_seconds": dict(_span_seconds),
+                "gauges": dict(_gauges)}
 
 
 def reset() -> None:
     with _lock:
         _counters.clear()
         _span_seconds.clear()
+        _gauges.clear()

@@ -247,7 +247,6 @@ REFUSED_KEYS = [
     pytest.param({"sweep": {"grid": ["lambda=1,2"], "registry_dir": "r"}}, 14,
                  id='{"sweep": {"grid": ["lambda=1,-11'),
     ({"warm_start": {"dir": "x"}}, 14),
-    ({"input": {"ingest": {"workers": 2}}}, 13),
     ({"mesh": True}, 12),
     ({"trace_out": "t.jsonl"}, 14),
     ({"telemetry_out": "t.jsonl"}, 14),
@@ -280,7 +279,6 @@ REFUSED_FLAGS = [
     pytest.param(["--sweep-registry-dir", "r"], 14, id="['--sweep-registry-dir', 'r']-11"),
                  (["--warm-start", "d"], 14), (["--delta", "d.avro"], 14),
                  (["--refresh-registry-dir", "r"], 14), (["--lambda-points", "3"], 14),
-                 (["--ingest-workers", "2"], 13), (["--prefetch-depth", "2"], 13),
                  (["--mesh", "auto"], 12), (["--trace-out", "t"], 14), (["--telemetry-out", "t"], 14),
                  (["--report-out", "r"], 14), (["--xprof-dir", "x"], 14),
                  (["--xprof-arm", "3"], 14), (["--heartbeat-every", "5"], 14)]

@@ -124,7 +124,10 @@ def test_source_walk_covers_the_new_subpackages():
                    "diagnostics/bootstrap.py", "diagnostics/fitting.py", "diagnostics/hl.py",
                    "diagnostics/independence.py", "diagnostics/feature_importance.py",
                    "diagnostics/model_diagnostic.py", "diagnostics/reporting.py",
-                   "csrc/margins_lanes.cu", "csrc/scatter_lanes.cu"):
+                   "csrc/margins_lanes.cu", "csrc/scatter_lanes.cu", "ingest/__init__.py",
+                   "ingest/errors.py", "ingest/planner.py", "ingest/prefetch.py",
+                   "ingest/buffers.py", "ingest/decode.py", "ingest/pipeline.py",
+                   "ingest/assemble.py", "game/streaming.py"):
         assert module in rel
 
 
@@ -132,7 +135,9 @@ def test_source_walk_covers_the_new_subpackages():
                                      "dense", "game_dataset", "game_model", "game_fit",
                                      "probe", "libsvm_batch", "load_glm",
                                      "load_game_model", "block_diagonal", "lane_solve",
-                                     "projection", "factored_fit"])
+                                     "projection", "factored_fit", "streamed_dataset",
+                                     "chunk_stream", "coefficient_table",
+                                     "streaming_trainer"])
 def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
     _no_gpu()
     from photon_ml_tpu_torch import convert
@@ -155,6 +160,12 @@ def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
     from photon_ml_tpu_torch.ops.sparse import SparseBatch
     from photon_ml_tpu_torch.optim import lane_adapter, lbfgs_solve_lanes
     from photon_ml_tpu_torch.tools.probe_ell import run_probe
+    from photon_ml_tpu_torch.game.streaming import (
+        ShardedCoefficientTable,
+        StreamingRandomEffectTrainer,
+    )
+    from photon_ml_tpu_torch.ingest import ChunkStream, read_game_dataset_streamed
+    from photon_ml_tpu_torch.optim.factory import OptimizerConfig
 
     coo = _tiny_coo()
     shards = {"g": FeatureShard.from_coo(coo["values"], coo["rows"], coo["cols"], 2)}
@@ -183,6 +194,11 @@ def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
         "projection": lambda: build_gaussian_projection_matrix(2, 3),
         "factored_fit": lambda: GameEstimator(mf).fit(build_game_dataset(
             coo["labels"], shards, id_columns={"u": [0, 1, 1]}, device="cpu")),
+        "streamed_dataset": lambda: read_game_dataset_streamed(str(tmp_path)),
+        "chunk_stream": lambda: ChunkStream([str(tmp_path)], index_maps={}),
+        "coefficient_table": lambda: ShardedCoefficientTable(4, 2),
+        "streaming_trainer": lambda: StreamingRandomEffectTrainer("logistic",
+                                                                  OptimizerConfig()),
         "lane_solve": lambda: lbfgs_solve_lanes(lane_adapter(
             make_objective("logistic"), DenseBatch.from_arrays(
                 np.zeros((1, 2, 2)), np.zeros((1, 2)), device="cpu")), torch.zeros(1, 2)),

@@ -252,8 +252,16 @@ def _plain_tiles(rows, cols, n, f, tile_rows, piece_len):
 def _index_problem(n, f, tile_rows, kind, seed=21):
     """COO of one shape: a random ``X`` with an empty column and an empty
     first tile ("dense"), or a wide, sparse one ("wide"), or power-law
-    column popularity ("power_law")."""
+    column popularity ("power_law"); or an edge: no nonzeros ("empty"), one
+    column on every other row across the tiles ("across_tiles"), one segment
+    filling each tile ("one_segment_a_tile")."""
     rng = np.random.default_rng(seed)
+    if kind == "empty":
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0)
+    if kind in ("across_tiles", "one_segment_a_tile"):
+        rows = np.arange(0, n, 2 if kind == "across_tiles" else 1)
+        cols = np.full(len(rows), 0 if kind == "across_tiles" else 3)
+        return rows, cols, rng.normal(size=len(rows))
     if kind == "dense":
         X = rng.normal(size=(n, f)) * (rng.random((n, f)) < 0.15)
         X[:, 2] = 0.0              # an empty column
@@ -278,6 +286,10 @@ INDEX_SHAPES = [
     (200, 70, 64, 7, "dense"),     # three groups of 32 features, the last one short
     (300, 5000, 64, 16, "wide"),   # wide and sparse: segments of one or two entries
     (500, 40, 128, 8, "power_law"),  # hot columns split over pieces
+    (40, 6, 32, 16, "empty"),      # no nonzeros: every tile padding only
+    (0, 3, 32, 16, "empty"),       # no rows, no tiles
+    (200, 4, 32, 16, "across_tiles"),  # one column crossing every tile boundary
+    (96, 5, 32, 64, "one_segment_a_tile"),  # one full segment a tile, one piece a group
 ]
 
 
@@ -286,7 +298,8 @@ def test_scatter_tiles_match_plain_construction(n, f, tile_rows, piece_len, kind
     rows, cols, vals = _index_problem(n, f, tile_rows, kind)
     b = CSRBatch.from_coo(vals, rows, cols, np.zeros(n), f, device="cpu")
     col_ptr, csc_rows = b.col_ptr.numpy(), b.csc_rows.numpy()
-    got = scatter_tiles(csc_rows, _csc_cols(b), n, f, tile_rows, piece_len)
+    got = [a.numpy() for a in scatter_tiles(b.csc_rows, torch.from_numpy(_csc_cols(b)), n, f,
+                                            tile_rows, piece_len)]
     for g, want in zip(got, _plain_tiles(rows, cols, n, f, tile_rows, piece_len), strict=True):
         np.testing.assert_array_equal(g, want)
     start, off, tile_group = got[:3]
@@ -386,11 +399,11 @@ def test_from_coo_builds_the_tile_pointer_where_it_suits():
     tiles = tiled.tiles
     assert (tiles.tile_rows, tiles.piece_len) == (SCATTER_TILE_ROWS, SCATTER_PIECE_LEN)
     assert tiles.index.dtype == torch.int32 and tiles.index.device == b.device
-    arrays = scatter_tiles(b.csc_rows.numpy(), _csc_cols(b), 300, 6, SCATTER_TILE_ROWS,
-                           SCATTER_PIECE_LEN)
+    arrays = [a.numpy() for a in scatter_tiles(b.csc_rows, torch.from_numpy(_csc_cols(b)), 300,
+                                               6, SCATTER_TILE_ROWS, SCATTER_PIECE_LEN)]
     np.testing.assert_array_equal(tiles.index.numpy(),
                                   np.concatenate([arrays[1][:-1], *arrays[1:]]))
-    perm = slot_order(arrays[0], arrays[1])
+    perm = slot_order(torch.from_numpy(arrays[0]), torch.from_numpy(arrays[1])).numpy()
     np.testing.assert_array_equal(tiled.csc_rows.numpy(), b.csc_rows.numpy()[perm])
     np.testing.assert_array_equal(tiled.csc_vals.numpy(), b.csc_vals.numpy()[perm])
     assert (tiles.n_slots, tiles.n_pieces, tiles.n_parts) == (len(arrays[0]), len(arrays[5]),
@@ -419,7 +432,7 @@ def test_scatter_args_check_the_tile_index():
 def test_with_offsets_and_moment_sums_carry_the_tile_pointer():
     rng, X = _coo(24, 200, 8, 0.4, empty_cols=(3,))
     b = _batch(X, "cpu").with_tiles(64, 16)
-    arrays = scatter_tiles(b.column_major()[1].numpy(), _csc_cols(b), 200, 8, 64, 16)
+    arrays = scatter_tiles(b.column_major()[1], torch.from_numpy(_csc_cols(b)), 200, 8, 64, 16)
     assert b.tiles.index.numel() == sum(len(a) for a in arrays)
     moved = b.with_offsets(torch.ones(200))
     assert moved.tiles is b.tiles

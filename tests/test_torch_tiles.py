@@ -54,10 +54,11 @@ def _cols(b):
 @pytest.mark.parametrize("case", CASES)
 def test_slot_ordered_mirror_and_start_follow_from_scatter_tiles(case):
     b, t, tile_rows, piece_len = _tiled(case)
-    arrays = scatter_tiles(b.csc_rows.numpy(), _cols(b), b.num_rows, b.num_features, tile_rows,
-                           piece_len)
+    arrays = [a.numpy() for a in scatter_tiles(b.csc_rows, torch.from_numpy(_cols(b)),
+                                               b.num_rows, b.num_features, tile_rows,
+                                               piece_len)]
     start, off, tile_group = arrays[:3]
-    perm = slot_order(start, off)
+    perm = slot_order(torch.from_numpy(start), torch.from_numpy(off)).numpy()
     np.testing.assert_array_equal(np.sort(perm), np.arange(b.nnz))  # a permutation
     np.testing.assert_array_equal(t.csc_rows.numpy(), b.csc_rows.numpy()[perm])
     np.testing.assert_array_equal(t.csc_vals.numpy(), b.csc_vals.numpy()[perm])
@@ -99,9 +100,9 @@ def test_slot_order_scatter_matches_the_column_major_scatter(case):
     ix, slots = t.tiles.index.numpy().astype(np.int64), t.tiles.n_slots
     off = ix[slots:2 * slots + 1]
     rows, vals = t.csc_rows.numpy(), t.csc_vals.numpy().astype(np.float64)
-    start, csc_off = scatter_tiles(b.csc_rows.numpy(), _cols(b), b.num_rows, b.num_features,
-                                   tile_rows, piece_len)[:2]
-    cols = _cols(b)[slot_order(start, csc_off)]  # each slot-order entry's feature
+    start, csc_off = scatter_tiles(b.csc_rows, torch.from_numpy(_cols(b)), b.num_rows,
+                                   b.num_features, tile_rows, piece_len)[:2]
+    cols = _cols(b)[slot_order(start, csc_off).numpy()]  # each slot-order entry's feature
     feat = np.zeros(b.num_features)
     for s in range(slots):
         if off[s] < off[s + 1]:
