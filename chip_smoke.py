@@ -37,6 +37,12 @@ Phases, in order; any failure exits non-zero before the last line:
      after (a kernel of the path that did not launch fails the run):
        5.  bench.py config #1 through ``train_glm``: logistic, lambdas
            [10, 1], LBFGS 20 iterations at tolerance 0, with variances;
+       14. config #1's solve of path 5 through ``train_glm(mesh=...)``: on
+           a 1-shard mesh (bit for bit path 5), then placed once on a 4-shard
+           ``batch`` mesh (four cards when the machine has them, else cuda:0
+           repeated; the line says which) and solved twice (bit for bit);
+           each lambda's value within rtol 1e-4 and w within rtol/atol 5e-3
+           of path 5's; 14-tron and 14-owlqn the same for paths 5b and 5c;
        12. bench_sweep.py on config #1 through ``sweep_glm``: 16 lambdas
            ``np.logspace(2, -4, 16)`` as lanes, LBFGS 20 at tolerance 0,
            cold, timed beside one ``train_glm`` fit (``sweep_over_single_
@@ -68,6 +74,12 @@ Phases, in order; any failure exits non-zero before the last line:
            is timed, as bench_game.py times it; the fitted model is then
            scored and evaluated twice (``auc``, ``auc:userId``,
            ``precision@5:userId``), and each pair must agree bit for bit;
+       14b. path 6's config and dataset through ``GameEstimator.fit(mesh=
+           make_mesh({"batch": 2, "model": 2}))``: the coefficients within
+           rtol/atol 5e-3 and the scores within 2e-3 of path 6's fit,
+           a second fit bit for bit, a fit stopped after its second update
+           and resumed from its checkpoint bit for bit, the AUC beside path
+           6's;
        9.  config #4's dataset again through ``GameEstimator.fit``: its fixed
            effect, a per-user random effect over the sparse 10K-feature
            shard under the default optimizer type (LBFGS: 10 buckets, the 3
@@ -125,6 +137,9 @@ Phases, in order; any failure exits non-zero before the last line:
            bit for bit; a 2,000 x 8 x 64 chunk on the card as on the CPU
            (values within rtol 1e-4, iterations and reasons but on plateau
            lanes);
+       14c. 13b's per_user_re part on a 4-device ``entity`` mesh: each
+           device holds a quarter of the table, which is within rtol 2e-3 /
+           atol 2e-4 of 13b's (the largest per-entity difference printed);
        12d. on path 10's files: ``cli glm`` with ``"diagnostics": true``
            (both reports written, the VALIDATED results bit for bit path
            8's), and ``cli sweep`` on the Avro files (three to train, one to
@@ -210,6 +225,12 @@ SCALE_PARTS = (("per_user_re", 1_000_000, 512, 125_000, 8, 1),
                ("per_item_re", 1_000_000, 512, 125_000, 8, 2),
                ("mf_latent", 2_000_000, 16, 1_000_000, 8, 3))
 SCALE_SMALL = (2_000, 64, 64)  # path 13b's card-vs-CPU chunk: entities, rows, dims
+MESH_SHARDS = 4  # paths 14 and 14c: a 4-shard batch (entity) mesh; 14b: batch 2 x model 2
+MESH_W_TOL = dict(rtol=5e-3, atol=5e-3)  # tests/test_distributed.py:62-75: a sharded solve's w
+# the reference's tolerance for a GLMix fit on a batch x model mesh against one device
+# (tests/test_multichip.py:165-215)
+MESH_GAME_TOL = dict(rtol=5e-3, atol=5e-3)
+MESH_TABLE_TOL = dict(rtol=2e-3, atol=2e-4)  # tests/test_streaming.py:150-181
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -850,7 +871,7 @@ def scatter_memory(batches) -> dict:
 
 
 def run_path(label, batch, task, lambdas, cfg, required, constraints=None,
-             compute_variances=False, min_auc=None) -> tuple[dict, dict]:
+             compute_variances=False, min_auc=None, keep=None) -> tuple[dict, dict]:
     """Phase 5: one path through train_glm as a user calls it (device
     defaults to cuda), with the launch counts zeroed just before it and read
     just after. Fails on a bad result or a kernel of ``required`` that did
@@ -925,7 +946,126 @@ def run_path(label, batch, task, lambdas, cfg, required, constraints=None,
     missing = [k for k in required if launches[k] == 0]
     if missing:
         raise RuntimeError(f"path {label}: kernels not launched: {missing}")
+    if keep is not None:  # path 14 holds its mesh solves against these
+        keep[label] = (entries, launches)
     return launches, stats
+
+
+def mesh_devices(n: int):
+    """n devices for a mesh: n distinct cards when the machine has them, else
+    cuda:0 repeated (which runs the sharding code, not transfers between
+    cards); and which of the two it is."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], "distinct cards"
+    return [torch.device("cuda", 0)] * n, "cuda:0 repeated"
+
+
+def _sync(devices) -> None:
+    import torch
+
+    for d in sorted({str(d) for d in devices}):
+        torch.cuda.synchronize(torch.device(d))
+
+
+def _reset_peaks(devices) -> None:
+    import torch
+
+    for d in sorted({str(d) for d in devices}):
+        torch.cuda.reset_peak_memory_stats(torch.device(d))
+
+
+def _peaks(devices) -> dict:
+    import torch
+
+    return {d: torch.cuda.max_memory_allocated(torch.device(d))
+            for d in sorted({str(d) for d in devices})}
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def run_mesh_glm_path(label: str, batch, task: str, lambdas, cfg, ref, required,
+                      compute_variances: bool = False) -> tuple[dict, dict]:
+    """Path 14: ``train_glm(mesh=...)`` over the batch of path ``ref``'s label
+    (its entries and launches, ``run_path(keep=...)``): on a 1-shard mesh,
+    which must give the unsharded entries bit for bit, then placed once on a
+    4-shard ``batch`` mesh and solved twice, the two solves bit for bit, each
+    entry's value within rtol 1e-4 and its coefficients within rtol/atol
+    5e-3 of the unsharded ones (tests/test_distributed.py:62-75). The launch
+    counts are zeroed before each solve and summed over the path."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.parallel import make_mesh, place_batch
+    from photon_ml_tpu_torch.training import train_glm
+
+    ref_entries, ref_launches = ref
+    devices, kind = mesh_devices(MESH_SHARDS)
+    total, bad = {}, []
+
+    def solve(arg, mesh):
+        _sync(devices)
+        _reset_peaks(devices)
+        telemetry.reset()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        entries = train_glm(arg, task, lambdas, cfg, compute_variances=compute_variances,
+                            mesh=mesh)
+        _sync(devices)
+        elapsed = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        _add_launches(total, launches)
+        return entries, elapsed, launches, telemetry.snapshot()["counters"].get(
+            "host_syncs", 0), _peaks(devices)
+
+    def same(a, b):
+        ca, cb = a.model.coefficients, b.model.coefficients
+        return (torch.equal(ca.means, cb.means) and torch.equal(a.result.value, b.result.value)
+                and (ca.variances is None or torch.equal(ca.variances, cb.variances)))
+
+    one = solve(batch, make_mesh({"batch": 1}, devices[:1]))[0]
+    one_same = all(same(a, b) for a, b in zip(one, ref_entries))
+    if not one_same:
+        bad.append("the 1-shard mesh differs from the unsharded solve")
+    del one
+    mesh = make_mesh({"batch": MESH_SHARDS}, devices)
+    t0 = time.perf_counter()
+    placed = place_batch(batch, mesh)
+    _sync(devices)
+    place_s = time.perf_counter() - t0
+    (first, elapsed, launches, syncs, peaks), second = solve(placed, mesh), solve(placed, mesh)
+    repeat = all(same(a, b) for a, b in zip(first, second[0]))
+    if not repeat:
+        bad.append("two 4-shard solves differ")
+    diffs = []
+    for e, r in zip(first, ref_entries):
+        w, w_ref = e.model.coefficients.means.cpu().numpy(), r.model.coefficients.means.cpu().numpy()
+        rel = abs(float(e.result.value) - float(r.result.value)) / abs(float(r.result.value))
+        diffs.append({"lambda": e.reg_weight, "iterations": e.result.iterations,
+                      "ref_iterations": r.result.iterations, "value_rel_diff": rel,
+                      "w_max_abs_diff": float(np.abs(w - w_ref).max())})
+        if not rel <= 1e-4 or not np.allclose(w, w_ref, **MESH_W_TOL):
+            bad.append(f"lambda {e.reg_weight}: the 4-shard solve is off the unsharded one")
+    passes = sum(e.result.data_passes for e in first)
+    ratio = {k: (launches[k] / ref_launches[k]) for k in ref_launches if ref_launches[k]}
+    stats = {"devices": [str(d) for d in devices], "kind": kind, "wall_s": elapsed,
+             "second_wall_s": second[1], "place_s": place_s,
+             "rows_per_s": batch.num_rows * passes / elapsed, "host_syncs": syncs,
+             "launches": launches, "launches_over_unsharded": ratio,
+             "max_memory_allocated_by_device": peaks, "one_shard_bit_identical": one_same,
+             "repeat_bit_identical": repeat, "against_unsharded": diffs}
+    print(f"path {label}: mesh batch={MESH_SHARDS} over {kind} {stats['devices']}; "
+          f"{json.dumps(stats)}", flush=True)
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        bad.append(f"kernels not launched: {missing}")
+    if bad:
+        raise RuntimeError(f"path {label}: bad result: {bad}")
+    return total, stats
 
 
 def profile_solve(label, run) -> dict:
@@ -1010,15 +1150,23 @@ def run_suite_paths(seed: int, profile: bool, by_path: dict, train: dict, prof: 
                                                                          "value_grad")),
         ("5e", linear, "squared", solver_config("tron", 3), the_box, ("hv", "value_grad")),
     ]
+    refs = {}
     for label, pbatch, task, cfg, constraints, required in paths:
         by_path[label], train[label] = run_path(label, pbatch, task, [1.0], cfg, required,
-                                                constraints=constraints)
+                                                constraints=constraints, keep=refs)
         if profile:
             prof[label] = profile_solve(label, lambda: train_glm(
                 pbatch, task, [1.0], cfg, constraints=constraints)[0].result.iterations)
+        # path 14's config #2 solves on a mesh, held against 5b's and 5c's
+        mesh_label = {"5b": "14-tron", "5c": "14-owlqn"}.get(label)
+        if mesh_label is not None:
+            by_path[mesh_label], train[mesh_label] = run_mesh_glm_path(
+                mesh_label, pbatch, task, [1.0], cfg, refs.pop(label), required)
+            mark(f"path {mesh_label}", train)
+        refs.pop(label, None)
 
 
-def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, object]:
+def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, object, tuple]:
     """Path 6: GLMix config #4 through ``GameEstimator.fit`` as bench_game.py
     drives it: the random-effect build timed alone, one fit that saves its
     models to ``output_dir``, then the second fit timed with the launch counts
@@ -1028,7 +1176,7 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, ob
     every coordinate-descent iteration, every coefficient is finite, the
     GLMix model's train AUC beats its fixed effect's alone, and two scorings
     and evaluations of the model agree bit for bit. Returns the dataset too,
-    for path 9."""
+    for path 9, and the config and fitted model, for path 14b."""
     import dataclasses
 
     import torch
@@ -1175,7 +1323,107 @@ def run_game_path(seed: int, profile: bool) -> tuple[dict, dict, dict | None, ob
             est.fit(gds)
 
         prof = profile_solve("6", refit)
-    return launches, stats, prof, gds
+    return launches, stats, prof, gds, (config, model)
+
+
+def run_mesh_game_path(gds, config, ref_model, ref_stats: dict, ref_launches: dict,
+                       work: str) -> tuple[dict, dict]:
+    """Path 14b: path 6's config and dataset through ``GameEstimator.fit(mesh=
+    make_mesh({"batch": 2, "model": 2}))``: the fixed effect's rows over 2
+    shards, the per-user entities over 2 owners. Fails unless the fixed- and
+    random-effect coefficients are within rtol/atol 5e-3 (the reference's
+    batch x model mesh tolerance, tests/test_multichip.py:165-215) and the
+    scores within 2e-3 (tests/test_mesh_game.py:103-104) of path 6's fit, a
+    second fit (on the cached coordinates) is the first bit for bit, and a
+    fit checkpointed every step, stopped after its second update and resumed
+    is the first bit for bit. The launch counts are zeroed before each fit
+    and summed over the path."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.evaluation.evaluators import auc
+    from photon_ml_tpu_torch.game import CheckpointSpec, GameEstimator, TrainingInterrupted
+    from photon_ml_tpu_torch.parallel import make_mesh
+
+    devices, kind = mesh_devices(4)
+    mesh = make_mesh({"batch": 2, "model": 2}, devices)
+    total, bad = {}, []
+    est = GameEstimator(config)
+
+    def fit(estimator=est, **kw):
+        _sync(devices)
+        _reset_peaks(devices)
+        telemetry.reset()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = estimator.fit(gds, mesh=mesh, **kw)
+        _sync(devices)
+        elapsed = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        _add_launches(total, launches)
+        return result, elapsed, launches, telemetry.snapshot()["counters"].get(
+            "host_syncs", 0), _peaks(devices)
+
+    def coefficients(model):
+        return [model.models["fixed"].coefficients] + [
+            b.coefficients for b in model.models["per-user"].buckets]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(coefficients(a), coefficients(b)))
+
+    first, first_s, launches, syncs, peaks = fit()
+    second, second_s, *_ = fit()
+    repeat = same(second.model, first.model)
+    if not repeat:
+        bad.append("a second mesh fit differs from the first")
+    ckpt = os.path.join(work, "ckpt14b")
+    polls = iter(range(1_000))
+    stopped_at = None
+    try:
+        fit(GameEstimator(config), should_stop=lambda: next(polls) == 1,
+            checkpoint_spec=CheckpointSpec(directory=ckpt, resume=False))
+        bad.append("the stop after the second update did not interrupt the fit")
+    except TrainingInterrupted as e:
+        stopped_at = e.step
+    resumed = fit(GameEstimator(config), checkpoint_spec=CheckpointSpec(directory=ckpt))[0]
+    resumed_same = same(resumed.model, first.model)
+    if not resumed_same:
+        bad.append("the resumed mesh fit differs from the uninterrupted one")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    diffs = {}
+    for name, got, want in (("fixed", coefficients(first.model)[:1], coefficients(ref_model)[:1]),
+                            ("per-user", coefficients(first.model)[1:],
+                             coefficients(ref_model)[1:])):
+        worst = 0.0
+        for g, w in zip(got, want):
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+            worst = max(worst, float(np.abs(g - w).max()) if g.size else 0.0)
+            if not np.allclose(g, w, **MESH_GAME_TOL):
+                bad.append(f"{name} coefficients off path 6's beyond {MESH_GAME_TOL}")
+        diffs[name] = worst
+    scores, ref_scores = first.model.score(gds), ref_model.score(gds)
+    diffs["scores"] = float((scores - ref_scores).abs().max())
+    if not np.allclose(scores.cpu().numpy(), ref_scores.cpu().numpy(), rtol=2e-3, atol=2e-3):
+        bad.append("scores off path 6's beyond 2e-3")
+    labels, weights = gds.per_row(gds.response), gds.per_row(gds.weight)
+    mesh_auc = float(auc(scores + gds.per_row(gds.offset), labels, weights))
+    stats = {"devices": [str(d) for d in devices], "kind": kind, "wall_s": first_s,
+             "second_wall_s": second_s,
+             "coeffs_per_s": ref_stats["total_coeffs"] * GAME_CD_ITERATIONS / second_s,
+             "host_syncs": syncs, "launches": launches,
+             "launches_over_path6": {k: launches[k] / v for k, v in ref_launches.items() if v},
+             "max_memory_allocated_by_device": peaks, "max_abs_diff_vs_path6": diffs,
+             "train_auc": mesh_auc, "path6_train_auc": ref_stats["train_auc"],
+             "repeat_bit_identical": repeat, "stopped_at_step": stopped_at,
+             "resumed_bit_identical": resumed_same}
+    print(f"path 14b: mesh batch=2 x model=2 over {kind} {stats['devices']}; "
+          f"{json.dumps(stats)}", flush=True)
+    missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
+    if missing:
+        bad.append(f"kernels not launched: {missing}")
+    if bad:
+        raise RuntimeError(f"path 14b: bad result: {bad}")
+    return total, stats
 
 
 def lane_report(label: str, results, buckets) -> list[dict]:
@@ -2355,8 +2603,8 @@ def scale_config():
                            regularization_weight=1.0)
 
 
-def run_scale_path(seed: int, card: str, work: str,
-                   profile: bool) -> tuple[dict, dict, dict | None]:
+def run_scale_path(seed: int, card: str, work: str, profile: bool,
+                   keep: dict | None = None) -> tuple[dict, dict, dict | None]:
     """Path 13b: ``StreamingRandomEffectTrainer`` at bench_scale.py's three
     parts (1,056,000,000 coefficients), chunks made on the card; per part one
     untimed warm-up chunk, then the timed pass over a fresh table
@@ -2443,6 +2691,8 @@ def run_scale_path(seed: int, card: str, work: str,
             part["pinned_host_s"] = time.perf_counter() - t0
             arms["pinned_host"] = torch.equal(t.coefficients, head)
             del t, host, head
+            if keep is not None:  # path 14c holds its entity-sharded table against it
+                keep["per_user_re"] = table.coefficients.cpu()
             part["arms_bit_identical"] = arms
             if not all(arms.values()):
                 bad.append(f"{name}: the feeding arms differ from the timed table: {arms}")
@@ -2475,6 +2725,70 @@ def run_scale_path(seed: int, card: str, work: str,
     if bad:
         raise RuntimeError(f"path 13b: bad result: {bad}")
     return launches, stats, prof
+
+
+def run_mesh_scale_path(seed: int, card: str, ref) -> tuple[dict, dict]:
+    """Path 14c: path 13b's per_user_re part (1M entities x 512 dims, chunks
+    of 125,000 x 8 rows, made on the card) through ``ShardedCoefficientTable``
+    and ``StreamingRandomEffectTrainer`` on a 4-device ``entity`` mesh: a
+    warm-up chunk, then the timed pass. Fails unless every device holds a
+    quarter of the table's bytes and the table is within rtol 2e-3 / atol
+    2e-4 of 13b's single-device one (tests/test_streaming.py:150-181); the
+    largest per-entity difference is printed, and whether it is zero."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.game import ShardedCoefficientTable, StreamingRandomEffectTrainer
+    from photon_ml_tpu_torch.parallel import make_mesh
+
+    name, n, dims, per, rows, part_seed = SCALE_PARTS[0]
+    devices, kind = mesh_devices(MESH_SHARDS)
+    mesh = make_mesh({"entity": MESH_SHARDS}, devices)
+    chunks = [(start, (lambda i=i: scale_chunk(seed, part_seed, i, per, rows, dims)))
+              for i, start in enumerate(range(0, n, per))]
+    trainer = StreamingRandomEffectTrainer("logistic", scale_config(), mesh=mesh)
+    trainer.train(ShardedCoefficientTable(per, dims, mesh=mesh), chunks[:1])  # warm-up, untimed
+    _sync(devices)
+    torch.cuda.empty_cache()
+    _reset_peaks(devices)
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    table = ShardedCoefficientTable(n, dims, mesh=mesh)
+    t0 = time.perf_counter()
+    run = trainer.train(table, chunks)
+    _sync(devices)
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+    peaks = _peaks(devices)
+    # 13b's table, kept on the host, against each block where it lies
+    per_entity, close = [], True
+    for lo, p in zip(table.coefficients.row_starts(), table.coefficients.parts):
+        want = ref[lo:lo + p.shape[0]].to(p.device)
+        per_entity.append((p - want).abs().amax(dim=1).cpu())
+        close = close and torch.allclose(p, want, **MESH_TABLE_TOL)
+        del want
+    per_entity = torch.cat(per_entity)
+    largest = float(per_entity.max())
+    stats = {"part": name, "devices": [str(d) for d in devices], "kind": kind,
+             "coefficients": run.total_coefficients, "seconds": secs,
+             "coeffs_per_s": run.total_coefficients / secs, "host_syncs": syncs,
+             "mean_iterations": run.mean_iterations, "lanes_rose": run.lanes_rose,
+             "shard_bytes": table.shard_nbytes(), "table_bytes": table.nbytes,
+             "max_memory_allocated_by_device": peaks,
+             "largest_per_entity_abs_diff": largest, "identical": largest == 0.0,
+             "entities_differing": int((per_entity > 0).sum()),
+             "within_tolerance": close, "card": card}
+    print(f"path 14c: entity mesh of {MESH_SHARDS} over {kind} {stats['devices']}; "
+          f"{json.dumps(stats)}", flush=True)
+    bad = []
+    if stats["shard_bytes"] != [table.nbytes // MESH_SHARDS] * MESH_SHARDS:
+        bad.append("a shard does not hold a quarter of the table")
+    if not close or run.lanes_rose:
+        bad.append(f"off 13b's table beyond {MESH_TABLE_TOL} or a lane rose")
+    if bad:
+        raise RuntimeError(f"path 14c: bad result: {bad}")
+    return launches, stats
 
 
 def check_small_scale_parity(seed: int) -> dict:
@@ -3473,13 +3787,19 @@ def main() -> int:
     check_small_re_parity(args.seed)
     by_path, train, prof = {}, {}, {}
     mark("phase 4", train)
+    refs = {}
     by_path["5"], train["5"] = run_path(
         "5", batch, "logistic", [10.0, 1.0], solver_config("lbfgs", 20),
-        required=("csr_margins", "csc_scatter"), compute_variances=True, min_auc=0.6)
+        required=("csr_margins", "csc_scatter"), compute_variances=True, min_auc=0.6, keep=refs)
     if args.profile:
         prof["5"] = profile_solve("5", lambda: train_glm(
             batch, "logistic", [1.0], solver_config("lbfgs", 10))[0].result.iterations)
     mark("path 5", train)
+    by_path["14"], train["14"] = run_mesh_glm_path(
+        "14", batch, "logistic", [10.0, 1.0], solver_config("lbfgs", 20), refs.pop("5"),
+        required=("csr_margins", "csc_scatter"), compute_variances=True)
+    torch.cuda.empty_cache()
+    mark("path 14", train)
     by_path["12"], train["12"] = run_sweep_path(batch, card)
     mark("path 12", train)
     by_path["12c"], train["12c"] = run_bootstrap_path(args.seed, batch, card)
@@ -3514,10 +3834,15 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     torch.cuda.empty_cache()
     mark("path 8", train)
 
-    by_path["6"], train["6"], game_prof, gds = run_game_path(args.seed, args.profile)
+    by_path["6"], train["6"], game_prof, gds, game_ref = run_game_path(args.seed, args.profile)
     if game_prof is not None:
         prof["6"] = game_prof
     mark("path 6", train)
+    by_path["14b"], train["14b"] = run_mesh_game_path(gds, *game_ref, train["6"], by_path["6"],
+                                                      work)
+    del game_ref
+    torch.cuda.empty_cache()
+    mark("path 14b", train)
     t0 = time.perf_counter()
     re_launches, train["9"], re_prof = run_re_path(gds, args.seed, args.profile,
                                                    train["6"]["fe_only_auc"], card)
@@ -3544,14 +3869,19 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     torch.cuda.empty_cache()
     mark("path 13", train)
     t0 = time.perf_counter()
+    scale_ref = {}
     by_path["13b"], train["13b"], scale_prof = run_scale_path(args.seed, card, work,
-                                                              args.profile)
+                                                              args.profile, keep=scale_ref)
     train["13b"]["path_s"] = time.perf_counter() - t0
     if scale_prof is not None:
         prof["13b"] = scale_prof
     print(f"path 13b: {train['13b']['path_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
     mark("path 13b", train)
+    by_path["14c"], train["14c"] = run_mesh_scale_path(args.seed, card,
+                                                       scale_ref.pop("per_user_re"))
+    torch.cuda.empty_cache()
+    mark("path 14c", train)
     t0 = time.perf_counter()
     by_path["12d"], train["12d"] = run_sweep_cli_path(card, work, glm_ref)
     train["12d"]["path_s"] = time.perf_counter() - t0

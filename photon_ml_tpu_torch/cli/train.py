@@ -45,9 +45,16 @@ raises ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
 ``sweep.registry_dir``, ``--sweep-registry-dir``, ``warm_start``,
 ``--warm-start``, ``--delta``, ``--refresh-registry-dir``,
 ``--lambda-points`` (14);
-``mesh``, ``distributed``, ``--mesh`` (12); ``trace_out``, ``telemetry_out``,
+``distributed`` and a run across processes (12); ``trace_out``, ``telemetry_out``,
 ``report_out``, ``xprof``, their flags, a ``heartbeat`` object or interval
 and ``--heartbeat-every`` > 0 (14).
+
+``"mesh"`` (or ``--mesh batch=N,model=M``, ``auto`` for a 1-D ``data`` mesh
+over every CUDA device, ``off`` to drop a config's mesh) trains over a
+device mesh (``parallel/``): fixed-effect rows split over ``batch``, random
+effects' entities over ``model``. With ``--device cpu`` the mesh's devices
+are the CPU repeated (one for ``auto``), which runs the sharding code. A
+mesh with a sweep is refused, as the reference refuses it.
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ from photon_ml_tpu_torch.optim.guard import GuardSpec
 from photon_ml_tpu_torch.utils import setup_logging, timed
 
 # config keys the port refuses, with the ROADMAP.md Queue 1 item that ports them
-_REFUSED_KEYS = {"warm_start": 14, "mesh": 12, "distributed": 12,
+_REFUSED_KEYS = {"warm_start": 14, "distributed": 12,
                  "trace_out": 14, "telemetry_out": 14, "report_out": 14, "xprof": 14}
 
 
@@ -171,6 +178,55 @@ def _persist_feature_artifacts(output_dir, index_maps, train_data) -> None:
                                   summarize(train_data.csr_batch(shard)), imap)
 
 
+def parse_mesh_flag(raw: str):
+    """``--mesh`` -> the config's ``mesh`` value: ``batch=N,model=M`` (either
+    axis optional) a dict of axis sizes, ``auto``/``on`` True, ``off``/``none``
+    False (``photon_ml_tpu/cli/train.py:151-182``)."""
+    text = raw.strip().lower()
+    if text in ("auto", "on", "true"):
+        return True
+    if text in ("off", "none", "false"):
+        return False
+    axes: dict[str, int] = {}
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, eq, size = part.partition("=")
+        if not eq or not name:
+            raise ValueError(f"--mesh expects 'axis=N[,axis=M]' or 'auto'/'off', got {raw!r}")
+        try:
+            axes[name.strip()] = int(size)
+        except ValueError:
+            raise ValueError(f"--mesh axis '{name.strip()}' needs an integer size, got "
+                             f"{size!r}") from None
+    if not axes:
+        raise ValueError(f"--mesh got no axes in {raw!r}")
+    return axes
+
+
+def build_mesh(config: Mapping, device: torch.device | str | None = None):
+    """The training mesh of the config's ``mesh`` key, or None: over the
+    first CUDA devices, or on the CPU over the CPU repeated. A run across
+    processes is refused (ROADMAP.md Queue 1 item 12), as the reference's
+    ``cli train`` refuses to span processes."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        _refuse("a train run across processes", 12)
+    spec = config.get("mesh")
+    if not spec:
+        return None
+    from photon_ml_tpu_torch.device import resolve_device
+    from photon_ml_tpu_torch.parallel import DATA_AXIS, make_mesh
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        sizes = {DATA_AXIS: 1} if spec in (True, "auto") else {k: int(v) for k, v in spec.items()}
+        return make_mesh(sizes, [dev] * int(np.prod(list(sizes.values()))))
+    return make_mesh(None if spec in (True, "auto") else {k: int(v) for k, v in spec.items()})
+
+
 def _parse_guard_spec(config: Mapping) -> Optional[GuardSpec]:
     """Config key ``"guard"``: true (the default), false, or an object
     overriding ``GuardSpec``'s fields."""
@@ -235,6 +291,12 @@ def run(config: Mapping, output_dir: Optional[str] = None,
             "checkpointing is not supported with a sweep yet — drop "
             'the "checkpoint" config (sweeps are one batched solve '
             "per coordinate, not a resumable step sequence)")
+    if config.get("sweep") and config.get("mesh"):
+        raise ValueError(
+            "mesh training is not supported with a GAME sweep yet — drop the \"mesh\" config / "
+            "--mesh flag (plain-GLM sweeps can shard the config axis via "
+            "sweep.sweep_glm(mesh=...))")
+    mesh = build_mesh(config, device)
     stop = GracefulStop()
     if checkpoint_spec is not None:
         # without a checkpoint nothing durable is written on SIGTERM, so the
@@ -275,7 +337,8 @@ def run(config: Mapping, output_dir: Optional[str] = None,
         with timed("fit"):
             result = estimator.fit(
                 train_data, validation_data=validation_data, output_dir=output_dir,
-                guard=guard, device=train_data.device, checkpoint_spec=checkpoint_spec,
+                guard=guard, device=train_data.device, mesh=mesh,
+                checkpoint_spec=checkpoint_spec,
                 should_stop=stop if checkpoint_spec is not None else None)
     except TrainingInterrupted as e:
         # the final checkpoint is on disk: report, and a restart resumes
@@ -312,12 +375,18 @@ def main(argv=None) -> int:
     parser.add_argument("--sweep-policy", choices=("best", "parsimonious"),
                         help="sweep selection policy (config sweep.policy)")
     refused = {"--trace-out": 14, "--telemetry-out": 14, "--report-out": 14,
-               "--xprof-dir": 14, "--xprof-arm": 14, "--mesh": 12,
+               "--xprof-dir": 14, "--xprof-arm": 14,
                "--sweep-registry-dir": 14, "--warm-start": 14, "--delta": 14, "--refresh-registry-dir": 14,
                "--lambda-points": 14}
     for flag in refused:
         parser.add_argument(flag, action="append", help=argparse.SUPPRESS)
     parser.add_argument("--heartbeat-every", type=float, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh",
+                        help="train over a named device mesh: 'batch=N,model=M' splits "
+                        "fixed-effect rows over the batch axis and random-effect entities "
+                        "over the model axis (either may be omitted); 'auto' is a 1-D mesh "
+                        "over every CUDA device; 'off' drops a config mesh (overrides config "
+                        "mesh)")
     parser.add_argument("--ingest-workers", type=int,
                         help="read the Avro input through the streamed ingest with N decode "
                         "workers (0 = one per core; sets input.ingest.workers)")
@@ -345,6 +414,8 @@ def main(argv=None) -> int:
         config = json.load(f)
     if args.heartbeat_every is not None:
         config["heartbeat"] = False
+    if args.mesh:
+        config["mesh"] = parse_mesh_flag(args.mesh)
     if args.sweep or args.sweep_metric or args.sweep_policy:
         from photon_ml_tpu_torch.cli.sweep import merge_sweep_flags
 

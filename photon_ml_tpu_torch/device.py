@@ -35,3 +35,14 @@ def check_on(device: torch.device, *tensors: torch.Tensor | None) -> None:
                 f"tensor on {t.device} but the solve runs on {device}; build "
                 "the batch and model with the same device"
             )
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """``a`` and ``b`` are one device; an index left out is the current CUDA
+    device (or CPU 0)."""
+    def index(d: torch.device) -> int:
+        if d.index is not None:
+            return d.index
+        return torch.cuda.current_device() if d.type == "cuda" else 0
+
+    return a.type == b.type and index(a) == index(b)

@@ -26,17 +26,20 @@ Restored models are loaded onto ``device`` (the fit's).
 
 A streamed fit (``game/streaming.py``) checkpoints at chunk boundaries
 (``StreamingCheckpointManager``, :478-1184): ``chunk-<next chunk>/`` holds
-the coefficient table as ``coefficients-0000.npy`` (and the variances as
-``variances-0000.npy``) and a manifest of ``"kind": "streaming"``, with
-each payload file's row range, the writing run's sharding (none: one
+the coefficient table as ``coefficients-NNNN.npy`` (and the variances as
+``variances-NNNN.npy``), one file per device block of a mesh table, and a
+manifest of ``"kind": "streaming"``, with each payload file's row range,
+the writing run's sharding (the mesh axes and spec, :396-412; none on one
 device) and environment (``backend`` "cuda" or "cpu", the device count).
 The same atomic assembly, keep-last-K retention and restore past corrupt
 directories apply; ``open_for_restore`` opens a directory read-only.
-Restore reads the reference's sharded checkpoints too (its payload files
-cover the rows in pieces) onto one device. Saving from more than one
-process, and placing a restore onto a mesh, are refused: ROADMAP.md Queue 1
-item 12. The fault points (item 14c) and the telemetry gauges (item 14d)
-are not ported.
+``restore_placed`` puts the table on one device or re-slices it over the
+caller's mesh (:461-494), whatever mesh wrote it; ``elastic`` says the two
+differ. A coordinate-descent fit on a mesh keeps its models on the mesh's
+first device, so its step checkpoints restore there, onto the caller's mesh.
+Saving from more than one process is refused: ROADMAP.md Queue 1 item 12.
+The fault points (item 14c) and the telemetry gauges (item 14d) are not
+ported.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ import torch
 
 from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.parallel.sharding import EntityShards
 from photon_ml_tpu_torch.utils.atomic import atomic_write_json, fsync_dir
 
 logger = logging.getLogger("photon_ml_tpu_torch.game.checkpoint")
@@ -301,13 +305,13 @@ class StreamCheckpointState:
 
 @dataclasses.dataclass
 class ElasticRestore:
-    """A streaming checkpoint placed on this run's device. ``elastic`` is
-    True when the writing run sharded the table over more than one device
-    (a reference checkpoint restored onto one)."""
+    """A streaming checkpoint placed for this run: tensors on one device, or
+    ``EntityShards`` over the caller's mesh. ``elastic`` is True when the
+    writing run split the table over another number of shards."""
 
     next_chunk: int
-    coefficients: torch.Tensor
-    variances: Optional[torch.Tensor]
+    coefficients: object
+    variances: Optional[object]
     saved_sharding: Optional[dict]
     saved_env: Optional[dict]
     elastic: bool
@@ -367,13 +371,19 @@ class StreamingCheckpointManager:
 
     @staticmethod
     def _write_table(tmp: str, prefix: str, array) -> list[dict]:
-        """``array`` as one payload file (the table is on one device)."""
-        data = (array.detach().cpu().numpy() if isinstance(array, torch.Tensor)
-                else np.asarray(array))
-        fname = f"{prefix}-0000.npy"
-        np.save(os.path.join(tmp, fname), data)
-        telemetry.counter("checkpoint.shard_saves").inc()
-        return [{"file": fname, "row_start": 0, "rows": int(data.shape[0])}]
+        """``array`` as one payload file per device block (one for a table on
+        one device), fetched one block at a time."""
+        blocks = ([(0, array)] if not isinstance(array, EntityShards)
+                  else list(zip(array.row_starts(), array.parts)))
+        out = []
+        for i, (row_start, part) in enumerate(blocks):
+            data = (part.detach().cpu().numpy() if isinstance(part, torch.Tensor)
+                    else np.asarray(part))
+            fname = f"{prefix}-{i:04d}.npy"
+            np.save(os.path.join(tmp, fname), data)
+            telemetry.counter("checkpoint.shard_saves").inc()
+            out.append({"file": fname, "row_start": int(row_start), "rows": int(data.shape[0])})
+        return out
 
     def save(self, state: StreamCheckpointState) -> str:
         """Write ``state`` as ``chunk-<next_chunk>`` and return its path."""
@@ -388,7 +398,9 @@ class StreamingCheckpointManager:
         tmp = os.path.join(self.spec.directory, f".tmp-{name}")
         coeffs = state.coefficients
         num_entities, dim = (int(d) for d in coeffs.shape)
-        device = coeffs.device if isinstance(coeffs, torch.Tensor) else torch.device("cpu")
+        sharded = isinstance(coeffs, EntityShards)
+        first = coeffs.parts[0] if sharded else coeffs
+        device = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
         with telemetry.span("checkpoint:save", next_chunk=state.next_chunk):
             if os.path.exists(tmp):
                 shutil.rmtree(tmp)
@@ -407,7 +419,7 @@ class StreamingCheckpointManager:
                 "dtype": str(np.dtype(str(coeffs.dtype).replace("torch.", ""))),
                 "shards": shard_files,
                 "variance_shards": variance_files,
-                "sharding": None,
+                "sharding": coeffs.sharding_record() if sharded else None,
                 "env": _environment_record(device),
             }, indent=2, sort_keys=True)
             if os.path.exists(final):
@@ -523,15 +535,14 @@ class StreamingCheckpointManager:
     def restore_placed(self, mesh=None, axis: Optional[str] = None,
                        device: torch.device | str | None = None) -> Optional[ElasticRestore]:
         """The newest valid checkpoint with its tables on ``device`` (default
-        cuda). A ``mesh`` is refused: ROADMAP.md Queue 1 item 12."""
+        cuda), or with ``mesh`` split over its model axis (``axis``), one
+        block per device, whatever mesh wrote it. A table that does not
+        divide over the target axis raises ``ElasticPlacementError`` (a
+        configuration error, so no older checkpoint is tried)."""
         from photon_ml_tpu_torch.device import resolve_device
+        from photon_ml_tpu_torch.parallel.sharding import model_axis, place_entity_rows
 
-        if mesh is not None:
-            from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
-
-            raise NotImplementedError(NOT_PORTED.format(
-                "a streaming restore placed onto a mesh (mesh)", 12))
-        dev = resolve_device(device)
+        dev = None if mesh is not None else resolve_device(device)
 
         def load(path, manifest):
             coeffs = self._read_table(path, manifest, "coefficients")
@@ -547,13 +558,25 @@ class StreamingCheckpointManager:
         spec = [a for a in ((saved_sharding or {}).get("spec") or []) if a]
         if spec:
             saved_shards = int(((saved_sharding or {}).get("mesh_axes") or {}).get(spec[0], 1))
-        elastic = saved_shards != 1
+        target_shards = 1
+        if mesh is not None:
+            resolved = axis or model_axis(mesh)
+            target_shards = int(mesh.shape[resolved]) if resolved else 1
+
+        def placed(table):
+            if table is None:
+                return None
+            return place_entity_rows(lambda lo, hi: table[lo:hi], table.shape[0],
+                                     table.shape[1:], table.dtype, mesh=mesh, axis=axis,
+                                     device=dev)
+
+        coefficients, variances = placed(coeffs), placed(variances)
+        elastic = saved_shards != target_shards
         if elastic:
             telemetry.counter("recovery.elastic_resumes").inc()
             logger.warning("elastic resume: %s was written across %d shard(s), restoring "
-                           "onto one device", path, saved_shards)
+                           "across %d", path, saved_shards, target_shards)
         return ElasticRestore(
-            next_chunk=int(manifest["next_chunk"]),
-            coefficients=torch.from_numpy(coeffs).to(dev),
-            variances=None if variances is None else torch.from_numpy(variances).to(dev),
-            saved_sharding=saved_sharding, saved_env=saved_env, elastic=elastic)
+            next_chunk=int(manifest["next_chunk"]), coefficients=coefficients,
+            variances=variances, saved_sharding=saved_sharding, saved_env=saved_env,
+            elastic=elastic)

@@ -23,9 +23,18 @@ reference's do: ``extra_l2`` damps the next solve's L2 weight, and with
 ``health_check`` on, ``last_health`` is the solve's health, one boolean on
 the device (for a random effect, over every bucket). Each update leaves its
 ``last_tracker`` (``optim/trackers.py``, :327-329 and :659-729), built with
-one host fetch; a random effect's comes from its buckets' lane results. The
-reference's mesh hooks are left out. ``NOT_PORTED`` is the message of what
-the port refuses, naming the ROADMAP item that ports it.
+one host fetch; a random effect's comes from its buckets' lane results.
+
+With a ``mesh`` (``parallel/``): the fixed effect's design is split by rows
+over the batch axis once (:168-190), and per update only the offsets (the
+residual scores) and the down-sampled weights are re-placed into the
+shards; an entity-only mesh leaves it unsharded. The random effect pads
+each bucket's entities to a multiple of the model axis with all-zero
+problems and solves each owner's block of lanes on its device, one owner
+after another (:412-450, :668-725); the results, variances and trackers
+are cut back to the bucket's entities on the first device, so padding never
+reaches a tracker. ``NOT_PORTED`` is the message of what the port refuses,
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ from photon_ml_tpu_torch.optim.trackers import (
     FixedEffectOptimizationTracker,
     RandomEffectOptimizationTracker,
 )
+from photon_ml_tpu_torch.parallel.mesh import Mesh
+from photon_ml_tpu_torch.parallel.sharding import as_sharded, data_axis, model_axis
 
 Tensor = torch.Tensor
 
@@ -78,10 +89,16 @@ class FixedEffectCoordinate:
     config: OptimizerConfig
     seed: int = 0
     normalization: Optional[NormalizationContext] = None
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         self.config.validate(self.loss_name)
         self._batch = self.data.csr_batch(self.shard_name)
+        if self.mesh is not None and data_axis(self.mesh) is None:
+            self.mesh = None  # an entity-only mesh: the fixed effect runs unsharded
+        # the design split by rows over the batch axis once (one shard without a mesh)
+        self._solve_batch = as_sharded(self._batch, self.mesh,
+                                       None if self.mesh is None else data_axis(self.mesh))
         self._constraints = self.config.build_box_constraints(self._batch.num_features,
                                                               self.data.device)
         norm = self.normalization
@@ -134,9 +151,9 @@ class FixedEffectCoordinate:
                      residual_scores: Optional[Tensor]) -> FixedEffectModel:
         update_index = self._update_count
         self._update_count += 1
-        batch = self._batch
+        batch = self._solve_batch
         if self.config.down_sampling_rate < 1.0:
-            batch = dataclasses.replace(batch, weights=self._downsampled_weights(update_index))
+            batch = batch.with_weights(self._downsampled_weights(update_index))
         if residual_scores is not None:
             batch = batch.with_offsets(self._batch.offsets + residual_scores)
         norm = self.normalization
@@ -178,27 +195,26 @@ class RandomEffectCoordinate:
     loss_name: str
     config: OptimizerConfig
     compute_variances: bool = False
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         self.config.validate(self.loss_name)
         if self.compute_variances and not get_loss(self.loss_name).has_hessian:
             raise ValueError("coefficient variances need a twice-differentiable loss; "
                              f"'{self.loss_name}' is not")
-        dev = self.data.device
-        dense = self.re_data.dense_buckets(dev)
-        coo = self.re_data.coo_buckets(dev)
-        self._buckets = tuple(d if d is not None else c for d, c in zip(dense, coo))
-        # the boxes address global features; each entity's local space is its
-        # projection, so the bounds gather through it into [E, K] per bucket
-        # (the padding id num_global gathers the unbounded sentinel slot)
-        self._constraints: list[Optional[BoxConstraints]] = [None] * len(self._buckets)
-        bounds = self.config.dense_box_bounds(self.re_data.num_global_features, sentinel=True)
-        if bounds is not None:
-            lower, upper = bounds
-            self._constraints = [
-                BoxConstraints(lower=torch.from_numpy(lower[b.projection]).to(dev),
-                               upper=torch.from_numpy(upper[b.projection]).to(dev))
-                for b in self.re_data.buckets]
+        if self.mesh is not None and model_axis(self.mesh) is None:
+            self.mesh = None  # a batch-only mesh: no entity axis to use
+        # without a mesh the buckets on the data's device; with one, per owner
+        # of the model axis its device and its blocks of the buckets with
+        # their boxes, and no device holds a whole bucket
+        self._owners = ()
+        if self.mesh is None:
+            self._buckets, self._constraints = self._placed(self.re_data, self.data.device)
+        else:
+            devices = self.mesh.axis_devices(model_axis(self.mesh))
+            self._owners = tuple((d, *self._placed(sub, d)) for d, sub in
+                                 zip(devices, self.re_data.owner_datasets(len(devices))))
+            self._splits = self.re_data.owner_splits(len(devices))
         self._obj = build_objective(self.loss_name, self.config)
         self._l1 = self.config.regularization.l1_weight(self.config.regularization_weight)
         self.last_results: list[SolveResult] = []
@@ -206,6 +222,22 @@ class RandomEffectCoordinate:
         self.extra_l2 = 0.0
         self.health_check = False
         self.last_health: Optional[Tensor] = None
+
+    def _placed(self, red: RandomEffectDataset, dev: torch.device):
+        """The buckets of ``red`` on ``dev`` and their boxes: the boxes address
+        global features and each entity's local space is its projection, so
+        the bounds gather through it into [E, K] per bucket (the padding id
+        num_global gathers the unbounded sentinel slot)."""
+        dense, coo = red.dense_buckets(dev), red.coo_buckets(dev)
+        buckets = tuple(d if d is not None else c for d, c in zip(dense, coo))
+        constraints: list[Optional[BoxConstraints]] = [None] * len(buckets)
+        bounds = self.config.dense_box_bounds(red.num_global_features, sentinel=True)
+        if bounds is not None:
+            lower, upper = bounds
+            constraints = [BoxConstraints(lower=torch.from_numpy(lower[b.projection]).to(dev),
+                                          upper=torch.from_numpy(upper[b.projection]).to(dev))
+                           for b in red.buckets]
+        return buckets, constraints
 
     def initialize_model(self) -> RandomEffectModel:
         dev = self.data.device
@@ -231,16 +263,19 @@ class RandomEffectCoordinate:
                      residual_scores: Optional[Tensor]) -> RandomEffectModel:
         new_buckets, results, healths = [], [], []
         obj = damped_objective(self._obj, self.extra_l2)
-        for b, bm, box in zip(self._buckets, model.buckets, self._constraints):
-            batch = b.batch(residual_scores)
-            res = dispatch_solve(glm_adapter(obj, batch), bm.coefficients, self.config,
-                                 self._l1, box, device=self.data.device)
-            var = None
-            if self.compute_variances:
-                var = 1.0 / (obj.hessian_diagonal(res.w, batch) + _VARIANCE_EPS)
+        # the residual scores on each owner's device (no copy on the first one)
+        residual_on = {str(d): residual_scores.to(d) for d, _, _ in self._owners
+                       if residual_scores is not None}
+        for i, bm in enumerate(model.buckets):
+            if self._owners:
+                res, var, health = self._solve_owners(obj, i, bm.coefficients, residual_on)
+            else:
+                res, var = self._solve(obj, self._buckets[i], bm.coefficients,
+                                       self._constraints[i], residual_scores, self.data.device)
+                health = solve_health(res, res.w) if self.health_check else None
             results.append(res)
-            if self.health_check:
-                healths.append(solve_health(res, res.w))
+            if health is not None:
+                healths.append(health)
             new_buckets.append(dataclasses.replace(bm, coefficients=res.w, variances=var))
         self.last_results = results
         self.last_tracker = RandomEffectOptimizationTracker.from_results(results)
@@ -251,16 +286,76 @@ class RandomEffectCoordinate:
             self.last_health = None
         return dataclasses.replace(model, buckets=tuple(new_buckets))
 
+    def _solve(self, obj, bucket, w0: Tensor, box, residual: Optional[Tensor],
+               dev: torch.device) -> tuple[SolveResult, Optional[Tensor]]:
+        """One bucket's lanes solved on ``dev``, with their variances."""
+        batch = bucket.batch(residual)
+        res = dispatch_solve(glm_adapter(obj, batch), w0, self.config, self._l1, box,
+                             device=dev)
+        var = None
+        if self.compute_variances:
+            var = 1.0 / (obj.hessian_diagonal(res.w, batch) + _VARIANCE_EPS)
+        return res, var
+
+    def _solve_owners(self, obj, i: int, w0: Tensor, residual_on: dict):
+        """Bucket ``i``'s lanes over the model axis: each owner's block, its
+        padding problems included (all-zero, so they pass the health reduce,
+        as in the reference), solved on its device in owner order, then cut
+        back to the bucket's entities on the first device."""
+        dev = self.data.device
+        parts, healths = [], []
+        for (d, buckets, cons), (lo, hi, pad) in zip(self._owners, self._splits[i]):
+            res, var = self._solve(obj, buckets[i], _owner_lanes(w0, lo, hi, pad, d), cons[i],
+                                   residual_on.get(str(d)), d)
+            parts.append((res, var, hi - lo))
+            if self.health_check:
+                healths.append(solve_health(res, res.w).to(dev))
+        var = (None if not self.compute_variances
+               else torch.cat([v[:n].to(dev) for _, v, n in parts]))
+        health = torch.stack(healths).all() if healths else None
+        return _join_lanes([(r, n) for r, _, n in parts], dev), var, health
+
     def score(self, model: RandomEffectModel) -> Tensor:
         """Scores on the training data: the bucket margins for active rows,
         the model's projection lookup for passive rows."""
         scores = torch.zeros(self.data.num_rows, dtype=torch.float32, device=self.data.device)
-        for b, bm in zip(self._buckets, model.buckets):
-            margins = b.batch().dot_rows(bm.coefficients).reshape(-1)
-            # each active row sits in exactly one bucket slot, so writing the
-            # slots into zeros is exact in any order
-            scores.index_put_((b.slot_rows,), margins.index_select(0, b.slots))
+        for i, bm in enumerate(model.buckets):
+            if not self._owners:
+                _write_scores(scores, self._buckets[i], bm.coefficients)
+                continue
+            # on a mesh each owner scores its block; only the margins come back
+            for (d, buckets, _), (lo, hi, pad) in zip(self._owners, self._splits[i]):
+                _write_scores(scores, buckets[i], _owner_lanes(bm.coefficients, lo, hi, pad, d))
         if len(self.re_data.passive_rows):
             passive = torch.from_numpy(self.re_data.passive_rows).to(self.data.device)
             scores[passive] = model.score(self.data).index_select(0, passive)
         return scores
+
+
+def _write_scores(scores: Tensor, bucket, w: Tensor) -> None:
+    """A bucket's margins at lanes ``w`` written into their example rows of
+    ``scores``: each active row sits in exactly one bucket slot (padding
+    slots are none), so writing the slots into zeros is exact in any order."""
+    margins = bucket.batch().dot_rows(w).reshape(-1).index_select(0, bucket.slots)
+    scores.index_put_((bucket.slot_rows.to(scores.device),), margins.to(scores.device))
+
+
+def _owner_lanes(w: Tensor, lo: int, hi: int, pad: int, device: torch.device) -> Tensor:
+    """Lanes [lo, hi) of ``w`` on ``device``, then ``pad`` all-zero lanes."""
+    block = w[lo:hi].to(device)
+    if pad:
+        block = torch.cat([block, block.new_zeros((pad, block.shape[1]))])
+    return block
+
+
+def _join_lanes(parts: list[tuple[SolveResult, int]], device: torch.device) -> SolveResult:
+    """One lane result from owners' results: each owner's first ``n`` lanes,
+    in owner order, on ``device`` (a number field keeps its largest value)."""
+    fields = {}
+    for name in SolveResult._fields:
+        vals = [getattr(r, name) for r, _ in parts]
+        if isinstance(vals[0], Tensor):
+            fields[name] = torch.cat([v[:n].to(device) for v, (_, n) in zip(vals, parts)])
+        else:
+            fields[name] = max(vals)
+    return SolveResult(**fields)

@@ -26,9 +26,16 @@ optimizer configs, one coordinate-descent run each, reusing a coordinate
 whose config a combination does not change, and returns its entries
 best-first.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-``mesh`` (item 12, also in ``fit_grid``), ``fit_incremental`` and
-``fit_sweep``'s ``registry_dir`` (item 14).
+``mesh`` (a ``parallel.Mesh``, in ``fit`` and ``fit_grid``; :241-292) trains
+over a device mesh: a mesh with named ``batch``/``model`` axes is used as
+given (fixed effects split their rows over ``batch``, random effects their
+entities over ``model``), a legacy 1-D mesh becomes two views over the same
+devices (``data`` and ``entity``), and a mesh that names neither on more
+than one axis is refused. The mesh's first device must be the dataset's.
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP item): a
+factored random effect or the random projector on a mesh (item 12),
+``fit_incremental`` and ``fit_sweep``'s ``registry_dir`` (item 14).
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from photon_ml_tpu_torch.data.normalization import (
     build_normalization_context,
 )
 from photon_ml_tpu_torch.data.stats import summarize
-from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.device import resolve_device, same_device
 from photon_ml_tpu_torch.evaluation.evaluators import better_than
 from photon_ml_tpu_torch.game.checkpoint import CheckpointManager, CheckpointSpec
 from photon_ml_tpu_torch.game.coordinate_descent import (
@@ -68,6 +75,8 @@ from photon_ml_tpu_torch.game.random_effect_data import (
     build_random_effect_dataset,
 )
 from photon_ml_tpu_torch.optim.factory import OptimizerConfig
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, ENTITY_AXIS, Mesh
+from photon_ml_tpu_torch.parallel.sharding import BATCH_AXIS, MODEL_AXIS, data_axis, model_axis
 from photon_ml_tpu_torch.utils.events import (
     EventEmitter,
     OptimizationLogEvent,
@@ -215,14 +224,16 @@ class GameEstimator:
         self._re_datasets[key] = (data, red)
         return red
 
-    def _build_coordinates(self, data: GameDataset,
+    def _build_coordinates(self, data: GameDataset, mesh: Optional[Mesh] = None,
                            overrides: Optional[Mapping[str, OptimizerConfig]] = None,
                            only: Optional[set] = None) -> dict:
-        """The coordinates of the config over ``data``, with a coordinate's
-        optimizer config replaced where ``overrides`` names it (only the
-        coordinates in ``only``, when given); a coordinate built for the same
-        data and config is reused with its per-fit state reset (caches of
-        other datasets are dropped, so no device copy pins old data)."""
+        """The coordinates of the config over ``data`` (on ``mesh``, when
+        given), with a coordinate's optimizer config replaced where
+        ``overrides`` names it (only the coordinates in ``only``, when given);
+        a coordinate built for the same data, config and mesh devices is
+        reused with its per-fit state reset (caches of other datasets are
+        dropped, so no device copy pins old data)."""
+        data_mesh, entity_mesh = _mesh_views(mesh, data)
         overrides = overrides or {}
         self._coordinates = {k: v for k, v in self._coordinates.items() if v[0] is data}
         self._re_datasets = {k: v for k, v in self._re_datasets.items() if v[0] is data}
@@ -232,6 +243,8 @@ class GameEstimator:
                 continue
             opt = overrides.get(name)
             key = (id(data), name) if opt is None else (id(data), name, opt)
+            if mesh is not None:
+                key += (mesh.key(),)
             hit = self._coordinates.get(key)
             if hit is not None:
                 coord = hit[1]
@@ -249,6 +262,7 @@ class GameEstimator:
                     name=name, data=data, shard_name=c.shard_name,
                     loss_name=self.config.task, config=opt or c.optimizer,
                     seed=c.down_sampling_seed, normalization=self._normalization_for(data, c),
+                    mesh=data_mesh,
                 )
             elif isinstance(c, RandomEffectConfig) and c.projector == "random":
                 # per-entity solves in a fixed Gaussian space, no refit
@@ -258,20 +272,20 @@ class GameEstimator:
                     latent_config=opt or c.optimizer, latent_dim=c.projected_dim,
                     refit_projection=False,
                     projection_intercept_index=c.projection_intercept_index,
-                    seed=c.projection_seed,
+                    seed=c.projection_seed, mesh=entity_mesh,
                 )
             elif isinstance(c, RandomEffectConfig):
                 coord = RandomEffectCoordinate(
                     name=name, data=data, re_data=self._re_dataset(data, c),
                     loss_name=self.config.task, config=opt or c.optimizer,
-                    compute_variances=c.compute_variances,
+                    compute_variances=c.compute_variances, mesh=entity_mesh,
                 )
             elif isinstance(c, FactoredRandomEffectConfig):
                 coord = FactoredRandomEffectCoordinate(
                     name=name, data=data, re_data=self._re_dataset(data, c),
                     loss_name=self.config.task, re_config=opt or c.re_optimizer,
                     latent_config=c.latent_optimizer, latent_dim=c.latent_dim,
-                    mf_iterations=c.mf_iterations, seed=c.seed,
+                    mf_iterations=c.mf_iterations, seed=c.seed, mesh=entity_mesh,
                 )
             else:
                 raise TypeError(f"coordinate '{name}': unknown config {type(c).__name__}")
@@ -308,19 +322,19 @@ class GameEstimator:
         is saved after the steps it asks for and a fit resumes from the
         newest valid checkpoint; when ``should_stop()`` turns true after a
         step, a final checkpoint is written and ``TrainingInterrupted``
-        raised."""
+        raised. With ``mesh`` the fit runs over its devices (the module's
+        docstring); ``device`` then defaults to the mesh's first device."""
+        if mesh is not None and device is None:
+            device = mesh.first_device
         dev = resolve_device(device)
-        if data.device.type != dev.type or (dev.index is not None
-                                            and data.device.index != dev.index):
+        if not same_device(data.device, dev):
             raise ValueError(f"the dataset lives on {data.device} but the fit runs on {dev}; "
                              "build it with the same device")
-        if mesh is not None:
-            raise NotImplementedError(NOT_PORTED.format("a mesh", 12))
         t = Timer().start()
         self.events.send(SetupEvent(config=_config_metadata(self.config)))
         with telemetry.span("fit", task=self.config.task):
             with telemetry.span("build_coordinates"):
-                coordinates = self._build_coordinates(data)
+                coordinates = self._build_coordinates(data, mesh)
             validation = None
             if validation_data is not None:
                 if not self.config.evaluators:
@@ -418,12 +432,12 @@ class GameEstimator:
         whose config a combination does not change is reused (built once per
         (name, config) within the sweep). Each combination sends a start, its
         optimization-log and a finish event (the setup event once); the
-        entries come back sorted best-first by the primary evaluator."""
-        if mesh is not None:
-            raise NotImplementedError(NOT_PORTED.format("fit_grid(mesh=...)", 12))
+        entries come back sorted best-first by the primary evaluator. With
+        ``mesh`` every combination trains over its devices, as ``fit``."""
+        if mesh is not None and device is None:
+            device = mesh.first_device
         dev = resolve_device(device)
-        if data.device.type != dev.type or (dev.index is not None
-                                            and data.device.index != dev.index):
+        if not same_device(data.device, dev):
             raise ValueError(f"the dataset lives on {data.device} but the fit runs on {dev}; "
                              "build it with the same device")
         if not self.config.evaluators:
@@ -442,7 +456,8 @@ class GameEstimator:
         def coordinates_for(overrides):
             missing = {n for n in self.config.coordinates
                        if (n, overrides.get(n)) not in coord_cache}
-            built = self._build_coordinates(data, overrides, only=missing) if missing else {}
+            built = (self._build_coordinates(data, mesh, overrides, only=missing) if missing
+                     else {})
             out = {}
             for n in self.config.coordinates:
                 key = (n, overrides.get(n))
@@ -472,6 +487,27 @@ class GameEstimator:
                                      best_metric=result.best_metric, history=result.history)))
         return sorted(entries, key=lambda e: e.result.best_metric,
                       reverse=better_than(primary, 1.0, 0.0))  # True iff maximizing
+
+
+def _mesh_views(mesh: Optional[Mesh], data: GameDataset) -> tuple[Optional[Mesh], ...]:
+    """(the fixed effects' mesh, the random effects' mesh) of a fit's mesh
+    (``photon_ml_tpu/game/estimator.py:252-272``)."""
+    if mesh is None:
+        return None, None
+    first = mesh.first_device
+    if not same_device(first, data.device):
+        raise ValueError(f"the mesh's first device is {first} but the dataset lives on "
+                         f"{data.device}; the solver state and the models live on the first "
+                         "device")
+    if set(mesh.axis_names) & {BATCH_AXIS, MODEL_AXIS} or len(mesh.axis_names) > 1:
+        if data_axis(mesh) is None and model_axis(mesh) is None:
+            # every coordinate would drop the mesh and train on one device
+            raise ValueError(
+                f"mesh axes {mesh.axis_names} name neither a batch/data nor a model/entity "
+                "axis — nothing would shard; use --mesh batch=N,model=M (or a 1-D mesh)")
+        return mesh, mesh
+    devices = mesh.device_list()
+    return Mesh(devices, (DATA_AXIS,)), Mesh(devices, (ENTITY_AXIS,))
 
 
 def _config_metadata(config: GameConfig) -> dict:

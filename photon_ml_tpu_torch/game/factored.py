@@ -37,8 +37,8 @@ With ``refit_projection=False`` the coordinate is the random projector: the
 per-entity solves in a fixed Gaussian space, with no refit and no Kronecker
 structure. Scores sum every row's terms in a fixed order
 (``torch.segment_reduce``, and each active row written to its own place), so
-two scorings agree bit for bit. The reference's mesh branches are not
-ported (ROADMAP.md Queue 1 item 12).
+two scorings agree bit for bit. A ``mesh`` (the reference's entity-sharded
+latent solves, :253-610) is refused: ROADMAP.md Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -194,8 +194,14 @@ class FactoredRandomEffectCoordinate:
     seed: int = 0
     refit_projection: bool = True
     projection_intercept_index: Optional[int] = None
+    mesh: object = None
 
     def __post_init__(self):
+        if self.mesh is not None:
+            from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
+
+            raise NotImplementedError(NOT_PORTED.format(
+                "a factored random effect or the random projector on a mesh (mesh)", 12))
         if self.latent_dim < 1:
             raise ValueError("latent_dim must be >= 1")
         if self.mf_iterations < 1:

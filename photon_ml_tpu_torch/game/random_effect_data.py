@@ -181,6 +181,57 @@ class RandomEffectDataset:
                     for b, x in zip(self.buckets, self.dense_designs()))
         return cache[key]
 
+    def owner_datasets(self, owners: int) -> tuple["RandomEffectDataset", ...]:
+        """The buckets split over ``owners`` devices of a model axis: each
+        bucket's entities padded to a multiple of ``owners`` with all-zero
+        problems (weight 0, the sentinel projection, no rows) and cut into
+        equal contiguous blocks, block d the d-th dataset's bucket. Each
+        block keeps its bucket's layout (dense or COO). Cached per count."""
+        from photon_ml_tpu_torch.parallel.sharding import split_by_owner
+
+        cache = self.__dict__.setdefault("_owner_datasets", {})
+        if owners not in cache:
+            splits = [split_by_owner(b.num_entities, owners) for b in self.buckets]
+            out = []
+            for d in range(owners):
+                parts = [(_owner_block(b, *sp[d]), None if x is None else _pad_lanes(
+                    x[sp[d][0]:sp[d][1]], sp[d][2])) for b, x, sp in
+                    zip(self.buckets, self.dense_designs(), splits)]
+                sub = dataclasses.replace(self, buckets=tuple(b for b, _ in parts),
+                                          num_entities=sum(b.num_entities for b, _ in parts))
+                # the parent's layout decision, not one made again on the block
+                object.__setattr__(sub, "_dense_designs", tuple(x for _, x in parts))
+                out.append(sub)
+            cache[owners] = (tuple(out), splits)
+        return cache[owners][0]
+
+    def owner_splits(self, owners: int) -> list[list[tuple[int, int, int]]]:
+        """Per bucket, per owner, ``(lo, hi, pad)``: the bucket's entities
+        [lo, hi) then ``pad`` padding problems (``owner_datasets``)."""
+        self.owner_datasets(owners)
+        return self.__dict__["_owner_datasets"][owners][1]
+
+
+def _pad_lanes(a: np.ndarray, pad: int, fill=0) -> np.ndarray:
+    """``a`` with ``pad`` more entries of ``fill`` along its first axis."""
+    if not pad:
+        return a
+    return np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+
+
+def _owner_block(b: EntityBucket, lo: int, hi: int, pad: int) -> EntityBucket:
+    """Entities [lo, hi) of ``b`` and ``pad`` all-zero problems: no nonzeros
+    (value 0 at row R-1, column 0), weight 0, the sentinel projection, no
+    example rows (-1)."""
+    r = b.rows_per_entity
+    return dataclasses.replace(
+        b, values=_pad_lanes(b.values[lo:hi], pad), rows=_pad_lanes(b.rows[lo:hi], pad, r - 1),
+        cols=_pad_lanes(b.cols[lo:hi], pad), labels=_pad_lanes(b.labels[lo:hi], pad),
+        offsets=_pad_lanes(b.offsets[lo:hi], pad), weights=_pad_lanes(b.weights[lo:hi], pad),
+        projection=_pad_lanes(b.projection[lo:hi], pad, b.num_global_features),
+        entity_codes=_pad_lanes(b.entity_codes[lo:hi], pad, -1),
+        row_index=_pad_lanes(b.row_index[lo:hi], pad, -1))
+
 
 _PEARSON_STD_EPS = 1e-8  # MathConst.MEDIUM_PRECISION_TOLERANCE_THRESHOLD
 

@@ -17,10 +17,15 @@ Counterpart of ``photon_ml_tpu/game/streaming.py``:
   pinned memory on a side stream) by a background thread while chunk i is
   solved (``ingest/prefetch.py`` ``double_buffered``).
 
-A mesh (``mesh=``, the reference's entity-sharded table and chunks, and its
-process-local ``LocalChunk``) is refused, naming ROADMAP.md Queue 1 item
-12; so are the reference's fault-injection points (item 14c), which the
-guard's rollback and the feed retries do not need.
+With a ``mesh`` (one process, ``parallel/``; :103-172, :271-350, :427-443)
+the table's rows are split into equal blocks over the model axis, one on
+each device (an ``EntityShards``), and every chunk is cut into equal
+pieces, piece j solved on the axis's j-th device: its warm start read from
+the blocks that hold its rows and its result written back to them. A chunk
+whose size does not divide by the axis is refused. The reference's
+process-local ``LocalChunk`` is refused, naming ROADMAP.md Queue 1 item 12;
+so are its fault-injection points (item 14c), which the guard's rollback
+and the feed retries do not need.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.factory import OptimizerConfig, build_objective, dispatch_solve
 from photon_ml_tpu_torch.optim.guard import GuardSpec, damped_objective, solve_health
+from photon_ml_tpu_torch.parallel.mesh import Mesh
+from photon_ml_tpu_torch.parallel.sharding import EntityShards, model_axis, place_entities
 
 Tensor = torch.Tensor
 
@@ -51,67 +58,140 @@ logger = logging.getLogger("photon_ml_tpu_torch.game.streaming")
 _VARIANCE_EPS = 1e-12
 
 
-def _refuse_mesh(what: str):
-    raise NotImplementedError(NOT_PORTED.format(what, 12))
+def _entity_axis(mesh: Mesh, axis: Optional[str]) -> str:
+    axis = axis or model_axis(mesh)
+    if axis is None:
+        raise ValueError(f"mesh {mesh.shape} has no model/entity axis to shard entities over")
+    return axis
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalChunk:
+    """A chunk given as this process's rows of a multi-process fleet (the
+    reference's ``LocalChunk``); the trainer refuses it: ROADMAP.md Queue 1
+    item 12."""
+
+    batch: DenseBatch
+    global_size: int
 
 
 class ShardedCoefficientTable:
     """A device-resident ``[N, K]`` coefficient table, updated a chunk of
-    rows at a time in place. ``mesh`` (an entity-sharded table) is refused:
-    ROADMAP.md Queue 1 item 12."""
+    rows at a time in place. With ``mesh`` its rows are split into equal
+    blocks over the model axis (``axis``, default the mesh's model/entity
+    axis), one block on each of its devices: ``coefficients`` is then an
+    ``EntityShards`` and ``sharding`` its record (mesh axes and spec)."""
 
-    def __init__(self, num_entities: int, dim: int, mesh=None, axis: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32,
+    def __init__(self, num_entities: int, dim: int, mesh: Optional[Mesh] = None,
+                 axis: Optional[str] = None, dtype: torch.dtype = torch.float32,
                  device: torch.device | str | None = None):
-        if mesh is not None:
-            _refuse_mesh("a mesh-sharded coefficient table (mesh)")
-        self.device = resolve_device(device)
         self.num_entities = int(num_entities)
         self.dim = int(dim)
-        self.mesh = None
-        self.axis = axis
-        self.coefficients = torch.zeros((self.num_entities, self.dim), dtype=dtype,
-                                        device=self.device)
+        self.mesh = mesh
+        self.sharding = None
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.axis = axis
+            self.coefficients = torch.zeros((self.num_entities, self.dim), dtype=dtype,
+                                            device=self.device)
+            return
+        self.axis = _entity_axis(mesh, axis)
+        devices = mesh.axis_devices(self.axis)
+        if self.num_entities % len(devices):
+            raise ValueError(f"num_entities={self.num_entities} must divide over the "
+                             f"{len(devices)}-device '{self.axis}' axis (pad the entity count)")
+        per = self.num_entities // len(devices)
+        self._set(EntityShards(parts=tuple(torch.zeros((per, self.dim), dtype=dtype, device=d)
+                                           for d in devices), mesh=mesh, axis=self.axis))
+
+    def _set(self, shards: EntityShards) -> None:
+        self.coefficients = shards
+        self.device = shards.parts[0].device
+        self.sharding = shards.sharding_record()
 
     @classmethod
-    def from_coefficients(cls, coefficients: Tensor, mesh=None,
+    def from_coefficients(cls, coefficients, mesh: Optional[Mesh] = None,
                           axis: Optional[str] = None) -> "ShardedCoefficientTable":
-        """Wrap an ``[N, K]`` tensor already on its device (a restored
-        checkpoint) without the zero init and overwrite of a construct-then-
-        write resume; the table is that tensor."""
-        if mesh is not None:
-            _refuse_mesh("a mesh-sharded coefficient table (mesh)")
+        """Wrap a table already on its devices (a restored checkpoint): an
+        ``[N, K]`` tensor, or an ``EntityShards`` (placed again when ``mesh``
+        asks for another placement), without the zero init and overwrite of
+        a construct-then-write resume; the table is those tensors."""
+        if isinstance(coefficients, Tensor) and mesh is not None:
+            coefficients = place_entities(coefficients, mesh, _entity_axis(mesh, axis))
+        if isinstance(coefficients, EntityShards):
+            if mesh is not None and (mesh.key(), _entity_axis(mesh, axis)) != (
+                    coefficients.mesh.key(), coefficients.axis):
+                coefficients = place_entities(torch.cat([p.to(mesh.first_device)
+                                                         for p in coefficients.parts]),
+                                              mesh, _entity_axis(mesh, axis))
+            table = cls.__new__(cls)
+            table.num_entities, table.dim = coefficients.shape
+            table.mesh, table.axis = coefficients.mesh, coefficients.axis
+            table._set(coefficients)
+            return table
         if not isinstance(coefficients, Tensor) or coefficients.dim() != 2:
             raise ValueError("coefficients must be an [N, K] tensor")
         table = cls.__new__(cls)
         table.device = coefficients.device
         table.num_entities, table.dim = (int(d) for d in coefficients.shape)
-        table.mesh = None
-        table.axis = axis
+        table.mesh, table.axis, table.sharding = None, axis, None
         table.coefficients = coefficients
         return table
 
     @property
     def nbytes(self) -> int:
-        return self.num_entities * self.dim * self.coefficients.element_size()
+        size = (self.coefficients.parts[0] if self.mesh is not None
+                else self.coefficients).element_size()
+        return self.num_entities * self.dim * size
+
+    def shard_nbytes(self) -> list[int]:
+        """The bytes each device holds (one entry without a mesh)."""
+        parts = self.coefficients.parts if self.mesh is not None else (self.coefficients,)
+        return [p.numel() * p.element_size() for p in parts]
 
     def _check_bounds(self, start: int, size: int) -> None:
         if start < 0 or size < 0 or start + size > self.num_entities:
             raise ValueError(f"chunk [{start}, {start + size}) out of bounds for table "
                              f"of {self.num_entities} entities")
 
-    def write_chunk(self, start: int, w: Tensor) -> None:
-        """Rows ``[start, start + E)`` := ``w``, in place."""
-        self._check_bounds(start, int(w.shape[0]))
-        self.coefficients[start:start + w.shape[0]].copy_(w)
+    def _spans(self, start: int, size: int):
+        """(block, first row in it, end row in it, offset in the chunk) of
+        rows [start, start + size) over a mesh table's blocks."""
+        per = self.coefficients.rows_per_part
+        row = start
+        while row < start + size:
+            block = row // per
+            lo, hi = row - block * per, min(per, start + size - block * per)
+            yield block, lo, hi, row - start
+            row = block * per + hi
 
-    def read_chunk(self, start: int, size: int) -> Tensor:
-        """A copy of rows ``[start, start + size)``."""
+    def write_chunk(self, start: int, w: Tensor) -> None:
+        """Rows ``[start, start + E)`` := ``w``, in place (on a mesh, each
+        piece into the block that holds it)."""
+        self._check_bounds(start, int(w.shape[0]))
+        if self.mesh is None:
+            self.coefficients[start:start + w.shape[0]].copy_(w)
+            return
+        parts = self.coefficients.parts
+        for block, lo, hi, off in self._spans(start, int(w.shape[0])):
+            parts[block][lo:hi].copy_(w[off:off + hi - lo])
+
+    def read_chunk(self, start: int, size: int,
+                   device: Optional[torch.device] = None) -> Tensor:
+        """A copy of rows ``[start, start + size)``, on ``device`` (default the
+        table's first device)."""
         self._check_bounds(start, size)
-        return self.coefficients[start:start + size].clone()
+        if self.mesh is None:
+            return self.coefficients[start:start + size].clone()
+        dev = self.device if device is None else device
+        parts = self.coefficients.parts
+        return torch.cat([parts[block][lo:hi].to(dev)
+                          for block, lo, hi, _ in self._spans(start, size)])
 
     def to_numpy(self) -> np.ndarray:
         """The whole table on the host (models, summaries, tests)."""
+        if self.mesh is not None:
+            return self.coefficients.numpy()
         return self.coefficients.cpu().numpy()
 
 
@@ -141,6 +221,12 @@ class StreamingTrainStats:
     tracker: Optional["RandomEffectOptimizationTracker"] = None  # noqa: F821
 
 
+def _piece(batch: DenseBatch, lo: int, n: int, device: torch.device) -> DenseBatch:
+    """Entities [lo, lo + n) of a chunk on ``device``."""
+    return DenseBatch(*(torch.as_tensor(t)[lo:lo + n].to(device)
+                        for t in (batch.x, batch.labels, batch.offsets, batch.weights)))
+
+
 def _pinned(leaf) -> Tensor:
     t = leaf if isinstance(leaf, Tensor) else torch.from_numpy(np.asarray(leaf))
     t = t.to(torch.float32).contiguous()
@@ -155,8 +241,9 @@ class StreamingRandomEffectTrainer:
     ``DenseBatch`` of host arrays (numpy, or CPU tensors; on a CUDA device
     copied from pinned memory on a side stream, one chunk ahead of the
     solve) or a zero-argument callable returning a ``DenseBatch`` on the
-    device (an on-device generator). ``mesh`` is refused: ROADMAP.md Queue 1
-    item 12.
+    device (an on-device generator). With ``mesh`` each chunk is cut into
+    equal pieces over the model axis (``axis``), piece j fed to and solved on
+    the axis's j-th device; ``device`` is then the first of them.
     """
 
     # retryable feed failures: storage I/O and runtime transfer errors;
@@ -176,16 +263,17 @@ class StreamingRandomEffectTrainer:
         feed_retries: int = 2,
         device: torch.device | str | None = None,
     ):
-        if mesh is not None:
-            _refuse_mesh("the entity-sharded streamed random effect (mesh)")
         config.validate(loss_name)
         if compute_variances and not get_loss(loss_name).has_hessian:
             raise ValueError("coefficient variances need a twice-differentiable loss; "
                              f"'{loss_name}' is not")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # the devices a chunk's pieces are solved on, in piece order
+        self._devices = ((resolve_device(device),) if mesh is None
+                         else mesh.axis_devices(_entity_axis(mesh, axis)))
+        self.device = self._devices[0]
         self.loss_name = loss_name
         self.config = config
-        self.mesh = None
         self.compute_variances = compute_variances
         # feeding runs through ingest.double_buffered: a background thread
         # prepares up to prefetch_depth chunks ahead of the solve; False is
@@ -201,34 +289,62 @@ class StreamingRandomEffectTrainer:
         self._feed_retries = feed_retries
         self._obj = build_objective(loss_name, config)
         self._l1 = config.regularization.l1_weight(config.regularization_weight)
-        self._upload_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
-                               else None)
+        # one side stream per distinct device for the host chunks' copies
+        self._upload_streams = {str(d): torch.cuda.Stream(d) for d in self._devices
+                                if d.type == "cuda"}
 
-    def _prepare(self, source) -> tuple[DenseBatch, Optional["torch.cuda.Event"]]:
-        """The chunk on the device and, for a host chunk copied on the side
-        stream, the event that marks the copy done."""
+    def _pieces(self, size: int) -> list[tuple[int, int]]:
+        """(first entity, entities) of each device's piece of a chunk."""
+        n_dev = len(self._devices)
+        if size % n_dev:
+            raise ValueError(f"chunk of {size} entities must divide over the {n_dev}-device "
+                             "mesh (pad the chunk)")
+        per = size // n_dev
+        return [(j * per, per) for j in range(n_dev)]
+
+    def _prepare(self, source) -> list[tuple[DenseBatch, Optional["torch.cuda.Event"]]]:
+        """The chunk's pieces on their devices, each with the event that marks
+        its copy done for a host chunk copied on a side stream (else None)."""
+        if isinstance(source, LocalChunk):
+            raise NotImplementedError(NOT_PORTED.format(
+                "a process-local streamed chunk (LocalChunk)", 12))
         if callable(source):
             batch = source()
             if not isinstance(batch, DenseBatch):
                 raise TypeError(f"chunk generator returned {type(batch).__name__}, "
                                 "not a DenseBatch")
-            check_on(self.device, batch.x, batch.labels, batch.offsets, batch.weights)
-            return batch, None
+            if self.mesh is None:
+                check_on(self.device, batch.x, batch.labels, batch.offsets, batch.weights)
+                return [(batch, None)]
+            return [(_piece(batch, lo, n, d), None)
+                    for (lo, n), d in zip(self._pieces(int(batch.labels.shape[0])),
+                                          self._devices)]
         if not isinstance(source, DenseBatch):
             raise TypeError(f"chunk source {type(source).__name__}")
         leaves = (source.x, source.labels, source.offsets, source.weights)
-        if all(isinstance(t, Tensor) and t.device.type == self.device.type for t in leaves):
+        on_device = all(isinstance(t, Tensor) and t.device.type == self.device.type
+                        for t in leaves)
+        if on_device and self.mesh is None:
             check_on(self.device, *leaves)
-            return source, None
-        if self._upload_stream is None:
-            return DenseBatch(*(torch.as_tensor(np.asarray(t, np.float32)) if not isinstance(
-                t, Tensor) else t.to(torch.float32) for t in leaves)), None
+            return [(source, None)]
+        pieces = self._pieces(int(np.shape(source.labels)[0]))
+        if on_device or not self._upload_streams:
+            if not on_device:
+                source = DenseBatch(*(torch.as_tensor(np.asarray(t, np.float32)) if not
+                                      isinstance(t, Tensor) else t.to(torch.float32)
+                                      for t in leaves))
+            return [(_piece(source, lo, n, d), None)
+                    for (lo, n), d in zip(pieces, self._devices)]
         host = [_pinned(t) for t in leaves]
-        with torch.cuda.stream(self._upload_stream):
-            on_device = [t.to(self.device, non_blocking=True) for t in host]
-            ready = torch.cuda.Event()
-            ready.record(self._upload_stream)
-        return DenseBatch(*on_device), ready
+        out = []
+        for (lo, n), d in zip(pieces, self._devices):
+            stream = self._upload_streams[str(d)]
+            with torch.cuda.stream(stream):
+                on_dev = [t[lo:lo + n].to(d, non_blocking=True) for t in host]
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            out.append((DenseBatch(*on_dev), ready))
+        return out
 
     def _feed(self, source):
         """``_prepare`` with bounded retry: transient feed failures are tried
@@ -248,19 +364,22 @@ class StreamingRandomEffectTrainer:
 
     def _solve(self, table: ShardedCoefficientTable, start: int, fed,
                variance_table: Optional[ShardedCoefficientTable] = None) -> ChunkResult:
-        batch, ready = fed
-        if ready is not None:
-            # the side stream's copy must land before the solve reads it, and
-            # the allocator must not recycle the chunk while the solve runs
-            current = torch.cuda.current_stream(self.device)
-            current.wait_event(ready)
-            for t in (batch.x, batch.labels, batch.offsets, batch.weights):
-                t.record_stream(current)
-        size = int(batch.labels.shape[0])
-        w0 = table.read_chunk(start, size)
+        for batch, ready in fed:
+            if ready is not None:
+                # the side stream's copy must land before the solve reads it,
+                # and the allocator must not recycle the chunk while it runs
+                current = torch.cuda.current_stream(batch.x.device)
+                current.wait_event(ready)
+                for t in (batch.x, batch.labels, batch.offsets, batch.weights):
+                    t.record_stream(current)
+        sizes = [int(batch.labels.shape[0]) for batch, _ in fed]
+        size = sum(sizes)
+        firsts = np.cumsum([0] + sizes[:-1])
+        w0s = [table.read_chunk(start + int(lo), n, device=d)
+               for lo, n, d in zip(firsts, sizes, self._devices)]
         # one [K] box shared by every entity (it broadcasts over the lanes):
         # the streamed table's local space is dense, its projection the identity
-        cons = self.config.build_box_constraints(table.dim, self.device)
+        boxes = [self.config.build_box_constraints(table.dim, d) for d in self._devices]
         rolled_back = False
         with telemetry.span("streaming_chunk", start=start, size=size):
             attempt = 0
@@ -269,12 +388,15 @@ class StreamingRandomEffectTrainer:
                 if attempt:
                     telemetry.counter("solves.retried").inc()
                     obj = damped_objective(obj, self._guard.damping_for(attempt))
-                res = dispatch_solve(glm_adapter(obj, batch), w0, self.config, self._l1, cons,
-                                     device=self.device)
+                results = [dispatch_solve(glm_adapter(obj, batch), w0, self.config, self._l1,
+                                          cons, device=d)
+                           for (batch, _), w0, cons, d in zip(fed, w0s, boxes, self._devices)]
                 if self._guard is None:
                     break
+                # every piece's health on the first device, fetched once
                 telemetry.counter("host_syncs").inc()
-                if bool(solve_health(res, res.w)):
+                healths = [solve_health(r, r.w).to(self._devices[0]) for r in results]
+                if bool(torch.stack(healths).all()):
                     break
                 telemetry.counter("solves.diverged").inc()
                 if attempt >= self._guard.max_retries:
@@ -288,22 +410,29 @@ class StreamingRandomEffectTrainer:
                     break
                 attempt += 1
             if not rolled_back:
-                table.write_chunk(start, res.w)
+                for lo, r in zip(firsts, results):
+                    table.write_chunk(start + int(lo), r.w)
         telemetry.counter("streaming_chunks").inc()
         telemetry.counter("streaming_entities").inc(size)
-        telemetry.counter("progress.rows").inc(int(batch.labels.numel()))
+        telemetry.counter("progress.rows").inc(sum(int(b.labels.numel()) for b, _ in fed))
         telemetry.counter("progress.coeffs").inc(size * table.dim)
         if self.compute_variances and not rolled_back:
             if variance_table is None:
                 raise ValueError("compute_variances=True needs a variance_table to write into "
                                  "(train(..., variance_table=...))")
-            variance_table.write_chunk(
-                start, 1.0 / (obj.hessian_diagonal(res.w, batch) + _VARIANCE_EPS))
-        values = res.value
+            for lo, r, (batch, _) in zip(firsts, results, fed):
+                variance_table.write_chunk(
+                    start + int(lo), 1.0 / (obj.hessian_diagonal(r.w, batch) + _VARIANCE_EPS))
+
+        def joined(field):
+            return torch.cat([field(r).to(self.device) for r in results])
+
+        values = joined(lambda r: r.value)
         if rolled_back:
             values = torch.where(torch.isfinite(values), values, torch.zeros_like(values))
-        return ChunkResult(start=start, size=size, iterations=res.iterations, values=values,
-                           reasons=res.reason, initial_values=res.values[:, 0])
+        return ChunkResult(start=start, size=size, iterations=joined(lambda r: r.iterations),
+                           values=values, reasons=joined(lambda r: r.reason),
+                           initial_values=joined(lambda r: r.values[:, 0]))
 
     def _after_chunk(self, chunk_index: int, table: ShardedCoefficientTable,
                      variance_table: Optional[ShardedCoefficientTable], checkpointer,
@@ -352,7 +481,8 @@ class StreamingRandomEffectTrainer:
             raise ValueError("compute_variances=True needs a variance_table")
         if start_chunk < 0:
             raise ValueError("start_chunk must be >= 0")
-        check_on(self.device, table.coefficients)
+        if self.mesh is None:
+            check_on(self.device, table.coefficients)
         results: list[ChunkResult] = []
         # a resume skips the solved chunks without feeding them
         chunk_iter = itertools.islice(iter(chunks), start_chunk, None)

@@ -83,21 +83,28 @@ class GLMObjective:
 
     def value_and_grad(self, w: Tensor, batch) -> tuple[Tensor, Tensor]:
         w_eff, shift = self._effective(w)
-        data_value, raw_grad, row_total = batch.fused_value_grad(
-            w_eff, shift, self.loss_name
-        )
-        grad = self._back_transform_vec(raw_grad, row_total)
-        return data_value + 0.5 * self.l2_weight * sqnorm(w), grad + self._l2_col * w
+        return self.finish_value_grad(w, *batch.fused_value_grad(w_eff, shift, self.loss_name))
 
     def value_and_grad_at_margins(
         self, w: Tensor, z: Tensor, batch
     ) -> tuple[Tensor, Tensor]:
         """value_and_grad with the margins z already known: one scatter pass
         (the margin-carrying LBFGS fast path); per entity over a bucket."""
+        return self.finish_value_grad(w, *self.value_grad_sums_at_margins(z, batch))
+
+    def value_grad_sums_at_margins(self, z: Tensor, batch) -> tuple[Tensor, Tensor, Tensor]:
+        """The data sums of a value and gradient at margins ``z``: (sum wgt*l,
+        the raw gradient scatter, sum wgt*dz), what a mesh sums over shards."""
         l, dz = self.loss_for(batch).loss_and_dz(z, batch.labels)
         wdz = batch.weights * dz
-        data_value = torch.sum(batch.weights * l, dim=-1)
-        grad = self._back_transform_vec(batch.scatter_features(wdz), torch.sum(wdz, dim=-1))
+        return (torch.sum(batch.weights * l, dim=-1), batch.scatter_features(wdz),
+                torch.sum(wdz, dim=-1))
+
+    def finish_value_grad(self, w: Tensor, data_value: Tensor, raw_grad: Tensor,
+                          row_total: Tensor) -> tuple[Tensor, Tensor]:
+        """(value, gradient) from the data sums: the normalization's back
+        transform and the L2 term."""
+        grad = self._back_transform_vec(raw_grad, row_total)
         return data_value + 0.5 * self.l2_weight * sqnorm(w), grad + self._l2_col * w
 
     def value(self, w: Tensor, batch) -> Tensor:
@@ -111,10 +118,8 @@ class GLMObjective:
         """H(w) @ v = sum_i weight_i l''(z_i) (x'_i . v) x'_i + l2 v."""
         v_eff, v_shift = self._effective(v)
         w_eff, w_shift = self._effective(w)
-        raw_hv, q_total = batch.fused_hessian_vector(
-            w_eff, w_shift, v_eff, v_shift, self.loss_name
-        )
-        return self._back_transform_vec(raw_hv, q_total) + self._l2_col * v
+        return self.finish_hv(v, *batch.fused_hessian_vector(w_eff, w_shift, v_eff, v_shift,
+                                                             self.loss_name))
 
     def curvature_at_margins(self, z: Tensor, batch) -> Tensor:
         """Per-row curvature d2 = weight * l''(z)."""
@@ -123,14 +128,28 @@ class GLMObjective:
     def hessian_vector_with_curvature(self, d2: Tensor, v: Tensor, batch) -> Tensor:
         """H @ v with the per-row curvature d2 already known."""
         v_eff, v_shift = self._effective(v)
-        raw_hv, q_total = batch.fused_hv_at(d2, v_eff, v_shift)
+        return self.finish_hv(v, *batch.fused_hv_at(d2, v_eff, v_shift))
+
+    def finish_hv(self, v: Tensor, raw_hv: Tensor, q_total: Tensor) -> Tensor:
+        """H @ v from the data sums (raw Hv scatter, sum of the row terms)."""
         return self._back_transform_vec(raw_hv, q_total) + self._l2_col * v
 
     def hessian_diagonal(self, w: Tensor, batch) -> Tensor:
         """diag H(w)_j = sum_i weight_i l''(z_i) x'_ij^2 + l2."""
-        z = self.margins(w, batch)
+        w_eff, shift = self._effective(w)
+        return self.finish_hessian_diagonal(w, *self.hessian_diagonal_sums(w_eff, shift, batch))
+
+    def hessian_diagonal_sums(self, w_eff: Tensor, shift, batch):
+        """The data sums of the Hessian diagonal at the effective ``w_eff``:
+        (X*X)^T d2, and under shifts also X^T d2 and sum d2 (else None)."""
+        z = batch.margins(w_eff, shift)
         d2_row = batch.weights * self.loss_for(batch).d2z(z, batch.labels)
         raw_sq = batch.scatter_features_sq(d2_row)
+        if self.shifts is None:
+            return raw_sq, None, None
+        return raw_sq, batch.scatter_features(d2_row), torch.sum(d2_row, dim=-1)
+
+    def finish_hessian_diagonal(self, w: Tensor, raw_sq: Tensor, raw_lin, total) -> Tensor:
         if self.factors is None and self.shifts is None:
             diag = raw_sq
         else:
@@ -138,8 +157,6 @@ class GLMObjective:
             if self.shifts is None:
                 diag = f * f * raw_sq
             else:
-                raw_lin = batch.scatter_features(d2_row)
-                total = torch.sum(d2_row, dim=-1)
                 total = total if w.dim() == 1 else total.unsqueeze(-1)
                 s = self.shifts
                 diag = f * f * (raw_sq - 2.0 * s * raw_lin + s * s * total)

@@ -1,0 +1,57 @@
+"""The single-controller device mesh (counterpart of ``photon_ml_tpu/parallel``):
+one process drives every device of a ``Mesh``; a fixed-effect design is split
+by rows over the ``batch`` axis (``place_batch``), per-entity state over the
+``model`` axis (``place_entities``), and each data sum is the shards'
+partials summed on the first device in shard order. The reference's
+per-process fleet (``multihost.py``, ``fleet_status.py``) is not ported
+(ROADMAP.md Queue 1 item 12); the solves of ``distributed.py`` load on first
+use, since they import the optimizers, which import this package."""
+
+from photon_ml_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    ENTITY_AXIS,
+    Mesh,
+    RowShard,
+    make_mesh,
+    put_sharded,
+    shard_rows,
+)
+from photon_ml_tpu_torch.parallel.sharding import (
+    BATCH_AXIS,
+    MODEL_AXIS,
+    ElasticPlacementError,
+    EntityShards,
+    RowShards,
+    ShardedBatch,
+    axis_size,
+    data_axis,
+    entity_axis_mismatch,
+    member_row_range,
+    model_axis,
+    owner_of_row,
+    pad_batch_rows,
+    pad_count,
+    place_batch,
+    place_entities,
+    place_entity_rows,
+    valid_entity_axis_sizes,
+)
+
+_SOLVES = ("distributed_hessian_diagonal", "distributed_solve", "distributed_value_and_grad",
+           "gspmd_solve")
+
+__all__ = [
+    "BATCH_AXIS", "DATA_AXIS", "ENTITY_AXIS", "MODEL_AXIS", "ElasticPlacementError",
+    "EntityShards", "Mesh", "RowShard", "RowShards", "ShardedBatch", "axis_size", "data_axis",
+    "entity_axis_mismatch", "make_mesh", "member_row_range", "model_axis", "owner_of_row",
+    "pad_batch_rows", "pad_count", "place_batch", "place_entities", "place_entity_rows",
+    "put_sharded", "shard_rows", "valid_entity_axis_sizes", *_SOLVES,
+]
+
+
+def __getattr__(name):
+    if name in _SOLVES:
+        from photon_ml_tpu_torch.parallel import distributed
+
+        return getattr(distributed, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

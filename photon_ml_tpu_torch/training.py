@@ -5,8 +5,10 @@ Counterpart of ``train_glm``, ``select_best_model`` and ``SweepEntry`` in
 ``photon_ml_tpu/training.py`` (:81-243): lambdas are trained in descending
 order, each warm-started from the previous optimum, and returned in the
 caller's order. Variances are 1 / (diag H(w*) + 1e-12) in optimization space,
-scaled by factor^2 into original space. The reference's ``mesh``/``axis``
-(multi-device) arguments are not ported.
+scaled by factor^2 into original space. With a ``mesh`` every solve and the
+variances run data-parallel over its batch axis (``parallel/``): the design
+is split by rows once, each shard on its device, and the solver state lives
+on the mesh's first device (``photon_ml_tpu/training.py:69-75, 90-182``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from photon_ml_tpu_torch.ops.objective import make_objective
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import BoxConstraints, SolveResult
 from photon_ml_tpu_torch.optim.factory import OptimizerConfig, dispatch_solve
+from photon_ml_tpu_torch.parallel.distributed import distributed_hessian_diagonal
+from photon_ml_tpu_torch.parallel.sharding import as_sharded
 
 Tensor = torch.Tensor
 
@@ -51,19 +55,27 @@ def train_glm(
     initial_model: Optional[GeneralizedLinearModel] = None,
     compute_variances: bool = False,
     device: torch.device | str | None = None,
+    mesh=None,
+    axis: Optional[str] = None,
 ) -> list[SweepEntry]:
     """Train one GLM per regularization weight, descending, warm-started.
 
     ``device`` (default cuda) must be where ``batch`` lives; each value of
-    ``lambdas`` is solved in turn.
+    ``lambdas`` is solved in turn. With ``mesh`` (a ``parallel.Mesh``),
+    ``batch`` (a ``CSRBatch``, a ``ShardedBatch`` or ``shard_rows``'
+    pieces) is split by rows over ``axis`` (default the mesh's batch/data
+    axis) and ``device`` defaults to the mesh's first device.
     """
+    batch = as_sharded(batch, mesh, axis)
+    if mesh is not None and device is None:
+        device = batch.device
     dev = resolve_device(device)
     if not lambdas:
         raise ValueError("lambdas must be non-empty")
     config.validate(task)
     task = get_loss(task).name
     n_feat = int(batch.num_features)
-    check_on(dev, batch.labels)
+    check_on(dev, batch.labels[0])
     if constraints is None:
         constraints = config.build_box_constraints(n_feat, dev)
 
@@ -105,7 +117,8 @@ def train_glm(
                             "variances need a twice-differentiable loss; "
                             f"'{task}' is not"
                         )
-                    variances = 1.0 / (obj.hessian_diagonal(w_opt, batch) + _VARIANCE_EPS)
+                    variances = 1.0 / (distributed_hessian_diagonal(obj, w_opt, batch)
+                                       + _VARIANCE_EPS)
 
                 means = w_opt
                 if normalization is not None:

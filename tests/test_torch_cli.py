@@ -247,7 +247,8 @@ REFUSED_KEYS = [
     pytest.param({"sweep": {"grid": ["lambda=1,2"], "registry_dir": "r"}}, 14,
                  id='{"sweep": {"grid": ["lambda=1,-11'),
     ({"warm_start": {"dir": "x"}}, 14),
-    ({"mesh": True}, 12),
+    # the mesh is ported; the multi-process fleet's key stays refused
+    pytest.param({"distributed": {"num_processes": 2}}, 12, id='{"mesh": true}-12'),
     ({"trace_out": "t.jsonl"}, 14),
     ({"telemetry_out": "t.jsonl"}, 14),
     ({"report_out": "r.md"}, 14),
@@ -267,27 +268,48 @@ def test_train_refuses_unported_keys(avro_dataset, extra, item):
         t_train.run(config, device="cpu")
 
 
+# a GAME sweep with --mesh is refused as the reference refuses it
+_SWEEP_WITH_MESH = (ValueError, "mesh training is not supported with a GAME sweep")
+
 REFUSED_FLAGS = [
-    # the sweep flags are ported; a sweep with a mesh stays refused (item 12)
-    # and its registry (item 14)
-    pytest.param(["--sweep", "lambda=1,2", "--mesh", "auto"], 12,
+    # the sweep and mesh flags are ported; together they are the reference's
+    # ValueError, each flag reaching the config through main()
+    pytest.param(["--sweep", "lambda=1,2", "--mesh", "auto"], "plain", _SWEEP_WITH_MESH,
                  id="['--sweep', 'lambda=1,2']-11"),
-    pytest.param(["--sweep-metric", "auc", "--mesh", "auto"], 12,
+    pytest.param(["--sweep-metric", "auc", "--mesh", "auto"], "sweep", _SWEEP_WITH_MESH,
                  id="['--sweep-metric', 'auc']-11"),
-    pytest.param(["--sweep-policy", "best", "--mesh", "auto"], 12,
+    pytest.param(["--sweep-policy", "best", "--mesh", "batch=2"], "sweep", _SWEEP_WITH_MESH,
                  id="['--sweep-policy', 'best']-11"),
-    pytest.param(["--sweep-registry-dir", "r"], 14, id="['--sweep-registry-dir', 'r']-11"),
-                 (["--warm-start", "d"], 14), (["--delta", "d.avro"], 14),
-                 (["--refresh-registry-dir", "r"], 14), (["--lambda-points", "3"], 14),
-                 (["--mesh", "auto"], 12), (["--trace-out", "t"], 14), (["--telemetry-out", "t"], 14),
-                 (["--report-out", "r"], 14), (["--xprof-dir", "x"], 14),
-                 (["--xprof-arm", "3"], 14), (["--heartbeat-every", "5"], 14)]
+    pytest.param(["--sweep-registry-dir", "r"], None, 14, id="['--sweep-registry-dir', 'r']-11"),
+    # a factored random effect on a mesh stays refused (item 12)
+    pytest.param(["--mesh", "auto"], "factored", 12, id="['--mesh', 'auto']-12"),
+    *[pytest.param(flags, None, item, id=f"{flags}-{item}") for flags, item in [
+        (["--warm-start", "d"], 14), (["--delta", "d.avro"], 14),
+        (["--refresh-registry-dir", "r"], 14), (["--lambda-points", "3"], 14),
+        (["--trace-out", "t"], 14), (["--telemetry-out", "t"], 14),
+        (["--report-out", "r"], 14), (["--xprof-dir", "x"], 14),
+        (["--xprof-arm", "3"], 14), (["--heartbeat-every", "5"], 14)]],
+]
 
 
-@pytest.mark.parametrize("flags,item", REFUSED_FLAGS, ids=lambda v: str(v))
-def test_train_refuses_unported_flags(flags, item):
-    with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
-        t_train.main(["--config", "unused.json", "--device", "cpu", *flags])
+@pytest.mark.parametrize("flags,config,refusal", REFUSED_FLAGS)
+def test_train_refuses_unported_flags(avro_dataset, flags, config, refusal, tmp_path):
+    """Each flag through main(): an unported flag names its item before the
+    config is read; the mesh flag reaches the config's refusals."""
+    path = tmp_path / "config.json"
+    if config is not None:
+        cfg = _config(avro_dataset[1], None)
+        if config == "sweep":
+            cfg["sweep"] = {"grid": "lambda=1,2"}
+        if config == "factored":
+            cfg["coordinates"]["perUser"] = {
+                "type": "factored_random_effect", "shard_name": "global", "id_name": "userId",
+                "latent_dim": 2}
+        path.write_text(json.dumps(cfg))
+    exc, match = ((NotImplementedError, rf"item {refusal}\)") if isinstance(refusal, int)
+                  else refusal)
+    with pytest.raises(exc, match=match):
+        t_train.main(["--config", str(path), "--device", "cpu", *flags])
 
 
 def _steps(path):
@@ -511,7 +533,7 @@ def test_sweep_refusals_of_the_reference(avro_dataset, tmp_path):
         t_train.run({**cfg, "sweep": {"grid": "lambda=1", "nope": 1}}, device="cpu")
     with pytest.raises(SweepSpecError, match="inverted range"):
         t_train.run({**cfg, "sweep": "lambda=10:1:log3"}, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"mesh.*item 12\)"):
+    with pytest.raises(ValueError, match="mesh training is not supported with a GAME sweep"):
         t_train.run({**cfg, "mesh": {"batch": 2}}, device="cpu")
 
 

@@ -297,17 +297,25 @@ def test_random_effect_branches_not_ported_raise(data, monkeypatch):
 
 
 def test_estimator_and_descent_branches_not_ported_raise(data, tmp_path):
-    """A mesh (ROADMAP item 12, in fit_grid too), fit_incremental and
-    fit_sweep's registry (item 14) still raise; the checkpoint and the stop
-    (item 10) work, and so does a factored coordinate and the random
-    projector under NEWTON."""
+    """A factored random effect or the random projector on a mesh (ROADMAP
+    item 12, in fit_grid too), fit_incremental and fit_sweep's registry
+    (item 14) still raise; the checkpoint and the stop (item 10) work, and so
+    does a factored coordinate and the random projector under NEWTON. (The
+    mesh itself is ported: tests/test_torch_mesh_game.py.)"""
+    from photon_ml_tpu_torch.parallel import make_mesh
+
     _, tds = data
     _, tcfg = _configs()
     est = GameEstimator(tcfg)
-    with pytest.raises(NotImplementedError, match="a mesh.*item 12"):
-        est.fit(tds, device="cpu", mesh=object())
+    mesh = make_mesh({"model": 2}, [torch.device("cpu")] * 2)
+    projected = GameConfig(task="logistic", evaluators=["auc"], coordinates={
+        "per-user": RandomEffectConfig(shard_name="user", id_name="userId", projector="random",
+                                       projected_dim=2,
+                                       optimizer=tcfg.coordinates["per-user"].optimizer)})
+    with pytest.raises(NotImplementedError, match="mesh.*item 12"):
+        GameEstimator(projected).fit(tds, device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match="item 12"):
-        est.fit_grid(tds, tds, {}, mesh=object(), device="cpu")
+        GameEstimator(projected).fit_grid(tds, tds, {}, mesh=mesh, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         est.fit_incremental(tds)
     with pytest.raises(NotImplementedError, match="registry.*item 14"):

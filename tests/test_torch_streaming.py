@@ -1,6 +1,7 @@
 """The port's streamed random effect (``photon_ml_tpu_torch/game/streaming.py``)
 and its chunk-boundary checkpoints against the JAX package's
-(tests/test_streaming.py, case for case but its mesh cases), on the CPU:
+(tests/test_streaming.py, case for case but its mesh cases, which
+tests/test_torch_mesh.py holds), on the CPU:
 
 - a dense per-entity design against the sparse layout (objective, and the
   LBFGS, TRON and NEWTON solves against the JAX package's sparse solves);
@@ -14,8 +15,8 @@ and its chunk-boundary checkpoints against the JAX package's
   for bit;
 - checkpoints at chunk boundaries, SIGTERM, and resume bit for bit; a
   streaming checkpoint written by each package restored by the other;
-- a mesh, a multi-process save and a restore onto a mesh refused, naming
-  item 12.
+- a multi-process fleet's process-local chunk refused, naming item 12 (the
+  mesh cases are tests/test_torch_mesh.py's).
 """
 
 import dataclasses
@@ -45,9 +46,11 @@ from photon_ml_tpu_torch.game.checkpoint import (
     TrainingInterrupted,
 )
 from photon_ml_tpu_torch.game.streaming import (
+    LocalChunk,
     ShardedCoefficientTable,
     StreamingRandomEffectTrainer,
 )
+from photon_ml_tpu_torch.parallel import make_mesh
 from photon_ml_tpu_torch.ops.dense import DenseBatch
 from photon_ml_tpu_torch.ops.objective import make_objective
 from photon_ml_tpu_torch.ops.sparse import SparseBatch
@@ -221,15 +224,18 @@ def test_table_chunks_write_in_place_and_check_bounds():
 
 
 def test_mesh_and_fleet_paths_are_refused_naming_item_12(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"item 12\)"):
-        ShardedCoefficientTable(8, 2, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match=r"item 12\)"):
-        ShardedCoefficientTable.from_coefficients(torch.zeros(8, 2), mesh=object())
-    with pytest.raises(NotImplementedError, match=r"item 12\)"):
-        StreamingRandomEffectTrainer("logistic", _CFG, mesh=object(), device=CPU)
+    """The mesh is ported (tests/test_torch_mesh.py); a multi-process
+    fleet's process-local chunk stays refused, with prefetch on and off."""
+    chunk = LocalChunk(batch=DenseBatch(x=np.zeros((4, 2, 3), np.float32),
+                                        labels=np.zeros((4, 2), np.float32),
+                                        offsets=np.zeros((4, 2), np.float32),
+                                        weights=np.ones((4, 2), np.float32)), global_size=8)
+    for prefetch in (True, False):
+        with pytest.raises(NotImplementedError, match=r"LocalChunk.*item 12\)"):
+            _trainer(prefetch=prefetch).train(_table(4, 3), [(0, chunk)])
+    mesh = make_mesh({"entity": 2}, [torch.device(CPU)] * 2)
     mgr = StreamingCheckpointManager(CheckpointSpec(directory=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match=r"item 12\)"):
-        mgr.restore_placed(mesh=object(), device=CPU)
+    assert mgr.restore_placed(mesh=mesh) is None  # nothing saved yet
 
 
 def _stream_train(rng, cfg, n_ent=12, rows=8, k=4, **trainer_kw):
