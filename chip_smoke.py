@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive photon_ml_tpu_torch's GLM and GLMix training paths once on one NVIDIA card.
+"""Drive photon_ml_tpu_torch's GLM, GLMix and serving paths once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--profile] [--json-out PATH]
 
@@ -97,6 +97,27 @@ Phases, in order; any failure exits non-zero before the last line:
            same with the random projector (projected_dim 16, LBFGS 20): no
            lane's objective rises, finite scores, two scorings and the
            saved and reloaded ``factored_random_effect`` bit-identical;
+       15. the serving tier on path 6's dataset: path 6's model published
+           as registry version 1 with the quality gate on, loaded by
+           ``ModelRegistry`` and warmed; at least 2,000 requests of 1-64
+           of path 6's rows through ``ContinuousBatcher`` and
+           ``ScoringServer`` (HTTP) from 8 closed-loop clients in a process
+           of their own (``tools/http_load.py``), each answer within 1e-6
+           of ``predict_mean``; path 9's model published and
+           swapped in mid traffic (zero failed requests); the steady
+           window's p50/p99, rows/s, host syncs and ``csr_margins``
+           launches per request batch and the allocator's reserved bytes
+           (which must not grow); the same rows twice bit for bit; ``cli
+           serve --stdio`` (a subprocess) bit for bit the in-process
+           engine; nearline events (both shards) for 256 users, their rows
+           equal to a direct warm-started lane solve whose residuals carry
+           the fixed and the per-user effects, every other user's score bit
+           for bit; a label-shuffled candidate quarantined with the
+           registry untouched; ``csr_margins`` at a 64-row request batch
+           against its plain version;
+       15b. the served model in an entity-sharded engine over a ``model``
+           axis of 4 (cuda:0 repeated on one card), within 1e-6 of path
+           15's engine on the same rows;
        10. the CLI pipeline at config #4's width: path 6's draws written as
            TrainingExampleAvro (4 files, the native encoder), ``cli index``
            (a subprocess), ``cli train`` in process with path 6's config and
@@ -147,8 +168,9 @@ Phases, in order; any failure exits non-zero before the last line:
            ``fit_sweep`` on the same datasets;
        12b. config #4 (path 6's draws, every tenth row held out) through
            ``GameEstimator.fit_sweep`` over ``lambda=1e-4:1e2:log16``, 2 CD
-           iterations, selected on auc: the saved winner reloads bit for
-           bit, its validation AUC within 1e-3 of ``fit`` at its lambda;
+           iterations, selected on auc: the saved winner and the one
+           published to a registry (``registry_dir``) reload bit for bit,
+           its validation AUC within 1e-3 of ``fit`` at its lambda;
            ``fit_grid`` over two fixed effects (L2 1 and 10) best-first,
            each entry bit for bit its combination's ``fit``;
        11. BASELINE config #5 (bench_northstar.py: 20M rows, 138,493 users,
@@ -233,6 +255,14 @@ MESH_GAME_TOL = dict(rtol=5e-3, atol=5e-3)
 MESH_TABLE_TOL = dict(rtol=2e-3, atol=2e-4)  # tests/test_streaming.py:150-181
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
+SERVE_REQUESTS = 2_000  # path 15: at least this many requests, each of 1 to SERVE_MAX_BATCH rows
+SERVE_MAX_BATCH = 64  # bench_serving.py:82-86: MAX_BATCH 64, N_CLIENTS 8
+SERVE_CLIENTS = 8
+SERVE_ATOL = 1e-6  # tests/test_serving.py:134 (and the mesh's, tests/test_serving_sharded.py:151)
+NEARLINE_USERS = 256  # path 15's feedback events: 4 rows each of 256 users
+NEARLINE_ATOL = 1e-6  # tests/test_serving_sharded.py:519
+GATE_SAMPLES = 16  # bootstrap resamples of the quality gate's AUC CI
+SERVE_MESH = 4  # path 15b: the entity-sharded engine's model axis
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
@@ -1576,7 +1606,8 @@ def check_variances(model, gds, red, opt, n_lanes: int, seed: int) -> float:
     return worst
 
 
-def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str):
+def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
+                keep: dict | None = None):
     """Paths 9, 9b and 9c: the rest of the random-effect coordinate at
     config #4's width, on path 6's dataset. Path 9 is ``GameEstimator.fit``
     (2 CD iterations) of config #4's fixed effect, a per-user random effect
@@ -1593,7 +1624,8 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str):
     their plain recomputation, a train AUC not above the fixed effect's
     alone (path 6), the COO buckets' kernels not launched (``csr_margins``
     and ``csc_scatter`` in path 9, ``hv_at`` in 9b), two scorings or
-    evaluations that differ, or a reloaded model that scores differently."""
+    evaluations that differ, or a reloaded model that scores differently.
+    ``keep`` receives path 9's fitted model (``keep["9"]``, for path 15)."""
     import dataclasses
 
     import torch
@@ -1749,6 +1781,8 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str):
     coo_kernels = check_coo_bucket_kernels(
         coo[pos].block, model.models["per-user-items"].buckets[bucket_pos].coefficients)
     stats["largest_coo_bucket"] = coo_kernels
+    if keep is not None:
+        keep["9"] = model
     del result, model, scores
 
     sub = {"9": launches}
@@ -3497,8 +3531,9 @@ def run_sweep_game_path(seed: int, card: str) -> tuple[dict, dict]:
     """Path 12b: ``GameEstimator.fit_sweep`` at BASELINE config #4 (path 6's
     draws and coordinates, every tenth row held out), the grid
     GAME_SWEEP_GRID for both coordinates, 2 CD iterations, selected on
-    ``auc``. Fails unless the winner saved under ``best/`` reloads and
-    scores bit for bit, the winning lane's validation AUC is within 1e-3 of
+    ``auc``. Fails unless the winner saved under ``best/`` and the one
+    published to a serving registry (``fit_sweep(registry_dir=...)``)
+    reload and score bit for bit, the winning lane's validation AUC is within 1e-3 of
     ``GameEstimator.fit`` at the winning lambda, ``fit_grid`` over two fixed
     effects (L2 1 and 10) returns its entries best-first, each bit for bit
     the ``fit`` of its combination, the lane kernels launched in the sweep
@@ -3525,15 +3560,25 @@ def run_sweep_game_path(seed: int, card: str) -> tuple[dict, dict]:
                          val.per_row(val.weight)))
 
     build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    maps = {"global": [f"g{j}" for j in range(N_FEATURES)],
+            "user": [f"u{j}" for j in range(GAME_RE_FEATURES)]}
     with tempfile.TemporaryDirectory(dir=build_dir) as out:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        fs = GameEstimator(config).fit_sweep(train, val, grid, metric="auc", output_dir=out)
+        fs = GameEstimator(config).fit_sweep(train, val, grid, metric="auc", output_dir=out,
+                                             registry_dir=os.path.join(out, "registry"),
+                                             index_maps=maps)
         torch.cuda.synchronize()
         sweep_s = time.perf_counter() - t0
         sweep_launches = dict(kernels.LAUNCHES)
         loaded = load_game_model(os.path.join(out, "best"))
         reloaded_same = torch.equal(loaded.score(val), fs.model.score(val))
+        # the winner published to the serving registry reloads bit for bit
+        published = fs.published_version
+        published_same = (published is not None
+                          and os.path.basename(published) == "v-00000001"
+                          and torch.equal(load_game_model(published).score(val),
+                                          fs.model.score(val)))
     sel = fs.selection
     lam = grid.default[sel.index]
     conv = fs.sweep.convergence()
@@ -3541,10 +3586,14 @@ def run_sweep_game_path(seed: int, card: str) -> tuple[dict, dict]:
           f"auc={sel.best_value:.9g} aucs={json.dumps(sel.to_json()['values'])} "
           f"fe_iterations={conv['fixed']['iterations'].tolist()} "
           f"re_iterations={conv['per-user']['iterations'].tolist()} "
-          f"best_reloaded_bit_identical={reloaded_same} launches={json.dumps(sweep_launches)}",
-          flush=True)
+          f"best_reloaded_bit_identical={reloaded_same} "
+          f"published={os.path.basename(published or '')} "
+          f"published_reloaded_bit_identical={published_same} "
+          f"launches={json.dumps(sweep_launches)}", flush=True)
     if not reloaded_same:
         bad.append("the winner saved under best/ scores differently when loaded")
+    if not published_same:
+        bad.append("the winner published to the registry is missing or scores differently")
     t0 = time.perf_counter()
     winner_cfg = dc.replace(config, coordinates={
         name: dc.replace(c, optimizer=dc.replace(c.optimizer, regularization_weight=lam))
@@ -3594,7 +3643,8 @@ def run_sweep_game_path(seed: int, card: str) -> tuple[dict, dict]:
     stats = {"setup_s": setup_s, "sweep_s": sweep_s, "selected_index": sel.index,
              "selected_lambda": lam, "selected_auc": sel.best_value, "aucs": sel.to_json(),
              "fit_auc_at_winner": fit_auc, "grid_s": grid_s, "grid_metrics": metrics,
-             "best_reloaded_bit_identical": reloaded_same, "grid_bit_identical": same,
+             "best_reloaded_bit_identical": reloaded_same,
+             "published_reloaded_bit_identical": published_same, "grid_bit_identical": same,
              "card": card}
     print(f"path 12b: setup_s={setup_s:.4f} sweep_s={sweep_s:.4f} grid_s={grid_s:.4f} "
           f"card={card}", flush=True)
@@ -3714,6 +3764,658 @@ def run_sweep_cli_path(card: str, work: str, glm_ref: dict) -> tuple[dict, dict]
     return launches, stats
 
 
+def serving_rows(gds, idx) -> list[dict]:
+    """Rows ``idx`` of a GAME dataset in the serving request schema: both
+    shards' features as [col, value] pairs, the user id and the offset."""
+    idx = np.asarray(idx, np.int64)
+    ids = gds.id_columns["userId"]
+    uid = ids.vocab[ids.codes[idx]].tolist()
+    offsets = np.asarray(gds.offset, np.float64)[idx].tolist()
+    feats = {}
+    for name in ("global", "user"):
+        sh = gds.shard(name)
+        ptr = np.searchsorted(sh.rows, np.arange(gds.num_rows + 1))
+        lo, hi = ptr[idx], ptr[idx + 1]
+        lengths = hi - lo
+        take = np.repeat(lo - np.cumsum(lengths) + lengths, lengths) + np.arange(lengths.sum())
+        pairs = list(map(list, zip(sh.cols[take].tolist(), sh.values[take].tolist())))
+        ends = np.cumsum(lengths).tolist()
+        feats[name] = [pairs[a:b] for a, b in zip([0] + ends[:-1], ends)]
+    return [{"features": {"global": g, "user": u}, "ids": {"userId": int(i)}, "offset": o}
+            for g, u, i, o in zip(feats["global"], feats["user"], uid, offsets)]
+
+
+def _percentile_ms(values, q: float) -> float:
+    if not len(values):
+        return float("nan")
+    return float(np.percentile(np.asarray(values, np.float64) * 1e3, q))
+
+
+def _http_traffic(port: int, bodies_path: str, out_path: str, n_clients: int,
+                  min_requests: int, marks) -> tuple:
+    """Start ``tools/http_load.py`` in a process of its own: ``n_clients``
+    closed-loop keep-alive HTTP clients cycling over the request bodies in
+    ``bodies_path`` until told to stop and at least ``min_requests`` have
+    completed. A thread here follows its progress lines, counting answers by
+    model version and setting each ``(count, event)`` of ``marks`` once that
+    many answers have come back, and the times of its first request and of
+    its last answer. Returns the process, the progress dict and the
+    thread."""
+    import subprocess
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(root, "photon_ml_tpu_torch", "tools", "http_load.py"),
+         "--port", str(port), "--bodies", bodies_path, "--out", out_path,
+         "--clients", str(n_clients), "--min-requests", str(min_requests)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=root)
+    progress = {"done": 0, "by_version": {}, "t_ready": None, "t_last": None}
+
+    def follow():
+        for line in proc.stdout:
+            parts = line.split()
+            if parts == ["ready"]:
+                progress["t_ready"] = time.perf_counter()
+            if len(parts) != 2:
+                continue
+            n, version = int(parts[0]), parts[1]
+            progress["done"], progress["t_last"] = n, time.perf_counter()
+            progress["by_version"][version] = progress["by_version"].get(version, 0) + 1
+            for at, ev in marks:
+                if n >= at:
+                    ev.set()
+
+    reader = threading.Thread(target=follow, daemon=True)
+    reader.start()
+    return proc, progress, reader
+
+
+class _Scored:
+    """A model's one scoring pass, for ``game_quality_stats`` (which reads
+    ``task`` and calls ``score``) without scoring the model again."""
+
+    def __init__(self, task: str, scores):
+        self.task, self._scores = task, scores
+
+    def score(self, data):
+        return self._scores
+
+
+def _pad_entities(model, multiple: int):
+    """``model`` with every random-effect bucket padded to a multiple of
+    ``multiple`` entities (zero coefficients, the last row's projection): no
+    entity maps to a padding row, so every score is the unpadded model's."""
+    import dataclasses
+
+    import torch
+
+    from photon_ml_tpu_torch.game.models import RandomEffectModel
+
+    for name, sub in model.models.items():
+        if not isinstance(sub, RandomEffectModel):
+            continue
+        buckets = []
+        for bm in sub.buckets:
+            pad = -bm.coefficients.shape[0] % multiple
+            if pad:
+                bm = dataclasses.replace(
+                    bm, coefficients=torch.cat([bm.coefficients,
+                                                bm.coefficients.new_zeros((pad,) + tuple(
+                                                    bm.coefficients.shape[1:]))]),
+                    projection=torch.cat([bm.projection, bm.projection[-1:].expand(pad, -1)]),
+                    entity_codes=np.concatenate([bm.entity_codes, np.full(pad, -1, np.int32)]),
+                    variances=None)
+            buckets.append(bm)
+        model = model.with_model(name, dataclasses.replace(sub, buckets=tuple(buckets)))
+    return model
+
+
+def _nearline_direct(engine, model, updater, events_by_user: dict, config) -> tuple[dict, float]:
+    """The warm-started lane solve that a nearline flush of ``events_by_user``
+    must equal, built from the events and the served ``model`` directly: per
+    bucket, in the flush's lane order, each event's features mapped into its
+    entity's projection row, its residual offset the event offset plus every
+    other coordinate's margin of the event (the fixed effect's, then each
+    other random effect's, found in ``model``'s own buckets), entity lanes
+    padded to a power of two by the last lane, warm-started from the live
+    rows. Returns ``{bucket: (positions, w [n, K])}`` and the largest
+    |margin| that the other random effects added to an event."""
+    from photon_ml_tpu_torch.game.models import FixedEffectModel, map_vocab_codes
+    from photon_ml_tpu_torch.ops.dense import DenseBatch
+    from photon_ml_tpu_torch.optim.adapter import glm_adapter
+    from photon_ml_tpu_torch.optim.factory import build_objective, dispatch_solve
+
+    slot = engine.re_slot_for("userId")
+    _id, lookup, ebkt, epos = engine.re_host(slot)
+    # the update targets the first random effect keyed by the id
+    target = next(name for name, sub in model.models.items()
+                  if not isinstance(sub, FixedEffectModel) and sub.id_name == "userId")
+    others = []  # (shard, w) for a fixed effect, (shard, sub, cache) for a random one
+    for name, sub in model.models.items():
+        if isinstance(sub, FixedEffectModel):
+            others.append((sub.shard_name, sub.coefficients.detach().cpu().numpy()))
+        elif name != target:
+            others.append((sub.shard_name, sub, {}))
+
+    def other_margin(shard, sub, cache, ev):
+        code = int(map_vocab_codes(sub.vocab, np.asarray([ev["ids"][sub.id_name]],
+                                                          sub.vocab.dtype))[0])
+        if code < 0 or sub.entity_bucket[code] < 0:
+            return 0.0
+        b, pos = int(sub.entity_bucket[code]), int(sub.entity_pos[code])
+        if b not in cache:
+            bm = sub.buckets[b]
+            cache[b] = (bm.projection.cpu().numpy(), bm.coefficients.detach().cpu().numpy())
+        row_p, row_c = cache[b][0][pos], cache[b][1][pos]
+        total = 0.0
+        for col, val in ev["features"].get(shard, ()):
+            kk = int(np.searchsorted(row_p, col))
+            if kk < row_p.shape[0] and row_p[kk] == col:
+                total += float(row_c[kk]) * val
+        return total
+
+    tables = engine.re_tables(slot)
+    by_bucket = {}
+    for user, evs in events_by_user.items():
+        code = lookup[str(user)]
+        by_bucket.setdefault(int(ebkt[code]), []).append((int(epos[code]), evs))
+    obj = build_objective("logistic", config)
+    l1 = config.regularization.l1_weight(config.regularization_weight)
+    out, other_max = {}, 0.0
+    for b, members in sorted(by_bucket.items()):
+        proj = tables[b][0].cpu().numpy()
+        k = proj.shape[1]
+        r = updater.rows_per_solve
+        lanes = []
+        for pos, evs in members:
+            row, rows = proj[pos], []
+            for ev in evs[-r:]:
+                xrow, total, mapped = np.zeros(k, np.float32), float(ev["offset"]), 0
+                for col, val in ev["features"]["global"]:
+                    kk = int(np.searchsorted(row, col))
+                    if kk < k and row[kk] == col:  # out-of-projection features drop
+                        xrow[kk] = val
+                        mapped += 1
+                # the residual: each other coordinate's margin, summed in model order
+                for other in others:
+                    if len(other) == 2:
+                        for col, val in ev["features"].get(other[0], ()):
+                            total += float(other[1][col]) * val
+                    else:
+                        m = other_margin(*other, ev)
+                        other_max = max(other_max, abs(m))
+                        total += m
+                if mapped:  # an event with no feature in the projection drops whole
+                    rows.append((xrow, ev["label"], total))
+            if rows:  # an entity left without rows keeps its live row
+                lanes.append((pos, rows))
+        n = len(lanes)
+        if not n:
+            continue
+        n_pad = 1 << (n - 1).bit_length()
+        x = np.zeros((n_pad, r, k), np.float32)
+        labels, offsets, weights = (np.zeros((n_pad, r), np.float32) for _ in range(3))
+        positions = np.zeros(n_pad, np.int32)
+        for j, (pos, rows) in enumerate(lanes):
+            positions[j] = pos
+            for i, (xrow, label, total) in enumerate(rows):
+                x[j, i], labels[j, i], offsets[j, i], weights[j, i] = xrow, label, total, 1.0
+        for j in range(n, n_pad):
+            x[j], labels[j], offsets[j], weights[j] = x[n - 1], labels[n - 1], offsets[n - 1], \
+                weights[n - 1]
+            positions[j] = positions[n - 1]
+        w0 = engine.gather_re_rows(slot, b, positions)
+        batch = DenseBatch.from_arrays(x, labels, offsets, weights, device=engine.device)
+        res = dispatch_solve(glm_adapter(obj, batch), w0, config, l1, None, device=engine.device)
+        out[b] = (positions[:n], res.w[:n])
+    return out, other_max
+
+
+def run_serving_path(gds, model6, model9, seed: int, card: str, work: str,
+                     profile: bool) -> tuple[dict, dict, dict | None, object]:
+    """Path 15: config #4's GLMix model served. Each model is scored once
+    over path 6's rows; that pass gives the expected means (``predict_mean``'s
+    own arithmetic: the sigmoid of the scores plus the offsets) and the
+    quality gate's stats (``game_quality_stats``). Path 6's model is
+    published as registry version 1 with the gate on, loaded by
+    ``ModelRegistry`` and warmed; at least SERVE_REQUESTS requests of 1-64
+    of path 6's rows go through ``ContinuousBatcher`` + ``ScoringServer``
+    (HTTP) from 8 closed-loop clients in a process of their own, each
+    answer within 1e-6 of its expected mean; in mid
+    traffic path 9's model (30M coefficients, buckets with K up to 256) is
+    published as version 2 and swapped in with zero failed requests. Then:
+    csr_margins at the request batch against its plain version; the same
+    rows scored twice bit for bit; ``cli serve --stdio`` in a subprocess
+    bit for bit the in-process engine; nearline events for 256 users
+    flushed, their rows equal to a direct warm-started lane solve (1e-6),
+    every other user's score bit for bit; a label-shuffled candidate
+    quarantined with the registry untouched. Returns the launches, the
+    stats, the profile and the registry (for path 15b)."""
+    import dataclasses
+    import subprocess
+    import threading
+
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.kernels import reference
+    from photon_ml_tpu_torch.quality import QualityGateRefused, game_quality_stats
+    from photon_ml_tpu_torch.serving import (
+        ModelRegistry,
+        NearlineUpdater,
+        ScoringServer,
+        ScoringService,
+        publish_version,
+        scan_versions,
+    )
+
+    bad = []
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    t_path = time.perf_counter()
+    maps = {"global": IndexMap([f"g{j}" for j in range(N_FEATURES)]),
+            "user": IndexMap([f"u{j}" for j in range(GAME_RE_FEATURES)])}
+    reg = os.path.join(work, "registry")
+    t0 = time.perf_counter()
+    scores = {1: model6.score(gds), 2: model9.score(gds)}
+    offsets = gds.per_row(gds.offset)
+    # predict_mean's own arithmetic on the one scoring pass of each model
+    expected = {f"v-0000000{v}": torch.sigmoid(s + offsets).cpu().numpy().astype(np.float64)
+                for v, s in scores.items()}
+    score_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q1 = game_quality_stats(_Scored(model6.task, scores[1]), gds, num_samples=GATE_SAMPLES,
+                            seed=seed)
+    q2 = game_quality_stats(_Scored(model9.task, scores[2]), gds, num_samples=GATE_SAMPLES,
+                            seed=seed)
+    gate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    publish_version(reg, model6, maps, quality=q1.to_json())
+    publish_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    registry = ModelRegistry(reg, max_batch=SERVE_MAX_BATCH, poll_interval=0.2).start()
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 15)
+    t0 = time.perf_counter()
+    sizes = rng.integers(1, SERVE_MAX_BATCH + 1, size=SERVE_REQUESTS)
+    starts = rng.integers(0, gds.num_rows - SERVE_MAX_BATCH, size=SERVE_REQUESTS)
+    idxs = [np.arange(a, a + n) for a, n in zip(starts, sizes)]
+    all_rows = serving_rows(gds, np.concatenate(idxs))
+    requests, at = [], 0
+    for idx in idxs:
+        requests.append((idx, all_rows[at:at + len(idx)]))
+        at += len(idx)
+    rows_s = time.perf_counter() - t0
+    print(f"path 15 setup: score_s={score_s:.4f} gate_stats_s={gate_s:.4f} "
+          f"publish_v1_s={publish_s:.4f} "
+          f"registry_load_warm_s={load_s:.4f} request_rows_s={rows_s:.4f} "
+          f"v1_auc={q1.auc:.6f} [{q1.auc_ci_low:.6f}, {q1.auc_ci_high:.6f}] "
+          f"v2_auc={q2.auc:.6f} requests={len(requests)} rows={at}", flush=True)
+
+    # the request bodies, encoded once; the clients run in a process of their own
+    bodies_path = os.path.join(work, "bodies.jsonl")
+    with open(bodies_path, "w") as f:
+        for _idx, rows in requests:
+            f.write(json.dumps({"rows": rows}) + "\n")
+    out_path = os.path.join(work, "http_load.json")
+    service = ScoringService(registry, max_batch=SERVE_MAX_BATCH, queue_depth=4096,
+                             batcher="continuous")
+    server = ScoringServer(service, port=0).start()
+    steady_from, steady_to = threading.Event(), threading.Event()
+    snap = {}
+    proc = None
+    try:
+        proc, progress, reader = _http_traffic(
+            server.port, bodies_path, out_path, SERVE_CLIENTS, SERVE_REQUESTS,
+            ((SERVE_REQUESTS // 20, steady_from), (SERVE_REQUESTS // 3, steady_to)))
+        steady_from.wait(timeout=300)
+        torch.cuda.synchronize()
+        snap["from"] = (telemetry.snapshot(), torch.cuda.memory_reserved(),
+                        dict(kernels.LAUNCHES), progress["done"], time.perf_counter())
+        steady_to.wait(timeout=300)
+        snap["to"] = (telemetry.snapshot(), torch.cuda.memory_reserved(),
+                      dict(kernels.LAUNCHES), progress["done"], time.perf_counter())
+        # the hot swap, mid traffic: version 2 published with the gate on
+        t0 = time.perf_counter()
+        publish_version(reg, model9, maps, quality=q2.to_json())
+        publish2_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 300
+        while registry.current_version != "v-00000002" and time.monotonic() < deadline:
+            time.sleep(0.05)
+        swap_s = time.perf_counter() - t0
+        n_at_swap = progress["done"]
+        while (progress["by_version"].get("v-00000002", 0) < 500
+               and time.monotonic() < deadline and proc.poll() is None):
+            time.sleep(0.05)
+        try:
+            proc.stdin.write("stop\n")
+            proc.stdin.close()
+        except BrokenPipeError:  # the clients are gone already: their exit code says why
+            pass
+        proc.wait(timeout=300)
+        reader.join(timeout=60)
+        traffic_s = progress["t_last"] - progress["t_ready"]
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        server.stop()
+    if proc.returncode != 0:
+        raise RuntimeError(f"path 15: the HTTP clients exited {proc.returncode}")
+    with open(out_path) as f:
+        load = json.load(f)
+    failures = load["failures"]
+    records = []  # (version, rows, seconds, max abs error) in the order answered
+    for i, version, dt, got in load["records"]:
+        idx = requests[i][0]
+        err = float(np.max(np.abs(np.asarray(got, np.float64) - expected[version][idx])))
+        records.append((version, len(idx), dt, err))
+    snap_end = telemetry.snapshot()
+    versions = {}
+    for version, n, dt, err in records:
+        v = versions.setdefault(version, {"requests": 0, "rows": 0, "max_abs_err": 0.0,
+                                          "latency_s": []})
+        v["requests"] += 1
+        v["rows"] += n
+        v["max_abs_err"] = max(v["max_abs_err"], err)
+        v["latency_s"].append(dt)
+    lat = [r[2] for r in records]
+    n_rows = sum(r[1] for r in records)
+    (s_from, res_from, l_from, n_from, t_from), (s_to, res_to, l_to, n_to, t_to) = \
+        snap["from"], snap["to"]
+
+    def counter(sn, name):
+        return sn["counters"].get(name, 0)
+
+    def hist_count(sn, name):
+        return sn["histograms"].get(name, {}).get("count", 0)
+
+    steady_batches = hist_count(s_to, "serving.batch_size") - hist_count(s_from,
+                                                                         "serving.batch_size")
+    steady_syncs = counter(s_to, "host_syncs") - counter(s_from, "host_syncs")
+    steady_launches = l_to["csr_margins"] - l_from["csr_margins"]
+    steady_lat = [r[2] for r in records[n_from:n_to]]
+    steady_rows = sum(r[1] for r in records[n_from:n_to])
+    stats = {
+        "card": card, "requests": len(records), "rows": n_rows, "traffic_s": traffic_s,
+        "rows_per_s": n_rows / traffic_s, "requests_per_s": len(records) / traffic_s,
+        "p50_ms": _percentile_ms(lat, 50), "p99_ms": _percentile_ms(lat, 99),
+        "steady": {"requests": n_to - n_from, "rows": steady_rows,
+                   "rows_per_s": steady_rows / (t_to - t_from),
+                   "p50_ms": _percentile_ms(steady_lat, 50),
+                   "p99_ms": _percentile_ms(steady_lat, 99),
+                   "batches": steady_batches,
+                   "host_syncs_per_batch": steady_syncs / max(steady_batches, 1),
+                   "csr_margins_per_batch": steady_launches / max(steady_batches, 1),
+                   "rows_per_batch": steady_rows / max(steady_batches, 1),
+                   "reserved_bytes_before": res_from, "reserved_bytes_after": res_to},
+        "by_version": {v: {k: x for k, x in d.items() if k != "latency_s"}
+                       | {"p50_ms": _percentile_ms(d["latency_s"], 50),
+                          "p99_ms": _percentile_ms(d["latency_s"], 99)}
+                       for v, d in versions.items()},
+        "failures": len(failures), "publish_v2_s": publish2_s, "swap_s": swap_s,
+        "requests_at_swap": n_at_swap, "gate_stats_s": gate_s, "registry_load_warm_s": load_s,
+        "server_total_ms": snap_end["histograms"].get("serving.total_ms"),
+        "engine_call_ms": snap_end["histograms"].get("serving.device_ms"),
+        "server_queue_ms": snap_end["histograms"].get("serving.queue_ms"),
+        "batch_size": snap_end["histograms"].get("serving.batch_size"),
+        "model_swaps": counter(snap_end, "serving.model_swaps"),
+    }
+    print(f"path 15 traffic: requests={len(records)} rows={n_rows} traffic_s={traffic_s:.4f} "
+          f"rows_per_s={stats['rows_per_s']:.1f} p50_ms={stats['p50_ms']:.4f} "
+          f"p99_ms={stats['p99_ms']:.4f} failures={len(failures)} swap_s={swap_s:.4f} "
+          f"by_version={json.dumps(stats['by_version'])} card={card}", flush=True)
+    print(f"path 15 steady (v1, requests {n_from}..{n_to}): "
+          f"{json.dumps(stats['steady'])} card={card}", flush=True)
+    if failures:
+        bad.append(f"{len(failures)} failed requests: {failures[:3]}")
+    if set(versions) != {"v-00000001", "v-00000002"}:
+        bad.append(f"versions served: {sorted(versions)}")
+    worst = max((d["max_abs_err"] for d in versions.values()), default=float("inf"))
+    if not worst <= SERVE_ATOL:
+        bad.append(f"served scores differ from predict_mean by {worst}")
+    if res_to != res_from:
+        bad.append(f"the allocator grew in the steady window: {res_from} -> {res_to}")
+    # one batch may be in flight at each end of the window: counted
+    # dispatched but not yet fetched
+    if abs(steady_syncs - steady_batches) > 1:
+        bad.append(f"host syncs {steady_syncs} for {steady_batches} request batches")
+    if len(records) < SERVE_REQUESTS:
+        bad.append(f"only {len(records)} requests served")
+
+    engine = registry.engine
+    check_idx = np.concatenate(idxs[:64])
+    check_rows = all_rows[:len(check_idx)]
+    first, again = engine.score_rows(check_rows), engine.score_rows(check_rows)
+    twice = bool(np.array_equal(first, again))
+    direct_err = float(np.max(np.abs(first - expected["v-00000002"][check_idx])))
+    print(f"path 15 twice: rows={len(check_idx)} bit_identical={twice} "
+          f"max_abs_err_vs_predict_mean={direct_err:.3e}", flush=True)
+    if not twice or not direct_err <= SERVE_ATOL:
+        bad.append(f"repeat bit for bit {twice}, predict_mean error {direct_err}")
+
+    # where a request batch's time goes with no client beside it: the
+    # host assembly (parse, validate, stage, one copy) against the whole
+    # score call (assembly, the device pass, the one fetch), sequentially
+    # over the first 200 requests
+    chunks = [rows for _idx, rows in requests[:200]]
+    tables = engine._tables
+    t0 = time.perf_counter()
+    for rows in chunks:
+        with engine._score_lock:
+            engine._assemble(rows, engine._bucket_for(len(rows)), tables)
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for rows in chunks:
+        engine.score_rows(rows)
+    call_s = time.perf_counter() - t0
+    stats["uncontended"] = {"batches": len(chunks),
+                            "rows": sum(len(r) for r in chunks),
+                            "assemble_ms_per_batch": assemble_s / len(chunks) * 1e3,
+                            "score_call_ms_per_batch": call_s / len(chunks) * 1e3}
+    print(f"path 15 uncontended (v2, one caller): {json.dumps(stats['uncontended'])} "
+          f"card={card}", flush=True)
+
+    # cli serve --stdio in a subprocess: the registry's newest version,
+    # bit for bit the in-process engine (after the wire's 8 decimals)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    lines = [json.dumps({"rows": rows}) for _idx, rows in requests[:64]]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli", "serve",
+                           "--registry-dir", reg, "--stdio", "--max-batch",
+                           str(SERVE_MAX_BATCH)], input="\n".join(lines) + "\n",
+                          capture_output=True, text=True, timeout=600, cwd=root, env=env)
+    stdio_s = time.perf_counter() - t0
+    stdio_same = False
+    if proc.returncode != 0:
+        bad.append(f"cli serve --stdio exited {proc.returncode}: {proc.stderr[-1500:]}")
+    else:
+        got = [json.loads(ln) for ln in proc.stdout.strip().splitlines()]
+        want = [[round(float(x), 8) for x in engine.score_rows(rows)]
+                for _idx, rows in requests[:64]]
+        stdio_same = ([g.get("scores") for g in got] == want
+                      and {g.get("model_version") for g in got} == {"v-00000002"})
+    print(f"path 15 cli serve --stdio: requests=64 wall_s={stdio_s:.4f} "
+          f"bit_identical_to_in_process={stdio_same}", flush=True)
+    if not stdio_same:
+        bad.append("cli serve --stdio differs from the in-process engine")
+
+    # nearline: 4 events for each of 256 users, flushed once
+    users_all = gds.id_columns["userId"]
+    uid = users_all.vocab[users_all.codes]
+    _name, lookup, ebkt, _epos = engine.re_host(engine.re_slot_for("userId"))
+    picked = []
+    for user in rng.permutation(np.unique(uid)).tolist():
+        code = lookup.get(str(user), -1)
+        if code >= 0 and ebkt[code] >= 0:
+            picked.append(user)
+        if len(picked) == NEARLINE_USERS:
+            break
+    order = np.argsort(uid, kind="stable")
+    first_row = np.searchsorted(uid[order], picked)
+    ev_rows = {u: order[f:f + 4][uid[order[f:f + 4]] == u] for u, f in zip(picked, first_row)}
+    ev_idx = np.concatenate(list(ev_rows.values()))
+    ev_reqs = dict(zip(ev_idx.tolist(), serving_rows(gds, ev_idx)))
+    # each event carries both shards, as a scored row does: the per-user
+    # effect's margin enters the residual of the per-user-items update
+    events_by_user = {u: [{"ids": {"userId": u}, "label": float(gds.response[r]),
+                           "offset": float(gds.offset[r]),
+                           "features": ev_reqs[r]["features"]}
+                          for r in rows_u.tolist()] for u, rows_u in ev_rows.items()}
+    config = re_optimizer("lbfgs", 20, 1e-7)
+    updater = NearlineUpdater(registry, id_name="userId", config=config)
+    direct, other_max = _nearline_direct(engine, model9, updater, events_by_user, config)
+    touched = np.isin(uid[check_idx], picked)
+    probe_idx = np.concatenate([check_idx, ev_idx])
+    probe_rows = check_rows + [ev_reqs[r] for r in ev_idx.tolist()]
+    probe_touched = np.isin(uid[probe_idx], picked)
+    before = engine.score_rows(probe_rows)
+    accepted = updater.submit([ev for evs in events_by_user.values() for ev in evs])
+    t0 = time.perf_counter()
+    flushed = updater.flush()
+    flush_s = time.perf_counter() - t0
+    after = engine.score_rows(probe_rows)
+    slot = engine.re_slot_for("userId")
+    row_err = 0.0
+    for b, (positions, w) in direct.items():
+        live = engine.gather_re_rows(slot, b, positions)
+        row_err = max(row_err, float((live - w).abs().max()))
+    untouched_same = bool(np.array_equal(before[~probe_touched], after[~probe_touched]))
+    moved = bool(not np.allclose(before[probe_touched], after[probe_touched]))
+    nl = telemetry.snapshot()
+    stats["nearline"] = {"users": len(picked), "events": accepted, "flush": flushed,
+                         "flush_s": flush_s, "max_row_err_vs_direct": row_err,
+                         "other_effect_max_abs_margin": other_max,
+                         "untouched_bit_identical": untouched_same, "touched_moved": moved,
+                         "untouched_rows": int((~probe_touched).sum()),
+                         "touched_rows": int(probe_touched.sum()),
+                         "solve_ms": nl["histograms"].get("serving.nearline.solve_ms"),
+                         "update_lag_ms": nl["histograms"].get(
+                             "serving.nearline.update_lag_ms")}
+    print(f"path 15 nearline: {json.dumps(stats['nearline'])}", flush=True)
+    if flushed["entities"] != len(picked) or not row_err <= NEARLINE_ATOL:
+        bad.append(f"nearline flush {flushed}, row error vs the direct solve {row_err}")
+    if not other_max > 0.0:
+        bad.append("nearline: the per-user effect added no margin to any event's residual")
+    if not (untouched_same and moved):
+        bad.append(f"nearline: untouched bit for bit {untouched_same}, touched moved {moved}")
+    del touched
+
+    # the quality gate: a label-shuffled candidate is quarantined
+    shuffled = dataclasses.replace(gds, response=rng.permutation(gds.response))
+    q_bad = game_quality_stats(_Scored(model6.task, scores[1]), shuffled,
+                               num_samples=GATE_SAMPLES, seed=seed)
+    listing = sorted(os.listdir(reg))
+    quarantined = False
+    try:
+        publish_version(reg, model6, maps, quality=q_bad.to_json())
+    except QualityGateRefused as e:
+        quarantined = e.decision.decision == "quarantined"
+        reason = e.decision.reason
+    else:
+        reason = "published"
+    time.sleep(0.5)  # a poll interval and more: the registry must not move
+    untouched = ([v for v, _p in scan_versions(reg)] == [1, 2]
+                 and sorted(os.listdir(reg)) == sorted(listing + ["quarantined-v-00000003"])
+                 and registry.current_version == "v-00000002")
+    stats["gate"] = {"candidate_auc": q_bad.auc, "quarantined": quarantined, "reason": reason,
+                     "registry_untouched": untouched}
+    print(f"path 15 gate: {json.dumps(stats['gate'])}", flush=True)
+    if not (quarantined and untouched):
+        bad.append(f"the shuffled candidate: {stats['gate']}")
+
+    launches = dict(kernels.LAUNCHES)
+    stats["host_syncs"] = telemetry.snapshot()["counters"].get("host_syncs", 0)
+    stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    stats["path_s"] = time.perf_counter() - t_path
+    stats["launches"] = launches
+
+    # csr_margins at the request batch (64 rows of path 6's fixed-effect
+    # shard), outside the counted window
+    b64 = gds.csr_batch("global")
+    ptr = b64.row_ptr[:SERVE_MAX_BATCH + 1].contiguous()
+    nnz = int(ptr[-1])
+    cols, vals = b64.cols[:nnz].contiguous(), b64.vals[:nnz].contiguous()
+    w = model6.models["fixed"].coefficients.contiguous()
+    off = torch.zeros(SERVE_MAX_BATCH, device="cuda")
+    got = kernels.csr_margins(ptr, cols, vals, w, off, 0.0, False)
+    want = reference.csr_margins(ptr, cols, vals, w, off, 0.0, False)
+    abs_err, _ = compare("csr_margins[request batch]", got, want)
+    k_ms = device_ms(lambda: kernels.csr_margins(ptr, cols, vals, w, off, 0.0, False))
+    p_ms = device_ms(lambda: reference.csr_margins(ptr, cols, vals, w, off, 0.0, False))
+    nbytes = 4 * (SERVE_MAX_BATCH + 1) + 12 * nnz + 4 * SERVE_MAX_BATCH
+    bound = max(nbytes / PEAK_BYTES_PER_S, 2 * nnz / PEAK_F32_FLOPS) * 1e3
+    stats["request_batch_kernel"] = {"rows": SERVE_MAX_BATCH, "nnz": nnz, "max_abs_err": abs_err,
+                                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound}
+    print(f"path 15 csr_margins at the request batch: {json.dumps(stats['request_batch_kernel'])}"
+          f" card={card}", flush=True)
+    print(f"path 15: path_s={stats['path_s']:.4f} host_syncs={stats['host_syncs']} "
+          f"max_memory_allocated={stats['max_memory_allocated']} "
+          f"launches={json.dumps(launches)} card={card}", flush=True)
+    prof = None
+    if profile:
+        def serve_once():
+            for _idx, rows in requests[:200]:
+                engine.score_rows(rows)
+
+        prof = profile_solve("15", serve_once)
+    if bad:
+        registry.stop()
+        raise RuntimeError(f"path 15: bad result: {bad}")
+    if launches["csr_margins"] == 0:
+        registry.stop()
+        raise RuntimeError("path 15: csr_margins not launched")
+    return launches, stats, prof, (registry, probe_rows)
+
+
+def run_mesh_serving_path(registry, probe_rows, card: str) -> tuple[dict, dict]:
+    """Path 15b: the served model (path 15's version 2 with its nearline
+    rows) in an entity-sharded engine over a ``model`` axis of SERVE_MESH
+    devices (each bucket padded to a multiple of it), its scores of path
+    15's probe rows within 1e-6 of the single-device engine's."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.parallel import make_mesh
+    from photon_ml_tpu_torch.serving import ScoringEngine
+
+    try:
+        engine = registry.engine
+        want = engine.score_rows(probe_rows)
+        model = _pad_entities(engine.current_model(), SERVE_MESH)
+    finally:
+        registry.stop()
+    devices, kind = mesh_devices(SERVE_MESH)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sharded = ScoringEngine(model, max_batch=SERVE_MAX_BATCH, version="v-00000002",
+                            mesh=make_mesh({"model": SERVE_MESH}, devices)).warmup()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = sharded.score_rows(probe_rows)
+    _sync(devices)
+    score_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    err = float(np.max(np.abs(got - want)))
+    stats = {"devices": kind, "load_warm_s": load_s, "score_s": score_s,
+             "rows": len(probe_rows), "max_abs_err": err,
+             "bit_identical": bool(np.array_equal(got, want)),
+             "part_rows": [int(p.parts[0].shape[0]) for p in
+                           (coef for _proj, coef in sharded.re_tables(0))], "card": card}
+    print(f"path 15b: {json.dumps(stats)} launches={json.dumps(launches)}", flush=True)
+    if not err <= SERVE_ATOL:
+        raise RuntimeError(f"path 15b: the sharded engine differs by {err}")
+    if launches["csr_margins"] == 0:
+        raise RuntimeError("path 15b: csr_margins not launched")
+    return launches, stats
+
+
 _T_START = time.perf_counter()
 
 
@@ -3823,7 +4525,7 @@ def main() -> int:
 
 def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, train: dict,
                prof: dict) -> int:
-    """Paths 8, 6, 9-9c and 11b, 10, 13, 13b, 12d, 12b, 11 and 7, then the ``kernels``
+    """Paths 8, 6, 9-9c and 11b, 15, 15b, 10, 13, 13b, 12d, 12b, 11 and 7, then the ``kernels``
     line and the result line; ``work`` holds path 8's files for paths 10 and
     12d, and path 10's for 12d."""
     import torch
@@ -3840,20 +4542,29 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     mark("path 6", train)
     by_path["14b"], train["14b"] = run_mesh_game_path(gds, *game_ref, train["6"], by_path["6"],
                                                       work)
+    models = {"6": game_ref[1]}  # path 15's version 1
     del game_ref
     torch.cuda.empty_cache()
     mark("path 14b", train)
     t0 = time.perf_counter()
     re_launches, train["9"], re_prof = run_re_path(gds, args.seed, args.profile,
-                                                   train["6"]["fe_only_auc"], card)
+                                                   train["6"]["fe_only_auc"], card, keep=models)
     train["9"]["paths_s"] = time.perf_counter() - t0
     print(f"paths 9-9c: {train['9']['paths_s']:.2f} s", flush=True)
     mark("paths 9-9c, 11b", train)
     by_path.update(re_launches)
     if re_prof is not None:
         prof["9"] = re_prof
-    del gds
     torch.cuda.empty_cache()
+    by_path["15"], train["15"], serve_prof, (registry, probe_rows) = run_serving_path(
+        gds, models["6"], models["9"], args.seed, card, work, args.profile)
+    if serve_prof is not None:
+        prof["15"] = serve_prof
+    mark("path 15", train)
+    by_path["15b"], train["15b"] = run_mesh_serving_path(registry, probe_rows, card)
+    del gds, models, registry, probe_rows
+    torch.cuda.empty_cache()
+    mark("path 15b", train)
     t0 = time.perf_counter()
     by_path["10"], train["10"], handover = run_cli_path(args.seed, card, work, train["6"],
                                                         glm_ref)
@@ -3909,6 +4620,8 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
         row["launches"] = sum(row["launches_by_path"].values())
         if row["name"] in train["9"]["largest_coo_bucket"]:
             row["re_largest_coo_bucket"] = train["9"]["largest_coo_bucket"][row["name"]]
+        if row["name"] == "csr_margins":
+            row["serving_request_batch"] = train["15"]["request_batch_kernel"]
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "kernels": kernel_rows, "train": train,

@@ -1,15 +1,14 @@
-"""CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|score|glm|index} ...
+"""CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|sweep|score|serve|glm|index} ...
 
 Counterpart of ``photon_ml_tpu/cli/__main__.py``, with the same usage text
-and dispatch. ``refresh``, ``pipeline``, ``serve``, ``report`` and
-``profile`` raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 14).
-``train``, ``sweep``, ``score`` and ``glm`` take ``--device`` (default
-``cuda``).
+and dispatch. ``refresh``, ``pipeline``, ``report`` and ``profile`` raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 14). ``train``, ``sweep``,
+``score``, ``serve`` and ``glm`` take ``--device`` (default ``cuda``).
 """
 
 import sys
 
-_NOT_PORTED = {"refresh": 14, "pipeline": 14, "serve": 14, "report": 14, "profile": 14}
+_NOT_PORTED = {"refresh": 14, "pipeline": 14, "report": 14, "profile": 14}
 
 
 def main(argv=None) -> int:
@@ -17,10 +16,12 @@ def main(argv=None) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m photon_ml_tpu_torch.cli {train|refresh|pipeline|sweep|score|serve|glm|index|report|profile} [options]")
         print("  train --config <json> [--output-dir <dir>] [--device cuda|cpu]   GAME training")
-        print("  refresh, pipeline, serve, report, profile   not ported (ROADMAP.md Queue 1 item 14)")
+        print("  refresh, pipeline, report, profile   not ported (ROADMAP.md Queue 1 item 14)")
         print("  sweep --config <json> [--sweep lambda=...] [--device cuda|cpu]   multi-lambda "
               "sweep + selection")
         print("  score --model-dir <dir> --config <json> [--output <avro>] [--device cuda|cpu]")
+        print("  serve (--model-dir <dir>|--registry-dir <dir>) [--stdio] [--device cuda|cpu]   "
+              "online scoring")
         print("  glm   --config <json> [--output-dir <dir>] [--device cuda|cpu]   staged legacy GLM")
         print("  index --input <avro...> --output <dir>       feature index build")
         return 0 if argv else 2
@@ -41,6 +42,10 @@ def main(argv=None) -> int:
         from photon_ml_tpu_torch.cli.score import main as score_main
 
         return score_main(rest)
+    if cmd == "serve":
+        from photon_ml_tpu_torch.cli.serve import main as serve_main
+
+        return serve_main(rest)
     if cmd == "glm":
         from photon_ml_tpu_torch.cli.glm import main as glm_main
 

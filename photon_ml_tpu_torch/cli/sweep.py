@@ -19,14 +19,15 @@ flag override)::
       "metric": "auc",            # default: task's ModelSelection metric
       "policy": "best",           # or "parsimonious" (+ "rel_tol")
       "warm_start": true,
-      "num_iterations": 2          # CD sweeps; default config num_iterations
+      "num_iterations": 2,         # CD sweeps; default config num_iterations
+      "registry_dir": "registry/"  # publish the winner for live serving
     }
 
 The summary JSON carries a per-config table (λs, iterations, convergence,
 validation metric) and the selection; malformed grids are typed config
 errors naming the offending token (``sweep.grid.SweepSpecError``).
-Publishing the winner to the serving registry (``registry_dir``,
-``--registry-dir``) is refused: ROADMAP.md Queue 1 item 14.
+``registry_dir`` (``--registry-dir``) publishes the winner, with the
+input's index maps, as the next version of a serving registry.
 """
 
 from __future__ import annotations
@@ -50,16 +51,13 @@ _SWEEP_KEYS = {"grid", "metric", "policy", "rel_tol", "registry_dir", "warm_star
 def parse_sweep_config(spec) -> dict:
     """Normalize the config ``"sweep"`` value (a string grid shorthand or an
     object) into ``run_sweep_fit``'s arguments. Typed errors name the
-    offending token or key; ``registry_dir`` is refused (item 14)."""
+    offending token or key."""
     if isinstance(spec, (str, list, tuple)):
         spec = {"grid": spec}
     spec = dict(spec)
     unknown = set(spec) - _SWEEP_KEYS
     if unknown:
         raise ValueError(f"unknown sweep config keys: {sorted(unknown)}")
-    if spec.get("registry_dir"):
-        raise NotImplementedError(NOT_PORTED.format(
-            "publishing a sweep winner to a registry (sweep.registry_dir)", 14))
     raw_grid = spec.get("grid")
     if not raw_grid:
         raise SweepSpecError("sweep.grid", "no lambda grid given")
@@ -88,13 +86,15 @@ def parse_sweep_config(spec) -> dict:
         "metric": spec.get("metric"),
         "policy": spec.get("policy", "best"),
         "rel_tol": float(spec.get("rel_tol", 0.01)),
+        "registry_dir": spec.get("registry_dir"),
         "warm_start": bool(spec.get("warm_start", True)),
         "num_iterations": spec.get("num_iterations"),
     }
 
 
 def merge_sweep_flags(config: Mapping, grid=None, metric: Optional[str] = None,
-                      policy: Optional[str] = None) -> Optional[dict]:
+                      policy: Optional[str] = None,
+                      registry_dir: Optional[str] = None) -> Optional[dict]:
     """Overlay the sweep flags onto a config's ``"sweep"`` value (a string
     shorthand normalized to an object). Returns the merged object, or None
     when neither the config nor the flags configure a sweep: one merge
@@ -108,14 +108,17 @@ def merge_sweep_flags(config: Mapping, grid=None, metric: Optional[str] = None,
         sweep_cfg["metric"] = metric
     if policy:
         sweep_cfg["policy"] = policy
+    if registry_dir:
+        sweep_cfg["registry_dir"] = registry_dir
     return sweep_cfg or None
 
 
 def run_sweep_fit(estimator, sweep_spec, train_data, validation_data,
-                  output_dir: Optional[str], device=None) -> dict:
+                  output_dir: Optional[str], device=None,
+                  index_maps: Optional[Mapping] = None) -> dict:
     """Run the sweep for the training driver on ``device`` (default cuda);
-    returns the summary's ``"sweep"`` section (per-config table and
-    selection)."""
+    returns the summary's ``"sweep"`` section (per-config table, selection
+    and the published version, when the spec names a ``registry_dir``)."""
     from photon_ml_tpu_torch.optim.common import MAX_ITERATIONS, NOT_CONVERGED
 
     parsed = parse_sweep_config(sweep_spec)
@@ -126,7 +129,8 @@ def run_sweep_fit(estimator, sweep_spec, train_data, validation_data,
         train_data, validation_data, parsed["grid"], metric=parsed["metric"],
         policy=parsed["policy"], rel_tol=parsed["rel_tol"],
         num_iterations=parsed["num_iterations"], warm_start=parsed["warm_start"],
-        output_dir=output_dir, device=device)
+        output_dir=output_dir, registry_dir=parsed["registry_dir"], index_maps=index_maps,
+        device=device)
     sweep, selection = result.sweep, result.selection
     conv = sweep.convergence()
     lambdas = sweep.lambdas
@@ -152,6 +156,8 @@ def run_sweep_fit(estimator, sweep_spec, train_data, validation_data,
     }
     if output_dir:
         out["output_dir"] = output_dir
+    if result.published_version:
+        out["published_version"] = result.published_version
     return out
 
 
@@ -170,14 +176,17 @@ def main(argv=None) -> int:
                         "config within rel_tol of the best metric)")
     parser.add_argument("--output-dir", help="save the winner under <dir>/best (overrides "
                         "config output_dir)")
+    parser.add_argument("--registry-dir",
+                        help="publish the winner as the next version of this serving "
+                        "registry (overrides config sweep.registry_dir)")
     parser.add_argument("--device", default="cuda",
                         help="the device that reads, trains and scores (default cuda; cpu "
                         "runs the kernels' plain PyTorch versions)")
     # the reference's flags, refused with their ROADMAP item
-    for flag in ("--registry-dir", "--trace-out", "--telemetry-out", "--report-out"):
+    for flag in ("--trace-out", "--telemetry-out", "--report-out"):
         parser.add_argument(flag, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    for flag in ("registry_dir", "trace_out", "telemetry_out", "report_out"):
+    for flag in ("trace_out", "telemetry_out", "report_out"):
         if getattr(args, flag):
             raise NotImplementedError(NOT_PORTED.format(
                 f"the 'sweep' flag --{flag.replace('_', '-')}", 14))
@@ -189,7 +198,7 @@ def main(argv=None) -> int:
     with open(args.config) as f:
         config = json.load(f)
     sweep_cfg = merge_sweep_flags(config, grid=args.sweep, metric=args.sweep_metric,
-                                  policy=args.sweep_policy)
+                                  policy=args.sweep_policy, registry_dir=args.registry_dir)
     if not sweep_cfg or not sweep_cfg.get("grid"):
         parser.error("no sweep grid: pass --sweep lambda=... or set config sweep.grid")
     config["sweep"] = sweep_cfg

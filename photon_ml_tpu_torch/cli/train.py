@@ -42,9 +42,8 @@ SIGTERM/SIGINT finish the step, write a final checkpoint and end the run
 with an ``interrupted`` summary and exit code 75. The reference's progress heartbeat (a log line
 every ~30 s) is not started. Every key and flag the port cannot honour yet
 raises ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
-``sweep.registry_dir``, ``--sweep-registry-dir``, ``warm_start``,
-``--warm-start``, ``--delta``, ``--refresh-registry-dir``,
-``--lambda-points`` (14);
+``warm_start``, ``--warm-start``, ``--delta``, ``--refresh-registry-dir``,
+``--lambda-points`` (14b);
 ``distributed`` and a run across processes (12); ``trace_out``, ``telemetry_out``,
 ``report_out``, ``xprof``, their flags, a ``heartbeat`` object or interval
 and ``--heartbeat-every`` > 0 (14).
@@ -77,11 +76,11 @@ from photon_ml_tpu_torch.optim.guard import GuardSpec
 from photon_ml_tpu_torch.utils import setup_logging, timed
 
 # config keys the port refuses, with the ROADMAP.md Queue 1 item that ports them
-_REFUSED_KEYS = {"warm_start": 14, "distributed": 12,
+_REFUSED_KEYS = {"warm_start": "14b", "distributed": 12,
                  "trace_out": 14, "telemetry_out": 14, "report_out": 14, "xprof": 14}
 
 
-def _refuse(what: str, item: int):
+def _refuse(what: str, item):
     raise NotImplementedError(NOT_PORTED.format(what, item))
 
 
@@ -326,7 +325,7 @@ def run(config: Mapping, output_dir: Optional[str] = None,
         with timed("sweep"):
             sweep_summary = run_sweep_fit(estimator, config["sweep"], train_data,
                                           validation_data, output_dir,
-                                          device=train_data.device)
+                                          device=train_data.device, index_maps=index_maps)
         if output_dir is not None and index_maps is not None:
             with timed("save index maps"):
                 for shard, imap in index_maps.items():
@@ -374,10 +373,13 @@ def main(argv=None) -> int:
                         "ModelSelection metric; config sweep.metric)")
     parser.add_argument("--sweep-policy", choices=("best", "parsimonious"),
                         help="sweep selection policy (config sweep.policy)")
+    parser.add_argument("--sweep-registry-dir",
+                        help="publish the sweep winner as the next version of this serving "
+                        "registry (config sweep.registry_dir)")
     refused = {"--trace-out": 14, "--telemetry-out": 14, "--report-out": 14,
                "--xprof-dir": 14, "--xprof-arm": 14,
-               "--sweep-registry-dir": 14, "--warm-start": 14, "--delta": 14, "--refresh-registry-dir": 14,
-               "--lambda-points": 14}
+               "--warm-start": "14b", "--delta": "14b", "--refresh-registry-dir": "14b",
+               "--lambda-points": "14b"}
     for flag in refused:
         parser.add_argument(flag, action="append", help=argparse.SUPPRESS)
     parser.add_argument("--heartbeat-every", type=float, help=argparse.SUPPRESS)
@@ -416,14 +418,15 @@ def main(argv=None) -> int:
         config["heartbeat"] = False
     if args.mesh:
         config["mesh"] = parse_mesh_flag(args.mesh)
-    if args.sweep or args.sweep_metric or args.sweep_policy:
+    if args.sweep or args.sweep_metric or args.sweep_policy or args.sweep_registry_dir:
         from photon_ml_tpu_torch.cli.sweep import merge_sweep_flags
 
         sweep_cfg = merge_sweep_flags(config, grid=args.sweep, metric=args.sweep_metric,
-                                      policy=args.sweep_policy)
+                                      policy=args.sweep_policy,
+                                      registry_dir=args.sweep_registry_dir)
         if not sweep_cfg or not sweep_cfg.get("grid"):
-            parser.error("--sweep-metric/--sweep-policy need a grid: pass --sweep lambda=... "
-                         "(or config sweep.grid)")
+            parser.error("--sweep-metric/--sweep-policy/--sweep-registry-dir need a grid: "
+                         "pass --sweep lambda=... (or config sweep.grid)")
         config["sweep"] = sweep_cfg
     if args.ingest_workers is not None or args.prefetch_depth is not None:
         inp = dict(config.get("input") or {})

@@ -34,8 +34,8 @@ devices (``data`` and ``entity``), and a mesh that names neither on more
 than one axis is refused. The mesh's first device must be the dataset's.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item): a
-factored random effect or the random projector on a mesh (item 12),
-``fit_incremental`` and ``fit_sweep``'s ``registry_dir`` (item 14).
+factored random effect or the random projector on a mesh (item 12) and
+``fit_incremental`` (item 14b).
 """
 
 from __future__ import annotations
@@ -181,7 +181,7 @@ class SweepFitResult:
     model: GameModel  # the selected winner
     selection: object  # sweep.select.SweepSelection
     sweep: object  # sweep.runner.GameSweepResult
-    published_version: Optional[str] = None  # always None: publishing is item 14
+    published_version: Optional[str] = None  # the registry version path, when published
 
 
 @dataclasses.dataclass
@@ -369,7 +369,7 @@ class GameEstimator:
                              best_metric=result.best_metric, history=result.history)
 
     def fit_incremental(self, *args, **kwargs):
-        raise NotImplementedError(NOT_PORTED.format("GameEstimator.fit_incremental", 14))
+        raise NotImplementedError(NOT_PORTED.format("GameEstimator.fit_incremental", "14b"))
 
     def fit_sweep(
         self,
@@ -383,6 +383,7 @@ class GameEstimator:
         warm_start: bool = True,
         output_dir: Optional[str] = None,
         registry_dir: Optional[str] = None,
+        index_maps: Optional[Mapping] = None,
         device: torch.device | str | None = None,
     ) -> SweepFitResult:
         """Train every λ of ``grid`` at once on ``device`` (default cuda) and
@@ -393,27 +394,33 @@ class GameEstimator:
         their more-regularized neighbour, every lane is scored against
         ``validation_data``, and the winner is selected by ``metric``
         (default: the task's ModelSelection metric) under ``policy``. With
-        ``output_dir`` the winner is saved under ``<output_dir>/best``.
-        ``registry_dir`` (publishing to the serving registry, with the
-        reference's ``index_maps``) is refused: ROADMAP.md Queue 1 item 14."""
-        if registry_dir is not None:
-            raise NotImplementedError(NOT_PORTED.format(
-                "publishing a sweep winner to a registry (fit_sweep registry_dir)", 14))
+        ``output_dir`` the winner is saved under ``<output_dir>/best``; with
+        ``registry_dir`` (and ``index_maps`` pinning the feature space) it is
+        published through ``serving.registry.publish_version``."""
         from photon_ml_tpu_torch.sweep.runner import sweep_game
-        from photon_ml_tpu_torch.sweep.select import run_selection
+        from photon_ml_tpu_torch.sweep.select import export_winner, run_selection
+
+        if registry_dir is not None and not index_maps:
+            raise ValueError("publishing a sweep winner to a registry requires index_maps "
+                             "(the registry refuses versions without a pinned feature space)")
 
         result = sweep_game(self.config, data, grid, num_iterations=num_iterations,
                             warm_start=warm_start, device=device)
         selection = run_selection(result, validation_data, metric=metric, policy=policy,
                                   rel_tol=rel_tol)
         model = result.model_for(selection.index)
+        meta = {"config": _config_metadata(self.config), "sweep_grid": grid.to_json()}
         if output_dir is not None:
             from photon_ml_tpu_torch.data.model_store import save_game_model
 
             save_game_model(model, os.path.join(output_dir, "best"), extra_metadata={
-                "config": _config_metadata(self.config), "sweep_grid": grid.to_json(),
-                "sweep_selection": selection.to_json()})
-        return SweepFitResult(model=model, selection=selection, sweep=result)
+                **meta, "sweep_selection": selection.to_json()})
+        published = None
+        if registry_dir is not None:
+            published = export_winner(model, index_maps, registry_dir, selection=selection,
+                                      extra_metadata=meta)
+        return SweepFitResult(model=model, selection=selection, sweep=result,
+                              published_version=published)
 
     def fit_grid(
         self,

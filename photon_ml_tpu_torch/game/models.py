@@ -21,6 +21,18 @@ from photon_ml_tpu_torch.ops.losses import get_loss
 Tensor = torch.Tensor
 
 
+def lookup_terms(projection: Tensor, coefficients: Tensor, pos: Tensor, cols: Tensor,
+                 vals: Tensor) -> Tensor:
+    """Each nonzero's term ``vals * coef``: nonzero i's coefficient is found
+    by binary search for ``cols[i]`` in row ``pos[i]`` of the sorted
+    ``projection`` [E, K] (0 where the row lacks the column)."""
+    proj = projection.index_select(0, pos)  # [m, K]
+    k = torch.searchsorted(proj, cols.unsqueeze(1)).clamp_(max=proj.shape[1] - 1)
+    hit = proj.gather(1, k).squeeze(1) == cols
+    coef = coefficients.index_select(0, pos).gather(1, k).squeeze(1)
+    return vals * torch.where(hit, coef, 0.0)
+
+
 def map_vocab_codes(vocab: np.ndarray, values: np.ndarray) -> np.ndarray:
     """Codes of raw id values in a sorted vocabulary; -1 for values the
     vocabulary has never seen (entity identity is the id value)."""
@@ -120,11 +132,7 @@ class RandomEffectModel:
             v = torch.from_numpy(shard.values[sel]).to(dev)
             g = torch.from_numpy(shard.cols[sel]).to(dev)
             pos = torch.from_numpy(row_pos[rows].astype(np.int64)).to(dev)
-            proj = bm.projection.index_select(0, pos)  # [m, K]
-            k = torch.searchsorted(proj, g.unsqueeze(1)).clamp(max=proj.shape[1] - 1)
-            hit = proj.gather(1, k).squeeze(1) == g
-            coef = bm.coefficients.index_select(0, pos).gather(1, k).squeeze(1)
-            terms = (v * torch.where(hit, coef, 0.0)).unsqueeze(1)
+            terms = lookup_terms(bm.projection, bm.coefficients, pos, g, v).unsqueeze(1)
             # each row's terms summed in a fixed order (no float atomics, so
             # a score repeats bit for bit), then written to its own place
             scores[torch.from_numpy(rows[starts]).to(dev)] = torch.segment_reduce(

@@ -12,8 +12,8 @@ selection with a warning and the ``sweep.nan_configs`` counter; if every
 lane is, selection raises ``SweepSelectionError``. Single-class AUC is the
 evaluators' 0.5 and stays selectable.
 
-Publishing the winner to the serving registry (``export_winner``) is not
-ported (ROADMAP.md Queue 1 item 14: ``serving/`` is item 14a).
+``export_winner`` publishes the winner as the next version of a serving
+registry (``serving.registry.publish_version``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import torch
 from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.evaluation.evaluators import EVALUATORS, better_than
 from photon_ml_tpu_torch.game.coordinate_descent import validation_arrays
-from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.ops.losses import get_loss
 
@@ -156,6 +155,18 @@ def run_selection(result, validation_data: GameDataset, metric: Optional[str] = 
     return SweepSelection(index=index, metric=metric_name, metrics=values, policy=policy)
 
 
-def export_winner(*args, **kwargs):
-    """Publishing a winner to the serving registry needs ``serving/``."""
-    raise NotImplementedError(NOT_PORTED.format("export_winner (the serving registry)", 14))
+def export_winner(model, index_maps, registry_dir: str,
+                  selection: Optional[SweepSelection] = None,
+                  extra_metadata: Optional[dict] = None) -> str:
+    """Publish the winning model as the next registry version — the
+    ``publish_version`` layout ``serving/registry.py`` hot-swaps from
+    (feature indexes first, metadata last, atomic rename). Returns the
+    published version path."""
+    from photon_ml_tpu_torch.serving.registry import publish_version
+
+    meta = dict(extra_metadata or {})
+    if selection is not None:
+        meta["sweep_selection"] = selection.to_json()
+    path = publish_version(registry_dir, model, index_maps, extra_metadata=meta)
+    telemetry.counter("sweep.published_versions").inc()
+    return path

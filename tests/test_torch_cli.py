@@ -243,10 +243,11 @@ def test_index_job_writes_equal_maps(avro_dataset, tmp_path, capsys):
 
 
 REFUSED_KEYS = [
-    # the sweep is ported; publishing its winner to a registry is item 14
-    pytest.param({"sweep": {"grid": ["lambda=1,2"], "registry_dir": "r"}}, 14,
-                 id='{"sweep": {"grid": ["lambda=1,-11'),
-    ({"warm_start": {"dir": "x"}}, 14),
+    # the sweep and publishing its winner to a registry are ported: the key
+    # reaches the sweep, which needs a validation split
+    pytest.param({"sweep": {"grid": ["lambda=1,2"], "registry_dir": "r"}},
+                 (ValueError, "validation split"), id='{"sweep": {"grid": ["lambda=1,-11'),
+    pytest.param({"warm_start": {"dir": "x"}}, "14b", id='{"warm_start": {"dir": "x"}}-14'),
     # the mesh is ported; the multi-process fleet's key stays refused
     pytest.param({"distributed": {"num_processes": 2}}, 12, id='{"mesh": true}-12'),
     ({"trace_out": "t.jsonl"}, 14),
@@ -264,7 +265,9 @@ def test_train_refuses_unported_keys(avro_dataset, extra, item):
     config = _config(train_path, None)
     for k, v in extra.items():
         config[k] = {**config[k], **v} if k == "input" else v
-    with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
+    exc, match = ((NotImplementedError, rf"item {item}\)") if isinstance(item, (int, str))
+                  else item)
+    with pytest.raises(exc, match=match):
         t_train.run(config, device="cpu")
 
 
@@ -280,12 +283,14 @@ REFUSED_FLAGS = [
                  id="['--sweep-metric', 'auc']-11"),
     pytest.param(["--sweep-policy", "best", "--mesh", "batch=2"], "sweep", _SWEEP_WITH_MESH,
                  id="['--sweep-policy', 'best']-11"),
-    pytest.param(["--sweep-registry-dir", "r"], None, 14, id="['--sweep-registry-dir', 'r']-11"),
+    # publishing the winner is ported: the flag needs a grid (argparse's exit)
+    pytest.param(["--sweep-registry-dir", "r"], "plain", (SystemExit, "2"),
+                 id="['--sweep-registry-dir', 'r']-11"),
     # a factored random effect on a mesh stays refused (item 12)
     pytest.param(["--mesh", "auto"], "factored", 12, id="['--mesh', 'auto']-12"),
-    *[pytest.param(flags, None, item, id=f"{flags}-{item}") for flags, item in [
-        (["--warm-start", "d"], 14), (["--delta", "d.avro"], 14),
-        (["--refresh-registry-dir", "r"], 14), (["--lambda-points", "3"], 14),
+    *[pytest.param(flags, None, item, id=f"{flags}-{str(item)[:2]}") for flags, item in [
+        (["--warm-start", "d"], "14b"), (["--delta", "d.avro"], "14b"),
+        (["--refresh-registry-dir", "r"], "14b"), (["--lambda-points", "3"], "14b"),
         (["--trace-out", "t"], 14), (["--telemetry-out", "t"], 14),
         (["--report-out", "r"], 14), (["--xprof-dir", "x"], 14),
         (["--xprof-arm", "3"], 14), (["--heartbeat-every", "5"], 14)]],
@@ -306,8 +311,8 @@ def test_train_refuses_unported_flags(avro_dataset, flags, config, refusal, tmp_
                 "type": "factored_random_effect", "shard_name": "global", "id_name": "userId",
                 "latent_dim": 2}
         path.write_text(json.dumps(cfg))
-    exc, match = ((NotImplementedError, rf"item {refusal}\)") if isinstance(refusal, int)
-                  else refusal)
+    exc, match = ((NotImplementedError, rf"item {refusal}\)")
+                  if isinstance(refusal, (int, str)) else refusal)
     with pytest.raises(exc, match=match):
         t_train.main(["--config", str(path), "--device", "cpu", *flags])
 
@@ -399,14 +404,19 @@ def test_sigterm_mid_fit_leaves_a_checkpoint_and_an_interrupted_summary(avro_dat
     assert _steps(tmp_path / "ckpt") == ["step-00000001", "step-00000002", "step-00000003"]
 
 
-@pytest.mark.parametrize("cmd,item", [("refresh", 14), ("pipeline", 14), ("serve", 14),
+@pytest.mark.parametrize("cmd,item", [("refresh", 14), ("pipeline", 14),
+                                      # serve is ported: it takes no --config
+                                      pytest.param("serve", (SystemExit, "2"), id="serve-14"),
                                       ("report", 14), ("profile", 14),
-                                      # the sweep subcommand is ported; its registry
-                                      # flag is item 14
-                                      pytest.param("sweep", 14, id="sweep-11")])
+                                      # the sweep subcommand and its registry flag are
+                                      # ported: the missing config is what fails
+                                      pytest.param("sweep", (FileNotFoundError, "x.json"),
+                                                   id="sweep-11")])
 def test_unported_subcommands_raise(cmd, item):
     extra = ["--registry-dir", "r"] if cmd == "sweep" else []
-    with pytest.raises(NotImplementedError, match=rf"'{cmd}'.*item {item}\)"):
+    exc, match = ((NotImplementedError, rf"'{cmd}'.*item {item}\)") if isinstance(item, int)
+                  else item)
+    with pytest.raises(exc, match=match):
         t_cli.main([cmd, "--config", "x.json", *extra])
 
 
@@ -566,3 +576,43 @@ def test_glm_diagnostics_stage(tmp_path):
                   "Bootstrap confidence intervals", "# samples = [4]"):
         assert title in text
     assert open(diag["report"]["html"]).read().startswith("<!DOCTYPE html>")
+
+
+def test_sweep_and_train_publish_the_winner_to_a_registry(avro_dataset, tmp_path, capsys):
+    """``cli sweep --registry-dir`` and ``cli train --sweep-registry-dir``
+    publish the winner with the input's index maps as the next registry
+    versions; each loads in the port's registry and in the JAX package's,
+    scoring as the saved ``best`` model does."""
+    from photon_ml_tpu.serving import ModelRegistry as JRegistry
+    from photon_ml_tpu_torch.serving import ModelRegistry
+
+    cfg = _sweep_config(avro_dataset, str(tmp_path / "o"))
+    del cfg["sweep"]
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(cfg))
+    reg = str(tmp_path / "registry")
+    assert t_cli.main(["sweep", "--config", str(path), "--sweep", "lambda=0.1,1",
+                       "--registry-dir", reg, "--device", "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["sweep"]
+    assert summary["published_version"].endswith("v-00000001")
+    assert t_train.main(["--config", str(path), "--sweep", "lambda=0.1,1",
+                         "--sweep-registry-dir", reg, "--device", "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["sweep"]
+    assert summary["published_version"].endswith("v-00000002")
+    published = TM.load_game_model(summary["published_version"], device="cpu")
+    best = TM.load_game_model(os.path.join(str(tmp_path / "o"), "best"), device="cpu")
+    for name, sub in best.models.items():
+        other = published.models[name]
+        if hasattr(sub, "buckets"):
+            assert all(torch.equal(a.coefficients, b.coefficients)
+                       for a, b in zip(sub.buckets, other.buckets))
+        else:
+            assert torch.equal(sub.coefficients, other.coefficients)
+    port = ModelRegistry(reg, max_batch=4, warm=False, poll_interval=60, device="cpu").start()
+    jax_reg = JRegistry(reg, max_batch=4, warm=False, poll_interval=60).start()
+    try:
+        assert port.engine.version == jax_reg.engine.version == "v-00000002"
+        assert set(port.engine.index_maps) == set(jax_reg.engine.index_maps)
+    finally:
+        port.stop()
+        jax_reg.stop()

@@ -298,8 +298,9 @@ def test_random_effect_branches_not_ported_raise(data, monkeypatch):
 
 def test_estimator_and_descent_branches_not_ported_raise(data, tmp_path):
     """A factored random effect or the random projector on a mesh (ROADMAP
-    item 12, in fit_grid too), fit_incremental and fit_sweep's registry
-    (item 14) still raise; the checkpoint and the stop (item 10) work, and so
+    item 12, in fit_grid too) and fit_incremental (item 14b) still raise,
+    fit_sweep's registry needs index maps; the checkpoint and the stop (item
+    10) work, and so
     does a factored coordinate and the random projector under NEWTON. (The
     mesh itself is ported: tests/test_torch_mesh_game.py.)"""
     from photon_ml_tpu_torch.parallel import make_mesh
@@ -318,7 +319,7 @@ def test_estimator_and_descent_branches_not_ported_raise(data, tmp_path):
         GameEstimator(projected).fit_grid(tds, tds, {}, mesh=mesh, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         est.fit_incremental(tds)
-    with pytest.raises(NotImplementedError, match="registry.*item 14"):
+    with pytest.raises(ValueError, match="registry requires index_maps"):
         est.fit_sweep(tds, tds, None, registry_dir=str(tmp_path / "r"), device="cpu")
     with pytest.raises(TrainingInterrupted) as ei:
         est.fit(tds, device="cpu", should_stop=lambda: True)

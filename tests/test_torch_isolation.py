@@ -127,7 +127,12 @@ def test_source_walk_covers_the_new_subpackages():
                    "csrc/margins_lanes.cu", "csrc/scatter_lanes.cu", "ingest/__init__.py",
                    "ingest/errors.py", "ingest/planner.py", "ingest/prefetch.py",
                    "ingest/buffers.py", "ingest/decode.py", "ingest/pipeline.py",
-                   "ingest/assemble.py", "game/streaming.py"):
+                   "ingest/assemble.py", "game/streaming.py", "faults/__init__.py",
+                   "faults/plan.py", "telemetry/__init__.py", "telemetry/metrics.py",
+                   "quality/__init__.py", "quality/drift.py", "quality/gate.py",
+                   "serving/__init__.py", "serving/engine.py", "serving/batcher.py",
+                   "serving/registry.py", "serving/server.py", "serving/aio.py",
+                   "serving/nearline.py", "cli/serve.py"):
         assert module in rel
 
 
@@ -322,3 +327,27 @@ def test_importing_the_cli_loads_no_jax():
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "photon_ml_tpu_torch.cli.__main__" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("entry", ["engine", "engine_load", "registry", "cli_serve"])
+def test_serving_entry_points_raise_without_a_gpu(entry, tmp_path):
+    """``ScoringEngine``, ``ScoringEngine.load``, ``ModelRegistry`` and ``cli
+    serve`` run on cuda unless asked for the CPU: without a card they raise
+    the no-CUDA error before any work."""
+    _no_gpu()
+    import torch as _torch
+
+    from photon_ml_tpu_torch.cli.serve import main as serve_main
+    from photon_ml_tpu_torch.game.models import FixedEffectModel, GameModel
+    from photon_ml_tpu_torch.serving import ModelRegistry, ScoringEngine
+
+    model = GameModel(task="logistic", models={"fe": FixedEffectModel(
+        coefficients=_torch.zeros(2), shard_name="g")})
+    calls = {
+        "engine": lambda: ScoringEngine(model),
+        "engine_load": lambda: ScoringEngine.load(str(tmp_path)),
+        "registry": lambda: ModelRegistry(str(tmp_path)),
+        "cli_serve": lambda: serve_main(["--registry-dir", str(tmp_path), "--stdio"]),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()

@@ -254,3 +254,33 @@ def test_coo_buckets_on_an_entity_mesh_are_the_unsharded_lanes(monkeypatch, box)
     for a, b in zip(sharded.buckets, plain.buckets):
         assert torch.equal(a.coefficients, b.coefficients) and torch.equal(a.variances,
                                                                            b.variances)
+
+
+def _max_diff(a, b):
+    """The largest coefficient difference between two GAME models of one
+    structure (fixed effect and every random-effect bucket)."""
+    def coefs(m):
+        out = [np.asarray(m.models["fixed"].coefficients)]
+        out += [np.asarray(b.coefficients) for b in m.models["per-user"].buckets]
+        return out
+
+    def host(x):
+        return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    return max(float(np.max(np.abs(host(x) - host(y))))
+               for x, y in zip(coefs(a), coefs(b)))
+
+
+def test_seed_3_mesh_difference_is_within_the_references_own():
+    """At seed 3 the mesh fit leaves the single-device fit by more than the
+    reference test's 2e-3/2e-4 on a plateau element; the JAX package's own
+    mesh-vs-single fit does so too. The port's mesh-vs-single difference is
+    held to be no larger than the JAX package's."""
+    jds, tds = _glmix(3)
+    jcfg, tcfg = _configs()
+    j_single = JEstimator(jcfg).fit(jds).model
+    j_mesh = JEstimator(jcfg).fit(jds, mesh=j_make_mesh({"data": 8})).model
+    t_single = GameEstimator(tcfg).fit(tds, device="cpu").model
+    t_mesh = GameEstimator(tcfg).fit(tds, mesh=_cpu_mesh({"data": 8})).model
+    j_diff, t_diff = _max_diff(j_mesh, j_single), _max_diff(t_mesh, t_single)
+    assert t_diff <= j_diff, (t_diff, j_diff)

@@ -490,7 +490,9 @@ def test_single_class_validation_degrades_to_half_auc(game_split):
 
 
 def test_export_winner_names_item_14():
-    with pytest.raises(NotImplementedError, match=r"item 14\)"):
+    """Publishing is ported (item 14a): without index maps the registry
+    refuses the version."""
+    with pytest.raises(ValueError, match="index_maps is required"):
         tsweep.export_winner(None, None, "r")
 
 
@@ -517,8 +519,10 @@ def test_fit_sweep_threads_rel_tol_to_parsimonious_policy(game_split):
 
 
 def test_fit_sweep_refuses_a_registry(game_split, tmp_path):
+    """A registry without index maps: the winner would not pin its feature
+    space, so it is refused before the sweep runs."""
     _, ttr, _, tva = game_split
-    with pytest.raises(NotImplementedError, match=r"registry.*item 14\)"):
+    with pytest.raises(ValueError, match="registry requires index_maps"):
         GameEstimator(_game_configs()[1]).fit_sweep(
             ttr, tva, SweepGrid(default=(1.0,)), registry_dir=str(tmp_path), device="cpu")
 
@@ -555,3 +559,21 @@ def test_fit_grid_refusals(game_split):
     with pytest.raises(ValueError, match="needs evaluators"):
         GameEstimator(dataclasses.replace(tcfg, evaluators=())).fit_grid(ttr, tva, {},
                                                                          device="cpu")
+
+
+def test_fit_sweep_publishes_the_winner_to_a_registry(game_split, tmp_path):
+    """``fit_sweep(registry_dir=, index_maps=)`` publishes the winner; the
+    version reloads bit for bit and serves through the port's engine."""
+    from photon_ml_tpu_torch.serving import ScoringEngine
+
+    _, ttr, _, tva = game_split
+    maps = {"global": [f"g{j}" for j in range(6)], "user": [f"u{j}" for j in range(4)]}
+    out = GameEstimator(_game_configs(num_iterations=1)[1]).fit_sweep(
+        ttr, tva, parse_sweep_spec("lambda=0.1,1"), registry_dir=str(tmp_path / "r"),
+        index_maps=maps, device="cpu")
+    assert out.published_version == str(tmp_path / "r" / "v-00000001")
+    loaded = load_game_model(out.published_version, device="cpu")
+    assert torch.equal(loaded.score(tva), out.model.score(tva))
+    engine = ScoringEngine.load(out.published_version, device="cpu")
+    assert engine.version == "v-00000001"
+    assert engine.index_maps["global"].names[:2] == ["g0", "g1"]
