@@ -31,7 +31,12 @@ Phases, in order; any failure exits non-zero before the last line:
      rtol 1e-4, the same iterations but on plateau lanes; then a factored
      coordinate (latent_dim 2, 2 MF iterations) and the random projector
      (projected_dim 16) on the same data, each latent matrix refit with the
-     same reason and iterations and its value within rtol 1e-4;
+     same reason and iterations and its value within rtol 1e-4; and the
+     incremental refresh's masked update (about 5% of the users touched,
+     from a drawn warm model, LBFGS) on card and CPU: the touched lanes
+     gathered once (the COO buckets into a block-diagonal batch on the card,
+     whose ``csr_margins`` and ``csc_scatter`` must launch), the untouched
+     rows bit for bit, the solved lanes under the same lane rule;
   5. the paths, each at full width through the entry point a user calls,
      with the kernels' launch counts zeroed just before it and read just
      after (a kernel of the path that did not launch fails the run):
@@ -118,6 +123,21 @@ Phases, in order; any failure exits non-zero before the last line:
        15b. the served model in an entity-sharded engine over a ``model``
            axis of 4 (cuda:0 repeated on one card), within 1e-6 of path
            15's engine on the same rows;
+       16. bench_freshness.py's config #4 (1M rows, 100K users, the last
+           50,000 rows over 5% of the users as the delta, 50,000 validation
+           rows; FE LBFGS 20, RE NEWTON, L2 1, tolerance 1e-7, 2 CD
+           iterations): the base fit with a checkpoint a step (untimed), the
+           full retrain over the combined data (timed), ``load_warm_start``
+           + ``scan_delta`` + ``fit_incremental`` timed together
+           (``time_to_fresh_s``), then three ``publish_incremental`` calls
+           each followed by a ``ModelRegistry.refresh`` hot swap; every
+           untouched user's row bit for bit the base's, every touched user's
+           row changed, the AUC within 0.02 of the retrain's, the lanes
+           solved twice the touched-or-new users and skipped twice the rest,
+           ``csr_margins`` and ``csc_scatter`` launched by the refresh;
+       16b. path 16's refresh over a ``model`` axis of 4 (cuda:0 repeated on
+           one card): untouched rows bit for bit, solved rows within
+           rtol/atol 5e-3 of path 16's, the same counts;
        10. the CLI pipeline at config #4's width: path 6's draws written as
            TrainingExampleAvro (4 files, the native encoder), ``cli index``
            (a subprocess), ``cli train`` in process with path 6's config and
@@ -166,6 +186,10 @@ Phases, in order; any failure exits non-zero before the last line:
            8's), and ``cli sweep`` on the Avro files (three to train, one to
            validate, ``lambda=1e-2:1e2:log4``), selecting as an in-process
            ``fit_sweep`` on the same datasets;
+       16c. ``cli refresh`` (a subprocess) on path 10's files, config and
+           checkpoint with a 50,000-row delta over 5% of the users, published
+           through the gate into a new registry (untouched users of path 10's
+           final model bit for bit), then the same delta refused as stale;
        12b. config #4 (path 6's draws, every tenth row held out) through
            ``GameEstimator.fit_sweep`` over ``lambda=1e-4:1e2:log16``, 2 CD
            iterations, selected on auc: the saved winner and the one
@@ -263,6 +287,9 @@ NEARLINE_USERS = 256  # path 15's feedback events: 4 rows each of 256 users
 NEARLINE_ATOL = 1e-6  # tests/test_serving_sharded.py:519
 GATE_SAMPLES = 16  # bootstrap resamples of the quality gate's AUC CI
 SERVE_MESH = 4  # path 15b: the entity-sharded engine's model axis
+FRESH_DELTA_FRACTION = 0.05  # bench_freshness.py:47: the delta's share of users (and rows)
+FRESH_AUC_GAP = 0.02  # bench_freshness.py:48: |AUC(incremental) - AUC(from scratch)|
+FRESH_PUBLISHES = 3  # bench_freshness.py:285-313: publish + hot swap samples
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
@@ -788,6 +815,7 @@ def check_small_re_parity(seed: int) -> None:
                 coord.update_model(coord.initialize_model(), None)
                 out[dev] = coord.last_results
             _compare_lanes(f"small re {name}", out)
+        check_small_masked_parity(data, seed)
         # the factored coordinate and the random projector on the same data
         lbfgs = re_optimizer("lbfgs", 20, 1e-3)
         for name, kw in (("factored", dict(latent_dim=2, mf_iterations=2)),
@@ -819,6 +847,71 @@ def check_small_re_parity(seed: int) -> None:
     finally:
         random_effect_data._bucket_dense_design = dense_design
     print(f"small re: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def check_small_masked_parity(data: dict, seed: int) -> None:
+    """Phase 4, the incremental refresh's masked update on the same buckets
+    (the wide ones on the COO layout): about 5% of the users touched, every
+    lane warm-started from one drawn model, one ``update_model`` of
+    ``MaskedRandomEffectCoordinate`` (LBFGS 10) on the card and on the CPU.
+    The touched lanes of each bucket are gathered once (on a COO bucket into
+    a block-diagonal batch built on the card with its tile index). Fails
+    unless the card's update launched ``csr_margins`` and ``csc_scatter``, a
+    COO bucket was solved, every untouched row is the warm model's bit for
+    bit on both devices, and the solved lanes pass phase 4's lane rule
+    (reasons, values within rtol 1e-4, iterations but on plateau lanes)."""
+    import dataclasses
+
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.game import RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.random_effect_data import CooBucket
+    from photon_ml_tpu_torch.incremental import MaskedRandomEffectCoordinate
+
+    red = data["cuda"][1]
+    rng = np.random.default_rng(seed + 17)
+    touched = rng.random(red.num_entities) < 0.05
+    warm = [(rng.normal(size=(b.num_entities, b.num_local_features)) * 0.1).astype(np.float32)
+            for b in red.buckets]
+    cfg = re_optimizer("lbfgs", 10, 1e-3)
+    out, kept, launches, coo_solved = {}, {}, {}, 0
+    for dev, (gds, red_d) in data.items():
+        coord = RandomEffectCoordinate("per-user", gds, red_d, "logistic", cfg)
+        init = coord.initialize_model()
+        model = dataclasses.replace(init, buckets=tuple(
+            dataclasses.replace(bm, coefficients=torch.from_numpy(w).to(gds.device))
+            for bm, w in zip(init.buckets, warm)))
+        masked = MaskedRandomEffectCoordinate(coord, touched)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+        new = masked.update_model(model, None)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            coo_solved = sum(1 for b, ti in zip(coord._buckets, masked._positions)
+                             if isinstance(b, CooBucket) and len(ti))
+        same = True
+        for ti, old, fresh in zip(masked._positions, model.buckets, new.buckets):
+            keep = torch.ones(old.coefficients.shape[0], dtype=torch.bool, device=gds.device)
+            keep[torch.from_numpy(ti).to(gds.device)] = False
+            same &= torch.equal(old.coefficients[keep].view(torch.int32),
+                                fresh.coefficients[keep].view(torch.int32))
+        kept[dev] = same
+        out[dev] = masked.last_results
+        lanes = (masked.lanes_solved, masked.lanes_skipped, masked.bucket_solves,
+                 masked.buckets_skipped)
+    print(f"small re masked lbfgs: touched={int(touched.sum())} of {red.num_entities} "
+          f"lanes_solved={lanes[0]} lanes_skipped={lanes[1]} bucket_solves={lanes[2]} "
+          f"buckets_skipped={lanes[3]} coo_buckets_solved={coo_solved} "
+          f"untouched_bit_identical={json.dumps(kept)} launches={json.dumps(launches)}",
+          flush=True)
+    bad = [k for k in ("csr_margins", "csc_scatter") if not launches.get(k)]
+    if bad or not coo_solved or not all(kept.values()):
+        raise RuntimeError(f"small re masked: kernels not launched {bad}, COO buckets solved "
+                           f"{coo_solved}, untouched rows kept {kept}")
+    _compare_lanes("small re masked lbfgs", out)
 
 
 def _compare_lanes(label: str, out: dict, carried=None,
@@ -2086,10 +2179,11 @@ def _run_cli_in_process(argv: list[str]) -> dict:
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
-def _run_cli_subprocess(argv: list[str], root: str) -> tuple[dict, float]:
+def _run_cli_subprocess(argv: list[str], root: str,
+                        label: str = "path 10") -> tuple[dict, float]:
     """``python -m photon_ml_tpu_torch.cli <argv>`` from the checkout's root:
-    (its JSON summary, its seconds), its timed phases printed. Fails on a
-    non-zero exit."""
+    (its JSON summary, its seconds), its timed phases printed under
+    ``label``. Fails on a non-zero exit."""
     import subprocess
 
     t0 = time.perf_counter()
@@ -2100,7 +2194,7 @@ def _run_cli_subprocess(argv: list[str], root: str) -> tuple[dict, float]:
         raise RuntimeError(f"cli {argv[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
     for line in proc.stderr.splitlines():  # the driver's timed phases
         if " INFO photon_ml_tpu_torch: " in line:
-            print(f"path 10 {argv[0]} log: {line.split(' INFO ', 1)[1]}", flush=True)
+            print(f"{label} {argv[0]} log: {line.split(' INFO ', 1)[1]}", flush=True)
     return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
 
 
@@ -4416,6 +4510,416 @@ def run_mesh_serving_path(registry, probe_rows, card: str) -> tuple[dict, dict]:
     return launches, stats
 
 
+def make_freshness_problem(seed: int):
+    """bench_freshness.py:118-176's data, the same draws in the same order:
+    config #4's GLMix rows (1M rows, 100K users, a 10K-feature fixed-effect
+    shard of 20 nonzeros a row, 10 dense per-user features), labels from a
+    planted model, the last 50,000 rows given to 5% of the users (the delta),
+    and 50,000 validation rows. Returns the base, combined, delta and
+    validation datasets on the card."""
+    from photon_ml_tpu_torch.game import FeatureShard, build_game_dataset
+
+    rng = np.random.default_rng(seed)
+    nnz = N_ROWS * NNZ_PER_ROW
+    fe_rows = np.repeat(np.arange(N_ROWS, dtype=np.int64), NNZ_PER_ROW)
+    fe_cols = rng.integers(0, N_FEATURES, size=nnz)
+    fe_vals = rng.normal(size=nnz)
+    users = rng.integers(0, GAME_USERS, size=N_ROWS)
+    Xu = rng.normal(size=(N_ROWS, GAME_RE_FEATURES))
+    w_true = rng.normal(size=N_FEATURES) * 0.5
+    wu_true = rng.normal(size=(GAME_USERS, GAME_RE_FEATURES)) * 0.5
+    margins = np.bincount(fe_rows, weights=fe_vals * w_true[fe_cols], minlength=N_ROWS)
+    margins += np.einsum("ij,ij->i", Xu, wu_true[users])
+    y = (rng.random(N_ROWS) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
+    touched = rng.choice(GAME_USERS, size=max(int(GAME_USERS * FRESH_DELTA_FRACTION), 1),
+                         replace=False)
+    n_delta = N_ROWS // 20
+    delta_lo = N_ROWS - n_delta
+    users = users.copy()
+    users[delta_lo:] = touched[rng.integers(0, len(touched), n_delta)]
+
+    def build(vals, rows, cols, us, xu, labels):
+        ru_rows, ru_cols = np.nonzero(xu)
+        return build_game_dataset(labels, {
+            "global": FeatureShard.from_coo(vals, rows, cols, N_FEATURES),
+            "user": FeatureShard.from_coo(xu[ru_rows, ru_cols], ru_rows, ru_cols,
+                                          GAME_RE_FEATURES)}, id_columns={"userId": us})
+
+    def rows_of(lo, hi):
+        a, b = lo * NNZ_PER_ROW, hi * NNZ_PER_ROW
+        return build(fe_vals[a:b], fe_rows[a:b] - lo, fe_cols[a:b], users[lo:hi], Xu[lo:hi],
+                     y[lo:hi])
+
+    base, comb, delta = rows_of(0, delta_lo), rows_of(0, N_ROWS), rows_of(delta_lo, N_ROWS)
+    nv = max(N_ROWS // 20, 1000)
+    v_rows = np.repeat(np.arange(nv, dtype=np.int64), NNZ_PER_ROW)
+    v_cols = rng.integers(0, N_FEATURES, size=nv * NNZ_PER_ROW)
+    v_vals = rng.normal(size=nv * NNZ_PER_ROW)
+    uv = rng.integers(0, GAME_USERS, nv)
+    Xv = rng.normal(size=(nv, GAME_RE_FEATURES))
+    mv = np.bincount(v_rows, weights=v_vals * w_true[v_cols], minlength=nv)
+    mv += np.einsum("ij,ij->i", Xv, wu_true[uv])
+    yv = (rng.random(nv) < 1.0 / (1.0 + np.exp(-mv))).astype(np.float64)
+    return base, comb, delta, build(v_vals, v_rows, v_cols, uv, Xv, yv)
+
+
+def freshness_config():
+    """bench_freshness.py:178-196: LBFGS 20 for the fixed effect, NEWTON for
+    the per-user effect, both at tolerance 1e-7 and L2 1, 2 coordinate-descent
+    iterations, evaluated by auc."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
+    from photon_ml_tpu_torch.optim.factory import OptimizerType
+
+    opt = dataclasses.replace(solver_config("lbfgs", 20), tolerance=1e-7,
+                              regularization_weight=1.0)
+    re_opt = dataclasses.replace(opt, optimizer_type=OptimizerType.NEWTON)
+    return GameConfig(task="logistic", num_iterations=GAME_CD_ITERATIONS, evaluators=["auc"],
+                      coordinates={
+                          "fixed": FixedEffectConfig(shard_name="global", optimizer=opt),
+                          "perUser": RandomEffectConfig(shard_name="user", id_name="userId",
+                                                        optimizer=re_opt)})
+
+
+def entity_table(re_model, vocab, num_global: int):
+    """A random effect's coefficients by entity value and global feature id,
+    on the card: ``(table [len(vocab), num_global], present [len(vocab)])``,
+    row e the entity ``vocab[e]`` (zeros where it has no model); the padding
+    slots (the sentinel id num_global) are left out."""
+    import torch
+
+    from photon_ml_tpu_torch.game.models import map_vocab_codes
+
+    dev = re_model.buckets[0].coefficients.device
+    table = torch.zeros((len(vocab), num_global + 1), dtype=torch.float32, device=dev)
+    present = torch.zeros(len(vocab), dtype=torch.bool, device=dev)
+    for bm in re_model.buckets:
+        codes = map_vocab_codes(np.asarray(vocab), np.asarray(re_model.vocab)[bm.entity_codes])
+        if (codes < 0).any():
+            raise RuntimeError("entity_table: an entity of the model is not in the vocabulary")
+        rows = torch.from_numpy(codes).to(dev)
+        table[rows.unsqueeze(1).expand_as(bm.projection), bm.projection] = bm.coefficients
+        present[rows] = True
+    return table[:, :num_global], present
+
+
+def freshness_checks(label: str, base_model, res, comb, scan) -> tuple[dict, list, object]:
+    """The refresh against its base on config #4's width: every untouched
+    user's row bit for bit the base's, every touched user's row changed,
+    ``lanes_solved`` twice (two CD iterations) the touched-or-new users and
+    ``lanes_skipped`` twice the rest. Returns the numbers, the failures and
+    the refreshed table (for path 16b)."""
+    import torch
+
+    vocab = comb.id_columns["userId"].vocab
+    tb, pb = entity_table(base_model.models["perUser"], vocab, GAME_RE_FEATURES)
+    ti, pi = entity_table(res.model.models["perUser"], vocab, GAME_RE_FEATURES)
+    touched = torch.from_numpy(scan.for_id("userId").touched_mask(vocab)).to(tb.device)
+    solved = (touched | ~pb) & pi
+    untouched = pi & pb & ~touched
+    same = (tb.view(torch.int32) == ti.view(torch.int32)).all(dim=1)
+    n_untouched = int(untouched.sum())
+    n_kept = int((same & untouched).sum())
+    n_changed = int((~same & touched & pb).sum())
+    n_touched_base = int((touched & pb).sum())
+    want_solved = 2 * int(solved.sum())
+    want_skipped = 2 * int(pi.sum()) - want_solved
+    out = {"untouched_users": n_untouched, "untouched_bit_identical": n_kept,
+           "touched_users_in_base": n_touched_base, "touched_users_changed": n_changed,
+           "lanes_solved_expected": want_solved, "lanes_skipped_expected": want_skipped}
+    bad = []
+    if n_kept != n_untouched:
+        bad.append(f"{n_untouched - n_kept} untouched users' rows differ from the base's")
+    if n_changed != n_touched_base:
+        bad.append(f"{n_touched_base - n_changed} touched users kept their base rows")
+    if (res.lanes_solved, res.lanes_skipped) != (want_solved, want_skipped):
+        bad.append(f"lanes solved/skipped {res.lanes_solved}/{res.lanes_skipped}, expected "
+                   f"{want_solved}/{want_skipped}")
+    return out, [f"{label}: {b}" for b in bad], (ti, solved)
+
+
+def run_freshness_path(seed: int, card: str, work: str) -> tuple[dict, dict, dict]:
+    """Path 16: bench_freshness.py's time-to-fresh model at config #4's full
+    width on the port. The base fit over the first 950,000 rows checkpoints
+    every step (untimed); the full retrain over the combined million rows is
+    timed; then ``load_warm_start`` + ``scan_delta`` + ``fit_incremental``
+    are timed together (``time_to_fresh_s``) with the launch counts zeroed
+    just before; then three ``publish_incremental`` calls, each followed by a
+    ``ModelRegistry.refresh`` hot swap (the staleness samples). Fails unless
+    every untouched user's row is the base's bit for bit, every touched
+    user's row changed, the validation AUC is within 0.02 of the retrain's,
+    the lane counts are twice the touched-or-new users and twice the rest,
+    the fixed-effect refresh launched ``csr_margins`` and ``csc_scatter``,
+    and each publish swapped. Returns, for path 16b, the config, the
+    combined data, the checkpoint, the scan and the refreshed table."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.game import CheckpointSpec, GameEstimator
+    from photon_ml_tpu_torch.game.coordinate_descent import ValidationSpec, _evaluate
+    from photon_ml_tpu_torch.incremental import (
+        load_warm_start,
+        publish_incremental,
+        scan_delta,
+    )
+    from photon_ml_tpu_torch.serving.registry import ModelRegistry
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base_data, comb, delta, val = make_freshness_problem(seed)
+    setup_s = time.perf_counter() - t0
+    print(f"data: bench_freshness config #4 {N_ROWS} rows ({N_ROWS // 20} the delta's over "
+          f"{int(GAME_USERS * FRESH_DELTA_FRACTION)} users), FE {N_FEATURES} x {NNZ_PER_ROW} "
+          f"nnz/row, RE {GAME_RE_FEATURES} dense over {GAME_USERS} users, "
+          f"{val.num_rows} validation rows, setup_s={setup_s:.2f}", flush=True)
+    config = freshness_config()
+    ckpt = os.path.join(work, "fresh-base-ckpt")
+    t0 = time.perf_counter()
+    base = GameEstimator(config).fit(base_data, checkpoint_spec=CheckpointSpec(
+        directory=ckpt, resume=False))
+    torch.cuda.synchronize()
+    base_fit_s = time.perf_counter() - t0
+    del base_data
+    t0 = time.perf_counter()
+    ref = GameEstimator(config).fit(comb)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ws = load_warm_start(ckpt)
+    scan = scan_delta(delta, {"userId": ws.model.models["perUser"].vocab})
+    res = GameEstimator(config).fit_incremental(comb, ws, delta=scan)
+    torch.cuda.synchronize()
+    inc_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    counters = telemetry.snapshot()["counters"]
+    peak = torch.cuda.max_memory_allocated()
+
+    checks, bad, (table, solved) = freshness_checks("path 16", base.model, res, comb, scan)
+    spec = ValidationSpec(data=val, evaluators=["auc"])
+    auc_inc, auc_ref = _evaluate(res.model, spec)["auc"], _evaluate(ref.model, spec)["auc"]
+    gap = abs(auc_inc - auc_ref)
+    if not gap < FRESH_AUC_GAP:
+        bad.append(f"path 16: incremental AUC {auc_inc} vs from scratch {auc_ref} (gap {gap})")
+    missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
+    if missing:
+        bad.append(f"path 16: kernels not launched by the refresh: {missing}")
+
+    registry_dir = os.path.join(work, "fresh-registry")
+    index_maps = {"global": [f"g{i}" for i in range(N_FEATURES)],
+                  "user": [f"u{i}" for i in range(GAME_RE_FEATURES)]}
+    registry, samples, swaps = None, [], []
+    try:
+        for _ in range(FRESH_PUBLISHES):
+            t_pub = time.perf_counter()
+            publish_incremental(registry_dir, res.model, index_maps, res.lineage, delta=scan)
+            if registry is None:
+                registry = ModelRegistry(registry_dir, warm=False)
+            swaps.append(registry.refresh())
+            samples.append(inc_s + (time.perf_counter() - t_pub))
+    finally:
+        if registry is not None:
+            registry.stop()
+    if not all(swaps):
+        bad.append(f"path 16: a publish did not hot-swap: {swaps}")
+    cd = scan.for_id("userId")
+    stats = {"card": card, "setup_s": setup_s, "base_fit_s": base_fit_s,
+             "full_retrain_s": full_s, "time_to_fresh_s": inc_s,
+             "fit_incremental_s": res.seconds, "full_over_fresh": full_s / inc_s,
+             "lanes_solved": res.lanes_solved, "lanes_skipped": res.lanes_skipped,
+             "bucket_solves": res.bucket_solves, "buckets_skipped": res.buckets_skipped,
+             "new_entities": res.new_entities, "touched_fraction": cd.touched_fraction,
+             "touched_entities": cd.touched_count, "delta_rows": scan.delta_rows,
+             "auc_incremental": auc_inc, "auc_from_scratch": auc_ref, "auc_gap": gap,
+             "host_syncs": counters.get("host_syncs", 0), "max_memory_allocated": peak,
+             "staleness_samples_s": samples, "swaps": swaps, "launches": launches, **checks}
+    print(f"path 16: full_retrain_s={full_s:.4f} time_to_fresh_s={inc_s:.4f} "
+          f"full_over_fresh={full_s / inc_s:.4f} fit_incremental_s={res.seconds:.4f} "
+          f"base_fit_s={base_fit_s:.4f} lanes_solved={res.lanes_solved} "
+          f"lanes_skipped={res.lanes_skipped} bucket_solves={res.bucket_solves} "
+          f"buckets_skipped={res.buckets_skipped} new_entities={res.new_entities} "
+          f"touched_fraction={cd.touched_fraction:.6f} auc_incremental={auc_inc:.6f} "
+          f"auc_from_scratch={auc_ref:.6f} auc_gap={gap:.3e} host_syncs="
+          f"{stats['host_syncs']} max_memory_allocated={peak} staleness_samples_s="
+          f"{[round(x, 4) for x in samples]} checks={json.dumps(checks)} "
+          f"launches={json.dumps(launches)} card={card}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 16: bad result: {bad}")
+    keep = {"config": config, "comb": comb, "ckpt": ckpt, "scan": scan, "base": base.model,
+            "table": table, "solved": solved, "counts": (res.lanes_solved, res.lanes_skipped,
+                                                         res.bucket_solves,
+                                                         res.buckets_skipped)}
+    return launches, stats, keep
+
+
+def run_mesh_freshness_path(card: str, keep: dict) -> tuple[dict, dict]:
+    """Path 16b: path 16's refresh with the per-user effect over a ``model``
+    axis of 4 (four cards when the machine has them, else cuda:0 repeated):
+    the base restored onto the mesh, each owner solving its touched lanes of
+    its own block. Fails unless every untouched row is the base's bit for
+    bit, the solved rows are within rtol/atol 5e-3 of path 16's, the counts
+    are path 16's, and the fixed effect launched its kernels."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.incremental import load_warm_start
+    from photon_ml_tpu_torch.parallel import make_mesh
+
+    devices, kind = mesh_devices(4)
+    mesh = make_mesh({"model": 4}, devices)
+    _sync(devices)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ws = load_warm_start(keep["ckpt"], mesh=mesh)
+    res = GameEstimator(keep["config"]).fit_incremental(keep["comb"], ws, delta=keep["scan"],
+                                                        mesh=mesh)
+    _sync(devices)
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    checks, bad, (table, solved) = freshness_checks("path 16b", keep["base"], res, keep["comb"],
+                                                    keep["scan"])
+    ref = keep["table"]
+    diff = (table[solved] - ref[solved]).abs()
+    limit = MESH_GAME_TOL["atol"] + MESH_GAME_TOL["rtol"] * ref[solved].abs()
+    worst = float(diff.max()) if diff.numel() else 0.0
+    if not bool((diff <= limit).all()):
+        bad.append(f"path 16b: solved rows differ from path 16's beyond {MESH_GAME_TOL} "
+                   f"(largest {worst})")
+    counts = (res.lanes_solved, res.lanes_skipped, res.bucket_solves, res.buckets_skipped)
+    if counts != keep["counts"]:
+        bad.append(f"path 16b: counts {counts} vs path 16's {keep['counts']}")
+    missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
+    if missing:
+        bad.append(f"path 16b: kernels not launched: {missing}")
+    stats = {"card": card, "devices": kind, "refresh_s": elapsed, "counts": counts,
+             "solved_max_abs_diff": worst, "launches": launches, **checks}
+    print(f"path 16b: model axis 4 ({kind}) refresh_s={elapsed:.4f} counts={counts} "
+          f"solved_max_abs_diff_vs_path_16={worst:.3e} checks={json.dumps(checks)} "
+          f"launches={json.dumps(launches)} card={card}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 16b: bad result: {bad}")
+    return launches, stats
+
+
+def write_delta_avro(seed: int, path: str) -> np.ndarray:
+    """A 50,000-row delta of path 10's data: bench_game.py's generator with
+    its planted model (drawn from ``seed`` as path 10's), the rows drawn from
+    another seed over 5% of the users, written as TrainingExampleAvro with
+    path 10's feature names and user vocabulary. Returns the users touched."""
+    from photon_ml_tpu_torch.data.avro import write_training_examples_fast
+
+    rng = np.random.default_rng(seed)
+    rng.integers(0, N_FEATURES, size=N_ROWS * NNZ_PER_ROW)  # path 10's draws, in order
+    rng.normal(size=N_ROWS * NNZ_PER_ROW)
+    w_true = rng.normal(size=N_FEATURES) * 0.5
+    rng.integers(0, GAME_USERS, size=N_ROWS)
+    rng.normal(size=(N_ROWS, GAME_RE_FEATURES))
+    wu_true = rng.normal(size=(GAME_USERS, GAME_RE_FEATURES)) * 0.5
+    drng = np.random.default_rng(seed + 1016)
+    n = N_ROWS // 20
+    touched = np.sort(drng.choice(GAME_USERS, size=int(GAME_USERS * FRESH_DELTA_FRACTION),
+                                  replace=False))
+    users = touched[drng.integers(0, len(touched), n)]
+    cols = drng.integers(0, N_FEATURES, size=n * NNZ_PER_ROW)
+    vals = drng.normal(size=n * NNZ_PER_ROW)
+    Xu = drng.normal(size=(n, GAME_RE_FEATURES))
+    margins = (vals * w_true[cols]).reshape(n, NNZ_PER_ROW).sum(axis=1)
+    margins += np.einsum("ij,ij->i", Xu, wu_true[users])
+    y = (drng.random(n) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
+    names = [f"f{j}" for j in range(N_FEATURES)] + [f"u{k}" for k in range(GAME_RE_FEATURES)]
+    bags = {"global": (np.arange(n + 1, dtype=np.int64) * NNZ_PER_ROW, cols, vals),
+            "user": (np.arange(n + 1, dtype=np.int64) * GAME_RE_FEATURES,
+                     np.tile(np.arange(GAME_RE_FEATURES) + N_FEATURES, n), Xu.ravel())}
+    write_training_examples_fast(path, y, bags, names,
+                                 {"userId": (users, [str(u) for u in range(GAME_USERS)])})
+    return touched
+
+
+def run_refresh_cli_path(seed: int, card: str, work: str) -> tuple[dict, dict]:
+    """Path 16c: ``cli refresh`` in a subprocess on path 10's Avro files and
+    ``cli train`` output (its config and its step checkpoint): a 50,000-row
+    delta over 5% of the users (``write_delta_avro``), published through the
+    quality gate into a new registry, then the same delta again, which must
+    be refused as stale with nothing published. Fails unless the first run
+    published v-00000001 with the delta's digest in its lineage, solved
+    twice the touched users' lanes, kept every untouched user's row of
+    path 10's final model bit for bit, and the second run exited non-zero
+    with ``StaleDeltaError``."""
+    import subprocess
+
+    import torch
+
+    from photon_ml_tpu_torch.data.model_store import load_game_model
+    from photon_ml_tpu_torch.game.models import map_vocab_codes
+    from photon_ml_tpu_torch.incremental import delta_digest
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    delta_dir = os.path.join(work, "delta16")
+    os.makedirs(delta_dir)
+    delta = os.path.join(delta_dir, "part-delta.avro")
+    t0 = time.perf_counter()
+    touched = write_delta_avro(seed, delta)
+    write_s = time.perf_counter() - t0
+    registry = os.path.join(work, "refresh-registry")
+    argv = ["refresh", "--config", os.path.join(work, "train.json"), "--warm-start",
+            os.path.join(work, "ckpt"), "--delta", delta, "--registry-dir", registry,
+            "--output-dir", os.path.join(work, "refreshed")]
+    summary, first_s = _run_cli_subprocess(argv, root, label="path 16c")
+    fresh = summary["freshness"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli", *argv], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    stale_s = time.perf_counter() - t0
+    bad = []
+    versions = sorted(n for n in os.listdir(registry) if n.startswith("v-"))
+    with open(os.path.join(registry, "v-00000001", "model-metadata.json")) as fh:
+        lineage = json.load(fh)["extra"]["lineage"]
+    # untouched users of path 10's final model, bit for bit in the refreshed one
+    base = load_game_model(os.path.join(work, "model", "final")).models["per-user"]
+    new = load_game_model(os.path.join(work, "refreshed", "final")).models["per-user"]
+    vocab = np.asarray(new.vocab)
+    tb, pb = entity_table(base, vocab, GAME_RE_FEATURES)
+    tn, pn = entity_table(new, vocab, GAME_RE_FEATURES)
+    mask = np.zeros(len(vocab), bool)
+    codes = map_vocab_codes(vocab, np.asarray([str(u) for u in touched]))
+    mask[codes[codes >= 0]] = True
+    hit = torch.from_numpy(mask).to(tb.device)
+    same = (tb.view(torch.int32) == tn.view(torch.int32)).all(dim=1)
+    untouched = pb & pn & ~hit
+    kept = int((same & untouched).sum())
+    changed = int((~same & hit & pb).sum())
+    checks = {"published": fresh.get("published_version", "").endswith("v-00000001"),
+              "versions": versions == ["v-00000001"],
+              "lineage_digest": lineage.get("delta_digest") == delta_digest([delta]),
+              "gate": lineage.get("quality_gate", {}).get("decision") == "no_champion",
+              "lanes": fresh["lanes_solved"] == 2 * int(len(touched)),
+              "untouched_kept": kept == int(untouched.sum()),
+              "touched_changed": changed == int((hit & pb).sum()),
+              "stale_refused": proc.returncode != 0 and "StaleDeltaError" in proc.stderr}
+    stats = {"card": card, "write_s": write_s, "refresh_s": first_s, "stale_run_s": stale_s,
+             "time_to_fresh_s": fresh["time_to_fresh_s"], "lanes_solved": fresh["lanes_solved"],
+             "lanes_skipped": fresh["lanes_skipped"], "bucket_solves": fresh["bucket_solves"],
+             "buckets_skipped": fresh["buckets_skipped"], "new_entities": fresh["new_entities"],
+             "touched": int(len(touched)), "untouched_users": int(untouched.sum()),
+             "checks": checks}
+    print(f"path 16c: write_s={write_s:.4f} refresh_s={first_s:.4f} (a subprocess) "
+          f"time_to_fresh_s={fresh['time_to_fresh_s']} lanes_solved={fresh['lanes_solved']} "
+          f"lanes_skipped={fresh['lanes_skipped']} bucket_solves={fresh['bucket_solves']} "
+          f"buckets_skipped={fresh['buckets_skipped']} new_entities={fresh['new_entities']} "
+          f"stale_run_s={stale_s:.4f} stale_rc={proc.returncode} checks={json.dumps(checks)} "
+          f"card={card}", flush=True)
+    if not all(checks.values()):
+        bad.append(f"checks failed: {checks}; stale run stderr: {proc.stderr[-2000:]}")
+    if bad:
+        raise RuntimeError(f"path 16c: bad result: {bad}")
+    return {}, stats
+
+
 _T_START = time.perf_counter()
 
 
@@ -4525,9 +5029,10 @@ def main() -> int:
 
 def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, train: dict,
                prof: dict) -> int:
-    """Paths 8, 6, 9-9c and 11b, 15, 15b, 10, 13, 13b, 12d, 12b, 11 and 7, then the ``kernels``
-    line and the result line; ``work`` holds path 8's files for paths 10 and
-    12d, and path 10's for 12d."""
+    """Paths 8, 6, 9-9c and 11b, 15, 15b, 16, 16b, 10, 13, 13b, 12d, 16c, 12b, 11 and 7,
+    then the ``kernels`` line and the result line; ``work`` holds path 8's
+    files for paths 10 and 12d, path 10's for 12d and 16c, and path 16's
+    checkpoint for 16b."""
     import torch
 
     from photon_ml_tpu_torch.tools.probe_ell import card_line
@@ -4565,6 +5070,12 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     del gds, models, registry, probe_rows
     torch.cuda.empty_cache()
     mark("path 15b", train)
+    by_path["16"], train["16"], fresh = run_freshness_path(args.seed, card, work)
+    mark("path 16", train)
+    by_path["16b"], train["16b"] = run_mesh_freshness_path(card, fresh)
+    del fresh
+    torch.cuda.empty_cache()
+    mark("path 16b", train)
     t0 = time.perf_counter()
     by_path["10"], train["10"], handover = run_cli_path(args.seed, card, work, train["6"],
                                                         glm_ref)
@@ -4598,6 +5109,8 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     train["12d"]["path_s"] = time.perf_counter() - t0
     print(f"path 12d: {train['12d']['path_s']:.2f} s", flush=True)
     mark("path 12d", train)
+    by_path["16c"], train["16c"] = run_refresh_cli_path(args.seed, card, work)
+    mark("path 16c", train)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     by_path["12b"], train["12b"] = run_sweep_game_path(args.seed, card)
@@ -4616,7 +5129,7 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
 
     for row in kernel_rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()
-                                   if c[row["name"]]}
+                                   if c.get(row["name"])}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["name"] in train["9"]["largest_coo_bucket"]:
             row["re_largest_coo_bucket"] = train["9"]["largest_coo_bucket"][row["name"]]

@@ -1,14 +1,15 @@
-"""CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|sweep|score|serve|glm|index} ...
+"""CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|refresh|sweep|score|serve|glm|index} ...
 
 Counterpart of ``photon_ml_tpu/cli/__main__.py``, with the same usage text
-and dispatch. ``refresh``, ``pipeline``, ``report`` and ``profile`` raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 14). ``train``, ``sweep``,
-``score``, ``serve`` and ``glm`` take ``--device`` (default ``cuda``).
+and dispatch. ``pipeline``, ``report`` and ``profile`` raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 14). ``train``, ``refresh``,
+``sweep``, ``score``, ``serve`` and ``glm`` take ``--device`` (default
+``cuda``).
 """
 
 import sys
 
-_NOT_PORTED = {"refresh": 14, "pipeline": 14, "report": 14, "profile": 14}
+_NOT_PORTED = {"pipeline": 14, "report": 14, "profile": 14}
 
 
 def main(argv=None) -> int:
@@ -16,7 +17,9 @@ def main(argv=None) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m photon_ml_tpu_torch.cli {train|refresh|pipeline|sweep|score|serve|glm|index|report|profile} [options]")
         print("  train --config <json> [--output-dir <dir>] [--device cuda|cpu]   GAME training")
-        print("  refresh, pipeline, report, profile   not ported (ROADMAP.md Queue 1 item 14)")
+        print("  refresh --config <json> --warm-start <dir> [--delta <path>] [--registry-dir <dir>] "
+              "[--device cuda|cpu]   incremental warm-start retrain")
+        print("  pipeline, report, profile   not ported (ROADMAP.md Queue 1 item 14)")
         print("  sweep --config <json> [--sweep lambda=...] [--device cuda|cpu]   multi-lambda "
               "sweep + selection")
         print("  score --model-dir <dir> --config <json> [--output <avro>] [--device cuda|cpu]")
@@ -34,6 +37,10 @@ def main(argv=None) -> int:
         from photon_ml_tpu_torch.cli.train import main as train_main
 
         return train_main(rest)
+    if cmd == "refresh":
+        from photon_ml_tpu_torch.cli.refresh import main as refresh_main
+
+        return refresh_main(rest)
     if cmd == "sweep":
         from photon_ml_tpu_torch.cli.sweep import main as sweep_main
 

@@ -40,10 +40,14 @@ saves the coordinate-descent state after each step and resumes from the
 newest valid checkpoint (``resume`` defaults to true); with a checkpoint,
 SIGTERM/SIGINT finish the step, write a final checkpoint and end the run
 with an ``interrupted`` summary and exit code 75. The reference's progress heartbeat (a log line
-every ~30 s) is not started. Every key and flag the port cannot honour yet
+every ~30 s) is not started. ``"warm_start"`` (or ``--warm-start``, with
+``--delta``, ``--refresh-registry-dir`` and ``--lambda-points``) runs the
+incremental refresh instead of a fit: the base restored, the delta scanned,
+only its touched random-effect lanes solved over the combined input
+(yesterday's paths and the delta's), and the model published with its
+lineage through the quality gate (``incremental/``; ``cli refresh`` is the
+same branch as a subcommand). Every key and flag the port cannot honour yet
 raises ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
-``warm_start``, ``--warm-start``, ``--delta``, ``--refresh-registry-dir``,
-``--lambda-points`` (14b);
 ``distributed`` and a run across processes (12); ``trace_out``, ``telemetry_out``,
 ``report_out``, ``xprof``, their flags, a ``heartbeat`` object or interval
 and ``--heartbeat-every`` > 0 (14).
@@ -76,7 +80,7 @@ from photon_ml_tpu_torch.optim.guard import GuardSpec
 from photon_ml_tpu_torch.utils import setup_logging, timed
 
 # config keys the port refuses, with the ROADMAP.md Queue 1 item that ports them
-_REFUSED_KEYS = {"warm_start": "14b", "distributed": 12,
+_REFUSED_KEYS = {"distributed": 12,
                  "trace_out": 14, "telemetry_out": 14, "report_out": 14, "xprof": 14}
 
 
@@ -258,6 +262,166 @@ def _parse_checkpoint_spec(config: Mapping) -> Optional[CheckpointSpec]:
     return CheckpointSpec(**spec)
 
 
+_WARM_START_KEYS = {
+    "dir", "delta_paths", "registry_dir", "base_version", "force",
+    "lambda_factors", "lambda_points", "lambda_span", "metric", "policy",
+    "quality_gate", "bootstrap_samples",
+}
+
+
+def _parse_warm_start(config: Mapping) -> Optional[dict]:
+    """Config key ``"warm_start"`` (the ``--warm-start``/``--delta`` flags):
+    ``{"dir": <base checkpoint or model dir>, "delta_paths": [...],
+    "registry_dir": ..., "lambda_points"/"lambda_span" or a
+    "lambda_factors" list, "metric", "policy", "base_version", "force",
+    "quality_gate", "bootstrap_samples"}``, or the directory alone."""
+    spec = config.get("warm_start")
+    if not spec:
+        return None
+    if isinstance(spec, str):
+        spec = {"dir": spec}
+    spec = dict(spec)
+    if "dir" not in spec:
+        raise ValueError("warm_start config needs a 'dir' key")
+    unknown = set(spec) - _WARM_START_KEYS
+    if unknown:
+        raise ValueError(f"unknown warm_start config keys: {sorted(unknown)}")
+    if config.get("sweep"):
+        raise ValueError(
+            "warm_start and sweep are mutually exclusive — the incremental path runs its own "
+            'local λ sweep (warm_start {"lambda_points": N, "lambda_span": S})')
+    return spec
+
+
+def _combined_input(config: Mapping, warm: Optional[dict]) -> dict:
+    """The training input spec, with the delta's paths after yesterday's:
+    the planner's deterministic order keeps yesterday's chunks where they
+    were. Daily directories are expanded before the append (delta paths are
+    files, which the expansion would drop)."""
+    input_spec = dict(config["input"])
+    if not (warm and warm.get("delta_paths")):
+        return input_spec
+    paths = input_spec.get("paths")
+    if isinstance(paths, str):
+        paths = [paths]
+    dr = input_spec.pop("date_range", None)
+    dr_ago = input_spec.pop("date_range_days_ago", None)
+    if dr or dr_ago:
+        from photon_ml_tpu_torch.data.paths import expand_input_paths
+
+        paths = expand_input_paths(list(paths), date_range=dr, date_range_days_ago=dr_ago)
+    input_spec["paths"] = list(paths) + list(warm["delta_paths"])
+    return input_spec
+
+
+def _run_incremental(config: Mapping, warm: dict, estimator: GameEstimator, train_data,
+                     validation_data, index_maps, output_dir, mesh, checkpoint_spec, guard,
+                     stop) -> dict:
+    """The warm-start branch: restore the base, scan the delta, refuse a
+    stale one, refresh, and publish through the gate with the lineage.
+    Returns the freshness summary."""
+    from photon_ml_tpu_torch.incremental import (
+        WarmStartError,
+        check_delta_freshness,
+        load_warm_start,
+        local_lambda_factors,
+        publish_incremental,
+        scan_delta,
+    )
+
+    dev = train_data.device
+    with timed("warm-start restore"):
+        ws = load_warm_start(warm["dir"], mesh=mesh, device=None if mesh is not None else dev)
+    if ws.model is None:
+        raise WarmStartError(
+            f"{warm['dir']} holds a streamed coefficient-table checkpoint, not a full GAME "
+            "model — the train CLI warm-starts coordinate descent; streamed tables warm-start "
+            "StreamingRandomEffectTrainer via the API (incremental.load_warm_start + "
+            "ShardedCoefficientTable.from_coefficients)")
+    delta_scan = None
+    delta_paths = list(warm.get("delta_paths") or ())
+    if delta_paths:
+        base_vocabs = {sub.id_name: sub.vocab for sub in ws.model.models.values()
+                       if getattr(sub, "id_name", None) is not None
+                       and getattr(sub, "vocab", None) is not None}
+        if base_vocabs:
+            with timed("delta scan"):
+                # only the delta's id columns are needed; it is read again
+                # (it already was, as the combined input's tail) at a
+                # delta's size, by premise a fraction of the base
+                delta_spec = {**config["input"], "paths": delta_paths}
+                for key in ("ingest", "date_range", "date_range_days_ago"):
+                    delta_spec.pop(key, None)
+                delta_data, _ = read_input(delta_spec, index_maps=index_maps, device=dev)
+                delta_scan = scan_delta(delta_data, base_vocabs, paths=delta_paths)
+    if delta_scan is not None and warm.get("registry_dir"):
+        check_delta_freshness(warm["registry_dir"], delta_scan.digest,
+                              force=bool(warm.get("force")))
+    factors = warm.get("lambda_factors")
+    if factors is None and warm.get("lambda_points"):
+        factors = local_lambda_factors(points=int(warm["lambda_points"]),
+                                       span=float(warm.get("lambda_span", 4.0)))
+    gate_enabled = bool(warm.get("quality_gate", True))
+    bootstrap_samples = int(warm.get("bootstrap_samples", 32))
+    publishing = bool(warm.get("registry_dir"))
+    with timed("incremental fit"):
+        result = estimator.fit_incremental(
+            train_data, ws, delta=delta_scan, validation_data=validation_data,
+            output_dir=output_dir, mesh=mesh, lambda_factors=factors,
+            metric=warm.get("metric"), policy=warm.get("policy", "best"), guard=guard,
+            checkpoint_spec=checkpoint_spec,
+            should_stop=stop if checkpoint_spec is not None else None,
+            bootstrap_samples=bootstrap_samples if publishing else 0, device=dev)
+    gate_refusal = quality = None
+    if publishing:
+        if not index_maps:
+            raise ValueError("publishing an incremental model needs index maps (avro input "
+                             "builds them; libsvm input cannot publish)")
+        from photon_ml_tpu_torch.quality import QualityGateRefused, game_quality_stats
+
+        with timed("quality stats"):
+            # the candidate's error bars on the strongest evaluation set at
+            # hand; publish_version compares them with the champion's
+            eval_data = validation_data if validation_data is not None else train_data
+            quality = game_quality_stats(result.model, eval_data,
+                                         num_samples=bootstrap_samples).to_json()
+            if result.bootstrap is not None:
+                quality["bootstrap"] = result.bootstrap
+        with timed("registry publish"):
+            try:
+                result.published_version = publish_incremental(
+                    warm["registry_dir"], result.model, index_maps, result.lineage,
+                    delta=result.delta, base_version=warm.get("base_version"),
+                    selection=result.selection, quality=quality,
+                    gate_override=not gate_enabled)
+            except QualityGateRefused as exc:
+                # a quarantined candidate is a result, not a crash: the
+                # champion keeps serving and the run ends cleanly
+                gate_refusal = {**exc.decision.to_json(),
+                                "quarantine_path": exc.quarantine_path}
+    freshness = {
+        "base": result.lineage.to_json(),
+        "lanes_solved": result.lanes_solved,
+        "lanes_skipped": result.lanes_skipped,
+        "bucket_solves": result.bucket_solves,
+        "buckets_skipped": result.buckets_skipped,
+        "new_entities": result.new_entities,
+        "time_to_fresh_s": round(result.seconds, 3),
+        "best_metric": result.best_metric,
+    }
+    if result.delta is not None:
+        freshness["delta"] = result.delta.to_json()
+    if result.selection is not None:
+        freshness["selection"] = result.selection.to_json()
+    if result.published_version:
+        freshness["published_version"] = result.published_version
+    if quality is not None:
+        freshness["quality"] = quality
+    if gate_refusal is not None:
+        freshness["quality_gate"] = gate_refusal
+    return freshness
+
+
 def _check_heartbeat(config: Mapping) -> None:
     """``heartbeat`` true, false, null or 0 start nothing; an object or an
     interval asks for the reference's heartbeat, which is not ported."""
@@ -279,6 +443,7 @@ def run(config: Mapping, output_dir: Optional[str] = None,
     output_dir = output_dir or config.get("output_dir")
     guard = _parse_guard_spec(config)
     checkpoint_spec = _parse_checkpoint_spec(config)
+    warm = _parse_warm_start(config)
     if config.get("sweep"):
         from photon_ml_tpu_torch.cli.sweep import parse_sweep_config
 
@@ -303,7 +468,7 @@ def run(config: Mapping, output_dir: Optional[str] = None,
         stop.install()
 
     with timed("read training data"):
-        train_data, index_maps = read_input(config["input"], device=device)
+        train_data, index_maps = read_input(_combined_input(config, warm), device=device)
     validation_data = None
     if config.get("validation"):
         with timed("read validation data"):
@@ -331,6 +496,14 @@ def run(config: Mapping, output_dir: Optional[str] = None,
                 for shard, imap in index_maps.items():
                     imap.save(os.path.join(output_dir, "best", "feature-indexes", shard))
         return {"sweep": sweep_summary, "best_metric": sweep_summary["selected_metric"],
+                "output_dir": output_dir, "num_rows": train_data.num_rows}
+    if warm:
+        # the incremental refresh instead of a fit (_run_incremental)
+        freshness = _run_incremental(config, warm, estimator, train_data, validation_data,
+                                     index_maps, output_dir, mesh, checkpoint_spec, guard, stop)
+        if output_dir is not None and index_maps is not None:
+            _persist_feature_artifacts(output_dir, index_maps, train_data)
+        return {"freshness": freshness, "best_metric": freshness.get("best_metric"),
                 "output_dir": output_dir, "num_rows": train_data.num_rows}
     try:
         with timed("fit"):
@@ -376,10 +549,25 @@ def main(argv=None) -> int:
     parser.add_argument("--sweep-registry-dir",
                         help="publish the sweep winner as the next version of this serving "
                         "registry (config sweep.registry_dir)")
+    parser.add_argument("--warm-start", metavar="DIR",
+                        help="incremental retrain: warm-start every coordinate from this base "
+                        "(a --checkpoint-dir step checkpoint, a streamed chunk checkpoint or a "
+                        "saved model dir) instead of fitting from scratch; with --delta only "
+                        "the touched random-effect lanes solve again (config warm_start.dir)")
+    parser.add_argument("--delta", action="append", metavar="PATH",
+                        help="delta shard(s) appended to the input paths (repeatable); their "
+                        "entity ids mask the lanes that solve (needs --warm-start; config "
+                        "warm_start.delta_paths)")
+    parser.add_argument("--refresh-registry-dir", metavar="DIR",
+                        help="publish the refreshed model here with its lineage (base "
+                        "checkpoint, delta digest) through the quality gate (config "
+                        "warm_start.registry_dir)")
+    parser.add_argument("--lambda-points", type=int,
+                        help="a local descending-λ sweep of this many fits around the "
+                        "incumbent regularization during an incremental retrain (needs a "
+                        "validation input; config warm_start.lambda_points)")
     refused = {"--trace-out": 14, "--telemetry-out": 14, "--report-out": 14,
-               "--xprof-dir": 14, "--xprof-arm": 14,
-               "--warm-start": "14b", "--delta": "14b", "--refresh-registry-dir": "14b",
-               "--lambda-points": "14b"}
+               "--xprof-dir": 14, "--xprof-arm": 14}
     for flag in refused:
         parser.add_argument(flag, action="append", help=argparse.SUPPRESS)
     parser.add_argument("--heartbeat-every", type=float, help=argparse.SUPPRESS)
@@ -428,6 +616,21 @@ def main(argv=None) -> int:
             parser.error("--sweep-metric/--sweep-policy/--sweep-registry-dir need a grid: "
                          "pass --sweep lambda=... (or config sweep.grid)")
         config["sweep"] = sweep_cfg
+    if (args.warm_start or args.delta or args.refresh_registry_dir
+            or args.lambda_points is not None):
+        ws = dict(config.get("warm_start") or {})
+        if args.warm_start:
+            ws["dir"] = args.warm_start
+        if args.delta:
+            ws["delta_paths"] = list(ws.get("delta_paths") or ()) + list(args.delta)
+        if args.refresh_registry_dir:
+            ws["registry_dir"] = args.refresh_registry_dir
+        if args.lambda_points is not None:
+            ws["lambda_points"] = args.lambda_points
+        if "dir" not in ws:
+            parser.error("--delta/--refresh-registry-dir/--lambda-points need --warm-start "
+                         "(or a config warm_start.dir)")
+        config["warm_start"] = ws
     if args.ingest_workers is not None or args.prefetch_depth is not None:
         inp = dict(config.get("input") or {})
         ing = inp.get("ingest")

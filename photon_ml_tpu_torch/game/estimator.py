@@ -33,9 +33,12 @@ entities over ``model``), a legacy 1-D mesh becomes two views over the same
 devices (``data`` and ``entity``), and a mesh that names neither on more
 than one axis is refused. The mesh's first device must be the dataset's.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item): a
-factored random effect or the random projector on a mesh (item 12) and
-``fit_incremental`` (item 14b).
+``fit_incremental`` (:506-581) is the incremental refresh
+(``incremental/``): the base model transplanted into the combined data's
+coordinates, and only the delta's touched random-effect lanes solved.
+
+Not ported (raises ``NotImplementedError`` naming its ROADMAP item): a
+factored random effect or the random projector on a mesh (item 12).
 """
 
 from __future__ import annotations
@@ -62,11 +65,7 @@ from photon_ml_tpu_torch.game.coordinate_descent import (
     ValidationSpec,
     run_coordinate_descent,
 )
-from photon_ml_tpu_torch.game.coordinates import (
-    NOT_PORTED,
-    FixedEffectCoordinate,
-    RandomEffectCoordinate,
-)
+from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate, RandomEffectCoordinate
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.game.factored import FactoredRandomEffectCoordinate
 from photon_ml_tpu_torch.game.models import GameModel
@@ -368,8 +367,61 @@ class GameEstimator:
         return GameFitResult(model=result.model, best_model=result.best_model,
                              best_metric=result.best_metric, history=result.history)
 
-    def fit_incremental(self, *args, **kwargs):
-        raise NotImplementedError(NOT_PORTED.format("GameEstimator.fit_incremental", "14b"))
+    def fit_incremental(
+        self,
+        data: GameDataset,
+        warm_start,
+        delta=None,
+        validation_data: Optional[GameDataset] = None,
+        output_dir: Optional[str] = None,
+        mesh=None,
+        num_iterations: Optional[int] = None,
+        lambda_factors=None,
+        metric: Optional[str] = None,
+        policy: str = "best",
+        rel_tol: float = 0.01,
+        guard=None,
+        checkpoint_spec: Optional[CheckpointSpec] = None,
+        should_stop=None,
+        bootstrap_samples: int = 0,
+        bootstrap_seed: int = 0,
+        device: torch.device | str | None = None,
+    ):
+        """Delta-aware warm-start refresh over the combined data on
+        ``device`` (default cuda; with ``mesh``, its first device).
+
+        ``warm_start`` (``incremental.load_warm_start``) seeds every
+        coordinate from the base model, the per-entity rows re-homed by
+        entity value, so a grown vocabulary starts only new entities at
+        zero. With ``delta`` (``incremental.scan_delta``) the random
+        effects solve only the touched entities' lanes (the untouched rows
+        stay bit for bit; a bucket with no touched entity is not solved)
+        while the fixed effect refreshes over all rows. ``lambda_factors``
+        (descending multipliers, e.g. ``incremental.local_lambda_factors``)
+        runs one fit per factor around the incumbent regularization, each
+        from its more regularized neighbour's models, and selects with
+        ``sweep.select`` (it needs ``validation_data``). With
+        ``output_dir`` the final and best models are saved with the lineage
+        in their metadata. Returns ``incremental.IncrementalFitResult``."""
+        from photon_ml_tpu_torch.incremental.refit import run_incremental_fit
+
+        result = run_incremental_fit(
+            self, data, warm_start, delta=delta, validation_data=validation_data, mesh=mesh,
+            num_iterations=num_iterations, lambda_factors=lambda_factors, metric=metric,
+            policy=policy, rel_tol=rel_tol, guard=guard, checkpoint_spec=checkpoint_spec,
+            should_stop=should_stop, bootstrap_samples=bootstrap_samples,
+            bootstrap_seed=bootstrap_seed, device=device)
+        if output_dir is not None:
+            from photon_ml_tpu_torch.data.model_store import save_game_model
+            from photon_ml_tpu_torch.incremental.publish import lineage_record
+
+            meta = {"config": _config_metadata(self.config), "best_metric": result.best_metric,
+                    "lineage": lineage_record(result.lineage, delta=result.delta)}
+            save_game_model(result.model, os.path.join(output_dir, "final"),
+                            extra_metadata=meta)
+            save_game_model(result.best_model, os.path.join(output_dir, "best"),
+                            extra_metadata=meta)
+        return result
 
     def fit_sweep(
         self,

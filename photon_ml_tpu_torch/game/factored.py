@@ -175,6 +175,27 @@ class MatrixFactorizationModel:
         return torch.where(ok, (rf * cf).sum(dim=1), 0.0)
 
 
+def latent_design(b, proj: Tensor, a_ext: Tensor) -> Tensor:
+    """The rows of bucket ``b`` (dense or COO) projected through A, whose
+    entities' projections are ``proj`` [E, K_local]: X~ [E, R, K]."""
+    n_ent, k_local = proj.shape
+    if isinstance(b, DenseBucket):
+        g = a_ext.T.index_select(0, proj.reshape(-1)).view(n_ent, k_local, -1)
+        return torch.bmm(b.x, g)
+    return torch.stack([b.block.dot_rows(row.index_select(0, proj.reshape(-1))
+                                         .view(n_ent, k_local))
+                        for row in a_ext], dim=-1)
+
+
+def latent_batch(b, x: Tensor, residual: Optional[Tensor]) -> DenseBatch:
+    """Bucket ``b``'s latent-space problems on the design ``x``, residual
+    scores added to its offsets."""
+    rows = b if isinstance(b, DenseBucket) else b.block
+    return DenseBatch(x=x, labels=rows.labels,
+                      offsets=_with_residual(rows.offsets, b.row_index, residual),
+                      weights=rows.weights)
+
+
 @dataclasses.dataclass
 class FactoredRandomEffectCoordinate:
     """The alternating latent-space solves and latent matrix refit.
@@ -292,21 +313,10 @@ class FactoredRandomEffectCoordinate:
 
     def _latent_design(self, i: int, a_ext: Tensor) -> Tensor:
         """Bucket ``i``'s rows projected through A: X~ [E, R, K]."""
-        b, proj = self._buckets[i], self._proj[i]
-        n_ent, k_local = proj.shape
-        if isinstance(b, DenseBucket):
-            g = a_ext.T.index_select(0, proj.reshape(-1)).view(n_ent, k_local, -1)
-            return torch.bmm(b.x, g)
-        return torch.stack([b.block.dot_rows(row.index_select(0, proj.reshape(-1))
-                                             .view(n_ent, k_local))
-                            for row in a_ext], dim=-1)
+        return latent_design(self._buckets[i], self._proj[i], a_ext)
 
     def _latent_batch(self, i: int, x: Tensor, residual: Optional[Tensor]) -> DenseBatch:
-        b = self._buckets[i]
-        rows = b if isinstance(b, DenseBucket) else b.block
-        return DenseBatch(x=x, labels=rows.labels,
-                          offsets=_with_residual(rows.offsets, b.row_index, residual),
-                          weights=rows.weights)
+        return latent_batch(self._buckets[i], x, residual)
 
     def _latent_re_step(self, latent: Tensor, a_ext: Tensor, residual: Optional[Tensor]):
         """One pass of per-entity solves in latent space over all buckets:

@@ -13,7 +13,10 @@ A bucket whose dense design costs at most ``_DENSE_BYTES_FACTOR`` times its
 padded COO (``photon_ml_tpu/game/coordinates.py:517-548``) is solved on
 that dense design; ``dense_buckets`` uploads those once per device. The
 others are solved on their block-diagonal batch (``ops/block_diagonal.py``),
-which ``coo_buckets`` builds and uploads once per device.
+which ``coo_buckets`` builds and uploads once per device. ``take`` gives
+either kind's bucket over some of its entities (the incremental refresh's
+touched lanes): a dense one gathered on the device, a COO one built anew
+from the entities' host arrays.
 """
 
 from __future__ import annotations
@@ -89,6 +92,19 @@ class DenseBucket:
                           offsets=_with_residual(self.offsets, self.row_index, residual),
                           weights=self.weights)
 
+    def take(self, positions) -> "DenseBucket":
+        """The bucket of the entities at ``positions`` (in that order): every
+        array gathered on the device by ``index_select``, the active rows'
+        slots recomputed, so ``batch`` and scoring work on it unchanged."""
+        idx = torch.as_tensor(np.asarray(positions, np.int64), device=self.x.device)
+        row_index = self.row_index.index_select(0, idx)
+        flat = row_index.reshape(-1)
+        slots = torch.nonzero(flat >= 0).squeeze(1)
+        return DenseBucket(x=self.x.index_select(0, idx), labels=self.labels.index_select(0, idx),
+                           offsets=self.offsets.index_select(0, idx),
+                           weights=self.weights.index_select(0, idx), row_index=row_index,
+                           slots=slots, slot_rows=flat.index_select(0, slots))
+
 
 @dataclasses.dataclass(frozen=True)
 class CooBucket:
@@ -100,6 +116,9 @@ class CooBucket:
     row_index: Tensor  # i64[E, R], -1 padding
     slots: Tensor  # i64[m] flat [E*R] positions of the active rows
     slot_rows: Tensor  # i64[m] their example rows
+    # the host arrays the block was built from (``take`` builds from them)
+    source: Optional["EntityBucket"] = dataclasses.field(default=None, repr=False,
+                                                         compare=False)
 
     def batch(self, residual: Optional[Tensor] = None) -> BlockDiagonalBatch:
         """The bucket's problems, with residual scores added to the offsets."""
@@ -107,6 +126,28 @@ class CooBucket:
             return self.block
         return self.block.with_offsets(
             _with_residual(self.block.offsets, self.row_index, residual))
+
+    def take(self, positions) -> "CooBucket":
+        """The bucket of the entities at ``positions`` (in that order): their
+        host arrays as one new ``BlockDiagonalBatch`` built on the block's
+        device (on a CUDA device with its tile index, which ``csc_scatter``
+        needs), and their row placement."""
+        if self.source is None:
+            raise ValueError("this COO bucket keeps no host arrays to gather from")
+        sub = _take_entities(self.source, positions)
+        dev = self.block.device
+        return CooBucket(block=BlockDiagonalBatch.from_bucket(
+            sub.values, sub.rows, sub.cols, sub.labels, sub.offsets, sub.weights,
+            sub.num_local_features, device=dev), source=sub, **_placement(sub, dev))
+
+
+def _take_entities(b: "EntityBucket", positions) -> "EntityBucket":
+    """The entities of ``b`` at ``positions``, host arrays gathered."""
+    pos = np.asarray(positions, np.int64)
+    return dataclasses.replace(
+        b, values=b.values[pos], rows=b.rows[pos], cols=b.cols[pos], labels=b.labels[pos],
+        offsets=b.offsets[pos], weights=b.weights[pos], projection=b.projection[pos],
+        entity_codes=b.entity_codes[pos], row_index=b.row_index[pos])
 
 
 def _placement(b: "EntityBucket", device: torch.device) -> dict:
@@ -177,7 +218,7 @@ class RandomEffectDataset:
                         block=BlockDiagonalBatch.from_bucket(
                             b.values, b.rows, b.cols, b.labels, b.offsets, b.weights,
                             b.num_local_features, device=device),
-                        **_placement(b, device))
+                        source=b, **_placement(b, device))
                     for b, x in zip(self.buckets, self.dense_designs()))
         return cache[key]
 

@@ -13,7 +13,9 @@ end-to-end and index tests, on its 240-row ``avro_dataset``), on the CPU:
   test_model_store.py's rtol 1e-6 / atol 1e-7, their metrics within 1e-6;
 - ``cli index`` writes equal maps;
 - every key, flag and subcommand the port refuses raises
-  ``NotImplementedError`` naming its ROADMAP item; the checkpoint key and
+  ``NotImplementedError`` naming its ROADMAP item; the incremental refresh's
+  key, flags and ``refresh`` subcommand (ported, tests/test_torch_incremental.py)
+  raise what the reference raises for the same argv; the checkpoint key and
   ``--checkpoint-dir``, ``--checkpoint-every`` and ``--resume`` (refused
   until ROADMAP item 10 was ported) write and resume checkpoints, as in the
   reference (tests/test_checkpoint.py's CLI cases);
@@ -52,6 +54,7 @@ from photon_ml_tpu_torch.cli import score as t_score
 from photon_ml_tpu_torch.cli import train as t_train
 from photon_ml_tpu_torch.data import avro as TA
 from photon_ml_tpu_torch.data import model_store as TM
+from photon_ml_tpu_torch.incremental import WarmStartError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIT_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -247,7 +250,10 @@ REFUSED_KEYS = [
     # reaches the sweep, which needs a validation split
     pytest.param({"sweep": {"grid": ["lambda=1,2"], "registry_dir": "r"}},
                  (ValueError, "validation split"), id='{"sweep": {"grid": ["lambda=1,-11'),
-    pytest.param({"warm_start": {"dir": "x"}}, "14b", id='{"warm_start": {"dir": "x"}}-14'),
+    # the incremental refresh is ported: a base directory that does not exist
+    # is the reference's typed error
+    pytest.param({"warm_start": {"dir": "x"}}, (WarmStartError, "does not exist"),
+                 id='{"warm_start": {"dir": "x"}}-14'),
     # the mesh is ported; the multi-process fleet's key stays refused
     pytest.param({"distributed": {"num_processes": 2}}, 12, id='{"mesh": true}-12'),
     ({"trace_out": "t.jsonl"}, 14),
@@ -288,9 +294,14 @@ REFUSED_FLAGS = [
                  id="['--sweep-registry-dir', 'r']-11"),
     # a factored random effect on a mesh stays refused (item 12)
     pytest.param(["--mesh", "auto"], "factored", 12, id="['--mesh', 'auto']-12"),
+    # the incremental refresh's flags are ported: on a plain config, what the
+    # reference raises for the same argv (a base that does not exist; the
+    # other three without --warm-start are argparse's error)
+    pytest.param(["--warm-start", "d"], "plain", (WarmStartError, "does not exist"),
+                 id="['--warm-start', 'd']-14"),
+    *[pytest.param(flags, "plain", (SystemExit, "2"), id=f"{flags}-14") for flags in [
+        ["--delta", "d.avro"], ["--refresh-registry-dir", "r"], ["--lambda-points", "3"]]],
     *[pytest.param(flags, None, item, id=f"{flags}-{str(item)[:2]}") for flags, item in [
-        (["--warm-start", "d"], "14b"), (["--delta", "d.avro"], "14b"),
-        (["--refresh-registry-dir", "r"], "14b"), (["--lambda-points", "3"], "14b"),
         (["--trace-out", "t"], 14), (["--telemetry-out", "t"], 14),
         (["--report-out", "r"], 14), (["--xprof-dir", "x"], 14),
         (["--xprof-arm", "3"], 14), (["--heartbeat-every", "5"], 14)]],
@@ -404,7 +415,12 @@ def test_sigterm_mid_fit_leaves_a_checkpoint_and_an_interrupted_summary(avro_dat
     assert _steps(tmp_path / "ckpt") == ["step-00000001", "step-00000002", "step-00000003"]
 
 
-@pytest.mark.parametrize("cmd,item", [("refresh", 14), ("pipeline", 14),
+@pytest.mark.parametrize("cmd,item", [
+                                      # refresh is ported: the missing config is what
+                                      # fails, as for sweep
+                                      pytest.param("refresh", (FileNotFoundError, "x.json"),
+                                                   id="refresh-14"),
+                                      ("pipeline", 14),
                                       # serve is ported: it takes no --config
                                       pytest.param("serve", (SystemExit, "2"), id="serve-14"),
                                       ("report", 14), ("profile", 14),

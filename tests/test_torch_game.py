@@ -3,9 +3,10 @@ package's, on the CPU: random-effect buckets array for array, a
 ``GameEstimator.fit`` of a fixed effect (LBFGS) plus a per-user random effect
 (batched NEWTON) over two coordinate-descent iterations, GAME models carried
 across by ``convert.game_model_from_jax`` and scored on rows of passive and
-unseen entities, and every ``NotImplementedError`` branch left (a mesh, the
-estimator's incremental fit and a sweep's registry; the random projector, a
-factored coordinate, the checkpoint and the stop now fit).
+unseen entities, and every ``NotImplementedError`` branch left (a mesh and a
+sweep's registry; the random projector, a factored coordinate, the
+checkpoint and the stop now fit, and the incremental fit refuses a warm start
+without a model).
 
 Tolerances: buckets exact (the same numpy build); carried-over scores
 rtol 1e-5 (the same float32 products, summed in another order); fitted
@@ -54,6 +55,7 @@ from photon_ml_tpu_torch.game import (
     build_random_effect_dataset,
 )
 from photon_ml_tpu_torch.game import random_effect_data as t_red
+from photon_ml_tpu_torch.incremental import BaseLineage, WarmStart, WarmStartError
 from photon_ml_tpu_torch.optim.factory import (
     OptimizerConfig,
     OptimizerType,
@@ -298,8 +300,9 @@ def test_random_effect_branches_not_ported_raise(data, monkeypatch):
 
 def test_estimator_and_descent_branches_not_ported_raise(data, tmp_path):
     """A factored random effect or the random projector on a mesh (ROADMAP
-    item 12, in fit_grid too) and fit_incremental (item 14b) still raise,
-    fit_sweep's registry needs index maps; the checkpoint and the stop (item
+    item 12, in fit_grid too) still raise, fit_incremental refuses a warm
+    start without a model, fit_sweep's registry needs index maps; the
+    checkpoint and the stop (item
     10) work, and so
     does a factored coordinate and the random projector under NEWTON. (The
     mesh itself is ported: tests/test_torch_mesh_game.py.)"""
@@ -317,8 +320,11 @@ def test_estimator_and_descent_branches_not_ported_raise(data, tmp_path):
         GameEstimator(projected).fit(tds, device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match="item 12"):
         GameEstimator(projected).fit_grid(tds, tds, {}, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        est.fit_incremental(tds)
+    # fit_incremental is ported (tests/test_torch_incremental.py): a warm start
+    # without a model (a bare streamed table) is the reference's typed error
+    bare = WarmStart(lineage=BaseLineage(checkpoint_dir=str(tmp_path), kind="streaming"))
+    with pytest.raises(WarmStartError, match="bare coefficient table"):
+        est.fit_incremental(tds, bare, device="cpu")
     with pytest.raises(ValueError, match="registry requires index_maps"):
         est.fit_sweep(tds, tds, None, registry_dir=str(tmp_path / "r"), device="cpu")
     with pytest.raises(TrainingInterrupted) as ei:

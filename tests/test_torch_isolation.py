@@ -132,7 +132,9 @@ def test_source_walk_covers_the_new_subpackages():
                    "quality/__init__.py", "quality/drift.py", "quality/gate.py",
                    "serving/__init__.py", "serving/engine.py", "serving/batcher.py",
                    "serving/registry.py", "serving/server.py", "serving/aio.py",
-                   "serving/nearline.py", "cli/serve.py"):
+                   "serving/nearline.py", "cli/serve.py", "incremental/__init__.py",
+                   "incremental/warmstart.py", "incremental/delta.py",
+                   "incremental/refit.py", "incremental/publish.py", "cli/refresh.py"):
         assert module in rel
 
 
@@ -348,6 +350,59 @@ def test_serving_entry_points_raise_without_a_gpu(entry, tmp_path):
         "engine_load": lambda: ScoringEngine.load(str(tmp_path)),
         "registry": lambda: ModelRegistry(str(tmp_path)),
         "cli_serve": lambda: serve_main(["--registry-dir", str(tmp_path), "--stdio"]),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["load_warm_start", "fit_incremental", "scan_delta_stream",
+                                   "cli_refresh"])
+def test_incremental_entry_points_raise_without_a_gpu(entry, tmp_path):
+    """``load_warm_start``, ``fit_incremental``, ``scan_delta_stream`` and ``cli
+    refresh`` run on cuda unless asked for the CPU: without a card they raise
+    the no-CUDA error before any work."""
+    _no_gpu()
+    from photon_ml_tpu_torch.cli.__main__ import main
+    from photon_ml_tpu_torch.data.avro import TRAINING_EXAMPLE_AVRO, write_avro
+    from photon_ml_tpu_torch.game import (
+        FeatureShard,
+        FixedEffectConfig,
+        GameConfig,
+        GameEstimator,
+        build_game_dataset,
+    )
+    from photon_ml_tpu_torch.game.models import FixedEffectModel, GameModel
+    from photon_ml_tpu_torch.incremental import (
+        BaseLineage,
+        WarmStart,
+        load_warm_start,
+        scan_delta_stream,
+    )
+
+    (tmp_path / "base" / "step-00000000").mkdir(parents=True)
+    avro = str(tmp_path / "d.avro")
+    write_avro(avro, TRAINING_EXAMPLE_AVRO, [
+        {"uid": str(i), "label": float(i % 2), "features": [{"name": "a", "term": "",
+                                                             "value": 1.0}],
+         "metadataMap": {"u": str(i)}, "weight": None, "offset": None} for i in range(4)])
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps({"task": "logistic", "input": {"format": "avro", "paths": [avro]},
+                               "coordinates": {"f": {"shard_name": "features"}}}))
+    coo = _tiny_coo()
+    data = build_game_dataset(coo["labels"], {"g": FeatureShard.from_coo(
+        coo["values"], coo["rows"], coo["cols"], 2)}, device="cpu")
+    est = GameEstimator(GameConfig(task="logistic",
+                                   coordinates={"fe": FixedEffectConfig(shard_name="g")}))
+    ws = WarmStart(lineage=BaseLineage(checkpoint_dir=str(tmp_path), kind="model"),
+                   model=GameModel(task="logistic", models={"fe": FixedEffectModel(
+                       coefficients=torch.zeros(2), shard_name="g")}))
+    calls = {
+        "load_warm_start": lambda: load_warm_start(str(tmp_path / "base")),
+        "fit_incremental": lambda: est.fit_incremental(data, ws),
+        "scan_delta_stream": lambda: scan_delta_stream([avro], {"u": np.array(["0"])},
+                                                       index_maps={}),
+        "cli_refresh": lambda: main(["refresh", "--config", str(cfg), "--warm-start",
+                                     str(tmp_path / "base")]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -9,12 +9,16 @@ snapshot provider and its ``quality.drift_flush`` seam), the engine feeding
 the drift sketch, and the gated ``publish_version`` (the
 ``quality.publish_gate`` seam, quarantine, lineage round trip, override).
 
-Left out, with their subjects elsewhere:
-``test_masked_lane_bootstrap_matches_full_on_touched_rows`` and
-``test_cli_refresh_quarantines_label_shuffled_delta`` (the incremental
-refresh, ROADMAP Queue 1 item 14b) and
+The incremental refresh's two cases: the masked-lane bootstrap (touched
+lanes gathered out of a full draw give the full bootstrap's summaries on
+those rows, and the JAX package's within atol 1e-3, the bootstrap tests'
+tolerance) and ``cli refresh`` through the gate (a clean delta published
+with error bars, a label-shuffled one quarantined, a healthy challenger
+published; each decision the JAX package's on the same files).
+
+Left out, with its subject elsewhere:
 ``test_conductor_cycle_quarantine_and_quality_report`` (the freshness
-conductor, item 14c).
+conductor, ROADMAP Queue 1 item 14c).
 """
 
 import json
@@ -379,3 +383,209 @@ def test_label_shuffled_candidate_is_quarantined(tmp_path, eval_world):
         publish_version(reg, tmodel, _FE_MAPS, quality=cand.to_json())
     assert [v for v, _ in scan_versions(reg)] == [1]
     assert sorted(os.listdir(reg)) == sorted(before + ["quarantined-v-00000002"])
+
+
+# ---------------------------------------------------------------------------
+# the incremental refresh: masked-lane bootstrap, cli refresh through the gate
+# ---------------------------------------------------------------------------
+
+
+def _entity_problem(rng, n_entities, rows, feats):
+    """Dense per-entity logistic problems with planted coefficients."""
+    x = rng.normal(size=(n_entities, rows, feats))
+    w_true = rng.normal(size=(n_entities, feats)) * 0.5
+    margins = np.einsum("erk,ek->er", x, w_true)
+    y = rng.random((n_entities, rows)) < 1.0 / (1.0 + np.exp(-margins))
+    return x, y.astype(np.float64)
+
+
+def _j_entity_batch(x, y):
+    from photon_ml_tpu.ops.sparse import SparseBatch
+
+    e, rows, feats = x.shape
+    nnz = rows * feats
+    return SparseBatch(
+        values=jnp.asarray(x.reshape(e, nnz), jnp.float32),
+        rows=jnp.asarray(np.broadcast_to(np.repeat(np.arange(rows, dtype=np.int32), feats),
+                                         (e, nnz))),
+        cols=jnp.asarray(np.broadcast_to(np.tile(np.arange(feats, dtype=np.int32), rows),
+                                         (e, nnz))),
+        labels=jnp.asarray(y, jnp.float32), offsets=jnp.zeros((e, rows), jnp.float32),
+        weights=jnp.ones((e, rows), jnp.float32), num_features=feats)
+
+
+def test_masked_lane_bootstrap_matches_full_on_touched_rows():
+    """Touched lanes gathered out of the full bucket's seeded draw
+    (``counts[:, idx, :]``) see the full bootstrap's resample weights, so
+    their summaries are the full run's on those rows (bit for bit in the
+    port, whose lanes are independent)."""
+    from photon_ml_tpu.diagnostics.bootstrap import bootstrap_random_effect as j_boot_re
+    from photon_ml_tpu.optim import OptimizerConfig as JOpt
+    from photon_ml_tpu.optim import OptimizerType as JOptType
+    from photon_ml_tpu.optim import RegularizationContext as JReg
+    from photon_ml_tpu.optim import RegularizationType as JRegType
+    from photon_ml_tpu_torch.diagnostics.bootstrap import (
+        bootstrap_random_effect,
+        bootstrap_re_weights,
+    )
+    from photon_ml_tpu_torch.ops.dense import DenseBatch
+    from photon_ml_tpu_torch.optim.factory import (
+        OptimizerConfig,
+        OptimizerType,
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    rng = np.random.default_rng(21)
+    n_entities, rows, feats = 6, 12, 3
+    x, y = _entity_problem(rng, n_entities, rows, feats)
+    opt = dict(max_iterations=12, tolerance=1e-8, regularization_weight=1.0)
+    config = OptimizerConfig(optimizer_type=OptimizerType.NEWTON,
+                             regularization=RegularizationContext(RegularizationType.L2), **opt)
+    jconfig = JOpt(optimizer_type=JOptType.NEWTON, regularization=JReg(JRegType.L2), **opt)
+    counts = bootstrap_re_weights(8, np.ones((n_entities, rows)), seed=4)
+    full = bootstrap_random_effect(DenseBatch.from_arrays(x, y, device="cpu"), "logistic",
+                                   config, torch.zeros(n_entities, feats), lane_weights=counts,
+                                   device="cpu")
+    idx = np.array([1, 3, 4])  # the touched entity lanes
+    masked = bootstrap_random_effect(DenseBatch.from_arrays(x[idx], y[idx], device="cpu"),
+                                     "logistic", config, torch.zeros(len(idx), feats),
+                                     lane_weights=counts[:, idx, :], device="cpu")
+    jfull = j_boot_re(_j_entity_batch(x, y), "logistic", jconfig,
+                      jnp.zeros((n_entities, feats), jnp.float32), lane_weights=counts)
+    for field in ("mean", "ci_low", "ci_high", "median", "std_dev"):
+        got = getattr(masked, field)
+        np.testing.assert_allclose(got, getattr(full, field)[idx], rtol=1e-5, atol=1e-6,
+                                   err_msg=field)
+        np.testing.assert_array_equal(got, getattr(full, field)[idx], err_msg=field)
+        np.testing.assert_allclose(got, np.asarray(getattr(jfull, field))[idx], atol=1e-3,
+                                   err_msg=field)
+    assert masked.num_samples == full.num_samples == 8
+    assert bool(np.all(masked.live_entities))
+    width = masked.ci_high - masked.ci_low
+    assert float(width.max()) > 0.0
+    assert np.all(masked.ci_low <= masked.mean + 1e-9)
+    assert np.all(masked.mean <= masked.ci_high + 1e-9)
+
+
+@pytest.fixture(scope="module")
+def quality_cli_base(tmp_path_factory):
+    """A ``cli train`` base in each package and three deltas: two clean
+    (they follow the planted model) and one label-shuffled."""
+    from photon_ml_tpu.cli.train import run as j_run
+    from photon_ml_tpu_torch.cli.train import run as t_run
+    from photon_ml_tpu_torch.data.avro import TRAINING_EXAMPLE_AVRO, write_avro
+
+    rng = np.random.default_rng(42)
+    tmp = tmp_path_factory.mktemp("cli_quality")
+    d, n_users = 8, 5
+    w = rng.normal(size=d)
+    u_eff = rng.normal(size=n_users)
+
+    def write_shard(path, n, seed, shuffle_labels=False):
+        r = np.random.default_rng(seed)
+        users = r.integers(0, n_users, n)
+        X = r.normal(size=(n, d))
+        y = (r.random(n) < 1 / (1 + np.exp(-(X @ w + u_eff[users])))).astype(float)
+        if shuffle_labels:
+            y = r.permutation(y)  # the feature-label link broken
+        write_avro(path, TRAINING_EXAMPLE_AVRO, (
+            {"uid": str(i), "label": float(y[i]),
+             "features": [{"name": f"c{j}", "term": "", "value": float(X[i, j])}
+                          for j in range(d)],
+             "metadataMap": {"userId": str(users[i])}, "weight": None, "offset": None}
+            for i in range(n)))
+
+    train_path = str(tmp / "train.avro")
+    write_shard(train_path, 220, 1)
+    deltas = {}
+    for name, n, seed, shuffled in (("clean_delta", 60, 2, False), ("bad_delta", 240, 3, True),
+                                    ("clean_delta2", 60, 4, False)):
+        deltas[name] = str(tmp / f"{name}.avro")
+        write_shard(deltas[name], n, seed, shuffle_labels=shuffled)
+    out = {"tmp": tmp, **deltas}
+    for pkg, run in (("t", t_run), ("j", j_run)):
+        config = {
+            "task": "logistic",
+            "input": {"format": "avro", "paths": [train_path],
+                      "feature_shards": {"global": ["features"]}, "id_columns": ["userId"]},
+            "coordinates": {
+                "fixed": {"type": "fixed_effect", "shard_name": "global",
+                          "optimizer": {"regularization": "l2", "regularization_weight": 0.1}},
+                "perUser": {"type": "random_effect", "shard_name": "global",
+                            "id_name": "userId",
+                            "optimizer": {"regularization": "l2",
+                                          "regularization_weight": 1.0}}},
+            "num_iterations": 1,
+            "heartbeat": False,
+            "output_dir": str(tmp / f"{pkg}-base-model"),
+            "checkpoint": {"dir": str(tmp / f"{pkg}-base-ckpt"), "resume": False},
+        }
+        cfg_path = tmp / f"{pkg}-train.json"
+        cfg_path.write_text(json.dumps(config))
+        run(dict(config), **({"device": "cpu"} if pkg == "t" else {}))
+        out[pkg] = {"cfg_path": str(cfg_path), "ckpt": config["checkpoint"]["dir"]}
+    return out
+
+
+def test_cli_refresh_quarantines_label_shuffled_delta(quality_cli_base):
+    import contextlib
+    import io
+
+    from photon_ml_tpu.cli.refresh import main as j_refresh
+    from photon_ml_tpu_torch.cli.refresh import main as t_refresh
+
+    base = quality_cli_base
+    tmp = base["tmp"]
+
+    def refresh(pkg, delta, out_name):
+        argv = ["--config", base[pkg]["cfg_path"], "--warm-start", base[pkg]["ckpt"],
+                "--delta", base[delta], "--registry-dir", str(tmp / f"{pkg}-registry"),
+                "--output-dir", str(tmp / f"{pkg}-{out_name}")]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = t_refresh(argv + ["--device", "cpu"]) if pkg == "t" else j_refresh(argv)
+        assert rc == 0
+        return json.loads(buf.getvalue().strip().splitlines()[-1])["freshness"]
+
+    reg = str(tmp / "t-registry")
+    # 1: a clean delta into an empty registry: published with error bars
+    f1, j1 = refresh("t", "clean_delta", "fresh-1"), refresh("j", "clean_delta", "fresh-1")
+    assert f1["published_version"].endswith("v-00000001")
+    q1 = f1["quality"]
+    assert q1["auc_ci_low"] <= q1["auc"] <= q1["auc_ci_high"]
+    assert q1["bootstrap_samples"] == 32
+    assert q1["auc"] == pytest.approx(j1["quality"]["auc"], abs=1e-3)
+    assert q1["bootstrap"]["num_samples"] == 32
+    buckets = q1["bootstrap"]["coordinates"]["perUser"]
+    assert sum(b["touched_lanes"] for b in buckets.values()) >= 1
+    assert any(b.get("mean_ci_width", 0) > 0 for b in buckets.values())
+    assert "quality_gate" not in f1
+    with open(os.path.join(reg, "v-00000001", "model-metadata.json")) as fh:
+        meta = json.load(fh)
+    assert meta["extra"]["quality"]["gate"]["decision"] == "no_champion"
+    assert meta["extra"]["lineage"]["quality_gate"]["decision"] == "no_champion"
+
+    # 2: the label-shuffled delta: the candidate's AUC falls below the
+    # champion's CI, so it is quarantined (exit 0: a refusal is a result)
+    f2, j2 = refresh("t", "bad_delta", "fresh-2"), refresh("j", "bad_delta", "fresh-2")
+    assert "published_version" not in f2
+    gate = f2["quality_gate"]
+    assert gate["decision"] == "quarantined" == j2["quality_gate"]["decision"]
+    assert gate["champion_version"] == "v-00000001"
+    assert gate["candidate"]["auc"] < gate["champion"]["auc_ci_low"]
+    assert os.path.basename(gate["quarantine_path"]) == "quarantined-v-00000002"
+    assert os.path.isdir(gate["quarantine_path"])
+    assert [os.path.basename(p) for _, p in scan_versions(reg)] == ["v-00000001"]
+
+    # 3: a healthy challenger publishes into the slot the refusal never took
+    f3, j3 = refresh("t", "clean_delta2", "fresh-3"), refresh("j", "clean_delta2", "fresh-3")
+    assert f3["published_version"].endswith("v-00000002")
+    assert "quality_gate" not in f3 and "quality_gate" not in j3
+    with open(os.path.join(reg, "v-00000002", "model-metadata.json")) as fh:
+        g3 = json.load(fh)["extra"]["quality"]["gate"]
+    assert g3["decision"] == "published" and g3["champion_version"] == "v-00000001"
+    for f, j in ((f1, j1), (f2, j2), (f3, j3)):
+        for key in ("lanes_solved", "lanes_skipped", "bucket_solves", "buckets_skipped",
+                    "new_entities"):
+            assert f[key] == j[key], key
