@@ -123,6 +123,22 @@ Phases, in order; any failure exits non-zero before the last line:
        15b. the served model in an entity-sharded engine over a ``model``
            axis of 4 (cuda:0 repeated on one card), within 1e-6 of path
            15's engine on the same rows;
+       15c. the serving fleet on path 15's version 2 (its 99,997 users
+           padded to 100,000 by 3 ids with no model): (a) 4 in-process
+           members (``load_member_engine``, ``ShardMemberSource``) behind a
+           ``FleetRouter``, 500 calls of 1-64 rows within 1e-6 of a single
+           engine, a repeat bit for bit, each member's tables about a
+           quarter, a pin to another version refused with 409, member 1 stopped and its
+           rows shed to FE-only exactly; (b) 4 ``cli serve --member``
+           processes on the card (``tools/serving_fleet.py``) under a budget
+           the full model exceeds (a 1-member fleet refused), traffic
+           through the router, member 1 hard-killed, detected by heartbeat
+           and relaunched, a live resize 4 -> 8 -> 4: zero failed calls,
+           64 rows routed at each settled view within 1e-6 of the single
+           engine, every member reporting the card and draining to exit
+           75; a probe before and after the path (``host_probe``: threads,
+           child processes, memory, a fixed host workload and matmul) and
+           a failure if the path left a process running;
        16. bench_freshness.py's config #4 (1M rows, 100K users, the last
            50,000 rows over 5% of the users as the delta, 50,000 validation
            rows; FE LBFGS 20, RE NEWTON, L2 1, tolerance 1e-7, 2 CD
@@ -197,8 +213,9 @@ Phases, in order; any failure exits non-zero before the last line:
            its validation AUC within 1e-3 of ``fit`` at its lambda;
            ``fit_grid`` over two fixed effects (L2 1 and 10) best-first,
            each entry bit for bit its combination's ``fit``;
-       11. BASELINE config #5 (bench_northstar.py: 20M rows, 138,493 users,
-           26,744 movies; a fixed effect on movieFeatures, per-user and
+       11. BASELINE config #5 (bench_northstar.py: 138,493 users, 26,744
+           movies, its 20M rows cut to NS_ROWS = 10M, every user and movie
+           still drawn ~72 and ~374 times; a fixed effect on movieFeatures, per-user and
            per-movie NEWTON random effects and the factored ``mf``
            coordinate, latent_dim 2, its kron refit on the margins and
            scatter kernels) through ``GameEstimator.fit`` with 1M
@@ -248,7 +265,10 @@ PLATEAU_RTOL = 1e-5
 RE_BOX = ((0, -0.5, 0.5),)  # path 9's per-user box, on global feature 0
 VARIANCE_LANES = 1_000
 VARIANCE_RTOL = 1e-4
-NS_ROWS = 20_000_000  # bench_northstar.py (BASELINE config #5): rows, users, movies
+# bench_northstar.py (BASELINE config #5): rows, users, movies. Its 20M rows
+# are cut to 10M to keep the whole script inside its time limit: a depth cut,
+# the model's width (every user and movie, every feature) unchanged
+NS_ROWS = 10_000_000
 NS_VAL = 1_000_000
 NS_USERS = 138_493
 NS_MOVIES = 26_744
@@ -287,6 +307,14 @@ NEARLINE_USERS = 256  # path 15's feedback events: 4 rows each of 256 users
 NEARLINE_ATOL = 1e-6  # tests/test_serving_sharded.py:519
 GATE_SAMPLES = 16  # bootstrap resamples of the quality gate's AUC CI
 SERVE_MESH = 4  # path 15b: the entity-sharded engine's model axis
+FLEET_SIZE = 4  # path 15c: members; 100,000 users divide over 4 and 8
+FLEET_CALLS = 500  # path 15c (a): router calls of 1 to SERVE_MAX_BATCH rows
+# path 15c (b): the router's traffic, the kill and the resizes, seconds from
+# the first call; a step that finds the previous one still running starts
+# when it ends
+FLEET_TRAFFIC = dict(traffic_seconds=40.0, traffic_hz=20.0, traffic_rows=16,
+                     traffic_features=(("global", NNZ_PER_ROW), ("user", GAME_RE_FEATURES)),
+                     kill_member=1, kill_after_s=1.5, resizes=((20.0, 8), (38.0, 4)))
 FRESH_DELTA_FRACTION = 0.05  # bench_freshness.py:47: the delta's share of users (and rows)
 FRESH_AUC_GAP = 0.02  # bench_freshness.py:48: |AUC(incremental) - AUC(from scratch)|
 FRESH_PUBLISHES = 3  # bench_freshness.py:285-313: publish + hot swap samples
@@ -498,12 +526,16 @@ def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
     return rows
 
 
-def launches_per_call(fn, want: int, attempts: int = 3) -> int | None:
+def launches_per_call(fn, want: int, attempts: int = 5, pad_s: float = 0.02) -> int | None:
     """Kernel launches of one call of ``fn``, counted by torch.profiler. A
-    trace can lose device events (two traces on the card read 0 and 1 of a
-    call's 2 launches), never add them, so a count under ``want`` is taken
-    again, up to ``attempts`` traces, and the largest count is returned
-    (None when no trace saw device activity)."""
+    trace can lose device events (traces on the card have read 0 and 1 of a
+    call's 2 launches, one run 1 three times in a row), never add them. The
+    profiler can drop a device event that falls outside the trace's window
+    on the host's clock, and a call traced edge to edge leaves its first and
+    last kernels no room there, so the call is padded by ``pad_s`` of idle
+    host time on each side. A count under ``want`` is taken again, up to
+    ``attempts`` traces, and the largest count is returned (None when no
+    trace saw device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -511,8 +543,10 @@ def launches_per_call(fn, want: int, attempts: int = 3) -> int | None:
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
             fn()
             torch.cuda.synchronize()
+            time.sleep(pad_s)
         kernels = [ev for ev in prof.events()
                    if ev.device_type == torch.autograd.DeviceType.CUDA
                    and not ev.name.startswith(("Memcpy", "Memset"))]
@@ -4510,6 +4544,368 @@ def run_mesh_serving_path(registry, probe_rows, card: str) -> tuple[dict, dict]:
     return launches, stats
 
 
+def _pad_vocabulary(model, multiple: int):
+    """``model`` with every random-effect coordinate's vocabulary extended,
+    past its largest value, by ids that no row carries, up to a multiple of
+    ``multiple``; they have no model (bucket -1), so every score is the
+    unpadded model's. Coordinates keyed by one id get the same ids."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.game.models import RandomEffectModel
+
+    for name, sub in model.models.items():
+        if not isinstance(sub, RandomEffectModel):
+            continue
+        vocab = np.asarray(sub.vocab)
+        pad = -len(vocab) % multiple
+        if not pad:
+            continue
+        if vocab.dtype.kind in "iu":
+            extra = vocab.max() + 1 + np.arange(pad, dtype=vocab.dtype)
+        else:
+            extra = np.array([f"~pad-{i:04d}" for i in range(pad)], dtype=vocab.dtype)
+        model = model.with_model(name, dataclasses.replace(
+            sub, vocab=np.concatenate([vocab, extra]),
+            entity_bucket=np.concatenate([sub.entity_bucket,
+                                          np.full(pad, -1, sub.entity_bucket.dtype)]),
+            entity_pos=np.concatenate([sub.entity_pos, np.full(pad, -1, sub.entity_pos.dtype)])))
+    return model
+
+
+def _row_owner(lookups: dict, rows, fleet_size: int) -> np.ndarray:
+    """The member owning each row's user (every row of path 6 has one)."""
+    from photon_ml_tpu_torch.parallel.sharding import owner_of_row
+
+    table = lookups["userId"]
+    return np.array([owner_of_row(len(table), table[str(r["ids"]["userId"])], fleet_size)
+                     for r in rows])
+
+
+def _proc_lines(path: str) -> list[str]:
+    """The lines of a /proc file; none where the machine does not have it."""
+    try:
+        with open(path) as fh:
+            return fh.read().splitlines()
+    except OSError:
+        return []
+
+
+def _proc_stat(pid: str):
+    """(comm, ppid, user + system CPU seconds) of a process from /proc."""
+    head, rest = _proc_lines(f"/proc/{pid}/stat")[0].rsplit(")", 1)
+    fields = rest.split()
+    tick = os.sysconf("SC_CLK_TCK")
+    return head.split("(", 1)[1], int(fields[1]), (int(fields[11]) + int(fields[12])) / tick
+
+
+def host_probe(label: str) -> dict:
+    """What a path may leave behind, and fixed workloads timed now, so that
+    paths run before and after it can be compared within one run: this
+    process's threads, children, resident and swapped bytes, tracked Python
+    objects and CPU seconds while it sleeps; every other process on the
+    machine with its CPU seconds; the load average and the machine's memory
+    and swap, where /proc has them; the card's allocated and reserved bytes;
+    the seconds of a fixed host workload (numpy sort, a Python loop, 1 GiB
+    allocated and touched) and the milliseconds of a fixed matmul on the
+    card."""
+    import gc
+    import threading
+
+    import torch
+
+    me = os.getpid()
+    others = []
+    for pid in os.listdir("/proc"):
+        if pid.isdigit() and int(pid) != me:
+            try:
+                comm, ppid, cpu_s = _proc_stat(pid)
+            except (IndexError, ValueError):
+                continue
+            if int(pid) != 2 and ppid != 2:  # not the kernel's threads
+                others.append([int(pid), ppid, comm, round(cpu_s, 2)])
+    children = sorted(p[0] for p in others if p[1] == me)
+    status = {ln.split(":")[0]: int(ln.split()[1]) * 1024
+              for ln in _proc_lines("/proc/self/status") if ln.startswith(("VmRSS", "VmSwap"))}
+    meminfo = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in _proc_lines("/proc/meminfo")
+               if ln.startswith(("MemTotal", "MemAvailable", "Cached", "SwapTotal", "SwapFree"))}
+    load = (_proc_lines("/proc/loadavg") or [""])[0].split()[:3]
+    c0 = time.process_time()
+    time.sleep(1.0)
+    idle_cpu_s = time.process_time() - c0
+    t0 = time.perf_counter()
+    np.sort(np.random.default_rng(0).standard_normal(4_000_000))
+    sum(i * i for i in range(2_000_000))
+    np.ones(2**27).sum()
+    host_s = time.perf_counter() - t0
+    a = torch.ones(4096, 4096, device="cuda")
+    a @ a
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        a @ a
+    end.record()
+    end.synchronize()
+    del a
+    out = {"threads": sorted(t.name for t in threading.enumerate()), "children": children,
+           "others": others, "loadavg": load, "rss_bytes": status.get("VmRSS"),
+           "swap_bytes": status.get("VmSwap"), "meminfo": meminfo,
+           "python_objects": len(gc.get_objects()), "idle_cpu_s": round(idle_cpu_s, 4),
+           "allocated_bytes": torch.cuda.memory_allocated(),
+           "reserved_bytes": torch.cuda.memory_reserved(), "host_probe_s": round(host_s, 4),
+           "matmul_probe_ms": round(start.elapsed_time(end), 4)}
+    print(f"probe {label}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_fleet_path(gds, registry_dir: str, seed: int, card: str,
+                   work: str) -> tuple[dict, dict]:
+    """Path 15c: the serving fleet on path 15's registry version 2 (path 9's
+    model, both random effects keyed by ``userId``). Its 99,997 users divide
+    over no fleet of 2-18 members, so the fleet serves it republished with
+    the vocabulary padded to 100,000 (``_pad_vocabulary``: 3 ids with no
+    model) into a registry of its own; the single engine it is held
+    against loads version 2 itself.
+
+    (a) In process: FLEET_SIZE ``ScoringServer``s, each over a
+    ``ShardMemberSource`` on ``load_member_engine(v2, m, 4)`` on the card,
+    and a ``FleetRouter`` over their announce files. FLEET_CALLS router
+    calls of 1-64 of path 6's rows, each within 1e-6 of a single engine on
+    v2 (``csr_margins`` launched by the members, counted around the calls);
+    one call repeated bit for bit; each member's table bytes about a quarter
+    of the full model's; a ``/v1/margins`` pinned to a version the members
+    do not hold refused with 409;
+    member 1's server stopped, the next call answering every row, the rows
+    whose user member 1 owns equal to the single engine's FE-only scores
+    within 1e-6 and ``serving.degraded_scores`` grown by exactly their
+    count.
+
+    (b) ``tools/serving_fleet.run_serving_fleet``: FLEET_SIZE ``cli serve
+    --member`` processes on the card (member m on cuda:m mod count) under
+    an ``--hbm-budget-mb`` halfway between a slice's bytes and the full
+    model's (a member of a 1-member fleet, started beside them, must exit
+    with ``ShardBudgetError``); traffic through the router; member 1
+    hard-killed, detected by heartbeat and relaunched in its slot; a live
+    resize 4 -> 8 -> 4. Zero failed calls, degraded rows in the kill window
+    and none after the recovery, epoch 2 at size 4, every member on the
+    card and every one but the killed exiting 75."""
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.data.model_store import load_feature_index_maps, load_game_model
+    from photon_ml_tpu_torch.parallel.sharding import valid_fleet_sizes
+    from photon_ml_tpu_torch.serving import (
+        FleetRouter,
+        ScoringEngine,
+        ScoringServer,
+        ScoringService,
+        ShardMemberSource,
+        fleet_lookups_from_version_dir,
+        load_member_engine,
+        publish_version,
+        write_announce,
+    )
+    from photon_ml_tpu_torch.tools import serving_fleet
+
+    bad = []
+    t_path = time.perf_counter()
+    src = os.path.join(registry_dir, "v-00000002")
+    t0 = time.perf_counter()
+    model = load_game_model(src, device="cpu")
+    vocab_sizes = {name: len(sub.vocab) for name, sub in model.models.items()
+                   if hasattr(sub, "vocab")}
+    vdir = publish_version(os.path.join(work, "fleet-registry"),
+                           _pad_vocabulary(model, 2 * FLEET_SIZE),
+                           load_feature_index_maps(src))
+    version = os.path.basename(vdir)
+    del model
+    task, link, lookups = fleet_lookups_from_version_dir(vdir)
+    republish_s = time.perf_counter() - t0
+    print(f"path 15c: vocabularies {vocab_sizes} padded to {len(lookups['userId'])} "
+          f"(valid fleet sizes before: {valid_fleet_sizes(min(vocab_sizes.values()))}); "
+          f"republished as {vdir} in {republish_s:.4f} s", flush=True)
+    telemetry.reset()
+    t0 = time.perf_counter()
+    full = ScoringEngine.load(src, max_batch=SERVE_MAX_BATCH).warmup()
+    rng = np.random.default_rng(seed + 153)
+    sizes = rng.integers(1, SERVE_MAX_BATCH + 1, size=FLEET_CALLS)
+    starts = rng.integers(0, gds.num_rows - SERVE_MAX_BATCH, size=FLEET_CALLS)
+    all_rows = serving_rows(gds, np.concatenate([np.arange(a, a + n)
+                                                 for a, n in zip(starts, sizes)]))
+    want = full.score_rows(all_rows).astype(np.float64)
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    kill_rows = all_rows[:SERVE_MAX_BATCH]
+    fe_only = full.score_rows([{k: v for k, v in r.items() if k != "ids"}
+                               for r in kill_rows]).astype(np.float64)
+    engines = {m: load_member_engine(vdir, m, FLEET_SIZE, max_batch=SERVE_MAX_BATCH)
+               for m in range(FLEET_SIZE)}
+    load_s = time.perf_counter() - t0
+    member_bytes = [engines[m].model_bytes for m in range(FLEET_SIZE)]
+    shares = [b / full.model_bytes for b in member_bytes]
+    print(f"path 15c (a) tables: full={full.model_bytes} members={member_bytes} "
+          f"shares={[round(x, 4) for x in shares]} version={version} load_s={load_s:.4f}",
+          flush=True)
+    if not all(0.2 <= x <= 0.3 for x in shares):
+        bad.append(f"member table shares {shares}, not about a quarter")
+    announce = os.path.join(work, "fleet-announce")
+    servers = []
+    router = None
+    stats = {"card": card, "version": version, "vocab_sizes": vocab_sizes,
+             "republish_s": republish_s, "full_bytes": full.model_bytes,
+             "member_bytes": member_bytes}
+    try:
+        for m, engine in engines.items():
+            src = ShardMemberSource(lambda fs, v=None, _e=engine: _e, member=m,
+                                    fleet_size=FLEET_SIZE)
+            src.commit(*src.stage(FLEET_SIZE))
+            server = ScoringServer(ScoringService(src, max_batch=SERVE_MAX_BATCH), port=0).start()
+            servers.append(server)
+            write_announce(announce, {"member": m, "fleet_size": FLEET_SIZE, "epoch": 0,
+                                      "url": f"http://127.0.0.1:{server.port}",
+                                      "version": engine.version, "ready": True})
+        router = FleetRouter(announce, lookups, task=task, link=link, member_timeout_s=10.0,
+                             cooldown_s=60.0, backoff_s=0.01)
+        router.refresh()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        worst, lat = 0.0, []
+        for c in range(FLEET_CALLS):
+            rows = all_rows[bounds[c]:bounds[c + 1]]
+            t_call = time.perf_counter()
+            got = router.score_rows(rows)
+            lat.append(time.perf_counter() - t_call)
+            worst = max(worst, float(np.max(np.abs(got - want[bounds[c]:bounds[c + 1]]))))
+        calls_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        again = router.score_rows(kill_rows)
+        twice = bool(np.array_equal(again, router.score_rows(kill_rows)))
+        req = urllib.request.Request(
+            router.view.endpoints[0] + "/v1/margins", headers={"Content-Type": "application/json"},
+            data=json.dumps({"rows": kill_rows[:2], "fleet_size": FLEET_SIZE,
+                             "version": "v-00000002"}).encode())
+        pinned = None
+        try:
+            urllib.request.urlopen(req, timeout=10)
+        except urllib.error.HTTPError as e:
+            pinned = e.code
+        servers[1].stop()  # member 1 gone
+        owner = _row_owner(lookups, kill_rows, FLEET_SIZE)
+        lost = owner == 1
+        d0 = telemetry.counter("serving.degraded_scores").value
+        got = router.score_rows(kill_rows).astype(np.float64)
+        shed = int(telemetry.counter("serving.degraded_scores").value - d0)
+        lost_err = float(np.max(np.abs(got[lost] - fe_only[lost]))) if lost.any() else 0.0
+        kept_err = float(np.max(np.abs(got[~lost] - want[:SERVE_MAX_BATCH][~lost])))
+    finally:
+        if router is not None:
+            router.close()
+        for server in servers:
+            server.stop()
+        servers.clear()  # the services hold the member engines
+    stats["in_process"] = {
+        "calls": FLEET_CALLS, "rows": int(bounds[-1]), "calls_s": calls_s,
+        "p50_ms": _percentile_ms(lat, 50), "p99_ms": _percentile_ms(lat, 99),
+        "max_abs_err": worst, "bit_identical_repeat": twice, "pinned_other_status": pinned,
+        "kill_rows": len(kill_rows), "lost_rows": int(lost.sum()), "degraded_counted": shed,
+        "lost_vs_fe_only": lost_err, "kept_err": kept_err,
+        "csr_margins": launches.get("csr_margins", 0)}
+    print(f"path 15c (a): {json.dumps(stats['in_process'])} card={card}", flush=True)
+    if not worst <= SERVE_ATOL:
+        bad.append(f"routed scores differ from the single engine by {worst}")
+    if not twice:
+        bad.append("two routed calls of the same rows differ")
+    if pinned != 409:
+        bad.append(f"a margin call pinned to v-00000002 answered {pinned}, not 409")
+    if shed != int(lost.sum()) or not lost.any():
+        bad.append(f"degraded rows {shed} for {int(lost.sum())} rows member 1 owns")
+    if not (lost_err <= SERVE_ATOL and kept_err <= SERVE_ATOL):
+        bad.append(f"after the stop: lost rows vs FE-only {lost_err}, kept rows {kept_err}")
+    if launches.get("csr_margins", 0) == 0:
+        bad.append("csr_margins not launched by the members")
+    del engines, full
+    torch.cuda.empty_cache()
+
+    # (b) the subprocess fleet on the card
+    spec = serving_fleet.ServingFleetSpec(
+        workdir=os.path.join(work, "fleet"), model_dir=vdir, fleet_size=FLEET_SIZE,
+        max_batch=SERVE_MAX_BATCH, device="cuda",
+        hbm_budget_mb=(max(member_bytes) + stats["full_bytes"]) / 2 / 2**20,
+        heartbeat_deadline_s=3.0, warm_timeout_s=240.0, timeout_s=420.0,
+        member_timeout_s=3.0, rng_seed=seed + 154, check_rows=tuple(kill_rows),
+        **FLEET_TRAFFIC)
+    os.makedirs(spec.announce_dir(), exist_ok=True)
+    os.makedirs(spec.fleet_dir(), exist_ok=True)
+    lone = serving_fleet._launch_serving_member(spec, 0, 1, 99)
+    t0 = time.perf_counter()
+    try:
+        run = serving_fleet.run_serving_fleet(spec)
+        lone_rc = lone.proc.wait(timeout=240)
+    finally:
+        if lone.proc.poll() is None:
+            lone.proc.kill()
+            lone.proc.wait()
+    run_s = time.perf_counter() - t0
+    with open(lone.err_path) as fh:
+        lone_refused = lone_rc != 0 and "ShardBudgetError" in fh.read()
+    samples = run.pop("samples")
+    kill = run.get("kill", {})
+    t_rec = kill.get("t_kill", 0.0) + kill.get("recovery_s", float("inf"))
+    in_kill = sum(s[3] for s in samples if kill.get("t_kill", 0.0) <= s[0] <= t_rec)
+    after = sum(s[3] for s in samples if s[0] > t_rec)
+    resizes = [ev["resize"] for ev in run["events"] if "resize" in ev]
+    # kill_rows routed at every settled view, held against the single engine
+    checked = [{"at": c["at"], "epoch": c["epoch"], "fleet_size": c["fleet_size"],
+                "max_abs_err": float(np.max(np.abs(np.asarray(c["scores"])
+                                                   - want[:SERVE_MAX_BATCH])))}
+               for c in run["checks"]]
+    stats["subprocess"] = {
+        "run_s": run_s, "budget_mb": spec.hbm_budget_mb, "lone_rc": lone_rc,
+        "lone_refused": lone_refused, "calls": len(samples), "failures": run["failures"][:5],
+        "routed_rows": run["routed_rows"], "degraded_scores": run["degraded_scores"],
+        "degraded_in_kill_window": in_kill, "degraded_after_recovery": after,
+        "member_failures": run["member_failures"], "kill": kill,
+        "resizes": resizes, "checks": checked, "epoch": run["epoch"],
+        "fleet_size": run["fleet_size"],
+        "quiet_latency": run["quiet_latency"], "members": run["members"]}
+    print(f"path 15c (b): {json.dumps(stats['subprocess'])} card={card}", flush=True)
+    if not lone_refused:
+        bad.append(f"a 1-member fleet under the budget was not refused (rc {lone_rc})")
+    if run["failures"]:
+        bad.append(f"{len(run['failures'])} failed router calls: {run['failures'][:3]}")
+    if not (in_kill > 0 and after == 0):
+        bad.append(f"degraded rows {in_kill} in the kill window, {after} after the recovery")
+    if [(r["from"], r["to"]) for r in resizes] != [(FLEET_SIZE, 2 * FLEET_SIZE),
+                                                   (2 * FLEET_SIZE, FLEET_SIZE)]:
+        bad.append(f"resizes {resizes}")
+    if (run["epoch"], run["fleet_size"]) != (2, FLEET_SIZE):
+        bad.append(f"ended at epoch {run['epoch']}, size {run['fleet_size']}")
+    sizes_checked = [c["fleet_size"] for c in checked]
+    if sizes_checked != [FLEET_SIZE, FLEET_SIZE, 2 * FLEET_SIZE, FLEET_SIZE]:
+        bad.append(f"routed checks at fleet sizes {sizes_checked}")
+    if not all(c["max_abs_err"] <= SERVE_ATOL for c in checked):
+        bad.append(f"routed checks differ from the single engine: {checked}")
+    for mem in run["members"]:
+        # the device each member reports, in its banner and its drain line
+        said = [(mem.get(k) or {}).get("device") for k in ("banner", "drained")]
+        if mem["killed"]:
+            said = said[:1]
+        if not all(str(d).startswith("cuda") for d in said):
+            bad.append(f"member {mem['member']} (epoch {mem['epoch']}) reports devices {said}")
+        if mem["rc"] != 75 and not mem["killed"]:
+            bad.append(f"member {mem['member']} (epoch {mem['epoch']}) exited {mem['rc']}")
+    if sum(mem["killed"] for mem in run["members"]) != 1:
+        bad.append("the killed member is not accounted for")
+    stats["path_s"] = time.perf_counter() - t_path
+    print(f"path 15c: path_s={stats['path_s']:.4f} launches={json.dumps(launches)} "
+          f"card={card}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 15c: bad result: {bad}")
+    return launches, stats
+
+
 def make_freshness_problem(seed: int):
     """bench_freshness.py:118-176's data, the same draws in the same order:
     config #4's GLMix rows (1M rows, 100K users, a 10K-feature fixed-effect
@@ -5029,7 +5425,7 @@ def main() -> int:
 
 def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, train: dict,
                prof: dict) -> int:
-    """Paths 8, 6, 9-9c and 11b, 15, 15b, 16, 16b, 10, 13, 13b, 12d, 16c, 12b, 11 and 7,
+    """Paths 8, 6, 9-9c and 11b, 15, 15b, 15c, 16, 16b, 10, 13, 13b, 12d, 16c, 12b, 11 and 7,
     then the ``kernels`` line and the result line; ``work`` holds path 8's
     files for paths 10 and 12d, path 10's for 12d and 16c, and path 16's
     checkpoint for 16b."""
@@ -5067,9 +5463,20 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
         prof["15"] = serve_prof
     mark("path 15", train)
     by_path["15b"], train["15b"] = run_mesh_serving_path(registry, probe_rows, card)
-    del gds, models, registry, probe_rows
+    del models, registry, probe_rows
     torch.cuda.empty_cache()
     mark("path 15b", train)
+    probes = {"before 15c": host_probe("before path 15c")}
+    by_path["15c"], train["15c"] = run_fleet_path(gds, os.path.join(work, "registry"),
+                                                  args.seed, card, work)
+    del gds
+    torch.cuda.empty_cache()
+    mark("path 15c", train)
+    probes["after 15c"] = host_probe("after path 15c")
+    train["15c"]["probes"] = probes
+    if probes["after 15c"]["children"]:
+        raise RuntimeError(f"path 15c left processes running: "
+                           f"{probes['after 15c']['children']}")
     by_path["16"], train["16"], fresh = run_freshness_path(args.seed, card, work)
     mark("path 16", train)
     by_path["16b"], train["16b"] = run_mesh_freshness_path(card, fresh)

@@ -12,6 +12,13 @@ counterpart of the batch ``cli score`` driver:
 
     python -m photon_ml_tpu_torch.cli serve --model-dir out/model/best --stdio
 
+    python -m photon_ml_tpu_torch.cli serve --registry-dir out/registry \\
+        --member 1 --fleet-size 4 --announce-dir out/fleet \\
+        --heartbeat-dir out/fleet/alive --hbm-budget-mb 64 --port 0
+
+    python -m photon_ml_tpu_torch.cli serve --registry-dir out/registry \\
+        --router --announce-dir out/fleet --port 8080
+
 ``--registry-dir`` watches a versioned models directory and hot-swaps to the
 newest valid version (serving/registry.py); ``--model-dir`` pins one saved
 model (still requiring its ``feature-indexes/``). ``--mesh model=N`` splits
@@ -27,11 +34,22 @@ continuous`` swaps the deadline batcher for continuous batching.
 (default cuda) is where the model is served; ``cpu`` runs the kernels'
 plain versions.
 
-Refused with ``NotImplementedError`` naming their ROADMAP item: the fleet
-flags (``--member``, ``--fleet-size``, ``--router``, ``--announce-dir``,
-``--epoch``, ``--member-timeout-s``, ``--router-refresh-s``,
-``--heartbeat-dir``: Queue 1 item 14a (ii)) and the telemetry flags
-(``--telemetry-out``, ``--trace-out``, ``--trace-sample-every``: item 14d).
+``--member i --fleet-size N`` serves as one shard-owning fleet member: the
+process loads only its entity block of every random-effect table
+(serving/shard.py), holds ``--hbm-budget-mb`` against the SLICE, announces
+``member-<i>.json`` into ``--announce-dir`` once warm (and again at each
+commit, at the new size and epoch), touches ``proc-<i>.alive`` under
+``--heartbeat-dir``, and takes ``/v1/admin/stage`` + ``/v1/admin/commit``
+for live resizes and hot swaps; at drain it prints its device's peak
+allocated bytes. ``--router`` serves the fleet's routing front end instead:
+lookups fan out to the owning members found in the announce directory and
+the partial margins fold exactly (serving/router.py); an unreachable
+member's rows degrade to fixed-effect-only scores. The router does no work
+on a device (it folds on the host, as the reference's does), so it takes no
+``--device``.
+
+Refused with ``NotImplementedError`` naming ROADMAP item 14d: the telemetry
+flags ``--telemetry-out``, ``--trace-out`` and ``--trace-sample-every``.
 
 SIGTERM/SIGINT drains gracefully: admission closes (503 with
 ``Retry-After``), in-flight batches finish, and the process exits 75. A
@@ -42,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -51,12 +70,7 @@ NOT_PORTED = ("the 'serve' flag {flag} is not ported to photon_ml_tpu_torch yet 
               "(ROADMAP.md Queue 1 item {item})")
 
 # the reference's flags that this package refuses, with their ROADMAP item
-_REFUSED = {
-    "--member": "14a (ii)", "--fleet-size": "14a (ii)", "--router": "14a (ii)",
-    "--announce-dir": "14a (ii)", "--epoch": "14a (ii)", "--member-timeout-s": "14a (ii)",
-    "--router-refresh-s": "14a (ii)", "--heartbeat-dir": "14a (ii)",
-    "--telemetry-out": "14d", "--trace-out": "14d", "--trace-sample-every": "14d",
-}
+_REFUSED = {"--telemetry-out": "14d", "--trace-out": "14d", "--trace-sample-every": "14d"}
 
 
 def _build_mesh(raw: str, device):
@@ -108,7 +122,82 @@ def _check_budget(engine, budget_mb) -> None:
                              f"{engine.device}")
 
 
+def _check_fleet_flags(args) -> None:
+    """The reference's refusals of fleet flag combinations, before anything
+    loads."""
+    if args.member is not None and args.router:
+        raise SystemExit("--member and --router are different fleet processes; run one")
+    if args.member is not None or args.router:
+        if not args.announce_dir:
+            raise SystemExit("--member/--router require --announce-dir")
+        incompatible = [flag for flag, on in (("--stdio", args.stdio),
+                                              ("--nearline", args.nearline),
+                                              ("--mesh", args.mesh)) if on]
+        if incompatible:
+            raise SystemExit("fleet processes replicate fixed effects and slice random-effect "
+                             "tables per member; drop " + ", ".join(incompatible))
+    if args.member is not None and args.fleet_size is None:
+        raise SystemExit("--member requires --fleet-size")
+
+
+def _version_dir(args, version=None) -> str:
+    """A registry version (None: the newest) -> its published directory;
+    ``--model-dir`` pins one directory. An unknown version raises
+    ``KeyError`` (the front ends answer 409)."""
+    from photon_ml_tpu_torch.serving import scan_versions
+
+    if args.model_dir:
+        return args.model_dir
+    versions = scan_versions(args.registry_dir)
+    if not versions:
+        raise SystemExit(f"no published versions under {args.registry_dir}")
+    if version is None:
+        return versions[-1][1]
+    for _, path in versions:
+        if os.path.basename(os.path.normpath(path)) == str(version):
+            return path
+    raise KeyError(f"version {version!r} is not published under {args.registry_dir}")
+
+
+def _owned_ranges(args, fleet_size: int, version: str) -> dict:
+    """``{id_name: [lo, hi]}`` this member serves, from the version's
+    ``model-metadata.json`` (for the announce record)."""
+    from photon_ml_tpu_torch.parallel.sharding import member_row_range
+
+    try:
+        with open(os.path.join(_version_dir(args, version), "model-metadata.json")) as fh:
+            meta = json.load(fh)
+        out = {}
+        for spec in (meta.get("coordinates") or {}).values():
+            if spec.get("type") == "random_effect":
+                out[spec["id_name"]] = list(member_row_range(int(spec["num_entities"]),
+                                                             args.member, fleet_size))
+        return out
+    except (OSError, ValueError, KeyError):
+        return {}
+
+
+def _member_source(args, device):
+    """A ``ShardMemberSource`` over ``load_member_engine``, its first slice
+    staged and committed (loaded and warmed before serving: announcing is
+    the readiness barrier)."""
+    from photon_ml_tpu_torch.serving import ShardMemberSource, load_member_engine
+
+    budget = None if args.hbm_budget_mb is None else int(args.hbm_budget_mb * 2**20)
+
+    def load_slice(fleet_size, version=None):
+        return load_member_engine(
+            _version_dir(args, version), args.member, fleet_size, max_batch=args.max_batch,
+            max_row_nnz=args.max_row_nnz, hbm_budget_bytes=budget,
+            re_checkpoints=_parse_re_checkpoints(args.re_checkpoint), device=device)
+
+    source = ShardMemberSource(load_slice, member=args.member, fleet_size=args.fleet_size)
+    source.commit(*source.stage(args.fleet_size))
+    return source
+
+
 def main(argv=None) -> int:
+    t_main = time.monotonic()
     parser = argparse.ArgumentParser(prog="photon_ml_tpu_torch.cli serve",
                                      description=__doc__.splitlines()[0])
     src = parser.add_mutually_exclusive_group(required=True)
@@ -153,19 +242,37 @@ def main(argv=None) -> int:
     parser.add_argument("--stdio", action="store_true",
                         help="serve a JSONL request/response loop on stdin/stdout")
     parser.add_argument("--hbm-budget-mb", type=float,
-                        help="fail start-up when the model's tables exceed this many MiB")
+                        help="fail start-up when the model's tables (a fleet member: its "
+                        "slice's) exceed this many MiB")
     parser.add_argument("--device", default="cuda",
                         help="the device that serves the model (default cuda; cpu runs "
                         "the kernels' plain PyTorch versions)")
+    fleet = parser.add_argument_group("serving fleet (shard-owning members + routing front end)")
+    fleet.add_argument("--member", type=int, help="serve as shard-owning fleet member i: load "
+                       "only this member's entity block of every random-effect table")
+    fleet.add_argument("--fleet-size", type=int, help="fleet size N the ownership map is "
+                       "derived from (required with --member)")
+    fleet.add_argument("--router", action="store_true", help="serve as the fleet's routing "
+                       "front end: fan lookups out to the owning members, fold exactly")
+    fleet.add_argument("--announce-dir", help="fleet rendezvous directory: members announce "
+                       "member-<i>.json once warm; the router adopts the newest complete epoch "
+                       "(required with --member / --router)")
+    fleet.add_argument("--epoch", type=int, default=0,
+                       help="announce epoch this member starts in")
+    fleet.add_argument("--heartbeat-dir", help="touch proc-<member>.alive here on a cadence, "
+                       "so a supervisor detects a dead member from the file's mtime")
+    fleet.add_argument("--member-timeout-s", type=float, default=5.0,
+                       help="router: per-member fan-out timeout before retry and degraded "
+                       "fallback")
+    fleet.add_argument("--router-refresh-s", type=float, default=0.5,
+                       help="router: announce-directory rescan cadence")
     for flag in _REFUSED:
-        if flag == "--router":
-            parser.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            parser.add_argument(flag, help=argparse.SUPPRESS)
+        parser.add_argument(flag, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     for flag, item in _REFUSED.items():
         if getattr(args, flag[2:].replace("-", "_")):
             raise NotImplementedError(NOT_PORTED.format(flag=flag, item=item))
+    _check_fleet_flags(args)
 
     setup_logging()
     from photon_ml_tpu_torch import faults
@@ -189,27 +296,41 @@ def main(argv=None) -> int:
         if ignored:
             raise SystemExit("--stdio is a bare engine loop with no batcher, front end, or "
                              "nearline path; drop " + ", ".join(ignored))
-    device = resolve_device(args.device)
-    mesh = _build_mesh(args.mesh, device) if args.mesh else None
-    registry = None
-    if args.model_dir:
-        source = ScoringEngine.load(
-            args.model_dir, max_batch=args.max_batch, max_row_nnz=args.max_row_nnz,
-            mesh=mesh, entity_axis=args.entity_axis,
-            re_checkpoints=_parse_re_checkpoints(args.re_checkpoint),
-            device=None if mesh is not None else device).warmup()
-        _check_budget(source, args.hbm_budget_mb)
+    registry = heartbeat = device = None
+    if args.router:
+        from photon_ml_tpu_torch.serving import FleetRouter, fleet_lookups_from_version_dir
+
+        task, link, lookups = fleet_lookups_from_version_dir(_version_dir(args))
+        source = FleetRouter(args.announce_dir, lookups, task=task, link=link,
+                             member_timeout_s=args.member_timeout_s,
+                             refresh_interval_s=args.router_refresh_s, max_batch=args.max_batch)
+    elif args.member is not None:
+        device = resolve_device(args.device)
+        t_load = time.monotonic()
+        source = _member_source(args, device)
+        load_s = time.monotonic() - t_load
     else:
-        if args.re_checkpoint:
-            raise SystemExit("--re-checkpoint requires --model-dir (registry versions carry "
-                             "their own tables)")
-        registry = ModelRegistry(args.registry_dir, max_batch=args.max_batch,
-                                 max_row_nnz=args.max_row_nnz, poll_interval=args.poll_interval,
-                                 mesh=mesh, entity_axis=args.entity_axis,
-                                 device=None if mesh is not None else device)
-        registry.start()
-        source = registry
-        _check_budget(registry.engine, args.hbm_budget_mb)
+        device = resolve_device(args.device)
+        mesh = _build_mesh(args.mesh, device) if args.mesh else None
+        if args.model_dir:
+            source = ScoringEngine.load(
+                args.model_dir, max_batch=args.max_batch, max_row_nnz=args.max_row_nnz,
+                mesh=mesh, entity_axis=args.entity_axis,
+                re_checkpoints=_parse_re_checkpoints(args.re_checkpoint),
+                device=None if mesh is not None else device).warmup()
+            _check_budget(source, args.hbm_budget_mb)
+        else:
+            if args.re_checkpoint:
+                raise SystemExit("--re-checkpoint requires --model-dir (registry versions "
+                                 "carry their own tables)")
+            registry = ModelRegistry(args.registry_dir, max_batch=args.max_batch,
+                                     max_row_nnz=args.max_row_nnz,
+                                     poll_interval=args.poll_interval, mesh=mesh,
+                                     entity_axis=args.entity_axis,
+                                     device=None if mesh is not None else device)
+            registry.start()
+            source = registry
+            _check_budget(registry.engine, args.hbm_budget_mb)
 
     try:
         if args.stdio:
@@ -229,11 +350,42 @@ def main(argv=None) -> int:
         server = server_cls(service, host=args.host, port=args.port)
         server.start()
 
+        epoch = {"epoch": int(args.epoch)}
+        if args.member is not None:
+            from photon_ml_tpu_torch.serving import write_announce
+
+            def announce(fleet_size, version):
+                write_announce(args.announce_dir, {
+                    "member": args.member, "fleet_size": int(fleet_size),
+                    "epoch": epoch["epoch"], "url": f"http://{args.host}:{server.port}",
+                    "version": str(version), "ready": True, "pid": os.getpid(),
+                    "owned": _owned_ranges(args, fleet_size, version)})
+
+            def on_commit(key, payload):
+                if payload.get("epoch") is not None:
+                    epoch["epoch"] = int(payload["epoch"])
+                announce(*key)
+
+            service.on_commit = on_commit
+            announce(source.fleet_size, source.engine.version)
+            if args.heartbeat_dir:
+                from photon_ml_tpu_torch.parallel.multihost import HeartbeatWriter
+
+                heartbeat = HeartbeatWriter(args.heartbeat_dir, args.member).start()
+
         from photon_ml_tpu_torch.game.checkpoint import GracefulStop
 
         stop = GracefulStop(hard_exit_code=75).install()
         banner = {"host": args.host, "port": server.port, "frontend": args.frontend,
                   "batcher": batcher, "model_version": service.health().get("model_version")}
+        if args.member is not None:
+            # seconds from main() to the announce, and of them the slice's
+            # load and warm-up (the interpreter's start and imports precede)
+            banner.update(member=args.member, fleet_size=source.fleet_size,
+                          epoch=epoch["epoch"], device=str(source.engine.device),
+                          main_s=round(time.monotonic() - t_main, 3), load_s=round(load_s, 3))
+        if args.router:
+            banner["router"] = True
         print(json.dumps({"serving": banner}), flush=True)
         while not stop():
             time.sleep(0.2)
@@ -241,10 +393,22 @@ def main(argv=None) -> int:
                     "finishing; exiting %d", stop.hard_exit_code)
         service.drain()
         server.stop()
+        if args.member is not None:
+            import torch
+
+            peak = (torch.cuda.max_memory_allocated(device)
+                    if device.type == "cuda" else None)
+            print(json.dumps({"drained": {"member": args.member,
+                                          "device": str(source.engine.device),
+                                          "max_memory_allocated": peak}}), flush=True)
         return stop.hard_exit_code
     finally:
+        if heartbeat is not None:
+            heartbeat.stop()
         if registry is not None:
             registry.stop()
+        if args.router:
+            source.close()
 
 
 if __name__ == "__main__":

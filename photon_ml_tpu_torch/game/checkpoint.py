@@ -35,7 +35,8 @@ The same atomic assembly, keep-last-K retention and restore past corrupt
 directories apply; ``open_for_restore`` opens a directory read-only.
 ``restore_placed`` puts the table on one device or re-slices it over the
 caller's mesh (:461-494), whatever mesh wrote it; ``elastic`` says the two
-differ. A coordinate-descent fit on a mesh keeps its models on the mesh's
+differ. ``restore_row_range`` reads one block of rows off the shard files
+(:1098-1141, a serving-fleet member's slice). A coordinate-descent fit on a mesh keeps its models on the mesh's
 first device, so its step checkpoints restore there, onto the caller's mesh.
 Saving from more than one process is refused: ROADMAP.md Queue 1 item 12.
 The fault points (item 14c) and the telemetry gauges (item 14d) are not
@@ -85,6 +86,10 @@ class TrainingInterrupted(RuntimeError):
                          + (f"; checkpoint at {checkpoint_path}" if checkpoint_path else ""))
         self.step = step
         self.checkpoint_path = checkpoint_path
+
+
+class _RowRangeError(CheckpointError):
+    """A member row range outside a streamed checkpoint's table."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -464,11 +469,23 @@ class StreamingCheckpointManager:
                                   f"(kind={manifest.get('kind')!r})")
         return manifest
 
+    @classmethod
+    def _read_table(cls, path: str, manifest: dict, prefix: str) -> Optional[np.ndarray]:
+        """The table of ``prefix`` as an owned host array; None when the
+        manifest lists no variances."""
+        read_rows = cls._row_reader(path, manifest, prefix)
+        if read_rows is None:
+            return None
+        rows = read_rows(0, int(manifest["num_entities"]))
+        # an owned array, never a view of the memory map
+        return np.array(rows) if isinstance(rows, np.memmap) else rows
+
     @staticmethod
-    def _read_table(path: str, manifest: dict, prefix: str) -> Optional[np.ndarray]:
-        """The table of ``prefix`` as an owned host array, from payload files
-        that must cover [0, num_entities) in order; None when the manifest
-        lists no variances."""
+    def _row_reader(path: str, manifest: dict, prefix: str):
+        """``read_rows(lo, hi)`` over the memory-mapped payload files of
+        ``prefix``, which must cover [0, num_entities) in order (checked up
+        front, so a corrupt directory is skipped before anything is read);
+        None when the manifest lists no variances."""
         n, dim = int(manifest["num_entities"]), int(manifest["dim"])
         if manifest.get("format_version") == 1:
             if prefix == "variances" and not manifest.get("has_variances"):
@@ -481,7 +498,7 @@ class StreamingCheckpointManager:
                 if prefix == "variances":
                     return None
                 raise CheckpointError(f"{path}: manifest lists no shards")
-        parts, cursor = [], 0
+        files, cursor = [], 0
         for d in descriptors:
             if int(d["row_start"]) != cursor:
                 raise CheckpointError(f"{path}: shard rows are not contiguous at "
@@ -494,13 +511,20 @@ class StreamingCheckpointManager:
             if arr.shape != (int(d["rows"]), dim):
                 raise CheckpointError(f"{fpath}: shard shape {arr.shape} does not match its "
                                       f"manifest entry ({d['rows']}, {dim})")
-            parts.append(arr)
+            files.append((cursor, arr))
             cursor += int(d["rows"])
         if cursor != n:
             raise CheckpointError(f"{path}: shards cover {cursor} rows but the manifest "
                                   f"promises {n} entities")
-        # an owned copy, never a view of the memory map
-        return np.concatenate(parts, axis=0) if len(parts) != 1 else np.array(parts[0])
+
+        def read_rows(lo: int, hi: int) -> np.ndarray:
+            pieces = [arr[max(lo - start, 0):hi - start] for start, arr in files
+                      if start < hi and start + arr.shape[0] > lo]
+            if not pieces:
+                return np.zeros((0, dim), files[0][1].dtype if files else np.float32)
+            return np.concatenate(pieces, axis=0) if len(pieces) != 1 else pieces[0]
+
+        return read_rows
 
     def _newest(self, load):
         """``load(path, manifest)`` of the newest valid checkpoint, skipping
@@ -511,6 +535,8 @@ class StreamingCheckpointManager:
             for _c, path in reversed(self._chunk_dirs()):
                 try:
                     got = load(path, self._read_manifest(path))
+                except _RowRangeError:
+                    raise  # a fleet-sizing error, not corruption
                 except (CheckpointError, ValueError, OSError) as e:
                     telemetry.counter("checkpoint.corrupt").inc()
                     logger.warning("skipping corrupt checkpoint %s: %s", path, e)
@@ -528,6 +554,26 @@ class StreamingCheckpointManager:
                 next_chunk=int(manifest["next_chunk"]),
                 coefficients=self._read_table(path, manifest, "coefficients"),
                 variances=self._read_table(path, manifest, "variances"))
+
+        found = self._newest(load)
+        return None if found is None else found[1]
+
+    def restore_row_range(self, lo: int, hi: int) -> Optional[np.ndarray]:
+        """Entity rows ``[lo, hi)`` of the newest valid checkpoint's
+        coefficient table as an owned host array, read off the memory-mapped
+        shard files alone: a serving-fleet member reads exactly its slice.
+        A range outside the table raises (a fleet-sizing error, which every
+        older checkpoint would repeat); None when no valid checkpoint
+        exists."""
+        lo, hi = int(lo), int(hi)
+
+        def load(path, manifest):
+            n = int(manifest["num_entities"])
+            if not 0 <= lo <= hi <= n:
+                raise _RowRangeError(f"{path}: member row range [{lo}, {hi}) outside the "
+                                     f"{n}-entity table")
+            # an owned copy, never a view of the memory map
+            return np.array(self._row_reader(path, manifest, "coefficients")(lo, hi), copy=True)
 
         found = self._newest(load)
         return None if found is None else found[1]

@@ -2,10 +2,12 @@
 one process drives every device of a ``Mesh``; a fixed-effect design is split
 by rows over the ``batch`` axis (``place_batch``), per-entity state over the
 ``model`` axis (``place_entities``), and each data sum is the shards'
-partials summed on the first device in shard order. The reference's
-per-process fleet (``multihost.py``, ``fleet_status.py``) is not ported
-(ROADMAP.md Queue 1 item 12); the solves of ``distributed.py`` load on first
-use, since they import the optimizers, which import this package."""
+partials summed on the first device in shard order. Of the reference's
+per-process fleet, ``multihost.py`` holds the liveness part (heartbeat files,
+``dead_peers``) that the serving fleet uses; the rest and ``fleet_status.py``
+are not ported (ROADMAP.md Queue 1 item 12b). The solves of
+``distributed.py`` load on first use, since they import the optimizers,
+which import this package."""
 
 from photon_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,

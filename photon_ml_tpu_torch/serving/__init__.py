@@ -1,9 +1,8 @@
 """Online serving: a device-resident scoring engine, micro-batching, a
 hot-swappable model registry with its quality gate, HTTP/asyncio/stdio front
-ends and nearline per-entity updates.
+ends, nearline per-entity updates and the shard-owning serving fleet.
 
-Counterpart of ``photon_ml_tpu/serving`` without the fleet (``shard.py``,
-``router.py``: ROADMAP Queue 1 item 14a (ii)):
+Counterpart of ``photon_ml_tpu/serving``:
 
 - :mod:`photon_ml_tpu_torch.serving.engine` — :class:`ScoringEngine`
   uploads a trained :class:`GameModel` once and scores request batches in
@@ -20,7 +19,17 @@ Counterpart of ``photon_ml_tpu/serving`` without the fleet (``shard.py``,
   and asyncio HTTP front ends and the stdio JSONL loop;
 - :mod:`photon_ml_tpu_torch.serving.nearline` — :class:`NearlineUpdater`
   re-solves just the entities that feedback events name and swaps their
-  rows into the live tables.
+  rows into the live tables;
+- :mod:`photon_ml_tpu_torch.serving.shard` — a fleet member serves only its
+  contiguous entity block of every random-effect table
+  (:func:`slice_model_for_member`, :func:`load_member_engine`, under a
+  per-member memory budget); :class:`ShardMemberSource` stages and commits
+  ``(fleet_size, version)``-keyed engines for live resizes and hot swaps;
+- :mod:`photon_ml_tpu_torch.serving.router` — :class:`FleetRouter` fans a
+  request's entity lookups out to the owning members over ``/v1/margins``,
+  folds the partial margins exactly on the host and degrades to
+  fixed-effect-only scores (``serving.degraded_scores``) when a member is
+  unreachable.
 
 With ``mesh=`` the random-effect tables are split over the mesh's model
 axis (``parallel.sharding``). Wired to the CLI as ``python -m
@@ -41,10 +50,25 @@ from photon_ml_tpu_torch.serving.registry import (  # noqa: F401
     publish_version,
     scan_versions,
 )
+from photon_ml_tpu_torch.serving.router import (  # noqa: F401
+    FleetRouter,
+    FleetUnavailable,
+    FleetView,
+    fleet_lookups_from_version_dir,
+    scan_announce,
+    write_announce,
+)
 from photon_ml_tpu_torch.serving.server import (  # noqa: F401
     ScoringServer,
     ScoringService,
     serve_stdio,
+)
+from photon_ml_tpu_torch.serving.shard import (  # noqa: F401
+    ShardBudgetError,
+    ShardMemberSource,
+    load_member_engine,
+    member_owned_ranges,
+    slice_model_for_member,
 )
 
 __all__ = [
@@ -62,4 +86,15 @@ __all__ = [
     "ScoringServer",
     "AsyncScoringServer",
     "serve_stdio",
+    "FleetRouter",
+    "FleetUnavailable",
+    "FleetView",
+    "fleet_lookups_from_version_dir",
+    "scan_announce",
+    "write_announce",
+    "ShardBudgetError",
+    "ShardMemberSource",
+    "load_member_engine",
+    "member_owned_ranges",
+    "slice_model_for_member",
 ]

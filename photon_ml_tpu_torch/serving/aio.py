@@ -185,7 +185,7 @@ class AsyncScoringServer:
     ) -> None:
         body = json.dumps(obj, default=float).encode("utf-8")
         reason = {200: "OK", 400: "Bad Request", 404: "Not Found",
-                  503: "Service Unavailable",
+                  409: "Conflict", 503: "Service Unavailable",
                   504: "Gateway Timeout",
                   500: "Internal Server Error"}.get(code, "OK")
         extras = "".join(
@@ -268,6 +268,10 @@ class AsyncScoringServer:
             return 503, {"error": "overloaded", "detail": str(e)}, None
         except BadRequest as e:
             return 400, {"error": "bad_request", "detail": str(e)}, None
+        except KeyError as e:
+            # a version pin the member cannot honor (mid-swap window): the
+            # router sheds this member for the request, never blends
+            return 409, {"error": "version_unavailable", "detail": str(e)}, None
         except asyncio.TimeoutError:
             return 504, {"error": "timeout"}, None
         except Exception as e:  # noqa: BLE001 — a request must not kill the loop

@@ -9,10 +9,11 @@ Counterpart of ``photon_ml_tpu/serving/server.py``. Endpoints:
   "model_version": "v-..."}`` through the batcher, so concurrent callers
   share device batches. Overload -> 503 ``{"error": "overloaded"}``;
   malformed rows -> 400;
-- ``POST /v1/margins`` — raw margins with a per-row ``include_fixed`` (the
-  fleet-member protocol); ``POST /v1/update`` — nearline feedback events;
-  ``POST /v1/admin/stage`` / ``commit`` — answered 400 (no shard-owning
-  fleet member in this package);
+- ``POST /v1/margins`` — raw margins with a per-row ``include_fixed`` and an
+  optional ``fleet_size``/``version`` pin (the fleet-member protocol; a pin
+  the member does not hold -> 409); ``POST /v1/update`` — nearline feedback
+  events; ``POST /v1/admin/stage`` / ``commit`` — the resize and hot-swap
+  barrier of a shard-owning fleet member (400 on any other server);
 - ``GET /healthz`` — ``{"status", "model_version", "warm", "buckets", ...}``;
   ``GET /metricsz`` — the telemetry ``snapshot()``.
 
@@ -88,10 +89,12 @@ class ScoringService:
     saturated scoring path must not take the health surface down with it
     (asserted by a responsiveness test)."""
 
-    # a class-level default so hand-assembled instances (tests build
+    # class-level defaults so hand-assembled instances (tests build
     # wedged services via ``__new__`` to inject custom scorers) admit
-    # requests without tripping on an attribute __init__ would have set
+    # requests and skip the commit hook without tripping on attributes
+    # __init__ would have set
     _draining = False
+    on_commit = None
 
     def __init__(
         self,
@@ -119,6 +122,9 @@ class ScoringService:
         )
         self._updater = None
         self._draining = False
+        # the fleet member's hook: called after a successful
+        # /v1/admin/commit with (key, payload), so it re-announces
+        self.on_commit = None
 
     def _score(self, rows):
         engine = _engine_of(self._source)
@@ -197,9 +203,11 @@ class ScoringService:
 
     def margin_request(self, payload: Mapping, ctx=None) -> dict:
         """One ``/v1/margins`` body — a fleet router's fan-out unit:
-        ``{"rows": [...], "include_fixed": [bool, ...]?}``. Scores DIRECTLY
-        on the current engine and returns full-precision margins (the fold
-        is exact, so no wire rounding). ``ctx`` is accepted and not kept."""
+        ``{"rows": [...], "include_fixed": [bool, ...]?, "fleet_size": N?,
+        "version": "v-..."?}``. Scores DIRECTLY on the resolved engine (the
+        router batches upstream) and returns full-precision margins (the
+        fold is exact, so no wire rounding). ``ctx`` is accepted and not
+        kept."""
         if self._draining:
             raise Draining("server is draining; retry elsewhere")
         if not isinstance(payload, Mapping):
@@ -207,7 +215,7 @@ class ScoringService:
         rows = payload.get("rows")
         if not isinstance(rows, list):
             raise BadRequest('request body must be {"rows": [...]}')
-        engine = _engine_of(self._source)
+        engine = self._resolve_engine(payload)
         include_fixed = payload.get("include_fixed")
         if include_fixed is not None and not isinstance(include_fixed, list):
             raise BadRequest("include_fixed must be a list of booleans")
@@ -220,9 +228,41 @@ class ScoringService:
 
     def admin_request(self, op: str, payload: Mapping) -> dict:
         """``/v1/admin/stage`` / ``/v1/admin/commit`` — the resize and
-        hot-swap barrier of a shard-owning fleet member, which this package
-        does not have yet (ROADMAP Queue 1 item 14a (ii)): always 400."""
-        raise BadRequest("this server is not a shard-owning fleet member")
+        hot-swap barrier of a shard member. Stage loads and warms a
+        ``(fleet_size, version)`` slice while the current one serves;
+        commit flips to a staged key and calls ``on_commit`` (the member
+        re-announces). Only a source with ``stage`` and ``commit`` (a
+        :class:`~photon_ml_tpu_torch.serving.shard.ShardMemberSource`)
+        takes them; any other answers 400."""
+        src = self._source
+        if not (hasattr(src, "stage") and hasattr(src, "commit")):
+            raise BadRequest("this server is not a shard-owning fleet member")
+        if not isinstance(payload, Mapping):
+            raise BadRequest("admin body must be a JSON object")
+        try:
+            fleet_size = int(payload["fleet_size"])
+        except (KeyError, TypeError, ValueError):
+            raise BadRequest('admin body must carry an integer "fleet_size"') from None
+        if op == "stage":
+            key = src.stage(fleet_size, payload.get("version"))
+            return {"staged": {"fleet_size": key[0], "version": key[1]}}
+        version = payload.get("version")
+        if not version:
+            raise BadRequest('commit requires an explicit "version"')
+        key = src.commit(fleet_size, str(version))
+        if self.on_commit is not None:
+            self.on_commit(key, payload)
+        return {"committed": {"fleet_size": key[0], "version": key[1]}}
+
+    def _resolve_engine(self, payload: Mapping):
+        """The engine a margin request is pinned to: a shard member resolves
+        ``(fleet_size, version)`` among its staged engines (``KeyError`` ->
+        HTTP 409, the mixed-swap window); any other source serves its
+        current engine."""
+        src = self._source
+        if hasattr(src, "resolve"):
+            return src.resolve(payload.get("fleet_size"), payload.get("version"))
+        return _engine_of(src)
 
     def score_request(self, payload: Mapping, ctx=None) -> dict:
         future = self.submit_rows(payload, ctx=ctx)
@@ -333,9 +373,22 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(400, {"error": "bad_request", "detail": str(e)})
         except FutureTimeout:
             self._reply(504, {"error": "timeout"})
+        except KeyError as e:
+            # a margin request pinned to a (fleet_size, version) this member
+            # does not hold — the mixed-swap window; the router sheds this
+            # member for the request instead of blending versions
+            self._reply(409, {"error": "version_unavailable", "detail": str(e)})
         except Exception as e:  # noqa: BLE001 — a request must not kill the server
             logger.exception("score request failed")
             self._reply(500, {"error": "internal", "detail": str(e)})
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # the stdlib's listen backlog of 5 can overflow when more clients connect
+    # at once than the accept loop drains, and an overflowed connect may be
+    # reset; closed-loop clients and a router's fan-out connect in bursts
+    request_queue_size = 128
+    daemon_threads = True
 
 
 class ScoringServer:
@@ -344,8 +397,7 @@ class ScoringServer:
     def __init__(self, service: ScoringService, host: str = "127.0.0.1",
                  port: int = 8080):
         self.service = service
-        self._httpd = ThreadingHTTPServer((host, port), _Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = _HTTPServer((host, port), _Handler)
         self._httpd.service = service  # type: ignore[attr-defined]
         self._thread: Optional[threading.Thread] = None
 

@@ -496,6 +496,43 @@ def test_http_error_codes(game_world):
         server.stop()
 
 
+def test_http_server_takes_a_burst_of_connections(game_world):
+    """64 keep-alive clients connecting at once are all accepted: with the
+    stdlib's listen backlog of 5 such a burst overflows the accept queue and
+    some connections are reset (a router's fan-out and closed-loop load
+    generators connect in bursts)."""
+    import http.client
+
+    _, truth = game_world
+    engine = ScoringEngine(to_port(_jmodel(truth)), max_batch=4, max_row_nnz=4, device=CPU)
+    server = ScoringServer(ScoringService(engine, max_batch=4, max_delay_ms=1.0),
+                           port=0).start()
+    go, failures, answered = threading.Event(), [], []
+
+    def client():
+        go.wait()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)
+            for _ in range(2):
+                conn.request("GET", "/healthz")
+                answered.append(conn.getresponse().read())
+            conn.close()
+        except OSError as e:
+            failures.append(repr(e))
+
+    threads = [threading.Thread(target=client) for _ in range(64)]
+    try:
+        for t in threads:
+            t.start()
+        go.set()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        server.stop()
+    assert failures == []
+    assert len(answered) == 128
+
+
 def test_serving_e2e_http_hot_swap(tmp_path, game_world):
     """Concurrent HTTP scoring matches predict_mean, and a registry publish
     mid-run swaps versions with zero failed requests."""
@@ -662,18 +699,25 @@ def test_registry_versions_cross_between_packages(tmp_path, game_world):
         jreg.stop()
 
 
-@pytest.mark.parametrize("flag,item", [(["--member", "1"], "14a \\(ii\\)"),
-                                       (["--router"], "14a \\(ii\\)"),
-                                       (["--announce-dir", "d"], "14a \\(ii\\)"),
-                                       (["--trace-out", "t.jsonl"], "14d"),
-                                       (["--telemetry-out", "t.jsonl"], "14d")])
+@pytest.mark.parametrize("flag,item", [
+    (["--member", "1", "--router", "--announce-dir", "d"], "different fleet processes"),
+    (["--router"], "require --announce-dir"),
+    (["--member", "0", "--fleet-size", "4", "--announce-dir", "d"], "drop --stdio"),
+    (["--trace-out", "t.jsonl"], "14d"),
+    (["--telemetry-out", "t.jsonl"], "14d")])
 def test_cli_serve_refuses_the_fleet_and_trace_flags(tmp_path, flag, item):
-    """The reference's fleet and request-trace flags name their ROADMAP
-    item before anything loads."""
+    """The reference's request-trace flags name their ROADMAP item, and its
+    fleet flag combinations are refused (``SystemExit``), before anything
+    loads."""
     from photon_ml_tpu_torch.cli import serve as serve_cli
 
-    with pytest.raises(NotImplementedError, match=rf"{flag[0]}.*item {item}"):
-        serve_cli.main(["--registry-dir", str(tmp_path), "--stdio", "--device", CPU, *flag])
+    argv = ["--registry-dir", str(tmp_path), "--stdio", "--device", CPU, *flag]
+    if item == "14d":
+        with pytest.raises(NotImplementedError, match=rf"{flag[0]}.*item {item}"):
+            serve_cli.main(argv)
+    else:
+        with pytest.raises(SystemExit, match=item):
+            serve_cli.main(argv)
 
 
 def test_cli_serve_hbm_budget_refuses_a_model_over_it(tmp_path, game_world):
