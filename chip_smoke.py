@@ -84,7 +84,15 @@ Phases, in order; any failure exits non-zero before the last line:
            rtol/atol 5e-3 and the scores within 2e-3 of path 6's fit,
            a second fit bit for bit, a fit stopped after its second update
            and resumed from its checkpoint bit for bit, the AUC beside path
-           6's;
+           6's; the fit's own coordinates keep their state with the owners
+           (each batch shard built on its device from its host rows, fewer
+           nonzeros than the batch, no whole device batch; each random
+           effect bucket's coefficients per model-axis owner, fewer rows than
+           the bucket), and the bytes allocated per device before and after
+           the fit and each device's peak are printed;
+       17c. (after 12) path 12's cold sweep through ``sweep_glm(mesh=...)``
+           on a ``model`` axis of 4: values within rtol 1e-5 and w within
+           atol 1e-3 of path 12's, the lane kernels launched on the owners;
        9.  config #4's dataset again through ``GameEstimator.fit``: its fixed
            effect, a per-user random effect over the sparse 10K-feature
            shard under the default optimizer type (LBFGS: 10 buckets, the 3
@@ -102,6 +110,8 @@ Phases, in order; any failure exits non-zero before the last line:
            same with the random projector (projected_dim 16, LBFGS 20): no
            lane's objective rises, finite scores, two scorings and the
            saved and reloaded ``factored_random_effect`` bit-identical;
+           17b. 11b's projector on a ``model`` axis of 4: latent table and
+           scores within rtol/atol 5e-3 of 11b's;
        15. the serving tier on path 6's dataset: path 6's model published
            as registry version 1 with the quality gate on, loaded by
            ``ModelRegistry`` and warmed; at least 2,000 requests of 1-64
@@ -126,13 +136,14 @@ Phases, in order; any failure exits non-zero before the last line:
        15c. the serving fleet on path 15's version 2 (its 99,997 users
            padded to 100,000 by 3 ids with no model): (a) 4 in-process
            members (``load_member_engine``, ``ShardMemberSource``) behind a
-           ``FleetRouter``, 500 calls of 1-64 rows within 1e-6 of a single
+           ``FleetRouter``, 250 calls (cut from 500) of 1-64 rows within 1e-6 of a single
            engine, a repeat bit for bit, each member's tables about a
            quarter, a pin to another version refused with 409, member 1 stopped and its
            rows shed to FE-only exactly; (b) 4 ``cli serve --member``
            processes on the card (``tools/serving_fleet.py``) under a budget
-           the full model exceeds (a 1-member fleet refused), traffic
-           through the router, member 1 hard-killed, detected by heartbeat
+           the full model exceeds (a 1-member fleet refused), 20 s of
+           traffic through the router (cut from 40 s, the resizes at 10 s
+           and 19 s), member 1 hard-killed, detected by heartbeat
            and relaunched, a live resize 4 -> 8 -> 4: zero failed calls,
            64 rows routed at each settled view within 1e-6 of the single
            engine, every member reporting the card and draining to exit
@@ -197,6 +208,19 @@ Phases, in order; any failure exits non-zero before the last line:
        14c. 13b's per_user_re part on a 4-device ``entity`` mesh: each
            device holds a quarter of the table, which is within rtol 2e-3 /
            atol 2e-4 of 13b's (the largest per-entity difference printed);
+       18. 13b's per_user_re part through ``tools/fleet.run_fleet``: 2
+           worker processes on cuda:0 (gloo), each making only its
+           ``LocalChunk`` rows of every chunk on the card, a coordinated
+           checkpoint every 4 chunks: (a) uninterrupted, the gathered table
+           bit for bit an in-process 2-device ``entity`` mesh run over the
+           same chunks; (b) member 1 killed at the ``fleet.heartbeat`` seam
+           after the first certified checkpoint, the fit relaunched on the
+           survivor from it: no partially certified checkpoint, the loss
+           within 1e-6 (relative) of (a)'s, the rows solved before the
+           checkpoint bit for bit (a)'s; each member's start-up seconds,
+           backend, coefficients/s, peak (at most 0.55 of the one-process
+           survivor's) and collective wait printed, with the detection and
+           relaunch seconds;
        12d. on path 10's files: ``cli glm`` with ``"diagnostics": true``
            (both reports written, the VALIDATED results bit for bit path
            8's), and ``cli sweep`` on the Avro files (three to train, one to
@@ -214,15 +238,20 @@ Phases, in order; any failure exits non-zero before the last line:
            ``fit_grid`` over two fixed effects (L2 1 and 10) best-first,
            each entry bit for bit its combination's ``fit``;
        11. BASELINE config #5 (bench_northstar.py: 138,493 users, 26,744
-           movies, its 20M rows cut to NS_ROWS = 10M, every user and movie
-           still drawn ~72 and ~374 times; a fixed effect on movieFeatures, per-user and
+           movies, its 20M rows cut to NS_ROWS = 7.5M, every user and movie
+           still drawn ~54 and ~280 times (at 5M rows the per-user update
+           no longer raised the validation AUC: 0.6751 -> 0.6743); a fixed effect on movieFeatures, per-user and
            per-movie NEWTON random effects and the factored ``mf``
            coordinate, latent_dim 2, its kron refit on the margins and
            scatter kernels) through ``GameEstimator.fit`` with 1M
            validation rows: fit A (AUC after each update, the ``mf``
            tracker, the saved model scoring bit for bit), fit B stopped
            after its second update with a checkpoint a step, fit C resumed
-           from it and bit-identical to A;
+           from it and bit-identical to A; 17a. fit A's ``mf`` update (the
+           same model and residual) again with the coordinate over a
+           ``model`` axis of 4, against the unsharded coordinate: the
+           projection matrix and the scores within rtol/atol 5e-3, both
+           updates timed;
        7.  the ELL probe (``photon_ml_tpu_torch.tools.probe_ell``) at 1M x 10K
            x 20: ELL against CSR ``dot_rows``, both timed;
   6. print the ``kernels`` JSON line, the card again, and the result line
@@ -268,7 +297,7 @@ VARIANCE_RTOL = 1e-4
 # bench_northstar.py (BASELINE config #5): rows, users, movies. Its 20M rows
 # are cut to 10M to keep the whole script inside its time limit: a depth cut,
 # the model's width (every user and movie, every feature) unchanged
-NS_ROWS = 10_000_000
+NS_ROWS = 7_500_000
 NS_VAL = 1_000_000
 NS_USERS = 138_493
 NS_MOVIES = 26_744
@@ -308,13 +337,19 @@ NEARLINE_ATOL = 1e-6  # tests/test_serving_sharded.py:519
 GATE_SAMPLES = 16  # bootstrap resamples of the quality gate's AUC CI
 SERVE_MESH = 4  # path 15b: the entity-sharded engine's model axis
 FLEET_SIZE = 4  # path 15c: members; 100,000 users divide over 4 and 8
-FLEET_CALLS = 500  # path 15c (a): router calls of 1 to SERVE_MAX_BATCH rows
+FLEET_CALLS = 250  # path 15c (a): router calls of 1 to SERVE_MAX_BATCH rows (500 until cut)
 # path 15c (b): the router's traffic, the kill and the resizes, seconds from
 # the first call; a step that finds the previous one still running starts
 # when it ends
-FLEET_TRAFFIC = dict(traffic_seconds=40.0, traffic_hz=20.0, traffic_rows=16,
+FLEET_TRAFFIC = dict(traffic_seconds=20.0, traffic_hz=20.0, traffic_rows=16,
                      traffic_features=(("global", NNZ_PER_ROW), ("user", GAME_RE_FEATURES)),
-                     kill_member=1, kill_after_s=1.5, resizes=((20.0, 8), (38.0, 4)))
+                     kill_member=1, kill_after_s=1.5, resizes=((10.0, 8), (19.0, 4)))
+MESH_OWNERS = 4  # path 17: the model axis of the factored coordinate, the projector, the sweep
+FACTORED_MESH_TOL = dict(rtol=5e-3, atol=5e-3)  # tests/test_factored.py:310-320
+SWEEP_MESH_RTOL, SWEEP_MESH_W_ATOL = 1e-5, 1e-3  # tests/test_sweep.py:227-235
+TRAIN_FLEET = 2  # path 18: worker processes, on cuda:0 (gloo)
+TRAIN_FLEET_CKPT_EVERY = 4  # path 18: a coordinated checkpoint every 4 chunk boundaries
+TRAIN_FLEET_LOSS_RTOL = 1e-6  # tools/chaos.py:366's bound, relative to the table's loss
 FRESH_DELTA_FRACTION = 0.05  # bench_freshness.py:47: the delta's share of users (and rows)
 FRESH_AUC_GAP = 0.02  # bench_freshness.py:48: |AUC(incremental) - AUC(from scratch)|
 FRESH_PUBLISHES = 3  # bench_freshness.py:285-313: publish + hot swap samples
@@ -1528,7 +1563,13 @@ def run_mesh_game_path(gds, config, ref_model, ref_stats: dict, ref_launches: di
     def same(a, b):
         return all(torch.equal(x, y) for x, y in zip(coefficients(a), coefficients(b)))
 
+    names = sorted({str(d) for d in devices})
+    _sync(devices)
+    torch.cuda.empty_cache()
+    before = {d: torch.cuda.memory_allocated(d) for d in names}
     first, first_s, launches, syncs, peaks = fit()
+    after = {d: torch.cuda.memory_allocated(d) for d in names}
+    owners = _owner_state(est._build_coordinates(gds, mesh), mesh, gds, bad)
     second, second_s, *_ = fit()
     repeat = same(second.model, first.model)
     if not repeat:
@@ -1569,7 +1610,9 @@ def run_mesh_game_path(gds, config, ref_model, ref_stats: dict, ref_launches: di
              "coeffs_per_s": ref_stats["total_coeffs"] * GAME_CD_ITERATIONS / second_s,
              "host_syncs": syncs, "launches": launches,
              "launches_over_path6": {k: launches[k] / v for k, v in ref_launches.items() if v},
-             "max_memory_allocated_by_device": peaks, "max_abs_diff_vs_path6": diffs,
+             "max_memory_allocated_by_device": peaks, "allocated_before": before,
+             "allocated_after": after, "owner_state": owners,
+             "max_abs_diff_vs_path6": diffs,
              "train_auc": mesh_auc, "path6_train_auc": ref_stats["train_auc"],
              "repeat_bit_identical": repeat, "stopped_at_step": stopped_at,
              "resumed_bit_identical": resumed_same}
@@ -1581,6 +1624,39 @@ def run_mesh_game_path(gds, config, ref_model, ref_stats: dict, ref_launches: di
     if bad:
         raise RuntimeError(f"path 14b: bad result: {bad}")
     return total, stats
+
+
+def _owner_state(coords, mesh, gds, bad: list) -> dict:
+    """What the mesh fit's coordinates hold, and where: each batch shard of
+    the fixed effect on its batch-axis device with its own rows only (and
+    no whole device batch kept), and a random-effect update's coefficients
+    kept per model-axis owner, each block on its owner's device with fewer
+    rows than the bucket. Adds to ``bad`` what is not so."""
+    from photon_ml_tpu_torch.parallel import OwnerBlocks
+
+    fe, re = coords["fixed"], coords["per-user"]
+    shards = fe._solve_batch.shards
+    total = len(gds.shard("global").values)
+    nnz = [int(b.nnz) for b in shards]
+    fe_ok = (fe._batch is None and sum(nnz) == total and max(nnz) < total
+             and [b.device for b in shards] == list(mesh.axis_devices("batch")))
+    model = re.update_model(re.initialize_model(), None)
+    owners = list(mesh.axis_devices("model"))
+    blocks = []
+    for bm in model.buckets:
+        c = bm.coefficients
+        rows = int(c.shape[0])
+        ok = (isinstance(c, OwnerBlocks) and [p.device for p in c.parts] == owners
+              and (rows < len(owners) or all(p.shape[0] < rows for p in c.parts)))
+        blocks.append({"entities": rows, "block_rows": [int(p.shape[0]) for p in c.parts]
+                       if isinstance(c, OwnerBlocks) else None, "per_owner": ok})
+    out = {"fe_shard_nnz": nnz, "fe_batch_nnz": total, "fe_per_shard": fe_ok,
+           "re_buckets": blocks}
+    if not fe_ok:
+        bad.append(f"the fixed effect's batch is not held per shard: {nnz} of {total}")
+    if not all(b["per_owner"] for b in blocks):
+        bad.append(f"a random effect's coefficients are not held per owner: {blocks}")
+    return out
 
 
 def lane_report(label: str, results, buckets) -> list[dict]:
@@ -1742,8 +1818,9 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
     type (LBFGS 20, L2 1, tolerance 1e-7: its wide buckets go to the COO
     layout, the block-diagonal batch), and config #4's dense per-user effect
     under NEWTON in the box ``RE_BOX`` with variances, updated last so that
-    its variances can be recomputed from the final model's scores. The first
-    fit saves its models; the second is timed. 9b and 9c are one update of
+    its variances can be recomputed from the final model's scores. The
+    coordinates are built first (the RE builds, the COO layouts), then one
+    fit is timed and its model saved and reloaded. 9b and 9c are one update of
     the sparse per-user effect from zero with TRON (L2 1, 10 iterations) and
     with OWLQN (elastic net, alpha 0.5, weight 1, 20 iterations). Fails on
     non-finite coefficients or variances, a lane whose objective rose, a box
@@ -1758,7 +1835,7 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
     import torch
 
     from photon_ml_tpu_torch import kernels, telemetry
-    from photon_ml_tpu_torch.data.model_store import load_game_model
+    from photon_ml_tpu_torch.data.model_store import load_game_model, save_game_model
     from photon_ml_tpu_torch.evaluation.evaluators import auc
     from photon_ml_tpu_torch.game import (
         FixedEffectConfig,
@@ -1780,29 +1857,16 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
     })
     est = GameEstimator(config)
     bad = []
-    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build_dir, exist_ok=True)
     telemetry.reset()
-    with tempfile.TemporaryDirectory(dir=build_dir) as out:
-        t0 = time.perf_counter()
-        first = est.fit(gds, output_dir=out)
-        torch.cuda.synchronize()
-        first_fit_s = time.perf_counter() - t0
-        spans = telemetry.snapshot()["span_seconds"]
-        loaded = load_game_model(os.path.join(out, "final"))
-        same_scores = torch.equal(loaded.score(gds), first.model.score(gds))
-        same_var = all(torch.equal(a.variances, b.variances) for a, b in zip(
-            loaded.models["per-user"].buckets, first.model.models["per-user"].buckets))
+    # the coordinates (the RE builds and the COO layouts) once, then the
+    # timed fit on them; its model is saved and reloaded below
+    t0 = time.perf_counter()
+    est._build_coordinates(gds)
+    torch.cuda.synchronize()
+    coordinates_s = time.perf_counter() - t0
+    spans = telemetry.snapshot()["span_seconds"]
     re_build_s = spans.get("re_build:userId:global", 0.0)
     coo_layout_s = spans.get("re_coo_layout", 0.0)
-    print(f"path 9 saved: first_fit_s={first_fit_s:.4f} (with output_dir, the RE builds "
-          f"included) re_build_s={re_build_s:.4f} coo_layout_s={coo_layout_s:.4f} "
-          f"re_build_user_s={spans.get('re_build:userId:user', 0.0):.4f} "
-          f"final_reloaded_scores_bit_identical={same_scores} "
-          f"variances_reloaded_bit_identical={same_var}", flush=True)
-    if not (same_scores and same_var):
-        bad.append("the saved final model scores differently or loses its variances")
-    del first, loaded
 
     coords = est._build_coordinates(gds)
     items, user = coords["per-user-items"], coords["per-user"]
@@ -1829,6 +1893,22 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
     peak = torch.cuda.max_memory_allocated()
 
     model = result.model
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as out:
+        save_game_model(model, os.path.join(out, "final"))
+        loaded = load_game_model(os.path.join(out, "final"))
+        same_scores = torch.equal(loaded.score(gds), model.score(gds))
+        same_var = all(torch.equal(a.variances, b.variances) for a, b in zip(
+            loaded.models["per-user"].buckets, model.models["per-user"].buckets))
+    print(f"path 9 saved: coordinates_s={coordinates_s:.4f} (the RE builds and COO layouts) "
+          f"re_build_s={re_build_s:.4f} coo_layout_s={coo_layout_s:.4f} "
+          f"re_build_user_s={spans.get('re_build:userId:user', 0.0):.4f} "
+          f"final_reloaded_scores_bit_identical={same_scores} "
+          f"variances_reloaded_bit_identical={same_var}", flush=True)
+    if not (same_scores and same_var):
+        bad.append("the saved final model scores differently or loses its variances")
+    del loaded
     lanes, item_launches = {}, {k: 0 for k in launches}
     for entry in result.history:
         name, it = entry["coordinate"], entry["iteration"]
@@ -1881,7 +1961,7 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
     if not all(same.values()):
         bad.append(f"scores or metrics differ between two calls: {same}")
     coeffs_per_s = total_coeffs * GAME_CD_ITERATIONS / elapsed
-    stats = {"elapsed_s": elapsed, "first_fit_s": first_fit_s, "re_build_s": re_build_s,
+    stats = {"elapsed_s": elapsed, "coordinates_s": coordinates_s, "re_build_s": re_build_s,
              "coo_layout_s": coo_layout_s, "coeffs_per_s": coeffs_per_s,
              "total_coeffs": total_coeffs, "buckets": shapes, "coo_buckets": n_coo,
              "lanes": lanes, "host_syncs": syncs, "max_memory_allocated": peak,
@@ -1939,8 +2019,10 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
         if required and sub[label][required] == 0:
             bad.append(f"path {label}: {required} not launched on the COO buckets")
         del m
-    sub["11b"], stats["11b"] = run_projector_path(gds, items, shapes["per-user-items"], card,
-                                                  bad)
+    sub["11b"], stats["11b"], projected = run_projector_path(gds, items,
+                                                             shapes["per-user-items"], card, bad)
+    sub["17b"], stats["17b"] = run_mesh_projector_path(gds, items, *projected, card, bad)
+    del projected
     if bad:
         raise RuntimeError(f"path 9: bad result: {bad}")
     return sub, stats, prof
@@ -1997,6 +2079,57 @@ def run_projector_path(gds, items, shapes, card: str, bad: list) -> tuple[dict, 
     if checks["lanes_rose"] or not (checks["finite"] and checks["twice"] and reloaded
                                     and kind == "factored_random_effect"):
         bad.append(f"path 11b: {checks}")
+    return launches, stats, (coord, model, scores[0])
+
+
+def _owner_mesh():
+    from photon_ml_tpu_torch.parallel import make_mesh
+
+    devices, kind = mesh_devices(MESH_OWNERS)
+    return make_mesh({"model": MESH_OWNERS}, devices), devices, kind
+
+
+def run_mesh_projector_path(gds, items, coord, model, scores, card: str,
+                            bad: list) -> tuple[dict, dict]:
+    """Path 17b: 11b's random projector (the same dataset, optimizer and
+    Gaussian space) on a ``model`` axis of 4: each owner's block of every
+    bucket solved on its device. Adds to ``bad`` a latent table or scores
+    off 11b's beyond rtol/atol 5e-3 (tests/test_factored.py:310-320), or a
+    ``csr_margins`` that did not launch (the COO buckets' latent designs)."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.game import FactoredRandomEffectCoordinate
+
+    mesh, devices, kind = _owner_mesh()
+    t0 = time.perf_counter()
+    sharded = FactoredRandomEffectCoordinate(
+        coord.name, gds, items.re_data, "logistic", coord.re_config, coord.latent_config,
+        latent_dim=coord.latent_dim, refit_projection=False, mesh=mesh)
+    _sync(devices)
+    build_s = time.perf_counter() - t0
+    _reset_peaks(devices)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = sharded.update_model(sharded.initialize_model(), None)
+    _sync(devices)
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    got_scores = sharded.score(got)
+    diffs = {"latent": float((got.latent - model.latent).abs().max()),
+             "scores": float((got_scores - scores).abs().max())}
+    close = {"latent": torch.allclose(got.latent, model.latent, **FACTORED_MESH_TOL),
+             "scores": torch.allclose(got_scores, scores, **FACTORED_MESH_TOL)}
+    stats = {"devices": [str(d) for d in devices], "kind": kind, "build_s": build_s,
+             "seconds": dt, "max_abs_diff_vs_11b": diffs, "within_tolerance": close,
+             "launches": launches, "max_memory_allocated_by_device": _peaks(devices),
+             "card": card}
+    print(f"path 17b: projector on a model axis of {MESH_OWNERS} over {kind}; "
+          f"{json.dumps(stats)}", flush=True)
+    if not all(close.values()):
+        bad.append(f"path 17b: off 11b beyond {FACTORED_MESH_TOL}: {diffs}")
+    if not launches["csr_margins"]:
+        bad.append("path 17b: csr_margins not launched on the owners' COO buckets")
     return launches, stats
 
 
@@ -2732,23 +2865,14 @@ def run_ingest_path(card: str, work: str, ref: dict, ref_stats: dict) -> tuple[d
 
 
 def scale_chunk(seed: int, part_seed: int, index: int, entities: int, rows: int, dims: int):
-    """bench_scale.py:60-74's planted logistic chunk, made on the card from a
-    generator seeded per chunk: X ~ N(0, 1), w* ~ N(0, 0.3), offsets N(0,
-    0.2) for the other coordinates' scores, labels Bernoulli(sigmoid(X.w* +
-    offset)). The margins are an elementwise product and a sum (no GEMM), so
-    a chunk is the same bits whichever thread makes it."""
-    import torch
+    """bench_scale.py:60-74's planted logistic chunk, made on the card
+    (``tools/fleet.scale_rows``: X ~ N(0, 1), w* ~ N(0, 0.3), offsets N(0,
+    0.2), labels Bernoulli(sigmoid(X.w* + offset)), each block of 31,250
+    entities from its own seeded generator, so path 18's members make their
+    rows of a chunk alone, the same bits)."""
+    from photon_ml_tpu_torch.tools.fleet import scale_rows
 
-    from photon_ml_tpu_torch.ops.dense import DenseBatch
-
-    g = torch.Generator(device="cuda")
-    g.manual_seed(int(np.random.SeedSequence([seed, part_seed, index]).generate_state(1)[0]))
-    x = torch.randn((entities, rows, dims), generator=g, device="cuda")
-    w_true = torch.randn((entities, dims), generator=g, device="cuda") * 0.3
-    off = torch.randn((entities, rows), generator=g, device="cuda") * 0.2
-    z = (x * w_true[:, None, :]).sum(-1) + off
-    y = (torch.rand((entities, rows), generator=g, device="cuda") < torch.sigmoid(z)).float()
-    return DenseBatch(x=x, labels=y, offsets=off, weights=torch.ones_like(y))
+    return scale_rows(seed, part_seed, index, 0, entities, rows, dims)
 
 
 def scale_config():
@@ -2953,6 +3077,158 @@ def run_mesh_scale_path(seed: int, card: str, ref) -> tuple[dict, dict]:
     return launches, stats
 
 
+def run_training_fleet_path(seed: int, card: str, work: str) -> tuple[dict, dict]:
+    """Path 18: 13b's per_user_re part (1M entities x 512 features, chunks of
+    125,000 x 8 rows, LBFGS 8, tolerance 1e-5, history 4, L2 1) through the
+    port's ``tools/fleet.run_fleet``: TRAIN_FLEET worker processes on cuda:0
+    (gloo: they share the card), each making only its ``LocalChunk`` rows
+    of every chunk on the card, a coordinated checkpoint every
+    TRAIN_FLEET_CKPT_EVERY chunks. (a) Uninterrupted: the gathered table
+    bit for bit an in-process 2-device ``entity`` mesh run over the same
+    chunks (the same pieces on the same card); where it is not, the chunks
+    where it parts are printed and the table held to 14c's rtol 2e-3 / atol
+    2e-4. (b) Member 1 armed with an ``exit`` rule at ``fleet.heartbeat``
+    from the boundary after the first certified checkpoint: the fleet
+    relaunches on the survivor from the newest certified checkpoint; no
+    certified checkpoint may be partial, the final loss must be within
+    1e-6 (relative) of (a)'s, and the rows of the chunks solved before that
+    checkpoint bit for bit (a)'s. Each member of the 2-process fleet must
+    peak under 0.55 of the relaunched survivor's peak (a member holds half
+    of the table, of each chunk and of the lanes' solver state; the
+    survivor all of them); the table plus one chunk is printed beside. The
+    trainer's chunks are dense batched products (cuBLAS): no hand-written
+    kernel runs on this path."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.game import ShardedCoefficientTable, StreamingRandomEffectTrainer
+    from photon_ml_tpu_torch.parallel import make_mesh
+    from photon_ml_tpu_torch.tools import fleet
+
+    n, dims, per, n_chunks = fleet.problem_shape("scale")
+    rows = fleet.SCALE_PART[3]
+    table_bytes, chunk_bytes = n * dims * 4, per * rows * (dims + 3) * 4
+    kernels.reset_launch_counts()
+
+    def spec(name, **kw):
+        return fleet.FleetSpec(workdir=os.path.join(work, name), num_processes=TRAIN_FLEET,
+                               device="cuda", problem="scale", seed=seed,
+                               checkpoint_every=TRAIN_FLEET_CKPT_EVERY,
+                               heartbeat_deadline_s=20.0, grace_s=30.0, quorum_timeout_s=60.0,
+                               timeout_s=420.0, **kw)
+
+    def members(report):
+        out = {}
+        for g in report["generations"]:
+            for pid, line in g["members"].items():
+                line = line or {}
+                out[f"gen{g['generation']}-proc{pid}"] = {k: line.get(k) for k in (
+                    "backend", "device", "startup_s", "fit_s", "coeffs_per_s",
+                    "coefficients_solved", "max_memory_allocated", "comms_wait_seconds_total",
+                    "comms_wait_calls", "start_chunk", "fleet_abort", "error")}
+        return out
+
+    bad, stats = [], {"card": card, "processes": TRAIN_FLEET, "table_bytes": table_bytes,
+                      "chunk_bytes": chunk_bytes}
+    t0 = time.perf_counter()
+    report_a = fleet.run_fleet(spec("fleet_a"))
+    stats["a_s"] = time.perf_counter() - t0
+    stats["a"] = {"ok": report_a["ok"], "rcs": [g["rcs"] for g in report_a["generations"]],
+                  "members": members(report_a)}
+    print(f"path 18 (a): {json.dumps(stats['a'])} seconds={stats['a_s']:.4f} card={card}",
+          flush=True)
+    if not report_a["ok"]:
+        raise RuntimeError(f"path 18 (a): the fleet did not complete: "
+                           f"{json.dumps(report_a, default=str)[-4000:]}")
+    want = np.load(report_a["final_path"])
+    shutil.rmtree(os.path.join(work, "fleet_a", "ckpt"), ignore_errors=True)
+    # the in-process reference: one process, the same two positions, the same chunks
+    mesh = make_mesh({"entity": TRAIN_FLEET}, [torch.device("cuda", 0)] * TRAIN_FLEET)
+    table = ShardedCoefficientTable(n, dims, mesh=mesh)
+    t0 = time.perf_counter()
+    StreamingRandomEffectTrainer("logistic", fleet.scale_config(), mesh=mesh,
+                                 prefetch=False).train(table, [
+        (i * per, (lambda i=i: fleet._chunk_rows("scale", seed, i, 0, per, "cuda")))
+        for i in range(n_chunks)])
+    torch.cuda.synchronize()
+    stats["in_process_s"] = time.perf_counter() - t0
+    ref = table.to_numpy()
+    del table
+    torch.cuda.empty_cache()
+    identical = bool(np.array_equal(want, ref))
+    stats["a"]["bit_identical_to_in_process_mesh"] = identical
+    if not identical:
+        parts = [i for i in range(n_chunks)
+                 if not np.array_equal(want[i * per:(i + 1) * per], ref[i * per:(i + 1) * per])]
+        stats["a"]["chunks_differing"] = parts
+        stats["a"]["max_abs_diff"] = float(np.abs(want - ref).max())
+        if not np.allclose(want, ref, **MESH_TABLE_TOL):
+            bad.append(f"(a) off the in-process mesh run beyond {MESH_TABLE_TOL} in chunks "
+                       f"{parts}")
+    del ref
+    loss_a = fleet.problem_loss("scale", seed, want, device="cuda")
+    t0 = time.perf_counter()
+    report_b = fleet.run_fleet(spec(
+        "fleet_b", victim_plan={"rules": [{"point": "fleet.heartbeat", "action": "exit"}]},
+        victim_process=1, victim_arm_after_chunk=TRAIN_FLEET_CKPT_EVERY - 1))
+    stats["b_s"] = time.perf_counter() - t0
+    gens = report_b["generations"]
+    stats["b"] = {"ok": report_b["ok"], "relaunches": report_b["relaunches"],
+                  "rcs": [g["rcs"] for g in gens], "deaths": [g["deaths"] for g in gens],
+                  "escalated": [g["escalated"] for g in gens],
+                  "detect_s": report_b.get("detect_s"), "relaunch_s": report_b.get("relaunch_s"),
+                  "members": members(report_b)}
+    if not (report_b["ok"] and report_b["relaunches"] == 1 and len(gens) == 2
+            and gens[0]["deaths"] == [1] and gens[1]["num_processes"] == TRAIN_FLEET - 1):
+        raise RuntimeError(f"path 18 (b): the kill and relaunch went otherwise: "
+                           f"{json.dumps(stats['b'], default=str)}")
+    partial = fleet.verify_certified_checkpoints(os.path.join(work, "fleet_b", "ckpt"), n, dims)
+    got = np.load(report_b["final_path"])
+    start = (gens[1]["members"][0] or {}).get("start_chunk") or 0
+    loss_b = fleet.problem_loss("scale", seed, got, device="cuda")
+    head = bool(np.array_equal(got[:start * per], want[:start * per]))
+    stats["b"].update(partial_certified=partial, resumed_at_chunk=start, loss_a=loss_a,
+                      loss_b=loss_b, loss_rel_diff=abs(loss_b - loss_a) / abs(loss_a),
+                      rows_before_checkpoint_bit_identical=head)
+    print(f"path 18 (b): {json.dumps(stats['b'], default=str)} seconds={stats['b_s']:.4f} "
+          f"card={card}", flush=True)
+    if partial:
+        bad.append(f"(b) partially certified checkpoints: {partial}")
+    if not 0 < start < n_chunks:
+        bad.append(f"(b) the survivor resumed at chunk {start}")
+    if not stats["b"]["loss_rel_diff"] <= TRAIN_FLEET_LOSS_RTOL:
+        bad.append(f"(b) loss {loss_b} vs (a)'s {loss_a}")
+    if not head:
+        bad.append("(b) the rows solved before the checkpoint differ from (a)'s")
+    peaks = {k: m["max_memory_allocated"] for report in (report_a, report_b)
+             for k, m in members(report).items() if m["max_memory_allocated"]}
+    stats["member_peaks"] = peaks
+    # a member of the 2-process fleet holds half the table, half of each
+    # chunk and half the lanes' solver state; the relaunched survivor holds
+    # all of them (13b's one-process layout), so a member's peak is held to
+    # half the survivor's, with 10% for the allocator's rounding. The table
+    # plus one chunk is printed beside it: the lane LBFGS's state (its
+    # history pairs and line-search points, ~19 [E, K] tensors) comes on top.
+    survivor = peaks.get("gen1-proc0")
+    stats["table_plus_chunk_bytes"] = table_bytes + chunk_bytes
+    over = {k: v for k, v in peaks.items()
+            if k.startswith("gen0-") and (survivor is None or v > 0.55 * survivor)}
+    if over:
+        bad.append(f"members over half the one-process peak ({survivor}): {over}")
+    backends = {m["backend"] for m in members(report_a).values()}
+    stats["backend"] = sorted(b for b in backends if b)
+    if stats["backend"] != ["gloo"]:
+        bad.append(f"members sharing cuda:0 joined on {stats['backend']}, not gloo")
+    del want, got
+    shutil.rmtree(os.path.join(work, "fleet_a"), ignore_errors=True)
+    shutil.rmtree(os.path.join(work, "fleet_b"), ignore_errors=True)
+    print(f"path 18: backend={stats['backend']} member_peaks={json.dumps(peaks)} "
+          f"bit_identical={identical} card={card}", flush=True)
+    if bad:
+        raise RuntimeError(f"path 18: bad result: {bad}")
+    return dict(kernels.LAUNCHES), stats
+
+
 def check_small_scale_parity(seed: int) -> dict:
     """Path 13b's small chunk (SCALE_SMALL: entities x rows x dims, numpy
     draws from ``seed``) through the trainer on the card and on the CPU:
@@ -3077,7 +3353,7 @@ def _model_tensors(model) -> dict:
     return out
 
 
-def run_northstar_path(seed: int, card: str) -> tuple[dict, dict]:
+def run_northstar_path(seed: int, card: str, keep: dict | None = None) -> tuple[dict, dict]:
     """Path 11: BASELINE config #5 (bench_northstar.py: a fixed effect, a
     per-user and a per-movie random effect, and the factored ``mf``
     coordinate) at its full width through ``GameEstimator.fit``, with one
@@ -3093,7 +3369,9 @@ def run_northstar_path(seed: int, card: str) -> tuple[dict, dict]:
     validation rows bit for bit as the fitted one, and two scorings agree;
     B stops at step 1 with its manifest on disk; C restores step 1, runs
     steps 2 and 3 only, and ends bit-identical to A, tensor for tensor, with
-    A's AUC. Everything it writes goes at the end."""
+    A's AUC. Everything it writes goes at the end. Path 17a runs after fit
+    A (``run_mesh_mf_path``); ``keep["17a"]`` receives its launches and
+    numbers."""
     import torch
 
     from photon_ml_tpu_torch import kernels, telemetry
@@ -3201,6 +3479,9 @@ def run_northstar_path(seed: int, card: str) -> tuple[dict, dict]:
         if not (fe_t.iterations >= 1 and fe_t.final_value < lat_start):
             bad.append(f"the mf latent refit: {fe_t.iterations} iterations, value "
                        f"{fe_t.final_value} from {lat_start}")
+        mesh_mf = run_mesh_mf_path(est, gds, fit_a, card)
+        if keep is not None:
+            keep["17a"] = mesh_mf
         loaded = load_game_model(os.path.join(work, "a", "final"))
         scored = [fit_a.model.score(vds) for _ in range(2)]
         same = {"reloaded": torch.equal(loaded.score(vds), scored[0]),
@@ -3269,6 +3550,72 @@ def run_northstar_path(seed: int, card: str) -> tuple[dict, dict]:
           f"launches={json.dumps(launches)} card={card}", flush=True)
     if bad:
         raise RuntimeError(f"path 11: bad result: {bad}")
+    return launches, stats
+
+
+def run_mesh_mf_path(est, gds, fit_a, card: str) -> tuple[dict, dict]:
+    """Path 17a: fit A's ``mf`` update again from the same model (its initial
+    one: ``mf`` comes last in one CD iteration) and the same residual (the
+    other coordinates' scores at fit A's models, summed in the fit's
+    order), once by fit A's coordinate and once by the coordinate over a
+    ``model`` axis of 4 (latent solves per owner, the kron refit over row
+    blocks on the owners' devices). Fails unless the projection matrix and
+    the scores are within rtol/atol 5e-3 (tests/test_factored.py:310-320) and
+    the sharded update launched ``csr_margins`` and ``csc_scatter``; both
+    updates are timed."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.game import FactoredRandomEffectCoordinate
+
+    mf = est._coordinates[(id(gds), "mf")][1]
+    residual = torch.zeros(gds.num_rows, dtype=torch.float32, device=gds.device)
+    for name, sub in fit_a.model.models.items():
+        if name != "mf":
+            residual = residual + est._coordinates[(id(gds), name)][1].score(sub)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    local = mf.update_model(mf.initialize_model(), residual)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    local_scores = mf.score(local)
+    mesh, devices, kind = _owner_mesh()
+    t0 = time.perf_counter()
+    sharded = FactoredRandomEffectCoordinate(
+        "mf", gds, mf.re_data, mf.loss_name, mf.re_config, mf.latent_config,
+        latent_dim=mf.latent_dim, mf_iterations=mf.mf_iterations, seed=mf.seed, mesh=mesh)
+    _sync(devices)
+    build_s = time.perf_counter() - t0
+    _reset_peaks(devices)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = sharded.update_model(sharded.initialize_model(), residual)
+    _sync(devices)
+    sharded_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    got_scores = sharded.score(got)
+    a, a_ref = got.projection.matrix, local.projection.matrix
+    diffs = {"projection": float((a - a_ref).abs().max()),
+             "scores": float((got_scores - local_scores).abs().max())}
+    close = {"projection": torch.allclose(a, a_ref, **FACTORED_MESH_TOL),
+             "scores": torch.allclose(got_scores, local_scores, **FACTORED_MESH_TOL)}
+    stats = {"devices": [str(d) for d in devices], "kind": kind, "kron_nnz": sharded.kron_nnz,
+             "kron_blocks_nnz": [int(b.nnz) for b, _, _ in sharded._kron_blocks],
+             "build_s": build_s, "unsharded_update_s": local_s, "sharded_update_s": sharded_s,
+             "max_abs_diff": diffs, "within_tolerance": close, "launches": launches,
+             "max_memory_allocated_by_device": _peaks(devices), "card": card}
+    print(f"path 17a: mf on a model axis of {MESH_OWNERS} over {kind}; {json.dumps(stats)}",
+          flush=True)
+    bad = []
+    if not all(close.values()):
+        bad.append(f"off the unsharded update beyond {FACTORED_MESH_TOL}: {diffs}")
+    missing = [k for k in ("csr_margins", "csc_scatter") if not launches[k]]
+    if missing:
+        bad.append(f"kernels not launched: {missing}")
+    if bad:
+        raise RuntimeError(f"path 17a: bad result: {bad}")
+    del sharded, got, local
+    torch.cuda.empty_cache()
     return launches, stats
 
 
@@ -3423,7 +3770,7 @@ def check_lane_kernels(batch, w) -> list[dict]:
     return rows
 
 
-def run_sweep_path(batch, card: str) -> tuple[dict, dict]:
+def run_sweep_path(batch, card: str, keep: dict | None = None) -> tuple[dict, dict]:
     """Path 12: bench_sweep.py at BASELINE config #1 through ``sweep_glm``: 16
     lambdas ``np.logspace(2, -4, 16)``, LBFGS 20 iterations at tolerance 0,
     cold lanes (``warm_start=False``), timed beside one ``train_glm`` fit at
@@ -3507,6 +3854,49 @@ def run_sweep_path(batch, card: str) -> tuple[dict, dict]:
     missing = [k for k in ("csr_margins_lanes", "csc_scatter_lanes") if launches[k] == 0]
     if missing:
         raise RuntimeError(f"path 12: kernels not launched: {missing}")
+    if keep is not None:  # path 17c holds its mesh sweep against the cold sweep
+        keep["12"] = (lams, cfg, cold)
+    return launches, stats
+
+
+def run_mesh_sweep_path(batch, lams, cfg, cold, card: str) -> tuple[dict, dict]:
+    """Path 17c: path 12's cold sweep (16 lambdas, LBFGS 20) through
+    ``sweep_glm(mesh=...)`` on a ``model`` axis of 4: 4 lanes an owner,
+    each owner running the lane kernels on its replica of the batch. Fails
+    unless the values are within rtol 1e-5 and w within atol 1e-3 of path
+    12's meshless cold sweep (tests/test_sweep.py:227-235) and both lane
+    kernels launched."""
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.sweep import sweep_glm
+
+    mesh, devices, kind = _owner_mesh()
+    _sync(devices)
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = sweep_glm(batch, "logistic", lams, cfg, warm_start=False, mesh=mesh)
+    values = got.values.cpu().numpy()
+    _sync(devices)
+    sweep_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = cold.values.cpu().numpy()
+    w_diff = float((got.w - cold.w).abs().max())
+    rel = float(np.max(np.abs(values - want) / np.abs(want)))
+    stats = {"devices": [str(d) for d in devices], "kind": kind, "sweep_s": sweep_s,
+             "lanes": len(lams), "max_rel_value_diff": rel, "max_abs_w_diff": w_diff,
+             "iterations": got.iterations.tolist(), "launches": launches,
+             "host_syncs": telemetry.snapshot()["counters"].get("host_syncs", 0), "card": card}
+    print(f"path 17c: sweep on a model axis of {MESH_OWNERS} over {kind}; {json.dumps(stats)}",
+          flush=True)
+    bad = []
+    if not (rel <= SWEEP_MESH_RTOL and w_diff <= SWEEP_MESH_W_ATOL):
+        bad.append(f"off path 12's cold sweep: values {rel} (rtol {SWEEP_MESH_RTOL}), w "
+                   f"{w_diff} (atol {SWEEP_MESH_W_ATOL})")
+    missing = [k for k in ("csr_margins_lanes", "csc_scatter_lanes") if launches[k] == 0]
+    if missing:
+        bad.append(f"kernels not launched: {missing}")
+    if bad:
+        raise RuntimeError(f"path 17c: bad result: {bad}")
     return launches, stats
 
 
@@ -4479,8 +4869,13 @@ def run_serving_path(gds, model6, model9, seed: int, card: str, work: str,
     p_ms = device_ms(lambda: reference.csr_margins(ptr, cols, vals, w, off, 0.0, False))
     nbytes = 4 * (SERVE_MAX_BATCH + 1) + 12 * nnz + 4 * SERVE_MAX_BATCH
     bound = max(nbytes / PEAK_BYTES_PER_S, 2 * nnz / PEAK_F32_FLOPS) * 1e3
+    # the library call for the same function: torch.mv of the batch as sparse CSR
+    lib_ms = library_ms(lambda: torch.sparse_csr_tensor(
+        ptr, cols, vals, size=(SERVE_MAX_BATCH, b64.num_features), check_invariants=False),
+        lambda m: torch.mv(m, w))
     stats["request_batch_kernel"] = {"rows": SERVE_MAX_BATCH, "nnz": nnz, "max_abs_err": abs_err,
-                                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound}
+                                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                                     "library_ms": lib_ms}
     print(f"path 15 csr_margins at the request batch: {json.dumps(stats['request_batch_kernel'])}"
           f" card={card}", flush=True)
     print(f"path 15: path_s={stats['path_s']:.4f} host_syncs={stats['host_syncs']} "
@@ -5402,8 +5797,11 @@ def main() -> int:
         required=("csr_margins", "csc_scatter"), compute_variances=True)
     torch.cuda.empty_cache()
     mark("path 14", train)
-    by_path["12"], train["12"] = run_sweep_path(batch, card)
+    swept = {}
+    by_path["12"], train["12"] = run_sweep_path(batch, card, keep=swept)
     mark("path 12", train)
+    by_path["17c"], train["17c"] = run_mesh_sweep_path(batch, *swept.pop("12"), card)
+    mark("path 17c", train)
     by_path["12c"], train["12c"] = run_bootstrap_path(args.seed, batch, card)
     mark("path 12c", train)
     del batch
@@ -5425,7 +5823,8 @@ def main() -> int:
 
 def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, train: dict,
                prof: dict) -> int:
-    """Paths 8, 6, 9-9c and 11b, 15, 15b, 15c, 16, 16b, 10, 13, 13b, 12d, 16c, 12b, 11 and 7,
+    """Paths 8, 6, 14b, 9-9c, 11b and 17b, 15, 15b, 15c, 16, 16b, 10, 13, 13b, 14c, 18,
+    12d, 16c, 12b, 11 with 17a, and 7,
     then the ``kernels`` line and the result line; ``work`` holds path 8's
     files for paths 10 and 12d, path 10's for 12d and 16c, and path 16's
     checkpoint for 16b."""
@@ -5511,6 +5910,9 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
                                                        scale_ref.pop("per_user_re"))
     torch.cuda.empty_cache()
     mark("path 14c", train)
+    by_path["18"], train["18"] = run_training_fleet_path(args.seed, card, work)
+    torch.cuda.empty_cache()
+    mark("path 18", train)
     t0 = time.perf_counter()
     by_path["12d"], train["12d"] = run_sweep_cli_path(card, work, glm_ref)
     train["12d"]["path_s"] = time.perf_counter() - t0
@@ -5526,7 +5928,9 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     mark("path 12b", train)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    by_path["11"], train["11"] = run_northstar_path(args.seed, card)
+    northstar = {}
+    by_path["11"], train["11"] = run_northstar_path(args.seed, card, keep=northstar)
+    by_path["17a"], train["17a"] = northstar.pop("17a")
     train["11"]["path_s"] = time.perf_counter() - t0
     print(f"path 11: {train['11']['path_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()

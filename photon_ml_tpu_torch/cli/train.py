@@ -48,9 +48,18 @@ only its touched random-effect lanes solved over the combined input
 lineage through the quality gate (``incremental/``; ``cli refresh`` is the
 same branch as a subcommand). Every key and flag the port cannot honour yet
 raises ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
-``distributed`` and a run across processes (12); ``trace_out``, ``telemetry_out``,
-``report_out``, ``xprof``, their flags, a ``heartbeat`` object or interval
-and ``--heartbeat-every`` > 0 (14).
+``trace_out``, ``telemetry_out``, ``report_out``, ``xprof``, their flags, a
+``heartbeat`` object or interval and ``--heartbeat-every`` > 0 (14).
+
+``"distributed"`` (``coordinator_address``, ``num_processes``,
+``process_id``, ``auto``, ``init_retries``, ``init_backoff_s``; each left
+out falls back to the ``PHOTON_ML_*`` environment) joins a fleet through
+``parallel.multihost.initialize`` before anything is read (:185-240). A
+fleet of one process trains (a configured fleet without a ``mesh`` key
+trains over a 1-D mesh of its devices); one of more processes is refused
+with the reference's reason: this pipeline reads the whole input in every
+process, so a fit across processes is a worker on the per-process APIs
+supervised by ``tools/fleet``.
 
 ``"mesh"`` (or ``--mesh batch=N,model=M``, ``auto`` for a 1-D ``data`` mesh
 over every CUDA device, ``off`` to drop a config's mesh) trains over a
@@ -80,8 +89,13 @@ from photon_ml_tpu_torch.optim.guard import GuardSpec
 from photon_ml_tpu_torch.utils import setup_logging, timed
 
 # config keys the port refuses, with the ROADMAP.md Queue 1 item that ports them
-_REFUSED_KEYS = {"distributed": 12,
-                 "trace_out": 14, "telemetry_out": 14, "report_out": 14, "xprof": 14}
+_REFUSED_KEYS = {"trace_out": 14, "telemetry_out": 14, "report_out": 14, "xprof": 14}
+
+# the reference's own refusal of a train run across processes
+# (photon_ml_tpu/cli/train.py:218-240)
+ACROSS_PROCESSES = ("the `train` CLI does not span processes yet; write a worker with the "
+                    "per-process APIs and supervise it with tools/fleet (README 'Multi-host "
+                    "deployment' / 'Fleet supervision')")
 
 
 def _refuse(what: str, item):
@@ -208,16 +222,36 @@ def parse_mesh_flag(raw: str):
     return axes
 
 
+def init_distributed(config: Mapping, device: torch.device | str | None = None) -> None:
+    """Join the fleet of the config's ``distributed`` key (each field left
+    out taken from the ``PHOTON_ML_*`` environment), with bounded retry;
+    a run that spans processes is refused with the reference's reason."""
+    from photon_ml_tpu_torch.device import resolve_device
+    from photon_ml_tpu_torch.parallel import multihost
+
+    spec = config.get("distributed")
+    if spec is not None:
+        env = multihost.DistributedConfig.from_env()
+        multihost.initialize(multihost.DistributedConfig(
+            coordinator_address=spec.get("coordinator_address", env.coordinator_address),
+            num_processes=spec.get("num_processes", env.num_processes),
+            process_id=spec.get("process_id", env.process_id),
+            auto=bool(spec.get("auto", env.auto)),
+            init_retries=int(spec.get("init_retries", env.init_retries)),
+            init_backoff_s=float(spec.get("init_backoff_s", env.init_backoff_s)),
+        ), device=resolve_device(device))
+    if multihost.is_multiprocess():
+        raise NotImplementedError(ACROSS_PROCESSES)
+
+
 def build_mesh(config: Mapping, device: torch.device | str | None = None):
     """The training mesh of the config's ``mesh`` key, or None: over the
-    first CUDA devices, or on the CPU over the CPU repeated. A run across
-    processes is refused (ROADMAP.md Queue 1 item 12), as the reference's
-    ``cli train`` refuses to span processes."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        _refuse("a train run across processes", 12)
+    first CUDA devices, or on the CPU over the CPU repeated. A configured
+    fleet (``distributed``) without a ``mesh`` key trains over a 1-D mesh
+    of its devices, as the reference's does."""
     spec = config.get("mesh")
+    if spec is None and config.get("distributed") is not None:
+        spec = "auto"
     if not spec:
         return None
     from photon_ml_tpu_torch.device import resolve_device
@@ -460,6 +494,7 @@ def run(config: Mapping, output_dir: Optional[str] = None,
             "mesh training is not supported with a GAME sweep yet — drop the \"mesh\" config / "
             "--mesh flag (plain-GLM sweeps can shard the config axis via "
             "sweep.sweep_glm(mesh=...))")
+    init_distributed(config, device)
     mesh = build_mesh(config, device)
     stop = GracefulStop()
     if checkpoint_spec is not None:

@@ -36,11 +36,15 @@ directories apply; ``open_for_restore`` opens a directory read-only.
 ``restore_placed`` puts the table on one device or re-slices it over the
 caller's mesh (:461-494), whatever mesh wrote it; ``elastic`` says the two
 differ. ``restore_row_range`` reads one block of rows off the shard files
-(:1098-1141, a serving-fleet member's slice). A coordinate-descent fit on a mesh keeps its models on the mesh's
-first device, so its step checkpoints restore there, onto the caller's mesh.
-Saving from more than one process is refused: ROADMAP.md Queue 1 item 12.
-The fault points (item 14c) and the telemetry gauges (item 14d) are not
-ported.
+(:1098-1141, a serving-fleet member's slice). A coordinate-descent fit on a
+mesh gathers its owners' tables only to save them, so its step checkpoints
+restore onto the caller's mesh. In a fleet of processes the streaming save
+is coordinated (:645-830): each member writes the blocks it holds
+(``coefficients-p<pid>-NNNN.npy``) and its own manifest, and process 0
+certifies the checkpoint with the quorum manifest once every member's has
+landed and the blocks cover the table; ``restore_placed`` re-slices the
+newest certified checkpoint onto whatever fleet restores it. The fault
+points (item 14c) and the telemetry gauges (item 14d) are not ported.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import os
 import re
 import shutil
 import signal
+import time
 from typing import Optional
 
 import numpy as np
@@ -97,8 +102,8 @@ class CheckpointSpec:
     """Save after every ``every`` completed (iteration, coordinate) steps (a
     stop always saves); keep the newest ``keep_last``. ``resume=False`` is a
     fresh fit into the directory: its checkpoints are cleared. The
-    reference's ``quorum_timeout_s`` (coordinated multi-process saves) is
-    kept for its validation only."""
+    ``quorum_timeout_s`` bounds every wait of a coordinated (multi-process)
+    streaming save."""
 
     directory: str
     every: int = 1
@@ -163,9 +168,10 @@ class CheckpointManager:
             if os.path.exists(tmp):
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
-            save_game_model(state.model, os.path.join(tmp, "model"))
+            # a mesh fit's owner-kept tables are joined only here, to be saved
+            save_game_model(state.model.gathered(), os.path.join(tmp, "model"))
             if state.best_model is not None:
-                save_game_model(state.best_model, os.path.join(tmp, "best"))
+                save_game_model(state.best_model.gathered(), os.path.join(tmp, "best"))
             # the manifest lands last: its presence certifies the checkpoint
             atomic_write_json(os.path.join(tmp, _MANIFEST_FILE), {
                 "format_version": _FORMAT_VERSION,
@@ -331,14 +337,17 @@ def _environment_record(device: Optional[torch.device] = None) -> dict:
             "device_count": int(count)}
 
 
-def _refuse_fleet() -> None:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
-
-        raise NotImplementedError(NOT_PORTED.format(
-            "the coordinated multi-process streaming checkpoint", 12))
+def _wait_until(predicate, timeout_s: float, poll_s: float = 0.05) -> bool:
+    """Poll ``predicate`` until it holds or ``timeout_s`` passes: the
+    filesystem rendezvous's barrier, bounded so a dead peer never hangs a
+    save."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        if predicate():
+            return True
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(poll_s)
 
 
 class StreamingCheckpointManager:
@@ -376,10 +385,9 @@ class StreamingCheckpointManager:
 
     @staticmethod
     def _write_table(tmp: str, prefix: str, array) -> list[dict]:
-        """``array`` as one payload file per device block (one for a table on
-        one device), fetched one block at a time."""
-        blocks = ([(0, array)] if not isinstance(array, EntityShards)
-                  else list(zip(array.row_starts(), array.parts)))
+        """``array`` as one payload file per device block this process holds
+        (one for a table on one device), fetched one block at a time."""
+        blocks = [(0, array)] if not isinstance(array, EntityShards) else array.local_blocks()
         out = []
         for i, (row_start, part) in enumerate(blocks):
             data = (part.detach().cpu().numpy() if isinstance(part, torch.Tensor)
@@ -390,14 +398,21 @@ class StreamingCheckpointManager:
             out.append({"file": fname, "row_start": int(row_start), "rows": int(data.shape[0])})
         return out
 
-    def save(self, state: StreamCheckpointState) -> str:
-        """Write ``state`` as ``chunk-<next_chunk>`` and return its path."""
+    def save(self, state: StreamCheckpointState) -> Optional[str]:
+        """Write ``state`` as ``chunk-<next_chunk>`` and return its path. In a
+        fleet of processes this is the coordinated save (every member calls
+        it at the same boundary), which returns None when the quorum never
+        formed: the directory stays uncertified and restore passes it by."""
         if self.read_only:
             raise CheckpointError(
                 f"checkpoint manager over {self.spec.directory} is read-only "
                 "(open_for_restore): serving must not write into a training run's "
                 "checkpoint history")
-        _refuse_fleet()
+        from photon_ml_tpu_torch.parallel import multihost
+
+        if multihost.is_multiprocess():
+            return self._save_coordinated(state, multihost.process_index(),
+                                          multihost.process_count())
         name = f"chunk-{state.next_chunk:08d}"
         final = os.path.join(self.spec.directory, name)
         tmp = os.path.join(self.spec.directory, f".tmp-{name}")
@@ -426,6 +441,142 @@ class StreamingCheckpointManager:
                 "variance_shards": variance_files,
                 "sharding": coeffs.sharding_record() if sharded else None,
                 "env": _environment_record(device),
+            }, indent=2, sort_keys=True)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            fsync_dir(self.spec.directory)
+        telemetry.counter("checkpoint.saves").inc()
+        self._apply_retention()
+        return final
+
+    @staticmethod
+    def _peer_manifest_name(pid: int) -> str:
+        return f"manifest.proc-{pid:04d}.json"
+
+    def _save_coordinated(self, state: StreamCheckpointState, pid: int,
+                          nproc: int) -> Optional[str]:
+        """The multi-process save (:645-830): every member writes the blocks
+        it holds and its own manifest into a shared ``.tmp-`` directory;
+        process 0 writes the quorum manifest (``manifest.json``) only after
+        every peer's manifest has landed, checks that the merged blocks cover
+        [0, N) once and that every payload named is on disk, then renames the
+        directory into place. A member lost mid-save leaves the directory
+        uncertified (``checkpoint.quorum_timeouts``). The rendezvous is the
+        shared filesystem alone, and every wait is bounded by
+        ``spec.quorum_timeout_s``."""
+        name = f"chunk-{state.next_chunk:08d}"
+        final = os.path.join(self.spec.directory, name)
+        tmp = os.path.join(self.spec.directory, f".tmp-{name}")
+        rendezvous = os.path.join(tmp, "rendezvous.json")
+        timeout = self.spec.quorum_timeout_s
+        coeffs = state.coefficients
+        dim = int(coeffs.shape[1])
+        with telemetry.span("checkpoint:save", next_chunk=state.next_chunk, coordinated=True):
+            if pid == 0:
+                if os.path.exists(tmp):
+                    # debris of a crashed earlier save of this chunk: moved
+                    # aside in one rename, so a peer never takes it for this
+                    # rendezvous
+                    trash = os.path.join(self.spec.directory, f".trash-{name}")
+                    shutil.rmtree(trash, ignore_errors=True)
+                    os.rename(tmp, trash)
+                    shutil.rmtree(trash, ignore_errors=True)
+                os.makedirs(tmp)
+                atomic_write_json(rendezvous, {"num_processes": nproc,
+                                               "next_chunk": int(state.next_chunk)})
+            else:
+                def rendezvous_matches() -> bool:
+                    # its content, not its existence: a stale rendezvous of an
+                    # abandoned save (or of another fleet size replaying this
+                    # chunk) must not lure a member into a directory process 0
+                    # is about to remove
+                    try:
+                        with open(rendezvous, encoding="utf-8") as fh:
+                            doc = json.load(fh)
+                    except (OSError, ValueError):
+                        return False
+                    return (doc.get("num_processes") == nproc
+                            and doc.get("next_chunk") == int(state.next_chunk))
+
+                if not _wait_until(rendezvous_matches, timeout):
+                    telemetry.counter("checkpoint.quorum_timeouts").inc()
+                    logger.warning("coordinated save %s: no matching rendezvous from process 0 "
+                                   "within %.1fs; abandoning (uncertified)", name, timeout)
+                    return None
+            shard_files = self._write_table(tmp, f"coefficients-p{pid:04d}", coeffs)
+            variance_files = None
+            if state.variances is not None:
+                variance_files = self._write_table(tmp, f"variances-p{pid:04d}",
+                                                   state.variances)
+            # this member's manifest lands last: it certifies its blocks
+            atomic_write_json(os.path.join(tmp, self._peer_manifest_name(pid)), {
+                "process_id": pid, "num_processes": nproc,
+                "next_chunk": int(state.next_chunk), "shards": shard_files,
+                "variance_shards": variance_files})
+            telemetry.counter("checkpoint.peer_manifests").inc()
+            if pid != 0:
+                # certified (renamed) or abandoned: process 0 decides
+                _wait_until(lambda: os.path.exists(final) or not os.path.exists(tmp), timeout)
+                if os.path.exists(final):
+                    telemetry.counter("checkpoint.saves").inc()
+                    return final
+                telemetry.counter("checkpoint.quorum_timeouts").inc()
+                logger.warning("coordinated save %s was never certified by process 0", name)
+                return None
+            peer_paths = [os.path.join(tmp, self._peer_manifest_name(p)) for p in range(nproc)]
+            if not _wait_until(lambda: all(os.path.exists(p) for p in peer_paths), timeout):
+                missing = [p for p, path in enumerate(peer_paths) if not os.path.exists(path)]
+                telemetry.counter("checkpoint.quorum_timeouts").inc()
+                logger.warning("coordinated save %s: peer manifest(s) of process(es) %s never "
+                               "landed within %.1fs; abandoning uncertified (restore passes "
+                               "it by)", name, missing, timeout)
+                return None
+            merged, merged_var = [], []
+            for path in peer_paths:
+                with open(path, encoding="utf-8") as fh:
+                    peer = json.load(fh)
+                merged.extend(peer["shards"])
+                merged_var.extend(peer.get("variance_shards") or ())
+            merged.sort(key=lambda d: int(d["row_start"]))
+            merged_var.sort(key=lambda d: int(d["row_start"]))
+            # the merged blocks define the table: certify only a cover of
+            # [0, N) without gap or overlap
+            num_entities = 0
+            for d in merged:
+                if int(d["row_start"]) != num_entities:
+                    telemetry.counter("checkpoint.quorum_cover_violations").inc()
+                    logger.warning("coordinated save %s: the merged blocks do not cover the "
+                                   "entities contiguously (gap or overlap at row %d); "
+                                   "abandoning uncertified", name, num_entities)
+                    return None
+                num_entities += int(d["rows"])
+            # every payload a peer names must be on disk (a peer that raced
+            # into a stale directory lost its blocks with it)
+            missing_payload = [d["file"] for d in (*merged, *merged_var)
+                               if not os.path.exists(os.path.join(tmp, d["file"]))]
+            if missing_payload:
+                telemetry.counter("checkpoint.quorum_cover_violations").inc()
+                logger.warning("coordinated save %s: peer manifest(s) name payload file(s) "
+                               "missing from the save directory (%s); abandoning uncertified",
+                               name, missing_payload)
+                return None
+            first = coeffs.local_blocks()[0][1] if isinstance(coeffs, EntityShards) else coeffs
+            device = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
+            # the quorum manifest: the only certification restore reads
+            atomic_write_json(os.path.join(tmp, _MANIFEST_FILE), {
+                "format_version": _STREAM_FORMAT_VERSION,
+                "kind": "streaming",
+                "next_chunk": int(state.next_chunk),
+                "num_entities": num_entities,
+                "dim": dim,
+                "dtype": str(np.dtype(str(coeffs.dtype).replace("torch.", ""))),
+                "shards": merged,
+                "variance_shards": merged_var or None,
+                "sharding": (coeffs.sharding_record() if isinstance(coeffs, EntityShards)
+                             else None),
+                "env": _environment_record(device),
+                "quorum": {"num_processes": nproc},
             }, indent=2, sort_keys=True)
             if os.path.exists(final):
                 shutil.rmtree(final)
@@ -591,9 +742,10 @@ class StreamingCheckpointManager:
         dev = None if mesh is not None else resolve_device(device)
 
         def load(path, manifest):
-            coeffs = self._read_table(path, manifest, "coefficients")
-            variances = self._read_table(path, manifest, "variances")
-            return manifest, coeffs, variances
+            # the payload files' readers, checked up front: each device's
+            # block (a fleet member's blocks only) is read off them alone
+            return (manifest, self._row_reader(path, manifest, "coefficients"),
+                    self._row_reader(path, manifest, "variances"))
 
         found = self._newest(load)
         if found is None:
@@ -609,11 +761,13 @@ class StreamingCheckpointManager:
             resolved = axis or model_axis(mesh)
             target_shards = int(mesh.shape[resolved]) if resolved else 1
 
-        def placed(table):
-            if table is None:
+        dtype = np.dtype(manifest.get("dtype", "float32"))
+
+        def placed(read_rows):
+            if read_rows is None:
                 return None
-            return place_entity_rows(lambda lo, hi: table[lo:hi], table.shape[0],
-                                     table.shape[1:], table.dtype, mesh=mesh, axis=axis,
+            return place_entity_rows(read_rows, int(manifest["num_entities"]),
+                                     (int(manifest["dim"]),), dtype, mesh=mesh, axis=axis,
                                      device=dev)
 
         coefficients, variances = placed(coeffs), placed(variances)

@@ -275,6 +275,8 @@ def run_coordinate_descent(
                 if stop:
                     raise TrainingInterrupted(step, last_ckpt_path)
 
-    final = GameModel(task=task, models=dict(models))
+    # the models leave the fit joined: a mesh's owner-kept tables gathered
+    final = GameModel(task=task, models=dict(models)).gathered()
+    best_model = None if best_model is None else best_model.gathered()
     return CoordinateDescentResult(model=final, best_model=best_model or final,
                                    best_metric=best_metric, history=history)

@@ -26,14 +26,20 @@ the device (for a random effect, over every bucket). Each update leaves its
 one host fetch; a random effect's comes from its buckets' lane results.
 
 With a ``mesh`` (``parallel/``): the fixed effect's design is split by rows
-over the batch axis once (:168-190), and per update only the offsets (the
+over the batch axis once (:168-190), each row block cut from the host shard
+and built on its own device (``place_host_rows``; a streamed dataset's
+device batch is cut where it lies), and per update only the offsets (the
 residual scores) and the down-sampled weights are re-placed into the
-shards; an entity-only mesh leaves it unsharded. The random effect pads
-each bucket's entities to a multiple of the model axis with all-zero
-problems and solves each owner's block of lanes on its device, one owner
-after another (:412-450, :668-725); the results, variances and trackers
-are cut back to the bucket's entities on the first device, so padding never
-reaches a tracker. ``NOT_PORTED`` is the message of what the port refuses,
+shards; its scores are the blocks' margins joined in block order. An
+entity-only mesh leaves it unsharded. The random effect pads each bucket's
+entities to a multiple of the model axis with all-zero problems and solves
+each owner's block of lanes on its device, one owner after another
+(:412-450, :668-725). The coefficients and variances stay with their owners
+between updates (``OwnerBlocks``: no device holds a bucket's whole table);
+the lane telemetry is cut back to the bucket's entities on the first
+device, so padding never reaches a tracker, and the owners' margins are
+written into the scores row by row (each row has one slot: no float
+atomics). ``NOT_PORTED`` is the message of what the port refuses,
 naming the ROADMAP item that ports it.
 """
 
@@ -46,7 +52,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.normalization import NormalizationContext
-from photon_ml_tpu_torch.game.dataset import GameDataset
+from photon_ml_tpu_torch.game.dataset import DeviceShards, GameDataset
 from photon_ml_tpu_torch.game.models import (
     FixedEffectModel,
     RandomEffectBucketModel,
@@ -68,7 +74,13 @@ from photon_ml_tpu_torch.optim.trackers import (
     RandomEffectOptimizationTracker,
 )
 from photon_ml_tpu_torch.parallel.mesh import Mesh
-from photon_ml_tpu_torch.parallel.sharding import as_sharded, data_axis, model_axis
+from photon_ml_tpu_torch.parallel.sharding import (
+    OwnerBlocks,
+    as_sharded,
+    data_axis,
+    model_axis,
+    place_host_rows,
+)
 
 Tensor = torch.Tensor
 
@@ -93,13 +105,24 @@ class FixedEffectCoordinate:
 
     def __post_init__(self):
         self.config.validate(self.loss_name)
-        self._batch = self.data.csr_batch(self.shard_name)
         if self.mesh is not None and data_axis(self.mesh) is None:
             self.mesh = None  # an entity-only mesh: the fixed effect runs unsharded
-        # the design split by rows over the batch axis once (one shard without a mesh)
-        self._solve_batch = as_sharded(self._batch, self.mesh,
-                                       None if self.mesh is None else data_axis(self.mesh))
-        self._constraints = self.config.build_box_constraints(self._batch.num_features,
+        if self.mesh is not None and not isinstance(self.data.feature_shards, DeviceShards):
+            # each row block cut from the host shard and built on its own
+            # device: no device holds the whole design
+            self._batch = None
+            self._solve_batch = place_host_rows(
+                self.data.shard(self.shard_name), self.data.response, self.data.offset,
+                self.data.weight, self.mesh, data_axis(self.mesh))
+            self._base_offsets = self.data.per_row(self.data.offset)
+        else:
+            self._batch = self.data.csr_batch(self.shard_name)
+            # the design split by rows over the batch axis once (one shard
+            # without a mesh)
+            self._solve_batch = as_sharded(self._batch, self.mesh,
+                                           None if self.mesh is None else data_axis(self.mesh))
+            self._base_offsets = self._batch.offsets
+        self._constraints = self.config.build_box_constraints(self._solve_batch.num_features,
                                                               self.data.device)
         norm = self.normalization
         if self._constraints is not None and norm is not None:
@@ -142,7 +165,7 @@ class FixedEffectCoordinate:
 
     def initialize_model(self) -> FixedEffectModel:
         return FixedEffectModel(
-            coefficients=torch.zeros(self._batch.num_features, dtype=torch.float32,
+            coefficients=torch.zeros(self._solve_batch.num_features, dtype=torch.float32,
                                      device=self.data.device),
             shard_name=self.shard_name,
         )
@@ -155,7 +178,7 @@ class FixedEffectCoordinate:
         if self.config.down_sampling_rate < 1.0:
             batch = batch.with_weights(self._downsampled_weights(update_index))
         if residual_scores is not None:
-            batch = batch.with_offsets(self._batch.offsets + residual_scores)
+            batch = batch.with_offsets(self._base_offsets + residual_scores)
         norm = self.normalization
         w0 = model.coefficients
         if norm is not None:
@@ -172,7 +195,12 @@ class FixedEffectCoordinate:
         return dataclasses.replace(model, coefficients=w)
 
     def score(self, model: FixedEffectModel) -> Tensor:
-        return self._batch.dot_rows(model.coefficients)
+        if self._batch is not None:
+            return self._batch.dot_rows(model.coefficients)
+        # each row block scored on its device, joined in block order
+        sb = self._solve_batch
+        parts = sb.each(lambda b, w: b.dot_rows(w), sb.broadcast(model.coefficients))
+        return torch.cat([p.to(self.data.device) for p in parts])[:sb.num_rows]
 
 
 # DistributedOptimizationProblem.computeVariances adds this to the Hessian
@@ -241,10 +269,17 @@ class RandomEffectCoordinate:
 
     def initialize_model(self) -> RandomEffectModel:
         dev = self.data.device
+
+        def zeros(b):
+            if not self._owners:
+                return torch.zeros((b.num_entities, b.num_local_features), dtype=torch.float32,
+                                   device=dev)
+            return OwnerBlocks.split(torch.zeros((b.num_entities, b.num_local_features),
+                                                 dtype=torch.float32), self._owner_devices())
+
         buckets = tuple(
             RandomEffectBucketModel(
-                coefficients=torch.zeros((b.num_entities, b.num_local_features),
-                                         dtype=torch.float32, device=dev),
+                coefficients=zeros(b),
                 projection=torch.from_numpy(b.projection.astype(np.int64)).to(dev),
                 entity_codes=b.entity_codes,
             )
@@ -268,15 +303,16 @@ class RandomEffectCoordinate:
                        if residual_scores is not None}
         for i, bm in enumerate(model.buckets):
             if self._owners:
-                res, var, health = self._solve_owners(obj, i, bm.coefficients, residual_on)
+                res, w, var, health = self._solve_owners(obj, i, bm.coefficients, residual_on)
             else:
                 res, var = self._solve(obj, self._buckets[i], bm.coefficients,
                                        self._constraints[i], residual_scores, self.data.device)
+                w = res.w
                 health = solve_health(res, res.w) if self.health_check else None
             results.append(res)
             if health is not None:
                 healths.append(health)
-            new_buckets.append(dataclasses.replace(bm, coefficients=res.w, variances=var))
+            new_buckets.append(dataclasses.replace(bm, coefficients=w, variances=var))
         self.last_results = results
         self.last_tracker = RandomEffectOptimizationTracker.from_results(results)
         if self.health_check:
@@ -297,23 +333,38 @@ class RandomEffectCoordinate:
             var = 1.0 / (obj.hessian_diagonal(res.w, batch) + _VARIANCE_EPS)
         return res, var
 
-    def _solve_owners(self, obj, i: int, w0: Tensor, residual_on: dict):
+    def _owner_devices(self) -> tuple[torch.device, ...]:
+        return tuple(d for d, _, _ in self._owners)
+
+    def _owner_w(self, i: int, w) -> tuple[Tensor, ...]:
+        """Bucket ``i``'s coefficients as each owner's padded block on its
+        device: the owners' own blocks as they are, a joined tensor (a
+        restored or warm-started model) cut into them."""
+        if not isinstance(w, OwnerBlocks):
+            w = OwnerBlocks.split(w, self._owner_devices())
+        return w.parts
+
+    def _solve_owners(self, obj, i: int, w0, residual_on: dict):
         """Bucket ``i``'s lanes over the model axis: each owner's block, its
         padding problems included (all-zero, so they pass the health reduce,
-        as in the reference), solved on its device in owner order, then cut
-        back to the bucket's entities on the first device."""
+        as in the reference), solved on its device in owner order. The
+        coefficients and variances stay with their owners (``OwnerBlocks``);
+        only the lane telemetry is joined, on the first device, cut back to
+        the bucket's entities."""
         dev = self.data.device
         parts, healths = [], []
-        for (d, buckets, cons), (lo, hi, pad) in zip(self._owners, self._splits[i]):
-            res, var = self._solve(obj, buckets[i], _owner_lanes(w0, lo, hi, pad, d), cons[i],
-                                   residual_on.get(str(d)), d)
+        for (d, buckets, cons), w_o, (lo, hi, pad) in zip(self._owners, self._owner_w(i, w0),
+                                                         self._splits[i]):
+            res, var = self._solve(obj, buckets[i], w_o, cons[i], residual_on.get(str(d)), d)
             parts.append((res, var, hi - lo))
             if self.health_check:
                 healths.append(solve_health(res, res.w).to(dev))
+        counts = tuple(n for _, _, n in parts)
+        w = OwnerBlocks(parts=tuple(r.w for r, _, _ in parts), counts=counts)
         var = (None if not self.compute_variances
-               else torch.cat([v[:n].to(dev) for _, v, n in parts]))
+               else OwnerBlocks(parts=tuple(v for _, v, _ in parts), counts=counts))
         health = torch.stack(healths).all() if healths else None
-        return _join_lanes([(r, n) for r, _, n in parts], dev), var, health
+        return _join_lanes([(r, n) for r, _, n in parts], dev), w, var, health
 
     def score(self, model: RandomEffectModel) -> Tensor:
         """Scores on the training data: the bucket margins for active rows,
@@ -324,8 +375,8 @@ class RandomEffectCoordinate:
                 _write_scores(scores, self._buckets[i], bm.coefficients)
                 continue
             # on a mesh each owner scores its block; only the margins come back
-            for (d, buckets, _), (lo, hi, pad) in zip(self._owners, self._splits[i]):
-                _write_scores(scores, buckets[i], _owner_lanes(bm.coefficients, lo, hi, pad, d))
+            for (d, buckets, _), w_o in zip(self._owners, self._owner_w(i, bm.coefficients)):
+                _write_scores(scores, buckets[i], w_o)
         if len(self.re_data.passive_rows):
             passive = torch.from_numpy(self.re_data.passive_rows).to(self.data.device)
             scores[passive] = model.score(self.data).index_select(0, passive)
@@ -338,14 +389,6 @@ def _write_scores(scores: Tensor, bucket, w: Tensor) -> None:
     slots are none), so writing the slots into zeros is exact in any order."""
     margins = bucket.batch().dot_rows(w).reshape(-1).index_select(0, bucket.slots)
     scores.index_put_((bucket.slot_rows.to(scores.device),), margins.to(scores.device))
-
-
-def _owner_lanes(w: Tensor, lo: int, hi: int, pad: int, device: torch.device) -> Tensor:
-    """Lanes [lo, hi) of ``w`` on ``device``, then ``pad`` all-zero lanes."""
-    block = w[lo:hi].to(device)
-    if pad:
-        block = torch.cat([block, block.new_zeros((pad, block.shape[1]))])
-    return block
 
 
 def _join_lanes(parts: list[tuple[SolveResult, int]], device: torch.device) -> SolveResult:

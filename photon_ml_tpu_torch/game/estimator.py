@@ -32,13 +32,14 @@ given (fixed effects split their rows over ``batch``, random effects their
 entities over ``model``), a legacy 1-D mesh becomes two views over the same
 devices (``data`` and ``entity``), and a mesh that names neither on more
 than one axis is refused. The mesh's first device must be the dataset's.
+A factored random effect and the random projector work over the mesh's
+model axis (else its batch axis, ``game/factored.py``). The returned and
+saved models are joined on the first device; during the fit the random
+effects' coefficients stay with their owners.
 
 ``fit_incremental`` (:506-581) is the incremental refresh
 (``incremental/``): the base model transplanted into the combined data's
 coordinates, and only the delta's touched random-effect lanes solved.
-
-Not ported (raises ``NotImplementedError`` naming its ROADMAP item): a
-factored random effect or the random projector on a mesh (item 12).
 """
 
 from __future__ import annotations

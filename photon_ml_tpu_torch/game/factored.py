@@ -37,13 +37,27 @@ With ``refit_projection=False`` the coordinate is the random projector: the
 per-entity solves in a fixed Gaussian space, with no refit and no Kronecker
 structure. Scores sum every row's terms in a fixed order
 (``torch.segment_reduce``, and each active row written to its own place), so
-two scorings agree bit for bit. A ``mesh`` (the reference's entity-sharded
-latent solves, :253-610) is refused: ROADMAP.md Queue 1 item 12.
+two scorings agree bit for bit.
+
+With a ``mesh`` (:253-610) the coordinate works over one axis
+(``_resolve_mesh_axis``, :428-441: the model axis, else the batch axis,
+else the first). Each bucket's entities are padded to a multiple of the
+axis and cut into one block an owner (``RandomEffectDataset.owner_datasets``,
+the parent's dense or COO layout kept); an owner computes its block's
+latent design on its device and solves its lanes there, and the latent
+table is joined on the first device in owner order (it is E x K floats).
+The Kronecker structure is cut into contiguous row blocks once, one
+refreshable ``CSRBatch`` built on each device (:444-484), with its share of
+the value index; a refit refreshes each block's values where it lies and
+runs the data-parallel solve over them (a ``ShardedBatch``: the partial
+sums added on the first device in block order, :545-607). The random
+projector runs the same per-owner solves.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -218,11 +232,6 @@ class FactoredRandomEffectCoordinate:
     mesh: object = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
-
-            raise NotImplementedError(NOT_PORTED.format(
-                "a factored random effect or the random projector on a mesh (mesh)", 12))
         if self.latent_dim < 1:
             raise ValueError("latent_dim must be >= 1")
         if self.mf_iterations < 1:
@@ -236,12 +245,6 @@ class FactoredRandomEffectCoordinate:
         self.latent_config.validate(self.loss_name)
         if self.re_config.box_constraints or self.latent_config.box_constraints:
             raise ValueError("box constraints are not supported in latent/projected spaces")
-        dev = self.data.device
-        dense = self.re_data.dense_buckets(dev)
-        coo = self.re_data.coo_buckets(dev)
-        self._buckets = tuple(d if d is not None else c for d, c in zip(dense, coo))
-        self._proj = tuple(torch.from_numpy(b.projection.astype(np.int64)).to(dev)
-                           for b in self.re_data.buckets)
         # rows of A, the intercept passthrough included
         self._proj_rows = self.latent_dim + (self.projection_intercept_index is not None)
         sizes = [b.num_entities for b in self.re_data.buckets]
@@ -250,6 +253,18 @@ class FactoredRandomEffectCoordinate:
         eb, ep = self.re_data.entity_bucket, self.re_data.entity_pos
         self._entity_flat = np.where(eb >= 0, self._flat_offsets[np.maximum(eb, 0)] + ep,
                                      -1).astype(np.int64)
+        self._owners = ()
+        if self.mesh is not None:
+            self._resolve_mesh_axis()
+            devices = self.mesh.axis_devices(self._axis)
+            owned = self.re_data.owner_datasets(len(devices))
+            self._splits = self.re_data.owner_splits(len(devices))
+            self._owners = tuple(
+                (d, tuple(x if x is not None else c for x, c in
+                          zip(sub.dense_buckets(d), sub.coo_buckets(d))),
+                 tuple(torch.from_numpy(b.projection.astype(np.int64)).to(d)
+                       for b in sub.buckets))
+                for d, sub in zip(devices, owned))
         self._re_obj = build_objective(self.loss_name, self.re_config)
         self._re_l1 = self.re_config.regularization.l1_weight(
             self.re_config.regularization_weight)
@@ -288,12 +303,58 @@ class FactoredRandomEffectCoordinate:
         o = np.argsort(np.repeat(g_rows, k), kind="stable")
         base, lcol = o // k, o % k
         dev = self.data.device
-        self._kron_base = torch.from_numpy(g_vals[base].astype(np.float32)).to(dev)
-        self._kron_latent_idx = torch.from_numpy(g_ent[base] * k + lcol).to(dev)
-        self._kron = CSRBatch.from_coo(
-            np.zeros(len(o), np.float32), g_rows[base], g_cols[base] * k + lcol, lab, d * k,
-            offsets=off, weights=wgt, device=dev, refreshable=True)
+        rows, cols = g_rows[base], g_cols[base] * k + lcol
+        vals, idx = g_vals[base].astype(np.float32), g_ent[base] * k + lcol
         self.kron_nnz = len(o)
+        self._kron_offsets = torch.from_numpy(off.astype(np.float32)).to(dev)
+        if self.mesh is None:
+            self._kron_base = torch.from_numpy(vals).to(dev)
+            self._kron_latent_idx = torch.from_numpy(idx).to(dev)
+            self._kron = CSRBatch.from_coo(np.zeros(len(o), np.float32), rows, cols, lab, d * k,
+                                           offsets=off, weights=wgt, device=dev,
+                                           refreshable=True)
+            return
+        # contiguous row blocks, each built on its own device with its share
+        # of the base values and the latent index
+        devices = self.mesh.axis_devices(self._axis)
+        per = -(-n // len(devices))
+        cuts = np.searchsorted(rows, [min(i * per, n) for i in range(len(devices) + 1)])
+        blocks = []
+        for i, dv in enumerate(devices):
+            lo, hi, a, b = min(i * per, n), min((i + 1) * per, n), cuts[i], cuts[i + 1]
+
+            def block(v):
+                return np.concatenate([v[lo:hi], np.zeros(per - (hi - lo))])
+
+            batch = CSRBatch.from_coo(np.zeros(b - a, np.float32), rows[a:b] - lo, cols[a:b],
+                                      block(lab), d * k, offsets=block(off), weights=block(wgt),
+                                      device=dv, refreshable=True)
+            blocks.append((batch, torch.from_numpy(vals[a:b]).to(dv),
+                           torch.from_numpy(idx[a:b]).to(dv)))
+        self._kron_blocks = tuple(blocks)
+
+    @functools.cached_property
+    def _buckets(self) -> tuple:
+        """The whole buckets on the data's device (built on first use: on a
+        mesh only a masked refresh's gathers read them)."""
+        dev = self.data.device
+        dense, coo = self.re_data.dense_buckets(dev), self.re_data.coo_buckets(dev)
+        return tuple(d if d is not None else c for d, c in zip(dense, coo))
+
+    @functools.cached_property
+    def _proj(self) -> tuple:
+        return tuple(torch.from_numpy(b.projection.astype(np.int64)).to(self.data.device)
+                     for b in self.re_data.buckets)
+
+    def _resolve_mesh_axis(self) -> None:
+        """The one axis this coordinate works over: the latent solves' owners
+        and the refit's row blocks both follow it, so their counts agree. A
+        model/entity axis first (the latent table is per-entity state), then
+        a batch/data axis, then the mesh's first axis."""
+        from photon_ml_tpu_torch.parallel.sharding import axis_size, data_axis, model_axis
+
+        self._axis = model_axis(self.mesh) or data_axis(self.mesh) or self.mesh.axis_names[0]
+        self._n_dev = axis_size(self.mesh, self._axis)
 
     # -- model plumbing ------------------------------------------------------
 
@@ -318,10 +379,38 @@ class FactoredRandomEffectCoordinate:
     def _latent_batch(self, i: int, x: Tensor, residual: Optional[Tensor]) -> DenseBatch:
         return latent_batch(self._buckets[i], x, residual)
 
+    def _owner_step(self, i: int, latent: Tensor, a_ext: Tensor, residual_on: dict):
+        """Bucket ``i``'s latent solves, each owner's block (padding lanes
+        all-zero problems) on its device: ``(w [E, K] on the first device,
+        the joined lane result)``."""
+        from photon_ml_tpu_torch.game.coordinates import _join_lanes
+
+        dev = self.data.device
+        flat = int(self._flat_offsets[i])
+        parts = []
+        for (d, buckets, projs), (lo, hi, pad) in zip(self._owners, self._splits[i]):
+            w0 = latent[flat + lo:flat + hi].to(d)
+            if pad:
+                w0 = torch.cat([w0, w0.new_zeros((pad, w0.shape[1]))])
+            batch = latent_batch(buckets[i], latent_design(buckets[i], projs[i], a_ext.to(d)),
+                                 residual_on.get(str(d)))
+            parts.append((dispatch_solve(glm_adapter(self._re_obj, batch), w0, self.re_config,
+                                         self._re_l1, device=d), hi - lo))
+        res = _join_lanes(parts, dev)
+        return res.w, res
+
     def _latent_re_step(self, latent: Tensor, a_ext: Tensor, residual: Optional[Tensor]):
         """One pass of per-entity solves in latent space over all buckets:
         ``(latent', per-bucket lane results)``."""
         parts, results = [], []
+        if self._owners:
+            residual_on = {str(d): residual.to(d) for d, _, _ in self._owners
+                           if residual is not None}
+            for i in range(len(self.re_data.buckets)):
+                w, res = self._owner_step(i, latent, a_ext, residual_on)
+                parts.append(w)
+                results.append(res)
+            return (torch.cat(parts, dim=0) if parts else latent), results
         for i in range(len(self._buckets)):
             lo, hi = int(self._flat_offsets[i]), int(self._flat_offsets[i + 1])
             batch = self._latent_batch(i, self._latent_design(i, a_ext), residual)
@@ -334,11 +423,23 @@ class FactoredRandomEffectCoordinate:
     def _latent_matrix_step(self, latent: Tensor, a: Tensor, residual: Optional[Tensor]):
         """Refit vec(A) as one GLM over the Kronecker structure with refreshed
         values: ``(A' [K, d], SolveResult)``."""
+        w0 = a.T.reshape(-1)  # vec layout: column j*K + l
+        if self.mesh is not None:
+            from photon_ml_tpu_torch.parallel.sharding import ShardedBatch
+
+            flat = latent.reshape(-1)
+            batch = ShardedBatch(
+                shards=tuple(kb.with_values(base * flat.to(base.device).index_select(0, idx))
+                             for kb, base, idx in self._kron_blocks),
+                num_rows=self.data.num_rows, mesh=self.mesh, axis=self._axis)
+            if residual is not None:
+                batch = batch.with_offsets(self._kron_offsets + residual)
+            res = solve(self.loss_name, batch, self.latent_config, w0, device=self.data.device)
+            return res.w.reshape(-1, self.latent_dim).T.contiguous(), res
         vals = self._kron_base * latent.reshape(-1).index_select(0, self._kron_latent_idx)
         batch = self._kron.with_values(vals)
         if residual is not None:
             batch = batch.with_offsets(self._kron.offsets + residual)
-        w0 = a.T.reshape(-1)  # vec layout: column j*K + l
         res = solve(self.loss_name, batch, self.latent_config, w0, device=self.data.device)
         return res.w.reshape(-1, self.latent_dim).T.contiguous(), res
 
@@ -372,12 +473,25 @@ class FactoredRandomEffectCoordinate:
         the model's own scoring for passive rows."""
         a_ext = model.projection.extended()
         scores = torch.zeros(self.data.num_rows, dtype=torch.float32, device=self.data.device)
-        for i, b in enumerate(self._buckets):
+        for i in range(len(self.re_data.buckets)):
             lo, hi = int(self._flat_offsets[i]), int(self._flat_offsets[i + 1])
-            margins = torch.einsum("erk,ek->er", self._latent_design(i, a_ext),
-                                   model.latent[lo:hi])
-            # each active row sits in exactly one bucket slot: exact in any order
-            scores.index_put_((b.slot_rows,), margins.reshape(-1).index_select(0, b.slots))
+            if not self._owners:
+                pieces = [(self._buckets[i], self._proj[i], model.latent[lo:hi])]
+            else:
+                # each owner scores its block; only the margins come back
+                pieces = []
+                for (d, buckets, projs), (o_lo, o_hi, pad) in zip(self._owners,
+                                                                  self._splits[i]):
+                    c = model.latent[lo + o_lo:lo + o_hi].to(d)
+                    if pad:
+                        c = torch.cat([c, c.new_zeros((pad, c.shape[1]))])
+                    pieces.append((buckets[i], projs[i], c))
+            for b, proj, c in pieces:
+                margins = torch.einsum("erk,ek->er", latent_design(b, proj, a_ext.to(c.device)),
+                                       c)
+                # each active row sits in exactly one bucket slot: exact in any order
+                scores.index_put_((b.slot_rows.to(scores.device),),
+                                  margins.reshape(-1).index_select(0, b.slots).to(scores.device))
         if len(self.re_data.passive_rows):
             passive = torch.from_numpy(self.re_data.passive_rows).to(self.data.device)
             scores[passive] = model.score(self.data).index_select(0, passive)

@@ -17,6 +17,7 @@ import torch
 
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.ops.losses import get_loss
+from photon_ml_tpu_torch.parallel.sharding import OwnerBlocks, joined
 
 Tensor = torch.Tensor
 
@@ -40,6 +41,32 @@ def map_vocab_codes(vocab: np.ndarray, values: np.ndarray) -> np.ndarray:
     pos_c = np.minimum(pos, len(vocab) - 1)
     hit = vocab[pos_c] == values
     return np.where(hit, pos_c, -1)
+
+
+def _bucket_terms(bm, pos: Tensor, cols: Tensor, vals: Tensor, host_pos: np.ndarray) -> Tensor:
+    """``lookup_terms`` of one bucket. Coefficients kept by their owners
+    (``OwnerBlocks``) are read where they lie: each owner computes the terms
+    of its entities' nonzeros, which are written to their places on the
+    scores' device (each place once), so the terms are the same values as
+    over the joined table."""
+    coef = bm.coefficients
+    if not isinstance(coef, OwnerBlocks):
+        return lookup_terms(bm.projection, coef, pos, cols, vals)
+    terms = torch.zeros(len(host_pos), dtype=torch.float32, device=pos.device)
+    for (lo, hi), part in zip(coef.owner_ranges(), coef.parts):
+        sel = np.flatnonzero((host_pos >= lo) & (host_pos < hi))
+        if not len(sel):
+            continue
+        at = torch.from_numpy(sel).to(pos.device)
+        d = part.device
+        proj = bm.projection.index_select(0, pos.index_select(0, at)).to(d)
+        local = torch.from_numpy(host_pos[sel].astype(np.int64) - lo).to(d)
+        # the projection rows gathered already: positions into them are 0..m-1
+        got = lookup_terms(proj, part.index_select(0, local),
+                           torch.arange(len(sel), device=d), cols.index_select(0, at).to(d),
+                           vals.index_select(0, at).to(d))
+        terms.index_copy_(0, at, got.to(pos.device))
+    return terms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +108,12 @@ class RandomEffectModel:
     entity_bucket: np.ndarray  # host: training entity code -> bucket (-1 none)
     entity_pos: np.ndarray
     vocab: np.ndarray  # training id vocabulary (sorted unique values)
+
+    def gathered(self) -> "RandomEffectModel":
+        """The model with every owner-kept table joined on its first device."""
+        return dataclasses.replace(self, buckets=tuple(
+            dataclasses.replace(b, coefficients=joined(b.coefficients),
+                                variances=joined(b.variances)) for b in self.buckets))
 
     def to_summary_string(self) -> str:
         n_models = int(np.sum(self.entity_bucket >= 0))
@@ -132,7 +165,7 @@ class RandomEffectModel:
             v = torch.from_numpy(shard.values[sel]).to(dev)
             g = torch.from_numpy(shard.cols[sel]).to(dev)
             pos = torch.from_numpy(row_pos[rows].astype(np.int64)).to(dev)
-            terms = lookup_terms(bm.projection, bm.coefficients, pos, g, v).unsqueeze(1)
+            terms = _bucket_terms(bm, pos, g, v, row_pos[rows]).unsqueeze(1)
             # each row's terms summed in a fixed order (no float atomics, so
             # a score repeats bit for bit), then written to its own place
             scores[torch.from_numpy(rows[starts]).to(dev)] = torch.segment_reduce(
@@ -159,6 +192,12 @@ class GameModel:
         if total is None:
             raise ValueError("GAME model has no sub-models")
         return total
+
+    def gathered(self) -> "GameModel":
+        """The model with the sub-models' owner-kept tables joined, for a
+        caller that returns or saves it."""
+        return dataclasses.replace(self, models={
+            name: m.gathered() if hasattr(m, "gathered") else m for name, m in self.models.items()})
 
     def with_model(self, name: str, model) -> "GameModel":
         new = dict(self.models)

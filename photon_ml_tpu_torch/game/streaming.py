@@ -22,10 +22,17 @@ the table's rows are split into equal blocks over the model axis, one on
 each device (an ``EntityShards``), and every chunk is cut into equal
 pieces, piece j solved on the axis's j-th device: its warm start read from
 the blocks that hold its rows and its result written back to them. A chunk
-whose size does not divide by the axis is refused. The reference's
-process-local ``LocalChunk`` is refused, naming ROADMAP.md Queue 1 item 12;
-so are its fault-injection points (item 14c), which the guard's rollback
-and the feed retries do not need.
+whose size does not divide by the axis is refused.
+
+Across a fleet of processes (``multihost.global_mesh``, :217-230, :354) each
+member holds the table's blocks of its own devices (the others' are shapes
+only) and solves only its pieces: a ``LocalChunk`` carries just this
+process's ``process_slice`` of the chunk, so no member holds a whole chunk.
+The per-entity solves need no collective; the guard's verdict on a chunk,
+the end-of-fit summaries and ``to_numpy`` (``gather_to_host``) are the
+fleet's agreements. The fault-injection points of the chunk solve and
+boundary are ROADMAP.md Queue 1 item 14c; the guard's rollback and the feed
+retries do not need them.
 """
 
 from __future__ import annotations
@@ -40,12 +47,12 @@ import torch
 
 from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.device import check_on, resolve_device
-from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
 from photon_ml_tpu_torch.ops.dense import DenseBatch
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.factory import OptimizerConfig, build_objective, dispatch_solve
 from photon_ml_tpu_torch.optim.guard import GuardSpec, damped_objective, solve_health
+from photon_ml_tpu_torch.parallel import multihost
 from photon_ml_tpu_torch.parallel.mesh import Mesh
 from photon_ml_tpu_torch.parallel.sharding import EntityShards, model_axis, place_entities
 
@@ -67,9 +74,10 @@ def _entity_axis(mesh: Mesh, axis: Optional[str]) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class LocalChunk:
-    """A chunk given as this process's rows of a multi-process fleet (the
-    reference's ``LocalChunk``); the trainer refuses it: ROADMAP.md Queue 1
-    item 12."""
+    """A chunk given as this process's rows of a fleet: ``batch`` holds only
+    the entities of this process's ``process_slice`` of the chunk's
+    ``global_size`` (host arrays, or tensors on this process's device), and
+    the trainer places them on this process's devices alone."""
 
     batch: DenseBatch
     global_size: int
@@ -101,12 +109,16 @@ class ShardedCoefficientTable:
             raise ValueError(f"num_entities={self.num_entities} must divide over the "
                              f"{len(devices)}-device '{self.axis}' axis (pad the entity count)")
         per = self.num_entities // len(devices)
-        self._set(EntityShards(parts=tuple(torch.zeros((per, self.dim), dtype=dtype, device=d)
-                                           for d in devices), mesh=mesh, axis=self.axis))
+        # a fleet member allocates its own blocks; the others' are shapes only
+        self._set(EntityShards(parts=tuple(
+            torch.zeros((per, self.dim), dtype=dtype,
+                        device=d if owner == mesh.process else "meta")
+            for d, owner in zip(devices, mesh.axis_owners(self.axis))), mesh=mesh,
+            axis=self.axis))
 
     def _set(self, shards: EntityShards) -> None:
         self.coefficients = shards
-        self.device = shards.parts[0].device
+        self.device = shards.local_blocks()[0][1].device
         self.sharding = shards.sharding_record()
 
     @classmethod
@@ -145,8 +157,10 @@ class ShardedCoefficientTable:
         return self.num_entities * self.dim * size
 
     def shard_nbytes(self) -> list[int]:
-        """The bytes each device holds (one entry without a mesh)."""
-        parts = self.coefficients.parts if self.mesh is not None else (self.coefficients,)
+        """The bytes each of this process's devices holds (one entry without
+        a mesh)."""
+        parts = ([p for _, p in self.coefficients.local_blocks()] if self.mesh is not None
+                 else (self.coefficients,))
         return [p.numel() * p.element_size() for p in parts]
 
     def _check_bounds(self, start: int, size: int) -> None:
@@ -174,6 +188,9 @@ class ShardedCoefficientTable:
             return
         parts = self.coefficients.parts
         for block, lo, hi, off in self._spans(start, int(w.shape[0])):
+            if parts[block].device.type == "meta":
+                raise ValueError(f"rows [{start}, {start + int(w.shape[0])}) reach a block "
+                                 "another fleet member holds")
             parts[block][lo:hi].copy_(w[off:off + hi - lo])
 
     def read_chunk(self, start: int, size: int,
@@ -188,8 +205,59 @@ class ShardedCoefficientTable:
         return torch.cat([parts[block][lo:hi].to(dev)
                           for block, lo, hi, _ in self._spans(start, size)])
 
+    def _piece_spans(self, start: int, per: int):
+        """(piece, block, first row in it, end row in it, offset in the piece)
+        of every piece of the chunk at ``start`` cut in pieces of ``per`` rows
+        over the axis, in one order every fleet member computes alike."""
+        for j in range(len(self.coefficients.parts)):
+            for block, lo, hi, off in self._spans(start + j * per, per):
+                yield j, block, lo, hi, off
+
+    def read_pieces(self, start: int, per: int, devices, mine) -> list[Tensor]:
+        """Copies of this process's pieces (positions ``mine``) of the chunk
+        at ``start``, piece j on ``devices[j]``. Across a fleet the rows of a
+        block another member holds are sent by it (``multihost.exchange``)."""
+        if self.mesh is None or not self.mesh.is_multiprocess:
+            return [self.read_chunk(start + j * per, per, device=devices[j]) for j in mine]
+        owners, me = self.mesh.axis_owners(self.axis), self.mesh.process
+        parts = self.coefficients.parts
+        out = {j: torch.empty((per, self.dim), dtype=self.coefficients.dtype, device=devices[j])
+               for j in mine}
+        sends, recvs = [], []
+        for j, block, lo, hi, off in self._piece_spans(start, per):
+            if owners[block] == me and owners[j] == me:
+                out[j][off:off + hi - lo].copy_(parts[block][lo:hi])
+            elif owners[block] == me:
+                sends.append((owners[j], parts[block][lo:hi]))
+            elif owners[j] == me:
+                recvs.append((owners[block], out[j][off:off + hi - lo]))
+        multihost.exchange(sends, recvs)
+        return [out[j] for j in mine]
+
+    def write_pieces(self, start: int, per: int, pieces: dict) -> None:
+        """Rows of this process's pieces (``pieces``: position -> [per, K]) of
+        the chunk at ``start`` written into the blocks that hold them; across
+        a fleet the rows of another member's block are sent to it, and the
+        rows other members solved for this member's blocks received."""
+        if self.mesh is None or not self.mesh.is_multiprocess:
+            for j, w in pieces.items():
+                self.write_chunk(start + j * per, w)
+            return
+        owners, me = self.mesh.axis_owners(self.axis), self.mesh.process
+        parts = self.coefficients.parts
+        sends, recvs = [], []
+        for j, block, lo, hi, off in self._piece_spans(start, per):
+            if owners[block] == me and owners[j] == me:
+                parts[block][lo:hi].copy_(pieces[j][off:off + hi - lo])
+            elif owners[j] == me:
+                sends.append((owners[block], pieces[j][off:off + hi - lo]))
+            elif owners[block] == me:
+                recvs.append((owners[j], parts[block][lo:hi]))
+        multihost.exchange(sends, recvs)
+
     def to_numpy(self) -> np.ndarray:
-        """The whole table on the host (models, summaries, tests)."""
+        """The whole table on the host (models, summaries, tests); across a
+        fleet every member takes part (``gather_to_host``)."""
         if self.mesh is not None:
             return self.coefficients.numpy()
         return self.coefficients.cpu().numpy()
@@ -268,10 +336,14 @@ class StreamingRandomEffectTrainer:
             raise ValueError("coefficient variances need a twice-differentiable loss; "
                              f"'{loss_name}' is not")
         self.mesh = mesh
-        # the devices a chunk's pieces are solved on, in piece order
-        self._devices = ((resolve_device(device),) if mesh is None
-                         else mesh.axis_devices(_entity_axis(mesh, axis)))
-        self.device = self._devices[0]
+        # the devices a chunk's pieces are solved on, in piece order, and
+        # the pieces this process solves (every one outside a fleet)
+        if mesh is None:
+            self._devices, self._mine = (resolve_device(device),), [0]
+        else:
+            self._devices = mesh.axis_devices(_entity_axis(mesh, axis))
+            self._mine = mesh.local_positions(_entity_axis(mesh, axis))
+        self.device = self._devices[self._mine[0]]
         self.loss_name = loss_name
         self.config = config
         self.compute_variances = compute_variances
@@ -290,26 +362,40 @@ class StreamingRandomEffectTrainer:
         self._obj = build_objective(loss_name, config)
         self._l1 = config.regularization.l1_weight(config.regularization_weight)
         # one side stream per distinct device for the host chunks' copies
-        self._upload_streams = {str(d): torch.cuda.Stream(d) for d in self._devices
-                                if d.type == "cuda"}
+        self._upload_streams = {str(self._devices[j]): torch.cuda.Stream(self._devices[j])
+                                for j in self._mine if self._devices[j].type == "cuda"}
 
     def _pieces(self, size: int) -> list[tuple[int, int]]:
-        """(first entity, entities) of each device's piece of a chunk."""
+        """(first entity, entities) of each of this process's pieces of a
+        chunk of ``size``."""
         n_dev = len(self._devices)
         if size % n_dev:
             raise ValueError(f"chunk of {size} entities must divide over the {n_dev}-device "
                              "mesh (pad the chunk)")
         per = size // n_dev
-        return [(j * per, per) for j in range(n_dev)]
+        return [(j * per, per) for j in self._mine]
+
+    def _mine_devices(self) -> list[torch.device]:
+        return [self._devices[j] for j in self._mine]
 
     def _prepare(self, source) -> list[tuple[DenseBatch, Optional["torch.cuda.Event"]]]:
-        """The chunk's pieces on their devices, each with the event that marks
-        its copy done for a host chunk copied on a side stream (else None)."""
+        """This process's pieces of the chunk on their devices, each with the
+        event that marks its copy done for a host chunk copied on a side
+        stream (else None)."""
         if isinstance(source, LocalChunk):
-            raise NotImplementedError(NOT_PORTED.format(
-                "a process-local streamed chunk (LocalChunk)", 12))
+            # the rows of this process's pieces, in piece order
+            pieces = self._pieces(int(source.global_size))
+            n_local = int(np.shape(source.batch.labels)[0])
+            if n_local != sum(n for _, n in pieces):
+                raise ValueError(f"a LocalChunk of {n_local} rows for this process's "
+                                 f"{sum(n for _, n in pieces)} of a {source.global_size}-entity "
+                                 "chunk")
+            first = pieces[0][0] if pieces else 0
+            return self._place(source.batch, [(lo - first, n) for lo, n in pieces])
         if callable(source):
             batch = source()
+            if isinstance(batch, LocalChunk):  # this process's rows, made on demand
+                return self._prepare(batch)
             if not isinstance(batch, DenseBatch):
                 raise TypeError(f"chunk generator returned {type(batch).__name__}, "
                                 "not a DenseBatch")
@@ -318,7 +404,7 @@ class StreamingRandomEffectTrainer:
                 return [(batch, None)]
             return [(_piece(batch, lo, n, d), None)
                     for (lo, n), d in zip(self._pieces(int(batch.labels.shape[0])),
-                                          self._devices)]
+                                          self._mine_devices())]
         if not isinstance(source, DenseBatch):
             raise TypeError(f"chunk source {type(source).__name__}")
         leaves = (source.x, source.labels, source.offsets, source.weights)
@@ -327,17 +413,25 @@ class StreamingRandomEffectTrainer:
         if on_device and self.mesh is None:
             check_on(self.device, *leaves)
             return [(source, None)]
-        pieces = self._pieces(int(np.shape(source.labels)[0]))
+        return self._place(source, self._pieces(int(np.shape(source.labels)[0])))
+
+    def _place(self, source: DenseBatch, pieces: list[tuple[int, int]]):
+        """Rows ``[lo, lo + n)`` of ``source`` for each of this process's
+        pieces, on its device (host rows copied from pinned memory on a side
+        stream where the device is a card)."""
+        leaves = (source.x, source.labels, source.offsets, source.weights)
+        on_device = all(isinstance(t, Tensor) and t.device.type == self.device.type
+                        for t in leaves)
         if on_device or not self._upload_streams:
             if not on_device:
                 source = DenseBatch(*(torch.as_tensor(np.asarray(t, np.float32)) if not
                                       isinstance(t, Tensor) else t.to(torch.float32)
                                       for t in leaves))
             return [(_piece(source, lo, n, d), None)
-                    for (lo, n), d in zip(pieces, self._devices)]
+                    for (lo, n), d in zip(pieces, self._mine_devices())]
         host = [_pinned(t) for t in leaves]
         out = []
-        for (lo, n), d in zip(pieces, self._devices):
+        for (lo, n), d in zip(pieces, self._mine_devices()):
             stream = self._upload_streams[str(d)]
             with torch.cuda.stream(stream):
                 on_dev = [t[lo:lo + n].to(d, non_blocking=True) for t in host]
@@ -373,13 +467,14 @@ class StreamingRandomEffectTrainer:
                 for t in (batch.x, batch.labels, batch.offsets, batch.weights):
                     t.record_stream(current)
         sizes = [int(batch.labels.shape[0]) for batch, _ in fed]
-        size = sum(sizes)
-        firsts = np.cumsum([0] + sizes[:-1])
-        w0s = [table.read_chunk(start + int(lo), n, device=d)
-               for lo, n, d in zip(firsts, sizes, self._devices)]
+        # each piece's place in the chunk: piece j of a chunk cut in equal
+        # pieces over the axis starts at j * size
+        size = sizes[0] * len(self._devices) if self.mesh is not None else sizes[0]
+        devices = self._mine_devices()
+        w0s = table.read_pieces(start, sizes[0], self._devices, self._mine)
         # one [K] box shared by every entity (it broadcasts over the lanes):
         # the streamed table's local space is dense, its projection the identity
-        boxes = [self.config.build_box_constraints(table.dim, d) for d in self._devices]
+        boxes = [self.config.build_box_constraints(table.dim, d) for d in devices]
         rolled_back = False
         with telemetry.span("streaming_chunk", start=start, size=size):
             attempt = 0
@@ -390,13 +485,15 @@ class StreamingRandomEffectTrainer:
                     obj = damped_objective(obj, self._guard.damping_for(attempt))
                 results = [dispatch_solve(glm_adapter(obj, batch), w0, self.config, self._l1,
                                           cons, device=d)
-                           for (batch, _), w0, cons, d in zip(fed, w0s, boxes, self._devices)]
+                           for (batch, _), w0, cons, d in zip(fed, w0s, boxes, devices)]
                 if self._guard is None:
                     break
-                # every piece's health on the first device, fetched once
+                # every piece's health on this process's first device, fetched
+                # once; across a fleet the chunk is healthy only where it is
+                # healthy on every member
                 telemetry.counter("host_syncs").inc()
-                healths = [solve_health(r, r.w).to(self._devices[0]) for r in results]
-                if bool(torch.stack(healths).all()):
+                healths = [solve_health(r, r.w).to(self.device) for r in results]
+                if not multihost.fleet_any(not bool(torch.stack(healths).all())):
                     break
                 telemetry.counter("solves.diverged").inc()
                 if attempt >= self._guard.max_retries:
@@ -410,19 +507,18 @@ class StreamingRandomEffectTrainer:
                     break
                 attempt += 1
             if not rolled_back:
-                for lo, r in zip(firsts, results):
-                    table.write_chunk(start + int(lo), r.w)
+                table.write_pieces(start, sizes[0], {j: r.w for j, r in zip(self._mine, results)})
         telemetry.counter("streaming_chunks").inc()
-        telemetry.counter("streaming_entities").inc(size)
+        telemetry.counter("streaming_entities").inc(sum(sizes))
         telemetry.counter("progress.rows").inc(sum(int(b.labels.numel()) for b, _ in fed))
-        telemetry.counter("progress.coeffs").inc(size * table.dim)
+        telemetry.counter("progress.coeffs").inc(sum(sizes) * table.dim)
         if self.compute_variances and not rolled_back:
             if variance_table is None:
                 raise ValueError("compute_variances=True needs a variance_table to write into "
                                  "(train(..., variance_table=...))")
-            for lo, r, (batch, _) in zip(firsts, results, fed):
-                variance_table.write_chunk(
-                    start + int(lo), 1.0 / (obj.hessian_diagonal(r.w, batch) + _VARIANCE_EPS))
+            variance_table.write_pieces(start, sizes[0], {
+                j: 1.0 / (obj.hessian_diagonal(r.w, batch) + _VARIANCE_EPS)
+                for j, r, (batch, _) in zip(self._mine, results, fed)})
 
         def joined(field):
             return torch.cat([field(r).to(self.device) for r in results])
@@ -498,6 +594,9 @@ class StreamingRandomEffectTrainer:
         for start, fed in fed_chunks:
             index += 1
             results.append(self._solve(table, start, fed, variance_table=variance_table))
+            # the solved chunk goes before the next is fed: without prefetch
+            # one chunk is resident at a time
+            del fed
             if not self.prefetch and self.device.type == "cuda":
                 # the control arm: transfer and compute fully serialized
                 torch.cuda.synchronize(self.device)
@@ -519,6 +618,10 @@ class StreamingRandomEffectTrainer:
             torch.stack([r.values.double().sum() for r in results]).sum(),
             torch.stack([(r.values > r.initial_values).sum().double()
                          for r in results]).sum()]).tolist()
+        if self.mesh is not None and self.mesh.is_multiprocess:
+            # a member solved its own lanes: the fleet's sums (the tracker
+            # stays this member's lanes)
+            its, vals, rose = multihost.fleet_sum([its, vals, rose])
         tracker = None
         if with_tracker:
             from photon_ml_tpu_torch.optim.trackers import RandomEffectOptimizationTracker

@@ -268,6 +268,8 @@ class MaskedRandomEffectCoordinate(_LaneCounts):
                        if residual_scores is not None}
         new_buckets, results, healths = [], [], []
         self._last_inputs = []
+        # the masked refresh writes rows by copy into the joined table
+        model = model.gathered()
         for i, bm in enumerate(model.buckets):
             ti, n_real = self._positions[i], int(bm.coefficients.shape[0])
             if not len(ti):

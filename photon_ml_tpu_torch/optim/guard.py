@@ -83,7 +83,8 @@ def _coefficient_tensors(model) -> list[Tensor]:
     if hasattr(model, "coefficients"):
         out.append(model.coefficients)
     for bm in getattr(model, "buckets", ()):
-        out.append(bm.coefficients)
+        # a table kept by its owners: each owner's block
+        out.extend(getattr(bm.coefficients, "parts", (bm.coefficients,)))
     if hasattr(model, "latent"):  # a factored model's latent table
         out.append(model.latent)
     return out
@@ -95,4 +96,4 @@ def model_is_finite(model) -> Tensor:
     tensors = _coefficient_tensors(model)
     if not tensors:
         return torch.tensor(True)
-    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    return torch.stack([torch.isfinite(t).all().to(tensors[0].device) for t in tensors]).all()

@@ -10,9 +10,15 @@ card): such a mesh runs the sharding code, not transfers between cards.
 
 ``shard_rows`` splits a ``CSRBatch`` into equal row blocks with local row
 indices, each padded with zero-weight rows (the reference's stacked layout,
-:83-160), as plain CSR pieces on the batch's device; ``put_sharded`` places
-piece i on the i-th device of an axis, where its mirror and tile index are
-built (``CSRBatch.from_device_csr``).
+:83-160), as plain CSR pieces on the batch's device; ``host_row_shards``
+cuts the same blocks out of host COO, so a batch that was never uploaded
+whole reaches each device as its own block; ``put_sharded`` places piece i
+on the i-th device of an axis, where its mirror and tile index are built
+(``CSRBatch.from_device_csr``).
+
+A mesh of a multi-process fleet (``multihost.global_mesh``) records which
+process owns each position (``owners``): a process addresses only its own
+devices, and the other positions name the devices their owners gave.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ class Mesh:
     """``devices`` laid out as an array of ``shape`` with one name per axis."""
 
     def __init__(self, devices: Sequence[torch.device], axis_names: Sequence[str],
-                 shape: Optional[Sequence[int]] = None):
+                 shape: Optional[Sequence[int]] = None,
+                 owners: Optional[Sequence[int]] = None, process: int = 0):
         devices = [torch.device(d) for d in devices]
         shape = (len(devices),) if shape is None else tuple(int(s) for s in shape)
         if len(axis_names) != len(shape) or math.prod(shape) != len(devices):
@@ -43,6 +50,10 @@ class Mesh:
         self._devices = np.empty(len(devices), dtype=object)
         self._devices[:] = devices
         self._devices = self._devices.reshape(shape)
+        # the process of each position (None: every position is this process's)
+        self._owners = (None if owners is None
+                        else np.asarray(list(owners), np.int64).reshape(shape))
+        self.process = int(process)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -72,7 +83,33 @@ class Mesh:
 
     def key(self) -> tuple:
         """Axis names, sizes and devices: equal for meshes that place alike."""
-        return (self.axis_names, self._devices.shape, tuple(str(d) for d in self.device_list()))
+        owners = None if self._owners is None else tuple(self._owners.reshape(-1).tolist())
+        return (self.axis_names, self._devices.shape, tuple(str(d) for d in self.device_list()),
+                owners)
+
+    @property
+    def is_multiprocess(self) -> bool:
+        return self._owners is not None and bool((self._owners != self.process).any())
+
+    def axis_owners(self, axis: str) -> tuple[int, ...]:
+        """The process of each position along ``axis`` (``axis_devices``'s)."""
+        n = self.shape[axis]
+        if self._owners is None:
+            return (self.process,) * n
+        i = self.axis_names.index(axis)
+        index = [0] * len(self.axis_names)
+        index[i] = slice(None)
+        return tuple(int(p) for p in self._owners[tuple(index)])
+
+    def device_owners(self) -> list[int]:
+        """The process of each device of ``device_list``."""
+        if self._owners is None:
+            return [self.process] * self._devices.size
+        return [int(p) for p in self._owners.reshape(-1)]
+
+    def local_positions(self, axis: str) -> list[int]:
+        """The positions along ``axis`` whose device this process drives."""
+        return [i for i, p in enumerate(self.axis_owners(axis)) if p == self.process]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.device_list()]})"
@@ -148,6 +185,34 @@ def shard_rows(batch, num_shards: int) -> list[RowShard]:
             weights=pad_rows(batch.weights[lo:hi], per),
             num_features=batch.num_features))
     return shards
+
+
+def host_row_shards(values: np.ndarray, rows: np.ndarray, cols: np.ndarray, labels,
+                    offsets, weights, num_features: int, num_shards: int) -> list[RowShard]:
+    """``shard_rows`` over host COO sorted by row: each equal row block as a
+    CPU ``RowShard``, read from the host arrays alone."""
+    n = len(labels)
+    per = rows_per_shard(n, num_shards)
+    rows = np.asarray(rows, np.int64)
+    cuts = np.searchsorted(rows, [min(s * per, n) for s in range(num_shards + 1)])
+    out = []
+    for s in range(num_shards):
+        lo, hi = min(s * per, n), min((s + 1) * per, n)
+        a, b = int(cuts[s]), int(cuts[s + 1])
+        ptr = np.zeros(per + 1, np.int64)
+        np.cumsum(np.bincount(rows[a:b] - lo, minlength=per), out=ptr[1:])
+
+        def block(v):
+            return pad_rows(torch.from_numpy(np.asarray(v[lo:hi], np.float64)
+                                             .astype(np.float32)), per)
+
+        out.append(RowShard(
+            row_ptr=torch.from_numpy(ptr.astype(np.int32)),
+            cols=torch.from_numpy(np.asarray(cols[a:b], np.int32)),
+            vals=torch.from_numpy(np.asarray(values[a:b], np.float32)),
+            labels=block(labels), offsets=block(offsets), weights=block(weights),
+            num_features=int(num_features)))
+    return out
 
 
 def put_sharded(shards: Sequence[RowShard], mesh: Mesh, axis: str = DATA_AXIS,

@@ -33,6 +33,7 @@ from photon_ml_tpu_torch.parallel.mesh import (
     ENTITY_AXIS,
     Mesh,
     RowShard,
+    host_row_shards,
     pad_rows,
     put_sharded,
     rows_per_shard,
@@ -196,6 +197,18 @@ def pad_batch_rows(batch, shards: int):
         offsets=pad_rows(piece.offsets, n_p), weights=pad_rows(piece.weights, n_p))
 
 
+def place_host_rows(shard, labels, offsets, weights, mesh: Mesh,
+                    axis: Optional[str] = None) -> ShardedBatch:
+    """A host feature shard (row-sorted COO: ``values``, ``rows``, ``cols``,
+    ``num_features``) with its per-row vectors, split into equal row blocks
+    over ``axis``: each block is cut on the host and built on its own
+    device, so no device ever holds the whole batch."""
+    axis = _resolve(mesh, axis, data_axis, "batch/data")
+    pieces = host_row_shards(shard.values, shard.rows, shard.cols, labels, offsets, weights,
+                             shard.num_features, axis_size(mesh, axis))
+    return put_sharded(pieces, mesh, axis, num_rows=len(labels))
+
+
 def place_batch(batch, mesh: Mesh, axis: Optional[str] = None) -> ShardedBatch:
     """Split a ``CSRBatch`` into equal row blocks over ``axis`` (default the
     mesh's batch/data axis), each its own ``CSRBatch`` on its device."""
@@ -212,7 +225,9 @@ def place_batch(batch, mesh: Mesh, axis: Optional[str] = None) -> ShardedBatch:
 @dataclasses.dataclass(frozen=True)
 class EntityShards:
     """An entity-leading ``[E, ...]`` array split into equal contiguous row
-    blocks over a mesh axis, block i on the axis's i-th device."""
+    blocks over a mesh axis, block i on the axis's i-th device. On a fleet's
+    mesh the blocks of other members' devices are shapes only (``meta``
+    tensors): a member holds its own blocks."""
 
     parts: tuple
     mesh: Mesh
@@ -239,7 +254,76 @@ class EntityShards:
                 "spec": [self.axis]}
 
     def numpy(self) -> np.ndarray:
+        """The whole array on the host (across a fleet, every member's
+        blocks: ``multihost.gather_to_host``)."""
+        if self.mesh.is_multiprocess:
+            from photon_ml_tpu_torch.parallel.multihost import gather_to_host
+
+            return gather_to_host(self)
         return np.concatenate([p.detach().cpu().numpy() for p in self.parts])
+
+    def local_blocks(self) -> list[tuple[int, Tensor]]:
+        """(first row, block) of each block this process holds."""
+        return [(start, p) for start, p in zip(self.row_starts(), self.parts)
+                if p.device.type != "meta"]
+
+
+@dataclasses.dataclass(frozen=True)
+class OwnerBlocks:
+    """Per-entity state ``[E, ...]`` kept where its owners solve it: part o
+    holds entities ``[o * per, o * per + counts[o])`` of the joined order on
+    its device, then padding rows up to ``per`` (``split_by_owner``'s
+    blocks). Nothing joins the parts until a caller asks (``gather``:
+    a model returned or saved)."""
+
+    parts: tuple
+    counts: tuple
+
+    @property
+    def rows_per_part(self) -> int:
+        return int(self.parts[0].shape[0])
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((sum(self.counts),) + tuple(self.parts[0].shape[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The first owner's device, where a gather lands by default."""
+        return self.parts[0].device
+
+    def gather(self, device: Optional[torch.device] = None) -> Tensor:
+        """The joined ``[E, ...]`` tensor on ``device`` (default the first
+        owner's), the real rows of each part in owner order."""
+        dev = self.device if device is None else device
+        return torch.cat([p[:n].to(dev) for p, n in zip(self.parts, self.counts)])
+
+    def owner_ranges(self) -> list[tuple[int, int]]:
+        """``[lo, hi)`` of each part's real rows in the joined order."""
+        per = self.rows_per_part
+        return [(o * per, o * per + n) for o, n in enumerate(self.counts)]
+
+    @staticmethod
+    def split(t: Tensor, devices: Sequence[torch.device]) -> "OwnerBlocks":
+        """``t`` cut into ``split_by_owner``'s padded blocks, each on its
+        owner's device."""
+        parts, counts = [], []
+        for (lo, hi, pad), d in zip(split_by_owner(int(t.shape[0]), len(devices)), devices):
+            block = t[lo:hi].to(d, copy=True)
+            if pad:
+                block = torch.cat([block, block.new_zeros((pad,) + tuple(block.shape[1:]))])
+            parts.append(block)
+            counts.append(hi - lo)
+        return OwnerBlocks(parts=tuple(parts), counts=tuple(counts))
+
+
+def joined(t):
+    """A tensor as it is; ``OwnerBlocks`` gathered on their first device."""
+    return t.gather() if isinstance(t, OwnerBlocks) else t
 
 
 class ElasticPlacementError(ValueError):
@@ -327,7 +411,10 @@ def place_entity_rows(read_rows: Callable[[int, int], np.ndarray], num_entities:
     at a time), an ``EntityShards``; without, the whole table on ``device``."""
     shape = (int(num_entities),) + tuple(int(d) for d in tail_shape)
 
-    def owned(lo, hi, dev):
+    def owned(lo, hi, dev, mine=True):
+        if not mine:  # another member's block of a fleet mesh: its shape only
+            return torch.empty((hi - lo,) + shape[1:], dtype=torch.from_numpy(
+                np.zeros(0, dtype)).dtype, device="meta")
         # an owned copy, never a view of a memory-mapped file
         return torch.from_numpy(np.array(read_rows(lo, hi), dtype=dtype, copy=True)).to(dev)
 
@@ -338,8 +425,10 @@ def place_entity_rows(read_rows: Callable[[int, int], np.ndarray], num_entities:
     if shape[0] % len(devices):
         raise entity_axis_mismatch(shape[0], axis, len(devices))
     per = shape[0] // len(devices)
-    return EntityShards(parts=tuple(owned(i * per, (i + 1) * per, d)
-                                    for i, d in enumerate(devices)), mesh=mesh, axis=axis)
+    return EntityShards(parts=tuple(owned(i * per, (i + 1) * per, d, p == mesh.process)
+                                    for i, (d, p) in enumerate(zip(devices,
+                                                                   mesh.axis_owners(axis)))),
+                        mesh=mesh, axis=axis)
 
 
 def split_by_owner(n: int, owners: int) -> list[tuple[int, int, int]]:

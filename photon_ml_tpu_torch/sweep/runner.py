@@ -33,7 +33,14 @@ slot), and validation scores sum each row's terms with
 
 Telemetry: the ``sweep.solves`` counter and a ``sweep`` span; the
 per-config record (λ, iterations, reason, value, metric) lives in the result
-objects. What stays refused: a ``mesh`` (ROADMAP.md Queue 1 item 12).
+objects.
+
+``sweep_glm(mesh=...)`` (:297-350) splits the G config lanes over the mesh's
+model axis (else its batch axis), padded to a multiple of the axis with
+lanes of the smallest λ that are dropped from the result; every owner holds
+a replica of the batch and the constraints on its device and runs the lane
+kernels over its own lanes. The warm start between rounds reads the joined
+lanes on the first device.
 """
 
 from __future__ import annotations
@@ -49,7 +56,6 @@ from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.data.normalization import NormalizationType, build_normalization_context
 from photon_ml_tpu_torch.data.stats import summarize
 from photon_ml_tpu_torch.device import check_on, resolve_device
-from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.game.models import (
     FixedEffectModel,
@@ -65,6 +71,7 @@ from photon_ml_tpu_torch.ops.shared_design import SharedDesign, bucket_dot_rows,
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import (
     CONVERGENCE_REASON_NAMES,
+    BoxConstraints,
     FUNCTION_VALUES_CONVERGED,
     MAX_ITERATIONS,
     NOT_CONVERGED,
@@ -161,8 +168,9 @@ def sweep_glm(
     mesh=None,
     device: torch.device | str | None = None,
 ) -> GlmSweepResult:
-    """Train one GLM per λ on ``device`` (default cuda), all G as lanes over
-    the batch's one design.
+    """Train one GLM per λ on ``device`` (default cuda; with ``mesh``, its
+    first device), all G as lanes over the batch's one design; with
+    ``mesh`` the lanes split over its model (else batch) axis.
 
     ``rounds`` (default 2 with ``warm_start``, else 1) is the number of
     batched solve passes: round 0 is cold (every lane from ``w_start``),
@@ -170,8 +178,8 @@ def sweep_glm(
     neighbour (``path_warm_start``). ``config.regularization_weight`` is
     ignored: the grid is the sweep axis. Iterations, reasons and data passes
     come back in one host fetch at the end."""
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED.format("sweep_glm(mesh=...)", 12))
+    if mesh is not None and device is None:
+        device = mesh.first_device
     dev = resolve_device(device)
     if not lambdas:
         raise ValueError("sweep_glm needs a non-empty lambda grid")
@@ -189,28 +197,76 @@ def sweep_glm(
     n_feat = int(batch.num_features)
     if w_start is None:
         w_start = torch.zeros(n_feat, dtype=torch.float32, device=dev)
-    if constraints is None:
-        constraints = config.build_box_constraints(n_feat, dev)
-    l2s, l1s = (t.to(dev) for t in split_reg_weights(config.regularization, lams))
-    adapter = glm_adapter(make_objective(task).with_l2(l2s), SharedDesign.of(batch, G))
-    W = torch.broadcast_to(w_start.to(device=dev, dtype=torch.float32), (G, n_feat)).contiguous()
+    devices = _lane_devices(mesh, dev)
+    # the pad lanes repeat the smallest λ; they are dropped from the result
+    lams_p = lams + (lams[-1],) * ((-G) % len(devices))
+    per = len(lams_p) // len(devices)
+    l2s, l1s = split_reg_weights(config.regularization, lams_p)
+    groups = []  # per owner: its device, its adapter, its L1 weights and box
+    for o, d in enumerate(devices):
+        replica = batch if d == batch.device else _replica(batch, d)
+        cons = (config.build_box_constraints(n_feat, d) if constraints is None
+                else _box_on(constraints, d))
+        groups.append((d, glm_adapter(make_objective(task).with_l2(l2s[o * per:(o + 1) * per]
+                                                                    .to(d)),
+                                      SharedDesign.of(replica, per)),
+                       l1s[o * per:(o + 1) * per].to(d).unsqueeze(-1), cons))
+    W = torch.broadcast_to(w_start.to(device=dev, dtype=torch.float32),
+                           (len(lams_p), n_feat)).contiguous()
     res = None
     with telemetry.span("sweep", task=task, configs=G, rounds=rounds):
         for r in range(rounds):
             with telemetry.span("sweep_round", round=r):
                 w0 = W if r == 0 else path_warm_start(W, res.reason)
-                res = dispatch_solve(adapter, w0, config, l1s.unsqueeze(-1), constraints,
-                                     device=dev)
+                res = _join_owner_lanes([
+                    dispatch_solve(adapter, w0[o * per:(o + 1) * per].to(d), config, l1, cons,
+                                   device=d)
+                    for o, (d, adapter, l1, cons) in enumerate(groups)], per, dev)
                 W = res.w
             telemetry.counter("sweep.solves").inc(G)
-    fetched = _fetch(torch.stack([res.iterations.to(torch.float32),
-                                  res.reason.to(torch.float32),
-                                  torch.as_tensor(res.data_passes, device=dev)
-                                  .to(torch.float32).broadcast_to((G,))]), "sweep_glm")
-    return GlmSweepResult(lambdas=lams, w=W, values=res.value,
+    fetched = _fetch(torch.stack([res.iterations[:G].to(torch.float32),
+                                  res.reason[:G].to(torch.float32),
+                                  res.data_passes[:G].to(torch.float32)]), "sweep_glm")
+    return GlmSweepResult(lambdas=lams, w=W[:G], values=res.value[:G],
                           iterations=fetched[0].astype(np.int32),
                           reasons=fetched[1].astype(np.int32),
                           data_passes=fetched[2].astype(np.int32), rounds=rounds)
+
+
+def _lane_devices(mesh, dev: torch.device) -> tuple[torch.device, ...]:
+    """The devices the config lanes split over: the mesh's model axis, else
+    its batch axis (a mesh with neither: the one device)."""
+    if mesh is None:
+        return (dev,)
+    from photon_ml_tpu_torch.parallel.sharding import data_axis, model_axis
+
+    axis = model_axis(mesh) or data_axis(mesh)
+    return (dev,) if axis is None else tuple(mesh.axis_devices(axis))
+
+
+def _replica(batch: CSRBatch, d: torch.device) -> CSRBatch:
+    """The batch built again on ``d`` (its mirror and tile index there)."""
+    return CSRBatch.from_device_csr(batch.row_ptr.to(d), batch.cols.to(d), batch.vals.to(d),
+                                    batch.labels.to(d), batch.num_features,
+                                    offsets=batch.offsets.to(d), weights=batch.weights.to(d))
+
+
+def _box_on(box, d: torch.device):
+    return None if box is None else BoxConstraints(lower=box.lower.to(d), upper=box.upper.to(d))
+
+
+def _join_owner_lanes(results: list[SolveResult], per: int, dev: torch.device) -> SolveResult:
+    """The owners' lane results joined on ``dev`` in owner order; a
+    per-solve count becomes a per-lane one."""
+    fields = {}
+    for name in SolveResult._fields:
+        vals = [getattr(r, name) for r in results]
+        if isinstance(vals[0], Tensor) and vals[0].dim() >= 1:
+            fields[name] = torch.cat([v.to(dev) for v in vals])
+        else:
+            fields[name] = torch.cat([torch.as_tensor(v, device=dev).reshape(-1)
+                                      .broadcast_to((per,)) for v in vals])
+    return SolveResult(**fields)
 
 
 # ---------------------------------------------------------------------------

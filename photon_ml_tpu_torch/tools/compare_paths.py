@@ -13,7 +13,12 @@ path it saves the kernel launches, the wall seconds and the coefficients.
 With ``--mesh`` it then fits path 6's config on a ``batch`` 2 x ``model`` 2
 mesh (four distinct cards when the machine has four, else cuda:0 repeated)
 and saves, per device, the bytes allocated before and after that fit (the
-estimator keeps its placed coordinates) and the fit's peak. ``--report``
+estimator keeps its placed coordinates: the fixed effect's row blocks and
+the random effect's owner blocks) and the fit's peak, then runs path 18's
+uninterrupted training fleet (``tools/fleet.run_fleet`` over 13b's
+per_user_re part) with one worker process per card: NCCL on distinct
+cards, gloo on one card shared by two. ``--mesh-only`` skips the GLM paths
+(path 6 still runs: the mesh fit needs its data). ``--report``
 prints the saved runs side by side and, for each path, whether its launches
 and coefficients equal the first run's bit for bit. Runs on the card.
 """
@@ -99,6 +104,34 @@ def _mesh_fit(cs, gds, config) -> dict:
     return stats
 
 
+def _fleet(cs, work: str) -> dict:
+    """Path 18's uninterrupted fleet with a member per card (two on one
+    card): each member's backend, start-up, fit seconds, coefficients/s,
+    peak and collective wait."""
+    import shutil
+
+    import torch
+
+    from photon_ml_tpu_torch.tools import fleet
+
+    cards = torch.cuda.device_count()
+    nproc = cards if cards >= 2 else 2
+    spec = fleet.FleetSpec(workdir=os.path.join(work, "fleet"), num_processes=nproc,
+                           device="cuda", distinct_cards=cards >= 2, problem="scale",
+                           seed=0, checkpoint_every=cs.TRAIN_FLEET_CKPT_EVERY,
+                           heartbeat_deadline_s=20.0, grace_s=30.0, quorum_timeout_s=60.0,
+                           timeout_s=420.0)
+    t0 = time.perf_counter()
+    report = fleet.run_fleet(spec)
+    wall = time.perf_counter() - t0
+    (gen,) = report["generations"][:1]
+    stats = {"ok": report["ok"], "processes": nproc, "distinct_cards": cards >= 2,
+             "wall_s": wall, "rcs": gen["rcs"], "members": gen["members"]}
+    shutil.rmtree(spec.workdir, ignore_errors=True)
+    print(f"fleet: {stats}", flush=True)
+    return stats
+
+
 def _report(paths: list[str]) -> None:
     import torch
 
@@ -115,6 +148,8 @@ def _report(paths: list[str]) -> None:
     for p, run in runs.items():
         if run.get("mesh"):
             print(f"mesh fit {p}: {run['mesh']}", flush=True)
+        if run.get("fleet"):
+            print(f"fleet {p}: {run['fleet']}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -123,7 +158,10 @@ def main(argv=None) -> int:
                         help="the checkout whose chip_smoke.py and photon_ml_tpu_torch run")
     parser.add_argument("--save", help="write the run here")
     parser.add_argument("--mesh", action="store_true",
-                        help="also fit path 6's config on a batch 2 x model 2 mesh")
+                        help="also fit path 6's config on a batch 2 x model 2 mesh and run "
+                        "path 18's fleet with a member per card")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="with --mesh, skip the GLM paths")
     parser.add_argument("--report", nargs="+", help="saved runs, the first the reference")
     args = parser.parse_args(argv)
     if args.report:
@@ -141,7 +179,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     build.load_library(verbose=False)
     out: dict = {"root": root, "card": card_line(), "paths": {}}
-    _glm_paths(cs, out["paths"])
+    if not (args.mesh and args.mesh_only):
+        _glm_paths(cs, out["paths"])
     launches, stats, _, gds, (config, model) = cs.run_game_path(0, False)
     out["paths"]["6"] = {
         "launches": launches, "walls": [stats["elapsed_s"]],
@@ -149,6 +188,14 @@ def main(argv=None) -> int:
         + [b.coefficients.cpu() for b in model.models["per-user"].buckets]}
     if args.mesh:
         out["mesh"] = _mesh_fit(cs, gds, config)
+        del gds
+        torch.cuda.empty_cache()
+        import tempfile
+
+        build_dir = os.path.join(root, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build_dir) as work:
+            out["fleet"] = _fleet(cs, work)
     if args.save:
         torch.save(out, args.save)
     return 0

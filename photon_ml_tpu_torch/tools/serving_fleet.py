@@ -26,11 +26,12 @@ Counterpart of the serving half of the repo's ``tools/fleet.py``
 With ``device="cuda"`` member m runs on ``cuda:m mod count`` (every member
 on ``cuda:0`` with one card); ``device="cpu"`` runs them on the CPU.
 
-Left out, with the ROADMAP item that owns each: the live status surface
-(``FleetStatusWriter``, item 12b), and the members' serving heartbeat lines
+Left out: the live status surface (``parallel/fleet_status.py``'s
+``FleetStatusWriter``, which this supervisor does not publish to), and,
+with ROADMAP item 14d, the members' serving heartbeat lines
 (``tail_heartbeat_fields``) and the flight-recorder harvest of a killed
-member (item 14d). A member's death is detected from its heartbeat file and
-its exit code alone.
+member. A member's death is detected from its heartbeat file and its exit
+code alone.
 
     from photon_ml_tpu_torch.tools.serving_fleet import (
         ServingFleetSpec, make_serving_model, run_serving_fleet)

@@ -322,3 +322,191 @@ def test_the_port_resumes_a_fit_the_jax_package_interrupted(tmp_path):
                       resumed.model.models["perUser"].buckets):
         np.testing.assert_allclose(tb.coefficients.numpy(), np.asarray(jb.coefficients),
                                    rtol=1e-3, atol=1e-3)
+
+
+# -- the coordinated multi-process streaming save (tests/test_checkpoint.py:543-811) --
+
+
+def _patch_fleet(monkeypatch, pid, nproc):
+    """This process as member ``pid`` of an ``nproc``-process fleet, for the
+    save's protocol (the reference patches jax's process index and count)."""
+    from photon_ml_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(multihost, "process_index", lambda: pid)
+    monkeypatch.setattr(multihost, "process_count", lambda: nproc)
+    monkeypatch.setattr(multihost, "is_multiprocess", lambda: nproc > 1)
+
+
+def _stream_mgr(tmp_path, timeout):
+    from photon_ml_tpu_torch.game.checkpoint import StreamingCheckpointManager
+
+    return StreamingCheckpointManager(CheckpointSpec(directory=str(tmp_path), every=1,
+                                                     quorum_timeout_s=timeout))
+
+
+def _peer(tmp, next_chunk, manifest, payload=None):
+    """Process 1, simulated: waits for the rendezvous, writes its rows (when
+    given) and its manifest, the manifest last."""
+    import threading
+    import time as _t
+
+    def run():
+        t0 = _t.monotonic()
+        while not os.path.exists(tmp / "rendezvous.json"):
+            assert _t.monotonic() - t0 < 10.0
+            _t.sleep(0.01)
+        assert json.load(open(tmp / "rendezvous.json")) == {"num_processes": 2,
+                                                             "next_chunk": next_chunk}
+        if payload is not None:
+            np.save(tmp / "coefficients-p0001-0000.npy", payload)
+        with open(tmp / ".peer-manifest", "w") as fh:
+            json.dump(manifest, fh)
+        os.rename(tmp / ".peer-manifest", tmp / "manifest.proc-0001.json")
+
+    t = threading.Thread(target=run)
+    t.start()
+    return t
+
+
+def _peer_manifest(next_chunk, row_start):
+    return {"process_id": 1, "num_processes": 2, "next_chunk": next_chunk,
+            "shards": [{"file": "coefficients-p0001-0000.npy", "row_start": row_start,
+                        "rows": 2}], "variance_shards": None}
+
+
+def test_quorum_timeout_spec_validation(tmp_path):
+    with pytest.raises(ValueError, match="quorum_timeout_s"):
+        CheckpointSpec(directory=str(tmp_path), quorum_timeout_s=0.0)
+
+
+def test_coordinated_save_abandons_uncertified_without_peer_quorum(tmp_path, monkeypatch):
+    """Process 0 with a dead peer: the save returns None after the quorum
+    wait, the directory stays uncertified (its own manifest, no quorum
+    manifest), restore passes it by, and the next good save's retention
+    sweeps it."""
+    from photon_ml_tpu_torch.game.checkpoint import StreamCheckpointState
+
+    mgr = _stream_mgr(tmp_path, 0.3)
+    coeffs = np.arange(12, dtype=np.float32).reshape(4, 3)
+    _patch_fleet(monkeypatch, 0, 2)
+    telemetry.reset()
+    try:
+        assert mgr.save(StreamCheckpointState(next_chunk=1, coefficients=coeffs)) is None
+        snap = telemetry.snapshot()["counters"]
+        assert snap["checkpoint.quorum_timeouts"] == 1 and "checkpoint.saves" not in snap
+    finally:
+        telemetry.reset()
+    assert [n for n in os.listdir(tmp_path) if n.startswith(".tmp-chunk-")] == [
+        ".tmp-chunk-00000001"]
+    contents = os.listdir(tmp_path / ".tmp-chunk-00000001")
+    assert "manifest.proc-0000.json" in contents and "manifest.json" not in contents
+    assert mgr.restore() is None
+    _patch_fleet(monkeypatch, 0, 1)
+    assert mgr.save(StreamCheckpointState(next_chunk=2, coefficients=coeffs)) is not None
+    assert not [n for n in os.listdir(tmp_path) if n.startswith(".tmp-chunk-")]
+
+
+def test_coordinated_save_certifies_quorum_after_all_peers_land(tmp_path, monkeypatch):
+    """The whole rendezvous from process 0's seat with a live peer (a
+    thread): the quorum manifest merges the blocks by row range and records
+    the quorum, the directory is renamed into place, restore reassembles the
+    table, and ``restore_placed`` puts it on a smaller fleet (one process,
+    one device) as an elastic resume."""
+    from photon_ml_tpu_torch.game.checkpoint import StreamCheckpointState
+
+    mgr = _stream_mgr(tmp_path, 10.0)
+    tmp = tmp_path / ".tmp-chunk-00000003"
+    peer_rows = np.full((2, 3), 7.0, np.float32)
+    t = _peer(tmp, 3, _peer_manifest(3, 2), payload=peer_rows)
+    my_rows = np.full((2, 3), 3.0, np.float32)
+    _patch_fleet(monkeypatch, 0, 2)
+    telemetry.reset()
+    try:
+        path = mgr.save(StreamCheckpointState(next_chunk=3, coefficients=my_rows))
+        t.join()
+        assert path == str(tmp_path / "chunk-00000003")
+        snap = telemetry.snapshot()["counters"]
+        assert snap["checkpoint.saves"] == 1 and snap["checkpoint.peer_manifests"] == 1
+        assert "checkpoint.quorum_timeouts" not in snap
+    finally:
+        telemetry.reset()
+    manifest = json.load(open(os.path.join(path, "manifest.json")))
+    assert manifest["quorum"] == {"num_processes": 2}
+    assert [(s["row_start"], s["rows"]) for s in manifest["shards"]] == [(0, 2), (2, 2)]
+    assert {"manifest.proc-0000.json", "manifest.proc-0001.json"} <= set(os.listdir(path))
+    restored = mgr.restore()
+    assert restored is not None and restored.next_chunk == 3
+    np.testing.assert_array_equal(restored.coefficients[:2], my_rows)
+    np.testing.assert_array_equal(restored.coefficients[2:], peer_rows)
+    _patch_fleet(monkeypatch, 0, 1)
+    placed = mgr.restore_placed(device="cpu")
+    assert placed.next_chunk == 3
+    np.testing.assert_array_equal(placed.coefficients.numpy(),
+                                  np.concatenate([my_rows, peer_rows]))
+
+
+def test_coordinated_save_abandons_on_cover_violation_or_missing_payload(tmp_path,
+                                                                          monkeypatch):
+    """A peer manifest that overlaps process 0's rows, or names a payload
+    not on disk, is never certified: ``checkpoint.quorum_cover_violations``,
+    not a quorum timeout."""
+    from photon_ml_tpu_torch.game.checkpoint import StreamCheckpointState
+
+    mgr = _stream_mgr(tmp_path, 10.0)
+    my_rows = np.zeros((2, 3), np.float32)
+    _patch_fleet(monkeypatch, 0, 2)
+    telemetry.reset()
+    try:
+        for chunk, row_start in ((1, 0), (2, 2)):  # overlap; then a missing payload
+            t = _peer(tmp_path / f".tmp-chunk-{chunk:08d}", chunk,
+                      _peer_manifest(chunk, row_start))
+            try:
+                assert mgr.save(StreamCheckpointState(next_chunk=chunk,
+                                                      coefficients=my_rows)) is None
+            finally:
+                t.join()
+        snap = telemetry.snapshot()["counters"]
+        assert snap["checkpoint.quorum_cover_violations"] == 2
+        assert "checkpoint.quorum_timeouts" not in snap and "checkpoint.saves" not in snap
+    finally:
+        telemetry.reset()
+    assert mgr.restore() is None
+
+
+def test_coordinated_save_peer_ignores_stale_rendezvous(tmp_path, monkeypatch):
+    """A member finding a stale rendezvous (another fleet size's) keeps
+    waiting instead of writing into a directory process 0 is about to
+    remove, and times out uncertified."""
+    from photon_ml_tpu_torch.game.checkpoint import StreamCheckpointState
+    from photon_ml_tpu_torch.utils.atomic import atomic_write_json
+
+    mgr = _stream_mgr(tmp_path, 0.3)
+    tmp = tmp_path / ".tmp-chunk-00000001"
+    os.makedirs(tmp)
+    atomic_write_json(str(tmp / "rendezvous.json"), {"num_processes": 3, "next_chunk": 1})
+    _patch_fleet(monkeypatch, 1, 2)
+    telemetry.reset()
+    try:
+        assert mgr.save(StreamCheckpointState(next_chunk=1, coefficients=np.zeros(
+            (2, 3), np.float32))) is None
+        assert telemetry.snapshot()["counters"]["checkpoint.quorum_timeouts"] == 1
+    finally:
+        telemetry.reset()
+    assert sorted(os.listdir(tmp)) == ["rendezvous.json"]
+
+
+def test_coordinated_save_peer_gives_up_without_process_zero(tmp_path, monkeypatch):
+    """A member whose process 0 died before the rendezvous: the bounded wait
+    ends, the save returns None uncertified."""
+    from photon_ml_tpu_torch.game.checkpoint import StreamCheckpointState
+
+    mgr = _stream_mgr(tmp_path, 0.3)
+    _patch_fleet(monkeypatch, 1, 2)
+    telemetry.reset()
+    try:
+        assert mgr.save(StreamCheckpointState(next_chunk=1, coefficients=np.zeros(
+            (4, 3), np.float32))) is None
+        assert telemetry.snapshot()["counters"]["checkpoint.quorum_timeouts"] == 1
+    finally:
+        telemetry.reset()
+    assert mgr.restore() is None

@@ -254,8 +254,8 @@ REFUSED_KEYS = [
     # is the reference's typed error
     pytest.param({"warm_start": {"dir": "x"}}, (WarmStartError, "does not exist"),
                  id='{"warm_start": {"dir": "x"}}-14'),
-    # the mesh is ported; the multi-process fleet's key stays refused
-    pytest.param({"distributed": {"num_processes": 2}}, 12, id='{"mesh": true}-12'),
+    # the fleet's key is ported: a fleet of one process trains (None)
+    pytest.param({"distributed": {"num_processes": 1}}, None, id='{"mesh": true}-12'),
     ({"trace_out": "t.jsonl"}, 14),
     ({"telemetry_out": "t.jsonl"}, 14),
     ({"report_out": "r.md"}, 14),
@@ -271,6 +271,9 @@ def test_train_refuses_unported_keys(avro_dataset, extra, item):
     config = _config(train_path, None)
     for k, v in extra.items():
         config[k] = {**config[k], **v} if k == "input" else v
+    if item is None:  # ported: the run trains
+        assert t_train.run(config, device="cpu")["num_rows"] == 200
+        return
     exc, match = ((NotImplementedError, rf"item {item}\)") if isinstance(item, (int, str))
                   else item)
     with pytest.raises(exc, match=match):
@@ -292,8 +295,8 @@ REFUSED_FLAGS = [
     # publishing the winner is ported: the flag needs a grid (argparse's exit)
     pytest.param(["--sweep-registry-dir", "r"], "plain", (SystemExit, "2"),
                  id="['--sweep-registry-dir', 'r']-11"),
-    # a factored random effect on a mesh stays refused (item 12)
-    pytest.param(["--mesh", "auto"], "factored", 12, id="['--mesh', 'auto']-12"),
+    # a factored random effect on a mesh is ported: it trains (None)
+    pytest.param(["--mesh", "auto"], "factored", None, id="['--mesh', 'auto']-12"),
     # the incremental refresh's flags are ported: on a plain config, what the
     # reference raises for the same argv (a base that does not exist; the
     # other three without --warm-start are argparse's error)
@@ -322,6 +325,9 @@ def test_train_refuses_unported_flags(avro_dataset, flags, config, refusal, tmp_
                 "type": "factored_random_effect", "shard_name": "global", "id_name": "userId",
                 "latent_dim": 2}
         path.write_text(json.dumps(cfg))
+    if refusal is None:  # ported: the run trains
+        assert t_train.main(["--config", str(path), "--device", "cpu", *flags]) == 0
+        return
     exc, match = ((NotImplementedError, rf"item {refusal}\)")
                   if isinstance(refusal, (int, str)) else refusal)
     with pytest.raises(exc, match=match):
@@ -632,3 +638,67 @@ def test_sweep_and_train_publish_the_winner_to_a_registry(avro_dataset, tmp_path
     finally:
         port.stop()
         jax_reg.stop()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_train_distributed_one_process_fleet_trains(avro_dataset):
+    """``distributed`` with an explicit coordinator and one process joins a
+    real gloo rendezvous of one and trains; the process group is left
+    again afterwards."""
+    from photon_ml_tpu_torch.parallel import multihost
+
+    _, train_path, _ = avro_dataset
+    config = {**_config(train_path, None), "distributed": {
+        "coordinator_address": f"127.0.0.1:{_free_port()}", "num_processes": 1,
+        "process_id": 0, "init_retries": 0}}
+    try:
+        summary = t_train.run(config, device="cpu")
+        assert multihost.backend() == "gloo" and multihost.process_count() == 1
+    finally:
+        multihost.shutdown()
+    assert summary["num_rows"] == 200
+
+
+_TWO_PROCESS_TRAIN = """
+import json, sys
+from photon_ml_tpu_torch.cli import train
+from photon_ml_tpu_torch.parallel import multihost
+config = json.loads(sys.argv[1])
+try:
+    train.run(config, device="cpu")
+    print("TRAINED")
+except NotImplementedError as e:
+    print("REFUSED", e)
+finally:
+    multihost.shutdown()
+"""
+
+
+def test_train_distributed_across_two_processes_is_refused(avro_dataset, tmp_path):
+    """Two processes joining one fleet through ``cli train``'s ``distributed``
+    key are each refused with the reference's own reason (the pipeline reads
+    the whole input in every process), after the rendezvous succeeded."""
+    _, train_path, _ = avro_dataset
+    port = _free_port()
+    procs = []
+    for pid in range(2):
+        config = {**_config(train_path, None), "distributed": {
+            "coordinator_address": f"127.0.0.1:{port}", "num_processes": 2,
+            "process_id": pid, "init_retries": 0}}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _TWO_PROCESS_TRAIN, json.dumps(config)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))}))
+    outs = [p.communicate(timeout=120) for p in procs]
+    for (out, err), p in zip(outs, procs):
+        assert p.returncode == 0, err[-2000:]
+        assert "REFUSED" in out and "does not span processes" in out, out + err[-2000:]
+        assert "tools/fleet" in out

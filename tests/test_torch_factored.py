@@ -412,3 +412,61 @@ def test_a_northstar_shaped_fit_tracks_the_references_auc_after_each_update():
     t_auc = [e["metrics"]["auc"] for e in tfit.history]
     np.testing.assert_allclose(t_auc, j_auc, atol=1e-4)
     assert t_auc[0] < t_auc[1] < t_auc[2]
+
+
+def _mesh_case():
+    """tests/test_factored.py:290-320's shape and draw: 24 users of 12 rows,
+    d 16, latent 2, 3 MF iterations, squared loss, its optimizer."""
+    rng = np.random.default_rng(12345)
+    n_users, rows, d = 24, 12, 16
+    users = np.repeat(np.arange(n_users), rows)
+    X = rng.normal(size=(n_users * rows, d))
+    B = rng.normal(size=(2, d)) / np.sqrt(d)
+    W = (rng.normal(size=(n_users, 2)) * 2.0) @ B
+    y = np.einsum("nd,nd->n", X, W[users]) + 0.05 * rng.normal(size=n_users * rows)
+    return _datasets(X, y, users)
+
+
+@pytest.mark.parametrize("refit", [True, False], ids=["factored", "projector"])
+def test_mesh_fit_matches_the_unsharded_fit_and_the_reference(refit):
+    """``FactoredRandomEffectCoordinate(mesh=...)`` on ``[cpu] * 8`` (the
+    entity axis: 24 users, 3 an owner) against the port's unsharded fit and
+    the JAX package's, projection and scores within 5e-3
+    (tests/test_factored.py:310-320). ``refit=False`` is the random
+    projector: the same owners' solves, no refit."""
+    from photon_ml_tpu_torch.parallel import make_mesh
+
+    jds, tds = _mesh_case()
+    j_red, t_red_ = j_build_re(jds, "userId", "feats"), build_random_effect_dataset(
+        tds, "userId", "feats")
+    jo = JOpt(regularization=JReg(JRegType.L2), regularization_weight=1e-3, max_iterations=100,
+              tolerance=1e-9)
+    to = OptimizerConfig(regularization=RegularizationContext(RegularizationType.L2),
+                         regularization_weight=1e-3, max_iterations=100, tolerance=1e-9)
+    kw = dict(name="mf", loss_name="squared", latent_dim=2, mf_iterations=3,
+              refit_projection=refit)
+    ref = JFactored(data=jds, re_data=j_red, re_config=jo, latent_config=jo, **kw)
+    local = FactoredRandomEffectCoordinate(data=tds, re_data=t_red_, re_config=to,
+                                           latent_config=to, **kw)
+    mesh = make_mesh({"entity": 8}, [torch.device("cpu")] * 8)
+    sharded = FactoredRandomEffectCoordinate(data=tds, re_data=t_red_, re_config=to,
+                                             latent_config=to, mesh=mesh, **kw)
+    assert sharded._axis == "entity" and len(sharded._owners) == 8
+    if refit:
+        assert len(sharded._kron_blocks) == 8
+        assert sum(b.nnz for b, _, _ in sharded._kron_blocks) == local.kron_nnz
+    m_ref = ref.update_model(ref.initialize_model(), None)
+    m_local = local.update_model(local.initialize_model(), None)
+    m_shard = sharded.update_model(sharded.initialize_model(), None)
+    tol = dict(rtol=5e-3, atol=5e-3)
+    for got in (m_shard, m_local):
+        np.testing.assert_allclose(got.projection.matrix.numpy(),
+                                   np.asarray(m_ref.projection.matrix), **tol)
+    np.testing.assert_allclose(m_shard.projection.matrix.numpy(),
+                               m_local.projection.matrix.numpy(), **tol)
+    s_shard, s_local = sharded.score(m_shard), local.score(m_local)
+    np.testing.assert_allclose(s_shard.numpy(), s_local.numpy(), **tol)
+    np.testing.assert_allclose(s_local.numpy(), np.asarray(ref.score(m_ref)), **tol)
+    # the model's own scoring agrees with the coordinate's on the training rows
+    np.testing.assert_allclose(m_shard.score(tds).numpy(), s_shard.numpy(), rtol=1e-5,
+                               atol=1e-5)

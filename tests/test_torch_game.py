@@ -299,8 +299,8 @@ def test_random_effect_branches_not_ported_raise(data, monkeypatch):
 
 
 def test_estimator_and_descent_branches_not_ported_raise(data, tmp_path):
-    """A factored random effect or the random projector on a mesh (ROADMAP
-    item 12, in fit_grid too) still raise, fit_incremental refuses a warm
+    """The random projector on a mesh trains as it does alone (in fit_grid
+    too), fit_incremental refuses a warm
     start without a model, fit_sweep's registry needs index maps; the
     checkpoint and the stop (item
     10) work, and so
@@ -316,10 +316,15 @@ def test_estimator_and_descent_branches_not_ported_raise(data, tmp_path):
         "per-user": RandomEffectConfig(shard_name="user", id_name="userId", projector="random",
                                        projected_dim=2,
                                        optimizer=tcfg.coordinates["per-user"].optimizer)})
-    with pytest.raises(NotImplementedError, match="mesh.*item 12"):
-        GameEstimator(projected).fit(tds, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        GameEstimator(projected).fit_grid(tds, tds, {}, mesh=mesh, device="cpu")
+    # the projector on a mesh is ported: its fit is the meshless fit's within
+    # the mesh tolerance of tests/test_factored.py:310-320, in fit_grid too
+    on_mesh = GameEstimator(projected).fit(tds, device="cpu", mesh=mesh).model
+    alone = GameEstimator(projected).fit(tds, device="cpu").model
+    np.testing.assert_allclose(on_mesh.models["per-user"].latent.numpy(),
+                               alone.models["per-user"].latent.numpy(), rtol=5e-3, atol=5e-3)
+    (entry,) = GameEstimator(projected).fit_grid(tds, tds, {}, mesh=mesh, device="cpu")
+    np.testing.assert_allclose(entry.result.model.models["per-user"].latent.numpy(),
+                               on_mesh.models["per-user"].latent.numpy(), rtol=5e-3, atol=5e-3)
     # fit_incremental is ported (tests/test_torch_incremental.py): a warm start
     # without a model (a bare streamed table) is the reference's typed error
     bare = WarmStart(lineage=BaseLineage(checkpoint_dir=str(tmp_path), kind="streaming"))

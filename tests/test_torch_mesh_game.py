@@ -284,3 +284,41 @@ def test_seed_3_mesh_difference_is_within_the_references_own():
     t_mesh = GameEstimator(tcfg).fit(tds, mesh=_cpu_mesh({"data": 8})).model
     j_diff, t_diff = _max_diff(j_mesh, j_single), _max_diff(t_mesh, t_single)
     assert t_diff <= j_diff, (t_diff, j_diff)
+
+
+def test_mesh_state_stays_with_its_owners():
+    """On a ``batch`` 2 x ``model`` 4 mesh no device holds the fixed effect's
+    whole design (each row block is cut from the host shard; the dataset's
+    own device batch is never built) or a random effect's whole coefficient
+    table between updates (each owner keeps its padded block, fewer rows than
+    the bucket); the fit's model is joined only where it is returned, and it
+    is the mesh fit the reference tests hold (parity unchanged)."""
+    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+    from photon_ml_tpu_torch.parallel import OwnerBlocks
+
+    _, tds = _glmix(12345)
+    _, tcfg = _configs()
+    mesh = _cpu_mesh({"batch": 2, "model": 4})
+    coords = GameEstimator(tcfg)._build_coordinates(tds, mesh)
+    assert "global" not in tds.__dict__.get("_csr_batches", {})
+    fe = coords["fixed"]._solve_batch
+    total = len(tds.shard("global").values)
+    assert len(fe.shards) == 2 and sum(b.nnz for b in fe.shards) == total
+    assert all(b.nnz < total for b in fe.shards)
+    re = coords["per-user"]
+    model = re.update_model(re.initialize_model(), None)
+    for bm in model.buckets:
+        assert isinstance(bm.coefficients, OwnerBlocks) and len(bm.coefficients.parts) == 4
+        n = int(bm.coefficients.shape[0])
+        assert all(p.shape[0] < n or n < 4 for p in bm.coefficients.parts)
+        assert sum(bm.coefficients.counts) == n
+    # the owners' scores are the joined table's, bit for bit
+    joined = model.gathered()
+    assert not any(isinstance(b.coefficients, OwnerBlocks) for b in joined.buckets)
+    assert torch.equal(model.score(tds), joined.score(tds))
+    assert torch.equal(re.score(model), re.score(joined))
+    result = run_coordinate_descent(coords, task="logistic", num_iterations=2)
+    for bm in result.model.models["per-user"].buckets:
+        assert isinstance(bm.coefficients, torch.Tensor)
+    fit = GameEstimator(tcfg).fit(tds, device="cpu", mesh=mesh).model
+    _same(result.model, fit)

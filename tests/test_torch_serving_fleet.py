@@ -749,9 +749,15 @@ def test_heartbeat_files_and_dead_peers(tmp_path):
         writer.stop()
     with pytest.raises(ValueError):
         multihost.HeartbeatWriter(str(tmp_path), 0, interval_s=0)
-    for name in ("initialize", "process_slice", "gather_to_host", "fleet_any"):
-        with pytest.raises(NotImplementedError, match="12b"):
-            getattr(multihost, name)()
+    # the rest of the module is ported: in one process initialize joins
+    # nothing, fleet_any is the flag and gather_to_host the array
+    # (tests/test_torch_multihost.py holds the fleet's cases)
+    multihost.initialize(multihost.DistributedConfig())
+    assert multihost.process_count() == 1 and multihost.backend() is None
+    assert multihost.fleet_any(True) and not multihost.fleet_any(False)
+    np.testing.assert_array_equal(multihost.gather_to_host(torch.arange(3)), [0, 1, 2])
+    mesh = multihost.global_mesh({"entity": 2}, [torch.device("cpu")] * 2)
+    assert multihost.process_slice(8, mesh, "entity") == (0, 8)
 
 
 def test_drain_rejects_new_work_with_retry_after(member_engine):

@@ -15,8 +15,8 @@ tests/test_torch_mesh.py holds), on the CPU:
   for bit;
 - checkpoints at chunk boundaries, SIGTERM, and resume bit for bit; a
   streaming checkpoint written by each package restored by the other;
-- a multi-process fleet's process-local chunk refused, naming item 12 (the
-  mesh cases are tests/test_torch_mesh.py's).
+- a ``LocalChunk`` in one process trains as its chunk (the mesh cases are
+  tests/test_torch_mesh.py's, the fleet's tests/test_torch_multihost.py's).
 """
 
 import dataclasses
@@ -223,16 +223,23 @@ def test_table_chunks_write_in_place_and_check_bounds():
     assert wrapped.coefficients is table.coefficients and wrapped.num_entities == 6
 
 
-def test_mesh_and_fleet_paths_are_refused_naming_item_12(tmp_path):
-    """The mesh is ported (tests/test_torch_mesh.py); a multi-process
-    fleet's process-local chunk stays refused, with prefetch on and off."""
-    chunk = LocalChunk(batch=DenseBatch(x=np.zeros((4, 2, 3), np.float32),
-                                        labels=np.zeros((4, 2), np.float32),
-                                        offsets=np.zeros((4, 2), np.float32),
-                                        weights=np.ones((4, 2), np.float32)), global_size=8)
+def test_mesh_and_fleet_paths_are_refused_naming_item_12(tmp_path, rng):
+    """The refusal this test pinned is gone: in one process a ``LocalChunk``
+    holding the whole chunk trains bit for bit as the chunk itself, with
+    prefetch on and off, and a ``LocalChunk`` whose rows are not this
+    process's share is refused (the fleet's cases are
+    tests/test_torch_multihost.py's and tests/test_torch_fleet.py's)."""
+    X, y = _chunked_entities(rng, n_ent=8, rows=4, k=3)
+    want = _table(8, 3)
+    _trainer(prefetch=False).train(want, [(0, _host_chunk(X, y, 0, 8))])
     for prefetch in (True, False):
-        with pytest.raises(NotImplementedError, match=r"LocalChunk.*item 12\)"):
-            _trainer(prefetch=prefetch).train(_table(4, 3), [(0, chunk)])
+        got = _table(8, 3)
+        _trainer(prefetch=prefetch).train(
+            got, [(0, LocalChunk(batch=_host_chunk(X, y, 0, 8), global_size=8))])
+        assert np.array_equal(got.to_numpy(), want.to_numpy())
+    short = LocalChunk(batch=_host_chunk(X, y, 0, 4), global_size=8)
+    with pytest.raises(ValueError, match="LocalChunk of 4 rows"):
+        _trainer(prefetch=False).train(_table(8, 3), [(0, short)])
     mesh = make_mesh({"entity": 2}, [torch.device(CPU)] * 2)
     mgr = StreamingCheckpointManager(CheckpointSpec(directory=str(tmp_path)))
     assert mgr.restore_placed(mesh=mesh) is None  # nothing saved yet

@@ -243,13 +243,42 @@ def test_path_warm_start_masks_converged_lanes():
     assert torch.equal(out[0], tables[0]) and torch.equal(out[2], tables[2])
 
 
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_sweep_glm_on_a_mesh_matches_the_meshless_sweep(glm_problem, warm):
+    """tests/test_sweep.py:206-235 on the port: G = 3 lanes over a ``model``
+    axis of 8 repeated CPU devices (5 pad lanes, dropped), values within
+    rtol 1e-5 and w within atol 1e-3 of the meshless sweep and of the JAX
+    package's meshless sweep; with the warm start's second round too."""
+    from photon_ml_tpu_torch.parallel import make_mesh
+
+    p, batch = glm_problem
+    jcfg, cfg = _lbfgs(20, 1e-8)
+    lams = (10.0, 1.0, 0.1)
+    plain = sweep_glm(batch, "logistic", lams, cfg, warm_start=warm, device="cpu")
+    mesh = make_mesh({"model": 8}, [torch.device("cpu")] * 8)
+    sharded = sweep_glm(batch, "logistic", lams, cfg, warm_start=warm, mesh=mesh, device="cpu")
+    assert sharded.size == 3 and sharded.w.shape == (3, 10) and sharded.rounds == plain.rounds
+    assert len(sharded.iterations) == 3 and len(sharded.data_passes) == 3
+    np.testing.assert_allclose(sharded.values.numpy(), plain.values.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(sharded.w.numpy(), plain.w.numpy(), atol=1e-3)
+    ref = jsweep.sweep_glm(p.batch.device(), "logistic", lams, jcfg, warm_start=warm)
+    np.testing.assert_allclose(sharded.values.numpy(), np.asarray(ref.values), rtol=1e-5)
+    np.testing.assert_allclose(sharded.w.numpy(), np.asarray(ref.w), atol=1e-3)
+
+
 def test_sweep_glm_refusals(glm_problem):
     p, batch = glm_problem
     cfg = _lbfgs(5)[1]
     with pytest.raises(ValueError, match="non-empty"):
         sweep_glm(batch, "logistic", (), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"mesh.*item 12\)"):
-        sweep_glm(batch, "logistic", (1.0,), cfg, mesh=object(), device="cpu")
+    # a mesh is ported (test_sweep_glm_on_a_mesh_matches_the_meshless_sweep);
+    # one with neither a model nor a batch axis leaves the lanes on one device
+    from photon_ml_tpu_torch.parallel import make_mesh
+
+    other = make_mesh({"x": 2}, [torch.device("cpu")] * 2)
+    np.testing.assert_array_equal(
+        sweep_glm(batch, "logistic", (1.0,), cfg, mesh=other, device="cpu").w.numpy(),
+        sweep_glm(batch, "logistic", (1.0,), cfg, device="cpu").w.numpy())
     with pytest.raises(TypeError, match="CSRBatch"):
         sweep_glm(p.batch, "logistic", (1.0,), cfg, device="cpu")
     with pytest.raises(ValueError, match="rounds"):
