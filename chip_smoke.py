@@ -93,14 +93,15 @@ Phases, in order; any failure exits non-zero before the last line:
        17c. (after 12) path 12's cold sweep through ``sweep_glm(mesh=...)``
            on a ``model`` axis of 4: values within rtol 1e-5 and w within
            atol 1e-3 of path 12's, the lane kernels launched on the owners;
-       9.  config #4's dataset again through ``GameEstimator.fit``: its fixed
+       9.  config #4's dataset again through ``GameEstimator.fit`` (one CD
+           iteration, cut from 2 for the time limit): its fixed
            effect, a per-user random effect over the sparse 10K-feature
            shard under the default optimizer type (LBFGS: 10 buckets, the 3
            widest on the COO layout, the block-diagonal batch, whose sweeps
            are the margins, scatter and hv_at kernels), and the dense
-           per-user effect under NEWTON in a box with variances; the first
-           fit saves (the reloaded model must score bit for bit and keep its
-           variances), the second is timed; every lane's objective must not
+           per-user effect under NEWTON in a box with variances; the
+           coordinates are built, then one fit is timed and saved (the
+           reloaded model must score bit for bit and keep its variances); every lane's objective must not
            rise, the box hold, the variances match a plain recomputation on
            1,000 lanes, the train AUC beat path 6's fixed effect alone, two
            scorings and evaluations agree bit for bit; then the largest COO
@@ -114,7 +115,8 @@ Phases, in order; any failure exits non-zero before the last line:
            scores within rtol/atol 5e-3 of 11b's;
        15. the serving tier on path 6's dataset: path 6's model published
            as registry version 1 with the quality gate on, loaded by
-           ``ModelRegistry`` and warmed; at least 2,000 requests of 1-64
+           ``ModelRegistry`` and warmed; at least 1,000 requests (cut from
+           2,000 for the time limit) of 1-64
            of path 6's rows through ``ContinuousBatcher`` and
            ``ScoringServer`` (HTTP) from 8 closed-loop clients in a process
            of their own (``tools/http_load.py``), each answer within 1e-6
@@ -136,14 +138,14 @@ Phases, in order; any failure exits non-zero before the last line:
        15c. the serving fleet on path 15's version 2 (its 99,997 users
            padded to 100,000 by 3 ids with no model): (a) 4 in-process
            members (``load_member_engine``, ``ShardMemberSource``) behind a
-           ``FleetRouter``, 250 calls (cut from 500) of 1-64 rows within 1e-6 of a single
+           ``FleetRouter``, 125 calls (cut from 500, then 250) of 1-64 rows within 1e-6 of a single
            engine, a repeat bit for bit, each member's tables about a
            quarter, a pin to another version refused with 409, member 1 stopped and its
            rows shed to FE-only exactly; (b) 4 ``cli serve --member``
            processes on the card (``tools/serving_fleet.py``) under a budget
-           the full model exceeds (a 1-member fleet refused), 20 s of
-           traffic through the router (cut from 40 s, the resizes at 10 s
-           and 19 s), member 1 hard-killed, detected by heartbeat
+           the full model exceeds (a 1-member fleet refused), 10 s of
+           traffic through the router (cut from 40 s and 20 s, the resizes
+           at 5 s and 9.5 s, each when the step before it ends), member 1 hard-killed, detected by heartbeat
            and relaunched, a live resize 4 -> 8 -> 4: zero failed calls,
            64 rows routed at each settled view within 1e-6 of the single
            engine, every member reporting the card and draining to exit
@@ -230,9 +232,33 @@ Phases, in order; any failure exits non-zero before the last line:
            checkpoint with a 50,000-row delta over 5% of the users, published
            through the gate into a new registry (untouched users of path 10's
            final model bit for bit), then the same delta refused as stale;
+       19. ``cli pipeline`` (the freshness conductor's daemon, a subprocess
+           on the card) on path 10's files, ``train.json`` and ``ckpt`` with
+           16c's delta: (a) a daemon killed at ``pipeline.reconcile`` exits
+           113, ``ckpt``'s tree digest unchanged, nothing in its registry;
+           (b) one daemon, 4 cycles 1 s apart, escalating after 3: cycle 1
+           publishes 16c's refresh as v-00000001 bit for bit, cycle 2 idles,
+           the script publishes a nearline version (4 events each for 256
+           users, half in a second 50,000-row shard's touched set) and
+           renames that shard in; cycle 3's incremental candidate, which
+           the gate decides against v1, has a lineage naming the nearline
+           version (touched rows re-solved, untouched rows the base's bit
+           for bit); a third shard renamed in lets cycle 4 retrain in full
+           over 1,150,000 rows into a new generation, decided by the gate
+           against the champion (a quarantined candidate is held where the
+           gate parks it); ``ckpt`` unchanged, exit 0, the status file's
+           served version and counters; each
+           cycle's seconds and staleness p99, ``time_to_fresh_s``, the
+           retrain's seconds, the lanes and the daemon's start-up printed;
+       chaos. ``photon_ml_tpu_torch/tools/chaos.py`` with its workers on
+           cuda:0: the write-path matrix (the four checkpoint seams, a
+           streamed fit killed at each and resumed bit for bit, 4 rows at
+           once) beside the pipeline row ``pipeline.cycle_start`` (a small
+           ``cli pipeline`` daemon killed at the top of its cycle: base
+           unchanged, no partial version, the rerun publishes);
        12b. config #4 (path 6's draws, every tenth row held out) through
-           ``GameEstimator.fit_sweep`` over ``lambda=1e-4:1e2:log16``, 2 CD
-           iterations, selected on auc: the saved winner and the one
+           ``GameEstimator.fit_sweep`` over ``lambda=1e-4:1e2:log16``, one CD
+           iteration (cut from 2 for the time limit), selected on auc: the saved winner and the one
            published to a registry (``registry_dir``) reload bit for bit,
            its validation AUC within 1e-3 of ``fit`` at its lambda;
            ``fit_grid`` over two fixed effects (L2 1 and 10) best-first,
@@ -282,6 +308,8 @@ NNZ_PER_ROW = 20
 GAME_USERS = 100_000  # bench_game.py config #4: users, RE features, CD iterations
 GAME_RE_FEATURES = 10
 GAME_CD_ITERATIONS = 2
+RE_CD_ITERATIONS = 1  # path 9's CD iterations (2 until cut for the script's time limit)
+SWEEP_GAME_CD_ITERATIONS = 1  # path 12b's CD iterations (2 until cut, as path 9's)
 N_HELDOUT = 100_000  # path 8's held-out rows, drawn after config #1's
 SMALL_ROWS = 65_536
 SMALL_FEATURES = 2_048
@@ -328,7 +356,8 @@ MESH_GAME_TOL = dict(rtol=5e-3, atol=5e-3)
 MESH_TABLE_TOL = dict(rtol=2e-3, atol=2e-4)  # tests/test_streaming.py:150-181
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
-SERVE_REQUESTS = 2_000  # path 15: at least this many requests, each of 1 to SERVE_MAX_BATCH rows
+SERVE_REQUESTS = 1_000  # path 15: at least this many requests, each of 1 to SERVE_MAX_BATCH rows
+# (2,000 until cut for the script's time limit)
 SERVE_MAX_BATCH = 64  # bench_serving.py:82-86: MAX_BATCH 64, N_CLIENTS 8
 SERVE_CLIENTS = 8
 SERVE_ATOL = 1e-6  # tests/test_serving.py:134 (and the mesh's, tests/test_serving_sharded.py:151)
@@ -337,13 +366,13 @@ NEARLINE_ATOL = 1e-6  # tests/test_serving_sharded.py:519
 GATE_SAMPLES = 16  # bootstrap resamples of the quality gate's AUC CI
 SERVE_MESH = 4  # path 15b: the entity-sharded engine's model axis
 FLEET_SIZE = 4  # path 15c: members; 100,000 users divide over 4 and 8
-FLEET_CALLS = 250  # path 15c (a): router calls of 1 to SERVE_MAX_BATCH rows (500 until cut)
+FLEET_CALLS = 125  # path 15c (a): router calls of 1 to SERVE_MAX_BATCH rows (500, then 250 until cut)
 # path 15c (b): the router's traffic, the kill and the resizes, seconds from
 # the first call; a step that finds the previous one still running starts
 # when it ends
-FLEET_TRAFFIC = dict(traffic_seconds=20.0, traffic_hz=20.0, traffic_rows=16,
+FLEET_TRAFFIC = dict(traffic_seconds=10.0, traffic_hz=20.0, traffic_rows=16,
                      traffic_features=(("global", NNZ_PER_ROW), ("user", GAME_RE_FEATURES)),
-                     kill_member=1, kill_after_s=1.5, resizes=((10.0, 8), (19.0, 4)))
+                     kill_member=1, kill_after_s=1.5, resizes=((5.0, 8), (9.5, 4)))
 MESH_OWNERS = 4  # path 17: the model axis of the factored coordinate, the projector, the sweep
 FACTORED_MESH_TOL = dict(rtol=5e-3, atol=5e-3)  # tests/test_factored.py:310-320
 SWEEP_MESH_RTOL, SWEEP_MESH_W_ATOL = 1e-5, 1e-3  # tests/test_sweep.py:227-235
@@ -1813,7 +1842,7 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
                 keep: dict | None = None):
     """Paths 9, 9b and 9c: the rest of the random-effect coordinate at
     config #4's width, on path 6's dataset. Path 9 is ``GameEstimator.fit``
-    (2 CD iterations) of config #4's fixed effect, a per-user random effect
+    (one CD iteration, ``RE_CD_ITERATIONS``) of config #4's fixed effect, a per-user random effect
     over the sparse 10K-feature ``global`` shard under the default optimizer
     type (LBFGS 20, L2 1, tolerance 1e-7: its wide buckets go to the COO
     layout, the block-diagonal batch), and config #4's dense per-user effect
@@ -1848,7 +1877,7 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
     fixed_opt = dataclasses.replace(solver_config("lbfgs", 20), regularization_weight=1.0)
     items_opt = re_optimizer("lbfgs", 20, 1e-7)
     user_opt = re_optimizer("newton", 20, 1e-7, RE_BOX)
-    config = GameConfig(task="logistic", num_iterations=GAME_CD_ITERATIONS, coordinates={
+    config = GameConfig(task="logistic", num_iterations=RE_CD_ITERATIONS, coordinates={
         "fixed": FixedEffectConfig(shard_name="global", optimizer=fixed_opt),
         "per-user-items": RandomEffectConfig(shard_name="global", id_name="userId",
                                              optimizer=items_opt),
@@ -1960,7 +1989,7 @@ def run_re_path(gds, seed: int, profile: bool, fe_only_auc: float, card: str,
           f"bit_identical={json.dumps(same)}", flush=True)
     if not all(same.values()):
         bad.append(f"scores or metrics differ between two calls: {same}")
-    coeffs_per_s = total_coeffs * GAME_CD_ITERATIONS / elapsed
+    coeffs_per_s = total_coeffs * RE_CD_ITERATIONS / elapsed
     stats = {"elapsed_s": elapsed, "coordinates_s": coordinates_s, "re_build_s": re_build_s,
              "coo_layout_s": coo_layout_s, "coeffs_per_s": coeffs_per_s,
              "total_coeffs": total_coeffs, "buckets": shapes, "coo_buckets": n_coo,
@@ -4038,8 +4067,8 @@ def _game_sweep_config(fe_lambda: float = 1.0):
     opt = dc.replace(solver_config("lbfgs", 20), regularization_weight=fe_lambda)
     re_opt = dc.replace(opt, optimizer_type=OptimizerType.NEWTON, tolerance=1e-7,
                         regularization_weight=1.0)
-    return GameConfig(task="logistic", num_iterations=GAME_CD_ITERATIONS, evaluators=["auc"],
-                      coordinates={
+    return GameConfig(task="logistic", num_iterations=SWEEP_GAME_CD_ITERATIONS,
+                      evaluators=["auc"], coordinates={
                           "fixed": FixedEffectConfig(shard_name="global", optimizer=opt),
                           "per-user": RandomEffectConfig(shard_name="user", id_name="userId",
                                                          optimizer=re_opt)})
@@ -4048,7 +4077,8 @@ def _game_sweep_config(fe_lambda: float = 1.0):
 def run_sweep_game_path(seed: int, card: str) -> tuple[dict, dict]:
     """Path 12b: ``GameEstimator.fit_sweep`` at BASELINE config #4 (path 6's
     draws and coordinates, every tenth row held out), the grid
-    GAME_SWEEP_GRID for both coordinates, 2 CD iterations, selected on
+    GAME_SWEEP_GRID for both coordinates, one CD iteration
+    (``SWEEP_GAME_CD_ITERATIONS``), selected on
     ``auc``. Fails unless the winner saved under ``best/`` and the one
     published to a serving registry (``fit_sweep(registry_dir=...)``)
     reload and score bit for bit, the winning lane's validation AUC is within 1e-3 of
@@ -5597,11 +5627,20 @@ def run_mesh_freshness_path(card: str, keep: dict) -> tuple[dict, dict]:
     return launches, stats
 
 
-def write_delta_avro(seed: int, path: str) -> np.ndarray:
+def delta_users(rng) -> np.ndarray:
+    """The users a delta touches (5% of them, sorted): the first draw of the
+    delta's generator (or of a new one from the seed given)."""
+    rng = np.random.default_rng(rng) if isinstance(rng, int) else rng
+    return np.sort(rng.choice(GAME_USERS, size=int(GAME_USERS * FRESH_DELTA_FRACTION),
+                              replace=False))
+
+
+def write_delta_avro(seed: int, path: str, delta_seed: int | None = None) -> np.ndarray:
     """A 50,000-row delta of path 10's data: bench_game.py's generator with
     its planted model (drawn from ``seed`` as path 10's), the rows drawn from
-    another seed over 5% of the users, written as TrainingExampleAvro with
-    path 10's feature names and user vocabulary. Returns the users touched."""
+    another seed (``delta_seed``, default ``seed + 1016``) over 5% of the
+    users, written as TrainingExampleAvro with path 10's feature names and
+    user vocabulary. Returns the users touched."""
     from photon_ml_tpu_torch.data.avro import write_training_examples_fast
 
     rng = np.random.default_rng(seed)
@@ -5611,10 +5650,9 @@ def write_delta_avro(seed: int, path: str) -> np.ndarray:
     rng.integers(0, GAME_USERS, size=N_ROWS)
     rng.normal(size=(N_ROWS, GAME_RE_FEATURES))
     wu_true = rng.normal(size=(GAME_USERS, GAME_RE_FEATURES)) * 0.5
-    drng = np.random.default_rng(seed + 1016)
+    drng = np.random.default_rng(seed + 1016 if delta_seed is None else delta_seed)
     n = N_ROWS // 20
-    touched = np.sort(drng.choice(GAME_USERS, size=int(GAME_USERS * FRESH_DELTA_FRACTION),
-                                  replace=False))
+    touched = delta_users(drng)
     users = touched[drng.integers(0, len(touched), n)]
     cols = drng.integers(0, N_FEATURES, size=n * NNZ_PER_ROW)
     vals = drng.normal(size=n * NNZ_PER_ROW)
@@ -5709,6 +5747,428 @@ def run_refresh_cli_path(seed: int, card: str, work: str) -> tuple[dict, dict]:
     if bad:
         raise RuntimeError(f"path 16c: bad result: {bad}")
     return {}, stats
+
+
+def _read_status(path: str) -> dict:
+    try:
+        with open(path) as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return {}
+
+
+def _pipeline_cycles(log_path: str) -> list[dict]:
+    """The cycle records a ``cli pipeline`` daemon logged (one JSON object a
+    cycle, after ``pipeline cycle``)."""
+    out = []
+    with open(log_path, errors="replace") as fh:
+        for line in fh:
+            if " pipeline cycle {" in line:
+                out.append(json.loads(line.split(" pipeline cycle ", 1)[1]))
+    return out
+
+
+def _model_bits(a, b) -> dict:
+    """Where two GAME models of one config part: ``same`` when every tensor
+    of ``_model_tensors`` is bit for bit equal, else the tensors that differ
+    and the largest absolute difference."""
+    import torch
+
+    ta, tb = _model_tensors(a), _model_tensors(b)
+    diff = {k: float((ta[k].float() - tb[k].float()).abs().max())
+            if ta[k].shape == tb[k].shape else float("inf") for k in ta if k in tb}
+    return {"same": sorted(ta) == sorted(tb) and all(torch.equal(ta[k], tb[k]) for k in ta),
+            "differs": [k for k, d in diff.items() if d], "max_abs_diff": max(diff.values())}
+
+
+#: path 19's daemon: ``cli pipeline`` through a runner that prints the kernel
+#: launches of its process after the daemon's summary
+_PIPELINE_RUNNER = (
+    "import json, sys\n"
+    "from photon_ml_tpu_torch import kernels\n"
+    "from photon_ml_tpu_torch.cli.__main__ import main\n"
+    "rc = main(['pipeline'] + sys.argv[1:])\n"
+    "print(json.dumps({'launches': dict(kernels.LAUNCHES)}), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def run_pipeline_cli_path(seed: int, card: str, work: str,
+                          device: str = "cuda") -> tuple[dict, dict]:
+    """Path 19: ``cli pipeline`` (the freshness conductor's daemon, a
+    subprocess on the card) at config #4's width, on path 10's Avro files,
+    ``train.json`` and step checkpoint ``ckpt`` and path 16c's delta.
+
+    (a) a daemon armed to exit at ``pipeline.reconcile`` must exit 113 with
+    ``ckpt``'s tree digest unchanged and nothing (no version, no ``.tmp-``
+    debris) in its registry. (b) one daemon, ``--cycles 4 --interval-s 1
+    --escalate-after-cycles 3``: cycle 1 publishes 16c's delta as
+    v-00000001 (gate ``no_champion``), bit for bit 16c's refreshed model;
+    cycle 2 idles; meanwhile the script writes a second shard (another seed,
+    5% of the users) outside the delta directory, publishes a nearline
+    version (4 events each for 256 users, half of them in that shard's
+    touched set) and renames the shard in; cycle 3's incremental candidate
+    is decided by the gate against v1 (published, or quarantined: either
+    way its lineage's reconciliation names the nearline version, its touched
+    rows are re-solved, not the nearline rows, and its untouched rows are
+    the base's bit for bit); a third shard renamed in after cycle 3 lets
+    cycle 4 escalate to a full retrain over 1,150,000 rows, decided by the
+    gate against the champion. ``ckpt`` stays byte-identical, the daemon
+    exits 0 and its status file shows the newest published version served
+    and the counters."""
+    import shutil
+    import subprocess
+
+    import torch
+
+    from photon_ml_tpu_torch.data.model_store import (
+        load_feature_index_maps,
+        load_game_model,
+        load_game_model_metadata,
+    )
+    from photon_ml_tpu_torch.incremental import load_warm_start
+    from photon_ml_tpu_torch.serving.engine import ScoringEngine
+    from photon_ml_tpu_torch.serving.nearline import NearlineUpdater
+    from photon_ml_tpu_torch.tools import chaos
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_path = time.perf_counter()
+    cfg, ckpt = os.path.join(work, "train.json"), os.path.join(work, "ckpt")
+    digest0 = chaos.tree_digest(ckpt)
+    stats, bad = {"card": card}, []
+
+    def daemon(tag: str, registry: str, *extra: str, plan: dict | None = None):
+        wdir = os.path.join(work, f"pipeline-{tag}")
+        os.makedirs(wdir, exist_ok=True)
+        env = chaos.worker_env(plan)
+        argv = chaos.pipeline_command(cfg, ckpt, delta_dir, registry,
+                                      os.path.join(wdir, "work"), device, *extra)
+        # the runner in place of -m: the same main(), then the launches
+        argv = [sys.executable, "-c", _PIPELINE_RUNNER, *argv[4:]]
+        out, err = os.path.join(wdir, "daemon.out"), os.path.join(wdir, "daemon.err")
+        with open(out, "wb") as fo, open(err, "wb") as fe:
+            proc = subprocess.Popen(argv, cwd=root, env=env, stdout=fo, stderr=fe)
+        return proc, wdir, out, err
+
+    delta_dir = os.path.join(work, "delta19")
+    os.makedirs(delta_dir)
+    shutil.copy(os.path.join(work, "delta16", "part-delta.avro"),
+                os.path.join(delta_dir, "part-0001.avro"))
+
+    # (a) a kill at pipeline.reconcile, after the cycle's reads
+    reg_a = os.path.join(work, "pipeline-a-registry")
+    t0 = time.perf_counter()
+    proc, _wdir, _out, err_a = daemon("a", reg_a, "--cycles", "1", "--interval-s", "0",
+                                      plan=chaos.exit_plan("pipeline.reconcile"))
+    rc_a = proc.wait(timeout=600)
+    stats["a"] = {"rc": rc_a, "seconds": time.perf_counter() - t0,
+                  "ckpt_unchanged": chaos.tree_digest(ckpt) == digest0,
+                  "registry": chaos.registry_debris(reg_a)}
+    print(f"path 19 (a): rc={rc_a} seconds={stats['a']['seconds']:.4f} "
+          f"ckpt_unchanged={stats['a']['ckpt_unchanged']} "
+          f"registry={stats['a']['registry']['all']} card={card}", flush=True)
+    if rc_a != chaos.EXIT_CODE:
+        with open(err_a) as fh:
+            bad.append(f"(a) exited {rc_a}, not 113: {fh.read()[-2000:]}")
+    if not stats["a"]["ckpt_unchanged"]:
+        bad.append("(a) the kill changed ckpt")
+    if stats["a"]["registry"]["versions"] or stats["a"]["registry"]["tmp"]:
+        bad.append(f"(a) the kill left {stats['a']['registry']['all']} in the registry")
+
+    # (b) the supervised run; the shards of cycles 3 and 4 and the nearline
+    # events are made while cycle 1 runs
+    reg_b = os.path.join(work, "pipeline-b-registry")
+    status = os.path.join(work, "pipeline-status.json")
+    t_launch = time.perf_counter()
+    proc, wdir, out_b, err_b = daemon("b", reg_b, "--cycles", "4", "--interval-s", "1",
+                                      "--escalate-after-cycles", "3", "--status-file", status)
+    try:
+        outside = os.path.join(work, "delta19-staged")
+        os.makedirs(outside)
+        t0 = time.perf_counter()
+        touched2 = write_delta_avro(seed, os.path.join(outside, "part-0002.avro"), seed + 1019)
+        touched3 = write_delta_avro(seed, os.path.join(outside, "part-0003.avro"), seed + 1020)
+        stats["shards_write_s"] = time.perf_counter() - t0
+        touched1 = delta_users(seed + 1016)  # 16c's delta
+        rng = np.random.default_rng(seed + 1900)
+        others = np.setdiff1d(np.arange(GAME_USERS), np.union1d(np.union1d(touched1, touched2),
+                                                                touched3))
+        picked = np.concatenate([rng.choice(touched2, NEARLINE_USERS // 2, replace=False),
+                                 rng.choice(others, NEARLINE_USERS // 2, replace=False)])
+        events = [{"ids": {"userId": str(u)},
+                   "features": {"global": [[int(c), float(v)] for c, v in zip(
+                       rng.choice(N_FEATURES, NNZ_PER_ROW, replace=False),
+                       rng.normal(size=NNZ_PER_ROW))],
+                       "user": [[k, float(v)] for k, v in enumerate(
+                           rng.normal(size=GAME_RE_FEATURES))]},
+                   "label": float(rng.random() < 0.5), "offset": 0.0}
+                  for u in picked.tolist() for _ in range(4)]
+
+        def wait_for(pred, what: str, timeout_s: float = 300.0, poll_s: float = 0.02):
+            deadline = time.perf_counter() + timeout_s
+            while not pred():
+                if proc.poll() is not None:
+                    raise RuntimeError(f"path 19: the daemon exited {proc.returncode} while "
+                                       f"waiting for {what}")
+                if time.perf_counter() > deadline:
+                    raise RuntimeError(f"path 19: no {what} within {timeout_s} s")
+                time.sleep(poll_s)
+
+        def logged(text: str) -> bool:
+            with open(err_b, errors="replace") as fh:
+                return text in fh.read()
+
+        def generation() -> int:
+            return int(_read_status(status).get("generation") or 0)
+
+        wait_for(lambda: logged(f"pipeline daemon up on {device}"), "daemon start-up")
+        stats["startup_s"] = time.perf_counter() - t_launch
+        marks = stats["marks_s"] = {}
+
+        def mark_at(name: str) -> None:
+            marks[name] = time.perf_counter() - t_launch
+
+        v1_dir = os.path.join(reg_b, "v-00000001")
+        wait_for(lambda: os.path.isdir(v1_dir), "v-00000001")
+        mark_at("v1_published")
+
+        # the nearline engine on v1 and its 256 users' solve, beside the
+        # daemon; published once v1 is served
+        def nearline_solve():
+            engine = ScoringEngine.load(v1_dir, device=device)
+            updater = NearlineUpdater(engine, id_name="userId",
+                                      config=re_optimizer("lbfgs", 20, 1e-7),
+                                      publish_dir=reg_b,
+                                      index_maps=load_feature_index_maps(v1_dir))
+            accepted = updater.submit(events)
+            flushed = updater.flush()
+            mark_at("nearline_solved")
+            return engine, updater, accepted, flushed
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(1) as pool:
+            solving = pool.submit(nearline_solve)
+            wait_for(lambda: (_read_status(status).get("members", {}).get("0", {})
+                              .get("pipeline", {}).get("served_version") == "v-00000001"),
+                     "v-00000001 served")
+            mark_at("v1_served")
+            # with 1 s between cycles, cycle 3 starts ~2 s after v1 is
+            # served: the shard goes in after cycle 2, and the nearline
+            # version lands during cycle 3's reads, before its reconciliation
+            wait_for(lambda: generation() >= 2, "cycle 2")
+            mark_at("cycle2_done")
+            os.rename(os.path.join(outside, "part-0002.avro"),
+                      os.path.join(delta_dir, "part-0002.avro"))
+            mark_at("shard2_in")
+            engine, updater, accepted, flushed = solving.result()
+        t0 = time.perf_counter()
+        v2 = updater.publish()
+        mark_at("nearline_published")
+        stats["nearline"] = {"users": int(len(picked)), "events": accepted, "flush": flushed,
+                             "publish_s": time.perf_counter() - t0,
+                             "version": os.path.basename(v2 or ""),
+                             "seq": int(engine.nearline_seq)}
+        del engine, updater
+        wait_for(lambda: generation() >= 3, "cycle 3", timeout_s=600)
+        mark_at("cycle3_done")
+        os.rename(os.path.join(outside, "part-0003.avro"),
+                  os.path.join(delta_dir, "part-0003.avro"))
+        mark_at("shard3_in")
+        # cycle 3's candidate, published or quarantined: a refusal of the
+        # same slot in cycle 4 would replace the quarantined evidence
+        snap3 = None
+        for name in ("v-00000003", "quarantined-v-00000003"):
+            if os.path.isdir(os.path.join(reg_b, name)):
+                snap3 = os.path.join(work, "pipeline-cycle3-candidate")
+                shutil.copytree(os.path.join(reg_b, name), snap3)
+                break
+        rc_b = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stats["daemon_s"] = time.perf_counter() - t_launch
+    with open(out_b) as fh:
+        lines = fh.read().strip().splitlines()
+    summary = json.loads(lines[-2]) if len(lines) >= 2 else {}
+    launches = json.loads(lines[-1]).get("launches", {}) if lines else {}
+    cycles = _pipeline_cycles(err_b)
+    doc = _read_status(status)
+    member = doc.get("members", {}).get("0", {}).get("pipeline", {})
+    stats.update(rc=rc_b, summary=summary, launches=launches, cycles=cycles,
+                 status={"outcome": doc.get("outcome"), "generation": doc.get("generation"),
+                         "pipeline": member})
+    for c in cycles:
+        print(f"path 19 cycle {c['cycle']}: idle={c['idle']} "
+              f"published={c.get('published_version')} escalated={c['escalated']} "
+              f"cycle_s={c.get('cycle_s')} rows={c.get('rows')} "
+              f"time_to_fresh_s={c.get('time_to_fresh_s')} "
+              f"full_retrain_s={c.get('full_retrain_s')} lanes_solved={c.get('lanes_solved')} "
+              f"lanes_skipped={c.get('lanes_skipped')} "
+              f"staleness_p99_s={c.get('staleness_p99_s')} "
+              f"gate={json.dumps(c.get('quality_gate'))} card={card}", flush=True)
+    if rc_b != 0 or len(cycles) != 4:
+        with open(err_b) as fh:
+            raise RuntimeError(f"path 19: (b) exited {rc_b} after {len(cycles)} cycles: "
+                               f"{fh.read()[-3000:]}")
+    c1, c2, c3, c4 = cycles
+    published = list(summary.get("published_versions") or [])
+
+    def candidate(path: str) -> tuple[dict, dict]:
+        """A cycle's candidate version, published or quarantined: its
+        metadata and the gate's decision recorded with it."""
+        m = load_game_model_metadata(path)
+        return m, m.get("extra", {}).get("quality", {}).get("gate", {})
+
+    for c in (c1, c3, c4):
+        q = (c.get("quality_gate") or candidate(
+            os.path.join(reg_b, c["published_version"]))[1]) if not c["idle"] else {}
+        print(f"path 19 cycle {c['cycle']} gate: {q.get('decision')} "
+              f"champion={q.get('champion_version')} reason={json.dumps(q.get('reason'))} "
+              f"candidate_auc={(q.get('candidate') or {}).get('auc')} "
+              f"champion_ci_low={(q.get('champion') or {}).get('auc_ci_low')}", flush=True)
+    print(f"path 19 marks: {json.dumps(stats['marks_s'])}", flush=True)
+
+    # cycle 1: 16c's refresh, bit for bit
+    m1, g1 = candidate(v1_dir)
+    v1 = load_game_model(v1_dir, device=device)
+    ref16 = load_game_model(os.path.join(work, "refresh-registry", "v-00000001"),
+                            device=device)
+    parts = _model_bits(v1, ref16)
+    stats["v1_vs_16c"] = parts
+    print(f"path 19 v1 against 16c's refreshed model: {json.dumps(parts)}", flush=True)
+    if not parts["same"]:
+        bad.append(f"v-00000001 is not 16c's refreshed model bit for bit: {parts}")
+    if not (c1["published_version"] == "v-00000001" and not c1["escalated"]
+            and g1.get("decision") == "no_champion"):
+        bad.append(f"cycle 1: {c1}")
+    if not (c2["idle"] and c2["published_version"] is None):
+        bad.append(f"cycle 2 did not idle: {c2}")
+
+    # cycle 3: decided by the gate against v1; its candidate's
+    # reconciliation names the nearline version, its touched rows are
+    # re-solved (not the nearline rows), the rest the base's
+    if snap3 is None or c3["idle"] or c3["escalated"]:
+        raise RuntimeError(f"path 19: cycle 3 left no incremental candidate: {c3}")
+    m3, g3 = candidate(snap3)
+    rec = m3.get("extra", {}).get("lineage", {}).get("reconciliation", {})
+    want_rec = {"rule": "retrain-wins-touched", "nearline_version": "v-00000002",
+                "nearline_seq": stats["nearline"]["seq"], "nearline_base_version": "v-00000001"}
+    if (g3.get("decision") not in ("published", "quarantined")
+            or g3.get("champion_version") != "v-00000001"
+            or any(rec.get(k) != v for k, v in want_rec.items())):
+        bad.append(f"cycle 3: {c3}; reconciliation {rec}")
+    if stats["nearline"]["version"] != "v-00000002":
+        bad.append(f"the nearline version is {stats['nearline']['version']}")
+    base = load_warm_start(ckpt, device=device).model.models["per-user"]
+    nl = load_game_model(os.path.join(reg_b, "v-00000002"), device=device).models["per-user"]
+    v3 = load_game_model(snap3, device=device).models["per-user"]
+    vocab = np.asarray(v3.vocab)
+    tb, pb = entity_table(base, vocab, GAME_RE_FEATURES)
+    tn, pn = entity_table(nl, vocab, GAME_RE_FEATURES)
+    t3, p3 = entity_table(v3, vocab, GAME_RE_FEATURES)
+
+    def mask(users):
+        from photon_ml_tpu_torch.game.models import map_vocab_codes
+
+        m = np.zeros(len(vocab), bool)
+        codes = map_vocab_codes(vocab, np.asarray([str(u) for u in users]))
+        m[codes[codes >= 0]] = True
+        return torch.from_numpy(m).to(tb.device)
+
+    hit = mask(np.union1d(touched1, touched2))
+    near = mask(picked)
+    same_base = (tb.view(torch.int32) == t3.view(torch.int32)).all(dim=1)
+    same_near = (tn.view(torch.int32) == t3.view(torch.int32)).all(dim=1)
+    moved_near = ~(tn.view(torch.int32) == tb.view(torch.int32)).all(dim=1)
+    untouched = pb & p3 & ~hit
+    stats["cycle3_rows"] = {
+        "untouched": int(untouched.sum()), "untouched_kept": int((same_base & untouched).sum()),
+        "nearline_touched": int((near & hit).sum()),
+        "nearline_touched_not_nearline_rows": int((near & hit & ~same_near).sum()),
+        "nearline_untouched_base_rows": int((near & ~hit & same_base).sum()),
+        "nearline_rows_moved": int((near & moved_near).sum())}
+    print(f"path 19 cycle 3 rows: {json.dumps(stats['cycle3_rows'])}", flush=True)
+    r = stats["cycle3_rows"]
+    if r["untouched_kept"] != r["untouched"]:
+        bad.append(f"cycle 3: untouched rows changed: {r}")
+    if (r["nearline_touched_not_nearline_rows"] != r["nearline_touched"]
+            or not r["nearline_touched"] or not r["nearline_rows_moved"]
+            or r["nearline_untouched_base_rows"] != NEARLINE_USERS // 2):
+        bad.append(f"cycle 3: the nearline rows were not superseded as the rule says: {r}")
+
+    # cycle 4: the escalated full retrain over base and the three shards,
+    # decided by the gate against the newest published version with stats
+    m4, g4 = candidate(os.path.join(
+        reg_b, c4.get("published_version") or c4.get("quarantined_version") or "-"))
+    champion4 = "v-00000003" if c3["published_version"] else "v-00000001"
+    if not (c4["escalated"] and c4.get("rows") == N_ROWS + 3 * (N_ROWS // 20)
+            and m4.get("extra", {}).get("pipeline", {}).get("escalated") is True
+            and g4.get("decision") in ("published", "quarantined")
+            and g4.get("champion_version") == champion4):
+        bad.append(f"cycle 4: {c4}; metadata {m4.get('extra', {}).get('pipeline')} {g4}")
+    if not str(summary.get("base_dir", "")).startswith(os.path.join(wdir, "work", "base-gen-")):
+        bad.append(f"the escalation re-based onto {summary.get('base_dir')}")
+    if chaos.tree_digest(ckpt) != digest0:
+        bad.append("(b) changed ckpt")
+    if not (doc.get("outcome") == "completed" and doc.get("generation") == 4
+            and member.get("served_version") == published[-1]
+            and member.get("publishes") == len(published)
+            and member.get("escalations") == 1 and member.get("idle_cycles") == 1):
+        bad.append(f"the status file: {stats['status']}")
+    for name in ("csr_margins", "csc_scatter"):
+        if not launches.get(name):
+            bad.append(f"the daemon launched no {name}: {launches}")
+    stats["path_s"] = time.perf_counter() - t_path
+    print(f"path 19: startup_s={stats['startup_s']:.4f} daemon_s={stats['daemon_s']:.4f} "
+          f"(a)_s={stats['a']['seconds']:.4f} shards_write_s={stats['shards_write_s']:.4f} "
+          f"nearline={json.dumps(stats['nearline'])} "
+          f"summary={json.dumps(summary)} status={json.dumps(stats['status'])} "
+          f"launches={json.dumps(launches)} path_s={stats['path_s']:.4f} card={card}",
+          flush=True)
+    if bad:
+        raise RuntimeError(f"path 19: bad result: {bad}")
+    return {k: v for k, v in launches.items() if v}, stats
+
+
+def run_chaos_phase(card: str, work: str, device: str = "cuda") -> dict:
+    """The crash matrices on the card (``photon_ml_tpu_torch/tools/chaos.py``
+    with the workers on cuda:0): the write-path matrix (4 rows, 4 at once,
+    beside the uninterrupted fit) and the pipeline row
+    ``pipeline.cycle_start`` (its small base trained in this process), the
+    two side by side. Every row must pass."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from photon_ml_tpu_torch.tools import chaos
+
+    t0 = time.perf_counter()
+    # the pipeline row's small base is trained in this process, on its main
+    # thread (``cli train``'s run installs signal handlers): a subprocess's start-up
+    # saved; the daemons are subprocesses
+    pipe_dir = os.path.join(work, "chaos-pipeline")
+    fixture = chaos.pipeline_fixture(pipe_dir, device, in_process=True)
+    with ThreadPoolExecutor(2) as pool:
+        wp = pool.submit(chaos.run_matrix, os.path.join(work, "chaos-write-path"),
+                         device=device, jobs=4)
+        pl = pool.submit(chaos.run_pipeline_matrix, pipe_dir, points=["pipeline.cycle_start"],
+                         device=device, fixture=fixture)
+        reports = {"write_path": wp.result(), "pipeline": pl.result()}
+    stats = {"card": card, "seconds": time.perf_counter() - t0}
+    for kind, report in reports.items():
+        rows = {p: {k: e.get(k) for k in ("armed_rc", "resume_rc", "exact", "resumed_from_chunk",
+                                           "published_versions", "seconds", "error")}
+                for p, e in report["results"].items()}
+        stats[kind] = {"ok": report["ok"], "elapsed_s": report["elapsed_s"], "rows": rows,
+                       "skipped": report["skipped"]}
+        print(f"chaos {kind}: ok={report['ok']} elapsed_s={report['elapsed_s']} "
+              f"rows={json.dumps(rows)} card={card}", flush=True)
+    print(f"chaos phase: seconds={stats['seconds']:.4f} card={card}", flush=True)
+    failed = [k for k, r in reports.items()
+              if not r["ok"] or r["skipped"] or not r["results"]]
+    if failed:
+        raise RuntimeError(f"chaos phase: {failed} failed: "
+                           f"{json.dumps({k: stats[k] for k in failed})[:3000]}")
+    return stats
 
 
 _T_START = time.perf_counter()
@@ -5824,7 +6284,7 @@ def main() -> int:
 def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, train: dict,
                prof: dict) -> int:
     """Paths 8, 6, 14b, 9-9c, 11b and 17b, 15, 15b, 15c, 16, 16b, 10, 13, 13b, 14c, 18,
-    12d, 16c, 12b, 11 with 17a, and 7,
+    12d, 16c, 19, the chaos phase, 12b, 11 with 17a, and 7,
     then the ``kernels`` line and the result line; ``work`` holds path 8's
     files for paths 10 and 12d, path 10's for 12d and 16c, and path 16's
     checkpoint for 16b."""
@@ -5921,6 +6381,11 @@ def _run_paths(args, card: str, kernel_rows: list, work: str, by_path: dict, tra
     by_path["16c"], train["16c"] = run_refresh_cli_path(args.seed, card, work)
     mark("path 16c", train)
     torch.cuda.empty_cache()
+    by_path["19"], train["19"] = run_pipeline_cli_path(args.seed, card, work)
+    torch.cuda.empty_cache()
+    mark("path 19", train)
+    train["chaos"] = run_chaos_phase(card, work)
+    mark("chaos phase", train)
     t0 = time.perf_counter()
     by_path["12b"], train["12b"] = run_sweep_game_path(args.seed, card)
     train["12b"]["path_s"] = time.perf_counter() - t0

@@ -1,15 +1,15 @@
-"""CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|refresh|sweep|score|serve|glm|index} ...
+"""CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|refresh|pipeline|sweep|score|serve|glm|index} ...
 
 Counterpart of ``photon_ml_tpu/cli/__main__.py``, with the same usage text
-and dispatch. ``pipeline``, ``report`` and ``profile`` raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 14). ``train``, ``refresh``,
+and dispatch. ``report`` and ``profile`` raise ``NotImplementedError``
+(ROADMAP.md Queue 1 item 14d). ``train``, ``refresh``, ``pipeline``,
 ``sweep``, ``score``, ``serve`` and ``glm`` take ``--device`` (default
 ``cuda``).
 """
 
 import sys
 
-_NOT_PORTED = {"pipeline": 14, "report": 14, "profile": 14}
+_NOT_PORTED = {"report": "14d", "profile": "14d"}
 
 
 def main(argv=None) -> int:
@@ -19,7 +19,9 @@ def main(argv=None) -> int:
         print("  train --config <json> [--output-dir <dir>] [--device cuda|cpu]   GAME training")
         print("  refresh --config <json> --warm-start <dir> [--delta <path>] [--registry-dir <dir>] "
               "[--device cuda|cpu]   incremental warm-start retrain")
-        print("  pipeline, report, profile   not ported (ROADMAP.md Queue 1 item 14)")
+        print("  pipeline --config <json> --base <dir> --delta-dir <dir> --registry-dir <dir> "
+              "--workdir <dir> [--device cuda|cpu]   freshness conductor daemon")
+        print("  report, profile   not ported (ROADMAP.md Queue 1 item 14d)")
         print("  sweep --config <json> [--sweep lambda=...] [--device cuda|cpu]   multi-lambda "
               "sweep + selection")
         print("  score --model-dir <dir> --config <json> [--output <avro>] [--device cuda|cpu]")
@@ -41,6 +43,10 @@ def main(argv=None) -> int:
         from photon_ml_tpu_torch.cli.refresh import main as refresh_main
 
         return refresh_main(rest)
+    if cmd == "pipeline":
+        from photon_ml_tpu_torch.cli.pipeline import main as pipeline_main
+
+        return pipeline_main(rest)
     if cmd == "sweep":
         from photon_ml_tpu_torch.cli.sweep import main as sweep_main
 

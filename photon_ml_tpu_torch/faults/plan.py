@@ -411,6 +411,10 @@ def corrupt_health(point: str, health):
     _record_injection(point, rule)
     import torch
 
+    # on the health's own device, so a loop that combines it with device
+    # tensors sees no device mismatch
+    if isinstance(health, torch.Tensor):
+        return torch.zeros_like(health, dtype=torch.bool)
     return torch.tensor(False)
 
 

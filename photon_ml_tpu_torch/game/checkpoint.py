@@ -43,8 +43,13 @@ is coordinated (:645-830): each member writes the blocks it holds
 (``coefficients-p<pid>-NNNN.npy``) and its own manifest, and process 0
 certifies the checkpoint with the quorum manifest once every member's has
 landed and the blocks cover the table; ``restore_placed`` re-slices the
-newest certified checkpoint onto whatever fleet restores it. The fault
-points (item 14c) and the telemetry gauges (item 14d) are not ported.
+newest certified checkpoint onto whatever fleet restores it.
+
+The atomic protocol's phases are fault points (``checkpoint.save.before_tmp``,
+``.before_manifest``, ``.before_rename``, ``.after_rename``: the write-path set
+the crash matrix kills at), as are the manifest read on restore and a member's
+manifest in a coordinated save (``checkpoint.peer_manifest``). The telemetry
+gauges (item 14d) are not ported.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch import telemetry
+from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.game.models import GameModel
 from photon_ml_tpu_torch.parallel.sharding import EntityShards
 from photon_ml_tpu_torch.utils.atomic import atomic_write_json, fsync_dir
@@ -76,6 +81,39 @@ _FORMAT_VERSION = 1
 _STREAM_FORMAT_VERSION = 2
 _STEP_RE = re.compile(r"^step-(\d{8})$")
 _CHUNK_RE = re.compile(r"^chunk-(\d{8})$")
+
+# The atomic-write protocol's crash seams, one per phase: the crash matrix
+# (tools/chaos.py) kills a fit at each and checks that the resumed fit ends
+# on the uninterrupted one's bits. The step and streaming managers share
+# them: the protocol is the same.
+_FP_SAVE_BEFORE_TMP = faults.register_point(
+    "checkpoint.save.before_tmp", write_path=True,
+    description="before the .tmp- sibling is assembled (no trace on disk)",
+)
+_FP_SAVE_BEFORE_MANIFEST = faults.register_point(
+    "checkpoint.save.before_manifest", write_path=True,
+    description="payload written, manifest absent (tmp dir incomplete)",
+)
+_FP_SAVE_BEFORE_RENAME = faults.register_point(
+    "checkpoint.save.before_rename", write_path=True,
+    description="tmp dir complete but not yet renamed into place",
+)
+_FP_SAVE_AFTER_RENAME = faults.register_point(
+    "checkpoint.save.after_rename", write_path=True,
+    description="checkpoint durable; retention/fsync not yet run",
+)
+_FP_MANIFEST_READ = faults.register_point(
+    "checkpoint.manifest.read",
+    description="manifest open/parse during restore (corrupt-skip path)",
+)
+# a coordinated (multi-process) save adds one seam: a member dying between
+# its shard payloads and its per-process manifest leaves the quorum
+# incomplete, and process 0 must abandon the checkpoint uncertified
+_FP_PEER_MANIFEST = faults.register_point(
+    "checkpoint.peer_manifest", distributed=True,
+    description="before a member writes its per-process shard manifest "
+    "during a coordinated save",
+)
 
 
 class CheckpointError(RuntimeError):
@@ -165,6 +203,7 @@ class CheckpointManager:
         final = os.path.join(self.spec.directory, _step_dirname(state.step))
         tmp = os.path.join(self.spec.directory, f".tmp-{_step_dirname(state.step)}")
         with telemetry.span("checkpoint:save", step=state.step):
+            faults.fault_point(_FP_SAVE_BEFORE_TMP)
             if os.path.exists(tmp):
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
@@ -172,6 +211,7 @@ class CheckpointManager:
             save_game_model(state.model.gathered(), os.path.join(tmp, "model"))
             if state.best_model is not None:
                 save_game_model(state.best_model.gathered(), os.path.join(tmp, "best"))
+            faults.fault_point(_FP_SAVE_BEFORE_MANIFEST)
             # the manifest lands last: its presence certifies the checkpoint
             atomic_write_json(os.path.join(tmp, _MANIFEST_FILE), {
                 "format_version": _FORMAT_VERSION,
@@ -183,9 +223,11 @@ class CheckpointManager:
                 "frozen": list(state.frozen),
                 "consecutive_rollbacks": state.consecutive_rollbacks or {},
             }, indent=2, sort_keys=True)
+            faults.fault_point(_FP_SAVE_BEFORE_RENAME)
             if os.path.exists(final):  # a step saved again (a resume's overlap)
                 shutil.rmtree(final)
             os.rename(tmp, final)
+            faults.fault_point(_FP_SAVE_AFTER_RENAME)
             fsync_dir(self.spec.directory)
         telemetry.counter("checkpoint.saves").inc()
         self._apply_retention()
@@ -216,6 +258,7 @@ class CheckpointManager:
 
         manifest_path = os.path.join(path, _MANIFEST_FILE)
         try:
+            faults.fault_point(_FP_MANIFEST_READ)
             with open(manifest_path) as f:
                 manifest = json.load(f)
         except FileNotFoundError:
@@ -422,6 +465,7 @@ class StreamingCheckpointManager:
         first = coeffs.parts[0] if sharded else coeffs
         device = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
         with telemetry.span("checkpoint:save", next_chunk=state.next_chunk):
+            faults.fault_point(_FP_SAVE_BEFORE_TMP)
             if os.path.exists(tmp):
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
@@ -429,6 +473,7 @@ class StreamingCheckpointManager:
             variance_files = None
             if state.variances is not None:
                 variance_files = self._write_table(tmp, "variances", state.variances)
+            faults.fault_point(_FP_SAVE_BEFORE_MANIFEST)
             # the manifest lands last: its presence certifies the directory
             atomic_write_json(os.path.join(tmp, _MANIFEST_FILE), {
                 "format_version": _STREAM_FORMAT_VERSION,
@@ -442,9 +487,11 @@ class StreamingCheckpointManager:
                 "sharding": coeffs.sharding_record() if sharded else None,
                 "env": _environment_record(device),
             }, indent=2, sort_keys=True)
+            faults.fault_point(_FP_SAVE_BEFORE_RENAME)
             if os.path.exists(final):
                 shutil.rmtree(final)
             os.rename(tmp, final)
+            faults.fault_point(_FP_SAVE_AFTER_RENAME)
             fsync_dir(self.spec.directory)
         telemetry.counter("checkpoint.saves").inc()
         self._apply_retention()
@@ -473,6 +520,7 @@ class StreamingCheckpointManager:
         coeffs = state.coefficients
         dim = int(coeffs.shape[1])
         with telemetry.span("checkpoint:save", next_chunk=state.next_chunk, coordinated=True):
+            faults.fault_point(_FP_SAVE_BEFORE_TMP)
             if pid == 0:
                 if os.path.exists(tmp):
                     # debris of a crashed earlier save of this chunk: moved
@@ -509,6 +557,7 @@ class StreamingCheckpointManager:
             if state.variances is not None:
                 variance_files = self._write_table(tmp, f"variances-p{pid:04d}",
                                                    state.variances)
+            faults.fault_point(_FP_PEER_MANIFEST)
             # this member's manifest lands last: it certifies its blocks
             atomic_write_json(os.path.join(tmp, self._peer_manifest_name(pid)), {
                 "process_id": pid, "num_processes": nproc,
@@ -563,6 +612,7 @@ class StreamingCheckpointManager:
                 return None
             first = coeffs.local_blocks()[0][1] if isinstance(coeffs, EntityShards) else coeffs
             device = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
+            faults.fault_point(_FP_SAVE_BEFORE_MANIFEST)
             # the quorum manifest: the only certification restore reads
             atomic_write_json(os.path.join(tmp, _MANIFEST_FILE), {
                 "format_version": _STREAM_FORMAT_VERSION,
@@ -578,9 +628,11 @@ class StreamingCheckpointManager:
                 "env": _environment_record(device),
                 "quorum": {"num_processes": nproc},
             }, indent=2, sort_keys=True)
+            faults.fault_point(_FP_SAVE_BEFORE_RENAME)
             if os.path.exists(final):
                 shutil.rmtree(final)
             os.rename(tmp, final)
+            faults.fault_point(_FP_SAVE_AFTER_RENAME)
             fsync_dir(self.spec.directory)
         telemetry.counter("checkpoint.saves").inc()
         self._apply_retention()
@@ -606,6 +658,7 @@ class StreamingCheckpointManager:
     def _read_manifest(path: str) -> dict:
         manifest_path = os.path.join(path, _MANIFEST_FILE)
         try:
+            faults.fault_point(_FP_MANIFEST_READ)
             with open(manifest_path) as f:
                 manifest = json.load(f)
         except FileNotFoundError:

@@ -30,8 +30,10 @@ saved when ``should_save(step)`` or when ``should_stop()`` turns true, which
 then raises ``TrainingInterrupted``. A checkpoint's history holds each entry
 without its ``results`` (tensors). An update whose coordinate leaves a
 ``last_tracker`` records its summary string as ``tracker`` unless it was
-rolled back. The reference's fault points are not ported (ROADMAP.md
-Queue 1 item 14c).
+rolled back. Two fault points: ``guard.solve_health`` (a ``nan`` rule
+marks a solve diverged, through ``faults.corrupt_health`` on the fetched
+health) and ``cd.step.boundary`` (after a step, before its checkpoint and
+stop handling).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
-from photon_ml_tpu_torch import kernels, telemetry
+from photon_ml_tpu_torch import faults, kernels, telemetry
 from photon_ml_tpu_torch.evaluation.evaluators import (
     EVALUATORS,
     better_than,
@@ -59,7 +61,15 @@ from photon_ml_tpu_torch.game.checkpoint import (
 )
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.game.models import GameModel
-from photon_ml_tpu_torch.optim.guard import GuardSpec, model_is_finite
+from photon_ml_tpu_torch.optim.guard import FP_SOLVE_HEALTH, GuardSpec, model_is_finite
+
+# between a completed (iteration, coordinate) step and its checkpoint and
+# stop handling: an injected raise here leaves the last step's checkpoint
+# intact and resumable
+_FP_STEP_BOUNDARY = faults.register_point(
+    "cd.step.boundary",
+    description="after a CD step completes, before checkpoint/stop logic",
+)
 
 logger = logging.getLogger("photon_ml_tpu_torch.game")
 
@@ -138,6 +148,9 @@ def _guarded_update(coord, model, residual, guard: GuardSpec, name: str):
         health = getattr(coord, "last_health", None)
         if health is None:
             health = model_is_finite(new_model)
+        # a `nan` rule marks this solve diverged: the damped retries and the
+        # rollback run on demand
+        health = faults.corrupt_health(FP_SOLVE_HEALTH, health)
         telemetry.counter("host_syncs").inc()
         if bool(health):
             return new_model, attempt, False
@@ -263,6 +276,7 @@ def run_coordinate_descent(
                 else:
                     consecutive_rollbacks[name] = 0
 
+                faults.fault_point(_FP_STEP_BOUNDARY)
                 stop = should_stop is not None and should_stop()
                 if checkpoint is not None and (stop or checkpoint.should_save(step)):
                     last_ckpt_path = checkpoint.save(CheckpointState(

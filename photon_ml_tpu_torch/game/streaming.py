@@ -30,9 +30,13 @@ only) and solves only its pieces: a ``LocalChunk`` carries just this
 process's ``process_slice`` of the chunk, so no member holds a whole chunk.
 The per-entity solves need no collective; the guard's verdict on a chunk,
 the end-of-fit summaries and ``to_numpy`` (``gather_to_host``) are the
-fleet's agreements. The fault-injection points of the chunk solve and
-boundary are ROADMAP.md Queue 1 item 14c; the guard's rollback and the feed
-retries do not need them.
+fleet's agreements.
+
+Fault points: ``streaming.solve.result`` poisons a piece's solved ``w``
+(``faults.corrupt_array``; a ``nan`` rule drives the guard's retries and
+rollback), ``streaming.chunk.boundary`` fires between a chunk's solve and
+its checkpoint and stop handling, and in a fleet of processes
+``parallel.collective.entry`` fires before each chunk solve.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch import telemetry
+from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.device import check_on, resolve_device
 from photon_ml_tpu_torch.ops.dense import DenseBatch
 from photon_ml_tpu_torch.ops.losses import get_loss
@@ -53,12 +57,25 @@ from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.factory import OptimizerConfig, build_objective, dispatch_solve
 from photon_ml_tpu_torch.optim.guard import GuardSpec, damped_objective, solve_health
 from photon_ml_tpu_torch.parallel import multihost
+from photon_ml_tpu_torch.parallel.distributed import FP_COLLECTIVE_ENTRY
 from photon_ml_tpu_torch.parallel.mesh import Mesh
 from photon_ml_tpu_torch.parallel.sharding import EntityShards, model_axis, place_entities
 
 Tensor = torch.Tensor
 
 logger = logging.getLogger("photon_ml_tpu_torch.game.streaming")
+
+# a chunk solve whose result a `nan` rule poisons (the guard's retries and
+# rollback on demand), and the chunk boundary where the checkpoint and the
+# stop handling run (an injected raise leaves a resumable directory)
+_FP_SOLVE_RESULT = faults.register_point(
+    "streaming.solve.result",
+    description="chunk solve output (nan action poisons w for the guard)",
+)
+_FP_CHUNK_BOUNDARY = faults.register_point(
+    "streaming.chunk.boundary",
+    description="between a chunk solve and its checkpoint/stop handling",
+)
 
 # DistributedOptimizationProblem.computeVariances adds this to the Hessian
 # diagonal before inverting (as the random-effect coordinate does)
@@ -483,16 +500,19 @@ class StreamingRandomEffectTrainer:
                 if attempt:
                     telemetry.counter("solves.retried").inc()
                     obj = damped_objective(obj, self._guard.damping_for(attempt))
+                if multihost.process_count() > 1:
+                    faults.fault_point(FP_COLLECTIVE_ENTRY)
                 results = [dispatch_solve(glm_adapter(obj, batch), w0, self.config, self._l1,
                                           cons, device=d)
                            for (batch, _), w0, cons, d in zip(fed, w0s, boxes, devices)]
+                ws = [faults.corrupt_array(_FP_SOLVE_RESULT, r.w) for r in results]
                 if self._guard is None:
                     break
                 # every piece's health on this process's first device, fetched
                 # once; across a fleet the chunk is healthy only where it is
                 # healthy on every member
                 telemetry.counter("host_syncs").inc()
-                healths = [solve_health(r, r.w).to(self.device) for r in results]
+                healths = [solve_health(r, w).to(self.device) for r, w in zip(results, ws)]
                 if not multihost.fleet_any(not bool(torch.stack(healths).all())):
                     break
                 telemetry.counter("solves.diverged").inc()
@@ -507,7 +527,7 @@ class StreamingRandomEffectTrainer:
                     break
                 attempt += 1
             if not rolled_back:
-                table.write_pieces(start, sizes[0], {j: r.w for j, r in zip(self._mine, results)})
+                table.write_pieces(start, sizes[0], dict(zip(self._mine, ws)))
         telemetry.counter("streaming_chunks").inc()
         telemetry.counter("streaming_entities").inc(sum(sizes))
         telemetry.counter("progress.rows").inc(sum(int(b.labels.numel()) for b, _ in fed))
@@ -517,8 +537,8 @@ class StreamingRandomEffectTrainer:
                 raise ValueError("compute_variances=True needs a variance_table to write into "
                                  "(train(..., variance_table=...))")
             variance_table.write_pieces(start, sizes[0], {
-                j: 1.0 / (obj.hessian_diagonal(r.w, batch) + _VARIANCE_EPS)
-                for j, r, (batch, _) in zip(self._mine, results, fed)})
+                j: 1.0 / (obj.hessian_diagonal(w, batch) + _VARIANCE_EPS)
+                for j, w, (batch, _) in zip(self._mine, ws, fed)})
 
         def joined(field):
             return torch.cat([field(r).to(self.device) for r in results])
@@ -541,6 +561,7 @@ class StreamingRandomEffectTrainer:
             TrainingInterrupted,
         )
 
+        faults.fault_point(_FP_CHUNK_BOUNDARY)
         stop = should_stop is not None and should_stop()
         path = None
         if checkpointer is not None and (stop or checkpointer.should_save(chunk_index)):

@@ -35,9 +35,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch import telemetry
+from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.ingest.errors import IngestStall, PipelineClosed
 from photon_ml_tpu_torch.ingest.planner import ChunkPlan
+
+_FP_RING_ACQUIRE = faults.register_point(
+    "ingest.ring.acquire",
+    description="staging-ring buffer acquisition by a decode worker",
+)
 
 
 def _host_tensor(n: int, dtype: torch.dtype, pin: bool) -> torch.Tensor:
@@ -163,6 +168,7 @@ class BufferRing:
         telemetry.gauge("ingest.staging_bytes").set(size)
 
     def acquire(self) -> StagingBuffer:
+        faults.fault_point(_FP_RING_ACQUIRE)
         with self._cv:
             waited = self._cv.wait_for(lambda: self._free or self._closed,
                                        timeout=self._stall_timeout_s)

@@ -26,11 +26,18 @@ from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 
-from photon_ml_tpu_torch import telemetry
+from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.data.index_map import INTERCEPT_KEY, feature_key
 from photon_ml_tpu_torch.ingest.buffers import DecodeScratch, ShardStage, StagingBuffer
 from photon_ml_tpu_torch.ingest.errors import ChunkDecodeError
 from photon_ml_tpu_torch.ingest.planner import ChunkPlan, FileMeta
+
+# the chunk file read's seam: an `io` rule raises an InjectedIOError (an
+# OSError), the transient flaky read the pipeline's per-chunk retry absorbs
+_FP_DECODE_READ = faults.register_point(
+    "ingest.decode.read",
+    description="chunk byte-range read (io action = transient flaky read)",
+)
 
 _INT32_MAX = 2**31 - 1
 
@@ -136,6 +143,7 @@ def build_decode_context(
 def read_range(plan: ChunkPlan) -> bytes:
     """The plan's byte range of its file (an ``OSError`` is a transient read
     failure the pipeline retries)."""
+    faults.fault_point(_FP_DECODE_READ)
     with open(plan.path, "rb") as f:
         f.seek(plan.byte_start)
         raw = f.read(plan.nbytes)

@@ -28,8 +28,10 @@ Telemetry: counters ``ingest.rows``, ``ingest.chunks``, ``ingest.stalls``,
 ``ingest.buffer_growths``, ``ingest.read_retries``, ``ingest.solve_waits``;
 gauges ``ingest.queue_depth``, ``ingest.staging_bytes``,
 ``ingest.rows_per_sec``; spans
-``ingest_decode`` and ``ingest_upload``. The reference's fault-injection
-points (ROADMAP.md Queue 1 item 14c) are not ported.
+``ingest_decode`` and ``ingest_upload``. Fault points:
+``ingest.decode.read`` (the byte-range read, inside the retry loop, so an
+``io`` rule is retried as a real flaky read is), ``ingest.ring.acquire`` (a
+worker taking a slot) and ``ingest.upload.chunk`` (the uploader's copy).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from typing import Mapping, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch import telemetry
+from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.ingest.buffers import BufferRing, StagingBuffer
 from photon_ml_tpu_torch.ingest.decode import (
@@ -61,6 +63,11 @@ from photon_ml_tpu_torch.ingest.errors import (
     PipelineClosed,
 )
 from photon_ml_tpu_torch.ingest.planner import ChunkPlan, plan_chunks
+
+_FP_UPLOAD_CHUNK = faults.register_point(
+    "ingest.upload.chunk",
+    description="uploader device_put of one device-ready chunk",
+)
 
 Tensor = torch.Tensor
 
@@ -442,6 +449,7 @@ class ChunkStream:
                                           f"chunk {plan.index} never arrived from decode")
                     buf = self._pending.pop(plan.index)
                 with telemetry.span("ingest_upload", chunk=plan.index, rows=plan.n_rows):
+                    faults.fault_point(_FP_UPLOAD_CHUNK)
                     chunk = self._upload_one(plan, buf)
                 self._ring.release(buf)
                 telemetry.counter("ingest.rows").inc(chunk.rows)

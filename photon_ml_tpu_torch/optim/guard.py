@@ -8,9 +8,11 @@ diverged solve); the coordinate-descent loop fetches that one boolean per
 solve. A diverged solve is retried with escalating extra L2 damping, which
 enters through the coordinate's ``extra_l2``; a solve that stays divergent
 is rolled back to the pre-solve model, and a coordinate rolled back
-``freeze_after`` consecutive times is frozen. The reference's
-fault-injection seam (``faults.corrupt_health``) is not ported
-(ROADMAP.md Queue 1 item 14).
+``freeze_after`` consecutive times is frozen. The fault point
+``guard.solve_health`` (``FP_SOLVE_HEALTH``) is the host loop's seam on the
+fetched health: coordinate descent passes the health through
+``faults.corrupt_health``, so a ``nan`` rule drives the retries and the
+rollback.
 
 Telemetry counters: ``solves.diverged``, ``solves.retried``,
 ``solves.rolled_back``, ``solves.frozen``.
@@ -22,7 +24,16 @@ import dataclasses
 
 import torch
 
+from photon_ml_tpu_torch import faults
+
 Tensor = torch.Tensor
+
+#: the solve health verdict's seam (a ``nan`` rule turns it diverged), applied
+#: by the host training loop, never inside a solve
+FP_SOLVE_HEALTH = faults.register_point(
+    "guard.solve_health",
+    description="host-side solve health verdict (nan action => diverged)",
+)
 
 # Relative slack of the loss-regression check: a warm-started re-solve may
 # end a rounding error above its initial value; only a real regression (or a

@@ -13,6 +13,10 @@ the partials on the first device in shard order.
   ``RowShard``), placed by ``put_sharded``;
 - ``distributed_value_and_grad`` and ``distributed_hessian_diagonal``: one
   evaluation (diagnostics, variances).
+
+The fault point ``parallel.collective.entry`` (distributed) fires at the
+entry of every mesh solve; the streamed random effect hits it too, before a
+fleet member's chunk solve.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from photon_ml_tpu_torch import faults
 from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import BoxConstraints, SolveResult
@@ -29,6 +34,12 @@ from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, RowShard
 from photon_ml_tpu_torch.parallel.sharding import as_sharded, data_axis
 
 Tensor = torch.Tensor
+
+FP_COLLECTIVE_ENTRY = faults.register_point(
+    "parallel.collective.entry", distributed=True,
+    description="host-side entry into a multi-process collective program "
+    "(gspmd/distributed solve dispatch, streamed chunk solves)",
+)
 
 
 def gspmd_solve(
@@ -49,6 +60,7 @@ def gspmd_solve(
     axis = axis or data_axis(mesh)
     if axis is None:
         raise ValueError(f"mesh {mesh.shape} has no batch/data axis to shard rows over")
+    faults.fault_point(FP_COLLECTIVE_ENTRY)
     sb = as_sharded(batch, mesh, axis)
     return solve(loss_name, sb, config, w0, constraints, factors=factors, shifts=shifts,
                  device=sb.device, extra_l2=extra_l2)

@@ -245,7 +245,9 @@ class FleetSpec:
     max_relaunches: int = 2
     timeout_s: float = 600.0
     #: a fault plan armed on exactly one member of the first generation, from
-    #: the boundary after chunk ``victim_arm_after_chunk``
+    #: the boundary after chunk ``victim_arm_after_chunk``; -1 arms it from
+    #: the process's start (``PHOTON_FAULT_PLAN``), for a seam hit before the
+    #: first chunk (``multihost.init``)
     victim_plan: Optional[dict] = None
     victim_process: int = 1
     victim_arm_after_chunk: int = 0
@@ -285,7 +287,8 @@ def _worker_env(spec: FleetSpec, proc: int, nproc: int, armed: bool) -> dict:
     env.pop("PHOTON_FAULT_PLAN", None)
     env.pop(ARMED_PLAN_ENV, None)
     if armed and spec.victim_plan is not None:
-        env[ARMED_PLAN_ENV] = json.dumps(spec.victim_plan)
+        key = "PHOTON_FAULT_PLAN" if spec.victim_arm_after_chunk < 0 else ARMED_PLAN_ENV
+        env[key] = json.dumps(spec.victim_plan)
     env["PHOTON_PROC_ID"] = str(proc)
     env["PHOTON_PROC_COUNT"] = str(nproc)
     root = _repo_root()

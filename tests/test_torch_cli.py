@@ -426,17 +426,21 @@ def test_sigterm_mid_fit_leaves_a_checkpoint_and_an_interrupted_summary(avro_dat
                                       # fails, as for sweep
                                       pytest.param("refresh", (FileNotFoundError, "x.json"),
                                                    id="refresh-14"),
-                                      ("pipeline", 14),
+                                      # pipeline is ported: its other required flags
+                                      # are what fails
+                                      pytest.param("pipeline", (SystemExit, "2"),
+                                                   id="pipeline-14"),
                                       # serve is ported: it takes no --config
                                       pytest.param("serve", (SystemExit, "2"), id="serve-14"),
-                                      ("report", 14), ("profile", 14),
+                                      pytest.param("report", "14d", id="report-14"),
+                                      pytest.param("profile", "14d", id="profile-14"),
                                       # the sweep subcommand and its registry flag are
                                       # ported: the missing config is what fails
                                       pytest.param("sweep", (FileNotFoundError, "x.json"),
                                                    id="sweep-11")])
 def test_unported_subcommands_raise(cmd, item):
     extra = ["--registry-dir", "r"] if cmd == "sweep" else []
-    exc, match = ((NotImplementedError, rf"'{cmd}'.*item {item}\)") if isinstance(item, int)
+    exc, match = ((NotImplementedError, rf"'{cmd}'.*item {item}\)") if isinstance(item, str)
                   else item)
     with pytest.raises(exc, match=match):
         t_cli.main([cmd, "--config", "x.json", *extra])
@@ -702,3 +706,110 @@ def test_train_distributed_across_two_processes_is_refused(avro_dataset, tmp_pat
         assert p.returncode == 0, err[-2000:]
         assert "REFUSED" in out and "does not span processes" in out, out + err[-2000:]
         assert "tools/fleet" in out
+
+
+# ---------------------------------------------------------------------------
+# cli pipeline (the freshness conductor's daemon)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pipeline_base(avro_dataset):
+    """A ``cli train`` base with a step checkpoint in each package; the
+    held-out file is the delta shard."""
+    tmp, train_path, holdout = avro_dataset
+    out = {"holdout": holdout}
+    for pkg, run in (("port", lambda c: t_train.run(c, device="cpu")), ("jax", j_train.run)):
+        ckpt = str(tmp / f"{pkg}-pipe-ckpt")
+        config = {**_config(train_path, str(tmp / f"{pkg}-pipe-model")),
+                  "checkpoint": {"dir": ckpt, "resume": False}}
+        run(dict(config))
+        cfg_path = tmp / f"{pkg}-pipe.json"
+        cfg_path.write_text(json.dumps(config))
+        out[pkg] = {"cfg": str(cfg_path), "ckpt": ckpt}
+    return out
+
+
+def _pipeline_argv(base, pkg, tmp_path, *extra):
+    return ["--config", base[pkg]["cfg"], "--base", base[pkg]["ckpt"],
+            "--delta-dir", str(tmp_path / "deltas"), "--registry-dir",
+            str(tmp_path / f"{pkg}-registry"), "--workdir", str(tmp_path / f"{pkg}-work"),
+            *extra]
+
+
+def test_pipeline_subcommand_runs_on_the_cpu(pipeline_base, tmp_path, capsys):
+    """``cli pipeline --device cpu`` for two cycles: the delta published as
+    v-00000001 through the gate, then an idle cycle, the status file
+    written; the JAX package's ``cli pipeline`` over the same files publishes a model
+    within the fit tolerance, and its summary's counts are the port's."""
+    import shutil
+
+    from photon_ml_tpu.cli.pipeline import main as j_pipeline
+
+    (tmp_path / "deltas").mkdir()
+    shutil.copy(pipeline_base["holdout"], tmp_path / "deltas" / "delta-0001.avro")
+    extra = ["--cycles", "2", "--interval-s", "0", "--bootstrap-samples", "8"]
+    status = tmp_path / "status.json"
+    rc = t_cli.main(["pipeline", *_pipeline_argv(pipeline_base, "port", tmp_path, *extra),
+                     "--status-file", str(status), "--device", "cpu"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0
+    assert j_pipeline(_pipeline_argv(pipeline_base, "jax", tmp_path, *extra)) == 0
+    j_summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("cycles", "idle_cycles", "published_versions", "quarantined_versions",
+                "escalations", "reconciliations", "interrupted"):
+        assert summary[key] == j_summary[key], key
+    assert summary["published_versions"] == ["v-00000001"] and summary["idle_cycles"] == 1
+    doc = json.loads(status.read_text())
+    assert doc["outcome"] == "completed"
+    assert doc["members"]["0"]["pipeline"]["served_version"] == "v-00000001"
+    port_load = lambda p: TM.load_game_model(p, device="cpu")  # noqa: E731
+    fe, re = _coefficients(str(tmp_path / "port-registry" / "v-00000001"), port_load)
+    j_fe, j_re = _coefficients(str(tmp_path / "jax-registry" / "v-00000001"),
+                               JM.load_game_model)
+    np.testing.assert_allclose(fe, j_fe, **FIT_TOL)
+    assert re.keys() == j_re.keys()
+    for k in re:
+        np.testing.assert_allclose(re[k], j_re[k], **FIT_TOL)
+
+
+@pytest.mark.parametrize("flag", ["--telemetry-out", "--report-out"])
+def test_pipeline_run_report_flags_are_refused_naming_14d(pipeline_base, tmp_path, flag):
+    with pytest.raises(NotImplementedError, match=rf"{flag}.*item 14d\)"):
+        t_cli.main(["pipeline", *_pipeline_argv(pipeline_base, "port", tmp_path),
+                    flag, str(tmp_path / "x"), "--device", "cpu"])
+
+
+def test_pipeline_sigterm_finishes_the_cycle_and_exits_75(pipeline_base, tmp_path):
+    """A daemon waiting between idle cycles takes SIGTERM: it stops, prints
+    an interrupted summary and exits 75 (the scheduler's restart code)."""
+    import signal
+    import time
+
+    (tmp_path / "deltas").mkdir()
+    status = tmp_path / "status.json"
+    argv = [sys.executable, "-m", "photon_ml_tpu_torch.cli", "pipeline",
+            *_pipeline_argv(pipeline_base, "port", tmp_path, "--interval-s", "60"),
+            "--status-file", str(status), "--device", "cpu"]
+    proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                if json.loads(status.read_text()).get("generation", 0) >= 1:
+                    break  # the first (idle) cycle is done: the daemon waits
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 75, err[-3000:]
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert summary["interrupted"] is True
+    assert summary["cycles"] == 1 and summary["idle_cycles"] == 1
+    assert json.loads(status.read_text())["outcome"] == "interrupted"

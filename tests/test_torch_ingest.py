@@ -12,8 +12,8 @@ JAX package's (tests/test_ingest.py, case for case), on the CPU:
   the layout's edge cases (the tile index itself is held against a plain
   construction in tests/test_torch_kernels.py);
 - the spec's validation, the resident budget, the typed stall, decode
-  errors, and transient reads retried (a monkeypatched reader raising
-  ``OSError``: the fault points are ROADMAP item 14c);
+  errors, and transient reads retried (an ``io`` rule at the read seam
+  ``ingest.decode.read``, as tests/test_ingest.py injects it);
 - ``double_buffered``'s order, lookahead bound and error position;
 - ``cli train`` with ``input.ingest``: bit for bit the port's in-core
   ``cli train``, and within the reference test's 1e-6 of the JAX fit.
@@ -23,7 +23,6 @@ No test depends on timing, or on telemetry another test left behind.
 
 import dataclasses
 import os
-import threading
 
 import numpy as np
 import pytest
@@ -36,7 +35,7 @@ from photon_ml_tpu.ingest import (
     plans_for_host as j_plans_for_host,
     read_game_dataset_streamed as j_read_streamed,
 )
-from photon_ml_tpu_torch import telemetry
+from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.data.avro import read_game_dataset_from_avro
 from photon_ml_tpu_torch.ingest import (
     ChunkDecodeError,
@@ -50,7 +49,6 @@ from photon_ml_tpu_torch.ingest import (
     plans_for_host,
     read_game_dataset_streamed,
 )
-from photon_ml_tpu_torch.ingest import decode as t_decode
 from photon_ml_tpu_torch.ingest.pipeline import ChunkCSR
 from photon_ml_tpu_torch.ops.csr import CSRBatch
 
@@ -510,60 +508,64 @@ def test_decode_error_names_file_and_chunk(tmp_path, rng):
                                    device=CPU)
 
 
-def _flaky_reader(monkeypatch, fail_calls):
-    """Make the chunk reader raise ``OSError`` on the given call numbers
-    (1-based; ``None`` = every call); returns the call counter."""
-    calls = {"n": 0}
-    real = t_decode.read_range
-    lock = threading.Lock()
-
-    def read(plan):
-        with lock:
-            calls["n"] += 1
-            n = calls["n"]
-        if fail_calls is None or n in fail_calls:
-            raise OSError(f"transient read failure (call {n})")
-        return real(plan)
-
-    monkeypatch.setattr(t_decode, "read_range", read)
-    return calls
-
-
-def test_transient_read_failure_is_retried_not_fatal(tmp_path, rng, monkeypatch):
+def test_transient_read_failure_is_retried_not_fatal(tmp_path, rng):
+    """A flaky read of one chunk's byte range (an ``io`` rule at the real
+    read seam, ``ingest.decode.read``) is retried: the dataset comes out bit
+    for bit, and the absorbed flake is counted."""
     paths = _write_shards(tmp_path, rng, n_rows=400, n_files=1)
     ds_ref, maps = read_game_dataset_from_avro(paths[0], id_columns=("userId",),
                                                return_index_maps=True, device=CPU)
     spec = IngestSpec(workers=1, chunk_rows=100, nnz_per_row_hint=8, read_retries=2,
                       retry_backoff_s=0.0)
-    _flaky_reader(monkeypatch, {2})
-    ds = read_game_dataset_streamed(paths, index_maps=maps, id_columns=("userId",),
-                                    spec=spec, device=CPU)
-    _assert_datasets_equal(ds, ds_ref)
-    assert telemetry.snapshot()["counters"]["ingest.read_retries"] == 1
+    telemetry.reset()
+    try:
+        faults.install_plan(faults.FaultPlan([
+            faults.FaultRule("ingest.decode.read", action="io", nth=2)]))
+        ds = read_game_dataset_streamed(paths, index_maps=maps, id_columns=("userId",),
+                                        spec=spec, device=CPU)
+        _assert_datasets_equal(ds, ds_ref)
+        counters = telemetry.snapshot()["counters"]
+        assert counters["ingest.read_retries"] == 1
+        assert counters["faults.injected"] == 1
+    finally:
+        faults.clear_plan()
+        telemetry.reset()
 
-    _flaky_reader(monkeypatch, {1})
-    stream = ChunkStream(paths, index_maps=maps, id_columns=("userId",), spec=spec,
-                         device=CPU)
-    for _ in stream:
-        pass
-    assert stream.stats().read_retries == 1
+    # the absorbed flake is on the stream's own stats too
+    try:
+        faults.install_plan(faults.FaultPlan([
+            faults.FaultRule("ingest.decode.read", action="io", nth=1)]))
+        stream = ChunkStream(paths, index_maps=maps, id_columns=("userId",), spec=spec,
+                             device=CPU)
+        for _ in stream:
+            pass
+        assert stream.stats().read_retries == 1
+    finally:
+        faults.clear_plan()
+        telemetry.reset()
 
 
-def test_read_retries_exhausted_propagates_and_deterministic_skips_retry(
-        tmp_path, rng, monkeypatch):
+def test_read_retries_exhausted_propagates_and_deterministic_skips_retry(tmp_path, rng):
+    """A read that fails at every attempt propagates after the retry budget;
+    a deterministic ``ChunkDecodeError`` never takes a retry."""
     paths = _write_shards(tmp_path, rng, n_rows=200, n_files=1)
     _, maps = read_game_dataset_from_avro(paths[0], id_columns=("userId",),
                                           return_index_maps=True, device=CPU)
     spec = IngestSpec(workers=1, chunk_rows=100, nnz_per_row_hint=8, read_retries=1,
                       retry_backoff_s=0.0)
-    with monkeypatch.context() as m:
-        calls = _flaky_reader(m, None)
-        with pytest.raises(OSError, match="transient read failure"):
+    telemetry.reset()
+    try:
+        faults.install_plan(faults.FaultPlan([
+            faults.FaultRule("ingest.decode.read", action="io", probability=1.0)]))
+        with pytest.raises(OSError, match="ingest.decode.read"):
             list(ChunkStream(paths, index_maps=maps, id_columns=("userId",), spec=spec,
                              device=CPU))
         # attempts = retries + 1 per chunk; only the retry is counted
-        assert telemetry.snapshot()["counters"]["ingest.read_retries"] >= 1
-        assert calls["n"] >= 2
+        counters = telemetry.snapshot()["counters"]
+        assert counters["ingest.read_retries"] >= 1
+        assert counters["faults.injected.ingest.decode.read"] >= 2
+    finally:
+        faults.clear_plan()
     telemetry.reset()
     with pytest.raises(ChunkDecodeError):
         read_game_dataset_streamed(paths, index_maps=maps, id_columns=("memberId",),

@@ -14,11 +14,11 @@ lanes gathered out of a full draw give the full bootstrap's summaries on
 those rows, and the JAX package's within atol 1e-3, the bootstrap tests'
 tolerance) and ``cli refresh`` through the gate (a clean delta published
 with error bars, a label-shuffled one quarantined, a healthy challenger
-published; each decision the JAX package's on the same files).
-
-Left out, with its subject elsewhere:
-``test_conductor_cycle_quarantine_and_quality_report`` (the freshness
-conductor, ROADMAP Queue 1 item 14c).
+published; each decision the JAX package's on the same files), and the
+freshness conductor's cycles through the gate
+(``test_conductor_cycle_quarantine_and_quality_report``, in both packages;
+its RunReport "Quality" rendering is ROADMAP Queue 1 item 14d, so the
+counters it reads are asserted instead).
 """
 
 import json
@@ -589,3 +589,85 @@ def test_cli_refresh_quarantines_label_shuffled_delta(quality_cli_base):
         for key in ("lanes_solved", "lanes_skipped", "bucket_solves", "buckets_skipped",
                     "new_entities"):
             assert f[key] == j[key], key
+
+
+def test_conductor_cycle_quarantine_and_quality_report(quality_cli_base, tmp_path):
+    """A conductor run over the same world, in both packages: cycle 1
+    publishes the champion with error bars, cycle 2's label-shuffled delta
+    is quarantined (the champion keeps serving and the cursor moves on),
+    cycle 3 publishes a healthy challenger. The counters the reference's
+    RunReport "Quality" section renders (ROADMAP.md Queue 1 item 14d) are
+    asserted in ``telemetry.snapshot()``."""
+    import shutil
+
+    from photon_ml_tpu.pipeline import FreshnessPipeline as JPipeline
+    from photon_ml_tpu.pipeline import PipelineSpec as JSpec
+    from photon_ml_tpu_torch.pipeline import FreshnessPipeline, PipelineSpec
+
+    telemetry.reset()
+    drift.reset()
+    base = quality_cli_base
+    pipes = {}
+    for pkg in ("t", "j"):
+        with open(base[pkg]["cfg_path"]) as fh:
+            config = json.load(fh)
+        config.pop("output_dir", None)
+        config.pop("checkpoint", None)
+        delta_dir = tmp_path / f"{pkg}-deltas"
+        delta_dir.mkdir()
+        kw = dict(config=config, delta_dir=str(delta_dir), base_dir=base[pkg]["ckpt"],
+                  registry_dir=str(tmp_path / f"{pkg}-registry"),
+                  workdir=str(tmp_path / f"{pkg}-work"), interval_s=0.01,
+                  escalate_touched_fraction=1.1, bootstrap_samples=16)
+        pipes[pkg] = (FreshnessPipeline(PipelineSpec(**kw, device="cpu")) if pkg == "t"
+                      else JPipeline(JSpec(**kw)))
+    pipe, jpipe = pipes["t"], pipes["j"]
+    reg = pipe.spec.registry_dir
+
+    def cycle(name, shard):
+        for p in (pipe, jpipe):
+            shutil.copy(base[shard], os.path.join(p.spec.delta_dir, name))
+        return pipe.run_cycle(), jpipe.run_cycle()
+
+    try:
+        e1, j1 = cycle("delta-0001.avro", "clean_delta")
+        assert e1["published_version"] == "v-00000001" == j1["published_version"]
+        with open(os.path.join(reg, "v-00000001", "model-metadata.json")) as fh:
+            q1 = json.load(fh)["extra"]["quality"]
+        assert q1["gate"]["decision"] == "no_champion"
+        assert q1["auc_ci_low"] <= q1["auc"] <= q1["auc_ci_high"]
+        assert q1["bootstrap"]["num_samples"] == 16
+
+        e2, j2 = cycle("delta-0002.avro", "bad_delta")
+        assert e2["published_version"] is None is j2["published_version"]
+        assert e2["quarantined_version"] == "quarantined-v-00000002" == j2["quarantined_version"]
+        assert e2["quality_gate"]["decision"] == "quarantined"
+        # the champion keeps serving through the refusal
+        assert pipe._registry.current_version == "v-00000001"
+        # the cursor moved on: the refused delta is not retried
+        assert pipe.run_cycle()["idle"] is True
+
+        # the degraded shard is cleaned out; the next healthy candidate
+        # publishes
+        for p in (pipe, jpipe):
+            os.remove(os.path.join(p.spec.delta_dir, "delta-0002.avro"))
+        e4, j4 = cycle("delta-0003.avro", "clean_delta2")
+        assert e4["published_version"] == "v-00000002" == j4["published_version"]
+        assert pipe._registry.current_version == "v-00000002"
+        with open(os.path.join(reg, "v-00000002", "model-metadata.json")) as fh:
+            g4 = json.load(fh)["extra"]["quality"]["gate"]
+        assert g4["decision"] == "published"
+        assert g4["champion_version"] == "v-00000001"
+
+        s = pipe.summary()
+        assert s["published_versions"] == ["v-00000001", "v-00000002"]
+        assert s["quarantined_versions"] == ["quarantined-v-00000002"]
+        c = telemetry.snapshot()["counters"]
+        assert c["quality.gate_quarantined"] == 1
+        assert c["quality.gate_published"] == 1
+        assert c["pipeline.quarantines"] == 1
+        assert c["quality.stats_computed"] == 3
+    finally:
+        pipe._close("completed")
+        jpipe._close("completed")
+    telemetry.reset()

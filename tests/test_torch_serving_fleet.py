@@ -935,3 +935,52 @@ def test_run_serving_fleet_kill_relaunch_and_resize(published, full_engine, tmp_
     armed = sorted(name for name in os.listdir(tmp_path) if name.endswith(".err")
                    and "FAULT INJECTION ARMED" in (tmp_path / name).read_text())
     assert armed == ["member2-e0-0.err"]
+
+
+# ---------------------------------------------------------------------------
+# the serving chaos matrix (photon_ml_tpu_torch.tools.chaos)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.chaos_serving
+def test_serving_chaos_tier1_slice(tmp_path):
+    """The in-process seam rows of the serving chaos matrix: a slice load
+    failing with an injected OSError and served on the retry, a fan-out
+    failure shed to fixed-effect-only and back at parity, a failed
+    ownership swap leaving the old view serving. ``flight_dump_kill`` is
+    item 14d's: reported as not ported. The hard kill under traffic runs in
+    the full matrix (slow)."""
+    import warnings
+
+    from photon_ml_tpu_torch.tools import chaos
+
+    budget = float(os.environ.get("PHOTON_CHAOS_BUDGET_S", "300"))
+    report = chaos.run_serving_matrix(
+        str(tmp_path), rows=["member_load_io", "route_fanout_io", "resize_swap",
+                             "flight_dump_kill"], budget_s=budget, device="cpu")
+    if report["skipped"]:
+        warnings.warn("chaos budget truncated the serving matrix; uncovered this run: "
+                      f"{report['skipped']}", stacklevel=1)
+        return
+    assert report["ok"], json.dumps(report, indent=2, default=str)
+    assert sorted(report["results"]) == ["member_load_io", "resize_swap", "route_fanout_io"]
+    assert report["results"]["route_fanout_io"]["degraded_scores"] > 0
+    assert report["results"]["resize_swap"]["swap_failures"] == 1
+    assert "flight_dump_kill" not in report["results"]
+    assert report["not_ported"] == {"flight_dump_kill": "ROADMAP.md Queue 1 item 14d"}
+
+
+@pytest.mark.slow
+@pytest.mark.chaos_serving
+def test_serving_chaos_full_matrix(tmp_path):
+    """Every serving chaos row the port runs, the 3-process hard kill under
+    traffic included."""
+    from photon_ml_tpu_torch.tools import chaos
+
+    report = chaos.run_serving_matrix(str(tmp_path), device="cpu")
+    assert not report["skipped"]
+    assert report["ok"], json.dumps(report, indent=2, default=str)
+    kill = report["results"]["member_hard_kill"]
+    assert kill["failures"] == 0
+    assert kill["degraded_scores"] > 0
+    assert kill["kill"]["recovery_s"] <= chaos.KILL_RECOVERY_BUDGET_S

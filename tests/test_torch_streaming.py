@@ -10,8 +10,8 @@ tests/test_torch_mesh.py holds), on the CPU:
   per-entity solves (rtol 5e-3, atol 5e-4), the iterations per entity
   within the 4 steps of a float32 plateau;
 - warm starts, box constraints, variances, the tracker, the guard's
-  rollback of a NaN chunk (poisoned data: the fault points are ROADMAP item
-  14c), feed retries, the prefetch arms and host against device chunks bit
+  rollback of a NaN chunk (poisoned data; the ``streaming.solve.result``
+  seam drives it in tests/test_torch_faults.py), feed retries, the prefetch arms and host against device chunks bit
   for bit;
 - checkpoints at chunk boundaries, SIGTERM, and resume bit for bit; a
   streaming checkpoint written by each package restored by the other;
