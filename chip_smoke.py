@@ -308,6 +308,7 @@ NNZ_PER_ROW = 20
 GAME_USERS = 100_000  # bench_game.py config #4: users, RE features, CD iterations
 GAME_RE_FEATURES = 10
 GAME_CD_ITERATIONS = 2
+CLI_HEARTBEAT_S = 5.0  # path 10's `cli train --heartbeat-every`
 RE_CD_ITERATIONS = 1  # path 9's CD iterations (2 until cut for the script's time limit)
 SWEEP_GAME_CD_ITERATIONS = 1  # path 12b's CD iterations (2 until cut, as path 9's)
 N_HELDOUT = 100_000  # path 8's held-out rows, drawn after config #1's
@@ -2398,6 +2399,137 @@ def _same_or_both_nan(a: float, b: float) -> bool:
     return a == b or (a != a and b != b)
 
 
+def check_cli_telemetry(stats: dict, sinks: dict, summary: dict, traced_fit, ds,
+                        config: dict, game: dict, work: str, card: str) -> list[str]:
+    """Path 10's run account: ``cli train`` ran with ``--trace-out``,
+    ``--telemetry-out``, ``--report-out`` and a 5 s heartbeat. Fails unless
+    the trace holds ``fit > cd_iteration > coordinate:<name>`` for every
+    coordinate and its Perfetto file loads, the report's coordinate table
+    (from the newest checkpoint manifest) matches the fit's history, its
+    memory section has a peak for every coordinate phase read on ``cuda:0``
+    (the gauge's limit is cuda:0's memory), a heartbeat line was written,
+    ``cli report`` renders the artifacts as the run did and compares to its
+    own baseline with exit 0, and the same fit with telemetry off (path 6's
+    config on the same dataset, its own checkpoint) makes the same host
+    syncs and kernel launches per update. Prints the figures: the traced
+    fit's seconds beside the untraced one's and path 6's, span and dropped
+    counts, the report's render seconds."""
+    import torch
+
+    from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.cli.report import main as report_main
+    from photon_ml_tpu_torch.cli.train import _parse_checkpoint_spec, _parse_guard_spec
+    from photon_ml_tpu_torch.config import parse_game_config
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.telemetry.report import RunReport
+
+    bad = []
+    dropped = telemetry.trace.TRACER.dropped_spans
+    telemetry.reset()  # closes the sink: the fit below is untraced
+    spans = [json.loads(x) for x in open(sinks["trace.jsonl"]) if x.strip()]
+    spans = [r for r in spans if r.get("type") == "span"]
+    by_id = {r["id"]: r for r in spans}
+
+    def path_of(r):
+        names = []
+        while r is not None:
+            names.append(r["name"])
+            r = by_id.get(r["parent"])
+        return " > ".join(reversed(names))
+
+    coords = list(config["coordinates"])
+    paths = {path_of(r) for r in spans if r["name"].startswith("coordinate:")}
+    traced = {c: any(p.endswith(f"fit > cd_iteration > coordinate:{c}") for p in paths)
+              for c in coords}
+    try:
+        with open(telemetry.perfetto_path(sinks["trace.jsonl"])) as fh:
+            perfetto_events = len(json.load(fh)["traceEvents"])
+    except (OSError, ValueError, KeyError) as e:
+        perfetto_events = None
+        bad.append(f"the Perfetto trace does not load: {e}")
+    t0 = time.perf_counter()
+    report = RunReport.load(trace=sinks["trace.jsonl"], telemetry=sinks["metrics.jsonl"],
+                            checkpoint_dir=config["checkpoint"]["dir"])
+    md = report.to_markdown()
+    render_s = time.perf_counter() - t0
+    table = {c["coordinate"]: (c["steps"], c["solve_retries"], c["rollbacks"], c["frozen"])
+             for c in report.coordinate_summary()}
+    history = {c: (sum(e["coordinate"] == c for e in summary["history"]),
+                   sum(int(e.get("solve_retries", 0)) for e in summary["history"]
+                       if e["coordinate"] == c),
+                   sum(bool(e.get("rolled_back")) for e in summary["history"]
+                       if e["coordinate"] == c), False) for c in coords}
+    gauges = report.snapshot.get("gauges", {})
+    peaks = {c: gauges.get(f"memory.phase.coordinate:{c}.peak_bytes") for c in coords}
+    limit = torch.cuda.get_device_properties(0).total_memory
+    memory_ok = (all(v is not None and v > 0 for v in peaks.values())
+                 and gauges.get("memory.bytes_limit") == limit and "## HBM / memory" in md
+                 and all(f"| `coordinate:{c}` |" in md for c in coords))
+    beats = len(report.heartbeats)
+    out_md = os.path.join(work, "train.again.md")
+    rc = report_main(["--trace", sinks["trace.jsonl"], "--telemetry", sinks["metrics.jsonl"],
+                      "--checkpoint-dir", config["checkpoint"]["dir"], "--out", out_md,
+                      "--json", os.path.join(work, "train.again.json")])
+    with open(out_md) as fh, open(sinks["report.md"]) as fh2:
+        same_md = fh.read() == fh2.read() == md
+    rc_compare = report_main(["--trace", sinks["trace.jsonl"], "--telemetry",
+                              sinks["metrics.jsonl"], "--out", out_md, "--compare",
+                              os.path.join(work, "train.again.json"), "--fail-on-regress"])
+
+    # the same fit with telemetry off: no sink, no heartbeat, no report
+    off_cfg = {**config, "checkpoint": {**config["checkpoint"],
+                                        "dir": os.path.join(work, "ckpt-untraced")}}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    untraced = GameEstimator(parse_game_config(off_cfg)).fit(
+        ds, guard=_parse_guard_spec(off_cfg), checkpoint_spec=_parse_checkpoint_spec(off_cfg),
+        device=ds.device)
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    telemetry.reset()
+
+    def per_update(history):
+        return [(e["coordinate"], e["host_syncs"], e["launches"]) for e in history]
+
+    same_syncs = per_update(traced_fit.history) == per_update(untraced.history)
+    stats.update(trace_spans=len(spans), dropped_spans=dropped, perfetto_events=perfetto_events,
+                 report_render_s=render_s, heartbeat_lines=beats, coordinate_table=table,
+                 phase_peaks=peaks, traced_fit_s=stats["fit_s"], untraced_fit_s=off_s,
+                 path6_fit_s=game["elapsed_s"], path6_first_fit_s=game["first_fit_s"],
+                 traced_host_syncs=sum(e["host_syncs"] for e in traced_fit.history),
+                 untraced_host_syncs=sum(e["host_syncs"] for e in untraced.history))
+    print(f"path 10 telemetry: trace_spans={len(spans)} dropped_spans={dropped} "
+          f"perfetto_events={perfetto_events} coordinate_paths={json.dumps(traced)} "
+          f"report_render_s={render_s:.4f} heartbeat_lines={beats} "
+          f"coordinate_table={json.dumps(table)} history={json.dumps(history)} "
+          f"phase_peaks={json.dumps(peaks)} bytes_limit={gauges.get('memory.bytes_limit')} "
+          f"cuda0_total={limit} cli_report_rc={rc} same_markdown={same_md} "
+          f"compare_rc={rc_compare} card={card}", flush=True)
+    print(f"path 10 traced vs untraced: traced_fit_s={stats['fit_s']:.4f} "
+          f"untraced_fit_s={off_s:.4f} path6_fit_wall_s={game['elapsed_s']:.4f} "
+          f"path6_first_fit_s={game['first_fit_s']:.4f} "
+          f"host_syncs={stats['traced_host_syncs']}/{stats['untraced_host_syncs']} "
+          f"same_syncs_and_launches_per_update={same_syncs} card={card}", flush=True)
+    if not all(traced.values()):
+        bad.append(f"the trace lacks fit > cd_iteration > coordinate:<name>: {traced}")
+    if table != history:
+        bad.append(f"the report's coordinate table {table} differs from the history {history}")
+    if not memory_ok:
+        bad.append(f"the memory section lacks a cuda:0 peak per coordinate: {peaks}, limit "
+                   f"{gauges.get('memory.bytes_limit')} vs {limit}")
+    if beats < 1:
+        bad.append("no heartbeat line was written")
+    if rc != 0 or not same_md or rc_compare != 0:
+        bad.append(f"cli report: rc {rc}, same markdown {same_md}, compare rc {rc_compare}")
+    if not same_syncs:
+        bad.append(f"telemetry changed the host syncs or launches per update: "
+                   f"{per_update(traced_fit.history)} vs {per_update(untraced.history)}")
+    del untraced
+    torch.cuda.empty_cache()
+    return bad
+
+
 def run_cli_path(seed: int, card: str, work: str, game: dict,
                  glm_ref: dict) -> tuple[dict, dict, dict]:
     """Path 10: the CLI pipeline at config #4's full width, as a user runs it.
@@ -2415,7 +2547,9 @@ def run_cli_path(seed: int, card: str, work: str, game: dict,
     statistics were written, ``csr_margins`` and ``csc_scatter`` launched,
     the scores read back from the scoring output equal the in-process
     model's plus offsets bit for bit (and the AUC), and ``cli glm``'s stages,
-    best lambda, metrics and means equal path 8's bit for bit. Returns, beside
+    best lambda, metrics and means equal path 8's bit for bit. ``cli train``
+    runs with a trace, a telemetry sink, a report and a 5 s heartbeat, held
+    by ``check_cli_telemetry``. Returns, beside
     the launches and the numbers, what path 13 is held against: the input
     spec and config, the in-core dataset, the fitted model and the summary."""
     import torch
@@ -2512,8 +2646,13 @@ def run_cli_path(seed: int, card: str, work: str, game: dict,
     telemetry.reset()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
+    sinks = {k: os.path.join(work, f"train.{k}") for k in ("trace.jsonl", "metrics.jsonl",
+                                                           "report.md")}
     try:
-        summary = _run_cli_in_process(["train", "--config", train_cfg])
+        summary = _run_cli_in_process([
+            "train", "--config", train_cfg, "--trace-out", sinks["trace.jsonl"],
+            "--telemetry-out", sinks["metrics.jsonl"], "--report-out", sinks["report.md"],
+            "--heartbeat-every", str(CLI_HEARTBEAT_S)])
     finally:
         cli_train.read_input, GameEstimator.fit = read_input, fit
         for s, h in handlers.items():
@@ -2601,6 +2740,8 @@ def run_cli_path(seed: int, card: str, work: str, game: dict,
     missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
     if missing:
         bad.append(f"kernels not launched in cli train: {missing}")
+    bad += check_cli_telemetry(stats, sinks, summary, seen["fit"], ds, config, game, work,
+                               card)
 
     # 4. cli score, a subprocess on the card by default, on the training files
     score_cfg = os.path.join(work, "score.json")
@@ -5792,6 +5933,59 @@ _PIPELINE_RUNNER = (
     "sys.exit(rc)\n")
 
 
+def check_pipeline_report(stats: dict, telemetry_out: str, report_out: str, summary: dict,
+                          doc: dict, work: str, card: str) -> list[str]:
+    """Path 19's run account: the daemon's ``--report-out`` was written, and
+    ``cli report --telemetry`` of its ``--telemetry-out`` renders the
+    Pipeline, Freshness and Quality sections, whose numbers must be the
+    status file's and the summary's: the cycles, idle cycles, publishes and
+    escalations, and the quarantines (the conductor's, and the gate's
+    decisions)."""
+    from photon_ml_tpu_torch.cli.report import main as report_main
+    from photon_ml_tpu_torch.telemetry.report import RunReport
+
+    bad = []
+    out_md = os.path.join(work, "pipeline-b.cli-report.md")
+    t0 = time.perf_counter()
+    rc = report_main(["--telemetry", telemetry_out, "--out", out_md])
+    render_s = time.perf_counter() - t0
+    with open(out_md) as fh:
+        md = fh.read()
+    report = RunReport.load(telemetry=telemetry_out)
+    pipe = report.pipeline_summary() or {}
+    quality = report.quality_summary() or {}
+    fresh = report.freshness_summary() or {}
+    member = doc.get("members", {}).get("0", {}).get("pipeline", {})
+    quarantined = len(summary.get("quarantined_versions") or [])
+    published = len(summary.get("published_versions") or [])
+    got = {"cycles": pipe.get("cycles"), "idle_cycles": pipe.get("idle_cycles", 0),
+           "publishes": pipe.get("publishes", 0), "escalations": pipe.get("escalations", 0),
+           "quarantines": quality.get("pipeline_quarantines", 0),
+           "gate_quarantined": quality.get("gate_quarantined", 0),
+           "gate_published": (quality.get("gate_published", 0)
+                              + quality.get("gate_no_champion", 0))}
+    want = {"cycles": doc.get("generation"), "idle_cycles": member.get("idle_cycles"),
+            "publishes": member.get("publishes"), "escalations": member.get("escalations"),
+            "quarantines": quarantined, "gate_quarantined": quarantined,
+            "gate_published": published}
+    sections = {h: h in md for h in ("## Pipeline", "## Freshness", "## Quality")}
+    own = os.path.exists(report_out) and "## Pipeline" in open(report_out).read()
+    stats["report"] = {"rc": rc, "render_s": render_s, "got": got, "want": want,
+                       "sections": sections, "daemon_report": own,
+                       "lanes_solved": fresh.get("lanes_solved")}
+    print(f"path 19 report: cli_report_rc={rc} render_s={render_s:.4f} "
+          f"sections={json.dumps(sections)} report={json.dumps(got)} "
+          f"status_and_summary={json.dumps(want)} daemon_report_out={own} "
+          f"lanes_solved={fresh.get('lanes_solved')} card={card}", flush=True)
+    if rc != 0 or not all(sections.values()) or not own:
+        bad.append(f"the pipeline report: rc {rc}, sections {sections}, daemon report {own}")
+    if got != want:
+        bad.append(f"the pipeline report {got} differs from the status file and summary {want}")
+    if not fresh.get("lanes_solved"):
+        bad.append(f"the Freshness section has no solved lanes: {fresh}")
+    return bad
+
+
 def run_pipeline_cli_path(seed: int, card: str, work: str,
                           device: str = "cuda") -> tuple[dict, dict]:
     """Path 19: ``cli pipeline`` (the freshness conductor's daemon, a
@@ -5814,7 +6008,8 @@ def run_pipeline_cli_path(seed: int, card: str, work: str,
     cycle 4 escalate to a full retrain over 1,150,000 rows, decided by the
     gate against the champion. ``ckpt`` stays byte-identical, the daemon
     exits 0 and its status file shows the newest published version served
-    and the counters."""
+    and the counters. The daemon writes ``--telemetry-out`` and
+    ``--report-out``, held by ``check_pipeline_report``."""
     import shutil
     import subprocess
 
@@ -5879,8 +6074,11 @@ def run_pipeline_cli_path(seed: int, card: str, work: str,
     reg_b = os.path.join(work, "pipeline-b-registry")
     status = os.path.join(work, "pipeline-status.json")
     t_launch = time.perf_counter()
+    tele_b = os.path.join(work, "pipeline-b.metrics.jsonl")
+    report_b = os.path.join(work, "pipeline-b.report.md")
     proc, wdir, out_b, err_b = daemon("b", reg_b, "--cycles", "4", "--interval-s", "1",
-                                      "--escalate-after-cycles", "3", "--status-file", status)
+                                      "--escalate-after-cycles", "3", "--status-file", status,
+                                      "--telemetry-out", tele_b, "--report-out", report_b)
     try:
         outside = os.path.join(work, "delta19-staged")
         os.makedirs(outside)
@@ -6119,6 +6317,7 @@ def run_pipeline_cli_path(seed: int, card: str, work: str,
     for name in ("csr_margins", "csc_scatter"):
         if not launches.get(name):
             bad.append(f"the daemon launched no {name}: {launches}")
+    bad += check_pipeline_report(stats, tele_b, report_b, summary, doc, work, card)
     stats["path_s"] = time.perf_counter() - t_path
     print(f"path 19: startup_s={stats['startup_s']:.4f} daemon_s={stats['daemon_s']:.4f} "
           f"(a)_s={stats['a']['seconds']:.4f} shards_write_s={stats['shards_write_s']:.4f} "

@@ -1,15 +1,15 @@
-"""CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|refresh|pipeline|sweep|score|serve|glm|index} ...
+"""CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|refresh|pipeline|sweep|score|serve|glm|index|report} ...
 
 Counterpart of ``photon_ml_tpu/cli/__main__.py``, with the same usage text
-and dispatch. ``report`` and ``profile`` raise ``NotImplementedError``
-(ROADMAP.md Queue 1 item 14d). ``train``, ``refresh``, ``pipeline``,
+and dispatch. ``profile`` raises ``NotImplementedError`` (ROADMAP.md Queue 1
+item 14d (iii)). ``train``, ``refresh``, ``pipeline``,
 ``sweep``, ``score``, ``serve`` and ``glm`` take ``--device`` (default
 ``cuda``).
 """
 
 import sys
 
-_NOT_PORTED = {"report": "14d", "profile": "14d"}
+_NOT_PORTED = {"profile": "14d (iii)"}
 
 
 def main(argv=None) -> int:
@@ -21,7 +21,9 @@ def main(argv=None) -> int:
               "[--device cuda|cpu]   incremental warm-start retrain")
         print("  pipeline --config <json> --base <dir> --delta-dir <dir> --registry-dir <dir> "
               "--workdir <dir> [--device cuda|cpu]   freshness conductor daemon")
-        print("  report, profile   not ported (ROADMAP.md Queue 1 item 14d)")
+        print("  report --trace <jsonl> --telemetry <jsonl> [--checkpoint-dir <dir>] "
+              "[--compare <json>]   run report")
+        print("  profile   not ported (ROADMAP.md Queue 1 item 14d (iii))")
         print("  sweep --config <json> [--sweep lambda=...] [--device cuda|cpu]   multi-lambda "
               "sweep + selection")
         print("  score --model-dir <dir> --config <json> [--output <avro>] [--device cuda|cpu]")
@@ -63,6 +65,10 @@ def main(argv=None) -> int:
         from photon_ml_tpu_torch.cli.glm import main as glm_main
 
         return glm_main(rest)
+    if cmd == "report":
+        from photon_ml_tpu_torch.cli.report import main as report_main
+
+        return report_main(rest)
     if cmd == "index":
         from photon_ml_tpu_torch.cli.index import main as index_main
 

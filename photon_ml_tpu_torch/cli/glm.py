@@ -33,8 +33,10 @@ Config:
       "output_dir": "out/"
     }
 
-``trace_out``, ``telemetry_out`` and their flags raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 14).
+``trace_out`` (``--trace-out``) streams the stages' spans to a JSONL file
+with a sibling ``.perfetto.json`` Chrome trace; ``telemetry_out``
+(``--telemetry-out``) appends the final metrics snapshot, as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.cli.train import _refuse, read_input
+from photon_ml_tpu_torch.cli.train import read_input
 from photon_ml_tpu_torch.utils import logger, setup_logging, timed
 from photon_ml_tpu_torch.utils.events import (
     EventEmitter,
@@ -265,10 +267,10 @@ class GLMDriver:
         from photon_ml_tpu_torch import telemetry
         from photon_ml_tpu_torch.utils.timing import Timer
 
-        for key in ("trace_out", "telemetry_out"):
-            if self.config.get(key):
-                _refuse(f"the glm config key '{key}'", 14)
         t = Timer().start()
+        trace_out = self.config.get("trace_out")
+        if trace_out:
+            telemetry.configure(trace_out=trace_out)
         self.events.send(SetupEvent(config=self.config))
 
         self._assert_stage(DriverStage.INIT)
@@ -302,6 +304,11 @@ class GLMDriver:
         self.events.send(TrainingFinishEvent(best_metric=self.best[1] if self.best else None,
                                              seconds=t.stop(),
                                              metrics_snapshot=telemetry.snapshot()))
+        telemetry_out = self.config.get("telemetry_out")
+        if telemetry_out:
+            telemetry.flush_metrics(telemetry_out)
+        if trace_out:
+            telemetry.export_chrome_trace(trace_out, telemetry.perfetto_path(trace_out))
         return {
             "stages": [s.name for s in self.stage_history],
             "lambdas": [e.reg_weight for e in self.sweep],
@@ -321,16 +328,21 @@ def main(argv=None) -> int:
     parser.add_argument("--output-dir", help="override config output_dir")
     parser.add_argument("--device", default="cuda",
                         help="the device that trains and validates (default cuda)")
-    parser.add_argument("--trace-out", help=argparse.SUPPRESS)
-    parser.add_argument("--telemetry-out", help=argparse.SUPPRESS)
+    parser.add_argument("--trace-out",
+                        help="write telemetry spans to this JSONL file (+ a sibling "
+                        ".perfetto.json Chrome trace); overrides config trace_out")
+    parser.add_argument("--telemetry-out",
+                        help="append the final metrics snapshot to this JSONL file; overrides "
+                        "config telemetry_out")
     args = parser.parse_args(argv)
-    for flag in ("trace_out", "telemetry_out"):
-        if getattr(args, flag):
-            _refuse(f"the glm flag --{flag.replace('_', '-')}", 14)
 
     setup_logging()
     with open(args.config) as f:
         config = json.load(f)
+    if args.trace_out:
+        config["trace_out"] = args.trace_out
+    if args.telemetry_out:
+        config["telemetry_out"] = args.telemetry_out
     summary = GLMDriver(config, output_dir=args.output_dir, device=args.device).run()
     print(json.dumps(summary, default=float))
     return 0

@@ -21,8 +21,10 @@ seeds its digest cursor from the newest published lineage and goes on.
 ``--status-file``/``--status-port`` expose the fleet-status document with
 the cycle facts under ``members["0"].pipeline``. The summary is one JSON
 line on stdout. ``--device`` (default ``cuda``) is the port's one added
-argument; ``--telemetry-out`` and ``--report-out`` raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 14d.
+argument. At the end ``--telemetry-out`` appends the metrics snapshot and
+``--report-out`` writes the run report from the live registries, with its
+Pipeline (cycles, idle cycles, publishes, escalations, staleness p99),
+Freshness and Quality (gate decisions, quarantines, drift) sections.
 """
 
 from __future__ import annotations
@@ -31,11 +33,8 @@ import argparse
 import json
 import signal
 
-from photon_ml_tpu_torch import faults
+from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.utils import setup_logging
-
-NOT_PORTED = ("the 'pipeline' flag {flag} is not ported to photon_ml_tpu_torch yet "
-              "(ROADMAP.md Queue 1 item 14d)")
 
 
 def main(argv=None) -> int:
@@ -81,16 +80,15 @@ def main(argv=None) -> int:
     parser.add_argument("--status-port", type=int, metavar="PORT",
                         help="serve the live status document over HTTP /statusz "
                         "(0 = ephemeral port)")
-    parser.add_argument("--telemetry-out", help=argparse.SUPPRESS)
-    parser.add_argument("--report-out", help=argparse.SUPPRESS)
+    parser.add_argument("--telemetry-out",
+                        help="append the final metrics snapshot to this JSONL file")
+    parser.add_argument("--report-out",
+                        help="write the run report (markdown + sibling .json) with its "
+                        "Pipeline, Freshness and Quality sections here")
     parser.add_argument("--device", default="cuda",
                         help="the device that reads, trains, scores and serves (default cuda; "
                         "cpu runs the kernels' plain PyTorch versions)")
     args = parser.parse_args(argv)
-    for flag, value in (("--telemetry-out", args.telemetry_out),
-                        ("--report-out", args.report_out)):
-        if value is not None:
-            raise NotImplementedError(NOT_PORTED.format(flag=flag))
 
     setup_logging()
     # an armed PHOTON_FAULT_PLAN is loud: this run fails on purpose
@@ -120,6 +118,13 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, _on_signal)
 
     summary = pipe.run()
+    if args.telemetry_out:
+        summary["telemetry"] = telemetry.flush_metrics(args.telemetry_out)
+    if args.report_out:
+        from photon_ml_tpu_torch.cli.train import _maybe_write_report
+
+        # from the live registries: the daemon keeps no trace file
+        _maybe_write_report({"report_out": args.report_out}, summary, None, None)
     print(json.dumps(summary, default=float), flush=True)
     # an interrupted daemon is incomplete: 75 tells a scheduler to restart it
     return 75 if summary.get("interrupted") else 0

@@ -14,8 +14,9 @@ random-effect lanes solve again, and the refreshed model is published with
 its lineage (base checkpoint digest, delta digest) through the quality
 gate. A delta the newest version already trained on is refused
 (``StaleDeltaError``) unless ``--force``. ``--device`` (default ``cuda``) is
-the port's one added argument; ``--report-out`` (the run report's Freshness
-section) raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 14d.
+the port's one added argument; ``--report-out`` writes the run report, whose
+Freshness section holds the refresh's lineage, touched fraction, lanes
+solved and skipped, and time to a fresh model.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from __future__ import annotations
 import argparse
 import json
 
-from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
 from photon_ml_tpu_torch.utils import setup_logging
 
 
@@ -42,7 +42,9 @@ def main(argv=None) -> int:
     parser.add_argument("--lambda-points", type=int,
                         help="local descending-λ sweep fits around the incumbent "
                         "regularization (needs a validation input)")
-    parser.add_argument("--report-out", help=argparse.SUPPRESS)
+    parser.add_argument("--report-out",
+                        help="write the run report (markdown + sibling .json) with its "
+                        "Freshness section here")
     parser.add_argument("--force", action="store_true",
                         help="republish even when the delta digest matches what the newest "
                         "registry version already trained on (without it an unchanged delta "
@@ -58,8 +60,6 @@ def main(argv=None) -> int:
                         help="the device that reads, trains and scores (default cuda; cpu "
                         "runs the kernels' plain PyTorch versions)")
     args = parser.parse_args(argv)
-    if args.report_out is not None:
-        raise NotImplementedError(NOT_PORTED.format("the refresh flag --report-out", "14d"))
 
     setup_logging()
     with open(args.config) as f:
@@ -87,6 +87,8 @@ def main(argv=None) -> int:
     # so the checkpoint config is dropped (a failed refresh runs again from
     # the base)
     config.pop("checkpoint", None)
+    if args.report_out:
+        config["report_out"] = args.report_out
 
     from photon_ml_tpu_torch.cli.train import run
 

@@ -48,7 +48,7 @@ member's rows degrade to fixed-effect-only scores. The router does no work
 on a device (it folds on the host, as the reference's does), so it takes no
 ``--device``.
 
-Refused with ``NotImplementedError`` naming ROADMAP item 14d: the telemetry
+Refused with ``NotImplementedError`` naming ROADMAP item 14d (ii): the telemetry
 flags ``--telemetry-out``, ``--trace-out`` and ``--trace-sample-every``.
 
 SIGTERM/SIGINT drains gracefully: admission closes (503 with
@@ -70,7 +70,8 @@ NOT_PORTED = ("the 'serve' flag {flag} is not ported to photon_ml_tpu_torch yet 
               "(ROADMAP.md Queue 1 item {item})")
 
 # the reference's flags that this package refuses, with their ROADMAP item
-_REFUSED = {"--telemetry-out": "14d", "--trace-out": "14d", "--trace-sample-every": "14d"}
+_REFUSED = {"--telemetry-out": "14d (ii)", "--trace-out": "14d (ii)",
+            "--trace-sample-every": "14d (ii)"}
 
 
 def _build_mesh(raw: str, device):

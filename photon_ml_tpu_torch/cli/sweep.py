@@ -28,6 +28,9 @@ validation metric) and the selection; malformed grids are typed config
 errors naming the offending token (``sweep.grid.SweepSpecError``).
 ``registry_dir`` (``--registry-dir``) publishes the winner, with the
 input's index maps, as the next version of a serving registry.
+``--trace-out``, ``--telemetry-out`` and ``--report-out`` are ``cli
+train``'s: the report's "Hyperparameter sweep" section is the per-config
+table of the run's ``sweep_config`` spans.
 """
 
 from __future__ import annotations
@@ -36,7 +39,6 @@ import argparse
 import json
 from typing import Mapping, Optional
 
-from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
 from photon_ml_tpu_torch.sweep.grid import (
     SweepGrid,
     SweepSpecError,
@@ -182,14 +184,10 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="the device that reads, trains and scores (default cuda; cpu "
                         "runs the kernels' plain PyTorch versions)")
-    # the reference's flags, refused with their ROADMAP item
-    for flag in ("--trace-out", "--telemetry-out", "--report-out"):
-        parser.add_argument(flag, help=argparse.SUPPRESS)
+    parser.add_argument("--trace-out", help="span JSONL (see cli train)")
+    parser.add_argument("--telemetry-out", help="metrics JSONL")
+    parser.add_argument("--report-out", help="run report markdown")
     args = parser.parse_args(argv)
-    for flag in ("trace_out", "telemetry_out", "report_out"):
-        if getattr(args, flag):
-            raise NotImplementedError(NOT_PORTED.format(
-                f"the 'sweep' flag --{flag.replace('_', '-')}", 14))
 
     from photon_ml_tpu_torch.cli.train import run
     from photon_ml_tpu_torch.utils import setup_logging
@@ -202,6 +200,9 @@ def main(argv=None) -> int:
     if not sweep_cfg or not sweep_cfg.get("grid"):
         parser.error("no sweep grid: pass --sweep lambda=... or set config sweep.grid")
     config["sweep"] = sweep_cfg
+    for key in ("trace_out", "telemetry_out", "report_out"):
+        if getattr(args, key):
+            config[key] = getattr(args, key)
     summary = run(config, output_dir=args.output_dir, device=args.device)
     print(json.dumps(summary, default=float))
     return 0

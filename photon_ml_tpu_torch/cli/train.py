@@ -39,17 +39,26 @@ ring and assembled on the device, bit for bit the in-core read. ``"checkpoint": 
 saves the coordinate-descent state after each step and resumes from the
 newest valid checkpoint (``resume`` defaults to true); with a checkpoint,
 SIGTERM/SIGINT finish the step, write a final checkpoint and end the run
-with an ``interrupted`` summary and exit code 75. The reference's progress heartbeat (a log line
-every ~30 s) is not started. ``"warm_start"`` (or ``--warm-start``, with
+with an ``interrupted`` summary and exit code 75. ``"warm_start"`` (or ``--warm-start``, with
 ``--delta``, ``--refresh-registry-dir`` and ``--lambda-points``) runs the
 incremental refresh instead of a fit: the base restored, the delta scanned,
 only its touched random-effect lanes solved over the combined input
 (yesterday's paths and the delta's), and the model published with its
 lineage through the quality gate (``incremental/``; ``cli refresh`` is the
-same branch as a subcommand). Every key and flag the port cannot honour yet
-raises ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
-``trace_out``, ``telemetry_out``, ``report_out``, ``xprof``, their flags, a
-``heartbeat`` object or interval and ``--heartbeat-every`` > 0 (14).
+same branch as a subcommand).
+
+Telemetry, as the reference's: ``trace_out`` (``--trace-out``) streams the
+span tree to a JSONL file and writes a sibling ``.perfetto.json`` Chrome
+trace at the end; ``telemetry_out`` (``--telemetry-out``) appends the final
+metrics snapshot; ``heartbeat`` (on by default: true, false, an interval in
+seconds, or ``{"every", "out"}``; ``--heartbeat-every``, 0 turns it off)
+logs a progress line every ~30 s, into ``telemetry_out`` too; and
+``report_out`` (``--report-out``) renders the run report (markdown and a
+sibling ``.json`` compare baseline) from the run's sinks, or from the live
+registries without them, with the checkpoint manifests' coordinate history.
+In a fleet each path is suffixed per member. None of it adds a device sync
+or fetch. ``xprof`` and ``--xprof-dir``/``--xprof-arm`` raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 14d (iii)).
 
 ``"distributed"`` (``coordinator_address``, ``num_processes``,
 ``process_id``, ``auto``, ``init_retries``, ``init_backoff_s``; each left
@@ -80,6 +89,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.config import parse_game_config
 from photon_ml_tpu_torch.game.checkpoint import CheckpointSpec, GracefulStop, TrainingInterrupted
 from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
@@ -89,7 +99,7 @@ from photon_ml_tpu_torch.optim.guard import GuardSpec
 from photon_ml_tpu_torch.utils import setup_logging, timed
 
 # config keys the port refuses, with the ROADMAP.md Queue 1 item that ports them
-_REFUSED_KEYS = {"trace_out": 14, "telemetry_out": 14, "report_out": 14, "xprof": 14}
+_REFUSED_KEYS = {"xprof": "14d (iii)"}
 
 # the reference's own refusal of a train run across processes
 # (photon_ml_tpu/cli/train.py:218-240)
@@ -456,13 +466,69 @@ def _run_incremental(config: Mapping, warm: dict, estimator: GameEstimator, trai
     return freshness
 
 
-def _check_heartbeat(config: Mapping) -> None:
-    """``heartbeat`` true, false, null or 0 start nothing; an object or an
-    interval asks for the reference's heartbeat, which is not ported."""
+def _parse_heartbeat(config: Mapping, telemetry_out: Optional[str]):
+    """Config key ``"heartbeat"``: true (the default: a progress line every
+    ~30 s once a fit runs longer than that), false, null or 0 (off), an
+    interval in seconds, or ``{"every": seconds, "out": jsonl_path}``. The
+    sink defaults to ``telemetry_out``, where the run report finds the
+    beats."""
     spec = config.get("heartbeat", True)
-    if spec is None or isinstance(spec, bool) or spec == 0:
+    if spec is None or spec is False or spec == 0:
+        return None
+    if isinstance(spec, (int, float)) and not isinstance(spec, bool):
+        spec = {"every": float(spec)}
+    from photon_ml_tpu_torch.telemetry.progress import DEFAULT_INTERVAL_S, Heartbeat
+
+    every = DEFAULT_INTERVAL_S
+    out = telemetry_out
+    if spec is not True:
+        spec = dict(spec)
+        unknown = set(spec) - {"every", "out"}
+        if unknown:
+            raise ValueError(f"unknown heartbeat config keys: {sorted(unknown)}")
+        every = float(spec.get("every", every))
+        out = spec.get("out", out)
+        if every <= 0:
+            return None
+    return Heartbeat(interval=every, jsonl_path=out)
+
+
+def _maybe_write_report(config: Mapping, summary: dict, trace_out: Optional[str],
+                        telemetry_out: Optional[str]) -> None:
+    """Config key ``report_out``: render the run report (markdown and a
+    sibling ``.json``) from this run's sinks, or from the live registries
+    when none is configured, and record both paths in the summary."""
+    report_out = config.get("report_out")
+    if not report_out:
         return
-    _refuse("the progress heartbeat (heartbeat)", 14)
+    report_out = telemetry.member_artifact_path(report_out)
+    from photon_ml_tpu_torch.telemetry.report import RunReport
+
+    ckpt_dir = (config.get("checkpoint") or {}).get("dir")
+    if trace_out or telemetry_out:
+        report = RunReport.load(trace=trace_out, telemetry=telemetry_out,
+                                checkpoint_dir=ckpt_dir)
+    else:
+        report = RunReport.from_live(checkpoint_dir=ckpt_dir)
+    with open(report_out, "w", encoding="utf-8") as fh:
+        fh.write(report.to_markdown())
+    json_path = (report_out[:-len(".md")] + ".json" if report_out.endswith(".md")
+                 else report_out + ".json")
+    report.save_json(json_path)
+    summary["report"] = report_out
+    summary["report_json"] = json_path
+
+
+def _finish_telemetry(config: Mapping, summary: dict, trace_out: Optional[str],
+                      telemetry_out: Optional[str]) -> dict:
+    """At every exit of a run: flush the metrics snapshot, export the
+    Perfetto trace beside the span JSONL, and write the report."""
+    if telemetry_out:
+        summary["telemetry"] = telemetry.flush_metrics(telemetry_out)
+    if trace_out:
+        telemetry.export_chrome_trace(trace_out, telemetry.perfetto_path(trace_out))
+    _maybe_write_report(config, summary, trace_out, telemetry_out)
+    return summary
 
 
 def run(config: Mapping, output_dir: Optional[str] = None,
@@ -472,7 +538,6 @@ def run(config: Mapping, output_dir: Optional[str] = None,
     for key, item in _REFUSED_KEYS.items():
         if config.get(key):
             _refuse(f"the train config key '{key}'", item)
-    _check_heartbeat(config)
     game_config = parse_game_config(config)
     output_dir = output_dir or config.get("output_dir")
     guard = _parse_guard_spec(config)
@@ -496,6 +561,14 @@ def run(config: Mapping, output_dir: Optional[str] = None,
             "sweep.sweep_glm(mesh=...))")
     init_distributed(config, device)
     mesh = build_mesh(config, device)
+    # the sinks, suffixed per fleet member; the first traced phase is the read
+    trace_out = config.get("trace_out")
+    if trace_out:
+        trace_out = telemetry.member_artifact_path(trace_out)
+        telemetry.configure(trace_out=trace_out)
+    telemetry_out = config.get("telemetry_out")
+    if telemetry_out:
+        telemetry_out = telemetry.member_artifact_path(telemetry_out)
     stop = GracefulStop()
     if checkpoint_spec is not None:
         # without a checkpoint nothing durable is written on SIGTERM, so the
@@ -517,30 +590,38 @@ def run(config: Mapping, output_dir: Optional[str] = None,
 
         for listener in load_listeners(config["event_listeners"]):
             estimator.events.register(listener)
-    if config.get("sweep"):
-        # every λ at once and the winner under <output_dir>/best, instead of
-        # a single fit (cli/sweep.py)
-        from photon_ml_tpu_torch.cli.sweep import run_sweep_fit
-
-        with timed("sweep"):
-            sweep_summary = run_sweep_fit(estimator, config["sweep"], train_data,
-                                          validation_data, output_dir,
-                                          device=train_data.device, index_maps=index_maps)
-        if output_dir is not None and index_maps is not None:
-            with timed("save index maps"):
-                for shard, imap in index_maps.items():
-                    imap.save(os.path.join(output_dir, "best", "feature-indexes", shard))
-        return {"sweep": sweep_summary, "best_metric": sweep_summary["selected_metric"],
-                "output_dir": output_dir, "num_rows": train_data.num_rows}
-    if warm:
-        # the incremental refresh instead of a fit (_run_incremental)
-        freshness = _run_incremental(config, warm, estimator, train_data, validation_data,
-                                     index_maps, output_dir, mesh, checkpoint_spec, guard, stop)
-        if output_dir is not None and index_maps is not None:
-            _persist_feature_artifacts(output_dir, index_maps, train_data)
-        return {"freshness": freshness, "best_metric": freshness.get("best_metric"),
-                "output_dir": output_dir, "num_rows": train_data.num_rows}
+    heartbeat = _parse_heartbeat(config, telemetry_out)
     try:
+        if heartbeat is not None:
+            heartbeat.start()
+        if config.get("sweep"):
+            # every λ at once and the winner under <output_dir>/best, instead
+            # of a single fit (cli/sweep.py)
+            from photon_ml_tpu_torch.cli.sweep import run_sweep_fit
+
+            with timed("sweep"):
+                sweep_summary = run_sweep_fit(estimator, config["sweep"], train_data,
+                                              validation_data, output_dir,
+                                              device=train_data.device, index_maps=index_maps)
+            if output_dir is not None and index_maps is not None:
+                with timed("save index maps"):
+                    for shard, imap in index_maps.items():
+                        imap.save(os.path.join(output_dir, "best", "feature-indexes", shard))
+            return _finish_telemetry(config, {
+                "sweep": sweep_summary, "best_metric": sweep_summary["selected_metric"],
+                "output_dir": output_dir, "num_rows": train_data.num_rows},
+                trace_out, telemetry_out)
+        if warm:
+            # the incremental refresh instead of a fit (_run_incremental)
+            freshness = _run_incremental(config, warm, estimator, train_data, validation_data,
+                                         index_maps, output_dir, mesh, checkpoint_spec, guard,
+                                         stop)
+            if output_dir is not None and index_maps is not None:
+                _persist_feature_artifacts(output_dir, index_maps, train_data)
+            return _finish_telemetry(config, {
+                "freshness": freshness, "best_metric": freshness.get("best_metric"),
+                "output_dir": output_dir, "num_rows": train_data.num_rows},
+                trace_out, telemetry_out)
         with timed("fit"):
             result = estimator.fit(
                 train_data, validation_data=validation_data, output_dir=output_dir,
@@ -549,18 +630,22 @@ def run(config: Mapping, output_dir: Optional[str] = None,
                 should_stop=stop if checkpoint_spec is not None else None)
     except TrainingInterrupted as e:
         # the final checkpoint is on disk: report, and a restart resumes
-        return {"interrupted": True, "interrupted_at_step": e.step,
-                "checkpoint": e.checkpoint_path, "output_dir": output_dir,
-                "num_rows": train_data.num_rows}
+        return _finish_telemetry(config, {
+            "interrupted": True, "interrupted_at_step": e.step,
+            "checkpoint": e.checkpoint_path, "output_dir": output_dir,
+            "num_rows": train_data.num_rows}, trace_out, telemetry_out)
+    finally:
+        if heartbeat is not None:
+            heartbeat.stop()
     if output_dir is not None and index_maps is not None:
         _persist_feature_artifacts(output_dir, index_maps, train_data)
-    return {
+    return _finish_telemetry(config, {
         "output_dir": output_dir,
         "best_metric": result.best_metric,
         "num_rows": train_data.num_rows,
         # each entry without its solve results (tensors), so JSON-safe
         "history": [{k: v for k, v in e.items() if k != "results"} for e in result.history],
-    }
+    }, trace_out, telemetry_out)
 
 
 def main(argv=None) -> int:
@@ -571,7 +656,18 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="the device that reads, trains and scores (default cuda; cpu "
                         "runs the kernels' plain PyTorch versions)")
-    # the reference's flags, refused with their ROADMAP item
+    parser.add_argument("--trace-out",
+                        help="write telemetry spans to this JSONL file (+ a sibling "
+                        ".perfetto.json Chrome trace); overrides config trace_out")
+    parser.add_argument("--telemetry-out",
+                        help="append the final metrics snapshot to this JSONL file; overrides "
+                        "config telemetry_out")
+    parser.add_argument("--report-out",
+                        help="write the run report (markdown; + a sibling .json compare "
+                        "baseline) here when training ends (config report_out)")
+    parser.add_argument("--heartbeat-every", type=float,
+                        help="seconds between live progress heartbeat lines (default 30, so "
+                        "only fits longer than ~30 s emit any; 0 disables; config heartbeat)")
     parser.add_argument("--sweep", action="append",
                         help="train a multi-λ sweep instead of a single fit: grid tokens "
                         "like 'lambda=1e-4:1e2:log16' (repeatable; needs a validation "
@@ -601,11 +697,10 @@ def main(argv=None) -> int:
                         help="a local descending-λ sweep of this many fits around the "
                         "incumbent regularization during an incremental retrain (needs a "
                         "validation input; config warm_start.lambda_points)")
-    refused = {"--trace-out": 14, "--telemetry-out": 14, "--report-out": 14,
-               "--xprof-dir": 14, "--xprof-arm": 14}
+    # the reference's flags of a later slice, refused with their ROADMAP item
+    refused = {"--xprof-dir": "14d (iii)", "--xprof-arm": "14d (iii)"}
     for flag in refused:
         parser.add_argument(flag, action="append", help=argparse.SUPPRESS)
-    parser.add_argument("--heartbeat-every", type=float, help=argparse.SUPPRESS)
     parser.add_argument("--mesh",
                         help="train over a named device mesh: 'batch=N,model=M' splits "
                         "fixed-effect rows over the batch axis and random-effect entities "
@@ -632,13 +727,20 @@ def main(argv=None) -> int:
     for flag, item in refused.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             _refuse(f"the train flag {flag}", item)
-    if args.heartbeat_every is not None and args.heartbeat_every > 0:
-        _refuse("the train flag --heartbeat-every", 14)
     setup_logging()
     with open(args.config) as f:
         config = json.load(f)
+    for key in ("trace_out", "telemetry_out", "report_out"):
+        if getattr(args, key):
+            config[key] = getattr(args, key)
     if args.heartbeat_every is not None:
-        config["heartbeat"] = False
+        if args.heartbeat_every <= 0:
+            config["heartbeat"] = False
+        else:
+            hb = config.get("heartbeat")
+            hb = dict(hb) if isinstance(hb, dict) else {}
+            hb["every"] = args.heartbeat_every
+            config["heartbeat"] = hb
     if args.mesh:
         config["mesh"] = parse_mesh_flag(args.mesh)
     if args.sweep or args.sweep_metric or args.sweep_policy or args.sweep_registry_dir:

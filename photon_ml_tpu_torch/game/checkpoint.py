@@ -48,8 +48,12 @@ newest certified checkpoint onto whatever fleet restores it.
 The atomic protocol's phases are fault points (``checkpoint.save.before_tmp``,
 ``.before_manifest``, ``.before_rename``, ``.after_rename``: the write-path set
 the crash matrix kills at), as are the manifest read on restore and a member's
-manifest in a coordinated save (``checkpoint.peer_manifest``). The telemetry
-gauges (item 14d) are not ported.
+manifest in a coordinated save (``checkpoint.peer_manifest``). Each save sets
+the reference's gauges: ``checkpoint.last_save_ts`` (on the tracer's
+timebase, which the heartbeat turns into the checkpoint's age), a step
+checkpoint's ``checkpoint.last_step``, and a streamed one's
+``checkpoint.max_shard_fetch_bytes`` (the largest single block fetched to
+the host: a sharded table is never gathered whole).
 """
 
 from __future__ import annotations
@@ -230,6 +234,8 @@ class CheckpointManager:
             faults.fault_point(_FP_SAVE_AFTER_RENAME)
             fsync_dir(self.spec.directory)
         telemetry.counter("checkpoint.saves").inc()
+        telemetry.gauge("checkpoint.last_step").set(state.step)
+        telemetry.gauge("checkpoint.last_save_ts").set(telemetry.trace.TRACER.now())
         self._apply_retention()
         return final
 
@@ -432,13 +438,16 @@ class StreamingCheckpointManager:
         (one for a table on one device), fetched one block at a time."""
         blocks = [(0, array)] if not isinstance(array, EntityShards) else array.local_blocks()
         out = []
+        max_bytes = 0
         for i, (row_start, part) in enumerate(blocks):
             data = (part.detach().cpu().numpy() if isinstance(part, torch.Tensor)
                     else np.asarray(part))
             fname = f"{prefix}-{i:04d}.npy"
             np.save(os.path.join(tmp, fname), data)
             telemetry.counter("checkpoint.shard_saves").inc()
+            max_bytes = max(max_bytes, int(data.nbytes))
             out.append({"file": fname, "row_start": int(row_start), "rows": int(data.shape[0])})
+        telemetry.gauge("checkpoint.max_shard_fetch_bytes").set(max_bytes)
         return out
 
     def save(self, state: StreamCheckpointState) -> Optional[str]:
@@ -494,6 +503,7 @@ class StreamingCheckpointManager:
             faults.fault_point(_FP_SAVE_AFTER_RENAME)
             fsync_dir(self.spec.directory)
         telemetry.counter("checkpoint.saves").inc()
+        telemetry.gauge("checkpoint.last_save_ts").set(telemetry.trace.TRACER.now())
         self._apply_retention()
         return final
 
@@ -635,6 +645,7 @@ class StreamingCheckpointManager:
             faults.fault_point(_FP_SAVE_AFTER_RENAME)
             fsync_dir(self.spec.directory)
         telemetry.counter("checkpoint.saves").inc()
+        telemetry.gauge("checkpoint.last_save_ts").set(telemetry.trace.TRACER.now())
         self._apply_retention()
         return final
 

@@ -10,6 +10,11 @@ Scores are ``[num_rows]`` device tensors keyed by coordinate name. Each
 history entry records the update's wall seconds, its host syncs (telemetry
 counter ``host_syncs``) and its kernel launches (``kernels.LAUNCHES``);
 ``on_step(entry)`` fires after each update (the estimator's event hook).
+Each update also feeds the heartbeat and the run report
+(``_record_step_progress``, the reference's :124-160): the
+``progress.rows``/``progress.coeffs`` counters and ``progress.*_per_sec``
+gauges, counted from shapes, and the coordinate's device-memory phase gauge
+from the allocator's counters; neither fetches from the device.
 
 With a ``GuardSpec`` every update is guarded (``_guarded_update``, the
 reference's :162-207 and its bookkeeping at :269-365): the coordinate's
@@ -43,6 +48,7 @@ import logging
 import time
 from typing import Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch import faults, kernels, telemetry
@@ -151,14 +157,54 @@ def _guarded_update(coord, model, residual, guard: GuardSpec, name: str):
         # a `nan` rule marks this solve diverged: the damped retries and the
         # rollback run on demand
         health = faults.corrupt_health(FP_SOLVE_HEALTH, health)
-        telemetry.counter("host_syncs").inc()
-        if bool(health):
+        if bool(telemetry.sync_fetch(torch.as_tensor(health), label=f"guard:{name}")):
             return new_model, attempt, False
         telemetry.counter("solves.diverged").inc()
     telemetry.counter("solves.rolled_back").inc()
     logger.warning("coordinate %s still diverging after %d attempt(s); rolling back to the "
                    "pre-solve model", name, max_attempts)
     return model, max_attempts - 1, True
+
+
+def _num_coefficients(model) -> int:
+    """Coefficient count of a coordinate model, from shapes only (no device
+    transfer): feeds the ``progress.coeffs`` counter."""
+    if model is None:
+        return 0
+    coeffs = getattr(model, "coefficients", None)
+    if coeffs is not None:
+        return int(np.prod(tuple(coeffs.shape)))
+    buckets = getattr(model, "buckets", None)
+    if buckets is not None:
+        return sum(_num_coefficients(b) for b in buckets)
+    models = getattr(model, "models", None)
+    if isinstance(models, Mapping):
+        return sum(_num_coefficients(m) for m in models.values())
+    if dataclasses.is_dataclass(model):
+        return sum(int(v.numel()) for v in (getattr(model, f.name)
+                                            for f in dataclasses.fields(model))
+                   if isinstance(v, torch.Tensor))
+    return 0
+
+
+def _record_step_progress(coord, model, name: str, seconds: float) -> None:
+    """Per-update progress and memory telemetry: the rows/coeffs counters
+    (the heartbeat's rate sources), the rows/s and coeffs/s gauges (the run
+    report's key metrics), and the coordinate's memory phase peak."""
+    data = getattr(coord, "data", None)
+    rows = int(getattr(data, "num_rows", 0) or 0)
+    coeffs = _num_coefficients(model)
+    if rows:
+        telemetry.counter("progress.rows").inc(rows)
+    if coeffs:
+        telemetry.counter("progress.coeffs").inc(coeffs)
+    if seconds > 0:
+        if rows:
+            telemetry.gauge("progress.rows_per_sec").set(rows / seconds)
+        if coeffs:
+            telemetry.gauge("progress.coeffs_per_sec").set(coeffs / seconds)
+    telemetry.memory.record_phase_memory(f"coordinate:{name}",
+                                         device=getattr(data, "device", None))
 
 
 def run_coordinate_descent(
@@ -218,7 +264,7 @@ def run_coordinate_descent(
                 if name in frozen:
                     continue  # a divergent coordinate: its last good model stands
                 coord = coordinates[name]
-                syncs = telemetry.snapshot()["counters"].get("host_syncs", 0)
+                syncs = telemetry.peek_counter("host_syncs") or 0
                 launched = dict(kernels.LAUNCHES)
                 t0 = time.perf_counter()
                 with telemetry.span(f"coordinate:{name}", iteration=it):
@@ -243,8 +289,7 @@ def run_coordinate_descent(
                 # random-effect bucket): nothing per entity is fetched here
                 entry = {"iteration": it, "coordinate": name,
                          "seconds": time.perf_counter() - t0,
-                         "host_syncs": telemetry.snapshot()["counters"].get("host_syncs", 0)
-                         - syncs,
+                         "host_syncs": (telemetry.peek_counter("host_syncs") or 0) - syncs,
                          "launches": {k: n - launched[k] for k, n in kernels.LAUNCHES.items()},
                          "results": [] if rolled_back else list(getattr(coord, "last_results",
                                                                         ()))}
@@ -262,6 +307,7 @@ def run_coordinate_descent(
                     if best_metric is None or better_than(primary, metrics[primary],
                                                           best_metric):
                         best_metric, best_model = metrics[primary], game_model
+                _record_step_progress(coord, models[name], name, entry["seconds"])
                 history.append(entry)
                 if on_step is not None:
                     on_step(entry)

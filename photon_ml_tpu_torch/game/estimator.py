@@ -194,6 +194,22 @@ class GridFitEntry:
     result: GameFitResult
 
 
+def _record_table_estimate(name: str, red, dim=None) -> None:
+    """Publish the predicted device residency of a random-effect
+    coordinate's coefficient table (``memory.table_bytes.<name>``) and check
+    the headroom before the solve allocates it. ``dim``: the per-entity
+    dimension of a projected or factored table; None: the buckets'
+    [entities, local features] blocks."""
+    if dim is not None:
+        table_bytes = telemetry.memory.estimate_table_bytes(red.num_entities, dim)
+    else:
+        table_bytes = sum(telemetry.memory.estimate_table_bytes(b.num_entities,
+                                                                b.num_local_features)
+                          for b in red.buckets)
+    telemetry.gauge(f"memory.table_bytes.{name}").set(table_bytes)
+    telemetry.memory.check_headroom(table_bytes, label=f"coordinate:{name} coefficient table")
+
+
 class GameEstimator:
     """Builds datasets and coordinates from a GameConfig and trains by
     coordinate descent."""
@@ -266,8 +282,10 @@ class GameEstimator:
                 )
             elif isinstance(c, RandomEffectConfig) and c.projector == "random":
                 # per-entity solves in a fixed Gaussian space, no refit
+                red = self._re_dataset(data, c)
+                _record_table_estimate(name, red, dim=c.projected_dim)
                 coord = FactoredRandomEffectCoordinate(
-                    name=name, data=data, re_data=self._re_dataset(data, c),
+                    name=name, data=data, re_data=red,
                     loss_name=self.config.task, re_config=opt or c.optimizer,
                     latent_config=opt or c.optimizer, latent_dim=c.projected_dim,
                     refit_projection=False,
@@ -275,14 +293,18 @@ class GameEstimator:
                     seed=c.projection_seed, mesh=entity_mesh,
                 )
             elif isinstance(c, RandomEffectConfig):
+                red = self._re_dataset(data, c)
+                _record_table_estimate(name, red)
                 coord = RandomEffectCoordinate(
-                    name=name, data=data, re_data=self._re_dataset(data, c),
+                    name=name, data=data, re_data=red,
                     loss_name=self.config.task, config=opt or c.optimizer,
                     compute_variances=c.compute_variances, mesh=entity_mesh,
                 )
             elif isinstance(c, FactoredRandomEffectConfig):
+                red = self._re_dataset(data, c)
+                _record_table_estimate(name, red, dim=c.latent_dim)
                 coord = FactoredRandomEffectCoordinate(
-                    name=name, data=data, re_data=self._re_dataset(data, c),
+                    name=name, data=data, re_data=red,
                     loss_name=self.config.task, re_config=opt or c.re_optimizer,
                     latent_config=c.latent_optimizer, latent_dim=c.latent_dim,
                     mf_iterations=c.mf_iterations, seed=c.seed, mesh=entity_mesh,
@@ -335,6 +357,7 @@ class GameEstimator:
         with telemetry.span("fit", task=self.config.task):
             with telemetry.span("build_coordinates"):
                 coordinates = self._build_coordinates(data, mesh)
+            telemetry.memory.record_phase_memory("build_coordinates", device=dev)
             validation = None
             if validation_data is not None:
                 if not self.config.evaluators:
@@ -353,6 +376,7 @@ class GameEstimator:
                 checkpoint=(None if checkpoint_spec is None
                             else CheckpointManager(checkpoint_spec, device=dev)),
             )
+            telemetry.memory.record_phase_memory("fit", device=dev)
         self.events.send(TrainingFinishEvent(best_metric=result.best_metric, seconds=t.stop(),
                                              metrics_snapshot=telemetry.snapshot()))
         if output_dir is not None:

@@ -459,7 +459,13 @@ class StreamingRandomEffectTrainer:
 
     def _feed(self, source):
         """``_prepare`` with bounded retry: transient feed failures are tried
-        again up to ``feed_retries`` times before they surface."""
+        again up to ``feed_retries`` times before they surface. A chunk given
+        as host arrays gets a headroom check before its upload."""
+        if not callable(source):
+            predicted = telemetry.memory.estimate_batch_bytes(source)
+            if predicted:
+                telemetry.memory.check_headroom(predicted, label="streaming chunk upload",
+                                                device=self.device)
         last_err: Optional[Exception] = None
         for attempt in range(self._feed_retries + 1):
             if attempt:
@@ -532,6 +538,7 @@ class StreamingRandomEffectTrainer:
         telemetry.counter("streaming_entities").inc(sum(sizes))
         telemetry.counter("progress.rows").inc(sum(int(b.labels.numel()) for b, _ in fed))
         telemetry.counter("progress.coeffs").inc(sum(sizes) * table.dim)
+        telemetry.memory.record_phase_memory("streaming_chunk", device=self.device)
         if self.compute_variances and not rolled_back:
             if variance_table is None:
                 raise ValueError("compute_variances=True needs a variance_table to write into "

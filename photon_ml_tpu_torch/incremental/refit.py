@@ -642,7 +642,18 @@ def run_incremental_fit(
     iters = num_iterations or config.num_iterations
     t = Timer().start()
     lineage = warm_start.lineage
-    with telemetry.span("incremental_fit", base=lineage.checkpoint_dir, kind=lineage.kind):
+    # the span's lineage attributes: the run report's Freshness section
+    attrs = {"base": lineage.checkpoint_dir, "kind": lineage.kind}
+    if lineage.digest:
+        attrs["base_digest"] = lineage.digest
+    if lineage.step is not None:
+        attrs["base_step"] = int(lineage.step)
+    if delta is not None:
+        attrs["delta_digest"] = delta.digest
+        attrs["delta_rows"] = int(delta.delta_rows)
+        attrs["touched_fraction"] = round(
+            max((c.touched_fraction for c in delta.coordinates.values()), default=0.0), 6)
+    with telemetry.span("incremental_fit", **attrs):
         factors = list(lambda_factors) if lambda_factors else [1.0]
         if len(factors) > 1 and validation is None:
             raise ValueError("a local λ sweep needs validation data to select on")

@@ -23,8 +23,8 @@ Counterpart of ``photon_ml_tpu/ingest``:
 Telemetry: ``ingest.rows``, ``ingest.chunks``, ``ingest.stalls``,
 ``ingest.solve_waits`` counters, the ``ingest.queue_depth``,
 ``ingest.staging_bytes`` and ``ingest.rows_per_sec`` gauges, and per-stage
-spans. The heartbeat and the RunReport "Ingestion" section (ROADMAP.md
-Queue 1 item 14d) are not ported.
+spans: the heartbeat's ``ingest_*`` fields and the RunReport's "Ingestion"
+section read them.
 """
 
 from photon_ml_tpu_torch.ingest.errors import (  # noqa: F401

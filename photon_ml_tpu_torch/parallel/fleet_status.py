@@ -16,7 +16,7 @@ A status write is observability, never control: an unwritable status file
 (a full disk, a removed workdir, or the ``fleet.status_write`` fault seam's
 ``io`` rule) logs, counts ``fleet.status_write_errors`` and the supervisor
 goes on. Each member's last progress fields, tail-parsed from its telemetry
-stream, are ROADMAP.md Queue 1 item 14d: ``telemetry_out`` is refused.
+stream, are ROADMAP.md Queue 1 item 14d (ii): ``telemetry_out`` is refused.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ class FleetStatusWriter:
             from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
 
             raise NotImplementedError(NOT_PORTED.format(
-                "the members' progress heartbeats in the fleet status (telemetry_out)", "14d"))
+                "the members' progress heartbeats in the fleet status (telemetry_out)", "14d (ii)"))
         self.fleet_dir = fleet_dir
         self.status_file = status_file
         self.interval_s = float(interval_s)

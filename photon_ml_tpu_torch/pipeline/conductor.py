@@ -35,8 +35,8 @@ Supervision: live status through ``FleetStatusWriter`` (the conductor is a
 the fleet-status document), counters ``pipeline.cycles``,
 ``pipeline.idle_cycles``, ``pipeline.reconciliations``,
 ``pipeline.escalations``, ``pipeline.publishes`` and ``pipeline.quarantines``
-in ``telemetry.snapshot()`` (the run report that renders them is ROADMAP.md
-Queue 1 item 14d), and SIGTERM: finish the current cycle, then exit 75.
+in ``telemetry.snapshot()`` (the run report's Pipeline section, ``cli pipeline
+--report-out``), and SIGTERM: finish the current cycle, then exit 75.
 
 ``PipelineSpec.device`` (default cuda) is the port's one added field: the
 reads, fits, scoring and the served registry all run there.

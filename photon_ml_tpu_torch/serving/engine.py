@@ -5,8 +5,9 @@ Counterpart of ``photon_ml_tpu/serving/engine.py``. :class:`ScoringEngine`
 - uploads the model ONCE at load: each fixed effect's ``w`` as f32[d] and
   each random-effect bucket's ``projection`` as int32[E, K] and
   ``coefficients`` as f32[E, K] (entity-sharded over a mesh's model axis
-  with ``mesh=``); the entity-id -> (bucket, position) lookup stays on the
-  host;
+  with ``mesh=``), after ``telemetry.memory.check_headroom`` has predicted
+  the upload (a warning, not a failure); the entity-id -> (bucket, position)
+  lookup stays on the host;
 - assembles each request batch on the host into padded batch-size buckets
   (powers of two up to ``max_batch``, :func:`bucket_sizes_for`): per feature
   shard a CSR (``row_ptr`` int32[b+1], ``cols`` int32, ``vals`` f32), the
@@ -57,7 +58,6 @@ score 0 and count ``serving.unknown_features``).
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 import threading
 import time
@@ -79,7 +79,6 @@ from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.parallel import sharding as psharding
 from photon_ml_tpu_torch.quality import drift as quality_drift
 
-logger = logging.getLogger("photon_ml_tpu_torch.serving.engine")
 
 Tensor = torch.Tensor
 
@@ -276,8 +275,9 @@ class ScoringEngine:
                 si = self._shard_slot(shard_names, sub.shard_name)
                 shard_dims[sub.shard_name] = int(sub.coefficients.shape[0])
                 coords.append(("fixed", si))
-                tables.append(sub.coefficients.detach().to(dev, torch.float32).contiguous())
-                predicted_bytes += 4 * int(sub.coefficients.shape[0])
+                tables.append(sub.coefficients)
+                predicted_bytes += telemetry.memory.estimate_table_bytes(
+                    1, sub.coefficients.shape[0])
             elif isinstance(sub, RandomEffectModel):
                 si = self._shard_slot(shard_names, sub.shard_name)
                 coords.append(("re", si, len(sub.buckets)))
@@ -291,10 +291,9 @@ class ScoringEngine:
                         raise psharding.entity_axis_mismatch(
                             num_e, self.entity_axis, len(self._owners),
                             what=f"shard coordinate '{name}' on the serving mesh")
-                    buckets.append((self._place(bm.projection, torch.int32),
-                                    self._place(bm.coefficients, torch.float32)))
+                    buckets.append((bm.projection, bm.coefficients))
                     # coefficients + int32 projection, both 4-byte
-                    predicted_bytes += 8 * num_e * local_k
+                    predicted_bytes += 2 * telemetry.memory.estimate_table_bytes(num_e, local_k)
                 tables.append(tuple(buckets))
                 re_hosts.append((
                     sub.id_name,
@@ -320,13 +319,17 @@ class ScoringEngine:
             shard_dims.get(s) if shard_dims.get(s) is not None
             else (len(self._index_maps[s]) if s in self._index_maps else None)
             for s in self._shard_names)
-        self._tables = tuple(tables)
+        # predict the upload before it happens: a model too big for the free
+        # device memory warns at load instead of failing the first request;
+        # on a mesh each owner holds its share of the tables
+        telemetry.memory.check_headroom(-(-predicted_bytes // len(self._owners)),
+                                        label=f"serving model {version}", device=dev)
+        self._tables = tuple(
+            t.detach().to(dev, torch.float32).contiguous() if spec[0] == "fixed"
+            else tuple((self._place(p, torch.int32), self._place(c, torch.float32))
+                       for p, c in t)
+            for spec, t in zip(coords, tables))
         self.model_bytes = predicted_bytes
-        if dev.type == "cuda":
-            free, _total = torch.cuda.mem_get_info(dev)
-            if predicted_bytes > free:
-                logger.warning("serving model %s needs %d bytes of tables, %d free on %s",
-                               version, predicted_bytes, free, dev)
         # the VERSION LOCK: apply_re_rows builds and swaps the whole table
         # tuple under it; scoring reads self._tables once, without it (old
         # tuple or new tuple, never torn)

@@ -28,7 +28,7 @@ either serves the pinned version (staged or committed) or sheds for that
 request: a score never blends two versions.
 
 Request-scoped traces (the reference's trace context, its phases and
-``sample_every``, ``X-Photon-Trace``) are ROADMAP.md Queue 1 item 14d and
+``sample_every``, ``X-Photon-Trace``) are ROADMAP.md Queue 1 item 14d (ii) and
 are not kept.
 """
 

@@ -31,9 +31,14 @@ slot), and validation scores sum each row's terms with
 ``torch.segment_reduce``, as ``RandomEffectModel.score`` does, never with
 ``index_add_``.
 
-Telemetry: the ``sweep.solves`` counter and a ``sweep`` span; the
-per-config record (λ, iterations, reason, value, metric) lives in the result
-objects.
+Telemetry (the reference's): the ``sweep.solves`` counter, the
+``sweep.configs_total`` / ``sweep.configs_done`` gauges (the heartbeat's
+sweep fields), a ``sweep > sweep_round`` / ``sweep > sweep_iteration >
+coordinate:<name>`` span tree, and one ``sweep_config`` span per lane
+carrying its λ, iterations, reason, final loss and, after selection, its
+validation metric: the run report's sweep table. The spans read what the
+result already fetched (``sweep_glm`` packs the lanes' final values into its
+one fetch), so they add no device-to-host copy.
 
 ``sweep_glm(mesh=...)`` (:297-350) splits the G config lanes over the mesh's
 model axis (else its batch axis), padded to a multiple of the axis with
@@ -214,6 +219,8 @@ def sweep_glm(
     W = torch.broadcast_to(w_start.to(device=dev, dtype=torch.float32),
                            (len(lams_p), n_feat)).contiguous()
     res = None
+    telemetry.gauge("sweep.configs_total").set(G)
+    telemetry.gauge("sweep.configs_done").set(0)
     with telemetry.span("sweep", task=task, configs=G, rounds=rounds):
         for r in range(rounds):
             with telemetry.span("sweep_round", round=r):
@@ -224,13 +231,38 @@ def sweep_glm(
                     for o, (d, adapter, l1, cons) in enumerate(groups)], per, dev)
                 W = res.w
             telemetry.counter("sweep.solves").inc(G)
+            telemetry.gauge("sweep.configs_done").set(int(round(G * (r + 1) / rounds)))
     fetched = _fetch(torch.stack([res.iterations[:G].to(torch.float32),
                                   res.reason[:G].to(torch.float32),
-                                  res.data_passes[:G].to(torch.float32)]), "sweep_glm")
-    return GlmSweepResult(lambdas=lams, w=W[:G], values=res.value[:G],
-                          iterations=fetched[0].astype(np.int32),
-                          reasons=fetched[1].astype(np.int32),
-                          data_passes=fetched[2].astype(np.int32), rounds=rounds)
+                                  res.data_passes[:G].to(torch.float32),
+                                  res.value[:G].to(torch.float32)]), "sweep_glm")
+    result = GlmSweepResult(lambdas=lams, w=W[:G], values=res.value[:G],
+                            iterations=fetched[0].astype(np.int32),
+                            reasons=fetched[1].astype(np.int32),
+                            data_passes=fetched[2].astype(np.int32), rounds=rounds)
+    _emit_config_spans(lams, {"lambda": lams}, result.iterations, result.reasons,
+                       values=fetched[3])
+    return result
+
+
+def _emit_config_spans(lambdas: Sequence[float], lambda_by_key: dict, iterations: np.ndarray,
+                       reasons: np.ndarray, values: Optional[np.ndarray] = None,
+                       metrics: Optional[np.ndarray] = None,
+                       metric_name: Optional[str] = None) -> None:
+    """One ``sweep_config`` span per lane: the per-config convergence
+    record the run report renders as a table, from host arrays."""
+    for g in range(len(lambdas)):
+        attrs = {"index": g, "iterations": int(iterations[g]),
+                 "reason": CONVERGENCE_REASON_NAMES.get(int(reasons[g]), str(int(reasons[g])))}
+        for key, lams in lambda_by_key.items():
+            attrs[f"lambda.{key}" if key != "lambda" else "lambda"] = float(lams[g])
+        if values is not None:
+            attrs["final_loss"] = float(values[g])
+        if metrics is not None:
+            attrs["metric"] = None if np.isnan(metrics[g]) else float(metrics[g])
+            attrs["metric_name"] = metric_name
+        with telemetry.span("sweep_config", **attrs):
+            pass
 
 
 def _lane_devices(mesh, dev: torch.device) -> tuple[torch.device, ...]:
@@ -355,6 +387,24 @@ class GameSweepResult:
                          "values": fetched[2]}
         self._convergence = out
         return out
+
+    def emit_config_spans(self, metrics: Optional[np.ndarray] = None,
+                          metric_name: Optional[str] = None) -> None:
+        """One ``sweep_config`` span per lane from ``convergence()``: the
+        lane's iterations (max over coordinates), its worst reason (an
+        unconverged coordinate first), its summed final values and, given,
+        its validation metric."""
+        conv = self.convergence()
+        iterations = np.max(np.stack([c["iterations"] for c in conv.values()]), axis=0)
+        reasons = None
+        for c in conv.values():
+            r = c["reasons"]
+            reasons = r if reasons is None else np.where(
+                (reasons == MAX_ITERATIONS) | (reasons == NOT_CONVERGED), reasons, r)
+        values = np.sum(np.stack([c["values"] for c in conv.values()]), axis=0)
+        lams = self.lambdas
+        _emit_config_spans(next(iter(lams.values())), lams, iterations, reasons, values=values,
+                           metrics=metrics, metric_name=metric_name)
 
     # -- scoring -------------------------------------------------------------
 
@@ -554,10 +604,13 @@ def sweep_game(
               for name in names}
     history: list[dict] = []
     result = GameSweepResult(config.task, states, history, data.device)
+    total_steps = max(num_iterations * len(names), 1)
+    telemetry.gauge("sweep.configs_total").set(G)
+    telemetry.gauge("sweep.configs_done").set(0)
     with telemetry.span("sweep", task=config.task, configs=G, num_coordinates=len(names)):
         for it in range(num_iterations):
             with telemetry.span("sweep_iteration", iteration=it):
-                for name in names:
+                for idx, name in enumerate(names):
                     s = states[name]
                     t0 = time.perf_counter()
                     with telemetry.span(f"coordinate:{name}", iteration=it):
@@ -574,6 +627,8 @@ def sweep_game(
                         if scores[name].is_cuda:
                             torch.cuda.synchronize(scores[name].device)
                     telemetry.counter("sweep.solves").inc(G)
+                    telemetry.gauge("sweep.configs_done").set(
+                        int(G * (it * len(names) + idx + 1) / total_steps))
                     history.append({"iteration": it, "coordinate": name,
                                     "seconds": time.perf_counter() - t0, "configs": G})
     return result

@@ -149,9 +149,13 @@ def select_best(metrics: np.ndarray, metric_name: str, policy: str = "best",
 
 def run_selection(result, validation_data: GameDataset, metric: Optional[str] = None,
                   policy: str = "best", rel_tol: float = 0.01) -> SweepSelection:
-    """``evaluate_sweep`` then ``select_best``."""
+    """``evaluate_sweep``, ``select_best``, the ``sweep.selected_*`` gauges
+    and the per-config ``sweep_config`` spans."""
     metric_name, values = evaluate_sweep(result, validation_data, metric)
     index = select_best(values, metric_name, policy=policy, rel_tol=rel_tol)
+    telemetry.gauge("sweep.selected_index").set(index)
+    telemetry.gauge("sweep.selected_metric").set(float(values[index]))
+    result.emit_config_spans(metrics=values, metric_name=metric_name)
     return SweepSelection(index=index, metric=metric_name, metrics=values, policy=policy)
 
 

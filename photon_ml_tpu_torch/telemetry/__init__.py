@@ -1,29 +1,54 @@
-"""Telemetry: named spans, and the metrics registry's counters, gauges and
-histograms.
+"""Telemetry: the span tree, the metrics registry, device-memory accounting,
+the progress heartbeat and run reports.
 
-Counterpart of the call sites of ``photon_ml_tpu/telemetry`` (``span``,
-``counter``, ``gauge``, ``histogram``, ``sync_fetch``) so the port keeps the
-reference's instrumentation points. There is no jit accounting and no trace
-sink: spans add their wall time to a per-name total, and the metrics live in
-``telemetry.metrics`` (the reference's registry, copied). ``snapshot()``
-reads all of them (plus the sections of ``register_snapshot_provider``, such
-as the quality layer's drift rows), ``peek_gauge`` one gauge, ``reset()``
-clears them.
+Counterpart of ``photon_ml_tpu/telemetry``, with its record formats and
+metric names, so both packages' artifacts read alike:
+
+- :mod:`.trace`: ``span(name, **attrs)`` opens a node of a thread-safe span
+  tree (host clock, no device sync) with a JSONL sink and a Chrome/Perfetto
+  exporter; ``utils.timed()`` is a span too. ``snapshot()["span_seconds"]``
+  keeps each span name's total seconds.
+- :mod:`.metrics`: process-global counters, gauges and histograms (the
+  reference's registry, copied) with a ``snapshot()`` and a JSONL flush.
+- :mod:`.memory`: device-memory gauges from the caching allocator's host
+  counters, per-phase peaks, table-size estimates and a headroom check.
+- :mod:`.progress` / :mod:`.report`: the heartbeat daemon, and
+  :class:`~.report.RunReport`, which merges trace, metrics and checkpoint
+  manifests into one markdown/JSON report with a regression ``compare()``
+  (``cli report``).
+- :mod:`.identity`: per-member artifact suffixing in a fleet.
 
 ``sync_fetch(t, label)`` is the one sanctioned device-to-host copy of a
-request path (the counterpart of ``telemetry/device.py:47``): it copies once
-and counts ``host_syncs``.
+solve or request path (the counterpart of ``telemetry/device.py:40-75``): it
+copies once, counts ``host_syncs`` and the reference's ``device_fetch*``
+metrics, and stamps a ``device_fetch`` event on the open span.
+
+Not ported yet (ROADMAP.md Queue 1 item 14d): request tracing, the flight
+recorder and the fleet report (ii); the executable accounting, the profiler
+and the compile counters (iii).
+
+Typical use::
+
+    from photon_ml_tpu_torch import telemetry
+
+    telemetry.configure(trace_out="run.trace.jsonl")
+    with telemetry.Heartbeat(interval=30, jsonl_path="run.metrics.jsonl"):
+        with telemetry.span("fit", task="logistic"):
+            ...
+    telemetry.flush_metrics("run.metrics.jsonl")
+    telemetry.export_chrome_trace("run.trace.jsonl", "run.perfetto.json")
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
+import os
 import time
+from typing import Optional
 
 import numpy as np
 
-from photon_ml_tpu_torch.telemetry import metrics
+from photon_ml_tpu_torch.telemetry import identity, memory, metrics, trace  # noqa: F401
+from photon_ml_tpu_torch.telemetry.identity import member_artifact_path  # noqa: F401
 from photon_ml_tpu_torch.telemetry.metrics import (  # noqa: F401
     counter,
     gauge,
@@ -32,46 +57,92 @@ from photon_ml_tpu_torch.telemetry.metrics import (  # noqa: F401
     peek_gauge,
     register_snapshot_provider,
 )
+from photon_ml_tpu_torch.telemetry.progress import Heartbeat  # noqa: F401
+from photon_ml_tpu_torch.telemetry.trace import (  # noqa: F401
+    active_span_path,
+    add_event,
+    current_span,
+    export_chrome_trace,
+    finished_spans,
+    perfetto_path,
+    span,
+    to_chrome_trace,
+)
 
-_lock = threading.Lock()
-_span_seconds: dict[str, float] = {}
+# configure_from_env's side effects, remembered so reset() can undo them
+_env_state: dict[str, object] = {"atexit_flush": None}
 
 
-@contextlib.contextmanager
-def span(name: str, **_attrs):
-    """Time the enclosed block on the host clock (no device sync). The
-    attributes of the reference's call sites are accepted and not kept."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        with _lock:
-            _span_seconds[name] = _span_seconds.get(name, 0.0) + dt
+def configure(trace_out: Optional[str] = None, buffer_limit: Optional[int] = None) -> None:
+    """Point the span JSONL sink at ``trace_out`` (None leaves it as is)."""
+    trace.configure(jsonl_path=trace_out, buffer_limit=buffer_limit)
+
+
+def flush_metrics(path: str) -> dict:
+    """Append the metrics snapshot to ``path`` as one ``metrics`` line."""
+    return metrics.flush_jsonl(path)
+
+
+def configure_from_env() -> None:
+    """Honour ``PHOTON_TRACE_OUT`` (the span sink opens at once) and
+    ``PHOTON_TELEMETRY_OUT`` (the metrics snapshot flushes at process
+    exit), each suffixed per fleet member. ``reset()`` undoes both."""
+    trace_out = os.environ.get("PHOTON_TRACE_OUT")
+    if trace_out:
+        configure(trace_out=identity.member_artifact_path(trace_out))
+    metrics_out = os.environ.get("PHOTON_TELEMETRY_OUT")
+    if metrics_out:
+        import atexit
+        import functools
+
+        metrics_out = identity.member_artifact_path(metrics_out)
+        old = _env_state["atexit_flush"]
+        if old is not None:
+            atexit.unregister(old)
+        flush = functools.partial(flush_metrics, metrics_out)
+        atexit.register(flush)
+        _env_state["atexit_flush"] = flush
 
 
 def sync_fetch(t, label: str | None = None) -> np.ndarray:
     """Copy ``t`` to the host as numpy (one device-to-host copy, which waits
-    for the work that produced it) and count it in ``host_syncs`` and
-    ``host_sync_bytes``. ``label`` names the crossing in the reference's
-    call sites and is not kept."""
+    for the work that produced it) and account for it: ``host_syncs`` and
+    ``host_sync_bytes``, the reference's ``device_fetches`` /
+    ``device_fetch_bytes`` / ``device_fetch_seconds``, and a
+    ``device_fetch`` event on the open span."""
+    t0 = time.monotonic()
     out = t.detach().cpu().numpy()
+    dt = time.monotonic() - t0
+    nbytes = int(out.nbytes)
     metrics.counter("host_syncs").inc()
-    metrics.counter("host_sync_bytes").inc(int(out.nbytes))
+    metrics.counter("host_sync_bytes").inc(nbytes)
+    metrics.counter("device_fetches").inc()
+    metrics.counter("device_fetch_bytes").inc(nbytes)
+    metrics.counter("device_fetch_seconds").inc(dt)
+    metrics.histogram("device_fetch_seconds").observe(dt)
+    trace.add_event("device_fetch", label=label, bytes=nbytes, seconds=round(dt, 6))
     return out
 
 
 def snapshot() -> dict:
-    """``counters``, ``gauges`` and ``histograms`` of the registry, the
-    ``span_seconds`` totals, and every provider's section."""
+    """``counters``, ``gauges`` and ``histograms`` of the registry, every
+    provider's section, and the ``span_seconds`` totals."""
     snap = metrics.snapshot()
-    with _lock:
-        snap["span_seconds"] = dict(_span_seconds)
+    snap["span_seconds"] = trace.span_seconds()
     return snap
 
 
 def reset() -> None:
-    """Clear the spans and the registry's metrics (providers stay)."""
-    with _lock:
-        _span_seconds.clear()
+    """Restore import-time defaults: clear the spans and the registry's
+    metrics (providers stay), close the trace sink, restore the default
+    buffer limit, drop an injected memory-stats provider, and unregister
+    the ``configure_from_env`` exit flush."""
+    trace.reset()
     metrics.reset()
+    memory.reset()
+    flush = _env_state["atexit_flush"]
+    if flush is not None:
+        import atexit
+
+        atexit.unregister(flush)
+        _env_state["atexit_flush"] = None

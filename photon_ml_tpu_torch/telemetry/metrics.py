@@ -262,7 +262,10 @@ class MetricsRegistry:
 
     def flush_jsonl(self, path: str) -> dict[str, Any]:
         """Append one ``{"type": "metrics", ...}`` line to ``path`` and
-        return the snapshot that was written."""
+        return the snapshot that was written. In a fleet the line carries
+        ``process_index``/``hostname``."""
+        from photon_ml_tpu_torch.telemetry import identity
+
         snap = self.snapshot()
         line = {
             "type": "metrics",
@@ -271,6 +274,10 @@ class MetricsRegistry:
             ).isoformat(),
             "snapshot": snap,
         }
+        proc = identity.fleet_process_index()
+        if proc is not None:
+            line["process_index"] = proc
+            line["hostname"] = identity.hostname()
         with open(path, "a", encoding="utf-8") as fh:
             fh.write(json.dumps(line, default=str) + "\n")
         return snap

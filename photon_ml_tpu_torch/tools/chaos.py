@@ -26,7 +26,7 @@ holds the result to the reference row's bound:
 - ``run_serving_matrix``: ``member_load_io``, ``route_fanout_io``,
   ``resize_swap`` and the hard kill under traffic
   (``tools/serving_fleet.py``). ``flight_dump_kill`` is ROADMAP.md Queue 1
-  item 14d's and is reported as not ported, never as passed.
+  item 14d (ii)'s and is reported as not ported, never as passed.
 
 A ``budget_s`` reports the rows it did not reach under ``skipped``; none is
 dropped silently. The workers run on ``--device`` (default cuda; cpu runs
@@ -324,7 +324,7 @@ SERVING_ROWS = ("member_load_io", "route_fanout_io", "resize_swap", "flight_dump
                 "member_hard_kill")
 
 #: rows this package does not run yet, with the ROADMAP item that owns them
-SERVING_NOT_PORTED = {"flight_dump_kill": "14d"}
+SERVING_NOT_PORTED = {"flight_dump_kill": "14d (ii)"}
 
 #: hard-kill recovery budget: heartbeat detection plus a same-slot relaunch
 KILL_RECOVERY_BUDGET_S = 120.0
@@ -461,7 +461,7 @@ def run_serving_matrix(workdir: str, rows: Optional[Sequence[str]] = None,
       degraded scores accounted, heartbeat detection and a same-slot
       relaunch within ``KILL_RECOVERY_BUDGET_S``, every member draining to
       exit 75;
-    - ``flight_dump_kill``: not ported (ROADMAP.md Queue 1 item 14d), reported
+    - ``flight_dump_kill``: not ported (ROADMAP.md Queue 1 item 14d (ii)), reported
       with ``not_ported`` and never as passed.
     """
     from photon_ml_tpu_torch import faults

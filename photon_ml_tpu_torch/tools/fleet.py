@@ -40,7 +40,7 @@ backend, fit seconds, coefficients per second, peak allocated bytes and
 
 Left out, with the ROADMAP item that owns it: the members' trace and
 telemetry streams (``PHOTON_TRACE_OUT``/``PHOTON_TELEMETRY_OUT``) and the
-progress heartbeat (item 14d): ``FleetSpec.telemetry`` is False, and True
+progress heartbeat (item 14d (ii)): ``FleetSpec.telemetry`` is False, and True
 raises.
 
     python -m photon_ml_tpu_torch.tools.fleet --workdir out/fleet --device cpu
@@ -256,7 +256,7 @@ class FleetSpec:
     sigterm_process: int = 0
     #: stretch each chunk boundary so signals land mid-fit (tests)
     chunk_sleep_s: float = 0.0
-    #: the members' trace/telemetry streams and progress heartbeat: item 14d
+    #: the members' trace/telemetry streams and progress heartbeat: item 14d (ii)
     telemetry: bool = False
     status_file: Optional[str] = None
     status_port: Optional[int] = None
@@ -268,7 +268,7 @@ class FleetSpec:
 
             raise NotImplementedError(NOT_PORTED.format(
                 "the fleet members' trace and telemetry streams and progress heartbeat "
-                "(FleetSpec.telemetry)", "14d"))
+                "(FleetSpec.telemetry)", "14d (ii)"))
         if self.problem not in ("small", "scale"):
             raise ValueError(f"problem must be 'small' or 'scale', got {self.problem!r}")
 

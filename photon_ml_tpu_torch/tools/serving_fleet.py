@@ -28,7 +28,7 @@ on ``cuda:0`` with one card); ``device="cpu"`` runs them on the CPU.
 
 Left out: the live status surface (``parallel/fleet_status.py``'s
 ``FleetStatusWriter``, which this supervisor does not publish to), and,
-with ROADMAP item 14d, the members' serving heartbeat lines
+with ROADMAP item 14d (ii), the members' serving heartbeat lines
 (``tail_heartbeat_fields``) and the flight-recorder harvest of a killed
 member. A member's death is detected from its heartbeat file and its exit
 code alone.

@@ -80,7 +80,7 @@ def test_serving_rows_are_the_reference_rows_with_one_not_ported():
 
     assert chaos.SERVING_ROWS == j_chaos.SERVING_ROWS
     assert chaos.PIPELINE_POINTS == j_chaos.PIPELINE_POINTS
-    assert chaos.SERVING_NOT_PORTED == {"flight_dump_kill": "14d"}
+    assert chaos.SERVING_NOT_PORTED == {"flight_dump_kill": "14d (ii)"}
 
 
 def test_unknown_points_and_rows_are_refused(tmp_path):
@@ -107,7 +107,7 @@ def test_tree_digest_sees_content_and_names(tmp_path):
 def test_flight_dump_row_is_reported_not_ported_never_passed(tmp_path):
     report = chaos.run_serving_matrix(str(tmp_path), rows=["flight_dump_kill"], device="cpu")
     assert report["results"] == {}
-    assert report["not_ported"] == {"flight_dump_kill": "ROADMAP.md Queue 1 item 14d"}
+    assert report["not_ported"] == {"flight_dump_kill": "ROADMAP.md Queue 1 item 14d (ii)"}
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ end-to-end and index tests, on its 240-row ``avro_dataset``), on the CPU:
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -256,26 +257,33 @@ REFUSED_KEYS = [
                  id='{"warm_start": {"dir": "x"}}-14'),
     # the fleet's key is ported: a fleet of one process trains (None)
     pytest.param({"distributed": {"num_processes": 1}}, None, id='{"mesh": true}-12'),
-    ({"trace_out": "t.jsonl"}, 14),
-    ({"telemetry_out": "t.jsonl"}, 14),
-    ({"report_out": "r.md"}, 14),
-    ({"xprof": "x"}, 14),
-    ({"heartbeat": {"every": 5}}, 14),
-    ({"heartbeat": 5}, 14),
+    # the trace, telemetry and report sinks and the heartbeat are ported: the
+    # run trains and writes its file (None); the executable profiler is not
+    *[pytest.param(extra, None, id=f"{json.dumps(extra)[:30]}-14") for extra in [
+        {"trace_out": "t.jsonl"}, {"telemetry_out": "t.jsonl"}, {"report_out": "r.md"},
+        {"heartbeat": {"every": 5}}, {"heartbeat": 5}]],
+    pytest.param({"xprof": "x"}, "14d (iii)", id='{"xprof": "x"}-14'),
 ]
+
+# the sinks whose relative paths the tests below put under tmp_path
+_SINK_KEYS = ("trace_out", "telemetry_out", "report_out")
 
 
 @pytest.mark.parametrize("extra,item", REFUSED_KEYS, ids=lambda v: json.dumps(v)[:30])
-def test_train_refuses_unported_keys(avro_dataset, extra, item):
+def test_train_refuses_unported_keys(avro_dataset, extra, item, tmp_path):
     _, train_path, _ = avro_dataset
     config = _config(train_path, None)
     for k, v in extra.items():
-        config[k] = {**config[k], **v} if k == "input" else v
+        config[k] = ({**config[k], **v} if k == "input"
+                     else str(tmp_path / v) if k in _SINK_KEYS else v)
     if item is None:  # ported: the run trains
         assert t_train.run(config, device="cpu")["num_rows"] == 200
+        for k in _SINK_KEYS:
+            if k in config:
+                assert os.path.getsize(config[k]) > 0, k
         return
-    exc, match = ((NotImplementedError, rf"item {item}\)") if isinstance(item, (int, str))
-                  else item)
+    exc, match = ((NotImplementedError, rf"item {re.escape(str(item))}\)")
+                  if isinstance(item, (int, str)) else item)
     with pytest.raises(exc, match=match):
         t_train.run(config, device="cpu")
 
@@ -304,10 +312,12 @@ REFUSED_FLAGS = [
                  id="['--warm-start', 'd']-14"),
     *[pytest.param(flags, "plain", (SystemExit, "2"), id=f"{flags}-14") for flags in [
         ["--delta", "d.avro"], ["--refresh-registry-dir", "r"], ["--lambda-points", "3"]]],
-    *[pytest.param(flags, None, item, id=f"{flags}-{str(item)[:2]}") for flags, item in [
-        (["--trace-out", "t"], 14), (["--telemetry-out", "t"], 14),
-        (["--report-out", "r"], 14), (["--xprof-dir", "x"], 14),
-        (["--xprof-arm", "3"], 14), (["--heartbeat-every", "5"], 14)]],
+    # the sinks and the heartbeat's interval are ported: the run trains (None)
+    *[pytest.param(flags, "plain", None, id=f"{flags}-14") for flags in [
+        ["--trace-out", "t"], ["--telemetry-out", "t"], ["--report-out", "r"],
+        ["--heartbeat-every", "5"]]],
+    *[pytest.param(flags, None, "14d (iii)", id=f"{flags}-14") for flags in [
+        ["--xprof-dir", "x"], ["--xprof-arm", "3"]]],
 ]
 
 
@@ -325,13 +335,87 @@ def test_train_refuses_unported_flags(avro_dataset, flags, config, refusal, tmp_
                 "type": "factored_random_effect", "shard_name": "global", "id_name": "userId",
                 "latent_dim": 2}
         path.write_text(json.dumps(cfg))
+    if flags[0] in ("--trace-out", "--telemetry-out", "--report-out"):
+        flags = [flags[0], str(tmp_path / flags[1])]
     if refusal is None:  # ported: the run trains
         assert t_train.main(["--config", str(path), "--device", "cpu", *flags]) == 0
+        if flags[0] != "--heartbeat-every" and flags[0] != "--mesh":
+            assert os.path.getsize(flags[1]) > 0
         return
-    exc, match = ((NotImplementedError, rf"item {refusal}\)")
+    exc, match = ((NotImplementedError, rf"item {re.escape(str(refusal))}\)")
                   if isinstance(refusal, (int, str)) else refusal)
     with pytest.raises(exc, match=match):
         t_train.main(["--config", str(path), "--device", "cpu", *flags])
+
+
+def _phase_paths(node, prefix=()):
+    out = set()
+    for child in node.children.values():
+        path = prefix + (child.name,)
+        out |= {path} | _phase_paths(child, path)
+    return out
+
+
+def test_train_trace_telemetry_and_report_match_the_jax_package(avro_dataset, tmp_path):
+    """``cli train`` of both packages with ``trace_out``, ``telemetry_out``,
+    ``report_out``, a 0.05 s heartbeat and a checkpoint: the same phase-tree
+    paths (the port's own ``re_build:*``/``re_coo_layout`` spans besides),
+    the same coordinate table (steps, retries, rollbacks, frozen), the same
+    key-metric names but the compile counters (ROADMAP.md Queue 1 item 14d
+    (iii)), heartbeat lines, a Perfetto file, and ``cli report`` of the
+    port's artifacts equal to the report the run wrote."""
+    from photon_ml_tpu import telemetry as JT
+    from photon_ml_tpu.telemetry.report import RunReport as JRunReport
+    from photon_ml_tpu_torch import telemetry as TT
+    from photon_ml_tpu_torch.telemetry.report import RunReport
+
+    _, train_path, _ = avro_dataset
+    cfg = {}
+    for pkg in ("jax", "port"):
+        cfg[pkg] = {**_config(train_path, str(tmp_path / f"{pkg}-model")),
+                    "num_iterations": 2, "heartbeat": {"every": 0.05},
+                    "checkpoint": {"dir": str(tmp_path / f"{pkg}-ckpt"), "resume": False},
+                    "trace_out": str(tmp_path / f"{pkg}.trace.jsonl"),
+                    "telemetry_out": str(tmp_path / f"{pkg}.metrics.jsonl"),
+                    "report_out": str(tmp_path / f"{pkg}.report.md")}
+    JT.reset()
+    j_train.run(cfg["jax"])
+    JT.reset()
+    TT.reset()
+    summary = t_train.run(cfg["port"], device="cpu")
+    TT.reset()
+    assert summary["report"] == cfg["port"]["report_out"]
+    assert summary["report_json"] == str(tmp_path / "port.report.json")
+    reports = {
+        "jax": JRunReport.load(cfg["jax"]["trace_out"],
+                               cfg["jax"]["telemetry_out"], cfg["jax"]["checkpoint"]["dir"]),
+        "port": RunReport.load(cfg["port"]["trace_out"], cfg["port"]["telemetry_out"],
+                               cfg["port"]["checkpoint"]["dir"])}
+    j_paths = _phase_paths(reports["jax"].phase_tree())
+    t_paths = _phase_paths(reports["port"].phase_tree())
+    assert j_paths <= t_paths
+    assert {p[-1].split(":")[0] for p in t_paths - j_paths} == {"re_build", "re_coo_layout"}
+    assert ("fit", "fit", "cd_iteration", "coordinate:perUser") in t_paths
+
+    def table(report):
+        return [(c["coordinate"], c["steps"], c["solve_retries"], c["rollbacks"], c["frozen"])
+                for c in report.coordinate_summary()]
+
+    assert table(reports["port"]) == table(reports["jax"]) == [
+        ("fixed", 2, 0, 0, False), ("perUser", 2, 0, 0, False)]
+    compile_counters = {"jit_compiles", "jit_compile_seconds", "xla_recompiles", "mfu"}
+    j_names = {k for k in reports["jax"].key_metrics()
+               if k not in compile_counters and not k.startswith("exec.")}
+    assert set(reports["port"].key_metrics()) == j_names
+    assert {"fit_seconds", "rows_per_sec", "coeffs_per_sec", "device_fetches"} <= j_names
+    assert reports["port"].heartbeats and reports["jax"].heartbeats
+    assert json.loads((tmp_path / "port.trace.perfetto.json").read_text())["traceEvents"]
+    # cli report over the same artifacts renders what the run wrote
+    out = tmp_path / "again.md"
+    assert t_cli.main(["report", "--trace", cfg["port"]["trace_out"], "--telemetry",
+                       cfg["port"]["telemetry_out"], "--checkpoint-dir",
+                       cfg["port"]["checkpoint"]["dir"], "--out", str(out)]) == 0
+    assert out.read_text() == (tmp_path / "port.report.md").read_text()
 
 
 def _steps(path):
@@ -432,16 +516,17 @@ def test_sigterm_mid_fit_leaves_a_checkpoint_and_an_interrupted_summary(avro_dat
                                                    id="pipeline-14"),
                                       # serve is ported: it takes no --config
                                       pytest.param("serve", (SystemExit, "2"), id="serve-14"),
-                                      pytest.param("report", "14d", id="report-14"),
-                                      pytest.param("profile", "14d", id="profile-14"),
+                                      # report is ported: it takes no --config
+                                      pytest.param("report", (SystemExit, "2"), id="report-14"),
+                                      pytest.param("profile", "14d (iii)", id="profile-14"),
                                       # the sweep subcommand and its registry flag are
                                       # ported: the missing config is what fails
                                       pytest.param("sweep", (FileNotFoundError, "x.json"),
                                                    id="sweep-11")])
 def test_unported_subcommands_raise(cmd, item):
     extra = ["--registry-dir", "r"] if cmd == "sweep" else []
-    exc, match = ((NotImplementedError, rf"'{cmd}'.*item {item}\)") if isinstance(item, str)
-                  else item)
+    exc, match = ((NotImplementedError, rf"'{cmd}'.*item {re.escape(item)}\)")
+                  if isinstance(item, str) else item)
     with pytest.raises(exc, match=match):
         t_cli.main([cmd, "--config", "x.json", *extra])
 
@@ -522,7 +607,9 @@ def test_train_sweep_matches_the_jax_driver(avro_dataset, tmp_path):
 
 def test_sweep_subcommand_selects_as_fit_sweep(avro_dataset, tmp_path, capsys):
     """cli sweep (the grid by flag) against an in-process fit_sweep on the
-    datasets the driver reads."""
+    datasets the driver reads; with ``--trace-out``, ``--telemetry-out``
+    and ``--report-out`` its report holds the per-config sweep table."""
+    from photon_ml_tpu_torch import telemetry as TT
     from photon_ml_tpu_torch.config import parse_game_config
     from photon_ml_tpu_torch.game import GameEstimator
     from photon_ml_tpu_torch.sweep import parse_sweep_spec
@@ -531,9 +618,19 @@ def test_sweep_subcommand_selects_as_fit_sweep(avro_dataset, tmp_path, capsys):
     del cfg["sweep"]
     path = tmp_path / "c.json"
     path.write_text(json.dumps(cfg))
+    TT.reset()
     assert t_cli.main(["sweep", "--config", str(path), "--sweep", "lambda=0.01:10:log4",
-                       "--device", "cpu"]) == 0
+                       "--device", "cpu", "--trace-out", str(tmp_path / "s.trace.jsonl"),
+                       "--telemetry-out", str(tmp_path / "s.metrics.jsonl"),
+                       "--report-out", str(tmp_path / "s.report.md")]) == 0
+    TT.reset()
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["sweep"]
+    md = (tmp_path / "s.report.md").read_text()
+    assert "## Hyperparameter sweep" in md and "4/4 config(s) processed" in md
+    assert f"selected config **#{summary['selected_index']}**" in md
+    doc = json.loads((tmp_path / "s.report.json").read_text())
+    assert [c["index"] for c in doc["sweep"]["configs"]] == [0, 1, 2, 3]
+    assert doc["sweep"]["selected_index"] == summary["selected_index"]
     train, maps = t_train.read_input(cfg["input"], device="cpu")
     val, _ = t_train.read_input({**cfg["input"], **cfg["validation"]}, index_maps=maps,
                                 device="cpu")
@@ -774,10 +871,32 @@ def test_pipeline_subcommand_runs_on_the_cpu(pipeline_base, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--telemetry-out", "--report-out"])
-def test_pipeline_run_report_flags_are_refused_naming_14d(pipeline_base, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=rf"{flag}.*item 14d\)"):
-        t_cli.main(["pipeline", *_pipeline_argv(pipeline_base, "port", tmp_path),
-                    flag, str(tmp_path / "x"), "--device", "cpu"])
+def test_pipeline_run_report_flags_are_refused_naming_14d(pipeline_base, tmp_path, flag,
+                                                          capsys):
+    """``--telemetry-out`` and ``--report-out`` are ported: one idle cycle
+    writes the metrics snapshot (``pipeline.cycles`` 1) or the run report
+    with its Pipeline section, and the summary names the file."""
+    from photon_ml_tpu_torch import telemetry as TT
+
+    TT.reset()
+    (tmp_path / "deltas").mkdir()
+    out = tmp_path / ("run.metrics.jsonl" if flag == "--telemetry-out" else "run.report.md")
+    rc = t_cli.main(["pipeline", *_pipeline_argv(pipeline_base, "port", tmp_path, "--cycles",
+                                                 "1", "--interval-s", "0"),
+                     flag, str(out), "--device", "cpu"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and summary["cycles"] == 1 and summary["idle_cycles"] == 1
+    if flag == "--telemetry-out":
+        (line,) = [json.loads(x) for x in out.read_text().splitlines()]
+        assert line["type"] == "metrics"
+        assert line["snapshot"]["counters"]["pipeline.idle_cycles"] == 1
+        assert summary["telemetry"]["counters"]["pipeline.cycles"] == 1
+    else:
+        md = out.read_text()
+        assert "## Pipeline" in md and "- 1 conductor cycle(s), 1 idle" in md
+        assert summary["report"] == str(out)
+        doc = json.loads((tmp_path / "run.report.json").read_text())
+        assert doc["pipeline"] == {"cycles": 1, "idle_cycles": 1}
 
 
 def test_pipeline_sigterm_finishes_the_cycle_and_exits_75(pipeline_base, tmp_path):

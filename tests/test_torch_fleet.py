@@ -121,7 +121,7 @@ def test_sigterm_to_one_member_boundary_stops_the_whole_fleet(tmp_path):
 
 
 def test_fleet_spec_refuses_the_members_telemetry_streams(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"item 14d\)"):
+    with pytest.raises(NotImplementedError, match=r"item 14d \(ii\)\)"):
         fleet.FleetSpec(workdir=str(tmp_path), telemetry=True)
     with pytest.raises(ValueError, match="problem"):
         fleet.FleetSpec(workdir=str(tmp_path), problem="huge")

@@ -83,11 +83,11 @@ def test_snapshot_exited_member_not_alive_and_update_merges(tmp_path):
 
 def test_snapshot_includes_member_heartbeat_fields(tmp_path):
     """The members' progress heartbeats (tail-parsed from their telemetry
-    streams) are item 14d: a ``telemetry_out`` is refused naming it, and a
+    streams) are item 14d (ii): a ``telemetry_out`` is refused naming it, and a
     writer without one reports liveness alone."""
     fleet_dir = str(tmp_path / "fleet")
     _touch_heartbeat(fleet_dir, 0)
-    with pytest.raises(NotImplementedError, match=r"item 14d\)"):
+    with pytest.raises(NotImplementedError, match=r"item 14d \(ii\)\)"):
         FleetStatusWriter(fleet_dir=fleet_dir, num_processes=1, heartbeat_deadline_s=5.0,
                           telemetry_out=str(tmp_path / "telemetry.jsonl"))
     snap = FleetStatusWriter(fleet_dir=fleet_dir, num_processes=1,

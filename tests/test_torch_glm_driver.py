@@ -10,6 +10,8 @@
 - ``"diagnostics": true``, ``trace_out`` and ``telemetry_out`` are refused.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -133,15 +135,30 @@ def test_validation_feature_space_pinned_to_training(tmp_path):
     assert summary["best_lambda"] == JGLMDriver(cfg).run()["best_lambda"]
 
 
-@pytest.mark.parametrize("extra,item", [
-    # the diagnostics stage is ported; with a trace key the run is refused (14)
-    pytest.param({"diagnostics": True, "trace_out": "t.jsonl"}, 14, id="extra0-11"),
-                                        ({"trace_out": "t.jsonl"}, 14),
-                                        ({"telemetry_out": "t.jsonl"}, 14)])
-def test_unported_stages_and_keys_are_refused(libsvm_files, extra, item):
-    _, train, val = libsvm_files
-    with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
-        GLMDriver(_config(train, val, **extra), device="cpu").run()
+@pytest.mark.parametrize("extra,key", [
+    pytest.param({"diagnostics": True, "trace_out": "t.jsonl"}, "trace_out", id="extra0-11"),
+    pytest.param({"trace_out": "t.jsonl"}, "trace_out", id="extra1-14"),
+    pytest.param({"telemetry_out": "t.jsonl"}, "telemetry_out", id="extra2-14")])
+def test_unported_stages_and_keys_are_refused(libsvm_files, extra, key):
+    """The diagnostics stage and the ``trace_out``/``telemetry_out`` keys are
+    ported: a trace holds every stage's span (the DIAGNOSED stage's too)
+    and a Perfetto file beside it; a telemetry file one metrics line."""
+    from photon_ml_tpu_torch import telemetry as TT
+
+    tmp, train, val = libsvm_files
+    path = tmp / f"{key}-{len(extra)}.jsonl"
+    TT.reset()
+    summary = GLMDriver(_config(train, val, **{**extra, key: str(path)}), device="cpu").run()
+    TT.reset()
+    lines = [json.loads(x) for x in path.read_text().splitlines()]
+    if key == "telemetry_out":
+        assert [x["type"] for x in lines] == ["metrics"]
+        return
+    names = {x.get("name") for x in lines}
+    assert {"preprocess", "train", "validate", "write models"} <= names
+    assert ("diagnose" in names) == ("diagnostics" in extra) == \
+        (summary["stages"][-1] == "DIAGNOSED")
+    assert os.path.exists(str(path)[:-len(".jsonl")] + ".perfetto.json")
 
 
 def test_cli_glm_subprocess(libsvm_files):
@@ -156,7 +173,20 @@ def test_cli_glm_subprocess(libsvm_files):
     assert proc.returncode == 0, proc.stderr[-2000:]
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["stages"][-1] == "VALIDATED"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        from photon_ml_tpu_torch.cli.glm import main
+    # the trace and telemetry sinks: the stages' spans, a Perfetto file, a
+    # metrics line
+    from photon_ml_tpu_torch import telemetry as TT
+    from photon_ml_tpu_torch.cli.glm import main
 
-        main(["--config", str(cfg_path), "--trace-out", "t.jsonl"])
+    TT.reset()
+    trace, tele = tmp / "glm.trace.jsonl", tmp / "glm.metrics.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert main(["--config", str(cfg_path), "--device", "cpu", "--trace-out", str(trace),
+                     "--telemetry-out", str(tele)]) == 0
+    TT.reset()
+    names = {json.loads(x).get("name") for x in trace.read_text().splitlines()}
+    assert {"preprocess", "train", "validate", "write models"} <= names
+    doc = json.loads((tmp / "glm.trace.perfetto.json").read_text())
+    assert {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"} >= {"train"}
+    (line,) = [json.loads(x) for x in tele.read_text().splitlines()]
+    assert line["type"] == "metrics" and "counters" in line["snapshot"]

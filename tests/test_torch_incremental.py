@@ -33,9 +33,11 @@ port with ``device="cpu"``):
 - the masked-lane bootstrap's summaries (``bootstrap_samples``) within 1e-3
   of the JAX package's.
 
-Left out: ``test_freshness_report_round_trip`` (``RunReport``'s Freshness
-section, ROADMAP Queue 1 item 14d) and
-``test_bench_freshness_budget_truncation`` (the port's benchmark is a PR of
+- ``test_freshness_report_round_trip``: the refresh's RunReport Freshness
+  section, its counts, touched fraction and lineage the JAX package's;
+  ``cli refresh --report-out`` in ``test_cli_refresh_end_to_end``.
+
+Left out: ``test_bench_freshness_budget_truncation`` (the port's benchmark is a PR of
 its own).
 
 Tolerances: fitted coefficients rtol/atol 2e-3 between the packages (a
@@ -66,7 +68,10 @@ from photon_ml_tpu.optim import OptimizerConfig as JOpt
 from photon_ml_tpu.optim import OptimizerType as JOptType
 from photon_ml_tpu.optim import RegularizationContext as JReg
 from photon_ml_tpu.optim import RegularizationType as JRegType
+from photon_ml_tpu import telemetry as j_telemetry
+from photon_ml_tpu.telemetry.report import RunReport as JRunReport
 from photon_ml_tpu_torch import incremental, telemetry
+from photon_ml_tpu_torch.telemetry.report import RunReport
 from photon_ml_tpu_torch.faults import (
     FaultPlan,
     FaultRule,
@@ -217,9 +222,11 @@ def glmix(tmp_path_factory):
         if pkg == "j":
             base_fit = JEstimator(jcfg).fit(jb, validation_data=jv, checkpoint_spec=JCheckpointSpec(
                 directory=ckpt, resume=False))
+            j_telemetry.reset()
             ws = j_inc.load_warm_start(ckpt)
             scan = j_inc.scan_delta(jd, {"userId": ws.model.models["perUser"].vocab})
             res = JEstimator(jcfg).fit_incremental(jc, ws, delta=scan, validation_data=jv)
+            out["j_report"] = JRunReport.from_live()
         else:
             base_fit = GameEstimator(tcfg).fit(tb, validation_data=tv, device="cpu",
                                                checkpoint_spec=CheckpointSpec(directory=ckpt,
@@ -230,6 +237,7 @@ def glmix(tmp_path_factory):
             res = GameEstimator(tcfg).fit_incremental(tc, ws, delta=scan, validation_data=tv,
                                                       device="cpu")
             out["snap"] = telemetry.snapshot()
+            out["report"] = RunReport.from_live()
             out["ref"] = GameEstimator(tcfg).fit(tc, validation_data=tv, device="cpu")
         out.update({f"{pkg}_ckpt": ckpt, f"{pkg}_base": base_fit, f"{pkg}_ws": ws,
                     f"{pkg}_scan": scan, f"{pkg}_res": res})
@@ -345,6 +353,31 @@ def test_structural_speedup_lane_telemetry(glmix):
     np.testing.assert_array_equal(t_cd.touched_values, j_cd.touched_values)
     np.testing.assert_array_equal(t_cd.new_values, j_cd.new_values)
     assert glmix["t_scan"].to_json() == glmix["j_scan"].to_json()
+
+
+def test_freshness_report_round_trip(glmix):
+    """tests/test_incremental.py::test_freshness_report_round_trip, and the
+    section's numbers against the JAX package's report of its refresh."""
+    report, j_report = glmix["report"], glmix["j_report"]
+    fresh = report.freshness_summary()
+    assert fresh is not None
+    assert fresh["lanes_solved"] >= 3
+    assert fresh["lanes_skipped"] > 0
+    assert 0 < fresh["lanes_solved_fraction"] < 0.5
+    assert fresh["touched_fraction"] == pytest.approx(3 / 41, abs=0.05)
+    md = report.to_markdown()
+    assert "## Freshness" in md
+    assert "kept bit-identical" in md
+    doc = report.to_json()
+    assert doc["freshness"]["lanes_solved"] == fresh["lanes_solved"]
+    assert "time_to_fresh_s" in report.key_metrics()
+    j_fresh = j_report.freshness_summary()
+    for key in ("lanes_solved", "lanes_skipped", "bucket_solves", "buckets_skipped",
+                "touched_entities", "warm_restores", "fits", "touched_fraction",
+                "touched_fraction_by_coordinate", "lanes_solved_fraction"):
+        assert fresh[key] == j_fresh[key], key
+    for key in ("kind", "base_step", "delta_digest", "delta_rows", "touched_fraction"):
+        assert fresh["base"][key] == j_fresh["base"][key], key
 
 
 def test_incremental_refuses_checkpointing_into_its_base(glmix):
@@ -937,7 +970,9 @@ def test_cli_refresh_end_to_end(cli_base):
 
     tmp = cli_base["tmp"]
     reg = str(tmp / "registry")
-    summary = _refresh_in_process(cli_base, reg, "fresh-model")
+    telemetry.reset()
+    summary = _refresh_in_process(cli_base, reg, "fresh-model", "--report-out",
+                                  str(tmp / "r.md"))
     fresh = summary["freshness"]
     assert fresh["base"]["kind"] == "step"
     assert fresh["lanes_solved"] >= 3 and fresh["lanes_skipped"] >= 1
@@ -976,9 +1011,15 @@ def test_cli_refresh_end_to_end(cli_base):
     assert _without_paths({k: v for k, v in lineage.items() if k != "quality_gate"}) == \
         _without_paths({k: v for k, v in jlineage.items() if k != "quality_gate"})
     assert lineage["quality_gate"]["decision"] == jlineage["quality_gate"]["decision"]
-    # --report-out (the run report) is not ported
-    with pytest.raises(NotImplementedError, match="item 14d"):
-        _refresh_in_process(cli_base, reg, "unused", "--report-out", str(tmp / "r.md"))
+    # --report-out: the run report's Freshness section, from the live registries
+    assert summary["report"] == str(tmp / "r.md")
+    md = (tmp / "r.md").read_text()
+    assert "## Freshness" in md and "kept bit-identical" in md
+    doc = json.loads((tmp / "r.json").read_text())
+    assert doc["freshness"]["lanes_solved"] == fresh["lanes_solved"]
+    assert doc["freshness"]["lanes_skipped"] == fresh["lanes_skipped"]
+    assert doc["freshness"]["published_versions"] == 1
+    assert doc["freshness"]["base"]["kind"] == "step"
 
 
 def test_crash_at_publish_preserves_base_and_registry(cli_base):

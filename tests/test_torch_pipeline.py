@@ -19,9 +19,8 @@ tests/test_pipeline.py, on one Avro world (JAX on the CPU, the port with
   quarantine a second delta's candidate at 40,000 rows (marked slow: its
   two base fits and four cycles take ~2 minutes).
 
-The reference's RunReport "Pipeline" section is ROADMAP.md Queue 1 item
-14d: its counters, gauge and histogram are asserted in
-``telemetry.snapshot()`` instead.
+The three-cycle run also renders the RunReport "Pipeline" section from the
+live registries, as the reference's does, its counts the JAX conductor's.
 """
 
 from __future__ import annotations
@@ -270,6 +269,25 @@ def test_three_cycle_supervised_run(world, tmp_path):
         # one sample per delta file of each publishing cycle: 1 + 2 + 3
         assert snap["histograms"]["pipeline.staleness_s"]["count"] == 6
         assert snap["gauges"]["pipeline.event_to_served_staleness_p99_s"] >= 0.0
+
+        # the run's telemetry renders the Pipeline report section
+        from photon_ml_tpu.telemetry.report import RunReport as JRunReport
+        from photon_ml_tpu_torch.telemetry.report import RunReport
+
+        report = RunReport.from_live()
+        doc = report.pipeline_summary()
+        assert doc is not None
+        assert doc["cycles"] == 4 and doc["idle_cycles"] == 1
+        assert doc["publishes"] == 3 and doc["escalations"] == 1
+        assert doc["event_to_served_staleness_p99_s"] >= 0.0
+        assert doc["cycle_time_s"]["count"] == 3
+        md = report.to_markdown()
+        assert "## Pipeline" in md
+        assert "staleness p99" in md
+        j_doc = JRunReport.from_live().pipeline_summary()
+        for key in ("cycles", "idle_cycles", "publishes", "escalations"):
+            assert doc[key] == j_doc[key], key
+        assert doc["cycle_time_s"]["count"] == j_doc["cycle_time_s"]["count"]
     finally:
         pipe._close("completed")
         jpipe._close("completed")

@@ -948,7 +948,7 @@ def test_serving_chaos_tier1_slice(tmp_path):
     failing with an injected OSError and served on the retry, a fan-out
     failure shed to fixed-effect-only and back at parity, a failed
     ownership swap leaving the old view serving. ``flight_dump_kill`` is
-    item 14d's: reported as not ported. The hard kill under traffic runs in
+    item 14d (ii)'s: reported as not ported. The hard kill under traffic runs in
     the full matrix (slow)."""
     import warnings
 
@@ -967,7 +967,7 @@ def test_serving_chaos_tier1_slice(tmp_path):
     assert report["results"]["route_fanout_io"]["degraded_scores"] > 0
     assert report["results"]["resize_swap"]["swap_failures"] == 1
     assert "flight_dump_kill" not in report["results"]
-    assert report["not_ported"] == {"flight_dump_kill": "ROADMAP.md Queue 1 item 14d"}
+    assert report["not_ported"] == {"flight_dump_kill": "ROADMAP.md Queue 1 item 14d (ii)"}
 
 
 @pytest.mark.slow

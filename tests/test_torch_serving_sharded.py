@@ -11,11 +11,14 @@ and ``serving.nearline_apply`` (with the hard-kill chaos row in
 subprocesses), and a sharded asyncio server through a hot swap and a
 nearline update mid-traffic.
 
-Left out, with their subjects elsewhere: ``test_serving_slo_smoke``,
-``test_gate_skips_serving_slo_metrics_missing_from_baseline``,
-``test_serving_report_section_roundtrip`` and ``test_serving_slo_budget_truncation``
-(the SLO bench and the run report: ROADMAP Queue 1 item 14d and the
-benchmark).
+``test_serving_report_section_roundtrip``: the RunReport "Serving" section
+of the port from the same serving counters, its JSON and markdown the JAX
+package's.
+
+Left out, with their subject elsewhere: ``test_serving_slo_smoke``,
+``test_gate_skips_serving_slo_metrics_missing_from_baseline`` and
+``test_serving_slo_budget_truncation`` (the SLO bench: the port's benchmark
+is a PR of its own).
 """
 
 import dataclasses
@@ -907,3 +910,36 @@ def test_nearline_targets_the_first_coordinate_of_its_id(mesh_world):
     np.testing.assert_allclose(engine.re_tables(0)[bucket][1][pos].numpy(),
                                direct.w[0].numpy(), atol=1e-6)
     assert torch.equal(engine.re_tables(1)[bucket][1], other_before)
+
+
+def test_serving_report_section_roundtrip():
+    """tests/test_serving_sharded.py::test_serving_report_section_roundtrip
+    through the port's RunReport, and the section against the JAX
+    package's report of the same snapshot."""
+    from photon_ml_tpu.telemetry.report import RunReport as JRunReport
+    from photon_ml_tpu_torch.telemetry.report import RunReport
+
+    snapshot = {
+        "counters": {"serving.requests": 2242, "serving.scored_rows": 8968, "serving.shed": 3,
+                     "serving.model_swaps": 2, "serving.nearline.applies": 3,
+                     "serving.nearline.applied_rows": 96, "serving.unseen_entities": 1},
+        "gauges": {},
+        "histograms": {
+            "serving.total_ms": {"count": 2242, "mean": 33.5, "p50": 33.4, "p99": 35.1},
+            "serving.batch_size": {"count": 600, "mean": 14.8},
+            "serving.nearline.update_lag_ms": {"count": 96, "mean": 9.0, "p99": 11.4},
+        },
+    }
+    report = RunReport(snapshot=snapshot, spans=[], sources={})
+    doc = report.to_json()
+    assert doc["serving"]["requests"] == 2242
+    assert doc["serving"]["nearline_lag_p99_ms"] == 11.4
+    md = report.to_markdown()
+    assert "## Serving" in md
+    assert "p99 35.1 ms" in md
+    assert "3 nearline apply(ies) covering 96 entity row(s)" in md
+    assert "p99 event->applied 11.4 ms" in md
+    assert "3 request(s) shed" in md
+    j_report = JRunReport(snapshot=snapshot, spans=[], sources={})
+    assert doc["serving"] == j_report.to_json()["serving"]
+    assert md == j_report.to_markdown()
