@@ -115,8 +115,8 @@ Phases, in order; any failure exits non-zero before the last line:
            scores within rtol/atol 5e-3 of 11b's;
        15. the serving tier on path 6's dataset: path 6's model published
            as registry version 1 with the quality gate on, loaded by
-           ``ModelRegistry`` and warmed; at least 1,000 requests (cut from
-           2,000 for the time limit) of 1-64
+           ``ModelRegistry`` and warmed; at least 600 requests (cut from
+           2,000, then 1,000, for the time limit) of 1-64
            of path 6's rows through ``ContinuousBatcher`` and
            ``ScoringServer`` (HTTP) from 8 closed-loop clients in a process
            of their own (``tools/http_load.py``), each answer within 1e-6
@@ -131,14 +131,18 @@ Phases, in order; any failure exits non-zero before the last line:
            the fixed and the per-user effects, every other user's score bit
            for bit; a label-shuffled candidate quarantined with the
            registry untouched; ``csr_margins`` at a 64-row request batch
-           against its plain version;
+           against its plain version; request traces on: a span sink, every
+           50th client request sampled (``X-Photon-Trace``), each sampled
+           trace persisted, the ring's records and drops counted, still one
+           host sync and one ``csr_margins`` launch a request batch, ``cli
+           report --requests`` rendering the slowest;
        15b. the served model in an entity-sharded engine over a ``model``
            axis of 4 (cuda:0 repeated on one card), within 1e-6 of path
            15's engine on the same rows;
        15c. the serving fleet on path 15's version 2 (its 99,997 users
            padded to 100,000 by 3 ids with no model): (a) 4 in-process
            members (``load_member_engine``, ``ShardMemberSource``) behind a
-           ``FleetRouter``, 125 calls (cut from 500, then 250) of 1-64 rows within 1e-6 of a single
+           ``FleetRouter``, 64 calls (cut from 500, 250, then 125) of 1-64 rows within 1e-6 of a single
            engine, a repeat bit for bit, each member's tables about a
            quarter, a pin to another version refused with 409, member 1 stopped and its
            rows shed to FE-only exactly; (b) 4 ``cli serve --member``
@@ -149,7 +153,12 @@ Phases, in order; any failure exits non-zero before the last line:
            and relaunched, a live resize 4 -> 8 -> 4: zero failed calls,
            64 rows routed at each settled view within 1e-6 of the single
            engine, every member reporting the card and draining to exit
-           75; a probe before and after the path (``host_probe``: threads,
+           75; the members' span streams and heartbeats in one directory
+           with the router's (every 10th call sampled), ``cli report
+           --fleet`` on it joining a sampled request across the router's
+           and a member's streams, member 1 lost with the last words
+           harvested from its stream, the survivors' drain dumps; a probe
+           before and after the path (``host_probe``: threads,
            child processes, memory, a fixed host workload and matmul) and
            a failure if the path left a process running;
        16. bench_freshness.py's config #4 (1M rows, 100K users, the last
@@ -174,9 +183,9 @@ Phases, in order; any failure exits non-zero before the last line:
            equal path 6's draws, the FE loss per CD iteration path 6's within
            rtol 1e-4, the AUC path 6's within 1e-3; no retry, no rollback;
            the models, index maps and feature statistics written), ``cli
-           score`` (a subprocess, on the card by default: its scores read
-           back bit for bit as the in-process model's plus offsets, its AUC
-           equal), and ``cli glm`` in process on path 8's LIBSVM files,
+           score`` (a subprocess, on the card by default, on the first of
+           the files, cut from all four: its scores read back bit for bit as
+           the in-process model's plus offsets, its AUC equal), and ``cli glm`` in process on path 8's LIBSVM files,
            bit-identical to path 8's sweep (best lambda, metrics, means);
            ``cli train`` takes a checkpoint key (every step, keep the last
            2: steps 2 and 3 must remain) and prints each fixed-effect
@@ -222,7 +231,11 @@ Phases, in order; any failure exits non-zero before the last line:
            checkpoint bit for bit (a)'s; each member's start-up seconds,
            backend, coefficients/s, peak (at most 0.55 of the one-process
            survivor's) and collective wait printed, with the detection and
-           relaunch seconds;
+           relaunch seconds; the members' streams one directory a
+           generation, ``cli report --fleet`` on each: (a) both members'
+           rows, a named straggler, the coordinated saves the skew is
+           estimated from, each member's last heartbeat in the status
+           snapshot; (b) the killed member lost in its generation;
        12d. on path 10's files: ``cli glm`` with ``"diagnostics": true``
            (both reports written, the VALIDATED results bit for bit path
            8's), and ``cli sweep`` on the Avro files (three to train, one to
@@ -255,17 +268,21 @@ Phases, in order; any failure exits non-zero before the last line:
            streamed fit killed at each and resumed bit for bit, 4 rows at
            once) beside the pipeline row ``pipeline.cycle_start`` (a small
            ``cli pipeline`` daemon killed at the top of its cycle: base
-           unchanged, no partial version, the rerun publishes);
+           unchanged, no partial version, the rerun publishes) and the
+           serving row ``flight_dump_kill`` (a process killed in the middle
+           of its flight dump exits 113 and leaves nothing a fleet report
+           adopts; the rerun's dump holds every record);
        12b. config #4 (path 6's draws, every tenth row held out) through
-           ``GameEstimator.fit_sweep`` over ``lambda=1e-4:1e2:log16``, one CD
-           iteration (cut from 2 for the time limit), selected on auc: the saved winner and the one
+           ``GameEstimator.fit_sweep`` over ``lambda=1e-4:1e2:log8`` (cut from
+           log16), one CD iteration (cut from 2 for the time limit), selected on auc: the saved winner and the one
            published to a registry (``registry_dir``) reload bit for bit,
            its validation AUC within 1e-3 of ``fit`` at its lambda;
            ``fit_grid`` over two fixed effects (L2 1 and 10) best-first,
            each entry bit for bit its combination's ``fit``;
        11. BASELINE config #5 (bench_northstar.py: 138,493 users, 26,744
-           movies, its 20M rows cut to NS_ROWS = 7.5M, every user and movie
-           still drawn ~54 and ~280 times (at 5M rows the per-user update
+           movies, its 20M rows cut to NS_ROWS = 6.5M (from 10M, then 7.5M),
+           every user and movie still drawn ~47 and ~243 times (at 5M rows
+           the per-user update
            no longer raised the validation AUC: 0.6751 -> 0.6743); a fixed effect on movieFeatures, per-user and
            per-movie NEWTON random effects and the factored ``mf``
            coordinate, latent_dim 2, its kron refit on the margins and
@@ -326,7 +343,7 @@ VARIANCE_RTOL = 1e-4
 # bench_northstar.py (BASELINE config #5): rows, users, movies. Its 20M rows
 # are cut to 10M to keep the whole script inside its time limit: a depth cut,
 # the model's width (every user and movie, every feature) unchanged
-NS_ROWS = 7_500_000
+NS_ROWS = 6_500_000
 NS_VAL = 1_000_000
 NS_USERS = 138_493
 NS_MOVIES = 26_744
@@ -335,7 +352,9 @@ NS_FE_NNZ = 4
 NS_CTX = 4  # movieCtx and userCtx dims
 PROJECTED_DIM = 16  # path 11b: no wider than the widest buckets' 16-32 rows
 SWEEP_LANES = 16  # bench_sweep.py's N_CONFIGS: the lambdas of path 12 and the lane rows
-GAME_SWEEP_GRID = "lambda=1e-4:1e2:log16"  # path 12b, cli/sweep.py's documented grid
+# path 12b: cli/sweep.py's documented grid is lambda=1e-4:1e2:log16, cut to 8
+# points for the time limit
+GAME_SWEEP_GRID = "lambda=1e-4:1e2:log8"
 CLI_SWEEP_GRID = "lambda=1e-2:1e2:log4"  # path 12d
 BOOT_ENTITIES, BOOT_ROWS, BOOT_FEATURES = 4096, 64, 16  # bench_diagnostics.py's bucket
 BOOT_SAMPLES = 64  # bench_diagnostics.py's NUM_SAMPLES
@@ -357,23 +376,26 @@ MESH_GAME_TOL = dict(rtol=5e-3, atol=5e-3)
 MESH_TABLE_TOL = dict(rtol=2e-3, atol=2e-4)  # tests/test_streaming.py:150-181
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
-SERVE_REQUESTS = 1_000  # path 15: at least this many requests, each of 1 to SERVE_MAX_BATCH rows
+SERVE_REQUESTS = 600  # path 15: at least this many requests, each of 1 to SERVE_MAX_BATCH rows (2,000, then 1,000 until cut)
+SERVE_V2_ANSWERS = 300  # path 15: answers of version 2 after the swap before the clients stop (500 until cut)
 # (2,000 until cut for the script's time limit)
 SERVE_MAX_BATCH = 64  # bench_serving.py:82-86: MAX_BATCH 64, N_CLIENTS 8
 SERVE_CLIENTS = 8
+SERVE_SAMPLE_EVERY = 50  # path 15: every 50th client request carries a sampled trace header
 SERVE_ATOL = 1e-6  # tests/test_serving.py:134 (and the mesh's, tests/test_serving_sharded.py:151)
 NEARLINE_USERS = 256  # path 15's feedback events: 4 rows each of 256 users
 NEARLINE_ATOL = 1e-6  # tests/test_serving_sharded.py:519
 GATE_SAMPLES = 16  # bootstrap resamples of the quality gate's AUC CI
 SERVE_MESH = 4  # path 15b: the entity-sharded engine's model axis
 FLEET_SIZE = 4  # path 15c: members; 100,000 users divide over 4 and 8
-FLEET_CALLS = 125  # path 15c (a): router calls of 1 to SERVE_MAX_BATCH rows (500, then 250 until cut)
+FLEET_CALLS = 64  # path 15c (a): router calls of 1 to SERVE_MAX_BATCH rows (500, 250, then 125 until cut)
 # path 15c (b): the router's traffic, the kill and the resizes, seconds from
 # the first call; a step that finds the previous one still running starts
 # when it ends
 FLEET_TRAFFIC = dict(traffic_seconds=10.0, traffic_hz=20.0, traffic_rows=16,
                      traffic_features=(("global", NNZ_PER_ROW), ("user", GAME_RE_FEATURES)),
-                     kill_member=1, kill_after_s=1.5, resizes=((5.0, 8), (9.5, 4)))
+                     kill_member=1, kill_after_s=1.5, resizes=((5.0, 8), (9.5, 4)),
+                     trace_sample_every=10)
 MESH_OWNERS = 4  # path 17: the model axis of the factored coordinate, the projector, the sweep
 FACTORED_MESH_TOL = dict(rtol=5e-3, atol=5e-3)  # tests/test_factored.py:310-320
 SWEEP_MESH_RTOL, SWEEP_MESH_W_ATOL = 1e-5, 1e-3  # tests/test_sweep.py:227-235
@@ -2537,7 +2559,8 @@ def run_cli_path(seed: int, card: str, work: str, game: dict,
     native encoder; ``cli index`` (a subprocess) indexes them; ``cli train``
     (in process, the guard on by default) reads them with the native decoder
     and fits path 6's GLMix; ``cli score`` (a subprocess, on the card by
-    default) scores the training files with ``final/``; ``cli glm`` (in
+    default) scores the first training file (a quarter of the rows; all four
+    before the cut for the time limit) with ``final/``; ``cli glm`` (in
     process) repeats path 8's GLM sweep on its LIBSVM files. Fails unless the
     native reader ran, the dataset equals path 6's draws (columns mapped back
     through the saved index map), the fixed effect's loss per CD iteration is
@@ -2743,10 +2766,13 @@ def run_cli_path(seed: int, card: str, work: str, game: dict,
     bad += check_cli_telemetry(stats, sinks, summary, seen["fit"], ds, config, game, work,
                                card)
 
-    # 4. cli score, a subprocess on the card by default, on the training files
+    # 4. cli score, a subprocess on the card by default, on the first training
+    # file (its rows are the dataset's first quarter; all four files before
+    # the cut for the time limit)
+    score_rows = int(bounds[1])
     score_cfg = os.path.join(work, "score.json")
     with open(score_cfg, "w") as fh:
-        json.dump({"input": inp}, fh)
+        json.dump({"input": {**inp, "paths": [os.path.join(data_dir, "part-0.avro")]}}, fh)
     scores_path = os.path.join(work, "scores.avro")
     scored, stats["score_s"] = _run_cli_subprocess(
         ["score", "--model-dir", os.path.join(out, "final"), "--config", score_cfg,
@@ -2754,9 +2780,11 @@ def run_cli_path(seed: int, card: str, work: str, game: dict,
     t0 = time.perf_counter()
     read_back = np.asarray([r["predictionScore"] for r in read_scoring_results(scores_path)])
     stats["score_read_back_s"] = time.perf_counter() - t0
-    score_same = {"scores": np.array_equal(read_back, scores),
-                  "auc": scored["metrics"]["auc"] == train_auc,
-                  "rows": scored["num_rows"] == N_ROWS}
+    part_auc = float(auc(ds.per_row(scores)[:score_rows], labels[:score_rows],
+                         weights[:score_rows]))
+    score_same = {"scores": np.array_equal(read_back, scores[:score_rows]),
+                  "auc": scored["metrics"]["auc"] == part_auc,
+                  "rows": scored["num_rows"] == score_rows}
     stats.update(score_same=score_same, score_auc=scored["metrics"]["auc"])
     print(f"path 10 score: score_s={stats['score_s']:.4f} (a subprocess) "
           f"read_back_s={stats['score_read_back_s']:.4f} auc={scored['metrics']['auc']:.9g} "
@@ -3266,11 +3294,18 @@ def run_training_fleet_path(seed: int, card: str, work: str) -> tuple[dict, dict
     peak under 0.55 of the relaunched survivor's peak (a member holds half
     of the table, of each chunk and of the lanes' solver state; the
     survivor all of them); the table plus one chunk is printed beside. The
-    trainer's chunks are dense batched products (cuBLAS): no hand-written
-    kernel runs on this path."""
+    members write their trace and telemetry streams into one directory a
+    generation; ``cli report --fleet`` on each must show the generation's
+    members (in (b) the killed member lost in its generation), and in (a) a
+    named straggler and the clock skew estimated from the coordinated saves;
+    the supervisor's status snapshot carries each member's last heartbeat.
+    The trainer's chunks are dense batched products (cuBLAS): no
+    hand-written kernel runs on this path."""
     import torch
 
     from photon_ml_tpu_torch import kernels
+    from photon_ml_tpu_torch.cli import report as cli_report
+    from photon_ml_tpu_torch.telemetry.fleet_report import FleetReport
     from photon_ml_tpu_torch.game import ShardedCoefficientTable, StreamingRandomEffectTrainer
     from photon_ml_tpu_torch.parallel import make_mesh
     from photon_ml_tpu_torch.tools import fleet
@@ -3285,7 +3320,36 @@ def run_training_fleet_path(seed: int, card: str, work: str) -> tuple[dict, dict
                                device="cuda", problem="scale", seed=seed,
                                checkpoint_every=TRAIN_FLEET_CKPT_EVERY,
                                heartbeat_deadline_s=20.0, grace_s=30.0, quorum_timeout_s=60.0,
-                               timeout_s=420.0, **kw)
+                               timeout_s=420.0,
+                               status_file=os.path.join(work, name + "-status.json"), **kw)
+
+    def fleet_reports(report, name):
+        """``cli report --fleet`` on each generation's directory, and the
+        supervisor's final status snapshot."""
+        out = []
+        for g, tdir in enumerate(report.get("telemetry_dirs") or []):
+            fr = FleetReport.load(tdir)
+            md = os.path.join(work, f"{name}-gen{g}-fleet.md")
+            rc = cli_report.main(["--fleet", tdir, "--out", md])
+            with open(md) as f:
+                text = f.read()
+            saves = {m.process_index: sum(1 for sp in m.report.spans
+                                          if sp.get("name") == "checkpoint:save"
+                                          and (sp.get("attrs") or {}).get("coordinated"))
+                     for m in fr.members}
+            out.append({"generation": g, "rc": rc, "members": [r["process_index"]
+                                                               for r in fr.rows()],
+                        "status": [r["status"] for r in fr.rows()], "lost": fr.lost_members(),
+                        "straggler": fr.straggler(), "coordinated_saves": saves,
+                        "clock_skew_s": {m.process_index: m.clock_skew_s for m in fr.members},
+                        "waits": {m.process_index: m.collective_wait_seconds()
+                                  for m in fr.members},
+                        "straggler_named": "Straggler: member" in text})
+        with open(os.path.join(work, name + "-status.json")) as f:
+            status = json.load(f)
+        beats = {p: (e.get("last_heartbeat") or {}).get("proc")
+                 for p, e in status["members"].items()}
+        return out, beats
 
     def members(report):
         out = {}
@@ -3310,6 +3374,17 @@ def run_training_fleet_path(seed: int, card: str, work: str) -> tuple[dict, dict
     if not report_a["ok"]:
         raise RuntimeError(f"path 18 (a): the fleet did not complete: "
                            f"{json.dumps(report_a, default=str)[-4000:]}")
+    stats["a"]["fleet_reports"], stats["a"]["status_heartbeats"] = fleet_reports(report_a,
+                                                                                 "fleet_a")
+    print(f"path 18 (a) cli report --fleet: {json.dumps(stats['a']['fleet_reports'])} "
+          f"status heartbeats {stats['a']['status_heartbeats']} card={card}", flush=True)
+    (gen_a,) = stats["a"]["fleet_reports"]
+    if not (gen_a["rc"] == 0 and gen_a["members"] == list(range(TRAIN_FLEET))
+            and gen_a["lost"] == [] and gen_a["straggler"] is not None
+            and gen_a["straggler_named"] and all(gen_a["coordinated_saves"].values())):
+        bad.append(f"(a) fleet report: {gen_a}")
+    if stats["a"]["status_heartbeats"] != {str(p): p for p in range(TRAIN_FLEET)}:
+        bad.append(f"(a) status heartbeats {stats['a']['status_heartbeats']}")
     want = np.load(report_a["final_path"])
     shutil.rmtree(os.path.join(work, "fleet_a", "ckpt"), ignore_errors=True)
     # the in-process reference: one process, the same two positions, the same chunks
@@ -3360,8 +3435,14 @@ def run_training_fleet_path(seed: int, card: str, work: str) -> tuple[dict, dict
     stats["b"].update(partial_certified=partial, resumed_at_chunk=start, loss_a=loss_a,
                       loss_b=loss_b, loss_rel_diff=abs(loss_b - loss_a) / abs(loss_a),
                       rows_before_checkpoint_bit_identical=head)
+    stats["b"]["fleet_reports"], _ = fleet_reports(report_b, "fleet_b")
     print(f"path 18 (b): {json.dumps(stats['b'], default=str)} seconds={stats['b_s']:.4f} "
           f"card={card}", flush=True)
+    gen_b = stats["b"]["fleet_reports"]
+    if not (len(gen_b) == 2 and gen_b[0]["members"] == list(range(TRAIN_FLEET))
+            and 1 in gen_b[0]["lost"] and gen_b[1]["members"] == [0]
+            and gen_b[1]["lost"] == [] and all(g["rc"] == 0 for g in gen_b)):
+        bad.append(f"(b) fleet reports: {gen_b}")
     if partial:
         bad.append(f"(b) partially certified checkpoints: {partial}")
     if not 0 < start < n_chunks:
@@ -4481,7 +4562,7 @@ def _percentile_ms(values, q: float) -> float:
 
 
 def _http_traffic(port: int, bodies_path: str, out_path: str, n_clients: int,
-                  min_requests: int, marks) -> tuple:
+                  min_requests: int, marks, sample_every: int = 0) -> tuple:
     """Start ``tools/http_load.py`` in a process of its own: ``n_clients``
     closed-loop keep-alive HTTP clients cycling over the request bodies in
     ``bodies_path`` until told to stop and at least ``min_requests`` have
@@ -4497,7 +4578,8 @@ def _http_traffic(port: int, bodies_path: str, out_path: str, n_clients: int,
     proc = subprocess.Popen(
         [sys.executable, os.path.join(root, "photon_ml_tpu_torch", "tools", "http_load.py"),
          "--port", str(port), "--bodies", bodies_path, "--out", out_path,
-         "--clients", str(n_clients), "--min-requests", str(min_requests)],
+         "--clients", str(n_clients), "--min-requests", str(min_requests),
+         "--sample-every", str(sample_every)],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=root)
     progress = {"done": 0, "by_version": {}, "t_ready": None, "t_last": None}
 
@@ -4700,10 +4782,20 @@ def run_serving_path(gds, model6, model9, seed: int, card: str, work: str,
         scan_versions,
     )
 
+    from photon_ml_tpu_torch.cli import report as cli_report
+    from photon_ml_tpu_torch.telemetry import requests as rq
+    from photon_ml_tpu_torch.telemetry import trace as span_trace
+    from photon_ml_tpu_torch.telemetry.report import RunReport
+
     bad = []
     torch.cuda.reset_peak_memory_stats()
     telemetry.reset()
     kernels.reset_launch_counts()
+    # the server keeps a request record a request and persists the sampled
+    # (and slow, failed) ones into this span sink
+    trace_path = os.path.join(work, "serve.trace.jsonl")
+    metrics_path = os.path.join(work, "serve.metrics.jsonl")
+    telemetry.configure(trace_out=trace_path)
     t_path = time.perf_counter()
     maps = {"global": IndexMap([f"g{j}" for j in range(N_FEATURES)]),
             "user": IndexMap([f"u{j}" for j in range(GAME_RE_FEATURES)])}
@@ -4759,7 +4851,8 @@ def run_serving_path(gds, model6, model9, seed: int, card: str, work: str,
     try:
         proc, progress, reader = _http_traffic(
             server.port, bodies_path, out_path, SERVE_CLIENTS, SERVE_REQUESTS,
-            ((SERVE_REQUESTS // 20, steady_from), (SERVE_REQUESTS // 3, steady_to)))
+            ((SERVE_REQUESTS // 20, steady_from), (SERVE_REQUESTS // 3, steady_to)),
+            sample_every=SERVE_SAMPLE_EVERY)
         steady_from.wait(timeout=300)
         torch.cuda.synchronize()
         snap["from"] = (telemetry.snapshot(), torch.cuda.memory_reserved(),
@@ -4776,7 +4869,7 @@ def run_serving_path(gds, model6, model9, seed: int, card: str, work: str,
             time.sleep(0.05)
         swap_s = time.perf_counter() - t0
         n_at_swap = progress["done"]
-        while (progress["by_version"].get("v-00000002", 0) < 500
+        while (progress["by_version"].get("v-00000002", 0) < SERVE_V2_ANSWERS
                and time.monotonic() < deadline and proc.poll() is None):
             time.sleep(0.05)
         try:
@@ -4872,8 +4965,53 @@ def run_serving_path(gds, model6, model9, seed: int, card: str, work: str,
     # dispatched but not yet fetched
     if abs(steady_syncs - steady_batches) > 1:
         bad.append(f"host syncs {steady_syncs} for {steady_batches} request batches")
+    if abs(steady_launches - steady_batches) > 1:
+        bad.append(f"csr_margins launches {steady_launches} for {steady_batches} request batches")
     if len(records) < SERVE_REQUESTS:
         bad.append(f"only {len(records)} requests served")
+
+    # the request traces: the ring holds a record a request (none dropped
+    # under its 4,096 cap), every sampled request's trace is persisted, and
+    # cli report --requests renders the slowest
+    telemetry.flush_metrics(metrics_path)
+    span_trace.TRACER.close_sink()
+    n_records = counter(snap_end, "request.records")
+    ring = len(rq.records())
+    dropped = rq.REQUESTS.dropped
+    run_report = RunReport.load(trace=trace_path, telemetry=metrics_path)
+    persisted = {r["trace_id"]: r for r in run_report.slowest_requests(k=10**9)}
+    sampled = load.get("sampled") or []
+    missing = [t for t in sampled if persisted.get(t, {}).get("sampled_reason") != "sampled"]
+    report_md = os.path.join(work, "serve.requests.md")
+    t0 = time.perf_counter()
+    report_rc = cli_report.main(["--trace", trace_path, "--telemetry", metrics_path,
+                                 "--requests", "5", "--out", report_md])
+    report_s = time.perf_counter() - t0
+    with open(report_md) as f:
+        report_text = f.read()
+    stats["requests_trace"] = {
+        "records": n_records, "ring": ring, "dropped": dropped,
+        "counted_dropped": counter(snap_end, "telemetry.trace_dropped"),
+        "sampled": len(sampled), "persisted": len(persisted),
+        "persisted_by_reason": {why: sum(1 for r in persisted.values()
+                                         if r["sampled_reason"] == why)
+                                for why in ("sampled", "slow", "error", "degraded")},
+        "sampled_not_persisted": len(missing), "report_rc": report_rc, "report_s": report_s,
+        "summary": run_report.requests_summary(),
+        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+        "steady_p50_ms": stats["steady"]["p50_ms"], "steady_p99_ms": stats["steady"]["p99_ms"]}
+    print(f"path 15 request traces: {json.dumps(stats['requests_trace'])} card={card}",
+          flush=True)
+    print("path 15 cli report --requests:\n" + report_text, flush=True)
+    if not (len(sampled) >= SERVE_REQUESTS // SERVE_SAMPLE_EVERY - SERVE_CLIENTS and not missing
+            and len(persisted) >= len(sampled)):
+        bad.append(f"sampled traces: {len(sampled)} sampled, {len(persisted)} persisted, "
+                   f"{len(missing)} missing")
+    if not (ring == min(n_records, rq.DEFAULT_RING_LIMIT) and ring + dropped == n_records
+            and n_records >= len(records)):
+        bad.append(f"the request ring holds {ring} and dropped {dropped} of {n_records} records")
+    if report_rc != 0 or "Slowest persisted traces" not in report_text:
+        bad.append(f"cli report --requests exited {report_rc}: {report_text[:300]}")
 
     engine = registry.engine
     check_idx = np.concatenate(idxs[:64])
@@ -5253,15 +5391,23 @@ def run_fleet_path(gds, registry_dir: str, seed: int, card: str,
     hard-killed, detected by heartbeat and relaunched in its slot; a live
     resize 4 -> 8 -> 4. Zero failed calls, degraded rows in the kill window
     and none after the recovery, epoch 2 at size 4, every member on the
-    card and every one but the killed exiting 75."""
+    card and every one but the killed exiting 75. The members write their
+    span streams and serving heartbeats into one fleet directory, the router
+    its ``trace.router.jsonl`` (every 10th call sampled); ``cli report
+    --fleet`` on it must join a sampled request across the router's and a
+    member's streams, show member 1 lost with the last words harvested from
+    its stream, and read the survivors' drain-path flight records."""
     import urllib.error
     import urllib.request
 
     import torch
 
     from photon_ml_tpu_torch import kernels, telemetry
+    from photon_ml_tpu_torch.cli import report as cli_report
     from photon_ml_tpu_torch.data.model_store import load_feature_index_maps, load_game_model
     from photon_ml_tpu_torch.parallel.sharding import valid_fleet_sizes
+    from photon_ml_tpu_torch.telemetry import requests as rq
+    from photon_ml_tpu_torch.telemetry.fleet_report import FleetReport
     from photon_ml_tpu_torch.serving import (
         FleetRouter,
         ScoringEngine,
@@ -5464,6 +5610,49 @@ def run_fleet_path(gds, registry_dir: str, seed: int, card: str,
             bad.append(f"member {mem['member']} (epoch {mem['epoch']}) exited {mem['rc']}")
     if sum(mem["killed"] for mem in run["members"]) != 1:
         bad.append("the killed member is not accounted for")
+
+    # the fleet directory through cli report --fleet
+    tdir = spec.telemetry_dir()
+    t0 = time.perf_counter()
+    fleet = FleetReport.load(tdir)
+    traces = fleet.request_traces()
+    joined = [t for t in traces if "router" in t["sources"]
+              and any(src.startswith("proc-") for src in t["sources"])]
+    sampled_joined = [t for t in joined if any(h.get("sampled_reason") == "sampled"
+                                                for h in t["hops"])]
+    survivors = [m for m in range(FLEET_SIZE) if m != FLEET_TRAFFIC["kill_member"]]
+    drained = {m: rq.read_flight(rq.flight_path(tdir, m)) for m in survivors}
+    victim = fleet.members[FLEET_TRAFFIC["kill_member"]] if len(fleet.members) > 1 else None
+    fleet_md = os.path.join(work, "fleet-report.md")
+    report_rc = cli_report.main(["--fleet", tdir, "--out", fleet_md])
+    report_s = time.perf_counter() - t0
+    with open(fleet_md) as f:
+        fleet_text = f.read()
+    stats["fleet_report"] = {
+        "members": [m.process_index for m in fleet.members], "lost": fleet.lost_members(),
+        "traces": len(traces), "joined": len(joined), "sampled_joined": len(sampled_joined),
+        "first_joined": (sampled_joined or joined or [None])[0],
+        "victim_flight_records": (len((victim.flight or {}).get("records") or [])
+                                  if victim is not None else None),
+        "victim_harvested": bool(victim is not None and (victim.flight or {}).get("harvested")),
+        "flight_spans_harvested": kill.get("flight_spans"),
+        "drain_flights": {m: (None if d is None else len(d.get("records") or []))
+                          for m, d in drained.items()},
+        "report_rc": report_rc, "report_s": report_s}
+    print(f"path 15c fleet report: {json.dumps(stats['fleet_report'], default=str)} "
+          f"card={card}", flush=True)
+    print("path 15c cli report --fleet (head):\n" + fleet_text[:3000], flush=True)
+    if not sampled_joined:
+        bad.append(f"no sampled request joined across the router and a member ({len(traces)} "
+                   f"traces, {len(joined)} joined)")
+    if fleet.lost_members() != [FLEET_TRAFFIC["kill_member"]] or not (
+            victim is not None and (victim.flight or {}).get("harvested")):
+        bad.append(f"lost members {fleet.lost_members()}, the victim's flight "
+                   f"{None if victim is None else victim.flight_path}")
+    if any(d is None or d.get("harvested") for d in drained.values()):
+        bad.append(f"the survivors' drain dumps: {stats['fleet_report']['drain_flights']}")
+    if report_rc != 0 or f"Last words — member {FLEET_TRAFFIC['kill_member']}" not in fleet_text:
+        bad.append(f"cli report --fleet exited {report_rc} without the victim's last words")
     stats["path_s"] = time.perf_counter() - t_path
     print(f"path 15c: path_s={stats['path_s']:.4f} launches={json.dumps(launches)} "
           f"card={card}", flush=True)
@@ -6333,9 +6522,10 @@ def run_pipeline_cli_path(seed: int, card: str, work: str,
 def run_chaos_phase(card: str, work: str, device: str = "cuda") -> dict:
     """The crash matrices on the card (``photon_ml_tpu_torch/tools/chaos.py``
     with the workers on cuda:0): the write-path matrix (4 rows, 4 at once,
-    beside the uninterrupted fit) and the pipeline row
-    ``pipeline.cycle_start`` (its small base trained in this process), the
-    two side by side. Every row must pass."""
+    beside the uninterrupted fit), the pipeline row ``pipeline.cycle_start``
+    (its small base trained in this process) and the serving row
+    ``flight_dump_kill`` (a process killed in the middle of its flight dump:
+    exit 113, nothing adopted), side by side. Every row must pass."""
     from concurrent.futures import ThreadPoolExecutor
 
     from photon_ml_tpu_torch.tools import chaos
@@ -6346,16 +6536,19 @@ def run_chaos_phase(card: str, work: str, device: str = "cuda") -> dict:
     # saved; the daemons are subprocesses
     pipe_dir = os.path.join(work, "chaos-pipeline")
     fixture = chaos.pipeline_fixture(pipe_dir, device, in_process=True)
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         wp = pool.submit(chaos.run_matrix, os.path.join(work, "chaos-write-path"),
                          device=device, jobs=4)
         pl = pool.submit(chaos.run_pipeline_matrix, pipe_dir, points=["pipeline.cycle_start"],
                          device=device, fixture=fixture)
-        reports = {"write_path": wp.result(), "pipeline": pl.result()}
+        sv = pool.submit(chaos.run_serving_matrix, os.path.join(work, "chaos-serving"),
+                         rows=["flight_dump_kill"], device=device)
+        reports = {"write_path": wp.result(), "pipeline": pl.result(), "serving": sv.result()}
     stats = {"card": card, "seconds": time.perf_counter() - t0}
     for kind, report in reports.items():
         rows = {p: {k: e.get(k) for k in ("armed_rc", "resume_rc", "exact", "resumed_from_chunk",
-                                           "published_versions", "seconds", "error")}
+                                           "published_versions", "adopted_after_kill",
+                                           "clean_records", "seconds", "error")}
                 for p, e in report["results"].items()}
         stats[kind] = {"ok": report["ok"], "elapsed_s": report["elapsed_s"], "rows": rows,
                        "skipped": report["skipped"]}

@@ -5,7 +5,10 @@ Counterpart of ``photon_ml_tpu/cli/report.py``:
     python -m photon_ml_tpu_torch.cli report \\
         --trace run.trace.jsonl --telemetry run.metrics.jsonl \\
         --checkpoint-dir ckpt/ --out report.md [--json report.json] \\
-        [--compare baseline.report.json] [--fail-on-regress] [--threshold 0.2]
+        [--compare baseline.report.json] [--fail-on-regress] [--threshold 0.2] \\
+        [--requests [N]]
+
+    python -m photon_ml_tpu_torch.cli report --fleet <dir> [--requests [N]] ...
 
 Merges a span JSONL (``--trace-out``), a telemetry JSONL (the metrics
 snapshot and the heartbeat lines) and a checkpoint directory's manifests into
@@ -15,21 +18,32 @@ guard history, the sweep, ingestion, serving, freshness, pipeline, quality
 and recovery sections, and heartbeat liveness (``telemetry/report.py``).
 It reads either package's artifacts.
 
+``--fleet <dir>`` aggregates a fleet directory instead: its per-member
+streams (``trace.proc-<i>.jsonl`` / ``telemetry.proc-<i>.jsonl``) merge into
+one report with per-member rows, the collective-wait attribution and the
+straggler, the clock skew, lost members with their flight records' last
+words, and the request traces joined across the router's and the members'
+streams (``telemetry/fleet_report.py``). ``--requests [N]`` renders only the
+request section: the N slowest persisted request traces (with ``--fleet``,
+joined by ``trace_id``).
+
 ``--compare`` takes a baseline report JSON (``--json`` of an earlier run, or
 a bare ``{metric: value}`` dict) and appends a comparison table; with
 ``--fail-on-regress`` the process exits 3 when a key metric moved against its
-direction by more than ``--threshold`` (default 20%).
+direction by more than ``--threshold`` (default 20%). With ``--fleet`` the
+comparison runs over the fleet's key metrics (``fleet_rows_per_sec``,
+``fleet_collective_wait_fraction``, ...).
 
 Exit codes: 0 ok, 1 unreadable inputs, 2 usage, 3 regression detected.
 
-``--fleet`` and ``--requests`` (ROADMAP.md Queue 1 item 14d (ii)) and
-``--hot`` (14d (iii)) raise ``NotImplementedError``.
+``--hot`` (ROADMAP.md Queue 1 item 14d (iii)) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Optional
 
@@ -38,7 +52,7 @@ EXIT_ERROR = 1
 EXIT_REGRESSION = 3
 
 # the reference's flags of later slices, with their ROADMAP.md Queue 1 item
-_REFUSED = {"fleet": "14d (ii)", "requests": "14d (ii)", "hot": "14d (iii)"}
+_REFUSED = {"hot": "14d (iii)"}
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -49,6 +63,10 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--checkpoint-dir",
                         help="checkpoint directory whose step manifests carry convergence and "
                         "guard history")
+    parser.add_argument("--fleet", metavar="DIR",
+                        help="aggregate a fleet directory of per-member streams "
+                        "(*.proc-<i>.jsonl) into one merged report instead of reading one run's "
+                        "--trace/--telemetry artifacts")
     parser.add_argument("--out", help="write the markdown report here (default: stdout)")
     parser.add_argument("--json", dest="json_out",
                         help="also write the full report as JSON (the compare-baseline format "
@@ -59,8 +77,10 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--fail-on-regress", action="store_true",
                         help="exit 3 when --compare finds a key metric regressed beyond "
                         "--threshold")
-    parser.add_argument("--fleet", metavar="DIR", help=argparse.SUPPRESS)
-    parser.add_argument("--requests", nargs="?", const=10, type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--requests", nargs="?", const=10, type=int, metavar="N",
+                        help="render only the request section (the N slowest persisted request "
+                        "traces, default 10); with --fleet joined across the router's and the "
+                        "members' streams by trace_id")
     parser.add_argument("--hot", nargs="?", const=10, type=int, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     for flag, item in _REFUSED.items():
@@ -68,17 +88,33 @@ def main(argv: Optional[list] = None) -> int:
             raise NotImplementedError(
                 f"the 'report' flag --{flag} is not ported to photon_ml_tpu_torch yet "
                 f"(ROADMAP.md Queue 1 item {item})")
-    if not (args.trace or args.telemetry or args.checkpoint_dir):
-        parser.error("nothing to report on: give --trace, --telemetry and/or --checkpoint-dir")
+    if args.fleet and (args.trace or args.telemetry or args.checkpoint_dir):
+        parser.error("--fleet aggregates a member-artifact directory; it cannot be combined "
+                     "with --trace/--telemetry/--checkpoint-dir")
+    if not (args.fleet or args.trace or args.telemetry or args.checkpoint_dir):
+        parser.error("nothing to report on: give --fleet, --trace, --telemetry and/or "
+                     "--checkpoint-dir")
 
-    from photon_ml_tpu_torch.telemetry.report import RunReport
+    if args.fleet:
+        from photon_ml_tpu_torch.telemetry.fleet_report import FleetReport
 
-    try:
-        report = RunReport.load(trace=args.trace, telemetry=args.telemetry,
-                                checkpoint_dir=args.checkpoint_dir)
-    except OSError as e:
-        print(f"cannot read telemetry artifacts: {e}", file=sys.stderr)
-        return EXIT_ERROR
+        if not os.path.isdir(args.fleet):
+            print(f"--fleet {args.fleet} is not a directory", file=sys.stderr)
+            return EXIT_ERROR
+        report = FleetReport.load(args.fleet)
+        if not report.members:
+            print(f"no member artifact streams (*.proc-<i>.jsonl) found under {args.fleet}",
+                  file=sys.stderr)
+            return EXIT_ERROR
+    else:
+        from photon_ml_tpu_torch.telemetry.report import RunReport
+
+        try:
+            report = RunReport.load(trace=args.trace, telemetry=args.telemetry,
+                                    checkpoint_dir=args.checkpoint_dir)
+        except OSError as e:
+            print(f"cannot read telemetry artifacts: {e}", file=sys.stderr)
+            return EXIT_ERROR
 
     deltas = None
     if args.compare:
@@ -93,7 +129,13 @@ def main(argv: Optional[list] = None) -> int:
             return EXIT_ERROR
         deltas = report.compare(baseline, threshold=args.threshold)
 
-    md = report.to_markdown(deltas=deltas)
+    if args.requests is not None:
+        req_lines = report._requests_markdown(args.requests)
+        md = ("\n".join(req_lines).rstrip() + "\n" if req_lines
+              else "No request traces (run carried no request.* metrics or persisted "
+              "request:* spans).\n")
+    else:
+        md = report.to_markdown(deltas=deltas)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as fh:
             fh.write(md)

@@ -48,8 +48,15 @@ member's rows degrade to fixed-effect-only scores. The router does no work
 on a device (it folds on the host, as the reference's does), so it takes no
 ``--device``.
 
-Refused with ``NotImplementedError`` naming ROADMAP item 14d (ii): the telemetry
-flags ``--telemetry-out``, ``--trace-out`` and ``--trace-sample-every``.
+``--trace-out`` opens the span JSONL sink (suffixed per member in a fleet:
+``trace.proc-<i>.jsonl``); the request records tail-sample into it, and the
+drain path dumps the flight recorder (``flight-proc-<i>.json``) beside it.
+``--telemetry-out`` (a member) appends a serving heartbeat line every
+second (the cumulative request and margin-row counters, with ``proc``) and,
+at drain, the final metrics snapshot, whose presence marks the member as
+not lost in ``cli report --fleet``. ``--trace-sample-every N`` (the router)
+samples every Nth routed batch: its full trace is persisted on the router
+and the members.
 
 SIGTERM/SIGINT drains gracefully: admission closes (503 with
 ``Retry-After``), in-flight batches finish, and the process exits 75. A
@@ -62,16 +69,10 @@ import argparse
 import json
 import os
 import sys
+import threading
 import time
 
 from photon_ml_tpu_torch.utils import logger, setup_logging
-
-NOT_PORTED = ("the 'serve' flag {flag} is not ported to photon_ml_tpu_torch yet "
-              "(ROADMAP.md Queue 1 item {item})")
-
-# the reference's flags that this package refuses, with their ROADMAP item
-_REFUSED = {"--telemetry-out": "14d (ii)", "--trace-out": "14d (ii)",
-            "--trace-sample-every": "14d (ii)"}
 
 
 def _build_mesh(raw: str, device):
@@ -103,6 +104,60 @@ def _parse_re_checkpoints(pairs):
             raise ValueError(f"--re-checkpoint expects 'coord=dir', got {pair!r}")
         out[coord] = directory
     return out or None
+
+
+class _ServingBeat:
+    """A fleet member's serving heartbeat: one JSONL line every interval
+    with the cumulative request and margin-row counters and ``proc``, so a
+    supervisor's ``tail_heartbeat_fields`` poll can difference two beats
+    into requests per second without calling the member."""
+
+    def __init__(self, path: str, member: int, interval_s: float = 1.0):
+        self.path = path
+        self.member = int(member)
+        self.interval_s = float(interval_s)
+        self._stop = threading.Event()
+        self._thread = None
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._t0 = time.monotonic()
+
+    def beat(self) -> None:
+        from photon_ml_tpu_torch import telemetry
+
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+        line = {
+            "type": "heartbeat",
+            "seq": seq,
+            "proc": self.member,
+            "uptime_s": round(time.monotonic() - self._t0, 3),
+            "serving_requests_total": int(telemetry.counter("serving.requests").value),
+            "serving_margin_rows_total": int(telemetry.counter("serving.margin_rows").value),
+        }
+        with open(self.path, "a", encoding="utf-8") as fh:
+            fh.write(json.dumps(line) + "\n")
+
+    def start(self) -> "_ServingBeat":
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self.beat()
+        self._thread = threading.Thread(target=self._run, name="serving-beat", daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.beat()
+            except OSError as e:  # a removed workdir must not stop serving
+                logger.warning("serving heartbeat write failed: %s", e)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=self.interval_s * 4)
+            self._thread = None
 
 
 def _check_budget(engine, budget_mb) -> None:
@@ -262,21 +317,26 @@ def main(argv=None) -> int:
                        help="announce epoch this member starts in")
     fleet.add_argument("--heartbeat-dir", help="touch proc-<member>.alive here on a cadence, "
                        "so a supervisor detects a dead member from the file's mtime")
+    fleet.add_argument("--telemetry-out", help="a member: append its serving heartbeat JSONL "
+                       "here (requests/s for the fleet status); the final metrics snapshot "
+                       "flushes to the same stream at drain")
+    parser.add_argument("--trace-out", help="span JSONL sink (suffixed per member in a fleet); "
+                        "request records tail-sample into it, and the drain path dumps the "
+                        "flight recorder (flight-proc-<i>.json) beside it")
+    fleet.add_argument("--trace-sample-every", type=int, default=0,
+                       help="router: sample every Nth routed batch (its full trace persisted "
+                       "on the router and the members); 0: only slow, degraded and failed "
+                       "requests persist")
     fleet.add_argument("--member-timeout-s", type=float, default=5.0,
                        help="router: per-member fan-out timeout before retry and degraded "
                        "fallback")
     fleet.add_argument("--router-refresh-s", type=float, default=0.5,
                        help="router: announce-directory rescan cadence")
-    for flag in _REFUSED:
-        parser.add_argument(flag, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    for flag, item in _REFUSED.items():
-        if getattr(args, flag[2:].replace("-", "_")):
-            raise NotImplementedError(NOT_PORTED.format(flag=flag, item=item))
     _check_fleet_flags(args)
 
     setup_logging()
-    from photon_ml_tpu_torch import faults
+    from photon_ml_tpu_torch import faults, telemetry
     from photon_ml_tpu_torch.device import resolve_device
     from photon_ml_tpu_torch.serving import (
         AsyncScoringServer,
@@ -290,6 +350,10 @@ def main(argv=None) -> int:
 
     # a serving process with an armed fault plan WILL fail requests on purpose
     faults.warn_if_armed()
+    if args.trace_out:
+        # suffixed per member: N fleet processes given one --trace-out write
+        # N streams (the --fleet report's contract)
+        telemetry.configure(trace_out=telemetry.member_artifact_path(args.trace_out))
     if args.stdio:
         ignored = [flag for flag, on in (("--nearline", args.nearline),
                                          ("--frontend", args.frontend != "threading"),
@@ -297,14 +361,15 @@ def main(argv=None) -> int:
         if ignored:
             raise SystemExit("--stdio is a bare engine loop with no batcher, front end, or "
                              "nearline path; drop " + ", ".join(ignored))
-    registry = heartbeat = device = None
+    registry = heartbeat = beat = device = None
     if args.router:
         from photon_ml_tpu_torch.serving import FleetRouter, fleet_lookups_from_version_dir
 
         task, link, lookups = fleet_lookups_from_version_dir(_version_dir(args))
         source = FleetRouter(args.announce_dir, lookups, task=task, link=link,
                              member_timeout_s=args.member_timeout_s,
-                             refresh_interval_s=args.router_refresh_s, max_batch=args.max_batch)
+                             refresh_interval_s=args.router_refresh_s, max_batch=args.max_batch,
+                             sample_every=args.trace_sample_every)
     elif args.member is not None:
         device = resolve_device(args.device)
         t_load = time.monotonic()
@@ -373,6 +438,8 @@ def main(argv=None) -> int:
                 from photon_ml_tpu_torch.parallel.multihost import HeartbeatWriter
 
                 heartbeat = HeartbeatWriter(args.heartbeat_dir, args.member).start()
+            if args.telemetry_out:
+                beat = _ServingBeat(args.telemetry_out, args.member).start()
 
         from photon_ml_tpu_torch.game.checkpoint import GracefulStop
 
@@ -394,6 +461,21 @@ def main(argv=None) -> int:
                     "finishing; exiting %d", stop.hard_exit_code)
         service.drain()
         server.stop()
+        # the flight recorder's drain-path dump: the last seconds of request
+        # records land atomically beside the telemetry artifacts
+        flight_dir = next((os.path.dirname(os.path.abspath(p))
+                           for p in (args.trace_out, args.telemetry_out) if p), None)
+        if flight_dir is not None:
+            from photon_ml_tpu_torch.telemetry import identity, requests
+
+            proc = identity.fleet_process_index()
+            if proc is None:
+                proc = args.member or 0
+            requests.flight_dump(requests.flight_path(flight_dir, proc))
+        if args.telemetry_out:
+            # the final snapshot marks this member "ok", not lost, in the
+            # fleet report
+            telemetry.flush_metrics(args.telemetry_out)
         if args.member is not None:
             import torch
 
@@ -404,6 +486,8 @@ def main(argv=None) -> int:
                                           "max_memory_allocated": peak}}), flush=True)
         return stop.hard_exit_code
     finally:
+        if beat is not None:
+            beat.stop()
         if heartbeat is not None:
             heartbeat.stop()
         if registry is not None:

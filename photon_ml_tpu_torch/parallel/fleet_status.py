@@ -10,13 +10,16 @@ relaunch generation); :class:`FleetStatusWriter` publishes it on a cadence:
 - ``port``: the same snapshot over HTTP (``GET /statusz``), computed fresh
   for each request;
 - member liveness comes from the heartbeat files' mtimes
-  (``proc-<i>.alive``, ``multihost.HeartbeatWriter``).
+  (``proc-<i>.alive``, ``multihost.HeartbeatWriter``), and, with
+  ``telemetry_out``, each member's last progress fields from the tail of
+  its telemetry stream (``telemetry.progress.tail_heartbeat_fields``, which
+  requires the line's ``proc`` to be the member's, so a stream written by
+  another process reads as silence).
 
 A status write is observability, never control: an unwritable status file
 (a full disk, a removed workdir, or the ``fleet.status_write`` fault seam's
 ``io`` rule) logs, counts ``fleet.status_write_errors`` and the supervisor
-goes on. Each member's last progress fields, tail-parsed from its telemetry
-stream, are ROADMAP.md Queue 1 item 14d (ii): ``telemetry_out`` is refused.
+goes on.
 """
 
 from __future__ import annotations
@@ -60,13 +63,9 @@ class FleetStatusWriter:
                  interval_s: float = DEFAULT_STATUS_INTERVAL_S):
         if interval_s <= 0:
             raise ValueError("status interval_s must be > 0")
-        if telemetry_out is not None:
-            from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
-
-            raise NotImplementedError(NOT_PORTED.format(
-                "the members' progress heartbeats in the fleet status (telemetry_out)", "14d (ii)"))
         self.fleet_dir = fleet_dir
         self.status_file = status_file
+        self.telemetry_out = telemetry_out
         self.interval_s = float(interval_s)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -88,6 +87,9 @@ class FleetStatusWriter:
             "relaunches": 0,
             "rcs": {},
             "outcome": None,
+            # the members' telemetry streams' unsuffixed path (a generation
+            # of a training fleet has its own)
+            "telemetry_out": telemetry_out,
             # per-member facts beyond liveness (a serving fleet's ranges),
             # keyed by process id and merged into the member's entry
             "member_extras": {},
@@ -100,7 +102,10 @@ class FleetStatusWriter:
 
     def snapshot(self) -> dict[str, Any]:
         """One JSON-safe status document: the pushed state plus the live
-        filesystem (heartbeat mtimes)."""
+        filesystem (heartbeat mtimes, the telemetry streams' tails)."""
+        from photon_ml_tpu_torch.telemetry import identity
+        from photon_ml_tpu_torch.telemetry.progress import tail_heartbeat_fields
+
         with self._lock:
             state = dict(self._state)
         deadline_s = state["heartbeat_deadline_s"]
@@ -121,6 +126,12 @@ class FleetStatusWriter:
                 age = max(now - mtime, 0.0)
                 entry["heartbeat_age_s"] = round(age, 3)
                 entry["alive"] = age <= deadline_s and entry["rc"] is None
+            telemetry_out = state.get("telemetry_out")
+            if telemetry_out is not None:
+                fields = tail_heartbeat_fields(identity.member_artifact_path(telemetry_out, pid),
+                                               expect_proc=pid)
+                if fields is not None:
+                    entry["last_heartbeat"] = fields
             extras = state.get("member_extras") or {}
             extra = extras.get(pid, extras.get(str(pid)))
             if extra:

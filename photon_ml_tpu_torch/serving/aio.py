@@ -18,7 +18,8 @@ Error semantics are the threading front end's: Overloaded -> 503,
 BadRequest -> 400, timeout -> 504 (the future is cancelled so the
 dispatcher drops the dead unit), anything else -> 500 without killing the
 server. HTTP/1.1 keep-alive is supported; malformed requests close the
-connection. Request-scoped traces are not kept.
+connection. An ``X-Photon-Trace`` header tags the request's record with the
+caller's trace ids, as on the threading front end.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Optional
 
 from photon_ml_tpu_torch.serving.batcher import Draining, Overloaded
 from photon_ml_tpu_torch.serving.engine import BadRequest
+from photon_ml_tpu_torch.telemetry import requests as request_trace
 from photon_ml_tpu_torch.serving.server import (
     DRAIN_RETRY_AFTER_S,
     ScoringService,
@@ -237,6 +239,9 @@ class AsyncScoringServer:
         except ValueError:
             return 400, {"error": "bad_request",
                          "detail": "body is not valid JSON"}, None
+        # _read_request lowercases the header names; a malformed trace
+        # header parses to None and the request goes on untraced
+        ctx = request_trace.parse_header((headers or {}).get(request_trace.TRACE_HEADER.lower()))
         loop = asyncio.get_running_loop()
         try:
             if path == "/v1/update":
@@ -246,7 +251,7 @@ class AsyncScoringServer:
                 # engine call, and the loop must keep accepting traffic
                 result = await loop.run_in_executor(
                     None,
-                    functools.partial(self.service.margin_request, payload),
+                    functools.partial(self.service.margin_request, payload, ctx=ctx),
                 )
                 return 200, result, None
             if path.startswith("/v1/admin/"):
@@ -257,7 +262,7 @@ class AsyncScoringServer:
                     None, self.service.admin_request, op, payload
                 )
                 return 200, result, None
-            return 200, await self._score(payload), None
+            return 200, await self._score(payload, ctx), None
         except Draining as e:
             return (
                 503,
@@ -278,10 +283,10 @@ class AsyncScoringServer:
             logger.exception("async score request failed")
             return 500, {"error": "internal", "detail": str(e)}, None
 
-    async def _score(self, payload) -> dict:
+    async def _score(self, payload, ctx=None) -> dict:
         """Submit to the shared batcher and await the wrapped future —
         the loop stays free while the batch runs on the device."""
-        future = self.service.submit_rows(payload)
+        future = self.service.submit_rows(payload, ctx=ctx)
         try:
             result = await asyncio.wait_for(
                 asyncio.wrap_future(future),

@@ -10,8 +10,11 @@ results back to each caller's Future. Admission control is by queue depth
 in ROWS: a request that would overflow ``queue_depth`` is shed at once with
 a typed :class:`Overloaded` error (counted as ``serving.shed``).
 
-Request-scoped traces (the reference's ``X-Photon-Trace`` records) are not
-kept here; ``ctx`` is accepted and ignored.
+Every unit becomes a request record (``telemetry.requests``): its clock
+starts at enqueue, with a ``batcher_wait`` phase and, once scored, a
+``device_dispatch`` phase and the version and batch rows; ``ctx`` (the
+inbound ``X-Photon-Trace`` context) tags it with the caller's ids. The
+records are closed after the scorer's one fetch and touch no tensor.
 
 Telemetry: ``serving.requests`` / ``serving.shed`` counters;
 ``serving.queue_ms`` (enqueue -> dispatch), ``serving.total_ms`` (enqueue
@@ -30,6 +33,7 @@ from typing import Callable, Mapping, Sequence, Tuple
 
 from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.serving.engine import BadRequest
+from photon_ml_tpu_torch.telemetry import requests as request_trace
 
 #: scorer contract: flat request rows -> (scores aligned to rows, version)
 Scorer = Callable[[Sequence[Mapping]], Tuple[Sequence[float], str]]
@@ -65,12 +69,14 @@ class Draining(RuntimeError):
 
 
 class _Unit:
-    __slots__ = ("rows", "future", "t_enqueue")
+    __slots__ = ("rows", "future", "t_enqueue", "ctx")
 
-    def __init__(self, rows):
+    def __init__(self, rows, ctx=None):
         self.rows = rows
         self.future: Future = Future()
         self.t_enqueue = time.monotonic()
+        # the inbound trace context; None mints one at dispatch
+        self.ctx = ctx
 
 
 class MicroBatcher:
@@ -130,8 +136,8 @@ class MicroBatcher:
     def submit(self, rows: Sequence[Mapping], ctx=None) -> Future:
         """Enqueue one request unit; resolves to
         ``{"scores": <aligned array>, "model_version": <str>}``. ``ctx``
-        (the reference's trace context) is accepted and not kept."""
-        unit = _Unit(list(rows))
+        tags the unit's request record with the caller's trace ids."""
+        unit = _Unit(list(rows), ctx=ctx)
         if len(unit.rows) > self.queue_depth:
             # shedding this as Overloaded would invite a retry that can
             # NEVER succeed — it is a malformed request, not back-pressure
@@ -208,8 +214,18 @@ class MicroBatcher:
             return
         t0 = time.monotonic()
         queue_ms = telemetry.histogram("serving.queue_ms")
+        recs: dict[int, object] = {}
         for u in units:
-            queue_ms.observe((t0 - u.t_enqueue) * 1000.0)
+            wait_ms = (t0 - u.t_enqueue) * 1000.0
+            queue_ms.observe(wait_ms)
+            # the record's clock starts at enqueue: the queue wait is part
+            # of the request
+            t_enq = request_trace.trace_time(u.t_enqueue)
+            rec = request_trace.begin("score", ctx=u.ctx, role="member", t_start=t_enq,
+                                      rows=len(u.rows))
+            if rec is not None:
+                rec.phase("batcher_wait", wait_ms, ts=t_enq)
+                recs[id(u)] = rec
         flat = [r for u in units for r in u.rows]
         telemetry.histogram("serving.batch_size").observe(len(flat))
         try:
@@ -218,6 +234,8 @@ class MicroBatcher:
         except Exception as e:  # noqa: BLE001 — failure belongs to callers
             if len(units) == 1:
                 self._deliver(units[0], error=e)
+                request_trace.finish(recs.get(id(units[0])), status="error",
+                                     error=f"{type(e).__name__}: {e}")
             else:
                 # isolate the offender: one malformed co-batched request
                 # must not fail the valid ones riding the same batch
@@ -225,10 +243,15 @@ class MicroBatcher:
                     try:
                         s, v = self._scorer(u.rows)
                         self._deliver(u, result={"scores": s, "model_version": v})
+                        request_trace.finish(recs.get(id(u)))
                     except Exception as unit_err:  # noqa: BLE001
                         self._deliver(u, error=unit_err)
+                        request_trace.finish(recs.get(id(u)), status="error",
+                                             error=f"{type(unit_err).__name__}: {unit_err}")
             return
         t1 = time.monotonic()
+        dispatch_ms = (t1 - t0) * 1000.0
+        dispatch_ts = request_trace.trace_time(t0)
         total_ms = telemetry.histogram("serving.total_ms")
         offset = 0
         for u in units:
@@ -237,6 +260,11 @@ class MicroBatcher:
                                      "model_version": version})
             total_ms.observe((t1 - u.t_enqueue) * 1000.0)
             offset += k
+            rec = recs.get(id(u))
+            if rec is not None:
+                rec.phase("device_dispatch", dispatch_ms, ts=dispatch_ts)
+                rec.set_attr(version=version, batch_rows=len(flat))
+                request_trace.finish(rec)
 
     def _loop(self) -> None:
         while True:

@@ -27,14 +27,17 @@ are pinned to the view's version, so a member in the middle of a swap
 either serves the pinned version (staged or committed) or sheds for that
 request: a score never blends two versions.
 
-Request-scoped traces (the reference's trace context, its phases and
-``sample_every``, ``X-Photon-Trace``) are ROADMAP.md Queue 1 item 14d (ii) and
-are not kept.
+The router is where request traces start: each ``score_rows`` without an
+inbound context mints one (every ``sample_every``-th one marked sampled),
+keeps a ``route`` record with ``fanout`` and ``fold`` phases and each
+member call's ``member<i>_rtt``, and sends the context to every member in
+``X-Photon-Trace``, so the members' records join it by ``trace_id``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import threading
@@ -48,6 +51,7 @@ import numpy as np
 
 from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.parallel.sharding import owner_of_row
+from photon_ml_tpu_torch.telemetry import requests as request_trace
 from photon_ml_tpu_torch.utils.atomic import atomic_write_json
 
 _FP_ROUTE_FANOUT = faults.register_point(
@@ -185,6 +189,7 @@ class FleetRouter:
         refresh_interval_s: float = 0.5,
         cooldown_s: float = 1.0,
         max_batch: int = 1024,
+        sample_every: int = 0,
     ):
         self.announce_dir = announce_dir
         self._lookups = {name: dict(table) for name, table in dict(lookups).items()}
@@ -205,6 +210,10 @@ class FleetRouter:
         self.entity_axis = None
         self.nearline_seq = 0
         self.lineage = None
+        # every Nth routed batch is sampled: its full trace is persisted on
+        # the router and, through the header, on the members; 0 = never
+        self.sample_every = int(sample_every)
+        self._req_seq = itertools.count(1)
         self._view: Optional[FleetView] = None
         self._view_lock = threading.Lock()
         # keyed by endpoint, not member index: a failure seen through a
@@ -306,12 +315,31 @@ class FleetRouter:
 
     # -- request path --------------------------------------------------------
 
-    def score_rows(self, rows: Sequence[Mapping]) -> np.ndarray:
+    def score_rows(self, rows: Sequence[Mapping],
+                   ctx: Optional[request_trace.TraceContext] = None) -> np.ndarray:
         """Mean predictions for ``rows`` (``ScoringEngine.score_rows``'s
-        contract), served by the fleet."""
+        contract), served by the fleet. Without an inbound ``ctx`` the call
+        mints one and sends it to every member it calls."""
         if not rows:
             return np.zeros((0,), np.float32)
-        return self._score_routed(rows, self._current_view())
+        if ctx is None:
+            sampled = self.sample_every > 0 and next(self._req_seq) % self.sample_every == 0
+            ctx = request_trace.make_context(sampled=sampled)
+        rec = request_trace.begin("route", ctx=ctx, role="router", rows=len(rows))
+        try:
+            view = self._current_view()
+        except FleetUnavailable as e:
+            request_trace.finish(rec, status="error", error=str(e))
+            raise
+        if rec is not None:
+            rec.set_attr(fleet_size=view.fleet_size, version=view.version, epoch=view.epoch)
+        try:
+            scores = self._score_routed(rows, view, ctx, rec)
+        except FleetUnavailable as e:
+            request_trace.finish(rec, status="error", error=str(e))
+            raise
+        request_trace.finish(rec)
+        return scores
 
     def _owners(self, row, fleet: int) -> set:
         """The members owning ``row``'s known entities."""
@@ -327,7 +355,8 @@ class FleetRouter:
             owners.add(owner_of_row(self._num_entities[id_name], code, fleet))
         return owners
 
-    def _score_routed(self, rows: Sequence[Mapping], view: FleetView) -> np.ndarray:
+    def _score_routed(self, rows: Sequence[Mapping], view: FleetView,
+                      ctx: Optional[request_trace.TraceContext] = None, rec=None) -> np.ndarray:
         n, fleet = len(rows), view.fleet_size
         offsets = np.zeros((n,), np.float64)
         # the plan: row -> its owning members (one per entity) + one FE owner
@@ -345,8 +374,10 @@ class FleetRouter:
             for m in owners | {fe_owner}:
                 member_rows.setdefault(m, []).append(i)
                 member_fe.setdefault(m, []).append(m == fe_owner)
+        t_fanout = time.monotonic()
         futures = {m: self._pool.submit(self._call_member, view, m,
-                                        [self._sub_row(rows[i]) for i in idxs], member_fe[m])
+                                        [self._sub_row(rows[i]) for i in idxs], member_fe[m],
+                                        ctx, rec)
                    for m, idxs in member_rows.items()}
         totals = np.zeros((n,), np.float64)
         degraded = np.zeros((n,), bool)
@@ -368,8 +399,13 @@ class FleetRouter:
                     # margin retried elsewhere is exact
                     if m in row_owners[i]:
                         degraded[i] = True
+        if rec is not None:
+            rec.phase("fanout", (time.monotonic() - t_fanout) * 1000.0,
+                      ts=request_trace.trace_time(t_fanout))
+        t_fold = time.monotonic()
         if fe_orphans:
-            totals[fe_orphans] += self._fe_fallback(view, [rows[i] for i in fe_orphans], failed)
+            totals[fe_orphans] += self._fe_fallback(view, [rows[i] for i in fe_orphans], failed,
+                                                    ctx, rec)
         shed = int(np.count_nonzero(degraded))
         if shed:
             telemetry.counter("serving.degraded_scores").inc(shed)
@@ -378,6 +414,11 @@ class FleetRouter:
         link_fn = _LINKS.get(self._link)
         if link_fn is not None:
             scores = link_fn(scores)
+        if rec is not None:
+            rec.phase("fold", (time.monotonic() - t_fold) * 1000.0,
+                      ts=request_trace.trace_time(t_fold))
+            rec.set_attr(degraded=bool(shed), members=sorted(member_rows),
+                         failed_members=sorted(failed))
         return np.asarray(scores, np.float32)
 
     @staticmethod
@@ -388,7 +429,8 @@ class FleetRouter:
             return {"features": {}}
         return {k: v for k, v in row.items() if k != "offset"}
 
-    def _fe_fallback(self, view: FleetView, rows: Sequence[Mapping], failed: set) -> np.ndarray:
+    def _fe_fallback(self, view: FleetView, rows: Sequence[Mapping], failed: set,
+                     ctx: Optional[request_trace.TraceContext] = None, rec=None) -> np.ndarray:
         """Fixed-effect margins for rows whose designate died, retried on any
         live member with the ids stripped (so no member adds entity margins
         a second time). Total fleet loss is the one unservable case."""
@@ -398,8 +440,8 @@ class FleetRouter:
             if m in failed:
                 continue
             try:
-                return np.asarray(self._call_member(view, m, stripped, [True] * len(stripped)),
-                                  np.float64)
+                return np.asarray(self._call_member(view, m, stripped, [True] * len(stripped),
+                                                    ctx, rec), np.float64)
             except _MemberUnavailable as e:
                 failed.add(m)
                 telemetry.counter("serving.member_failures").inc()
@@ -407,12 +449,13 @@ class FleetRouter:
         raise FleetUnavailable(
             f"every member of fleet epoch {view.epoch} is unreachable") from last_err
 
-    def _call_member(self, view: FleetView, member: int, sub_rows: list,
-                     include_fixed: list) -> list:
+    def _call_member(self, view: FleetView, member: int, sub_rows: list, include_fixed: list,
+                     ctx: Optional[request_trace.TraceContext] = None, rec=None) -> list:
         """One member's margin batch, with bounded retry and backoff, then a
         cooldown, so a dead member costs one timeout per cooldown window,
         not one per request. Each attempt's RTT lands in
-        ``serving.fanout_rtt_ms.m<i>``."""
+        ``serving.fanout_rtt_ms.m<i>``; the call's whole wall time is the
+        ``member<i>_rtt`` phase of ``rec`` (appended from the pool thread)."""
         endpoint = view.endpoints[member]
         if self._down_until.get(endpoint, 0.0) > time.monotonic():
             raise _MemberUnavailable(f"member {member} cooling down")
@@ -423,16 +466,25 @@ class FleetRouter:
             # unreachable for this batch — degraded, never failed
             self._down_until[endpoint] = time.monotonic() + self.cooldown_s
             raise _MemberUnavailable(f"member {member} fan-out fault: {e}") from e
+        headers = {"Content-Type": "application/json"}
+        if ctx is not None:
+            headers[request_trace.TRACE_HEADER] = ctx.to_header()
         body = json.dumps({"rows": sub_rows, "include_fixed": include_fixed,
                            "fleet_size": view.fleet_size, "version": view.version}).encode()
         url = endpoint + "/v1/margins"
         rtt_hist = telemetry.histogram(f"serving.fanout_rtt_ms.m{member}")
+        t_call = time.monotonic()
+
+        def rtt_phase() -> None:
+            if rec is not None:
+                rec.phase(f"member{member}_rtt", (time.monotonic() - t_call) * 1000.0,
+                          ts=request_trace.trace_time(t_call))
+
         last_err: Optional[Exception] = None
         for attempt in range(self.retries + 1):
             t_attempt = time.monotonic()
             try:
-                req = urllib.request.Request(url, data=body,
-                                             headers={"Content-Type": "application/json"})
+                req = urllib.request.Request(url, data=body, headers=headers)
                 with urllib.request.urlopen(req, timeout=self.member_timeout_s) as resp:
                     payload = json.loads(resp.read())
                 rtt_hist.observe((time.monotonic() - t_attempt) * 1000.0)
@@ -441,6 +493,7 @@ class FleetRouter:
                 if len(margins) != len(sub_rows):
                     raise _MemberUnavailable(f"member {member} returned {len(margins)} margins "
                                              f"for {len(sub_rows)} rows")
+                rtt_phase()
                 return margins
             except urllib.error.HTTPError as e:
                 # 409: the member holds no engine for the pinned (fleet_size,
@@ -458,6 +511,7 @@ class FleetRouter:
             if attempt < self.retries:
                 time.sleep(self.backoff_s * (2 ** attempt))
         self._down_until[endpoint] = time.monotonic() + self.cooldown_s
+        rtt_phase()
         raise _MemberUnavailable(f"member {member} at {url}: {last_err}") from last_err
 
     def close(self):

@@ -20,8 +20,13 @@ Counterpart of ``photon_ml_tpu/serving/server.py``. Endpoints:
 The stdio mode reads one JSON object per stdin line (``{"rows": [...]}``
 scores; ``{"op": "health"}`` / ``{"op": "metrics"}`` introspect) and writes
 one JSON response line to stdout; it scores directly on the engine (no
-batcher threads), so a driver loop is deterministic. Request-scoped traces
-(``X-Photon-Trace``) are not kept.
+batcher threads), so a calling loop is deterministic.
+
+An inbound ``X-Photon-Trace`` header (``telemetry.requests``) tags the
+request's record with the caller's trace ids: the batcher's ``score``
+record, or on ``/v1/margins`` the member's ``margins`` record (its
+``engine_dispatch`` phase, version, nearline sequence and fleet size). A
+malformed header parses to None and the request goes on untraced.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from photon_ml_tpu_torch.serving.batcher import (
     Overloaded,
 )
 from photon_ml_tpu_torch.serving.engine import BadRequest, ScoringEngine
+from photon_ml_tpu_torch.telemetry import requests as request_trace
 
 #: the Retry-After hint (seconds) on draining 503s — long enough for a
 #: drain + relaunch, short enough that a router's next probe finds the
@@ -191,7 +197,8 @@ class ScoringService:
         """Validate one ``/v1/score`` body and enqueue it; the batcher
         Future (resolves to ``{"scores", "model_version"}``). Shared by
         the blocking (:meth:`score_request`) and asyncio front ends.
-        ``ctx`` (the reference's trace context) is accepted and not kept."""
+        ``ctx`` is the inbound trace context (``X-Photon-Trace``); the
+        batcher carries it through the queue wait and the dispatch."""
         if self._draining:
             raise Draining("server is draining; retry elsewhere")
         rows = payload.get("rows") if isinstance(payload, Mapping) else None
@@ -206,8 +213,18 @@ class ScoringService:
         ``{"rows": [...], "include_fixed": [bool, ...]?, "fleet_size": N?,
         "version": "v-..."?}``. Scores DIRECTLY on the resolved engine (the
         router batches upstream) and returns full-precision margins (the
-        fold is exact, so no wire rounding). ``ctx`` is accepted and not
-        kept."""
+        fold is exact, so no wire rounding). ``ctx`` is the router's trace
+        context: the member's ``margins`` record (its ``engine_dispatch``
+        phase and ``{version, nearline_seq, fleet_size}``) carries its ids,
+        so the fleet report joins this hop to the router's."""
+        rec = request_trace.begin("margins", ctx=ctx, role="member")
+        try:
+            return self._margin_request(payload, rec)
+        except Exception as e:
+            request_trace.finish(rec, status="error", error=f"{type(e).__name__}: {e}")
+            raise
+
+    def _margin_request(self, payload: Mapping, rec) -> dict:
         if self._draining:
             raise Draining("server is draining; retry elsewhere")
         if not isinstance(payload, Mapping):
@@ -220,7 +237,17 @@ class ScoringService:
         if include_fixed is not None and not isinstance(include_fixed, list):
             raise BadRequest("include_fixed must be a list of booleans")
         telemetry.counter("serving.requests").inc()
+        t0 = time.monotonic()
         margins = engine.margin_rows(rows, include_fixed)
+        if rec is not None:
+            rec.phase("engine_dispatch", (time.monotonic() - t0) * 1000.0,
+                      ts=request_trace.trace_time(t0))
+            attrs = (engine.request_attrs() if hasattr(engine, "request_attrs")
+                     else {"version": engine.version})
+            if payload.get("fleet_size") is not None:
+                attrs["fleet_size"] = payload["fleet_size"]
+            rec.set_attr(rows=len(rows), **attrs)
+        request_trace.finish(rec)
         return {
             "margins": [float(m) for m in margins],
             "model_version": engine.version,
@@ -352,16 +379,18 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(400, {"error": "bad_request",
                               "detail": "body is not valid JSON"})
             return
+        # the inbound trace context; a malformed header parses to None
+        ctx = request_trace.parse_header(self.headers.get(request_trace.TRACE_HEADER))
         try:
             if self.path == "/v1/update":
                 self._reply(200, service.update_request(payload))
             elif self.path == "/v1/margins":
-                self._reply(200, service.margin_request(payload))
+                self._reply(200, service.margin_request(payload, ctx=ctx))
             elif self.path.startswith("/v1/admin/"):
                 op = self.path.rsplit("/", 1)[1]
                 self._reply(200, service.admin_request(op, payload))
             else:
-                self._reply(200, service.score_request(payload))
+                self._reply(200, service.score_request(payload, ctx=ctx))
         except Draining as e:
             self._reply(
                 503, {"error": "draining", "detail": str(e)},

@@ -17,15 +17,21 @@ metric names, so both packages' artifacts read alike:
   manifests into one markdown/JSON report with a regression ``compare()``
   (``cli report``).
 - :mod:`.identity`: per-member artifact suffixing in a fleet.
+- :mod:`.requests`: request-scoped traces (``X-Photon-Trace``), the
+  per-process ring with tail sampling, and the flight recorder
+  (``flight_dump``, ``harvest_flight``).
+- :mod:`.fleet_report`: :class:`~.fleet_report.FleetReport`, which merges a
+  fleet directory of per-member streams into one report with per-member
+  rows, the straggler, the clock skew, lost members' last words and the
+  request traces joined across processes (``cli report --fleet``).
 
 ``sync_fetch(t, label)`` is the one sanctioned device-to-host copy of a
 solve or request path (the counterpart of ``telemetry/device.py:40-75``): it
 copies once, counts ``host_syncs`` and the reference's ``device_fetch*``
 metrics, and stamps a ``device_fetch`` event on the open span.
 
-Not ported yet (ROADMAP.md Queue 1 item 14d): request tracing, the flight
-recorder and the fleet report (ii); the executable accounting, the profiler
-and the compile counters (iii).
+Not ported yet (ROADMAP.md Queue 1 item 14d (iii)): the executable
+accounting, the profiler and the compile counters.
 
 Typical use::
 
@@ -48,6 +54,7 @@ from typing import Optional
 import numpy as np
 
 from photon_ml_tpu_torch.telemetry import identity, memory, metrics, trace  # noqa: F401
+from photon_ml_tpu_torch.telemetry import requests  # noqa: F401  (needs trace)
 from photon_ml_tpu_torch.telemetry.identity import member_artifact_path  # noqa: F401
 from photon_ml_tpu_torch.telemetry.metrics import (  # noqa: F401
     counter,
@@ -133,13 +140,14 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Restore import-time defaults: clear the spans and the registry's
-    metrics (providers stay), close the trace sink, restore the default
-    buffer limit, drop an injected memory-stats provider, and unregister
-    the ``configure_from_env`` exit flush."""
+    """Restore import-time defaults: clear the spans, the request ring and
+    the registry's metrics (providers stay), close the trace sink, restore
+    the default buffer limit, drop an injected memory-stats provider, and
+    unregister the ``configure_from_env`` exit flush."""
     trace.reset()
     metrics.reset()
     memory.reset()
+    requests.reset()
     flush = _env_state["atexit_flush"]
     if flush is not None:
         import atexit

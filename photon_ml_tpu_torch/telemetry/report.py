@@ -19,11 +19,13 @@ checkpoint directory's manifests:
   and ``python -m photon_ml_tpu_torch.cli report --compare baseline.json
   --fail-on-regress`` exits 3.
 
-Sections of later slices of ROADMAP.md Queue 1 item 14d render nothing
-here, as the reference's do when a run has no data for them: "Requests" and
-the slowest requests (ii); "Device utilization", "Hot executables" and the
-executable table, with the key metrics built on them (``mfu``,
-``exec.<name>.mfu``, ``xla_recompiles``) (iii).
+The "Requests" section summarizes the request ring (records, tail-sampled
+persists, ring drops, p50/p99 by phase) and lists the slowest persisted
+request traces. The sections of ROADMAP.md Queue 1 item 14d (iii) render
+nothing here, as the reference's do when a run has no data for them:
+"Device utilization", "Hot executables" and the executable table, with the
+key metrics built on them (``mfu``, ``exec.<name>.mfu``,
+``xla_recompiles``).
 
 This module only reads artifacts (or the live registries through
 :meth:`RunReport.from_live`); it never touches a device.
@@ -543,7 +545,7 @@ class RunReport:
         out.append("")
         return out
 
-    # -- later slices (ROADMAP.md Queue 1 item 14d) --------------------------
+    # -- later slices (ROADMAP.md Queue 1 item 14d (iii)) --------------------
 
     def hot_executables(self, k: int = 10) -> list[dict]:
         """The executable profiler's table: item 14d (iii), so empty."""
@@ -553,13 +555,86 @@ class RunReport:
         """The roofline accounting: item 14d (iii), so None."""
         return None
 
+    # -- request traces ------------------------------------------------------
+
     def requests_summary(self) -> Optional[dict[str, Any]]:
-        """Request-scoped tracing: item 14d (ii), so None."""
-        return None
+        """The request ring's accounting, or None when no request record was
+        taken: records, tail-sampled persists, ring drops, and p50/p99
+        latency by phase (batcher wait, device dispatch, fan-out, fold, ...)."""
+        c = self.snapshot.get("counters", {})
+        h = self.snapshot.get("histograms", {})
+        if not c.get("request.records"):
+            return None
+        total = h.get("request.total_ms") or {}
+        phases: dict[str, Any] = {}
+        prefix = "request.phase."
+        for name, summary in sorted(h.items()):
+            if name.startswith(prefix) and name.endswith("_ms"):
+                phases[name[len(prefix):-3]] = {"count": summary.get("count"),
+                                                "p50_ms": summary.get("p50"),
+                                                "p99_ms": summary.get("p99")}
+        return {
+            "records": int(c.get("request.records", 0)),
+            "persisted": int(c.get("request.persisted", 0)),
+            "dropped": int(c.get("telemetry.trace_dropped", 0)),
+            "p50_ms": total.get("p50"),
+            "p99_ms": total.get("p99"),
+            "phases": phases,
+        }
 
     def slowest_requests(self, k: int = 10) -> list[dict[str, Any]]:
-        """The slowest persisted request traces: item 14d (ii), so empty."""
-        return []
+        """The slowest persisted request traces (the ``request:*`` root
+        spans of tail sampling), slowest first: ids, status, why it was
+        kept, and its phases."""
+        out = []
+        for s in self.spans:
+            name = s.get("name") or ""
+            attrs = s.get("attrs") or {}
+            if not name.startswith("request:") or "request_id" not in attrs:
+                continue  # phase children ride under their root
+            out.append({
+                "name": name[len("request:"):],
+                "trace_id": attrs.get("trace_id"),
+                "request_id": attrs.get("request_id"),
+                "role": attrs.get("role"),
+                "status": attrs.get("status"),
+                "sampled_reason": attrs.get("sampled_reason"),
+                "dur_ms": attrs.get("dur_ms"),
+                "phases": attrs.get("phases") or {},
+                "error": attrs.get("error"),
+            })
+        out.sort(key=lambda r: -(r["dur_ms"] if isinstance(r["dur_ms"], (int, float)) else 0.0))
+        return out[:k]
+
+    def _requests_markdown(self, k: int = 5) -> list[str]:
+        rs = self.requests_summary()
+        if rs is None:
+            return []
+        out = ["## Requests", ""]
+        line = f"- {rs['records']} request record(s)"
+        if rs.get("p99_ms") is not None:
+            line += f" — p50 {rs['p50_ms']:.1f} ms / p99 {rs['p99_ms']:.1f} ms"
+        line += f"; {rs['persisted']} persisted by tail sampling"
+        if rs.get("dropped"):
+            line += f"; **{rs['dropped']} ring overflow drop(s)**"
+        out.append(line)
+        if rs["phases"]:
+            out += ["", "| phase | count | p50 ms | p99 ms |", "|---|---|---|---|"]
+            for pname, p in rs["phases"].items():
+                out.append(f"| `{pname}` | {p['count']} | {_fmt_or_unknown(p['p50_ms'])} | "
+                           f"{_fmt_or_unknown(p['p99_ms'])} |")
+        slow = self.slowest_requests(k=k)
+        if slow:
+            out += ["", "_Slowest persisted traces (tail sampling: "
+                    "slow / degraded / errored / sampled):_", "",
+                    "| request | ms | status | why | phases |", "|---|---|---|---|---|"]
+            for r in slow:
+                phases = "; ".join(f"{n} {ms:.1f}" for n, ms in r["phases"].items()
+                                   if isinstance(ms, (int, float)))
+                out.append(f"| `{r['name']}` `{r['trace_id']}` | {_fmt_or_unknown(r['dur_ms'])} | "
+                           f"{r['status']} | {r['sampled_reason']} | {phases} |")
+        out.append("")
+        return out
 
     # -- compare -------------------------------------------------------------
 
@@ -665,6 +740,7 @@ class RunReport:
         lines += self._accounting_markdown()
         lines += self._ingestion_markdown()
         lines += self._serving_markdown()
+        lines += self._requests_markdown()
         lines += self._recovery_markdown()
         lines += self._freshness_markdown()
         lines += self._pipeline_markdown()

@@ -23,10 +23,13 @@ Span JSONL schema (one line per completed span)::
 
 ``ts`` is seconds since the tracer's monotonic anchor; ``events[].ts`` shares
 the timebase. Besides the buffer, the tracer keeps each span name's total
-seconds (``span_seconds``), which no buffer limit drops.
+seconds (``span_seconds``), which no buffer limit drops. ``emit`` records a
+span after the fact (the request tracer's tail sampler decides only once a
+request has finished whether it keeps its phases as spans).
 
-The fleet form of the Chrome export (a directory of member streams merged
-on one timebase) is ROADMAP.md Queue 1 item 14d (ii) and is refused.
+The Chrome export also takes a fleet telemetry directory: every member's
+``trace.proc-<i>.jsonl`` stream merges into one file with a Perfetto track
+per process, on the fleet report's absolute (anchor + skew) timebase.
 """
 
 from __future__ import annotations
@@ -60,9 +63,6 @@ __all__ = [
 ]
 
 DEFAULT_BUFFER_LIMIT = 50_000
-
-_FLEET_NOT_PORTED = ("a fleet telemetry directory (the merged per-member Chrome trace) is not "
-                     "ported to photon_ml_tpu_torch yet (ROADMAP.md Queue 1 item 14d (ii))")
 
 
 class Span:
@@ -156,6 +156,11 @@ class Tracer:
                 self._sink_fh.write(json.dumps(header) + "\n")
                 self._sink_fh.flush()
 
+    def close_sink(self) -> None:
+        """Close the JSONL sink (the spans stay in the buffer)."""
+        with self._lock:
+            self._close_sink_locked()
+
     def _close_sink_locked(self) -> None:
         if self._sink_fh is not None:
             try:
@@ -238,6 +243,16 @@ class Tracer:
         if cur is not None:
             cur.add_event(name, ts=self.now(), **attrs)
 
+    def emit(self, name: str, ts: float, dur: float, parent: Optional[int] = None,
+             **attrs: Any) -> int:
+        """Record an already-measured span (no context manager); returns its
+        id, so children can be parented under it."""
+        s = Span(name=name, span_id=next(self._ids), parent_id=parent, ts=float(ts),
+                 thread=threading.current_thread().name, attrs=dict(attrs))
+        s.dur = max(0.0, float(dur))
+        self._finish(s)
+        return s.span_id
+
     def _finish(self, s: Span) -> None:
         dropped = 0
         with self._lock:
@@ -290,14 +305,15 @@ span_seconds = TRACER.span_seconds
 # -- Chrome trace (Perfetto) export ------------------------------------------
 
 
-def to_chrome_trace(records: Iterable[dict]) -> dict:
+def to_chrome_trace(records: Iterable[dict] | str) -> dict:
     """Span dicts (``Span.to_dict()`` / JSONL lines) as the Chrome
     trace-event object Perfetto loads: spans become ``ph: "X"`` duration
     events, span events ``ph: "i"`` thread-scoped instants, one thread lane
     (``tid`` + ``thread_name`` metadata) per thread, microseconds on the
-    tracer's timebase."""
+    tracer's timebase. A fleet telemetry directory's path instead merges
+    its members' streams (:func:`_fleet_chrome_trace`)."""
     if isinstance(records, str):
-        raise NotImplementedError(_FLEET_NOT_PORTED)
+        return _fleet_chrome_trace(records)
     tids: dict[str, int] = {}
     events: list[dict] = []
     meta: list[dict] = []
@@ -324,6 +340,67 @@ def to_chrome_trace(records: Iterable[dict]) -> dict:
     return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
 
 
+def _fleet_chrome_trace(fleet_dir: str) -> dict:
+    """One Chrome trace of a fleet directory: a Perfetto process per member
+    (``proc-<i> (<hostname>)``), each member's spans shifted onto
+    ``FleetReport``'s absolute (anchor + skew) timebase, origin at the
+    earliest anchored span. A stream without an anchor keeps its own
+    timebase (better skewed than dropped)."""
+    # local import: fleet_report imports report, which imports this module
+    from photon_ml_tpu_torch.telemetry.fleet_report import FleetReport
+
+    fleet = FleetReport.load(fleet_dir)
+    merged = fleet.merged_spans()
+    anchored = [r["abs_ts"] for r in merged if isinstance(r.get("abs_ts"), (int, float))]
+    t0 = min(anchored) if anchored else 0.0
+    hosts = {m.process_index: m.hostname for m in fleet.members}
+    events: list[dict] = []
+    meta: list[dict] = []
+    pids: set[int] = set()
+    tids: dict[tuple[int, str], int] = {}
+
+    def pid_of(proc: int) -> int:
+        pid = int(proc) + 1  # Perfetto hides pid 0
+        if pid not in pids:
+            pids.add(pid)
+            label = f"proc-{proc}"
+            if hosts.get(proc):
+                label += f" ({hosts[proc]})"
+            meta.append({"name": "process_name", "ph": "M", "pid": pid,
+                         "args": {"name": label}})
+        return pid
+
+    def tid_of(pid: int, thread: str) -> int:
+        key = (pid, thread)
+        if key not in tids:
+            tids[key] = sum(1 for k in tids if k[0] == pid) + 1
+            meta.append({"name": "thread_name", "ph": "M", "pid": pid, "tid": tids[key],
+                         "args": {"name": thread}})
+        return tids[key]
+
+    for rec in merged:
+        if rec.get("type") != "span":
+            continue
+        ts = rec.get("ts")
+        if not isinstance(ts, (int, float)):
+            continue
+        pid = pid_of(int(rec.get("process_index") or 0))
+        t = tid_of(pid, rec.get("thread", "main"))
+        abs_ts = rec.get("abs_ts")
+        shift = (abs_ts - t0 - ts) if isinstance(abs_ts, (int, float)) else 0.0
+        events.append({"name": rec["name"], "cat": "span", "ph": "X",
+                       "ts": round((ts + shift) * 1e6, 3),
+                       "dur": round((rec.get("dur") or 0.0) * 1e6, 3),
+                       "pid": pid, "tid": t, "args": rec.get("attrs", {})})
+        for ev in rec.get("events", ()):
+            if not isinstance(ev.get("ts"), (int, float)):
+                continue
+            events.append({"name": ev["name"], "cat": "event", "ph": "i", "s": "t",
+                           "ts": round((ev["ts"] + shift) * 1e6, 3), "pid": pid, "tid": t,
+                           "args": ev.get("attrs", {})})
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+
+
 def perfetto_path(trace_out: str) -> str:
     """The sibling ``.perfetto.json`` path of a span JSONL path."""
     base = trace_out[:-6] if trace_out.endswith(".jsonl") else trace_out
@@ -331,13 +408,16 @@ def perfetto_path(trace_out: str) -> str:
 
 
 def export_chrome_trace(jsonl_path: str, out_path: str) -> int:
-    """Convert a span JSONL file to one Chrome/Perfetto trace file, written
-    atomically; returns the number of trace events. Unparseable lines are
-    skipped (a crashed run leaves a truncated last line)."""
-    if os.path.isdir(jsonl_path):
-        raise NotImplementedError(_FLEET_NOT_PORTED)
+    """Convert a span JSONL file, or a fleet telemetry directory of
+    ``trace.proc-<i>.jsonl`` streams, to one Chrome/Perfetto trace file,
+    written atomically; returns the number of trace events. Unparseable
+    lines are skipped (a crashed run leaves a truncated last line)."""
     from photon_ml_tpu_torch.utils.atomic import atomic_write_json
 
+    if os.path.isdir(jsonl_path):
+        doc = to_chrome_trace(jsonl_path)
+        atomic_write_json(out_path, doc)
+        return len(doc["traceEvents"])
     records = []
     with open(jsonl_path, encoding="utf-8") as fh:
         for line in fh:

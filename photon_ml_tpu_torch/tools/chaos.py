@@ -24,9 +24,9 @@ holds the result to the reference row's bound:
   leaves the registry untouched; the rerun quarantines the regressed
   challenger and publishes the healthy one;
 - ``run_serving_matrix``: ``member_load_io``, ``route_fanout_io``,
-  ``resize_swap`` and the hard kill under traffic
-  (``tools/serving_fleet.py``). ``flight_dump_kill`` is ROADMAP.md Queue 1
-  item 14d (ii)'s and is reported as not ported, never as passed.
+  ``resize_swap``, ``flight_dump_kill`` (a process killed in the middle of
+  its flight-recorder dump leaves nothing a fleet report adopts) and the
+  hard kill under traffic (``tools/serving_fleet.py``).
 
 A ``budget_s`` reports the rows it did not reach under ``skipped``; none is
 dropped silently. The workers run on ``--device`` (default cuda; cpu runs
@@ -323,9 +323,6 @@ def run_fleet_matrix(workdir: str, points: Optional[Sequence[str]] = None,
 SERVING_ROWS = ("member_load_io", "route_fanout_io", "resize_swap", "flight_dump_kill",
                 "member_hard_kill")
 
-#: rows this package does not run yet, with the ROADMAP item that owns them
-SERVING_NOT_PORTED = {"flight_dump_kill": "14d (ii)"}
-
 #: hard-kill recovery budget: heartbeat detection plus a same-slot relaunch
 KILL_RECOVERY_BUDGET_S = 120.0
 
@@ -442,6 +439,53 @@ def _router_row(row: str, workdir: str, version_dir: str, n_entities: int, devic
             server.stop()
 
 
+#: the flight_dump_kill row's process: five ring records, then a dump
+_FLIGHT_SNIPPET = (
+    "import sys\n"
+    "from photon_ml_tpu_torch import faults\n"
+    "faults.warn_if_armed()\n"
+    "from photon_ml_tpu_torch.telemetry import requests as rq\n"
+    "for _ in range(5):\n"
+    "    rq.finish(rq.begin('score', rows=1))\n"
+    "n = rq.flight_dump(rq.flight_path(sys.argv[1], 0))\n"
+    "print('dumped', n)\n"
+)
+
+
+def _flight_dump_row(sub: str, entry: dict, problems: list) -> None:
+    """A process killed in the middle of its flight dump leaves nothing
+    adoptable (also with a ``.tmp`` planted, the shape of a kill between the
+    write and the rename); the unarmed rerun's dump parses, all 5 records."""
+    from photon_ml_tpu_torch.telemetry import fleet_report
+    from photon_ml_tpu_torch.telemetry import requests as rq
+
+    os.makedirs(sub, exist_ok=True)
+    cmd = [sys.executable, "-c", _FLIGHT_SNIPPET, sub]
+    armed = subprocess.run(cmd, env=worker_env(exit_plan("telemetry.flight_dump")),
+                           cwd=_repo_root(), capture_output=True, text=True, timeout=120)
+    entry["armed_rc"] = armed.returncode
+    if armed.returncode != EXIT_CODE:
+        problems.append(f"armed dump process exited {armed.returncode}, expected the injected "
+                        f"{EXIT_CODE} (seam misses the dump path?)")
+    with open(os.path.join(sub, "flight-proc-1.json.tmp"), "w", encoding="utf-8") as fh:
+        fh.write('{"type": "flight_record", "records": [')
+    adopted = fleet_report.discover_flight_records(sub)
+    entry["adopted_after_kill"] = sorted(adopted)
+    if adopted:
+        problems.append(f"kill mid-dump left an adoptable flight record: "
+                        f"{sorted(adopted.values())}")
+    clean = subprocess.run(cmd, env=worker_env(None), cwd=_repo_root(), capture_output=True,
+                           text=True, timeout=120)
+    if clean.returncode != 0:
+        problems.append(f"unarmed rerun exited {clean.returncode}: {clean.stderr[-200:]}")
+    doc = rq.read_flight(rq.flight_path(sub, 0))
+    entry["clean_records"] = None if doc is None else len(doc.get("records") or [])
+    if doc is None:
+        problems.append("unarmed rerun produced no parseable flight record")
+    elif entry["clean_records"] != 5:
+        problems.append(f"flight record carries {entry['clean_records']} record(s), expected 5")
+
+
 def run_serving_matrix(workdir: str, rows: Optional[Sequence[str]] = None,
                        budget_s: Optional[float] = None, traffic_seconds: float = 8.0,
                        device: str = "cuda") -> dict:
@@ -461,8 +505,11 @@ def run_serving_matrix(workdir: str, rows: Optional[Sequence[str]] = None,
       degraded scores accounted, heartbeat detection and a same-slot
       relaunch within ``KILL_RECOVERY_BUDGET_S``, every member draining to
       exit 75;
-    - ``flight_dump_kill``: not ported (ROADMAP.md Queue 1 item 14d (ii)), reported
-      with ``not_ported`` and never as passed.
+    - ``flight_dump_kill``: a process hard-killed in the middle of its
+      flight-recorder dump (an ``exit`` rule at ``telemetry.flight_dump``)
+      dies with 113 and leaves nothing ``discover_flight_records`` adopts,
+      planted ``.tmp`` debris included; the unarmed rerun's dump parses
+      with every ring record.
     """
     from photon_ml_tpu_torch import faults
     from photon_ml_tpu_torch.tools import serving_fleet
@@ -473,7 +520,7 @@ def run_serving_matrix(workdir: str, rows: Optional[Sequence[str]] = None,
     if unknown:
         raise ValueError(f"not serving chaos rows: {unknown} (known: {known})")
     t0 = time.monotonic()
-    report = _report(workdir, rows, rows=rows, not_ported={}, device=device)
+    report = _report(workdir, rows, rows=rows, device=device)
     os.makedirs(workdir, exist_ok=True)
     n_entities = 12
     version_dir = serving_fleet.make_serving_model(os.path.join(workdir, "registry"),
@@ -481,9 +528,6 @@ def run_serving_matrix(workdir: str, rows: Optional[Sequence[str]] = None,
     for row in rows:
         if _over_budget(report, rows, t0, budget_s):
             break
-        if row in SERVING_NOT_PORTED:
-            report["not_ported"][row] = f"ROADMAP.md Queue 1 item {SERVING_NOT_PORTED[row]}"
-            continue
         t_row = time.monotonic()
         entry: dict = {"row": row}
         problems: list = []
@@ -509,6 +553,8 @@ def run_serving_matrix(workdir: str, rows: Optional[Sequence[str]] = None,
                     problems.append("unarmed retry did not serve")
             elif row in ("route_fanout_io", "resize_swap"):
                 _router_row(row, workdir, version_dir, n_entities, device, entry, problems)
+            elif row == "flight_dump_kill":
+                _flight_dump_row(os.path.join(workdir, row), entry, problems)
             elif row == "member_hard_kill":
                 spec = serving_fleet.ServingFleetSpec(
                     workdir=os.path.join(workdir, row), model_dir=version_dir, fleet_size=3,
@@ -930,8 +976,6 @@ def _print_report(report: dict, kind: str) -> None:
                                             "published_versions", "quarantined", "published",
                                             "error") if entry.get(k) is not None}
         print(f"{status:4s} {point}  {json.dumps(detail, default=str)}")
-    for point, why in (report.get("not_ported") or {}).items():
-        print(f"not ported {point}  ({why})")
     for point in report["skipped"]:
         print(f"skip {point}  (budget exhausted)")
     print(f"{kind}: {'OK' if report['ok'] else 'FAILED'} in {report['elapsed_s']:.1f}s")

@@ -38,10 +38,14 @@ CPU. Each member prints one JSON line at its end with its start-up seconds,
 backend, fit seconds, coefficients per second, peak allocated bytes and
 ``comms.wait_seconds_total``.
 
-Left out, with the ROADMAP item that owns it: the members' trace and
-telemetry streams (``PHOTON_TRACE_OUT``/``PHOTON_TELEMETRY_OUT``) and the
-progress heartbeat (item 14d (ii)): ``FleetSpec.telemetry`` is False, and True
-raises.
+With ``FleetSpec.telemetry`` (the default) every member gets
+``PHOTON_TRACE_OUT``/``PHOTON_TELEMETRY_OUT`` pointed into its generation's
+directory (``<workdir>/telemetry/gen<g>/``, one directory a generation: a
+relaunched fleet renumbers its members), so the run leaves
+``trace.proc-<i>.jsonl`` and ``telemetry.proc-<i>.jsonl`` there (a progress
+heartbeat line every ``progress_heartbeat_every_s``, the final metrics
+snapshot at exit), the input of ``cli report --fleet``; the report names
+them in ``telemetry_dirs`` and the newest in ``telemetry_dir``.
 
     python -m photon_ml_tpu_torch.tools.fleet --workdir out/fleet --device cpu
     python -m photon_ml_tpu_torch.tools.fleet --worker ...   # one member (internal)
@@ -254,23 +258,44 @@ class FleetSpec:
     #: SIGTERM to this member this many seconds after its first heartbeat
     sigterm_after_s: Optional[float] = None
     sigterm_process: int = 0
-    #: stretch each chunk boundary so signals land mid-fit (tests)
+    #: stretch each chunk boundary so signals land mid-fit (tests); only on
+    #: member ``chunk_sleep_proc`` (-1: every member), which then arrives
+    #: last at every boundary: the fleet's deterministic straggler
     chunk_sleep_s: float = 0.0
-    #: the members' trace/telemetry streams and progress heartbeat: item 14d (ii)
-    telemetry: bool = False
+    chunk_sleep_proc: int = -1
+    #: the members' trace and telemetry streams (PHOTON_TRACE_OUT /
+    #: PHOTON_TELEMETRY_OUT) in ``telemetry_dir`` (default
+    #: <workdir>/telemetry), one ``gen<g>`` directory a generation
+    telemetry: bool = True
+    telemetry_dir: Optional[str] = None
+    #: the members' progress-heartbeat cadence (the telemetry JSONL lines the
+    #: live status reads; apart from the liveness file's touch)
+    progress_heartbeat_every_s: float = 1.0
     status_file: Optional[str] = None
     status_port: Optional[int] = None
     status_interval_s: float = 1.0
 
     def __post_init__(self):
-        if self.telemetry:
-            from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
-
-            raise NotImplementedError(NOT_PORTED.format(
-                "the fleet members' trace and telemetry streams and progress heartbeat "
-                "(FleetSpec.telemetry)", "14d (ii)"))
         if self.problem not in ("small", "scale"):
             raise ValueError(f"problem must be 'small' or 'scale', got {self.problem!r}")
+
+    def resolved_telemetry_dir(self) -> Optional[str]:
+        if not self.telemetry:
+            return None
+        return self.telemetry_dir or os.path.join(self.workdir, "telemetry")
+
+    def generation_telemetry_dir(self, generation: int) -> Optional[str]:
+        """One artifact directory a generation (``telemetry/gen0``, ...): a
+        relaunched fleet renumbers its members, and its proc 0 must not
+        truncate the dead member's stream."""
+        d = self.resolved_telemetry_dir()
+        return None if d is None else os.path.join(d, f"gen{generation}")
+
+    def telemetry_out_base(self, generation: int) -> Optional[str]:
+        """The unsuffixed telemetry JSONL path of generation ``g``'s members
+        (each suffixes it with its own index); what the status reads."""
+        d = self.generation_telemetry_dir(generation)
+        return None if d is None else os.path.join(d, "telemetry.jsonl")
 
     def member_device(self, proc: int) -> str:
         if self.device != "cuda":
@@ -282,15 +307,24 @@ class FleetSpec:
         return f"cuda:{proc % max(torch.cuda.device_count(), 1)}"
 
 
-def _worker_env(spec: FleetSpec, proc: int, nproc: int, armed: bool) -> dict:
+def _worker_env(spec: FleetSpec, proc: int, nproc: int, armed: bool, generation: int) -> dict:
     env = dict(os.environ)
     env.pop("PHOTON_FAULT_PLAN", None)
     env.pop(ARMED_PLAN_ENV, None)
     if armed and spec.victim_plan is not None:
         key = "PHOTON_FAULT_PLAN" if spec.victim_arm_after_chunk < 0 else ARMED_PLAN_ENV
         env[key] = json.dumps(spec.victim_plan)
+    # the member's identity and its streams, suffixed per member by
+    # telemetry.configure_from_env in the worker
     env["PHOTON_PROC_ID"] = str(proc)
     env["PHOTON_PROC_COUNT"] = str(nproc)
+    telemetry_dir = spec.generation_telemetry_dir(generation)
+    if telemetry_dir is not None:
+        env["PHOTON_TRACE_OUT"] = os.path.join(telemetry_dir, "trace.jsonl")
+        env["PHOTON_TELEMETRY_OUT"] = spec.telemetry_out_base(generation)
+    else:
+        env.pop("PHOTON_TRACE_OUT", None)
+        env.pop("PHOTON_TELEMETRY_OUT", None)
     root = _repo_root()
     env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     return env
@@ -324,6 +358,9 @@ def _launch_generation(spec: FleetSpec, generation: int, nproc: int,
                        arm_victim: bool) -> list[_Member]:
     fleet_dir = os.path.join(spec.workdir, "fleet")
     os.makedirs(fleet_dir, exist_ok=True)
+    telemetry_dir = spec.generation_telemetry_dir(generation)
+    if telemetry_dir is not None:
+        os.makedirs(telemetry_dir, exist_ok=True)
     # the previous generation's liveness files must not mask a new death
     for name in os.listdir(fleet_dir):
         if name.endswith(".alive"):
@@ -344,10 +381,12 @@ def _launch_generation(spec: FleetSpec, generation: int, nproc: int,
                 "--checkpoint-every", str(spec.checkpoint_every),
                 "--quorum-timeout", str(spec.quorum_timeout_s),
                 "--heartbeat-every", str(spec.heartbeat_every_s),
+                "--progress-heartbeat-every", str(spec.progress_heartbeat_every_s),
                 "--arm-after-chunk", str(spec.victim_arm_after_chunk),
-                "--chunk-sleep", str(spec.chunk_sleep_s)]
+                "--chunk-sleep", str(spec.chunk_sleep_s),
+                "--chunk-sleep-proc", str(spec.chunk_sleep_proc)]
         with open(out_path, "wb") as out, open(err_path, "wb") as err:
-            proc = subprocess.Popen(argv, env=_worker_env(spec, pid, nproc, armed),
+            proc = subprocess.Popen(argv, env=_worker_env(spec, pid, nproc, armed, generation),
                                     cwd=_repo_root(), stdout=out, stderr=err)
         members.append(_Member(proc, pid, out_path, err_path))
     return members
@@ -389,7 +428,7 @@ def _supervise_generation(spec: FleetSpec, generation: int, nproc: int, deadline
     members = _launch_generation(spec, generation, nproc, arm_victim=generation == 0)
     if status is not None:
         status.update(generation=generation, num_processes=nproc, rcs={}, deaths=[],
-                      outcome=None)
+                      outcome=None, telemetry_out=spec.telemetry_out_base(generation))
     sigterm_sent, sigterm_anchor = False, None
     stopping, stop_started = False, 0.0
     escalated: list[int] = []
@@ -503,7 +542,8 @@ def run_fleet(spec: FleetSpec) -> dict:
         status = FleetStatusWriter(
             fleet_dir=os.path.join(spec.workdir, "fleet"), num_processes=nproc,
             heartbeat_deadline_s=spec.heartbeat_deadline_s, status_file=spec.status_file,
-            port=spec.status_port, interval_s=spec.status_interval_s).start()
+            port=spec.status_port, telemetry_out=spec.telemetry_out_base(0),
+            interval_s=spec.status_interval_s).start()
         report["status_port"] = status.port
         report["status_file"] = spec.status_file
     death_history: list = []
@@ -542,6 +582,11 @@ def run_fleet(spec: FleetSpec) -> dict:
     report["relaunches"] = relaunches
     report["deaths_total"] = sum(len(g["deaths"]) for g in generations)
     report["final_path"] = os.path.join(spec.workdir, "final.npy")
+    if spec.resolved_telemetry_dir() is not None:
+        # one directory a generation; the newest is the completed run's
+        dirs = [spec.generation_telemetry_dir(g) for g in range(len(generations))]
+        report["telemetry_dirs"] = dirs
+        report["telemetry_dir"] = dirs[-1]
     for prev, nxt in zip(generations, generations[1:]):
         if prev["detected_at"] is not None and nxt["up_s"] is not None:
             report["detect_s"] = prev["detect_s"]
@@ -601,15 +646,24 @@ def _process_age_s() -> Optional[float]:
 def _worker_main(args) -> int:
     import torch
 
-    from photon_ml_tpu_torch import faults
+    from photon_ml_tpu_torch import faults, telemetry
     from photon_ml_tpu_torch.parallel import multihost
 
     faults.warn_if_armed()
+    # the member's streams: PHOTON_PROC_ID is in its environment, so the
+    # sinks open member-suffixed files and the trace header names it
+    telemetry.configure_from_env()
     device = torch.device(args.device)
     if args.nproc > 1:
         multihost.initialize(multihost.DistributedConfig(
             coordinator_address=f"127.0.0.1:{args.port}", num_processes=args.nproc,
             process_id=args.proc, init_retries=2, init_backoff_s=0.2), device=device)
+    progress = None
+    telemetry_out = os.environ.get("PHOTON_TELEMETRY_OUT")
+    if telemetry_out and args.progress_heartbeat_every > 0:
+        progress = telemetry.Heartbeat(interval=args.progress_heartbeat_every,
+                                       jsonl_path=telemetry.member_artifact_path(telemetry_out)
+                                       ).start()
     heartbeat = multihost.HeartbeatWriter(os.path.join(args.dir, "fleet"), args.proc,
                                           interval_s=args.heartbeat_every).start()
     try:
@@ -617,6 +671,8 @@ def _worker_main(args) -> int:
         return _worker_fit(args, device, _process_age_s())
     finally:
         heartbeat.stop()
+        if progress is not None:
+            progress.stop()
 
 
 def _worker_fit(args, device, startup_s: Optional[float]) -> int:
@@ -663,7 +719,7 @@ def _worker_fit(args, device, startup_s: Optional[float]) -> int:
 
     def should_stop() -> bool:
         boundary[0] += 1
-        if args.chunk_sleep > 0:
+        if args.chunk_sleep > 0 and args.chunk_sleep_proc in (-1, args.proc):
             time.sleep(args.chunk_sleep)
         if armed and boundary[0] == args.arm_after_chunk + 1:
             # the previous boundary's checkpoint is certified: arm the plan
@@ -736,7 +792,12 @@ def main(argv=None) -> int:
     parser.add_argument("--quorum-timeout", type=float, default=4.0)
     parser.add_argument("--heartbeat-every", type=float, default=0.25)
     parser.add_argument("--arm-after-chunk", type=int, default=0)
+    parser.add_argument("--progress-heartbeat-every", type=float, default=1.0,
+                        help="seconds between progress heartbeat lines in the member's "
+                        "telemetry stream (0: none)")
     parser.add_argument("--chunk-sleep", type=float, default=0.0)
+    parser.add_argument("--chunk-sleep-proc", type=int, default=-1,
+                        help="the member that sleeps at each boundary (-1: every member)")
     parser.add_argument("--workdir", help="the supervisor's working directory")
     parser.add_argument("--num-processes", type=int, default=2)
     parser.add_argument("--max-relaunches", type=int, default=2)

@@ -26,12 +26,21 @@ Counterpart of the serving half of the repo's ``tools/fleet.py``
 With ``device="cuda"`` member m runs on ``cuda:m mod count`` (every member
 on ``cuda:0`` with one card); ``device="cpu"`` runs them on the CPU.
 
+The members write their span streams and serving heartbeats
+(``--trace-out``, ``--telemetry-out``) into one fleet directory,
+``<workdir>/telemetry``, the in-process router writes
+``trace.router.jsonl`` there (its ``request:route`` spans, every
+``trace_sample_every``-th call sampled), the survivors dump their flight
+records there at drain, and a hard-killed member's flight record is
+harvested from the tail of its span stream once its death is detected.
+That directory holds each slot's first process: a relaunch in a used slot
+writes into ``telemetry/relaunch-<n>/`` instead, so the dead process's
+stream (and its last words) survive beside the live ones, and ``cli report
+--fleet <workdir>`` shows it lost.
+
 Left out: the live status surface (``parallel/fleet_status.py``'s
-``FleetStatusWriter``, which this supervisor does not publish to), and,
-with ROADMAP item 14d (ii), the members' serving heartbeat lines
-(``tail_heartbeat_fields``) and the flight-recorder harvest of a killed
-member. A member's death is detected from its heartbeat file and its exit
-code alone.
+``FleetStatusWriter``, which this supervisor does not publish to). A
+member's death is detected from its heartbeat file and its exit code.
 
     from photon_ml_tpu_torch.tools.serving_fleet import (
         ServingFleetSpec, make_serving_model, run_serving_fleet)
@@ -153,12 +162,18 @@ class ServingFleetSpec:
     #: rows routed at every settled view (the start, after the relaunch,
     #: after each swap); the report's ``checks`` holds their scores
     check_rows: tuple = ()
+    #: the router samples every Nth routed call (0: never; slow, degraded
+    #: and failed calls persist all the same)
+    trace_sample_every: int = 0
 
     def announce_dir(self) -> str:
         return os.path.join(self.workdir, "announce")
 
     def fleet_dir(self) -> str:
         return os.path.join(self.workdir, "fleet")
+
+    def telemetry_dir(self) -> str:
+        return os.path.join(self.workdir, "telemetry")
 
 
 @dataclasses.dataclass
@@ -171,6 +186,8 @@ class _ServingMember:
     out_path: str
     err_path: str
     t_launch: float
+    #: where its span stream, serving heartbeats and flight record go
+    telemetry_dir: Optional[str] = None
     startup_s: Optional[float] = None
     rc: Optional[int] = None
 
@@ -193,8 +210,11 @@ def _serving_member_env(spec: ServingFleetSpec, member: int) -> dict:
     return env
 
 
-def _launch_serving_member(spec: ServingFleetSpec, member: int, fleet_size: int,
-                           epoch: int) -> _ServingMember:
+def _launch_serving_member(spec: ServingFleetSpec, member: int, fleet_size: int, epoch: int,
+                           telemetry_dir: Optional[str] = None) -> _ServingMember:
+    """One ``cli serve --member`` process; with ``telemetry_dir`` it writes
+    ``trace.proc-<m>.jsonl`` and ``serving.proc-<m>.jsonl`` there (and its
+    drain dump ``flight-proc-<m>.json``)."""
     os.makedirs(spec.workdir, exist_ok=True)
     stem, n = os.path.join(spec.workdir, f"member{member}-e{epoch}"), 0
     while os.path.exists(f"{stem}-{n}.out"):  # a relaunch keeps the dead one's logs
@@ -210,11 +230,18 @@ def _launch_serving_member(spec: ServingFleetSpec, member: int, fleet_size: int,
             "--heartbeat-dir", spec.fleet_dir(), "--device", device]
     if spec.hbm_budget_mb is not None:
         argv += ["--hbm-budget-mb", str(spec.hbm_budget_mb)]
+    if telemetry_dir is not None:
+        os.makedirs(telemetry_dir, exist_ok=True)
+        # PHOTON_PROC_ID in the member's environment suffixes --trace-out to
+        # trace.proc-<member>.jsonl
+        argv += ["--telemetry-out",
+                 os.path.join(telemetry_dir, f"serving.proc-{member}.jsonl"),
+                 "--trace-out", os.path.join(telemetry_dir, "trace.jsonl")]
     with open(out_path, "wb") as out, open(err_path, "wb") as err:
         proc = subprocess.Popen(argv, env=_serving_member_env(spec, member), cwd=_repo_root(),
                                 stdout=out, stderr=err)
     return _ServingMember(proc, member, fleet_size, epoch, device, out_path, err_path,
-                          t_launch=time.monotonic())
+                          t_launch=time.monotonic(), telemetry_dir=telemetry_dir)
 
 
 def _admin_post(url: str, op: str, payload: dict, timeout_s: float) -> dict:
@@ -352,6 +379,7 @@ def run_serving_fleet(spec: ServingFleetSpec) -> dict:
     from photon_ml_tpu_torch import telemetry
     from photon_ml_tpu_torch.parallel import multihost
     from photon_ml_tpu_torch.serving import FleetRouter, fleet_lookups_from_version_dir
+    from photon_ml_tpu_torch.telemetry import requests as rq
 
     os.makedirs(spec.announce_dir(), exist_ok=True)
     os.makedirs(spec.fleet_dir(), exist_ok=True)
@@ -364,16 +392,34 @@ def run_serving_fleet(spec: ServingFleetSpec) -> dict:
     router = traffic = None
     counters = ("serving.degraded_scores", "serving.routed_rows", "serving.member_failures")
     base = {name: telemetry.counter(name).value for name in counters}
+    launched: set[int] = set()
+    relaunches = [0]
+
+    def launch(m: int, size: int, at_epoch: int) -> _ServingMember:
+        """A member into the fleet directory, or, in a slot used before,
+        into the next ``relaunch-<n>`` beside it."""
+        tdir = spec.telemetry_dir()
+        if m in launched:
+            relaunches[0] += 1
+            tdir = os.path.join(tdir, f"relaunch-{relaunches[0]}")
+        launched.add(m)
+        return _launch_serving_member(spec, m, size, at_epoch, telemetry_dir=tdir)
+
+    report["telemetry_dir"] = spec.telemetry_dir()
+    os.makedirs(spec.telemetry_dir(), exist_ok=True)
+    # the router's half of every fan-out trace, beside the members'
+    telemetry.configure(trace_out=os.path.join(spec.telemetry_dir(), "trace.router.jsonl"))
     try:
         for m in range(fleet_size):
-            members[m] = _launch_serving_member(spec, m, fleet_size, epoch)
+            members[m] = launch(m, fleet_size, epoch)
         records = _wait_for_epoch(spec, epoch, fleet_size,
                                   min(deadline, time.monotonic() + spec.warm_timeout_s), members)
         version = str(records[0]["version"])
         router = FleetRouter(spec.announce_dir(), lookups, task=task, link=link,
                              member_timeout_s=spec.member_timeout_s,
                              refresh_interval_s=spec.router_refresh_s, retries=1,
-                             backoff_s=0.05, cooldown_s=0.4)
+                             backoff_s=0.05, cooldown_s=0.4,
+                             sample_every=spec.trace_sample_every)
         router.refresh()
         checks = report["checks"] = []
 
@@ -416,8 +462,15 @@ def run_serving_fleet(spec: ServingFleetSpec) -> dict:
                         break
                     time.sleep(0.05)
                 killed["detect_s"] = round(rel() - t_kill, 3)
+                # it never ran its drain dump: its last words come from the
+                # tail of its span stream (a torn last line dropped)
+                flight = rq.harvest_flight(
+                    os.path.join(victim.telemetry_dir, f"trace.proc-{spec.kill_member}.jsonl"),
+                    rq.flight_path(victim.telemetry_dir, spec.kill_member))
+                if flight is not None:
+                    killed["flight_spans"] = flight
                 retired.append(victim)
-                fresh = _launch_serving_member(spec, spec.kill_member, fleet_size, epoch)
+                fresh = launch(spec.kill_member, fleet_size, epoch)
                 members[spec.kill_member] = fresh
                 records = _wait_for_epoch(spec, epoch, fleet_size,
                                           min(deadline, time.monotonic() + spec.warm_timeout_s),
@@ -434,8 +487,7 @@ def run_serving_fleet(spec: ServingFleetSpec) -> dict:
                 survivors = list(range(min(fleet_size, new_size)))
                 # 1) growth first: the new slots load and warm while the
                 #    survivors stage
-                growth = {m: _launch_serving_member(spec, m, new_size, epoch + 1)
-                          for m in range(fleet_size, new_size)}
+                growth = {m: launch(m, new_size, epoch + 1) for m in range(fleet_size, new_size)}
                 members.update(growth)
                 # 2) stage the new slice on every survivor while the old one
                 #    serves (concurrently: N separate processes)
@@ -497,6 +549,7 @@ def run_serving_fleet(spec: ServingFleetSpec) -> dict:
         report["members"] = [
             {"member": m.member, "epoch": m.epoch, "fleet_size": m.fleet_size,
              "device": m.device, "startup_s": m.startup_s, "rc": m.rc,
+             "telemetry_dir": m.telemetry_dir,
              "killed": killed is not None and m.rc == -signal.SIGKILL,
              "banner": _json_line(m.out_path, "serving"),
              "drained": _json_line(m.out_path, "drained")} for m in everyone]
@@ -520,6 +573,7 @@ def run_serving_fleet(spec: ServingFleetSpec) -> dict:
             traffic.stop()
         if router is not None:
             router.close()
+        telemetry.trace.TRACER.close_sink()
         for m in list(members.values()) + retired:
             if m.proc.poll() is None:
                 m.proc.kill()

@@ -80,7 +80,9 @@ def test_serving_rows_are_the_reference_rows_with_one_not_ported():
 
     assert chaos.SERVING_ROWS == j_chaos.SERVING_ROWS
     assert chaos.PIPELINE_POINTS == j_chaos.PIPELINE_POINTS
-    assert chaos.SERVING_NOT_PORTED == {"flight_dump_kill": "14d (ii)"}
+    # flight_dump_kill, once the one row not ported, is run like the others
+    assert "flight_dump_kill" in chaos.SERVING_ROWS
+    assert not hasattr(chaos, "SERVING_NOT_PORTED")
 
 
 def test_unknown_points_and_rows_are_refused(tmp_path):
@@ -105,9 +107,16 @@ def test_tree_digest_sees_content_and_names(tmp_path):
 
 
 def test_flight_dump_row_is_reported_not_ported_never_passed(tmp_path):
+    """The row, reported as not ported until the flight recorder was, now
+    passes: the process killed mid-dump exits 113 and leaves nothing
+    adoptable (the planted ``.tmp`` included); the rerun's dump holds all
+    five records."""
     report = chaos.run_serving_matrix(str(tmp_path), rows=["flight_dump_kill"], device="cpu")
-    assert report["results"] == {}
-    assert report["not_ported"] == {"flight_dump_kill": "ROADMAP.md Queue 1 item 14d (ii)"}
+    assert report["ok"], json.dumps(report, default=str)
+    entry = report["results"]["flight_dump_kill"]
+    assert entry["passed"] and entry["armed_rc"] == chaos.EXIT_CODE
+    assert entry["adopted_after_kill"] == [] and entry["clean_records"] == 5
+    assert "not_ported" not in report
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,10 @@
 """The port's fault injection (``photon_ml_tpu_torch.faults``) against the JAX
 package's, case for case with tests/test_faults.py:
 
-- the catalog: the reference's ``EXPECTED_POINTS`` less
-  ``telemetry.flight_dump`` (ROADMAP.md Queue 1 item 14d) after importing
-  every owning module, the write-path and distributed sets, and the JAX
-  package's own catalog (less the same point) equal to the port's, both
-  computed in one test;
+- the catalog: the reference's ``EXPECTED_POINTS`` (35 points,
+  ``telemetry.flight_dump`` included) after importing every owning module,
+  the write-path and distributed sets, and the JAX package's own catalog
+  equal to the port's, both computed in one test;
 - plan semantics, the JSON round trip, the environment transport, the
   per-point counts;
 - ``corrupt_array`` on numpy and torch, ``corrupt_health`` (on the health's
@@ -35,7 +34,7 @@ from photon_ml_tpu_torch import faults, telemetry
 
 TOL = dict(rtol=5e-3, atol=5e-4)  # tests/test_torch_streaming.py's streamed-table tolerance
 
-#: tests/test_faults.py:35-106, less telemetry.flight_dump (item 14d)
+#: tests/test_faults.py:35-106
 EXPECTED_POINTS = {
     "checkpoint.save.before_tmp", "checkpoint.save.before_manifest",
     "checkpoint.save.before_rename", "checkpoint.save.after_rename",
@@ -52,6 +51,7 @@ EXPECTED_POINTS = {
     "incremental.warm_restore", "incremental.delta_scan", "incremental.publish",
     "pipeline.cycle_start", "pipeline.reconcile", "pipeline.escalate",
     "quality.publish_gate", "quality.drift_flush",
+    "telemetry.flight_dump",
 }
 
 WRITE_PATH_POINTS = ["checkpoint.save.after_rename", "checkpoint.save.before_manifest",
@@ -66,7 +66,7 @@ _OWNERS = ("game.checkpoint", "game.coordinate_descent", "game.streaming", "inge
            "ingest.decode", "ingest.pipeline", "serving.batcher", "serving.nearline",
            "serving.registry", "serving.router", "serving.shard", "parallel.distributed",
            "parallel.fleet_status", "parallel.multihost", "incremental", "pipeline",
-           "quality.drift", "quality.gate", "optim.guard")
+           "quality.drift", "quality.gate", "optim.guard", "telemetry.requests")
 
 
 @pytest.fixture(autouse=True)
@@ -91,7 +91,6 @@ def test_registry_catalog_is_the_reference_catalog_less_flight_dump():
     for mod in _OWNERS:
         importlib.import_module(f"photon_ml_tpu_torch.{mod}")
         importlib.import_module(f"photon_ml_tpu.{mod}")
-    importlib.import_module("photon_ml_tpu.telemetry.requests")  # the JAX flight_dump owner
 
     registered = faults.registered_points()
     assert set(registered) == EXPECTED_POINTS
@@ -101,9 +100,10 @@ def test_registry_catalog_is_the_reference_catalog_less_flight_dump():
         assert info.name == name
         assert info.description
 
-    # the JAX package's catalog, computed here, less the one point of 14d
+    # the JAX package's catalog, computed here
     j_registered = j_faults.registered_points()
-    assert set(j_registered) - {"telemetry.flight_dump"} == set(registered)
+    assert len(registered) == 35
+    assert set(j_registered) == set(registered)
     assert j_faults.write_path_points() == faults.write_path_points()
     assert j_faults.distributed_points() == faults.distributed_points()
     for name, info in registered.items():

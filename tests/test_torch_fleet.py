@@ -121,8 +121,23 @@ def test_sigterm_to_one_member_boundary_stops_the_whole_fleet(tmp_path):
 
 
 def test_fleet_spec_refuses_the_members_telemetry_streams(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"item 14d \(ii\)\)"):
-        fleet.FleetSpec(workdir=str(tmp_path), telemetry=True)
+    """The members' streams, refused until they were ported, are on by
+    default: one directory a generation, the members' environment pointed
+    into it (the reference's layout); off, the environment carries none. An
+    unknown problem is refused."""
+    spec = fleet.FleetSpec(workdir=str(tmp_path))
+    assert spec.telemetry is True
+    gen1 = os.path.join(str(tmp_path), "telemetry", "gen1")
+    assert spec.generation_telemetry_dir(1) == gen1
+    assert spec.telemetry_out_base(1) == os.path.join(gen1, "telemetry.jsonl")
+    env = fleet._worker_env(spec, 1, 2, False, 1)
+    assert env["PHOTON_TRACE_OUT"] == os.path.join(gen1, "trace.jsonl")
+    assert env["PHOTON_TELEMETRY_OUT"] == os.path.join(gen1, "telemetry.jsonl")
+    assert (env["PHOTON_PROC_ID"], env["PHOTON_PROC_COUNT"]) == ("1", "2")
+    off = fleet.FleetSpec(workdir=str(tmp_path), telemetry=False)
+    assert off.generation_telemetry_dir(0) is None
+    env = fleet._worker_env(off, 0, 2, False, 0)
+    assert "PHOTON_TRACE_OUT" not in env and "PHOTON_TELEMETRY_OUT" not in env
     with pytest.raises(ValueError, match="problem"):
         fleet.FleetSpec(workdir=str(tmp_path), problem="huge")
 

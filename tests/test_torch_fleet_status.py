@@ -2,8 +2,8 @@
 the seven tests of tests/test_fleet_status.py: snapshot semantics held to
 the JAX package's writer on the same files, atomic writes, the
 ``fleet.status_write`` fault seam (status is observability, never
-control), the thread and the HTTP arm. The members' progress heartbeats in
-the snapshot are ROADMAP.md Queue 1 item 14d: ``telemetry_out`` is refused.
+control), the thread and the HTTP arm, and the members' progress
+heartbeats tail-parsed from their telemetry streams into the snapshot.
 """
 
 import json
@@ -82,14 +82,29 @@ def test_snapshot_exited_member_not_alive_and_update_merges(tmp_path):
 
 
 def test_snapshot_includes_member_heartbeat_fields(tmp_path):
-    """The members' progress heartbeats (tail-parsed from their telemetry
-    streams) are item 14d (ii): a ``telemetry_out`` is refused naming it, and a
-    writer without one reports liveness alone."""
+    """Each member's newest heartbeat line, tail-parsed from its suffixed
+    telemetry stream (a line of another ``proc`` and a torn last line are
+    skipped), as the JAX package's writer reads the same files; a writer
+    without ``telemetry_out`` reports liveness alone."""
     fleet_dir = str(tmp_path / "fleet")
     _touch_heartbeat(fleet_dir, 0)
-    with pytest.raises(NotImplementedError, match=r"item 14d \(ii\)\)"):
-        FleetStatusWriter(fleet_dir=fleet_dir, num_processes=1, heartbeat_deadline_s=5.0,
-                          telemetry_out=str(tmp_path / "telemetry.jsonl"))
+    _touch_heartbeat(fleet_dir, 1)
+    telemetry_out = str(tmp_path / "telemetry.jsonl")
+    with open(str(tmp_path / "telemetry.proc-0.jsonl"), "w") as fh:
+        fh.write(json.dumps({"type": "heartbeat", "seq": 7, "proc": 0, "rows_per_s": 9.0})
+                 + "\n")
+        fh.write('{"type": "heartbeat", "seq": 8, "pro')
+    with open(str(tmp_path / "telemetry.proc-1.jsonl"), "w") as fh:
+        fh.write(json.dumps({"type": "heartbeat", "seq": 3, "proc": 0}) + "\n")
+    writer, ref = _both(fleet_dir, num_processes=2, telemetry_out=telemetry_out)
+    snap = writer.snapshot()
+    hb = snap["members"]["0"]["last_heartbeat"]
+    assert hb["seq"] == 7 and hb["rows_per_s"] == 9.0
+    assert "last_heartbeat" not in snap["members"]["1"]
+    ref_snap = ref.snapshot()
+    _agree(snap, ref_snap)
+    assert {p: e.get("last_heartbeat") for p, e in snap["members"].items()} == {
+        p: e.get("last_heartbeat") for p, e in ref_snap["members"].items()}
     snap = FleetStatusWriter(fleet_dir=fleet_dir, num_processes=1,
                              heartbeat_deadline_s=5.0).snapshot()
     assert "last_heartbeat" not in snap["members"]["0"]

@@ -13,15 +13,16 @@ and budget, the executable profiler's hot-executable table and its
 - reports: the phase tree, ``compare_metrics``, a report loaded from
   artifacts (key metrics, coordinates, markdown, the JSON baseline), the
   sweep, ingestion and recovery sections, ``cli report`` and its exit codes
-  (0, 1, 2, 3) and its refused flags, an end-to-end fit with sinks and a
-  heartbeat through ``cli report --compare --fail-on-regress``;
+  (0, 1, 2, 3), its ``--fleet`` and ``--requests`` and its refused
+  ``--hot``, an end-to-end fit with sinks and a heartbeat through ``cli
+  report --compare --fail-on-regress``;
 - parity: identical artifact files (span JSONL, telemetry JSONL, a
   checkpoint directory) into both packages' ``RunReport.load``: equal
   ``to_json()`` but ``generated``, equal markdown; with request and XLA
-  metrics in the artifacts the port leaves out exactly the sections of the
-  later slices of ROADMAP.md Queue 1 item 14d (Requests, slowest requests:
-  (ii); Device utilization, Hot executables, ``mfu``/``exec.*``/
-  ``xla_recompiles`` key metrics: (iii)) and the rest stays equal;
+  metrics in the artifacts the requests sections are equal too, and the
+  port leaves out exactly the sections of ROADMAP.md Queue 1 item 14d
+  (iii) (Device utilization, Hot executables, ``mfu``/``exec.*``/
+  ``xla_recompiles`` key metrics) and the rest stays equal;
 - telemetry adds no host sync: a fit with a trace sink, a heartbeat and a
   report makes the same host syncs (and kernel launches) per update as the
   same fit without them; ``sweep_glm``'s config spans ride its one fetch.
@@ -668,11 +669,34 @@ def test_cli_report_bad_baseline(tmp_path):
 @pytest.mark.parametrize("flags,item", [(["--fleet", "d"], r"14d \(ii\)"),
                                         (["--requests"], r"14d \(ii\)"),
                                         (["--hot", "3"], r"14d \(iii\)")])
-def test_cli_report_refuses_the_later_slices_flags(tmp_path, flags, item):
+def test_cli_report_refuses_the_later_slices_flags(tmp_path, flags, item, capsys):
+    """``--hot`` (14d (iii)) is refused naming its item; ``--fleet`` and
+    ``--requests``, refused until 14d (ii), render."""
     from photon_ml_tpu_torch.cli.report import main as report_main
 
-    with pytest.raises(NotImplementedError, match=rf"--{flags[0][2:]}.*item {item}\)"):
-        report_main(["--telemetry", str(tmp_path / "m.jsonl"), *flags])
+    if item == r"14d \(iii\)":
+        with pytest.raises(NotImplementedError, match=rf"--{flags[0][2:]}.*item {item}\)"):
+            report_main(["--telemetry", str(tmp_path / "m.jsonl"), *flags])
+        return
+    if flags[0] == "--fleet":
+        fleet_dir = tmp_path / flags[1]
+        fleet_dir.mkdir()
+        (fleet_dir / "telemetry.proc-0.jsonl").write_text(json.dumps(
+            {"type": "metrics", "snapshot": {"counters": {"comms.wait_seconds_total": 1.0}}})
+            + "\n")
+        assert report_main([flags[0], str(fleet_dir)]) == 0
+        assert "# Fleet report" in capsys.readouterr().out
+        return
+    trace = tmp_path / "t.jsonl"
+    trace.write_text(json.dumps(_span(1, None, "request:score", 1.0, 0.01, trace_id="t",
+                                      request_id="r", status="ok", sampled_reason="sampled",
+                                      dur_ms=10.0, phases={"batcher_wait": 2.0})) + "\n")
+    tele = tmp_path / "m.jsonl"
+    tele.write_text(json.dumps({"type": "metrics", "snapshot": {
+        "counters": {"request.records": 3, "request.persisted": 1}}}) + "\n")
+    assert report_main(["--trace", str(trace), "--telemetry", str(tele), *flags]) == 0
+    out = capsys.readouterr().out
+    assert "## Requests" in out and "Slowest persisted traces" in out
 
 
 # -- parity with the JAX package ----------------------------------------------
@@ -814,11 +838,13 @@ def _without_sections(md, headings):
     return "\n".join(out)
 
 
-_LATER_KEYS = ("device_utilization", "hot_executables", "requests", "slowest_requests")
+_LATER_KEYS = ("device_utilization", "hot_executables")
 
 
 def test_report_omits_exactly_the_later_slices_sections(tmp_path):
     t, j, t_doc, j_doc = _both(tmp_path, later_slices=True)
+    assert t_doc["requests"] and t_doc["requests"] == j_doc["requests"]
+    assert t_doc["slowest_requests"] and t_doc["slowest_requests"] == j_doc["slowest_requests"]
     for key in _LATER_KEYS:
         assert j_doc[key], key  # the reference renders them from these artifacts
         assert t_doc.pop(key) in (None, []), key
@@ -827,8 +853,7 @@ def test_report_omits_exactly_the_later_slices_sections(tmp_path):
     assert set(j_km) - set(t_km) == {"mfu", "xla_recompiles", "exec.solve.mfu"}
     assert t_km == {k: v for k, v in j_km.items() if k in t_km}
     assert t_doc == j_doc
-    j_md = _without_sections(j.to_markdown(), {"## Device utilization", "## Hot executables",
-                                               "## Requests"})
+    j_md = _without_sections(j.to_markdown(), {"## Device utilization", "## Hot executables"})
     j_md = "\n".join(line for line in j_md.splitlines()
                      if not line.startswith(("| `mfu` |", "| `xla_recompiles` |", "| `exec.")))
     assert t.to_markdown().rstrip("\n") == j_md.rstrip("\n")

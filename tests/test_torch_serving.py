@@ -703,21 +703,75 @@ def test_registry_versions_cross_between_packages(tmp_path, game_world):
     (["--member", "1", "--router", "--announce-dir", "d"], "different fleet processes"),
     (["--router"], "require --announce-dir"),
     (["--member", "0", "--fleet-size", "4", "--announce-dir", "d"], "drop --stdio"),
-    pytest.param(["--trace-out", "t.jsonl"], "14d (ii)", id="flag3-14d"),
-    pytest.param(["--telemetry-out", "t.jsonl"], "14d (ii)", id="flag4-14d")])
-def test_cli_serve_refuses_the_fleet_and_trace_flags(tmp_path, flag, item):
-    """The reference's request-trace flags name their ROADMAP item, and its
-    fleet flag combinations are refused (``SystemExit``), before anything
-    loads."""
+    pytest.param(["--trace-out", "t.jsonl"], "serves", id="flag3-14d"),
+    pytest.param(["--telemetry-out", "t.jsonl"], "serves", id="flag4-14d")])
+def test_cli_serve_refuses_the_fleet_and_trace_flags(tmp_path, game_world, flag, item):
+    """The reference's fleet flag combinations are refused (``SystemExit``)
+    before anything loads; its request-trace flags, refused until they were
+    ported, are taken: the server answers, and ``--trace-out`` opens its
+    span sink (the trace header first)."""
     from photon_ml_tpu_torch.cli import serve as serve_cli
 
-    argv = ["--registry-dir", str(tmp_path), "--stdio", "--device", CPU, *flag]
-    if item == "14d (ii)":
-        with pytest.raises(NotImplementedError, match=rf"{flag[0]}.*item 14d \(ii\)\)"):
-            serve_cli.main(argv)
-    else:
+    if item != "serves":
         with pytest.raises(SystemExit, match=item):
-            serve_cli.main(argv)
+            serve_cli.main(["--registry-dir", str(tmp_path), "--stdio", "--device", CPU, *flag])
+        return
+    _, truth = game_world
+    registry_dir = str(tmp_path / "registry")
+    publish_version(registry_dir, to_port(_jmodel(truth)), _INDEX_MAPS)
+    out_path = str(tmp_path / flag[1])
+    stdin, stdout = sys.stdin, sys.stdout
+    sys.stdin, sys.stdout = io.StringIO(json.dumps({"op": "health"}) + "\n"), io.StringIO()
+    try:
+        assert serve_cli.main(["--registry-dir", registry_dir, "--stdio", "--device", CPU,
+                               flag[0], out_path]) == 0
+        out = sys.stdout.getvalue()
+    finally:
+        sys.stdin, sys.stdout = stdin, stdout
+    assert json.loads(out)["model_version"] == "v-00000001"
+    if flag[0] == "--trace-out":
+        with open(out_path) as fh:
+            assert json.loads(fh.readline())["type"] == "trace_header"
+
+
+@pytest.mark.parametrize("frontend", ["threading", "asyncio"])
+def test_trace_header_tags_the_request_record(game_world, frontend):
+    """An ``X-Photon-Trace`` header on ``/v1/score`` tags the batcher's
+    ``score`` record with the caller's ids on either front end; sampled, its
+    trace is persisted with its phases; a malformed header is served
+    untraced; the records add no host sync (one a batch, as untraced)."""
+    from photon_ml_tpu_torch.serving import AsyncScoringServer
+    from photon_ml_tpu_torch.telemetry import requests as rq
+
+    data, truth = game_world
+    engine = ScoringEngine(to_port(_jmodel(truth)), max_batch=8, device=CPU).warmup()
+    cls = AsyncScoringServer if frontend == "asyncio" else ScoringServer
+    server = cls(ScoringService(engine, max_batch=8, max_delay_ms=1.0), port=0).start()
+    body = json.dumps({"rows": _request_rows(truth, data, range(3))}).encode()
+    try:
+        syncs0 = telemetry.peek_counter("host_syncs") or 0
+        for header in ("tidA/ridA;s=1", "garbage", None):
+            headers = {"Content-Type": "application/json"}
+            if header is not None:
+                headers[rq.TRACE_HEADER] = header
+            req = urllib.request.Request(f"http://127.0.0.1:{server.port}/v1/score",
+                                         data=body, headers=headers)
+            with urllib.request.urlopen(req, timeout=15) as resp:
+                assert len(json.loads(resp.read())["scores"]) == 3
+        assert (telemetry.peek_counter("host_syncs") or 0) - syncs0 == 3
+    finally:
+        server.stop()
+    recs = rq.records()
+    assert [r["name"] for r in recs] == ["score"] * 3
+    assert recs[0]["trace_id"] == "tidA" and recs[0]["request_id"] == "ridA"
+    assert recs[1]["trace_id"] != "garbage"
+    for r in recs:
+        assert [p["name"] for p in r["phases"]] == ["batcher_wait", "device_dispatch"]
+        assert r["attrs"]["version"] == engine.version and r["attrs"]["rows"] == 3
+    (root,) = [s for s in telemetry.finished_spans("request:score")
+               if s.attrs["trace_id"] == "tidA"]
+    assert root.attrs["sampled_reason"] == "sampled"
+    assert set(root.attrs["phases"]) == {"batcher_wait", "device_dispatch"}
 
 
 def test_cli_serve_hbm_budget_refuses_a_model_over_it(tmp_path, game_world):
@@ -812,3 +866,37 @@ def test_http_load_tool_drives_the_server_from_its_own_process(tmp_path, game_wo
     for i, version, seconds, scores in load["records"]:
         assert version == engine.version and seconds > 0
         np.testing.assert_allclose(scores, expected[indices[i]], atol=1e-6)
+
+
+def test_http_load_tool_samples_every_nth_request(tmp_path, game_world):
+    """``tools/http_load.py --sample-every 3``: every third request carries
+    a sampled ``X-Photon-Trace``; the server persists each one's trace, and
+    ``--out`` names them under ``sampled``."""
+    data, truth = game_world
+    engine = ScoringEngine(to_port(_jmodel(truth)), max_batch=8, device=CPU).warmup()
+    server = ScoringServer(ScoringService(engine, max_batch=8, max_delay_ms=1.0),
+                           port=0).start()
+    bodies = tmp_path / "bodies.jsonl"
+    bodies.write_text(json.dumps({"rows": _request_rows(truth, data, range(2))}) + "\n")
+    out = tmp_path / "out.json"
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "photon_ml_tpu_torch", "tools", "http_load.py"),
+         "--port", str(server.port), "--bodies", str(bodies), "--out", str(out),
+         "--clients", "2", "--min-requests", "12", "--sample-every", "3"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        proc.stdin.write("stop\n")
+        proc.stdin.flush()
+        proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        server.stop()
+    assert proc.returncode == 0
+    load = json.loads(out.read_text())
+    assert load["failures"] == [] and len(load["records"]) >= 12
+    assert len(load["sampled"]) == len(set(load["sampled"])) >= len(load["records"]) // 3 - 1
+    persisted = {s.attrs["trace_id"] for s in telemetry.finished_spans("request:score")
+                 if s.attrs.get("sampled_reason") == "sampled"}
+    assert set(load["sampled"]) <= persisted

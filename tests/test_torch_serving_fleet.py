@@ -13,9 +13,13 @@ router over one published model, two random effects keyed by one id, a
 member slice restored from a streamed checkpoint's rows, the heartbeat
 files, a ``cli serve --router`` process over the 3-process fleet, and
 ``run_serving_fleet`` through a kill, a relaunch and a 3 -> 6 -> 3
-resize. Tolerance 1e-6, the reference's (:584-586). The reference's joined
-request traces and ``cli report --fleet`` are ROADMAP item 14d and are left
-out.
+resize. The 3-process fleet also carries part (d) of the reference's
+(:540-640): one request trace joined by ``trace_id`` across the router's and
+the members' streams, the survivors' drain-path flight dumps, and the killed
+member's last words harvested from its span stream, read by both packages'
+``FleetReport`` and by ``cli report --fleet``; ``run_serving_fleet`` keeps
+the killed process's stream and last words beside its relaunch's.
+Tolerance 1e-6, the reference's (:584-586).
 """
 
 import filecmp
@@ -819,10 +823,17 @@ def test_three_process_fleet_parity_budget_kill_drain(published, full_engine, tm
     refused (ShardBudgetError), (b) the router matches the single engine
     within 1e-6, in process and as a ``cli serve --router`` process over
     ``/v1/score``, (c) a SIGKILLed member sheds exactly its rows with no
-    failed request, and (d) every survivor and the router drain to exit
-    75."""
+    failed request, (d) every survivor and the router drain to exit 75, and
+    (e) the request traces: every routed call sampled, one trace joins the
+    router's stream and at least two members', each member hop with its
+    phases, version and fleet size; the survivors' drain dumps and the
+    killed member's harvested last words in ``cli report --fleet``."""
+    from photon_ml_tpu.telemetry.fleet_report import FleetReport as JFleetReport
+    from photon_ml_tpu_torch.cli.report import main as report_main
     from photon_ml_tpu_torch.data.model_store import load_game_model
     from photon_ml_tpu_torch.parallel.multihost import dead_peers
+    from photon_ml_tpu_torch.telemetry import requests as rq
+    from photon_ml_tpu_torch.telemetry.fleet_report import FleetReport
 
     model = load_game_model(published["version_dir"], device=CPU)
     full_bytes = serving_table_bytes(model)
@@ -833,8 +844,10 @@ def test_three_process_fleet_parity_budget_kill_drain(published, full_engine, tm
         heartbeat_deadline_s=2.0, warm_timeout_s=60.0)
     os.makedirs(spec.announce_dir(), exist_ok=True)
     os.makedirs(spec.fleet_dir(), exist_ok=True)
+    tdir = spec.telemetry_dir()
     lone = serving_fleet._launch_serving_member(spec, 0, 1, 9)
-    members = {m: serving_fleet._launch_serving_member(spec, m, 3, 0) for m in range(3)}
+    members = {m: serving_fleet._launch_serving_member(spec, m, 3, 0, telemetry_dir=tdir)
+               for m in range(3)}
     router_proc, router_out = _launch_router(
         spec.announce_dir(), os.path.dirname(published["version_dir"]), str(tmp_path))
     router = None
@@ -845,8 +858,11 @@ def test_three_process_fleet_parity_budget_kill_drain(published, full_engine, tm
         serving_fleet._wait_for_epoch(spec, 0, 3, time.monotonic() + spec.warm_timeout_s,
                                       members)
         assert all(m.startup_s is not None for m in members.values())
+        # the router's span stream, every call sampled: the members see
+        # X-Photon-Trace ...;s=1 and persist their half of each trace
+        telemetry.configure(trace_out=os.path.join(tdir, "trace.router.jsonl"))
         router = _router(published, spec.announce_dir(), member_timeout_s=3.0, cooldown_s=0.2,
-                         backoff_s=0.02)
+                         backoff_s=0.02, sample_every=1)
         router.refresh()
         rows = _request_rows()
         ref = np.asarray(full_engine.score_rows(rows))
@@ -870,10 +886,36 @@ def test_three_process_fleet_parity_budget_kill_drain(published, full_engine, tm
         while 1 not in dead_peers(spec.fleet_dir(), 3, spec.heartbeat_deadline_s):
             assert time.monotonic() < deadline, "the killed member's heartbeat never went stale"
             time.sleep(0.1)
+        # member 1 never ran its drain dump: its last words come from the
+        # tail of its span stream
+        assert rq.harvest_flight(os.path.join(tdir, "trace.proc-1.jsonl"),
+                                 rq.flight_path(tdir, 1))
         for m in (0, 2):
             members[m].proc.send_signal(signal.SIGTERM)
         assert members[0].proc.wait(timeout=30) == 75
         assert members[2].proc.wait(timeout=30) == 75
+        telemetry.trace.TRACER.close_sink()
+        for m in (0, 2):  # the drain-path dumps
+            doc = rq.read_flight(rq.flight_path(tdir, m))
+            assert doc is not None and not doc.get("harvested")
+            assert doc["process_index"] == m and doc["records"]
+        fr = FleetReport.load(str(tmp_path))
+        assert fr.lost_members() == [1]
+        traces = fr.request_traces()
+        assert traces == JFleetReport.load(str(tmp_path)).request_traces()
+        joined = [t for t in traces if "router" in t["sources"]
+                  and sum(src.startswith("proc-") for src in t["sources"]) >= 2]
+        assert joined, "no request trace spans the router and two members"
+        for hop in joined[0]["hops"]:
+            if hop["source"].startswith("proc-"):
+                assert hop["phases"] and "version" in hop["attrs"], hop
+                assert hop["attrs"]["fleet_size"] == 3
+        assert fr.members[1].flight is not None and fr.members[1].flight["harvested"]
+        out_md = str(tmp_path / "fleet-report.md")
+        assert report_main(["--fleet", str(tmp_path), "--out", out_md]) == 0
+        with open(out_md, encoding="utf-8") as fh:
+            content = fh.read()
+        assert "Last words — member 1" in content and "## Requests" in content
         for m in (0, 2):
             with open(members[m].out_path) as fh:
                 lines = [json.loads(ln) for ln in fh if ln.startswith("{")]
@@ -898,7 +940,13 @@ def test_run_serving_fleet_kill_relaunch_and_resize(published, full_engine, tmp_
     window, the probe rows within 1e-6 of the single engine at every
     settled view, epoch 2 at size 3, every member but the killed one
     draining to 75, and the fault plan armed in the victim's environment
-    alone."""
+    alone. The fleet directory keeps the killed process's stream with its
+    harvested last words (the report shows member 1 lost), the relaunch
+    writes beside it, and every 5th routed call's trace joins the router's
+    stream and the members'."""
+    from photon_ml_tpu_torch.telemetry import requests as rq
+    from photon_ml_tpu_torch.telemetry.fleet_report import FleetReport
+
     rows = _request_rows()
     plan = {"rules": [{"point": "fleet.heartbeat", "action": "io", "nth": 3}]}
     spec = serving_fleet.ServingFleetSpec(
@@ -906,7 +954,7 @@ def test_run_serving_fleet_kill_relaunch_and_resize(published, full_engine, tmp_
         device=CPU, heartbeat_deadline_s=2.0, warm_timeout_s=60.0, timeout_s=180.0,
         member_timeout_s=3.0, traffic_seconds=6.0, kill_member=1, kill_after_s=1.0,
         resizes=((3.0, 6), (5.0, 3)), victim_plan=plan, victim_member=2,
-        check_rows=tuple(rows))
+        check_rows=tuple(rows), trace_sample_every=5)
     report = serving_fleet.run_serving_fleet(spec)
     assert report["ok"] and report["failures"] == []
     assert (report["epoch"], report["fleet_size"]) == (2, 3)
@@ -935,6 +983,17 @@ def test_run_serving_fleet_kill_relaunch_and_resize(published, full_engine, tmp_
     armed = sorted(name for name in os.listdir(tmp_path) if name.endswith(".err")
                    and "FAULT INJECTION ARMED" in (tmp_path / name).read_text())
     assert armed == ["member2-e0-0.err"]
+    tdir = report["telemetry_dir"]
+    assert tdir == spec.telemetry_dir() and kill["flight_spans"] > 0
+    fr = FleetReport.load(str(tmp_path))
+    assert [m.process_index for m in fr.members] == list(range(6))
+    assert fr.lost_members() == [1] and fr.members[1].flight["harvested"]
+    assert "Last words — member 1" in fr.to_markdown()
+    (relaunched,) = [m for m in report["members"] if m["member"] == 1 and not m["killed"]]
+    assert relaunched["telemetry_dir"] == os.path.join(tdir, "relaunch-1")
+    assert rq.read_flight(rq.flight_path(relaunched["telemetry_dir"], 1)) is not None
+    assert any("router" in t["sources"] and any(src.startswith("proc-") for src in t["sources"])
+               for t in fr.request_traces())
 
 
 # ---------------------------------------------------------------------------
@@ -947,9 +1006,9 @@ def test_serving_chaos_tier1_slice(tmp_path):
     """The in-process seam rows of the serving chaos matrix: a slice load
     failing with an injected OSError and served on the retry, a fan-out
     failure shed to fixed-effect-only and back at parity, a failed
-    ownership swap leaving the old view serving. ``flight_dump_kill`` is
-    item 14d (ii)'s: reported as not ported. The hard kill under traffic runs in
-    the full matrix (slow)."""
+    ownership swap leaving the old view serving, a kill in the middle of a
+    flight dump leaving nothing adoptable. The hard kill under traffic runs
+    in the full matrix (slow)."""
     import warnings
 
     from photon_ml_tpu_torch.tools import chaos
@@ -963,11 +1022,12 @@ def test_serving_chaos_tier1_slice(tmp_path):
                       f"{report['skipped']}", stacklevel=1)
         return
     assert report["ok"], json.dumps(report, indent=2, default=str)
-    assert sorted(report["results"]) == ["member_load_io", "resize_swap", "route_fanout_io"]
+    assert sorted(report["results"]) == ["flight_dump_kill", "member_load_io", "resize_swap",
+                                         "route_fanout_io"]
     assert report["results"]["route_fanout_io"]["degraded_scores"] > 0
     assert report["results"]["resize_swap"]["swap_failures"] == 1
-    assert "flight_dump_kill" not in report["results"]
-    assert report["not_ported"] == {"flight_dump_kill": "ROADMAP.md Queue 1 item 14d (ii)"}
+    assert report["results"]["flight_dump_kill"]["armed_rc"] == 113
+    assert report["results"]["flight_dump_kill"]["adopted_after_kill"] == []
 
 
 @pytest.mark.slow

@@ -11,6 +11,7 @@ with tests/test_telemetry.py's trace and sink tests (its lines 28-215), its
 - parity: one span program (nested spans with attributes and events, a
   worker thread) runs through both packages' tracers into JSONL sinks; the
   records and the exported Chrome events are equal but for times and ids;
+  a fleet directory's merged Chrome export equals the JAX package's;
 - ``sync_fetch`` on a tensor: the fetch counters and the ``device_fetch``
   event, beside the port's ``host_syncs``;
 - ``reset()`` undoing ``configure_from_env`` (the exit flush, the sink) and
@@ -272,10 +273,31 @@ def test_span_tree_stays_per_thread_under_contention():
 
 
 def test_fleet_directory_export_is_refused_naming_its_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"item 14d \(ii\)\)"):
-        telemetry.export_chrome_trace(str(tmp_path), str(tmp_path / "x.json"))
-    with pytest.raises(NotImplementedError, match=r"item 14d \(ii\)\)"):
-        telemetry.to_chrome_trace(str(tmp_path))
+    """A fleet directory's Chrome export (once refused) merges the members'
+    streams: one Perfetto process per member, each member's spans on the
+    fleet's absolute timebase, equal to the JAX package's export of the
+    same directory."""
+    for proc, anchor in ((0, 1000.0), (1, 1002.0)):
+        with open(tmp_path / f"trace.proc-{proc}.jsonl", "w") as fh:
+            fh.write(json.dumps({"type": "trace_header", "monotonic_anchor": 5.0,
+                                 "anchor_unix_s": anchor, "hostname": f"host{proc}",
+                                 "process_index": proc, "num_processes": 2}) + "\n")
+            fh.write(json.dumps({"type": "span", "id": 1, "parent": None, "name": "fit",
+                                 "ts": 6.0 + proc, "dur": 1.5, "thread": "MainThread",
+                                 "attrs": {}, "events": [{"name": "device_fetch", "ts": 6.5,
+                                                          "attrs": {}}]}) + "\n")
+    doc = telemetry.to_chrome_trace(str(tmp_path))
+    assert doc == j_telemetry.to_chrome_trace(str(tmp_path))
+    procs = {e["args"]["name"]: e["pid"] for e in doc["traceEvents"]
+             if e.get("name") == "process_name"}
+    assert procs == {"proc-0 (host0)": 1, "proc-1 (host1)": 2}
+    fits = {e["pid"]: e["ts"] for e in doc["traceEvents"] if e.get("ph") == "X"}
+    # absolute starts 1001 and 1004 s: the origin is the earliest
+    assert fits == {1: 0.0, 2: 3e6}
+    out = str(tmp_path / "x.json")
+    assert telemetry.export_chrome_trace(str(tmp_path), out) == len(doc["traceEvents"])
+    with open(out) as fh:
+        assert json.load(fh) == doc
 
 
 # -- parity with the JAX package ----------------------------------------------
