@@ -142,7 +142,7 @@ Phases, in order; any failure exits non-zero before the last line:
        15c. the serving fleet on path 15's version 2 (its 99,997 users
            padded to 100,000 by 3 ids with no model): (a) 4 in-process
            members (``load_member_engine``, ``ShardMemberSource``) behind a
-           ``FleetRouter``, 64 calls (cut from 500, 250, then 125) of 1-64 rows within 1e-6 of a single
+           ``FleetRouter``, 32 calls (cut from 500, 250, 125, then 64) of 1-64 rows within 1e-6 of a single
            engine, a repeat bit for bit, each member's tables about a
            quarter, a pin to another version refused with 409, member 1 stopped and its
            rows shed to FE-only exactly; (b) 4 ``cli serve --member``
@@ -280,8 +280,8 @@ Phases, in order; any failure exits non-zero before the last line:
            ``fit_grid`` over two fixed effects (L2 1 and 10) best-first,
            each entry bit for bit its combination's ``fit``;
        11. BASELINE config #5 (bench_northstar.py: 138,493 users, 26,744
-           movies, its 20M rows cut to NS_ROWS = 6.5M (from 10M, then 7.5M),
-           every user and movie still drawn ~47 and ~243 times (at 5M rows
+           movies, its 20M rows cut to NS_ROWS = 6M (from 10M, 7.5M, then
+           6.5M), every user and movie still drawn ~43 and ~224 times (at 5M rows
            the per-user update
            no longer raised the validation AUC: 0.6751 -> 0.6743); a fixed effect on movieFeatures, per-user and
            per-movie NEWTON random effects and the factored ``mf``
@@ -326,6 +326,13 @@ GAME_USERS = 100_000  # bench_game.py config #4: users, RE features, CD iteratio
 GAME_RE_FEATURES = 10
 GAME_CD_ITERATIONS = 2
 CLI_HEARTBEAT_S = 5.0  # path 10's `cli train --heartbeat-every`
+# path 10's `cli train` capture window: from the 8th profiled call for 32
+# (the fit first scores each of the random effect's 9 buckets, cuBLAS; the
+# fixed effect's solve and its kernels follow within the window)
+XPROF_WINDOW = {"arm_at": 8, "capture": 32}
+# path 5's profiler period: every call, so the sampled mean of a kernel is
+# over all of its ~20 launches, not its first (a cold card's) alone
+PATH5_SAMPLE_EVERY = 1
 RE_CD_ITERATIONS = 1  # path 9's CD iterations (2 until cut for the script's time limit)
 SWEEP_GAME_CD_ITERATIONS = 1  # path 12b's CD iterations (2 until cut, as path 9's)
 N_HELDOUT = 100_000  # path 8's held-out rows, drawn after config #1's
@@ -343,7 +350,7 @@ VARIANCE_RTOL = 1e-4
 # bench_northstar.py (BASELINE config #5): rows, users, movies. Its 20M rows
 # are cut to 10M to keep the whole script inside its time limit: a depth cut,
 # the model's width (every user and movie, every feature) unchanged
-NS_ROWS = 6_500_000
+NS_ROWS = 6_000_000
 NS_VAL = 1_000_000
 NS_USERS = 138_493
 NS_MOVIES = 26_744
@@ -388,7 +395,7 @@ NEARLINE_ATOL = 1e-6  # tests/test_serving_sharded.py:519
 GATE_SAMPLES = 16  # bootstrap resamples of the quality gate's AUC CI
 SERVE_MESH = 4  # path 15b: the entity-sharded engine's model axis
 FLEET_SIZE = 4  # path 15c: members; 100,000 users divide over 4 and 8
-FLEET_CALLS = 64  # path 15c (a): router calls of 1 to SERVE_MAX_BATCH rows (500, 250, then 125 until cut)
+FLEET_CALLS = 32  # path 15c (a): router calls of 1 to SERVE_MAX_BATCH rows (500, 250, 125, then 64 until cut)
 # path 15c (b): the router's traffic, the kill and the resizes, seconds from
 # the first call; a step that finds the previous one still running starts
 # when it ends
@@ -501,12 +508,20 @@ def library_ms(make_matrix, op) -> float | None:
     return device_ms(lambda: op(mat))
 
 
-def kernel_row(name, source, replaces, worst, timed, label, nbytes, flops,
-               lib_ms, **extra) -> dict:
-    """One row of the ``kernels`` line: times measured here, bound computed
-    from this run's shapes (bytes over HBM rate vs flops over f32 peak)."""
+def bound_ms(work) -> tuple[float, str]:
+    """The bound of ``work`` = (flops, bytes) from ``kernels/cost.py``: the
+    larger of bytes over the HBM rate and flops over the f32 peak, and
+    which of the two it is."""
+    flops, nbytes = work
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_row(name, source, replaces, worst, timed, label, work, lib_ms, **extra) -> dict:
+    """One row of the ``kernels`` line: times measured here, bound computed
+    from this run's shapes by ``kernels/cost.py`` (``work`` = (flops, bytes))."""
+    bound, bound_by = bound_ms(work)
     return {
         "name": name,
         "route": "cuda",
@@ -516,8 +531,8 @@ def kernel_row(name, source, replaces, worst, timed, label, nbytes, flops,
         "max_abs_err": worst,
         "ms": timed[label][0],
         "plain_ms": timed[label][1],
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound,
+        "bound_by": bound_by,
         "library_ms": lib_ms,
         "timed_variant": label,
         "variants_ms": {k: v[0] for k, v in timed.items()},
@@ -555,7 +570,7 @@ def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
     import torch
 
     from photon_ml_tpu_torch import kernels
-    from photon_ml_tpu_torch.kernels import reference
+    from photon_ml_tpu_torch.kernels import cost, reference
 
     n, f, nnz = batch.num_rows, batch.num_features, batch.nnz
     shift = torch.tensor(0.25, dtype=torch.float32, device=w.device)
@@ -582,19 +597,17 @@ def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
             scatter("power-law scatter", power_law, plain_power, per_row, False),
         ],
     }
-    # bytes each function must move (inputs read once, output written once)
-    # and its flops; the timed variant of each kernel is the one the LBFGS
+    # the work of each function (kernels/cost.py: inputs read once, outputs
+    # written once); the timed variant of each kernel is the one the LBFGS
     # iteration launches (dot_rows for the gather, the plain scatter)
-    margin_bytes = 4 * ((n + 1) + 2 * nnz + f + n)
-    scatter_bytes = 4 * ((f + 1) + 2 * nnz + n + f)
     specs = {
         "csr_margins": ("photon_ml_tpu_torch/csrc/margins.cu", "photon_ml_tpu/ops/tiled.py:170",
-                        "dot_rows", margin_bytes, 2 * nnz,
+                        "dot_rows", cost.csr_margins(n, nnz, f),
                         library_ms(lambda: torch.sparse_csr_tensor(
                             *b_csr, size=(n, f), check_invariants=False),
                             lambda m: torch.mv(m, w))),
         "csc_scatter": ("photon_ml_tpu_torch/csrc/scatter.cu", "photon_ml_tpu/ops/tiled.py:199",
-                        "scatter", scatter_bytes, 2 * nnz,
+                        "scatter", cost.csc_scatter(n, nnz, f),
                         library_ms(lambda: torch.sparse_csr_tensor(
                             *plain_csc, size=(f, n), check_invariants=False),
                             lambda m: torch.mv(m, per_row))),
@@ -608,8 +621,8 @@ def check_kernels(batch, w, per_row, d2_row, skewed, power_law) -> list[dict]:
     rows = []
     for name, cases in variants.items():
         worst, timed = run_variants(name, cases)
-        src, replaces, label, nbytes, flops, lib = specs[name]
-        rows.append(kernel_row(name, src, replaces, worst, timed, label, nbytes, flops, lib))
+        src, replaces, label, work, lib = specs[name]
+        rows.append(kernel_row(name, src, replaces, worst, timed, label, work, lib))
     return rows
 
 
@@ -654,7 +667,7 @@ def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
     import torch
 
     from photon_ml_tpu_torch import kernels
-    from photon_ml_tpu_torch.kernels import reference
+    from photon_ml_tpu_torch.kernels import cost, reference
 
     n, f, nnz = batch.num_rows, batch.num_features, batch.nnz
     csr, csc, tiles = batch._csr, batch._csc, batch.tiles
@@ -696,45 +709,46 @@ def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
         "hv_at": [hv_at("hv_at")] + [hv_at(f"{label} hv_at", b, plain, d2)
                                      for label, (b, plain, d2) in others.items()],
     }
-    # Bytes the function must move: the CSR slots once (8 per nonzero),
-    # row_ptr, the per-row inputs and tables, the outputs. The two-layout
-    # designs also read the CSC slots once and the tile index, and write and
-    # read one part per segment: their own floor. The tile-fused kernel
-    # (value_grad, hv, hv_at) reads the index but its `start`.
-    slots = (n + 1) + 2 * nnz
+    # The work of each function (kernels/cost.py): the CSR slots once (8 per
+    # nonzero), row_ptr, the per-row inputs and tables, the outputs. The
+    # two-layout designs also read the CSC slots once and the tile index,
+    # and write and read one part per segment: their own floor. The
+    # tile-fused kernel (value_grad, hv, hv_at) reads the index but its
+    # `start`.
     t = tiles
-    tile_fused = 2 * nnz + (t.index.numel() - t.n_slots) + 2 * t.n_parts
+    tile_fused = 8 * nnz + cost.tiles_traffic(t.index.numel(), t.n_slots, t.n_parts)
     stacked = torch.stack([w, v], 1)
     specs = {
         "margins_pair": ("photon_ml_tpu_torch/csrc/margins_pair.cu",
                          "photon_ml_tpu/ops/tiled.py:194", "pair+offsets+shifts",
-                         slots + 2 * f + n + 2 * n, 0, 4 * nnz,
+                         cost.margins_pair(n, nnz, f), 0,
                          library_ms(lambda: torch.sparse_csr_tensor(
                              *csr, size=(n, f), check_invariants=False),
                              lambda m: torch.sparse.mm(m, stacked)),
                          "torch.sparse.mm(X_csr, [w, p]) without offsets and shifts"),
         "value_grad": ("photon_ml_tpu_torch/csrc/value_grad.cu",
                        "photon_ml_tpu/ops/tiled.py:219", "squared",
-                       slots + 3 * n + f + f + 2, tile_fused, 4 * nnz, None,
+                       cost.value_grad(n, nnz, f), tile_fused, None,
                        "no single PyTorch call computes loss, gradient and sums"),
         "hv": ("photon_ml_tpu_torch/csrc/hessian_vector.cu",
                "photon_ml_tpu/ops/tiled.py:251", "squared",
-               slots + 3 * n + 2 * f + f + 1, tile_fused, 6 * nnz, None,
+               cost.hv(n, nnz, f), tile_fused, None,
                "no single PyTorch call computes the curvature-weighted X^T D X v"),
         "hv_at": ("photon_ml_tpu_torch/csrc/hessian_vector.cu",
                   "photon_ml_tpu/ops/tiled.py:284", "hv_at",
-                  slots + n + f + f + 1, tile_fused, 4 * nnz, None,
+                  cost.hv_at(n, nnz, f), tile_fused, None,
                   "X^T (d2 * (X v + s)) takes two sparse products and an elementwise op"),
     }
     want_launches = {"margins_pair": 1, "value_grad": 2, "hv": 2, "hv_at": 2}
     rows = []
     for name, cases in variants.items():
         worst, timed = run_variants(name, cases)
-        src, replaces, label, words, extra_words, flops, lib, lib_note = specs[name]
+        src, replaces, label, work, extra_bytes, lib, lib_note = specs[name]
         # not a measurement: the bytes the two layouts make this design move,
         # over the HBM rate, for the kernel table beside the bound
-        print(f"design floor {name}: two-layout bytes={4 * (words + extra_words)} "
-              f"floor_ms={4 * (words + extra_words) / PEAK_BYTES_PER_S * 1e3:.4f} (computed)",
+        design_bytes = work[1] + extra_bytes
+        print(f"design floor {name}: two-layout bytes={design_bytes} "
+              f"floor_ms={design_bytes / PEAK_BYTES_PER_S * 1e3:.4f} (computed)",
               flush=True)
         launches = launches_per_call(cases[0][1], want_launches[name])
         print(f"launches per call {name}[{cases[0][0]}]: {launches} (torch.profiler)",
@@ -742,8 +756,8 @@ def check_fused_kernels(batch, w, v, d2_row, skewed, power_law) -> list[dict]:
         if launches != want_launches[name]:
             raise RuntimeError(f"{name}: {launches} launches a call, want "
                                f"{want_launches[name]}")
-        rows.append(kernel_row(name, src, replaces, worst, timed, label, 4 * words, flops,
-                               lib, library_note=lib_note, launches_per_call=launches))
+        rows.append(kernel_row(name, src, replaces, worst, timed, label, work, lib,
+                               library_note=lib_note, launches_per_call=launches))
     return rows
 
 
@@ -754,7 +768,7 @@ def check_ell_kernel(values, rows, cols, y, w, offsets, skewed, csr_lib_ms) -> d
     import dataclasses
 
     from photon_ml_tpu_torch import kernels
-    from photon_ml_tpu_torch.kernels import reference
+    from photon_ml_tpu_torch.kernels import cost, reference
     from photon_ml_tpu_torch.ops.ell import ELLBatch
 
     ell = dataclasses.replace(ELLBatch.from_coo(values, rows, cols, y, N_FEATURES),
@@ -777,10 +791,11 @@ def check_ell_kernel(values, rows, cols, y, w, offsets, skewed, csr_lib_ms) -> d
           f"slots_per_row={skewed.vals.shape[0]} rows={s_n} nnz={len(s_rows)}",
           flush=True)
     # bytes: the slots (value + column, padding included), w, one output per
-    # padded row; the library yardstick is row 1's, torch.mv of the CSR
+    # padded row; flops: the real nonzeros; the library yardstick is row 1's,
+    # torch.mv of the CSR
     return kernel_row("ell_margins", "photon_ml_tpu_torch/csrc/ell_margins.cu",
                       "tools/probe_ell.py:26", worst, timed, "dot_rows",
-                      4 * (2 * n_slots * n_pad + N_FEATURES + n_pad), 2 * len(values),
+                      cost.ell_margins(n_slots, n_pad, N_FEATURES, len(y), nnz=len(values)),
                       csr_lib_ms)
 
 
@@ -1115,11 +1130,12 @@ def scatter_memory(batches) -> dict:
 
 
 def run_path(label, batch, task, lambdas, cfg, required, constraints=None,
-             compute_variances=False, min_auc=None, keep=None) -> tuple[dict, dict]:
+             compute_variances=False, min_auc=None, keep=None,
+             sample_every=None) -> tuple[dict, dict]:
     """Phase 5: one path through train_glm as a user calls it (device
     defaults to cuda), with the launch counts zeroed just before it and read
-    just after. Fails on a bad result or a kernel of ``required`` that did
-    not launch."""
+    just after (and the profiler's period set to ``sample_every``). Fails
+    on a bad result or a kernel of ``required`` that did not launch."""
     import torch
 
     from photon_ml_tpu_torch import kernels, telemetry
@@ -1131,6 +1147,7 @@ def run_path(label, batch, task, lambdas, cfg, required, constraints=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     telemetry.reset()
+    telemetry.profile.set_sample_every(sample_every)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     entries = train_glm(batch, task, lambdas, cfg, constraints=constraints,
@@ -1193,6 +1210,55 @@ def run_path(label, batch, task, lambdas, cfg, required, constraints=None,
     if keep is not None:  # path 14 holds its mesh solves against these
         keep[label] = (entries, launches)
     return launches, stats
+
+
+def check_sampled_kernels(batch, kernel_rows: list, armed_syncs: int, card: str) -> dict:
+    """Path 5's executable profiler, read after its solve (run with every
+    call sampled, ``PATH5_SAMPLE_EVERY``): the mean sampled stream time of
+    ``csr_margins`` and ``csc_scatter``, resolved from their CUDA events,
+    within a factor of 2 of phase 3's times of the same kernels, none
+    timing-suspect, both HBM-bound; then the same solve with the sampler
+    disarmed must make the same host syncs (the sampler adds none)."""
+    import torch
+
+    from photon_ml_tpu_torch import telemetry
+    from photon_ml_tpu_torch.telemetry import executables, profile
+    from photon_ml_tpu_torch.training import train_glm
+
+    merged = profile.merged_profiles(["csr_margins", "csc_scatter"])
+    phase3 = {r["name"]: r["ms"] for r in kernel_rows}
+    out, bad = {}, []
+    for name in ("csr_margins", "csc_scatter"):
+        m = merged.get(name)
+        if m is None or not m["sampled"] or m["mean_dispatch_seconds"] is None:
+            bad.append(f"{name}: no resolved sample ({m})")
+            continue
+        ms = m["mean_dispatch_seconds"] * 1e3
+        out[name] = {"dispatches": m["dispatches"], "sampled": m["sampled"], "sampled_ms": ms,
+                     "phase3_ms": phase3[name], "ratio": ms / phase3[name], "mfu": m["mfu"],
+                     "bound_class": profile.bound_class_name(m["bound_code"]),
+                     "timing_suspect": m["timing_suspect"]}
+        if not 0.5 <= ms / phase3[name] <= 2.0:
+            bad.append(f"{name}: sampled {ms:.4f} ms vs phase 3's {phase3[name]:.4f} ms")
+        if m["timing_suspect"] or m["bound_code"] != profile.BOUND_HBM:
+            bad.append(f"{name}: {out[name]}")
+    # the same solve, the sampler disarmed (reset arms it: disarm after)
+    telemetry.reset()
+    executables.set_dispatch_profiler(None)
+    try:
+        train_glm(batch, "logistic", [10.0, 1.0], solver_config("lbfgs", 20),
+                  compute_variances=True)
+        torch.cuda.synchronize()
+        disarmed = telemetry.snapshot()["counters"].get("host_syncs", 0)
+    finally:
+        profile.install()
+    out["host_syncs"] = {"armed": armed_syncs, "disarmed": disarmed}
+    print(f"path 5 profiler: {json.dumps(out)} card={card}", flush=True)
+    if armed_syncs != disarmed:
+        bad.append(f"host syncs armed {armed_syncs} vs disarmed {disarmed}")
+    if bad:
+        raise RuntimeError(f"path 5 profiler: {bad}")
+    return out
 
 
 def mesh_devices(n: int):
@@ -1744,7 +1810,7 @@ def check_coo_bucket_kernels(block, w) -> dict:
     import torch
 
     from photon_ml_tpu_torch import kernels
-    from photon_ml_tpu_torch.kernels import reference
+    from photon_ml_tpu_torch.kernels import cost, reference
 
     c = block.csr
     n, f, nnz = c.num_rows, c.num_features, c.nnz
@@ -1770,15 +1836,13 @@ def check_coo_bucket_kernels(block, w) -> dict:
         worst, timed = run_variants(name, cases)
         out[name] = {"max_abs_err": worst, "ms": timed[cases[0][0]][0],
                      "plain_ms": timed[cases[0][0]][1]}
-    margin_bytes = 4 * ((n + 1) + 2 * nnz + f + n)
-    scatter_bytes = 4 * ((f + 1) + 2 * nnz + n + f)
     out["csr_margins"].update(
-        bound_ms=max(margin_bytes / PEAK_BYTES_PER_S, 2 * nnz / PEAK_F32_FLOPS) * 1e3,
+        bound_ms=bound_ms(cost.csr_margins(n, nnz, f))[0],
         library_ms=library_ms(lambda: torch.sparse_csr_tensor(*c._csr, size=(n, f),
                                                               check_invariants=False),
                               lambda m: torch.mv(m, w)))
     out["csc_scatter"].update(
-        bound_ms=max(scatter_bytes / PEAK_BYTES_PER_S, 2 * nnz / PEAK_F32_FLOPS) * 1e3,
+        bound_ms=bound_ms(cost.csc_scatter(n, nnz, f))[0],
         library_ms=library_ms(lambda: torch.sparse_csr_tensor(*plain, size=(f, n),
                                                               check_invariants=False),
                               lambda m: torch.mv(m, per_row)))
@@ -1800,14 +1864,13 @@ def check_coo_bucket_kernels(block, w) -> dict:
         "csc_scatter_lanes": library_ms(lambda: torch.sparse_csr_tensor(
             *plain, size=(f, n), check_invariants=False), lambda m: torch.sparse.mm(m, t_r)),
     }
-    for name, (nbytes, floor_bytes) in lane_design_bytes(n, f, nnz, G, c.tiles).items():
+    for name, (work, floor_bytes) in lane_design_bytes(n, f, nnz, G, c.tiles).items():
         worst, timed, singles_ms = res[name]
         first = next(iter(timed))
         out[name] = {"lanes": G, "max_abs_err": worst, "ms": timed[first][0],
                      "plain_ms": timed[first][1], "variants_ms": {k: v[0] for k, v in timed.items()},
                      "singles_ms": singles_ms, "library_ms": libs[name],
-                     "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
-                                     2 * nnz * G / PEAK_F32_FLOPS) * 1e3,
+                     "bound_ms": bound_ms(work)[0],
                      "design_floor_ms": floor_bytes / PEAK_BYTES_PER_S * 1e3}
     del W, R, off, t_w, t_r
     t = c.tiles
@@ -2417,6 +2480,42 @@ def _run_cli_subprocess(argv: list[str], root: str,
     return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
 
 
+def csrc_kernel_names() -> set[str]:
+    """The ``__global__`` functions of the port's ``csrc/``: the names a
+    profiler capture's kernel events carry."""
+    import glob
+    import re
+
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "photon_ml_tpu_torch",
+                        "csrc")
+    names = set()
+    for path in glob.glob(os.path.join(csrc, "*.cu*")):
+        with open(path) as fh:
+            names |= set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                fh.read()))
+    return names
+
+
+def capture_kernels(directory: str) -> dict[str, int]:
+    """Kernel events of the Chrome traces (``*.json``) under ``directory``,
+    counted by the ``csrc/`` kernel they name (empty when none does)."""
+    names, counts = csrc_kernel_names(), {}
+    for root, _dirs, files in os.walk(directory):
+        for f in files:
+            if not f.endswith(".json"):
+                continue
+            with open(os.path.join(root, f)) as fh:
+                events = json.load(fh).get("traceEvents", [])
+            for e in events:
+                if e.get("cat") != "kernel":
+                    continue
+                for k in names:
+                    if k in str(e.get("name", "")):
+                        counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
 def _same_or_both_nan(a: float, b: float) -> bool:
     return a == b or (a != a and b != b)
 
@@ -2431,9 +2530,11 @@ def check_cli_telemetry(stats: dict, sinks: dict, summary: dict, traced_fit, ds,
     memory section has a peak for every coordinate phase read on ``cuda:0``
     (the gauge's limit is cuda:0's memory), a heartbeat line was written,
     ``cli report`` renders the artifacts as the run did and compares to its
-    own baseline with exit 0, and the same fit with telemetry off (path 6's
-    config on the same dataset, its own checkpoint) makes the same host
-    syncs and kernel launches per update. Prints the figures: the traced
+    own baseline with exit 0, its Device utilization has a finite MFU in
+    (0, 1] and its Hot executables hold ``fe_solve`` and a kernel (``cli
+    report --hot`` printing the same list), and the same fit with telemetry
+    off (path 6's config on the same dataset, its own checkpoint) makes the
+    same host syncs and kernel launches per update. Prints the figures: the traced
     fit's seconds beside the untraced one's and path 6's, span and dropped
     counts, the report's render seconds."""
     import torch
@@ -2497,6 +2598,24 @@ def check_cli_telemetry(stats: dict, sinks: dict, summary: dict, traced_fit, ds,
     rc_compare = report_main(["--trace", sinks["trace.jsonl"], "--telemetry",
                               sinks["metrics.jsonl"], "--out", out_md, "--compare",
                               os.path.join(work, "train.again.json"), "--fail-on-regress"])
+    # the device accounting: a finite MFU in (0, 1], the hot list with the
+    # fixed effect's solve and a kernel, and `cli report --hot` printing it
+    du = report.device_utilization() or {}
+    mfu = du.get("mfu")
+    hot = [e["name"] for e in report.hot_executables()]
+    hot_md = os.path.join(work, "train.hot.md")
+    rc_hot = report_main(["--trace", sinks["trace.jsonl"], "--telemetry",
+                          sinks["metrics.jsonl"], "--hot", "--out", hot_md])
+    with open(hot_md) as fh:
+        hot_printed = [line.split("`")[1].rstrip(" ⚠") for line in fh
+                       if line.startswith("| `")]
+    device_ok = (mfu is not None and 0 < mfu <= 1 and "## Device utilization" in md
+                 and "## Hot executables" in md and "fe_solve" in hot
+                 and any(name in kernels.LAUNCHES for name in hot)
+                 and rc_hot == 0 and hot_printed == hot)
+    stats.update(mfu=mfu, hot_executables=report.hot_executables(),
+                 bandwidth_utilization=du.get("bandwidth_utilization"),
+                 compile_time_share=du.get("compile_time_share"))
 
     # the same fit with telemetry off: no sink, no heartbeat, no report
     off_cfg = {**config, "checkpoint": {**config["checkpoint"],
@@ -2528,6 +2647,12 @@ def check_cli_telemetry(stats: dict, sinks: dict, summary: dict, traced_fit, ds,
           f"phase_peaks={json.dumps(peaks)} bytes_limit={gauges.get('memory.bytes_limit')} "
           f"cuda0_total={limit} cli_report_rc={rc} same_markdown={same_md} "
           f"compare_rc={rc_compare} card={card}", flush=True)
+    print(f"path 10 device accounting: mfu={mfu} "
+          f"bandwidth_utilization={du.get('bandwidth_utilization')} "
+          f"compile_time_share={du.get('compile_time_share')} hot={json.dumps(hot)} "
+          f"hot_rc={rc_hot} hot_printed_same={hot_printed == hot} "
+          f"hot_rows={json.dumps(report.hot_executables(), default=str)} card={card}",
+          flush=True)
     print(f"path 10 traced vs untraced: traced_fit_s={stats['fit_s']:.4f} "
           f"untraced_fit_s={off_s:.4f} path6_fit_wall_s={game['elapsed_s']:.4f} "
           f"path6_first_fit_s={game['first_fit_s']:.4f} "
@@ -2544,6 +2669,9 @@ def check_cli_telemetry(stats: dict, sinks: dict, summary: dict, traced_fit, ds,
         bad.append("no heartbeat line was written")
     if rc != 0 or not same_md or rc_compare != 0:
         bad.append(f"cli report: rc {rc}, same markdown {same_md}, compare rc {rc_compare}")
+    if not device_ok:
+        bad.append(f"device accounting: mfu {mfu}, hot {hot}, --hot rc {rc_hot} printed "
+                   f"{hot_printed}")
     if not same_syncs:
         bad.append(f"telemetry changed the host syncs or launches per update: "
                    f"{per_update(traced_fit.history)} vs {per_update(untraced.history)}")
@@ -2641,7 +2769,8 @@ def run_cli_path(seed: int, card: str, work: str, game: dict,
                   "per-user": {"type": "random_effect", "shard_name": "user",
                                "id_name": "userId",
                                "optimizer": {**lbfgs, "type": "newton", "tolerance": 1e-7}}},
-              "checkpoint": {"dir": os.path.join(work, "ckpt"), "every": 1, "keep_last": 2}}
+              "checkpoint": {"dir": os.path.join(work, "ckpt"), "every": 1, "keep_last": 2},
+              "xprof": {"dir": os.path.join(work, "xprof"), **XPROF_WINDOW}}
     train_cfg = os.path.join(work, "train.json")
     with open(train_cfg, "w") as fh:
         json.dump(config, fh)
@@ -2763,6 +2892,12 @@ def run_cli_path(seed: int, card: str, work: str, game: dict,
     missing = [k for k in ("csr_margins", "csc_scatter") if launches[k] == 0]
     if missing:
         bad.append(f"kernels not launched in cli train: {missing}")
+    # the xprof window's capture names the repo's kernels
+    stats["xprof_kernels"] = capture_kernels(config["xprof"]["dir"])
+    print(f"path 10 xprof: window={json.dumps(XPROF_WINDOW)} "
+          f"kernel_events={json.dumps(stats['xprof_kernels'])} card={card}", flush=True)
+    if not stats["xprof_kernels"]:
+        bad.append(f"the xprof capture in {config['xprof']['dir']} names no csrc/ kernel")
     bad += check_cli_telemetry(stats, sinks, summary, seen["fit"], ds, config, game, work,
                                card)
 
@@ -2774,9 +2909,18 @@ def run_cli_path(seed: int, card: str, work: str, game: dict,
     with open(score_cfg, "w") as fh:
         json.dump({"input": {**inp, "paths": [os.path.join(data_dir, "part-0.avro")]}}, fh)
     scores_path = os.path.join(work, "scores.avro")
+    score_prof = os.path.join(work, "score-profile")
     scored, stats["score_s"] = _run_cli_subprocess(
-        ["score", "--model-dir", os.path.join(out, "final"), "--config", score_cfg,
-         "--output", scores_path, "--evaluators", "auc"], root)
+        ["profile", "--profile-dir", score_prof, "--", "score", "--model-dir",
+         os.path.join(out, "final"), "--config", score_cfg, "--output", scores_path,
+         "--evaluators", "auc"], root)
+    stats["score_profile_kernels"] = capture_kernels(score_prof)
+    shutil.rmtree(score_prof, ignore_errors=True)
+    print(f"path 10 cli profile -- score: kernel_events="
+          f"{json.dumps(stats['score_profile_kernels'])} card={card}", flush=True)
+    if not stats["score_profile_kernels"].get("row_pass_kernel"):
+        bad.append(f"cli profile's capture of cli score holds no csr_margins kernel "
+                   f"(row_pass_kernel): {stats['score_profile_kernels']}")
     t0 = time.perf_counter()
     read_back = np.asarray([r["predictionScore"] for r in read_scoring_results(scores_path)])
     stats["score_read_back_s"] = time.perf_counter() - t0
@@ -3297,7 +3441,8 @@ def run_training_fleet_path(seed: int, card: str, work: str) -> tuple[dict, dict
     members write their trace and telemetry streams into one directory a
     generation; ``cli report --fleet`` on each must show the generation's
     members (in (b) the killed member lost in its generation), and in (a) a
-    named straggler and the clock skew estimated from the coordinated saves;
+    named straggler, the clock skew estimated from the coordinated saves,
+    each member's MFU and hottest executable and the fleet's MFU spread;
     the supervisor's status snapshot carries each member's last heartbeat.
     The trainer's chunks are dense batched products (cuBLAS): no
     hand-written kernel runs on this path."""
@@ -3337,8 +3482,13 @@ def run_training_fleet_path(seed: int, card: str, work: str) -> tuple[dict, dict
                                           if sp.get("name") == "checkpoint:save"
                                           and (sp.get("attrs") or {}).get("coordinated"))
                      for m in fr.members}
+            rows = fr.rows()
             out.append({"generation": g, "rc": rc, "members": [r["process_index"]
-                                                               for r in fr.rows()],
+                                                               for r in rows],
+                        "mfu": {r["process_index"]: r["mfu"] for r in rows},
+                        "hot_exec": {r["process_index"]: r["hot_exec"] for r in rows},
+                        "fleet_mfu_spread": fr.key_metrics().get("fleet_mfu_spread"),
+                        "hot_list": [e["name"] for e in fr.merged_hot_executables()],
                         "status": [r["status"] for r in fr.rows()], "lost": fr.lost_members(),
                         "straggler": fr.straggler(), "coordinated_saves": saves,
                         "clock_skew_s": {m.process_index: m.clock_skew_s for m in fr.members},
@@ -3383,6 +3533,13 @@ def run_training_fleet_path(seed: int, card: str, work: str) -> tuple[dict, dict
             and gen_a["lost"] == [] and gen_a["straggler"] is not None
             and gen_a["straggler_named"] and all(gen_a["coordinated_saves"].values())):
         bad.append(f"(a) fleet report: {gen_a}")
+    # the device accounting of each member: a finite MFU (both known, so the
+    # spread), a hot executable, the fleet's hot list
+    if not (all(m is not None and 0 < m <= 1 for m in gen_a["mfu"].values())
+            and all(gen_a["hot_exec"].values()) and gen_a["fleet_mfu_spread"] is not None
+            and gen_a["hot_list"]):
+        bad.append(f"(a) fleet report device accounting: mfu {gen_a['mfu']}, hot "
+                   f"{gen_a['hot_exec']}, spread {gen_a['fleet_mfu_spread']}")
     if stats["a"]["status_heartbeats"] != {str(p): p for p in range(TRAIN_FLEET)}:
         bad.append(f"(a) status heartbeats {stats['a']['status_heartbeats']}")
     want = np.load(report_a["final_path"])
@@ -3922,15 +4079,19 @@ def lane_cases(csr, csc, tiles, plain_csc, shared_off, W, R, off, shift):
 
 
 def lane_design_bytes(n, f, nnz, G, tiles) -> dict:
-    """Bytes each lane kernel must move (its bound) and the bytes its design
-    moves from HBM (its floor): the margins read X, W and write Z once, its
-    bound; the scatter also reads the tile index but ``start`` and writes and
-    reads G parts a segment piece."""
-    scatter = 4 * ((f + 1) + 2 * nnz + G * n + G * f)
+    """Each lane kernel's work (``kernels/cost.py``: flops, bytes it must
+    move, its bound) and the bytes its design moves from HBM (its floor):
+    the margins read X, W and write Z once, its bound; the scatter also
+    reads the tile index but ``start`` and writes and reads G parts a
+    segment piece."""
+    from photon_ml_tpu_torch.kernels import cost
+
+    margins = cost.csr_margins_lanes(n, nnz, f, G)
+    scatter = cost.csc_scatter_lanes(n, nnz, f, G)
     return {
-        "csr_margins_lanes": (4 * ((n + 1) + 2 * nnz + G * f + G * n),) * 2,
-        "csc_scatter_lanes": (scatter, scatter + 4 * (tiles.index.numel() - tiles.n_slots)
-                              + 2 * G * tiles.n_parts * 4),
+        "csr_margins_lanes": (margins, margins[1]),
+        "csc_scatter_lanes": (scatter, scatter[1] + cost.tiles_traffic(
+            tiles.index.numel(), tiles.n_slots, tiles.n_parts, lanes=G)),
     }
 
 
@@ -3997,21 +4158,19 @@ def check_lane_kernels(batch, w) -> list[dict]:
                 *plain_csc, size=(f, n), check_invariants=False),
                 lambda m: torch.sparse.mm(m, t_r)),
         }
-        for name, (nbytes, floor_bytes) in lane_design_bytes(n, f, nnz, G, tiles).items():
+        for name, (work, floor_bytes) in lane_design_bytes(n, f, nnz, G, tiles).items():
             floor_ms = floor_bytes / PEAK_BYTES_PER_S * 1e3
             print(f"design floor {name}[G={G}]: bytes={floor_bytes} floor_ms={floor_ms:.4f} "
-                  f"bound_bytes={nbytes} (computed)", flush=True)
-            measured[name, G] = res[name] + (libs[name], nbytes, floor_ms)
+                  f"bound_bytes={work[1]} (computed)", flush=True)
+            measured[name, G] = res[name] + (libs[name], work, floor_ms)
         del W, R, off, t_w, t_r
     rows = []
     for name, (src, replaces, label) in sources.items():
-        worst, timed, singles_ms, lib, nbytes, floor_ms = measured[name, SWEEP_LANES]
-        worst8, timed8, singles8, lib8, nbytes8, floor8 = measured[name, GLM_BOOTSTRAP_SAMPLES]
-        g8 = kernel_row(name, src, replaces, worst8, timed8, label, nbytes8,
-                        2 * nnz * GLM_BOOTSTRAP_SAMPLES, lib8)
+        worst, timed, singles_ms, lib, work, floor_ms = measured[name, SWEEP_LANES]
+        worst8, timed8, singles8, lib8, work8, floor8 = measured[name, GLM_BOOTSTRAP_SAMPLES]
+        g8 = kernel_row(name, src, replaces, worst8, timed8, label, work8, lib8)
         rows.append(kernel_row(
-            name, src, replaces, max(worst, worst8), timed, label, nbytes, 2 * nnz * SWEEP_LANES,
-            lib, lanes=SWEEP_LANES, singles_ms=singles_ms, design_floor_ms=floor_ms,
+            name, src, replaces, max(worst, worst8), timed, label, work, lib, lanes=SWEEP_LANES, singles_ms=singles_ms, design_floor_ms=floor_ms,
             vmapped_at="photon_ml_tpu/sweep/runner.py:91-116",
             lanes_bit_identical_to_single=True,
             redesigned="lane sums in registers, lane groups in clusters",
@@ -6587,6 +6746,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from photon_ml_tpu_torch import telemetry
     from photon_ml_tpu_torch.kernels import build
     from photon_ml_tpu_torch.ops.csr import CSRBatch
     from photon_ml_tpu_torch.tools.probe_ell import card_line
@@ -6639,7 +6799,11 @@ def main() -> int:
     refs = {}
     by_path["5"], train["5"] = run_path(
         "5", batch, "logistic", [10.0, 1.0], solver_config("lbfgs", 20),
-        required=("csr_margins", "csc_scatter"), compute_variances=True, min_auc=0.6, keep=refs)
+        required=("csr_margins", "csc_scatter"), compute_variances=True, min_auc=0.6, keep=refs,
+        sample_every=PATH5_SAMPLE_EVERY)
+    train["5"]["profiler"] = check_sampled_kernels(batch, kernel_rows, train["5"]["host_syncs"],
+                                                   card)
+    telemetry.profile.set_sample_every(None)
     if args.profile:
         prof["5"] = profile_solve("5", lambda: train_glm(
             batch, "logistic", [1.0], solver_config("lbfgs", 10))[0].result.iterations)

@@ -1,15 +1,12 @@
 """CLI dispatcher: python -m photon_ml_tpu_torch.cli {train|refresh|pipeline|sweep|score|serve|glm|index|report} ...
 
 Counterpart of ``photon_ml_tpu/cli/__main__.py``, with the same usage text
-and dispatch. ``profile`` raises ``NotImplementedError`` (ROADMAP.md Queue 1
-item 14d (iii)). ``train``, ``refresh``, ``pipeline``,
-``sweep``, ``score``, ``serve`` and ``glm`` take ``--device`` (default
-``cuda``).
+and dispatch. ``train``, ``refresh``, ``pipeline``, ``sweep``, ``score``,
+``serve`` and ``glm`` take ``--device`` (default ``cuda``); ``profile``
+wraps any of them in a ``torch.profiler`` capture.
 """
 
 import sys
-
-_NOT_PORTED = {"profile": "14d (iii)"}
 
 
 def main(argv=None) -> int:
@@ -23,7 +20,8 @@ def main(argv=None) -> int:
               "--workdir <dir> [--device cuda|cpu]   freshness conductor daemon")
         print("  report --trace <jsonl> --telemetry <jsonl> [--checkpoint-dir <dir>] "
               "[--compare <json>]   run report")
-        print("  profile   not ported (ROADMAP.md Queue 1 item 14d (iii))")
+        print("  profile --profile-dir <dir> [--no-annotations] -- <command> ...   "
+              "torch.profiler capture")
         print("  sweep --config <json> [--sweep lambda=...] [--device cuda|cpu]   multi-lambda "
               "sweep + selection")
         print("  score --model-dir <dir> --config <json> [--output <avro>] [--device cuda|cpu]")
@@ -33,10 +31,6 @@ def main(argv=None) -> int:
         print("  index --input <avro...> --output <dir>       feature index build")
         return 0 if argv else 2
     cmd, rest = argv[0], argv[1:]
-    if cmd in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the '{cmd}' subcommand is not ported to photon_ml_tpu_torch yet "
-            f"(ROADMAP.md Queue 1 item {_NOT_PORTED[cmd]})")
     if cmd == "train":
         from photon_ml_tpu_torch.cli.train import main as train_main
 
@@ -73,6 +67,10 @@ def main(argv=None) -> int:
         from photon_ml_tpu_torch.cli.index import main as index_main
 
         return index_main(rest)
+    if cmd == "profile":
+        from photon_ml_tpu_torch.cli.profile import main as profile_main
+
+        return profile_main(rest)
     print(f"unknown command '{cmd}' (expected train|refresh|pipeline|sweep|score|serve|glm|"
           "index|report|profile)", file=sys.stderr)
     return 2

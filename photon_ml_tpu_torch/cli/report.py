@@ -6,7 +6,7 @@ Counterpart of ``photon_ml_tpu/cli/report.py``:
         --trace run.trace.jsonl --telemetry run.metrics.jsonl \\
         --checkpoint-dir ckpt/ --out report.md [--json report.json] \\
         [--compare baseline.report.json] [--fail-on-regress] [--threshold 0.2] \\
-        [--requests [N]]
+        [--hot [N]] [--requests [N]]
 
     python -m photon_ml_tpu_torch.cli report --fleet <dir> [--requests [N]] ...
 
@@ -36,7 +36,8 @@ comparison runs over the fleet's key metrics (``fleet_rows_per_sec``,
 
 Exit codes: 0 ok, 1 unreadable inputs, 2 usage, 3 regression detected.
 
-``--hot`` (ROADMAP.md Queue 1 item 14d (iii)) raises ``NotImplementedError``.
+``--hot [N]`` renders only the Hot-executables table (the top N by the
+profiler's estimated exclusive device seconds, default 10).
 """
 
 from __future__ import annotations
@@ -50,9 +51,6 @@ from typing import Optional
 EXIT_OK = 0
 EXIT_ERROR = 1
 EXIT_REGRESSION = 3
-
-# the reference's flags of later slices, with their ROADMAP.md Queue 1 item
-_REFUSED = {"hot": "14d (iii)"}
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -81,13 +79,10 @@ def main(argv: Optional[list] = None) -> int:
                         help="render only the request section (the N slowest persisted request "
                         "traces, default 10); with --fleet joined across the router's and the "
                         "members' streams by trace_id")
-    parser.add_argument("--hot", nargs="?", const=10, type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--hot", nargs="?", const=10, type=int, metavar="N",
+                        help="render only the hot-executables table (the top N by profiled "
+                        "exclusive device seconds, default 10) instead of the full report")
     args = parser.parse_args(argv)
-    for flag, item in _REFUSED.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"the 'report' flag --{flag} is not ported to photon_ml_tpu_torch yet "
-                f"(ROADMAP.md Queue 1 item {item})")
     if args.fleet and (args.trace or args.telemetry or args.checkpoint_dir):
         parser.error("--fleet aggregates a member-artifact directory; it cannot be combined "
                      "with --trace/--telemetry/--checkpoint-dir")
@@ -128,12 +123,30 @@ def main(argv: Optional[list] = None) -> int:
             print(f"baseline {args.compare} is not a report JSON object", file=sys.stderr)
             return EXIT_ERROR
         deltas = report.compare(baseline, threshold=args.threshold)
+        # per-executable rows compare only where both sides carry them: a
+        # renamed or new executable is noted and skipped
+        current_km = report.key_metrics()
+        base_km = baseline.get("key_metrics", baseline)
+        if isinstance(base_km, dict):
+            cur_exec = {k for k in current_km if k.startswith("exec.")}
+            base_exec = {k for k in base_km if k.startswith("exec.")}
+            for name in sorted(cur_exec - base_exec):
+                print(f"note: `{name}` is new (absent from baseline — renamed or newly-profiled "
+                      "executable); skipped in the comparison", file=sys.stderr)
+            for name in sorted(base_exec - cur_exec):
+                print(f"note: `{name}` exists only in the baseline (renamed or "
+                      "no-longer-profiled executable); skipped in the comparison",
+                      file=sys.stderr)
 
     if args.requests is not None:
         req_lines = report._requests_markdown(args.requests)
         md = ("\n".join(req_lines).rstrip() + "\n" if req_lines
               else "No request traces (run carried no request.* metrics or persisted "
               "request:* spans).\n")
+    elif args.hot is not None:
+        hot_lines = report._hot_executables_markdown(args.hot)
+        md = ("\n".join(hot_lines).rstrip() + "\n" if hot_lines
+              else "No profiled executables (run carried no profile.exec.* gauges).\n")
     else:
         md = report.to_markdown(deltas=deltas)
     if args.out:

@@ -57,8 +57,11 @@ logs a progress line every ~30 s, into ``telemetry_out`` too; and
 sibling ``.json`` compare baseline) from the run's sinks, or from the live
 registries without them, with the checkpoint manifests' coordinate history.
 In a fleet each path is suffixed per member. None of it adds a device sync
-or fetch. ``xprof`` and ``--xprof-dir``/``--xprof-arm`` raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 14d (iii)).
+or fetch. ``xprof`` (``--xprof-dir``/``--xprof-arm``: a directory, or
+``{"dir", "arm_at", "capture"}``) opens a ``torch.profiler`` capture window
+around the ``arm_at``-th profiled call (default 20) for ``capture`` calls
+(default 8) and writes a Chrome trace into the directory; it is refused on
+the CPU unless ``PHOTON_XPROF_FORCE=1``.
 
 ``"distributed"`` (``coordinator_address``, ``num_processes``,
 ``process_id``, ``auto``, ``init_retries``, ``init_backoff_s``; each left
@@ -92,24 +95,16 @@ import torch
 from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.config import parse_game_config
 from photon_ml_tpu_torch.game.checkpoint import CheckpointSpec, GracefulStop, TrainingInterrupted
-from photon_ml_tpu_torch.game.coordinates import NOT_PORTED
 from photon_ml_tpu_torch.game.dataset import FeatureShard, GameDataset, build_game_dataset
 from photon_ml_tpu_torch.game.estimator import GameEstimator
 from photon_ml_tpu_torch.optim.guard import GuardSpec
 from photon_ml_tpu_torch.utils import setup_logging, timed
-
-# config keys the port refuses, with the ROADMAP.md Queue 1 item that ports them
-_REFUSED_KEYS = {"xprof": "14d (iii)"}
 
 # the reference's own refusal of a train run across processes
 # (photon_ml_tpu/cli/train.py:218-240)
 ACROSS_PROCESSES = ("the `train` CLI does not span processes yet; write a worker with the "
                     "per-process APIs and supervise it with tools/fleet (README 'Multi-host "
                     "deployment' / 'Fleet supervision')")
-
-
-def _refuse(what: str, item):
-    raise NotImplementedError(NOT_PORTED.format(what, item))
 
 
 def read_input(
@@ -535,9 +530,6 @@ def run(config: Mapping, output_dir: Optional[str] = None,
         device: torch.device | str | None = None) -> dict:
     """Run the training pipeline on ``device`` (default cuda); returns a
     JSON-safe summary."""
-    for key, item in _REFUSED_KEYS.items():
-        if config.get(key):
-            _refuse(f"the train config key '{key}'", item)
     game_config = parse_game_config(config)
     output_dir = output_dir or config.get("output_dir")
     guard = _parse_guard_spec(config)
@@ -569,6 +561,19 @@ def run(config: Mapping, output_dir: Optional[str] = None,
     telemetry_out = config.get("telemetry_out")
     if telemetry_out:
         telemetry_out = telemetry.member_artifact_path(telemetry_out)
+    xprof_cfg = config.get("xprof")
+    if xprof_cfg:
+        # a torch.profiler window around the Kth profiled call (past the
+        # warm-up); refused on the CPU unless forced
+        from photon_ml_tpu_torch.device import resolve_device
+
+        if isinstance(xprof_cfg, str):
+            xprof_cfg = {"dir": xprof_cfg}
+        xprof_kwargs = {k: int(xprof_cfg[k]) for k in ("arm_at", "capture")
+                        if xprof_cfg.get(k) is not None}
+        telemetry.profile.configure_xprof(
+            telemetry.member_artifact_path(str(xprof_cfg["dir"])),
+            device=resolve_device(device), **xprof_kwargs)
     stop = GracefulStop()
     if checkpoint_spec is not None:
         # without a checkpoint nothing durable is written on SIGTERM, so the
@@ -637,6 +642,9 @@ def run(config: Mapping, output_dir: Optional[str] = None,
     finally:
         if heartbeat is not None:
             heartbeat.stop()
+        # close a capture window still open (a fit shorter than the window,
+        # or one interrupted in it)
+        telemetry.profile.stop_xprof()
     if output_dir is not None and index_maps is not None:
         _persist_feature_artifacts(output_dir, index_maps, train_data)
     return _finish_telemetry(config, {
@@ -697,10 +705,13 @@ def main(argv=None) -> int:
                         help="a local descending-λ sweep of this many fits around the "
                         "incumbent regularization during an incremental retrain (needs a "
                         "validation input; config warm_start.lambda_points)")
-    # the reference's flags of a later slice, refused with their ROADMAP item
-    refused = {"--xprof-dir": "14d (iii)", "--xprof-arm": "14d (iii)"}
-    for flag in refused:
-        parser.add_argument(flag, action="append", help=argparse.SUPPRESS)
+    parser.add_argument("--xprof-dir", metavar="DIR",
+                        help="capture a torch.profiler trace into this directory, armed "
+                        "around the Kth profiled call (see --xprof-arm); refused on the CPU "
+                        "(config key xprof.dir)")
+    parser.add_argument("--xprof-arm", type=int, metavar="K",
+                        help="profiled-call count at which the --xprof-dir capture window "
+                        "opens (default 20, past the warm-up; config xprof.arm_at)")
     parser.add_argument("--mesh",
                         help="train over a named device mesh: 'batch=N,model=M' splits "
                         "fixed-effect rows over the batch axis and random-effect entities "
@@ -724,15 +735,22 @@ def main(argv=None) -> int:
                         "(the default once a checkpoint dir is configured; config "
                         'checkpoint {"resume": false} is a fresh fit that clears it)')
     args = parser.parse_args(argv)
-    for flag, item in refused.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            _refuse(f"the train flag {flag}", item)
     setup_logging()
     with open(args.config) as f:
         config = json.load(f)
     for key in ("trace_out", "telemetry_out", "report_out"):
         if getattr(args, key):
             config[key] = getattr(args, key)
+    if args.xprof_dir or args.xprof_arm is not None:
+        xp = config.get("xprof")
+        xp = dict(xp) if isinstance(xp, dict) else ({"dir": xp} if xp else {})
+        if args.xprof_dir:
+            xp["dir"] = args.xprof_dir
+        if args.xprof_arm is not None:
+            xp["arm_at"] = args.xprof_arm
+        if "dir" not in xp:
+            parser.error("--xprof-arm needs --xprof-dir (or a config xprof.dir)")
+        config["xprof"] = xp
     if args.heartbeat_every is not None:
         if args.heartbeat_every <= 0:
             config["heartbeat"] = False

@@ -30,8 +30,13 @@ from photon_ml_tpu_torch.ops.objective import make_objective
 from photon_ml_tpu_torch.ops.shared_design import SharedDesign
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.factory import OptimizerConfig, dispatch_solve
+from photon_ml_tpu_torch.telemetry.executables import instrumented
 
 Tensor = torch.Tensor
+
+
+# the B resamples' solve over the shared design, as an accounted executable
+_bootstrap_glm_solve = instrumented(dispatch_solve, name="bootstrap_glm_solve")
 
 
 def _host(t: Tensor, label: str) -> np.ndarray:
@@ -164,7 +169,8 @@ def bootstrap_train(
                              weights=torch.from_numpy(sample_weights.astype(np.float32)).to(dev))
     w0 = torch.zeros((num_samples, batch.num_features), dtype=torch.float32, device=dev)
     constraints = config.build_box_constraints(int(batch.num_features), dev)
-    res = dispatch_solve(glm_adapter(obj, design), w0, config, l1, constraints, device=dev)
+    res = _bootstrap_glm_solve(glm_adapter(obj, design), w0, config, l1, constraints,
+                               device=dev)
     W_dev = res.w
     if normalization is not None:
         # models live in the original space (createModel parity)

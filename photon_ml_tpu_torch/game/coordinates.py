@@ -59,6 +59,7 @@ from photon_ml_tpu_torch.game.models import (
     RandomEffectModel,
 )
 from photon_ml_tpu_torch.game.random_effect_data import RandomEffectDataset
+from photon_ml_tpu_torch.ops.dense import DenseBatch
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.common import BoxConstraints, SolveResult
@@ -73,16 +74,51 @@ from photon_ml_tpu_torch.optim.trackers import (
     FixedEffectOptimizationTracker,
     RandomEffectOptimizationTracker,
 )
+from photon_ml_tpu_torch.parallel.distributed import MESH_SOLVES, record_solve_comms
 from photon_ml_tpu_torch.parallel.mesh import Mesh
 from photon_ml_tpu_torch.parallel.sharding import (
     OwnerBlocks,
     as_sharded,
+    axis_size,
     data_axis,
     model_axis,
     place_host_rows,
 )
+from photon_ml_tpu_torch.telemetry.executables import instrumented, record_collective
 
 Tensor = torch.Tensor
+
+# the fixed effect's solve without a mesh, as an accounted executable (on a
+# mesh it is parallel.distributed's gspmd_solve)
+fe_solve = instrumented(solve, name="fe_solve")
+
+
+@instrumented(name="re_solve")
+def re_solve(obj, batch, w0: Tensor, config: OptimizerConfig, l1, box=None,
+             device=None) -> SolveResult:
+    """One bucket's lanes (or one owner's block of them) solved together by
+    the configured optimizer."""
+    return dispatch_solve(glm_adapter(obj, batch), w0, config, l1, box, device=device)
+
+
+@instrumented(name="re_score")
+def re_score(batch, w: Tensor) -> Tensor:
+    """A COO bucket's per-lane margins x.w (no offsets)."""
+    return batch.dot_rows(w)
+
+
+@instrumented(name="re_score_dense")
+def re_score_dense(batch, w: Tensor) -> Tensor:
+    """A dense bucket's per-lane margins x.w: one batched contraction."""
+    return batch.dot_rows(w)
+
+
+def record_entity_solve_comms(label: str, mesh: Mesh, axis: str, iterations: int) -> int:
+    """The reference's static estimate for one entity-sharded solve: the
+    lanes are independent, and the only traffic is the one-scalar
+    convergence test (an all-reduce of the active mask) per iteration."""
+    return record_collective(label, "psum", axis_size(mesh, axis), 4,
+                             count=max(int(iterations), 1))
 
 NOT_PORTED = "{} is not ported to photon_ml_tpu_torch yet (ROADMAP.md Queue 1 item {})"
 
@@ -184,10 +220,14 @@ class FixedEffectCoordinate:
         if norm is not None:
             # models live in the original space, the solve in the normalized one
             w0 = norm.inverse_transform_model_coefficients(w0)
-        res = solve(self.loss_name, batch, self.config, w0, self._constraints,
-                    factors=None if norm is None else norm.factors,
-                    shifts=None if norm is None else norm.shifts, device=self.data.device,
-                    extra_l2=self.extra_l2)
+        solver = fe_solve
+        if self.mesh is not None:
+            record_solve_comms("gspmd_solve", self.mesh, data_axis(self.mesh), w0, self.config)
+            solver = MESH_SOLVES["gspmd_solve"]
+        res = solver(self.loss_name, batch, self.config, w0, self._constraints,
+                     factors=None if norm is None else norm.factors,
+                     shifts=None if norm is None else norm.shifts, device=self.data.device,
+                     extra_l2=self.extra_l2)
         self.last_results = [res]
         self.last_tracker = FixedEffectOptimizationTracker.from_result(res)
         w = res.w if norm is None else norm.transform_model_coefficients(res.w)
@@ -326,8 +366,7 @@ class RandomEffectCoordinate:
                dev: torch.device) -> tuple[SolveResult, Optional[Tensor]]:
         """One bucket's lanes solved on ``dev``, with their variances."""
         batch = bucket.batch(residual)
-        res = dispatch_solve(glm_adapter(obj, batch), w0, self.config, self._l1, box,
-                             device=dev)
+        res = re_solve(obj, batch, w0, self.config, self._l1, box, device=dev)
         var = None
         if self.compute_variances:
             var = 1.0 / (obj.hessian_diagonal(res.w, batch) + _VARIANCE_EPS)
@@ -353,6 +392,8 @@ class RandomEffectCoordinate:
         the bucket's entities."""
         dev = self.data.device
         parts, healths = [], []
+        record_entity_solve_comms("re_solve", self.mesh, model_axis(self.mesh),
+                                  self.config.max_iterations)
         for (d, buckets, cons), w_o, (lo, hi, pad) in zip(self._owners, self._owner_w(i, w0),
                                                          self._splits[i]):
             res, var = self._solve(obj, buckets[i], w_o, cons[i], residual_on.get(str(d)), d)
@@ -387,7 +428,9 @@ def _write_scores(scores: Tensor, bucket, w: Tensor) -> None:
     """A bucket's margins at lanes ``w`` written into their example rows of
     ``scores``: each active row sits in exactly one bucket slot (padding
     slots are none), so writing the slots into zeros is exact in any order."""
-    margins = bucket.batch().dot_rows(w).reshape(-1).index_select(0, bucket.slots)
+    batch = bucket.batch()
+    scorer = re_score_dense if isinstance(batch, DenseBatch) else re_score
+    margins = scorer(batch, w).reshape(-1).index_select(0, bucket.slots)
     scores.index_put_((bucket.slot_rows.to(scores.device),), margins.to(scores.device))
 
 

@@ -68,6 +68,7 @@ from photon_ml_tpu_torch.data.projection import (
     ProjectionMatrix,
     build_gaussian_projection_matrix,
 )
+from photon_ml_tpu_torch.game.coordinates import re_solve, record_entity_solve_comms
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.game.models import map_vocab_codes
 from photon_ml_tpu_torch.game.random_effect_data import (
@@ -77,11 +78,9 @@ from photon_ml_tpu_torch.game.random_effect_data import (
 )
 from photon_ml_tpu_torch.ops.csr import CSRBatch
 from photon_ml_tpu_torch.ops.dense import DenseBatch
-from photon_ml_tpu_torch.optim.adapter import glm_adapter
 from photon_ml_tpu_torch.optim.factory import (
     OptimizerConfig,
     build_objective,
-    dispatch_solve,
     solve,
 )
 from photon_ml_tpu_torch.optim.trackers import (
@@ -89,8 +88,19 @@ from photon_ml_tpu_torch.optim.trackers import (
     FixedEffectOptimizationTracker,
     RandomEffectOptimizationTracker,
 )
+from photon_ml_tpu_torch.telemetry.executables import instrumented
 
 Tensor = torch.Tensor
+
+# the latent-matrix refit's GLM solve, as an accounted executable
+factored_latent_fit = instrumented(solve, name="factored_latent_fit")
+
+
+@instrumented(name="factored_kron_values")
+def kron_values(base: Tensor, latent_flat: Tensor, idx: Tensor) -> Tensor:
+    """The refit design's values: the base values times the latent factors
+    gathered from the flat latent table."""
+    return base * latent_flat.index_select(0, idx)
 
 
 def _row_segments(rows: np.ndarray, device: torch.device) -> tuple[Tensor, Tensor]:
@@ -189,6 +199,7 @@ class MatrixFactorizationModel:
         return torch.where(ok, (rf * cf).sum(dim=1), 0.0)
 
 
+@instrumented(name="factored_project")
 def latent_design(b, proj: Tensor, a_ext: Tensor) -> Tensor:
     """The rows of bucket ``b`` (dense or COO) projected through A, whose
     entities' projections are ``proj`` [E, K_local]: X~ [E, R, K]."""
@@ -388,14 +399,16 @@ class FactoredRandomEffectCoordinate:
         dev = self.data.device
         flat = int(self._flat_offsets[i])
         parts = []
+        record_entity_solve_comms("latent_re_solve", self.mesh, self._axis,
+                                  self.re_config.max_iterations)
         for (d, buckets, projs), (lo, hi, pad) in zip(self._owners, self._splits[i]):
             w0 = latent[flat + lo:flat + hi].to(d)
             if pad:
                 w0 = torch.cat([w0, w0.new_zeros((pad, w0.shape[1]))])
             batch = latent_batch(buckets[i], latent_design(buckets[i], projs[i], a_ext.to(d)),
                                  residual_on.get(str(d)))
-            parts.append((dispatch_solve(glm_adapter(self._re_obj, batch), w0, self.re_config,
-                                         self._re_l1, device=d), hi - lo))
+            parts.append((re_solve(self._re_obj, batch, w0, self.re_config, self._re_l1,
+                                   device=d), hi - lo))
         res = _join_lanes(parts, dev)
         return res.w, res
 
@@ -414,8 +427,8 @@ class FactoredRandomEffectCoordinate:
         for i in range(len(self._buckets)):
             lo, hi = int(self._flat_offsets[i]), int(self._flat_offsets[i + 1])
             batch = self._latent_batch(i, self._latent_design(i, a_ext), residual)
-            res = dispatch_solve(glm_adapter(self._re_obj, batch), latent[lo:hi],
-                                 self.re_config, self._re_l1, device=self.data.device)
+            res = re_solve(self._re_obj, batch, latent[lo:hi], self.re_config, self._re_l1,
+                           device=self.data.device)
             parts.append(res.w)
             results.append(res)
         return (torch.cat(parts, dim=0) if parts else latent), results
@@ -429,18 +442,20 @@ class FactoredRandomEffectCoordinate:
 
             flat = latent.reshape(-1)
             batch = ShardedBatch(
-                shards=tuple(kb.with_values(base * flat.to(base.device).index_select(0, idx))
+                shards=tuple(kb.with_values(kron_values(base, flat.to(base.device), idx))
                              for kb, base, idx in self._kron_blocks),
                 num_rows=self.data.num_rows, mesh=self.mesh, axis=self._axis)
             if residual is not None:
                 batch = batch.with_offsets(self._kron_offsets + residual)
-            res = solve(self.loss_name, batch, self.latent_config, w0, device=self.data.device)
+            res = factored_latent_fit(self.loss_name, batch, self.latent_config, w0,
+                                      device=self.data.device)
             return res.w.reshape(-1, self.latent_dim).T.contiguous(), res
-        vals = self._kron_base * latent.reshape(-1).index_select(0, self._kron_latent_idx)
+        vals = kron_values(self._kron_base, latent.reshape(-1), self._kron_latent_idx)
         batch = self._kron.with_values(vals)
         if residual is not None:
             batch = batch.with_offsets(self._kron.offsets + residual)
-        res = solve(self.loss_name, batch, self.latent_config, w0, device=self.data.device)
+        res = factored_latent_fit(self.loss_name, batch, self.latent_config, w0,
+                                  device=self.data.device)
         return res.w.reshape(-1, self.latent_dim).T.contiguous(), res
 
     def update_model(self, model: FactoredRandomEffectModel,

@@ -53,13 +53,14 @@ from photon_ml_tpu_torch import faults, telemetry
 from photon_ml_tpu_torch.device import check_on, resolve_device
 from photon_ml_tpu_torch.ops.dense import DenseBatch
 from photon_ml_tpu_torch.ops.losses import get_loss
-from photon_ml_tpu_torch.optim.adapter import glm_adapter
-from photon_ml_tpu_torch.optim.factory import OptimizerConfig, build_objective, dispatch_solve
+from photon_ml_tpu_torch.game.coordinates import re_solve
+from photon_ml_tpu_torch.optim.factory import OptimizerConfig, build_objective
 from photon_ml_tpu_torch.optim.guard import GuardSpec, damped_objective, solve_health
 from photon_ml_tpu_torch.parallel import multihost
 from photon_ml_tpu_torch.parallel.distributed import FP_COLLECTIVE_ENTRY
 from photon_ml_tpu_torch.parallel.mesh import Mesh
 from photon_ml_tpu_torch.parallel.sharding import EntityShards, model_axis, place_entities
+from photon_ml_tpu_torch.telemetry.executables import instrumented, record_collective
 
 Tensor = torch.Tensor
 
@@ -80,6 +81,18 @@ _FP_CHUNK_BOUNDARY = faults.register_point(
 # DistributedOptimizationProblem.computeVariances adds this to the Hessian
 # diagonal before inverting (as the random-effect coordinate does)
 _VARIANCE_EPS = 1e-12
+
+
+@instrumented(name="streaming_table_init")
+def _table_block(shape: tuple, dtype: torch.dtype, device) -> Tensor:
+    """One block of a table (or the whole table) of zeros on ``device``."""
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+@instrumented(name="streaming_chunk_write")
+def _write_rows(block: Tensor, lo: int, w: Tensor) -> None:
+    """Rows ``[lo, lo + len(w))`` of ``block`` := ``w``, in place."""
+    block[lo:lo + w.shape[0]].copy_(w)
 
 
 def _entity_axis(mesh: Mesh, axis: Optional[str]) -> str:
@@ -117,8 +130,8 @@ class ShardedCoefficientTable:
         if mesh is None:
             self.device = resolve_device(device)
             self.axis = axis
-            self.coefficients = torch.zeros((self.num_entities, self.dim), dtype=dtype,
-                                            device=self.device)
+            self.coefficients = _table_block((self.num_entities, self.dim), dtype,
+                                             self.device)
             return
         self.axis = _entity_axis(mesh, axis)
         devices = mesh.axis_devices(self.axis)
@@ -128,8 +141,8 @@ class ShardedCoefficientTable:
         per = self.num_entities // len(devices)
         # a fleet member allocates its own blocks; the others' are shapes only
         self._set(EntityShards(parts=tuple(
-            torch.zeros((per, self.dim), dtype=dtype,
-                        device=d if owner == mesh.process else "meta")
+            _table_block((per, self.dim), dtype,
+                         d if owner == mesh.process else torch.device("meta"))
             for d, owner in zip(devices, mesh.axis_owners(self.axis))), mesh=mesh,
             axis=self.axis))
 
@@ -201,14 +214,14 @@ class ShardedCoefficientTable:
         piece into the block that holds it)."""
         self._check_bounds(start, int(w.shape[0]))
         if self.mesh is None:
-            self.coefficients[start:start + w.shape[0]].copy_(w)
+            _write_rows(self.coefficients, start, w)
             return
         parts = self.coefficients.parts
         for block, lo, hi, off in self._spans(start, int(w.shape[0])):
             if parts[block].device.type == "meta":
                 raise ValueError(f"rows [{start}, {start + int(w.shape[0])}) reach a block "
                                  "another fleet member holds")
-            parts[block][lo:hi].copy_(w[off:off + hi - lo])
+            _write_rows(parts[block], lo, w[off:off + hi - lo])
 
     def read_chunk(self, start: int, size: int,
                    device: Optional[torch.device] = None) -> Tensor:
@@ -499,6 +512,11 @@ class StreamingRandomEffectTrainer:
         # the streamed table's local space is dense, its projection the identity
         boxes = [self.config.build_box_constraints(table.dim, d) for d in devices]
         rolled_back = False
+        if self.mesh is not None:
+            # the lanes are independent: the only collective is the
+            # one-scalar convergence test, once an iteration
+            record_collective("streaming_chunk_solve", "psum", len(self._devices), 4,
+                              count=max(int(self.config.max_iterations), 1))
         with telemetry.span("streaming_chunk", start=start, size=size):
             attempt = 0
             while True:
@@ -508,8 +526,7 @@ class StreamingRandomEffectTrainer:
                     obj = damped_objective(obj, self._guard.damping_for(attempt))
                 if multihost.process_count() > 1:
                     faults.fault_point(FP_COLLECTIVE_ENTRY)
-                results = [dispatch_solve(glm_adapter(obj, batch), w0, self.config, self._l1,
-                                          cons, device=d)
+                results = [re_solve(obj, batch, w0, self.config, self._l1, cons, device=d)
                            for (batch, _), w0, cons, d in zip(fed, w0s, boxes, devices)]
                 ws = [faults.corrupt_array(_FP_SOLVE_RESULT, r.w) for r in results]
                 if self._guard is None:

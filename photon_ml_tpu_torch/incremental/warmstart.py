@@ -46,6 +46,9 @@ from photon_ml_tpu_torch.parallel.sharding import (
     entity_axis_mismatch,
     model_axis,
 )
+from photon_ml_tpu_torch.telemetry.executables import instrumented
+
+Tensor = torch.Tensor
 
 logger = logging.getLogger("photon_ml_tpu_torch.incremental")
 
@@ -198,6 +201,16 @@ def _load_model_dir(directory: str, dev: torch.device) -> WarmStart:
         model=model)
 
 
+@instrumented(name="incremental_grow_rows")
+def _grown_block(pieces: list, rows: int, dtype: torch.dtype, device) -> Tensor:
+    """``rows`` rows on ``device``: the old rows in ``pieces``, then zeros."""
+    have = sum(int(p.shape[0]) for p in pieces)
+    if have < rows:
+        pieces = pieces + [torch.zeros((rows - have, int(pieces[0].shape[1])), dtype=dtype,
+                                       device=device)]
+    return torch.cat(pieces) if len(pieces) > 1 else pieces[0].clone()
+
+
 def grow_entity_rows(coefficients, num_entities: int, mesh=None, axis: Optional[str] = None):
     """An ``[N_old, K]`` table grown to ``[num_entities, K]``: rows
     ``[0, N_old)`` copied bit for bit, the new rows zero (a never-seen
@@ -217,7 +230,8 @@ def grow_entity_rows(coefficients, num_entities: int, mesh=None, axis: Optional[
             raise ValueError("an entity-sharded table grows on a mesh: pass mesh=")
         if grow == 0:
             return coefficients
-        return torch.cat([coefficients, coefficients.new_zeros((grow, k))])
+        return _grown_block([coefficients], num_entities, coefficients.dtype,
+                            coefficients.device)
     resolved = axis or model_axis(mesh)
     if resolved is None:
         raise ValueError(f"mesh {mesh.shape} has no model/entity axis to grow entities over")
@@ -235,10 +249,9 @@ def grow_entity_rows(coefficients, num_entities: int, mesh=None, axis: Optional[
         lo, hi = i * per, (i + 1) * per
         pieces = [part[max(lo - start, 0):min(hi, start + part.shape[0]) - start].to(dev)
                   for start, part in old if start < hi and start + part.shape[0] > lo]
-        have = sum(int(p.shape[0]) for p in pieces)
-        if have < per:
-            pieces.append(torch.zeros((per - have, k), dtype=old[0][1].dtype, device=dev))
-        parts.append(torch.cat(pieces) if len(pieces) > 1 else pieces[0].clone())
+        if not pieces:
+            pieces = [torch.zeros((0, k), dtype=old[0][1].dtype, device=dev)]
+        parts.append(_grown_block(pieces, per, old[0][1].dtype, dev))
     if grow:
         telemetry.counter("incremental.grown_entities").inc(grow)
     return EntityShards(parts=tuple(parts), mesh=mesh, axis=resolved)

@@ -26,8 +26,22 @@ from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.ingest.pipeline import ChunkCSR, ChunkStream, IngestSpec
 from photon_ml_tpu_torch.ops.csr import CSRBatch
+from photon_ml_tpu_torch.telemetry.executables import instrumented
+
+Tensor = torch.Tensor
 
 _INT32_MAX = 2**31 - 1
+
+
+@instrumented(name="ingest_assemble_write")
+def _write_chunk(v: Tensor, c: Tensor, row_ptr: Tensor, csr: ChunkCSR, at: int,
+                 row_start: int) -> None:
+    """One chunk's values and columns at ``at`` and its row pointer at its
+    rows, offset by the ``at`` nonzeros before it, in place."""
+    nnz, rows = csr.nnz, csr.row_ptr.shape[0] - 1
+    v[at:at + nnz] = csr.vals
+    c[at:at + nnz] = csr.cols
+    row_ptr[row_start + 1:row_start + rows + 1] = csr.row_ptr[1:].long() + at
 
 
 class ShardAssembler:
@@ -56,12 +70,9 @@ class ShardAssembler:
 
     def add(self, csr: ChunkCSR, row_start: int) -> None:
         """Append one chunk's nonzeros; its rows start at ``row_start``."""
-        nnz, rows = csr.nnz, csr.row_ptr.shape[0] - 1
-        self._ensure(self._nnz + nnz)
-        self._v[self._nnz:self._nnz + nnz] = csr.vals
-        self._c[self._nnz:self._nnz + nnz] = csr.cols
-        self._row_ptr[row_start + 1:row_start + rows + 1] = csr.row_ptr[1:].long() + self._nnz
-        self._nnz += nnz
+        self._ensure(self._nnz + csr.nnz)
+        _write_chunk(self._v, self._c, self._row_ptr, csr, self._nnz, row_start)
+        self._nnz += csr.nnz
 
     def finish(self, labels: np.ndarray, offsets: np.ndarray,
                weights: np.ndarray) -> CSRBatch:

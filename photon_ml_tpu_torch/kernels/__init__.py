@@ -26,6 +26,11 @@ margins and the scatter for G vectors over one design (``W [G, F]``,
 call reads the design from device memory once per 16 lanes, and each lane
 comes out bit for bit as the single-vector kernel gives it for that lane's
 vector.
+
+Each wrapper is an instrumented executable under its launch-count name
+(``telemetry/executables.py``): its calls are counted and sampled by the
+profiler, and each call reports its modelled work from ``kernels/cost.py``
+(on the CPU too: the cost is the function's, not the implementation's).
 """
 
 from __future__ import annotations
@@ -34,9 +39,11 @@ from typing import NamedTuple
 
 import torch
 
-from photon_ml_tpu_torch.kernels import reference
+from photon_ml_tpu_torch.kernels import cost, reference
 from photon_ml_tpu_torch.kernels.build import load_library
 from photon_ml_tpu_torch.ops.losses import get_loss
+from photon_ml_tpu_torch.telemetry.executables import account, instrumented
+from photon_ml_tpu_torch.telemetry.profile import launch_window
 
 Tensor = torch.Tensor
 
@@ -174,6 +181,7 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@instrumented(name="csr_margins")
 def csr_margins(
     row_ptr: Tensor,
     cols: Tensor,
@@ -185,8 +193,11 @@ def csr_margins(
 ) -> Tensor:
     """Per-row margins of a CSR matrix: sum_k vals_k*w[cols_k] + shift (+offsets)."""
     dev = row_ptr.device
+    work = cost.csr_margins(row_ptr.numel() - 1, vals.numel(), w.numel(), use_offsets)
     if not _on_cuda("csr_margins", dev):
-        return reference.csr_margins(row_ptr, cols, vals, w, offsets, shift, use_offsets)
+        out = reference.csr_margins(row_ptr, cols, vals, w, offsets, shift, use_offsets)
+        account(*work)
+        return out
     n = row_ptr.numel() - 1
     _check("csr_margins", dev, row_ptr=row_ptr, cols=cols, vals=vals, w=w, offsets=offsets)
     if cols.numel() != vals.numel() or offsets.numel() != n or w.dim() != 1:
@@ -194,7 +205,7 @@ def csr_margins(
     shift_ptr, shift_host = _shift_args("csr_margins", dev, shift)
     lib = load_library()
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_window("csr_margins"):
         rc = lib.photon_csr_margins(
             row_ptr.data_ptr(),
             cols.data_ptr(),
@@ -210,9 +221,11 @@ def csr_margins(
         )
     _raise_on("csr_margins", lib, rc)
     LAUNCHES["csr_margins"] += 1
+    account(*work)
     return out
 
 
+@instrumented(name="ell_margins")
 def ell_margins(
     vals: Tensor,
     cols: Tensor,
@@ -225,8 +238,11 @@ def ell_margins(
     ``[S, n_pad]``, n_pad a multiple of 128): sum_s vals[s,r]*w[cols[s,r]] +
     shift (+ offsets) for the n = len(offsets) real rows."""
     dev = vals.device
+    work = cost.ell_margins(*vals.shape, w.numel(), offsets.numel(), use_offsets)
     if not _on_cuda("ell_margins", dev):
-        return reference.ell_margins(vals, cols, w, offsets, shift, use_offsets)
+        out = reference.ell_margins(vals, cols, w, offsets, shift, use_offsets)
+        account(*work)
+        return out
     _check("ell_margins", dev, ell_cols=cols, vals=vals, w=w, offsets=offsets)
     n = offsets.numel()
     if (vals.dim() != 2 or cols.shape != vals.shape or w.dim() != 1
@@ -236,7 +252,7 @@ def ell_margins(
     shift_ptr, shift_host = _shift_args("ell_margins", dev, shift)
     lib = load_library()
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_window("ell_margins"):
         rc = lib.photon_ell_margins(
             vals.data_ptr(), cols.data_ptr(), w.data_ptr(),
             offsets.data_ptr() if use_offsets else None, shift_ptr, shift_host,
@@ -244,6 +260,7 @@ def ell_margins(
         )
     _raise_on("ell_margins", lib, rc)
     LAUNCHES["ell_margins"] += 1
+    account(*work)
     return out
 
 
@@ -266,6 +283,7 @@ def _scatter_args(name, dev, tiles: ScatterTiles | None, n_rows: int, n_features
             _group_size(tiles.n_parts, n_features), tiles.tile_rows, tiles.piece_len), part
 
 
+@instrumented(name="csc_scatter")
 def csc_scatter(
     col_ptr: Tensor,
     rows: Tensor,
@@ -277,9 +295,12 @@ def csc_scatter(
     """Feature-space scatter sum_i per_row[i]*x_i (x_i**2 with ``square``);
     on a CUDA device ``tiles`` is the batch's tile index (module docstring)."""
     dev = col_ptr.device
+    work = cost.csc_scatter(per_row.numel(), vals.numel(), col_ptr.numel() - 1)
     if not _on_cuda("csc_scatter", dev):
-        return reference.csc_scatter(*column_major((col_ptr, rows, vals), tiles), per_row,
-                                     square)
+        out = reference.csc_scatter(*column_major((col_ptr, rows, vals), tiles), per_row,
+                                    square)
+        account(*work)
+        return out
     n_features = col_ptr.numel() - 1
     _check("csc_scatter", dev, col_ptr=col_ptr, rows=rows, vals=vals, per_row=per_row)
     if rows.numel() != vals.numel() or per_row.dim() != 1:
@@ -288,16 +309,18 @@ def csc_scatter(
     index_args, part = _scatter_args("csc_scatter", dev, tiles, n, n_features)
     lib = load_library()
     out = torch.empty(n_features, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_window("csc_scatter"):
         rc = lib.photon_csc_scatter(
             rows.data_ptr(), vals.data_ptr(), *index_args, per_row.data_ptr(), out.data_ptr(),
             part.data_ptr(), n, n_features, int(square), _stream(dev),
         )
     _raise_on("csc_scatter", lib, rc)
     LAUNCHES["csc_scatter"] += 1
+    account(*work)
     return out
 
 
+@instrumented(name="margins_pair")
 def margins_pair(
     csr: tuple[Tensor, Tensor, Tensor],
     w: Tensor,
@@ -309,8 +332,11 @@ def margins_pair(
     """(X.w + shift + offsets, X.p + p_shift) from one read of the slots."""
     row_ptr, cols, vals = csr
     dev = row_ptr.device
+    work = cost.margins_pair(row_ptr.numel() - 1, vals.numel(), w.numel())
     if not _on_cuda("margins_pair", dev):
-        return reference.margins_pair(csr, w, p, offsets, shift, p_shift)
+        out = reference.margins_pair(csr, w, p, offsets, shift, p_shift)
+        account(*work)
+        return out
     n = row_ptr.numel() - 1
     _check("margins_pair", dev, row_ptr=row_ptr, cols=cols, vals=vals, w=w, p=p,
            offsets=offsets)
@@ -322,7 +348,7 @@ def margins_pair(
     lib = load_library()
     z = torch.empty(n, dtype=torch.float32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_window("margins_pair"):
         rc = lib.photon_margins_pair(
             row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
             p.data_ptr(), offsets.data_ptr(), s0_ptr, s0_host, s1_ptr, s1_host,
@@ -330,6 +356,7 @@ def margins_pair(
         )
     _raise_on("margins_pair", lib, rc)
     LAUNCHES["margins_pair"] += 1
+    account(*work)
     return z, u
 
 
@@ -339,6 +366,7 @@ def _sums_scratch(n_sums: int, dev: torch.device):
             torch.empty(n_sums, dtype=torch.float32, device=dev))
 
 
+@instrumented(name="value_grad")
 def value_grad(
     csr: tuple[Tensor, Tensor, Tensor],
     csc: tuple[Tensor, Tensor, Tensor],
@@ -354,9 +382,12 @@ def value_grad(
     z = X.w + shift + offsets, in one fused pass (0-d device sums)."""
     loss = get_loss(loss_name).name
     dev = csr[0].device
+    work = cost.value_grad(csr[0].numel() - 1, csr[2].numel(), csc[0].numel() - 1)
     if not _on_cuda("value_grad", dev):
-        return reference.value_grad(csr, column_major(csc, tiles), labels, weights, offsets,
-                                    w, shift, loss)
+        out = reference.value_grad(csr, column_major(csc, tiles), labels, weights, offsets,
+                                   w, shift, loss)
+        account(*work)
+        return out
     n_features = csc[0].numel() - 1
     n = _check_fused("value_grad", dev, csr, csc, n_features, labels=labels,
                      weights=weights, offsets=offsets, w=w)
@@ -365,7 +396,7 @@ def value_grad(
     lib = load_library()
     partials, sums = _sums_scratch(2, dev)
     grad = torch.empty(n_features, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_window("value_grad"):
         rc = lib.photon_value_grad(
             *(t.data_ptr() for t in (*csr, *csc[1:], labels, weights, offsets, w)),
             s_ptr, s_host, LOSS_CODES[loss], partials.data_ptr(), _MAX_BLOCKS, sums.data_ptr(),
@@ -373,9 +404,11 @@ def value_grad(
         )
     _raise_on("value_grad", lib, rc)
     LAUNCHES["value_grad"] += 1
+    account(*work)
     return sums[0], grad, sums[1]
 
 
+@instrumented(name="hv")
 def hv(
     csr: tuple[Tensor, Tensor, Tensor],
     csc: tuple[Tensor, Tensor, Tensor],
@@ -395,9 +428,12 @@ def hv(
     if loss not in _HV_LOSSES:
         raise ValueError(f"hv: '{loss}' is not twice differentiable")
     dev = csr[0].device
+    work = cost.hv(csr[0].numel() - 1, csr[2].numel(), csc[0].numel() - 1)
     if not _on_cuda("hv", dev):
-        return reference.hessian_vector(csr, column_major(csc, tiles), labels, weights,
-                                        offsets, w, shift, v, v_shift, loss)
+        out = reference.hessian_vector(csr, column_major(csc, tiles), labels, weights,
+                                       offsets, w, shift, v, v_shift, loss)
+        account(*work)
+        return out
     n_features = csc[0].numel() - 1
     n = _check_fused("hv", dev, csr, csc, n_features, labels=labels, weights=weights,
                      offsets=offsets, w=w, v=v)
@@ -407,7 +443,7 @@ def hv(
     lib = load_library()
     partials, sums = _sums_scratch(1, dev)
     out = torch.empty(n_features, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_window("hv"):
         rc = lib.photon_hessian_vector(
             *(t.data_ptr() for t in (*csr, *csc[1:], labels, weights, offsets, w, v)),
             s0_ptr, s0_host, s1_ptr, s1_host, LOSS_CODES[loss], partials.data_ptr(),
@@ -416,9 +452,11 @@ def hv(
         )
     _raise_on("hv", lib, rc)
     LAUNCHES["hv"] += 1
+    account(*work)
     return out, sums[0]
 
 
+@instrumented(name="hv_at")
 def hv_at(
     csr: tuple[Tensor, Tensor, Tensor],
     csc: tuple[Tensor, Tensor, Tensor],
@@ -430,8 +468,11 @@ def hv_at(
     """(raw Hv sum_i q_i*x_i, sum q) with q = d2*(X.v + v_shift) for a row
     curvature d2 computed once per TRON step (0-d device sum)."""
     dev = csr[0].device
+    work = cost.hv_at(csr[0].numel() - 1, csr[2].numel(), csc[0].numel() - 1)
     if not _on_cuda("hv_at", dev):
-        return reference.hv_at(csr, column_major(csc, tiles), d2, v, v_shift)
+        out = reference.hv_at(csr, column_major(csc, tiles), d2, v, v_shift)
+        account(*work)
+        return out
     n_features = csc[0].numel() - 1
     n = _check_fused("hv_at", dev, csr, csc, n_features, d2=d2, v=v)
     s_ptr, s_host = _shift_args("hv_at", dev, v_shift)
@@ -439,7 +480,7 @@ def hv_at(
     lib = load_library()
     partials, sums = _sums_scratch(1, dev)
     out = torch.empty(n_features, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_window("hv_at"):
         rc = lib.photon_hv_at(
             *(t.data_ptr() for t in (*csr, *csc[1:], d2, v)),
             s_ptr, s_host, partials.data_ptr(), _MAX_BLOCKS, sums.data_ptr(), out.data_ptr(),
@@ -447,6 +488,7 @@ def hv_at(
         )
     _raise_on("hv_at", lib, rc)
     LAUNCHES["hv_at"] += 1
+    account(*work)
     return out, sums[0]
 
 
@@ -461,6 +503,7 @@ def _lane_shift_args(name: str, dev: torch.device, shift: Tensor | float, n_lane
     return None, float(shift)
 
 
+@instrumented(name="csr_margins_lanes")
 def csr_margins_lanes(
     row_ptr: Tensor,
     cols: Tensor,
@@ -484,8 +527,12 @@ def csr_margins_lanes(
     if isinstance(shift, Tensor) and shift.shape != (n_lanes,):
         raise ValueError(f"csr_margins_lanes: shift must be [{n_lanes}], got "
                          f"{tuple(shift.shape)}")
+    work = cost.csr_margins_lanes(n, vals.numel(), w.shape[1], n_lanes,
+                                  offsets.numel() if use_offsets else 0)
     if not _on_cuda("csr_margins_lanes", dev):
-        return reference.csr_margins_lanes(row_ptr, cols, vals, w, offsets, shift, use_offsets)
+        out = reference.csr_margins_lanes(row_ptr, cols, vals, w, offsets, shift, use_offsets)
+        account(*work)
+        return out
     _check("csr_margins_lanes", dev, row_ptr=row_ptr, cols=cols, vals=vals, w=w,
            offsets=offsets)
     if cols.numel() != vals.numel():
@@ -493,7 +540,7 @@ def csr_margins_lanes(
     shift_ptr, shift_host = _lane_shift_args("csr_margins_lanes", dev, shift, n_lanes)
     lib = load_library()
     out = torch.empty((n_lanes, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_window("csr_margins_lanes"):
         rc = lib.photon_csr_margins_lanes(
             row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
             offsets.data_ptr() if use_offsets else None, int(offsets.dim() == 2),
@@ -501,9 +548,11 @@ def csr_margins_lanes(
         )
     _raise_on("csr_margins_lanes", lib, rc)
     LAUNCHES["csr_margins_lanes"] += 1
+    account(*work)
     return out
 
 
+@instrumented(name="csc_scatter_lanes")
 def csc_scatter_lanes(
     col_ptr: Tensor,
     rows: Tensor,
@@ -519,9 +568,13 @@ def csc_scatter_lanes(
     if per_row.dim() != 2:
         raise ValueError(f"csc_scatter_lanes: per_row must be [G, N], got "
                          f"{tuple(per_row.shape)}")
+    work = cost.csc_scatter_lanes(per_row.shape[1], vals.numel(), col_ptr.numel() - 1,
+                                  per_row.shape[0])
     if not _on_cuda("csc_scatter_lanes", dev):
-        return reference.csc_scatter_lanes(*column_major((col_ptr, rows, vals), tiles),
-                                           per_row, square)
+        out = reference.csc_scatter_lanes(*column_major((col_ptr, rows, vals), tiles),
+                                          per_row, square)
+        account(*work)
+        return out
     n_features = col_ptr.numel() - 1
     _check("csc_scatter_lanes", dev, col_ptr=col_ptr, rows=rows, vals=vals, per_row=per_row)
     if rows.numel() != vals.numel():
@@ -533,7 +586,7 @@ def csc_scatter_lanes(
     # the parts lane-minor, the lanes rounded up to the kernel's groups of 4
     part = torch.empty((tiles.n_parts, -(-n_lanes // 4) * 4), dtype=torch.float32, device=dev)
     out = torch.empty((n_lanes, n_features), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_window("csc_scatter_lanes"):
         rc = lib.photon_csc_scatter_lanes(
             rows.data_ptr(), vals.data_ptr(), index, n_slots, n_pieces, width, tile_rows,
             piece_len, tiles.n_parts, per_row.data_ptr(), out.data_ptr(), part.data_ptr(), n,
@@ -541,4 +594,5 @@ def csc_scatter_lanes(
         )
     _raise_on("csc_scatter_lanes", lib, rc)
     LAUNCHES["csc_scatter_lanes"] += 1
+    account(*work)
     return out

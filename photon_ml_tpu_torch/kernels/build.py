@@ -6,7 +6,9 @@ shared library with a plain C interface. The library lands in
 ``build/kernels/`` at the repository root, named by a hash of the sources
 and the headers they share (``csrc/*.cuh``), so a changed source is rebuilt
 and an unchanged one is reused within a checkout. Nothing is built at import time: ``load_library()`` builds on its
-first call, and a failed build raises.
+first call, and a failed build raises. A build that runs ``nvcc`` is the
+port's one compile: it is counted in ``jit_compiles`` and
+``jit_compile_seconds`` (``telemetry/device.py``); a reused library is not.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -71,6 +74,7 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.monotonic()
     nvcc = _nvcc()
     objs, procs = [], []
     for src in srcs:
@@ -104,6 +108,9 @@ def build(verbose: bool = False) -> str:
     os.replace(tmp, lib_path)
     for obj in objs:
         os.remove(obj)
+    from photon_ml_tpu_torch.telemetry import device as telemetry_device
+
+    telemetry_device.record_compile(time.monotonic() - t0)
     return lib_path
 
 

@@ -10,6 +10,9 @@ these to XLA and never wrote them in Pallas. Weight 0 marks a padded row.
 
 A margin shift is a host number or one value per entity (``[E]``); the sums
 that the reference returns per problem come back per entity (``[E]``).
+
+Each contraction reports its modelled work (``kernels/cost.py``
+``dense_rows`` / ``dense_scatter``) to the executable accounting.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.kernels import cost
 from photon_ml_tpu_torch.ops.losses import get_loss
+from photon_ml_tpu_torch.telemetry.executables import account
 
 Tensor = torch.Tensor
 
@@ -70,18 +75,23 @@ class DenseBatch:
 
     def dot_rows(self, w: Tensor) -> Tensor:
         """x_er . w_e  -> [E, R]."""
-        return torch.einsum("erk,ek->er", self.x, w)
+        out = torch.einsum("erk,ek->er", self.x, w)
+        account(*cost.dense_rows(*self.x.shape))
+        return out
 
     def margins(self, w: Tensor, shift: Tensor | float = 0.0) -> Tensor:
         return self.dot_rows(w) + per_entity(shift) + self.offsets
 
     def margins_pair(self, w, shift, p, p_shift) -> tuple[Tensor, Tensor]:
         zu = torch.einsum("erk,ekj->erj", self.x, torch.stack([w, p], dim=-1))
+        account(*cost.dense_rows(*self.x.shape, vectors=2))
         return zu[..., 0] + per_entity(shift) + self.offsets, zu[..., 1] + per_entity(p_shift)
 
     def scatter_features(self, per_row: Tensor) -> Tensor:
         """sum_r per_row[e, r] * x_er  -> [E, K]."""
-        return torch.einsum("er,erk->ek", per_row, self.x)
+        out = torch.einsum("er,erk->ek", per_row, self.x)
+        account(*cost.dense_scatter(*self.x.shape))
+        return out
 
     def fused_value_grad(self, w, shift, loss_name: str) -> tuple[Tensor, Tensor, Tensor]:
         """Per entity: (sum wgt*l(z), raw gradient sum wgt*dz*x, sum wgt*dz)."""
@@ -104,7 +114,9 @@ class DenseBatch:
 
     def scatter_features_sq(self, per_row: Tensor) -> Tensor:
         """sum_r per_row[e, r] * x_er**2  -> [E, K] (the Hessian diagonal)."""
-        return torch.einsum("er,erk->ek", per_row, self.x * self.x)
+        out = torch.einsum("er,erk->ek", per_row, self.x * self.x)
+        account(*cost.dense_scatter(*self.x.shape, square=True))
+        return out
 
     def with_offsets(self, offsets: Tensor) -> "DenseBatch":
         return dataclasses.replace(self, offsets=offsets.to(torch.float32))

@@ -39,6 +39,7 @@ from photon_ml_tpu_torch.parallel.mesh import (
     rows_per_shard,
     shard_rows,
 )
+from photon_ml_tpu_torch.telemetry.executables import instrumented
 
 Tensor = torch.Tensor
 
@@ -398,8 +399,14 @@ def place_entities(t: Tensor, mesh: Mesh, axis: Optional[str] = None) -> EntityS
     if t.shape[0] % len(devices):
         raise entity_axis_mismatch(int(t.shape[0]), axis, len(devices), "place")
     per = t.shape[0] // len(devices)
-    return EntityShards(parts=tuple(t[i * per:(i + 1) * per].to(d, copy=True)
+    return EntityShards(parts=tuple(_owned_copy(t[i * per:(i + 1) * per], d)
                                     for i, d in enumerate(devices)), mesh=mesh, axis=axis)
+
+
+@instrumented(name="place_entity_rows_copy")
+def _owned_copy(t: Tensor, device: torch.device) -> Tensor:
+    """A copy of ``t`` on ``device``."""
+    return t.to(device, copy=True)
 
 
 def place_entity_rows(read_rows: Callable[[int, int], np.ndarray], num_entities: int,

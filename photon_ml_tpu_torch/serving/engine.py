@@ -78,6 +78,7 @@ from photon_ml_tpu_torch.game.models import (
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.parallel import sharding as psharding
 from photon_ml_tpu_torch.quality import drift as quality_drift
+from photon_ml_tpu_torch.telemetry.executables import instrumented
 
 
 Tensor = torch.Tensor
@@ -90,6 +91,15 @@ class BadRequest(ValueError):
     """A score request is malformed (unknown shard schema, feature count
     over ``max_row_nnz``, unresolvable named feature without an index
     map). Servers map this to HTTP 400, never 500."""
+
+
+@instrumented(name="serving_row_update")
+def _row_update(table: Tensor, pos: Tensor, rows: Tensor) -> Tensor:
+    """A copy of ``table`` with ``rows`` at ``pos``: never in place, so a
+    score call still holding the old table reads it whole."""
+    new = table.clone()
+    new.index_copy_(0, pos.to(table.device), rows.to(table.device))
+    return new
 
 
 def bucket_sizes_for(max_batch: int) -> tuple[int, ...]:
@@ -658,6 +668,16 @@ class ScoringEngine:
             total = seg if total is None else total + seg
         return total
 
+    @instrumented(name="serving_score")
+    def _score(self, b: _Batch, st: _Staging, tables) -> Tensor:
+        """The batch's predictions: the margins, the offsets, the link."""
+        return self._link_of(self._margins(b, st, tables) + st.get(b.offsets))
+
+    @instrumented(name="serving_margin")
+    def _raw_margins(self, b: _Batch, st: _Staging, tables) -> Tensor:
+        """The batch's raw additive margins (a fleet member's half)."""
+        return self._margins(b, st, tables)
+
     def _link_of(self, scores: Tensor) -> Tensor:
         if self._link == "logistic":
             return torch.sigmoid(scores)
@@ -692,7 +712,7 @@ class ScoringEngine:
             tables = self._tables
             with self._score_lock:
                 b, st = self._assemble(chunk, batch, tables)
-                preds = self._link_of(self._margins(b, st, tables) + st.get(b.offsets))
+                preds = self._score(b, st, tables)
                 host = telemetry.sync_fetch(preds, label="serving.scores")
                 self._count_call(batch)
             telemetry.histogram("serving.device_ms").observe((time.monotonic() - t0) * 1000.0)
@@ -725,7 +745,7 @@ class ScoringEngine:
             tables = self._tables
             with self._score_lock:
                 b, st = self._assemble(chunk, batch, tables, gate=gate)
-                margins = self._margins(b, st, tables)
+                margins = self._raw_margins(b, st, tables)
                 host = telemetry.sync_fetch(margins, label="serving.margins")
                 self._count_call(batch)
             telemetry.histogram("serving.device_ms").observe((time.monotonic() - t0) * 1000.0)
@@ -763,9 +783,8 @@ class ScoringEngine:
                 tables = self._tables
                 with self._score_lock:
                     batch, st = self._assemble(rows, b, tables)
-                    telemetry.sync_fetch(self._link_of(
-                        self._margins(batch, st, tables) + st.get(batch.offsets)),
-                        label="serving.warmup")
+                    telemetry.sync_fetch(self._score(batch, st, tables),
+                                         label="serving.warmup")
                 self._bucket_stats[b] = {"seconds": time.perf_counter() - t0, "calls": 1}
         self.warm = True
         return self
@@ -850,14 +869,11 @@ class ScoringEngine:
                 for o, part in enumerate(parts):
                     sel = torch.nonzero(owner == o).squeeze(1)
                     if sel.numel():
-                        block = part.clone()
-                        block.index_copy_(0, (pos[sel] - o * per).to(part.device),
-                                          new_rows[sel.to(new_rows.device)].to(part.device))
-                        parts[o] = block
+                        parts[o] = _row_update(part, pos[sel] - o * per,
+                                               new_rows[sel.to(new_rows.device)])
                 new = psharding.EntityShards(parts=tuple(parts), mesh=coef.mesh, axis=coef.axis)
             else:
-                new = coef.clone()
-                new.index_copy_(0, pos.to(coef.device), new_rows.to(coef.device))
+                new = _row_update(coef, pos, new_rows)
             buckets[bucket] = (proj, new)
             tables[ci] = tuple(buckets)
             self._tables = tuple(tables)

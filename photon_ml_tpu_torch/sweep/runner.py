@@ -84,6 +84,7 @@ from photon_ml_tpu_torch.optim.common import (
 )
 from photon_ml_tpu_torch.optim.factory import OptimizerConfig, dispatch_solve, split_reg_weights
 from photon_ml_tpu_torch.sweep.grid import SweepGrid
+from photon_ml_tpu_torch.telemetry.executables import instrumented, record_collective
 
 Tensor = torch.Tensor
 
@@ -101,6 +102,23 @@ __all__ = [
 class SweepUnsupportedError(ValueError):
     """A training feature the sweep path does not batch; the message names
     the coordinate and the single-fit alternative."""
+
+
+# the batched lane solves and scorers as accounted executables (the
+# reference's instrumented sweep programs, by name)
+sweep_fe_solve = instrumented(dispatch_solve, name="sweep_fe_solve")
+sweep_re_solve = instrumented(dispatch_solve, name="sweep_re_solve")
+bootstrap_re_solve = instrumented(dispatch_solve, name="bootstrap_re_solve")
+
+
+@instrumented(name="sweep_fe_score")
+def _fe_sweep_score(design: SharedDesign, w: Tensor) -> Tensor:
+    return design.dot_rows(w)
+
+
+@instrumented(name="sweep_re_score")
+def _re_sweep_score(design, table: Tensor) -> Tensor:
+    return bucket_dot_rows(design, table)
 
 
 def _fetch(t: Tensor, label: str) -> np.ndarray:
@@ -219,6 +237,11 @@ def sweep_glm(
     W = torch.broadcast_to(w_start.to(device=dev, dtype=torch.float32),
                            (len(lams_p), n_feat)).contiguous()
     res = None
+    if len(devices) > 1:
+        # the lanes are independent: per iteration the only traffic is the
+        # one-scalar convergence test
+        record_collective("sweep_glm_solve", "psum", len(devices), 4,
+                          count=max(int(config.max_iterations), 1) * rounds)
     telemetry.gauge("sweep.configs_total").set(G)
     telemetry.gauge("sweep.configs_done").set(0)
     with telemetry.span("sweep", task=task, configs=G, rounds=rounds):
@@ -226,7 +249,7 @@ def sweep_glm(
             with telemetry.span("sweep_round", round=r):
                 w0 = W if r == 0 else path_warm_start(W, res.reason)
                 res = _join_owner_lanes([
-                    dispatch_solve(adapter, w0[o * per:(o + 1) * per].to(d), config, l1, cons,
+                    sweep_fe_solve(adapter, w0[o * per:(o + 1) * per].to(d), config, l1, cons,
                                    device=d)
                     for o, (d, adapter, l1, cons) in enumerate(groups)], per, dev)
                 W = res.w
@@ -411,7 +434,8 @@ class GameSweepResult:
     def _fe_scores(self, s: _FeState, data: GameDataset) -> Tensor:
         """x.w of every lane's original-space coefficients on ``data``: one
         lane margins launch."""
-        return SharedDesign.of(data.csr_batch(s.shard_name), self.size).dot_rows(s.original_w())
+        return _fe_sweep_score(SharedDesign.of(data.csr_batch(s.shard_name), self.size),
+                               s.original_w())
 
     def _re_training_scores(self, s: _ReState, n: int) -> Tensor:
         """Every lane's scores on the training rows: each bucket's margins
@@ -419,10 +443,11 @@ class GameSweepResult:
         scores = torch.zeros((self.size, n), dtype=torch.float32, device=self.device)
         for b, table in zip(s.buckets, s.tables):
             design = b.x if hasattr(b, "x") else b.block
-            margins = bucket_dot_rows(design, table).reshape(self.size, -1)
+            margins = _re_sweep_score(design, table).reshape(self.size, -1)
             scores[:, b.slot_rows] = margins.index_select(1, b.slots)
         return scores
 
+    @instrumented(name="sweep_re_val_score")
     def _re_scores_for(self, s: _ReState, data: GameDataset) -> Tensor:
         """All-lane scores on any dataset: one host pass maps its entity
         values through the training vocabulary to (bucket, position); each
@@ -641,11 +666,12 @@ def _update_fe(s: _FeState, task: str, residual, it: int, warm_start: bool, dev)
         w0 = path_warm_start(s.W, s.reasons)
     offsets = s.batch.offsets if residual is None else s.batch.offsets + residual
     design = SharedDesign.of(s.batch, G, offsets=offsets)
-    res = dispatch_solve(glm_adapter(s.obj, design), w0, s.config, s.l1s.unsqueeze(-1),
+    res = sweep_fe_solve(glm_adapter(s.obj, design), w0, s.config, s.l1s.unsqueeze(-1),
                          s.constraints, device=dev)
     s.W, s.reasons, s.iterations, s.values = res.w, res.reason, res.iterations, res.value
 
 
+@instrumented(name="sweep_re_residual")
 def _residual_offsets(base: Tensor, row_index: Tensor, residual: Optional[Tensor]) -> Tensor:
     """A bucket's base offsets [E, R] plus each config's residual scores
     [G, n] gathered through ``row_index`` -> [G, E, R]; padding rows get
@@ -669,7 +695,7 @@ def _update_re(s: _ReState, task: str, residual, it: int, warm_start: bool, dev)
         if warm_start and it > 0 and s.reasons is not None:
             w0 = path_warm_start(w0, s.reasons)
         obj = make_objective(task).with_l2(s.l2s.repeat_interleave(E))
-        res = dispatch_solve(glm_adapter(obj, lanes), w0.reshape(G * E, K), s.config,
+        res = sweep_re_solve(glm_adapter(obj, lanes), w0.reshape(G * E, K), s.config,
                              s.l1s.repeat_interleave(E).unsqueeze(-1), None, device=dev)
         s.tables[i] = res.w.reshape(G, E, K)
         un = _lane_unconverged(res.reason.reshape(G, E))
@@ -693,5 +719,5 @@ def re_bootstrap_solve(config: OptimizerConfig, obj, ebatch, lane_weights: Tenso
     B = lane_weights.shape[0]
     lanes = bucket_lanes(ebatch, B, weights=ebatch.weights.unsqueeze(0) * lane_weights)
     w_start = w0.to(torch.float32).unsqueeze(0).expand(B, *w0.shape)
-    return dispatch_solve(glm_adapter(obj, lanes), w_start.reshape(B * w0.shape[0], -1),
-                          config, l1, None, device=device)
+    return bootstrap_re_solve(glm_adapter(obj, lanes), w_start.reshape(B * w0.shape[0], -1),
+                              config, l1, None, device=device)

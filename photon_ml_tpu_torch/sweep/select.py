@@ -19,6 +19,7 @@ registry (``serving.registry.publish_version``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Optional
 
@@ -30,6 +31,9 @@ from photon_ml_tpu_torch.evaluation.evaluators import EVALUATORS, better_than
 from photon_ml_tpu_torch.game.coordinate_descent import validation_arrays
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.ops.losses import get_loss
+from photon_ml_tpu_torch.telemetry.executables import instrumented
+
+Tensor = torch.Tensor
 
 logger = logging.getLogger("photon_ml_tpu_torch.sweep")
 
@@ -84,6 +88,19 @@ def default_metric(task: str) -> str:
     return "poisson_loss"
 
 
+@functools.lru_cache(maxsize=16)
+def _sweep_evaluator(metric: str):
+    """The evaluator applied to each config lane's scores ``[G, n]``, as an
+    accounted executable ``sweep_eval_<metric>``."""
+    fn = EVALUATORS[metric]
+
+    def run(scores: Tensor, labels: Tensor, weights: Tensor) -> Tensor:
+        return torch.stack([torch.as_tensor(fn(scores[g], labels, weights), dtype=torch.float64)
+                            for g in range(scores.shape[0])])
+
+    return instrumented(run, name=f"sweep_eval_{metric}")
+
+
 def evaluate_sweep(result, validation_data: GameDataset,
                    metric: Optional[str] = None) -> tuple[str, np.ndarray]:
     """Score every config lane against the validation split on the device.
@@ -99,10 +116,7 @@ def evaluate_sweep(result, validation_data: GameDataset,
             f"evaluators need per-group state); pick one of {sorted(EVALUATORS)}")
     scores = result.validation_scores(validation_data)  # [G, n]
     labels, weights, offsets = validation_arrays(validation_data)
-    fn = EVALUATORS[metric]
-    full = scores + offsets.unsqueeze(0)
-    values = torch.stack([torch.as_tensor(fn(full[g], labels, weights), dtype=torch.float64)
-                          for g in range(full.shape[0])])
+    values = _sweep_evaluator(metric)(scores + offsets.unsqueeze(0), labels, weights)
     telemetry.counter("host_syncs").inc()
     return metric, values.cpu().numpy().astype(np.float64)
 

@@ -25,13 +25,21 @@ metric names, so both packages' artifacts read alike:
   rows, the straggler, the clock skew, lost members' last words and the
   request traces joined across processes (``cli report --fleet``).
 
-``sync_fetch(t, label)`` is the one sanctioned device-to-host copy of a
-solve or request path (the counterpart of ``telemetry/device.py:40-75``): it
-copies once, counts ``host_syncs`` and the reference's ``device_fetch*``
-metrics, and stamps a ``device_fetch`` event on the open span.
-
-Not ported yet (ROADMAP.md Queue 1 item 14d (iii)): the executable
-accounting, the profiler and the compile counters.
+- :mod:`.device`: ``sync_fetch(t, label)``, the one sanctioned
+  device-to-host copy of a solve or request path (it copies once, counts
+  ``host_syncs`` and the reference's ``device_fetch*`` metrics, and stamps a
+  ``device_fetch`` event on the open span), and the compile counters of the
+  kernels' ``nvcc`` build (``jit_compiles``, ``jit_compile_seconds``).
+- :mod:`.executables`: the executable accounting (the counterpart of the
+  reference's ``telemetry/xla.py``): ``instrumented`` functions counted per
+  shape signature, the kernels' modelled FLOPs and bytes
+  (``kernels/cost.py``) on the open span, roofline peaks and ``comms.*``
+  collective estimates (the report's "Device utilization").
+- :mod:`.profile`: the sampled profiler: every instrumented call is counted
+  and every Nth timed on the stream by CUDA events read once they have
+  completed (no host sync), giving per-executable exclusive seconds, MFU,
+  intensity and a bound class (the report's "Hot executables", the
+  heartbeat's ``hot_exec``). Armed at import.
 
 Typical use::
 
@@ -48,13 +56,18 @@ Typical use::
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
-import numpy as np
-
 from photon_ml_tpu_torch.telemetry import identity, memory, metrics, trace  # noqa: F401
+from photon_ml_tpu_torch.telemetry import device, executables, profile  # noqa: F401
 from photon_ml_tpu_torch.telemetry import requests  # noqa: F401  (needs trace)
+from photon_ml_tpu_torch.telemetry.device import install_compile_hooks, sync_fetch  # noqa: F401
+from photon_ml_tpu_torch.telemetry.executables import (  # noqa: F401
+    EXECUTABLE_REGISTRY,
+    account,
+    instrumented,
+    record_collective,
+)
 from photon_ml_tpu_torch.telemetry.identity import member_artifact_path  # noqa: F401
 from photon_ml_tpu_torch.telemetry.metrics import (  # noqa: F401
     counter,
@@ -86,7 +99,10 @@ def configure(trace_out: Optional[str] = None, buffer_limit: Optional[int] = Non
 
 
 def flush_metrics(path: str) -> dict:
-    """Append the metrics snapshot to ``path`` as one ``metrics`` line."""
+    """Append the metrics snapshot to ``path`` as one ``metrics`` line,
+    after publishing the profiler's derived gauges (MFU, bound class), so a
+    report loaded from the file alone renders the Hot-executables table."""
+    profile.publish_metrics()
     return metrics.flush_jsonl(path)
 
 
@@ -111,26 +127,6 @@ def configure_from_env() -> None:
         _env_state["atexit_flush"] = flush
 
 
-def sync_fetch(t, label: str | None = None) -> np.ndarray:
-    """Copy ``t`` to the host as numpy (one device-to-host copy, which waits
-    for the work that produced it) and account for it: ``host_syncs`` and
-    ``host_sync_bytes``, the reference's ``device_fetches`` /
-    ``device_fetch_bytes`` / ``device_fetch_seconds``, and a
-    ``device_fetch`` event on the open span."""
-    t0 = time.monotonic()
-    out = t.detach().cpu().numpy()
-    dt = time.monotonic() - t0
-    nbytes = int(out.nbytes)
-    metrics.counter("host_syncs").inc()
-    metrics.counter("host_sync_bytes").inc(nbytes)
-    metrics.counter("device_fetches").inc()
-    metrics.counter("device_fetch_bytes").inc(nbytes)
-    metrics.counter("device_fetch_seconds").inc(dt)
-    metrics.histogram("device_fetch_seconds").observe(dt)
-    trace.add_event("device_fetch", label=label, bytes=nbytes, seconds=round(dt, 6))
-    return out
-
-
 def snapshot() -> dict:
     """``counters``, ``gauges`` and ``histograms`` of the registry, every
     provider's section, and the ``span_seconds`` totals."""
@@ -143,10 +139,13 @@ def reset() -> None:
     """Restore import-time defaults: clear the spans, the request ring and
     the registry's metrics (providers stay), close the trace sink, restore
     the default buffer limit, drop an injected memory-stats provider, and
-    unregister the ``configure_from_env`` exit flush."""
+    unregister the ``configure_from_env`` exit flush; clear the executable
+    and profile registries and arm the sampler again."""
     trace.reset()
     metrics.reset()
     memory.reset()
+    executables.reset()
+    profile.reset()
     requests.reset()
     flush = _env_state["atexit_flush"]
     if flush is not None:
@@ -154,3 +153,7 @@ def reset() -> None:
 
         atexit.unregister(flush)
         _env_state["atexit_flush"] = None
+
+
+# arm the sampler on every instrumented call (profile.reset() arms it again)
+profile.install()

@@ -30,11 +30,12 @@ run writes one artifact stream per member (``trace.proc-0.jsonl``,
 - **requests**: the persisted ``request:*`` spans of the router and every
   member, plus the flight records' entries, joined by ``trace_id``.
 
-The fields built on the executable accounting (ROADMAP.md Queue 1 item 14d
-(iii)) render as the reference renders members without profiles: the
-member rows' ``mfu``, ``comms_fraction`` and ``hot_exec`` are None and the
-fleet's hot-executable list is empty; :meth:`FleetReport.key_metrics` has
-no ``fleet_mfu_spread``.
+- **device accounting**: each member row's ``mfu`` and ``comms_fraction``
+  (its report's Device utilization; None, "unknown", without modelled work
+  or known peaks) and ``hot_exec`` (its hottest profiled executable), the
+  key metric ``fleet_mfu_spread`` (max - min member MFU, with two or more),
+  and the fleet's hot list: per-name sums of the members' profiled
+  exclusive seconds.
 
 ``python -m photon_ml_tpu_torch.cli report --fleet <dir>`` renders it;
 ``compare``/``--fail-on-regress`` gate :meth:`FleetReport.key_metrics`
@@ -522,10 +523,52 @@ class FleetReport:
         }
 
     def merged_hot_executables(self, k: int = 10) -> list[dict[str, Any]]:
-        """The fleet's hot-executable list: ROADMAP.md Queue 1 item 14d
-        (iii) (the members' reports carry no executable profile), so
-        empty."""
-        return []
+        """The fleet's hot-executable list: per-name sums of the members'
+        profiled exclusive seconds and calls (every member runs the same
+        executables, so the fleet pays each member's copy), the best MFU
+        seen on any member, and the set of bound classes. Empty when no
+        member profiled anything."""
+        merged: dict[str, dict[str, Any]] = {}
+        for m in self.members:
+            for e in m.report.hot_executables(k=1_000_000):
+                agg = merged.setdefault(e["name"], {
+                    "name": e["name"], "est_exclusive_seconds": 0.0, "dispatches": 0,
+                    "members": 0, "mfu_max": None, "bound_classes": [],
+                    "timing_suspect": False})
+                agg["est_exclusive_seconds"] += float(e.get("est_exclusive_seconds") or 0.0)
+                agg["dispatches"] += int(e.get("dispatches") or 0)
+                agg["members"] += 1
+                mfu = e.get("mfu")
+                if mfu is not None and (agg["mfu_max"] is None or mfu > agg["mfu_max"]):
+                    agg["mfu_max"] = mfu
+                bc = e.get("bound_class", "unknown")
+                if bc not in agg["bound_classes"]:
+                    agg["bound_classes"].append(bc)
+                agg["timing_suspect"] = agg["timing_suspect"] or bool(e.get("timing_suspect"))
+        out = list(merged.values())
+        for agg in out:
+            agg["est_exclusive_seconds"] = round(agg["est_exclusive_seconds"], 6)
+            agg["bound_classes"] = sorted(agg["bound_classes"])
+        out.sort(key=lambda e: e["est_exclusive_seconds"], reverse=True)
+        return out[:k]
+
+    def _hot_executables_markdown(self, k: int = 10) -> list[str]:
+        hot = self.merged_hot_executables(k)
+        if not hot:
+            return []
+        lines = ["## Fleet hot executables", "",
+                 "_Per-executable profiled exclusive seconds summed across members (SPMD: "
+                 "the fleet pays every member's copy); MFU is the best observed on any "
+                 "member._", "",
+                 "| executable | excl s (fleet) | dispatches | members | MFU max | bound |",
+                 "|---|---|---|---|---|---|"]
+        for e in hot:
+            name = f"`{e['name']}`" + (" ⚠" if e["timing_suspect"] else "")
+            lines.append(f"| {name} | {_fmt(e['est_exclusive_seconds'])} | {e['dispatches']} | "
+                         f"{e['members']} | {_fmt_pct(e['mfu_max'])} | "
+                         f"{', '.join(e['bound_classes'])} |")
+        lines.append("")
+        return lines
 
     def _requests_markdown(self, k: int = 10) -> list[str]:
         traces = self.request_traces()
@@ -599,6 +642,9 @@ class FleetReport:
             out["fleet_collective_wait_s"] = round(sum(waits), 6)
             if run_total:
                 out["fleet_collective_wait_fraction"] = round(sum(waits) / run_total, 6)
+        mfus = [mfu for m in self.members if (mfu := m.key_metrics().get("mfu")) is not None]
+        if len(mfus) >= 2:
+            out["fleet_mfu_spread"] = round(max(mfus) - min(mfus), 6)
         gaps = [g for m in self.members if (g := m.heartbeat_gap_max_s()) is not None]
         if gaps:
             out["fleet_heartbeat_gap_max_s"] = round(max(gaps), 3)
@@ -702,6 +748,7 @@ class FleetReport:
         lines.append("")
         lines += self._last_words_markdown()
         lines += self._requests_markdown()
+        lines += self._hot_executables_markdown()
         lines += self._quality_markdown()
         straggler = self.straggler()
         if straggler is not None:

@@ -11,6 +11,7 @@ logger and, optionally, a JSONL sink:
      "rows_total": 2.4e7, "coeffs_total": 3.1e6, "dropped_spans": 0,
      "hbm_bytes_in_use": 7516192768, "hbm_bytes_limit": 85045182464,
      "checkpoint_age_s": 41.0, "checkpoint_last_step": 7,
+     "mfu": 0.0123, "comms_fraction": 0.02, "hot_exec": "csc_scatter",
      "guard": {"diverged": 0, "retried": 0, "rolled_back": 0, "frozen": 0}}
 
 Rates are deltas of the ``progress.rows`` / ``progress.coeffs`` counters
@@ -22,10 +23,12 @@ interval after start, so a run shorter than ``interval`` emits nothing.
 A beat reads the registry and the caching allocator's host counters only:
 it never synchronizes with the device, and it never initializes CUDA (the
 memory fields are left out until the process has initialized it, and on
-the CPU). Fields with no data behind them are left out, never zero: the
-device-utilization fields of the JAX package's line (``mfu``,
-``comms_fraction``, ``hot_exec``) need the executable accounting of
-ROADMAP.md Queue 1 item 14d (iii), and so never appear here.
+the CPU). Fields with no data behind them are left out, never zero:
+``mfu`` needs modelled FLOPs in the window and known peaks,
+``comms_fraction`` a collective estimate and modelled bytes, and
+``hot_exec`` (the executable whose estimated exclusive seconds grew most in
+the window) resolved profiler samples; the profiler read here waits for no
+pending sample.
 """
 
 from __future__ import annotations
@@ -37,7 +40,14 @@ import threading
 import time
 from typing import Any, Optional
 
-from photon_ml_tpu_torch.telemetry import identity, memory, metrics, trace
+from photon_ml_tpu_torch.telemetry import (
+    executables,
+    identity,
+    memory,
+    metrics,
+    profile,
+    trace,
+)
 
 __all__ = ["Heartbeat", "DEFAULT_INTERVAL_S", "tail_heartbeat_fields"]
 
@@ -68,7 +78,11 @@ class Heartbeat:
         self._last_t = self._t0
         self._last_rows = 0.0
         self._last_coeffs = 0.0
+        self._last_flops = 0.0
+        self._last_xla_bytes = 0.0
+        self._last_comms = 0.0
         self._last_ingest_rows = 0.0
+        self._last_profile_excl: dict[str, float] = {}
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -83,7 +97,11 @@ class Heartbeat:
             self._last_coeffs = metrics.counter("progress.coeffs").value
             # peek, don't create: a counter registered at 0 would turn the
             # report's "unknown" into a fabricated 0
+            self._last_flops = metrics.peek_counter("xla.flops_total") or 0.0
+            self._last_xla_bytes = metrics.peek_counter("xla.bytes_total") or 0.0
+            self._last_comms = metrics.peek_counter("comms.bytes_total") or 0.0
             self._last_ingest_rows = metrics.peek_counter("ingest.rows") or 0.0
+            self._last_profile_excl = profile.exclusive_seconds_by_name()
         self._thread = threading.Thread(target=self._run, name="photon-heartbeat", daemon=True)
         self._thread.start()
         return self
@@ -142,11 +160,42 @@ class Heartbeat:
             proc = identity.fleet_process_index()
             if proc is not None:
                 line["proc"] = proc
+            # device utilization over the window (peek: an absent counter
+            # stays unknown)
+            flops = metrics.peek_counter("xla.flops_total") or 0.0
+            xla_bytes = metrics.peek_counter("xla.bytes_total") or 0.0
+            comms = metrics.peek_counter("comms.bytes_total") or 0.0
+            d_flops = flops - self._last_flops
+            d_bytes = xla_bytes - self._last_xla_bytes
+            d_comms = comms - self._last_comms
+            self._last_flops, self._last_xla_bytes = flops, xla_bytes
+            self._last_comms = comms
             ingest_rows = metrics.peek_counter("ingest.rows")
             d_ingest = None if ingest_rows is None else ingest_rows - self._last_ingest_rows
             if ingest_rows is not None:
                 self._last_ingest_rows = ingest_rows
+            # the hottest executable of this window: the largest growth of
+            # the profiler's estimated exclusive seconds; none this window
+            # leaves the field out (never a stale winner)
+            excl = profile.exclusive_seconds_by_name()
+            hot_exec, hot_delta = None, 0.0
+            for name, secs in excl.items():
+                d = secs - self._last_profile_excl.get(name, 0.0)
+                if d > hot_delta:
+                    hot_delta, hot_exec = d, name
+            self._last_profile_excl = excl
+            if hot_exec is not None:
+                line["hot_exec"] = hot_exec
             sink = self.jsonl_path
+
+        if d_flops > 0:
+            peak_flops, _peak_bw = executables.device_peaks()
+            if peak_flops:
+                line["mfu"] = round(d_flops / (dt * peak_flops), 6)
+        if d_comms > 0 and d_bytes > 0:
+            # both sides known this window; without modelled bytes the
+            # fraction is unknowable, so it is left out
+            line["comms_fraction"] = round(d_comms / (d_comms + d_bytes), 6)
 
         stats = memory.hbm_stats()
         if stats and "bytes_in_use" in stats:

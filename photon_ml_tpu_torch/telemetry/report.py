@@ -21,11 +21,12 @@ checkpoint directory's manifests:
 
 The "Requests" section summarizes the request ring (records, tail-sampled
 persists, ring drops, p50/p99 by phase) and lists the slowest persisted
-request traces. The sections of ROADMAP.md Queue 1 item 14d (iii) render
-nothing here, as the reference's do when a run has no data for them:
-"Device utilization", "Hot executables" and the executable table, with the
-key metrics built on them (``mfu``, ``exec.<name>.mfu``,
-``xla_recompiles``).
+request traces. "Device utilization" gives the run's and each phase's
+modelled FLOPs and bytes (``telemetry/executables.py``), MFU, bandwidth
+utilization, collective bytes and compile share; "Hot executables" ranks
+the executables by the profiler's estimated exclusive device seconds
+(``telemetry/profile.py``), with MFU, intensity and bound class. The key
+metrics ``mfu`` and ``exec.<name>.mfu`` are built on them.
 
 This module only reads artifacts (or the live registries through
 :meth:`RunReport.from_live`); it never touches a device.
@@ -48,6 +49,7 @@ __all__ = [
     "KEY_METRIC_DIRECTIONS",
     "REPORT_FORMAT_VERSION",
     "report_path",
+    "directions_with_exec",
 ]
 
 REPORT_FORMAT_VERSION = 1
@@ -67,6 +69,61 @@ KEY_METRIC_DIRECTIONS: dict[str, int] = {
     "mfu": +1,
     "xla_recompiles": -1,
 }
+
+def directions_with_exec(*metric_dicts: Mapping[str, Any]) -> dict[str, int]:
+    """``KEY_METRIC_DIRECTIONS`` extended with the dynamic per-executable
+    utilization metrics (``exec.<name>.mfu``, higher is better) present
+    in any of the given metric dicts — executable names are data, so they
+    cannot be enumerated statically like the other keys."""
+    directions = dict(KEY_METRIC_DIRECTIONS)
+    for metrics_dict in metric_dicts:
+        for name in metrics_dict:
+            if name.startswith("exec.") and name.endswith(".mfu"):
+                directions[name] = +1
+    return directions
+
+# Fields of the xla.exec.<name>.<field> metric names the executable table
+# is reconstructed from (suffix-matched: executable names may contain
+# dots, field names never do).
+_XLA_EXEC_COUNTER_FIELDS = (
+    "calls",
+    "compiles",
+    "compile_seconds",
+    "recompiles",
+    "flops_total",
+    "bytes_total",
+)
+_XLA_EXEC_GAUGE_FIELDS = ("flops_per_call", "bytes_per_call", "temp_bytes")
+
+# Fields of the profile.exec.<name>.<field> gauges the Hot-executables
+# table is reconstructed from (same suffix-match convention).
+_PROFILE_EXEC_GAUGE_FIELDS = (
+    "dispatches",
+    "sampled",
+    "sampled_seconds",
+    "est_exclusive_seconds",
+    "mean_dispatch_seconds",
+    "mfu",
+    "intensity",
+    "bound_code",
+    "timing_suspect",
+)
+
+# Human names for the profiler's numeric bound-class codes, kept in sync
+# with telemetry.profile.BOUND_CLASS_NAMES (duplicated so reports load
+# without importing the profiler). Codes 1 and 2 carry the card's names
+# (the reference's MXU and VPU are TPU units); 0, 3 and 4 are the same.
+_BOUND_CLASS_NAMES = {
+    0: "unknown",
+    1: "compute-bound",
+    2: "low-compute-bound",
+    3: "HBM-bound",
+    4: "dispatch-bound",
+}
+
+# device_utilization() cache sentinel (the computed value may be None)
+_DU_UNSET = object()
+
 
 _STEP_MANIFEST_RE = re.compile(r"^step-(\d{8})$")
 
@@ -127,10 +184,9 @@ class PhaseNode:
     same name-path merged: count, total wall time, and self time).
 
     ``flops``/``bytes``/``comms_bytes`` hold the device-cost attributes
-    (``xla_flops``, ``xla_bytes``, ``comms_bytes``) of the spans at this
-    node, as the reference's executable accounting writes them; the
-    ``subtree_*`` accessors include descendants. The port writes none yet
-    (item 14d (iii)), but a trace that has them aggregates alike."""
+    (``xla_flops``, ``xla_bytes``, ``comms_bytes``) the executable
+    accounting accumulated on the spans at this node; the ``subtree_*``
+    accessors include descendants: the per-phase roofline numerators."""
 
     name: str
     count: int = 0
@@ -315,8 +371,11 @@ class RunReport:
     ) -> "RunReport":
         """Build from THIS process's live registries (the train driver's
         ``--report-out`` path needs no re-parse of its own sinks)."""
-        from photon_ml_tpu_torch.telemetry import metrics, trace
+        from photon_ml_tpu_torch.telemetry import metrics, profile, trace
 
+        # the profiler publishes its derived gauges (MFU, bound class) only
+        # on demand: publish them so the snapshot carries the hot list
+        profile.publish_metrics()
         return cls(
             spans=[s.to_dict() for s in trace.finished_spans()],
             snapshot=metrics.snapshot(),
@@ -400,12 +459,26 @@ class RunReport:
         sweep_metric = gauges.get("sweep.selected_metric")
         if sweep_metric is not None:
             out["sweep_selected_metric"] = float(sweep_metric)
+        recompiles = counters.get("xla.recompiles")
+        if recompiles:
+            out["xla_recompiles"] = float(recompiles)
         ingest_rate = gauges.get("ingest.rows_per_sec")
         if ingest_rate is not None:
             out["ingest_rows_per_sec"] = float(ingest_rate)
         ttf = gauges.get("incremental.time_to_fresh_s")
         if ttf is not None:
             out["time_to_fresh_s"] = float(ttf)
+        du = self.device_utilization()
+        if du is not None and du.get("mfu") is not None:
+            out["mfu"] = float(du["mfu"])
+        # per-executable MFU from the profiler (exec.<name>.mfu): a compare
+        # flags one kernel's utilization regressing; names on one side only
+        # are skipped by compare_metrics
+        prefix, suffix = "profile.exec.", ".mfu"
+        for key, value in gauges.items():
+            if key.startswith(prefix) and key.endswith(suffix) and value is not None:
+                name = key[len(prefix): -len(suffix)]
+                out[f"exec.{name}.mfu"] = float(value)
         return out
 
     def coordinate_summary(self) -> list[dict]:
@@ -545,15 +618,171 @@ class RunReport:
         out.append("")
         return out
 
-    # -- later slices (ROADMAP.md Queue 1 item 14d (iii)) --------------------
+    # -- device utilization (telemetry.executables, telemetry.profile) -------
+
+    def xla_executables(self, k: int = 10) -> list[dict]:
+        """Top-k accounted executables, reconstructed from the
+        ``xla.exec.<name>.<field>`` metrics so a report loaded from a
+        metrics JSONL alone still ranks them. Ranked by total FLOPs when
+        known, else by compile seconds."""
+        counters = self.snapshot.get("counters", {})
+        gauges = self.snapshot.get("gauges", {})
+        execs: dict[str, dict[str, Any]] = {}
+        for source, fields in (
+            (counters, _XLA_EXEC_COUNTER_FIELDS),
+            (gauges, _XLA_EXEC_GAUGE_FIELDS),
+        ):
+            for key, value in source.items():
+                if not key.startswith("xla.exec.") or value is None:
+                    continue
+                rest = key[len("xla.exec."):]
+                for field in fields:
+                    if rest.endswith("." + field):
+                        name = rest[: -len(field) - 1]
+                        execs.setdefault(name, {"name": name})[field] = value
+                        break
+        ranked = sorted(
+            execs.values(),
+            key=lambda e: (
+                e.get("flops_total") or 0.0,
+                e.get("compile_seconds") or 0.0,
+            ),
+            reverse=True,
+        )
+        return ranked[:k]
 
     def hot_executables(self, k: int = 10) -> list[dict]:
-        """The executable profiler's table: item 14d (iii), so empty."""
-        return []
+        """Top-k executables by estimated exclusive device time, from the
+        ``profile.exec.<name>.<field>`` gauges (the profiler's sampled
+        stream timings, see telemetry.profile), so a report loaded from a
+        metrics JSONL alone still ranks them.
+        Each row carries MFU / intensity / bound class plus the matching
+        ``xla.exec.<name>.*`` compile split and recompile count. Empty
+        when the run carried no profiled dispatches."""
+        gauges = self.snapshot.get("gauges", {})
+        counters = self.snapshot.get("counters", {})
+        execs: dict[str, dict[str, Any]] = {}
+        for key, value in gauges.items():
+            if not key.startswith("profile.exec.") or value is None:
+                continue
+            rest = key[len("profile.exec."):]
+            for field in _PROFILE_EXEC_GAUGE_FIELDS:
+                if rest.endswith("." + field):
+                    name = rest[: -len(field) - 1]
+                    execs.setdefault(name, {"name": name})[field] = value
+                    break
+        for e in execs.values():
+            e["bound_class"] = _BOUND_CLASS_NAMES.get(
+                int(e.get("bound_code") or 0), "unknown"
+            )
+            e["timing_suspect"] = bool(e.get("timing_suspect"))
+            for field, source in (
+                ("compile_seconds", counters),
+                ("recompiles", counters),
+            ):
+                v = source.get(f"xla.exec.{e['name']}.{field}")
+                if v is not None:
+                    e[field] = v
+        ranked = sorted(
+            execs.values(),
+            key=lambda e: e.get("est_exclusive_seconds") or 0.0,
+            reverse=True,
+        )
+        return ranked[:k]
 
     def device_utilization(self) -> Optional[dict[str, Any]]:
-        """The roofline accounting: item 14d (iii), so None."""
-        return None
+        """Roofline accounting for the run: overall + per-phase FLOPs,
+        MFU, HBM-bandwidth utilization, comms bytes/fraction, and
+        compile-time share. ``None`` when the run carried no executable
+        accounting at all; individual fields are None ("unknown") when no
+        modelled work ran or the device peaks are unknown. Cached per instance: a report render
+        consumes it from key_metrics, markdown, AND to_json, and the
+        underlying spans/snapshot never change after construction."""
+        cached = self.__dict__.get("_du_cache", _DU_UNSET)
+        if cached is not _DU_UNSET:
+            return cached
+        du = self._device_utilization()
+        self.__dict__["_du_cache"] = du
+        return du
+
+    def _device_utilization(self) -> Optional[dict[str, Any]]:
+        counters = self.snapshot.get("counters", {})
+        gauges = self.snapshot.get("gauges", {})
+        if not any(
+            k.startswith(("xla.", "comms.")) for k in counters
+        ):
+            return None
+        peak_flops = gauges.get("device.peak_flops")
+        peak_bw = gauges.get("device.peak_hbm_bytes_per_sec")
+        tree = self.phase_tree()
+        run_total_s = sum(c.total_s for c in tree.children.values())
+        flops_total = counters.get("xla.flops_total")
+        bytes_total = counters.get("xla.bytes_total")
+        comms_total = counters.get("comms.bytes_total")
+        compile_s = counters.get(
+            "xla.compile_seconds", counters.get("jit_compile_seconds")
+        )
+
+        def _util(work, peak, seconds):
+            if work is None or not peak or not seconds:
+                return None
+            return work / (peak * seconds)
+
+        def _comms_fraction(comms, hbm_bytes):
+            # comms recorded but HBM bytes unknown (no cost analysis):
+            # the denominator is unknowable — say "unknown", never 100%
+            if hbm_bytes is None:
+                return None
+            total = (comms or 0.0) + hbm_bytes
+            return (comms or 0.0) / total if total else None
+
+        phases: list[dict[str, Any]] = []
+
+        def walk(node: PhaseNode, path: list[str]) -> None:
+            for child in sorted(
+                node.children.values(), key=lambda c: -c.total_s
+            ):
+                p = path + [child.name]
+                f = child.subtree_flops or None
+                b = child.subtree_bytes or None
+                cb = child.subtree_comms_bytes or None
+                if f or b or cb:
+                    phases.append(
+                        {
+                            "phase": " > ".join(p),
+                            "total_s": round(child.total_s, 6),
+                            "flops": f,
+                            "bytes_accessed": b,
+                            "comms_bytes": cb,
+                            "mfu": _util(f, peak_flops, child.total_s),
+                            "bandwidth_utilization": _util(
+                                b, peak_bw, child.total_s
+                            ),
+                            "comms_fraction": _comms_fraction(cb, b),
+                        }
+                    )
+                walk(child, p)
+
+        walk(tree, [])
+        return {
+            "peak_flops": peak_flops,
+            "peak_hbm_bytes_per_sec": peak_bw,
+            "flops_total": flops_total,
+            "bytes_accessed_total": bytes_total,
+            "comms_bytes_total": comms_total,
+            "mfu": _util(flops_total, peak_flops, run_total_s),
+            "bandwidth_utilization": _util(bytes_total, peak_bw, run_total_s),
+            "comms_fraction": _comms_fraction(comms_total, bytes_total),
+            "compile_seconds": compile_s,
+            "compile_time_share": (
+                compile_s / run_total_s
+                if compile_s is not None and run_total_s
+                else None
+            ),
+            "recompiles": counters.get("xla.recompiles", 0),
+            "phases": phases,
+            "top_executables": self.xla_executables(),
+        }
 
     # -- request traces ------------------------------------------------------
 
@@ -646,9 +875,11 @@ class RunReport:
         """Compare against a baseline: either a full report JSON document
         (``to_json()`` output — its ``key_metrics`` field is used) or a
         bare ``{metric: value}`` dict; metrics on one side only are
-        skipped."""
+        skipped, per-executable ``exec.<name>.mfu`` rows included."""
         base = baseline.get("key_metrics", baseline)
-        return compare_metrics(self.key_metrics(), base, threshold=threshold)
+        current = self.key_metrics()
+        return compare_metrics(current, base, threshold=threshold,
+                               directions=directions_with_exec(current, base))
 
     # -- rendering -----------------------------------------------------------
 
@@ -737,6 +968,8 @@ class RunReport:
                 )
             lines.append("")
 
+        lines += self._device_utilization_markdown()
+        lines += self._hot_executables_markdown()
         lines += self._accounting_markdown()
         lines += self._ingestion_markdown()
         lines += self._serving_markdown()
@@ -762,6 +995,149 @@ class RunReport:
         if deltas is not None:
             lines += _compare_markdown(deltas)
         return "\n".join(lines).rstrip() + "\n"
+
+    def _device_utilization_markdown(self) -> list[str]:
+        du = self.device_utilization()
+        if du is None:
+            return []
+        out = ["## Device utilization", ""]
+        peak = du["peak_flops"]
+        out.append(
+            "- MFU: "
+            + _fmt_pct(du["mfu"])
+            + (
+                f" (peak {_fmt(peak / 1e12)} TFLOP/s)"
+                if peak
+                else " (device peak FLOP/s unknown)"
+            )
+        )
+        out.append(
+            "- HBM bandwidth utilization: "
+            + _fmt_pct(du["bandwidth_utilization"])
+            + (
+                f" (peak {_fmt_bytes(du['peak_hbm_bytes_per_sec'])}/s)"
+                if du["peak_hbm_bytes_per_sec"]
+                else " (device peak bandwidth unknown)"
+            )
+        )
+        out.append(
+            "- FLOPs and bytes are modelled from the kernels' and dense "
+            "contractions' shapes (kernels/cost.py): a lower bound, the "
+            "solvers' vector arithmetic is not counted"
+        )
+        out.append(
+            f"- total FLOPs: {_fmt_or_unknown(du['flops_total'])}; "
+            f"bytes accessed: "
+            + (
+                _fmt_bytes(du["bytes_accessed_total"])
+                if du["bytes_accessed_total"] is not None
+                else "unknown"
+            )
+        )
+        comms = du["comms_bytes_total"]
+        out.append(
+            "- estimated collective bytes: "
+            + (_fmt_bytes(comms) if comms is not None else "unknown")
+            + f" (comms fraction {_fmt_pct(du['comms_fraction'])})"
+        )
+        out.append(
+            "- compile time: "
+            + (
+                f"{_fmt(du['compile_seconds'])}s "
+                f"({_fmt_pct(du['compile_time_share'])} of run)"
+                if du["compile_seconds"] is not None
+                else "unknown"
+            )
+            + f"; recompiles: {int(du['recompiles'])}"
+        )
+        if du["phases"]:
+            out += [
+                "",
+                "| phase | s | FLOPs | MFU | bytes | BW util | comms |",
+                "|---|---|---|---|---|---|---|",
+            ]
+            for p in du["phases"]:
+                out.append(
+                    f"| `{p['phase']}` | {p['total_s']:.3f} | "
+                    f"{_fmt_or_unknown(p['flops'])} | "
+                    f"{_fmt_pct(p['mfu'])} | "
+                    + (
+                        _fmt_bytes(p["bytes_accessed"])
+                        if p["bytes_accessed"] is not None
+                        else "unknown"
+                    )
+                    + f" | {_fmt_pct(p['bandwidth_utilization'])} | "
+                    + (
+                        _fmt_bytes(p["comms_bytes"])
+                        if p["comms_bytes"] is not None
+                        else "—"
+                    )
+                    + " |"
+                )
+        top = du["top_executables"]
+        if top:
+            out += [
+                "",
+                "Top executables by cost:",
+                "",
+                "| executable | calls | compiles | compile s | "
+                "FLOPs total | bytes total | recompiles |",
+                "|---|---|---|---|---|---|---|",
+            ]
+            for e in top:
+                out.append(
+                    f"| `{e['name']}` | {_fmt(e.get('calls'))} | "
+                    f"{_fmt(e.get('compiles'))} | "
+                    f"{_fmt(e.get('compile_seconds'))} | "
+                    f"{_fmt_or_unknown(e.get('flops_total'))} | "
+                    f"{_fmt_or_unknown(e.get('bytes_total'))} | "
+                    f"{_fmt(e.get('recompiles') or 0)} |"
+                )
+        out.append("")
+        return out
+
+    def _hot_executables_markdown(self, k: int = 10) -> list[str]:
+        hot = self.hot_executables(k)
+        if not hot:
+            return []
+        out = [
+            "## Hot executables",
+            "",
+            "_Sampled timings per executable (telemetry.profile): "
+            "exclusive device seconds are extrapolated from every-Nth "
+            "call timed by CUDA events on its stream (the host clock on the "
+            "CPU), read once complete._",
+            "",
+            "| executable | excl s | dispatches | mean ms | MFU | "
+            "intensity | bound | compile s | recompiles |",
+            "|---|---|---|---|---|---|---|---|---|",
+        ]
+        for e in hot:
+            mean = e.get("mean_dispatch_seconds")
+            name = e["name"] + (" ⚠" if e["timing_suspect"] else "")
+            out.append(
+                f"| `{name}` | "
+                f"{_fmt(e.get('est_exclusive_seconds'))} | "
+                f"{_fmt(e.get('dispatches'))} | "
+                f"{_fmt(None if mean is None else mean * 1e3)} | "
+                f"{_fmt_pct(e.get('mfu'))} | "
+                f"{_fmt_or_unknown(e.get('intensity'))} | "
+                f"{e['bound_class']} | "
+                f"{_fmt(e.get('compile_seconds'))} | "
+                f"{_fmt(e.get('recompiles') or 0)} |"
+            )
+        suspects = [e["name"] for e in hot if e["timing_suspect"]]
+        if suspects:
+            out += [
+                "",
+                "> **Warning — timing suspect**: "
+                + ", ".join(f"`{n}`" for n in suspects)
+                + " measured ABOVE the resolved device peak, which is "
+                "physically impossible — the clock is not seeing the "
+                "device's work. Treat these rates as fake.",
+            ]
+        out.append("")
+        return out
 
     def _accounting_markdown(self) -> list[str]:
         c = self.snapshot.get("counters", {})

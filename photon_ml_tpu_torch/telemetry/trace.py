@@ -55,6 +55,7 @@ __all__ = [
     "active_span_path",
     "configure",
     "reset",
+    "set_annotation_factory",
     "finished_spans",
     "span_seconds",
     "to_chrome_trace",
@@ -123,6 +124,10 @@ class Tracer:
         self.dropped_spans = 0
         self._sink_path: Optional[str] = None
         self._sink_fh = None
+        # optional per-span mirror: a context-manager factory
+        # (torch.profiler.record_function) entered and exited with every
+        # span, so the span tree shows in a profiler capture (cli profile)
+        self._annotation_factory = None
 
     # -- configuration -------------------------------------------------------
 
@@ -170,11 +175,18 @@ class Tracer:
         self._sink_fh = None
         self._sink_path = None
 
+    def set_annotation_factory(self, factory) -> None:
+        """Mirror every span into ``factory(name)`` context managers:
+        ``torch.profiler.record_function`` makes the span tree show in a
+        ``cli profile`` capture beside the kernels. ``None`` disables.
+        An annotation that fails never fails its span."""
+        self._annotation_factory = factory
+
     def reset(self) -> None:
         """Drop the finished spans and the totals, close the sink, clear
         every thread's open-span stack (a span left open on a worker thread
-        must not parent later spans), and restore the default buffer limit
-        and the drop count."""
+        must not parent later spans), and restore the default buffer limit,
+        the drop count and the span annotation mirror."""
         with self._lock:
             self._finished.clear()
             self._totals.clear()
@@ -183,6 +195,7 @@ class Tracer:
                 stack.clear()
             self._buffer_limit = self._default_buffer_limit
             self.dropped_spans = 0
+            self._annotation_factory = None
 
     # -- span lifecycle ------------------------------------------------------
 
@@ -225,9 +238,22 @@ class Tracer:
                  parent_id=None if parent is None else parent.span_id, ts=self.now(),
                  thread=threading.current_thread().name, attrs=dict(attrs))
         stack.append(s)
+        annotation = None
+        factory = self._annotation_factory
+        if factory is not None:
+            try:
+                annotation = factory(name)
+                annotation.__enter__()
+            except Exception:  # noqa: BLE001 — mirroring must never fail
+                annotation = None
         try:
             yield s
         finally:
+            if annotation is not None:
+                try:
+                    annotation.__exit__(None, None, None)
+                except Exception:  # noqa: BLE001
+                    pass
             s.dur = self.now() - s.ts
             # close even if exits arrive out of order (a leaked child span)
             while stack and stack[-1] is not s:
@@ -298,6 +324,7 @@ add_event = TRACER.add_event
 active_span_path = TRACER.active_span_path
 configure = TRACER.configure
 reset = TRACER.reset
+set_annotation_factory = TRACER.set_annotation_factory
 finished_spans = TRACER.finished_spans
 span_seconds = TRACER.span_seconds
 

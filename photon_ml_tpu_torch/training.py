@@ -45,6 +45,10 @@ class SweepEntry:
     result: SolveResult
 
 
+# one λ's solve of the regularization path, as an accounted executable
+_glm_sweep_solve = telemetry.instrumented(dispatch_solve, name="glm_sweep_solve")
+
+
 def train_glm(
     batch,
     task: str,
@@ -102,7 +106,7 @@ def train_glm(
             lam = float(lambdas[i])
             with telemetry.span("lambda_solve", reg_weight=lam):
                 obj = base_obj.with_l2(config.regularization.l2_weight(lam))
-                res = dispatch_solve(
+                res = _glm_sweep_solve(
                     glm_adapter(obj, batch), w_prev, config,
                     config.regularization.l1_weight(lam), constraints, device=dev,
                 )

@@ -18,7 +18,10 @@ end-to-end and index tests, on its 240-row ``avro_dataset``), on the CPU:
   raise what the reference raises for the same argv; the checkpoint key and
   ``--checkpoint-dir``, ``--checkpoint-every`` and ``--resume`` (refused
   until ROADMAP item 10 was ported) write and resume checkpoints, as in the
-  reference (tests/test_checkpoint.py's CLI cases);
+  reference (tests/test_checkpoint.py's CLI cases); the ``xprof`` key and
+  ``--xprof-dir`` train (the CPU refuses the capture window, as the
+  reference's CPU backend does), ``--xprof-arm`` alone and ``profile``
+  without ``--profile-dir`` are usage errors, as in the reference;
 - ``python -m photon_ml_tpu_torch.cli train --device cpu`` runs in a
   subprocess, with a config-loaded event listener, and a SIGTERM in the
   middle of its fit leaves a checkpoint, an ``interrupted`` summary and exit
@@ -258,11 +261,13 @@ REFUSED_KEYS = [
     # the fleet's key is ported: a fleet of one process trains (None)
     pytest.param({"distributed": {"num_processes": 1}}, None, id='{"mesh": true}-12'),
     # the trace, telemetry and report sinks and the heartbeat are ported: the
-    # run trains and writes its file (None); the executable profiler is not
+    # run trains and writes its file (None); so is the executable profiler's
+    # capture window, which the CPU refuses as the reference's CPU backend
+    # does: the run trains without it
     *[pytest.param(extra, None, id=f"{json.dumps(extra)[:30]}-14") for extra in [
         {"trace_out": "t.jsonl"}, {"telemetry_out": "t.jsonl"}, {"report_out": "r.md"},
         {"heartbeat": {"every": 5}}, {"heartbeat": 5}]],
-    pytest.param({"xprof": "x"}, "14d (iii)", id='{"xprof": "x"}-14'),
+    pytest.param({"xprof": "x"}, None, id='{"xprof": "x"}-14'),
 ]
 
 # the sinks whose relative paths the tests below put under tmp_path
@@ -316,8 +321,12 @@ REFUSED_FLAGS = [
     *[pytest.param(flags, "plain", None, id=f"{flags}-14") for flags in [
         ["--trace-out", "t"], ["--telemetry-out", "t"], ["--report-out", "r"],
         ["--heartbeat-every", "5"]]],
-    *[pytest.param(flags, None, "14d (iii)", id=f"{flags}-14") for flags in [
-        ["--xprof-dir", "x"], ["--xprof-arm", "3"]]],
+    # the capture window's flags are ported: --xprof-dir trains (the CPU
+    # refuses the capture, as the reference's CPU backend does), --xprof-arm
+    # alone is the reference's usage error
+    pytest.param(["--xprof-dir", "x"], "plain", None, id="['--xprof-dir', 'x']-14"),
+    pytest.param(["--xprof-arm", "3"], "plain", (SystemExit, "2"),
+                 id="['--xprof-arm', '3']-14"),
 ]
 
 
@@ -337,9 +346,13 @@ def test_train_refuses_unported_flags(avro_dataset, flags, config, refusal, tmp_
         path.write_text(json.dumps(cfg))
     if flags[0] in ("--trace-out", "--telemetry-out", "--report-out"):
         flags = [flags[0], str(tmp_path / flags[1])]
+    if flags[0] == "--xprof-dir":
+        flags = [flags[0], str(tmp_path / flags[1])]
     if refusal is None:  # ported: the run trains
         assert t_train.main(["--config", str(path), "--device", "cpu", *flags]) == 0
-        if flags[0] != "--heartbeat-every" and flags[0] != "--mesh":
+        if flags[0] == "--xprof-dir":
+            assert not os.path.exists(flags[1])  # no capture on the CPU
+        elif flags[0] != "--heartbeat-every" and flags[0] != "--mesh":
             assert os.path.getsize(flags[1]) > 0
         return
     exc, match = ((NotImplementedError, rf"item {re.escape(str(refusal))}\)")
@@ -361,8 +374,9 @@ def test_train_trace_telemetry_and_report_match_the_jax_package(avro_dataset, tm
     ``report_out``, a 0.05 s heartbeat and a checkpoint: the same phase-tree
     paths (the port's own ``re_build:*``/``re_coo_layout`` spans besides),
     the same coordinate table (steps, retries, rollbacks, frozen), the same
-    key-metric names but the compile counters (ROADMAP.md Queue 1 item 14d
-    (iii)), heartbeat lines, a Perfetto file, and ``cli report`` of the
+    key-metric names but the compile counters (on the CPU the port compiles
+    nothing: ROADMAP.md Queue 3 item 5) and the reference's MFU keys,
+    heartbeat lines, a Perfetto file, and ``cli report`` of the
     port's artifacts equal to the report the run wrote."""
     from photon_ml_tpu import telemetry as JT
     from photon_ml_tpu.telemetry.report import RunReport as JRunReport
@@ -518,7 +532,9 @@ def test_sigterm_mid_fit_leaves_a_checkpoint_and_an_interrupted_summary(avro_dat
                                       pytest.param("serve", (SystemExit, "2"), id="serve-14"),
                                       # report is ported: it takes no --config
                                       pytest.param("report", (SystemExit, "2"), id="report-14"),
-                                      pytest.param("profile", "14d (iii)", id="profile-14"),
+                                      # profile is ported: it needs --profile-dir
+                                      pytest.param("profile", (SystemExit, "2"),
+                                                   id="profile-14"),
                                       # the sweep subcommand and its registry flag are
                                       # ported: the missing config is what fails
                                       pytest.param("sweep", (FileNotFoundError, "x.json"),

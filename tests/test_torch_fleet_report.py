@@ -11,11 +11,13 @@ test_torch_multihost.py):
   the straggler, the clock skew from the coordinated saves, the merged
   spans on the anchors, a killed member marked lost, a member with no
   artifact synthesized lost, ``compare`` over the fleet's key metrics;
-- the fields built on the executable accounting (ROADMAP.md Queue 1 item
-  14d (iii)) are the named difference: the member rows' ``mfu``,
-  ``comms_fraction`` and ``hot_exec`` (None in the port), the key metric
-  ``fleet_mfu_spread`` (absent) and ``hot_executables`` (empty), rendered as
-  the reference renders members without profiles;
+- the fields built on the executable accounting are equal too: the member
+  rows' ``mfu``, ``comms_fraction`` and ``hot_exec``, the key metric
+  ``fleet_mfu_spread`` and the merged ``hot_executables`` with their
+  markdown section, but for one named difference: bound classes 1 and 2
+  carry the card's names (compute-bound, low-compute-bound) where the
+  reference names TPU units; members without profiles render "unknown"
+  alike;
 - ``cli report --fleet``: markdown, JSON, ``--compare --fail-on-regress``
   and the exit codes 0, 1, 2 (usage) and 3, equal to the JAX package's.
 
@@ -36,9 +38,19 @@ from photon_ml_tpu.telemetry.fleet_report import discover_member_streams as j_di
 from photon_ml_tpu_torch.cli.report import main as report_main
 from photon_ml_tpu_torch.telemetry.fleet_report import FleetReport, discover_member_streams
 
-#: the named differences: what the executable accounting (14d (iii)) feeds
+#: what the executable accounting feeds into the rows and the key metrics
 XLA_ROW_KEYS = ("mfu", "comms_fraction", "hot_exec")
 XLA_KEY_METRICS = ("fleet_mfu_spread",)
+
+#: the one named difference: bound classes 1 and 2 carry the card's names
+#: (the reference's MXU and VPU are TPU units); the codes are the same
+CARD_BOUND_NAMES = {"MXU-bound": "compute-bound", "VPU-bound": "low-compute-bound"}
+
+
+def _card_names(text: str) -> str:
+    for tpu, card in CARD_BOUND_NAMES.items():
+        text = text.replace(tpu, card)
+    return text
 
 
 def _write_member(directory, proc: int, *, anchor_unix: float, wait_s: float = None,
@@ -89,8 +101,7 @@ def _write_member(directory, proc: int, *, anchor_unix: float, wait_s: float = N
 
 def _docs(directory):
     """Both packages' reports of ``directory`` and their JSON documents
-    (``generated`` checked and dropped), the port's with the named
-    executable-accounting fields checked empty and dropped from both."""
+    (``generated`` checked and dropped)."""
     t, j = FleetReport.load(str(directory)), JFleetReport.load(str(directory))
     docs = []
     for r in (t, j):
@@ -98,48 +109,20 @@ def _docs(directory):
         assert doc.pop("generated")
         docs.append(doc)
     t_doc, j_doc = docs
-    for row in t_doc["members"]:
+    for e in j_doc["hot_executables"]:
+        e["bound_classes"] = sorted(CARD_BOUND_NAMES.get(b, b) for b in e["bound_classes"])
+    for row_t, row_j in zip(t_doc["members"], j_doc["members"]):
         for key in XLA_ROW_KEYS:
-            assert row[key] is None, key
+            assert row_t[key] == row_j[key], key
     for key in XLA_KEY_METRICS:
-        assert key not in t_doc["key_metrics"]
-    assert t_doc["hot_executables"] == []
-    for doc in docs:
-        for row in doc["members"]:
-            for key in XLA_ROW_KEYS:
-                row.pop(key)
-        for key in XLA_KEY_METRICS:
-            doc["key_metrics"].pop(key, None)
-        doc.pop("hot_executables")
+        assert t_doc["key_metrics"].get(key) == j_doc["key_metrics"].get(key)
+    assert t_doc["hot_executables"] == j_doc["hot_executables"]
     return t, j, t_doc, j_doc
-
-
-def _md_without_xla(md):
-    """A fleet markdown without the cells and rows the executable
-    accounting feeds: the members' MFU, comms and hot-exec cells, the
-    ``fleet_mfu_spread`` row and the fleet hot-executable section."""
-    out, skip, prev = [], False, ""
-    for line in md.splitlines():
-        if line.startswith("## "):
-            skip = line == "## Fleet hot executables"
-        elif skip and not line and prev.startswith("|"):
-            skip = False  # the blank line that ends the section's table
-            continue
-        prev = line
-        if skip or line.startswith("| `fleet_mfu_spread` |"):
-            continue
-        cells = line.split(" | ")
-        if len(cells) == 12:  # a row of the members' table
-            del cells[8]
-            del cells[2:4]
-            line = " | ".join(cells)
-        out.append(line)
-    return "\n".join(out)
 
 
 def _same(t, j, t_doc, j_doc):
     assert t_doc == j_doc
-    assert _md_without_xla(t.to_markdown()) == _md_without_xla(j.to_markdown())
+    assert t.to_markdown() == _card_names(j.to_markdown())
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +184,7 @@ def test_fleet_report_rows_straggler_and_roundtrip(tmp_path):
     assert km["fleet_collective_wait_s"] == pytest.approx(3.2)
     assert km["fleet_collective_wait_fraction"] == pytest.approx(3.2 / 20.0, abs=1e-5)
     assert km["fleet_lost_members"] == 0.0
-    assert "fleet_mfu_spread" in j.key_metrics()  # the reference has the XLA records
+    assert km["fleet_mfu_spread"] == pytest.approx(0.1)  # MFU 0.30 and 0.20 over 10 s
     by_proc = {r["process_index"]: r for r in t_doc["members"]}
     assert by_proc[0]["collective_wait_s"] == pytest.approx(3.0)
     assert by_proc[0]["status"] == "ok" and by_proc[1]["hostname"] == "host1"
@@ -309,7 +292,7 @@ def test_cli_report_fleet_usage_errors(tmp_path, capsys):
 
 
 # ---------------------------------------------------------------------------
-# the executable accounting's fields (14d (iii)): rendered as without profiles
+# the executable accounting's fields
 # ---------------------------------------------------------------------------
 
 
@@ -320,10 +303,9 @@ def _profile_gauges(name, excl, dispatches, mfu, bound_code):
 
 
 def test_fleet_report_merged_hot_executables(tmp_path):
-    """With profile gauges in the members' snapshots the reference merges a
-    fleet hot list; the port, without the executable accounting, renders
-    those members as the reference renders members without profiles, and
-    the rest of the report is equal."""
+    """With profile gauges in the members' snapshots both packages merge the
+    same fleet hot list (per-name sums, the best MFU, the bound classes) and
+    give each member its hottest executable."""
     g0 = dict(_profile_gauges("solve", 4.0, 100, 0.30, 1))
     g0.update(_profile_gauges("aux", 1.0, 50, 0.05, 4))
     _write_member(tmp_path, 0, anchor_unix=1000.0, wait_s=1.0, rows_per_sec=100.0,
@@ -332,11 +314,14 @@ def test_fleet_report_merged_hot_executables(tmp_path):
                   extra_gauges=_profile_gauges("solve", 2.0, 100, 0.40, 3))
     t, j, t_doc, j_doc = _docs(tmp_path)
     _same(t, j, t_doc, j_doc)
-    assert [e["name"] for e in j.merged_hot_executables()] == ["solve", "aux"]
-    assert t.merged_hot_executables() == []
-    assert all(r["hot_exec"] is None for r in t.rows())
+    hot = t.merged_hot_executables()
+    assert [e["name"] for e in hot] == ["solve", "aux"]
+    assert hot[0]["est_exclusive_seconds"] == pytest.approx(6.0)
+    assert hot[0]["mfu_max"] == pytest.approx(0.40) and hot[0]["members"] == 2
+    assert hot[0]["bound_classes"] == ["HBM-bound", "compute-bound"]
+    assert [r["hot_exec"] for r in t.rows()] == ["solve", "solve"]
     md = t.to_markdown()
-    assert "## Fleet hot executables" not in md and "unknown" in md
+    assert "## Fleet hot executables" in md and "| `solve` | 6 |" in md
 
 
 def test_fleet_report_members_without_profiles_render_unknown(tmp_path):

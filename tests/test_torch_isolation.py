@@ -134,7 +134,9 @@ def test_source_walk_covers_the_new_subpackages():
                    "serving/registry.py", "serving/server.py", "serving/aio.py",
                    "serving/nearline.py", "cli/serve.py", "incremental/__init__.py",
                    "incremental/warmstart.py", "incremental/delta.py",
-                   "incremental/refit.py", "incremental/publish.py", "cli/refresh.py"):
+                   "incremental/refit.py", "incremental/publish.py", "cli/refresh.py",
+                   "kernels/cost.py", "telemetry/device.py", "telemetry/executables.py",
+                   "telemetry/profile.py", "cli/profile.py", "testing.py"):
         assert module in rel
 
 
@@ -144,7 +146,8 @@ def test_source_walk_covers_the_new_subpackages():
                                      "load_game_model", "block_diagonal", "lane_solve",
                                      "projection", "factored_fit", "streamed_dataset",
                                      "chunk_stream", "coefficient_table",
-                                     "streaming_trainer"])
+                                     "streaming_trainer", "glm_problem", "game_generator",
+                                     "low_rank_generator"])
 def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
     _no_gpu()
     from photon_ml_tpu_torch import convert
@@ -173,6 +176,11 @@ def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
     )
     from photon_ml_tpu_torch.ingest import ChunkStream, read_game_dataset_streamed
     from photon_ml_tpu_torch.optim.factory import OptimizerConfig
+    from photon_ml_tpu_torch.testing import (
+        generate_game_dataset,
+        generate_glm_problem,
+        generate_low_rank_game_dataset,
+    )
 
     coo = _tiny_coo()
     shards = {"g": FeatureShard.from_coo(coo["values"], coo["rows"], coo["cols"], 2)}
@@ -206,6 +214,10 @@ def test_builders_without_device_raise_without_a_gpu(builder, tmp_path):
         "coefficient_table": lambda: ShardedCoefficientTable(4, 2),
         "streaming_trainer": lambda: StreamingRandomEffectTrainer("logistic",
                                                                   OptimizerConfig()),
+        "glm_problem": lambda: generate_glm_problem(n=8, d=2),
+        "game_generator": lambda: generate_game_dataset(n_users=2, rows_per_user=2),
+        "low_rank_generator": lambda: generate_low_rank_game_dataset(n_users=2,
+                                                                     rows_per_user=2, d=3),
         "lane_solve": lambda: lbfgs_solve_lanes(lane_adapter(
             make_objective("logistic"), DenseBatch.from_arrays(
                 np.zeros((1, 2, 2)), np.zeros((1, 2)), device="cpu")), torch.zeros(1, 2)),

@@ -2,8 +2,8 @@
 ``cli report`` (``photon_ml_tpu_torch.telemetry.memory`` / ``.progress`` /
 ``.report``, ``cli/report.py``) against the JAX package's, case for case
 with tests/test_report.py but its JAX-only cases (the ``bench_suite`` gate
-and budget, the executable profiler's hot-executable table and its
-``--hot`` flag, the XLA cost tables):
+and budget; the executable accounting's own cases are in
+test_torch_executables.py and test_torch_profile.py):
 
 - memory: no stats on the CPU (None, never 0), the headroom warning before a
   predicted out-of-memory, per-phase peaks, table and batch estimates over
@@ -13,16 +13,15 @@ and budget, the executable profiler's hot-executable table and its
 - reports: the phase tree, ``compare_metrics``, a report loaded from
   artifacts (key metrics, coordinates, markdown, the JSON baseline), the
   sweep, ingestion and recovery sections, ``cli report`` and its exit codes
-  (0, 1, 2, 3), its ``--fleet`` and ``--requests`` and its refused
-  ``--hot``, an end-to-end fit with sinks and a heartbeat through ``cli
+  (0, 1, 2, 3), its ``--fleet``, ``--requests`` and ``--hot``, an end-to-end fit with sinks and a heartbeat through ``cli
   report --compare --fail-on-regress``;
 - parity: identical artifact files (span JSONL, telemetry JSONL, a
   checkpoint directory) into both packages' ``RunReport.load``: equal
   ``to_json()`` but ``generated``, equal markdown; with request and XLA
-  metrics in the artifacts the requests sections are equal too, and the
-  port leaves out exactly the sections of ROADMAP.md Queue 1 item 14d
-  (iii) (Device utilization, Hot executables, ``mfu``/``exec.*``/
-  ``xla_recompiles`` key metrics) and the rest stays equal;
+  metrics in the artifacts the requests sections, Device utilization, Hot
+  executables and the ``mfu``/``exec.*``/``xla_recompiles`` key metrics are
+  equal too, but for two named lines of text (the port's line on its
+  modelled cost, the timing note under the hot table);
 - telemetry adds no host sync: a fit with a trace sink, a heartbeat and a
   report makes the same host syncs (and kernel launches) per update as the
   same fit without them; ``sweep_glm``'s config spans ride its one fetch.
@@ -152,7 +151,8 @@ def test_heartbeat_beat_contents(fake_hbm, tmp_path):
     assert rec["seq"] == 1
     line2 = hb.beat()
     assert line2["rows_per_s"] == 0.0 and line2["seq"] == 2
-    # the fields of the executable accounting (14d (iii)) never appear
+    # without modelled work, collectives or profiled calls the executable
+    # accounting's fields are left out, as in the reference's line
     assert not {"mfu", "comms_fraction", "hot_exec"} & set(line)
 
 
@@ -670,13 +670,29 @@ def test_cli_report_bad_baseline(tmp_path):
                                         (["--requests"], r"14d \(ii\)"),
                                         (["--hot", "3"], r"14d \(iii\)")])
 def test_cli_report_refuses_the_later_slices_flags(tmp_path, flags, item, capsys):
-    """``--hot`` (14d (iii)) is refused naming its item; ``--fleet`` and
-    ``--requests``, refused until 14d (ii), render."""
+    """``--fleet`` and ``--requests`` (refused until 14d (ii)) and ``--hot``
+    (refused until 14d (iii)) render; ``--hot`` prints the JAX package's
+    table of the same gauges."""
+    from photon_ml_tpu.cli.report import main as j_report_main
     from photon_ml_tpu_torch.cli.report import main as report_main
 
     if item == r"14d \(iii\)":
-        with pytest.raises(NotImplementedError, match=rf"--{flags[0][2:]}.*item {item}\)"):
-            report_main(["--telemetry", str(tmp_path / "m.jsonl"), *flags])
+        tele = tmp_path / "m.jsonl"
+        tele.write_text(json.dumps({"type": "metrics", "snapshot": {"gauges": {
+            "device.peak_flops": 1e12, "device.peak_hbm_bytes_per_sec": 1e11,
+            **{f"profile.exec.{n}.{k}": v for n, excl in (("a", 1.0), ("b", 2.0), ("c", 0.5),
+                                                            ("d", 0.1))
+               for k, v in (("dispatches", 4), ("est_exclusive_seconds", excl),
+                            ("mean_dispatch_seconds", 0.25), ("mfu", 0.02),
+                            ("bound_code", 3))}}}}) + "\n")
+        outs = []
+        for main in (report_main, j_report_main):
+            assert main(["--telemetry", str(tele), *flags]) == 0
+            outs.append(capsys.readouterr().out)
+        assert "## Hot executables" in outs[0] and "## Key metrics" not in outs[0]
+        rows = [line for line in outs[0].splitlines() if line.startswith("| `")]
+        assert [r.split("`")[1] for r in rows] == ["b", "a", "c"]  # top 3 by excl s
+        assert rows == [line for line in outs[1].splitlines() if line.startswith("| `")]
         return
     if flags[0] == "--fleet":
         fleet_dir = tmp_path / flags[1]
@@ -840,23 +856,36 @@ def _without_sections(md, headings):
 
 _LATER_KEYS = ("device_utilization", "hot_executables")
 
+#: the named differences of the device sections' text: the port's line on
+#: its modelled cost, and the timing method under the hot table's heading
+_PORT_ONLY_LINES = ("- FLOPs and bytes are modelled from the kernels' and dense contractions' "
+                    "shapes (kernels/cost.py): a lower bound, the solvers' vector arithmetic "
+                    "is not counted",)
+_TIMING_NOTE_PREFIX = "_Sampled "
+
+
+def _device_sections_text(md, port):
+    lines = [line for line in md.splitlines() if not (port and line in _PORT_ONLY_LINES)]
+    return [line for line in lines if not line.startswith(_TIMING_NOTE_PREFIX)]
+
 
 def test_report_omits_exactly_the_later_slices_sections(tmp_path):
+    """The sections the port once left out (Device utilization, Hot
+    executables, the ``mfu``/``exec.*``/``xla_recompiles`` key metrics)
+    render from the same artifacts as the JAX package's: equal JSON, equal
+    markdown but the named differences of their text."""
     t, j, t_doc, j_doc = _both(tmp_path, later_slices=True)
     assert t_doc["requests"] and t_doc["requests"] == j_doc["requests"]
     assert t_doc["slowest_requests"] and t_doc["slowest_requests"] == j_doc["slowest_requests"]
     for key in _LATER_KEYS:
-        assert j_doc[key], key  # the reference renders them from these artifacts
-        assert t_doc.pop(key) in (None, []), key
-        j_doc.pop(key)
-    t_km, j_km = t_doc.pop("key_metrics"), j_doc.pop("key_metrics")
-    assert set(j_km) - set(t_km) == {"mfu", "xla_recompiles", "exec.solve.mfu"}
-    assert t_km == {k: v for k, v in j_km.items() if k in t_km}
+        assert j_doc[key] and t_doc[key] == j_doc[key], key
+    assert {"mfu", "xla_recompiles", "exec.solve.mfu"} <= set(t_doc["key_metrics"])
     assert t_doc == j_doc
-    j_md = _without_sections(j.to_markdown(), {"## Device utilization", "## Hot executables"})
-    j_md = "\n".join(line for line in j_md.splitlines()
-                     if not line.startswith(("| `mfu` |", "| `xla_recompiles` |", "| `exec.")))
-    assert t.to_markdown().rstrip("\n") == j_md.rstrip("\n")
+    t_md, j_md = t.to_markdown(), j.to_markdown()
+    for section in ("## Device utilization", "## Hot executables"):
+        assert section in t_md, section
+    assert _PORT_ONLY_LINES[0] in t_md
+    assert _device_sections_text(t_md, port=True) == _device_sections_text(j_md, port=False)
 
 
 # -- telemetry adds no host sync ------------------------------------------------

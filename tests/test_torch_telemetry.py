@@ -18,7 +18,9 @@ with tests/test_telemetry.py's trace and sink tests (its lines 28-215), its
   an injected memory-stats provider;
 - ``span_seconds`` totals surviving the buffer's drops;
 - the span tree under contention: more threads than cores, a short switch
-  interval, every span kept and parented within its own thread.
+  interval, every span kept and parented within its own thread;
+- the span annotation mirror (``set_annotation_factory``, ``cli
+  profile``'s ranges): the same enters and exits as the JAX package's.
 
 Tolerances: none; the compared fields are exact.
 """
@@ -447,3 +449,39 @@ def test_env_paths_are_suffixed_per_fleet_member(tmp_path, monkeypatch):
     # outside a fleet, and with torch.distributed not initialized: no identity
     assert identity.fleet_process_index() is None
     assert identity.member_artifact_path("a/m.jsonl") == "a/m.jsonl"
+
+
+def test_span_annotation_factory_mirrors_spans_like_the_jax_package():
+    """``set_annotation_factory`` (``cli profile``'s span mirror): every span
+    enters and exits one annotation, in both packages alike; a failing
+    annotation never fails its span; a reset drops the mirror."""
+
+    def factory(log):
+        class Annotation:
+            def __init__(self, name):
+                self.name = name
+
+            def __enter__(self):
+                log.append(("enter", self.name))
+
+            def __exit__(self, *exc):
+                log.append(("exit", self.name))
+
+        return Annotation
+
+    logs = {"t": [], "j": []}
+    ttrace.set_annotation_factory(factory(logs["t"]))
+    j_telemetry.trace.set_annotation_factory(factory(logs["j"]))
+    for pkg in (telemetry, j_telemetry):
+        with pkg.span("fit"):
+            with pkg.span("inner"):
+                pass
+    j_telemetry.reset()
+    assert logs["t"] == logs["j"] == [("enter", "fit"), ("enter", "inner"),
+                                      ("exit", "inner"), ("exit", "fit")]
+    ttrace.set_annotation_factory(lambda name: 1 / 0)
+    with telemetry.span("kept"):
+        pass
+    assert [s.name for s in telemetry.finished_spans("kept")] == ["kept"]
+    telemetry.reset()
+    assert ttrace.TRACER._annotation_factory is None
